@@ -1,0 +1,47 @@
+"""Dtype helpers for the ``coeff_dtype`` dial (port of the matching
+functions of ``pytorch_wavelets_tpu/models/_base.py``)."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["canon_dtype", "cast_bands", "upcast_bands"]
+
+
+def canon_dtype(coeff_dtype):
+    """Canonicalize a user-supplied ``coeff_dtype`` (a torch dtype, its
+    name such as ``"bfloat16"``, or a numpy dtype) to a torch dtype."""
+    if coeff_dtype is None or isinstance(coeff_dtype, torch.dtype):
+        return coeff_dtype
+    name = (coeff_dtype if isinstance(coeff_dtype, str)
+            else np.dtype(coeff_dtype).name)
+    dtype = getattr(torch, name, None)
+    if not isinstance(dtype, torch.dtype):
+        raise ValueError(f"unknown coeff_dtype {coeff_dtype!r}")
+    return dtype
+
+
+def cast_bands(yh, dtype):
+    """Cast concrete bandpass entries of a finest-first coefficient list
+    to the storage dtype (the ``coeff_dtype`` dial narrows only the
+    bandpass storage; the lowpass keeps the compute dtype)."""
+    return [h if h is None or h.numel() == 0 else h.to(dtype) for h in yh]
+
+
+def upcast_bands(yh, yl=None):
+    """Upcast dial-narrowed bandpass storage at the start of an inverse.
+
+    A *wider* lowpass is the signal that sub-f32 bandpasses are storage,
+    not pipeline, dtype: those entries are upcast to ``yl.dtype``.  A
+    natively narrow pipeline (bf16 lowpass *and* bandpasses) is left
+    untouched.  A missing lowpass falls back to the dial interpretation:
+    upcast to f32."""
+    ref = yl
+    if isinstance(ref, (list, tuple)):  # include_scale lowpass list
+        ref = ref[-1] if len(ref) else None
+    target = ref.dtype if isinstance(ref, torch.Tensor) else torch.float32
+    if target.itemsize < 4:
+        return yh  # natively narrow pipeline — nothing to upcast
+    return [h.to(target) if (h is not None and h.numel()
+                             and h.dtype.itemsize < 4) else h
+            for h in yh]

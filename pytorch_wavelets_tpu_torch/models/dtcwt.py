@@ -1,0 +1,134 @@
+"""DTCWT modules (port of ``pytorch_wavelets_tpu/models/dtcwt.py``;
+reference: pytorch_wavelets/dtcwt/transform2d.py)."""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from pytorch_wavelets_tpu_torch.models._base import (
+    canon_dtype, cast_bands, upcast_bands,
+)
+from pytorch_wavelets_tpu_torch.transforms.dtcwt_xfm import (
+    dtcwt2d, dtcwt_fwd_filters, dtcwt_inv_filters, idtcwt2d,
+)
+
+__all__ = ["DTCWTForward", "DTCWTInverse"]
+
+
+class _TapsModule(nn.Module):
+    """Holds the filter taps as float64 buffers on ``device``.
+
+    The plans are keyed by the taps' host values, kept beside the buffers
+    (reading CUDA buffers on every call would synchronise); loading a
+    state dict refreshes them from the loaded buffers."""
+
+    def __init__(self, filters, device, mesh, batch_chunk):
+        super().__init__()
+        if mesh is not None or batch_chunk is not None:
+            raise NotImplementedError(
+                "mesh= and batch_chunk are not ported yet (ROADMAP.md, "
+                "'Still to port' 8 and 9)")
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{type(self).__name__}: CUDA is not available; pass "
+                f"device='cpu' for the plain PyTorch path")
+        self._filters = dict(filters)
+        for name, taps in self._filters.items():
+            self.register_buffer(name, torch.tensor(taps, dtype=torch.float64,
+                                                    device=device))
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        super()._load_from_state_dict(*args, **kwargs)
+        self._filters = {name: tuple(getattr(self, name).double().cpu()
+                                     .tolist()) for name in self._filters}
+
+    def _check_device(self, *tensors):
+        device = next(iter(self.buffers())).device
+        for t in tensors:
+            if t is not None and t.device != device:
+                raise ValueError(f"{type(self).__name__} is on {device}, "
+                                 f"its input on {t.device}")
+
+
+class DTCWTForward(_TapsModule):
+    """2-D dual-tree complex wavelet forward transform (reference
+    DTCWTForward, dtcwt/transform2d.py:20-147).
+
+    Args:
+        biort: level-1 filter name ('antonini', 'legall', 'near_sym_a',
+            'near_sym_b') or a (h0o, h1o) tuple of arrays.
+        qshift: level>=2 filter name ('qshift_06', 'qshift_a', 'qshift_b',
+            'qshift_c', 'qshift_d') or a (h0a, h0b, h1a, h1b) tuple.
+        J: number of levels.
+        skip_hps: bool or per-level list — skip bandpass computation.
+        include_scale: bool or per-level list — also return lowpasses.
+        o_dim / ri_dim: where orientations and real/imag land.
+        mode: boundary mode for level 1 ('symmetric' forced at J>=2).
+        coeff_dtype: optional storage dtype for the bandpass pyramid
+            (e.g. 'bfloat16'); the transform computes in fp32 and only
+            the returned yh is narrowed.  DTCWTInverse upcasts.
+        device: 'cuda' (default; raises without CUDA) or 'cpu' for the
+            plain PyTorch path.  Inputs must be on this device.
+        mesh, batch_chunk: not ported yet; passing either raises.
+    Call: x (N, C, H, W) -> (yl, yh); yh[j] has shape
+    (N, C, 6, H_j, W_j, 2) for the default dims.  Skipped levels give None.
+    On CUDA the transform runs the hand-written kernels and has no
+    backward yet: an input that requires grad raises.
+    """
+
+    def __init__(self, biort="near_sym_a", qshift="qshift_a", J=3,
+                 skip_hps=False, include_scale=False, o_dim=2, ri_dim=-1,
+                 mode="symmetric", coeff_dtype=None, device="cuda",
+                 mesh=None, batch_chunk=None):
+        if o_dim % 6 == ri_dim % 6:
+            raise ValueError("Orientations and real/imaginary parts must be "
+                             "in different dimensions.")
+        super().__init__(dtcwt_fwd_filters(biort, qshift), device, mesh,
+                         batch_chunk)
+        self.biort = biort if isinstance(biort, str) else "custom"
+        self.qshift = qshift if isinstance(qshift, str) else "custom"
+        self.J = J
+        self.skip_hps = skip_hps
+        self.include_scale = include_scale
+        self.o_dim = o_dim
+        self.ri_dim = ri_dim
+        self.mode = mode
+        self.coeff_dtype = canon_dtype(coeff_dtype)
+
+    def forward(self, x):
+        self._check_device(x)
+        yl, yh = dtcwt2d(x, self._filters, J=self.J, skip_hps=self.skip_hps,
+                         include_scale=self.include_scale, o_dim=self.o_dim,
+                         ri_dim=self.ri_dim, mode=self.mode)
+        if self.coeff_dtype is not None and yh is not None:  # J=0: yh None
+            yh = cast_bands(yh, self.coeff_dtype)
+        return yl, yh
+
+
+class DTCWTInverse(_TapsModule):
+    """2-D DTCWT inverse (reference DTCWTInverse,
+    dtcwt/transform2d.py:150-254).
+
+    Call: (yl, yh) -> x.  None entries (lowpass or any bandpass) are
+    treated as zeros.  ``device``, ``mesh`` and ``batch_chunk`` as for
+    :class:`DTCWTForward`."""
+
+    def __init__(self, biort="near_sym_a", qshift="qshift_a", o_dim=2,
+                 ri_dim=-1, mode="symmetric", device="cuda", mesh=None,
+                 batch_chunk=None):
+        super().__init__(dtcwt_inv_filters(biort, qshift), device, mesh,
+                         batch_chunk)
+        self.biort = biort if isinstance(biort, str) else "custom"
+        self.qshift = qshift if isinstance(qshift, str) else "custom"
+        self.o_dim = o_dim
+        self.ri_dim = ri_dim
+        self.mode = mode
+
+    def forward(self, coeffs):
+        yl, yh = coeffs
+        self._check_device(yl, *(yh or ()))
+        if yh is not None:
+            yh = upcast_bands(yh, yl)
+        return idtcwt2d((yl, yh), self._filters, o_dim=self.o_dim,
+                        ri_dim=self.ri_dim, mode=self.mode)

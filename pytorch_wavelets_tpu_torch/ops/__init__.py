@@ -1,0 +1,23 @@
+"""Operator products and the hand-written CUDA kernels that run them.
+
+``KERNELS`` lists every kernel wrapper; each keeps an integer
+``launches`` count of the times it launched its CUDA kernel (a CPU
+tensor takes the plain PyTorch version and counts nothing).
+"""
+from pytorch_wavelets_tpu_torch.ops.banded import (  # noqa: F401
+    apply_col, apply_row,
+)
+from pytorch_wavelets_tpu_torch.ops.quad import (  # noqa: F401
+    c2q_unpack, q2c_pack,
+)
+
+KERNELS = (apply_row, apply_col, q2c_pack, c2q_unpack)
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {k.__name__: k.launches for k in KERNELS}

@@ -1,0 +1,147 @@
+"""Build and load the hand-written CUDA kernels of ``csrc/``.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface and loaded with ``ctypes``.  The
+build runs at first use, from the package's sources alone, one ``nvcc``
+per source, all started together, into ``build/kernels/`` at the root of
+the checkout.  A library's file
+name carries a hash of its source and flags, so an edited source is
+rebuilt.  Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+from pytorch_wavelets_tpu_torch.ops.precision import require_kernel_precision
+
+__all__ = ["build", "library", "check", "check_inputs", "stream_of",
+           "BUILD_DIR"]
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+          "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# C signatures: every pointer and the stream as c_void_p, sizes as int,
+# strides as int64.  Each launcher returns cudaGetLastError().
+_SIGNATURES = {
+    "banded_apply": {
+        "banded_apply_col": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _L, _L, _L, _L, _I, _P],
+        "banded_apply_row": [_P, _P, _P, _P, _P, _L, _I, _I, _L, _L, _P],
+        "banded_apply_tile_rows": [],
+        "banded_apply_k_align": [],
+    },
+    "q2c_pack": {
+        "q2c_pack": [_P, _P, _L, _I, _I, _I, _I, _I, _L,
+                     _L, _L, _L, _L, _L, _L, _P],
+    },
+    "c2q_unpack": {
+        "c2q_unpack": [_P, _P, _L, _I, _I, _I, _I, _I,
+                       _L, _L, _L, _L, _L, _L, _P],
+    },
+}
+
+_libs: dict = {}
+BUILD_LOG: dict = {}   # name -> {"seconds": s, "log": nvcc's stderr}
+
+
+def _nvcc() -> str:
+    cands = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                          "bin", "nvcc"), shutil.which("nvcc")]
+    for c in cands:
+        if c and os.path.isfile(c):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
+                       "are built from csrc/ at first use")
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha1((_CSRC / f"{name}.cu").read_bytes())
+    h.update(" ".join(_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build() -> dict:
+    """Compile every library that is not built yet, in parallel; raise
+    with nvcc's output if any fails.  Returns :data:`BUILD_LOG`."""
+    todo = [n for n in _SIGNATURES if not _target(n).exists()]
+    if not todo:
+        return BUILD_LOG
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    t0 = time.perf_counter()
+    for n in todo:
+        tmp = _target(n).with_suffix(f".tmp{os.getpid()}")
+        cmd = [nvcc, *_FLAGS, "-o", str(tmp), str(_CSRC / f"{n}.cu")]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+                    tmp)
+    failed = []
+    for n, (proc, tmp) in procs.items():
+        log, _ = proc.communicate()
+        BUILD_LOG[n] = {"seconds": time.perf_counter() - t0, "log": log}
+        if proc.returncode:
+            failed.append(f"--- {n}.cu (nvcc exit {proc.returncode})\n{log}")
+        else:
+            os.replace(tmp, _target(n))
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return BUILD_LOG
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    lib = _libs.get(name)
+    if lib is None:
+        build()
+        lib = ctypes.CDLL(str(_target(name)))
+        for fn, argtypes in _SIGNATURES[name].items():
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+        err = lib.kernel_error_string
+        err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+        _libs[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, kernel: str, rc: int) -> None:
+    """Raise if a launcher returned a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {rc} "
+                           f"({lib.kernel_error_string(rc).decode()})")
+
+
+def check_inputs(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise on what the kernels do not take: a tensor off CUDA or not
+    fp32, a gradient request (no backward kernel yet), or a precision
+    level other than 'highest'."""
+    for t in tensors:
+        if not t.is_cuda:
+            raise ValueError(f"{kernel}: expected a CPU or CUDA tensor, got "
+                             f"one on {t.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{kernel}: the CUDA kernel takes float32, got "
+                            f"{t.dtype}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{kernel}: the CUDA path has no backward yet; gradients are the "
+            f"training slice (ROADMAP.md, 'Still to port' 1, B4). Run under "
+            f"torch.no_grad(), or on the CPU path")
+    require_kernel_precision(kernel)
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """PyTorch's current stream on ``t``'s device, as a pointer value."""
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,137 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA GPU and nvcc, and skips without one (the
+decision is made in a fixture, never at import).  On the GPU:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(``--noconftest``: the repo's conftest configures JAX, which the GPU
+machine need not have; this file imports torch, numpy and the port only.)
+"""
+import numpy as np
+import pytest
+import torch
+
+import pytorch_wavelets_tpu_torch as tt
+from pytorch_wavelets_tpu_torch import ops
+from pytorch_wavelets_tpu_torch.ops import banded, fused_dtcwt, quad
+
+pytestmark = pytest.mark.cuda
+
+# fp32 sums of up to a few hundred products of O(1/sqrt(K)) terms, in
+# another order than cuBLAS's: a few ulps of O(1) values
+KTOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: python -m pytest --noconftest "
+                    "-m cuda tests/test_torch_cuda.py on the GPU")
+    return torch.device("cuda")
+
+
+def _rand(shape, seed=0):
+    return np.random.RandomState(seed).randn(*shape).astype(np.float32)
+
+
+def _banded_op(M, K, seed, band=None):
+    T = _rand((M, K), seed) / np.sqrt(K)
+    if band is not None:   # zero outside a diagonal band: exercises segments
+        i, k = np.indices((M, K))
+        T[np.abs(i * K / M - k) > band] = 0
+    return T
+
+
+@pytest.mark.parametrize("M,K,Wc,N,C,band", [
+    (70, 45, 33, 2, 3, None), (128, 128, 128, 2, 2, None),
+    (256, 128, 100, 1, 3, 9), (1920, 512, 40, 1, 2, 20)])
+@pytest.mark.parametrize("accumulate", [False, True])
+def test_apply_col(dev, M, K, Wc, N, C, band, accumulate):
+    T = _banded_op(M, K, 1, band)
+    wide = torch.from_numpy(_rand((N, C, K, Wc + 7), 2)).to(dev)
+    x = wide[..., 3:3 + Wc]           # a column slice, read in place
+    out = torch.from_numpy(_rand((N, C, M, Wc), 3)).to(dev)
+    op = banded.Operator(T, dev)
+    want = banded.apply_col_plain(x, op, out if accumulate else None)
+    n0 = banded.apply_col.launches
+    got = banded.apply_col(x, op, out.clone() if accumulate else None)
+    torch.testing.assert_close(got, want, **KTOL)
+    assert banded.apply_col.launches == n0 + 1
+
+
+@pytest.mark.parametrize("R,K,Kout,band", [
+    (3 * 70, 45, 33, None), (2 * 128, 128, 448, None),
+    (5 * 37, 512, 1920, 20)])
+def test_apply_row(dev, R, K, Kout, band):
+    T = _banded_op(Kout, K, 4, band)
+    wide = torch.from_numpy(_rand((1, R, 1, K + 9), 5)).to(dev)
+    x = wide[..., 4:4 + K].reshape(1, 1, R, K)   # strided rows
+    op = banded.Operator(T, dev)
+    want = banded.apply_row_plain(x, op)
+    n0 = banded.apply_row.launches
+    got = banded.apply_row(x, op)
+    torch.testing.assert_close(got, want, **KTOL)
+    assert banded.apply_row.launches == n0 + 1
+
+
+@pytest.mark.parametrize("o_dim,ri_dim", [(2, -1), (1, 3), (0, 5), (4, 2)])
+def test_q2c_pack_and_c2q_unpack(dev, o_dim, ri_dim):
+    from pytorch_wavelets_tpu_torch.transforms.dtcwt import get_dimensions5
+    od, rd, _, _ = get_dimensions5(o_dim, ri_dim)
+    N, C, m, k = 2, 3, 5, 7
+    orients = ((2, 3), (1, 4))
+    y = torch.from_numpy(_rand((N, C, 2 * 2 * m, 2 * k), 6)).to(dev)
+    shape = [N, C, m, k]
+    shape.insert(od, 6)
+    shape.insert(rd, 2)
+    h_got = torch.zeros(shape, device=dev)
+    h_want = torch.zeros(shape, device=dev)
+    quad.q2c_pack(y, fused_dtcwt.canonical_bands(h_got, od, rd), orients)
+    quad.q2c_pack_plain(y, fused_dtcwt.canonical_bands(h_want, od, rd),
+                        orients)
+    torch.testing.assert_close(h_got, h_want, rtol=0, atol=0)
+    hc = fused_dtcwt.canonical_bands(
+        torch.from_numpy(_rand(shape, 7)).to(dev), od, rd)
+    torch.testing.assert_close(quad.c2q_unpack(hc, orients),
+                               quad.c2q_unpack_plain(hc, orients),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape,J,kw", [
+    ((2, 3, 63, 70), 3, {}), ((1, 2, 64, 64), 2, dict(o_dim=1, ri_dim=3)),
+    ((2, 1, 128, 96), 2, dict(skip_hps=[True, False], include_scale=True))])
+def test_dtcwt_matches_cpu(dev, shape, J, kw):
+    x = torch.from_numpy(_rand(shape, 8))
+    dims = {k: v for k, v in kw.items() if k in ("o_dim", "ri_dim")}
+    outs = {}
+    ops.reset_launches()
+    for d in ("cpu", dev):
+        yl, yh = tt.DTCWTForward(J=J, device=d, **kw)(x.to(d))
+        low = yl[-1] if isinstance(yl, list) else yl
+        rec = tt.DTCWTInverse(device=d, **dims)((low, yh))
+        outs[str(d)] = [low, *[h for h in yh if h is not None], rec]
+    for a, b in zip(outs["cpu"], outs["cuda"]):
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-5, atol=1e-5)
+    assert all(n > 0 for n in ops.launch_counts().values())
+
+
+def test_perfect_reconstruction(dev):
+    x = torch.from_numpy(_rand((4, 3, 128, 128), 9)).to(dev)
+    rec = tt.DTCWTInverse(device=dev)(tt.DTCWTForward(J=3, device=dev)(x))
+    assert (rec - x).abs().max().item() <= 1e-5
+
+
+def test_cuda_path_refuses(dev):
+    f = tt.DTCWTForward(J=2, device=dev)
+    x = torch.from_numpy(_rand((1, 1, 32, 32), 10)).to(dev)
+    with pytest.raises(NotImplementedError, match="B4"):
+        f(x.clone().requires_grad_())
+    with tt.matmul_precision("high"), pytest.raises(NotImplementedError):
+        f(x)
+    with pytest.raises(TypeError):
+        f(x.double())
+    with pytest.raises(ValueError):
+        f(x.cpu())
+    with torch.no_grad():
+        f(x.clone().requires_grad_())

@@ -1,0 +1,104 @@
+"""The port stands alone: no JAX, no JAX package, and CPU tensors take the
+plain PyTorch versions without launching anything."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import pytorch_wavelets_tpu_torch as tt
+from pytorch_wavelets_tpu_torch import ops
+from pytorch_wavelets_tpu_torch.ops import precision
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "pytorch_wavelets_tpu_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(module: str) -> bool:
+    return (module == "jax" or module.startswith("jax.")
+            or module == "pytorch_wavelets_tpu"
+            or module.startswith("pytorch_wavelets_tpu."))
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{path.name}:{node.lineno} imports {bad}"
+
+
+def test_forbidden_matches_exact_names():
+    assert _forbidden("pytorch_wavelets_tpu.ops")
+    assert not _forbidden("pytorch_wavelets_tpu_torch.ops")
+    assert not _forbidden("jaxlib_free")
+
+
+def test_imports_and_runs_with_jax_blocked():
+    code = (
+        "import sys; sys.modules['jax'] = None\n"
+        "sys.modules['pytorch_wavelets_tpu'] = None\n"
+        "import torch, pytorch_wavelets_tpu_torch as tt\n"
+        "x = torch.randn(1, 1, 16, 16)\n"
+        "y = tt.DTCWTForward(J=2, device='cpu')(x)\n"
+        "r = tt.DTCWTInverse(device='cpu')(y)\n"
+        "assert (r - x).abs().max() < 1e-5\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') for m in "
+        "sys.modules if sys.modules[m] is not None)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=ROOT, timeout=120)
+
+
+def test_cpu_tensors_take_plain_versions():
+    ops.reset_launches()
+    x = torch.from_numpy(np.random.RandomState(0).randn(
+        1, 2, 32, 32).astype(np.float32))
+    f, i = tt.DTCWTForward(J=2, device="cpu"), tt.DTCWTInverse(device="cpu")
+    i(f(x))
+    assert ops.launch_counts() == {"apply_row": 0, "apply_col": 0,
+                                   "q2c_pack": 0, "c2q_unpack": 0}
+
+
+def test_default_device_is_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tt.DTCWTForward()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tt.DTCWTInverse()
+
+
+def test_device_mismatch_raises():
+    f = tt.DTCWTForward(J=1, device="cpu")
+    with pytest.raises(ValueError, match="is on cpu"):
+        f(torch.zeros(1, 1, 8, 8, device="meta"))
+
+
+def test_precision_dial():
+    assert tt.get_matmul_precision() == "highest"
+    with tt.matmul_precision("high"):
+        assert tt.get_matmul_precision() == "high"
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            precision.require_kernel_precision("banded_apply_col")
+        # the CPU path is the plain version, which has no TF32
+        tt.DTCWTForward(J=1, device="cpu")(torch.zeros(1, 1, 8, 8))
+    assert tt.get_matmul_precision() == "highest"
+    with pytest.raises(ValueError):
+        tt.set_matmul_precision("fast")
+    with precision.plain_flags():
+        assert not torch.backends.cuda.matmul.allow_tf32
+        assert not torch.backends.cudnn.allow_tf32
