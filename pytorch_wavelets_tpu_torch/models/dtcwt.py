@@ -73,8 +73,8 @@ class DTCWTForward(_TapsModule):
         mesh, batch_chunk: not ported yet; passing either raises.
     Call: x (N, C, H, W) -> (yl, yh); yh[j] has shape
     (N, C, 6, H_j, W_j, 2) for the default dims.  Skipped levels give None.
-    On CUDA the transform runs the hand-written kernels and has no
-    backward yet: an input that requires grad raises.
+    On CUDA the transform and its backward run the hand-written kernels
+    (ops/fused_dtcwt.py); double backward is not ported.
     """
 
     def __init__(self, biort="near_sym_a", qshift="qshift_a", J=3,

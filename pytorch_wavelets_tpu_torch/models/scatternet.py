@@ -1,0 +1,87 @@
+"""Scattering layer modules (port of ``pytorch_wavelets_tpu/models/
+scatternet.py``; reference: pytorch_wavelets/scatternet/layers.py)."""
+from __future__ import annotations
+
+from pytorch_wavelets_tpu_torch.filters import biort as _biort
+from pytorch_wavelets_tpu_torch.filters import qshift as _qshift
+from pytorch_wavelets_tpu_torch.models.dtcwt import _TapsModule
+from pytorch_wavelets_tpu_torch.ops.dtcwt_fb import prep_taps
+from pytorch_wavelets_tpu_torch.transforms.dtcwt_xfm import _tup
+from pytorch_wavelets_tpu_torch.transforms.scatternet import (
+    scat_layer_j1, scat_layer_j2,
+)
+
+__all__ = ["ScatLayer", "ScatLayerj2"]
+
+_NO_BP = ("biort='near_sym_b_bp' runs the per-level rotated-filter path, "
+          "which is not ported yet (ROADMAP.md, 'Still to port' 2)")
+
+
+class ScatLayer(_TapsModule):
+    """One order of DTCWT scattering at a single scale (reference ScatLayer,
+    scatternet/layers.py:11-79).
+
+    Call: x (N, C, H, W) -> (N, 7C, H/2, W/2) with the first C channels the
+    lowpass and the next 6C the oriented magnitudes (or (N, 9, ...) when
+    combine_colour).  Differentiable: on CUDA the forward and backward run
+    the hand-written kernels (pyramid K1-K3, magnitude K4/K5).
+
+    ``device``: 'cuda' (default; raises without CUDA) or 'cpu' for the
+    plain PyTorch path.  ``mesh`` and ``batch_chunk`` (None = no
+    chunking) are not ported yet; passing either raises.
+    """
+
+    def __init__(self, biort="near_sym_a", mode="symmetric", magbias=1e-2,
+                 combine_colour=False, device="cuda", mesh=None,
+                 batch_chunk=None):
+        if biort == "near_sym_b_bp":
+            raise NotImplementedError(_NO_BP)
+        h0o, _, h1o, _ = _biort(biort)
+        super().__init__({"h0o": _tup(prep_taps(h0o)),
+                          "h1o": _tup(prep_taps(h1o))}, device, mesh,
+                         batch_chunk)
+        self.biort = biort
+        self.mode = mode
+        self.magbias = magbias
+        self.combine_colour = combine_colour
+
+    def forward(self, x):
+        self._check_device(x)
+        return scat_layer_j1(x, self._filters, mode=self.mode,
+                             magbias=self.magbias,
+                             combine_colour=self.combine_colour)
+
+
+class ScatLayerj2(_TapsModule):
+    """Two-scale second-order DTCWT scattering (reference ScatLayerj2,
+    scatternet/layers.py:82-172).
+
+    Call: x (N, C, H, W) -> (N, 49C, H/4, W/4) (or (N, 51, ...) when
+    combine_colour).  ``device``, ``mesh`` and ``batch_chunk`` as for
+    :class:`ScatLayer`.
+    """
+
+    def __init__(self, biort="near_sym_a", qshift="qshift_a",
+                 mode="symmetric", magbias=1e-2, combine_colour=False,
+                 device="cuda", mesh=None, batch_chunk=None):
+        if biort == "near_sym_b_bp":
+            if qshift != "qshift_b_bp":
+                raise ValueError("near_sym_b_bp biort requires "
+                                 "qshift_b_bp qshift filters")
+            raise NotImplementedError(_NO_BP)
+        h0o, _, h1o, _ = _biort(biort)
+        h0a, h0b, _, _, h1a, h1b, _, _ = _qshift(qshift)
+        super().__init__({name: _tup(prep_taps(taps)) for name, taps in (
+            ("h0o", h0o), ("h1o", h1o), ("h0a", h0a), ("h0b", h0b),
+            ("h1a", h1a), ("h1b", h1b))}, device, mesh, batch_chunk)
+        self.biort = biort
+        self.qshift = qshift
+        self.mode = mode
+        self.magbias = magbias
+        self.combine_colour = combine_colour
+
+    def forward(self, x):
+        self._check_device(x)
+        return scat_layer_j2(x, self._filters, mode=self.mode,
+                             magbias=self.magbias,
+                             combine_colour=self.combine_colour)

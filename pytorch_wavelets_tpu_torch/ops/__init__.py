@@ -10,8 +10,12 @@ from pytorch_wavelets_tpu_torch.ops.banded import (  # noqa: F401
 from pytorch_wavelets_tpu_torch.ops.quad import (  # noqa: F401
     c2q_unpack, q2c_pack,
 )
+from pytorch_wavelets_tpu_torch.ops.scat_mag import (  # noqa: F401
+    scat_mag_bwd, scat_mag_fwd,
+)
 
-KERNELS = (apply_row, apply_col, q2c_pack, c2q_unpack)
+KERNELS = (apply_row, apply_col, q2c_pack, c2q_unpack, scat_mag_fwd,
+           scat_mag_bwd)
 
 
 def reset_launches() -> None:

@@ -30,9 +30,11 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 # C signatures: every pointer and the stream as c_void_p, sizes as int,
-# strides as int64.  Each launcher returns cudaGetLastError().
+# strides as int64, scalars as float.  Each launcher returns
+# cudaGetLastError().
 _SIGNATURES = {
     "banded_apply": {
         "banded_apply_col": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -48,6 +50,13 @@ _SIGNATURES = {
     "c2q_unpack": {
         "c2q_unpack": [_P, _P, _L, _I, _I, _I, _I, _I,
                        _L, _L, _L, _L, _L, _L, _P],
+    },
+    "scat_mag": {
+        "scat_mag_fwd": [_P, _P, _L, _I, _I, _I, _I,
+                         _L, _L, _L, _L, _L, _L, _F, _F, _P],
+        "scat_mag_bwd": [_P, _P, _P, _L, _I, _I, _I, _I,
+                         _L, _L, _L, _L, _L, _L,
+                         _L, _L, _L, _L, _L, _F, _P],
     },
 }
 
@@ -125,8 +134,8 @@ def check(lib: ctypes.CDLL, kernel: str, rc: int) -> None:
 
 def check_inputs(kernel: str, *tensors: torch.Tensor) -> None:
     """Raise on what the kernels do not take: a tensor off CUDA or not
-    fp32, a gradient request (no backward kernel yet), or a precision
-    level other than 'highest'."""
+    fp32, a gradient request (a raw kernel call records no autograd
+    graph), or a precision level other than 'highest'."""
     for t in tensors:
         if not t.is_cuda:
             raise ValueError(f"{kernel}: expected a CPU or CUDA tensor, got "
@@ -136,9 +145,11 @@ def check_inputs(kernel: str, *tensors: torch.Tensor) -> None:
                             f"{t.dtype}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{kernel}: the CUDA path has no backward yet; gradients are the "
-            f"training slice (ROADMAP.md, 'Still to port' 1, B4). Run under "
-            f"torch.no_grad(), or on the CPU path")
+            f"{kernel}: a raw kernel call has no backward; differentiate "
+            f"through the autograd entry points (ops/fused_dtcwt.py "
+            f"pyramids, transforms/scatternet.py:smooth_mag, the modules), "
+            f"or call "
+            f"it under torch.no_grad()")
     require_kernel_precision(kernel)
 
 

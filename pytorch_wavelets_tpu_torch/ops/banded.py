@@ -369,12 +369,16 @@ def _lib():
     return _checked_lib
 
 
-def apply_col_plain(x, T, out=None):
+def apply_col_plain(x, T, out=None, accumulate=True):
     """Plain PyTorch version of :func:`apply_col` (dense einsum)."""
     T = _operator(T, x.device).T.to(x.dtype)
     with plain_flags():
         y = torch.einsum("mh,nchw->ncmw", T, x)
-    return y if out is None else out + y
+    if out is None:
+        return y
+    if accumulate:
+        return out + y
+    return out.copy_(y)
 
 
 def apply_row_plain(x, T):
@@ -384,17 +388,22 @@ def apply_row_plain(x, T):
         return torch.einsum("mw,nchw->nchm", T, x)
 
 
-def apply_col(x, T, out=None):
-    """y[n, c, m, w] = sum_h T[m, h] x[n, c, h, w]; with ``out`` the product
-    is added to ``out`` (in place on CUDA) and the sum returned.
+def apply_col(x, T, out=None, accumulate=True):
+    """y[n, c, m, w] = sum_h T[m, h] x[n, c, h, w].
+
+    With ``out`` and ``accumulate`` the product is added to ``out`` (in
+    place on CUDA) and the sum returned; with ``accumulate=False`` it is
+    written into ``out``, which may be any view with unit column stride
+    and uniform row and plane strides (such as a column slice
+    ``dz[..., go:go + gn]`` of a wider tensor), and ``out`` is returned.
 
     CPU tensors take :func:`apply_col_plain`; CUDA tensors launch K1's
     column entry (planes over the grid, any uniform plane stride and row
-    stride, unit column stride).
+    stride, unit column stride, for the input and the output alike).
     """
     op = _operator(T, x.device)
     if x.device.type == "cpu":
-        return apply_col_plain(x, op, out)
+        return apply_col_plain(x, op, out, accumulate)
     _cuda.check_inputs("banded_apply_col", x, *(() if out is None else (out,)))
     N, C, K, Wc = x.shape
     M = op.shape[0]
@@ -407,15 +416,19 @@ def apply_col(x, T, out=None):
     if out is None:
         y = torch.empty((N, C, M, Wc), device=x.device, dtype=torch.float32)
     else:
-        if out.shape != (N, C, M, Wc) or not out.is_contiguous():
-            raise ValueError("banded_apply_col: out must be a contiguous "
-                             f"{(N, C, M, Wc)} tensor")
         y = out
+    sy = _merged_stride((N, C), y.stride()[:2])
+    if (tuple(y.shape) != (N, C, M, Wc) or sy is None
+            or (Wc > 1 and y.stride(3) != 1)):
+        raise ValueError(f"banded_apply_col: out {tuple(y.shape)} with "
+                         f"strides {y.stride()} is not a {(N, C, M, Wc)} "
+                         f"tensor with uniformly strided planes and "
+                         f"contiguous columns")
     lib = _lib()
     _cuda.check(lib, "banded_apply_col", lib.banded_apply_col(
         op.T.data_ptr(), x.data_ptr(), y.data_ptr(), op.seg_ptr.data_ptr(),
-        op.segs.data_ptr(), M, K, Wc, N * C, x.stride(2), sx, Wc, M * Wc,
-        int(out is not None), _cuda.stream_of(x)))
+        op.segs.data_ptr(), M, K, Wc, N * C, x.stride(2), sx, y.stride(2),
+        sy, int(out is not None and accumulate), _cuda.stream_of(x)))
     apply_col.launches += 1
     return y
 

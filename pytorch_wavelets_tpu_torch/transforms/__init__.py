@@ -1,4 +1,8 @@
-"""Functional DTCWT transforms (composed whole-transform path)."""
+"""Functional DTCWT and scattering transforms (composed whole-transform
+path)."""
 from pytorch_wavelets_tpu_torch.transforms.dtcwt_xfm import (  # noqa: F401
     dtcwt2d, idtcwt2d, dtcwt_fwd_filters, dtcwt_inv_filters,
+)
+from pytorch_wavelets_tpu_torch.transforms.scatternet import (  # noqa: F401
+    scat_layer_j1, scat_layer_j2,
 )

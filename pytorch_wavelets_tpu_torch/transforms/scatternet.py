@@ -1,0 +1,205 @@
+"""DTCWT scattering layers (functional), composed path.
+
+Port of the composed part of ``pytorch_wavelets_tpu/transforms/
+scatternet.py`` (reference semantics: pytorch_wavelets/scatternet/
+lowlevel.py and layers.py).  The linear segments of the scattering chain
+(the DTCWT levels and the 2x2 average pool of the last lowpass) run as
+one composed analysis pyramid each (``ops/fused_dtcwt.py``), with the
+pool folded into the final lowpass operators; the pyramids write their
+bands as (N, 6, C, h, w, 2), re/im adjacent, which the magnitude kernels
+(``ops/scat_mag.py``) read.  Gradients are the pyramids' and the
+magnitudes' own backwards, composed by autograd.
+
+Where the JAX package falls back to its per-level path (the
+``near_sym_b_bp`` rotated filters, axes above ``MAX_MATMUL_N``, shapes
+the composed plan rejects), the port raises ``NotImplementedError``:
+ROADMAP.md, "Still to port" 2.  ``avg_pool2`` waits there too: the
+composed path folds the pool into operators.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch.autograd.function import once_differentiable
+
+from pytorch_wavelets_tpu_torch.ops import banded
+from pytorch_wavelets_tpu_torch.ops.fused_dtcwt import (
+    analysis_operators, analysis_pyramid,
+)
+from pytorch_wavelets_tpu_torch.ops.scat_mag import (
+    scat_mag_bwd, scat_mag_fwd,
+)
+from pytorch_wavelets_tpu_torch.transforms.dtcwt import (
+    _budgeted_plan_cache, _fwd_pyramid_plan,
+)
+
+__all__ = ["smooth_mag", "scat_layer_j1", "scat_layer_j2"]
+
+_NO_PLAN = ("no composed scattering plan for {what}; the per-level path "
+            "the JAX package falls back to is not ported yet (ROADMAP.md, "
+            "'Still to port' 2, per-level DTCWT)")
+
+# the bands' layout: orientations on dim 1 of the 5-D view, re/im last
+_O_DIM, _RI_DIM = 1, 5
+
+
+class _SmoothMag(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, bias, combine):
+        ctx.save_for_backward(h)
+        ctx.bias, ctx.combine = bias, combine
+        return scat_mag_fwd(h, bias, combine)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        h, = ctx.saved_tensors
+        return scat_mag_bwd(h, g.to(h.dtype), ctx.bias, ctx.combine), None, \
+            None
+
+
+def smooth_mag(h, bias, combine=False):
+    """Differentiable smooth magnitude sqrt(re^2 + im^2 + bias^2) - bias of
+    (N, 6, C, h, w, 2) bands (re^2 + im^2 summed over C with ``combine``):
+    K4 forward, K5 backward (the ratios are recomputed, not saved)."""
+    return _SmoothMag.apply(h, float(bias), bool(combine))
+
+
+def _pool_matrix(n):
+    P = np.zeros((n // 2, n), dtype=np.float64)
+    P[np.arange(n // 2), 2 * np.arange(n // 2)] = 0.5
+    P[np.arange(n // 2), 2 * np.arange(n // 2) + 1] = 0.5
+    return P
+
+
+def _pad_even(x):
+    if x.shape[2] % 2 != 0:
+        x = torch.cat([x, x[:, :, -1:]], dim=2)
+    if x.shape[3] % 2 != 0:
+        x = torch.cat([x, x[:, :, :, -1:]], dim=3)
+    return x
+
+
+def _pad_mod8(x):
+    """Pad H and W up to a multiple of 8 by edge replication, split
+    before/after like reference ScatLayerj2 (scatternet/layers.py:137-149)."""
+    r, c = x.shape[2:]
+    rem = r % 8
+    if rem != 0:
+        before, after = (8 - rem) // 2, (9 - rem) // 2
+        x = torch.cat([x[:, :, :before], x, x[:, :, -after:]], dim=2)
+    rem = c % 8
+    if rem != 0:
+        before, after = (8 - rem) // 2, (9 - rem) // 2
+        x = torch.cat([x[:, :, :, :before], x, x[:, :, :, -after:]], dim=3)
+    return x
+
+
+def _pool_compose(spec):
+    R, C = spec
+    if R.shape[0] % 2 or C.shape[0] % 2:
+        return None
+    Rp = np.ascontiguousarray(banded.compose(_pool_matrix(R.shape[0]), R))
+    Cp = np.ascontiguousarray(banded.compose(_pool_matrix(C.shape[0]), C))
+    return (Rp, Cp)
+
+
+@_budgeted_plan_cache   # entries hold O(n^2) composed operator matrices
+def _scat_front_plan(h0o, h1o, h0a, h1a, h0b, h1b, J, mode, H, W):
+    """J-level analysis plan with the final lowpass pooled 2x2."""
+    skips = (False,) * J
+    incs = (False,) * J
+    plan = _fwd_pyramid_plan(h0o, h1o, h0a, h1a, h0b, h1b, J, skips, incs,
+                             mode, H, W)
+    if plan is None:
+        return None
+    last = dict(plan[-1])
+    pooled = _pool_compose(last["ll"])
+    if pooled is None:
+        return None
+    last["ll"] = pooled
+    return plan[:-1] + (last,)
+
+
+@_budgeted_plan_cache   # entries hold the plan's operators on one device
+def _scat_front_operators(*args):
+    *plan_args, device = args
+    plan = _scat_front_plan(*plan_args)
+    return None if plan is None else analysis_operators(plan, device)
+
+
+def _scat_levels(x, filters, mode, J):
+    """J DTCWT analysis levels of a contiguous x through the composed
+    pyramid, the final lowpass average-pooled.  Returns (pooled_ll,
+    [bands per level]), bands as (N, 6, C, h, w, 2)."""
+    H, W = x.shape[2], x.shape[3]
+    ops = None
+    if max(H, W) <= banded.MAX_MATMUL_N:
+        ops = _scat_front_operators(
+            filters["h0o"], filters["h1o"],
+            filters.get("h0a", filters["h0o"]),
+            filters.get("h1a", filters["h1o"]),
+            filters.get("h0b", filters["h0o"]),
+            filters.get("h1b", filters["h1o"]), J, mode, H, W, x.device)
+    if ops is None:
+        raise NotImplementedError(_NO_PLAN.format(
+            what=f"a {(H, W)} input at J={J} with these filters"))
+    lls, yh = analysis_pyramid(x, ops, _O_DIM, _RI_DIM)
+    return lls[-1], yh
+
+
+def scat_layer_j1(x, filters, mode="symmetric", magbias=1e-2,
+                  combine_colour=False):
+    """One order of scattering at one scale (reference ScatLayer,
+    scatternet/layers.py:11-79).
+
+    filters: dict with correlation-order tap tuples 'h0o', 'h1o'.
+    Returns (N, 7C, H/2, W/2), or (N, 9, H/2, W/2) when combine_colour.
+    """
+    x = _pad_even(x)
+    if combine_colour and x.shape[1] != 3:
+        raise ValueError("combine_colour requires 3 input channels")
+    ll, (h,) = _scat_levels(x.contiguous(), filters, mode, 1)
+    if combine_colour:
+        r = smooth_mag(h, magbias, combine=True)   # (N, 6, 1, H/2, W/2)
+        return torch.cat([ll, r[:, :, 0]], dim=1)
+    r = smooth_mag(h, magbias)                      # (N, 6, C, H/2, W/2)
+    Z = torch.cat([ll[:, None], r], dim=1)          # (N, 7, C, H/2, W/2)
+    b, _, c, hh, ww = Z.shape
+    return Z.reshape(b, 7 * c, hh, ww)
+
+
+def scat_layer_j2(x, filters, mode="symmetric", magbias=1e-2,
+                  combine_colour=False):
+    """Second-order two-scale scattering (reference ScatLayerj2,
+    scatternet/layers.py:82-172), as three composed pyramid calls.
+
+    filters: dict with tap tuples 'h0o','h1o','h0a','h0b','h1a','h1b'.
+    Returns (N, 49C, H/4, W/4) (or (N, 51, H/4, W/4) combined-colour).
+    """
+    x = _pad_mod8(x)
+    if combine_colour and x.shape[1] != 3:
+        raise ValueError("combine_colour requires 3 input channels")
+    s0, (h1, h2) = _scat_levels(x.contiguous(), filters, mode, 2)
+
+    if combine_colour:
+        s1_j1 = smooth_mag(h1, magbias, combine=True)   # (N,6,1,H/2,W/2)
+        s1_j2 = smooth_mag(h2, magbias, combine=True)   # (N,6,1,H/4,W/4)
+        u1_ll, (h3,) = _scat_levels(s1_j1[:, :, 0], filters, mode, 1)
+        s2_j1 = smooth_mag(h3, magbias)                 # (N,6,6,H/4,W/4)
+        q = s2_j1.shape
+        s2_j1 = s2_j1.reshape(q[0], 36, q[3], q[4])
+        return torch.cat([s0, u1_ll, s1_j2[:, :, 0], s2_j1], dim=1)
+
+    s1_j1 = smooth_mag(h1, magbias)                     # (N,6,C,H/2,W/2)
+    s1_j2 = smooth_mag(h2, magbias)                     # (N,6,C,H/4,W/4)
+    p = s1_j1.shape
+    u1 = s1_j1.reshape(p[0], 6 * p[2], p[3], p[4])
+    u1_ll, (h3,) = _scat_levels(u1, filters, mode, 1)   # pooled
+    s2_j1 = smooth_mag(h3, magbias)                     # (N,6,6C,H/4,W/4)
+    q = s2_j1.shape
+    s2_j1 = s2_j1.reshape(q[0], 36, q[2] // 6, q[3], q[4])
+    s1_j1 = u1_ll.reshape(p[0], 6, p[2], p[3] // 2, p[4] // 2)
+    Z = torch.cat([s0[:, None], s1_j1, s1_j2, s2_j1], dim=1)
+    b, _, c, hh, ww = Z.shape
+    return Z.reshape(b, 49 * c, hh, ww)

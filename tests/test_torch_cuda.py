@@ -14,9 +14,11 @@ import torch
 
 import pytorch_wavelets_tpu_torch as tt
 from pytorch_wavelets_tpu_torch import ops
-from pytorch_wavelets_tpu_torch.ops import banded, fused_dtcwt, quad
+from pytorch_wavelets_tpu_torch.ops import banded, fused_dtcwt, quad, scat_mag
 
 pytestmark = pytest.mark.cuda
+
+PYRAMID_KERNELS = ("apply_row", "apply_col", "q2c_pack", "c2q_unpack")
 
 # fp32 sums of up to a few hundred products of O(1/sqrt(K)) terms, in
 # another order than cuBLAS's: a few ulps of O(1) values
@@ -56,6 +58,26 @@ def test_apply_col(dev, M, K, Wc, N, C, band, accumulate):
     want = banded.apply_col_plain(x, op, out if accumulate else None)
     n0 = banded.apply_col.launches
     got = banded.apply_col(x, op, out.clone() if accumulate else None)
+    torch.testing.assert_close(got, want, **KTOL)
+    assert banded.apply_col.launches == n0 + 1
+
+
+@pytest.mark.parametrize("accumulate", [False, True])
+def test_apply_col_strided_out(dev, accumulate):
+    """The output is a column slice of a wider tensor (the forward's
+    backward writes its blocks of dz side by side)."""
+    M, K, Wc, N, C = 96, 80, 40, 2, 3
+    T = _banded_op(M, K, 11, 12)
+    x = torch.from_numpy(_rand((N, C, K, Wc), 12)).to(dev)
+    wide = torch.from_numpy(_rand((N, C, M, Wc + 30), 13)).to(dev)
+    op = banded.Operator(T, dev)
+    want = wide.clone()
+    want[..., 10:10 + Wc] = banded.apply_col_plain(
+        x, op, wide[..., 10:10 + Wc] if accumulate else None)
+    got = wide.clone()
+    n0 = banded.apply_col.launches
+    out = banded.apply_col(x, op, got[..., 10:10 + Wc], accumulate)
+    assert out.data_ptr() == got[..., 10:10 + Wc].data_ptr()
     torch.testing.assert_close(got, want, **KTOL)
     assert banded.apply_col.launches == n0 + 1
 
@@ -113,7 +135,8 @@ def test_dtcwt_matches_cpu(dev, shape, J, kw):
         outs[str(d)] = [low, *[h for h in yh if h is not None], rec]
     for a, b in zip(outs["cpu"], outs["cuda"]):
         torch.testing.assert_close(b.cpu(), a, rtol=1e-5, atol=1e-5)
-    assert all(n > 0 for n in ops.launch_counts().values())
+    counts = ops.launch_counts()
+    assert all(counts[k] > 0 for k in PYRAMID_KERNELS)
 
 
 def test_perfect_reconstruction(dev):
@@ -123,10 +146,14 @@ def test_perfect_reconstruction(dev):
 
 
 def test_cuda_path_refuses(dev):
+    """A raw kernel call that would need a gradient, the 'high' precision
+    level, float64 and a CPU input to a CUDA module raise; the modules
+    themselves differentiate (see the gradient tests)."""
     f = tt.DTCWTForward(J=2, device=dev)
     x = torch.from_numpy(_rand((1, 1, 32, 32), 10)).to(dev)
-    with pytest.raises(NotImplementedError, match="B4"):
-        f(x.clone().requires_grad_())
+    op = banded.Operator(np.eye(32, dtype=np.float32), dev)
+    with pytest.raises(NotImplementedError, match="raw kernel call"):
+        banded.apply_col(x.clone().requires_grad_(), op)
     with tt.matmul_precision("high"), pytest.raises(NotImplementedError):
         f(x)
     with pytest.raises(TypeError):
@@ -134,4 +161,75 @@ def test_cuda_path_refuses(dev):
     with pytest.raises(ValueError):
         f(x.cpu())
     with torch.no_grad():
-        f(x.clone().requires_grad_())
+        banded.apply_col(x.clone().requires_grad_(), op)
+
+
+MAG_TOL = dict(rtol=3e-7, atol=1e-7)   # IEEE-rounded ops in the same order
+
+
+@pytest.mark.parametrize("combine", [False, True])
+@pytest.mark.parametrize("bias", [1e-2, 0.0])
+def test_scat_mag(dev, combine, bias):
+    """K4/K5 against their plain versions, on bands read through strides
+    (a re/im-last slice of a wider tensor) and a strided cotangent."""
+    wide = torch.from_numpy(_rand((2, 6, 3, 9, 11, 3), 14)).to(dev)
+    h = wide[..., 1:10, :2]           # (2, 6, 3, 9, 9, 2), strided
+    h[0, 0, 0, 0] = 0                 # zeros: NaN gradient at bias 0
+    cout = 1 if combine else 3
+    g = torch.from_numpy(_rand((2, 6, cout, 9, 18), 15)).to(dev)[..., ::2]
+    n0 = (scat_mag.scat_mag_fwd.launches, scat_mag.scat_mag_bwd.launches)
+    torch.testing.assert_close(scat_mag.scat_mag_fwd(h, bias, combine),
+                               scat_mag.scat_mag_fwd_plain(h, bias, combine),
+                               **MAG_TOL)
+    torch.testing.assert_close(scat_mag.scat_mag_bwd(h, g, bias, combine),
+                               scat_mag.scat_mag_bwd_plain(h, g, bias,
+                                                           combine),
+                               equal_nan=bias == 0.0, **MAG_TOL)
+    assert (scat_mag.scat_mag_fwd.launches,
+            scat_mag.scat_mag_bwd.launches) == (n0[0] + 1, n0[1] + 1)
+
+
+def _grads(module_of, shape, dev, seed):
+    """Output and input gradient of sum(out * G) on the CPU and on ``dev``
+    (the module's own outputs flattened)."""
+    x = torch.from_numpy(_rand(shape, seed))
+    res = {}
+    for d in ("cpu", dev):
+        xt = x.to(d).detach().requires_grad_()
+        out = module_of(d)(xt)
+        outs = [t for t in (out if isinstance(out, (list, tuple)) else
+                            [out]) for t in (t if isinstance(t, list)
+                                             else [t]) if t is not None]
+        loss = sum((o * torch.from_numpy(_rand(o.shape, seed + 1 + k))
+                    .to(d)).sum() for k, o in enumerate(outs))
+        loss.backward()
+        res[str(d)] = [o.detach().cpu() for o in outs] + [xt.grad.cpu()]
+    return res["cpu"], res["cuda"]
+
+
+@pytest.mark.parametrize("kw", [dict(J=2), dict(J=3, o_dim=1, ri_dim=3,
+                                                skip_hps=[False, True,
+                                                          False])])
+def test_dtcwt_gradients_match_cpu(dev, kw):
+    ops.reset_launches()
+    dims = {k: v for k, v in kw.items() if k in ("o_dim", "ri_dim")}
+
+    def round_trip(d):
+        f = tt.DTCWTForward(device=d, **kw)
+        i = tt.DTCWTInverse(device=d, **dims)
+        return lambda x: [*f(x), i(f(x))]
+    cpu, gpu = _grads(round_trip, (2, 3, 63, 70), dev, 16)
+    for a, b in zip(cpu, gpu):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=2e-5)
+    counts = ops.launch_counts()
+    assert all(counts[k] > 0 for k in PYRAMID_KERNELS)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(combine_colour=True)])
+def test_scatlayerj2_gradients_match_cpu(dev, kw):
+    ops.reset_launches()
+    cpu, gpu = _grads(lambda d: tt.ScatLayerj2(device=d, **kw),
+                      (2, 3, 64, 64), dev, 17)
+    for a, b in zip(cpu, gpu):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=2e-5)
+    assert all(n > 0 for n in ops.launch_counts().values())

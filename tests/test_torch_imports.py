@@ -70,8 +70,11 @@ def test_cpu_tensors_take_plain_versions():
         1, 2, 32, 32).astype(np.float32))
     f, i = tt.DTCWTForward(J=2, device="cpu"), tt.DTCWTInverse(device="cpu")
     i(f(x))
-    assert ops.launch_counts() == {"apply_row": 0, "apply_col": 0,
-                                   "q2c_pack": 0, "c2q_unpack": 0}
+    tt.ScatLayerj2(device="cpu")(torch.cat([x, x[:, :1]], dim=1))
+    assert ops.launch_counts() == {k.__name__: 0 for k in ops.KERNELS}
+    assert set(ops.launch_counts()) == {
+        "apply_row", "apply_col", "q2c_pack", "c2q_unpack", "scat_mag_fwd",
+        "scat_mag_bwd"}
 
 
 def test_default_device_is_cuda(monkeypatch):

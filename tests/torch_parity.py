@@ -1,5 +1,5 @@
 """Shared helpers of the port's module parity tests
-(tests/test_torch_dtcwt*.py): one input through the JAX package and the
+(tests/test_torch_*.py): one input through the JAX package and the
 port, compared at the JAX suite's own tolerances (tests/test_dtcwt.py)."""
 import numpy as np
 import pytest
@@ -21,6 +21,15 @@ def force_jax_matmul():
     """The JAX package's operator path: the path the port carries."""
     jbanded.set_operator_matmul(True)
     yield
+    jbanded.set_operator_matmul(None)
+
+
+@pytest.fixture(params=["matmul", "conv"])
+def jax_path(request):
+    """The JAX package's operator path (the port's counterpart), then its
+    conv path (its CPU default)."""
+    jbanded.set_operator_matmul(True if request.param == "matmul" else None)
+    yield request.param
     jbanded.set_operator_matmul(None)
 
 
