@@ -31,16 +31,31 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    first 8 images; forward / backward ms, Mpix/s and peak memory, beside
    the reference's GTX1080 figures.  Then scat_j2_colour: the same for
    combine_colour=True at 16x3x256x256, checked on its first 4 images.
-7. per kernel: every kernel call of one run of each path, recorded and
+7. dwt_main: DWTForward(J=3, db4, symmetric) then DWTInverse on
+   32x10x512x512 fp32 (benchmarks/run.py:8's --dwt workload, the
+   reference's DWT graph setting), checked on its first 4 images against
+   the CPU plain run and for perfect reconstruction; Mpix/s as the caller
+   waits, device time, busy share, launches per role (K6 analysis, K7
+   synthesis), peak memory.  dwt_train: the same modules with the
+   gradient of sum(rec * G0) + sum(yl * G1) + sum(yh_j * G2+j) w.r.t. x
+   (the reference-semantics backwards: K7, then K6), x.grad checked on the
+   first 4 images, and the adjoint identity of both Functions in 'zero'
+   mode on the card (the only mode where the reference's backward is the
+   true adjoint).  dwt1d: DWT1DForward(J=5, db4, symmetric) + inverse +
+   gradient on 16x8x65536, checked the same way.  Then K6/K7 at edge
+   cases (odd sizes, db38 at periodization's single-fold sizes, strided
+   views as inputs) against their plain versions.
+8. per kernel: every kernel call of one run of each path, recorded and
    replayed on the same tensors against its plain PyTorch version (with
    the tolerance stated), timed (device time) beside the plain version
    and one PyTorch library call where one computes the same function,
    with the least time the card could take for the call (bound: bytes
    over HBM rate or FLOPs over the fp32 rate, whichever is larger),
    summed per kernel and per role (forward pyramid, its adjoint B4, the
-   inverse's adjoint, the magnitudes).
-8. profile: device time by kernel of the main path and of one ScatLayerj2
-   training step (torch.profiler).
+   inverse's adjoint, the magnitudes; the DWT's analysis, synthesis and
+   their backwards).
+9. profile: device time by kernel of the main path, of one ScatLayerj2
+   training step and of one DWT training step (torch.profiler).
 
 Each path's peak_mem_bytes (torch.cuda.max_memory_allocated over its
 timed calls) includes mem_held_before_bytes: what was allocated when its
@@ -56,6 +71,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 # NVIDIA H100 SXM data sheet, dense, at the full 700 W power limit
@@ -83,6 +99,19 @@ SCAT_CHECK_N, COLOUR_CHECK_N = 8, 4
 # eighth of the work, so more of both to steady its host-clock times
 SCAT_TIMING, COLOUR_TIMING = (3, 5), (10, 15)
 PYRAMID_KERNELS = ("apply_row", "apply_col", "q2c_pack", "c2q_unpack")
+# the DWT paths: benchmarks/run.py:8 (--dwt --wave db4 -j 3 --size 512
+# --batch 32, its defaults --ch 10 and --mode symmetric), and a 1-D run
+DWT_SHAPE, DWT_J = (32, 10, 512, 512), 3
+DWT1D_SHAPE, DWT1D_J = (16, 8, 65536), 5
+DWT_WAVE, DWT_MODE = "db4", "symmetric"
+DWT_CHECK_N = 4                       # images checked against the CPU run
+DWT_KERNELS = ("afb1d_corr", "sfb1d_conv")
+DWT_TOL = K1_TOL                      # K6/K7: fp32 sums in another order
+# the role of a K6/K7 call: (kernel, inside the backward) -> role
+DWT_ROLES = {("afb1d_corr", False): "analysis",
+             ("sfb1d_conv", False): "synthesis",
+             ("sfb1d_conv", True): "analysis's backward",
+             ("afb1d_corr", True): "synthesis's backward"}
 
 SOURCES = {
     "apply_row": ("banded_apply_row", "banded_apply.cu",
@@ -97,6 +126,10 @@ SOURCES = {
                      "pytorch_wavelets_tpu/transforms/scatternet.py:25"),
     "scat_mag_bwd": ("scat_mag_bwd", "scat_mag.cu",
                      "pytorch_wavelets_tpu/transforms/scatternet.py:25"),
+    "afb1d_corr": ("dwt_afb", "dwt_afb.cu",
+                   "pytorch_wavelets_tpu/ops/afb_sfb.py:125"),
+    "sfb1d_conv": ("dwt_sfb", "dwt_sfb.cu",
+                   "pytorch_wavelets_tpu/ops/afb_sfb.py:262"),
 }
 BANDED_REPLACES = "pytorch_wavelets_tpu/ops/banded.py:410"
 # the pyramid functions whose kernel calls make up each role, and the JAX
@@ -261,12 +294,131 @@ class Tracer:
             setattr(module, name, fn)
 
 
-def replay(call, banded, quad, mag):
+class DwtRecorder:
+    """For one run: swaps the K6/K7 wrappers (``afb1d_corr``,
+    ``sfb1d_conv``) where the DWT Functions and the 2-D compositions call
+    them for recording ones, which keep each call's inputs for replay and
+    tag it with its role; the caller sets ``backward`` around the
+    gradient."""
+
+    def __init__(self, afb, dwt):
+        self.modules = (afb, dwt)
+        self.calls = []
+        self.backward = False
+        self.saved = []
+
+    def __enter__(self):
+        afb = self.modules[0]
+        orig_a, orig_s = afb.afb1d_corr, afb.sfb1d_conv
+
+        def afb1d_corr(x, h0, h1, mode, axis, out_len=None):
+            self.calls.append(("afb1d_corr",
+                               DWT_ROLES[("afb1d_corr", self.backward)],
+                               (x, h0, h1, mode, axis % 4, out_len)))
+            return orig_a(x, h0, h1, mode, axis, out_len)
+
+        def sfb1d_conv(lo, hi, g0, g1, mode, axis, out_len=None):
+            self.calls.append(("sfb1d_conv",
+                               DWT_ROLES[("sfb1d_conv", self.backward)],
+                               (lo, hi, g0, g1, mode, axis % 4, out_len)))
+            return orig_s(lo, hi, g0, g1, mode, axis, out_len)
+
+        for module in self.modules:
+            for name, fn in (("afb1d_corr", afb1d_corr),
+                             ("sfb1d_conv", sfb1d_conv)):
+                self.saved.append((module, name, getattr(module, name)))
+                setattr(module, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in reversed(self.saved):
+            setattr(module, name, fn)
+
+
+def dwt_call_parts(call, afb, pad):
+    """One recorded K6/K7 call: (got, want, run, plain, lib, ops, bytes).
+    ``lib`` is cuDNN on the same work where one call does it: for K6
+    ``F.conv2d`` of the padded input (padded here, not timed) with the
+    two taps stacked, stride 2 along the axis; for K7 ``F.conv_transpose2d``
+    of (lo, hi) as two channels (stacked here), stride 2, outside
+    'periodization' (whose wrap-add no single call does); else None."""
+    import torch.nn.functional as F
+    name, _, args = call
+    if name == "afb1d_corr":
+        x, h0, h1, mode, axis, out_len = args
+        got = afb.afb1d_corr(x, h0, h1, mode, axis, out_len)
+
+        def plain():
+            y = afb.afb1d_corr_plain(x, h0, h1, mode, axis)
+            return y if out_len is None else y.narrow(axis + 1, 0, out_len)
+        run = lambda: afb.afb1d_corr(x, h0, h1, mode, axis,   # noqa: E731
+                                     out_len)
+        L, n = len(h0), x.shape[axis]
+        _, front, ne, pmode, shift, fold = afb.afb_plan(n, L, mode)
+        lib = None
+        if shift == 0 and fold == 0:
+            q = 2 * (got.shape[axis + 1] - 1) + L
+            idx = pad.pad_index(ne, front, max(q - front - ne, 0), pmode)[:q]
+            xp = torch.index_select(x, axis, torch.as_tensor(
+                np.clip(idx, 0, n - 1), device=x.device))
+            if (idx < 0).any():
+                shape = [1] * 4
+                shape[axis] = q
+                xp = xp * torch.as_tensor(idx >= 0, device=x.device,
+                                          dtype=x.dtype).view(shape)
+            N, C = x.shape[:2]
+            xp = xp.reshape(N * C, 1, *xp.shape[2:]).contiguous()
+            w = torch.tensor(np.stack([h0, h1]), dtype=torch.float32,
+                             device=x.device)
+            w = w.view(2, 1, 1, L) if axis == 3 else w.view(2, 1, L, 1)
+            stride = (1, 2) if axis == 3 else (2, 1)
+            lib = lambda: F.conv2d(xp, w, stride=stride)      # noqa: E731
+        ops = 2.0 * L * got.numel()
+        nbytes = 4.0 * (x.numel() + got.numel())
+    else:
+        lo, hi, g0, g1, mode, axis, out_len = args
+        got = afb.sfb1d_conv(lo, hi, g0, g1, mode, axis, out_len)
+
+        def plain():
+            y = afb.sfb1d_conv_plain(lo, hi, g0, g1, mode, axis)
+            return y if out_len is None else y.narrow(axis, 0, out_len)
+        run = lambda: afb.sfb1d_conv(lo, hi, g0, g1, mode,   # noqa: E731
+                                     axis, out_len)
+        L = len(g0)
+        lib = None
+        if mode not in ("per", "periodization") and L >= 2:
+            N, C, H, W = lo.shape
+            xin = torch.stack([lo, hi], dim=2).reshape(N * C, 2, H, W)
+            w = torch.tensor(np.stack([g0, g1]), dtype=torch.float32,
+                             device=lo.device)
+            w = w.view(2, 1, 1, L) if axis == 3 else w.view(2, 1, L, 1)
+            stride, padding = (((1, 2), (0, L - 2)) if axis == 3
+                               else ((2, 1), (L - 2, 0)))
+            lib = lambda: F.conv_transpose2d(                 # noqa: E731
+                xin, w, stride=stride, padding=padding)
+        ops = 2.0 * L * got.numel()
+        nbytes = 4.0 * (lo.numel() + hi.numel() + got.numel())
+    want = plain()
+    if lib is not None:   # the yardstick computes the same function
+        ax = axis + 1 if name == "afb1d_corr" else axis
+        ref = lib().reshape(*want.shape[:ax], -1, *want.shape[ax + 1:])
+        require(torch.allclose(ref.narrow(ax, 0, want.shape[ax]), want,
+                               **DWT_TOL),
+                f"{name}: the library yardstick differs from the plain "
+                f"version")
+    return got, want, run, plain, lib, ops, nbytes
+
+
+def replay(call, banded, quad, mag, afb, pad):
     """Check one recorded call against its plain version and time it.
     Returns (err, ms, plain_ms, library_ms, bound_ms, op_t, byte_t)."""
     name, _, args = call
     lib = None
-    if name == "apply_row":
+    if name in DWT_KERNELS:
+        got, want, run, plain, lib, ops, nbytes = dwt_call_parts(call, afb,
+                                                                 pad)
+        tol = DWT_TOL
+    elif name == "apply_row":
         x, T = args
         Td = T.T
         N, C, H, K = x.shape
@@ -366,7 +518,7 @@ def replay(call, banded, quad, mag):
             byte_t)
 
 
-def kernel_rows(groups, banded, quad, mag):
+def kernel_rows(groups, banded, quad, mag, afb, pad):
     """One row per group (name, replaces, launches, calls): the replays of
     its calls summed; ``per_call`` lists [input shape (by operator
     shape), ms, plain_ms, library_ms, bound_ms] for each call."""
@@ -376,7 +528,7 @@ def kernel_rows(groups, banded, quad, mag):
                  byte=0.0, haslib=True, per_call=[])
         for call in calls:
             err, ms, plain_ms, lib_ms, bound, op_t, byte_t = replay(
-                call, banded, quad, mag)
+                call, banded, quad, mag, afb, pad)
             a["err"] = max(a["err"], err)
             a["ms"] += ms
             a["plain"] += plain_ms
@@ -388,6 +540,8 @@ def kernel_rows(groups, banded, quad, mag):
             shape = "x".join(map(str, call[2][0].shape))
             if call[0].startswith("apply"):
                 shape += " by " + "x".join(map(str, call[2][1].shape))
+            elif call[0] in DWT_KERNELS:
+                shape += f" axis {call[2][-2]}"
             a["per_call"].append([shape, ms, plain_ms, lib_ms, bound])
         kernel = calls[0][0]
         rows.append({
@@ -398,6 +552,7 @@ def kernel_rows(groups, banded, quad, mag):
             "max_abs_err": a["err"],
             "tolerance": ("exact" if kernel in ("q2c_pack", "c2q_unpack")
                           else MAG_TOL if kernel.startswith("scat_mag")
+                          else DWT_TOL if kernel in DWT_KERNELS
                           else K1_TOL),
             "ms": a["ms"], "plain_ms": a["plain"],
             "bound_ms": a["bound"],
@@ -666,6 +821,217 @@ def scat_step(tt, ops, fused, scat, shape, check_n, phase, timing, **kw):
     return fields, tr.by_role, rec_tr.calls
 
 
+def dwt_adjoint(tt, x_cpu, J, one_d):
+    """The dot-product test of both DWT Functions on the card in 'zero'
+    mode, where the reference's backward is the true adjoint (in the
+    other modes it ignores the boundary fold).  Returns (forward,
+    inverse) relative errors."""
+    fcls, icls = ((tt.DWT1DForward, tt.DWT1DInverse) if one_d
+                  else (tt.DWTForward, tt.DWTInverse))
+    f = fcls(J=J, wave=DWT_WAVE, mode="zero", device="cuda")
+    i = icls(wave=DWT_WAVE, mode="zero", device="cuda")
+    x = x_cpu.cuda().requires_grad_()
+    yl, yh = f(x)
+    outs = [yl, *yh]
+    gs = [torch.randn(o.shape, generator=torch.Generator().manual_seed(
+        50 + k)).cuda() for k, o in enumerate(outs)]
+    gx = torch.autograd.grad(outs, x, gs)[0]
+    adj_f = adjoint_error(outs, gs, [x], [gx])
+    leaves = [o.detach().requires_grad_() for o in outs]
+    rec = i((leaves[0], leaves[1:]))
+    g = torch.randn(rec.shape, generator=torch.Generator().manual_seed(
+        60)).cuda()
+    grads = torch.autograd.grad(rec, leaves, g)
+    return adj_f, adjoint_error([rec], [g], leaves, grads)
+
+
+def dwt_path(tt, ops, afb, dwt, shape, J, one_d, phase):
+    """A DWT path (2-D, or 1-D with ``one_d``): forward + inverse, counted,
+    checked against the CPU plain run on the first DWT_CHECK_N items and
+    for perfect reconstruction, timed; then the training step (the
+    gradient of sum(rec * G0) + sum(yl * G1) + sum(yh_j * G2+j) w.r.t. x
+    for fixed random G), counted, x.grad checked, timed, and one step
+    recorded; the adjoint identity in 'zero' mode.  Returns (fields of
+    the forward + inverse, fields of the training step, launches per
+    role, recorded calls, the step)."""
+    fcls, icls = ((tt.DWT1DForward, tt.DWT1DInverse) if one_d
+                  else (tt.DWTForward, tt.DWTInverse))
+    kw = dict(wave=DWT_WAVE, mode=DWT_MODE)
+    n = DWT_CHECK_N
+    x_cpu = torch.randn(shape, generator=torch.Generator().manual_seed(0))
+    t0 = time.perf_counter()
+    fc, ic = fcls(J=J, device="cpu", **kw), icls(device="cpu", **kw)
+    xc = x_cpu[:n].clone().requires_grad_()
+    yl, yh = fc(xc)
+    outs = [ic((yl, yh)), yl, *yh]
+    ref = [o.detach() for o in outs]
+    cts_cpu = [torch.randn((shape[0], *o.shape[1:]), generator=torch
+                           .Generator().manual_seed(1 + k))
+               for k, o in enumerate(outs)]
+    ref_grad = torch.autograd.grad(outs, xc, [c[:n] for c in cts_cpu])[0]
+    cpu_s = time.perf_counter() - t0
+    del yl, yh, outs
+
+    f, i = fcls(J=J, device="cuda", **kw), icls(device="cuda", **kw)
+    x = x_cpu.cuda()
+    cts = [c.cuda() for c in cts_cpu]
+    mpix = x.numel() / 1e6
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ops.reset_launches()
+        yl, yh = f(x)
+        fwd_counts = ops.launch_counts()
+        rec = i((yl, yh))
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        first_s = time.perf_counter() - t0
+        inv_counts = {k: counts[k] - fwd_counts[k] for k in counts}
+        require(fwd_counts["afb1d_corr"] > 0 and inv_counts["sfb1d_conv"] > 0,
+                f"{phase}: a kernel of the path never launched: forward "
+                f"{fwd_counts}, inverse {inv_counts}")
+        outs = [yl, *yh]
+        require(all(bool(torch.isfinite(o).all()) for o in outs + [rec]),
+                f"{phase}: non-finite output")
+        require(tuple(rec.shape) == shape and all(
+            tuple(a.shape[1:]) == tuple(b.shape[1:])
+            for a, b in zip([rec, *outs], ref)), f"{phase}: wrong shapes")
+        fwd_err = max(max_err(a[:n].cpu(), b) for a, b in zip(outs, ref[1:]))
+        inv_err = max_err(rec[:n].cpu(), ref[0])
+        pr_err = max_err(rec, x)
+        require(fwd_err <= FWD_ATOL and inv_err <= INV_ATOL,
+                f"{phase}: GPU differs from the CPU plain run: forward "
+                f"{fwd_err}, inverse {inv_err}")
+        require(pr_err <= PR_TOL, f"{phase}: reconstruction error {pr_err}")
+        del yl, yh, rec, outs
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        both_ms = timed_ms(lambda: i(f(x)), reps=5, batches=10,
+                           device_only=False)
+        peak = torch.cuda.max_memory_allocated()
+        both_dev_ms = timed_ms(lambda: i(f(x)), reps=5, batches=5)
+        fwd_ms = timed_ms(lambda: f(x), reps=5, batches=10,
+                          device_only=False)
+        coeffs = f(x)
+        inv_ms = timed_ms(lambda: i(coeffs), reps=5, batches=10,
+                          device_only=False)
+        del coeffs
+    fields = dict(
+        shape=list(shape), J=J, wave=DWT_WAVE, mode=DWT_MODE,
+        launches={"forward": fwd_counts, "inverse": inv_counts},
+        checked_images=n,
+        max_abs_err_vs_cpu={"forward": fwd_err, "inverse": inv_err},
+        tolerance={"forward": FWD_ATOL, "inverse": INV_ATOL},
+        reconstruction_err=pr_err, reconstruction_tol=PR_TOL,
+        first_call_s=first_s, fwd_inv_ms=both_ms, fwd_ms=fwd_ms,
+        inv_ms=inv_ms, mpix_per_s=mpix / (both_ms / 1e3),
+        fwd_inv_device_ms=both_dev_ms,
+        device_busy_share=both_dev_ms / both_ms,
+        peak_mem_bytes=peak, mem_held_before_bytes=held,
+        cpu_reference_s=cpu_s)
+
+    x.requires_grad_()
+
+    def step():
+        yl, yh = f(x)
+        outs = [i((yl, yh)), yl, *yh]
+        return torch.autograd.grad(outs, x, cts)[0]
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    yl, yh = f(x)
+    outs = [i((yl, yh)), yl, *yh]
+    tf_counts = ops.launch_counts()
+    grad = torch.autograd.grad(outs, x, cts)[0]
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    tb_counts = {k: counts[k] - tf_counts[k] for k in counts}
+    require(all(tf_counts[k] > 0 and tb_counts[k] > 0 for k in DWT_KERNELS),
+            f"{phase} training: a kernel of the path never launched: "
+            f"forward {tf_counts}, backward {tb_counts}")
+    require(bool(torch.isfinite(grad).all()) and tuple(grad.shape) == shape,
+            f"{phase} training: x.grad is not finite or has the wrong shape")
+    grad_err = max_err(grad[:n].cpu(), ref_grad)
+    require(grad_err <= GRAD_ATOL, f"{phase} training: x.grad differs from "
+            f"the CPU plain run by {grad_err}")
+    del yl, yh, outs, grad
+    adj_f, adj_i = dwt_adjoint(tt, x_cpu[:n], J, one_d)
+    require(adj_f <= ADJOINT_TOL and adj_i <= ADJOINT_TOL,
+            f"{phase}: adjoint identity ('zero' mode) off by {adj_f} "
+            f"(forward), {adj_i} (inverse)")
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = timed_ms(step, reps=5, batches=10, device_only=False)
+    tpeak = torch.cuda.max_memory_allocated()
+    step_dev_ms = timed_ms(step, reps=5, batches=5)
+    with DwtRecorder(afb, dwt) as r:
+        yl, yh = f(x)
+        outs = [i((yl, yh)), yl, *yh]
+        r.backward = True
+        torch.autograd.grad(outs, x, cts)
+        torch.cuda.synchronize()
+    del yl, yh, outs
+    by_role = {"analysis": tf_counts["afb1d_corr"],
+               "synthesis": tf_counts["sfb1d_conv"],
+               "synthesis's backward": tb_counts["afb1d_corr"],
+               "analysis's backward": tb_counts["sfb1d_conv"]}
+    tfields = dict(
+        shape=list(shape), J=J, wave=DWT_WAVE, mode=DWT_MODE,
+        launches={"forward": tf_counts, "backward": tb_counts},
+        launches_by_role=by_role, checked_images=n,
+        max_abs_err_grad_vs_cpu=grad_err, tolerance=GRAD_ATOL,
+        adjoint_rel_err_zero_mode={"forward": adj_f, "inverse": adj_i},
+        adjoint_tol=ADJOINT_TOL,
+        fwd_bwd_ms=step_ms, fwd_bwd_device_ms=step_dev_ms,
+        device_busy_share=step_dev_ms / step_ms,
+        mpix_per_s=mpix / (step_ms / 1e3),
+        peak_mem_bytes=tpeak, mem_held_before_bytes=held)
+    return fields, tfields, by_role, r.calls, step
+
+
+def dwt_edge_cases(afb, pad):
+    """K6/K7 against their plain versions where the main paths do not
+    reach: every mode along both axes, odd sizes, db38 (76 taps) at
+    periodization's single-fold sizes, strided views as inputs, cropped
+    outputs.  Returns (calls checked, max error)."""
+    gen = torch.Generator().manual_seed(70)
+    calls = []
+    for L, n in ((8, 33), (8, 6), (76, 20), (76, 7)):
+        taps = torch.randn((4, L), generator=gen, dtype=torch.float64)
+        h0, h1, g0, g1 = (t.numpy() / np.sqrt(L) for t in taps)
+        for mode in ("zero", "symmetric", "reflect", "periodic",
+                     "periodization"):
+            for axis in (2, 3):
+                shape = [2, 3, 9, 11]
+                shape[axis] = n
+                wide = torch.randn((shape[0], shape[1], 4, *shape[2:]),
+                                   generator=gen).cuda()
+                x = wide[:, :, 2]
+                m = afb.afb_plan(n, L, mode)[0]
+                calls.append(("afb1d_corr", "edge",
+                              (x, h0, h1, mode, axis, None)))
+                calls.append(("afb1d_corr", "edge",
+                              (x, h0, h1, mode, axis, max(m - 1, 1))))
+                shape[axis] = m
+                stack = torch.randn((shape[0], shape[1], 3, *shape[2:]),
+                                    generator=gen).cuda()
+                lo, hi = stack[:, :, 2], stack[:, :, 0]
+                calls.append(("sfb1d_conv", "edge",
+                              (lo, hi, g0, g1, mode, axis, None)))
+                calls.append(("sfb1d_conv", "edge",
+                              (lo, hi, g0, g1, mode, axis, n)))
+    err = 0.0
+    for call in calls:
+        got, want = dwt_call_parts(call, afb, pad)[:2]
+        require(torch.allclose(got, want, **DWT_TOL),
+                f"{call[0]} edge case {tuple(call[2][0].shape)} "
+                f"{call[2][-3:]} disagrees with its plain version by "
+                f"{max_err(got, want)}")
+        err = max(err, max_err(got, want))
+    torch.cuda.synchronize()
+    return len(calls), err
+
+
 def profile(step, iters):
     """Device time by kernel over a window of ``iters`` steps
     (torch.profiler; its own host overhead inflates the window's wall
@@ -703,9 +1069,9 @@ def main():
     import pytorch_wavelets_tpu_torch as tt
     from pytorch_wavelets_tpu_torch import ops
     from pytorch_wavelets_tpu_torch.ops import (
-        _cuda, banded, fused_dtcwt, quad, scat_mag,
+        _cuda, afb_sfb, banded, fused_dtcwt, pad, quad, scat_mag,
     )
-    from pytorch_wavelets_tpu_torch.transforms import scatternet
+    from pytorch_wavelets_tpu_torch.transforms import dwt, scatternet
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -729,7 +1095,7 @@ def main():
             for n, v in log.items()}
     emit("build", seconds=time.perf_counter() - t0, ptxas=regs)
 
-    kern = (banded, quad, scat_mag)
+    kern = (banded, quad, scat_mag, afb_sfb, pad)
     counts, calls, fields = drive(tt, ops, fused_dtcwt, scatternet,
                                   MAIN_SHAPE, 2, "main")
     emit("main_path", **fields)
@@ -748,6 +1114,16 @@ def main():
         tt, ops, fused_dtcwt, scatternet, COLOUR_SHAPE, COLOUR_CHECK_N,
         "scat_j2_colour", COLOUR_TIMING, combine_colour=True)
     emit("scat_j2_colour", **cfields)
+    dfields, dtfields, d_roles, dcalls, dstep = dwt_path(
+        tt, ops, afb_sfb, dwt, DWT_SHAPE, DWT_J, False, "dwt_main")
+    emit("dwt_main", **dfields)
+    emit("dwt_train", **dtfields)
+    ofields, otfields, o_roles, ocalls, _ = dwt_path(
+        tt, ops, afb_sfb, dwt, DWT1D_SHAPE, DWT1D_J, True, "dwt1d")
+    emit("dwt1d", **ofields, training=otfields)
+    n_edge, edge_err = dwt_edge_cases(afb_sfb, pad)
+    emit("dwt_edge_cases", calls=n_edge, max_abs_err=edge_err,
+         tolerance=DWT_TOL)
 
     groups = [(SOURCES[k][0], SOURCES[k][2], counts[k],
                [c for c in calls if c[0] == k])
@@ -765,11 +1141,27 @@ def main():
     groups += role_groups(ccalls, c_roles, [
         "forward pyramid", MAG_ROLE, "forward pyramid's adjoint (B4)"],
         f"ScatLayerj2 combine_colour {shape_str(COLOUR_SHAPE)}")
+    for dc, roles, label, line in (
+            (dcalls, d_roles, f"DWT J={DWT_J} {shape_str(DWT_SHAPE)}",
+             (109, 143)),
+            (ocalls, o_roles, f"DWT1D J={DWT1D_J} {shape_str(DWT1D_SHAPE)}",
+             (176, 198))):
+        for role in ("analysis", "synthesis", "analysis's backward",
+                     "synthesis's backward"):
+            mine = [c for c in dc if c[1] == role]
+            kernel = mine[0][0]
+            replaces = {"analysis's backward": line[0],
+                        "synthesis's backward": line[1]}.get(role)
+            groups.append((
+                f"{SOURCES[kernel][0]} ({label}: {role})",
+                SOURCES[kernel][2] if replaces is None else
+                f"pytorch_wavelets_tpu/transforms/dwt.py:{replaces}",
+                roles[role], mine))
     with torch.no_grad():
         rows = kernel_rows(groups, *kern)
     for row in rows:
         emit("kernel", **row)
-    del calls, bcalls, tcalls, scalls, ccalls
+    del calls, bcalls, tcalls, scalls, ccalls, dcalls, ocalls
 
     fwd = tt.DTCWTForward(J=2, device="cuda")
     inv = tt.DTCWTInverse(device="cuda")
@@ -785,6 +1177,8 @@ def main():
                     generator=torch.Generator().manual_seed(1)).cuda()
     emit("profile", path="scat_j2 forward + backward",
          **profile(lambda: torch.autograd.grad(m(xs), xs, G), 3))
+    del m, xs, G
+    emit("profile", path="dwt_train", **profile(dstep, 3))
 
     print(json.dumps({"kernels": [{k: v for k, v in r.items()
                                    if k != "per_call"} for r in rows]}))

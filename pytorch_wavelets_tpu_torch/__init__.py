@@ -1,27 +1,38 @@
 """pytorch_wavelets_tpu_torch — the PyTorch/CUDA port of pytorch_wavelets_tpu.
 
 A second package beside the JAX one (which stays the reference).  It
-ports the DTCWT's composed whole-transform path and the scattering layers
-on it: ``DTCWTForward`` / ``DTCWTInverse`` and ``ScatLayer`` /
-``ScatLayerj2``, forward and backward, run on an NVIDIA Hopper GPU through
-hand-written CUDA kernels (``csrc/``), or on the CPU through their plain
-PyTorch versions with ``device="cpu"``.  Imports neither JAX nor the JAX
-package.
+ports the DWT (``DWTForward`` / ``DWTInverse`` / ``DWT1DForward`` /
+``DWT1DInverse``), the DTCWT's composed whole-transform path
+(``DTCWTForward`` / ``DTCWTInverse``) and the scattering layers on it
+(``ScatLayer`` / ``ScatLayerj2``), forward and backward, run on an NVIDIA
+Hopper GPU through hand-written CUDA kernels (``csrc/``), or on the CPU
+through their plain PyTorch versions with ``device="cpu"``.  Imports
+neither JAX nor the JAX package.
 """
 from pytorch_wavelets_tpu_torch._version import __version__  # noqa: F401
 from pytorch_wavelets_tpu_torch.ops.precision import (  # noqa: F401
     set_matmul_precision, get_matmul_precision, matmul_precision,
 )
 from pytorch_wavelets_tpu_torch.models import (  # noqa: F401
+    DWTForward, DWTInverse, DWT1DForward, DWT1DInverse,
     DTCWTForward, DTCWTInverse, ScatLayer, ScatLayerj2,
 )
 
+# Aliases matching the reference (reference __init__.py:27-36)
+DWT = DWTForward
+IDWT = DWTInverse
+DWT2D = DWT
+IDWT2D = IDWT
+DWT1D = DWT1DForward
+IDWT1D = DWT1DInverse
 DTCWT = DTCWTForward
 IDTCWT = DTCWTInverse
 
 __all__ = [
-    "DTCWTForward", "DTCWTInverse", "DTCWT", "IDTCWT", "ScatLayer",
-    "ScatLayerj2",
+    "DWTForward", "DWTInverse", "DWT1DForward", "DWT1DInverse",
+    "DTCWTForward", "DTCWTInverse", "ScatLayer", "ScatLayerj2",
+    "DWT", "IDWT", "DWT2D", "IDWT2D", "DWT1D", "IDWT1D",
+    "DTCWT", "IDTCWT",
     "set_matmul_precision", "get_matmul_precision", "matmul_precision",
     "__version__",
 ]

@@ -7,15 +7,17 @@ dict or as the (name, taps) pairs of a module's ``_filters``): those of
 ``dtcwt_fwd_filters()`` / ``dtcwt_inv_filters()`` and of ``ScatLayer`` /
 ``ScatLayerj2``, into the buffers of :class:`DTCWTForward` /
 :class:`DTCWTInverse` / :class:`ScatLayer` / :class:`ScatLayerj2`, a
-state dict for ``load_state_dict``.  It takes plain numbers and imports
-nothing of the JAX package.
+state dict for ``load_state_dict``.  :func:`dwt_filters_from_jax` does
+the same for the DWT modules, whose ``_filters`` is a tuple of
+pywt-ordered taps.  Both take plain numbers and import nothing of the JAX
+package.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["filters_from_jax"]
+__all__ = ["filters_from_jax", "dwt_filters_from_jax"]
 
 # DTCWTForward and ScatLayerj2 hold the same names; ScatLayer the first two
 _FWD = ("h0o", "h1o", "h0a", "h0b", "h1a", "h1b")
@@ -33,3 +35,26 @@ def filters_from_jax(d) -> dict:
                          f"got {sorted(d)}")
     return {k: torch.as_tensor(np.asarray(d[k], dtype=np.float64).ravel())
             for k in names}
+
+
+_DWT_NAMES = {(4, False): ("h0_col", "h1_col", "h0_row", "h1_row"),
+              (4, True): ("g0_col", "g1_col", "g0_row", "g1_row"),
+              (2, False): ("h0", "h1"),
+              (2, True): ("g0", "g1")}
+
+
+def dwt_filters_from_jax(filters, synthesis=False) -> dict:
+    """A JAX DWT module's ``_filters`` -> the port's filter buffers
+    (float64, 1-D), a state dict for ``load_state_dict``.
+
+    ``filters`` is the 4-tuple of :class:`DWTForward` / :class:`DWTInverse`
+    or the 2-tuple of :class:`DWT1DForward` / :class:`DWT1DInverse`, of
+    pywt-ordered dec taps, or rec taps with ``synthesis`` (the inverse
+    modules')."""
+    filters = tuple(filters)
+    names = _DWT_NAMES.get((len(filters), bool(synthesis)))
+    if names is None:
+        raise ValueError(f"expected a 2- or 4-tuple of tap vectors, got "
+                         f"{len(filters)}")
+    return {k: torch.as_tensor(np.asarray(f, dtype=np.float64).ravel())
+            for k, f in zip(names, filters)}

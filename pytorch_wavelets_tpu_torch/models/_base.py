@@ -1,9 +1,11 @@
-"""Dtype helpers for the ``coeff_dtype`` dial (port of the matching
-functions of ``pytorch_wavelets_tpu/models/_base.py``)."""
+"""The modules' common base, and the dtype helpers of the ``coeff_dtype``
+dial (port of the matching functions of
+``pytorch_wavelets_tpu/models/_base.py``)."""
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 __all__ = ["canon_dtype", "cast_bands", "upcast_bands"]
 
@@ -45,3 +47,39 @@ def upcast_bands(yh, yl=None):
     return [h.to(target) if (h is not None and h.numel()
                              and h.dtype.itemsize < 4) else h
             for h in yh]
+
+
+class _TapsModule(nn.Module):
+    """Holds the filter taps as float64 buffers on ``device``.
+
+    The plans are keyed by the taps' host values, kept beside the buffers
+    (reading CUDA buffers on every call would synchronise); loading a
+    state dict refreshes them from the loaded buffers."""
+
+    def __init__(self, filters, device, mesh, batch_chunk):
+        super().__init__()
+        if mesh is not None or batch_chunk is not None:
+            raise NotImplementedError(
+                "mesh= and batch_chunk are not ported yet (ROADMAP.md, "
+                "'Still to port' 8 and 9)")
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{type(self).__name__}: CUDA is not available; pass "
+                f"device='cpu' for the plain PyTorch path")
+        self._filters = dict(filters)
+        for name, taps in self._filters.items():
+            self.register_buffer(name, torch.tensor(taps, dtype=torch.float64,
+                                                    device=device))
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        super()._load_from_state_dict(*args, **kwargs)
+        self._filters = {name: tuple(getattr(self, name).double().cpu()
+                                     .tolist()) for name in self._filters}
+
+    def _check_device(self, *tensors):
+        device = next(iter(self.buffers())).device
+        for t in tensors:
+            if t is not None and t.device != device:
+                raise ValueError(f"{type(self).__name__} is on {device}, "
+                                 f"its input on {t.device}")

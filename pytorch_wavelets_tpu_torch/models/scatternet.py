@@ -4,7 +4,7 @@ from __future__ import annotations
 
 from pytorch_wavelets_tpu_torch.filters import biort as _biort
 from pytorch_wavelets_tpu_torch.filters import qshift as _qshift
-from pytorch_wavelets_tpu_torch.models.dtcwt import _TapsModule
+from pytorch_wavelets_tpu_torch.models._base import _TapsModule
 from pytorch_wavelets_tpu_torch.ops.dtcwt_fb import prep_taps
 from pytorch_wavelets_tpu_torch.transforms.dtcwt_xfm import _tup
 from pytorch_wavelets_tpu_torch.transforms.scatternet import (

@@ -4,6 +4,9 @@
 ``launches`` count of the times it launched its CUDA kernel (a CPU
 tensor takes the plain PyTorch version and counts nothing).
 """
+from pytorch_wavelets_tpu_torch.ops.afb_sfb import (  # noqa: F401
+    afb1d_corr, sfb1d_conv,
+)
 from pytorch_wavelets_tpu_torch.ops.banded import (  # noqa: F401
     apply_col, apply_row,
 )
@@ -15,7 +18,7 @@ from pytorch_wavelets_tpu_torch.ops.scat_mag import (  # noqa: F401
 )
 
 KERNELS = (apply_row, apply_col, q2c_pack, c2q_unpack, scat_mag_fwd,
-           scat_mag_bwd)
+           scat_mag_bwd, afb1d_corr, sfb1d_conv)
 
 
 def reset_launches() -> None:

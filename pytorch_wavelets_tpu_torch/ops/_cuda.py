@@ -5,8 +5,8 @@ shared library with a plain C interface and loaded with ``ctypes``.  The
 build runs at first use, from the package's sources alone, one ``nvcc``
 per source, all started together, into ``build/kernels/`` at the root of
 the checkout.  A library's file
-name carries a hash of its source and flags, so an edited source is
-rebuilt.  Nothing here runs at import time.
+name carries a hash of its source, the shared headers (``csrc/*.cuh``)
+and the flags, so an edited source is rebuilt.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -58,6 +58,15 @@ _SIGNATURES = {
                          _L, _L, _L, _L, _L, _L,
                          _L, _L, _L, _L, _L, _F, _P],
     },
+    "dwt_afb": {
+        "dwt_afb": [_P, _P, _P, _P, _I, _L, _I, _I, _I, _L, _L, _L, _L,
+                    _I, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _P],
+    },
+    "dwt_sfb": {
+        "dwt_sfb": [_P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _L, _L, _L, _L,
+                    _L, _L, _L, _L, _I, _I, _I, _I, _I, _I,
+                    _L, _L, _L, _L, _P],
+    },
 }
 
 _libs: dict = {}
@@ -76,6 +85,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha1((_CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):   # the shared headers
+        h.update(header.read_bytes())
     h.update(" ".join(_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

@@ -1,17 +1,45 @@
-"""The shared pieces of ``pytorch_wavelets_tpu/ops/afb_sfb.py`` that the
-DTCWT slice needs: tap flattening, the per-plane 1-D correlation, and the
-small-probe length for operator extension.  The DWT filterbanks
-themselves are a later slice (ROADMAP.md, "Still to port" 4).
+"""1-D analysis/synthesis filterbanks over one spatial axis of NCHW tensors
+(port of ``pytorch_wavelets_tpu/ops/afb_sfb.py``), and kernels K6 and K7.
 
-Filter-tap convention: taps are in application (correlation) order.
+The DWT's split and merge along one axis:
+
+- :func:`afb1d_corr` (K6, ``csrc/dwt_afb.cu``): the stride-2 correlation
+  of every (N, C) plane with a lowpass and a highpass tap vector, every
+  boundary mode folded into the index of each tap (B8a + B9);
+- :func:`sfb1d_conv` (K7, ``csrc/dwt_sfb.cu``): the transposed stride-2
+  correlation of (lo, hi) summed, with the periodization wrap-add and
+  roll as index math (B8b + B9).
+
+CPU tensors take their plain PyTorch versions, :func:`afb1d_corr_plain`
+and :func:`sfb1d_conv_plain`: the JAX package's conv path
+(``_afb1d_corr_conv`` / ``_sfb1d_conv_conv``) line by line, pad and
+strided or dilated ``conv2d``.  CUDA tensors launch the kernels or raise.
+:func:`afb_plan` / :func:`sfb_plan` give the index plan both kernels
+evaluate, so the tests can hold it against the plain versions on the CPU.
+
+Filter-tap convention: every function here takes taps "in application
+order", i.e. the correlation kernel; the public :func:`afb1d` /
+:func:`sfb1d` / :func:`afb2d` / :func:`sfb2d` take pywt-ordered filters.
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["as_taps"]
+from pytorch_wavelets_tpu_torch.ops import _cuda
+from pytorch_wavelets_tpu_torch.ops.pad import PAD_CODES, pad1d
+from pytorch_wavelets_tpu_torch.ops.precision import plain_flags
+from pytorch_wavelets_tpu_torch.utils import dwt_coeff_len
+
+__all__ = ["as_taps", "afb1d", "sfb1d", "afb2d", "sfb2d", "afb1d_corr",
+           "sfb1d_conv", "afb1d_corr_plain", "sfb1d_conv_plain", "afb_plan",
+           "sfb_plan", "MAX_TAPS"]
+
+# the kernels keep both tap vectors in shared memory (csrc/dwt_*.cu)
+MAX_TAPS = 128
 
 
 def as_taps(h) -> np.ndarray:
@@ -22,24 +50,42 @@ def as_taps(h) -> np.ndarray:
     return np.asarray(h, dtype=np.float64).ravel()
 
 
-def _conv_axis(x, kernels, axis):
+def _conv_axis(x, kernels, axis, stride=1, lhs_dilation=1, padding=(0, 0)):
     """Correlate each (N,C) plane of ``x`` (N,C,H,W) along ``axis`` with a
-    stack of 1-D kernels (unit stride, no padding: the callers pad).
+    stack of 1-D kernels.
 
-    kernels: (n_out, L) array of taps in correlation order.
-    Returns (N, C, n_out, H', W').  The JAX version's stride, dilation and
-    padding arguments serve the DWT filterbanks, a later slice.
+    kernels: (n_out, L) array of taps in correlation order.  The input is
+    first dilated by ``lhs_dilation`` (zeros between samples) and
+    zero-padded by ``padding``, as ``lax.conv_general_dilated`` does.
+    Returns (N, C, n_out, H', W').
     """
     N, C, H, W = x.shape
     n_out, L = np.shape(kernels)
     if axis in (2, -2):
         w = np.reshape(kernels, (n_out, 1, L, 1))
+        ax, strides = 2, (stride, 1)
     elif axis in (3, -1):
         w = np.reshape(kernels, (n_out, 1, 1, L))
+        ax, strides = 3, (1, stride)
     else:
         raise ValueError(f"axis must be 2 or 3, got {axis}")
-    y = F.conv2d(x.reshape(N * C, 1, H, W),
-                 torch.as_tensor(w, dtype=x.dtype, device=x.device))
+    xr = x.reshape(N * C, 1, H, W)
+    if lhs_dilation > 1:
+        n = xr.shape[ax]
+        shape = list(xr.shape)
+        shape[ax] = (n - 1) * lhs_dilation + 1
+        up = xr.new_zeros(shape)
+        if ax == 2:
+            up[:, :, ::lhs_dilation] = xr
+        else:
+            up[..., ::lhs_dilation] = xr
+        xr = up
+    if padding != (0, 0):
+        xr = F.pad(xr, (*padding, 0, 0) if ax == 3 else (0, 0, *padding))
+    with plain_flags():
+        y = F.conv2d(xr, torch.as_tensor(np.ascontiguousarray(w),
+                                         dtype=x.dtype, device=x.device),
+                     stride=strides)
     return y.reshape(N, C, n_out, *y.shape[2:])
 
 
@@ -48,3 +94,302 @@ def _ext_ns(L, dilation=1):
     boundary regions separate cleanly."""
     ns = max(256, 16 * L * dilation)
     return ns + (-ns) % 8
+
+
+def _is_per(mode):
+    return mode in ("per", "periodization")
+
+
+# --------------------------------------------------------------------------
+# The kernels' index plans
+# --------------------------------------------------------------------------
+
+def afb_plan(n, L, mode):
+    """Index plan of the analysis split of a length-``n`` axis by L taps:
+    ``(out_len, front, ne, pad_mode, shift, fold)``.
+
+    Output m is sum_k h[k] X(2m + k), plus sum_k h[k] X(2m + k + ne) when
+    m < fold, where X(q) is x[min((p + shift) % ne, n - 1)] for
+    p = pad_index(ne, front, ., pad_mode)[q] (zero where p is -1).  So
+    'periodization' evens an odd axis by repeating its last sample
+    (ne = n + 1) and, for L > ne, mirrors the reference's roll by L//2,
+    zero pad and single fold (``_afb1d_corr_conv`` l.145-158)."""
+    if _is_per(mode):
+        ne = n + n % 2
+        L2 = L // 2
+        if L <= ne:
+            return ne // 2, L - 1 - L2, ne, "periodic", 0, 0
+        return ne // 2, L - 1, ne, "zero", L2 % ne, L2
+    if mode not in ("zero", "symmetric", "reflect", "periodic"):
+        raise ValueError(f"Unknown pad type: {mode}")
+    out_len = dwt_coeff_len(n, L, mode)
+    p = 2 * (out_len - 1) - n + L
+    return out_len, p // 2, n, mode, 0, 0
+
+
+def sfb_plan(nin, L, mode):
+    """Index plan of the synthesis merge of two length-``nin`` inputs by
+    L taps (convolution order g): ``(out_len, s, wrap, r0, fold)``.
+
+    With Y(u) = sum_j lo[j] g0[u - 2j] + hi[j] g1[u - 2j], output n is
+    Y(t + s) + (Y(t + s + wrap) if t < fold else 0), where t = n, or
+    t = (n + r0) mod wrap for 'periodization' (its wrap-add of the tail
+    onto the first L - 2 samples and its roll by 1 - L//2,
+    ``_sfb1d_conv_conv`` l.271-291)."""
+    if _is_per(mode):
+        return 2 * nin, 0, 2 * nin, L // 2 - 1, max(L - 2, 0)
+    if mode not in ("zero", "symmetric", "reflect", "periodic"):
+        raise ValueError(f"Unknown pad type: {mode}")
+    return 2 * nin - L + 2, L - 2, 0, 0, 0
+
+
+# --------------------------------------------------------------------------
+# Plain versions (the JAX conv path)
+# --------------------------------------------------------------------------
+
+def afb1d_corr_plain(x, h0_taps, h1_taps, mode, axis):
+    """Plain PyTorch version of :func:`afb1d_corr` (the JAX package's
+    ``_afb1d_corr_conv``).  Returns (N, C, 2, H', W'), 0 = lowpass."""
+    axis = axis % 4
+    N = x.shape[axis]
+    L = len(h0_taps)
+    kernels = np.stack([h0_taps, h1_taps])
+
+    if _is_per(mode):
+        if N % 2 == 1:
+            # repeat the final sample to make the axis even
+            x = torch.cat([x, x.narrow(axis, N - 1, 1)], dim=axis)
+            N += 1
+        L2 = L // 2
+        if L <= N:
+            # circular convolution evaluated at even taps
+            front, back = L - 1 - L2, max(L2 - 1, 0)
+            xp = pad1d(x, front, back, axis, "periodic")
+            return _conv_axis(xp, kernels, axis, stride=2)
+        # Filter longer than the (evened) signal: the reference's wrap-add
+        # only folds ONE period, which is not circular convolution — mirror
+        # its literal roll + zero-pad + single fold behaviour.
+        x = torch.roll(x, -L2, dims=axis)
+        xp = pad1d(x, L - 1, L - 1, axis, "zero")
+        y = _conv_axis(xp, kernels, axis, stride=2)
+        ax = axis + 1  # spatial axes shift by 1 past the inserted band dim
+        N2 = N // 2
+        folded = y.narrow(ax, 0, L2) + y.narrow(ax, N2, L2)
+        if L2 >= N2:
+            return folded.narrow(ax, 0, N2)
+        return torch.cat([folded, y.narrow(ax, L2, N2 - L2)], dim=ax)
+
+    outsize = dwt_coeff_len(N, L, mode)
+    p = 2 * (outsize - 1) - N + L
+    if mode == "zero":
+        front, back = p // 2, p - p // 2
+        xp = pad1d(x, front, back, axis, "zero")
+    elif mode in ("symmetric", "reflect", "periodic"):
+        front, back = p // 2, (p + 1) // 2
+        xp = pad1d(x, front, back, axis, mode)
+    else:
+        raise ValueError(f"Unknown pad type: {mode}")
+    return _conv_axis(xp, kernels, axis, stride=2)
+
+
+def sfb1d_conv_plain(lo, hi, g0_taps, g1_taps, mode, axis):
+    """Plain PyTorch version of :func:`sfb1d_conv` (the JAX package's
+    ``_sfb1d_conv_conv``).  lo/hi: (N, C, H, W).  Returns (N, C, H', W')."""
+    axis = axis % 4
+    L = len(g0_taps)
+    Nin = lo.shape[axis]
+    # transpose-conv(stride 2, pad p) == correlate(up2(x), rev(g), L-1-p)
+    k0 = np.asarray(g0_taps)[::-1].reshape(1, L)
+    k1 = np.asarray(g1_taps)[::-1].reshape(1, L)
+
+    if _is_per(mode):
+        pad = (L - 1, L - 1)
+        y = (_conv_axis(lo, k0, axis, lhs_dilation=2, padding=pad) +
+             _conv_axis(hi, k1, axis, lhs_dilation=2, padding=pad))
+        y = y[:, :, 0]
+        Nout = 2 * Nin
+        if L > 2:
+            # wrap-add the tail onto the first L-2 samples then crop
+            # (reference dwt/lowlevel.py:256-260); when the filter is
+            # longer than the signal (L-2 >= Nout) the cropped output
+            # comes entirely from the folded head
+            head = y.narrow(axis, 0, L - 2) + y.narrow(axis, Nout, L - 2)
+            if L - 2 >= Nout:
+                y = head.narrow(axis, 0, Nout)
+            else:
+                y = torch.cat([head, y.narrow(axis, L - 2, Nout - L + 2)],
+                              dim=axis)
+        else:
+            y = y.narrow(axis, 0, Nout)
+        return torch.roll(y, 1 - L // 2, dims=axis)
+
+    if mode in ("zero", "symmetric", "reflect", "periodic"):
+        pad = (1, 1)  # = L-1 - (L-2)
+        y = (_conv_axis(lo, k0, axis, lhs_dilation=2, padding=pad) +
+             _conv_axis(hi, k1, axis, lhs_dilation=2, padding=pad))
+        return y[:, :, 0]
+    raise ValueError(f"Unknown pad type: {mode}")
+
+
+# --------------------------------------------------------------------------
+# The kernel wrappers
+# --------------------------------------------------------------------------
+
+def _taps_f32(kernel, h0, h1):
+    h0 = np.ascontiguousarray(h0, dtype=np.float32)
+    h1 = np.ascontiguousarray(h1, dtype=np.float32)
+    if h0.ndim != 1 or h0.shape != h1.shape or not 0 < len(h0) <= MAX_TAPS:
+        raise ValueError(f"{kernel}: the two tap vectors must have one "
+                         f"length in 1..{MAX_TAPS}, got {h0.shape} and "
+                         f"{h1.shape}")
+    return h0, h1
+
+
+def _check_4d(kernel, axis, t):
+    """The kernels index the pixels of a plane with 32-bit integers."""
+    if axis not in (2, 3):
+        raise ValueError(f"{kernel}: axis must be 2 or 3, got {axis}")
+    if t.ndim != 4 or t.shape[2] * t.shape[3] >= 2 ** 31:
+        raise ValueError(f"{kernel}: expected an (N, C, H, W) tensor with "
+                         f"fewer than 2^31 pixels per plane, got "
+                         f"{tuple(t.shape)}")
+
+
+def _ptr(a):
+    return ctypes.c_void_p(a.ctypes.data)
+
+
+def afb1d_corr(x, h0_taps, h1_taps, mode, axis, out_len=None):
+    """Analysis split of (N, C, H, W) ``x`` along ``axis`` (2 or 3, or -1)
+    with correlation-order taps: (N, C, 2, H', W'), band 0 the lowpass.
+
+    ``out_len`` keeps only the first outputs along the axis (the crop of
+    the inverse's backward).  CPU tensors take :func:`afb1d_corr_plain`;
+    CUDA tensors launch K6, which reads ``x`` through its strides (a
+    band of a coarser level's output in place).
+    """
+    axis = axis % 4
+    if x.device.type == "cpu":
+        y = afb1d_corr_plain(x, h0_taps, h1_taps, mode, axis)
+        return y if out_len is None else y.narrow(axis + 1, 0, out_len)
+    _cuda.check_inputs("dwt_afb", x)
+    _check_4d("dwt_afb", axis, x)
+    h0, h1 = _taps_f32("dwt_afb", h0_taps, h1_taps)
+    L = len(h0)
+    n = x.shape[axis]
+    full, front, ne, pmode, shift, fold = afb_plan(n, L, mode)
+    m = full if out_len is None else out_len
+    if not 0 <= m <= full:
+        raise ValueError(f"dwt_afb: out_len {m} outside 0..{full}")
+    N, C, H, W = x.shape
+    shape = [N, C, 2, H, W]
+    shape[axis + 1] = m
+    y = torch.empty(shape, device=x.device, dtype=torch.float32)
+    if y.numel() == 0:
+        return y
+    lib = _cuda.library("dwt_afb")
+    _cuda.check(lib, "dwt_afb", lib.dwt_afb(
+        x.data_ptr(), y.data_ptr(), _ptr(h0), _ptr(h1), L, N, C, H, W,
+        *x.stride(), axis, ne, front, PAD_CODES[pmode], shift, fold, m,
+        *y.stride(), _cuda.stream_of(x)))
+    _K6.launches += 1
+    return y
+
+
+def sfb1d_conv(lo, hi, g0_taps, g1_taps, mode, axis, out_len=None):
+    """Synthesis merge of (N, C, H, W) ``lo`` and ``hi`` along ``axis``
+    with convolution-order taps: (N, C, H', W').
+
+    ``out_len`` keeps only the first outputs along the axis (the crop of
+    the forward's backward).  CPU tensors take :func:`sfb1d_conv_plain`;
+    CUDA tensors launch K7, which reads ``lo`` and ``hi`` each through its
+    own strides (the bands of a level's (N, C, 3, H, W) stack in place).
+    """
+    axis = axis % 4
+    if lo.shape != hi.shape:
+        raise ValueError(f"sfb1d_conv: lo {tuple(lo.shape)} and hi "
+                         f"{tuple(hi.shape)} differ")
+    if lo.device.type == "cpu":
+        y = sfb1d_conv_plain(lo, hi, g0_taps, g1_taps, mode, axis)
+        return y if out_len is None else y.narrow(axis, 0, out_len)
+    _cuda.check_inputs("dwt_sfb", lo, hi)
+    _check_4d("dwt_sfb", axis, lo)
+    g0, g1 = _taps_f32("dwt_sfb", g0_taps, g1_taps)
+    L = len(g0)
+    nin = lo.shape[axis]
+    full, s, wrap, r0, fold = sfb_plan(nin, L, mode)
+    m = full if out_len is None else out_len
+    if not 0 <= m <= full:
+        raise ValueError(f"dwt_sfb: out_len {m} outside 0..{full}")
+    shape = list(lo.shape)
+    shape[axis] = m
+    y = torch.empty(shape, device=lo.device, dtype=torch.float32)
+    _check_4d("dwt_sfb", axis, y)
+    if y.numel() == 0:
+        return y
+    lib = _cuda.library("dwt_sfb")
+    _cuda.check(lib, "dwt_sfb", lib.dwt_sfb(
+        lo.data_ptr(), hi.data_ptr(), y.data_ptr(), _ptr(g0), _ptr(g1), L,
+        *lo.shape, *lo.stride(), *hi.stride(), axis, s, wrap, r0, fold, m,
+        *y.stride(), _cuda.stream_of(lo)))
+    _K7.launches += 1
+    return y
+
+
+# The launch counters live on the two wrappers; the wrappers reach them
+# through these names, so that a caller who swaps the module's
+# ``afb1d_corr`` / ``sfb1d_conv`` for a wrapper of its own (chip_smoke.py
+# records the calls of a run that way) still counts on them.
+_K6, _K7 = afb1d_corr, sfb1d_conv
+_K6.launches = 0
+_K7.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Public 1-D and separable 2-D filterbanks
+# --------------------------------------------------------------------------
+
+def afb1d(x, h0, h1, mode="zero", axis=-1):
+    """Analysis filterbank with pywt-ordered dec_lo/dec_hi filters."""
+    return afb1d_corr(x, as_taps(h0)[::-1], as_taps(h1)[::-1], mode, axis)
+
+
+def sfb1d(lo, hi, g0, g1, mode="zero", axis=-1):
+    """Synthesis filterbank with pywt-ordered rec_lo/rec_hi filters."""
+    return sfb1d_conv(lo, hi, as_taps(g0), as_taps(g1), mode, axis)
+
+
+def _afb2d_corr(x, h0c, h1c, h0r, h1r, mode):
+    """One level of 2-D analysis with correlation-order taps: the row
+    split (N, C, 2, H, W'), read as (N, 2C, H, W') by the column split,
+    whose (N, 2C, 2, H', W') output is (N, C, 4, H', W') in the band
+    order (LL, LH, HL, HH).  Two launches on CUDA."""
+    N, C = x.shape[:2]
+    lohi = afb1d_corr(x, h0r, h1r, mode, axis=3)          # (N,C,2,H,W')
+    lohi = lohi.reshape(N, C * 2, *lohi.shape[3:])
+    y = afb1d_corr(lohi, h0c, h1c, mode, axis=2)          # (N,2C,2,H',W')
+    # (N, C, w∈{lo,hi}, h∈{lo,hi}, H', W') -> 4 bands (LL, LH, HL, HH)
+    return y.reshape(N, C, 4, *y.shape[3:])
+
+
+def afb2d(x, h0_col, h1_col, h0_row, h1_row, mode="zero"):
+    """One level of 2-D analysis. Returns (N, C, 4, H', W') ordered
+    (LL, LH, HL, HH) — reference band packing (dwt/lowlevel.py:343-347)."""
+    h0c, h1c = as_taps(h0_col)[::-1], as_taps(h1_col)[::-1]
+    h0r, h1r = as_taps(h0_row)[::-1], as_taps(h1_row)[::-1]
+    return _afb2d_corr(x, h0c, h1c, h0r, h1r, mode)
+
+
+def _sfb2d_conv(ll, lh, hl, hh, g0c, g1c, g0r, g1r, mode):
+    """One level of 2-D synthesis with convolution-order taps: two column
+    merges, then one row merge.  Three launches on CUDA."""
+    lo = sfb1d_conv(ll, lh, g0c, g1c, mode, axis=2)
+    hi = sfb1d_conv(hl, hh, g0c, g1c, mode, axis=2)
+    return sfb1d_conv(lo, hi, g0r, g1r, mode, axis=3)
+
+
+def sfb2d(ll, lh, hl, hh, g0_col, g1_col, g0_row, g1_row, mode="zero"):
+    """One level of 2-D synthesis (reference: dwt/lowlevel.py:600-644)."""
+    g0c, g1c = as_taps(g0_col), as_taps(g1_col)
+    g0r, g1r = as_taps(g0_row), as_taps(g1_row)
+    return _sfb2d_conv(ll, lh, hl, hh, g0c, g1c, g0r, g1r, mode)

@@ -232,4 +232,125 @@ def test_scatlayerj2_gradients_match_cpu(dev, kw):
                       (2, 3, 64, 64), dev, 17)
     for a, b in zip(cpu, gpu):
         torch.testing.assert_close(b, a, rtol=1e-5, atol=2e-5)
-    assert all(n > 0 for n in ops.launch_counts().values())
+    counts = ops.launch_counts()
+    assert all(counts[k] > 0 for k in (*PYRAMID_KERNELS, "scat_mag_fwd",
+                                       "scat_mag_bwd"))
+
+
+# K6/K7: fp32 sums of up to 76 products in another order than cuDNN's
+DWT_TOL = dict(rtol=1e-5, atol=1e-5)
+DWT_MODES = ("zero", "symmetric", "reflect", "periodic", "periodization")
+
+
+def _taps(L, seed):
+    rs = np.random.RandomState(seed)
+    return rs.randn(L) / np.sqrt(L), rs.randn(L) / np.sqrt(L)
+
+
+@pytest.mark.parametrize("mode", DWT_MODES)
+@pytest.mark.parametrize("L,n", [(2, 16), (8, 33), (8, 6), (76, 20),
+                                 (76, 7), (13, 40)])
+@pytest.mark.parametrize("axis", [2, 3])
+def test_dwt_afb(dev, mode, L, n, axis):
+    """K6 against its plain version: every mode, odd sizes, filters
+    longer than the axis (db38's 76 taps: periodization's single fold),
+    a strided input (a band of a wider stack) and a cropped output."""
+    from pytorch_wavelets_tpu_torch.ops import afb_sfb
+    h0, h1 = _taps(L, 20 + L)
+    shape = [2, 3, 9, 11]
+    shape[axis] = n
+    wide = torch.from_numpy(_rand((shape[0], shape[1], 4, *shape[2:]), 21))
+    x = wide.to(dev)[:, :, 2]
+    want = afb_sfb.afb1d_corr_plain(x, h0, h1, mode, axis)
+    n0 = afb_sfb.afb1d_corr.launches
+    got = afb_sfb.afb1d_corr(x, h0, h1, mode, axis)
+    torch.testing.assert_close(got, want, **DWT_TOL)
+    m = max(want.shape[axis + 1] - 2, 0)
+    torch.testing.assert_close(afb_sfb.afb1d_corr(x, h0, h1, mode, axis, m),
+                               want.narrow(axis + 1, 0, m), **DWT_TOL)
+    assert afb_sfb.afb1d_corr.launches == n0 + (2 if m else 1)
+
+
+@pytest.mark.parametrize("mode", DWT_MODES)
+@pytest.mark.parametrize("L,n", [(2, 16), (8, 33), (8, 6), (76, 20),
+                                 (76, 7), (13, 40)])
+@pytest.mark.parametrize("axis", [2, 3])
+def test_dwt_sfb(dev, mode, L, n, axis):
+    """K7 against its plain version on the coefficients of a length-n
+    axis, lo and hi read in place as two bands of one (N, C, 3, H, W)
+    stack, and a cropped output."""
+    from pytorch_wavelets_tpu_torch.ops import afb_sfb
+    from pytorch_wavelets_tpu_torch.utils import dwt_coeff_len
+    g0, g1 = _taps(L, 30 + L)
+    nin = dwt_coeff_len(n, L, mode)
+    shape = [2, 3, 7, 5]
+    shape[axis] = nin
+    stack = torch.from_numpy(_rand((shape[0], shape[1], 3, *shape[2:]), 31))
+    stack = stack.to(dev)
+    lo, hi = stack[:, :, 2], stack[:, :, 0]
+    want = afb_sfb.sfb1d_conv_plain(lo, hi, g0, g1, mode, axis)
+    n0 = afb_sfb.sfb1d_conv.launches
+    got = afb_sfb.sfb1d_conv(lo, hi, g0, g1, mode, axis)
+    torch.testing.assert_close(got, want, **DWT_TOL)
+    m = max(want.shape[axis] - 3, 0)
+    torch.testing.assert_close(afb_sfb.sfb1d_conv(lo, hi, g0, g1, mode, axis,
+                                                  m),
+                               want.narrow(axis, 0, m), **DWT_TOL)
+    assert afb_sfb.sfb1d_conv.launches == n0 + (2 if m else 1)
+
+
+@pytest.mark.parametrize("mode", DWT_MODES)
+@pytest.mark.parametrize("wave,shape", [("db4", (2, 3, 64, 64)),
+                                        ("bior2.2", (1, 2, 33, 29)),
+                                        ("db38", (1, 2, 20, 18))])
+def test_dwt_gradients_match_cpu(dev, mode, wave, shape):
+    """DWTForward -> DWTInverse outputs and x.grad (the reference-semantics
+    backwards, K7 then K6) on the card against the CPU plain run."""
+    ops.reset_launches()
+
+    def round_trip(d):
+        f = tt.DWTForward(J=3, wave=wave, mode=mode, device=d)
+        i = tt.DWTInverse(wave=wave, mode=mode, device=d)
+
+        def run(x):
+            yl, yh = f(x)
+            return [yl, *yh, i((yl, yh))]
+        return run
+    cpu, gpu = _grads(round_trip, shape, dev, 40)
+    for a, b in zip(cpu, gpu):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=2e-5)
+    counts = ops.launch_counts()
+    assert counts["afb1d_corr"] > 0 and counts["sfb1d_conv"] > 0
+
+
+@pytest.mark.parametrize("mode", ["symmetric", "periodization"])
+def test_dwt1d_gradients_match_cpu(dev, mode):
+    ops.reset_launches()
+
+    def round_trip(d):
+        f = tt.DWT1DForward(J=4, wave="db4", mode=mode, device=d)
+        i = tt.DWT1DInverse(wave="db4", mode=mode, device=d)
+
+        def run(x):
+            yl, yh = f(x[:, 0])
+            return [yl, *yh, i((yl, yh))]
+        return run
+    cpu, gpu = _grads(round_trip, (2, 1, 3, 301), dev, 41)
+    for a, b in zip(cpu, gpu):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=2e-5)
+    counts = ops.launch_counts()
+    assert counts["afb1d_corr"] > 0 and counts["sfb1d_conv"] > 0
+
+
+def test_dwt_refuses(dev):
+    from pytorch_wavelets_tpu_torch.ops import afb_sfb
+    x = torch.from_numpy(_rand((1, 1, 16, 16), 42)).to(dev)
+    h0, h1 = _taps(4, 43)
+    with pytest.raises(NotImplementedError, match="raw kernel call"):
+        afb_sfb.afb1d_corr(x.clone().requires_grad_(), h0, h1, "zero", 3)
+    with pytest.raises(TypeError):
+        tt.DWTForward(device=dev)(x.double())
+    with pytest.raises(ValueError, match="1..128"):
+        afb_sfb.afb1d_corr(x, np.ones(129), np.ones(129), "zero", 3)
+    with tt.matmul_precision("high"), pytest.raises(NotImplementedError):
+        tt.DWTForward(device=dev)(x)
