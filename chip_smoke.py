@@ -45,7 +45,23 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    gradient on 16x8x65536, checked the same way.  Then K6/K7 at edge
    cases (odd sizes, db38 at periodization's single-fold sizes, strided
    views as inputs) against their plain versions.
-8. per kernel: every kernel call of one run of each path, recorded and
+8. the per-level DTCWT path (K8-K11, K2/K3 per level): scat_bp,
+   ScatLayerj2(biort="near_sym_b_bp", qshift="qshift_b_bp") on
+   128x3x256x256 fp32 (the reference's ScatterNet workload with its
+   bandpass-diagonal filters, which only the per-level path runs), forward
+   and backward, checked and timed as scat_j2; scat_bp_small, the bp
+   ScatLayer and the bp combine_colour ScatLayerj2 on 16x3x256x256;
+   dtcwt_large, DTCWTForward(J=3) -> DTCWTInverse on 1x3x9216x9216 (an
+   axis above MAX_MATMUL_N), perfect reconstruction, one forward and one
+   inverse against the plain versions run on the card, the adjoint
+   identity of the four level Functions, the round trip and a gradient
+   step timed; per_level_main, the main path under
+   set_operator_matmul(False), against the composed path on the card,
+   both timed.  Every K8-K11 and per-level K2/K3 call of these phases is
+   replayed against its plain version right after its phase, and K8-K11
+   run at edge cases (even taps, N = 4/8/12, both parities of the q-shift
+   phase table, zero mode, strided inputs, accumulation into a slice).
+9. per kernel: every kernel call of one run of each path, recorded and
    replayed on the same tensors against its plain PyTorch version (with
    the tolerance stated), timed (device time) beside the plain version
    and one PyTorch library call where one computes the same function,
@@ -54,8 +70,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    summed per kernel and per role (forward pyramid, its adjoint B4, the
    inverse's adjoint, the magnitudes; the DWT's analysis, synthesis and
    their backwards).
-9. profile: device time by kernel of the main path, of one ScatLayerj2
-   training step and of one DWT training step (torch.profiler).
+10. profile: device time by kernel of the main path, of one ScatLayerj2
+   training step, of one DWT training step and of one bandpass-diagonal
+   ScatLayerj2 training step (torch.profiler).
 
 Each path's peak_mem_bytes (torch.cuda.max_memory_allocated over its
 timed calls) includes mem_held_before_bytes: what was allocated when its
@@ -65,6 +82,7 @@ Then a {"kernels": [...]} line, the card's name and power limit as
 nvidia-smi prints them, and last {"ok": true, "device": {...}}.
 Imports torch, numpy and the port only.
 """
+import contextlib
 import json
 import statistics
 import subprocess
@@ -113,6 +131,32 @@ DWT_ROLES = {("afb1d_corr", False): "analysis",
              ("sfb1d_conv", True): "analysis's backward",
              ("afb1d_corr", True): "synthesis's backward"}
 
+# the per-level DTCWT paths: the bandpass-diagonal ScatLayerj2 (full
+# width and depth), the small bp layers, a DTCWT past MAX_MATMUL_N, and
+# the main path forced onto the per-level stencils
+BP = dict(biort="near_sym_b_bp", qshift="qshift_b_bp")
+BP_SHAPE, BP_SMALL_SHAPE = (128, 3, 256, 256), (16, 3, 256, 256)
+LARGE_SHAPE, LARGE_J = (1, 3, 9216, 9216), 3
+STENCIL_TOL = K1_TOL                  # K8-K10: fp32 sums in another order
+# The level Functions' adjoint identity at LARGE_SHAPE (relative to the
+# Cauchy-Schwarz scale; near_sym_a / qshift_a, 'symmetric'): on the H100
+# fp32 rounding reads at most 9.2e-12 there, and a level-1 backward with
+# the wrong boundary mode 2.5e-7 to 3.9e-7 (tools/level_adjoint_fault.py,
+# four seeds).  Both fall with the size, so the limit is set between them
+# for this shape alone.
+LEVEL_ADJOINT_TOL = 1e-9
+STENCILS = ("dtcwt_filt", "dtcwt_dfilt", "dtcwt_ifilt")
+POOLS = ("avg_pool2_fwd", "avg_pool2_bwd")
+PER_LEVEL = STENCILS + POOLS + ("q2c_pack", "c2q_unpack")
+# (reps, batches) of a replay's timings: the default, and for the calls of
+# the 1x3x9216^2 path (each moves gigabytes)
+REPLAY_TIMING, LARGE_REPLAY_TIMING = (20, 5), (3, 3)
+# the JAX function each per-level K2/K3 call replaces
+PER_LEVEL_REPLACES = {
+    "q2c_pack": "pytorch_wavelets_tpu/ops/dtcwt_fb.py:294",
+    "c2q_unpack": "pytorch_wavelets_tpu/ops/dtcwt_fb.py:304",
+}
+
 SOURCES = {
     "apply_row": ("banded_apply_row", "banded_apply.cu",
                   "pytorch_wavelets_tpu/ops/banded.py:332"),
@@ -130,6 +174,16 @@ SOURCES = {
                    "pytorch_wavelets_tpu/ops/afb_sfb.py:125"),
     "sfb1d_conv": ("dwt_sfb", "dwt_sfb.cu",
                    "pytorch_wavelets_tpu/ops/afb_sfb.py:262"),
+    "dtcwt_filt": ("dtcwt_filt", "dtcwt_filt.cu",
+                   "pytorch_wavelets_tpu/ops/dtcwt_fb.py:66"),
+    "dtcwt_dfilt": ("dtcwt_dfilt", "dtcwt_dfilt.cu",
+                    "pytorch_wavelets_tpu/ops/dtcwt_fb.py:126"),
+    "dtcwt_ifilt": ("dtcwt_ifilt", "dtcwt_ifilt.cu",
+                    "pytorch_wavelets_tpu/ops/dtcwt_fb.py:220"),
+    "avg_pool2_fwd": ("avg_pool2_fwd", "avg_pool2.cu",
+                      "pytorch_wavelets_tpu/transforms/scatternet.py:46"),
+    "avg_pool2_bwd": ("avg_pool2_bwd", "avg_pool2.cu",
+                      "pytorch_wavelets_tpu/transforms/scatternet.py:46"),
 }
 BANDED_REPLACES = "pytorch_wavelets_tpu/ops/banded.py:410"
 # the pyramid functions whose kernel calls make up each role, and the JAX
@@ -206,7 +260,35 @@ def adjoint_error(outs, gs, ins, grads):
 # recording the kernel calls of one run
 # ---------------------------------------------------------------------------
 
-class Tracer:
+@contextlib.contextmanager
+def swapped(swaps):
+    """Set ``module.name = fn`` for each (module, name, fn) of ``swaps``
+    for the body, and restore the attributes after it."""
+    saved = [(module, name, getattr(module, name))
+             for module, name, _ in swaps]
+    try:
+        for module, name, fn in swaps:
+            setattr(module, name, fn)
+        yield
+    finally:
+        for module, name, fn in reversed(saved):
+            setattr(module, name, fn)
+
+
+class Swapping:
+    """A run's context manager: the attributes that ``swaps()`` gives are
+    set on entry and restored on exit."""
+
+    def __enter__(self):
+        self._ctx = swapped(self.swaps())
+        self._ctx.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._ctx.__exit__(*exc)
+
+
+class Tracer(Swapping):
     """For one run: wraps the pyramid functions of ROLES and the
     magnitude kernels' wrappers so that each kernel call is tagged with
     the role it serves, and each wrapper's own launch counter is read at
@@ -220,11 +302,6 @@ class Tracer:
         self.role = None
         self.calls = []
         self.by_role = {}
-        self.saved = []
-
-    def _swap(self, module, name, fn):
-        self.saved.append((module, name, getattr(module, name)))
-        setattr(module, name, fn)
 
     def _tag(self, role, fn):
         def wrapped(*args, **kwargs):
@@ -240,20 +317,17 @@ class Tracer:
                 self.role = prev
         return wrapped
 
-    def __enter__(self):
-        for name, role in ROLES.items():
-            self._swap(self.fused, name, self._tag(role,
-                                                   getattr(self.fused, name)))
-        for name in ("scat_mag_fwd", "scat_mag_bwd"):
-            self._swap(self.scat, name, self._tag(MAG_ROLE,
-                                                  getattr(self.scat, name)))
-        if not self.record:
-            return self
+    def swaps(self):
         calls, f, m = self.calls, self.fused, self.scat
-        orig = {n: getattr(f, n) for n in ("apply_row", "apply_col",
-                                           "q2c_pack", "c2q_unpack")}
-        orig.update({n: getattr(m, n) for n in ("scat_mag_fwd",
-                                                "scat_mag_bwd")})
+        out = [(f, name, self._tag(role, getattr(f, name)))
+               for name, role in ROLES.items()]
+        # the magnitudes' wrappers, tagged (and recorded over the tags)
+        orig = {n: self._tag(MAG_ROLE, getattr(m, n))
+                for n in ("scat_mag_fwd", "scat_mag_bwd")}
+        if not self.record:
+            return out + [(m, n, fn) for n, fn in orig.items()]
+        orig.update({n: getattr(f, n) for n in ("apply_row", "apply_col",
+                                                "q2c_pack", "c2q_unpack")})
 
         def apply_row(x, T):
             calls.append(("apply_row", self.role, (x, T)))
@@ -282,19 +356,14 @@ class Tracer:
             calls.append(("scat_mag_bwd", MAG_ROLE, (h, g, bias, combine)))
             return orig["scat_mag_bwd"](h, g, bias, combine)
 
-        for name, fn in (("apply_row", apply_row), ("apply_col", apply_col),
-                         ("q2c_pack", q2c_pack), ("c2q_unpack", c2q_unpack)):
-            self._swap(f, name, fn)
-        self._swap(m, "scat_mag_fwd", scat_mag_fwd)
-        self._swap(m, "scat_mag_bwd", scat_mag_bwd)
-        return self
-
-    def __exit__(self, *exc):
-        for module, name, fn in reversed(self.saved):
-            setattr(module, name, fn)
+        return out + [
+            (f, "apply_row", apply_row), (f, "apply_col", apply_col),
+            (f, "q2c_pack", q2c_pack), (f, "c2q_unpack", c2q_unpack),
+            (m, "scat_mag_fwd", scat_mag_fwd),
+            (m, "scat_mag_bwd", scat_mag_bwd)]
 
 
-class DwtRecorder:
+class DwtRecorder(Swapping):
     """For one run: swaps the K6/K7 wrappers (``afb1d_corr``,
     ``sfb1d_conv``) where the DWT Functions and the 2-D compositions call
     them for recording ones, which keep each call's inputs for replay and
@@ -305,9 +374,8 @@ class DwtRecorder:
         self.modules = (afb, dwt)
         self.calls = []
         self.backward = False
-        self.saved = []
 
-    def __enter__(self):
+    def swaps(self):
         afb = self.modules[0]
         orig_a, orig_s = afb.afb1d_corr, afb.sfb1d_conv
 
@@ -323,16 +391,205 @@ class DwtRecorder:
                                (lo, hi, g0, g1, mode, axis % 4, out_len)))
             return orig_s(lo, hi, g0, g1, mode, axis, out_len)
 
-        for module in self.modules:
-            for name, fn in (("afb1d_corr", afb1d_corr),
-                             ("sfb1d_conv", sfb1d_conv)):
-                self.saved.append((module, name, getattr(module, name)))
-                setattr(module, name, fn)
-        return self
+        return [(module, name, fn) for module in self.modules
+                for name, fn in (("afb1d_corr", afb1d_corr),
+                                 ("sfb1d_conv", sfb1d_conv))]
 
-    def __exit__(self, *exc):
-        for module, name, fn in reversed(self.saved):
-            setattr(module, name, fn)
+
+def _out_spec(out, accumulate):
+    """How a recorded call wrote its result: None (a new tensor), or
+    (kind, what ``out`` held, its size, its strides) for an accumulation
+    onto ``out`` ('acc') or a write through it ('write')."""
+    if out is None:
+        return None
+    return ("acc" if accumulate else "write", out.clone() if accumulate
+            else None, out.size(), out.stride())
+
+
+class PerLevelRecorder(Swapping):
+    """For one run of the per-level path: swaps the wrappers of K8-K11,
+    of K2/K3 where the level functions call them and of K4/K5 for
+    recording ones, which keep each call's inputs for replay and tag it
+    'forward' or 'backward' (the caller sets ``backward`` around the
+    gradient)."""
+
+    def __init__(self, fb, lev, scat):
+        self.fb, self.lev, self.scat = fb, lev, scat
+        self.calls = []
+        self.backward = False
+
+    def _role(self):
+        return "backward" if self.backward else "forward"
+
+    def swaps(self):
+        fb, lev, scat, calls = self.fb, self.lev, self.scat, self.calls
+        orig = {n: getattr(fb, n) for n in STENCILS}
+        orig.update({n: getattr(lev, n) for n in ("q2c_pack", "c2q_unpack")})
+        orig.update({n: getattr(scat, n) for n in POOLS + (
+            "scat_mag_fwd", "scat_mag_bwd")})
+
+        def dtcwt_filt(x, taps, axis, mode, out=None, accumulate=False):
+            calls.append(("dtcwt_filt", self._role(),
+                          (x, taps, axis % 4, mode,
+                           _out_spec(out, accumulate))))
+            return orig["dtcwt_filt"](x, taps, axis, mode, out, accumulate)
+
+        def dtcwt_dfilt(x, ha, hb, highpass, axis, out=None):
+            calls.append(("dtcwt_dfilt", self._role(),
+                          (x, ha, hb, highpass, axis % 4,
+                           _out_spec(out, False))))
+            return orig["dtcwt_dfilt"](x, ha, hb, highpass, axis, out)
+
+        def dtcwt_ifilt(x, ha, hb, highpass, axis, out=None,
+                        accumulate=False):
+            calls.append(("dtcwt_ifilt", self._role(),
+                          (x, ha, hb, highpass, axis % 4,
+                           _out_spec(out, accumulate))))
+            return orig["dtcwt_ifilt"](x, ha, hb, highpass, axis, out,
+                                       accumulate)
+
+        def q2c_pack(y, out, orients, interleaved=False):
+            calls.append(("q2c_pack", self._role(),
+                          (y, out.size(), out.stride(), orients,
+                           interleaved)))
+            return orig["q2c_pack"](y, out, orients, interleaved)
+
+        def c2q_unpack(h, orients, interleaved=False):
+            calls.append(("c2q_unpack", self._role(),
+                          (h, orients, interleaved)))
+            return orig["c2q_unpack"](h, orients, interleaved)
+
+        def one_arg(name):
+            def fn(t):
+                calls.append((name, self._role(), (t,)))
+                return orig[name](t)
+            return fn
+
+        def scat_mag_fwd(h, bias, combine=False):
+            calls.append(("scat_mag_fwd", self._role(), (h, bias, combine)))
+            return orig["scat_mag_fwd"](h, bias, combine)
+
+        def scat_mag_bwd(h, g, bias, combine=False):
+            calls.append(("scat_mag_bwd", self._role(),
+                          (h, g, bias, combine)))
+            return orig["scat_mag_bwd"](h, g, bias, combine)
+
+        return [(fb, "dtcwt_filt", dtcwt_filt),
+                (fb, "dtcwt_dfilt", dtcwt_dfilt),
+                (fb, "dtcwt_ifilt", dtcwt_ifilt),
+                (lev, "q2c_pack", q2c_pack), (lev, "c2q_unpack", c2q_unpack),
+                *[(scat, name, one_arg(name)) for name in POOLS],
+                (scat, "scat_mag_fwd", scat_mag_fwd),
+                (scat, "scat_mag_bwd", scat_mag_bwd)]
+
+
+def plain_on_card(fb, lev, scat, quad, pool):
+    """Swaps the per-level path's kernel wrappers for their plain
+    versions, so that one run computes the same function with PyTorch's
+    own operations on the card (the reference the kernels are held to
+    where the CPU is too slow)."""
+    return swapped([
+        (fb, "dtcwt_filt", fb.dtcwt_filt_plain),
+        (fb, "dtcwt_dfilt", fb.dtcwt_dfilt_plain),
+        (fb, "dtcwt_ifilt", fb.dtcwt_ifilt_plain),
+        (lev, "q2c_pack", quad.q2c_pack_plain),
+        (lev, "c2q_unpack", quad.c2q_unpack_plain),
+        (scat, "avg_pool2_fwd", pool.avg_pool2_fwd_plain),
+        (scat, "avg_pool2_bwd", pool.avg_pool2_bwd_plain)])
+
+
+def _fresh_out(x, spec):
+    """A fresh tensor of a recorded ``out``'s size and strides, holding
+    what it held for an accumulation (None for a new output)."""
+    if spec is None:
+        return None
+    buf = torch.empty_strided(spec[2], spec[3], device=x.device)
+    return buf.copy_(spec[1]) if spec[0] == "acc" else buf
+
+
+def _write_spec(x, spec, fn):
+    """Run ``fn(out, accumulate)`` as the recorded call ran."""
+    return fn(_fresh_out(x, spec), spec is not None and spec[0] == "acc")
+
+
+def stencil_call_parts(call, fb, pool):
+    """One recorded K8-K11 call: (got, want, run, plain, lib, ops, bytes,
+    tol).  ``lib`` is cuDNN's ``F.conv2d`` of the input padded here (not
+    timed) for K8, plus ``add_`` where K8 accumulates; ``F.avg_pool2d``
+    for K11's forward and ``F.conv_transpose2d`` of the cotangent (reshaped
+    here, not timed) by a 2x2 kernel of 1/4 at stride 2 for its adjoint
+    (checked exact against the plain version); None for K9/K10, whose function no single
+    PyTorch call computes."""
+    import torch.nn.functional as F
+    name, _, args = call
+    lib = None
+    if name in POOLS:
+        x, = args
+        kern = getattr(pool, name)
+        plainf = getattr(pool, name + "_plain")
+        got, want = kern(x), plainf(x)
+        run = lambda: kern(x)                                 # noqa: E731
+        plain = lambda: plainf(x)                             # noqa: E731
+        if name == "avg_pool2_fwd":
+            lib = lambda: F.avg_pool2d(x, 2)                  # noqa: E731
+            ops = 4.0 * got.numel()
+        else:
+            N, C, h, w = x.shape
+            quarter = torch.full((1, 1, 2, 2), 0.25, device=x.device)
+            g = x.reshape(N * C, 1, h, w)      # a copy if strided: not timed
+            lib = lambda: F.conv_transpose2d(g, quarter,      # noqa: E731
+                                             stride=2)
+            require(torch.equal(lib().view_as(want), want),
+                    f"avg_pool2_bwd: conv_transpose2d is not the adjoint "
+                    f"on {tuple(x.shape)}")
+            ops = 1.0 * got.numel()
+        return (got, want, run, plain, lib, ops,
+                4.0 * (x.numel() + got.numel()), "exact")
+    x, spec = args[0], args[-1]
+    kern, plainf = getattr(fb, name), getattr(fb, name + "_plain")
+    if name == "dtcwt_filt":
+        _, taps, axis, mode, _ = args
+        rest = (taps, axis, mode)
+        taps_per_out = len(taps)
+    else:
+        _, ha, hb, highpass, axis, _ = args
+        rest = (ha, hb, highpass, axis)
+        taps_per_out = len(ha) if name == "dtcwt_dfilt" else len(ha) // 2
+    if name == "dtcwt_dfilt":
+        def call_with(f, out, acc):
+            return f(x, *rest, out=out)
+    else:
+        def call_with(f, out, acc):
+            return f(x, *rest, out=out, accumulate=acc)
+    got = _write_spec(x, spec, lambda o, a: call_with(kern, o, a))
+    want = _write_spec(x, spec, lambda o, a: call_with(plainf, o, a))
+    acc = spec is not None and spec[0] == "acc"
+    buf, pbuf = _fresh_out(x, spec), _fresh_out(x, spec)
+    run = lambda: call_with(kern, buf, acc)                   # noqa: E731
+    plain = lambda: call_with(plainf, pbuf, acc)              # noqa: E731
+    if name == "dtcwt_filt":
+        taps, axis, mode = rest
+        L, m = len(taps), len(taps) // 2
+        xp = fb.pad1d(x, m, m, axis, "symmetric" if mode == "symmetric"
+                      else "zero")
+        N, C = x.shape[:2]
+        xp = xp.reshape(N * C, 1, *xp.shape[2:]).contiguous()
+        w = torch.tensor(np.asarray(taps), dtype=torch.float32,
+                         device=x.device)
+        w = w.view(1, 1, 1, L) if axis == 3 else w.view(1, 1, L, 1)
+        shape = want.shape
+        if acc:
+            lib = lambda: F.conv2d(xp, w).view(shape).add_(   # noqa: E731
+                spec[1])
+        else:
+            lib = lambda: F.conv2d(xp, w)                     # noqa: E731
+        ref = F.conv2d(xp, w).view(shape) + (spec[1] if acc else 0)
+        require(torch.allclose(ref, want, **STENCIL_TOL),
+                "dtcwt_filt: the library yardstick differs from the plain "
+                "version")
+    ops = 2.0 * taps_per_out * got.numel()
+    nbytes = 4.0 * (x.numel() + got.numel() * (2 if acc else 1))
+    return got, want, run, plain, lib, ops, nbytes, STENCIL_TOL
 
 
 def dwt_call_parts(call, afb, pad):
@@ -409,12 +666,17 @@ def dwt_call_parts(call, afb, pad):
     return got, want, run, plain, lib, ops, nbytes
 
 
-def replay(call, banded, quad, mag, afb, pad):
-    """Check one recorded call against its plain version and time it.
-    Returns (err, ms, plain_ms, library_ms, bound_ms, op_t, byte_t)."""
+def replay(call, banded, quad, mag, afb, pad, fb=None, pool=None,
+           timing=REPLAY_TIMING):
+    """Check one recorded call against its plain version and time it
+    (``timing``: reps, batches).  Returns (err, ms, plain_ms, library_ms,
+    bound_ms, op_t, byte_t)."""
     name, _, args = call
     lib = None
-    if name in DWT_KERNELS:
+    if name in STENCILS + POOLS:
+        got, want, run, plain, lib, ops, nbytes, tol = stencil_call_parts(
+            call, fb, pool)
+    elif name in DWT_KERNELS:
         got, want, run, plain, lib, ops, nbytes = dwt_call_parts(call, afb,
                                                                  pad)
         tol = DWT_TOL
@@ -464,26 +726,31 @@ def replay(call, banded, quad, mag, afb, pad):
                         * (2 if kind == "acc" else 1))
         tol = K1_TOL
     elif name == "q2c_pack":
-        y, size, stride, orients = args
+        y, size, stride, orients, *il = args
+        il = bool(il and il[0])          # per level: interleaved corners
         got = torch.empty_strided(size, stride, device=y.device)
         want = torch.empty_strided(size, stride, device=y.device)
-        quad.q2c_pack(y, got, orients)
-        quad.q2c_pack_plain(y, want, orients)
+        quad.q2c_pack(y, got, orients, il)
+        quad.q2c_pack_plain(y, want, orients, il)
         written = [o for pair in orients for o in pair]  # orientations filled
         got, want = got[:, :, written], want[:, :, written]
         buf = torch.empty_strided(size, stride, device=y.device)
-        run = lambda: quad.q2c_pack(y, buf, orients)          # noqa: E731
-        plain = lambda: quad.q2c_pack_plain(y, buf, orients)  # noqa: E731
-        ops = 1.0 * got.numel()           # one add or subtract per value
+        run = lambda: quad.q2c_pack(y, buf, orients, il)      # noqa: E731
+        plain = lambda: quad.q2c_pack_plain(                  # noqa: E731
+            y, buf, orients, il)
+        # one add or subtract per value, and per level a scaling per read
+        ops = (2.0 if il else 1.0) * got.numel()
         nbytes = 4.0 * (y.numel() + got.numel())
         tol = "exact"
     elif name == "c2q_unpack":
-        h, orients = args
-        got = quad.c2q_unpack(h, orients)
-        want = quad.c2q_unpack_plain(h, orients)
-        run = lambda: quad.c2q_unpack(h, orients)             # noqa: E731
-        plain = lambda: quad.c2q_unpack_plain(h, orients)     # noqa: E731
-        ops = 1.0 * got.numel()
+        h, orients, *il = args
+        il = bool(il and il[0])
+        got = quad.c2q_unpack(h, orients, il)
+        want = quad.c2q_unpack_plain(h, orients, il)
+        run = lambda: quad.c2q_unpack(h, orients, il)         # noqa: E731
+        plain = lambda: quad.c2q_unpack_plain(                # noqa: E731
+            h, orients, il)
+        ops = (2.0 if il else 1.0) * got.numel()
         nbytes = 4.0 * 2 * got.numel()    # each read once, each written once
         tol = "exact"
     elif name == "scat_mag_fwd":
@@ -513,12 +780,24 @@ def replay(call, banded, quad, mag, afb, pad):
     require(ok, f"{name} {tuple(args[0].shape)} disagrees with its plain "
             f"version by {max_err(got, want)}")
     op_t, byte_t = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
-    return (max_err(got, want), timed_ms(run), timed_ms(plain),
-            None if lib is None else timed_ms(lib), max(op_t, byte_t), op_t,
-            byte_t)
+    reps, batches = timing
+    return (max_err(got, want), timed_ms(run, reps, batches),
+            timed_ms(plain, reps, batches),
+            None if lib is None else timed_ms(lib, reps, batches),
+            max(op_t, byte_t), op_t, byte_t)
 
 
-def kernel_rows(groups, banded, quad, mag, afb, pad):
+def _tolerance(kernel):
+    if kernel in ("q2c_pack", "c2q_unpack") or kernel in POOLS:
+        return "exact"
+    if kernel.startswith("scat_mag"):
+        return MAG_TOL
+    return DWT_TOL if kernel in DWT_KERNELS else STENCIL_TOL \
+        if kernel in STENCILS else K1_TOL
+
+
+def kernel_rows(groups, banded, quad, mag, afb, pad, fb=None, pool=None,
+                timing=REPLAY_TIMING):
     """One row per group (name, replaces, launches, calls): the replays of
     its calls summed; ``per_call`` lists [input shape (by operator
     shape), ms, plain_ms, library_ms, bound_ms] for each call."""
@@ -528,7 +807,7 @@ def kernel_rows(groups, banded, quad, mag, afb, pad):
                  byte=0.0, haslib=True, per_call=[])
         for call in calls:
             err, ms, plain_ms, lib_ms, bound, op_t, byte_t = replay(
-                call, banded, quad, mag, afb, pad)
+                call, banded, quad, mag, afb, pad, fb, pool, timing)
             a["err"] = max(a["err"], err)
             a["ms"] += ms
             a["plain"] += plain_ms
@@ -542,6 +821,11 @@ def kernel_rows(groups, banded, quad, mag, afb, pad):
                 shape += " by " + "x".join(map(str, call[2][1].shape))
             elif call[0] in DWT_KERNELS:
                 shape += f" axis {call[2][-2]}"
+            elif call[0] in STENCILS:
+                axis = call[2][2 if call[0] == "dtcwt_filt" else 4]
+                shape += f" axis {axis}"
+                if call[2][-1] is not None:
+                    shape += f" {call[2][-1][0]}"
             a["per_call"].append([shape, ms, plain_ms, lib_ms, bound])
         kernel = calls[0][0]
         rows.append({
@@ -550,10 +834,7 @@ def kernel_rows(groups, banded, quad, mag, afb, pad):
                       f"{SOURCES[kernel][1]}",
             "replaces": replaces, "launches": launches,
             "max_abs_err": a["err"],
-            "tolerance": ("exact" if kernel in ("q2c_pack", "c2q_unpack")
-                          else MAG_TOL if kernel.startswith("scat_mag")
-                          else DWT_TOL if kernel in DWT_KERNELS
-                          else K1_TOL),
+            "tolerance": _tolerance(kernel),
             "ms": a["ms"], "plain_ms": a["plain"],
             "bound_ms": a["bound"],
             "bound_by": "bytes" if a["byte"] >= a["op"] else "operations",
@@ -734,25 +1015,33 @@ def train_main(tt, ops, fused, scat, shape, J):
     return fields, tr.by_role, rec_tr.calls
 
 
-def scat_step(tt, ops, fused, scat, shape, check_n, phase, timing, **kw):
-    """ScatLayerj2(**kw) forward alone, then forward + backward (the
-    gradient of sum(Z * G) for a fixed random G, as grad_outputs), against
-    the CPU plain run on the first ``check_n`` images (images are
-    independent, so that part is exact).  Returns (fields, launches per
-    role, calls of one recorded step).  ``timing`` is (reps, batches)
-    for :func:`timed_ms`."""
+def scat_step(tt, ops, fused, scat, shape, check_n, phase, timing,
+              layer="ScatLayerj2", need=None, recorder=None, **kw):
+    """``layer``(**kw) (ScatLayerj2 or ScatLayer) forward alone, then
+    forward + backward (the gradient of sum(Z * G) for a fixed random G,
+    as grad_outputs), against the CPU plain run on the first ``check_n``
+    images (images are independent, so that part is exact).  Returns
+    (fields, launches per role, calls of one recorded step).  ``timing``
+    is (reps, batches) for :func:`timed_ms`; ``need`` the kernels that
+    must launch (forward, backward), the composed path's by default;
+    ``recorder`` makes the recording context (a :class:`Tracer` by
+    default)."""
     N, C, H, W = shape
     x_cpu = torch.randn(shape, generator=torch.Generator().manual_seed(0))
-    cout = 51 if kw.get("combine_colour") else 49 * C
-    G_cpu = torch.randn((N, cout, H // 4, W // 4),
+    colour = kw.get("combine_colour")
+    if layer == "ScatLayerj2":
+        cout, down = (51 if colour else 49 * C), 4
+    else:
+        cout, down = (9 if colour else 7 * C), 2
+    G_cpu = torch.randn((N, cout, H // down, W // down),
                         generator=torch.Generator().manual_seed(1))
     t0 = time.perf_counter()
     xc = x_cpu[:check_n].clone().requires_grad_()
-    z_ref = tt.ScatLayerj2(device="cpu", **kw)(xc)
+    z_ref = getattr(tt, layer)(device="cpu", **kw)(xc)
     g_ref = torch.autograd.grad(z_ref, xc, G_cpu[:check_n])[0]
     cpu_s = time.perf_counter() - t0
 
-    m = tt.ScatLayerj2(device="cuda", **kw)
+    m = getattr(tt, layer)(device="cuda", **kw)
     x = x_cpu.cuda().requires_grad_()
     G = G_cpu.cuda()
     with Tracer(ops, fused, scat) as tr:
@@ -766,12 +1055,16 @@ def scat_step(tt, ops, fused, scat, shape, check_n, phase, timing, **kw):
         counts = ops.launch_counts()
         first_s = time.perf_counter() - t0
     bwd_counts = {k: counts[k] - fwd_counts[k] for k in counts}
-    need_fwd = ("apply_row", "apply_col", "q2c_pack", "scat_mag_fwd")
-    need_bwd = ("apply_row", "apply_col", "c2q_unpack", "scat_mag_bwd")
+    need_fwd, need_bwd = need or (
+        ("apply_row", "apply_col", "q2c_pack", "scat_mag_fwd"),
+        ("apply_row", "apply_col", "c2q_unpack", "scat_mag_bwd"))
     require(all(fwd_counts[k] > 0 for k in need_fwd)
             and all(bwd_counts[k] > 0 for k in need_bwd),
             f"{phase}: a kernel of the path never launched: forward "
             f"{fwd_counts}, backward {bwd_counts}")
+    if need is not None:     # the per-level path: no operator product
+        require(counts["apply_row"] == counts["apply_col"] == 0,
+                f"{phase}: the per-level path launched K1: {counts}")
     require(tuple(z.shape) == tuple(G.shape) and tuple(grad.shape) == shape,
             f"{phase}: wrong shapes {tuple(z.shape)}, {tuple(grad.shape)}")
     require(bool(torch.isfinite(z).all()) and bool(torch.isfinite(grad)
@@ -783,9 +1076,12 @@ def scat_step(tt, ops, fused, scat, shape, check_n, phase, timing, **kw):
             f"{phase}: GPU differs from the CPU plain run on the first "
             f"{check_n} images: output {z_err}, x.grad {g_err}")
     fields = dict(
-        shape=list(shape), options=kw,
+        shape=list(shape), layer=layer, options=kw,
         launches={"forward": fwd_counts, "backward": bwd_counts},
-        launches_by_role=tr.by_role, checked_images=check_n,
+        launches_by_role=tr.by_role if need is None else {
+            "forward": {k: v for k, v in fwd_counts.items() if v},
+            "backward": {k: v for k, v in bwd_counts.items() if v}},
+        checked_images=check_n,
         max_abs_err_vs_cpu={"output": z_err, "x_grad": g_err},
         tolerance=GRAD_ATOL, first_step_s=first_s, cpu_reference_s=cpu_s)
     del z, grad
@@ -806,8 +1102,15 @@ def scat_step(tt, ops, fused, scat, shape, check_n, phase, timing, **kw):
                                                   retain_graph=True),
                       reps=reps, batches=batches, device_only=False)
     del z
-    with Tracer(ops, fused, scat, record=True) as rec_tr:
-        step()
+    if recorder is None:
+        with Tracer(ops, fused, scat, record=True) as rec_tr:
+            step()
+    else:
+        with recorder() as rec_tr:
+            z = m(x)
+            rec_tr.backward = True
+            torch.autograd.grad(z, x, G)
+            del z
     torch.cuda.synchronize()
     mpix = N * C * H * W / 1e6
     fields.update(
@@ -818,7 +1121,7 @@ def scat_step(tt, ops, fused, scat, shape, check_n, phase, timing, **kw):
                     "fwd_bwd": mpix / (step_ms / 1e3)},
         timing_reps_batches=[reps, batches], peak_mem_bytes=peak,
         mem_held_before_bytes=held)
-    return fields, tr.by_role, rec_tr.calls
+    return fields, fields["launches_by_role"], rec_tr.calls
 
 
 def dwt_adjoint(tt, x_cpu, J, one_d):
@@ -1032,6 +1335,334 @@ def dwt_edge_cases(afb, pad):
     return len(calls), err
 
 
+def level_adjoints(lev, x, ff, fi):
+    """The dot-product test <A x, g> = <x, A^T g> of the four level
+    Functions on the card (mode 'symmetric', where the JAX custom VJPs'
+    bwd is the adjoint): level 1 on ``x``, level 2 on its lowpass, each
+    inverse on its forward's outputs.  Returns {function: relative
+    error}."""
+    gen = torch.Generator(device="cuda").manual_seed(80)
+
+    def rnd(t):
+        return torch.randn(t.shape, generator=gen, device="cuda")
+
+    def fwd_err(fn, z, *taps):
+        z = z.detach().requires_grad_()
+        outs = fn(z, *taps, False, 2, -1, "symmetric")
+        gs = [rnd(o) for o in outs]
+        gz = torch.autograd.grad(outs, z, gs)[0]
+        return adjoint_error(outs, gs, [z], [gz]), [o.detach() for o in outs]
+
+    def inv_err(fn, outs, *taps):
+        lo, hi = (o.detach().requires_grad_() for o in outs)
+        y = fn(lo, hi, *taps, 2, -1, "symmetric")
+        g = rnd(y)
+        d = torch.autograd.grad(y, [lo, hi], g)
+        return adjoint_error([y], [g], [lo, hi], list(d))
+
+    out = {}
+    out["fwd_j1_op"], c1 = fwd_err(lev.fwd_j1_op, x, ff["h0o"], ff["h1o"])
+    out["fwd_j2plus_op"], c2 = fwd_err(lev.fwd_j2plus_op, c1[0], ff["h0a"],
+                                       ff["h1a"], ff["h0b"], ff["h1b"])
+    out["inv_j1_op"] = inv_err(lev.inv_j1_op, c1, fi["g0o"], fi["g1o"])
+    out["inv_j2plus_op"] = inv_err(lev.inv_j2plus_op, c2, fi["g0a"],
+                                   fi["g1a"], fi["g0b"], fi["g1b"])
+    return out
+
+
+def _need(counts, kernels, phase, what):
+    require(all(counts[k] > 0 for k in kernels),
+            f"{phase}: a kernel of the {what} never launched: {counts}")
+    require(counts["apply_row"] == counts["apply_col"] == 0,
+            f"{phase}: the per-level path launched K1: {counts}")
+
+
+def dtcwt_large(tt, ops, lev, fb, scat, quad, pool, replay_calls):
+    """DTCWTForward(J=3) -> DTCWTInverse on LARGE_SHAPE, an axis above
+    MAX_MATMUL_N, so the default dispatch takes the per-level path:
+    counted, checked (perfect reconstruction; one forward and one inverse
+    against the plain versions run on the card, the CPU being too slow at
+    this size; the level Functions' adjoint identity), the round trip
+    and one gradient step (of the train_main loss) timed.  One round trip
+    and the backward of one step are recorded, each handed to
+    ``replay_calls(calls, launches per role, label)`` at once (together
+    they would not fit on the card).  Returns the fields."""
+    N, C, H, W = LARGE_SHAPE
+    cuda_gen = torch.Generator(device="cuda")
+    x = torch.randn(LARGE_SHAPE, generator=cuda_gen.manual_seed(0),
+                    device="cuda")
+    f = tt.DTCWTForward(J=LARGE_J, device="cuda")
+    i = tt.DTCWTInverse(device="cuda")
+    mpix = x.numel() / 1e6
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ops.reset_launches()
+        yl, yh = f(x)
+        fwd_counts = ops.launch_counts()
+        rec = i((yl, yh))
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        first_s = time.perf_counter() - t0
+        inv_counts = {k: counts[k] - fwd_counts[k] for k in counts}
+        _need(fwd_counts, ("dtcwt_filt", "dtcwt_dfilt", "q2c_pack"),
+              "dtcwt_large", "forward")
+        _need(inv_counts, ("dtcwt_filt", "dtcwt_ifilt", "c2q_unpack"),
+              "dtcwt_large", "inverse")
+        outs = [yl, *yh]
+        require(all(bool(torch.isfinite(o).all()) for o in outs + [rec])
+                and tuple(rec.shape) == LARGE_SHAPE,
+                "dtcwt_large: non-finite output or wrong shape")
+        pr_err = max_err(rec, x)
+        require(pr_err <= PR_TOL, f"dtcwt_large: reconstruction error "
+                f"{pr_err}")
+        ops.reset_launches()
+        with plain_on_card(fb, lev, scat, quad, pool):
+            pyl, pyh = f(x)
+            prec = i((yl, yh))
+        torch.cuda.synchronize()
+        plain_counts = ops.launch_counts()
+        require(not any(plain_counts[k] for k in PER_LEVEL),
+                f"dtcwt_large: the plain run launched kernels: "
+                f"{plain_counts}")
+        fwd_err = max(max_err(a, b) for a, b in zip(outs, [pyl, *pyh]))
+        inv_err = max_err(rec, prec)
+        require(fwd_err <= INV_ATOL and inv_err <= INV_ATOL,
+                f"dtcwt_large: the kernels differ from the plain versions "
+                f"on the card: forward {fwd_err}, inverse {inv_err}")
+        del pyl, pyh, prec, rec
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        both_ms = timed_ms(lambda: i(f(x)), reps=3, batches=3,
+                           device_only=False)
+        peak = torch.cuda.max_memory_allocated()
+        both_dev_ms = timed_ms(lambda: i(f(x)), reps=3, batches=3)
+        with PerLevelRecorder(fb, lev, scat) as r:
+            i(f(x))
+        torch.cuda.synchronize()
+    # the round trip's forward and inverse
+    replay_calls(r.calls, {"forward": {k: v for k, v in counts.items()
+                                       if v}},
+                 f"DTCWT J={LARGE_J} {shape_str(LARGE_SHAPE)} round trip")
+    del r
+    cts = [torch.randn(t.shape, generator=cuda_gen.manual_seed(1 + k),
+                       device="cuda") for k, t in enumerate([x, *outs])]
+    del yl, yh, outs
+    adj = level_adjoints(lev, x, f._filters, i._filters)
+    require(all(v <= LEVEL_ADJOINT_TOL for v in adj.values()),
+            f"dtcwt_large: adjoint identity of the level Functions off: "
+            f"{adj}")
+    xg = x.requires_grad_()
+
+    def step_outs():
+        yl, yh = f(xg)
+        return [i((yl, yh)), yl, *yh]
+
+    def step():
+        return torch.autograd.grad(step_outs(), xg, cts)[0]
+
+    # the counted step: its forward + inverse, then its backward, each
+    # counted from 0
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    outs = step_outs()
+    torch.cuda.synchronize()
+    step_fwd_counts = ops.launch_counts()
+    ops.reset_launches()
+    grad = torch.autograd.grad(outs, xg, cts)[0]
+    torch.cuda.synchronize()
+    step_bwd_counts = ops.launch_counts()
+    del outs
+    _need(step_bwd_counts, ("dtcwt_filt", "dtcwt_dfilt", "dtcwt_ifilt",
+                            "q2c_pack", "c2q_unpack"), "dtcwt_large",
+          "step's backward")
+    require(bool(torch.isfinite(grad).all()) and tuple(grad.shape) ==
+            LARGE_SHAPE, "dtcwt_large: x.grad not finite or misshapen")
+    del grad
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = timed_ms(step, reps=2, batches=3, device_only=False)
+    step_peak = torch.cuda.max_memory_allocated()
+    step_dev_ms = timed_ms(step, reps=2, batches=3)
+    outs = step_outs()
+    with PerLevelRecorder(fb, lev, scat) as r:
+        r.backward = True
+        torch.autograd.grad(outs, xg, cts)
+    torch.cuda.synchronize()
+    del outs, cts
+    replay_calls(r.calls, {"backward": {k: v for k, v in
+                                        step_bwd_counts.items() if v}},
+                 f"DTCWT J={LARGE_J} {shape_str(LARGE_SHAPE)} step")
+    del r
+    fields = dict(
+        shape=list(LARGE_SHAPE), J=LARGE_J, dispatch="per level (auto: "
+        "axis above MAX_MATMUL_N)",
+        launches={"forward": fwd_counts, "inverse": inv_counts,
+                  "step_forward": step_fwd_counts,
+                  "step_backward": step_bwd_counts},
+        reconstruction_err=pr_err, reconstruction_tol=PR_TOL,
+        max_abs_err_vs_plain_on_card={"forward": fwd_err,
+                                      "inverse": inv_err},
+        tolerance=INV_ATOL, level_adjoint_rel_err=adj,
+        level_adjoint_tol=LEVEL_ADJOINT_TOL, first_call_s=first_s,
+        fwd_inv_ms=both_ms, fwd_inv_device_ms=both_dev_ms,
+        device_busy_share=both_dev_ms / both_ms,
+        mpix_per_s=mpix / (both_ms / 1e3), fwd_bwd_ms=step_ms,
+        fwd_bwd_device_ms=step_dev_ms,
+        step_device_busy_share=step_dev_ms / step_ms,
+        step_mpix_per_s=mpix / (step_ms / 1e3), peak_mem_bytes=peak,
+        step_peak_mem_bytes=step_peak, mem_held_before_bytes=held)
+    x.requires_grad_(False)
+    return fields
+
+
+def per_level_main(tt, ops, banded, fb, lev, scat):
+    """The main path (MAIN_SHAPE, J=2) under set_operator_matmul(False):
+    the per-level stencils against the composed operator products on the
+    card, both timed.  Returns (fields, launches per role, calls)."""
+    N, C, H, W = MAIN_SHAPE
+    x = torch.randn(MAIN_SHAPE,
+                    generator=torch.Generator().manual_seed(0)).cuda()
+    f = tt.DTCWTForward(J=2, device="cuda")
+    i = tt.DTCWTInverse(device="cuda")
+    mpix = x.numel() / 1e6
+    out = {}
+    with torch.no_grad():
+        yl, yh = f(x)
+        ref = [yl, *yh, i((yl, yh))]
+        out["composed_fwd_inv_ms"] = timed_ms(lambda: i(f(x)), reps=10,
+                                              batches=15, device_only=False)
+        out["composed_fwd_inv_device_ms"] = timed_ms(lambda: i(f(x)),
+                                                     reps=10)
+        banded.set_operator_matmul(False)
+        try:
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            yl, yh = f(x)
+            fwd_counts = ops.launch_counts()
+            rec = i((yl, yh))
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            inv_counts = {k: counts[k] - fwd_counts[k] for k in counts}
+            _need(fwd_counts, ("dtcwt_filt", "dtcwt_dfilt", "q2c_pack"),
+                  "per_level_main", "forward")
+            _need(inv_counts, ("dtcwt_filt", "dtcwt_ifilt", "c2q_unpack"),
+                  "per_level_main", "inverse")
+            err = max(max_err(a, b) for a, b in zip([yl, *yh, rec], ref))
+            require(err <= INV_ATOL, f"per_level_main: the per-level path "
+                    f"differs from the composed one by {err}")
+            pr_err = max_err(rec, x)
+            require(pr_err <= PR_TOL, f"per_level_main: reconstruction "
+                    f"error {pr_err}")
+            out["per_level_fwd_inv_ms"] = timed_ms(
+                lambda: i(f(x)), reps=10, batches=15, device_only=False)
+            out["per_level_fwd_inv_device_ms"] = timed_ms(
+                lambda: i(f(x)), reps=10)
+            with PerLevelRecorder(fb, lev, scat) as r:
+                i(f(x))
+            torch.cuda.synchronize()
+        finally:
+            banded.set_operator_matmul(None)
+    by_role = {"forward": {k: v for k, v in counts.items() if v}}
+    fields = dict(
+        shape=list(MAIN_SHAPE), J=2, dispatch="set_operator_matmul(False)",
+        launches={"forward": fwd_counts, "inverse": inv_counts},
+        max_abs_err_vs_composed_on_card=err, tolerance=INV_ATOL,
+        reconstruction_err=pr_err, **out,
+        mpix_per_s={"composed": mpix / (out["composed_fwd_inv_ms"] / 1e3),
+                    "per_level": mpix / (out["per_level_fwd_inv_ms"]
+                                         / 1e3)},
+        device_busy_share={
+            "composed": out["composed_fwd_inv_device_ms"]
+            / out["composed_fwd_inv_ms"],
+            "per_level": out["per_level_fwd_inv_device_ms"]
+            / out["per_level_fwd_inv_ms"]})
+    return fields, by_role, r.calls
+
+
+def per_level_groups(calls, by_role, label):
+    """Groups for :func:`kernel_rows`: per role ('forward' holds a round
+    trip's inverse too) and per kernel, the calls of a per-level phase."""
+    groups = []
+    for role in ("forward", "backward"):
+        for kernel in PER_LEVEL + ("scat_mag_fwd", "scat_mag_bwd"):
+            mine = [c for c in calls if c[0] == kernel and c[1] == role]
+            if mine:
+                groups.append((
+                    f"{SOURCES[kernel][0]} ({label}: {role})",
+                    PER_LEVEL_REPLACES.get(kernel, SOURCES[kernel][2]),
+                    by_role.get(role, {}).get(kernel, 0), mine))
+    return groups
+
+
+def stencil_edge_cases(fb, pool):
+    """K8-K11 against their plain versions where the main paths do not
+    reach: even-length taps (n + 1 outputs), 'zero' mode, K9 at N = 4, 8,
+    12, K10 with qshift_c and qshift_32 (m // 2 even) and qshift_b (odd),
+    strided views as inputs, writes into and accumulation onto a slice.
+    Returns (calls checked, max error)."""
+    from pytorch_wavelets_tpu_torch.filters import qshift
+    gen = torch.Generator().manual_seed(90)
+    calls = []
+
+    def band(shape, axis, n):
+        s = list(shape)
+        s[axis] = n
+        wide = torch.randn((s[0], s[1], 3, s[2], s[3] + 5),
+                           generator=gen).cuda()
+        return wide[:, :, 1, :, 2:2 + s[3]]
+
+    def acc_spec(x, axis, factor, extra):
+        """Accumulation onto a column slice of a wider tensor."""
+        shape = list(x.shape)
+        shape[axis] = shape[axis] * factor + extra
+        big = torch.randn((*shape[:3], shape[3] + 4), generator=gen).cuda()
+        out = big[..., 2:2 + shape[3]]
+        return ("acc", out, out.size(), out.stride())
+
+    for L in (4, 6, 13, 19):
+        t = torch.randn(L, generator=gen).numpy() / np.sqrt(L)
+        for mode in ("symmetric", "zero"):
+            for axis in (2, 3):
+                for n in (1, 6, 33):
+                    x = band((2, 3, 9, 11), axis, n)
+                    calls.append(("dtcwt_filt", "edge",
+                                  (x, t, axis, mode, None)))
+                    calls.append(("dtcwt_filt", "edge",
+                                  (x, t, axis, mode,
+                                   acc_spec(x, axis, 1, 1 - L % 2))))
+    for name in ("qshift_b", "qshift_c", "qshift_32", "qshift_b_bp"):
+        q = qshift(name)
+        taps = [fb.prep_taps(q[k]) for k in (0, 1, 4, 5)]
+        for highpass in (False, True):
+            ha, hb = (taps[3], taps[2]) if highpass else (taps[1], taps[0])
+            for axis in (2, 3):
+                for n in (4, 8, 12):
+                    x = band((2, 3, 8, 12), axis, n)
+                    calls.append(("dtcwt_dfilt", "edge",
+                                  (x, ha, hb, highpass, axis, None)))
+                for n in (2, 6, 10):
+                    x = band((2, 3, 6, 8), axis, n)
+                    calls.append(("dtcwt_ifilt", "edge",
+                                  (x, ha, hb, highpass, axis, None)))
+                    calls.append(("dtcwt_ifilt", "edge",
+                                  (x, ha, hb, highpass, axis,
+                                   acc_spec(x, axis, 2, 0))))
+    x = torch.randn((2, 3, 10, 17), generator=gen).cuda()[..., 1:15]
+    calls += [("avg_pool2_fwd", "edge", (x,)),
+              ("avg_pool2_bwd", "edge", (x[..., ::2],))]
+    err = 0.0
+    for call in calls:
+        got, want, *_, tol = stencil_call_parts(call, fb, pool)
+        ok = (torch.equal(got, want) if tol == "exact"
+              else torch.allclose(got, want, **tol))
+        require(ok, f"{call[0]} edge case {tuple(call[2][0].shape)} "
+                f"disagrees with its plain version by {max_err(got, want)}")
+        err = max(err, max_err(got, want))
+    torch.cuda.synchronize()
+    return len(calls), err
+
+
 def profile(step, iters):
     """Device time by kernel over a window of ``iters`` steps
     (torch.profiler; its own host overhead inflates the window's wall
@@ -1069,8 +1700,10 @@ def main():
     import pytorch_wavelets_tpu_torch as tt
     from pytorch_wavelets_tpu_torch import ops
     from pytorch_wavelets_tpu_torch.ops import (
-        _cuda, afb_sfb, banded, fused_dtcwt, pad, quad, scat_mag,
+        _cuda, afb_sfb, banded, dtcwt_fb, fused_dtcwt, pad, pool, quad,
+        scat_mag,
     )
+    from pytorch_wavelets_tpu_torch.transforms import dtcwt as lev
     from pytorch_wavelets_tpu_torch.transforms import dwt, scatternet
 
     smi = subprocess.run(
@@ -1157,11 +1790,68 @@ def main():
                 SOURCES[kernel][2] if replaces is None else
                 f"pytorch_wavelets_tpu/transforms/dwt.py:{replaces}",
                 roles[role], mine))
+    # the earlier paths' calls are replayed (and freed) before the
+    # per-level paths run, which need the card's memory
     with torch.no_grad():
         rows = kernel_rows(groups, *kern)
     for row in rows:
         emit("kernel", **row)
     del calls, bcalls, tcalls, scalls, ccalls, dcalls, ocalls
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # the per-level path; each phase's calls are replayed right after it
+    def level_rows(calls, by_role, label, timing=REPLAY_TIMING):
+        with torch.no_grad():
+            new = kernel_rows(per_level_groups(calls, by_role, label),
+                              *kern, dtcwt_fb, pool, timing)
+        torch.cuda.synchronize()
+        for row in new:
+            emit("kernel", **row)
+        rows.extend(new)
+
+    def recorder():
+        return PerLevelRecorder(dtcwt_fb, lev, scatternet)
+    need = (("dtcwt_filt", "dtcwt_dfilt", "q2c_pack", "scat_mag_fwd",
+             "avg_pool2_fwd"),
+            ("dtcwt_filt", "dtcwt_ifilt", "c2q_unpack", "scat_mag_bwd",
+             "avg_pool2_bwd"))
+    pfields, p_roles, pcalls = scat_step(
+        tt, ops, fused_dtcwt, scatternet, BP_SHAPE, SCAT_CHECK_N, "scat_bp",
+        SCAT_TIMING, need=need, recorder=recorder, **BP)
+    emit("scat_bp", **pfields, gtx1080_reference_s=dict(
+        GTX1080_SCAT_S, source="BASELINE.md:18", hardware="GTX1080",
+        filters="near_sym_a / qshift_a"))
+    level_rows(pcalls, p_roles, f"ScatLayerj2 bp {shape_str(BP_SHAPE)}")
+    del pcalls
+    for layer, kw, check_n in (
+            ("ScatLayer", dict(biort="near_sym_b_bp"), COLOUR_CHECK_N),
+            ("ScatLayerj2", dict(BP, combine_colour=True), COLOUR_CHECK_N)):
+        j1 = layer == "ScatLayer"
+        sneed = (tuple(k for k in need[0] if not (j1 and k == "dtcwt_dfilt")),
+                 tuple(k for k in need[1] if not (j1 and k == "dtcwt_ifilt")))
+        qfields, q_roles, qcalls = scat_step(
+            tt, ops, fused_dtcwt, scatternet, BP_SMALL_SHAPE, check_n,
+            f"scat_bp_small {layer}", COLOUR_TIMING, layer=layer, need=sneed,
+            recorder=recorder, **kw)
+        emit("scat_bp_small", **qfields)
+        colour = " combine_colour" if kw.get("combine_colour") else ""
+        level_rows(qcalls, q_roles,
+                   f"{layer} bp{colour} {shape_str(BP_SMALL_SHAPE)}")
+        del qcalls
+    gfields = dtcwt_large(
+        tt, ops, lev, dtcwt_fb, scatternet, quad, pool,
+        lambda c, r, label: level_rows(c, r, label, LARGE_REPLAY_TIMING))
+    emit("dtcwt_large", **gfields)
+    mfields, m_roles, mcalls = per_level_main(tt, ops, banded, dtcwt_fb,
+                                              lev, scatternet)
+    emit("per_level_main", **mfields)
+    level_rows(mcalls, m_roles, f"DTCWT J=2 {shape_str(MAIN_SHAPE)} per "
+               f"level")
+    del mcalls
+    n_edge, edge_err = stencil_edge_cases(dtcwt_fb, pool)
+    emit("stencil_edge_cases", calls=n_edge, max_abs_err=edge_err,
+         tolerance=STENCIL_TOL)
 
     fwd = tt.DTCWTForward(J=2, device="cuda")
     inv = tt.DTCWTInverse(device="cuda")
@@ -1179,6 +1869,15 @@ def main():
          **profile(lambda: torch.autograd.grad(m(xs), xs, G), 3))
     del m, xs, G
     emit("profile", path="dwt_train", **profile(dstep, 3))
+    m = tt.ScatLayerj2(device="cuda", **BP)
+    N, C, H, W = BP_SHAPE
+    xs = torch.randn(BP_SHAPE, generator=torch.Generator().manual_seed(0))
+    xs = xs.cuda().requires_grad_()
+    G = torch.randn((N, 49 * C, H // 4, W // 4),
+                    generator=torch.Generator().manual_seed(1)).cuda()
+    emit("profile", path="scat_bp forward + backward",
+         **profile(lambda: torch.autograd.grad(m(xs), xs, G), 3))
+    del m, xs, G
 
     print(json.dumps({"kernels": [{k: v for k, v in r.items()
                                    if k != "per_call"} for r in rows]}))

@@ -19,20 +19,24 @@ import torch
 
 __all__ = ["filters_from_jax", "dwt_filters_from_jax"]
 
-# DTCWTForward and ScatLayerj2 hold the same names; ScatLayer the first two
+# DTCWTForward and ScatLayerj2 hold the same names; ScatLayer the first
+# two; with the bandpass-diagonal filters (biort="near_sym_b_bp") ScatLayer
+# adds h2o and ScatLayerj2 h2o, h2a, h2b
 _FWD = ("h0o", "h1o", "h0a", "h0b", "h1a", "h1b")
 _INV = ("g0o", "g1o", "g0a", "g0b", "g1a", "g1b")
 _SCAT1 = ("h0o", "h1o")
+_SCAT1_BP = ("h0o", "h1o", "h2o")
+_SCAT2_BP = ("h0o", "h1o", "h2o", "h0a", "h0b", "h1a", "h1b", "h2a", "h2b")
+_KEY_SETS = (_FWD, _INV, _SCAT1, _SCAT1_BP, _SCAT2_BP)
 
 
 def filters_from_jax(d) -> dict:
     """JAX tap set -> the port's filter buffers (float64, 1-D)."""
     d = dict(d)
-    names = next((n for n in (_FWD, _INV, _SCAT1) if set(d) == set(n)),
-                 None)
+    names = next((n for n in _KEY_SETS if set(d) == set(n)), None)
     if names is None:
-        raise ValueError(f"expected the keys {_FWD}, {_INV} or {_SCAT1}, "
-                         f"got {sorted(d)}")
+        raise ValueError(f"expected one of the key sets {_KEY_SETS}, got "
+                         f"{sorted(d)}")
     return {k: torch.as_tensor(np.asarray(d[k], dtype=np.float64).ravel())
             for k in names}
 

@@ -46,18 +46,19 @@ __device__ __forceinline__ float sample(const AfbArgs& a, const float* base,
   return base[(long long)min(r, a.n - 1) * step];
 }
 
+template <typename I>
 __global__ void dwt_afb_kernel(AfbArgs a, DwtTaps taps) {
   __shared__ float h0[DWT_MAX_TAPS], h1[DWT_MAX_TAPS];
   load_taps(taps, a.L, h0, h1);
-  const int per_plane = a.Ho * a.Wo;
+  const I per_plane = (I)a.Ho * a.Wo;
   for (long long p = blockIdx.y; p < a.planes; p += gridDim.y) {
     const long long nn = p / a.C;
     const int c = (int)(p % a.C);
     const float* xp = a.x + nn * a.sx0 + c * a.sx1;
     float* yp = a.y + nn * a.sy0 + c * a.sy1;
-    for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < per_plane;
-         idx += gridDim.x * blockDim.x) {
-      const int i = idx / a.Wo, j = idx % a.Wo;
+    for (I idx = (I)blockIdx.x * blockDim.x + threadIdx.x; idx < per_plane;
+         idx += (I)gridDim.x * blockDim.x) {
+      const int i = (int)(idx / a.Wo), j = (int)(idx % a.Wo);
       int m;
       const float* base;
       long long step;
@@ -144,10 +145,8 @@ int dwt_afb(const void* x, void* y, const float* h0, const float* h1, int L,
   a.sy0 = sy0; a.sy1 = sy1; a.syb = syb; a.sy2 = sy2; a.sy3 = sy3;
   const long long per_plane = (long long)a.Ho * a.Wo;
   if (per_plane == 0 || a.planes == 0) return 0;
-  const int threads = 256;
-  dwt_afb_kernel<<<dwt_grid(per_plane, a.planes, threads), threads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      a, pack_taps(h0, h1, L));
+  dwt_launch(dwt_afb_kernel<int>, dwt_afb_kernel<long long>,
+             per_plane, a.planes, a, pack_taps(h0, h1, L), stream);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -53,6 +53,16 @@ __device__ __forceinline__ int pad_src(long long i, int n, int mode) {
   }
 }
 
+// pad_src for the 'zero' and 'symmetric' modes at a position no more than
+// one axis length outside the signal (-n <= i < 2n), in 32-bit arithmetic
+// with no division: one reflection at most.  The DTCWT stencils (K8-K10)
+// take it for every window inside [-n, 2n) and pad_src otherwise.
+__device__ __forceinline__ int pad_src_near(int i, int n, int mode) {
+  if (i >= 0 && i < n) return i;
+  if (mode == PAD_ZERO) return -1;
+  return i < 0 ? -1 - i : 2 * n - 1 - i;
+}
+
 // Copy both tap vectors from the kernel's parameters into shared memory.
 __device__ __forceinline__ void load_taps(const DwtTaps& t, int L, float* f0,
                                           float* f1) {
@@ -78,4 +88,23 @@ inline dim3 dwt_grid(long long per_plane, long long planes, int threads) {
   const long long bx = (per_plane + threads - 1) / threads;
   return dim3((unsigned)(bx > 2147483647LL ? 2147483647LL : bx),
               (unsigned)(planes > 65535 ? 65535 : planes), 1);
+}
+
+// Launch a stencil kernel on that grid with the pixel index of a plane in
+// 32-bit integers (k32) where the plane holds fewer than 2^30 outputs, so
+// that the grid-stride step cannot overflow, and in 64-bit ones (k64, one
+// division of 64 bits per output) on larger planes.  The host wrappers
+// keep each axis below 2^30, so the index along one axis, and twice it,
+// stay 32-bit in both.
+template <typename Args>
+inline void dwt_launch(void (*k32)(Args, DwtTaps), void (*k64)(Args, DwtTaps),
+                       long long per_plane, long long planes, const Args& a,
+                       const DwtTaps& taps, void* stream) {
+  const int threads = 256;
+  const dim3 grid = dwt_grid(per_plane, planes, threads);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (per_plane < (1LL << 30))
+    k32<<<grid, threads, 0, st>>>(a, taps);
+  else
+    k64<<<grid, threads, 0, st>>>(a, taps);
 }

@@ -52,19 +52,20 @@ __device__ __forceinline__ float merge_at(long long u, const float* lo,
   return acc;
 }
 
+template <typename I>
 __global__ void dwt_sfb_kernel(SfbArgs a, DwtTaps taps) {
   __shared__ float g0[DWT_MAX_TAPS], g1[DWT_MAX_TAPS];
   load_taps(taps, a.L, g0, g1);
-  const int per_plane = a.Ho * a.Wo;
+  const I per_plane = (I)a.Ho * a.Wo;
   for (long long p = blockIdx.y; p < a.planes; p += gridDim.y) {
     const long long nn = p / a.C;
     const int c = (int)(p % a.C);
     const float* lp = a.lo + nn * a.sl0 + c * a.sl1;
     const float* hp = a.hi + nn * a.sh0 + c * a.sh1;
     float* yp = a.y + nn * a.sy0 + c * a.sy1;
-    for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < per_plane;
-         idx += gridDim.x * blockDim.x) {
-      const int i = idx / a.Wo, j = idx % a.Wo;
+    for (I idx = (I)blockIdx.x * blockDim.x + threadIdx.x; idx < per_plane;
+         idx += (I)gridDim.x * blockDim.x) {
+      const int i = (int)(idx / a.Wo), j = (int)(idx % a.Wo);
       int o;
       const float *lb, *hb;
       long long slo, shi;
@@ -132,10 +133,8 @@ int dwt_sfb(const void* lo, const void* hi, void* y, const float* g0,
   a.sy0 = sy0; a.sy1 = sy1; a.sy2 = sy2; a.sy3 = sy3;
   const long long per_plane = (long long)a.Ho * a.Wo;
   if (per_plane == 0 || a.planes == 0) return 0;
-  const int threads = 256;
-  dwt_sfb_kernel<<<dwt_grid(per_plane, a.planes, threads), threads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      a, pack_taps(g0, g1, L));
+  dwt_launch(dwt_sfb_kernel<int>, dwt_sfb_kernel<long long>,
+             per_plane, a.planes, a, pack_taps(g0, g1, L), stream);
   return static_cast<int>(cudaGetLastError());
 }
 

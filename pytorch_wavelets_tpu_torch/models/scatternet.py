@@ -13,8 +13,9 @@ from pytorch_wavelets_tpu_torch.transforms.scatternet import (
 
 __all__ = ["ScatLayer", "ScatLayerj2"]
 
-_NO_BP = ("biort='near_sym_b_bp' runs the per-level rotated-filter path, "
-          "which is not ported yet (ROADMAP.md, 'Still to port' 2)")
+
+def _filters(pairs):
+    return {name: _tup(prep_taps(taps)) for name, taps in pairs}
 
 
 class ScatLayer(_TapsModule):
@@ -24,7 +25,9 @@ class ScatLayer(_TapsModule):
     Call: x (N, C, H, W) -> (N, 7C, H/2, W/2) with the first C channels the
     lowpass and the next 6C the oriented magnitudes (or (N, 9, ...) when
     combine_colour).  Differentiable: on CUDA the forward and backward run
-    the hand-written kernels (pyramid K1-K3, magnitude K4/K5).
+    the hand-written kernels (the composed pyramid K1-K3, or with
+    ``biort="near_sym_b_bp"`` the bandpass-diagonal per-level path
+    K8/K10, K2/K3 and the pool K11; the magnitudes K4/K5).
 
     ``device``: 'cuda' (default; raises without CUDA) or 'cpu' for the
     plain PyTorch path.  ``mesh`` and ``batch_chunk`` (None = no
@@ -34,12 +37,14 @@ class ScatLayer(_TapsModule):
     def __init__(self, biort="near_sym_a", mode="symmetric", magbias=1e-2,
                  combine_colour=False, device="cuda", mesh=None,
                  batch_chunk=None):
-        if biort == "near_sym_b_bp":
-            raise NotImplementedError(_NO_BP)
-        h0o, _, h1o, _ = _biort(biort)
-        super().__init__({"h0o": _tup(prep_taps(h0o)),
-                          "h1o": _tup(prep_taps(h1o))}, device, mesh,
-                         batch_chunk)
+        self.bandpass_diag = biort == "near_sym_b_bp"
+        if self.bandpass_diag:
+            h0o, _, h1o, _, h2o, _ = _biort(biort)
+            pairs = (("h0o", h0o), ("h1o", h1o), ("h2o", h2o))
+        else:
+            h0o, _, h1o, _ = _biort(biort)
+            pairs = (("h0o", h0o), ("h1o", h1o))
+        super().__init__(_filters(pairs), device, mesh, batch_chunk)
         self.biort = biort
         self.mode = mode
         self.magbias = magbias
@@ -49,7 +54,8 @@ class ScatLayer(_TapsModule):
         self._check_device(x)
         return scat_layer_j1(x, self._filters, mode=self.mode,
                              magbias=self.magbias,
-                             combine_colour=self.combine_colour)
+                             combine_colour=self.combine_colour,
+                             bandpass_diag=self.bandpass_diag)
 
 
 class ScatLayerj2(_TapsModule):
@@ -64,16 +70,23 @@ class ScatLayerj2(_TapsModule):
     def __init__(self, biort="near_sym_a", qshift="qshift_a",
                  mode="symmetric", magbias=1e-2, combine_colour=False,
                  device="cuda", mesh=None, batch_chunk=None):
-        if biort == "near_sym_b_bp":
+        self.bandpass_diag = biort == "near_sym_b_bp"
+        if self.bandpass_diag:
             if qshift != "qshift_b_bp":
                 raise ValueError("near_sym_b_bp biort requires "
                                  "qshift_b_bp qshift filters")
-            raise NotImplementedError(_NO_BP)
-        h0o, _, h1o, _ = _biort(biort)
-        h0a, h0b, _, _, h1a, h1b, _, _ = _qshift(qshift)
-        super().__init__({name: _tup(prep_taps(taps)) for name, taps in (
-            ("h0o", h0o), ("h1o", h1o), ("h0a", h0a), ("h0b", h0b),
-            ("h1a", h1a), ("h1b", h1b))}, device, mesh, batch_chunk)
+            h0o, _, h1o, _, h2o, _ = _biort(biort)
+            (h0a, h0b, _, _, h1a, h1b, _, _,
+             h2a, h2b, _, _) = _qshift(qshift)
+            pairs = (("h0o", h0o), ("h1o", h1o), ("h2o", h2o),
+                     ("h0a", h0a), ("h0b", h0b), ("h1a", h1a), ("h1b", h1b),
+                     ("h2a", h2a), ("h2b", h2b))
+        else:
+            h0o, _, h1o, _ = _biort(biort)
+            h0a, h0b, _, _, h1a, h1b, _, _ = _qshift(qshift)
+            pairs = (("h0o", h0o), ("h1o", h1o), ("h0a", h0a),
+                     ("h0b", h0b), ("h1a", h1a), ("h1b", h1b))
+        super().__init__(_filters(pairs), device, mesh, batch_chunk)
         self.biort = biort
         self.qshift = qshift
         self.mode = mode
@@ -84,4 +97,5 @@ class ScatLayerj2(_TapsModule):
         self._check_device(x)
         return scat_layer_j2(x, self._filters, mode=self.mode,
                              magbias=self.magbias,
-                             combine_colour=self.combine_colour)
+                             combine_colour=self.combine_colour,
+                             bandpass_diag=self.bandpass_diag)

@@ -8,7 +8,13 @@ from pytorch_wavelets_tpu_torch.ops.afb_sfb import (  # noqa: F401
     afb1d_corr, sfb1d_conv,
 )
 from pytorch_wavelets_tpu_torch.ops.banded import (  # noqa: F401
-    apply_col, apply_row,
+    apply_col, apply_row, set_operator_matmul,
+)
+from pytorch_wavelets_tpu_torch.ops.dtcwt_fb import (  # noqa: F401
+    dtcwt_dfilt, dtcwt_filt, dtcwt_ifilt,
+)
+from pytorch_wavelets_tpu_torch.ops.pool import (  # noqa: F401
+    avg_pool2_bwd, avg_pool2_fwd,
 )
 from pytorch_wavelets_tpu_torch.ops.quad import (  # noqa: F401
     c2q_unpack, q2c_pack,
@@ -18,7 +24,8 @@ from pytorch_wavelets_tpu_torch.ops.scat_mag import (  # noqa: F401
 )
 
 KERNELS = (apply_row, apply_col, q2c_pack, c2q_unpack, scat_mag_fwd,
-           scat_mag_bwd, afb1d_corr, sfb1d_conv)
+           scat_mag_bwd, afb1d_corr, sfb1d_conv, dtcwt_filt, dtcwt_dfilt,
+           dtcwt_ifilt, avg_pool2_fwd, avg_pool2_bwd)
 
 
 def reset_launches() -> None:

@@ -44,12 +44,13 @@ _SIGNATURES = {
         "banded_apply_k_align": [],
     },
     "q2c_pack": {
-        "q2c_pack": [_P, _P, _L, _I, _I, _I, _I, _I, _L,
-                     _L, _L, _L, _L, _L, _L, _P],
+        "q2c_pack": [_P, _P, _L, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L,
+                     _L, _L, _L, _L, _F, _L, _L, _L, _L, _L, _L, _P],
     },
     "c2q_unpack": {
         "c2q_unpack": [_P, _P, _L, _I, _I, _I, _I, _I,
-                       _L, _L, _L, _L, _L, _L, _P],
+                       _L, _L, _L, _L, _L, _L,
+                       _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
     },
     "scat_mag": {
         "scat_mag_fwd": [_P, _P, _L, _I, _I, _I, _I,
@@ -66,6 +67,22 @@ _SIGNATURES = {
         "dwt_sfb": [_P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _L, _L, _L, _L,
                     _L, _L, _L, _L, _I, _I, _I, _I, _I, _I,
                     _L, _L, _L, _L, _P],
+    },
+    "dtcwt_filt": {
+        "dtcwt_filt": [_P, _P, _P, _I, _L, _I, _I, _I, _L, _L, _L, _L,
+                       _I, _I, _I, _L, _L, _L, _L, _P],
+    },
+    "dtcwt_dfilt": {
+        "dtcwt_dfilt": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I,
+                        _L, _L, _L, _L, _I, _L, _L, _L, _L, _P],
+    },
+    "dtcwt_ifilt": {
+        "dtcwt_ifilt": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I,
+                        _L, _L, _L, _L, _I, _I, _L, _L, _L, _L, _P],
+    },
+    "avg_pool2": {
+        "avg_pool2_fwd": [_P, _P, _L, _I, _I, _I, _L, _L, _L, _L, _P],
+        "avg_pool2_bwd": [_P, _P, _L, _I, _I, _I, _L, _L, _L, _L, _P],
     },
 }
 

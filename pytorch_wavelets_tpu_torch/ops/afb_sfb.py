@@ -40,6 +40,8 @@ __all__ = ["as_taps", "afb1d", "sfb1d", "afb2d", "sfb2d", "afb1d_corr",
 
 # the kernels keep both tap vectors in shared memory (csrc/dwt_*.cu)
 MAX_TAPS = 128
+# the kernels index along an axis in 32-bit integers (csrc/dwt_index.cuh)
+MAX_AXIS = 2 ** 30
 
 
 def as_taps(h) -> np.ndarray:
@@ -246,13 +248,14 @@ def _taps_f32(kernel, h0, h1):
 
 
 def _check_4d(kernel, axis, t):
-    """The kernels index the pixels of a plane with 32-bit integers."""
+    """The kernels index along an axis with 32-bit integers (twice an
+    axis length must fit them); a plane of 2^30 pixels or more takes
+    their 64-bit pixel index (csrc/dwt_index.cuh:dwt_launch)."""
     if axis not in (2, 3):
         raise ValueError(f"{kernel}: axis must be 2 or 3, got {axis}")
-    if t.ndim != 4 or t.shape[2] * t.shape[3] >= 2 ** 31:
+    if t.ndim != 4 or max(t.shape[2], t.shape[3]) >= MAX_AXIS:
         raise ValueError(f"{kernel}: expected an (N, C, H, W) tensor with "
-                         f"fewer than 2^31 pixels per plane, got "
-                         f"{tuple(t.shape)}")
+                         f"H and W below 2^30, got {tuple(t.shape)}")
 
 
 def _ptr(a):

@@ -27,14 +27,39 @@ from pytorch_wavelets_tpu_torch.ops.precision import (
 __all__ = ["apply_col", "apply_row", "apply_col_plain", "apply_row_plain",
            "Operator", "probe_op", "compose", "extend_wrap_operator",
            "extend_operator", "synthesized_or_probe", "content_key",
+           "set_operator_matmul", "matmul_requested", "composed_enabled",
            "MAX_MATMUL_N", "MAX_OP_MATMUL_N", "DIRECT_PROBE_N"]
 
-# Above this axis length the JAX package's composed planners fall back to
-# its per-level operator path; the port has no per-level path yet, so it
-# raises there (ROADMAP.md, "Still to port" 2).  The value is the
-# JAX package's, kept so both packages take the composed path on the same
-# shapes.
+# Above this axis length the composed planners hand over to the per-level
+# path (``transforms/dtcwt.py``).  The value is the JAX package's, kept so
+# both packages take the composed path on the same shapes.
 MAX_MATMUL_N = 8832
+
+_FORCE = None   # None: auto; True / False: forced (set_operator_matmul)
+
+
+def set_operator_matmul(enabled):
+    """Force the operator-matmul (composed) path on or off; None = auto.
+
+    The JAX package's switch, with its meaning on a device: auto and True
+    take the composed whole-transform path wherever a plan exists (both
+    axes at most ``MAX_MATMUL_N``, filters that are not bandpass-diagonal),
+    and the per-level stencils (K8-K10) elsewhere; False takes the
+    per-level path everywhere.  The port's per-level path always runs the
+    stencils: the JAX package's per-level operator products are an MXU
+    choice the port does not make."""
+    global _FORCE
+    _FORCE = enabled
+
+
+def matmul_requested() -> bool:
+    """Whether the composed operator path is wanted at all."""
+    return _FORCE is None or bool(_FORCE)
+
+
+def composed_enabled(n: int) -> bool:
+    """Whether an axis of length ``n`` may take the composed path."""
+    return matmul_requested() and n <= MAX_MATMUL_N
 
 
 def compose(A, B):

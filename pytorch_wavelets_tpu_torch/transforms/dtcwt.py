@@ -1,33 +1,52 @@
-"""DTCWT whole-transform planners: cross-level operator composition.
+"""DTCWT level functions and their backwards, and the whole-transform
+planners.
 
-Port of the composed-plan part of ``pytorch_wavelets_tpu/transforms/
-dtcwt.py`` (reference semantics: pytorch_wavelets/dtcwt/transform_funcs.py
-and transform2d.py).  Every level is linear, so level-j operators compose
-through the lowpass chain on the host: the inter-level %4 replicate pads
-and the inverse's [1:-1] crops are selection matrices and fold in exactly.
-The composed forward computes every output directly from x; the composed
-inverse scatters every level straight to x resolution.
+Port of ``pytorch_wavelets_tpu/transforms/dtcwt.py`` (reference semantics:
+pytorch_wavelets/dtcwt/transform_funcs.py and transform2d.py), in two
+parts:
 
-The numpy plans are cached by their arguments (bounded by bytes); their
-device form (``ops/fused_dtcwt.py:analysis_operators`` /
-``synthesis_operators``) is cached per (plan key, device), so the
-operators are uploaded once, not on every call.  The JAX package's
-per-level level functions (``fwd_j1`` ... ``inv_j2plus_op``), its
-fallback where no composed plan exists, are ROADMAP.md, "Still to
-port" 2.
+- The per-level path: the level functions (``fwd_j1`` ... ``inv_j2plus``;
+  given the bandpass-diagonal filters h2 / (h2a, h2b) they are the JAX
+  package's ``_rot`` variants) over the stencils of
+  ``ops/dtcwt_fb.py`` (K8-K10 on the card), the bands written and read by
+  K2/K3 in their per-level mode (``highs_to_orientations`` /
+  ``orientations_to_highs``), and the JAX custom VJPs as
+  ``torch.autograd.Function``s (``fwd_j1_op`` ... ``inv_j2plus_op``): the
+  backward of a forward level is the inverse level with the same taps
+  (for q-shift levels the a/b trees swap), that of an inverse level the
+  forward level; they save no inputs.  This is the path of the
+  bandpass-diagonal scattering filters, of axes above ``MAX_MATMUL_N``,
+  of shapes the composed plans reject, and of everything under
+  ``ops.banded.set_operator_matmul(False)``.
+- The composed path: every level is linear, so level-j operators compose
+  through the lowpass chain on the host: the inter-level %4 replicate
+  pads and the inverse's [1:-1] crops are selection matrices and fold in
+  exactly.  The composed forward computes every output directly from x;
+  the composed inverse scatters every level straight to x resolution.
+  The numpy plans are cached by their arguments (bounded by bytes); their
+  device form (``ops/fused_dtcwt.py:analysis_operators`` /
+  ``synthesis_operators``) is cached per (plan key, device), so the
+  operators are uploaded once, not on every call.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from pytorch_wavelets_tpu_torch.ops import banded, fused_dtcwt
 from pytorch_wavelets_tpu_torch.ops.dtcwt_fb import (
-    _dfilt_matrix, _filter_matrix, _ifilt_matrix,
+    _dfilt_matrix, _filter_matrix, _ifilt_matrix, coldfilt, colfilter,
+    colifilt, rowdfilt, rowfilter, rowifilt,
 )
+from pytorch_wavelets_tpu_torch.ops.fused_dtcwt import canonical_bands
+from pytorch_wavelets_tpu_torch.ops.quad import c2q_unpack, q2c_pack
 
 __all__ = ["get_dimensions5", "get_dimensions6", "dtcwt2d_pyramid",
-           "inv_pyramid_operators"]
+           "inv_pyramid_operators", "highs_to_orientations",
+           "orientations_to_highs", "fwd_j1", "inv_j1", "fwd_j2plus",
+           "inv_j2plus", "fwd_j1_op", "fwd_j1_rot_op", "fwd_j2plus_op",
+           "fwd_j2plus_rot_op", "inv_j1_op", "inv_j2plus_op"]
 
 
 def get_dimensions5(o_dim, ri_dim):
@@ -62,6 +81,283 @@ def get_dimensions6(o_dim, ri_dim):
     w_dim = w5 + (1 if w5 >= rd else 0)
     return od5, rd, h_dim, w_dim
 
+
+# --------------------------------------------------------------------------
+# The per-level path
+# --------------------------------------------------------------------------
+
+# the orientation pairs of (lh, hl, hh): 15/165, 75/105, 45/135 degrees
+# (reference transform_funcs.py:61-95)
+_ORIENTS = ((0, 5), (2, 3), (1, 4))
+
+
+def highs_to_orientations(y, o_dim, ri_dim):
+    """(N, C, 3, 2m, 2k) stack of the (lh, hl, hh) subbands -> the 6-D
+    bandpass tensor, the 6 oriented complex bands at ``o_dim`` and re/im
+    at ``ri_dim`` (5-D / 6-D dims, ``get_dimensions5``), in the order 15,
+    45, 75, 105, 135, 165 degrees (reference: transform_funcs.py:61-72):
+    one K2 pass on the card, no stacking copies."""
+    N, C, _, H2, W2 = y.shape
+    if H2 % 2 or W2 % 2:
+        raise ValueError(f"q2c: the corners of {H2}x{W2} subbands are not "
+                         f"defined (odd size: even-length level-1 filters "
+                         f"give odd outputs)")
+    shape = [N, C, H2 // 2, W2 // 2]
+    shape.insert(o_dim, 6)
+    shape.insert(ri_dim, 2)
+    h = torch.empty(shape, dtype=y.dtype, device=y.device)
+    q2c_pack(y, canonical_bands(h, o_dim, ri_dim), _ORIENTS,
+             interleaved=True)
+    return h
+
+
+def orientations_to_highs(h, o_dim, ri_dim):
+    """Inverse of :func:`highs_to_orientations` (reference:
+    transform_funcs.py:75-95): the contiguous (N, C, 3, 2h, 2w) stack of
+    (lh, hl, hh), one K3 pass on the card."""
+    return c2q_unpack(canonical_bands(h, o_dim, ri_dim), _ORIENTS,
+                      interleaved=True)
+
+
+def _stack3(like, rows, cols):
+    N, C = like.shape[:2]
+    return torch.empty((N, C, 3, rows, cols), dtype=like.dtype,
+                       device=like.device)
+
+
+def fwd_j1(x, h0, h1, h2, skip_hps, o_dim, ri_dim, mode):
+    """Level-1 analysis (reference: transform_funcs.py:98-149), with the
+    bandpass-diagonal filter h2 on the HH branch when it is given (JAX
+    ``fwd_j1_rot``): (ll, bands) with the bands in the (o_dim, ri_dim)
+    layout (5-D / 6-D dims), or (ll, None) with ``skip_hps``."""
+    if skip_hps:
+        return colfilter(rowfilter(x, h0, mode), h0, mode), None
+    lo = rowfilter(x, h0, mode)
+    hi = rowfilter(x, h1, mode)
+    ba = hi if h2 is None else rowfilter(x, h2, mode)
+    y = _stack3(lo, lo.shape[2] + 1 - len(h0) % 2, lo.shape[3])
+    colfilter(lo, h1, mode, out=y[:, :, 0])                  # lh
+    colfilter(hi, h0, mode, out=y[:, :, 1])                  # hl
+    colfilter(ba, h1 if h2 is None else h2, mode, out=y[:, :, 2])   # hh
+    ll = colfilter(lo, h0, mode)
+    return ll, highs_to_orientations(y, o_dim, ri_dim)
+
+
+def _crop_ll(ll, h, o_dim, ri_dim):
+    """The [1:-1] crops of a lowpass one row/column longer than twice the
+    bands (a view)."""
+    r1, c1 = canonical_bands(h, o_dim, ri_dim).shape[3:5]
+    if ll.shape[2] != r1 * 2:
+        ll = ll[:, :, 1:-1]
+    if ll.shape[3] != c1 * 2:
+        ll = ll[:, :, :, 1:-1]
+    return ll
+
+
+def inv_j1(ll, h, g0, g1, g2, o_dim, ri_dim, mode):
+    """Level-1 synthesis of the lowpass (or None) and the bands (or None)
+    (reference: transform_funcs.py:152-223; with g2, JAX ``inv_j1_rot``);
+    the sums accumulate into the first term's output (K8's
+    ``accumulate``)."""
+    if h is None:
+        return rowfilter(colfilter(ll, g0), g0)
+    q = orientations_to_highs(h, o_dim, ri_dim)
+    lh, hl, hh = q[:, :, 0], q[:, :, 1], q[:, :, 2]
+    lo = colfilter(lh, g1, mode)
+    if ll is not None:
+        colfilter(_crop_ll(ll, h, o_dim, ri_dim), g0, mode, out=lo,
+                  accumulate=True)
+    if g2 is None:
+        hi = colfilter(hh, g1, mode)
+        colfilter(hl, g0, mode, out=hi, accumulate=True)
+        y = rowfilter(hi, g1, mode)
+        return rowfilter(lo, g0, mode, out=y, accumulate=True)
+    hi = colfilter(hl, g0, mode)
+    ba = colfilter(hh, g2, mode)
+    y = rowfilter(hi, g1, mode)
+    rowfilter(lo, g0, mode, out=y, accumulate=True)
+    return rowfilter(ba, g2, mode, out=y, accumulate=True)
+
+
+def fwd_j2plus(x, h0a, h1a, h0b, h1b, h2a, h2b, skip_hps, o_dim, ri_dim,
+               mode):
+    """Level>=2 analysis with q-shift trees (reference:
+    transform_funcs.py:226-276; with h2a/h2b, JAX ``fwd_j2plus_rot``):
+    (ll, bands) or (ll, None)."""
+    if skip_hps:
+        return coldfilt(rowdfilt(x, h0b, h0a, False, mode), h0b, h0a, False,
+                        mode), None
+    lo = rowdfilt(x, h0b, h0a, False, mode)
+    hi = rowdfilt(x, h1b, h1a, True, mode)
+    y = _stack3(lo, lo.shape[2] // 2, lo.shape[3])
+    coldfilt(lo, h1b, h1a, True, mode, out=y[:, :, 0])       # lh
+    coldfilt(hi, h0b, h0a, False, mode, out=y[:, :, 1])      # hl
+    if h2a is None:
+        coldfilt(hi, h1b, h1a, True, mode, out=y[:, :, 2])   # hh
+    else:
+        ba = rowdfilt(x, h2b, h2a, True, mode)
+        coldfilt(ba, h2b, h2a, True, mode, out=y[:, :, 2])
+    ll = coldfilt(lo, h0b, h0a, False, mode)
+    return ll, highs_to_orientations(y, o_dim, ri_dim)
+
+
+def inv_j2plus(ll, h, g0a, g1a, g0b, g1b, g2a, g2b, o_dim, ri_dim, mode):
+    """Level>=2 synthesis of the lowpass (or None) and the bands (or
+    None) (reference: transform_funcs.py:279-340; with g2a/g2b, JAX
+    ``inv_j2plus_rot``)."""
+    if h is None:
+        return rowifilt(colifilt(ll, g0b, g0a, False, mode), g0b, g0a,
+                        False, mode)
+    q = orientations_to_highs(h, o_dim, ri_dim)
+    lh, hl, hh = q[:, :, 0], q[:, :, 1], q[:, :, 2]
+    lo = colifilt(lh, g1b, g1a, True, mode)
+    if ll is not None:
+        colifilt(ll, g0b, g0a, False, mode, out=lo, accumulate=True)
+    if g2a is None:
+        hi = colifilt(hh, g1b, g1a, True, mode)
+        colifilt(hl, g0b, g0a, False, mode, out=hi, accumulate=True)
+        y = rowifilt(hi, g1b, g1a, True, mode)
+        return rowifilt(lo, g0b, g0a, False, mode, out=y, accumulate=True)
+    hi = colifilt(hl, g0b, g0a, False, mode)
+    ba = colifilt(hh, g2b, g2a, True, mode)
+    y = rowifilt(hi, g1b, g1a, True, mode)
+    rowifilt(lo, g0b, g0a, False, mode, out=y, accumulate=True)
+    return rowifilt(ba, g2b, g2a, True, mode, out=y, accumulate=True)
+
+
+# --------------------------------------------------------------------------
+# The JAX custom VJPs as autograd Functions (reference FWD_J1 / FWD_J2PLUS
+# / INV_J1 / INV_J2PLUS).  ``taps`` is (h0, h1, h2) at level 1 and
+# (h0a, h1a, h0b, h1b, h2a, h2b) past it, h2* None without the
+# bandpass-diagonal filters.
+# --------------------------------------------------------------------------
+
+def _swap_trees(taps):
+    """Time reverse of q-shift filters == swap the a/b trees
+    (reference transform_funcs.py:398-401)."""
+    h0a, h1a, h0b, h1b, h2a, h2b = taps
+    return h0b, h1b, h0a, h1a, h2b, h2a
+
+
+class _FwdLevel(torch.autograd.Function):
+    """A forward level; its backward is the inverse level (JAX ``bwd``):
+    with the same taps at level 1, with the trees swapped past it."""
+
+    @staticmethod
+    def forward(ctx, x, j1, taps, skip_hps, o_dim, ri_dim, mode):
+        fwd = fwd_j1 if j1 else fwd_j2plus
+        ll, h = fwd(x, *taps, skip_hps, o_dim, ri_dim, mode)
+        ctx.set_materialize_grads(False)
+        ctx.args = (j1, taps, o_dim, ri_dim, mode)
+        ctx.h_meta = None if h is None else (h.shape, h.dtype, h.device)
+        return ll if h is None else (ll, h)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dl, dh=None):
+        j1, taps, o_dim, ri_dim, mode = ctx.args
+        if dl is None and dh is None:
+            return (None,) * 7
+        if dh is None and ctx.h_meta is not None:
+            # JAX's cotangent of an unused output is zeros: the bands'
+            # branch (in ``mode``) runs, not the lowpass-only one
+            shape, dtype, device = ctx.h_meta
+            dh = torch.zeros(shape, dtype=dtype, device=device)
+        if j1:
+            dx = inv_j1(dl, dh, *taps, o_dim, ri_dim, mode)
+        else:
+            dx = inv_j2plus(dl, dh, *_swap_trees(taps), o_dim, ri_dim, mode)
+        return (dx,) + (None,) * 6
+
+
+class _InvLevel(torch.autograd.Function):
+    """An inverse level of (lows or None, highs or None); its backward is
+    the forward level (JAX ``bwd``), which saves no inputs."""
+
+    @staticmethod
+    def forward(ctx, lows, highs, j1, taps, o_dim, ri_dim, mode):
+        ctx.set_materialize_grads(False)
+        ctx.args = (j1, taps, o_dim, ri_dim, mode)
+        ctx.has = (lows is not None, highs is not None)
+        if j1:
+            return inv_j1(lows, highs, *taps, None, o_dim, ri_dim, mode)
+        return inv_j2plus(lows, highs, *taps, None, None, o_dim, ri_dim,
+                           mode)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        j1, taps, o_dim, ri_dim, mode = ctx.args
+        has_lows, has_highs = ctx.has
+        if dy is None:
+            return (None,) * 7
+        if j1:
+            dl, dh = fwd_j1(dy, *taps, None, not has_highs, o_dim, ri_dim,
+                             mode)
+        else:
+            g0a, g1a, g0b, g1b = taps
+            dl, dh = fwd_j2plus(dy, g0b, g1b, g0a, g1a, None, None,
+                                 not has_highs, o_dim, ri_dim, mode)
+        return (dl if has_lows else None, dh) + (None,) * 5
+
+
+def _taps(*ts):
+    return tuple(None if t is None else tuple(float(v) for v in
+                                              np.asarray(t).ravel())
+                 for t in ts)
+
+
+def _fwd_op(x, j1, taps, skip_hps, o_dim, ri_dim, mode):
+    od, rd, _, _ = get_dimensions5(o_dim, ri_dim)
+    out = _FwdLevel.apply(x, j1, taps, bool(skip_hps), od, rd, mode)
+    return (out, None) if skip_hps else out
+
+
+def fwd_j1_op(x, h0, h1, skip_hps, o_dim, ri_dim, mode):
+    """Differentiable level-1 analysis of ``x`` (6-D ``o_dim``/``ri_dim``
+    of the bands, as the modules take them): (ll, bands), or (ll, None)
+    with ``skip_hps``."""
+    return _fwd_op(x, True, _taps(h0, h1, None), skip_hps, o_dim, ri_dim,
+                   mode)
+
+
+def fwd_j1_rot_op(x, h0, h1, h2, skip_hps, o_dim, ri_dim, mode):
+    """:func:`fwd_j1_op` with the bandpass-diagonal filter h2."""
+    return _fwd_op(x, True, _taps(h0, h1, h2), skip_hps, o_dim, ri_dim,
+                   mode)
+
+
+def fwd_j2plus_op(x, h0a, h1a, h0b, h1b, skip_hps, o_dim, ri_dim, mode):
+    """Differentiable level>=2 analysis (always 'symmetric', as the
+    reference forces it)."""
+    return _fwd_op(x, False, _taps(h0a, h1a, h0b, h1b, None, None),
+                   skip_hps, o_dim, ri_dim, "symmetric")
+
+
+def fwd_j2plus_rot_op(x, h0a, h1a, h0b, h1b, h2a, h2b, skip_hps, o_dim,
+                      ri_dim, mode):
+    """:func:`fwd_j2plus_op` with the bandpass-diagonal filters."""
+    return _fwd_op(x, False, _taps(h0a, h1a, h0b, h1b, h2a, h2b), skip_hps,
+                   o_dim, ri_dim, "symmetric")
+
+
+def inv_j1_op(lows, highs, g0, g1, o_dim, ri_dim, mode):
+    """Differentiable level-1 synthesis of (lows or None, highs or
+    None)."""
+    od, rd, _, _ = get_dimensions5(o_dim, ri_dim)
+    return _InvLevel.apply(lows, highs, True, _taps(g0, g1), od, rd, mode)
+
+
+def inv_j2plus_op(lows, highs, g0a, g1a, g0b, g1b, o_dim, ri_dim, mode):
+    """Differentiable level>=2 synthesis (always 'symmetric')."""
+    od, rd, _, _ = get_dimensions5(o_dim, ri_dim)
+    return _InvLevel.apply(lows, highs, False, _taps(g0a, g1a, g0b, g1b),
+                           od, rd, "symmetric")
+
+
+# --------------------------------------------------------------------------
+# The composed path
+# --------------------------------------------------------------------------
 
 def _plan_bytes(plan):
     """Total bytes held by a (nested) plan structure: numpy arrays, and
@@ -186,7 +482,7 @@ def dtcwt2d_pyramid(x, filters, J, skip_hps, include_scale, o_dim, ri_dim,
     """Composed whole-transform forward of a contiguous, even-padded
     ``x``.  Returns None when no composed plan exists."""
     H, W = x.shape[2], x.shape[3]
-    if H > banded.MAX_MATMUL_N or W > banded.MAX_MATMUL_N:
+    if not (banded.composed_enabled(H) and banded.composed_enabled(W)):
         return None
     ops = _fwd_operators(
         filters["h0o"], filters["h1o"], filters["h0a"], filters["h1a"],

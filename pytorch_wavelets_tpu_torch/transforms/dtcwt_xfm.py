@@ -1,13 +1,13 @@
 """Multilevel DTCWT forward/inverse pyramids (functional).
 
 Port of ``pytorch_wavelets_tpu/transforms/dtcwt_xfm.py`` (reference
-semantics: pytorch_wavelets/dtcwt/transform2d.py:20-254), through the
-composed whole-transform path only: odd-size replicate padding at level 1,
-the %4 replicate pads before every q-shift level (folded into the plan),
-skip_hps / include_scale, and the [1:-1] lowpass crops on the way back up.
-Where the JAX package falls back to its per-level path (axes above
-``MAX_MATMUL_N``, shapes the composed plans reject), the port raises
-``NotImplementedError``: ROADMAP.md, "Still to port" 2.
+semantics: pytorch_wavelets/dtcwt/transform2d.py:20-254): odd-size
+replicate padding at level 1, the %4 replicate pads before every q-shift
+level, skip_hps / include_scale, and the [1:-1] lowpass crops on the way
+back up.  The whole-transform composed path runs where a plan exists and
+``ops.banded.composed_enabled`` allows it (both axes at most
+``MAX_MATMUL_N``); everywhere else, as in the JAX package, the per-level
+path (``transforms/dtcwt.py:fwd_j1_op`` ... ``inv_j2plus_op``).
 """
 from __future__ import annotations
 
@@ -22,14 +22,11 @@ from pytorch_wavelets_tpu_torch.ops.fused_dtcwt import (
     canonical_bands, synthesis_pyramid,
 )
 from pytorch_wavelets_tpu_torch.transforms.dtcwt import (
-    dtcwt2d_pyramid, get_dimensions5, get_dimensions6, inv_pyramid_operators,
+    dtcwt2d_pyramid, fwd_j1_op, fwd_j2plus_op, get_dimensions5,
+    get_dimensions6, inv_j1_op, inv_j2plus_op, inv_pyramid_operators,
 )
 
 __all__ = ["dtcwt_fwd_filters", "dtcwt_inv_filters", "dtcwt2d", "idtcwt2d"]
-
-_NO_PLAN = ("no composed DTCWT plan for {what}; the per-level path the JAX "
-            "package falls back to is not ported yet (ROADMAP.md, 'Still to "
-            "port' 2, per-level DTCWT)")
 
 
 def _tup(taps) -> tuple:
@@ -80,6 +77,15 @@ def _replicate_pad_even(x):
     return x
 
 
+def _replicate_pad_mod4(low):
+    r, c = low.shape[2:]
+    if r % 4 != 0:
+        low = torch.cat([low[:, :, 0:1], low, low[:, :, -1:]], dim=2)
+    if c % 4 != 0:
+        low = torch.cat([low[:, :, :, 0:1], low, low[:, :, :, -1:]], dim=3)
+    return low
+
+
 def dtcwt2d(x, filters, J=3, skip_hps=False, include_scale=False,
             o_dim=2, ri_dim=-1, mode="symmetric"):
     """J-level forward DTCWT of an NCHW tensor.
@@ -102,10 +108,24 @@ def dtcwt2d(x, filters, J=3, skip_hps=False, include_scale=False,
     x = _replicate_pad_even(x).contiguous()
     out = dtcwt2d_pyramid(x, filters, J, list(skip_hps),
                           list(include_scale), o_dim, ri_dim, mode)
-    if out is None:
-        raise NotImplementedError(_NO_PLAN.format(
-            what=f"a {tuple(x.shape[2:])} input with these filters"))
-    return out
+    if out is not None:
+        return out
+
+    scales = [None] * J
+    highs = [None] * J
+    low, highs[0] = fwd_j1_op(x, filters["h0o"], filters["h1o"],
+                              skip_hps[0], o_dim, ri_dim, mode)
+    if include_scale[0]:
+        scales[0] = low
+    for j in range(1, J):
+        low, highs[j] = fwd_j2plus_op(
+            _replicate_pad_mod4(low), filters["h0a"], filters["h1a"],
+            filters["h0b"], filters["h1b"], skip_hps[j], o_dim, ri_dim, mode)
+        if include_scale[j]:
+            scales[j] = low
+    if True in include_scale:
+        return scales, highs
+    return low, highs
 
 
 def _is_empty(h):
@@ -138,21 +158,43 @@ def idtcwt2d(coeffs, filters, o_dim=2, ri_dim=-1, mode="symmetric"):
         sizes.append((s.shape[h_dim], s.shape[w_dim]))
     yl_hw = None if low is None else (low.shape[2], low.shape[3])
     dims = [d for hw in sizes if hw for d in hw] + list(yl_hw or ())
+    if not dims:
+        raise ValueError("idtcwt2d: no lowpass and no bandpass to invert")
     ops = None
-    if dims and all(2 * d <= banded.MAX_MATMUL_N for d in dims):
+    if all(banded.composed_enabled(2 * d) for d in dims):
         device = (low if low is not None
                   else next(s for s in highs if not _is_empty(s))).device
         ops = inv_pyramid_operators(
             filters["g0o"], filters["g1o"], filters["g0a"], filters["g1a"],
             filters["g0b"], filters["g1b"], mode, yl_hw, tuple(sizes),
             device)
-    y = None
     if ops is not None:
         bands = [None if _is_empty(s) else canonical_bands(s, od5, rd5)
                  for s in highs]
         y = synthesis_pyramid(None if low is None else low.contiguous(),
                               bands, ops)
-    if y is None:
-        raise NotImplementedError(_NO_PLAN.format(
-            what=f"lowpass {yl_hw} and bands {sizes}"))
-    return y
+        if y is not None:
+            return y
+
+    # the per-level path (JAX idtcwt2d's fallback)
+    highs = [None if _is_empty(s) else s for s in highs]
+
+    def _crop_low(low, s):
+        r, c = low.shape[2:]
+        if r != s.shape[h_dim] * 2:
+            low = low[:, :, 1:-1]
+        if c != s.shape[w_dim] * 2:
+            low = low[:, :, :, 1:-1]
+        return low
+
+    for s in highs[1:][::-1]:
+        if s is not None and low is not None:
+            low = _crop_low(low, s)
+        if s is not None or low is not None:
+            low = inv_j2plus_op(low, s, filters["g0a"], filters["g1a"],
+                                filters["g0b"], filters["g1b"], o_dim,
+                                ri_dim, mode)
+    if highs[0] is not None and low is not None:
+        low = _crop_low(low, highs[0])
+    return inv_j1_op(low, highs[0], filters["g0o"], filters["g1o"], o_dim,
+                     ri_dim, mode)

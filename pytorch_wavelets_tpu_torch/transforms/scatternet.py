@@ -1,20 +1,24 @@
-"""DTCWT scattering layers (functional), composed path.
+"""DTCWT scattering layers (functional).
 
-Port of the composed part of ``pytorch_wavelets_tpu/transforms/
-scatternet.py`` (reference semantics: pytorch_wavelets/scatternet/
-lowlevel.py and layers.py).  The linear segments of the scattering chain
-(the DTCWT levels and the 2x2 average pool of the last lowpass) run as
-one composed analysis pyramid each (``ops/fused_dtcwt.py``), with the
-pool folded into the final lowpass operators; the pyramids write their
-bands as (N, 6, C, h, w, 2), re/im adjacent, which the magnitude kernels
-(``ops/scat_mag.py``) read.  Gradients are the pyramids' and the
-magnitudes' own backwards, composed by autograd.
+Port of ``pytorch_wavelets_tpu/transforms/scatternet.py`` (reference
+semantics: pytorch_wavelets/scatternet/lowlevel.py and layers.py).  The
+linear segments of the scattering chain (the DTCWT levels and the 2x2
+average pool of the last lowpass) run one of two ways, chosen as the JAX
+package chooses on a device:
 
-Where the JAX package falls back to its per-level path (the
-``near_sym_b_bp`` rotated filters, axes above ``MAX_MATMUL_N``, shapes
-the composed plan rejects), the port raises ``NotImplementedError``:
-ROADMAP.md, "Still to port" 2.  ``avg_pool2`` waits there too: the
-composed path folds the pool into operators.
+- composed: one analysis pyramid each (``ops/fused_dtcwt.py``), the pool
+  folded into the final lowpass operators, where a plan exists and
+  ``ops.banded.composed_enabled`` allows it;
+- per level: the level Functions of ``transforms/dtcwt.py`` (K8/K9 and
+  K2, their backwards K8/K10 and K3), the pool :func:`avg_pool2` (K11):
+  the bandpass-diagonal ``near_sym_b_bp`` filters, axes above
+  ``MAX_MATMUL_N``, shapes the plans reject, and
+  ``set_operator_matmul(False)``.
+
+Both write the bands as (N, 6, C, h, w, 2), re/im adjacent, which the
+magnitude kernels (``ops/scat_mag.py``) read.  Gradients are the
+pyramids', the levels', the pool's and the magnitudes' own backwards,
+composed by autograd.
 """
 from __future__ import annotations
 
@@ -26,18 +30,16 @@ from pytorch_wavelets_tpu_torch.ops import banded
 from pytorch_wavelets_tpu_torch.ops.fused_dtcwt import (
     analysis_operators, analysis_pyramid,
 )
+from pytorch_wavelets_tpu_torch.ops.pool import avg_pool2_bwd, avg_pool2_fwd
 from pytorch_wavelets_tpu_torch.ops.scat_mag import (
     scat_mag_bwd, scat_mag_fwd,
 )
 from pytorch_wavelets_tpu_torch.transforms.dtcwt import (
-    _budgeted_plan_cache, _fwd_pyramid_plan,
+    _budgeted_plan_cache, _fwd_pyramid_plan, fwd_j1_rot_op,
+    fwd_j2plus_rot_op,
 )
 
-__all__ = ["smooth_mag", "scat_layer_j1", "scat_layer_j2"]
-
-_NO_PLAN = ("no composed scattering plan for {what}; the per-level path "
-            "the JAX package falls back to is not ported yet (ROADMAP.md, "
-            "'Still to port' 2, per-level DTCWT)")
+__all__ = ["smooth_mag", "avg_pool2", "scat_layer_j1", "scat_layer_j2"]
 
 # the bands' layout: orientations on dim 1 of the 5-D view, re/im last
 _O_DIM, _RI_DIM = 1, 5
@@ -63,6 +65,23 @@ def smooth_mag(h, bias, combine=False):
     (N, 6, C, h, w, 2) bands (re^2 + im^2 summed over C with ``combine``):
     K4 forward, K5 backward (the ratios are recomputed, not saved)."""
     return _SmoothMag.apply(h, float(bias), bool(combine))
+
+
+class _AvgPool2(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return avg_pool2_fwd(x)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return avg_pool2_bwd(g)
+
+
+def avg_pool2(x):
+    """Differentiable 2x2 average pool of an (N, C, H, W) tensor (H, W
+    even): K11 forward, its adjoint backward."""
+    return _AvgPool2.apply(x)
 
 
 def _pool_matrix(n):
@@ -128,38 +147,52 @@ def _scat_front_operators(*args):
     return None if plan is None else analysis_operators(plan, device)
 
 
-def _scat_levels(x, filters, mode, J):
-    """J DTCWT analysis levels of a contiguous x through the composed
-    pyramid, the final lowpass average-pooled.  Returns (pooled_ll,
-    [bands per level]), bands as (N, 6, C, h, w, 2)."""
+def _scat_levels(x, filters, mode, J, bandpass_diag):
+    """J DTCWT analysis levels of x, the final lowpass average-pooled.
+    Returns (pooled_ll, [bands per level]), bands as (N, 6, C, h, w, 2):
+    through the composed pyramid where it may run, else level by level
+    (JAX ``_scat_levels`` and the per-level branches of its
+    ``scat_layer_j1`` / ``scat_layer_j2``)."""
     H, W = x.shape[2], x.shape[3]
     ops = None
-    if max(H, W) <= banded.MAX_MATMUL_N:
+    if (not bandpass_diag and banded.composed_enabled(H)
+            and banded.composed_enabled(W)):
         ops = _scat_front_operators(
             filters["h0o"], filters["h1o"],
             filters.get("h0a", filters["h0o"]),
             filters.get("h1a", filters["h1o"]),
             filters.get("h0b", filters["h0o"]),
             filters.get("h1b", filters["h1o"]), J, mode, H, W, x.device)
-    if ops is None:
-        raise NotImplementedError(_NO_PLAN.format(
-            what=f"a {(H, W)} input at J={J} with these filters"))
-    lls, yh = analysis_pyramid(x, ops, _O_DIM, _RI_DIM)
-    return lls[-1], yh
+    if ops is not None:
+        lls, yh = analysis_pyramid(x.contiguous(), ops, _O_DIM, _RI_DIM)
+        return lls[-1], yh
+    # the _rot ops without h2 (filters of no bandpass-diagonal bank) are
+    # the plain ones
+    f = filters
+    ll, h = fwd_j1_rot_op(x, f["h0o"], f["h1o"], f.get("h2o"), False,
+                          _O_DIM, _RI_DIM, mode)
+    yh = [h]
+    if J == 2:
+        ll, h = fwd_j2plus_rot_op(ll, f["h0a"], f["h1a"], f["h0b"], f["h1b"],
+                                  f.get("h2a"), f.get("h2b"), False, _O_DIM,
+                                  _RI_DIM, mode)
+        yh.append(h)
+    return avg_pool2(ll), yh
 
 
 def scat_layer_j1(x, filters, mode="symmetric", magbias=1e-2,
-                  combine_colour=False):
+                  combine_colour=False, bandpass_diag=False):
     """One order of scattering at one scale (reference ScatLayer,
-    scatternet/layers.py:11-79).
+    scatternet/layers.py:11-79 + ScatLayerj1_f/_rot_f).
 
-    filters: dict with correlation-order tap tuples 'h0o', 'h1o'.
-    Returns (N, 7C, H/2, W/2), or (N, 9, H/2, W/2) when combine_colour.
+    filters: dict with correlation-order tap tuples 'h0o', 'h1o' (+ 'h2o'
+    when bandpass_diag).  Returns (N, 7C, H/2, W/2), or (N, 9, H/2, W/2)
+    when combine_colour.
     """
     x = _pad_even(x)
     if combine_colour and x.shape[1] != 3:
         raise ValueError("combine_colour requires 3 input channels")
-    ll, (h,) = _scat_levels(x.contiguous(), filters, mode, 1)
+    ll, (h,) = _scat_levels(x, filters, mode, 1, bandpass_diag)
     if combine_colour:
         r = smooth_mag(h, magbias, combine=True)   # (N, 6, 1, H/2, W/2)
         return torch.cat([ll, r[:, :, 0]], dim=1)
@@ -170,22 +203,25 @@ def scat_layer_j1(x, filters, mode="symmetric", magbias=1e-2,
 
 
 def scat_layer_j2(x, filters, mode="symmetric", magbias=1e-2,
-                  combine_colour=False):
+                  combine_colour=False, bandpass_diag=False):
     """Second-order two-scale scattering (reference ScatLayerj2,
-    scatternet/layers.py:82-172), as three composed pyramid calls.
+    scatternet/layers.py:82-172 + ScatLayerj2_f/_rot_f): the two-level
+    front, then one level on the first order's magnitudes.
 
-    filters: dict with tap tuples 'h0o','h1o','h0a','h0b','h1a','h1b'.
+    filters: dict with tap tuples 'h0o','h1o','h0a','h0b','h1a','h1b'
+    (+ 'h2o','h2a','h2b' when bandpass_diag).
     Returns (N, 49C, H/4, W/4) (or (N, 51, H/4, W/4) combined-colour).
     """
     x = _pad_mod8(x)
     if combine_colour and x.shape[1] != 3:
         raise ValueError("combine_colour requires 3 input channels")
-    s0, (h1, h2) = _scat_levels(x.contiguous(), filters, mode, 2)
+    s0, (h1, h2) = _scat_levels(x, filters, mode, 2, bandpass_diag)
 
     if combine_colour:
         s1_j1 = smooth_mag(h1, magbias, combine=True)   # (N,6,1,H/2,W/2)
         s1_j2 = smooth_mag(h2, magbias, combine=True)   # (N,6,1,H/4,W/4)
-        u1_ll, (h3,) = _scat_levels(s1_j1[:, :, 0], filters, mode, 1)
+        u1_ll, (h3,) = _scat_levels(s1_j1[:, :, 0], filters, mode, 1,
+                                    bandpass_diag)
         s2_j1 = smooth_mag(h3, magbias)                 # (N,6,6,H/4,W/4)
         q = s2_j1.shape
         s2_j1 = s2_j1.reshape(q[0], 36, q[3], q[4])
@@ -195,7 +231,8 @@ def scat_layer_j2(x, filters, mode="symmetric", magbias=1e-2,
     s1_j2 = smooth_mag(h2, magbias)                     # (N,6,C,H/4,W/4)
     p = s1_j1.shape
     u1 = s1_j1.reshape(p[0], 6 * p[2], p[3], p[4])
-    u1_ll, (h3,) = _scat_levels(u1, filters, mode, 1)   # pooled
+    u1_ll, (h3,) = _scat_levels(u1, filters, mode, 1,   # pooled
+                                bandpass_diag)
     s2_j1 = smooth_mag(h3, magbias)                     # (N,6,6C,H/4,W/4)
     q = s2_j1.shape
     s2_j1 = s2_j1.reshape(q[0], 36, q[2] // 6, q[3], q[4])

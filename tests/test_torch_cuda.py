@@ -354,3 +354,272 @@ def test_dwt_refuses(dev):
         afb_sfb.afb1d_corr(x, np.ones(129), np.ones(129), "zero", 3)
     with tt.matmul_precision("high"), pytest.raises(NotImplementedError):
         tt.DWTForward(device=dev)(x)
+
+
+# ---------------------------------------------------------------------------
+# The per-level DTCWT path: K8-K10 (B7), K11 (avg_pool2), K2/K3 per level
+# ---------------------------------------------------------------------------
+
+# K8-K10: fp32 sums of up to 32 products in another order than cuDNN's
+STENCIL_TOL = dict(rtol=1e-5, atol=1e-5)
+QSHIFT_NAMES = ("qshift_a", "qshift_b", "qshift_c", "qshift_d", "qshift_32",
+                "qshift_b_bp")
+
+
+def _qtaps(name, highpass):
+    from pytorch_wavelets_tpu_torch.filters import qshift
+    from pytorch_wavelets_tpu_torch.ops.dtcwt_fb import prep_taps
+    q = qshift(name)
+    h0a, h0b, h1a, h1b = (prep_taps(q[i]) for i in (0, 1, 4, 5))
+    return (h1b, h1a) if highpass else (h0b, h0a)
+
+
+def _band_of_stack(dev, shape, axis, n, seed):
+    """A (2, 3, ., .) view of band 1 of a wider (2, 3, 3, ., . + 5) stack,
+    the filtered axis n long: read through its strides."""
+    s = list(shape)
+    s[axis] = n
+    wide = torch.from_numpy(_rand((s[0], s[1], 3, s[2], s[3] + 5), seed))
+    return wide.to(dev)[:, :, 1, :, 2:2 + s[3]]
+
+
+@pytest.mark.parametrize("mode", ["symmetric", "zero"])
+@pytest.mark.parametrize("L,n", [(5, 9), (7, 64), (13, 7), (19, 33),
+                                 (4, 16), (30, 12)])
+@pytest.mark.parametrize("axis", [2, 3])
+def test_dtcwt_filt(dev, mode, L, n, axis):
+    """K8 against its plain version: odd and even taps (n + 1 outputs),
+    short axes (every output at a boundary), a strided input, and written
+    into and accumulated onto a column slice of a wider tensor."""
+    from pytorch_wavelets_tpu_torch.ops import dtcwt_fb
+    t = np.random.RandomState(50 + L).randn(L) / np.sqrt(L)
+    x = _band_of_stack(dev, (2, 3, 11, 10), axis, n, 51)
+    want = dtcwt_fb.dtcwt_filt_plain(x, t, axis, mode)
+    n0 = dtcwt_fb.dtcwt_filt.launches
+    torch.testing.assert_close(dtcwt_fb.dtcwt_filt(x, t, axis, mode), want,
+                               **STENCIL_TOL)
+    Wo = want.shape[3]
+    big = torch.from_numpy(_rand((2, 3, want.shape[2], Wo + 6), 52)).to(dev)
+    ref = big.clone()
+    ref[..., 3:3 + Wo] += want
+    out = dtcwt_fb.dtcwt_filt(x, t, axis, mode, out=big[..., 3:3 + Wo],
+                              accumulate=True)
+    assert out.data_ptr() == big[..., 3:3 + Wo].data_ptr()
+    torch.testing.assert_close(big, ref, **STENCIL_TOL)
+    assert dtcwt_fb.dtcwt_filt.launches == n0 + 2
+
+
+@pytest.mark.parametrize("name", QSHIFT_NAMES)
+@pytest.mark.parametrize("n", [4, 8, 12, 40])
+@pytest.mark.parametrize("axis", [2, 3])
+@pytest.mark.parametrize("highpass", [False, True])
+def test_dtcwt_dfilt(dev, name, n, axis, highpass):
+    """K9 against its plain version at N = 4, 8, 12 (every output at a
+    boundary) and 40, both interleaves, a strided input and a strided
+    out."""
+    from pytorch_wavelets_tpu_torch.ops import dtcwt_fb
+    ha, hb = _qtaps(name, highpass)
+    x = _band_of_stack(dev, (2, 3, 8, 12), axis, n, 53)
+    want = dtcwt_fb.dtcwt_dfilt_plain(x, ha, hb, highpass, axis)
+    n0 = dtcwt_fb.dtcwt_dfilt.launches
+    torch.testing.assert_close(dtcwt_fb.dtcwt_dfilt(x, ha, hb, highpass,
+                                                    axis), want,
+                               **STENCIL_TOL)
+    stack = torch.zeros((2, 3, 3, *want.shape[2:]), device=dev)
+    dtcwt_fb.dtcwt_dfilt(x, ha, hb, highpass, axis, out=stack[:, :, 2])
+    torch.testing.assert_close(stack[:, :, 2], want, **STENCIL_TOL)
+    assert dtcwt_fb.dtcwt_dfilt.launches == n0 + 2
+
+
+@pytest.mark.parametrize("name", QSHIFT_NAMES)
+@pytest.mark.parametrize("n", [2, 6, 20])
+@pytest.mark.parametrize("axis", [2, 3])
+@pytest.mark.parametrize("highpass", [False, True])
+def test_dtcwt_ifilt(dev, name, n, axis, highpass):
+    """K10 against its plain version: both parities of m // 2 (qshift_c
+    and qshift_32 even, the others odd), both phase tables, a strided
+    input, accumulated onto a slice."""
+    from pytorch_wavelets_tpu_torch.ops import dtcwt_fb
+    ha, hb = _qtaps(name, highpass)
+    x = _band_of_stack(dev, (2, 3, 6, 8), axis, n, 54)
+    want = dtcwt_fb.dtcwt_ifilt_plain(x, ha, hb, highpass, axis)
+    n0 = dtcwt_fb.dtcwt_ifilt.launches
+    torch.testing.assert_close(dtcwt_fb.dtcwt_ifilt(x, ha, hb, highpass,
+                                                    axis), want,
+                               **STENCIL_TOL)
+    Wo = want.shape[3]
+    big = torch.from_numpy(_rand((2, 3, want.shape[2], Wo + 4), 55)).to(dev)
+    ref = big.clone()
+    ref[..., 1:1 + Wo] += want
+    dtcwt_fb.dtcwt_ifilt(x, ha, hb, highpass, axis, out=big[..., 1:1 + Wo],
+                         accumulate=True)
+    torch.testing.assert_close(big, ref, **STENCIL_TOL)
+    assert dtcwt_fb.dtcwt_ifilt.launches == n0 + 2
+
+
+@pytest.mark.parametrize("kernel", ["dwt_afb", "dwt_sfb", "dtcwt_filt",
+                                    "dtcwt_dfilt", "dtcwt_ifilt"])
+@pytest.mark.parametrize("axis", [2, 3])
+def test_stencil_plane_past_2_31(dev, kernel, axis):
+    """K6-K10 on a plane of more than 2^31 outputs (8.6 GB, K6 twice
+    that), where the pixel index takes 64 bits: the input is one line
+    broadcast across the other axis (stride 0, read through its strides),
+    and the output starts as NaN, so every line of it, to the last, must
+    equal the plain version of that one line."""
+    from pytorch_wavelets_tpu_torch.ops import afb_sfb, dtcwt_fb
+    n, other = 16384, 5 - axis
+    line = [1, 1, 1, 1]
+    line[axis] = n
+    lines = [torch.from_numpy(_rand(line, 63 + s)).to(dev) for s in (0, 1)]
+    h0, h1 = _taps(8, 64)
+    ha, hb = _qtaps("qshift_b", False)
+    t = np.random.RandomState(65).randn(13) / np.sqrt(13)
+    run, band = {
+        "dwt_afb": (lambda k, z, w: k(z, h0, h1, "symmetric", axis), 1),
+        "dwt_sfb": (lambda k, z, w: k(z, w, h0, h1, "symmetric", axis), 0),
+        "dtcwt_filt": (lambda k, z, w: k(z, t, axis, "symmetric"), 0),
+        "dtcwt_dfilt": (lambda k, z, w: k(z, ha, hb, False, axis), 0),
+        "dtcwt_ifilt": (lambda k, z, w: k(z, ha, hb, False, axis), 0),
+    }[kernel]
+    mod = afb_sfb if kernel.startswith("dwt") else dtcwt_fb
+    name = {"dwt_afb": "afb1d_corr", "dwt_sfb": "sfb1d_conv"}.get(kernel,
+                                                                  kernel)
+    want = run(getattr(mod, name + "_plain"), *lines)
+    oax = other + band
+    reps = 2 ** 31 // want.shape[axis + band] + 1
+    big = [z.expand(*[reps if d == other else s
+                      for d, s in enumerate(z.shape)]) for z in lines]
+    # a NaN block in the allocator's cache, which the output then takes
+    torch.cuda.empty_cache()
+    torch.full((want.numel() * reps,), float("nan"), device=dev)
+    n0 = getattr(mod, name).launches
+    got = run(getattr(mod, name), *big)
+    assert getattr(mod, name).launches == n0 + 1
+    assert got.shape[oax] == reps
+    torch.testing.assert_close(got.narrow(oax, reps - 1, 1), want,
+                               **STENCIL_TOL)
+    assert bool((got == got.narrow(oax, reps - 1, 1)).all())
+    del got
+    torch.cuda.empty_cache()
+
+
+def test_avg_pool2(dev):
+    """K11 and its adjoint against their plain versions, exactly, from a
+    strided input and a strided cotangent."""
+    from pytorch_wavelets_tpu_torch.ops import pool
+    x = torch.from_numpy(_rand((2, 3, 10, 17), 56)).to(dev)[..., 1:15]
+    g = torch.from_numpy(_rand((2, 3, 5, 14), 57)).to(dev)[..., ::2]
+    n0 = (pool.avg_pool2_fwd.launches, pool.avg_pool2_bwd.launches)
+    torch.testing.assert_close(pool.avg_pool2_fwd(x),
+                               pool.avg_pool2_fwd_plain(x), rtol=0, atol=0)
+    torch.testing.assert_close(pool.avg_pool2_bwd(g),
+                               pool.avg_pool2_bwd_plain(g), rtol=0, atol=0)
+    assert (pool.avg_pool2_fwd.launches,
+            pool.avg_pool2_bwd.launches) == (n0[0] + 1, n0[1] + 1)
+
+
+@pytest.mark.parametrize("o_dim,ri_dim", [(2, -1), (1, 3), (1, -1), (4, 2)])
+def test_q2c_c2q_interleaved(dev, o_dim, ri_dim):
+    """K2/K3 in their per-level mode (interleaved corners, 1/sqrt2)
+    against the plain q2c / c2q, exactly, from a strided stack of
+    (lh, hl, hh) into and out of every layout."""
+    from pytorch_wavelets_tpu_torch.transforms import dtcwt as plev
+    od, rd, _, _ = plev.get_dimensions5(o_dim, ri_dim)
+    N, C, m, k = 2, 3, 5, 7
+    wide = torch.from_numpy(_rand((N, C, 3, 2 * m, 2 * k + 2), 58)).to(dev)
+    y = wide[..., 1:1 + 2 * k]
+    shape = [N, C, m, k]
+    shape.insert(od, 6)
+    shape.insert(rd, 2)
+    got, want = torch.zeros(shape, device=dev), torch.zeros(shape,
+                                                            device=dev)
+    orients = ((0, 5), (2, 3), (1, 4))
+    quad.q2c_pack(y, fused_dtcwt.canonical_bands(got, od, rd), orients,
+                  interleaved=True)
+    quad.q2c_pack_plain(y, fused_dtcwt.canonical_bands(want, od, rd),
+                        orients, interleaved=True)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    hc = fused_dtcwt.canonical_bands(got, od, rd)
+    torch.testing.assert_close(quad.c2q_unpack(hc, orients, True),
+                               quad.c2q_unpack_plain(hc, orients, True),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kw", [dict(J=3), dict(J=2, o_dim=1, ri_dim=3,
+                                                qshift="qshift_c")])
+def test_per_level_dtcwt_matches_cpu(dev, kw):
+    """DTCWTForward -> DTCWTInverse under set_operator_matmul(False):
+    outputs and x.grad on the card against the CPU plain run, and no
+    launch of K1."""
+    dims = {k: v for k, v in kw.items() if k in ("o_dim", "ri_dim",
+                                                 "qshift")}
+    banded.set_operator_matmul(False)
+    try:
+        ops.reset_launches()
+
+        def round_trip(d):
+            f = tt.DTCWTForward(device=d, **kw)
+            i = tt.DTCWTInverse(device=d, **dims)
+            return lambda x: [*f(x), i(f(x))]
+        cpu, gpu = _grads(round_trip, (2, 3, 46, 70), dev, 60)
+    finally:
+        banded.set_operator_matmul(None)
+    for a, b in zip(cpu, gpu):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=2e-5)
+    counts = ops.launch_counts()
+    assert counts["apply_row"] == counts["apply_col"] == 0
+    assert all(counts[k] > 0 for k in ("dtcwt_filt", "dtcwt_dfilt",
+                                       "dtcwt_ifilt", "q2c_pack",
+                                       "c2q_unpack"))
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("ScatLayerj2", dict(qshift="qshift_b_bp")),
+    ("ScatLayerj2", dict(qshift="qshift_b_bp", combine_colour=True)),
+    ("ScatLayer", dict()), ("ScatLayer", dict(combine_colour=True))])
+def test_bandpass_diag_scat_matches_cpu(dev, name, kw):
+    cls = getattr(tt, name)
+    cpu, gpu = _grads(lambda d: cls(biort="near_sym_b_bp", device=d, **kw),
+                      (2, 3, 64, 64), dev, 61)
+    for a, b in zip(cpu, gpu):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=2e-5)
+
+
+def test_bandpass_diag_scat_launches(dev, monkeypatch):
+    """One bandpass-diagonal ScatLayerj2 forward + backward on the card:
+    the launches by kernel, no K1, and no plain version reached (each is
+    made to raise for the run)."""
+    from pytorch_wavelets_tpu_torch.ops import dtcwt_fb, pool
+
+    def boom(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+    for mod, names in ((dtcwt_fb, ("dtcwt_filt_plain", "dtcwt_dfilt_plain",
+                                   "dtcwt_ifilt_plain")),
+                       (quad, ("q2c_pack_plain", "c2q_unpack_plain")),
+                       (pool, ("avg_pool2_fwd_plain", "avg_pool2_bwd_plain")),
+                       (scat_mag, ("scat_mag_fwd_plain",
+                                   "scat_mag_bwd_plain")),
+                       (banded, ("apply_col_plain", "apply_row_plain"))):
+        for n in names:
+            monkeypatch.setattr(mod, n, boom)
+    m = tt.ScatLayerj2(biort="near_sym_b_bp", qshift="qshift_b_bp",
+                       device=dev)
+    x = torch.from_numpy(_rand((2, 3, 64, 64), 62)).to(dev)
+    x.requires_grad_()
+    ops.reset_launches()
+    z = m(x)
+    fwd = ops.launch_counts()
+    z.backward(torch.ones_like(z))
+    torch.cuda.synchronize()
+    total = ops.launch_counts()
+    bwd = {k: total[k] - fwd[k] for k in total}
+    # forward: two level-1 calls (3 row + 4 column K8, one K2 each), one
+    # level-2 call (3 row + 4 column K9, one K2), three magnitudes, two
+    # pools; backward: their adjoints (per level 4 column + 3 row K8 or
+    # K10 with one K3), K5 and K11's adjoint
+    assert fwd == dict(fwd, dtcwt_filt=14, dtcwt_dfilt=7, q2c_pack=3,
+                       scat_mag_fwd=3, avg_pool2_fwd=2, apply_row=0,
+                       apply_col=0, dtcwt_ifilt=0, c2q_unpack=0)
+    assert bwd == dict(bwd, dtcwt_filt=14, dtcwt_ifilt=7, c2q_unpack=3,
+                       scat_mag_bwd=3, avg_pool2_bwd=2, apply_row=0,
+                       apply_col=0, dtcwt_dfilt=0, q2c_pack=0)

@@ -73,10 +73,13 @@ def test_cpu_tensors_take_plain_versions():
     tt.ScatLayerj2(device="cpu")(torch.cat([x, x[:, :1]], dim=1))
     tt.DWTInverse(device="cpu")(tt.DWTForward(J=2, device="cpu")(x))
     tt.DWT1DInverse(device="cpu")(tt.DWT1DForward(J=2, device="cpu")(x[0]))
+    tt.ScatLayerj2(biort="near_sym_b_bp", qshift="qshift_b_bp",
+                   device="cpu")(x)
     assert ops.launch_counts() == {k.__name__: 0 for k in ops.KERNELS}
     assert set(ops.launch_counts()) == {
         "apply_row", "apply_col", "q2c_pack", "c2q_unpack", "scat_mag_fwd",
-        "scat_mag_bwd", "afb1d_corr", "sfb1d_conv"}
+        "scat_mag_bwd", "afb1d_corr", "sfb1d_conv", "dtcwt_filt",
+        "dtcwt_dfilt", "dtcwt_ifilt", "avg_pool2_fwd", "avg_pool2_bwd"}
 
 
 def test_default_device_is_cuda(monkeypatch):

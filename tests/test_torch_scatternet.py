@@ -1,7 +1,9 @@
 """The port's scattering layers and magnitude kernels (CPU, plain path)
 == the JAX package, outputs and input gradients through ``jax.vjp``, at
 the JAX suite's ScatterNet tolerance (tests/test_scatternet.py), with the
-JAX operator path forced (the counterpart) and with its conv path."""
+JAX operator path forced (the counterpart) and with its conv path; the
+bandpass-diagonal filters and ``set_operator_matmul(False)`` on the
+per-level path of both."""
 import numpy as np
 import pytest
 import torch
@@ -15,7 +17,8 @@ from pytorch_wavelets_tpu.transforms import scatternet as jscat
 
 import pytorch_wavelets_tpu_torch as tt
 from pytorch_wavelets_tpu_torch.convert import filters_from_jax
-from pytorch_wavelets_tpu_torch.ops import scat_mag
+from pytorch_wavelets_tpu_torch.ops import banded as pbanded
+from pytorch_wavelets_tpu_torch.ops import pool, scat_mag
 from pytorch_wavelets_tpu_torch.transforms import scatternet as pscat
 from tests.torch_parity import jax_path, rand  # noqa: F401
 
@@ -80,22 +83,68 @@ def test_taps_loaded_from_jax():
     jbanded.set_operator_matmul(True)
     try:
         x = rand((1, 3, 16, 16), 3)
-        for name in ("ScatLayer", "ScatLayerj2"):
-            j, mine = getattr(tw, name)(), getattr(tt, name)(device="cpu")
+        for name, kw in (("ScatLayer", {}), ("ScatLayerj2", {}),
+                         ("ScatLayer", BP),
+                         ("ScatLayerj2", dict(qshift="qshift_b_bp", **BP))):
+            j = getattr(tw, name)(**kw)
+            mine = getattr(tt, name)(device="cpu", **kw)
             for buf in mine.buffers():
                 buf.zero_()
             mine.load_state_dict(filters_from_jax(j._filters))
-            _close(mine(torch.from_numpy(x)), j(jnp.asarray(x)))
+            _close(mine(torch.from_numpy(x)), jax.jit(j)(jnp.asarray(x)))
     finally:
         jbanded.set_operator_matmul(None)
 
 
+BP = dict(biort="near_sym_b_bp")
+BP_CONFIGS = [
+    ((2, 3, 32, 32), dict()),
+    ((2, 3, 32, 32), dict(combine_colour=True)),
+    ((1, 2, 30, 34), dict(mode="zero", magbias=1e-1)),   # odd: the pads
+]
+
+
+@pytest.mark.parametrize("shape,kw", BP_CONFIGS)
+def test_scatlayerj2_bandpass_diag(shape, kw):
+    """near_sym_b_bp / qshift_b_bp: the per-level rotated-filter path of
+    both packages, outputs and gradients."""
+    _both(tw.ScatLayerj2(qshift="qshift_b_bp", **BP, **kw),
+          tt.ScatLayerj2(qshift="qshift_b_bp", device="cpu", **BP, **kw),
+          shape)
+
+
+@pytest.mark.parametrize("shape,kw", BP_CONFIGS)
+def test_scatlayer_bandpass_diag(shape, kw):
+    _both(tw.ScatLayer(**BP, **kw), tt.ScatLayer(device="cpu", **BP, **kw),
+          shape)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(combine_colour=True)])
+def test_scatlayerj2_per_level(kw):
+    """set_operator_matmul(False) in both packages: the per-level path
+    with near_sym_a / qshift_a (K8/K9, K2 and the pool K11's plain
+    versions; JAX's conv path)."""
+    jbanded.set_operator_matmul(False)
+    pbanded.set_operator_matmul(False)
+    try:
+        _both(tw.ScatLayerj2(**kw), tt.ScatLayerj2(device="cpu", **kw),
+              (1, 3, 40, 32))
+    finally:
+        jbanded.set_operator_matmul(None)
+        pbanded.set_operator_matmul(None)
+
+
+def test_avg_pool2_plain_matches_jax():
+    """K11's plain versions == JAX avg_pool2 and its jax.vjp."""
+    x = rand((2, 3, 6, 10), 6)
+    g = rand((2, 3, 3, 5), 7)
+    y, vjp = jax.vjp(jscat.avg_pool2, jnp.asarray(x))
+    _close(pool.avg_pool2_fwd_plain(torch.from_numpy(x)), y)
+    _close(pool.avg_pool2_bwd_plain(torch.from_numpy(g)),
+           vjp(jnp.asarray(g))[0])
+
+
 def test_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="Still to port' 2"):
-        tt.ScatLayer(biort="near_sym_b_bp", device="cpu")
-    with pytest.raises(NotImplementedError, match="Still to port' 2"):
-        tt.ScatLayerj2(biort="near_sym_b_bp", qshift="qshift_b_bp",
-                       device="cpu")
     with pytest.raises(ValueError, match="qshift_b_bp"):
         tt.ScatLayerj2(biort="near_sym_b_bp", device="cpu")
     with pytest.raises(NotImplementedError, match="Still to port' 8"):

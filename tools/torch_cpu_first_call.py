@@ -11,9 +11,15 @@ records the input of every operator product (``apply_row`` /
 first call differs from the third: its name, the largest difference, and
 which flattened elements differ.  A last line counts the processes whose
 first call differed.  ``--smooth-mag-only`` records the magnitudes alone
-(fewer host allocations between the calls).
+(fewer host allocations between the calls).  ``--bisect`` also records
+every intermediate of the magnitude's plain version (``re * re``,
+``im * im``, their sum, ``+ bias^2``, ``sqrt``, ``- bias``: the same
+PyTorch operations in the same order), so that the first operation whose
+output differs from the third call's, on inputs that do not, is named.
+Run it once with ``OMP_NUM_THREADS=1`` and once with the default threads.
 
     python tools/torch_cpu_first_call.py --procs 36
+    python tools/torch_cpu_first_call.py --procs 40 --bisect
 
 Imports torch, numpy and the port only.
 """
@@ -27,16 +33,35 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def child(record_ops):
+def child(record_ops, bisect):
     import numpy as np
     import torch
 
     import pytorch_wavelets_tpu_torch as tt
-    from pytorch_wavelets_tpu_torch.ops import fused_dtcwt
+    from pytorch_wavelets_tpu_torch.ops import fused_dtcwt, scat_mag
     from pytorch_wavelets_tpu_torch.transforms import scatternet
 
     rec = []
     orig = scatternet.smooth_mag
+
+    def plain_steps(h, bias, combine=False):
+        """scat_mag_fwd_plain's operations one by one, each recorded."""
+        re, im = h[..., 0], h[..., 1]
+        steps = [("re*re", re * re), ("im*im", im * im)]
+        s = steps[0][1] + steps[1][1]
+        steps.append(("re*re + im*im", s))
+        if combine:
+            s = s.sum(dim=2, keepdim=True)
+            steps.append(("sum over C", s))
+        t = s + bias * bias
+        r = torch.sqrt(t)
+        out = r - bias
+        steps += [("+ bias^2", t), ("sqrt", r), ("- bias", out)]
+        rec.extend((f"magnitude step {n}", v.clone()) for n, v in steps)
+        return out
+
+    if bisect:
+        scat_mag.scat_mag_fwd_plain = plain_steps
 
     def recording(name, fn):
         def wrapped(x, *args, **kwargs):
@@ -85,16 +110,19 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--procs", type=int, default=36)
     ap.add_argument("--smooth-mag-only", action="store_true")
+    ap.add_argument("--bisect", action="store_true")
     ap.add_argument("--child", action="store_true")
     args = ap.parse_args()
     if args.child:
-        return child(not args.smooth_mag_only)
+        return child(not args.smooth_mag_only, args.bisect)
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     counts = Counter()
     for _ in range(args.procs):
         cmd = [sys.executable, __file__, "--child"]
         if args.smooth_mag_only:
             cmd.append("--smooth-mag-only")
+        if args.bisect:
+            cmd.append("--bisect")
         out = subprocess.run(cmd,
                              capture_output=True, text=True, env=env,
                              check=True, timeout=600).stdout.strip()
@@ -103,7 +131,8 @@ def main():
         if line.startswith("differs"):
             print(line, flush=True)
     print(f"{counts['differs']} of {args.procs} processes: the first CPU "
-          f"call differed from the third")
+          f"call differed from the third (torch threads: "
+          f"{os.environ.get('OMP_NUM_THREADS', 'default')})")
 
 
 if __name__ == "__main__":
