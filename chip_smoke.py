@@ -61,7 +61,21 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    replayed against its plain version right after its phase, and K8-K11
    run at edge cases (even taps, N = 4/8/12, both parities of the q-shift
    phase table, zero mode, strided inputs, accumulation into a slice).
-9. per kernel: every kernel call of one run of each path, recorded and
+9. the SWT (K12, K13, K1): swt_main, SWTForward(J=3, db4,
+   periodization) then SWTInverse on 32x3x256x256 fp32 (the JAX package's
+   published SWT configuration, docs/performance.md:28), counted, the
+   host operators built anew for its first call, checked on its first 4
+   images against the CPU plain run and for perfect reconstruction
+   (2e-4), timed; swt_train, the gradient w.r.t. x of sum(rec * G0) +
+   sum_j sum(y_j * G1+j), x.grad checked, the adjoint identity of the
+   level Function in every mode and of the least-squares merge in each
+   of its three branches; swt_long, axes of 4096 ('periodization' on
+   1x3x4096^2: the FFT merge, cuFFT + K13; 'symmetric' on 1x1x4096^2:
+   banded least squares, K1), every stage checked against the CPU plain
+   version on a crop, the round trip and a gradient step timed; then K12
+   and K13 at edge cases (every mode, pads longer than the axis, odd
+   sizes, strided inputs, odd and even spectra).
+10. per kernel: every kernel call of one run of each path, recorded and
    replayed on the same tensors against its plain PyTorch version (with
    the tolerance stated), timed (device time) beside the plain version
    and one PyTorch library call where one computes the same function,
@@ -70,9 +84,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    summed per kernel and per role (forward pyramid, its adjoint B4, the
    inverse's adjoint, the magnitudes; the DWT's analysis, synthesis and
    their backwards).
-10. profile: device time by kernel of the main path, of one ScatLayerj2
-   training step, of one DWT training step and of one bandpass-diagonal
-   ScatLayerj2 training step (torch.profiler).
+11. profile: device time by kernel of the main path, of one ScatLayerj2
+   training step, of one DWT training step, of one bandpass-diagonal
+   ScatLayerj2 training step and of one SWT training step
+   (torch.profiler).
 
 Each path's peak_mem_bytes (torch.cuda.max_memory_allocated over its
 timed calls) includes mem_held_before_bytes: what was allocated when its
@@ -184,8 +199,47 @@ SOURCES = {
                       "pytorch_wavelets_tpu/transforms/scatternet.py:46"),
     "avg_pool2_bwd": ("avg_pool2_bwd", "avg_pool2.cu",
                       "pytorch_wavelets_tpu/transforms/scatternet.py:46"),
+    "afb1d_atrous_corr": ("swt_afb", "swt_atrous.cu",
+                          "pytorch_wavelets_tpu/ops/afb_sfb.py:207"),
+    "afb1d_atrous_adjoint": ("swt_afb_adjoint", "swt_atrous.cu",
+                             "pytorch_wavelets_tpu/ops/afb_sfb.py:207"),
+    "spec_merge": ("spec_merge", "iswt_spec.cu",
+                   "pytorch_wavelets_tpu/transforms/dwt.py:394"),
+    "spec_split": ("spec_split", "iswt_spec.cu",
+                   "pytorch_wavelets_tpu/transforms/dwt.py:394"),
 }
 BANDED_REPLACES = "pytorch_wavelets_tpu/ops/banded.py:410"
+
+# the SWT paths: the JAX package's published SWT configuration
+# (docs/performance.md:28, benchmarks/run.py:139-148's --swt workload),
+# forward, inverse and the training step; then axes past the dense pinv's
+# 2048 samples, where the inverse's other two branches run
+SWT_SHAPE, SWT_J = (32, 3, 256, 256), 3
+SWT_WAVE, SWT_MODE = "db4", "periodization"
+SWT_CHECK_N = 4                       # images checked against the CPU run
+SWT_PR_TOL = 2e-4                     # tests/test_swt.py:53
+SWT_LONG = (("periodization", (1, 3, 4096, 4096)),   # FFT merge: K13
+            ("symmetric", (1, 1, 4096, 4096)))       # banded LS: K1
+SWT_LONG_J = 2
+SWT_LONG_PR_TOL = 5e-4                # tests/test_swt.py:117
+SWT_CROP = 32       # lines of each long-path stage checked on the CPU
+SWT_MODES = ("zero", "symmetric", "reflect", "periodic", "periodization",
+             "replicate")
+# K13: a few fp32 products a value, against the sum of the magnitudes of
+# its terms (|g0 A| + |g1 B|, or |g Z|), not of the result: the spectra's
+# terms grow with the square root of the length, and cancel
+SPEC_TOL = dict(rtol=1e-6, atol=1e-6)
+SWT_KERNELS = ("afb1d_atrous_corr", "afb1d_atrous_adjoint", "spec_merge",
+               "spec_split")
+# the position of the axis among each kernel's recorded arguments
+SWT_AXIS_ARG = {"afb1d_atrous_corr": 4, "afb1d_atrous_adjoint": 4,
+                "spec_merge": 4, "spec_split": 3}
+# the JAX function each role's kernels replace ('merge': _ls_merge's
+# operator products, dense pinv l.366-368 or banded l.358-363)
+_SPLIT, _MERGE = ("pytorch_wavelets_tpu/ops/afb_sfb.py:207",
+                  "pytorch_wavelets_tpu/transforms/dwt.py:345")
+SWT_REPLACES = {"split": _SPLIT, "split's adjoint": _SPLIT,
+                "merge": _MERGE, "merge's adjoint": _MERGE}
 # the pyramid functions whose kernel calls make up each role, and the JAX
 # function each backward role replaces
 ROLES = {"_analysis": "forward pyramid", "_synthesis": "inverse pyramid",
@@ -237,9 +291,37 @@ def shape_str(shape):
     return "x".join(map(str, shape))
 
 
+@contextlib.contextmanager
+def one_cpu_thread():
+    """Run the body's CPU plain references at one thread, as the port's
+    CPU tests do: PyTorch's CPU ``sqrt`` can differ in one worker thread on
+    its first call in a multi-threaded process (ROADMAP.md, section C)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def max_err(a, b):
-    return float((a.detach().float() - b.detach().float()).abs().max()) \
-        if a.numel() else 0.0
+    if not a.numel():
+        return 0.0
+    if a.is_complex():
+        return float((a.detach() - b.detach()).abs().max())
+    return float((a.detach().float() - b.detach().float()).abs().max())
+
+
+def within(got, want, tol, scale=None):
+    """``got`` agrees with ``want``: bit for bit (``tol`` "exact"), or
+    |got - want| <= atol + rtol * |want|, or, with ``scale``,
+    <= atol + rtol * scale (the magnitude of the terms summed)."""
+    if tol == "exact":
+        return torch.equal(got, want)
+    if scale is None:
+        return torch.allclose(got, want, equal_nan=True, **tol)
+    return bool(((got - want).abs() <= tol["atol"] + tol["rtol"] * scale)
+                .all())
 
 
 def adjoint_error(outs, gs, ins, grads):
@@ -334,9 +416,8 @@ class Tracer(Swapping):
             return orig["apply_row"](x, T)
 
         def apply_col(x, T, out=None, accumulate=True):
-            mode = (None if out is None else ("acc", out.clone())
-                    if accumulate else ("write", out.size(), out.stride()))
-            calls.append(("apply_col", self.role, (x, T, mode)))
+            calls.append(("apply_col", self.role,
+                          (x, T, _out_mode(out, accumulate))))
             return orig["apply_col"](x, T, out, accumulate)
 
         def q2c_pack(y, out, orients):
@@ -361,6 +442,16 @@ class Tracer(Swapping):
             (f, "q2c_pack", q2c_pack), (f, "c2q_unpack", c2q_unpack),
             (m, "scat_mag_fwd", scat_mag_fwd),
             (m, "scat_mag_bwd", scat_mag_bwd)]
+
+
+def _out_mode(out, accumulate):
+    """How a K1 call wrote its result, in the form replay() reads: None
+    (a new tensor), ('acc', what ``out`` held) or ('write', size,
+    strides)."""
+    if out is None:
+        return None
+    return (("acc", out.clone()) if accumulate
+            else ("write", out.size(), out.stride()))
 
 
 class DwtRecorder(Swapping):
@@ -667,61 +758,58 @@ def dwt_call_parts(call, afb, pad):
 
 
 def replay(call, banded, quad, mag, afb, pad, fb=None, pool=None,
-           timing=REPLAY_TIMING):
+           timing=REPLAY_TIMING, im=None):
     """Check one recorded call against its plain version and time it
     (``timing``: reps, batches).  Returns (err, ms, plain_ms, library_ms,
     bound_ms, op_t, byte_t)."""
     name, _, args = call
-    lib = None
-    if name in STENCILS + POOLS:
+    lib = scale = None
+    if name in SWT_KERNELS:
+        got, want, run, plain, lib, ops, nbytes, tol, scale = \
+            swt_call_parts(call, afb, pad, im)
+    elif name in STENCILS + POOLS:
         got, want, run, plain, lib, ops, nbytes, tol = stencil_call_parts(
             call, fb, pool)
     elif name in DWT_KERNELS:
         got, want, run, plain, lib, ops, nbytes = dwt_call_parts(call, afb,
                                                                  pad)
         tol = DWT_TOL
-    elif name == "apply_row":
-        x, T = args
-        Td = T.T
-        N, C, H, K = x.shape
-        got = banded.apply_row(x, T)
-        want = banded.apply_row_plain(x, T)
-        run = lambda: banded.apply_row(x, T)                  # noqa: E731
-        plain = lambda: banded.apply_row_plain(x, T)          # noqa: E731
-        lib = lambda: torch.matmul(x, Td.t())                 # noqa: E731
-        ops = 2.0 * T.nnz * N * C * H
-        nbytes = 4.0 * (x.numel() + Td.numel() + got.numel())
-        tol = K1_TOL
-    elif name == "apply_col":
-        x, T, mode = args
-        Td = T.T
-        N, C, K, Wc = x.shape
+    elif name in ("apply_row", "apply_col"):
+        # mode: None (a new output), ("acc", what out held) or ("write",
+        # out's size, strides), as the calls were recorded
+        x, T, *mode = args
+        mode = mode[0] if mode else None
         kind = mode[0] if mode else None
+        kern, plainf = getattr(banded, name), getattr(banded, name + "_plain")
+        Td = T.T
+        if name == "apply_row":
+            prod = lambda: torch.matmul(x, Td.t())            # noqa: E731
+        else:
+            prod = lambda: torch.matmul(Td, x)                # noqa: E731
         if kind is None:
-            got = banded.apply_col(x, T)
-            want = banded.apply_col_plain(x, T)
-            run = lambda: banded.apply_col(x, T)              # noqa: E731
-            plain = lambda: banded.apply_col_plain(x, T)      # noqa: E731
-            lib = lambda: torch.matmul(Td, x)                 # noqa: E731
+            got, want = kern(x, T), plainf(x, T)
+            run = lambda: kern(x, T)                          # noqa: E731
+            plain = lambda: plainf(x, T)                      # noqa: E731
+            lib = prod
         elif kind == "acc":
             out = mode[1]
-            got = banded.apply_col(x, T, out.clone())
-            want = banded.apply_col_plain(x, T, out)
+            got, want = kern(x, T, out.clone()), plainf(x, T, out)
             buf = out.clone()
-            run = lambda: banded.apply_col(x, T, buf)         # noqa: E731
-            plain = lambda: banded.apply_col_plain(x, T, out)  # noqa: E731
-            lib = lambda: torch.matmul(Td, x).add_(out)       # noqa: E731
+            run = lambda: kern(x, T, buf)                     # noqa: E731
+            plain = lambda: plainf(x, T, out)                 # noqa: E731
+            lib = lambda: prod().add_(out)                    # noqa: E731
         else:   # written through the strides of a view (B4's dz blocks)
             buf = torch.empty_strided(mode[1], mode[2], device=x.device)
             pbuf = torch.empty_strided(mode[1], mode[2], device=x.device)
-            got = banded.apply_col(x, T, buf, accumulate=False)
-            want = banded.apply_col_plain(x, T)
-            run = lambda: banded.apply_col(x, T, buf,         # noqa: E731
-                                           accumulate=False)
-            plain = lambda: banded.apply_col_plain(           # noqa: E731
-                x, T, pbuf, accumulate=False)
-            lib = lambda: torch.matmul(Td, x)                 # noqa: E731
-        ops = 2.0 * T.nnz * N * C * Wc
+            got = kern(x, T, buf, accumulate=False)
+            want = plainf(x, T)
+            run = lambda: kern(x, T, buf,                     # noqa: E731
+                               accumulate=False)
+            plain = lambda: plainf(x, T, pbuf,                # noqa: E731
+                                   accumulate=False)
+            lib = prod
+        K = x.shape[3 if name == "apply_row" else 2]
+        ops = 2.0 * T.nnz * x.numel() / K
         nbytes = 4.0 * (x.numel() + Td.numel() + got.numel()
                         * (2 if kind == "acc" else 1))
         tol = K1_TOL
@@ -773,11 +861,8 @@ def replay(call, banded, quad, mag, afb, pad, fb=None, pool=None,
         ops = 4.0 * h.numel() + 2.0 * g.numel()
         nbytes = 4.0 * (2 * h.numel() + g.numel())
         tol = MAG_TOL
-    if tol == "exact":
-        ok = torch.equal(got, want)
-    else:
-        ok = torch.allclose(got, want, equal_nan=True, **tol)
-    require(ok, f"{name} {tuple(args[0].shape)} disagrees with its plain "
+    require(within(got, want, tol, scale),
+            f"{name} {tuple(args[0].shape)} disagrees with its plain "
             f"version by {max_err(got, want)}")
     op_t, byte_t = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
     reps, batches = timing
@@ -790,14 +875,16 @@ def replay(call, banded, quad, mag, afb, pad, fb=None, pool=None,
 def _tolerance(kernel):
     if kernel in ("q2c_pack", "c2q_unpack") or kernel in POOLS:
         return "exact"
+    if kernel.startswith("spec_"):
+        return dict(SPEC_TOL, relative_to="the terms' magnitudes")
     if kernel.startswith("scat_mag"):
         return MAG_TOL
-    return DWT_TOL if kernel in DWT_KERNELS else STENCIL_TOL \
-        if kernel in STENCILS else K1_TOL
+    return DWT_TOL if kernel in DWT_KERNELS + SWT_KERNELS[:2] \
+        else STENCIL_TOL if kernel in STENCILS else K1_TOL
 
 
 def kernel_rows(groups, banded, quad, mag, afb, pad, fb=None, pool=None,
-                timing=REPLAY_TIMING):
+                timing=REPLAY_TIMING, im=None):
     """One row per group (name, replaces, launches, calls): the replays of
     its calls summed; ``per_call`` lists [input shape (by operator
     shape), ms, plain_ms, library_ms, bound_ms] for each call."""
@@ -807,7 +894,7 @@ def kernel_rows(groups, banded, quad, mag, afb, pad, fb=None, pool=None,
                  byte=0.0, haslib=True, per_call=[])
         for call in calls:
             err, ms, plain_ms, lib_ms, bound, op_t, byte_t = replay(
-                call, banded, quad, mag, afb, pad, fb, pool, timing)
+                call, banded, quad, mag, afb, pad, fb, pool, timing, im)
             a["err"] = max(a["err"], err)
             a["ms"] += ms
             a["plain"] += plain_ms
@@ -821,6 +908,8 @@ def kernel_rows(groups, banded, quad, mag, afb, pad, fb=None, pool=None,
                 shape += " by " + "x".join(map(str, call[2][1].shape))
             elif call[0] in DWT_KERNELS:
                 shape += f" axis {call[2][-2]}"
+            elif call[0] in SWT_KERNELS:
+                shape += f" axis {call[2][SWT_AXIS_ARG[call[0]]]}"
             elif call[0] in STENCILS:
                 axis = call[2][2 if call[0] == "dtcwt_filt" else 4]
                 shape += f" axis {axis}"
@@ -843,9 +932,11 @@ def kernel_rows(groups, banded, quad, mag, afb, pad, fb=None, pool=None,
     return rows
 
 
-def role_groups(calls, by_role, roles, label):
+def phase_groups(calls, by_role, label, roles, replaces=None):
     """Groups for :func:`kernel_rows`: per role of ``roles`` and per
-    kernel, the calls of that role, named after the path and role."""
+    kernel, the calls of that role, named after the path and role, with
+    the launches ``by_role[role][kernel]`` and the JAX function
+    ``replaces(role, kernel)`` (the kernel's own by default)."""
     groups = []
     for role in roles:
         for kernel in SOURCES:
@@ -853,8 +944,9 @@ def role_groups(calls, by_role, roles, label):
             if mine:
                 groups.append((
                     f"{SOURCES[kernel][0]} ({label}: {role})",
-                    ROLE_REPLACES.get(role, SOURCES[kernel][2]),
-                    by_role[role][kernel], mine))
+                    replaces(role, kernel) if replaces
+                    else SOURCES[kernel][2],
+                    by_role.get(role, {}).get(kernel, 0), mine))
     return groups
 
 
@@ -868,8 +960,9 @@ def drive(tt, ops, fused, scat, shape, J, phase):
     N, C, H, W = shape
     x_cpu = torch.randn(shape, generator=torch.Generator().manual_seed(0))
     t0 = time.perf_counter()
-    ref_yl, ref_yh = tt.DTCWTForward(J=J, device="cpu")(x_cpu)
-    ref_rec = tt.DTCWTInverse(device="cpu")((ref_yl, ref_yh))
+    with one_cpu_thread():
+        ref_yl, ref_yh = tt.DTCWTForward(J=J, device="cpu")(x_cpu)
+        ref_rec = tt.DTCWTInverse(device="cpu")((ref_yl, ref_yh))
     cpu_s = time.perf_counter() - t0
 
     fwd = tt.DTCWTForward(J=J, device="cuda")
@@ -943,14 +1036,15 @@ def train_main(tt, ops, fused, scat, shape, J):
         outs = [inv((yl, yh)), yl, *yh]
         return outs, torch.autograd.grad(outs, x, cts)[0]
 
-    with torch.no_grad():
+    with torch.no_grad(), one_cpu_thread():
         yl, yh = fwd_c(x_cpu)
     cts_cpu = [torch.randn(t.shape, generator=torch.Generator()
                            .manual_seed(1 + k))
                for k, t in enumerate([x_cpu, yl, *yh])]
     t0 = time.perf_counter()
-    _, ref_grad = step(fwd_c, inv_c, x_cpu.clone().requires_grad_(),
-                       cts_cpu)
+    with one_cpu_thread():
+        _, ref_grad = step(fwd_c, inv_c, x_cpu.clone().requires_grad_(),
+                           cts_cpu)
     cpu_s = time.perf_counter() - t0
 
     fwd = tt.DTCWTForward(J=J, device="cuda")
@@ -1036,9 +1130,10 @@ def scat_step(tt, ops, fused, scat, shape, check_n, phase, timing,
     G_cpu = torch.randn((N, cout, H // down, W // down),
                         generator=torch.Generator().manual_seed(1))
     t0 = time.perf_counter()
-    xc = x_cpu[:check_n].clone().requires_grad_()
-    z_ref = getattr(tt, layer)(device="cpu", **kw)(xc)
-    g_ref = torch.autograd.grad(z_ref, xc, G_cpu[:check_n])[0]
+    with one_cpu_thread():
+        xc = x_cpu[:check_n].clone().requires_grad_()
+        z_ref = getattr(tt, layer)(device="cpu", **kw)(xc)
+        g_ref = torch.autograd.grad(z_ref, xc, G_cpu[:check_n])[0]
     cpu_s = time.perf_counter() - t0
 
     m = getattr(tt, layer)(device="cuda", **kw)
@@ -1163,15 +1258,17 @@ def dwt_path(tt, ops, afb, dwt, shape, J, one_d, phase):
     n = DWT_CHECK_N
     x_cpu = torch.randn(shape, generator=torch.Generator().manual_seed(0))
     t0 = time.perf_counter()
-    fc, ic = fcls(J=J, device="cpu", **kw), icls(device="cpu", **kw)
-    xc = x_cpu[:n].clone().requires_grad_()
-    yl, yh = fc(xc)
-    outs = [ic((yl, yh)), yl, *yh]
-    ref = [o.detach() for o in outs]
-    cts_cpu = [torch.randn((shape[0], *o.shape[1:]), generator=torch
-                           .Generator().manual_seed(1 + k))
-               for k, o in enumerate(outs)]
-    ref_grad = torch.autograd.grad(outs, xc, [c[:n] for c in cts_cpu])[0]
+    with one_cpu_thread():
+        fc, ic = fcls(J=J, device="cpu", **kw), icls(device="cpu", **kw)
+        xc = x_cpu[:n].clone().requires_grad_()
+        yl, yh = fc(xc)
+        outs = [ic((yl, yh)), yl, *yh]
+        ref = [o.detach() for o in outs]
+        cts_cpu = [torch.randn((shape[0], *o.shape[1:]), generator=torch
+                               .Generator().manual_seed(1 + k))
+                   for k, o in enumerate(outs)]
+        ref_grad = torch.autograd.grad(outs, xc,
+                                       [c[:n] for c in cts_cpu])[0]
     cpu_s = time.perf_counter() - t0
     del yl, yh, outs
 
@@ -1580,21 +1677,6 @@ def per_level_main(tt, ops, banded, fb, lev, scat):
     return fields, by_role, r.calls
 
 
-def per_level_groups(calls, by_role, label):
-    """Groups for :func:`kernel_rows`: per role ('forward' holds a round
-    trip's inverse too) and per kernel, the calls of a per-level phase."""
-    groups = []
-    for role in ("forward", "backward"):
-        for kernel in PER_LEVEL + ("scat_mag_fwd", "scat_mag_bwd"):
-            mine = [c for c in calls if c[0] == kernel and c[1] == role]
-            if mine:
-                groups.append((
-                    f"{SOURCES[kernel][0]} ({label}: {role})",
-                    PER_LEVEL_REPLACES.get(kernel, SOURCES[kernel][2]),
-                    by_role.get(role, {}).get(kernel, 0), mine))
-    return groups
-
-
 def stencil_edge_cases(fb, pool):
     """K8-K11 against their plain versions where the main paths do not
     reach: even-length taps (n + 1 outputs), 'zero' mode, K9 at N = 4, 8,
@@ -1663,6 +1745,567 @@ def stencil_edge_cases(fb, pool):
     return len(calls), err
 
 
+# ---------------------------------------------------------------------------
+# the SWT paths
+# ---------------------------------------------------------------------------
+
+class SwtRecorder(Swapping):
+    """For one run of the SWT: swaps the K12 wrappers where the 2-D split
+    and the level Function call them, and the K1 / K13 wrappers where the
+    least-squares merges call them, for recording ones, which keep each
+    call's inputs for replay and tag it with its role ('split', 'merge',
+    and their adjoints: the caller sets ``backward`` around the
+    gradient)."""
+
+    def __init__(self, afb, dwt):
+        self.afb, self.dwt = afb, dwt
+        self.calls = []
+        self.backward = False
+
+    def swaps(self):
+        afb, dwt, calls = self.afb, self.dwt, self.calls
+        orig = {"afb1d_atrous_corr": afb.afb1d_atrous_corr}
+        orig.update({n: getattr(dwt, n) for n in (
+            "afb1d_atrous_adjoint", "apply_col", "apply_row", "spec_merge",
+            "spec_split")})
+
+        def rec(name, args):
+            role = "split" if name.startswith("afb1d_atrous") else "merge"
+            calls.append((name, role + ("'s adjoint" if self.backward
+                                        else ""), args))
+
+        def afb1d_atrous_corr(x, h0, h1, mode, axis, d):
+            rec("afb1d_atrous_corr", (x, h0, h1, mode, axis % 4, d))
+            return orig["afb1d_atrous_corr"](x, h0, h1, mode, axis, d)
+
+        def afb1d_atrous_adjoint(dy, h0, h1, mode, axis, d, n):
+            rec("afb1d_atrous_adjoint", (dy, h0, h1, mode, axis % 4, d, n))
+            return orig["afb1d_atrous_adjoint"](dy, h0, h1, mode, axis, d, n)
+
+        def apply_col(x, T, out=None, accumulate=True):
+            rec("apply_col", (x, T, _out_mode(out, accumulate)))
+            return orig["apply_col"](x, T, out, accumulate)
+
+        def apply_row(x, T, out=None, accumulate=True):
+            rec("apply_row", (x, T, _out_mode(out, accumulate)))
+            return orig["apply_row"](x, T, out, accumulate)
+
+        def spec_merge(A, B, g0, g1, axis):
+            rec("spec_merge", (A, B, g0, g1, axis))
+            return orig["spec_merge"](A, B, g0, g1, axis)
+
+        def spec_split(Z, g0, g1, axis):
+            rec("spec_split", (Z, g0, g1, axis))
+            return orig["spec_split"](Z, g0, g1, axis)
+
+        return [(afb, "afb1d_atrous_corr", afb1d_atrous_corr),
+                (dwt, "afb1d_atrous_adjoint", afb1d_atrous_adjoint),
+                (dwt, "apply_col", apply_col), (dwt, "apply_row", apply_row),
+                (dwt, "spec_merge", spec_merge),
+                (dwt, "spec_split", spec_split)]
+
+
+def swt_call_parts(call, afb, pad, im):
+    """One recorded K12/K13 call: (got, want, run, plain, lib, ops, bytes,
+    tol, scale), ``scale`` the magnitude of each K13 value's terms (None
+    for K12).  ``lib`` is cuDNN's ``F.conv2d`` of the input padded here (not
+    timed), both taps stacked, at ``dilation`` (1, d) or (d, 1), for
+    ``swt_afb``; ``torch.mul`` of the spectrum by both conjugated filters,
+    stacked and broadcast along the axis here (not timed), for
+    ``spec_split``; each checked against the plain version.  None for the
+    adjoint (no single call folds the pads back) and for ``spec_merge``
+    (two products and a sum, no single call)."""
+    import torch.nn.functional as F
+    name, _, args = call
+    lib = scale = None
+    if name == "afb1d_atrous_corr":
+        x, h0, h1, mode, axis, d = args
+        got = afb.afb1d_atrous_corr(x, h0, h1, mode, axis, d)
+        run = lambda: afb.afb1d_atrous_corr(x, h0, h1, mode,  # noqa: E731
+                                            axis, d)
+        plain = lambda: afb.afb1d_atrous_corr_plain(          # noqa: E731
+            x, h0, h1, mode, axis, d)
+        want = plain()
+        L = len(h0)
+        front, back, _, _ = afb.atrous_plan(x.shape[axis], L, d, mode)
+        N, C = x.shape[:2]
+        xp = pad.pad1d(x, front, back, axis, mode)
+        xp = xp.reshape(N * C, 1, *xp.shape[2:]).contiguous()
+        w = torch.tensor(np.stack([h0, h1]), dtype=torch.float32,
+                         device=x.device)
+        w = w.view(2, 1, 1, L) if axis == 3 else w.view(2, 1, L, 1)
+        dil = (1, d) if axis == 3 else (d, 1)
+        lib = lambda: F.conv2d(xp, w, dilation=dil)           # noqa: E731
+        require(torch.allclose(lib().view_as(want), want, **DWT_TOL),
+                "swt_afb: the library yardstick differs from the plain "
+                "version")
+        ops = 2.0 * L * got.numel()
+        nbytes = 4.0 * (x.numel() + got.numel())
+        tol = DWT_TOL
+    elif name == "afb1d_atrous_adjoint":
+        dy, h0, h1, mode, axis, d, n = args
+        got = afb.afb1d_atrous_adjoint(dy, h0, h1, mode, axis, d, n)
+        run = lambda: afb.afb1d_atrous_adjoint(               # noqa: E731
+            dy, h0, h1, mode, axis, d, n)
+        plain = lambda: afb.afb1d_atrous_adjoint_plain(       # noqa: E731
+            dy, h0, h1, mode, axis, d, n)
+        want = plain()
+        ops = 2.0 * len(h0) * dy.numel()
+        nbytes = 4.0 * (dy.numel() + got.numel())
+        tol = DWT_TOL
+    elif name == "spec_merge":
+        A, B, g0, g1, axis = args
+        got = im.spec_merge(A, B, g0, g1, axis)
+        run = lambda: im.spec_merge(A, B, g0, g1, axis)       # noqa: E731
+        plain = lambda: im.spec_merge_plain(                  # noqa: E731
+            A, B, g0, g1, axis)
+        want = plain()
+        ops = 14.0 * got.numel()      # two complex products and a sum
+        nbytes = 8.0 * (A.numel() + B.numel() + got.numel())
+        tol = SPEC_TOL
+        scale = (im.spec_merge_plain(A.abs(), B.abs(), g0.abs(), g1.abs(),
+                                     axis))
+    else:
+        Z, g0, g1, axis = args
+        got = im.spec_split(Z, g0, g1, axis)
+        run = lambda: im.spec_split(Z, g0, g1, axis)          # noqa: E731
+        plain = lambda: im.spec_split_plain(Z, g0, g1, axis)  # noqa: E731
+        want = plain()
+        shape = [2, 1, 1, 1, 1]
+        shape[axis + 1] = -1
+        gc = torch.stack([g0, g1]).conj().resolve_conj().view(shape)
+        zu = Z.unsqueeze(0)
+        lib = lambda: torch.mul(zu, gc)                       # noqa: E731
+        ops = 6.0 * got.numel()       # a complex product per output value
+        nbytes = 8.0 * (Z.numel() + got.numel())
+        tol = SPEC_TOL
+        scale = im.spec_split_plain(Z.abs(), g0.abs(), g1.abs(), axis)
+        require(within(lib(), want, tol, scale),
+                "spec_split: the library yardstick differs from the plain "
+                "version")
+    return got, want, run, plain, lib, ops, nbytes, tol, scale
+
+
+def swt_adjoints(dwt):
+    """The dot-product test <A x, g> = <x, A^T g> on the card of the SWT
+    level Function in every mode (db4 at dilation 2 on a strided input)
+    and of the least-squares merge in each branch along both axes: the
+    dense pinv (256 samples), the FFT merge (2304, circular) and banded
+    least squares (2304, 'symmetric').  Returns {function: relative
+    error}."""
+    gen = torch.Generator(device="cuda").manual_seed(100)
+
+    def rnd(shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    taps = tuple(dwt._rev(t) for t in dwt.dec_filters(SWT_WAVE))
+    out = {}
+    for mode in SWT_MODES:
+        x = rnd((2, 3, 4, 40, 36))[:, :, 1].requires_grad_()
+        y = dwt._AFB2DAtrous.apply(x, taps, mode, 2)
+        g = rnd(y.shape)
+        gx = torch.autograd.grad(y, x, g)[0]
+        out[f"_AFB2DAtrous {mode}"] = adjoint_error([y], [g], [x], [gx])
+    pair = tuple(dwt._tup(t) for t in taps[:2])
+    for branch, mode, n in (("pinv", "symmetric", 256),
+                            ("fft", "periodization", 2304),
+                            ("banded", "symmetric", 2304)):
+        for axis in (2, 3):
+            shape = [1, 2, 6, 8]
+            shape[axis] = n
+            lo, hi = (rnd(shape).requires_grad_() for _ in range(2))
+            z = dwt.ls_merge(lo, hi, pair, 2, axis, mode)
+            g = rnd(z.shape)
+            grads = torch.autograd.grad(z, [lo, hi], g)
+            out[f"_LSMerge {branch} axis {axis}"] = adjoint_error(
+                [z], [g], [lo, hi], list(grads))
+    return out
+
+
+def swt_main(tt, ops, afb, dwt):
+    """SWTForward(J=3, db4, periodization) -> SWTInverse on SWT_SHAPE:
+    counted (the host operators built anew, so that the first call's
+    time holds the probes and the pinv SVDs), checked against the CPU
+    plain run on the first SWT_CHECK_N images and for perfect
+    reconstruction, timed, and one round trip recorded; then the training
+    step (the gradient w.r.t. x of sum(rec * G0) + sum_j sum(y_j * G1+j)),
+    counted, x.grad checked, the adjoint identities, timed, and its
+    backward recorded.  Returns (fields, training fields, launches per
+    role, calls, the step)."""
+    N, C, H, W = SWT_SHAPE
+    kw = dict(wave=SWT_WAVE, mode=SWT_MODE)
+    n = SWT_CHECK_N
+    x_cpu = torch.randn(SWT_SHAPE, generator=torch.Generator().manual_seed(0))
+    cts_cpu = [torch.randn(SWT_SHAPE if k == 0 else (N, C, 4, H, W),
+                           generator=torch.Generator().manual_seed(1 + k))
+               for k in range(SWT_J + 1)]
+    t0 = time.perf_counter()
+    with one_cpu_thread():
+        fc = tt.SWTForward(J=SWT_J, device="cpu", **kw)
+        ic = tt.SWTInverse(device="cpu", **kw)
+        xc = x_cpu[:n].clone().requires_grad_()
+        ys = fc(xc)
+        outs = [ic(ys), *ys]
+        ref = [o.detach() for o in outs]
+        ref_grad = torch.autograd.grad(outs, xc,
+                                       [c[:n] for c in cts_cpu])[0]
+    cpu_s = time.perf_counter() - t0
+    del ys, outs
+
+    f = tt.SWTForward(J=SWT_J, device="cuda", **kw)
+    i = tt.SWTInverse(device="cuda", **kw)
+    x = x_cpu.cuda()
+    cts = [c.cuda() for c in cts_cpu]
+    mpix = x.numel() / 1e6
+    for cached in (dwt._iswt_pinv, afb._afb_atrous_matrix):
+        cached.cache_clear()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ops.reset_launches()
+        ys = f(x)
+        fwd_counts = ops.launch_counts()
+        rec = i(ys)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        first_s = time.perf_counter() - t0
+        inv_counts = {k: counts[k] - fwd_counts[k] for k in counts}
+        require(fwd_counts["afb1d_atrous_corr"] > 0
+                and inv_counts["apply_col"] > 0
+                and inv_counts["apply_row"] > 0,
+                f"swt_main: a kernel of the path never launched: forward "
+                f"{fwd_counts}, inverse {inv_counts}")
+        require(all(bool(torch.isfinite(o).all()) for o in [rec, *ys])
+                and tuple(rec.shape) == SWT_SHAPE
+                and all(tuple(y.shape) == (N, C, 4, H, W) for y in ys),
+                "swt_main: non-finite output or wrong shapes")
+        fwd_err = max(max_err(a[:n].cpu(), b) for a, b in zip(ys, ref[1:]))
+        inv_err = max_err(rec[:n].cpu(), ref[0])
+        pr_err = max_err(rec, x)
+        require(fwd_err <= FWD_ATOL and inv_err <= INV_ATOL,
+                f"swt_main: GPU differs from the CPU plain run: forward "
+                f"{fwd_err}, inverse {inv_err}")
+        require(pr_err <= SWT_PR_TOL, f"swt_main: reconstruction error "
+                f"{pr_err}")
+        del ys, rec
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        both_ms = timed_ms(lambda: i(f(x)), reps=5, batches=10,
+                           device_only=False)
+        peak = torch.cuda.max_memory_allocated()
+        both_dev_ms = timed_ms(lambda: i(f(x)), reps=5, batches=5)
+        fwd_ms = timed_ms(lambda: f(x), reps=5, batches=10,
+                          device_only=False)
+        coeffs = f(x)
+        inv_ms = timed_ms(lambda: i(coeffs), reps=5, batches=10,
+                          device_only=False)
+        del coeffs
+        with SwtRecorder(afb, dwt) as r:
+            i(f(x))
+        torch.cuda.synchronize()
+    fields = dict(
+        shape=list(SWT_SHAPE), J=SWT_J, wave=SWT_WAVE, mode=SWT_MODE,
+        launches={"forward": fwd_counts, "inverse": inv_counts},
+        checked_images=n,
+        max_abs_err_vs_cpu={"forward": fwd_err, "inverse": inv_err},
+        tolerance={"forward": FWD_ATOL, "inverse": INV_ATOL},
+        reconstruction_err=pr_err, reconstruction_tol=SWT_PR_TOL,
+        first_call_s=first_s, fwd_inv_ms=both_ms, fwd_ms=fwd_ms,
+        inv_ms=inv_ms, mpix_per_s=mpix / (both_ms / 1e3),
+        fwd_inv_device_ms=both_dev_ms,
+        device_busy_share=both_dev_ms / both_ms, peak_mem_bytes=peak,
+        mem_held_before_bytes=held, cpu_reference_s=cpu_s)
+    calls = r.calls
+
+    x.requires_grad_()
+
+    def step():
+        ys = f(x)
+        return torch.autograd.grad([i(ys), *ys], x, cts)[0]
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    ys = f(x)
+    outs = [i(ys), *ys]
+    tf_counts = ops.launch_counts()
+    ops.reset_launches()
+    grad = torch.autograd.grad(outs, x, cts)[0]
+    torch.cuda.synchronize()
+    tb_counts = ops.launch_counts()
+    require(all(tf_counts[k] > 0 for k in ("afb1d_atrous_corr", "apply_col",
+                                           "apply_row"))
+            and all(tb_counts[k] > 0 for k in (
+                "afb1d_atrous_adjoint", "apply_col", "apply_row")),
+            f"swt_train: a kernel of the path never launched: forward "
+            f"{tf_counts}, backward {tb_counts}")
+    require(bool(torch.isfinite(grad).all()) and tuple(grad.shape) ==
+            SWT_SHAPE, "swt_train: x.grad is not finite or misshapen")
+    grad_err = max_err(grad[:n].cpu(), ref_grad)
+    require(grad_err <= GRAD_ATOL, f"swt_train: x.grad differs from the "
+            f"CPU plain run by {grad_err}")
+    del ys, outs, grad
+    adj = swt_adjoints(dwt)
+    require(all(v <= ADJOINT_TOL for v in adj.values()),
+            f"swt_train: adjoint identity off: {adj}")
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = timed_ms(step, reps=5, batches=10, device_only=False)
+    tpeak = torch.cuda.max_memory_allocated()
+    step_dev_ms = timed_ms(step, reps=5, batches=5)
+    ys = f(x)
+    outs = [i(ys), *ys]
+    with SwtRecorder(afb, dwt) as r:
+        r.backward = True
+        torch.autograd.grad(outs, x, cts)
+        torch.cuda.synchronize()
+    del ys, outs
+    calls += r.calls
+    by_role = {"split": fwd_counts, "merge": inv_counts,
+               "split's adjoint": tb_counts, "merge's adjoint": tb_counts}
+    tfields = dict(
+        shape=list(SWT_SHAPE), J=SWT_J, wave=SWT_WAVE, mode=SWT_MODE,
+        launches={"forward": tf_counts, "backward": tb_counts},
+        checked_images=n, max_abs_err_grad_vs_cpu=grad_err,
+        tolerance=GRAD_ATOL, adjoint_rel_err=adj, adjoint_tol=ADJOINT_TOL,
+        fwd_bwd_ms=step_ms, fwd_bwd_device_ms=step_dev_ms,
+        device_busy_share=step_dev_ms / step_ms,
+        mpix_per_s=mpix / (step_ms / 1e3), peak_mem_bytes=tpeak,
+        mem_held_before_bytes=held)
+    return fields, tfields, by_role, calls, step
+
+
+class StageRecorder(Swapping):
+    """Keeps every K12 split and every least-squares merge of one run with
+    its output, to check each against the CPU plain version on a crop."""
+
+    def __init__(self, afb, dwt):
+        self.afb, self.dwt = afb, dwt
+        self.stages = []
+
+    def swaps(self):
+        split, merge = self.afb.afb1d_atrous_corr, self.dwt.ls_merge
+
+        def afb1d_atrous_corr(x, h0, h1, mode, axis, d):
+            y = split(x, h0, h1, mode, axis, d)
+            self.stages.append(("split", (x, h0, h1, mode, axis % 4, d), y))
+            return y
+
+        def ls_merge(lo, hi, taps, d, axis, mode):
+            z = merge(lo, hi, taps, d, axis, mode)
+            self.stages.append(("merge", (lo, hi, taps, d, axis, mode), z))
+            return z
+        return [(self.afb, "afb1d_atrous_corr", afb1d_atrous_corr),
+                (self.dwt, "ls_merge", ls_merge)]
+
+
+def check_stages_on_crops(stages, afb, dwt):
+    """Each recorded stage against the CPU plain version on SWT_CROP lines
+    across the axis it filters (a split or merge along H works per column,
+    along W per row, so the crop is exact).  Returns the largest error of
+    each kind."""
+    errs = {"split": 0.0, "merge": 0.0}
+    for kind, args, out in stages:
+        axis = args[4]
+        other = 5 - axis
+        k0 = max((args[0].shape[other] - SWT_CROP) // 2, 0)
+
+        def crop(t, dim=other):
+            return t.narrow(dim, k0, min(SWT_CROP, t.shape[dim])).cpu()
+        with one_cpu_thread():
+            if kind == "split":
+                x, h0, h1, mode, _, d = args
+                want = afb.afb1d_atrous_corr_plain(crop(x), h0, h1, mode,
+                                                   axis, d)
+                got = crop(out, other + 1)
+            else:
+                lo, hi, taps, d, _, mode = args
+                want = dwt.ls_merge(crop(lo), crop(hi), taps, d, axis, mode)
+                got = crop(out)
+        errs[kind] = max(errs[kind], max_err(got, want))
+    return errs
+
+
+def swt_long(tt, ops, afb, dwt, mode, shape, replay_calls):
+    """SWTForward(J=2, db4) -> SWTInverse on ``shape``, axes past the dense
+    pinv's 2048 samples: the FFT merge ('periodization': cuFFT + K13) or
+    banded least squares ('symmetric': K1 with T^T, then the dense G^-1),
+    counted (first call: the host probes and Cholesky solves), every
+    stage checked against the CPU plain version on a crop, perfect
+    reconstruction, the round trip and a gradient step timed, the round
+    trip profiled (device time by kernel: cuFFT's share); one round
+    trip and one step's backward recorded and handed to
+    ``replay_calls(calls, launches per role, label)``.  Returns the
+    fields."""
+    gen = torch.Generator(device="cuda")
+    x = torch.randn(shape, generator=gen.manual_seed(0), device="cuda")
+    f = tt.SWTForward(J=SWT_LONG_J, wave=SWT_WAVE, mode=mode, device="cuda")
+    i = tt.SWTInverse(wave=SWT_WAVE, mode=mode, device="cuda")
+    mpix = x.numel() / 1e6
+    label = f"SWT J={SWT_LONG_J} {mode} {shape_str(shape)}"
+    fft = mode != "symmetric"
+    merge_kernels = ("spec_merge",) if fft else ("apply_col", "apply_row")
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ops.reset_launches()
+        with StageRecorder(afb, dwt) as st:
+            ys = f(x)
+            fwd_counts = ops.launch_counts()
+            rec = i(ys)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        first_s = time.perf_counter() - t0
+        inv_counts = {k: counts[k] - fwd_counts[k] for k in counts}
+        require(fwd_counts["afb1d_atrous_corr"] > 0
+                and all(inv_counts[k] > 0 for k in merge_kernels),
+                f"swt_long {mode}: a kernel of the path never launched: "
+                f"forward {fwd_counts}, inverse {inv_counts}")
+        require(all(bool(torch.isfinite(o).all()) for o in [rec, *ys])
+                and tuple(rec.shape) == shape,
+                f"swt_long {mode}: non-finite output or wrong shape")
+        pr_err = max_err(rec, x)
+        require(pr_err <= SWT_LONG_PR_TOL, f"swt_long {mode}: "
+                f"reconstruction error {pr_err}")
+        t0 = time.perf_counter()
+        crop_err = check_stages_on_crops(st.stages, afb, dwt)
+        crop_s = time.perf_counter() - t0
+        require(crop_err["split"] <= FWD_ATOL
+                and crop_err["merge"] <= INV_ATOL,
+                f"swt_long {mode}: the card differs from the CPU plain run "
+                f"on crops: {crop_err}")
+        del st, ys, rec
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        both_ms = timed_ms(lambda: i(f(x)), reps=2, batches=3,
+                           device_only=False)
+        peak = torch.cuda.max_memory_allocated()
+        both_dev_ms = timed_ms(lambda: i(f(x)), reps=2, batches=3)
+        with SwtRecorder(afb, dwt) as r:
+            i(f(x))
+        torch.cuda.synchronize()
+        # device time by kernel: cuFFT's share of the FFT merges
+        prof = profile(lambda: i(f(x)), 2)
+    replay_calls(r.calls, {"split": fwd_counts, "merge": inv_counts},
+                 label + " round trip")
+    del r
+    cts = [torch.randn(t.shape, generator=gen.manual_seed(1 + k),
+                       device="cuda")
+           for k, t in enumerate([x] + [x.unsqueeze(2).expand(
+               -1, -1, 4, -1, -1)] * SWT_LONG_J)]
+    xg = x.requires_grad_()
+
+    def step_outs():
+        ys = f(xg)
+        return [i(ys), *ys]
+
+    def step():
+        return torch.autograd.grad(step_outs(), xg, cts)[0]
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    outs = step_outs()
+    torch.cuda.synchronize()
+    step_fwd_counts = ops.launch_counts()
+    ops.reset_launches()
+    grad = torch.autograd.grad(outs, xg, cts)[0]
+    torch.cuda.synchronize()
+    step_bwd_counts = ops.launch_counts()
+    del outs
+    adj_kernels = ("spec_split",) if fft else ("apply_col", "apply_row")
+    require(step_bwd_counts["afb1d_atrous_adjoint"] > 0
+            and all(step_bwd_counts[k] > 0 for k in adj_kernels),
+            f"swt_long {mode}: a kernel of the step's backward never "
+            f"launched: {step_bwd_counts}")
+    require(bool(torch.isfinite(grad).all()) and tuple(grad.shape) == shape,
+            f"swt_long {mode}: x.grad not finite or misshapen")
+    del grad
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = timed_ms(step, reps=2, batches=3, device_only=False)
+    step_peak = torch.cuda.max_memory_allocated()
+    step_dev_ms = timed_ms(step, reps=2, batches=3)
+    outs = step_outs()
+    with SwtRecorder(afb, dwt) as r:
+        r.backward = True
+        torch.autograd.grad(outs, xg, cts)
+    torch.cuda.synchronize()
+    del outs, cts
+    replay_calls(r.calls, {"split's adjoint": step_bwd_counts,
+                           "merge's adjoint": step_bwd_counts},
+                 label + " step")
+    del r
+    x.requires_grad_(False)
+    return dict(
+        shape=list(shape), J=SWT_LONG_J, wave=SWT_WAVE, mode=mode,
+        merge="FFT (cuFFT + K13)" if fft else
+        "banded least squares (K1: T^T, then G^-1)",
+        launches={"forward": fwd_counts, "inverse": inv_counts,
+                  "step_forward": step_fwd_counts,
+                  "step_backward": step_bwd_counts},
+        reconstruction_err=pr_err, reconstruction_tol=SWT_LONG_PR_TOL,
+        max_abs_err_vs_cpu_on_crops=crop_err, crop_lines=SWT_CROP,
+        tolerance={"split": FWD_ATOL, "merge": INV_ATOL},
+        cpu_crop_check_s=crop_s, first_call_s=first_s, fwd_inv_ms=both_ms,
+        fwd_inv_device_ms=both_dev_ms,
+        device_busy_share=both_dev_ms / both_ms,
+        mpix_per_s=mpix / (both_ms / 1e3), fwd_bwd_ms=step_ms,
+        fwd_bwd_device_ms=step_dev_ms,
+        step_device_busy_share=step_dev_ms / step_ms,
+        peak_mem_bytes=peak, step_peak_mem_bytes=step_peak,
+        mem_held_before_bytes=held, round_trip_profile=prof)
+
+
+def swt_edge_cases(afb, pad, im):
+    """K12's split and adjoint and K13's merge and split against their
+    plain versions where the main paths do not reach: every mode along
+    both axes, db1, db4 and bior2.4 and db20 (40 taps at dilation 4 on a
+    7x9 image: pads of several axis lengths), odd sizes, strided inputs
+    (the LL band of a stack, every other plane of a cotangent); K13 on
+    odd and even lengths along both axes.  Returns (calls checked, max
+    error)."""
+    from pytorch_wavelets_tpu_torch.filters import wavelet
+    gen = torch.Generator().manual_seed(110)
+    calls = []
+    for name, d, shape in (("db1", 1, (2, 3, 9, 16)),
+                           ("db4", 2, (2, 3, 13, 11)),
+                           ("bior2.4", 4, (1, 2, 33, 17)),
+                           ("db20", 4, (2, 3, 7, 9))):
+        w = wavelet(name)
+        h0, h1 = (afb.as_taps(t)[::-1] for t in (w.dec_lo, w.dec_hi))
+        for mode in SWT_MODES:
+            for axis in (2, 3):
+                x = torch.randn((shape[0], shape[1], 4, *shape[2:]),
+                                generator=gen).cuda()[:, :, 0]
+                calls.append(("afb1d_atrous_corr", "edge",
+                              (x, h0, h1, mode, axis, d)))
+                gshape = [shape[0], 2 * shape[1], 2, *shape[2:]]
+                gshape[axis + 1] = afb.atrous_plan(shape[axis], len(h0), d,
+                                                   mode)[3]
+                g = torch.randn(gshape, generator=gen).cuda()[:, 1::2]
+                calls.append(("afb1d_atrous_adjoint", "edge",
+                              (g, h0, h1, mode, axis, d, shape[axis])))
+    for n in (9, 10, 4097):
+        for axis in (2, 3):
+            shape = [2, 3, 5, 6]
+            shape[axis] = n
+            A, B = (torch.fft.rfft(torch.randn(shape, generator=gen).cuda(),
+                                   dim=axis) for _ in range(2))
+            g0, g1 = (torch.randn(n // 2 + 1, dtype=torch.complex64,
+                                  generator=gen).cuda() for _ in range(2))
+            calls.append(("spec_merge", "edge", (A, B, g0, g1, axis)))
+            calls.append(("spec_split", "edge", (A, g0, g1, axis)))
+    err = 0.0
+    for call in calls:
+        got, want, *_, tol, scale = swt_call_parts(call, afb, pad, im)
+        require(within(got, want, tol, scale),
+                f"{call[0]} edge case {tuple(call[2][0].shape)} "
+                f"{call[2][3:]} disagrees with its plain version by "
+                f"{max_err(got, want)}")
+        err = max(err, max_err(got, want))
+    torch.cuda.synchronize()
+    return len(calls), err
+
+
 def profile(step, iters):
     """Device time by kernel over a window of ``iters`` steps
     (torch.profiler; its own host overhead inflates the window's wall
@@ -1700,8 +2343,8 @@ def main():
     import pytorch_wavelets_tpu_torch as tt
     from pytorch_wavelets_tpu_torch import ops
     from pytorch_wavelets_tpu_torch.ops import (
-        _cuda, afb_sfb, banded, dtcwt_fb, fused_dtcwt, pad, pool, quad,
-        scat_mag,
+        _cuda, afb_sfb, banded, dtcwt_fb, fused_dtcwt, iswt_merge, pad,
+        pool, quad, scat_mag,
     )
     from pytorch_wavelets_tpu_torch.transforms import dtcwt as lev
     from pytorch_wavelets_tpu_torch.transforms import dwt, scatternet
@@ -1765,15 +2408,21 @@ def main():
                 BANDED_REPLACES,
                 bcounts[k], [c for c in bcalls if c[0] == k])
                for k in ("apply_row", "apply_col")]
-    groups += role_groups(tcalls, t_roles, [
-        "forward pyramid's adjoint (B4)", "inverse pyramid's adjoint"],
-        f"DTCWT J=2 {shape_str(MAIN_SHAPE)} backward")
-    groups += role_groups(scalls, s_roles, [
-        "forward pyramid", MAG_ROLE, "forward pyramid's adjoint (B4)"],
-        f"ScatLayerj2 {shape_str(SCAT_SHAPE)}")
-    groups += role_groups(ccalls, c_roles, [
-        "forward pyramid", MAG_ROLE, "forward pyramid's adjoint (B4)"],
-        f"ScatLayerj2 combine_colour {shape_str(COLOUR_SHAPE)}")
+    def role_replaces(role, kernel):
+        return ROLE_REPLACES.get(role, SOURCES[kernel][2])
+    groups += phase_groups(
+        tcalls, t_roles, f"DTCWT J=2 {shape_str(MAIN_SHAPE)} backward",
+        ["forward pyramid's adjoint (B4)", "inverse pyramid's adjoint"],
+        role_replaces)
+    scat_roles = ["forward pyramid", MAG_ROLE,
+                  "forward pyramid's adjoint (B4)"]
+    groups += phase_groups(scalls, s_roles,
+                           f"ScatLayerj2 {shape_str(SCAT_SHAPE)}",
+                           scat_roles, role_replaces)
+    groups += phase_groups(
+        ccalls, c_roles,
+        f"ScatLayerj2 combine_colour {shape_str(COLOUR_SHAPE)}", scat_roles,
+        role_replaces)
     for dc, roles, label, line in (
             (dcalls, d_roles, f"DWT J={DWT_J} {shape_str(DWT_SHAPE)}",
              (109, 143)),
@@ -1800,15 +2449,26 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
-    # the per-level path; each phase's calls are replayed right after it
-    def level_rows(calls, by_role, label, timing=REPLAY_TIMING):
+    # the per-level and SWT paths; each phase's calls are replayed right
+    # after it
+    def phase_rows(calls, by_role, label, roles, replaces, timing):
         with torch.no_grad():
-            new = kernel_rows(per_level_groups(calls, by_role, label),
-                              *kern, dtcwt_fb, pool, timing)
+            new = kernel_rows(phase_groups(calls, by_role, label, roles,
+                                           replaces), *kern, dtcwt_fb, pool,
+                              timing, im=iswt_merge)
         torch.cuda.synchronize()
         for row in new:
             emit("kernel", **row)
         rows.extend(new)
+
+    def level_rows(calls, by_role, label, timing=REPLAY_TIMING):
+        phase_rows(calls, by_role, label, ("forward", "backward"),
+                   lambda r, k: PER_LEVEL_REPLACES.get(k, SOURCES[k][2]),
+                   timing)
+
+    def swt_rows(calls, by_role, label, timing=REPLAY_TIMING):
+        phase_rows(calls, by_role, label, tuple(SWT_REPLACES),
+                   lambda r, k: SWT_REPLACES[r], timing)
 
     def recorder():
         return PerLevelRecorder(dtcwt_fb, lev, scatternet)
@@ -1852,6 +2512,25 @@ def main():
     n_edge, edge_err = stencil_edge_cases(dtcwt_fb, pool)
     emit("stencil_edge_cases", calls=n_edge, max_abs_err=edge_err,
          tolerance=STENCIL_TOL)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # the SWT (K12, K13, and K1 for the inverse's operator merges)
+    wfields, wtfields, w_roles, wcalls, wstep = swt_main(tt, ops, afb_sfb,
+                                                         dwt)
+    emit("swt_main", **wfields)
+    emit("swt_train", **wtfields)
+    swt_rows(wcalls, w_roles, f"SWT J={SWT_J} {shape_str(SWT_SHAPE)}")
+    del wcalls
+    torch.cuda.empty_cache()
+    for mode, shape in SWT_LONG:
+        emit("swt_long", **swt_long(
+            tt, ops, afb_sfb, dwt, mode, shape,
+            lambda c, r, label: swt_rows(c, r, label, LARGE_REPLAY_TIMING)))
+        torch.cuda.empty_cache()
+    n_edge, edge_err = swt_edge_cases(afb_sfb, pad, iswt_merge)
+    emit("swt_edge_cases", calls=n_edge, max_abs_err=edge_err,
+         tolerance={"K12": DWT_TOL, "K13": SPEC_TOL})
 
     fwd = tt.DTCWTForward(J=2, device="cuda")
     inv = tt.DTCWTInverse(device="cuda")
@@ -1878,6 +2557,7 @@ def main():
     emit("profile", path="scat_bp forward + backward",
          **profile(lambda: torch.autograd.grad(m(xs), xs, G), 3))
     del m, xs, G
+    emit("profile", path="swt_train", **profile(wstep, 3))
 
     print(json.dumps({"kernels": [{k: v for k, v in r.items()
                                    if k != "per_call"} for r in rows]}))

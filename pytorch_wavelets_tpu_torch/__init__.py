@@ -2,9 +2,10 @@
 
 A second package beside the JAX one (which stays the reference).  It
 ports the DWT (``DWTForward`` / ``DWTInverse`` / ``DWT1DForward`` /
-``DWT1DInverse``), the DTCWT's composed whole-transform path
-(``DTCWTForward`` / ``DTCWTInverse``) and the scattering layers on it
-(``ScatLayer`` / ``ScatLayerj2``), forward and backward, run on an NVIDIA
+``DWT1DInverse``), the SWT with its exact inverse (``SWTForward`` /
+``SWTInverse``), the DTCWT (``DTCWTForward`` / ``DTCWTInverse``) and the
+scattering layers on it (``ScatLayer`` / ``ScatLayerj2``), forward and
+backward, run on an NVIDIA
 Hopper GPU through hand-written CUDA kernels (``csrc/``), or on the CPU
 through their plain PyTorch versions with ``device="cpu"``.  Imports
 neither JAX nor the JAX package.
@@ -14,8 +15,8 @@ from pytorch_wavelets_tpu_torch.ops.precision import (  # noqa: F401
     set_matmul_precision, get_matmul_precision, matmul_precision,
 )
 from pytorch_wavelets_tpu_torch.models import (  # noqa: F401
-    DWTForward, DWTInverse, DWT1DForward, DWT1DInverse,
-    DTCWTForward, DTCWTInverse, ScatLayer, ScatLayerj2,
+    DWTForward, DWTInverse, DWT1DForward, DWT1DInverse, SWTForward,
+    SWTInverse, DTCWTForward, DTCWTInverse, ScatLayer, ScatLayerj2,
 )
 
 # Aliases matching the reference (reference __init__.py:27-36)
@@ -30,7 +31,8 @@ IDTCWT = DTCWTInverse
 
 __all__ = [
     "DWTForward", "DWTInverse", "DWT1DForward", "DWT1DInverse",
-    "DTCWTForward", "DTCWTInverse", "ScatLayer", "ScatLayerj2",
+    "SWTForward", "SWTInverse", "DTCWTForward", "DTCWTInverse",
+    "ScatLayer", "ScatLayerj2",
     "DWT", "IDWT", "DWT2D", "IDWT2D", "DWT1D", "IDWT1D",
     "DTCWT", "IDTCWT",
     "set_matmul_precision", "get_matmul_precision", "matmul_precision",

@@ -9,15 +9,16 @@ dict or as the (name, taps) pairs of a module's ``_filters``): those of
 :class:`DTCWTInverse` / :class:`ScatLayer` / :class:`ScatLayerj2`, a
 state dict for ``load_state_dict``.  :func:`dwt_filters_from_jax` does
 the same for the DWT modules, whose ``_filters`` is a tuple of
-pywt-ordered taps.  Both take plain numbers and import nothing of the JAX
-package.
+pywt-ordered taps, and :func:`swt_filters_from_jax` for the SWT modules.
+All take plain numbers and import nothing of the JAX package.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["filters_from_jax", "dwt_filters_from_jax"]
+__all__ = ["filters_from_jax", "dwt_filters_from_jax",
+           "swt_filters_from_jax"]
 
 # DTCWTForward and ScatLayerj2 hold the same names; ScatLayer the first
 # two; with the bandpass-diagonal filters (biort="near_sym_b_bp") ScatLayer
@@ -62,3 +63,17 @@ def dwt_filters_from_jax(filters, synthesis=False) -> dict:
                          f"{len(filters)}")
     return {k: torch.as_tensor(np.asarray(f, dtype=np.float64).ravel())
             for k, f in zip(names, filters)}
+
+
+def swt_filters_from_jax(filters) -> dict:
+    """A JAX :class:`SWTForward` or :class:`SWTInverse`'s ``_filters`` -> the
+    port module's filter buffers (float64, 1-D), a state dict for
+    ``load_state_dict``.  Both modules hold the 4-tuple of pywt-ordered
+    *dec* taps (the inverse merges by least squares against the analysis
+    operator), so this is not ``dwt_filters_from_jax(..., synthesis=True)``
+    for the inverse."""
+    filters = tuple(filters)
+    if len(filters) != 4:
+        raise ValueError(f"expected the 4-tuple of an SWT module, got "
+                         f"{len(filters)} tap vectors")
+    return dwt_filters_from_jax(filters)

@@ -10,9 +10,11 @@
 //   column entry: Y_p = T . X_p            for every plane p = (n, c)
 //                 (M x K) . (K x Wc), planes over blockIdx.z, optional
 //                 accumulate into Y (the inverse's summed column stage)
-//   row entry:    Y = X . T^T              with X viewed as (N*C*H) x K
+//   row entry:    Y (+)= X . T^T           with X viewed as (N*C*H) x K
 //                 rows at a row stride, so a column slice of a wider
-//                 tensor (the forward's z[..., go:go+gn]) is read in place
+//                 tensor (the forward's z[..., go:go+gn]) is read in place,
+//                 optional accumulate into Y (the inverse SWT's row merge
+//                 of two bands)
 //
 // Bound: dense, the 10x10x128^2 J=2 forward is 3.15 GFLOP and the inverse
 // 3.78 GFLOP of fp32 (47 and 56 us at the 67 TFLOP/s of the CUDA cores:
@@ -143,14 +145,14 @@ __global__ void __launch_bounds__(THREADS) banded_apply_row_kernel(
     const float* __restrict__ x, const float* __restrict__ T,
     float* __restrict__ y, const int* __restrict__ seg_ptr,
     const int* __restrict__ segs, long long R, int K, int Kout,
-    long long ldx, long long ldy) {
+    long long ldx, long long ldy, int accumulate) {
   __shared__ float As[BK][BM + 1];  // +1: conflict-free tile stores
   __shared__ float Bs[BK][BN + 1];
   const long long r0 = (long long)blockIdx.x * BM;
   const int rows = (int)((R - r0) < BM ? (R - r0) : BM);
   tile_product<true>(x + r0 * ldx, ldx, rows, T, K, Kout, y + r0 * ldy, ldy,
-                     0, 0, blockIdx.y * BN, seg_ptr, segs, blockIdx.y, As,
-                     Bs);
+                     accumulate, 0, blockIdx.y * BN, seg_ptr, segs,
+                     blockIdx.y, As, Bs);
 }
 
 }  // namespace
@@ -183,19 +185,19 @@ int banded_apply_col(const void* T, const void* x, void* y,
   return static_cast<int>(cudaGetLastError());
 }
 
-// y = x . T^T; x (R x K) at row stride ldx; T (Kout x K) row-major;
+// y (+)= x . T^T; x (R x K) at row stride ldx; T (Kout x K) row-major;
 // y (R x Kout) at row stride ldy.
 int banded_apply_row(const void* x, const void* T, void* y,
                      const void* seg_ptr, const void* segs, long long R,
                      int K, int Kout, long long ldx, long long ldy,
-                     void* stream) {
+                     int accumulate, void* stream) {
   if (R == 0 || Kout == 0) return 0;
   dim3 grid((unsigned)((R + BM - 1) / BM), (Kout + BN - 1) / BN, 1);
   banded_apply_row_kernel<<<grid, THREADS, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(T),
       static_cast<float*>(y), static_cast<const int*>(seg_ptr),
-      static_cast<const int*>(segs), R, K, Kout, ldx, ldy);
+      static_cast<const int*>(segs), R, K, Kout, ldx, ldy, accumulate);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,21 +1,25 @@
-"""DWT modules (port of ``pytorch_wavelets_tpu/models/dwt.py``, the DWT
-part; reference: pytorch_wavelets/dwt/transform2d.py, transform1d.py).
+"""DWT and SWT modules (port of ``pytorch_wavelets_tpu/models/dwt.py``;
+reference: pytorch_wavelets/dwt/transform2d.py, transform1d.py).
 
 Each module holds its pywt-ordered filter taps as float64 buffers on
 ``device``: 'cuda' (default; raises without CUDA), where the transform and
-its backward run kernels K6/K7, or 'cpu' for the plain PyTorch path.
-Inputs must be on that device.  ``mesh`` is not ported yet and raises.
+its backward run the kernels (the DWT K6/K7; the SWT K12, and K1 with
+K13 for its inverse), or 'cpu' for the plain PyTorch path.  Inputs must
+be on that device.  ``mesh`` is not ported yet and raises.
 """
 from __future__ import annotations
 
 from pytorch_wavelets_tpu_torch.models._base import (
     _TapsModule, canon_dtype, cast_bands, upcast_bands,
 )
+import torch
+
 from pytorch_wavelets_tpu_torch.transforms.dwt import (
-    dec_filters, dwt1d, dwt2d, idwt1d, idwt2d, rec_filters,
+    dec_filters, dwt1d, dwt2d, idwt1d, idwt2d, iswt2d, rec_filters, swt2d,
 )
 
-__all__ = ["DWTForward", "DWTInverse", "DWT1DForward", "DWT1DInverse"]
+__all__ = ["DWTForward", "DWTInverse", "DWT1DForward", "DWT1DInverse",
+           "SWTForward", "SWTInverse"]
 
 _DEC2 = ("h0_col", "h1_col", "h0_row", "h1_row")
 _REC2 = ("g0_col", "g1_col", "g0_row", "g1_row")
@@ -115,3 +119,56 @@ class DWT1DInverse(_DWTModule):
         if yh is not None:
             coeffs = (yl, upcast_bands(yh, yl))
         return idwt1d(coeffs, self.filters, mode=self.mode)
+
+
+class SWTForward(_DWTModule):
+    """J-level stationary (undecimated) 2-D wavelet transform (reference
+    SWTForward, dwt/transform2d.py:151-212).
+
+    ``coeff_dtype``: optional storage dtype (e.g. 'bfloat16') for the
+    returned stacks (the undecimated representation is 4J full-resolution
+    bands); :class:`SWTInverse` upcasts them.  On CUDA each level is two
+    K12 launches, forward and backward.
+
+    Call: x (N, C, H, W) -> list of J tensors (N, C, 4, H, W) ordered
+    (LL, LH, HL, HH)."""
+
+    def __init__(self, J=1, wave="db1", mode="periodization",
+                 coeff_dtype=None, device="cuda", mesh=None):
+        super().__init__(_DEC2, dec_filters(wave), mode, device, mesh)
+        self.J = J
+        self.coeff_dtype = canon_dtype(coeff_dtype)
+
+    def forward(self, x):
+        self._check_device(x)
+        out = swt2d(x, self.filters, J=self.J, mode=self.mode)
+        if self.coeff_dtype is not None:
+            out = cast_bands(out, self.coeff_dtype)
+        return out
+
+
+class SWTInverse(_DWTModule):
+    """Inverse SWT: the exact least-squares inverse of :class:`SWTForward`
+    for every boundary mode (the reference ships only dead code for it,
+    dwt/swt_inverse.py).  ``wave`` names the *analysis* wavelet of the
+    SWTForward (tuples are dec filters), whose taps the module holds.
+
+    ``upcast`` (default True) upcasts sub-fp32 stacks (the
+    :class:`SWTForward` ``coeff_dtype`` dial) to fp32 before the merge;
+    ``upcast=False`` keeps a narrow pipeline's dtype, which only the CPU
+    path takes (the CUDA kernels take fp32 and raise on other dtypes).
+    On CUDA each merge is K1 (dense pinv operator up to 2048 samples, and
+    past it banded normal equations in the non-circular modes) or cuFFT
+    with K13 (past 2048 in the circular modes)."""
+
+    def __init__(self, wave="db1", mode="periodization", upcast=True,
+                 device="cuda", mesh=None):
+        super().__init__(_DEC2, dec_filters(wave), mode, device, mesh)
+        self.upcast = bool(upcast)
+
+    def forward(self, coeffs):
+        self._check_device(*coeffs)
+        if self.upcast:
+            coeffs = [c.to(torch.float32) if c.dtype.itemsize < 4 else c
+                      for c in coeffs]
+        return iswt2d(coeffs, self.filters, mode=self.mode)

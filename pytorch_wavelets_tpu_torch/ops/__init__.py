@@ -5,13 +5,16 @@
 tensor takes the plain PyTorch version and counts nothing).
 """
 from pytorch_wavelets_tpu_torch.ops.afb_sfb import (  # noqa: F401
-    afb1d_corr, sfb1d_conv,
+    afb1d_atrous_adjoint, afb1d_atrous_corr, afb1d_corr, sfb1d_conv,
 )
 from pytorch_wavelets_tpu_torch.ops.banded import (  # noqa: F401
     apply_col, apply_row, set_operator_matmul,
 )
 from pytorch_wavelets_tpu_torch.ops.dtcwt_fb import (  # noqa: F401
     dtcwt_dfilt, dtcwt_filt, dtcwt_ifilt,
+)
+from pytorch_wavelets_tpu_torch.ops.iswt_merge import (  # noqa: F401
+    spec_merge, spec_split,
 )
 from pytorch_wavelets_tpu_torch.ops.pool import (  # noqa: F401
     avg_pool2_bwd, avg_pool2_fwd,
@@ -25,7 +28,8 @@ from pytorch_wavelets_tpu_torch.ops.scat_mag import (  # noqa: F401
 
 KERNELS = (apply_row, apply_col, q2c_pack, c2q_unpack, scat_mag_fwd,
            scat_mag_bwd, afb1d_corr, sfb1d_conv, dtcwt_filt, dtcwt_dfilt,
-           dtcwt_ifilt, avg_pool2_fwd, avg_pool2_bwd)
+           dtcwt_ifilt, avg_pool2_fwd, avg_pool2_bwd, afb1d_atrous_corr,
+           afb1d_atrous_adjoint, spec_merge, spec_split)
 
 
 def reset_launches() -> None:

@@ -39,7 +39,8 @@ _SIGNATURES = {
     "banded_apply": {
         "banded_apply_col": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _L, _L, _L, _L, _I, _P],
-        "banded_apply_row": [_P, _P, _P, _P, _P, _L, _I, _I, _L, _L, _P],
+        "banded_apply_row": [_P, _P, _P, _P, _P, _L, _I, _I, _L, _L, _I,
+                             _P],
         "banded_apply_tile_rows": [],
         "banded_apply_k_align": [],
     },
@@ -83,6 +84,19 @@ _SIGNATURES = {
     "avg_pool2": {
         "avg_pool2_fwd": [_P, _P, _L, _I, _I, _I, _L, _L, _L, _L, _P],
         "avg_pool2_bwd": [_P, _P, _L, _I, _I, _I, _L, _L, _L, _L, _P],
+    },
+    "swt_atrous": {
+        "swt_afb": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _L, _L, _L, _L,
+                    _I, _I, _I, _I, _L, _L, _L, _L, _L, _P],
+        "swt_afb_adjoint": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I,
+                            _L, _L, _L, _L, _L, _I, _I, _I, _I,
+                            _L, _L, _L, _L, _P],
+    },
+    "iswt_spec": {
+        "spec_merge": [_P, _P, _P, _P, _P, _L, _I, _I, _I, *[_L] * 12, _I,
+                       _P],
+        "spec_split": [_P, _P, _P, _P, _P, _L, _I, _I, _I, *[_L] * 12, _I,
+                       _P],
     },
 }
 
@@ -160,16 +174,18 @@ def check(lib: ctypes.CDLL, kernel: str, rc: int) -> None:
                            f"({lib.kernel_error_string(rc).decode()})")
 
 
-def check_inputs(kernel: str, *tensors: torch.Tensor) -> None:
-    """Raise on what the kernels do not take: a tensor off CUDA or not
-    fp32, a gradient request (a raw kernel call records no autograd
-    graph), or a precision level other than 'highest'."""
+def check_inputs(kernel: str, *tensors: torch.Tensor,
+                 dtype: torch.dtype = torch.float32) -> None:
+    """Raise on what the kernels do not take: a tensor off CUDA or not of
+    ``dtype`` (fp32; complex64 for K13), a gradient request (a raw kernel
+    call records no autograd graph), or a precision level other than
+    'highest'."""
     for t in tensors:
         if not t.is_cuda:
             raise ValueError(f"{kernel}: expected a CPU or CUDA tensor, got "
                              f"one on {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{kernel}: the CUDA kernel takes float32, got "
+        if t.dtype != dtype:
+            raise TypeError(f"{kernel}: the CUDA kernel takes {dtype}, got "
                             f"{t.dtype}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(

@@ -1,5 +1,6 @@
 """1-D analysis/synthesis filterbanks over one spatial axis of NCHW tensors
-(port of ``pytorch_wavelets_tpu/ops/afb_sfb.py``), and kernels K6 and K7.
+(port of ``pytorch_wavelets_tpu/ops/afb_sfb.py``), and kernels K6, K7 and
+K12.
 
 The DWT's split and merge along one axis:
 
@@ -8,14 +9,21 @@ The DWT's split and merge along one axis:
   boundary mode folded into the index of each tap (B8a + B9);
 - :func:`sfb1d_conv` (K7, ``csrc/dwt_sfb.cu``): the transposed stride-2
   correlation of (lo, hi) summed, with the periodization wrap-add and
-  roll as index math (B8b + B9).
+  roll as index math (B8b + B9);
+- :func:`afb1d_atrous_corr` (K12 ``swt_afb``, ``csrc/swt_atrous.cu``):
+  the SWT's undecimated split, taps ``dilation`` samples apart, every
+  boundary mode in the index (B8c + B9), and :func:`afb1d_atrous_adjoint`
+  (K12 ``swt_afb_adjoint``), its exact transpose, as a gather.
 
-CPU tensors take their plain PyTorch versions, :func:`afb1d_corr_plain`
-and :func:`sfb1d_conv_plain`: the JAX package's conv path
-(``_afb1d_corr_conv`` / ``_sfb1d_conv_conv``) line by line, pad and
-strided or dilated ``conv2d``.  CUDA tensors launch the kernels or raise.
-:func:`afb_plan` / :func:`sfb_plan` give the index plan both kernels
-evaluate, so the tests can hold it against the plain versions on the CPU.
+CPU tensors take their plain PyTorch versions, :func:`afb1d_corr_plain`,
+:func:`sfb1d_conv_plain`, :func:`afb1d_atrous_corr_plain` and
+:func:`afb1d_atrous_adjoint_plain`: the JAX package's conv path
+(``_afb1d_corr_conv`` / ``_sfb1d_conv_conv`` /
+``_afb1d_atrous_corr_conv``) line by line, pad and strided or dilated
+``conv2d``, and autograd's transpose of the last.  CUDA tensors launch
+the kernels or raise.  :func:`afb_plan` / :func:`sfb_plan` /
+:func:`atrous_plan` give the index plan the kernels evaluate, so the
+tests can hold it against the plain versions on the CPU.
 
 Filter-tap convention: every function here takes taps "in application
 order", i.e. the correlation kernel; the public :func:`afb1d` /
@@ -24,6 +32,7 @@ order", i.e. the correlation kernel; the public :func:`afb1d` /
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -34,9 +43,11 @@ from pytorch_wavelets_tpu_torch.ops.pad import PAD_CODES, pad1d
 from pytorch_wavelets_tpu_torch.ops.precision import plain_flags
 from pytorch_wavelets_tpu_torch.utils import dwt_coeff_len
 
-__all__ = ["as_taps", "afb1d", "sfb1d", "afb2d", "sfb2d", "afb1d_corr",
-           "sfb1d_conv", "afb1d_corr_plain", "sfb1d_conv_plain", "afb_plan",
-           "sfb_plan", "MAX_TAPS"]
+__all__ = ["as_taps", "afb1d", "sfb1d", "afb2d", "sfb2d", "afb1d_atrous",
+           "afb2d_atrous", "afb1d_corr", "sfb1d_conv", "afb1d_atrous_corr",
+           "afb1d_atrous_adjoint", "afb1d_corr_plain", "sfb1d_conv_plain",
+           "afb1d_atrous_corr_plain", "afb1d_atrous_adjoint_plain",
+           "afb_plan", "sfb_plan", "atrous_plan", "MAX_TAPS"]
 
 # the kernels keep both tap vectors in shared memory (csrc/dwt_*.cu)
 MAX_TAPS = 128
@@ -52,23 +63,25 @@ def as_taps(h) -> np.ndarray:
     return np.asarray(h, dtype=np.float64).ravel()
 
 
-def _conv_axis(x, kernels, axis, stride=1, lhs_dilation=1, padding=(0, 0)):
+def _conv_axis(x, kernels, axis, stride=1, lhs_dilation=1, padding=(0, 0),
+               rhs_dilation=1):
     """Correlate each (N,C) plane of ``x`` (N,C,H,W) along ``axis`` with a
     stack of 1-D kernels.
 
     kernels: (n_out, L) array of taps in correlation order.  The input is
     first dilated by ``lhs_dilation`` (zeros between samples) and
-    zero-padded by ``padding``, as ``lax.conv_general_dilated`` does.
+    zero-padded by ``padding``, as ``lax.conv_general_dilated`` does; the
+    taps are ``rhs_dilation`` samples apart.
     Returns (N, C, n_out, H', W').
     """
     N, C, H, W = x.shape
     n_out, L = np.shape(kernels)
     if axis in (2, -2):
         w = np.reshape(kernels, (n_out, 1, L, 1))
-        ax, strides = 2, (stride, 1)
+        ax, strides, dil = 2, (stride, 1), (rhs_dilation, 1)
     elif axis in (3, -1):
         w = np.reshape(kernels, (n_out, 1, 1, L))
-        ax, strides = 3, (1, stride)
+        ax, strides, dil = 3, (1, stride), (1, rhs_dilation)
     else:
         raise ValueError(f"axis must be 2 or 3, got {axis}")
     xr = x.reshape(N * C, 1, H, W)
@@ -87,7 +100,7 @@ def _conv_axis(x, kernels, axis, stride=1, lhs_dilation=1, padding=(0, 0)):
     with plain_flags():
         y = F.conv2d(xr, torch.as_tensor(np.ascontiguousarray(w),
                                          dtype=x.dtype, device=x.device),
-                     stride=strides)
+                     stride=strides, dilation=dil)
     return y.reshape(N, C, n_out, *y.shape[2:])
 
 
@@ -143,6 +156,26 @@ def sfb_plan(nin, L, mode):
     if mode not in ("zero", "symmetric", "reflect", "periodic"):
         raise ValueError(f"Unknown pad type: {mode}")
     return 2 * nin - L + 2, L - 2, 0, 0, 0
+
+
+def atrous_plan(n, L, d, mode):
+    """Index plan of the à trous split of a length-``n`` axis by L taps
+    ``d`` samples apart: ``(front, back, pad_code, out_len)``.
+
+    Output m is sum_k h[k] X(m + k d - front), where X(q) is
+    x[pad_index(n, front, back, mode)[q + front]] (zero where that is -1),
+    for m < out_len = n + front + back - (L - 1) d (n for every wavelet:
+    their L is even).  Unlike :func:`afb_plan`, 'periodization' is a
+    plain wrap, with no evening of an odd axis (the JAX ``pad1d`` maps it
+    to 'wrap' and ``_afb1d_atrous_corr_conv`` never evens).  A negative
+    pad (L = 1) raises, as the JAX ``pad1d`` does."""
+    Ld = L * d
+    front, back = Ld // 2 - d, Ld // 2
+    if front < 0 or back < 0:
+        raise ValueError(f"negative pad ({front}, {back})")
+    if mode not in PAD_CODES:
+        raise ValueError(f"Unknown pad type: {mode}")
+    return front, back, PAD_CODES[mode], n + front + back - (L - 1) * d
 
 
 # --------------------------------------------------------------------------
@@ -231,6 +264,38 @@ def sfb1d_conv_plain(lo, hi, g0_taps, g1_taps, mode, axis):
              _conv_axis(hi, k1, axis, lhs_dilation=2, padding=pad))
         return y[:, :, 0]
     raise ValueError(f"Unknown pad type: {mode}")
+
+
+def afb1d_atrous_corr_plain(x, h0_taps, h1_taps, mode, axis, dilation):
+    """Plain PyTorch version of :func:`afb1d_atrous_corr` (the JAX
+    package's ``_afb1d_atrous_corr_conv``): pad by ((L d)//2 - d,
+    (L d)//2), then the correlation with taps ``dilation`` apart.
+    Returns (N, C, 2, H', W'), 0 = lowpass."""
+    axis = axis % 4
+    L = len(h0_taps)
+    L2 = (L * dilation) // 2
+    kernels = np.stack([h0_taps, h1_taps])
+    xp = pad1d(x, L2 - dilation, L2, axis, mode)
+    return _conv_axis(xp, kernels, axis, rhs_dilation=dilation)
+
+
+def afb1d_atrous_adjoint_plain(dy, h0_taps, h1_taps, mode, axis, dilation,
+                               n):
+    """Plain PyTorch version of :func:`afb1d_atrous_adjoint`: autograd's
+    transpose of :func:`afb1d_atrous_corr_plain` (the transposed
+    convolution and the pad's index_select adjoint), applied to the
+    (N, C, 2, H', W') cotangent ``dy``.  Returns (N, C, H, W) with ``n``
+    samples along ``axis``."""
+    axis = axis % 4
+    shape = [dy.shape[0], dy.shape[1], dy.shape[3], dy.shape[4]]
+    shape[axis] = n
+    x = dy.new_zeros(shape, requires_grad=True)
+    # the transposed convolution runs under the plain versions' TF32 flags
+    # too (cuDNN's allow_tf32 is read when the backward is dispatched)
+    with torch.enable_grad(), plain_flags():
+        y = afb1d_atrous_corr_plain(x, h0_taps, h1_taps, mode, axis,
+                                    dilation)
+        return torch.autograd.grad(y, x, dy.detach())[0]
 
 
 # --------------------------------------------------------------------------
@@ -348,6 +413,108 @@ _K6.launches = 0
 _K7.launches = 0
 
 
+def _atrous_args(kernel, h0_taps, h1_taps, n, mode, dilation):
+    h0, h1 = _taps_f32(kernel, h0_taps, h1_taps)
+    L = len(h0)
+    if not (0 < dilation and L * dilation < MAX_AXIS):
+        raise ValueError(f"{kernel}: dilation {dilation} with {L} taps")
+    return h0, h1, L, atrous_plan(n, L, dilation, mode)
+
+
+def afb1d_atrous_corr(x, h0_taps, h1_taps, mode, axis, dilation):
+    """À trous split of (N, C, H, W) ``x`` along ``axis`` (2 or 3, or -1)
+    with correlation-order taps ``dilation`` samples apart:
+    (N, C, 2, H', W'), band 0 the lowpass; H' = H, W' = W for even L.
+
+    CPU tensors take :func:`afb1d_atrous_corr_plain`; CUDA tensors launch
+    K12's ``swt_afb``, which reads ``x`` through its strides (the LL band
+    of the previous level's (N, C, 4, H, W) stack in place).
+    """
+    axis = axis % 4
+    if x.device.type == "cpu":
+        return afb1d_atrous_corr_plain(x, h0_taps, h1_taps, mode, axis,
+                                       dilation)
+    _cuda.check_inputs("swt_afb", x)
+    _check_4d("swt_afb", axis, x)
+    n = x.shape[axis]
+    h0, h1, L, (front, _, code, m) = _atrous_args("swt_afb", h0_taps,
+                                                  h1_taps, n, mode, dilation)
+    N, C, H, W = x.shape
+    shape = [N, C, 2, H, W]
+    shape[axis + 1] = m
+    y = torch.empty(shape, device=x.device, dtype=torch.float32)
+    if y.numel() == 0:
+        return y
+    lib = _cuda.library("swt_atrous")
+    _cuda.check(lib, "swt_afb", lib.swt_afb(
+        x.data_ptr(), y.data_ptr(), _ptr(h0), _ptr(h1), L, dilation, N, C,
+        H, W, *x.stride(), axis, front, code, m, *y.stride(),
+        _cuda.stream_of(x)))
+    _K12.launches += 1
+    return y
+
+
+def afb1d_atrous_adjoint(dy, h0_taps, h1_taps, mode, axis, dilation, n):
+    """The transpose of :func:`afb1d_atrous_corr` on an input of ``n``
+    samples along ``axis``: the (N, C, 2, H', W') cotangent ``dy`` (band 0
+    the lowpass's) -> (N, C, H, W).
+
+    CPU tensors take :func:`afb1d_atrous_adjoint_plain`; CUDA tensors
+    launch K12's ``swt_afb_adjoint``, a gather (no atomics) that reads
+    ``dy`` through its five strides: each input sample sums the outputs
+    whose padded window reads it, its reflected or wrapped images near an
+    edge included.
+    """
+    axis = axis % 4
+    if dy.device.type == "cpu":
+        return afb1d_atrous_adjoint_plain(dy, h0_taps, h1_taps, mode, axis,
+                                          dilation, n)
+    _cuda.check_inputs("swt_afb_adjoint", dy)
+    if dy.ndim != 5 or dy.shape[2] != 2:
+        raise ValueError(f"swt_afb_adjoint: expected an (N, C, 2, H, W) "
+                         f"cotangent, got {tuple(dy.shape)}")
+    h0, h1, L, (front, _, code, m) = _atrous_args(
+        "swt_afb_adjoint", h0_taps, h1_taps, n, mode, dilation)
+    if dy.shape[axis + 1] != m:
+        raise ValueError(f"swt_afb_adjoint: the cotangent has "
+                         f"{dy.shape[axis + 1]} samples along axis {axis}, "
+                         f"the split of {n} gives {m}")
+    N, C, H, W = dy.shape[0], dy.shape[1], dy.shape[3], dy.shape[4]
+    shape = [N, C, H, W]
+    shape[axis] = n
+    dx = torch.empty(shape, device=dy.device, dtype=torch.float32)
+    _check_4d("swt_afb_adjoint", axis, dx)
+    if dx.numel() == 0:
+        return dx
+    lib = _cuda.library("swt_atrous")
+    _cuda.check(lib, "swt_afb_adjoint", lib.swt_afb_adjoint(
+        dy.data_ptr(), dx.data_ptr(), _ptr(h0), _ptr(h1), L, dilation, N,
+        C, *shape[2:], *dy.stride(), axis, front, code, m, *dx.stride(),
+        _cuda.stream_of(dy)))
+    _K12A.launches += 1
+    return dx
+
+
+_K12, _K12A = afb1d_atrous_corr, afb1d_atrous_adjoint
+_K12.launches = 0
+_K12A.launches = 0
+
+
+@lru_cache(maxsize=None)
+def _afb_atrous_matrix(h0, h1, mode, dilation, n, dtype_str="f4"):
+    """The (2 out_len, n) operator of the à trous split of a length-``n``
+    axis (correlation-order tap tuples), probed on the host from
+    :func:`afb1d_atrous_corr_plain` in ``dtype_str`` precision, or
+    synthesized from a small probe above ``banded.DIRECT_PROBE_N``."""
+    from pytorch_wavelets_tpu_torch.ops import banded
+    return banded.synthesized_or_probe(
+        lambda m: banded.probe_op(
+            lambda I: afb1d_atrous_corr_plain(
+                I, np.asarray(h0), np.asarray(h1), mode, 2, dilation), m,
+            dtype=np.dtype(dtype_str).type),
+        n, _ext_ns(len(h0), dilation), 2, 1, (1, 1))
+
+
 # --------------------------------------------------------------------------
 # Public 1-D and separable 2-D filterbanks
 # --------------------------------------------------------------------------
@@ -396,3 +563,32 @@ def sfb2d(ll, lh, hl, hh, g0_col, g1_col, g0_row, g1_row, mode="zero"):
     g0c, g1c = as_taps(g0_col), as_taps(g1_col)
     g0r, g1r = as_taps(g0_row), as_taps(g1_row)
     return _sfb2d_conv(ll, lh, hl, hh, g0c, g1c, g0r, g1r, mode)
+
+
+def afb1d_atrous(x, h0, h1, mode="periodic", axis=-1, dilation=1):
+    """À trous analysis filterbank with pywt-ordered dec_lo/dec_hi
+    filters."""
+    return afb1d_atrous_corr(x, as_taps(h0)[::-1], as_taps(h1)[::-1], mode,
+                             axis, dilation)
+
+
+def _afb2d_atrous_corr(x, h0c, h1c, h0r, h1r, mode, dilation):
+    """One level of undecimated 2-D analysis with correlation-order taps:
+    the row split (N, C, 2, H, W), read as (N, 2C, H, W) by the column
+    split, whose (N, 2C, 2, H, W) output is (N, C, 4, H, W) in the band
+    order (LL, LH, HL, HH).  Two launches on CUDA."""
+    N, C = x.shape[:2]
+    lohi = afb1d_atrous_corr(x, h0r, h1r, mode, 3, dilation)
+    lohi = lohi.reshape(N, C * 2, *lohi.shape[3:])
+    y = afb1d_atrous_corr(lohi, h0c, h1c, mode, 2, dilation)
+    return y.reshape(N, C, 4, *y.shape[3:])
+
+
+def afb2d_atrous(x, h0_col, h1_col, h0_row, h1_row, mode="periodization",
+                 dilation=1):
+    """One level of undecimated 2-D analysis (SWT forward step).
+    Returns (N, C, 4, H, W) ordered (LL, LH, HL, HH)
+    (reference: dwt/lowlevel.py:475-521)."""
+    h0c, h1c = as_taps(h0_col)[::-1], as_taps(h1_col)[::-1]
+    h0r, h1r = as_taps(h0_row)[::-1], as_taps(h1_row)[::-1]
+    return _afb2d_atrous_corr(x, h0c, h1c, h0r, h1r, mode, dilation)

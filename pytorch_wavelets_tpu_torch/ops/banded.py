@@ -330,12 +330,16 @@ def _band_plan(T: np.ndarray, tile: int = _TILE_ROWS,
 
 
 class Operator:
-    """A constant operator matrix T (M x K) on one device: the fp32 matrix
-    and, on CUDA, K1's tile -> segment table (``seg_ptr[t]:seg_ptr[t+1]``
-    index the ``[k0, k1)`` rows of ``segs`` for T-row tile t)."""
+    """A constant operator matrix T (M x K) on one device: the matrix (fp32
+    by default; a float64 ``dtype`` keeps a float64 operator for the plain
+    versions' float64 inputs) and, on CUDA, K1's tile -> segment table
+    (``seg_ptr[t]:seg_ptr[t+1]`` index the ``[k0, k1)`` rows of ``segs``
+    for T-row tile t)."""
 
-    def __init__(self, T: np.ndarray, device):
-        T = np.ascontiguousarray(T, dtype=np.float32)
+    def __init__(self, T: np.ndarray, device, dtype=np.float32):
+        T = np.ascontiguousarray(T, dtype=dtype)
+        if torch.device(device).type == "cuda" and T.dtype != np.float32:
+            raise TypeError(f"K1 takes float32 operators, got {T.dtype}")
         self.shape = T.shape
         self.nnz = int(np.count_nonzero(T))
         self.T = torch.from_numpy(T).to(device)
@@ -406,11 +410,16 @@ def apply_col_plain(x, T, out=None, accumulate=True):
     return out.copy_(y)
 
 
-def apply_row_plain(x, T):
+def apply_row_plain(x, T, out=None, accumulate=True):
     """Plain PyTorch version of :func:`apply_row` (dense einsum)."""
     T = _operator(T, x.device).T.to(x.dtype)
     with plain_flags():
-        return torch.einsum("mw,nchw->nchm", T, x)
+        y = torch.einsum("mw,nchw->nchm", T, x)
+    if out is None:
+        return y
+    if accumulate:
+        return out + y
+    return out.copy_(y)
 
 
 def apply_col(x, T, out=None, accumulate=True):
@@ -458,8 +467,13 @@ def apply_col(x, T, out=None, accumulate=True):
     return y
 
 
-def apply_row(x, T):
+def apply_row(x, T, out=None, accumulate=True):
     """y[n, c, h, m] = sum_w T[m, w] x[n, c, h, w].
+
+    ``out`` and ``accumulate`` as in :func:`apply_col`: with them the
+    product is added to ``out`` (in place on CUDA) and the sum returned;
+    with ``accumulate=False`` it is written into ``out``, which may be any
+    view with unit column stride and one uniform row stride.
 
     CPU tensors take :func:`apply_row_plain`; CUDA tensors launch K1's row
     entry, which reads (N*C*H) rows at one row stride, so a column slice
@@ -467,8 +481,9 @@ def apply_row(x, T):
     """
     op = _operator(T, x.device)
     if x.device.type == "cpu":
-        return apply_row_plain(x, op)
-    _cuda.check_inputs("banded_apply_row", x)
+        return apply_row_plain(x, op, out, accumulate)
+    _cuda.check_inputs("banded_apply_row", x,
+                       *(() if out is None else (out,)))
     N, C, H, K = x.shape
     M = op.shape[0]
     ldx = _merged_stride((N, C, H), x.stride()[:3])
@@ -477,11 +492,22 @@ def apply_row(x, T):
                          f"strides {x.stride()} does not fit operator "
                          f"{op.shape} (rows must be uniformly strided, "
                          f"columns contiguous)")
-    y = torch.empty((N, C, H, M), device=x.device, dtype=torch.float32)
+    if out is None:
+        y = torch.empty((N, C, H, M), device=x.device, dtype=torch.float32)
+    else:
+        y = out
+    ldy = _merged_stride((N, C, H), y.stride()[:3])
+    if (tuple(y.shape) != (N, C, H, M) or ldy is None
+            or (M > 1 and y.stride(3) != 1)):
+        raise ValueError(f"banded_apply_row: out {tuple(y.shape)} with "
+                         f"strides {y.stride()} is not a {(N, C, H, M)} "
+                         f"tensor with uniformly strided rows and "
+                         f"contiguous columns")
     lib = _lib()
     _cuda.check(lib, "banded_apply_row", lib.banded_apply_row(
         x.data_ptr(), op.T.data_ptr(), y.data_ptr(), op.seg_ptr.data_ptr(),
-        op.segs.data_ptr(), N * C * H, K, M, ldx, M, _cuda.stream_of(x)))
+        op.segs.data_ptr(), N * C * H, K, M, ldx, ldy,
+        int(out is not None and accumulate), _cuda.stream_of(x)))
     apply_row.launches += 1
     return y
 

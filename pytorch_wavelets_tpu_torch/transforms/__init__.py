@@ -1,7 +1,6 @@
-"""Functional DWT, DTCWT and scattering transforms (the DTCWT through its
-composed whole-transform path)."""
+"""Functional DWT, SWT, DTCWT and scattering transforms."""
 from pytorch_wavelets_tpu_torch.transforms.dwt import (  # noqa: F401
-    dwt2d, idwt2d, dwt1d, idwt1d, dec_filters, rec_filters,
+    dwt2d, idwt2d, dwt1d, idwt1d, swt2d, iswt2d, dec_filters, rec_filters,
 )
 from pytorch_wavelets_tpu_torch.transforms.dtcwt_xfm import (  # noqa: F401
     dtcwt2d, idtcwt2d, dtcwt_fwd_filters, dtcwt_inv_filters,

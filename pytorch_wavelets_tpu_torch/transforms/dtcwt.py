@@ -41,6 +41,9 @@ from pytorch_wavelets_tpu_torch.ops.dtcwt_fb import (
 )
 from pytorch_wavelets_tpu_torch.ops.fused_dtcwt import canonical_bands
 from pytorch_wavelets_tpu_torch.ops.quad import c2q_unpack, q2c_pack
+from pytorch_wavelets_tpu_torch.transforms.plan_cache import (
+    budgeted_plan_cache,
+)
 
 __all__ = ["get_dimensions5", "get_dimensions6", "dtcwt2d_pyramid",
            "inv_pyramid_operators", "highs_to_orientations",
@@ -359,50 +362,6 @@ def inv_j2plus_op(lows, highs, g0a, g1a, g0b, g1b, o_dim, ri_dim, mode):
 # The composed path
 # --------------------------------------------------------------------------
 
-def _plan_bytes(plan):
-    """Total bytes held by a (nested) plan structure: numpy arrays, and
-    device operators (anything with ``nbytes``)."""
-    total = 0
-    stack = [plan]
-    while stack:
-        p = stack.pop()
-        if isinstance(p, (np.ndarray, banded.Operator)):
-            total += p.nbytes
-        elif isinstance(p, dict):
-            stack.extend(p.values())
-        elif isinstance(p, (list, tuple)):
-            stack.extend(p)
-    return total
-
-
-_PLAN_CACHE_BUDGET = 4 << 30   # bytes of composed operator matrices kept
-
-
-def _budgeted_plan_cache(fn):
-    """LRU cache bounded by total held bytes, not entry count: composed
-    plans near MAX_MATMUL_N hold hundreds of MB of operator matrices each,
-    so a count-bounded cache could pin tens of GB of host RAM."""
-    from collections import OrderedDict
-    cache: "OrderedDict" = OrderedDict()
-    sizes: dict = {}
-
-    def wrapper(*args):
-        if args in cache:
-            cache.move_to_end(args)
-            return cache[args]
-        out = fn(*args)
-        cache[args] = out
-        sizes[args] = _plan_bytes(out) + 1
-        while sum(sizes.values()) > _PLAN_CACHE_BUDGET and len(cache) > 1:
-            old, _ = cache.popitem(last=False)
-            del sizes[old]
-        return out
-
-    wrapper.cache_clear = lambda: (cache.clear(), sizes.clear())
-    wrapper.__wrapped__ = fn
-    return wrapper
-
-
 def _pad4_matrix(n):
     """Replicate-pad-to-%4 selection matrix (reference
     dtcwt/transform2d.py:131-135), or None when no pad is needed."""
@@ -420,7 +379,7 @@ def _compose(A, chain):
         banded.compose(A, chain))
 
 
-@_budgeted_plan_cache   # entries hold O(n^2) composed operator matrices
+@budgeted_plan_cache   # entries hold O(n^2) composed operator matrices
 def _fwd_pyramid_plan(h0o, h1o, h0a, h1a, h0b, h1b, J, skips, incs, mode,
                       H, W):
     """Composed forward plan: per-level specs for analysis_pyramid, all
@@ -469,7 +428,7 @@ def _fwd_pyramid_plan(h0o, h1o, h0a, h1a, h0b, h1b, J, skips, incs, mode,
 
 
 
-@_budgeted_plan_cache   # entries hold the plan's operators on one device
+@budgeted_plan_cache   # entries hold the plan's operators on one device
 def _fwd_operators(*args):
     *plan_args, device = args
     plan = _fwd_pyramid_plan(*plan_args)
@@ -497,7 +456,7 @@ def dtcwt2d_pyramid(x, filters, J, skip_hps, include_scale, o_dim, ri_dim,
     return lls[-1], yh
 
 
-@_budgeted_plan_cache   # entries hold O(n^2) composed operator matrices
+@budgeted_plan_cache   # entries hold O(n^2) composed operator matrices
 def _inv_pyramid_plan(g0o, g1o, g0a, g1a, g0b, g1b, mode, yl_hw, highs_hw):
     """Composed inverse plan from coefficient shapes.
 
@@ -578,7 +537,7 @@ def _inv_pyramid_plan(g0o, g1o, g0a, g1a, g0b, g1b, mode, yl_hw, highs_hw):
     return tuple(levels), ll_spec, (out_h, out_w)
 
 
-@_budgeted_plan_cache   # entries hold the plan's operators on one device
+@budgeted_plan_cache   # entries hold the plan's operators on one device
 def inv_pyramid_operators(*args):
     """Device form of :func:`_inv_pyramid_plan` (same arguments, then the
     device), or None."""

@@ -1,5 +1,6 @@
-"""Multilevel 2-D and 1-D DWT/IDWT with the reference's backwards
-(port of ``pytorch_wavelets_tpu/transforms/dwt.py``, the DWT part).
+"""Multilevel 2-D and 1-D DWT/IDWT with the reference's backwards, and
+the SWT with its exact least-squares inverse (port of
+``pytorch_wavelets_tpu/transforms/dwt.py``).
 
 The backward of an analysis step is the synthesis step run with the
 *time-reversed analysis* filters, and the backward of a synthesis step is
@@ -14,20 +15,34 @@ that saves no activations; forward and backward call the same
 dispatching wrappers (``ops/afb_sfb.py``: K6 and K7 on CUDA, their plain
 versions on the CPU).  The backwards are ``once_differentiable``: double
 backward is not ported (ROADMAP.md, "Still to port" 10).
+
+The SWT (:func:`swt2d` / :func:`iswt2d`) is differentiated by autodiff in
+the JAX package; here each level of the forward and each least-squares
+merge of the inverse is an autograd Function whose backward is the true
+transpose (see their docstrings).
 """
 from __future__ import annotations
+
+from functools import lru_cache
 
 import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
 from pytorch_wavelets_tpu_torch.filters import wavelet as _resolve_wavelet
+from pytorch_wavelets_tpu_torch.ops import banded
 from pytorch_wavelets_tpu_torch.ops.afb_sfb import (
-    _afb2d_corr, _sfb2d_conv, afb1d_corr, as_taps, sfb1d_conv,
+    _afb2d_atrous_corr, _afb2d_corr, _afb_atrous_matrix, _sfb2d_conv,
+    afb1d_atrous_adjoint, afb1d_corr, as_taps, sfb1d_conv,
+)
+from pytorch_wavelets_tpu_torch.ops.banded import apply_col, apply_row
+from pytorch_wavelets_tpu_torch.ops.iswt_merge import spec_merge, spec_split
+from pytorch_wavelets_tpu_torch.transforms.plan_cache import (
+    budgeted_plan_cache,
 )
 
-__all__ = ["dwt2d", "idwt2d", "dwt1d", "idwt1d", "dec_filters",
-           "rec_filters"]
+__all__ = ["dwt2d", "idwt2d", "dwt1d", "idwt1d", "swt2d", "iswt2d",
+           "dec_filters", "rec_filters"]
 
 
 def _tup(h) -> tuple:
@@ -246,3 +261,274 @@ def idwt1d(coeffs, wave="db1", mode="zero"):
             x0 = x0[..., :-1]
         x0 = _SFB1D.apply(x0, x1, taps, mode, x1.shape[-1])
     return x0
+
+
+# --------------------------------------------------------------------------
+# SWT: one level of the forward as an autograd Function
+# --------------------------------------------------------------------------
+
+class _AFB2DAtrous(torch.autograd.Function):
+    """One level of the undecimated 2-D analysis: x (N, C, H, W) -> the
+    (N, C, 4, H, W) stack (LL, LH, HL, HH), correlation-order taps
+    (h0c, h1c, h0r, h1r) ``dilation`` samples apart.  Forward: the row
+    split, then the column split (K12 ``swt_afb`` twice on CUDA).
+    Backward: the exact transpose, the column adjoint then the row
+    adjoint (K12 ``swt_afb_adjoint`` twice), equal to ``jax.vjp`` of the
+    JAX package's level; it saves no activations."""
+
+    @staticmethod
+    def forward(ctx, x, taps, mode, dilation):
+        ctx.taps, ctx.mode, ctx.dilation = taps, mode, dilation
+        ctx.in_shape = tuple(x.shape)
+        return _afb2d_atrous_corr(x, *taps, mode, dilation)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        h0c, h1c, h0r, h1r = ctx.taps
+        N, C, H, W = ctx.in_shape
+        d, mode = ctx.dilation, ctx.mode
+        dy = dy.reshape(N, 2 * C, 2, *dy.shape[3:])
+        dlohi = afb1d_atrous_adjoint(dy, h0c, h1c, mode, 2, d, H)
+        dlohi = dlohi.reshape(N, C, 2, *dlohi.shape[2:])
+        return (afb1d_atrous_adjoint(dlohi, h0r, h1r, mode, 3, d, W), None,
+                None, None)
+
+
+def swt2d(x, wave="db1", J=1, mode="periodization"):
+    """J-level stationary (undecimated) 2-D wavelet transform.
+
+    Returns a list of per-scale (N, C, 4, H, W) stacks ordered
+    (LL, LH, HL, HH) — reference SWTForward (dwt/transform2d.py:151-212).
+    Level j + 1 reads level j's LL band in place (a view).  On CUDA every
+    level is two K12 launches (the direct stencil, as the port's DWT);
+    ``banded.set_operator_matmul`` does not change this route (the JAX
+    package runs the forward as operator products on a device,
+    ``afb2d_atrous`` l.436-441)."""
+    h0c, h1c, h0r, h1r = dec_filters(wave)
+    taps = (_rev(h0c), _rev(h1c), _rev(h0r), _rev(h1r))
+    ll = x
+    coeffs = []
+    for j in range(J):
+        y = _AFB2DAtrous.apply(ll, taps, mode, 2 ** j)
+        coeffs.append(y)
+        ll = y[:, :, 0]
+    return coeffs
+
+
+# --------------------------------------------------------------------------
+# ISWT: the least-squares merge per axis (B10)
+# --------------------------------------------------------------------------
+
+# The JAX package's value, kept so that each axis length takes the same
+# branch in both packages: the dense pinv operator up to this length;
+# beyond it the FFT merge for circular modes and banded normal equations
+# otherwise (whether another threshold suits the H100 is not measured).
+_ISWT_PINV_MAX_N = 2048
+_CIRCULAR = ("per", "periodization", "periodic")
+
+
+def _atrous_impulse_response(taps, dilation, n):
+    """First column of the circulant à trous analysis operator at length
+    ``n`` (y[m] = sum_j taps[j] x[(m - (L2 - d) + j d) mod n])."""
+    taps = np.asarray(taps, dtype=np.float64)
+    L = len(taps)
+    L2 = (L * dilation) // 2
+    col = np.zeros(n)
+    for j, t in enumerate(taps):
+        col[(L2 - dilation - j * dilation) % n] += t
+    return col
+
+
+@lru_cache(maxsize=None)
+def _iswt_fft_filters(rh0, rh1, dilation, n):
+    """(conj(F0) / (|F0|^2 + |F1|^2), same for F1) at length ``n``, kept
+    in complex128 and cast at use."""
+    F0 = np.fft.fft(_atrous_impulse_response(rh0, dilation, n))
+    F1 = np.fft.fft(_atrous_impulse_response(rh1, dilation, n))
+    inv_denom = 1.0 / (np.abs(F0) ** 2 + np.abs(F1) ** 2)
+    return np.conj(F0) * inv_denom, np.conj(F1) * inv_denom
+
+
+@lru_cache(maxsize=None)
+def _iswt_banded_ls(rh0, rh1, mode, dilation, n, x64):
+    """(T^T, G^{-1}) for the least-squares merge of a non-circular à trous
+    split at long axis lengths: the Gram G = T^T T of the banded (2n x n)
+    analysis operator T, factored by scipy's banded Cholesky (O(n band^2)
+    host work instead of the dense SVD's O(n^3)), and solved against the
+    identity for the dense G^{-1}.  T^+ = G^{-1} T^T for full-column-rank
+    T.  float64, cast at use."""
+    from scipy.linalg import cho_solve_banded, cholesky_banded
+    T = np.asarray(_afb_atrous_matrix(rh0, rh1, mode, dilation, n,
+                                      "f8" if x64 else "f4"),
+                   dtype=np.float64)
+    G = banded.compose(T.T, T)
+    nz = np.abs(G) > (np.abs(G).max() * 1e-14)
+    ii, jj = np.nonzero(nz)
+    b = int(np.max(jj - ii)) if ii.size else 0
+    ab = np.zeros((b + 1, n))
+    for k in range(b + 1):                       # upper banded storage
+        ab[b - k, k:] = np.diagonal(G, k)
+    cf = cholesky_banded(ab, lower=False)
+    Ginv = cho_solve_banded((cf, False), np.eye(n))
+    return np.ascontiguousarray(T.T), np.ascontiguousarray(Ginv)
+
+
+@lru_cache(maxsize=None)
+def _iswt_pinv(rh0, rh1, mode, dilation, n, x64):
+    """The (n, 2n) float64 pseudo-inverse of the probed analysis operator
+    (probed in float64 for float64 inputs: the pinv of an fp32-rounded
+    probe caps round trips at ~1e-7)."""
+    T = _afb_atrous_matrix(rh0, rh1, mode, dilation, n,
+                           "f8" if x64 else "f4")
+    return np.linalg.pinv(np.asarray(T, dtype=np.float64))
+
+
+def _k1_ready(t, axis):
+    """``t`` if K1 reads it in place along ``axis`` (unit stride along W;
+    uniformly strided planes for the column entry, rows for the row
+    entry), else a contiguous copy of it."""
+    if not t.is_cuda:
+        return t
+    outer = 2 if axis == 2 else 3
+    if ((t.shape[3] == 1 or t.stride(3) == 1) and banded._merged_stride(
+            t.shape[:outer], t.stride()[:outer]) is not None):
+        return t
+    return t.contiguous()
+
+
+class _OperatorMerge:
+    """The pinv and banded-LS branches: z = B (A_lo lo + A_hi hi) along the
+    axis, with A = [A_lo | A_hi] (n x 2m) and B (n x n) or none, all K1
+    products (column entry along H, row entry along W; the hi product
+    accumulates onto the lo one).  Its transpose: [dlo; dhi] = A^T (B^T g),
+    one K1 product per operator, the result split in place."""
+
+    def __init__(self, A, B, device, dtype):
+        m = A.shape[1] // 2
+        op = lambda T: banded.Operator(T, device, dtype)     # noqa: E731
+        self.m = m
+        self.A = (op(A[:, :m]), op(A[:, m:]))
+        self.At = op(A.T)
+        self.B = None if B is None else (op(B), op(B.T))
+        self.nbytes = sum(o.nbytes for o in (*self.A, self.At,
+                                             *(self.B or ())))
+
+    def merge(self, lo, hi, axis):
+        apply = apply_col if axis == 2 else apply_row
+        z = apply(_k1_ready(lo, axis), self.A[0])
+        z = apply(_k1_ready(hi, axis), self.A[1], z, True)
+        return z if self.B is None else apply(z, self.B[0])
+
+    def split(self, g, axis):
+        apply = apply_col if axis == 2 else apply_row
+        g = _k1_ready(g, axis)
+        if self.B is not None:
+            g = apply(g, self.B[1])
+        d = apply(g, self.At)
+        return d.narrow(axis, 0, self.m), d.narrow(axis, self.m, self.m)
+
+
+class _FFTMerge:
+    """The FFT branch (circular modes past ``_ISWT_PINV_MAX_N``): the
+    circulant least-squares merge on the half spectrum, ``irfft(G0 A + G1
+    B)`` with A, B the ``rfft`` of lo and hi (K13 ``spec_merge``); its
+    transpose ``irfft(conj(G) rfft(g))`` per band (K13 ``spec_split``).
+    The filters of real taps are Hermitian, so the half spectrum holds
+    what the JAX ``ifft(...).real`` keeps."""
+
+    def __init__(self, G0, G1, n, device, dtype):
+        # complex128 for float64, else complex64 (sub-fp32 inputs merge in
+        # fp32 and are cast back, as the JAX merge casts its result)
+        x64 = dtype == torch.float64
+        self.real = torch.float64 if x64 else torch.float32
+        cdt = torch.complex128 if x64 else torch.complex64
+        nf = n // 2 + 1
+        self.n = n
+        self.g = [torch.as_tensor(np.ascontiguousarray(G[:nf]), dtype=cdt,
+                                  device=device) for G in (G0, G1)]
+        self.nbytes = sum(g.nbytes for g in self.g)
+
+    def merge(self, lo, hi, axis):
+        A = torch.fft.rfft(lo.to(self.real), dim=axis)
+        B = torch.fft.rfft(hi.to(self.real), dim=axis)
+        z = torch.fft.irfft(spec_merge(A, B, *self.g, axis), n=self.n,
+                            dim=axis)
+        return z.to(lo.dtype)
+
+    def split(self, g, axis):
+        S = spec_split(torch.fft.rfft(g.to(self.real), dim=axis), *self.g,
+                       axis)
+        d = torch.fft.irfft(S, n=self.n, dim=axis + 1).to(g.dtype)
+        return d[0], d[1]
+
+
+@budgeted_plan_cache   # entries hold an axis's operators on one device
+def _merge_plan(taps, dilation, mode, n, device, dtype):
+    """The merge of one axis length, branch and device (the host operators
+    are cached apart, by their own arguments, as the JAX package caches
+    them)."""
+    x64 = dtype == torch.float64
+    odt = np.float64 if x64 and device.type == "cpu" else np.float32
+    if n <= _ISWT_PINV_MAX_N:
+        return _OperatorMerge(_iswt_pinv(*taps, mode, dilation, n, x64),
+                              None, device, odt)
+    if mode in _CIRCULAR:
+        return _FFTMerge(*_iswt_fft_filters(*taps, dilation, n), n, device,
+                         dtype)
+    Tt, Ginv = _iswt_banded_ls(*taps, mode, dilation, n, x64)
+    return _OperatorMerge(Tt, Ginv, device, odt)
+
+
+class _LSMerge(torch.autograd.Function):
+    """The least-squares two-band merge along ``axis`` (the JAX
+    ``_ls_merge``): lo, hi -> z with the merge ``plan``'s branch.
+    Backward: the plan's exact transpose."""
+
+    @staticmethod
+    def forward(ctx, lo, hi, plan, axis):
+        ctx.plan, ctx.axis = plan, axis
+        return plan.merge(lo, hi, axis)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        dlo, dhi = ctx.plan.split(g, ctx.axis)
+        return dlo, dhi, None, None
+
+
+def ls_merge(lo, hi, taps, dilation, axis, mode):
+    """Least-squares merge of the à trous split ``taps`` (correlation-order
+    (h0, h1) tuples) along ``axis`` of (N, C, H, W) ``lo`` and ``hi``: the
+    dense pinv operator (K1) up to ``_ISWT_PINV_MAX_N`` samples, beyond it
+    the FFT merge (cuFFT + K13) for circular modes and banded normal
+    equations (K1 with T^T, then K1 with the dense G^{-1}) otherwise."""
+    if lo.is_cuda and lo.dtype != torch.float32:
+        raise TypeError(f"iswt2d: the CUDA kernels take float32, got "
+                        f"{lo.dtype} (SWTInverse(upcast=True) upcasts "
+                        f"sub-fp32 stacks)")
+    plan = _merge_plan(taps, dilation, mode, lo.shape[axis], lo.device,
+                       lo.dtype)
+    return _LSMerge.apply(lo, hi, plan, axis)
+
+
+def iswt2d(coeffs, wave="db1", mode="periodization"):
+    """Inverse SWT: the exact (least-squares) inverse of :func:`swt2d` for
+    every boundary mode, per level from the coarsest: two column merges
+    (LL with LH, HL with HH), then the row merge of their results.
+
+    ``wave`` must resolve to the *analysis* filters used by swt2d.  The
+    operators are built on the host at first use of an axis length (a
+    float64 SVD up to 2048 samples, a banded Cholesky beyond) and cached
+    per device."""
+    h0c, h1c, h0r, h1r = dec_filters(wave)
+    tc = (_tup(_rev(h0c)), _tup(_rev(h1c)))
+    tr = (_tup(_rev(h0r)), _tup(_rev(h1r)))
+    ll = coeffs[-1][:, :, 0]
+    for j in range(len(coeffs) - 1, -1, -1):
+        y = coeffs[j]
+        d = 2 ** j
+        lo_r = ls_merge(ll, y[:, :, 1], tc, d, 2, mode)
+        hi_r = ls_merge(y[:, :, 2], y[:, :, 3], tc, d, 2, mode)
+        ll = ls_merge(lo_r, hi_r, tr, d, 3, mode)
+    return ll

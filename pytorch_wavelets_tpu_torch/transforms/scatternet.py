@@ -35,8 +35,10 @@ from pytorch_wavelets_tpu_torch.ops.scat_mag import (
     scat_mag_bwd, scat_mag_fwd,
 )
 from pytorch_wavelets_tpu_torch.transforms.dtcwt import (
-    _budgeted_plan_cache, _fwd_pyramid_plan, fwd_j1_rot_op,
-    fwd_j2plus_rot_op,
+    _fwd_pyramid_plan, fwd_j1_rot_op, fwd_j2plus_rot_op,
+)
+from pytorch_wavelets_tpu_torch.transforms.plan_cache import (
+    budgeted_plan_cache,
 )
 
 __all__ = ["smooth_mag", "avg_pool2", "scat_layer_j1", "scat_layer_j2"]
@@ -123,7 +125,7 @@ def _pool_compose(spec):
     return (Rp, Cp)
 
 
-@_budgeted_plan_cache   # entries hold O(n^2) composed operator matrices
+@budgeted_plan_cache   # entries hold O(n^2) composed operator matrices
 def _scat_front_plan(h0o, h1o, h0a, h1a, h0b, h1b, J, mode, H, W):
     """J-level analysis plan with the final lowpass pooled 2x2."""
     skips = (False,) * J
@@ -140,7 +142,7 @@ def _scat_front_plan(h0o, h1o, h0a, h1a, h0b, h1b, J, mode, H, W):
     return plan[:-1] + (last,)
 
 
-@_budgeted_plan_cache   # entries hold the plan's operators on one device
+@budgeted_plan_cache   # entries hold the plan's operators on one device
 def _scat_front_operators(*args):
     *plan_args, device = args
     plan = _scat_front_plan(*plan_args)

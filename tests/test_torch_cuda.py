@@ -18,6 +18,11 @@ from pytorch_wavelets_tpu_torch.ops import banded, fused_dtcwt, quad, scat_mag
 
 pytestmark = pytest.mark.cuda
 
+# The CPU references run at one thread, as every CPU test file of the port
+# does: PyTorch's CPU ``sqrt`` can differ in one worker thread on its first
+# call in a multi-threaded process (ROADMAP.md, section C).
+torch.set_num_threads(1)
+
 PYRAMID_KERNELS = ("apply_row", "apply_col", "q2c_pack", "c2q_unpack")
 
 # fp32 sums of up to a few hundred products of O(1/sqrt(K)) terms, in
@@ -623,3 +628,188 @@ def test_bandpass_diag_scat_launches(dev, monkeypatch):
     assert bwd == dict(bwd, dtcwt_filt=14, dtcwt_ifilt=7, c2q_unpack=3,
                        scat_mag_bwd=3, avg_pool2_bwd=2, apply_row=0,
                        apply_col=0, dtcwt_dfilt=0, q2c_pack=0)
+
+
+# ---------------------------------------------------------------------------
+# The SWT: K12 (swt_atrous.cu), K13 (iswt_spec.cu), K1's row accumulate
+# ---------------------------------------------------------------------------
+
+SWT_MODES = ("zero", "symmetric", "reflect", "periodic", "periodization",
+             "replicate")
+# K13: a few fp32 products per value, relative to the magnitude of its
+# terms (|g0 A| + |g1 B|, or |g Z|), which grow with the length and cancel
+SPEC_TOL = dict(rtol=1e-6, atol=1e-6)
+
+
+def _close_to_terms(got, want, scale):
+    assert bool(((got - want).abs() <= SPEC_TOL["atol"] + SPEC_TOL["rtol"]
+                 * scale).all()), float((got - want).abs().max())
+
+
+@pytest.mark.parametrize("accumulate", [False, True])
+def test_apply_row_out(dev, accumulate):
+    """K1's row entry writing into, or adding onto, a column slice."""
+    T = _banded_op(40, 24, 41, 6)
+    x = torch.from_numpy(_rand((2, 3, 5, 24), 42)).to(dev)
+    wide = torch.from_numpy(_rand((2, 3, 5, 50), 43)).to(dev)
+    op = banded.Operator(T, dev)
+    want = wide.clone()
+    want[..., 4:44] = banded.apply_row_plain(
+        x, op, wide[..., 4:44] if accumulate else None)
+    got = wide.clone()
+    n0 = banded.apply_row.launches
+    out = banded.apply_row(x, op, got[..., 4:44], accumulate)
+    assert out.data_ptr() == got[..., 4:44].data_ptr()
+    torch.testing.assert_close(got, want, **KTOL)
+    assert banded.apply_row.launches == n0 + 1
+
+
+@pytest.mark.parametrize("mode", SWT_MODES)
+@pytest.mark.parametrize("L,d,n", [(2, 1, 16), (8, 1, 33), (8, 4, 6),
+                                   (10, 2, 13), (40, 4, 7)])
+@pytest.mark.parametrize("axis", [2, 3])
+def test_swt_afb(dev, mode, L, d, n, axis):
+    """K12's split and its adjoint against their plain versions: every
+    mode, odd sizes, pads longer than the axis (40 taps at dilation 4 on
+    7 samples), a strided input (the LL band of a stack) and cotangent."""
+    from pytorch_wavelets_tpu_torch.ops import afb_sfb
+    h0, h1 = _taps(L, 70 + L)
+    shape = [2, 3, 9, 7]
+    shape[axis] = n
+    wide = torch.from_numpy(_rand((shape[0], shape[1], 4, *shape[2:]), 71))
+    x = wide.to(dev)[:, :, 0]
+    n0 = (afb_sfb.afb1d_atrous_corr.launches,
+          afb_sfb.afb1d_atrous_adjoint.launches)
+    got = afb_sfb.afb1d_atrous_corr(x, h0, h1, mode, axis, d)
+    torch.testing.assert_close(
+        got, afb_sfb.afb1d_atrous_corr_plain(x, h0, h1, mode, axis, d),
+        **DWT_TOL)
+    gwide = torch.from_numpy(_rand((got.shape[0], 2 * got.shape[1], 2,
+                                    *got.shape[3:]), 72)).to(dev)
+    g = gwide[:, 1::2]
+    torch.testing.assert_close(
+        afb_sfb.afb1d_atrous_adjoint(g, h0, h1, mode, axis, d, n),
+        afb_sfb.afb1d_atrous_adjoint_plain(g, h0, h1, mode, axis, d, n),
+        **DWT_TOL)
+    assert (afb_sfb.afb1d_atrous_corr.launches,
+            afb_sfb.afb1d_atrous_adjoint.launches) == (n0[0] + 1, n0[1] + 1)
+
+
+@pytest.mark.parametrize("n", [9, 10, 2056])
+@pytest.mark.parametrize("axis", [2, 3])
+def test_spec_merge_and_split(dev, n, axis):
+    """K13 against its plain version on the strided spectra that
+    ``torch.fft.rfft`` returns along either axis, odd and even n."""
+    from pytorch_wavelets_tpu_torch.ops import iswt_merge
+    shape = [2, 3, 5, 6]
+    shape[axis] = n
+    lo, hi = (torch.from_numpy(_rand(shape, s)).to(dev) for s in (80, 81))
+    A, B = (torch.fft.rfft(t, dim=axis) for t in (lo, hi))
+    nf = n // 2 + 1
+    g0, g1 = (torch.from_numpy(_rand((nf,), s) + 1j * _rand((nf,), s + 1))
+              .to(dev, torch.complex64) for s in (82, 84))
+    n0 = (iswt_merge.spec_merge.launches, iswt_merge.spec_split.launches)
+    mag = [t.abs() for t in (A, B, g0, g1)]
+    _close_to_terms(iswt_merge.spec_merge(A, B, g0, g1, axis),
+                    iswt_merge.spec_merge_plain(A, B, g0, g1, axis),
+                    iswt_merge.spec_merge_plain(*mag, axis))
+    _close_to_terms(iswt_merge.spec_split(A, g0, g1, axis),
+                    iswt_merge.spec_split_plain(A, g0, g1, axis),
+                    iswt_merge.spec_split_plain(mag[0], *mag[2:], axis))
+    assert (iswt_merge.spec_merge.launches,
+            iswt_merge.spec_split.launches) == (n0[0] + 1, n0[1] + 1)
+
+
+@pytest.mark.parametrize("mode,wave,shape,J", [
+    ("periodization", "db4", (2, 3, 64, 64), 3),
+    ("symmetric", "bior2.4", (2, 2, 33, 29), 2),
+    ("reflect", "db2", (1, 2, 20, 24), 2),
+    ("replicate", "db1", (1, 1, 7, 9), 2),
+    ("zero", "db4", (1, 1, 7, 7), 2),
+    ("periodic", "db3", (1, 2, 6, 2056), 2),       # the FFT merge (K13)
+    ("symmetric", "db3", (1, 1, 2056, 6), 1)])     # banded least squares
+def test_swt_matches_cpu(dev, mode, wave, shape, J):
+    """SWTForward -> SWTInverse on the card against the CPU plain run:
+    the stacks, the reconstruction and x.grad."""
+    ops.reset_launches()
+
+    def round_trip(d):
+        f = tt.SWTForward(J=J, wave=wave, mode=mode, device=d)
+        i = tt.SWTInverse(wave=wave, mode=mode, device=d)
+        return lambda x: [*f(x), i(f(x))]
+    cpu, gpu = _grads(round_trip, shape, dev, 90)
+    for a, b in zip(cpu, gpu):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=2e-5)
+    counts = ops.launch_counts()
+    need = ["afb1d_atrous_corr", "afb1d_atrous_adjoint"]
+    need += (["spec_merge", "spec_split"] if shape[3] > 2048 and
+             mode == "periodic" else ["apply_col", "apply_row"])
+    assert all(counts[k] > 0 for k in need), counts
+
+
+def test_swt_launches(dev, monkeypatch):
+    """One SWT round trip and its gradient on the card: the launches by
+    kernel, and no plain version reached (each is made to raise)."""
+    from pytorch_wavelets_tpu_torch.ops import afb_sfb, iswt_merge
+
+    def guard(plain):
+        """The plain version, raising on a CUDA tensor (the host's
+        operator probes run it on the CPU)."""
+        def fn(*a, **k):
+            if any(isinstance(t, torch.Tensor) and t.is_cuda for t in a):
+                raise AssertionError("a plain version ran on the card")
+            return plain(*a, **k)
+        return fn
+    for mod, names in ((afb_sfb, ("afb1d_atrous_corr_plain",
+                                  "afb1d_atrous_adjoint_plain")),
+                       (iswt_merge, ("spec_merge_plain", "spec_split_plain")),
+                       (banded, ("apply_col_plain", "apply_row_plain"))):
+        for n in names:
+            monkeypatch.setattr(mod, n, guard(getattr(mod, n)))
+    f = tt.SWTForward(J=2, wave="db4", device=dev)
+    i = tt.SWTInverse(wave="db4", device=dev)
+    x = torch.from_numpy(_rand((2, 3, 32, 2056), 91)).to(dev)
+    x.requires_grad_()
+    ops.reset_launches()
+    ys = f(x)
+    rec = i(ys)
+    fwd = ops.launch_counts()
+    torch.autograd.grad([rec, *ys], x, [torch.ones_like(rec),
+                                        *map(torch.ones_like, ys)])
+    torch.cuda.synchronize()
+    total = ops.launch_counts()
+    bwd = {k: total[k] - fwd[k] for k in total}
+    # per level: 2 splits; 2 column merges (pinv, H = 32: 2 K1 each) and
+    # one row merge (FFT, W = 2056: one K13); backward: one K1 per column
+    # merge, one K13 per row merge, 2 adjoint splits per level
+    assert fwd == dict(fwd, afb1d_atrous_corr=4, apply_col=8, spec_merge=2,
+                       apply_row=0, afb1d_atrous_adjoint=0, spec_split=0)
+    assert bwd == dict(bwd, afb1d_atrous_adjoint=4, apply_col=4,
+                       spec_split=2, afb1d_atrous_corr=0, spec_merge=0,
+                       apply_row=0)
+
+
+def test_swt_sum_backward(dev):
+    """The gradient of rec.sum(): autograd hands the inverse an expanded
+    (stride 0) cotangent, which K1 takes as a contiguous copy."""
+    x = torch.from_numpy(_rand((1, 2, 16, 20), 92))
+    grads = {}
+    for d in ("cpu", dev):
+        xt = x.to(d).requires_grad_()
+        f = tt.SWTForward(J=2, wave="db2", mode="symmetric", device=d)
+        i = tt.SWTInverse(wave="db2", mode="symmetric", device=d)
+        grads[str(d)] = torch.autograd.grad(i(f(xt)).sum(), xt)[0].cpu()
+    torch.testing.assert_close(grads[str(dev)], grads["cpu"], rtol=1e-5,
+                               atol=2e-5)
+
+
+def test_swt_refuses(dev):
+    """The CUDA kernels take fp32: float64 and bf16 stacks with
+    upcast=False raise on the card (the CPU path takes them)."""
+    x = torch.zeros((1, 1, 16, 16), device=dev)
+    with pytest.raises(TypeError, match="float32"):
+        tt.SWTForward(device=dev)(x.double())
+    ys = tt.SWTForward(J=1, coeff_dtype="bfloat16", device=dev)(x)
+    with pytest.raises(TypeError, match="float32"):
+        tt.SWTInverse(upcast=False, device=dev)(ys)
+    assert tt.SWTInverse(device=dev)(ys).dtype == torch.float32

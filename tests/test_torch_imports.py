@@ -57,6 +57,9 @@ def test_imports_and_runs_with_jax_blocked():
         "y = tt.DTCWTForward(J=2, device='cpu')(x)\n"
         "r = tt.DTCWTInverse(device='cpu')(y)\n"
         "assert (r - x).abs().max() < 1e-5\n"
+        "c = tt.SWTForward(J=2, wave='db4', device='cpu')(x)\n"
+        "r = tt.SWTInverse(wave='db4', device='cpu')(c)\n"
+        "assert (r - x).abs().max() < 1e-5\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in "
         "sys.modules if sys.modules[m] is not None)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -75,11 +78,18 @@ def test_cpu_tensors_take_plain_versions():
     tt.DWT1DInverse(device="cpu")(tt.DWT1DForward(J=2, device="cpu")(x[0]))
     tt.ScatLayerj2(biort="near_sym_b_bp", qshift="qshift_b_bp",
                    device="cpu")(x)
+    # the SWT, its backward, and a row past 2048 (the FFT merge, K13)
+    for shape in ((1, 2, 32, 32), (1, 1, 2, 2056)):
+        xs = torch.zeros(shape, requires_grad=True)
+        c = tt.SWTForward(J=2, device="cpu")(xs)
+        torch.autograd.grad(tt.SWTInverse(device="cpu")(c).sum(), xs)
     assert ops.launch_counts() == {k.__name__: 0 for k in ops.KERNELS}
     assert set(ops.launch_counts()) == {
         "apply_row", "apply_col", "q2c_pack", "c2q_unpack", "scat_mag_fwd",
         "scat_mag_bwd", "afb1d_corr", "sfb1d_conv", "dtcwt_filt",
-        "dtcwt_dfilt", "dtcwt_ifilt", "avg_pool2_fwd", "avg_pool2_bwd"}
+        "dtcwt_dfilt", "dtcwt_ifilt", "avg_pool2_fwd", "avg_pool2_bwd",
+        "afb1d_atrous_corr", "afb1d_atrous_adjoint", "spec_merge",
+        "spec_split"}
 
 
 def test_default_device_is_cuda(monkeypatch):
@@ -88,6 +98,9 @@ def test_default_device_is_cuda(monkeypatch):
         tt.DTCWTForward()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tt.DTCWTInverse()
+    for cls in (tt.SWTForward, tt.SWTInverse):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cls()
 
 
 def test_device_mismatch_raises():

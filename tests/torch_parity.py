@@ -144,3 +144,121 @@ def dwt_parity(shape, wave, mode, J, path, one_d=False, seed=0):
     cmp(gx, jgx, DWT_ATOL)
     cmp(rec, jrec, DWT_ATOL)
     cmp(list(grads), [jgyl, *jgyh], DWT_ATOL)
+
+
+# ---------------------------------------------------------------------------
+# SWT: one jitted JAX program per case (forward, inverse and, with grads,
+# the vjp of each)
+# ---------------------------------------------------------------------------
+
+SWT_MODES = ("zero", "symmetric", "reflect", "periodic", "periodization",
+             "replicate")
+SWT_PR_ATOL = 2e-4   # round trip, the JAX suite's (tests/test_swt.py:53)
+
+
+def _jax_swt_case(x, cts, ct_rec, wave, mode, J, path, grads):
+    """JAX's swt2d and iswt2d of its output; with ``grads`` also the vjp of
+    ``cts`` through the forward and of ``ct_rec`` through the inverse.
+    ``path`` is static so that each JAX path gets its own trace."""
+    from pytorch_wavelets_tpu.transforms import dwt as jdwt
+    if not grads:
+        ys = jdwt.swt2d(x, wave, J, mode)
+        return ys, None, jdwt.iswt2d(ys, wave, mode), None
+    ys, vf = jax.vjp(lambda v: jdwt.swt2d(v, wave, J, mode), x)
+    gx, = vf(cts)
+    rec, vi = jax.vjp(lambda c: jdwt.iswt2d(c, wave, mode), ys)
+    gc, = vi(ct_rec)
+    return ys, gx, rec, gc
+
+
+_jax_swt_jit = jax.jit(_jax_swt_case, static_argnums=(3, 4, 5, 6, 7),
+                       compiler_options={
+                           "xla_backend_optimization_level": 0,
+                           "xla_llvm_disable_expensive_passes": True})
+
+
+def iswt_ref64(ys, wave, mode):
+    """The least-squares inverse SWT of the stacks ``ys`` in float64 numpy,
+    built from the JAX package's own host-side operators (``_iswt_pinv``,
+    ``_iswt_fft_filters``, ``_iswt_banded_ls``, the same branch per axis as
+    its ``_ls_merge``) and none of the port: the reference that says how
+    far each fp32 inverse is from the exact one."""
+    from pytorch_wavelets_tpu.transforms import dwt as jdwt
+    h0c, h1c, h0r, h1r = jdwt.dec_filters(wave)
+    tc = (jdwt._tup(jdwt._rev(h0c)), jdwt._tup(jdwt._rev(h1c)))
+    tr = (jdwt._tup(jdwt._rev(h0r)), jdwt._tup(jdwt._rev(h1r)))
+    circular = mode in ("per", "periodization", "periodic")
+
+    def apply(op, x, axis):                      # op along ``axis``
+        return np.moveaxis(np.tensordot(op, np.moveaxis(x, axis, 0), 1),
+                           0, axis)
+
+    def merge(lo, hi, taps, d, axis):
+        n = lo.shape[axis]
+        if n <= jdwt._ISWT_PINV_MAX_N:
+            return apply(jdwt._iswt_pinv(*taps, mode, d, n, False),
+                         np.concatenate([lo, hi], axis), axis)
+        if circular:
+            g0, g1 = jdwt._iswt_fft_filters(*taps, d, n)
+            shape = [1] * lo.ndim
+            shape[axis] = -1
+            z = (g0.reshape(shape) * np.fft.fft(lo, axis=axis)
+                 + g1.reshape(shape) * np.fft.fft(hi, axis=axis))
+            return np.fft.ifft(z, axis=axis).real
+        Tt, Ginv = jdwt._iswt_banded_ls(*taps, mode, d, n, False)
+        return apply(Ginv, apply(Tt, np.concatenate([lo, hi], axis), axis),
+                     axis)
+
+    ys = [np.asarray(y, np.float64) for y in ys]
+    ll = ys[-1][:, :, 0]
+    for j in range(len(ys) - 1, -1, -1):
+        y, d = ys[j], 2 ** j
+        lo = merge(ll, y[:, :, 1], tc, d, 2)
+        hi = merge(y[:, :, 2], y[:, :, 3], tc, d, 2)
+        ll = merge(lo, hi, tr, d, 3)
+    return ll
+
+
+def swt_parity(shape, wave, mode, J, path="conv", grads=False, seed=0):
+    """One input through the JAX package (its conv path, or its operator
+    path with ``path="matmul"``) and the port's CPU SWT modules: the
+    stacks within DWT_ATOL; the port's inverse of JAX's stacks within
+    INV_ATOL of the exact inverse of the same stacks (``iswt_ref64``, built
+    from the JAX package's operators alone), and within INV_ATOL plus
+    JAX's own distance to that exact inverse of JAX's inverse (its fp32
+    rounding, which the least-squares merge amplifies where the operator
+    is ill-conditioned, as in 'reflect' at J = 3 on a 16x16 image); the
+    port's own round trip within SWT_PR_ATOL.  With ``grads``, the
+    gradient w.r.t. x of the forward and w.r.t. the stacks of the inverse
+    against ``jax.vjp``, within INV_ATOL."""
+    x = rand(shape, seed)
+    N, C, H, W = shape
+    cts = [rand((N, C, 4, H, W), seed + 1 + k) for k in range(J)]
+    ct_rec = rand(shape, seed + 99)
+    jbanded.set_operator_matmul(True if path == "matmul" else None)
+    try:
+        jys, jgx, jrec, jgc = _jax_swt_jit(
+            jnp.asarray(x), [jnp.asarray(c) for c in cts],
+            jnp.asarray(ct_rec), wave, mode, J, path, grads)
+    finally:
+        jbanded.set_operator_matmul(None)
+    f = tt.SWTForward(J=J, wave=wave, mode=mode, device="cpu")
+    i = tt.SWTInverse(wave=wave, mode=mode, device="cpu")
+    xt = torch.from_numpy(x).requires_grad_(grads)
+    ys = f(xt)
+    cmp(ys, jys, DWT_ATOL)
+    with torch.no_grad():
+        np.testing.assert_allclose(_np(i(ys)), x, atol=SWT_PR_ATOL)
+    leaves = [torch.from_numpy(np.array(y)).requires_grad_(grads)
+              for y in jys]
+    rec = i(leaves)
+    ref = iswt_ref64(jys, wave, mode)
+    cmp(rec, ref, INV_ATOL)
+    jax_err = float(np.abs(np.asarray(jrec, np.float64) - ref).max())
+    cmp(rec, jrec, INV_ATOL + jax_err)
+    if grads:
+        gx = torch.autograd.grad(ys, xt, [torch.from_numpy(c)
+                                          for c in cts])[0]
+        cmp(gx, jgx, INV_ATOL)
+        gc = torch.autograd.grad(rec, leaves, torch.from_numpy(ct_rec))
+        cmp(list(gc), list(jgc), INV_ATOL)
