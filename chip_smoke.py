@@ -84,10 +84,33 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    summed per kernel and per role (forward pyramid, its adjoint B4, the
    inverse's adjoint, the magnitudes; the DWT's analysis, synthesis and
    their backwards).
-11. profile: device time by kernel of the main path, of one ScatLayerj2
+11. the Selesnick DTCWT, the non-separable filterbanks and the à trous
+   merge (K6/K7, K14, K15, K16): alt_main, DTCWTForward2(farras,
+   qshift_a, J=3, symmetric) then DTCWTInverse2 on 128x3x256x256 fp32
+   (the reference's published image batch), counted (K6 forward, K7
+   inverse), checked on its first 4 images against the CPU plain run and
+   for perfect reconstruction, timed; alt_train, the gradient w.r.t. x
+   of sum(rec * G0) + sum(lows * G1) + sum_j sum(yh_j * G2+j), x.grad
+   checked, timed; cplxdual_mag, cplxdual2d(J=3, periodization,
+   mag=True) on the same batch, checked and timed; quad_nonsep,
+   quad_afb2d_nonsep (K14, 16 PSFs of 10x10) against the separable
+   quad_afb2d (K6) in 'zero' mode, both timed; nonsep_rt, afb2d_nonsep
+   -> sfb2d_nonsep (K14 -> K15, db4) on 32x10x512x512 in 'periodization'
+   and 'symmetric', perfect reconstruction, the adjoint identity of both
+   Functions, a gradient step timed; swt_sfb, afb2d_atrous ->
+   sfb2d_atrous (K12 -> K16, db4) on 32x3x256x256 at dilations 1, 2, 4,
+   reconstruction in 'periodization', the other modes replayed against
+   the plain version, the adjoint identity of K16's Function in every
+   mode; then K14-K16 at edge cases (every mode, odd sizes, Ly != Lx,
+   db38, K = 16, pads longer than the axis, K14's and K15's adjoints on
+   the separable plans, strided and transposed inputs).  Every K14-K16
+   call of these phases, and the alt path's K6/K7 calls, are replayed
+   as in 10, each kernel line with the launches its phase read from the
+   counters, reset just before each counted run.
+12. profile: device time by kernel of the main path, of one ScatLayerj2
    training step, of one DWT training step, of one bandpass-diagonal
-   ScatLayerj2 training step and of one SWT training step
-   (torch.profiler).
+   ScatLayerj2 training step, of one SWT training step and of one
+   DTCWTForward2 training step (torch.profiler).
 
 Each path's peak_mem_bytes (torch.cuda.max_memory_allocated over its
 timed calls) includes mem_held_before_bytes: what was allocated when its
@@ -98,6 +121,7 @@ nvidia-smi prints them, and last {"ok": true, "device": {...}}.
 Imports torch, numpy and the port only.
 """
 import contextlib
+import functools
 import json
 import statistics
 import subprocess
@@ -207,6 +231,18 @@ SOURCES = {
                    "pytorch_wavelets_tpu/transforms/dwt.py:394"),
     "spec_split": ("spec_split", "iswt_spec.cu",
                    "pytorch_wavelets_tpu/transforms/dwt.py:394"),
+    "nonsep_afb": ("nonsep_afb", "nonsep_afb.cu",
+                   "pytorch_wavelets_tpu/ops/afb_sfb.py:482"),
+    "nonsep_afb_adjoint": ("nonsep_afb_adjoint", "nonsep_afb.cu",
+                           "pytorch_wavelets_tpu/ops/afb_sfb.py:482"),
+    "nonsep_sfb": ("nonsep_sfb", "nonsep_sfb.cu",
+                   "pytorch_wavelets_tpu/ops/afb_sfb.py:527"),
+    "nonsep_sfb_adjoint": ("nonsep_sfb_adjoint", "nonsep_sfb.cu",
+                           "pytorch_wavelets_tpu/ops/afb_sfb.py:527"),
+    "sfb1d_atrous_conv": ("swt_sfb", "swt_atrous.cu",
+                          "pytorch_wavelets_tpu/ops/afb_sfb.py:337"),
+    "sfb1d_atrous_adjoint": ("swt_sfb_adjoint", "swt_atrous.cu",
+                             "pytorch_wavelets_tpu/ops/afb_sfb.py:337"),
 }
 BANDED_REPLACES = "pytorch_wavelets_tpu/ops/banded.py:410"
 
@@ -240,6 +276,31 @@ _SPLIT, _MERGE = ("pytorch_wavelets_tpu/ops/afb_sfb.py:207",
                   "pytorch_wavelets_tpu/transforms/dwt.py:345")
 SWT_REPLACES = {"split": _SPLIT, "split's adjoint": _SPLIT,
                 "merge": _MERGE, "merge's adjoint": _MERGE}
+# the Selesnick DTCWT (K6/K7 pyramids), the non-separable filterbanks (K14,
+# K15) and the à trous merge (K16): DTCWTForward2's defaults on the
+# reference's published image batch (BASELINE.md, the ScatterNet
+# workload); the quad analysis on it; the non-separable round trip on
+# dwt_main's shape and the à trous one on swt_main's
+ALT_SHAPE = (128, 3, 256, 256)
+ALT_KW = dict(biort="farras", qshift="qshift_a", mode="symmetric")
+ALT_J = 3
+ALT_CHECK_N = 4                       # images checked against the CPU run
+ALT_TOL = 2e-5                        # the JAX suite's DTCWT tolerance
+QUAD_MODE = "zero"
+NONSEP_WAVE = "db4"
+NONSEP_MODES = ("periodization", "symmetric")
+SFB_DILATIONS = (1, 2, 4)
+NONSEP_TOL = dict(rtol=1e-5, atol=1e-5)   # K14-K16: fp32 sums, other order
+NONSEP_KERNELS = ("nonsep_afb", "nonsep_afb_adjoint", "nonsep_sfb",
+                  "nonsep_sfb_adjoint", "sfb1d_atrous_conv",
+                  "sfb1d_atrous_adjoint")
+# (reps, batches) of the replays of the alt path's K6/K7 calls (120) and
+# of sfb2d_atrous' K16 calls (57): one batch each, as every device-time
+# batch first spins the card for ~50 ms; and of the non-separable round
+# trip's, whose plain K15 and adjoints take 0.1 s a call at 32x10x512^2
+ALT_REPLAY_TIMING = (5, 1)
+NONSEP_REPLAY_TIMING = (3, 3)
+
 # the pyramid functions whose kernel calls make up each role, and the JAX
 # function each backward role replaces
 ROLES = {"_analysis": "forward pyramid", "_synthesis": "inverse pyramid",
@@ -254,8 +315,14 @@ ROLE_REPLACES = {
 }
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; ``elapsed_s`` is the seconds since the script
+    started (the run must end within its time limit)."""
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": time.perf_counter() - _T0}), flush=True)
 
 
 def require(cond, msg):
@@ -764,7 +831,11 @@ def replay(call, banded, quad, mag, afb, pad, fb=None, pool=None,
     bound_ms, op_t, byte_t)."""
     name, _, args = call
     lib = scale = None
-    if name in SWT_KERNELS:
+    if name in NONSEP_KERNELS:
+        got, want, run, plain, lib, ops, nbytes = nonsep_call_parts(
+            call, banded)
+        tol = NONSEP_TOL
+    elif name in SWT_KERNELS:
         got, want, run, plain, lib, ops, nbytes, tol, scale = \
             swt_call_parts(call, afb, pad, im)
     elif name in STENCILS + POOLS:
@@ -879,6 +950,8 @@ def _tolerance(kernel):
         return dict(SPEC_TOL, relative_to="the terms' magnitudes")
     if kernel.startswith("scat_mag"):
         return MAG_TOL
+    if kernel in NONSEP_KERNELS:
+        return NONSEP_TOL
     return DWT_TOL if kernel in DWT_KERNELS + SWT_KERNELS[:2] \
         else STENCIL_TOL if kernel in STENCILS else K1_TOL
 
@@ -910,6 +983,12 @@ def kernel_rows(groups, banded, quad, mag, afb, pad, fb=None, pool=None,
                 shape += f" axis {call[2][-2]}"
             elif call[0] in SWT_KERNELS:
                 shape += f" axis {call[2][SWT_AXIS_ARG[call[0]]]}"
+            elif call[0].startswith("nonsep"):
+                shape += " by " + "x".join(map(str, np.shape(call[2][1])))
+                shape += f" {call[2][2]}"
+            elif call[0] in NONSEP_KERNELS:
+                mode, axis, d = call[2][-3:]
+                shape += f" axis {axis} d {d} {mode}"
             elif call[0] in STENCILS:
                 axis = call[2][2 if call[0] == "dtcwt_filt" else 4]
                 shape += f" axis {axis}"
@@ -1764,10 +1843,10 @@ class SwtRecorder(Swapping):
 
     def swaps(self):
         afb, dwt, calls = self.afb, self.dwt, self.calls
-        orig = {"afb1d_atrous_corr": afb.afb1d_atrous_corr}
+        orig = {n: getattr(afb, n) for n in ("afb1d_atrous_corr",
+                                             "afb1d_atrous_adjoint")}
         orig.update({n: getattr(dwt, n) for n in (
-            "afb1d_atrous_adjoint", "apply_col", "apply_row", "spec_merge",
-            "spec_split")})
+            "apply_col", "apply_row", "spec_merge", "spec_split")})
 
         def rec(name, args):
             role = "split" if name.startswith("afb1d_atrous") else "merge"
@@ -1799,7 +1878,7 @@ class SwtRecorder(Swapping):
             return orig["spec_split"](Z, g0, g1, axis)
 
         return [(afb, "afb1d_atrous_corr", afb1d_atrous_corr),
-                (dwt, "afb1d_atrous_adjoint", afb1d_atrous_adjoint),
+                (afb, "afb1d_atrous_adjoint", afb1d_atrous_adjoint),
                 (dwt, "apply_col", apply_col), (dwt, "apply_row", apply_row),
                 (dwt, "spec_merge", spec_merge),
                 (dwt, "spec_split", spec_split)]
@@ -2306,6 +2385,649 @@ def swt_edge_cases(afb, pad, im):
     return len(calls), err
 
 
+# ---------------------------------------------------------------------------
+# the Selesnick DTCWT, the non-separable filterbanks and the à trous merge
+# ---------------------------------------------------------------------------
+
+class NonsepRecorder(Swapping):
+    """For one run: swaps the K14/K15/K16 wrappers where the autograd
+    Functions call them for recording ones, which keep each call's
+    inputs for replay and tag it 'forward' or 'backward' (the caller
+    sets ``backward`` around the gradient)."""
+
+    def __init__(self, nonsep, afb):
+        self.nonsep, self.afb = nonsep, afb
+        self.calls = []
+        self.backward = False
+
+    def swaps(self):
+        out = []
+        for module, names in ((self.nonsep, NONSEP_KERNELS[:4]),
+                              (self.afb, NONSEP_KERNELS[4:])):
+            for name in names:
+                out.append((module, name, self._wrap(name,
+                                                     getattr(module, name))))
+        return out
+
+    def _wrap(self, name, fn):
+        def wrapped(*args):
+            self.calls.append((name, "backward" if self.backward
+                               else "forward", args))
+            return fn(*args)
+        return wrapped
+
+
+def _padded(x, src, dims):
+    """``x`` read at the source indices ``src`` (one numpy array per dim of
+    ``dims``, -1 for a zero): the padded copy a library call takes."""
+    for idx, dim in zip(src, dims):
+        y = torch.index_select(x, dim, torch.as_tensor(
+            np.clip(idx, 0, None), device=x.device))
+        if (idx < 0).any():
+            shape = [1] * y.ndim
+            shape[dim] = -1
+            y = y * torch.as_tensor(idx >= 0, device=x.device,
+                                    dtype=x.dtype).view(shape)
+        x = y
+    return x
+
+
+@functools.lru_cache(maxsize=None)
+def sfb_atrous_matrix(g0, g1, mode, dilation, n):
+    """The (n, 2n) operator of the à trous merge on concat(lo, hi) along
+    an axis (convolution-order tap tuples), probed on the host from
+    ``sfb1d_atrous_conv_plain``: the JAX package's device route for the
+    merge (``_sfb_atrous_matrix`` l.322), K1's operand where K16's
+    library time is taken."""
+    from pytorch_wavelets_tpu_torch.ops import afb_sfb, banded
+
+    def direct(m):
+        def fn(I):
+            return afb_sfb.sfb1d_atrous_conv_plain(
+                I[:, :, :m], I[:, :, m:], np.asarray(g0), np.asarray(g1),
+                mode, 2, dilation)
+        return banded.probe_op(fn, 2 * m)
+
+    return banded.synthesized_or_probe(
+        direct, n, afb_sfb._ext_ns(len(g0), dilation), 1, 2, (1, 1))
+
+
+def nonsep_call_parts(call, banded):
+    """One recorded K14/K15/K16 call: (got, want, run, plain, lib, ops,
+    bytes).  ``lib``: for K14 cuDNN's ``F.conv2d`` of the input padded
+    here (not timed), the K PSFs as output channels, stride 2; for K15
+    ``F.conv_transpose2d`` of the bands as 4 input channels, stride 2,
+    outside 'periodization' (whose wrap-add and roll no single call
+    does), and for its adjoint ``F.conv2d`` of the cotangent padded here
+    by the crop, stride 2; for K16 K1 on the probed operator of the merge
+    (:func:`sfb_atrous_matrix`, the JAX package's device route) applied to
+    (lo, hi) concatenated here; None for the other adjoints.  Each
+    library result is checked against the plain version."""
+    import torch.nn.functional as F
+    from pytorch_wavelets_tpu_torch.ops import afb_sfb, nonsep
+    name, _, args = call
+    kern = getattr(nonsep if name.startswith("nonsep") else afb_sfb, name)
+    plainf = getattr(nonsep if name.startswith("nonsep") else afb_sfb,
+                     name + "_plain")
+    got, want = kern(*args), plainf(*args)
+    run = lambda: kern(*args)                                 # noqa: E731
+    plain = lambda: plainf(*args)                             # noqa: E731
+    lib = None
+    if name == "nonsep_afb":
+        x, f, mode = args
+        K, Ly, Lx = np.shape(f)
+        N, C, H, W = x.shape
+        src = []
+        for n, L, m in ((H, Ly, got.shape[3]), (W, Lx, got.shape[4])):
+            _, front, code, per, shift = nonsep.afb_axis_plan(n, L, mode)
+            src.append(nonsep.afb_axis_src(
+                n, front, code, per, shift,
+                np.arange(2 * (m - 1) + L) - front))
+        xp = _padded(x, src, (2, 3)).reshape(N * C, 1, *[len(i) for i in
+                                                         src])
+        w = torch.as_tensor(np.ascontiguousarray(f)[:, None],
+                            dtype=torch.float32, device=x.device)
+        lib = lambda: F.conv2d(xp, w, stride=2)               # noqa: E731
+        ops = 2.0 * Ly * Lx * got.numel()
+        nbytes = 4.0 * (x.numel() + got.numel())
+    elif name == "nonsep_afb_adjoint":
+        dy, f = args[:2]
+        ops = 2.0 * np.size(f) / len(f) * dy.numel()
+        nbytes = 4.0 * (dy.numel() + got.numel())
+    elif name == "nonsep_sfb":
+        c, f, mode = args
+        N, C, _, Ny, Nx = c.shape
+        Ly, Lx = np.shape(f)[1:]
+        if mode not in ("per", "periodization"):
+            cr = c.reshape(N * C, 4, Ny, Nx)   # a copy if strided: not timed
+            w = torch.as_tensor(np.ascontiguousarray(f)[:, None],
+                                dtype=torch.float32, device=c.device)
+            lib = lambda: F.conv_transpose2d(                 # noqa: E731
+                cr, w, stride=2, padding=(Ly - 2, Lx - 2))
+        ops = 2.0 * Ly * Lx * c.numel()
+        nbytes = 4.0 * (c.numel() + got.numel())
+    elif name == "nonsep_sfb_adjoint":
+        dy, f, mode = args[:3]
+        Ly, Lx = np.shape(f)[1:]
+        N, C = dy.shape[:2]
+        if mode not in ("per", "periodization"):
+            s0, s1 = Ly - 2, Lx - 2      # the crop's offset, then L - 2
+            dp = F.pad(dy, (s1, Lx - 2, s0, Ly - 2)).reshape(
+                N * C, 1, dy.shape[2] + 2 * s0, dy.shape[3] + 2 * s1)
+            w = torch.as_tensor(np.ascontiguousarray(f)[:, None],
+                                dtype=torch.float32, device=dy.device)
+            lib = lambda: F.conv2d(dp, w, stride=2)           # noqa: E731
+        ops = 2.0 * Ly * Lx * got.numel()
+        nbytes = 4.0 * (dy.numel() + got.numel())
+    elif name == "sfb1d_atrous_conv":
+        lo, hi, g0, g1, mode, axis, d = args
+        T = sfb_atrous_matrix(tuple(g0), tuple(g1), mode, d,
+                              lo.shape[axis])
+        op = banded.Operator(np.asarray(T), lo.device)
+        both = torch.cat([lo, hi], dim=axis)
+        apply = banded.apply_col if axis == 2 else banded.apply_row
+        lib = lambda: apply(both, op)                         # noqa: E731
+        ops = 4.0 * len(g0) * got.numel()
+        nbytes = 4.0 * (lo.numel() + hi.numel() + got.numel())
+    else:
+        dy, g0 = args[:2]
+        ops = 4.0 * len(g0) * dy.numel()
+        nbytes = 4.0 * (dy.numel() + got.numel())
+    if lib is not None:   # the yardstick computes the same function
+        require(torch.allclose(lib().reshape(want.shape), want,
+                               **NONSEP_TOL),
+                f"{name}: the library yardstick differs from the plain "
+                f"version")
+    return got, want, run, plain, lib, ops, nbytes
+
+
+def _flat(out):
+    if isinstance(out, (list, tuple)):
+        return [t for o in out for t in _flat(o)]
+    return [out]
+
+
+def alt_main(ops, afb, dwt, alt):
+    """DTCWTForward2(farras, qshift_a, J=3, symmetric) -> DTCWTInverse2 on
+    ALT_SHAPE: counted (K6 forward, K7 inverse), checked against the CPU
+    plain run on the first ALT_CHECK_N images and for perfect
+    reconstruction, timed, one round trip recorded; then the training
+    step (the gradient w.r.t. x of sum(rec * G0) + sum(lows * G1) +
+    sum_j sum(yh_j * G2+j)), counted, x.grad checked, timed, its backward
+    recorded.  Returns (fields, training fields, launches per role,
+    calls, the step)."""
+    n = ALT_CHECK_N
+    x_cpu = torch.randn(ALT_SHAPE, generator=torch.Generator().manual_seed(0))
+    t0 = time.perf_counter()
+    with one_cpu_thread():
+        fc = alt.DTCWTForward2(J=ALT_J, device="cpu", **ALT_KW)
+        ic = alt.DTCWTInverse2(device="cpu", **ALT_KW)
+        xc = x_cpu[:n].clone().requires_grad_()
+        coeffs = fc(xc)
+        outs = [ic(coeffs), *_flat(coeffs)]
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        cts = [torch.randn((ALT_SHAPE[0], *o.shape[1:]), generator=gen,
+                           device="cuda") for o in outs]
+        ref = [o.detach() for o in outs]
+        ref_grad = torch.autograd.grad(outs, xc, [c[:n].cpu() for c in cts])[0]
+    cpu_s = time.perf_counter() - t0
+    del coeffs, outs
+
+    f = alt.DTCWTForward2(J=ALT_J, device="cuda", **ALT_KW)
+    i = alt.DTCWTInverse2(device="cuda", **ALT_KW)
+    x = x_cpu.cuda()
+    mpix = x.numel() / 1e6
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ops.reset_launches()
+        coeffs = f(x)
+        fwd_counts = ops.launch_counts()
+        rec = i(coeffs)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        first_s = time.perf_counter() - t0
+        inv_counts = {k: counts[k] - fwd_counts[k] for k in counts}
+        require(fwd_counts["afb1d_corr"] > 0 and inv_counts["sfb1d_conv"] > 0,
+                f"alt_main: a kernel of the path never launched: forward "
+                f"{fwd_counts}, inverse {inv_counts}")
+        outs = _flat(coeffs)
+        require(all(bool(torch.isfinite(o).all()) for o in outs + [rec])
+                and tuple(rec.shape) == ALT_SHAPE and all(
+                    tuple(a.shape[1:]) == tuple(b.shape[1:])
+                    for a, b in zip(outs, ref[1:])),
+                "alt_main: non-finite output or wrong shapes")
+        fwd_err = max(max_err(a[:n].cpu(), b) for a, b in zip(outs, ref[1:]))
+        inv_err = max_err(rec[:n].cpu(), ref[0])
+        pr_err = max_err(rec, x)
+        require(fwd_err <= ALT_TOL and inv_err <= ALT_TOL,
+                f"alt_main: GPU differs from the CPU plain run: forward "
+                f"{fwd_err}, inverse {inv_err}")
+        require(pr_err <= PR_TOL, f"alt_main: reconstruction error {pr_err}")
+        del coeffs, rec, outs
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        both_ms = timed_ms(lambda: i(f(x)), reps=5, batches=10,
+                           device_only=False)
+        peak = torch.cuda.max_memory_allocated()
+        both_dev_ms = timed_ms(lambda: i(f(x)), reps=5, batches=5)
+        fwd_ms = timed_ms(lambda: f(x), reps=5, batches=10,
+                          device_only=False)
+        coeffs = f(x)
+        inv_ms = timed_ms(lambda: i(coeffs), reps=5, batches=10,
+                          device_only=False)
+        del coeffs
+        with DwtRecorder(afb, dwt) as r:
+            i(f(x))
+        torch.cuda.synchronize()
+    fields = dict(
+        shape=list(ALT_SHAPE), J=ALT_J, **ALT_KW,
+        launches={"forward": fwd_counts, "inverse": inv_counts},
+        checked_images=n,
+        max_abs_err_vs_cpu={"forward": fwd_err, "inverse": inv_err},
+        tolerance=ALT_TOL, reconstruction_err=pr_err,
+        reconstruction_tol=PR_TOL, first_call_s=first_s,
+        fwd_inv_ms=both_ms, fwd_ms=fwd_ms, inv_ms=inv_ms,
+        mpix_per_s=mpix / (both_ms / 1e3), fwd_inv_device_ms=both_dev_ms,
+        device_busy_share=both_dev_ms / both_ms, peak_mem_bytes=peak,
+        mem_held_before_bytes=held, cpu_reference_s=cpu_s)
+    calls = r.calls
+
+    x.requires_grad_()
+
+    def step():
+        coeffs = f(x)
+        return torch.autograd.grad([i(coeffs), *_flat(coeffs)], x, cts)[0]
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    coeffs = f(x)
+    outs = [i(coeffs), *_flat(coeffs)]
+    tf_counts = ops.launch_counts()
+    ops.reset_launches()
+    grad = torch.autograd.grad(outs, x, cts)[0]
+    torch.cuda.synchronize()
+    tb_counts = ops.launch_counts()
+    require(all(tf_counts[k] > 0 and tb_counts[k] > 0 for k in DWT_KERNELS),
+            f"alt_train: a kernel of the path never launched: forward "
+            f"{tf_counts}, backward {tb_counts}")
+    require(bool(torch.isfinite(grad).all()) and tuple(grad.shape) ==
+            ALT_SHAPE, "alt_train: x.grad is not finite or misshapen")
+    grad_err = max_err(grad[:n].cpu(), ref_grad)
+    require(grad_err <= GRAD_ATOL, f"alt_train: x.grad differs from the "
+            f"CPU plain run by {grad_err}")
+    del coeffs, outs, grad
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = timed_ms(step, reps=3, batches=10, device_only=False)
+    tpeak = torch.cuda.max_memory_allocated()
+    step_dev_ms = timed_ms(step, reps=3, batches=5)
+    coeffs = f(x)
+    outs = [i(coeffs), *_flat(coeffs)]
+    with DwtRecorder(afb, dwt) as r:
+        r.backward = True
+        torch.autograd.grad(outs, x, cts)
+        torch.cuda.synchronize()
+    del coeffs, outs
+    calls += r.calls
+    by_role = {"analysis": fwd_counts["afb1d_corr"],
+               "synthesis": inv_counts["sfb1d_conv"],
+               "synthesis's backward": tb_counts["afb1d_corr"],
+               "analysis's backward": tb_counts["sfb1d_conv"]}
+    tfields = dict(
+        shape=list(ALT_SHAPE), J=ALT_J, **ALT_KW,
+        launches={"forward": tf_counts, "backward": tb_counts},
+        checked_images=n, max_abs_err_grad_vs_cpu=grad_err,
+        tolerance=GRAD_ATOL, fwd_bwd_ms=step_ms,
+        fwd_bwd_device_ms=step_dev_ms,
+        device_busy_share=step_dev_ms / step_ms,
+        mpix_per_s=mpix / (step_ms / 1e3), peak_mem_bytes=tpeak,
+        mem_held_before_bytes=held)
+    return fields, tfields, by_role, calls, step
+
+
+def cplxdual_mag(ops, alt):
+    """cplxdual2d(x, J=3, mode='periodization', mag=True) on ALT_SHAPE:
+    counted, checked against the CPU plain run on the first ALT_CHECK_N
+    images, timed."""
+    n = ALT_CHECK_N
+    kw = dict(J=ALT_J, mode="periodization", mag=True)
+    x_cpu = torch.randn(ALT_SHAPE, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        with one_cpu_thread():
+            ref = _flat(alt.cplxdual2d(x_cpu[:n], **kw))
+        x = x_cpu.cuda()
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        out = _flat(alt.cplxdual2d(x, **kw))
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        require(counts["afb1d_corr"] > 0, f"cplxdual_mag: K6 never "
+                f"launched: {counts}")
+        require(all(bool(torch.isfinite(o).all()) for o in out) and all(
+            tuple(a.shape[1:]) == tuple(b.shape[1:]) for a, b in
+            zip(out, ref)), "cplxdual_mag: non-finite output or wrong shapes")
+        err = max(max_err(a[:n].cpu(), b) for a, b in zip(out, ref))
+        require(err <= ALT_TOL, f"cplxdual_mag: GPU differs from the CPU "
+                f"plain run by {err}")
+        del out
+        ms = timed_ms(lambda: alt.cplxdual2d(x, **kw), reps=5, batches=10,
+                      device_only=False)
+        dev_ms = timed_ms(lambda: alt.cplxdual2d(x, **kw), reps=5,
+                          batches=5)
+    return dict(shape=list(ALT_SHAPE), **kw, launches=counts,
+                checked_images=n, max_abs_err_vs_cpu=err, tolerance=ALT_TOL,
+                fwd_ms=ms, fwd_device_ms=dev_ms,
+                device_busy_share=dev_ms / ms,
+                mpix_per_s=x.numel() / 1e6 / (ms / 1e3))
+
+
+def quad_nonsep(ops, nonsep, afb, alt):
+    """quad_afb2d_nonsep (K14, K = 16 PSFs of 10x10) against the
+    separable quad_afb2d (K6) on ALT_SHAPE in QUAD_MODE: both counted,
+    agreeing on the card, timed; the K14 call recorded.  Returns
+    (fields, launches per role, calls)."""
+    from pytorch_wavelets_tpu_torch.filters import qshift
+    h0a, h0b, _, _, h1a, h1b, _, _ = qshift("qshift_a")
+    bank = (h0a, h1a, h0b, h1b)
+    x = torch.randn(ALT_SHAPE, generator=torch.Generator().manual_seed(0))
+    x = x.cuda()
+    runs = {}
+    with torch.no_grad():
+        for name, kern in (("quad_afb2d", "afb1d_corr"),
+                           ("quad_afb2d_nonsep", "nonsep_afb")):
+            fn = getattr(alt, name)
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            out = fn(x, *bank, mode=QUAD_MODE)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            require(counts[kern] > 0, f"quad_nonsep: {kern} never launched "
+                    f"in {name}: {counts}")
+            runs[name] = dict(out=out, launches=counts, ms=timed_ms(
+                lambda: fn(x, *bank, mode=QUAD_MODE), reps=5, batches=10,
+                device_only=False), device_ms=timed_ms(
+                lambda: fn(x, *bank, mode=QUAD_MODE), reps=5, batches=5))
+        a, b = (runs[k].pop("out") for k in runs)
+        err = max(max_err(u, v) for u, v in zip(a, b))
+        require(all(bool(torch.isfinite(t).all()) for t in b)
+                and err <= ALT_TOL, f"quad_nonsep: quad_afb2d_nonsep "
+                f"differs from quad_afb2d by {err}")
+        del a, b
+        with NonsepRecorder(nonsep, afb) as r:
+            alt.quad_afb2d_nonsep(x, *bank, mode=QUAD_MODE)
+        torch.cuda.synchronize()
+    by_role = {"forward": runs["quad_afb2d_nonsep"]["launches"]}
+    return dict(shape=list(ALT_SHAPE), mode=QUAD_MODE, qshift="qshift_a",
+                max_abs_err_nonsep_vs_separable=err, tolerance=ALT_TOL,
+                **runs), by_role, r.calls
+
+
+def nonsep_rt(ops, nonsep, afb):
+    """afb2d_nonsep -> sfb2d_nonsep (K14 -> K15) with db4 on DWT_SHAPE in
+    each of NONSEP_MODES: counted, perfect reconstruction, the adjoint
+    identity of both Functions on the card (on the first DWT_CHECK_N
+    images), the round trip and its gradient step (K15's and K14's
+    adjoints) timed and recorded.  Returns (fields, launches per role,
+    calls)."""
+    from pytorch_wavelets_tpu_torch.filters import wavelet
+    w = wavelet(NONSEP_WAVE)
+    dec, rec_f = (w.dec_lo, w.dec_hi), (w.rec_lo, w.rec_hi)
+    x = torch.randn(DWT_SHAPE, generator=torch.Generator().manual_seed(0))
+    x = x.cuda()
+    G = torch.randn(DWT_SHAPE, generator=torch.Generator(device="cuda")
+                    .manual_seed(2), device="cuda")
+    fields, by_role, calls = {}, {}, []
+    for mode in NONSEP_MODES:
+        def rt(v, mode=mode):
+            return afb.sfb2d_nonsep(afb.afb2d_nonsep(v, *dec, mode=mode),
+                                    *rec_f, mode=mode)
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            rec = rt(x)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            pr = max_err(rec, x)
+            del rec
+            require(counts["nonsep_afb"] > 0 and counts["nonsep_sfb"] > 0,
+                    f"nonsep_rt: K14/K15 never launched: {counts}")
+            require(pr <= PR_TOL, f"nonsep_rt {mode}: reconstruction error "
+                    f"{pr}")
+            ms = timed_ms(lambda: rt(x), reps=5, batches=10,
+                          device_only=False)
+            dev_ms = timed_ms(lambda: rt(x), reps=5, batches=5)
+        # the adjoint identity of each Function on the card
+        xs = x[:DWT_CHECK_N].clone().requires_grad_()
+        f_a = nonsep.outer_filters(*dec, *dec)[:, ::-1, ::-1].copy()
+        y = nonsep.NonsepAFB.apply(xs, f_a, mode)
+        gy = torch.randn_like(y)
+        adj_a = adjoint_error([y], [gy], [xs], torch.autograd.grad(y, xs, gy))
+        c = y.detach().requires_grad_()
+        z = nonsep.NonsepSFB.apply(c, nonsep.outer_filters(*rec_f, *rec_f),
+                                   mode)
+        gz = torch.randn_like(z)
+        adj_s = adjoint_error([z], [gz], [c], torch.autograd.grad(z, c, gz))
+        require(adj_a <= ADJOINT_TOL and adj_s <= ADJOINT_TOL,
+                f"nonsep_rt {mode}: adjoint identity off: {adj_a} (K14), "
+                f"{adj_s} (K15)")
+        del xs, y, gy, c, z, gz
+        xg = x.clone().requires_grad_()
+
+        def step(mode=mode, xg=xg):
+            return torch.autograd.grad(rt(xg, mode), xg, G)[0]
+        ops.reset_launches()
+        step()
+        torch.cuda.synchronize()
+        scounts = ops.launch_counts()
+        require(scounts["nonsep_afb_adjoint"] > 0
+                and scounts["nonsep_sfb_adjoint"] > 0,
+                f"nonsep_rt {mode}: the adjoints never launched: {scounts}")
+        step_ms = timed_ms(step, reps=3, batches=10, device_only=False)
+        step_dev_ms = timed_ms(step, reps=3, batches=5)
+        with NonsepRecorder(nonsep, afb) as r:
+            z = rt(xg)
+            r.backward = True
+            torch.autograd.grad(z, xg, G)
+            torch.cuda.synchronize()
+        del z
+        calls += [(k, f"{mode} {role}", a) for k, role, a in r.calls]
+        by_role[f"{mode} forward"] = counts
+        by_role[f"{mode} backward"] = scounts
+        fields[mode] = dict(
+            launches=counts, step_launches=scounts, reconstruction_err=pr,
+            reconstruction_tol=PR_TOL, adjoint_rel_err={"K14": adj_a,
+                                                        "K15": adj_s},
+            adjoint_tol=ADJOINT_TOL, fwd_inv_ms=ms, fwd_inv_device_ms=dev_ms,
+            device_busy_share=dev_ms / ms,
+            mpix_per_s=x.numel() / 1e6 / (ms / 1e3), step_ms=step_ms,
+            step_device_ms=step_dev_ms)
+    return dict(shape=list(DWT_SHAPE), wave=NONSEP_WAVE, **fields), by_role, \
+        calls
+
+
+def swt_sfb(ops, nonsep, afb):
+    """afb2d_atrous -> sfb2d_atrous (K12 -> K16) with db4 on SWT_SHAPE at
+    each of SFB_DILATIONS: counted, reconstruction in 'periodization',
+    timed and recorded; the other modes (on the first SWT_CHECK_N
+    images, where the shift-averaged synthesis does not invert) recorded
+    for their replays against the plain version; the gradient of one
+    merge (K16's adjoint) recorded; the adjoint identity of K16's
+    Function in every mode on the card.  Each role's launches are read
+    from the counters, reset just before its run.  Returns (fields,
+    launches per role, calls)."""
+    from pytorch_wavelets_tpu_torch.filters import wavelet
+    w = wavelet(NONSEP_WAVE)
+    dec = (w.dec_lo, w.dec_hi) * 2
+    rec_f = (w.rec_lo, w.rec_hi) * 2
+    x = torch.randn(SWT_SHAPE, generator=torch.Generator().manual_seed(0))
+    x = x.cuda()
+    fields, by_role, calls = {}, {}, []
+    with torch.no_grad():
+        for d in SFB_DILATIONS:
+            y = afb.afb2d_atrous(x, *dec, "periodization", d)
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            rec = afb.sfb2d_atrous(y, *rec_f, "periodization", d)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            require(counts["sfb1d_atrous_conv"] == 3, f"swt_sfb: K16 "
+                    f"launches {counts}")
+            pr = max_err(rec, x)
+            require(pr <= SWT_PR_TOL, f"swt_sfb d={d}: reconstruction "
+                    f"error {pr}")
+            del rec
+            ms = timed_ms(lambda: afb.sfb2d_atrous(
+                y, *rec_f, "periodization", d), reps=5, batches=10,
+                device_only=False)
+            dev_ms = timed_ms(lambda: afb.sfb2d_atrous(
+                y, *rec_f, "periodization", d), reps=5, batches=5)
+            with NonsepRecorder(nonsep, afb) as r:
+                afb.sfb2d_atrous(y, *rec_f, "periodization", d)
+                n_main = len(r.calls)
+                ys = y[:SWT_CHECK_N]
+                torch.cuda.synchronize()
+                ops.reset_launches()
+                for mode in SWT_MODES:
+                    if mode != "periodization":
+                        afb.sfb2d_atrous(ys, *rec_f, mode, d)
+                torch.cuda.synchronize()
+                ocounts = ops.launch_counts()
+            require(ocounts["sfb1d_atrous_conv"] == 3 * (len(SWT_MODES) - 1),
+                    f"swt_sfb d={d}: K16 launches in the other modes "
+                    f"{ocounts}")
+            calls += [(k, f"d={d}" + (" other modes" if j >= n_main else ""),
+                       a) for j, (k, _, a) in enumerate(r.calls)]
+            by_role[f"d={d}"] = counts
+            by_role[f"d={d} other modes"] = ocounts
+            fields[f"d={d}"] = dict(launches=counts, reconstruction_err=pr,
+                                    reconstruction_tol=SWT_PR_TOL,
+                                    merge_ms=ms, merge_device_ms=dev_ms,
+                                    device_busy_share=dev_ms / ms)
+            del y
+    # one merge's gradient (K16's adjoint), recorded
+    st = afb.afb2d_atrous(x, *dec, "periodization", 2).requires_grad_()
+    G = torch.randn(SWT_SHAPE, generator=torch.Generator(device="cuda")
+                    .manual_seed(3), device="cuda")
+    ops.reset_launches()
+    with NonsepRecorder(nonsep, afb) as r:
+        z = afb.sfb2d_atrous(st, *rec_f, "periodization", 2)
+        r.backward = True
+        gst = torch.autograd.grad(z, st, G)[0]
+        torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    require(counts["sfb1d_atrous_adjoint"] == 3 and bool(
+        torch.isfinite(gst).all()), f"swt_sfb: K16's adjoint: {counts}")
+    calls += [(k, "d=2 step", a) for k, role, a in r.calls
+              if role == "backward"]
+    by_role["d=2 step"] = counts
+    del st, z, gst
+    # the adjoint identity of K16's Function, every mode, both axes
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    g0, g1 = (np.asarray(t) for t in (w.rec_lo, w.rec_hi))
+    adj = {}
+    for mode in SWT_MODES:
+        for axis in (2, 3):
+            stk = torch.randn((2, 3, 4, 40, 36), generator=gen,
+                              device="cuda").requires_grad_()
+            lo, hi = stk[:, :, 3], stk[:, :, 1]
+            z = afb._SFB1DAtrous.apply(lo, hi, g0, g1, mode, axis, 2)
+            gz = torch.randn(z.shape, generator=gen, device="cuda")
+            gl, gh = torch.autograd.grad(z, (lo, hi), gz)
+            adj[f"{mode} axis {axis}"] = adjoint_error([z], [gz], [lo, hi],
+                                                       [gl, gh])
+    require(all(v <= ADJOINT_TOL for v in adj.values()),
+            f"swt_sfb: adjoint identity off: {adj}")
+    return dict(shape=list(SWT_SHAPE), wave=NONSEP_WAVE, **fields,
+                adjoint_rel_err=adj, adjoint_tol=ADJOINT_TOL), by_role, calls
+
+
+def nonsep_edge_cases(banded):
+    """K14, K15 and K16 against their plain versions where the main paths
+    do not reach: every mode, odd sizes (periodization's evening), Ly !=
+    Lx, db38 (92 KB of taps), K = 16, pads longer than the axis, the
+    periodization tail as long as the output, K14's adjoint on the
+    separable split's plan (its single fold), strided and transposed
+    inputs.  Returns (calls checked, max error)."""
+    from pytorch_wavelets_tpu_torch.filters import wavelet
+    from pytorch_wavelets_tpu_torch.ops import afb_sfb, nonsep
+    gen = torch.Generator().manual_seed(130)
+    calls = []
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen).cuda()
+    db38 = wavelet("db38")
+    f38 = np.stack([np.outer(a, b) for a in (db38.dec_lo, db38.dec_hi)
+                    for b in (db38.dec_lo, db38.dec_hi)])
+    for K, Ly, Lx, H, W in ((4, 8, 8, 9, 11), (4, 8, 2, 7, 13),
+                            (16, 10, 10, 5, 6), (1, 3, 5, 6, 6)):
+        f = torch.randn((K, Ly, Lx), generator=gen,
+                        dtype=torch.float64).numpy() / np.sqrt(Ly * Lx)
+        for mode in ("zero", "symmetric", "reflect", "periodization"):
+            x = rnd(2, 3, 4, H, W)[:, :, 1]
+            calls.append(("nonsep_afb", "edge", (x, f, mode)))
+            xt = rnd(2, 3, W, H).transpose(2, 3)
+            calls.append(("nonsep_afb", "edge", (xt, f, mode)))
+            Ho, Wo = (nonsep.afb_axis_plan(n, L, mode)[0]
+                      for n, L in ((H, Ly), (W, Lx)))
+            g = rnd(2, 6, K, Ho, Wo)[:, ::2]
+            calls.append(("nonsep_afb_adjoint", "edge", (g, f, mode, H, W)))
+            # the separable split's plan (quad_afb2d's backward): the
+            # single fold of both axes in 'periodization' at 5 x 6
+            calls.append(("nonsep_afb_adjoint", "edge", (g, f, mode, H, W,
+                                                         True)))
+    for mode in ("zero", "periodization"):
+        calls.append(("nonsep_afb", "edge", (rnd(1, 2, 40, 39), f38[:, ::-1,
+                                                                    ::-1].copy(),
+                                             mode)))
+    for Ly, Lx, Ny, Nx in ((8, 8, 5, 4), (8, 4, 4, 6), (12, 6, 7, 3),
+                           (76, 76, 40, 39)):
+        f = f38 if Ly == 76 else torch.randn(
+            (4, Ly, Lx), generator=gen, dtype=torch.float64).numpy() / Ly
+        for mode in ("zero", "symmetric", "periodic", "periodization"):
+            if mode != "periodization" and min(2 * Ny - Ly,
+                                               2 * Nx - Lx) + 2 < 1:
+                continue
+            c = rnd(2, 3, 6, Ny, Nx)[:, :, 1:5]
+            calls.append(("nonsep_sfb", "edge", (c, f, mode)))
+            out = [afb_sfb.sfb_plan(n, L, mode)[0] for n, L in ((Ny, Ly),
+                                                                 (Nx, Lx))]
+            g = rnd(2, 3, out[1], out[0]).transpose(2, 3)
+            calls.append(("nonsep_sfb_adjoint", "edge", (g, f, mode, Ny,
+                                                         Nx)))
+    # K15's adjoint on the separable merge's plan (sfb2d's backward):
+    # 'periodization' tails longer than the 4 or 6 samples they wrap onto
+    for Ly, Lx, Ny, Nx in ((8, 8, 2, 3), (12, 6, 2, 2)):
+        f = torch.randn((4, Ly, Lx), generator=gen,
+                        dtype=torch.float64).numpy() / Ly
+        g = rnd(2, 3, 2 * Nx, 2 * Ny).transpose(2, 3)
+        calls.append(("nonsep_sfb_adjoint", "edge", (g, f, "periodization",
+                                                     Ny, Nx, True)))
+    for L, d, n in ((2, 1, 9), (8, 2, 6), (10, 4, 7), (40, 4, 5)):
+        g0, g1 = (torch.randn(L, generator=gen, dtype=torch.float64).numpy()
+                  / np.sqrt(L) for _ in range(2))
+        for mode in SWT_MODES:
+            for axis in (2, 3):
+                shape = [2, 3, 9, 7]
+                shape[axis] = n
+                stk = rnd(shape[0], shape[1], 4, *shape[2:])
+                calls.append(("sfb1d_atrous_conv", "edge",
+                              (stk[:, :, 3], stk[:, :, 0], g0, g1, mode,
+                               axis, d)))
+                dy = rnd(shape[0], 2 * shape[1], *shape[2:])[:, 1::2]
+                calls.append(("sfb1d_atrous_adjoint", "edge",
+                              (dy, g0, g1, mode, axis, d)))
+    err = 0.0
+    for call in calls:
+        got, want = nonsep_call_parts(call, banded)[:2]
+        require(torch.allclose(got, want, **NONSEP_TOL),
+                f"{call[0]} edge case {tuple(call[2][0].shape)} disagrees "
+                f"with its plain version by {max_err(got, want)}")
+        err = max(err, max_err(got, want))
+    torch.cuda.synchronize()
+    return len(calls), err
+
+
 def profile(step, iters):
     """Device time by kernel over a window of ``iters`` steps
     (torch.profiler; its own host overhead inflates the window's wall
@@ -2532,6 +3254,64 @@ def main():
     emit("swt_edge_cases", calls=n_edge, max_abs_err=edge_err,
          tolerance={"K12": DWT_TOL, "K13": SPEC_TOL})
 
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # the Selesnick DTCWT (its four K6/K7 pyramids), the non-separable
+    # filterbanks (K14, K15) and the à trous merge (K16)
+    from pytorch_wavelets_tpu_torch.ops import nonsep
+    from pytorch_wavelets_tpu_torch.transforms import dtcwt_alt as alt
+    afields, atfields, a_roles, acalls, astep = alt_main(ops, afb_sfb, dwt,
+                                                         alt)
+    emit("alt_main", **afields)
+    emit("alt_train", **atfields)
+    label = f"DTCWTForward2 J={ALT_J} {shape_str(ALT_SHAPE)}"
+    groups = []
+    for role, line in (("analysis", None), ("synthesis", None),
+                       ("analysis's backward", 109),
+                       ("synthesis's backward", 143)):
+        mine = [c for c in acalls if c[1] == role]
+        kernel = mine[0][0]
+        groups.append((
+            f"{SOURCES[kernel][0]} ({label}: {role})",
+            SOURCES[kernel][2] if line is None else
+            f"pytorch_wavelets_tpu/transforms/dwt.py:{line}",
+            a_roles[role], mine))
+    with torch.no_grad():
+        new = kernel_rows(groups, *kern, timing=ALT_REPLAY_TIMING)
+    for row in new:
+        emit("kernel", **row)
+    rows.extend(new)
+    del acalls
+    torch.cuda.empty_cache()
+    emit("cplxdual_mag", **cplxdual_mag(ops, alt))
+
+    def nonsep_rows(calls, by_role, label, timing=REPLAY_TIMING):
+        phase_rows(calls, by_role, label,
+                   list(dict.fromkeys(c[1] for c in calls)), None, timing)
+
+    qfields, q_roles, qcalls = quad_nonsep(ops, nonsep, afb_sfb, alt)
+    emit("quad_nonsep", **qfields)
+    nonsep_rows(qcalls, q_roles, f"quad_afb2d_nonsep {shape_str(ALT_SHAPE)} "
+                f"{QUAD_MODE}")
+    del qcalls
+    nfields, n_roles, ncalls = nonsep_rt(ops, nonsep, afb_sfb)
+    emit("nonsep_rt", **nfields)
+    nonsep_rows(ncalls, n_roles, f"{NONSEP_WAVE} {shape_str(DWT_SHAPE)}",
+                NONSEP_REPLAY_TIMING)
+    del ncalls
+    torch.cuda.empty_cache()
+    sfields, s_roles, scalls = swt_sfb(ops, nonsep, afb_sfb)
+    emit("swt_sfb", **sfields)
+    nonsep_rows(scalls, s_roles, f"sfb2d_atrous {NONSEP_WAVE} "
+                f"{shape_str(SWT_SHAPE)}", ALT_REPLAY_TIMING)
+    del scalls
+    n_edge, edge_err = nonsep_edge_cases(banded)
+    emit("nonsep_edge_cases", calls=n_edge, max_abs_err=edge_err,
+         tolerance=NONSEP_TOL)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
     fwd = tt.DTCWTForward(J=2, device="cuda")
     inv = tt.DTCWTInverse(device="cuda")
     x = torch.randn(MAIN_SHAPE,
@@ -2558,6 +3338,7 @@ def main():
          **profile(lambda: torch.autograd.grad(m(xs), xs, G), 3))
     del m, xs, G
     emit("profile", path="swt_train", **profile(wstep, 3))
+    emit("profile", path="alt_train", **profile(astep, 2))
 
     print(json.dumps({"kernels": [{k: v for k, v in r.items()
                                    if k != "per_call"} for r in rows]}))

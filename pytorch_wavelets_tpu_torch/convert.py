@@ -9,8 +9,10 @@ dict or as the (name, taps) pairs of a module's ``_filters``): those of
 :class:`DTCWTInverse` / :class:`ScatLayer` / :class:`ScatLayerj2`, a
 state dict for ``load_state_dict``.  :func:`dwt_filters_from_jax` does
 the same for the DWT modules, whose ``_filters`` is a tuple of
-pywt-ordered taps, and :func:`swt_filters_from_jax` for the SWT modules.
-All take plain numbers and import nothing of the JAX package.
+pywt-ordered taps, :func:`swt_filters_from_jax` for the SWT modules, and
+:func:`alt_filters_from_jax` for the Selesnick DTCWT modules
+(``DTCWTForward2`` / ``DTCWTInverse2``, whose ``_l1`` / ``_q`` are 8-tuples
+of taps).  All take plain numbers and import nothing of the JAX package.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import numpy as np
 import torch
 
 __all__ = ["filters_from_jax", "dwt_filters_from_jax",
-           "swt_filters_from_jax"]
+           "swt_filters_from_jax", "alt_filters_from_jax"]
 
 # DTCWTForward and ScatLayerj2 hold the same names; ScatLayer the first
 # two; with the bandpass-diagonal filters (biort="near_sym_b_bp") ScatLayer
@@ -77,3 +79,21 @@ def swt_filters_from_jax(filters) -> dict:
         raise ValueError(f"expected the 4-tuple of an SWT module, got "
                          f"{len(filters)} tap vectors")
     return dwt_filters_from_jax(filters)
+
+
+def alt_filters_from_jax(l1, q) -> dict:
+    """A JAX :class:`DTCWTForward2` or :class:`DTCWTInverse2`'s ``_l1`` and
+    ``_q`` (the level-1 and q-shift banks, each an 8-tuple of taps in the
+    order h0a, h0b, g0a, g0b, h1a, h1b, g1a, g1b) -> the port module's
+    filter buffers ``l1_<name>`` / ``q_<name>`` (float64, 1-D), a state
+    dict for ``load_state_dict``.  Both modules hold both banks."""
+    from pytorch_wavelets_tpu_torch.transforms.dtcwt_alt import BANK
+    out = {}
+    for prefix, bank in (("l1", tuple(l1)), ("q", tuple(q))):
+        if len(bank) != len(BANK):
+            raise ValueError(f"expected an 8-tuple of tap vectors for "
+                             f"{prefix}, got {len(bank)}")
+        for name, taps in zip(BANK, bank):
+            out[f"{prefix}_{name}"] = torch.as_tensor(
+                np.asarray(taps, dtype=np.float64).ravel())
+    return out

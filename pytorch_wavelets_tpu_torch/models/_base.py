@@ -58,7 +58,9 @@ class _TapsModule(nn.Module):
 
     def __init__(self, filters, device, mesh, batch_chunk):
         super().__init__()
-        if mesh is not None or batch_chunk is not None:
+        # batch_chunk None, False or 0 is "off", as in the JAX package
+        # (None is its auto dial, which the port leaves off)
+        if mesh is not None or batch_chunk:
             raise NotImplementedError(
                 "mesh= and batch_chunk are not ported yet (ROADMAP.md, "
                 "'Still to port' 8 and 9)")

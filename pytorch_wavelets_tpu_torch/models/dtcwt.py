@@ -40,8 +40,8 @@ class DTCWTForward(_TapsModule):
 
     def __init__(self, biort="near_sym_a", qshift="qshift_a", J=3,
                  skip_hps=False, include_scale=False, o_dim=2, ri_dim=-1,
-                 mode="symmetric", coeff_dtype=None, device="cuda",
-                 mesh=None, batch_chunk=None):
+                 mode="symmetric", mesh=None, coeff_dtype=None,
+                 batch_chunk=None, device="cuda"):
         if o_dim % 6 == ri_dim % 6:
             raise ValueError("Orientations and real/imaginary parts must be "
                              "in different dimensions.")
@@ -76,8 +76,8 @@ class DTCWTInverse(_TapsModule):
     :class:`DTCWTForward`."""
 
     def __init__(self, biort="near_sym_a", qshift="qshift_a", o_dim=2,
-                 ri_dim=-1, mode="symmetric", device="cuda", mesh=None,
-                 batch_chunk=None):
+                 ri_dim=-1, mode="symmetric", mesh=None, batch_chunk=None,
+                 device="cuda"):
         super().__init__(dtcwt_inv_filters(biort, qshift), device, mesh,
                          batch_chunk)
         self.biort = biort if isinstance(biort, str) else "custom"

@@ -54,8 +54,8 @@ class DWTForward(_DWTModule):
     (N, C, 3, H', W') ordered (LH, HL, HH).
     """
 
-    def __init__(self, J=1, wave="db1", mode="zero", coeff_dtype=None,
-                 device="cuda", mesh=None):
+    def __init__(self, J=1, wave="db1", mode="zero", mesh=None,
+                 coeff_dtype=None, device="cuda"):
         super().__init__(_DEC2, dec_filters(wave), mode, device, mesh)
         self.J = J
         self.coeff_dtype = canon_dtype(coeff_dtype)
@@ -77,7 +77,7 @@ class DWTInverse(_DWTModule):
     pipelines keep their dtype.
     """
 
-    def __init__(self, wave="db1", mode="zero", device="cuda", mesh=None):
+    def __init__(self, wave="db1", mode="zero", mesh=None, device="cuda"):
         super().__init__(_REC2, rec_filters(wave), mode, device, mesh)
 
     def forward(self, coeffs):
@@ -93,8 +93,8 @@ class DWT1DForward(_DWTModule):
     dwt/transform1d.py:7-59).  ``coeff_dtype`` narrows detail-band
     storage as in :class:`DWTForward`."""
 
-    def __init__(self, J=1, wave="db1", mode="zero", coeff_dtype=None,
-                 device="cuda", mesh=None):
+    def __init__(self, J=1, wave="db1", mode="zero", mesh=None,
+                 coeff_dtype=None, device="cuda"):
         super().__init__(_DEC1, dec_filters(wave)[:2], mode, device, mesh)
         self.J = J
         self.coeff_dtype = canon_dtype(coeff_dtype)
@@ -110,7 +110,7 @@ class DWT1DForward(_DWTModule):
 class DWT1DInverse(_DWTModule):
     """1-D inverse DWT (reference DWT1DInverse, dwt/transform1d.py:62-115)."""
 
-    def __init__(self, wave="db1", mode="zero", device="cuda", mesh=None):
+    def __init__(self, wave="db1", mode="zero", mesh=None, device="cuda"):
         super().__init__(_REC1, rec_filters(wave)[:2], mode, device, mesh)
 
     def forward(self, coeffs):
@@ -133,8 +133,8 @@ class SWTForward(_DWTModule):
     Call: x (N, C, H, W) -> list of J tensors (N, C, 4, H, W) ordered
     (LL, LH, HL, HH)."""
 
-    def __init__(self, J=1, wave="db1", mode="periodization",
-                 coeff_dtype=None, device="cuda", mesh=None):
+    def __init__(self, J=1, wave="db1", mode="periodization", mesh=None,
+                 coeff_dtype=None, device="cuda"):
         super().__init__(_DEC2, dec_filters(wave), mode, device, mesh)
         self.J = J
         self.coeff_dtype = canon_dtype(coeff_dtype)
@@ -161,8 +161,8 @@ class SWTInverse(_DWTModule):
     past it banded normal equations in the non-circular modes) or cuFFT
     with K13 (past 2048 in the circular modes)."""
 
-    def __init__(self, wave="db1", mode="periodization", upcast=True,
-                 device="cuda", mesh=None):
+    def __init__(self, wave="db1", mode="periodization", mesh=None,
+                 upcast=True, device="cuda"):
         super().__init__(_DEC2, dec_filters(wave), mode, device, mesh)
         self.upcast = bool(upcast)
 

@@ -35,8 +35,8 @@ class ScatLayer(_TapsModule):
     """
 
     def __init__(self, biort="near_sym_a", mode="symmetric", magbias=1e-2,
-                 combine_colour=False, device="cuda", mesh=None,
-                 batch_chunk=None):
+                 combine_colour=False, mesh=None, batch_chunk=None,
+                 device="cuda"):
         self.bandpass_diag = biort == "near_sym_b_bp"
         if self.bandpass_diag:
             h0o, _, h1o, _, h2o, _ = _biort(biort)
@@ -69,7 +69,7 @@ class ScatLayerj2(_TapsModule):
 
     def __init__(self, biort="near_sym_a", qshift="qshift_a",
                  mode="symmetric", magbias=1e-2, combine_colour=False,
-                 device="cuda", mesh=None, batch_chunk=None):
+                 mesh=None, batch_chunk=None, device="cuda"):
         self.bandpass_diag = biort == "near_sym_b_bp"
         if self.bandpass_diag:
             if qshift != "qshift_b_bp":

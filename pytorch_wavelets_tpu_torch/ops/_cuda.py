@@ -91,6 +91,27 @@ _SIGNATURES = {
         "swt_afb_adjoint": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I,
                             _L, _L, _L, _L, _L, _I, _I, _I, _I,
                             _L, _L, _L, _L, _P],
+        "swt_sfb": [_P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I,
+                    *[_L] * 8, _I, _I, _I, _I, _L, _L, _L, _L, _P],
+        "swt_sfb_adjoint": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I,
+                            _L, _L, _L, _L, _I, _I, _I, _I,
+                            _L, _L, _L, _L, _L, _P],
+    },
+    "nonsep_afb": {
+        "nonsep_afb": [_P, _P, _P, _I, _I, _I, _L, _I, _I, _I,
+                       _L, _L, _L, _L, _I, _I, _I, _I, _I, _I,
+                       _L, _L, _L, _L, _L, _P],
+        "nonsep_afb_adjoint": [_P, _P, _P, _I, _I, _I, _L, _I, _I, _I,
+                               _L, _L, _L, _L, _L, *[_I] * 9,
+                               _L, _L, _L, _L, _P],
+    },
+    "nonsep_sfb": {
+        "nonsep_sfb": [_P, _P, _P, _I, _I, _L, _I, _I, _I,
+                       _L, _L, _L, _L, _L, *[_I] * 11,
+                       _L, _L, _L, _L, _P],
+        "nonsep_sfb_adjoint": [_P, _P, _P, _I, _I, _L, _I, _I, _I,
+                               _L, _L, _L, _L, _I, _I, *[_I] * 11,
+                               _L, _L, _L, _L, _L, _P],
     },
     "iswt_spec": {
         "spec_merge": [_P, _P, _P, _P, _P, _L, _I, _I, _I, *[_L] * 12, _I,

@@ -13,14 +13,25 @@ The DWT's split and merge along one axis:
 - :func:`afb1d_atrous_corr` (K12 ``swt_afb``, ``csrc/swt_atrous.cu``):
   the SWT's undecimated split, taps ``dilation`` samples apart, every
   boundary mode in the index (B8c + B9), and :func:`afb1d_atrous_adjoint`
-  (K12 ``swt_afb_adjoint``), its exact transpose, as a gather.
+  (K12 ``swt_afb_adjoint``), its exact transpose, as a gather;
+- :func:`sfb1d_atrous_conv` (K16 ``swt_sfb``, ``csrc/swt_atrous.cu``):
+  the classic shift-averaged ISWT step, half the sum of the correlations
+  of (lo, hi) padded in the mode with the reversed synthesis taps
+  ``dilation`` apart (B8c'), and :func:`sfb1d_atrous_adjoint` (K16
+  ``swt_sfb_adjoint``), its exact transpose, K12's adjoint gather with
+  one cotangent and two outputs.
+
+The non-separable ``afb2d_nonsep`` / ``sfb2d_nonsep`` run K14/K15
+(``ops/nonsep.py``).
 
 CPU tensors take their plain PyTorch versions, :func:`afb1d_corr_plain`,
-:func:`sfb1d_conv_plain`, :func:`afb1d_atrous_corr_plain` and
-:func:`afb1d_atrous_adjoint_plain`: the JAX package's conv path
+:func:`sfb1d_conv_plain`, :func:`afb1d_atrous_corr_plain`, :func:`sfb1d_atrous_conv_plain` and
+the adjoints' :func:`afb1d_atrous_adjoint_plain` /
+:func:`sfb1d_atrous_adjoint_plain`: the JAX package's conv path
 (``_afb1d_corr_conv`` / ``_sfb1d_conv_conv`` /
-``_afb1d_atrous_corr_conv``) line by line, pad and strided or dilated
-``conv2d``, and autograd's transpose of the last.  CUDA tensors launch
+``_afb1d_atrous_corr_conv`` / ``_sfb1d_atrous_conv_conv``) line by line,
+pad and strided or dilated ``conv2d``, and autograd's transpose of the
+à trous ones.  CUDA tensors launch
 the kernels or raise.  :func:`afb_plan` / :func:`sfb_plan` /
 :func:`atrous_plan` give the index plan the kernels evaluate, so the
 tests can hold it against the plain versions on the CPU.
@@ -37,6 +48,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from pytorch_wavelets_tpu_torch.ops import _cuda
 from pytorch_wavelets_tpu_torch.ops.pad import PAD_CODES, pad1d
@@ -44,10 +56,14 @@ from pytorch_wavelets_tpu_torch.ops.precision import plain_flags
 from pytorch_wavelets_tpu_torch.utils import dwt_coeff_len
 
 __all__ = ["as_taps", "afb1d", "sfb1d", "afb2d", "sfb2d", "afb1d_atrous",
-           "afb2d_atrous", "afb1d_corr", "sfb1d_conv", "afb1d_atrous_corr",
-           "afb1d_atrous_adjoint", "afb1d_corr_plain", "sfb1d_conv_plain",
+           "sfb1d_atrous", "afb2d_atrous", "sfb2d_atrous", "afb2d_nonsep",
+           "sfb2d_nonsep", "afb1d_corr", "sfb1d_conv", "afb1d_atrous_corr",
+           "afb1d_atrous_adjoint", "sfb1d_atrous_conv",
+           "sfb1d_atrous_adjoint", "afb1d_corr_plain", "sfb1d_conv_plain",
            "afb1d_atrous_corr_plain", "afb1d_atrous_adjoint_plain",
-           "afb_plan", "sfb_plan", "atrous_plan", "MAX_TAPS"]
+           "sfb1d_atrous_conv_plain", "sfb1d_atrous_adjoint_plain",
+           "afb_plan", "sfb_plan", "atrous_plan", "atrous_merge_plan",
+           "MAX_TAPS"]
 
 # the kernels keep both tap vectors in shared memory (csrc/dwt_*.cu)
 MAX_TAPS = 128
@@ -178,6 +194,21 @@ def atrous_plan(n, L, d, mode):
     return front, back, PAD_CODES[mode], n + front + back - (L - 1) * d
 
 
+def atrous_merge_plan(n, L, d, mode):
+    """Index plan of the à trous merge of two length-``n`` inputs by L taps
+    ``d`` samples apart: ``(front, back, pad_code, out_len)``, as
+    :func:`atrous_plan` but with the pads (L d // 2, L d - d - L d // 2)
+    that put the two branches' sum at zero offset
+    (``_sfb1d_atrous_conv_conv`` l.347-352); out_len is n."""
+    Ld = L * d
+    front, back = Ld // 2, Ld - d - Ld // 2
+    if front < 0 or back < 0:
+        raise ValueError(f"negative pad ({front}, {back})")
+    if mode not in PAD_CODES:
+        raise ValueError(f"Unknown pad type: {mode}")
+    return front, back, PAD_CODES[mode], n + front + back - (L - 1) * d
+
+
 # --------------------------------------------------------------------------
 # Plain versions (the JAX conv path)
 # --------------------------------------------------------------------------
@@ -296,6 +327,38 @@ def afb1d_atrous_adjoint_plain(dy, h0_taps, h1_taps, mode, axis, dilation,
         y = afb1d_atrous_corr_plain(x, h0_taps, h1_taps, mode, axis,
                                     dilation)
         return torch.autograd.grad(y, x, dy.detach())[0]
+
+
+def sfb1d_atrous_conv_plain(lo, hi, g0_taps, g1_taps, mode, axis,
+                            dilation):
+    """Plain PyTorch version of :func:`sfb1d_atrous_conv` (the JAX
+    package's ``_sfb1d_atrous_conv_conv``): lo and hi padded by
+    (L d // 2, L d - d - L d // 2), each correlated with its reversed
+    taps ``dilation`` apart, and half their sum.  Returns (N, C, H, W)."""
+    L = len(g0_taps)
+    axis = axis % 4
+    k0 = np.asarray(g0_taps)[::-1].reshape(1, L)
+    k1 = np.asarray(g1_taps)[::-1].reshape(1, L)
+    front, back, _, _ = atrous_merge_plan(lo.shape[axis], L, dilation, mode)
+    lo_p = pad1d(lo, front, back, axis, mode)
+    hi_p = pad1d(hi, front, back, axis, mode)
+    y = (_conv_axis(lo_p, k0, axis, rhs_dilation=dilation) +
+         _conv_axis(hi_p, k1, axis, rhs_dilation=dilation))
+    return 0.5 * y[:, :, 0]
+
+
+def sfb1d_atrous_adjoint_plain(dy, g0_taps, g1_taps, mode, axis, dilation):
+    """Plain PyTorch version of :func:`sfb1d_atrous_adjoint`: autograd's
+    transpose of :func:`sfb1d_atrous_conv_plain`, applied to the
+    (N, C, H, W) cotangent ``dy``.  Returns the (N, C, 2, H, W) stack of
+    the lo and hi cotangents."""
+    lo = dy.new_zeros(dy.shape, requires_grad=True)
+    hi = dy.new_zeros(dy.shape, requires_grad=True)
+    with torch.enable_grad(), plain_flags():
+        y = sfb1d_atrous_conv_plain(lo, hi, g0_taps, g1_taps, mode, axis,
+                                    dilation)
+        return torch.stack(torch.autograd.grad(y, (lo, hi), dy.detach()),
+                           dim=2)
 
 
 # --------------------------------------------------------------------------
@@ -500,6 +563,102 @@ _K12.launches = 0
 _K12A.launches = 0
 
 
+def _merge_args(kernel, g0_taps, g1_taps, n, mode, dilation):
+    """The correlation-order taps of the merge, halved (the 0.5 of the
+    shift average: a power of two, so exact), and its plan."""
+    k0, k1 = _taps_f32(kernel, np.asarray(g0_taps)[::-1],
+                       np.asarray(g1_taps)[::-1])
+    L = len(k0)
+    if not (0 < dilation and L * dilation < MAX_AXIS):
+        raise ValueError(f"{kernel}: dilation {dilation} with {L} taps")
+    return (0.5 * k0, 0.5 * k1, L,
+            atrous_merge_plan(n, L, dilation, mode))
+
+
+def sfb1d_atrous_conv(lo, hi, g0_taps, g1_taps, mode, axis, dilation):
+    """À trous merge of (N, C, H, W) ``lo`` and ``hi`` along ``axis`` (2
+    or 3, or -1) with convolution-order taps ``dilation`` samples apart:
+    (N, C, H, W).
+
+    CPU tensors take :func:`sfb1d_atrous_conv_plain`; CUDA tensors launch
+    K16's ``swt_sfb``, which reads ``lo`` and ``hi`` each through its own
+    strides (the bands of a level's (N, C, 4, H, W) stack in place)."""
+    axis = axis % 4
+    if lo.shape != hi.shape:
+        raise ValueError(f"sfb1d_atrous_conv: lo {tuple(lo.shape)} and hi "
+                         f"{tuple(hi.shape)} differ")
+    if lo.device.type == "cpu":
+        return sfb1d_atrous_conv_plain(lo, hi, g0_taps, g1_taps, mode, axis,
+                                       dilation)
+    _cuda.check_inputs("swt_sfb", lo, hi)
+    _check_4d("swt_sfb", axis, lo)
+    k0, k1, L, (front, _, code, m) = _merge_args(
+        "swt_sfb", g0_taps, g1_taps, lo.shape[axis], mode, dilation)
+    y = torch.empty(lo.shape, device=lo.device, dtype=torch.float32)
+    if y.numel() == 0:
+        return y
+    lib = _cuda.library("swt_atrous")
+    _cuda.check(lib, "swt_sfb", lib.swt_sfb(
+        lo.data_ptr(), hi.data_ptr(), y.data_ptr(), _ptr(k0), _ptr(k1), L,
+        dilation, *lo.shape, *lo.stride(), *hi.stride(), axis, front, code,
+        m, *y.stride(), _cuda.stream_of(lo)))
+    _K16.launches += 1
+    return y
+
+
+def sfb1d_atrous_adjoint(dy, g0_taps, g1_taps, mode, axis, dilation):
+    """The transpose of :func:`sfb1d_atrous_conv`: the (N, C, H, W)
+    cotangent ``dy`` -> the (N, C, 2, H, W) stack of the cotangents of
+    lo (band 0) and hi.
+
+    CPU tensors take :func:`sfb1d_atrous_adjoint_plain`; CUDA tensors
+    launch K16's ``swt_sfb_adjoint``, a gather (no atomics): each input
+    sample sums the outputs whose padded windows read it, its reflected
+    or wrapped images near an edge included (K12's adjoint scan)."""
+    axis = axis % 4
+    if dy.device.type == "cpu":
+        return sfb1d_atrous_adjoint_plain(dy, g0_taps, g1_taps, mode, axis,
+                                          dilation)
+    _cuda.check_inputs("swt_sfb_adjoint", dy)
+    _check_4d("swt_sfb_adjoint", axis, dy)
+    n = dy.shape[axis]
+    k0, k1, L, (front, _, code, m) = _merge_args(
+        "swt_sfb_adjoint", g0_taps, g1_taps, n, mode, dilation)
+    N, C, H, W = dy.shape
+    d2 = torch.empty((N, C, 2, H, W), device=dy.device, dtype=torch.float32)
+    if d2.numel() == 0:
+        return d2
+    lib = _cuda.library("swt_atrous")
+    _cuda.check(lib, "swt_sfb_adjoint", lib.swt_sfb_adjoint(
+        dy.data_ptr(), d2.data_ptr(), _ptr(k0), _ptr(k1), L, dilation, N, C,
+        H, W, *dy.stride(), axis, front, code, m, *d2.stride(),
+        _cuda.stream_of(dy)))
+    _K16A.launches += 1
+    return d2
+
+
+_K16, _K16A = sfb1d_atrous_conv, sfb1d_atrous_adjoint
+_K16.launches = 0
+_K16A.launches = 0
+
+
+class _SFB1DAtrous(torch.autograd.Function):
+    """lo, hi -> the à trous merge along ``axis`` (:func:`sfb1d_atrous_conv`,
+    convolution-order taps); backward :func:`sfb1d_atrous_adjoint`, the
+    exact transpose (what ``jax.vjp`` of the JAX step gives)."""
+
+    @staticmethod
+    def forward(ctx, lo, hi, g0, g1, mode, axis, dilation):
+        ctx.args = (g0, g1, mode, axis, dilation)
+        return sfb1d_atrous_conv(lo, hi, g0, g1, mode, axis, dilation)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        d2 = sfb1d_atrous_adjoint(dy, *ctx.args)
+        return d2[:, :, 0], d2[:, :, 1], None, None, None, None, None
+
+
 @lru_cache(maxsize=None)
 def _afb_atrous_matrix(h0, h1, mode, dilation, n, dtype_str="f4"):
     """The (2 out_len, n) operator of the à trous split of a length-``n``
@@ -519,13 +678,28 @@ def _afb_atrous_matrix(h0, h1, mode, dilation, n, dtype_str="f4"):
 # Public 1-D and separable 2-D filterbanks
 # --------------------------------------------------------------------------
 
+def _no_card_gradient(name, *tensors):
+    """Raise where a CUDA input needs a gradient that no kernel gives yet
+    (the exact transpose of K6 or K7 along one axis), rather than return
+    outputs that carry none."""
+    if torch.is_grad_enabled() and any(t.requires_grad and t.is_cuda
+                                       for t in tensors):
+        raise NotImplementedError(
+            f"{name}: no gradient through CUDA tensors yet (differentiable "
+            f"on the CPU; afb2d / sfb2d are on both)")
+
+
 def afb1d(x, h0, h1, mode="zero", axis=-1):
-    """Analysis filterbank with pywt-ordered dec_lo/dec_hi filters."""
+    """Analysis filterbank with pywt-ordered dec_lo/dec_hi filters
+    (differentiable on the CPU only)."""
+    _no_card_gradient("afb1d", x)
     return afb1d_corr(x, as_taps(h0)[::-1], as_taps(h1)[::-1], mode, axis)
 
 
 def sfb1d(lo, hi, g0, g1, mode="zero", axis=-1):
-    """Synthesis filterbank with pywt-ordered rec_lo/rec_hi filters."""
+    """Synthesis filterbank with pywt-ordered rec_lo/rec_hi filters
+    (differentiable on the CPU only)."""
+    _no_card_gradient("sfb1d", lo, hi)
     return sfb1d_conv(lo, hi, as_taps(g0), as_taps(g1), mode, axis)
 
 
@@ -544,10 +718,16 @@ def _afb2d_corr(x, h0c, h1c, h0r, h1r, mode):
 
 def afb2d(x, h0_col, h1_col, h0_row, h1_row, mode="zero"):
     """One level of 2-D analysis. Returns (N, C, 4, H', W') ordered
-    (LL, LH, HL, HH) — reference band packing (dwt/lowlevel.py:343-347)."""
-    h0c, h1c = as_taps(h0_col)[::-1], as_taps(h1_col)[::-1]
-    h0r, h1r = as_taps(h0_row)[::-1], as_taps(h1_row)[::-1]
-    return _afb2d_corr(x, h0c, h1c, h0r, h1r, mode)
+    (LL, LH, HL, HH) — reference band packing (dwt/lowlevel.py:343-347).
+    Two K6 launches on CUDA; differentiable, backward the exact transpose
+    (K14's adjoint on the separable split's plan)."""
+    from pytorch_wavelets_tpu_torch.ops.nonsep import (
+        SeparableAFB, outer_filters,
+    )
+    taps = tuple(np.ascontiguousarray(as_taps(h)[::-1])
+                 for h in (h0_col, h1_col, h0_row, h1_row))
+    f = outer_filters(h0_col, h1_col, h0_row, h1_row)[:, ::-1, ::-1]
+    return SeparableAFB.apply(x, (taps,), np.ascontiguousarray(f), mode)
 
 
 def _sfb2d_conv(ll, lh, hl, hh, g0c, g1c, g0r, g1r, mode):
@@ -559,17 +739,43 @@ def _sfb2d_conv(ll, lh, hl, hh, g0c, g1c, g0r, g1r, mode):
 
 
 def sfb2d(ll, lh, hl, hh, g0_col, g1_col, g0_row, g1_row, mode="zero"):
-    """One level of 2-D synthesis (reference: dwt/lowlevel.py:600-644)."""
-    g0c, g1c = as_taps(g0_col), as_taps(g1_col)
-    g0r, g1r = as_taps(g0_row), as_taps(g1_row)
-    return _sfb2d_conv(ll, lh, hl, hh, g0c, g1c, g0r, g1r, mode)
+    """One level of 2-D synthesis (reference: dwt/lowlevel.py:600-644).
+    Three K7 launches on CUDA; differentiable, backward the exact
+    transpose (K15's adjoint with the outer products, which raises where
+    'periodization' wraps a filter's tail longer than the output, as
+    ``sfb2d_nonsep`` does)."""
+    from pytorch_wavelets_tpu_torch.ops.nonsep import (
+        SeparableSFB, outer_filters,
+    )
+    taps = tuple(as_taps(g) for g in (g0_col, g1_col, g0_row, g1_row))
+    return SeparableSFB.apply(ll, lh, hl, hh, taps,
+                              outer_filters(g0_col, g1_col, g0_row, g1_row),
+                              mode)
+
+
+class _AFB1DAtrous(torch.autograd.Function):
+    """x (N, C, H, W) -> the (N, C, 2, H, W) à trous split along ``axis``
+    (K12 ``swt_afb``); backward its exact transpose (K12
+    ``swt_afb_adjoint``)."""
+
+    @staticmethod
+    def forward(ctx, x, h0, h1, mode, axis, dilation):
+        ctx.args = (h0, h1, mode, axis, dilation, x.shape[axis])
+        return afb1d_atrous_corr(x, h0, h1, mode, axis, dilation)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        return (afb1d_atrous_adjoint(dy, *ctx.args), None, None, None, None,
+                None)
 
 
 def afb1d_atrous(x, h0, h1, mode="periodic", axis=-1, dilation=1):
     """À trous analysis filterbank with pywt-ordered dec_lo/dec_hi
-    filters."""
-    return afb1d_atrous_corr(x, as_taps(h0)[::-1], as_taps(h1)[::-1], mode,
-                             axis, dilation)
+    filters (differentiable: backward K12's adjoint)."""
+    return _AFB1DAtrous.apply(x, np.ascontiguousarray(as_taps(h0)[::-1]),
+                              np.ascontiguousarray(as_taps(h1)[::-1]), mode,
+                              axis % 4, dilation)
 
 
 def _afb2d_atrous_corr(x, h0c, h1c, h0r, h1r, mode, dilation):
@@ -584,11 +790,84 @@ def _afb2d_atrous_corr(x, h0c, h1c, h0r, h1r, mode, dilation):
     return y.reshape(N, C, 4, *y.shape[3:])
 
 
+class _AFB2DAtrous(torch.autograd.Function):
+    """One level of the undecimated 2-D analysis: x (N, C, H, W) -> the
+    (N, C, 4, H, W) stack (LL, LH, HL, HH), correlation-order taps
+    (h0c, h1c, h0r, h1r) ``dilation`` samples apart.  Forward: the row
+    split, then the column split (K12 ``swt_afb`` twice on CUDA).
+    Backward: the exact transpose, the column adjoint then the row
+    adjoint (K12 ``swt_afb_adjoint`` twice), equal to ``jax.vjp`` of the
+    JAX package's level; it saves no activations."""
+
+    @staticmethod
+    def forward(ctx, x, taps, mode, dilation):
+        ctx.taps, ctx.mode, ctx.dilation = taps, mode, dilation
+        ctx.in_shape = tuple(x.shape)
+        return _afb2d_atrous_corr(x, *taps, mode, dilation)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        h0c, h1c, h0r, h1r = ctx.taps
+        N, C, H, W = ctx.in_shape
+        d, mode = ctx.dilation, ctx.mode
+        dy = dy.reshape(N, 2 * C, 2, *dy.shape[3:])
+        dlohi = afb1d_atrous_adjoint(dy, h0c, h1c, mode, 2, d, H)
+        dlohi = dlohi.reshape(N, C, 2, *dlohi.shape[2:])
+        return (afb1d_atrous_adjoint(dlohi, h0r, h1r, mode, 3, d, W), None,
+                None, None)
+
+
 def afb2d_atrous(x, h0_col, h1_col, h0_row, h1_row, mode="periodization",
                  dilation=1):
     """One level of undecimated 2-D analysis (SWT forward step).
     Returns (N, C, 4, H, W) ordered (LL, LH, HL, HH)
-    (reference: dwt/lowlevel.py:475-521)."""
-    h0c, h1c = as_taps(h0_col)[::-1], as_taps(h1_col)[::-1]
-    h0r, h1r = as_taps(h0_row)[::-1], as_taps(h1_row)[::-1]
-    return _afb2d_atrous_corr(x, h0c, h1c, h0r, h1r, mode, dilation)
+    (reference: dwt/lowlevel.py:475-521); differentiable (backward K12's
+    adjoint twice)."""
+    taps = tuple(np.ascontiguousarray(as_taps(h)[::-1])
+                 for h in (h0_col, h1_col, h0_row, h1_row))
+    return _AFB2DAtrous.apply(x, taps, mode, dilation)
+
+
+def sfb1d_atrous(lo, hi, g0, g1, mode="periodic", axis=-1, dilation=1):
+    """À trous synthesis filterbank with pywt-ordered rec_lo/rec_hi
+    filters: the shift-averaged ISWT step (differentiable)."""
+    return _SFB1DAtrous.apply(lo, hi, as_taps(g0), as_taps(g1), mode,
+                              axis % 4, dilation)
+
+
+def sfb2d_atrous(coeffs, g0_col, g1_col, g0_row, g1_row,
+                 mode="periodization", dilation=1):
+    """One level of undecimated 2-D synthesis (ISWT step); inverse of
+    afb2d_atrous in 'periodization'.  ``coeffs``: (N, C, 4, H, W).  Two
+    column merges (LL with LH, HL with HH), then the row merge of their
+    results: three K16 launches on CUDA."""
+    g0c, g1c = as_taps(g0_col), as_taps(g1_col)
+    g0r, g1r = as_taps(g0_row), as_taps(g1_row)
+    ll, lh, hl, hh = (coeffs[:, :, i] for i in range(4))
+    lo = _SFB1DAtrous.apply(ll, lh, g0c, g1c, mode, 2, dilation)
+    hi = _SFB1DAtrous.apply(hl, hh, g0c, g1c, mode, 2, dilation)
+    return _SFB1DAtrous.apply(lo, hi, g0r, g1r, mode, 3, dilation)
+
+
+def afb2d_nonsep(x, h0_col, h1_col, h0_row=None, h1_row=None, mode="zero"):
+    """1-level 2-D analysis as one filtering with the 4 outer-product PSFs
+    (K14 on CUDA; differentiable, backward K14's adjoint).  Returns
+    (N, C, 4, H', W') ordered (LL, LH, HL, HH)."""
+    from pytorch_wavelets_tpu_torch.ops.nonsep import NonsepAFB, outer_filters
+    if h0_row is None:
+        h0_row, h1_row = h0_col, h1_col
+    f = outer_filters(h0_col, h1_col, h0_row, h1_row)[:, ::-1, ::-1]
+    return NonsepAFB.apply(x, np.ascontiguousarray(f), mode)
+
+
+def sfb2d_nonsep(coeffs, g0_col, g1_col, g0_row=None, g1_row=None,
+                 mode="zero"):
+    """1-level 2-D synthesis from stacked (N, C, 4, H, W) coefficients as
+    one transposed filtering (K15 on CUDA; differentiable, backward K15's
+    adjoint; reference: dwt/lowlevel.py:746-798)."""
+    from pytorch_wavelets_tpu_torch.ops.nonsep import NonsepSFB, outer_filters
+    if g0_row is None:
+        g0_row, g1_row = g0_col, g1_col
+    return NonsepSFB.apply(coeffs, outer_filters(g0_col, g1_col, g0_row,
+                                                 g1_row), mode)

@@ -32,8 +32,8 @@ from torch.autograd.function import once_differentiable
 from pytorch_wavelets_tpu_torch.filters import wavelet as _resolve_wavelet
 from pytorch_wavelets_tpu_torch.ops import banded
 from pytorch_wavelets_tpu_torch.ops.afb_sfb import (
-    _afb2d_atrous_corr, _afb2d_corr, _afb_atrous_matrix, _sfb2d_conv,
-    afb1d_atrous_adjoint, afb1d_corr, as_taps, sfb1d_conv,
+    _AFB2DAtrous, _afb2d_corr, _afb_atrous_matrix, _sfb2d_conv,
+    afb1d_corr, as_taps, sfb1d_conv,
 )
 from pytorch_wavelets_tpu_torch.ops.banded import apply_col, apply_row
 from pytorch_wavelets_tpu_torch.ops.iswt_merge import spec_merge, spec_split
@@ -266,34 +266,6 @@ def idwt1d(coeffs, wave="db1", mode="zero"):
 # --------------------------------------------------------------------------
 # SWT: one level of the forward as an autograd Function
 # --------------------------------------------------------------------------
-
-class _AFB2DAtrous(torch.autograd.Function):
-    """One level of the undecimated 2-D analysis: x (N, C, H, W) -> the
-    (N, C, 4, H, W) stack (LL, LH, HL, HH), correlation-order taps
-    (h0c, h1c, h0r, h1r) ``dilation`` samples apart.  Forward: the row
-    split, then the column split (K12 ``swt_afb`` twice on CUDA).
-    Backward: the exact transpose, the column adjoint then the row
-    adjoint (K12 ``swt_afb_adjoint`` twice), equal to ``jax.vjp`` of the
-    JAX package's level; it saves no activations."""
-
-    @staticmethod
-    def forward(ctx, x, taps, mode, dilation):
-        ctx.taps, ctx.mode, ctx.dilation = taps, mode, dilation
-        ctx.in_shape = tuple(x.shape)
-        return _afb2d_atrous_corr(x, *taps, mode, dilation)
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, dy):
-        h0c, h1c, h0r, h1r = ctx.taps
-        N, C, H, W = ctx.in_shape
-        d, mode = ctx.dilation, ctx.mode
-        dy = dy.reshape(N, 2 * C, 2, *dy.shape[3:])
-        dlohi = afb1d_atrous_adjoint(dy, h0c, h1c, mode, 2, d, H)
-        dlohi = dlohi.reshape(N, C, 2, *dlohi.shape[2:])
-        return (afb1d_atrous_adjoint(dlohi, h0r, h1r, mode, 3, d, W), None,
-                None, None)
-
 
 def swt2d(x, wave="db1", J=1, mode="periodization"):
     """J-level stationary (undecimated) 2-D wavelet transform.

@@ -462,49 +462,115 @@ def test_dtcwt_ifilt(dev, name, n, axis, highpass):
     assert dtcwt_fb.dtcwt_ifilt.launches == n0 + 2
 
 
-@pytest.mark.parametrize("kernel", ["dwt_afb", "dwt_sfb", "dtcwt_filt",
-                                    "dtcwt_dfilt", "dtcwt_ifilt"])
-@pytest.mark.parametrize("axis", [2, 3])
-def test_stencil_plane_past_2_31(dev, kernel, axis):
-    """K6-K10 on a plane of more than 2^31 outputs (8.6 GB, K6 twice
-    that), where the pixel index takes 64 bits: the input is one line
-    broadcast across the other axis (stride 0, read through its strides),
-    and the output starts as NaN, so every line of it, to the last, must
-    equal the plain version of that one line."""
-    from pytorch_wavelets_tpu_torch.ops import afb_sfb, dtcwt_fb
-    n, other = 16384, 5 - axis
-    line = [1, 1, 1, 1]
-    line[axis] = n
-    lines = [torch.from_numpy(_rand(line, 63 + s)).to(dev) for s in (0, 1)]
+PAST_2_31 = ("dwt_afb", "dwt_sfb", "dtcwt_filt", "dtcwt_dfilt",
+             "dtcwt_ifilt", "swt_afb", "swt_afb_adjoint", "spec_merge",
+             "spec_split", "nonsep_afb")
+
+
+def _plane_case(kernel, axis, lines, dev):
+    """(wrapper's module, its name, the small inputs, the dimension along
+    which each is broadcast, the call, the output's broadcast dimension,
+    the output length along ``axis``'s dimension, the outputs a plane
+    must exceed, and for K13 the call that gives its terms' magnitudes)
+    for :func:`test_stencil_plane_past_2_31`."""
+    from pytorch_wavelets_tpu_torch.ops import (
+        afb_sfb, dtcwt_fb, iswt_merge, nonsep,
+    )
+    other = 5 - axis
     h0, h1 = _taps(8, 64)
     ha, hb = _qtaps("qshift_b", False)
     t = np.random.RandomState(65).randn(13) / np.sqrt(13)
-    run, band = {
-        "dwt_afb": (lambda k, z, w: k(z, h0, h1, "symmetric", axis), 1),
-        "dwt_sfb": (lambda k, z, w: k(z, w, h0, h1, "symmetric", axis), 0),
-        "dtcwt_filt": (lambda k, z, w: k(z, t, axis, "symmetric"), 0),
-        "dtcwt_dfilt": (lambda k, z, w: k(z, ha, hb, False, axis), 0),
-        "dtcwt_ifilt": (lambda k, z, w: k(z, ha, hb, False, axis), 0),
+    z, w = lines
+    sym = "symmetric"
+    if kernel.startswith("spec"):
+        A, B = (torch.fft.rfft(v, dim=axis) for v in lines)
+        nf = A.shape[axis]
+        g0, g1 = (torch.from_numpy(_rand((nf,), s) + 1j * _rand((nf,), s + 1))
+                  .to(dev, torch.complex64) for s in (66, 68))
+        mag = [v.abs() for v in (A, B, g0, g1)]
+        if kernel == "spec_merge":
+            return (iswt_merge, kernel, [A, B], [other, other],
+                    lambda k, a, b: k(a, b, g0, g1, axis), other, axis,
+                    2 ** 30, lambda: iswt_merge.spec_merge_plain(*mag, axis))
+        return (iswt_merge, kernel, [A], [other],
+                lambda k, a: k(a, g0, g1, axis), other + 1, axis + 1, 2 ** 30,
+                lambda: iswt_merge.spec_split_plain(mag[0], *mag[2:], axis))
+    if kernel == "swt_afb_adjoint":
+        g = torch.stack(lines, dim=2)
+        return (afb_sfb, "afb1d_atrous_adjoint", [g], [other + 1],
+                lambda k, a: k(a, h0, h1, sym, axis, 2, z.shape[axis]),
+                other, axis, 2 ** 31, None)
+    if kernel == "nonsep_afb":
+        # one 8x8 PSF (K = 1): 8.6 GB of output; the input is constant
+        # along the other axis, so every output line is the same
+        f = np.random.RandomState(67).randn(1, 8, 8) / 8
+        return (nonsep, kernel, [z], [other], lambda k, a: k(a, f, sym),
+                other + 1, axis + 1, 2 ** 31, None)
+    mod = afb_sfb if kernel.startswith(("dwt", "swt")) else dtcwt_fb
+    name, run, band = {
+        "dwt_afb": ("afb1d_corr",
+                    lambda k, a: k(a, h0, h1, sym, axis), 1),
+        "dwt_sfb": ("sfb1d_conv",
+                    lambda k, a, b: k(a, b, h0, h1, sym, axis), 0),
+        "dtcwt_filt": ("dtcwt_filt", lambda k, a: k(a, t, axis, sym), 0),
+        "dtcwt_dfilt": ("dtcwt_dfilt",
+                        lambda k, a: k(a, ha, hb, False, axis), 0),
+        "dtcwt_ifilt": ("dtcwt_ifilt",
+                        lambda k, a: k(a, ha, hb, False, axis), 0),
+        "swt_afb": ("afb1d_atrous_corr",
+                    lambda k, a: k(a, h0, h1, sym, axis, 2), 1),
     }[kernel]
-    mod = afb_sfb if kernel.startswith("dwt") else dtcwt_fb
-    name = {"dwt_afb": "afb1d_corr", "dwt_sfb": "sfb1d_conv"}.get(kernel,
-                                                                  kernel)
-    want = run(getattr(mod, name + "_plain"), *lines)
-    oax = other + band
-    reps = 2 ** 31 // want.shape[axis + band] + 1
-    big = [z.expand(*[reps if d == other else s
-                      for d, s in enumerate(z.shape)]) for z in lines]
+    ins = [z, w] if kernel == "dwt_sfb" else [z]
+    return (mod, name, ins, [other] * len(ins), run, other + band,
+            axis + band, 2 ** 31, None)
+
+
+@pytest.mark.parametrize("kernel", PAST_2_31)
+@pytest.mark.parametrize("axis", [2, 3])
+def test_stencil_plane_past_2_31(dev, kernel, axis):
+    """K6-K10, K12's two entries, K13's two and K14's forward on a plane
+    of more than 2^31 outputs (2^30 complex values for K13; 8.6 GB of
+    output, twice that for K6, K12's split and K13's split), where the
+    pixel index takes 64 bits: the input is one line broadcast across the
+    other axis (stride 0, read through its strides), and the output
+    starts as NaN, so every line of it, to the last, must equal the plain
+    version of that one line.  Each case frees what it held."""
+    n = 16384
+    line = [1, 1, 1, 1]
+    line[axis] = n
+    lines = [torch.from_numpy(_rand(line, 63 + s)).to(dev) for s in (0, 1)]
+    mod, name, ins, dims, run, oax, lax, target, terms = _plane_case(
+        kernel, axis, lines, dev)
+    want = run(getattr(mod, name + "_plain"), *ins)
+    reps = target // want.shape[lax] + 1
+    grow = size = reps
+    if kernel == "nonsep_afb":
+        # K14 halves the broadcast axis (stride 2): twice the input lines,
+        # and the symmetric pads of its 8 taps add 3 output lines
+        from pytorch_wavelets_tpu_torch.ops import nonsep
+        grow = 2 * reps
+        size = nonsep.afb_axis_plan(grow, 8, "symmetric")[0]
+    big = [v.expand(*[grow if d == dim else s for d, s in enumerate(v.shape)])
+           for v, dim in zip(ins, dims)]
     # a NaN block in the allocator's cache, which the output then takes
+    # (the first part of it, for K14's few lines more than reps)
     torch.cuda.empty_cache()
-    torch.full((want.numel() * reps,), float("nan"), device=dev)
+    nbytes = want.element_size() * want.numel() // want.shape[oax] * (
+        reps + 8)
+    torch.full((nbytes // 4,), float("nan"), device=dev)
     n0 = getattr(mod, name).launches
     got = run(getattr(mod, name), *big)
     assert getattr(mod, name).launches == n0 + 1
-    assert got.shape[oax] == reps
-    torch.testing.assert_close(got.narrow(oax, reps - 1, 1), want,
-                               **STENCIL_TOL)
-    assert bool((got == got.narrow(oax, reps - 1, 1)).all())
-    del got
+    assert got.shape[oax] == size
+    last = got.narrow(oax, got.shape[oax] - 1, 1)
+    if terms is not None:
+        _close_to_terms(last, want.narrow(oax, 0, 1),
+                        terms().narrow(oax, 0, 1))
+    else:
+        torch.testing.assert_close(last, want.narrow(oax, 0, 1),
+                                   **STENCIL_TOL)
+    assert bool((got == last).all())
+    del got, last, big
     torch.cuda.empty_cache()
 
 
@@ -813,3 +879,326 @@ def test_swt_refuses(dev):
     with pytest.raises(TypeError, match="float32"):
         tt.SWTInverse(upcast=False, device=dev)(ys)
     assert tt.SWTInverse(device=dev)(ys).dtype == torch.float32
+
+
+# ---------------------------------------------------------------------------
+# The non-separable filterbanks (K14, K15), the à trous merge (K16) and the
+# Selesnick DTCWT on them
+# ---------------------------------------------------------------------------
+
+# K14-K16: fp32 sums of up to 4 x 76^2 products in another order than
+# cuDNN's
+NONSEP_TOL = dict(rtol=1e-5, atol=1e-5)
+NONSEP_MODES = ("zero", "symmetric", "reflect", "periodization")
+
+
+def _psfs(K, Ly, Lx, seed):
+    return np.random.RandomState(seed).randn(K, Ly, Lx) / np.sqrt(Ly * Lx)
+
+
+@pytest.mark.parametrize("mode", NONSEP_MODES)
+@pytest.mark.parametrize("K,Ly,Lx,H,W", [
+    (4, 2, 2, 16, 12), (4, 8, 8, 33, 29), (4, 8, 2, 9, 40), (16, 10, 10, 26, 20),
+    (4, 12, 10, 5, 3), (1, 3, 5, 7, 8)])
+def test_nonsep_afb(dev, mode, K, Ly, Lx, H, W):
+    """K14 and its adjoint against their plain versions: every mode, odd
+    sizes (periodization's evening), Ly != Lx, K = 16, pads longer than
+    the axis, a strided input (a band of a stack) and cotangent."""
+    from pytorch_wavelets_tpu_torch.ops import nonsep
+    f = _psfs(K, Ly, Lx, 100 + K)
+    x = torch.from_numpy(_rand((2, 3, 4, H, W), 101)).to(dev)[:, :, 1]
+    n0 = (nonsep.nonsep_afb.launches, nonsep.nonsep_afb_adjoint.launches)
+    got = nonsep.nonsep_afb(x, f, mode)
+    torch.testing.assert_close(got, nonsep.nonsep_afb_plain(x, f, mode),
+                               **NONSEP_TOL)
+    g = torch.from_numpy(_rand((2, 6, *got.shape[2:]), 102)).to(dev)[:, ::2]
+    torch.testing.assert_close(
+        nonsep.nonsep_afb_adjoint(g, f, mode, H, W),
+        nonsep.nonsep_afb_adjoint_plain(g, f, mode, H, W), **NONSEP_TOL)
+    assert (nonsep.nonsep_afb.launches,
+            nonsep.nonsep_afb_adjoint.launches) == (n0[0] + 1, n0[1] + 1)
+
+
+@pytest.mark.parametrize("mode", NONSEP_MODES + ("periodic",))
+@pytest.mark.parametrize("Ly,Lx,Ny,Nx", [(2, 2, 8, 6), (8, 8, 17, 9),
+                                         (8, 4, 5, 12), (12, 6, 7, 3),
+                                         (76, 76, 40, 39)])
+def test_nonsep_sfb(dev, mode, Ly, Lx, Ny, Nx):
+    """K15 and its adjoint against their plain versions: every mode, the
+    periodization wrap-add (a tail as long as the output: 12 taps on 7
+    samples), db38's size (92 KB of taps in shared memory), bands read
+    in place from a wider stack."""
+    from pytorch_wavelets_tpu_torch.ops import nonsep
+    if mode != "periodization" and min(2 * Ny - Ly, 2 * Nx - Lx) + 2 < 1:
+        pytest.skip("no output: the filter is longer than the signal")
+    f = _psfs(4, Ly, Lx, 103)
+    c = torch.from_numpy(_rand((2, 3, 6, Ny, Nx), 104)).to(dev)[:, :, 1:5]
+    n0 = (nonsep.nonsep_sfb.launches, nonsep.nonsep_sfb_adjoint.launches)
+    got = nonsep.nonsep_sfb(c, f, mode)
+    torch.testing.assert_close(got, nonsep.nonsep_sfb_plain(c, f, mode),
+                               **NONSEP_TOL)
+    g = torch.from_numpy(_rand((2, 3, got.shape[2], got.shape[3] + 5),
+                               105)).to(dev)[..., 2:2 + got.shape[3]]
+    torch.testing.assert_close(
+        nonsep.nonsep_sfb_adjoint(g, f, mode, Ny, Nx),
+        nonsep.nonsep_sfb_adjoint_plain(g, f, mode, Ny, Nx), **NONSEP_TOL)
+    assert (nonsep.nonsep_sfb.launches,
+            nonsep.nonsep_sfb_adjoint.launches) == (n0[0] + 1, n0[1] + 1)
+
+
+def test_nonsep_largest_psf(dev):
+    """The largest pywt filter, db38 (76 taps): its 4 x 76 x 76 PSF stack
+    (92,416 bytes) takes the shared-memory opt-in above 48 KB; 16 PSFs of
+    it (370 KB) are refused before any launch."""
+    from pytorch_wavelets_tpu_torch.filters import wavelet, wavelist
+    from pytorch_wavelets_tpu_torch.ops import afb_sfb, nonsep
+    longest = max(wavelist(), key=lambda n: len(wavelet(n).dec_lo))
+    w = wavelet(longest)
+    assert len(w.dec_lo) == 76
+    x = torch.from_numpy(_rand((1, 2, 80, 80), 106)).to(dev)
+    for mode in NONSEP_MODES:
+        with torch.no_grad():
+            got = afb_sfb.afb2d_nonsep(x, w.dec_lo, w.dec_hi, mode=mode)
+            f = nonsep.outer_filters(w.dec_lo, w.dec_hi, w.dec_lo,
+                                     w.dec_hi)[:, ::-1, ::-1]
+            torch.testing.assert_close(
+                got, nonsep.nonsep_afb_plain(x, f, mode), **NONSEP_TOL)
+            rec = afb_sfb.sfb2d_nonsep(got, w.rec_lo, w.rec_hi, mode=mode)
+            if mode == "periodization":
+                torch.testing.assert_close(rec, x, rtol=0, atol=1e-4)
+    with pytest.raises(ValueError, match="shared memory"):
+        nonsep.nonsep_afb(x, np.ones((16, 76, 76)), "zero")
+
+
+@pytest.mark.parametrize("mode", SWT_MODES)
+@pytest.mark.parametrize("L,d,n", [(2, 1, 16), (8, 1, 33), (8, 4, 6),
+                                   (10, 2, 13), (40, 4, 7)])
+@pytest.mark.parametrize("axis", [2, 3])
+def test_swt_sfb(dev, mode, L, d, n, axis):
+    """K16's merge and its adjoint against their plain versions: every
+    mode, odd sizes, pads longer than the axis, lo and hi read in place
+    as two bands of a stack, a strided cotangent."""
+    from pytorch_wavelets_tpu_torch.ops import afb_sfb
+    g0, g1 = _taps(L, 110 + L)
+    shape = [2, 3, 9, 7]
+    shape[axis] = n
+    stack = torch.from_numpy(_rand((shape[0], shape[1], 4, *shape[2:]),
+                                   111)).to(dev)
+    lo, hi = stack[:, :, 3], stack[:, :, 1]
+    n0 = (afb_sfb.sfb1d_atrous_conv.launches,
+          afb_sfb.sfb1d_atrous_adjoint.launches)
+    got = afb_sfb.sfb1d_atrous_conv(lo, hi, g0, g1, mode, axis, d)
+    torch.testing.assert_close(
+        got, afb_sfb.sfb1d_atrous_conv_plain(lo, hi, g0, g1, mode, axis, d),
+        **NONSEP_TOL)
+    g = torch.from_numpy(_rand((shape[0], 2 * shape[1], *shape[2:]),
+                               112)).to(dev)[:, 1::2]
+    torch.testing.assert_close(
+        afb_sfb.sfb1d_atrous_adjoint(g, g0, g1, mode, axis, d),
+        afb_sfb.sfb1d_atrous_adjoint_plain(g, g0, g1, mode, axis, d),
+        **NONSEP_TOL)
+    assert (afb_sfb.sfb1d_atrous_conv.launches,
+            afb_sfb.sfb1d_atrous_adjoint.launches) == (n0[0] + 1, n0[1] + 1)
+
+
+def _flat(out):
+    if isinstance(out, (list, tuple)):
+        return [t for o in out for t in _flat(o)]
+    return [out]
+
+
+@pytest.mark.parametrize("kw,shape", [
+    (dict(), (2, 3, 64, 64)),
+    (dict(qshift="qshift_b", mode="periodization", J=2), (1, 2, 40, 48)),
+    (dict(mode="zero", J=3), (2, 1, 37, 30))])
+def test_dtcwt2_matches_cpu(dev, kw, shape):
+    """DTCWTForward2 -> DTCWTInverse2 on the card against the CPU plain
+    run: the lows, the bands, the reconstruction and x.grad (K6/K7 with
+    the reference's backwards)."""
+    ops.reset_launches()
+    inv_kw = {k: v for k, v in kw.items() if k != "J"}
+
+    def round_trip(d):
+        from pytorch_wavelets_tpu_torch.transforms import (
+            DTCWTForward2, DTCWTInverse2,
+        )
+        f = DTCWTForward2(device=d, **kw)
+        i = DTCWTInverse2(device=d, **inv_kw)
+        return lambda x: _flat([f(x), i(f(x))])
+    cpu, gpu = _grads(round_trip, shape, dev, 120)
+    for a, b in zip(cpu, gpu):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=2e-5)
+    counts = ops.launch_counts()
+    assert counts["afb1d_corr"] > 0 and counts["sfb1d_conv"] > 0
+
+
+@pytest.mark.parametrize("mode", NONSEP_MODES)
+def test_quad_afb2d_matches(dev, mode):
+    """quad_afb2d (K6, backward K14's adjoint) and quad_afb2d_nonsep (K14,
+    K = 16) agree on the card, and each with its CPU plain run, outputs
+    and x.grad."""
+    from pytorch_wavelets_tpu_torch.filters import qshift
+    from pytorch_wavelets_tpu_torch.transforms import dtcwt_alt
+    h0a, h0b, _, _, h1a, h1b, _, _ = qshift("qshift_a")
+    res = {}
+    for fn in (dtcwt_alt.quad_afb2d, dtcwt_alt.quad_afb2d_nonsep):
+        ops.reset_launches()
+        cpu, gpu = _grads(lambda d: lambda x: list(fn(x, h0a, h1a, h0b, h1b,
+                                                      mode=mode)),
+                          (2, 3, 34, 40), dev, 121)
+        for a, b in zip(cpu, gpu):
+            torch.testing.assert_close(b, a, rtol=1e-5, atol=2e-5)
+        counts = ops.launch_counts()
+        assert counts["nonsep_afb_adjoint"] == 1
+        assert counts["nonsep_afb" if fn is dtcwt_alt.quad_afb2d_nonsep
+                      else "afb1d_corr"] > 0
+        res[fn.__name__] = gpu
+    for a, b in zip(*res.values()):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 9, 7), (2, 3, 5, 8)])
+def test_quad_afb2d_single_fold(dev, shape):
+    """quad_afb2d in 'periodization' on axes shorter than its 10 taps
+    (the separable split's single fold: W of 9x7, both axes of 5x8):
+    outputs and x.grad (K14's adjoint on the separable plan) match the
+    CPU plain run."""
+    from pytorch_wavelets_tpu_torch.filters import qshift
+    from pytorch_wavelets_tpu_torch.transforms import dtcwt_alt
+    h0a, h0b, _, _, h1a, h1b, _, _ = qshift("qshift_a")
+    ops.reset_launches()
+    cpu, gpu = _grads(lambda d: lambda x: list(dtcwt_alt.quad_afb2d(
+        x, h0a, h1a, h0b, h1b, mode="periodization")), shape, dev, 124)
+    for a, b in zip(cpu, gpu):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=2e-5)
+    counts = ops.launch_counts()
+    assert counts["nonsep_afb_adjoint"] == 1 and counts["afb1d_corr"] == 8
+
+
+@pytest.mark.parametrize("mode", NONSEP_MODES)
+def test_afb2d_gradient_matches_cpu(dev, mode):
+    """The public afb2d (two K6 launches, backward one launch of K14's
+    adjoint on the separable split's plan), db4 columns and db2 rows, on
+    13x10 and on 5x3 (the single fold of both axes in 'periodization'):
+    outputs and x.grad against the CPU plain run."""
+    from pytorch_wavelets_tpu_torch.filters import wavelet
+    from pytorch_wavelets_tpu_torch.ops import afb_sfb
+    c, r = wavelet("db4"), wavelet("db2")
+    bank = (c.dec_lo, c.dec_hi, r.dec_lo, r.dec_hi)
+    for shape in ((2, 3, 13, 10), (1, 2, 5, 3)):
+        ops.reset_launches()
+        cpu, gpu = _grads(lambda d: lambda x: afb_sfb.afb2d(
+            x, *bank, mode=mode), shape, dev, 125)
+        for a, b in zip(cpu, gpu):
+            torch.testing.assert_close(b, a, rtol=1e-5, atol=2e-5)
+        counts = ops.launch_counts()
+        assert counts["afb1d_corr"] == 2
+        assert counts["nonsep_afb_adjoint"] == 1
+
+
+@pytest.mark.parametrize("mode", NONSEP_MODES)
+def test_sfb2d_and_atrous_gradients_match_cpu(dev, mode):
+    """The public sfb2d (three K7 launches, backward one of K15's adjoint
+    on the separable plan; on 2x3 bands in 'periodization' db4's tail is
+    longer than the rows it wraps onto), afb1d_atrous and afb2d_atrous
+    (K12, backward its adjoint): outputs and gradients against the CPU
+    plain run."""
+    from pytorch_wavelets_tpu_torch.filters import wavelet
+    from pytorch_wavelets_tpu_torch.ops import afb_sfb
+    c, r = wavelet("db4"), wavelet("db2")
+    bank = (c.rec_lo, c.rec_hi, r.rec_lo, r.rec_hi)
+    shapes = [(2, 3, 4, 9, 7)] + ([(1, 2, 4, 2, 3)]
+                                  if mode == "periodization" else [])
+    for shape in shapes:
+        ops.reset_launches()
+        cpu, gpu = _grads(lambda d: lambda v: afb_sfb.sfb2d(
+            *v.unbind(2), *bank, mode=mode), shape, dev, 126)
+        for a, b in zip(cpu, gpu):
+            torch.testing.assert_close(b, a, rtol=1e-5, atol=2e-5)
+        counts = ops.launch_counts()
+        assert counts["sfb1d_conv"] == 3
+        assert counts["nonsep_sfb_adjoint"] == 1
+    ops.reset_launches()
+    for fn in (lambda v: afb_sfb.afb1d_atrous(v, c.dec_lo, c.dec_hi, mode,
+                                              2, 2),
+               lambda v: afb_sfb.afb2d_atrous(v, c.dec_lo, c.dec_hi,
+                                              r.dec_lo, r.dec_hi, mode, 2)):
+        cpu, gpu = _grads(lambda d: fn, (2, 3, 11, 9), dev, 127)
+        for a, b in zip(cpu, gpu):
+            torch.testing.assert_close(b, a, rtol=1e-5, atol=2e-5)
+    assert ops.launch_counts()["afb1d_atrous_adjoint"] == 3
+
+
+def test_one_axis_filterbanks_raise_for_card_gradients(dev):
+    """afb1d / sfb1d have no kernel for their exact transpose yet: a CUDA
+    input that needs a gradient raises; without one they run K6 / K7."""
+    from pytorch_wavelets_tpu_torch.filters import wavelet
+    from pytorch_wavelets_tpu_torch.ops import afb_sfb
+    w = wavelet("db2")
+    x = torch.from_numpy(_rand((2, 3, 8, 10), 128)).to(dev)
+    xg = x.clone().requires_grad_()
+    with pytest.raises(NotImplementedError, match="afb1d"):
+        afb_sfb.afb1d(xg, w.dec_lo, w.dec_hi, "zero", 3)
+    with pytest.raises(NotImplementedError, match="sfb1d"):
+        afb_sfb.sfb1d(xg, x, w.rec_lo, w.rec_hi, "zero", 3)
+    with torch.no_grad():
+        y = afb_sfb.afb1d(xg, w.dec_lo, w.dec_hi, "zero", 3)
+        z = afb_sfb.sfb1d(x, x, w.rec_lo, w.rec_hi, "zero", 3)
+    torch.testing.assert_close(y.cpu(), afb_sfb.afb1d(
+        x.cpu(), w.dec_lo, w.dec_hi, "zero", 3), **STENCIL_TOL)
+    torch.testing.assert_close(z.cpu(), afb_sfb.sfb1d(
+        x.cpu(), x.cpu(), w.rec_lo, w.rec_hi, "zero", 3), **STENCIL_TOL)
+
+
+@pytest.mark.parametrize("mode", ["periodization", "symmetric"])
+def test_nonsep_and_atrous_round_trips(dev, mode):
+    """afb2d_nonsep -> sfb2d_nonsep (K14 -> K15) reconstructs; x.grad of
+    it and of afb2d_atrous -> sfb2d_atrous (K12 -> K16) match the CPU."""
+    from pytorch_wavelets_tpu_torch.filters import wavelet
+    from pytorch_wavelets_tpu_torch.ops import afb_sfb
+    w = wavelet("db4")
+    x = torch.from_numpy(_rand((2, 3, 32, 36), 122)).to(dev)
+    rec = afb_sfb.sfb2d_nonsep(afb_sfb.afb2d_nonsep(
+        x, w.dec_lo, w.dec_hi, mode=mode), w.rec_lo, w.rec_hi, mode=mode)
+    torch.testing.assert_close(rec, x, rtol=0, atol=1e-5)
+    ops.reset_launches()
+
+    def nonsep(d):
+        return lambda v: afb_sfb.sfb2d_nonsep(afb_sfb.afb2d_nonsep(
+            v, w.dec_lo, w.dec_hi, mode=mode), w.rec_lo, w.rec_hi, mode=mode)
+
+    def atrous(d):
+        from pytorch_wavelets_tpu_torch.transforms.dwt import _AFB2DAtrous
+        taps = tuple(np.asarray(t)[::-1] for t in (w.dec_lo, w.dec_hi) * 2)
+        return lambda v: afb_sfb.sfb2d_atrous(
+            _AFB2DAtrous.apply(v, taps, mode, 2), w.rec_lo, w.rec_hi,
+            w.rec_lo, w.rec_hi, mode=mode, dilation=2)
+    for module_of in (nonsep, atrous):
+        cpu, gpu = _grads(module_of, (2, 3, 32, 36), dev, 123)
+        for a, b in zip(cpu, gpu):
+            torch.testing.assert_close(b, a, rtol=1e-5, atol=2e-5)
+    counts = ops.launch_counts()
+    assert all(counts[k] == 1 for k in ("nonsep_afb", "nonsep_afb_adjoint",
+                                        "nonsep_sfb", "nonsep_sfb_adjoint"))
+    assert counts["sfb1d_atrous_conv"] == 3
+    assert counts["sfb1d_atrous_adjoint"] == 3
+
+
+@pytest.mark.parametrize("module", ["DWTForward", "DTCWTForward",
+                                    "DTCWTForward2"])
+@pytest.mark.parametrize("layout", ["transposed", "channels_last"])
+def test_modules_take_non_contiguous_inputs(dev, module, layout):
+    """A transposed view and a channels_last tensor give the result of
+    the contiguous input (the transforms read strides or copy at their
+    entry)."""
+    from pytorch_wavelets_tpu_torch.transforms import DTCWTForward2
+    cls = DTCWTForward2 if module == "DTCWTForward2" else getattr(tt, module)
+    m = cls(J=2, device=dev)
+    x = torch.from_numpy(_rand((2, 3, 40, 48), 124)).to(dev)
+    if layout == "transposed":
+        src = x.transpose(2, 3).contiguous().transpose(2, 3)
+    else:
+        src = x.contiguous(memory_format=torch.channels_last)
+    assert not src.is_contiguous() and torch.equal(src, x)
+    for a, b in zip(_flat(m(src)), _flat(m(x))):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)

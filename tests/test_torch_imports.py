@@ -60,6 +60,10 @@ def test_imports_and_runs_with_jax_blocked():
         "c = tt.SWTForward(J=2, wave='db4', device='cpu')(x)\n"
         "r = tt.SWTInverse(wave='db4', device='cpu')(c)\n"
         "assert (r - x).abs().max() < 1e-5\n"
+        "from pytorch_wavelets_tpu_torch import transforms as tr\n"
+        "c = tr.DTCWTForward2(J=2, device='cpu')(x)\n"
+        "r = tr.DTCWTInverse2(device='cpu')(c)\n"
+        "assert (r - x).abs().max() < 1e-5\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in "
         "sys.modules if sys.modules[m] is not None)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -83,13 +87,27 @@ def test_cpu_tensors_take_plain_versions():
         xs = torch.zeros(shape, requires_grad=True)
         c = tt.SWTForward(J=2, device="cpu")(xs)
         torch.autograd.grad(tt.SWTInverse(device="cpu")(c).sum(), xs)
+    # the Selesnick DTCWT, the non-separable and the à trous merge
+    from pytorch_wavelets_tpu_torch.transforms import dtcwt_alt
+    xs = x.clone().requires_grad_()
+    c = dtcwt_alt.DTCWTForward2(J=2, device="cpu")(xs)
+    torch.autograd.grad(dtcwt_alt.DTCWTInverse2(device="cpu")(c).sum(), xs)
+    from pytorch_wavelets_tpu_torch.filters import qshift
+    q = qshift("qshift_a")
+    bank = (q[0], q[4], q[1], q[5])
+    torch.autograd.grad(dtcwt_alt.quad_afb2d_nonsep(xs, *bank)[0].sum(), xs)
+    y = ops.afb2d_nonsep(xs, [0.5, 0.5], [0.5, -0.5])
+    ops.sfb2d_nonsep(y, [0.5, 0.5], [0.5, -0.5])
+    ops.sfb2d_atrous(torch.stack([x] * 4, 2), [1, 1], [1, -1], [1, 1],
+                     [1, -1])
     assert ops.launch_counts() == {k.__name__: 0 for k in ops.KERNELS}
     assert set(ops.launch_counts()) == {
         "apply_row", "apply_col", "q2c_pack", "c2q_unpack", "scat_mag_fwd",
         "scat_mag_bwd", "afb1d_corr", "sfb1d_conv", "dtcwt_filt",
         "dtcwt_dfilt", "dtcwt_ifilt", "avg_pool2_fwd", "avg_pool2_bwd",
         "afb1d_atrous_corr", "afb1d_atrous_adjoint", "spec_merge",
-        "spec_split"}
+        "spec_split", "nonsep_afb", "nonsep_afb_adjoint", "nonsep_sfb",
+        "nonsep_sfb_adjoint", "sfb1d_atrous_conv", "sfb1d_atrous_adjoint"}
 
 
 def test_default_device_is_cuda(monkeypatch):
