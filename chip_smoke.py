@@ -107,7 +107,24 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    call of these phases, and the alt path's K6/K7 calls, are replayed
    as in 10, each kernel line with the launches its phase read from the
    counters, reset just before each counted run.
-12. profile: device time by kernel of the main path, of one ScatLayerj2
+12. the matmul precision levels and bf16 (K17, csrc/banded_apply_tc.cu:
+   K1's product on the tensor cores; the levels set through the port's
+   API only, the TF32 flags of phase 1 stay off): prec_main, the main
+   path's round trip and train_main's step under 'high' (3xTF32),
+   'default' (TF32) and in bf16; prec_scat, ScatLayerj2 on 128x3x256x256
+   forward + backward under 'default' and in bf16; prec_swt, swt_main's
+   round trip under 'high'; prec_dwt_bf16, dwt_main's round trip in bf16
+   (K6/K7 through their wrappers' casts).  Each counted (K17's mode
+   launched, K1 not), checked against the fp32 CPU run ('high' 2e-5,
+   'default' 1e-2 of max(1, max |CPU|); bf16 reconstructions 2e-2 of
+   max |x|, other outputs 1e-1 of max(1, max |CPU|)), timed; every K17 call
+   replayed against its mode's plain version and timed beside
+   torch.matmul (TF32 allowed for the TF32 mode, bf16 for bf16; none for
+   3xTF32); on bf16 every K2/K3 call replayed bit for bit against its
+   plain version computed in fp32 and rounded once to bf16, and the
+   wrappers' casts replayed and timed as a share of the path's device
+   time.
+13. profile: device time by kernel of the main path, of one ScatLayerj2
    training step, of one DWT training step, of one bandpass-diagonal
    ScatLayerj2 training step, of one SWT training step and of one
    DTCWTForward2 training step (torch.profiler).
@@ -887,30 +904,35 @@ def replay(call, banded, quad, mag, afb, pad, fb=None, pool=None,
     elif name == "q2c_pack":
         y, size, stride, orients, *il = args
         il = bool(il and il[0])          # per level: interleaved corners
-        got = torch.empty_strided(size, stride, device=y.device)
+        got = torch.empty_strided(size, stride, device=y.device,
+                                  dtype=y.dtype)
         want = torch.empty_strided(size, stride, device=y.device)
         quad.q2c_pack(y, got, orients, il)
-        quad.q2c_pack_plain(y, want, orients, il)
+        # the plain version in fp32, rounded once (bf16: as K2 rounds)
+        quad.q2c_pack_plain(y.float(), want, orients, il)
         written = [o for pair in orients for o in pair]  # orientations filled
-        got, want = got[:, :, written], want[:, :, written]
-        buf = torch.empty_strided(size, stride, device=y.device)
+        got, want = got[:, :, written], want[:, :, written].to(y.dtype)
+        buf = torch.empty_strided(size, stride, device=y.device,
+                                  dtype=y.dtype)
         run = lambda: quad.q2c_pack(y, buf, orients, il)      # noqa: E731
         plain = lambda: quad.q2c_pack_plain(                  # noqa: E731
             y, buf, orients, il)
         # one add or subtract per value, and per level a scaling per read
         ops = (2.0 if il else 1.0) * got.numel()
-        nbytes = 4.0 * (y.numel() + got.numel())
+        nbytes = y.element_size() * (y.numel() + got.numel())
         tol = "exact"
     elif name == "c2q_unpack":
         h, orients, *il = args
         il = bool(il and il[0])
         got = quad.c2q_unpack(h, orients, il)
-        want = quad.c2q_unpack_plain(h, orients, il)
+        # the plain version in fp32, rounded once (bf16: as K3 rounds)
+        want = quad.c2q_unpack_plain(h.float(), orients, il).to(h.dtype)
         run = lambda: quad.c2q_unpack(h, orients, il)         # noqa: E731
         plain = lambda: quad.c2q_unpack_plain(                # noqa: E731
             h, orients, il)
         ops = (2.0 if il else 1.0) * got.numel()
-        nbytes = 4.0 * 2 * got.numel()    # each read once, each written once
+        # each read once, each written once
+        nbytes = h.element_size() * 2 * got.numel()
         tol = "exact"
     elif name == "scat_mag_fwd":
         h, bias, combine = args
@@ -3028,6 +3050,491 @@ def nonsep_edge_cases(banded):
     return len(calls), err
 
 
+# ---------------------------------------------------------------------------
+# the precision levels and bf16: K17 (csrc/banded_apply_tc.cu) on the
+# paths that run operator products, and the CUDA-core stencils on bf16
+# through their wrappers' casts
+# ---------------------------------------------------------------------------
+
+# each K17 mode: the matmul precision level that selects it for fp32 data
+# (bf16 data takes the bf16 mode at every level; 'highest' is used), the
+# data's dtype, and the tensor-core peak of the card for its products
+# (NVIDIA H100 SXM data sheet, dense, at 700 W), with the number of
+# products it issues per product of the operator
+K17_LEVEL = {"3xtf32": "high", "tf32": "default", "bf16": "highest"}
+K17_DTYPE = {"3xtf32": torch.float32, "tf32": torch.float32,
+             "bf16": torch.bfloat16}
+PEAK_TC_FLOPS = {"3xtf32": 495e12 / 3, "tf32": 495e12, "bf16": 989e12}
+# K17 against its mode's plain version (ops/banded.py:_tc_plain): the same
+# rounded operands, fp32 sums in another order; a bf16 output is that sum
+# rounded once, one bf16 step (at most 2^-7 relative) where the sums straddle a
+# rounding midpoint
+K17_TOL = {"3xtf32": K1_TOL, "tf32": K1_TOL,
+           "bf16": dict(rtol=2.0 ** -7, atol=1e-5)}
+# the paths against the fp32 CPU run: 'high' at the JAX suite's DTCWT
+# tolerance (absolute); 'default' at 1e-2 of the larger of 1 and max |CPU|
+# (the JAX package gives ~4e-2 at 'default' on a TPU, its
+# ops/precision.py:6-12); in bf16 a reconstruction at 2e-2 of max |x|
+# (tests/test_precision.py:88), every other output (coefficients,
+# scattering outputs, gradients: many bf16 roundings deep) loosely, at
+# 1e-1 of the larger of 1 and max |CPU|
+PREC_TOL = {"3xtf32": (2e-5, False), "tf32": (1e-2, True),
+            "bf16": (1e-1, True)}
+BF16_RECON_TOL = 2e-2
+PREC_TIMING = (5, 3)            # (reps, batches) of the paths' timings
+K17_REPLAY_TIMING = (3, 2)      # of a group of replayed calls, as one
+QUAD_REPLAY_TIMING = (5, 3)     # of each replayed bf16 K2/K3 call
+K17_REPLACES = {"row": "pytorch_wavelets_tpu/ops/banded.py:332",
+                "col": "pytorch_wavelets_tpu/ops/banded.py:321"}
+
+
+class K17Recorder(Swapping):
+    """For one run: swaps K17's wrappers (``banded.apply_{col,row}_{mode}``,
+    which ``apply_col`` / ``apply_row`` look up at each call) for
+    recording ones, which keep each call's inputs for replay."""
+
+    def __init__(self, banded):
+        self.banded = banded
+        self.calls = []
+
+    def swaps(self):
+        swaps = []
+        for entry in ("col", "row"):
+            for mode in K17_LEVEL:
+                name = f"apply_{entry}_{mode}"
+                swaps.append((self.banded, name,
+                              self._recording(entry, mode,
+                                              getattr(self.banded, name))))
+        return swaps
+
+    def _recording(self, entry, mode, orig):
+        def fn(x, T, out=None, accumulate=True):
+            self.calls.append((entry, mode, x, T,
+                               _out_mode(out, accumulate)))
+            return orig(x, T, out, accumulate)
+        return fn
+
+
+class CastRecorder(Swapping):
+    """For one run: records the casts of the CUDA-core kernels' wrappers
+    (``ops._cuda.cast``, bf16 <-> fp32 around K4-K16) for a timed
+    replay."""
+
+    def __init__(self, cuda):
+        self.cuda = cuda
+        self.calls = []
+
+    def swaps(self):
+        orig = self.cuda.cast
+
+        def cast(t, dtype):
+            self.calls.append((t, dtype))
+            return orig(t, dtype)
+        return [(self.cuda, "cast", cast)]
+
+
+class QuadRecorder(Swapping):
+    """For one run: swaps the K2/K3 wrappers (``q2c_pack``, ``c2q_unpack``)
+    where the composed pyramids (``fused``) and the level functions
+    (``lev``) call them for recording ones, which keep each call's inputs
+    in the form :func:`replay` reads."""
+
+    def __init__(self, fused, lev):
+        self.modules = (fused, lev)
+        self.calls = []
+
+    def swaps(self):
+        calls, swaps = self.calls, []
+        for module in self.modules:
+            def q2c_pack(y, out, orients, interleaved=False,
+                         orig=module.q2c_pack):
+                calls.append(("q2c_pack", None, (y, out.size(), out.stride(),
+                                                 orients, interleaved)))
+                return orig(y, out, orients, interleaved)
+
+            def c2q_unpack(h, orients, interleaved=False,
+                           orig=module.c2q_unpack):
+                calls.append(("c2q_unpack", None, (h, orients, interleaved)))
+                return orig(h, orients, interleaved)
+            swaps += [(module, "q2c_pack", q2c_pack),
+                      (module, "c2q_unpack", c2q_unpack)]
+        return swaps
+
+
+def quad_rows(quad, calls, counts, label):
+    """One kernel line per K2/K3 kernel of ``calls`` (bf16 calls of one
+    run): every call held bit for bit against its plain version computed
+    in fp32 and rounded once to bf16, as the kernel rounds."""
+    groups = []
+    for kernel in ("q2c_pack", "c2q_unpack"):
+        mine = [c for c in calls if c[0] == kernel]
+        if mine:
+            per_level = all(c[2][-1] for c in mine)
+            groups.append((f"{kernel} bf16 ({label})",
+                           PER_LEVEL_REPLACES[kernel] if per_level
+                           else SOURCES[kernel][2], counts[kernel], mine))
+    return kernel_rows(groups, None, quad, None, None, None,
+                       timing=QUAD_REPLAY_TIMING)
+
+
+def k17_call_parts(banded, call):
+    """One recorded K17 call: (got, want, run, plain, lib, ops, bytes).
+    ``lib``: ``torch.matmul`` on the same operands (TF32 allowed for the
+    TF32 mode, in bf16 for the bf16 mode; + ``add_`` where K17
+    accumulates), None for 3xTF32 (no PyTorch call does it)."""
+    entry, mode, x, op, spec = call
+    kern = getattr(banded, f"apply_{entry}_{mode}")
+    plainf = getattr(banded, f"apply_{entry}_{mode}_plain")
+    kind = spec[0] if spec else None
+    if kind is None:
+        got, want = kern(x, op), plainf(x, op)
+        run = lambda: kern(x, op)                             # noqa: E731
+        plain = lambda: plainf(x, op)                         # noqa: E731
+    elif kind == "acc":
+        acc = spec[1]
+        got, want = kern(x, op, acc.clone()), plainf(x, op, acc)
+        buf = acc.clone()
+        run = lambda: kern(x, op, buf)                        # noqa: E731
+        plain = lambda: plainf(x, op, acc)                    # noqa: E731
+    else:
+        buf = torch.empty_strided(spec[1], spec[2], device=x.device,
+                                  dtype=x.dtype)
+        pbuf = torch.empty_strided(spec[1], spec[2], device=x.device,
+                                   dtype=x.dtype)
+        got = kern(x, op, buf, accumulate=False).clone()
+        want = plainf(x, op)
+        run = lambda: kern(x, op, buf, accumulate=False)      # noqa: E731
+        plain = lambda: plainf(x, op, pbuf,                   # noqa: E731
+                               accumulate=False)
+    lib = None
+    if mode != "3xtf32":
+        Td = op.values(x.dtype)
+
+        def prod():
+            prev = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = mode == "tf32"
+            try:
+                return (torch.matmul(x, Td.t()) if entry == "row"
+                        else torch.matmul(Td, x))
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = prev
+        lib = (lambda: prod().add_(spec[1])) if kind == "acc" else prod
+    K = x.shape[3 if entry == "row" else 2]
+    flops = 2.0 * op.nnz * x.numel() / K
+    nbytes = x.element_size() * (x.numel() + op.T.numel() + got.numel()
+                                 * (2 if kind == "acc" else 1))
+    return got, want, run, plain, lib, flops, nbytes
+
+
+def k17_rows(banded, calls, counts, label):
+    """One kernel line per (entry, mode) of ``calls``: every call checked
+    against its mode's plain version, the group's calls timed back to
+    back (kernel, plain version, library), the bound summed over them."""
+    rows = []
+    for entry in ("row", "col"):
+        for mode in K17_LEVEL:
+            mine = [c for c in calls if c[:2] == (entry, mode)]
+            if not mine:
+                continue
+            runs, plains, libs = [], [], []
+            err = op_t = byte_t = 0.0
+            shapes = []
+            for call in mine:
+                got, want, run, plain, lib, flops, nbytes = k17_call_parts(
+                    banded, call)
+                require(within(got.float(), want.float(), K17_TOL[mode]),
+                        f"K17 {entry} {mode} {tuple(call[2].shape)} "
+                        f"disagrees with its plain version by "
+                        f"{max_err(got, want)}")
+                err = max(err, max_err(got, want))
+                runs.append(run)
+                plains.append(plain)
+                libs.append(lib)
+                op_t += flops / PEAK_TC_FLOPS[mode] * 1e3
+                byte_t += nbytes / PEAK_HBM_BYTES * 1e3
+                shapes.append(f"{shape_str(call[2].shape)} by "
+                              f"{shape_str(call[3].shape)}")
+                del got, want
+            reps, batches = K17_REPLAY_TIMING
+            ms = timed_ms(lambda: [r() for r in runs], reps, batches)
+            plain_ms = timed_ms(lambda: [r() for r in plains], reps,
+                                batches)
+            lib_ms = None if None in libs else timed_ms(
+                lambda: [r() for r in libs], reps, batches)
+            rows.append({
+                "name": f"banded_tc_{entry} {mode} ({label})",
+                "route": "cuda",
+                "source": "pytorch_wavelets_tpu_torch/csrc/"
+                          "banded_apply_tc.cu",
+                "replaces": K17_REPLACES[entry],
+                "launches": counts[f"apply_{entry}_{mode}"],
+                "max_abs_err": err,
+                "tolerance": K17_TOL[mode], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(op_t, byte_t),
+                "bound_by": "bytes" if byte_t >= op_t else "operations",
+                "library_ms": lib_ms, "calls": len(mine),
+                "per_call": shapes})
+    return rows
+
+
+def _path_errors(outs, refs, n, mode, phase, recon, x_max):
+    """max |card - CPU fp32| of each output on its first ``n`` items,
+    gated by PREC_TOL (relative to max(1, max |CPU|) where it says so),
+    the reconstruction (output ``recon``, or None) in bf16 by
+    BF16_RECON_TOL of ``x_max``."""
+    errs = []
+    for k, (o, r) in enumerate(zip(outs, refs)):
+        require(bool(torch.isfinite(o).all()), f"{phase}: non-finite output")
+        require(o.dtype == K17_DTYPE[mode], f"{phase}: output {k} is "
+                f"{o.dtype}, not {K17_DTYPE[mode]}")
+        e = max_err(o[:n].float().cpu(), r)
+        tol, rel = PREC_TOL[mode]
+        limit = tol * (max(1.0, float(r.abs().max())) if rel else 1.0)
+        if mode == "bf16" and recon is not None and k == recon % len(outs):
+            limit = BF16_RECON_TOL * x_max
+        require(e <= limit, f"{phase} ({mode}): output {k} differs from "
+                f"the fp32 CPU run by {e} (limit {limit})")
+        errs.append(e)
+    return errs
+
+
+def precision_path(tt, ops, banded, cuda, phase, mode, runs, x_cpu, refs,
+                   n, need=None):
+    """One path under K17's ``mode``: ``runs`` maps a name to (a function
+    of x giving its outputs (fwd / inv, or a step with x.grad last), the
+    index of the reconstruction among them or None); ``refs`` the same
+    functions' fp32 CPU outputs on the first ``n`` items.  Counted
+    (K17's ``mode`` launched, K1 not; ``need`` instead names the kernels
+    that must launch where the path has no operator product), checked,
+    timed, one run of each recorded (K17's calls, the wrappers' casts
+    and, in bf16, the K2/K3 calls).  Returns (fields, calls, counts,
+    casts, quad_calls)."""
+    from pytorch_wavelets_tpu_torch.ops import fused_dtcwt
+    from pytorch_wavelets_tpu_torch.transforms import dtcwt as lev
+    level = K17_LEVEL[mode]
+    x = x_cpu.cuda().to(K17_DTYPE[mode])
+    fields = dict(mode=mode, level=level, dtype=str(x.dtype),
+                  shape=list(x.shape), checked_items=n,
+                  tolerance=dict(zip(("max_abs", "relative"),
+                                     PREC_TOL[mode])))
+    if mode == "bf16":
+        fields["tolerance"]["reconstruction_of_max_abs_x"] = BF16_RECON_TOL
+    x_max = float(x_cpu.abs().max())
+    with tt.matmul_precision(level):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        outs = {name: run(x) for name, (run, _) in runs.items()}
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        if need is None:
+            require(counts[f"apply_row_{mode}"] > 0
+                    and counts[f"apply_col_{mode}"] > 0,
+                    f"{phase}: K17 {mode} never launched: {counts}")
+        else:
+            require(all(counts[k] > 0 for k in need),
+                    f"{phase}: a kernel of the path never launched: "
+                    f"{counts}")
+        require(counts["apply_row"] == counts["apply_col"] == 0,
+                f"{phase}: K1 (fp32) launched under {mode}: {counts}")
+        fields["launches"] = {k: v for k, v in counts.items() if v}
+        fields["max_abs_err_vs_cpu_fp32"] = {
+            name: _path_errors(outs[name], refs[name], n, mode, phase, recon,
+                               x_max)
+            for name, (_, recon) in runs.items()}
+        del outs
+        reps, batches = PREC_TIMING
+        for name, (run, _) in runs.items():
+            fields[f"{name}_ms"] = timed_ms(lambda: run(x), reps, batches,
+                                            device_only=False)
+            fields[f"{name}_device_ms"] = timed_ms(lambda: run(x), reps,
+                                                   batches)
+            fields[f"{name}_mpix_per_s"] = x.numel() / 1e6 / (
+                fields[f"{name}_ms"] / 1e3)
+        with K17Recorder(banded) as rec, CastRecorder(cuda) as cst, \
+                QuadRecorder(fused_dtcwt, lev) as qr:
+            for run, _ in runs.values():
+                run(x)
+        torch.cuda.synchronize()
+    quad_calls = [c for c in qr.calls if c[2][0].dtype == torch.bfloat16]
+    return fields, rec.calls, counts, cst.calls, quad_calls
+
+
+def cast_share(casts, device_ms, phase):
+    """The wrappers' casts of one run, replayed back to back and timed,
+    over the path's device ms."""
+    if not casts:
+        return dict(casts=0, cast_ms=0.0, cast_share=0.0)
+    ms = timed_ms(lambda: [t.to(d) for t, d in casts], *PREC_TIMING)
+    return dict(casts=len(casts), cast_ms=ms,
+                cast_bytes=sum(t.numel() * (t.element_size() + (
+                    2 if d == torch.bfloat16 else 4)) for t, d in casts),
+                cast_share=ms / device_ms)
+
+
+def _step_of(fwd, inv, cts):
+    """train_main's step: outputs rec, yl, yh..., then x.grad."""
+    cs = {}
+
+    def step(x):
+        if x.dtype not in cs:
+            cs[x.dtype] = [t.to(x.dtype) for t in cts]
+        xg = x.detach().requires_grad_()
+        yl, yh = fwd(xg)
+        outs = [inv((yl, yh)), yl, *yh]
+        return [o.detach() for o in outs] + list(
+            torch.autograd.grad(outs, xg, cs[x.dtype]))
+    return step
+
+
+def prec_main(tt, ops, banded, cuda):
+    """The bench.py workload (DTCWT J=2, 10x10x128^2) round trip and
+    train_main's step under 'high' (3xTF32), 'default' (TF32) and in
+    bf16."""
+    x_cpu = torch.randn(MAIN_SHAPE,
+                        generator=torch.Generator().manual_seed(0))
+    fc, ic = tt.DTCWTForward(J=2, device="cpu"), tt.DTCWTInverse(
+        device="cpu")
+    with torch.no_grad(), one_cpu_thread():
+        yl, yh = fc(x_cpu)
+    cts = [torch.randn(t.shape, generator=torch.Generator()
+                       .manual_seed(1 + k))
+           for k, t in enumerate([x_cpu, yl, *yh])]
+    with one_cpu_thread():
+        refs = {"round_trip": [yl, *yh, ic((yl, yh))],
+                "step": _step_of(fc, ic, cts)(x_cpu)}
+    f, i = tt.DTCWTForward(J=2, device="cuda"), tt.DTCWTInverse(
+        device="cuda")
+    cts_gpu = [c.cuda() for c in cts]
+
+    def round_trip(x):
+        with torch.no_grad():
+            yl, yh = f(x)
+            return [yl, *yh, i((yl, yh))]
+    runs = {"round_trip": (round_trip, -1),
+            "step": (_step_of(f, i, cts_gpu), 0)}
+    return [precision_path(tt, ops, banded, cuda, "prec_main", mode, runs,
+                           x_cpu, refs, MAIN_SHAPE[0])
+            for mode in ("3xtf32", "tf32", "bf16")]
+
+
+def prec_scat(tt, ops, banded, cuda):
+    """ScatLayerj2() on 128x3x256^2, forward + backward (the gradient of
+    sum(Z * G)), under 'default' (TF32) and in bf16; checked on the first
+    SCAT_CHECK_N images."""
+    N, C, H, W = SCAT_SHAPE
+    n = SCAT_CHECK_N
+    x_cpu = torch.randn(SCAT_SHAPE, generator=torch.Generator()
+                        .manual_seed(0))
+    G_cpu = torch.randn((N, 49 * C, H // 4, W // 4),
+                        generator=torch.Generator().manual_seed(1))
+
+    def step_of(m, G):
+        Gs = {}
+
+        def step(x):
+            if x.dtype not in Gs:
+                Gs[x.dtype] = G.to(x.dtype)
+            xg = x.detach().requires_grad_()
+            z = m(xg)
+            return [z.detach(), torch.autograd.grad(z, xg, Gs[x.dtype])[0]]
+        return step
+    with one_cpu_thread():
+        refs = {"fwd_bwd": step_of(tt.ScatLayerj2(device="cpu"),
+                                   G_cpu[:n])(x_cpu[:n])}
+    m = tt.ScatLayerj2(device="cuda")
+    runs = {"fwd_bwd": (step_of(m, G_cpu.cuda()), None)}
+    return [precision_path(tt, ops, banded, cuda, "prec_scat", mode, runs,
+                           x_cpu, refs, n)
+            for mode in ("tf32", "bf16")]
+
+
+def prec_swt(tt, ops, banded, cuda):
+    """swt_main's round trip (32x3x256^2, db4, J=3, periodization) under
+    'high' (3xTF32 on the dense pinv); checked on the first SWT_CHECK_N
+    images."""
+    kw = dict(wave=SWT_WAVE, mode=SWT_MODE)
+    n = SWT_CHECK_N
+    x_cpu = torch.randn(SWT_SHAPE, generator=torch.Generator()
+                        .manual_seed(0))
+
+    def rt_of(f, i):
+        def rt(x):
+            with torch.no_grad():
+                ys = f(x)
+                return [*ys, i(ys)]
+        return rt
+    with one_cpu_thread():
+        refs = {"round_trip": rt_of(
+            tt.SWTForward(J=SWT_J, device="cpu", **kw),
+            tt.SWTInverse(device="cpu", **kw))(x_cpu[:n])}
+    runs = {"round_trip": (rt_of(tt.SWTForward(J=SWT_J, device="cuda", **kw),
+                                 tt.SWTInverse(device="cuda", **kw)), -1)}
+    return precision_path(tt, ops, banded, cuda, "prec_swt", "3xtf32", runs,
+                          x_cpu, refs, n)
+
+
+def prec_dwt_bf16(tt, ops, banded, cuda):
+    """dwt_main's round trip (32x10x512^2, db4, J=3, symmetric) in bf16:
+    K6/K7 through their wrappers' casts (the path has no operator
+    product); checked on the first DWT_CHECK_N images."""
+    kw = dict(wave=DWT_WAVE, mode=DWT_MODE)
+    n = DWT_CHECK_N
+    x_cpu = torch.randn(DWT_SHAPE, generator=torch.Generator()
+                        .manual_seed(0))
+
+    def rt_of(f, i):
+        def rt(x):
+            with torch.no_grad():
+                yl, yh = f(x)
+                return [yl, *yh, i((yl, yh))]
+        return rt
+    with one_cpu_thread():
+        refs = {"round_trip": rt_of(
+            tt.DWTForward(J=DWT_J, device="cpu", **kw),
+            tt.DWTInverse(device="cpu", **kw))(x_cpu[:n])}
+    runs = {"round_trip": (rt_of(tt.DWTForward(J=DWT_J, device="cuda", **kw),
+                                 tt.DWTInverse(device="cuda", **kw)), -1)}
+    return precision_path(tt, ops, banded, cuda, "prec_dwt_bf16", "bf16",
+                          runs, x_cpu, refs, n,
+                          need=("afb1d_corr", "sfb1d_conv"))
+
+
+def precision_phases(tt, ops, banded, cuda):
+    """The four precision phases, each emitted with its K17 kernel lines,
+    and, for bf16, its K2/K3 kernel lines and the share of its device time
+    in the wrappers' casts.  Returns the kernel rows."""
+    from pytorch_wavelets_tpu_torch.ops import quad
+    rows = []
+
+    def finish(phase, label, result, step_name):
+        fields, calls, counts, casts, quad_calls = result
+        dev_ms = fields[f"{step_name}_device_ms"]
+        if fields["mode"] == "bf16":
+            fields["bf16_casts"] = cast_share(casts, dev_ms, phase)
+        emit(phase, **fields)
+        with torch.no_grad():
+            new = k17_rows(banded, calls, counts,
+                           f"{label} {fields['mode']}")
+            new += quad_rows(quad, quad_calls, counts, label)
+        for row in new:
+            emit("kernel", **row)
+        rows.extend(new)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    for result in prec_main(tt, ops, banded, cuda):
+        finish("prec_main", f"DTCWT J=2 {shape_str(MAIN_SHAPE)}", result,
+               "step")
+    for result in prec_scat(tt, ops, banded, cuda):
+        finish("prec_scat", f"ScatLayerj2 {shape_str(SCAT_SHAPE)}", result,
+               "fwd_bwd")
+    finish("prec_swt", f"SWT J={SWT_J} {shape_str(SWT_SHAPE)}",
+           prec_swt(tt, ops, banded, cuda), "round_trip")
+    finish("prec_dwt_bf16", f"DWT J={DWT_J} {shape_str(DWT_SHAPE)}",
+           prec_dwt_bf16(tt, ops, banded, cuda), "round_trip")
+    return rows
+
+
 def profile(step, iters):
     """Device time by kernel over a window of ``iters`` steps
     (torch.profiler; its own host overhead inflates the window's wall
@@ -3311,6 +3818,10 @@ def main():
          tolerance=NONSEP_TOL)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+
+    # the precision levels and bf16 (K17; the stencils through casts), set
+    # through the port's API only: the TF32 flags above stay off
+    rows.extend(precision_phases(tt, ops, banded, _cuda))
 
     fwd = tt.DTCWTForward(J=2, device="cuda")
     inv = tt.DTCWTInverse(device="cuda")

@@ -22,14 +22,22 @@
 // the card, where PyTorch divides by sqrt2 as a multiplication by
 // fp32(1/sqrt2).
 //
-// Bound: bytes (4 reads and 4 writes of fp32 per thread, 4-8 flops);
-// consecutive threads take consecutive w, so writes coalesce.
+// bf16 (bands and output bf16): the same arithmetic in fp32 on the
+// loaded values, each output rounded once to bf16 as it is stored
+// (elem.cuh).
+//
+// Bound: bytes (4 reads and 4 writes of fp32 or bf16 per thread, 4-8
+// flops); consecutive threads take consecutive w, so writes coalesce.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "elem.cuh"
 
 namespace {
 
-__global__ void c2q_unpack_kernel(const float* __restrict__ hb,
-                                  float* __restrict__ xq, long long total,
+template <typename E>
+__global__ void c2q_unpack_kernel(const E* __restrict__ hb,
+                                  E* __restrict__ xq, long long total,
                                   int C, int h, int w, int nm, int orients,
                                   long long sn, long long sc, long long so,
                                   long long sh, long long sw,
@@ -48,14 +56,16 @@ __global__ void c2q_unpack_kernel(const float* __restrict__ hb,
     const long long p = t / nm;
     const int o1 = (orients >> (8 * mem)) & 0xF;
     const int o2 = (orients >> (8 * mem + 4)) & 0xF;
-    const float* base = hb + (p / C) * sn + (p % C) * sc + i * sh + j * sw;
-    const float w1r = base[o1 * so], w1i = base[o1 * so + sri];
-    const float w2r = base[o2 * so], w2i = base[o2 * so + sri];
-    float* xp = xq + p * sxp + mem * sxm + i * sxi + j * sxj;
-    xp[x1o] = __fmul_rn(__fadd_rn(w1r, w2r), scale);
-    xp[x2o] = __fmul_rn(__fadd_rn(w1i, w2i), scale);
-    xp[x3o] = __fmul_rn(__fsub_rn(w1i, w2i), scale);
-    xp[x4o] = __fmul_rn(__fsub_rn(w2r, w1r), scale);
+    const E* base = hb + (p / C) * sn + (p % C) * sc + i * sh + j * sw;
+    const float w1r = to_float(base[o1 * so]);
+    const float w1i = to_float(base[o1 * so + sri]);
+    const float w2r = to_float(base[o2 * so]);
+    const float w2i = to_float(base[o2 * so + sri]);
+    E* xp = xq + p * sxp + mem * sxm + i * sxi + j * sxj;
+    xp[x1o] = from_float<E>(__fmul_rn(__fadd_rn(w1r, w2r), scale));
+    xp[x2o] = from_float<E>(__fmul_rn(__fadd_rn(w1i, w2i), scale));
+    xp[x3o] = from_float<E>(__fmul_rn(__fsub_rn(w1i, w2i), scale));
+    xp[x4o] = from_float<E>(__fmul_rn(__fsub_rn(w2r, w1r), scale));
   }
 }
 
@@ -68,23 +78,29 @@ const char* kernel_error_string(int err) {
 }
 
 // planes = N*C; members packed as orients |= (o1 | o2 << 4) << (8 * t);
-// the output's addressing as in the header.
+// the output's addressing as in the header; bf16: bands and output bf16.
 int c2q_unpack(const void* hb, void* xq, long long planes, int C, int h,
                int w, int nm, int orients, long long sn, long long sc,
                long long so, long long sh, long long sw, long long sri,
                long long sxp, long long sxm, long long sxi, long long sxj,
                long long x1o, long long x2o, long long x3o, long long x4o,
-               float scale, void* stream) {
+               float scale, int bf16, void* stream) {
   const long long total = planes * nm * h * w;
   if (total == 0) return 0;
   const int threads = 256;
   long long blocks = (total + threads - 1) / threads;
   if (blocks > 1048576) blocks = 1048576;
-  c2q_unpack_kernel<<<(unsigned)blocks, threads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(hb), static_cast<float*>(xq), total, C, h,
-      w, nm, orients, sn, sc, so, sh, sw, sri, sxp, sxm, sxi, sxj, x1o, x2o,
-      x3o, x4o, scale);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    c2q_unpack_kernel<<<(unsigned)blocks, threads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(hb), static_cast<__nv_bfloat16*>(xq),
+        total, C, h, w, nm, orients, sn, sc, so, sh, sw, sri, sxp, sxm, sxi,
+        sxj, x1o, x2o, x3o, x4o, scale);
+  else
+    c2q_unpack_kernel<<<(unsigned)blocks, threads, 0, st>>>(
+        static_cast<const float*>(hb), static_cast<float*>(xq), total, C, h,
+        w, nm, orients, sn, sc, so, sh, sw, sri, sxp, sxm, sxi, sxj, x1o, x2o,
+        x3o, x4o, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -23,16 +23,23 @@
 // where PyTorch divides by sqrt2 as a multiplication by fp32(1/sqrt2)
 // (scale 1 leaves the composed path's values as they were).
 //
-// Bound: bytes (4 reads and 4 writes of fp32 per thread, 4-8 flops);
-// consecutive threads take consecutive w, so reads coalesce (every other
-// float per corner on the per-level path) and writes go out at the
+// bf16 (y and out bf16): the same arithmetic in fp32 on the loaded
+// values, each output rounded once to bf16 as it is stored (elem.cuh).
+//
+// Bound: bytes (4 reads and 4 writes of fp32 or bf16 per thread, 4-8
+// flops); consecutive threads take consecutive w, so reads coalesce (every
+// other value per corner on the per-level path) and writes go out at the
 // layout's w stride.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "elem.cuh"
 
 namespace {
 
-__global__ void q2c_pack_kernel(const float* __restrict__ y,
-                                float* __restrict__ out, long long total,
+template <typename E>
+__global__ void q2c_pack_kernel(const E* __restrict__ y,
+                                E* __restrict__ out, long long total,
                                 int C, int m, int k, int nm, int orients,
                                 long long syn, long long syc,
                                 long long smem, long long si, long long sj,
@@ -48,17 +55,19 @@ __global__ void q2c_pack_kernel(const float* __restrict__ y,
     t /= m;
     const int mem = (int)(t % nm);
     const long long p = t / nm;
-    const float* yp = y + (p / C) * syn + (p % C) * syc + mem * smem +
-                      i * si + j * sj;
-    const float a = __fmul_rn(yp[oa], scale), b = __fmul_rn(yp[ob], scale);
-    const float c = __fmul_rn(yp[oc], scale), d = __fmul_rn(yp[od], scale);
+    const E* yp = y + (p / C) * syn + (p % C) * syc + mem * smem +
+                  i * si + j * sj;
+    const float a = __fmul_rn(to_float(yp[oa]), scale);
+    const float b = __fmul_rn(to_float(yp[ob]), scale);
+    const float c = __fmul_rn(to_float(yp[oc]), scale);
+    const float d = __fmul_rn(to_float(yp[od]), scale);
     const int o1 = (orients >> (8 * mem)) & 0xF;
     const int o2 = (orients >> (8 * mem + 4)) & 0xF;
-    float* base = out + (p / C) * sn + (p % C) * sc + i * sh + j * sw;
-    base[o1 * so] = __fsub_rn(a, d);
-    base[o1 * so + sri] = __fadd_rn(b, c);
-    base[o2 * so] = __fadd_rn(a, d);
-    base[o2 * so + sri] = __fsub_rn(b, c);
+    E* base = out + (p / C) * sn + (p % C) * sc + i * sh + j * sw;
+    base[o1 * so] = from_float<E>(__fsub_rn(a, d));
+    base[o1 * so + sri] = from_float<E>(__fadd_rn(b, c));
+    base[o2 * so] = from_float<E>(__fadd_rn(a, d));
+    base[o2 * so + sri] = from_float<E>(__fsub_rn(b, c));
   }
 }
 
@@ -71,23 +80,29 @@ const char* kernel_error_string(int err) {
 }
 
 // planes = N*C; members packed as orients |= (o1 | o2 << 4) << (8 * t);
-// the input's addressing as in the header.
+// the input's addressing as in the header; bf16: y and out are bf16.
 int q2c_pack(const void* y, void* out, long long planes, int C, int m,
              int k, int nm, int orients, long long syn, long long syc,
              long long smem, long long si, long long sj, long long oa,
              long long ob, long long oc, long long od, float scale,
              long long sn, long long sc, long long so, long long sh,
-             long long sw, long long sri, void* stream) {
+             long long sw, long long sri, int bf16, void* stream) {
   const long long total = planes * nm * m * k;
   if (total == 0) return 0;
   const int threads = 256;
   long long blocks = (total + threads - 1) / threads;
   if (blocks > 1048576) blocks = 1048576;
-  q2c_pack_kernel<<<(unsigned)blocks, threads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(y), static_cast<float*>(out), total, C, m,
-      k, nm, orients, syn, syc, smem, si, sj, oa, ob, oc, od, scale, sn, sc,
-      so, sh, sw, sri);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    q2c_pack_kernel<<<(unsigned)blocks, threads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(y), static_cast<__nv_bfloat16*>(out),
+        total, C, m, k, nm, orients, syn, syc, smem, si, sj, oa, ob, oc, od,
+        scale, sn, sc, so, sh, sw, sri);
+  else
+    q2c_pack_kernel<<<(unsigned)blocks, threads, 0, st>>>(
+        static_cast<const float*>(y), static_cast<float*>(out), total, C, m,
+        k, nm, orients, syn, syc, smem, si, sj, oa, ob, oc, od, scale, sn, sc,
+        so, sh, sw, sri);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -63,7 +63,7 @@ class _TapsModule(nn.Module):
         if mesh is not None or batch_chunk:
             raise NotImplementedError(
                 "mesh= and batch_chunk are not ported yet (ROADMAP.md, "
-                "'Still to port' 8 and 9)")
+                "queue A: A3 batch_chunk, A5 mesh=)")
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(

@@ -4,7 +4,9 @@ run them.
 The public filterbanks are the JAX package's ``ops`` names.  ``KERNELS``
 lists every kernel wrapper; each keeps an integer ``launches`` count of
 the times it launched its CUDA kernel (a CPU tensor takes the plain
-PyTorch version and counts nothing).
+PyTorch version and counts nothing).  K17 has one wrapper, and one count,
+per entry and mode (``apply_col_tf32`` ... ``apply_row_bf16``);
+``apply_col`` / ``apply_row`` count K1's fp32 launches only.
 """
 from pytorch_wavelets_tpu_torch.ops.afb_sfb import (  # noqa: F401
     afb1d, sfb1d, afb1d_atrous, sfb1d_atrous, afb2d, sfb2d,
@@ -13,7 +15,7 @@ from pytorch_wavelets_tpu_torch.ops.afb_sfb import (  # noqa: F401
     sfb1d_atrous_conv, sfb1d_conv,
 )
 from pytorch_wavelets_tpu_torch.ops.banded import (  # noqa: F401
-    apply_col, apply_row, set_operator_matmul,
+    K17_WRAPPERS, apply_col, apply_row, set_operator_matmul,
 )
 from pytorch_wavelets_tpu_torch.ops.dtcwt_fb import (  # noqa: F401
     dtcwt_dfilt, dtcwt_filt, dtcwt_ifilt,
@@ -39,7 +41,7 @@ KERNELS = (apply_row, apply_col, q2c_pack, c2q_unpack, scat_mag_fwd,
            dtcwt_ifilt, avg_pool2_fwd, avg_pool2_bwd, afb1d_atrous_corr,
            afb1d_atrous_adjoint, spec_merge, spec_split, nonsep_afb,
            nonsep_afb_adjoint, nonsep_sfb, nonsep_sfb_adjoint,
-           sfb1d_atrous_conv, sfb1d_atrous_adjoint)
+           sfb1d_atrous_conv, sfb1d_atrous_adjoint, *K17_WRAPPERS)
 
 
 def reset_launches() -> None:

@@ -11,7 +11,9 @@ and the flags, so an edited source is rebuilt.  Nothing here runs at import time
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
+import inspect
 import os
 import shutil
 import subprocess
@@ -20,10 +22,8 @@ from pathlib import Path
 
 import torch
 
-from pytorch_wavelets_tpu_torch.ops.precision import require_kernel_precision
-
 __all__ = ["build", "library", "check", "check_inputs", "stream_of",
-           "BUILD_DIR"]
+           "via_fp32", "cast", "BUILD_DIR"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -44,14 +44,22 @@ _SIGNATURES = {
         "banded_apply_tile_rows": [],
         "banded_apply_k_align": [],
     },
+    "banded_apply_tc": {
+        "banded_tc_col": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _L, _L, _L, _L, _I, _I, _P],
+        "banded_tc_row": [_P, _P, _P, _P, _P, _L, _I, _I, _L, _L, _I, _I,
+                          _P],
+        "banded_tc_tile_rows": [],
+        "banded_tc_k_align": [],
+    },
     "q2c_pack": {
         "q2c_pack": [_P, _P, _L, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L,
-                     _L, _L, _L, _L, _F, _L, _L, _L, _L, _L, _L, _P],
+                     _L, _L, _L, _L, _F, _L, _L, _L, _L, _L, _L, _I, _P],
     },
     "c2q_unpack": {
         "c2q_unpack": [_P, _P, _L, _I, _I, _I, _I, _I,
                        _L, _L, _L, _L, _L, _L,
-                       _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
+                       _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _P],
     },
     "scat_mag": {
         "scat_mag_fwd": [_P, _P, _L, _I, _I, _I, _I,
@@ -196,18 +204,19 @@ def check(lib: ctypes.CDLL, kernel: str, rc: int) -> None:
 
 
 def check_inputs(kernel: str, *tensors: torch.Tensor,
-                 dtype: torch.dtype = torch.float32) -> None:
-    """Raise on what the kernels do not take: a tensor off CUDA or not of
-    ``dtype`` (fp32; complex64 for K13), a gradient request (a raw kernel
-    call records no autograd graph), or a precision level other than
-    'highest'."""
+                 dtypes: tuple = (torch.float32,)) -> None:
+    """Raise on what the kernels do not take: a tensor off CUDA, tensors
+    of differing dtypes or of a dtype not in ``dtypes`` (fp32 for most
+    entries; fp32 or bf16 for K2/K3; complex64 for K13), or a gradient
+    request (a raw kernel call records no autograd graph)."""
     for t in tensors:
         if not t.is_cuda:
             raise ValueError(f"{kernel}: expected a CPU or CUDA tensor, got "
                              f"one on {t.device}")
-        if t.dtype != dtype:
-            raise TypeError(f"{kernel}: the CUDA kernel takes {dtype}, got "
-                            f"{t.dtype}")
+        if t.dtype not in dtypes or t.dtype != tensors[0].dtype:
+            raise TypeError(f"{kernel}: the CUDA kernel takes "
+                            f"{' or '.join(map(str, dtypes))} tensors of "
+                            f"one dtype, got {[u.dtype for u in tensors]}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
             f"{kernel}: a raw kernel call has no backward; differentiate "
@@ -215,7 +224,51 @@ def check_inputs(kernel: str, *tensors: torch.Tensor,
             f"pyramids, transforms/scatternet.py:smooth_mag, the modules), "
             f"or call "
             f"it under torch.no_grad()")
-    require_kernel_precision(kernel)
+
+
+def cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t.to(dtype)``: the casts around the fp32 kernels that take bf16
+    through :func:`via_fp32` (one name, so a run can count them)."""
+    return t.to(dtype)
+
+
+def _bf16_on_card(values) -> bool:
+    return any(isinstance(v, torch.Tensor) and v.is_cuda
+               and v.dtype == torch.bfloat16 for v in values)
+
+
+def via_fp32(wrapper):
+    """bf16 CUDA tensors through a CUDA-core kernel's fp32 wrapper: each
+    bf16 tensor argument is cast to fp32, the fp32 kernel launches, and
+    its tensor results are cast back to bf16, so the op rounds once, where
+    the JAX op rounds.  An ``out`` argument in bf16 takes the fp32 result
+    (added in fp32 with ``accumulate``, then rounded once).  Other calls
+    pass straight through (CPU tensors take the plain versions in their
+    own dtype)."""
+    sig = inspect.signature(wrapper)
+
+    @functools.wraps(wrapper)
+    def run(*args, **kwargs):
+        if not (_bf16_on_card(args) or _bf16_on_card(kwargs.values())):
+            return wrapper(*args, **kwargs)
+        bound = sig.bind(*args, **kwargs)
+        bound.apply_defaults()
+        a = bound.arguments
+        out, acc = a.get("out"), a.get("accumulate")
+        if out is not None:   # the fp32 result goes to a new tensor first
+            a["out"] = None
+            if acc is not None:
+                a["accumulate"] = False
+        for k, v in a.items():
+            if isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16:
+                a[k] = cast(v, torch.float32)
+        y = wrapper(*bound.args, **bound.kwargs)
+        if out is not None:
+            return out.add_(y) if acc else out.copy_(y)
+        if isinstance(y, torch.Tensor):
+            return cast(y, torch.bfloat16)
+        return type(y)(cast(t, torch.bfloat16) for t in y)
+    return run
 
 
 def stream_of(t: torch.Tensor) -> int:

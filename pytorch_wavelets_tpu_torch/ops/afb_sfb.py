@@ -390,6 +390,7 @@ def _ptr(a):
     return ctypes.c_void_p(a.ctypes.data)
 
 
+@_cuda.via_fp32
 def afb1d_corr(x, h0_taps, h1_taps, mode, axis, out_len=None):
     """Analysis split of (N, C, H, W) ``x`` along ``axis`` (2 or 3, or -1)
     with correlation-order taps: (N, C, 2, H', W'), band 0 the lowpass.
@@ -427,6 +428,7 @@ def afb1d_corr(x, h0_taps, h1_taps, mode, axis, out_len=None):
     return y
 
 
+@_cuda.via_fp32
 def sfb1d_conv(lo, hi, g0_taps, g1_taps, mode, axis, out_len=None):
     """Synthesis merge of (N, C, H, W) ``lo`` and ``hi`` along ``axis``
     with convolution-order taps: (N, C, H', W').
@@ -484,6 +486,7 @@ def _atrous_args(kernel, h0_taps, h1_taps, n, mode, dilation):
     return h0, h1, L, atrous_plan(n, L, dilation, mode)
 
 
+@_cuda.via_fp32
 def afb1d_atrous_corr(x, h0_taps, h1_taps, mode, axis, dilation):
     """À trous split of (N, C, H, W) ``x`` along ``axis`` (2 or 3, or -1)
     with correlation-order taps ``dilation`` samples apart:
@@ -517,6 +520,7 @@ def afb1d_atrous_corr(x, h0_taps, h1_taps, mode, axis, dilation):
     return y
 
 
+@_cuda.via_fp32
 def afb1d_atrous_adjoint(dy, h0_taps, h1_taps, mode, axis, dilation, n):
     """The transpose of :func:`afb1d_atrous_corr` on an input of ``n``
     samples along ``axis``: the (N, C, 2, H', W') cotangent ``dy`` (band 0
@@ -575,6 +579,7 @@ def _merge_args(kernel, g0_taps, g1_taps, n, mode, dilation):
             atrous_merge_plan(n, L, dilation, mode))
 
 
+@_cuda.via_fp32
 def sfb1d_atrous_conv(lo, hi, g0_taps, g1_taps, mode, axis, dilation):
     """À trous merge of (N, C, H, W) ``lo`` and ``hi`` along ``axis`` (2
     or 3, or -1) with convolution-order taps ``dilation`` samples apart:
@@ -606,6 +611,7 @@ def sfb1d_atrous_conv(lo, hi, g0_taps, g1_taps, mode, axis, dilation):
     return y
 
 
+@_cuda.via_fp32
 def sfb1d_atrous_adjoint(dy, g0_taps, g1_taps, mode, axis, dilation):
     """The transpose of :func:`sfb1d_atrous_conv`: the (N, C, H, W)
     cotangent ``dy`` -> the (N, C, 2, H, W) stack of the cotangents of
@@ -678,29 +684,95 @@ def _afb_atrous_matrix(h0, h1, mode, dilation, n, dtype_str="f4"):
 # Public 1-D and separable 2-D filterbanks
 # --------------------------------------------------------------------------
 
-def _no_card_gradient(name, *tensors):
-    """Raise where a CUDA input needs a gradient that no kernel gives yet
-    (the exact transpose of K6 or K7 along one axis), rather than return
-    outputs that carry none."""
-    if torch.is_grad_enabled() and any(t.requires_grad and t.is_cuda
-                                       for t in tensors):
-        raise NotImplementedError(
-            f"{name}: no gradient through CUDA tensors yet (differentiable "
-            f"on the CPU; afb2d / sfb2d are on both)")
+# The one-axis transposes run on K14's / K15's adjoints, which filter both
+# axes at stride 2: the other axis is read as twice as long, with the
+# one-tap filter e = (1, 0) on it.  Its even positions are the samples,
+# its odd ones a dummy that e weights by 0; a window of e reads positions
+# 2m and 2m + 1 only (no pad in any mode), so output m along that axis is
+# sample m (analysis), and the synthesis puts sample j at position 2j.
+_ONE_TAP = np.array([1.0, 0.0])
+
+
+def _one_axis_psfs(taps, axis, k=None):
+    """The PSFs outer(e, t) (``axis`` 3) or outer(t, e) (``axis`` 2) of
+    each tap vector of ``taps``, padded with zero PSFs to ``k``."""
+    f = [np.outer(_ONE_TAP, t) if axis == 3 else np.outer(t, _ONE_TAP)
+         for t in taps]
+    f += [np.zeros_like(f[0])] * ((k or len(f)) - len(f))
+    return np.stack(f)
+
+
+class _AFB1D(torch.autograd.Function):
+    """x (N, C, H, W) -> the (N, C, 2, ...) split along ``axis`` (K6
+    ``afb1d_corr``; correlation-order taps).  Backward: the exact
+    transpose, K14's adjoint on the separable split's plan with the PSFs
+    of :func:`_one_axis_psfs` on an input twice as long across the axis
+    (one launch), whose even positions are dx (what ``jax.vjp`` of the
+    JAX ``afb1d`` gives, in every mode)."""
+
+    @staticmethod
+    def forward(ctx, x, h0, h1, mode, axis):
+        ctx.args = (h0, h1, mode, axis, tuple(x.shape[2:]))
+        return afb1d_corr(x, h0, h1, mode, axis)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        from pytorch_wavelets_tpu_torch.ops.nonsep import nonsep_afb_adjoint
+        h0, h1, mode, axis, (H, W) = ctx.args
+        f = _one_axis_psfs((h0, h1), axis)
+        if axis == 3:
+            # positional separable=True: the launch recorders pass no
+            # keywords
+            dx = nonsep_afb_adjoint(dy, f, mode, 2 * H, W, True)[:, :, 0::2]
+        else:
+            dx = nonsep_afb_adjoint(dy, f, mode, H, 2 * W, True)[..., 0::2]
+        return dx, None, None, None, None
+
+
+class _SFB1D(torch.autograd.Function):
+    """lo, hi (N, C, H, W) -> the merge along ``axis`` (K7 ``sfb1d_conv``;
+    convolution-order taps).  Backward: the exact transpose, K15's
+    adjoint on the separable plan with the PSFs of :func:`_one_axis_psfs`
+    (two of them zero: K15 takes four bands) on a cotangent spread to the
+    even positions of an axis twice as long (one launch)."""
+
+    @staticmethod
+    def forward(ctx, lo, hi, g0, g1, mode, axis):
+        ctx.args = (g0, g1, mode, axis, tuple(lo.shape[2:]))
+        return sfb1d_conv(lo, hi, g0, g1, mode, axis)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        from pytorch_wavelets_tpu_torch.ops.nonsep import nonsep_sfb_adjoint
+        g0, g1, mode, axis, (H, W) = ctx.args
+        f = _one_axis_psfs((g0, g1), axis, 4)
+        shape = list(dy.shape)
+        shape[2 if axis == 3 else 3] *= 2      # the other axis, doubled
+        dy2 = dy.new_zeros(shape)
+        if axis == 3:
+            dy2[:, :, 0::2] = dy
+        else:
+            dy2[..., 0::2] = dy
+        dc = nonsep_sfb_adjoint(dy2, f, mode, H, W, True)
+        return dc[:, :, 0], dc[:, :, 1], None, None, None, None
 
 
 def afb1d(x, h0, h1, mode="zero", axis=-1):
-    """Analysis filterbank with pywt-ordered dec_lo/dec_hi filters
-    (differentiable on the CPU only)."""
-    _no_card_gradient("afb1d", x)
-    return afb1d_corr(x, as_taps(h0)[::-1], as_taps(h1)[::-1], mode, axis)
+    """Analysis filterbank with pywt-ordered dec_lo/dec_hi filters: one K6
+    launch on CUDA; differentiable, backward the exact transpose (K14's
+    adjoint)."""
+    return _AFB1D.apply(x, np.ascontiguousarray(as_taps(h0)[::-1]),
+                        np.ascontiguousarray(as_taps(h1)[::-1]), mode,
+                        axis % 4)
 
 
 def sfb1d(lo, hi, g0, g1, mode="zero", axis=-1):
-    """Synthesis filterbank with pywt-ordered rec_lo/rec_hi filters
-    (differentiable on the CPU only)."""
-    _no_card_gradient("sfb1d", lo, hi)
-    return sfb1d_conv(lo, hi, as_taps(g0), as_taps(g1), mode, axis)
+    """Synthesis filterbank with pywt-ordered rec_lo/rec_hi filters: one K7
+    launch on CUDA; differentiable, backward the exact transpose (K15's
+    adjoint)."""
+    return _SFB1D.apply(lo, hi, as_taps(g0), as_taps(g1), mode, axis % 4)
 
 
 def _afb2d_corr(x, h0c, h1c, h0r, h1r, mode):

@@ -8,9 +8,13 @@ one spatial axis:  col op:  y[m, w] = sum_h T[m, h] x[h, w]
 
 T is built on the host by *probing* the conv path with an identity image
 (the ops are linear, so op(I) IS the operator matrix), in fp32 on the CPU.
-On the device the product is kernel K1 (``csrc/banded_apply.cu``), which
-skips the zero tiles of T through a per-tile segment table
-(:func:`_band_plan`); its plain PyTorch version is a dense ``einsum``.
+On the device the product is kernel K1 (``csrc/banded_apply.cu``, IEEE
+fp32) or, at the matmul precision levels "high" and "default" and on bf16
+data, kernel K17 (``csrc/banded_apply_tc.cu``, the tensor cores in
+3xTF32, TF32 or bf16: :func:`kernel_mode`).  Both skip the zero tiles of
+T through one per-tile segment table (:func:`_band_plan`).  The plain
+PyTorch versions are dense ``einsum``s: exact fp32 (the CPU path at every
+level), and one per K17 mode that rounds as the mode does.
 """
 from __future__ import annotations
 
@@ -21,10 +25,11 @@ import torch
 
 from pytorch_wavelets_tpu_torch.ops import _cuda
 from pytorch_wavelets_tpu_torch.ops.precision import (
-    plain_flags, require_kernel_precision,
+    get_matmul_precision, plain_flags,
 )
 
 __all__ = ["apply_col", "apply_row", "apply_col_plain", "apply_row_plain",
+           "kernel_mode", "K17_MODES",
            "Operator", "probe_op", "compose", "extend_wrap_operator",
            "extend_operator", "synthesized_or_probe", "content_key",
            "set_operator_matmul", "matmul_requested", "composed_enabled",
@@ -282,17 +287,21 @@ def probe_op(fn, n: int, dtype=np.float32) -> np.ndarray:
 
 
 # --------------------------------------------------------------------------
-# K1: the operator product on the device, skipping T's zero tiles
+# K1 and K17: the operator product on the device, skipping T's zero tiles
 #
 # The segment table is planned at K1's own tile: 64 rows of T per output
 # tile, contraction segments aligned to its 16-deep K step (both fixed in
-# csrc/banded_apply.cu, checked when the library loads).  Every operator
-# takes the table: a dense tile is one full segment, so no size threshold
-# decides between a dense and a banded path.
+# csrc/banded_apply.cu and csrc/banded_apply_tc.cu, checked when each
+# library loads).  Every operator takes the table: a dense tile is one
+# full segment, so no size threshold decides between a dense and a banded
+# path.
 # --------------------------------------------------------------------------
 
 _TILE_ROWS = 64
 _K_ALIGN = 16
+# K17's modes, by the code its C entries take
+K17_MODES = {"tf32": 0, "3xtf32": 1, "bf16": 2}
+_LEVEL_MODES = {"highest": "fp32", "high": "3xtf32", "default": "tf32"}
 
 _PLAN_CACHE: dict = {}
 
@@ -329,12 +338,26 @@ def _band_plan(T: np.ndarray, tile: int = _TILE_ROWS,
     return chunks
 
 
+def kernel_mode(dtype) -> str:
+    """The arithmetic of an operator product on a CUDA tensor of ``dtype``
+    at the current matmul precision level: 'fp32' (K1) for fp32 at
+    'highest', else K17's mode: '3xtf32' ('high'), 'tf32' ('default'),
+    'bf16' (bf16 data, every level).  Any other dtype is 'fp32', whose
+    checks refuse it."""
+    if dtype == torch.bfloat16:
+        return "bf16"
+    if dtype == torch.float32:
+        return _LEVEL_MODES[get_matmul_precision()]
+    return "fp32"
+
+
 class Operator:
     """A constant operator matrix T (M x K) on one device: the matrix (fp32
     by default; a float64 ``dtype`` keeps a float64 operator for the plain
     versions' float64 inputs) and, on CUDA, K1's tile -> segment table
     (``seg_ptr[t]:seg_ptr[t+1]`` index the ``[k0, k1)`` rows of ``segs``
-    for T-row tile t)."""
+    for T-row tile t).  :meth:`values` gives T in another dtype (bf16 for
+    K17's bf16 mode), made at first use and kept; ``nbytes`` counts it."""
 
     def __init__(self, T: np.ndarray, device, dtype=np.float32):
         T = np.ascontiguousarray(T, dtype=dtype)
@@ -343,6 +366,7 @@ class Operator:
         self.shape = T.shape
         self.nnz = int(np.count_nonzero(T))
         self.T = torch.from_numpy(T).to(device)
+        self._copies = {}
         self.seg_ptr = self.segs = None
         if self.T.is_cuda:
             plan = _band_plan(T)
@@ -353,10 +377,20 @@ class Operator:
             self.seg_ptr = torch.from_numpy(ptr).to(device)
             self.segs = torch.from_numpy(segs).to(device)
 
+    def values(self, dtype) -> torch.Tensor:
+        """T in ``dtype`` (rounded once from the fp32 matrix)."""
+        if dtype == self.T.dtype:
+            return self.T
+        t = self._copies.get(dtype)
+        if t is None:
+            t = self._copies[dtype] = self.T.to(dtype)
+        return t
+
     @property
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size()
-                   for t in (self.T, self.seg_ptr, self.segs)
+                   for t in (self.T, self.seg_ptr, self.segs,
+                             *self._copies.values())
                    if t is not None)
 
 
@@ -383,43 +417,174 @@ def _merged_stride(sizes, strides):
     return 0 if step is None else step
 
 
-_checked_lib = None
+_checked_libs: dict = {}
 
 
-def _lib():
-    global _checked_lib
-    if _checked_lib is None:
-        lib = _cuda.library("banded_apply")
-        if (lib.banded_apply_tile_rows(), lib.banded_apply_k_align()) != \
-                (_TILE_ROWS, _K_ALIGN):
-            raise RuntimeError("csrc/banded_apply.cu tile sizes differ from "
-                               "ops/banded.py's segment planning")
-        _checked_lib = lib
-    return _checked_lib
+def _lib(name):
+    """K1's (``banded_apply``) or K17's (``banded_apply_tc``) library,
+    its tile sizes checked against the segment planning here."""
+    lib = _checked_libs.get(name)
+    if lib is None:
+        lib = _cuda.library(name)
+        sizes = ((lib.banded_apply_tile_rows(), lib.banded_apply_k_align())
+                 if name == "banded_apply" else
+                 (lib.banded_tc_tile_rows(), lib.banded_tc_k_align()))
+        if sizes != (_TILE_ROWS, _K_ALIGN):
+            raise RuntimeError(f"csrc/{name}.cu tile sizes differ from "
+                               f"ops/banded.py's segment planning")
+        _checked_libs[name] = lib
+    return lib
+
+
+_EQ = {"col": "mh,nchw->ncmw", "row": "mw,nchw->nchm"}
+
+
+def _into(y, out, accumulate):
+    """A plain version's product, returned, added to ``out`` (a new
+    tensor, as the JAX sum) or written into it, in ``out``'s dtype."""
+    if out is None:
+        return y
+    if accumulate:
+        return (out.to(y.dtype) + y).to(out.dtype)
+    return out.copy_(y)
 
 
 def apply_col_plain(x, T, out=None, accumulate=True):
-    """Plain PyTorch version of :func:`apply_col` (dense einsum)."""
+    """Plain PyTorch version of :func:`apply_col` (dense einsum; on a
+    CUDA tensor IEEE fp32, as K1)."""
     T = _operator(T, x.device).T.to(x.dtype)
     with plain_flags():
-        y = torch.einsum("mh,nchw->ncmw", T, x)
-    if out is None:
-        return y
-    if accumulate:
-        return out + y
-    return out.copy_(y)
+        y = torch.einsum(_EQ["col"], T, x)
+    return _into(y, out, accumulate)
 
 
 def apply_row_plain(x, T, out=None, accumulate=True):
-    """Plain PyTorch version of :func:`apply_row` (dense einsum)."""
+    """Plain PyTorch version of :func:`apply_row` (dense einsum; on a
+    CUDA tensor IEEE fp32, as K1)."""
     T = _operator(T, x.device).T.to(x.dtype)
     with plain_flags():
-        y = torch.einsum("mw,nchw->nchm", T, x)
-    if out is None:
+        y = torch.einsum(_EQ["row"], T, x)
+    return _into(y, out, accumulate)
+
+
+def _tf32(t):
+    """fp32 values rounded to TF32 (10 mantissa bits), to nearest, ties
+    away from zero: K17's ``cvt.rna.tf32.f32``."""
+    b = t.float().contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tc_plain(entry, mode):
+    """The plain version of K17's ``entry`` in ``mode``: the dense einsum
+    in IEEE fp32 on operands rounded as the mode rounds them, the result
+    in the input's dtype."""
+    def plain(x, T, out=None, accumulate=True):
+        Tv, xv = _operator(T, x.device).T.float(), x.float()
+        eq = _EQ[entry]
+        with plain_flags():
+            if mode == "tf32":
+                y = torch.einsum(eq, _tf32(Tv), _tf32(xv))
+            elif mode == "3xtf32":
+                Tb, xb = _tf32(Tv), _tf32(xv)
+                Ts, xs = _tf32(Tv - Tb), _tf32(xv - xb)
+                y = (torch.einsum(eq, Ts, xb) + torch.einsum(eq, Tb, xs)
+                     + torch.einsum(eq, Tb, xb))
+            else:   # bf16: T rounded to bf16, x bf16, summed in fp32
+                y = torch.einsum(eq, Tv.to(torch.bfloat16).float(), xv)
+        if out is None:
+            return y.to(x.dtype)
+        return _into(y, out, accumulate)
+    plain.__name__ = plain.__qualname__ = f"apply_{entry}_{mode}_plain"
+    plain.__doc__ = (f"Plain PyTorch version of :func:`apply_{entry}_"
+                     f"{mode}` (K17 {entry} entry, {mode} mode).")
+    return plain
+
+
+def _launch(entry, x, op, out, accumulate, mode):
+    """Check ``x`` and ``out`` against the operator, allocate the output
+    (in ``x``'s dtype) and launch K1 (``mode`` 'fp32') or K17's mode."""
+    kernel = f"banded_apply_{entry}" if mode == "fp32" else \
+        f"banded_tc_{entry} ({mode})"
+    _cuda.check_inputs(kernel, x, *(() if out is None else (out,)),
+                       dtypes=(torch.bfloat16,) if mode == "bf16"
+                       else (torch.float32,))
+    M = op.shape[0]
+    if entry == "col":
+        N, C, K, Wc = x.shape
+        sx = _merged_stride((N, C), x.stride()[:2])
+        if K != op.shape[1] or sx is None or (Wc > 1 and x.stride(3) != 1):
+            raise ValueError(f"{kernel}: input {tuple(x.shape)} with "
+                             f"strides {x.stride()} does not fit operator "
+                             f"{op.shape} (planes must be uniformly "
+                             f"strided, columns contiguous)")
+        shape = (N, C, M, Wc)
+    else:
+        N, C, H, K = x.shape
+        sx = _merged_stride((N, C, H), x.stride()[:3])
+        if K != op.shape[1] or sx is None or (K > 1 and x.stride(3) != 1):
+            raise ValueError(f"{kernel}: input {tuple(x.shape)} with "
+                             f"strides {x.stride()} does not fit operator "
+                             f"{op.shape} (rows must be uniformly strided, "
+                             f"columns contiguous)")
+        shape = (N, C, H, M)
+    y = torch.empty(shape, device=x.device, dtype=x.dtype) if out is None \
+        else out
+    outer = 2 if entry == "col" else 3
+    sy = _merged_stride(shape[:outer], y.stride()[:outer])
+    if (tuple(y.shape) != shape or sy is None
+            or (shape[3] > 1 and y.stride(3) != 1)):
+        what = "planes" if outer == 2 else "rows"
+        raise ValueError(f"{kernel}: out {tuple(y.shape)} with strides "
+                         f"{y.stride()} is not a {shape} tensor with "
+                         f"uniformly strided {what} and contiguous columns")
+    acc = int(out is not None and accumulate)
+    T = op.values(x.dtype).data_ptr()
+    lib = _lib("banded_apply" if mode == "fp32" else "banded_apply_tc")
+    extra = () if mode == "fp32" else (K17_MODES[mode],)
+    if entry == "col":
+        rc = (lib.banded_apply_col if mode == "fp32" else lib.banded_tc_col)(
+            T, x.data_ptr(), y.data_ptr(), op.seg_ptr.data_ptr(),
+            op.segs.data_ptr(), M, K, Wc, N * C, x.stride(2), sx,
+            y.stride(2), sy, acc, *extra, _cuda.stream_of(x))
+    else:
+        rc = (lib.banded_apply_row if mode == "fp32" else lib.banded_tc_row)(
+            x.data_ptr(), T, y.data_ptr(), op.seg_ptr.data_ptr(),
+            op.segs.data_ptr(), N * C * H, K, M, sx, sy, acc, *extra,
+            _cuda.stream_of(x))
+    _cuda.check(lib, kernel, rc)
+    return y
+
+
+def _k17(entry, mode):
+    """K17's wrapper of ``entry`` in ``mode``, with its own launch count.
+    CPU tensors take its plain version."""
+    plain = _tc_plain(entry, mode)
+
+    def wrapper(x, T, out=None, accumulate=True):
+        op = _operator(T, x.device)
+        if x.device.type == "cpu":
+            return plain(x, op, out, accumulate)
+        y = _launch(entry, x, op, out, accumulate, mode)
+        wrapper.launches += 1
         return y
-    if accumulate:
-        return out + y
-    return out.copy_(y)
+    wrapper.__name__ = wrapper.__qualname__ = f"apply_{entry}_{mode}"
+    wrapper.__doc__ = (f"K17's {entry} entry in its {mode} mode, with the "
+                       f"arguments of :func:`apply_{entry}`.")
+    wrapper.launches = 0
+    return wrapper, plain
+
+
+apply_col_tf32, apply_col_tf32_plain = _k17("col", "tf32")
+apply_col_3xtf32, apply_col_3xtf32_plain = _k17("col", "3xtf32")
+apply_col_bf16, apply_col_bf16_plain = _k17("col", "bf16")
+apply_row_tf32, apply_row_tf32_plain = _k17("row", "tf32")
+apply_row_3xtf32, apply_row_3xtf32_plain = _k17("row", "3xtf32")
+apply_row_bf16, apply_row_bf16_plain = _k17("row", "bf16")
+
+
+def _k17_wrapper(entry, mode):
+    """K17's wrapper of ``entry`` in ``mode`` (``apply_{entry}_{mode}``)."""
+    return globals()[f"apply_{entry}_{mode}"]
 
 
 def apply_col(x, T, out=None, accumulate=True):
@@ -432,37 +597,18 @@ def apply_col(x, T, out=None, accumulate=True):
     ``dz[..., go:go + gn]`` of a wider tensor), and ``out`` is returned.
 
     CPU tensors take :func:`apply_col_plain`; CUDA tensors launch K1's
-    column entry (planes over the grid, any uniform plane stride and row
-    stride, unit column stride, for the input and the output alike).
+    column entry (fp32 at 'highest') or K17's in the mode
+    :func:`kernel_mode` names (planes over the grid, any uniform plane
+    stride and row stride, unit column stride, for the input and the
+    output alike).  The output has ``x``'s dtype.
     """
     op = _operator(T, x.device)
     if x.device.type == "cpu":
         return apply_col_plain(x, op, out, accumulate)
-    _cuda.check_inputs("banded_apply_col", x, *(() if out is None else (out,)))
-    N, C, K, Wc = x.shape
-    M = op.shape[0]
-    sx = _merged_stride((N, C), x.stride()[:2])
-    if K != op.shape[1] or sx is None or (Wc > 1 and x.stride(3) != 1):
-        raise ValueError(f"banded_apply_col: input {tuple(x.shape)} with "
-                         f"strides {x.stride()} does not fit operator "
-                         f"{op.shape} (planes must be uniformly strided, "
-                         f"columns contiguous)")
-    if out is None:
-        y = torch.empty((N, C, M, Wc), device=x.device, dtype=torch.float32)
-    else:
-        y = out
-    sy = _merged_stride((N, C), y.stride()[:2])
-    if (tuple(y.shape) != (N, C, M, Wc) or sy is None
-            or (Wc > 1 and y.stride(3) != 1)):
-        raise ValueError(f"banded_apply_col: out {tuple(y.shape)} with "
-                         f"strides {y.stride()} is not a {(N, C, M, Wc)} "
-                         f"tensor with uniformly strided planes and "
-                         f"contiguous columns")
-    lib = _lib()
-    _cuda.check(lib, "banded_apply_col", lib.banded_apply_col(
-        op.T.data_ptr(), x.data_ptr(), y.data_ptr(), op.seg_ptr.data_ptr(),
-        op.segs.data_ptr(), M, K, Wc, N * C, x.stride(2), sx, y.stride(2),
-        sy, int(out is not None and accumulate), _cuda.stream_of(x)))
+    mode = kernel_mode(x.dtype)
+    if mode != "fp32":
+        return _k17_wrapper("col", mode)(x, op, out, accumulate)
+    y = _launch("col", x, op, out, accumulate, mode)
     apply_col.launches += 1
     return y
 
@@ -476,41 +622,24 @@ def apply_row(x, T, out=None, accumulate=True):
     view with unit column stride and one uniform row stride.
 
     CPU tensors take :func:`apply_row_plain`; CUDA tensors launch K1's row
-    entry, which reads (N*C*H) rows at one row stride, so a column slice
+    entry (fp32 at 'highest') or K17's in the mode :func:`kernel_mode`
+    names, which reads (N*C*H) rows at one row stride, so a column slice
     of a wider contiguous tensor is read in place.
     """
     op = _operator(T, x.device)
     if x.device.type == "cpu":
         return apply_row_plain(x, op, out, accumulate)
-    _cuda.check_inputs("banded_apply_row", x,
-                       *(() if out is None else (out,)))
-    N, C, H, K = x.shape
-    M = op.shape[0]
-    ldx = _merged_stride((N, C, H), x.stride()[:3])
-    if K != op.shape[1] or ldx is None or (K > 1 and x.stride(3) != 1):
-        raise ValueError(f"banded_apply_row: input {tuple(x.shape)} with "
-                         f"strides {x.stride()} does not fit operator "
-                         f"{op.shape} (rows must be uniformly strided, "
-                         f"columns contiguous)")
-    if out is None:
-        y = torch.empty((N, C, H, M), device=x.device, dtype=torch.float32)
-    else:
-        y = out
-    ldy = _merged_stride((N, C, H), y.stride()[:3])
-    if (tuple(y.shape) != (N, C, H, M) or ldy is None
-            or (M > 1 and y.stride(3) != 1)):
-        raise ValueError(f"banded_apply_row: out {tuple(y.shape)} with "
-                         f"strides {y.stride()} is not a {(N, C, H, M)} "
-                         f"tensor with uniformly strided rows and "
-                         f"contiguous columns")
-    lib = _lib()
-    _cuda.check(lib, "banded_apply_row", lib.banded_apply_row(
-        x.data_ptr(), op.T.data_ptr(), y.data_ptr(), op.seg_ptr.data_ptr(),
-        op.segs.data_ptr(), N * C * H, K, M, ldx, ldy,
-        int(out is not None and accumulate), _cuda.stream_of(x)))
+    mode = kernel_mode(x.dtype)
+    if mode != "fp32":
+        return _k17_wrapper("row", mode)(x, op, out, accumulate)
+    y = _launch("row", x, op, out, accumulate, mode)
     apply_row.launches += 1
     return y
 
 
 apply_col.launches = 0
 apply_row.launches = 0
+
+# K17's wrappers, one launch count per entry and mode
+K17_WRAPPERS = (apply_row_tf32, apply_col_tf32, apply_row_3xtf32,
+                apply_col_3xtf32, apply_row_bf16, apply_col_bf16)

@@ -277,6 +277,7 @@ def _out_for(kernel, x, shape, out):
     return out
 
 
+@_cuda.via_fp32
 def dtcwt_filt(x, taps, axis, mode, out=None, accumulate=False):
     """Non-decimated filter of (N, C, H, W) ``x`` along ``axis`` (2 or 3)
     with correlation-order taps, symmetric boundary for
@@ -306,6 +307,7 @@ def dtcwt_filt(x, taps, axis, mode, out=None, accumulate=False):
     return y
 
 
+@_cuda.via_fp32
 def dtcwt_dfilt(x, ha, hb, highpass, axis, out=None):
     """Q-shift decimation of (N, C, H, W) ``x`` along ``axis`` (a multiple
     of 4 long) by the tap pair (ha, hb), symmetric boundary, (b, a)
@@ -334,6 +336,7 @@ def dtcwt_dfilt(x, ha, hb, highpass, axis, out=None):
     return y
 
 
+@_cuda.via_fp32
 def dtcwt_ifilt(x, ha, hb, highpass, axis, out=None, accumulate=False):
     """Q-shift interpolation of (N, C, H, W) ``x`` along ``axis`` by the
     tap pair (ha, hb) (even length), symmetric boundary: 2n outputs,

@@ -31,10 +31,14 @@ the card alike:
   transposed row operator, and K2 writes the band gradient (K2 is the
   adjoint of K3's combine).
 
+A backward runs its products at the matmul precision level of its forward
+(kept on the autograd context), as JAX's transposes run at the precision
+of the traced forward.
+
 The operators of a plan, and their transposes, live on the device as
 :class:`~.banded.Operator` objects, built once per plan and device by
 :func:`analysis_operators` / :func:`synthesis_operators`.  Double
-backward is not ported (ROADMAP.md, "Still to port").
+backward is not ported (ROADMAP.md, A4).
 """
 from __future__ import annotations
 
@@ -47,6 +51,9 @@ from torch.autograd.function import once_differentiable
 
 from pytorch_wavelets_tpu_torch.ops.banded import (
     Operator, apply_col, apply_row,
+)
+from pytorch_wavelets_tpu_torch.ops.precision import (
+    get_matmul_precision, matmul_precision,
 )
 from pytorch_wavelets_tpu_torch.ops.quad import c2q_unpack, q2c_pack
 
@@ -231,6 +238,7 @@ class _AnalysisPyramid(torch.autograd.Function):
         lls, yh = _analysis(x, ops, o_dim, ri_dim)
         ctx.set_materialize_grads(False)
         ctx.ops, ctx.dims = ops, (o_dim, ri_dim)
+        ctx.level = get_matmul_precision()
         ctx.x_meta = (x.shape, x.dtype, x.device)
         ctx.present = [(ll is not None, h is not None)
                        for ll, h in zip(lls, yh)]
@@ -245,8 +253,10 @@ class _AnalysisPyramid(torch.autograd.Function):
         for has_ll, has_h in ctx.present:
             gls.append(next(it) if has_ll else None)
             ghs.append(next(it) if has_h else None)
-        return (_analysis_adjoint(gls, ghs, ctx.ops, *ctx.dims,
-                                  *ctx.x_meta), None, None, None)
+        with matmul_precision(ctx.level):
+            dx = _analysis_adjoint(gls, ghs, ctx.ops, *ctx.dims,
+                                   *ctx.x_meta)
+        return dx, None, None, None
 
 
 def analysis_pyramid(x, ops, o_dim, ri_dim):
@@ -317,15 +327,17 @@ class _SynthesisPyramid(torch.autograd.Function):
         for j, h in zip(used, bands):
             highs[j] = h
         ctx.ops, ctx.used = ops, used
+        ctx.level = get_matmul_precision()
         ctx.band_shapes = [h.shape for h in bands]
         return _synthesis(ll, highs, ops)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, gy):
-        d_ll, d_bands = _synthesis_adjoint(
-            gy, ctx.ops, ctx.needs_input_grad[2], ctx.used, ctx.band_shapes,
-            ctx.needs_input_grad[3:])
+        with matmul_precision(ctx.level):
+            d_ll, d_bands = _synthesis_adjoint(
+                gy, ctx.ops, ctx.needs_input_grad[2], ctx.used,
+                ctx.band_shapes, ctx.needs_input_grad[3:])
         return (None, None, d_ll, *d_bands)
 
 

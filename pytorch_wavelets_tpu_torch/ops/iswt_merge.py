@@ -61,7 +61,8 @@ def spec_merge(A, B, g0, g1, axis):
     through their strides."""
     if A.device.type == "cpu":
         return spec_merge_plain(A, B, g0, g1, axis)
-    _cuda.check_inputs("spec_merge", A, B, g0, g1, dtype=torch.complex64)
+    _cuda.check_inputs("spec_merge", A, B, g0, g1,
+                       dtypes=(torch.complex64,))
     _check("spec_merge", A, g0, g1, axis)
     if B.shape != A.shape:
         raise ValueError(f"spec_merge: A {tuple(A.shape)} and B "
@@ -85,7 +86,7 @@ def spec_split(Z, g0, g1, axis):
     which reads ``Z`` through its strides."""
     if Z.device.type == "cpu":
         return spec_split_plain(Z, g0, g1, axis)
-    _cuda.check_inputs("spec_split", Z, g0, g1, dtype=torch.complex64)
+    _cuda.check_inputs("spec_split", Z, g0, g1, dtypes=(torch.complex64,))
     _check("spec_split", Z, g0, g1, axis)
     out = torch.empty((2, *Z.shape), device=Z.device, dtype=torch.complex64)
     if out.numel() == 0:

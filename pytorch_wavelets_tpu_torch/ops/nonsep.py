@@ -78,6 +78,12 @@ def outer_filters(h0_col, h1_col, h0_row, h1_row) -> np.ndarray:
 # The kernels' index maps
 # --------------------------------------------------------------------------
 
+def _afb_modes(separable):
+    """The pad modes of ``afb2d_nonsep`` (the JAX ``_nonsep_conv``), and
+    'periodic' too on the separable split's plan (K6 takes it)."""
+    return _AFB_MODES + (("periodic",) if separable else ())
+
+
 def afb_axis_plan(n, L, mode, separable=False):
     """Index plan of the analysis along a length-``n`` axis with L taps:
     ``(out_len, front, pad_code, per, shift)``.  Window m reads padded
@@ -100,7 +106,7 @@ def afb_axis_plan(n, L, mode, separable=False):
         front, back = L - 1 - L // 2, max(L // 2 - 1, 0)
         return (ne + front + back - L) // 2 + 1, front, PAD_CODES[
             "periodic"], 1, 0
-    if mode not in _AFB_MODES:
+    if mode not in _afb_modes(separable):
         raise ValueError(f"Unknown pad type: {mode}")
     out_len = dwt_coeff_len(n, L, mode)
     p = 2 * (out_len - 1) - n + L
@@ -125,6 +131,8 @@ def afb_axis_src(n, front, code, per, shift, p):
     if code == 1:
         r = p % (2 * n)
         return np.where(r < n, r, 2 * n - 1 - r)
+    if code == 3:
+        return p % n
     if n == 1:
         return np.zeros_like(p)
     r = p % (2 * n - 2)
@@ -197,7 +205,7 @@ def nonsep_afb_plain(x, f, mode, separable=False):
             else:
                 xp = pad1d(xp, L - 1 - L // 2, max(L // 2 - 1, 0), axis,
                            "periodic")
-    elif mode in _AFB_MODES:
+    elif mode in _afb_modes(separable):
         out1 = dwt_coeff_len(H, Ly, mode)
         out2 = dwt_coeff_len(W, Lx, mode)
         p1 = 2 * (out1 - 1) - H + Ly
@@ -316,6 +324,7 @@ def _check_planes(kernel, *tensors):
                              f"{tuple(t.shape)}")
 
 
+@_cuda.via_fp32
 def nonsep_afb(x, f, mode):
     """Stride-(2, 2) correlation of every (N, C) plane of ``x`` with the
     (K, Ly, Lx) PSF stack ``f`` (correlation order) after the pads of
@@ -348,6 +357,7 @@ def nonsep_afb(x, f, mode):
     return y
 
 
+@_cuda.via_fp32
 def nonsep_afb_adjoint(dy, f, mode, H, W, separable=False):
     """The transpose of :func:`nonsep_afb` on an (N, C, H, W) input: the
     (N, C, K, H', W') cotangent ``dy`` -> (N, C, H, W).  ``separable``:
@@ -390,6 +400,7 @@ def _sfb_args(kernel, f, Ny, Nx, mode, t, separable=False):
     return Ly, Lx, taps, py, px
 
 
+@_cuda.via_fp32
 def nonsep_sfb(coeffs, f, mode):
     """The 4-band synthesis of (N, C, 4, Ny, Nx) ``coeffs`` with the
     (4, Ly, Lx) filters ``f`` (convolution order): (N, C, H, W).
@@ -420,6 +431,7 @@ def nonsep_sfb(coeffs, f, mode):
     return y
 
 
+@_cuda.via_fp32
 def nonsep_sfb_adjoint(dy, f, mode, Ny, Nx, separable=False):
     """The transpose of :func:`nonsep_sfb` on (N, C, 4, Ny, Nx) bands: the
     (N, C, H, W) cotangent ``dy`` -> (N, C, 4, Ny, Nx).  ``separable``:

@@ -41,6 +41,7 @@ def _check(kernel, t):
                          f"{tuple(t.shape)}")
 
 
+@_cuda.via_fp32
 def avg_pool2_fwd(x):
     """2x2 average pool of the (N, C, H, W) ``x`` (H, W even), read through
     its strides: a contiguous (N, C, H/2, W/2) tensor.  CPU tensors take
@@ -62,6 +63,7 @@ def avg_pool2_fwd(x):
     return y
 
 
+@_cuda.via_fp32
 def avg_pool2_bwd(g):
     """The adjoint of :func:`avg_pool2_fwd` for the (N, C, h, w)
     cotangent ``g`` (any strides): a contiguous (N, C, 2h, 2w) tensor.

@@ -1,18 +1,27 @@
 """Matmul precision policy for the operator-matmul kernels.
 
-Same API as ``pytorch_wavelets_tpu/ops/precision.py``; the levels map to
-Hopper arithmetic:
+Same API as ``pytorch_wavelets_tpu/ops/precision.py``; on a CUDA tensor
+the levels are arithmetic modes of the operator products (``ops/banded.py``):
 
-- ``"highest"`` (default): IEEE fp32 on the CUDA cores.  The hand-written
-  kernels implement this level only.
-- ``"high"``: 3xTF32 and ``"default"``: TF32.  No kernel implements them
-  yet (ROADMAP.md, "Still to port" 7), so a CUDA tensor under
-  either level raises ``NotImplementedError`` rather than silently
-  running fp32.
+==========  ===========================  =====================
+level       fp32 data                    bf16 data
+==========  ===========================  =====================
+"highest"   K1, IEEE fp32 (CUDA cores)   K17 bf16 mode
+"high"      K17 3xTF32 mode              K17 bf16 mode
+"default"   K17 TF32 mode                K17 bf16 mode
+==========  ===========================  =====================
+
+The CUDA-core stencils (K2-K16) compute in fp32 at every level: fp32 is
+at least as exact as either level asks.  The CPU path is the plain
+PyTorch versions, exact fp32 at every level (as JAX's CPU backend is).
+A backward runs its transposes at the level of its forward: the autograd
+Functions that apply operators keep the level on their context, as JAX's
+transposes run at the precision of the traced forward.
 
 The plain PyTorch versions of the kernels run under :func:`plain_flags`,
-which turns TF32 off for ``"highest"`` — for cuBLAS *and* cuDNN, whose
-``allow_tf32`` defaults to True.
+which turns TF32 off for cuBLAS *and* cuDNN (whose ``allow_tf32``
+defaults to True) at every level: K17's modes have plain versions of
+their own that round their operands explicitly (``ops/banded.py``).
 """
 from __future__ import annotations
 
@@ -21,7 +30,7 @@ from contextlib import contextmanager
 import torch
 
 __all__ = ["set_matmul_precision", "get_matmul_precision",
-           "matmul_precision", "require_kernel_precision", "plain_flags"]
+           "matmul_precision", "plain_flags"]
 
 _LEVELS = ("highest", "high", "default")
 
@@ -54,24 +63,13 @@ def matmul_precision(level: str):
         _current = prev
 
 
-def require_kernel_precision(kernel: str) -> None:
-    """Raise unless the current level is one the CUDA kernels implement."""
-    if _current != "highest":
-        raise NotImplementedError(
-            f"{kernel}: matmul precision {_current!r} has no CUDA kernel "
-            f"yet (only 'highest', IEEE fp32); see ROADMAP.md, 'Still to "
-            f"port' 7, precision kernels ('high' = 3xTF32, 'default' = "
-            f"TF32)")
-
-
 @contextmanager
 def plain_flags():
-    """TF32 flags for the plain PyTorch versions: off under 'highest'."""
-    allow = _current != "highest"
+    """TF32 off (cuBLAS and cuDNN) for the plain PyTorch versions."""
     prev = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = allow
-    torch.backends.cudnn.allow_tf32 = allow
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     try:
         yield
     finally:

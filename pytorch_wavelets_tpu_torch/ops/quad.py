@@ -11,7 +11,9 @@ per-level path (``transforms/dtcwt.py``, ``interleaved=True``).
   concatenations of its ``synthesis_pyramid``, and its per-level
   ``c2q`` as ``orientations_to_highs`` uses it.
 
-Both are pure elementwise gathers bound by bytes.  Each has its plain
+Both are pure elementwise gathers bound by bytes, on fp32 or bf16 (both
+tensors of one dtype; bf16 computed in fp32 and rounded once as it is
+stored, ``csrc/elem.cuh``).  Each has its plain
 PyTorch version here (the JAX slicing; per level ``ops/dtcwt_fb.py:q2c``
 / ``c2q``), which CPU tensors take.
 """
@@ -23,6 +25,8 @@ from pytorch_wavelets_tpu_torch.ops import _cuda
 from pytorch_wavelets_tpu_torch.ops.dtcwt_fb import INV_SQRT2, c2q, q2c
 
 __all__ = ["q2c_pack", "q2c_pack_plain", "c2q_unpack", "c2q_unpack_plain"]
+
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _pack_orients(orients):
@@ -68,7 +72,7 @@ def q2c_pack(y, out, orients, interleaved=False):
     """
     if y.device.type == "cpu":
         return q2c_pack_plain(y, out, orients, interleaved)
-    _cuda.check_inputs("q2c_pack", y, out)
+    _cuda.check_inputs("q2c_pack", y, out, dtypes=_DTYPES)
     nm = len(orients)
     if interleaved:
         N, C, nmy, m2, k2 = y.shape
@@ -90,7 +94,8 @@ def q2c_pack(y, out, orients, interleaved=False):
     lib = _cuda.library("q2c_pack")
     _cuda.check(lib, "q2c_pack", lib.q2c_pack(
         y.data_ptr(), out.data_ptr(), N * C, C, m, k, nm,
-        _pack_orients(orients), *addr, *out.stride(), _cuda.stream_of(y)))
+        _pack_orients(orients), *addr, *out.stride(),
+        int(y.dtype == torch.bfloat16), _cuda.stream_of(y)))
     q2c_pack.launches += 1
 
 
@@ -121,7 +126,7 @@ def c2q_unpack(h, orients, interleaved=False):
     """
     if h.device.type == "cpu":
         return c2q_unpack_plain(h, orients, interleaved)
-    _cuda.check_inputs("c2q_unpack", h)
+    _cuda.check_inputs("c2q_unpack", h, dtypes=_DTYPES)
     N, C, no, hh, ww, nri = h.shape
     if (no, nri) != (6, 2):
         raise ValueError(f"c2q_unpack: bands {tuple(h.shape)} are not "
@@ -130,18 +135,19 @@ def c2q_unpack(h, orients, interleaved=False):
     plane = 4 * hh * ww
     if interleaved:
         xq = torch.empty((N, C, nm, 2 * hh, 2 * ww), device=h.device,
-                         dtype=torch.float32)
+                         dtype=h.dtype)
         addr = (nm * plane, plane, 4 * ww, 2, 0, 1, 2 * ww, 2 * ww + 1,
                 INV_SQRT2)
     else:
         xq = torch.empty((N, C, nm * 2 * hh, 2 * ww), device=h.device,
-                         dtype=torch.float32)
+                         dtype=h.dtype)
         addr = (nm * plane, plane, 2 * ww, 1, 0, ww, 2 * hh * ww,
                 2 * hh * ww + ww, 1.0)
     lib = _cuda.library("c2q_unpack")
     _cuda.check(lib, "c2q_unpack", lib.c2q_unpack(
         h.data_ptr(), xq.data_ptr(), N * C, C, hh, ww, nm,
-        _pack_orients(orients), *h.stride(), *addr, _cuda.stream_of(h)))
+        _pack_orients(orients), *h.stride(), *addr,
+        int(h.dtype == torch.bfloat16), _cuda.stream_of(h)))
     c2q_unpack.launches += 1
     return xq
 

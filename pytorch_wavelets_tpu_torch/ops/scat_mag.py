@@ -42,6 +42,7 @@ def _check_bands(kernel, h):
                          f"(N, 6, C, h, w, 2)")
 
 
+@_cuda.via_fp32
 def scat_mag_fwd(h, bias, combine=False):
     """r = sqrt(re^2 + im^2 + bias^2) - bias of the (N, 6, C, h, w, 2)
     bands ``h``, as a contiguous (N, 6, C, h, w) tensor; with ``combine``
@@ -63,6 +64,7 @@ def scat_mag_fwd(h, bias, combine=False):
     return r
 
 
+@_cuda.via_fp32
 def scat_mag_bwd(h, g, bias, combine=False):
     """The bands' gradient g * (re, im) / sqrt(re^2 + im^2 + bias^2) (the
     root summed over C with ``combine``, and g broadcast over C), for the

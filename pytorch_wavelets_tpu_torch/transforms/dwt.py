@@ -14,7 +14,7 @@ give another gradient.  Here each step is a ``torch.autograd.Function``
 that saves no activations; forward and backward call the same
 dispatching wrappers (``ops/afb_sfb.py``: K6 and K7 on CUDA, their plain
 versions on the CPU).  The backwards are ``once_differentiable``: double
-backward is not ported (ROADMAP.md, "Still to port" 10).
+backward is not ported (ROADMAP.md, A4).
 
 The SWT (:func:`swt2d` / :func:`iswt2d`) is differentiated by autodiff in
 the JAX package; here each level of the forward and each least-squares
@@ -37,6 +37,9 @@ from pytorch_wavelets_tpu_torch.ops.afb_sfb import (
 )
 from pytorch_wavelets_tpu_torch.ops.banded import apply_col, apply_row
 from pytorch_wavelets_tpu_torch.ops.iswt_merge import spec_merge, spec_split
+from pytorch_wavelets_tpu_torch.ops.precision import (
+    get_matmul_precision, matmul_precision,
+)
 from pytorch_wavelets_tpu_torch.transforms.plan_cache import (
     budgeted_plan_cache,
 )
@@ -455,17 +458,20 @@ def _merge_plan(taps, dilation, mode, n, device, dtype):
 class _LSMerge(torch.autograd.Function):
     """The least-squares two-band merge along ``axis`` (the JAX
     ``_ls_merge``): lo, hi -> z with the merge ``plan``'s branch.
-    Backward: the plan's exact transpose."""
+    Backward: the plan's exact transpose, at the matmul precision level
+    of the forward."""
 
     @staticmethod
     def forward(ctx, lo, hi, plan, axis):
         ctx.plan, ctx.axis = plan, axis
+        ctx.level = get_matmul_precision()
         return plan.merge(lo, hi, axis)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        dlo, dhi = ctx.plan.split(g, ctx.axis)
+        with matmul_precision(ctx.level):
+            dlo, dhi = ctx.plan.split(g, ctx.axis)
         return dlo, dhi, None, None
 
 
@@ -475,10 +481,9 @@ def ls_merge(lo, hi, taps, dilation, axis, mode):
     dense pinv operator (K1) up to ``_ISWT_PINV_MAX_N`` samples, beyond it
     the FFT merge (cuFFT + K13) for circular modes and banded normal
     equations (K1 with T^T, then K1 with the dense G^{-1}) otherwise."""
-    if lo.is_cuda and lo.dtype != torch.float32:
-        raise TypeError(f"iswt2d: the CUDA kernels take float32, got "
-                        f"{lo.dtype} (SWTInverse(upcast=True) upcasts "
-                        f"sub-fp32 stacks)")
+    if lo.is_cuda and lo.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"iswt2d: the CUDA kernels take float32 or "
+                        f"bfloat16, got {lo.dtype}")
     plan = _merge_plan(taps, dilation, mode, lo.shape[axis], lo.device,
                        lo.dtype)
     return _LSMerge.apply(lo, hi, plan, axis)

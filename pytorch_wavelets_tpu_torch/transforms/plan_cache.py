@@ -4,7 +4,9 @@ A plan is what a transform builds once per shape, filters and device: a
 nested structure of dicts, lists and tuples whose leaves hold the bytes.
 A leaf counts through its ``nbytes``: numpy arrays, ``banded.Operator``,
 and the inverse SWT's merges (``transforms/dwt.py``) define it; any other
-leaf (a number, a name, None) counts nothing.
+leaf (a number, a name, None) counts nothing.  The cached plans are
+counted again whenever a plan is added, so an operator's copy in another
+dtype made after its plan was cached (the bf16 values K17 reads) counts.
 """
 from __future__ import annotations
 
@@ -35,7 +37,6 @@ def budgeted_plan_cache(fn):
     plans near MAX_MATMUL_N hold hundreds of MB of operator matrices each,
     so a count-bounded cache could pin tens of GB of host RAM."""
     cache: "OrderedDict" = OrderedDict()
-    sizes: dict = {}
 
     def wrapper(*args):
         if args in cache:
@@ -43,12 +44,12 @@ def budgeted_plan_cache(fn):
             return cache[args]
         out = fn(*args)
         cache[args] = out
-        sizes[args] = plan_bytes(out) + 1
+        sizes = {k: plan_bytes(v) + 1 for k, v in cache.items()}
         while sum(sizes.values()) > PLAN_CACHE_BUDGET and len(cache) > 1:
             old, _ = cache.popitem(last=False)
             del sizes[old]
         return out
 
-    wrapper.cache_clear = lambda: (cache.clear(), sizes.clear())
+    wrapper.cache_clear = cache.clear
     wrapper.__wrapped__ = fn
     return wrapper

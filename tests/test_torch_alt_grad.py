@@ -156,3 +156,27 @@ def test_atrous_split_gradients(mode, axis):
     bank = (w.dec_lo, w.dec_hi) * 2
     _parity(lambda v: jafb.afb2d_atrous(v, *bank, mode, axis - 1),
             lambda v: pafb.afb2d_atrous(v, *bank, mode, axis - 1), x, 44)
+
+
+@pytest.mark.parametrize("mode", ["zero", "symmetric", "reflect", "periodic",
+                                  "periodization"])
+def test_one_axis_filterbank_gradients(mode):
+    """The public afb1d and sfb1d along both axes (backward K14's / K15's
+    adjoints with a one-tap filter across the other axis, read twice as
+    long): db4 on 9x7, odd sizes and pads longer than neither axis; sfb1d
+    w.r.t. both bands (hi the flipped input)."""
+    from pytorch_wavelets_tpu.filters import wavelet
+    from pytorch_wavelets_tpu.ops import afb_sfb as jafb
+    from pytorch_wavelets_tpu_torch.ops import afb_sfb as pafb
+    w = wavelet("db4")
+
+    def run(lib, flip):
+        def fn(v):
+            return [*(lib.afb1d(v, w.dec_lo, w.dec_hi, mode, a)
+                      for a in (2, 3)),
+                    *(lib.sfb1d(v, flip(v), w.rec_lo, w.rec_hi, mode, a)
+                      for a in (2, 3))]
+        return fn
+    _parity(run(jafb, lambda v: jnp.flip(v, -1)),
+            run(pafb, lambda v: torch.flip(v, [-1])), rand((2, 3, 9, 7), 42),
+            43)

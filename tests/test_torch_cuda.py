@@ -102,27 +102,31 @@ def test_apply_row(dev, R, K, Kout, band):
     assert banded.apply_row.launches == n0 + 1
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
 @pytest.mark.parametrize("o_dim,ri_dim", [(2, -1), (1, 3), (0, 5), (4, 2)])
-def test_q2c_pack_and_c2q_unpack(dev, o_dim, ri_dim):
+def test_q2c_pack_and_c2q_unpack(dev, o_dim, ri_dim, dtype):
+    """K2/K3 against their plain versions computed in fp32 and rounded
+    once to ``dtype`` (as the kernels round bf16), bit for bit."""
     from pytorch_wavelets_tpu_torch.transforms.dtcwt import get_dimensions5
     od, rd, _, _ = get_dimensions5(o_dim, ri_dim)
     N, C, m, k = 2, 3, 5, 7
     orients = ((2, 3), (1, 4))
-    y = torch.from_numpy(_rand((N, C, 2 * 2 * m, 2 * k), 6)).to(dev)
+    y = torch.from_numpy(_rand((N, C, 2 * 2 * m, 2 * k), 6)).to(dev, dtype)
     shape = [N, C, m, k]
     shape.insert(od, 6)
     shape.insert(rd, 2)
-    h_got = torch.zeros(shape, device=dev)
+    h_got = torch.zeros(shape, device=dev, dtype=dtype)
     h_want = torch.zeros(shape, device=dev)
     quad.q2c_pack(y, fused_dtcwt.canonical_bands(h_got, od, rd), orients)
-    quad.q2c_pack_plain(y, fused_dtcwt.canonical_bands(h_want, od, rd),
-                        orients)
-    torch.testing.assert_close(h_got, h_want, rtol=0, atol=0)
+    quad.q2c_pack_plain(y.float(),
+                        fused_dtcwt.canonical_bands(h_want, od, rd), orients)
+    torch.testing.assert_close(h_got, h_want.to(dtype), rtol=0, atol=0)
     hc = fused_dtcwt.canonical_bands(
-        torch.from_numpy(_rand(shape, 7)).to(dev), od, rd)
-    torch.testing.assert_close(quad.c2q_unpack(hc, orients),
-                               quad.c2q_unpack_plain(hc, orients),
-                               rtol=0, atol=0)
+        torch.from_numpy(_rand(shape, 7)).to(dev, dtype), od, rd)
+    torch.testing.assert_close(
+        quad.c2q_unpack(hc, orients),
+        quad.c2q_unpack_plain(hc.float(), orients).to(dtype), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("shape,J,kw", [
@@ -151,16 +155,20 @@ def test_perfect_reconstruction(dev):
 
 
 def test_cuda_path_refuses(dev):
-    """A raw kernel call that would need a gradient, the 'high' precision
-    level, float64 and a CPU input to a CUDA module raise; the modules
-    themselves differentiate (see the gradient tests)."""
+    """A raw kernel call that would need a gradient, float64 and a CPU
+    input to a CUDA module raise; the 'high' precision level runs K17's
+    3xTF32 mode; the modules themselves differentiate (see the gradient
+    tests)."""
     f = tt.DTCWTForward(J=2, device=dev)
     x = torch.from_numpy(_rand((1, 1, 32, 32), 10)).to(dev)
     op = banded.Operator(np.eye(32, dtype=np.float32), dev)
     with pytest.raises(NotImplementedError, match="raw kernel call"):
         banded.apply_col(x.clone().requires_grad_(), op)
-    with tt.matmul_precision("high"), pytest.raises(NotImplementedError):
+    ops.reset_launches()
+    with tt.matmul_precision("high"):
         f(x)
+    counts = ops.launch_counts()
+    assert counts["apply_row_3xtf32"] > 0 and counts["apply_row"] == 0
     with pytest.raises(TypeError):
         f(x.double())
     with pytest.raises(ValueError):
@@ -357,7 +365,7 @@ def test_dwt_refuses(dev):
         tt.DWTForward(device=dev)(x.double())
     with pytest.raises(ValueError, match="1..128"):
         afb_sfb.afb1d_corr(x, np.ones(129), np.ones(129), "zero", 3)
-    with tt.matmul_precision("high"), pytest.raises(NotImplementedError):
+    with tt.matmul_precision("high"):   # K6 computes in fp32 at every level
         tt.DWTForward(device=dev)(x)
 
 
@@ -589,31 +597,36 @@ def test_avg_pool2(dev):
             pool.avg_pool2_bwd.launches) == (n0[0] + 1, n0[1] + 1)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
 @pytest.mark.parametrize("o_dim,ri_dim", [(2, -1), (1, 3), (1, -1), (4, 2)])
-def test_q2c_c2q_interleaved(dev, o_dim, ri_dim):
+def test_q2c_c2q_interleaved(dev, o_dim, ri_dim, dtype):
     """K2/K3 in their per-level mode (interleaved corners, 1/sqrt2)
-    against the plain q2c / c2q, exactly, from a strided stack of
-    (lh, hl, hh) into and out of every layout."""
+    against the plain q2c / c2q computed in fp32 and rounded once to
+    ``dtype``, exactly, from a strided stack of (lh, hl, hh) into and out
+    of every layout."""
     from pytorch_wavelets_tpu_torch.transforms import dtcwt as plev
     od, rd, _, _ = plev.get_dimensions5(o_dim, ri_dim)
     N, C, m, k = 2, 3, 5, 7
-    wide = torch.from_numpy(_rand((N, C, 3, 2 * m, 2 * k + 2), 58)).to(dev)
+    wide = torch.from_numpy(_rand((N, C, 3, 2 * m, 2 * k + 2), 58)).to(
+        dev, dtype)
     y = wide[..., 1:1 + 2 * k]
     shape = [N, C, m, k]
     shape.insert(od, 6)
     shape.insert(rd, 2)
-    got, want = torch.zeros(shape, device=dev), torch.zeros(shape,
-                                                            device=dev)
+    got = torch.zeros(shape, device=dev, dtype=dtype)
+    want = torch.zeros(shape, device=dev)
     orients = ((0, 5), (2, 3), (1, 4))
     quad.q2c_pack(y, fused_dtcwt.canonical_bands(got, od, rd), orients,
                   interleaved=True)
-    quad.q2c_pack_plain(y, fused_dtcwt.canonical_bands(want, od, rd),
+    quad.q2c_pack_plain(y.float(), fused_dtcwt.canonical_bands(want, od, rd),
                         orients, interleaved=True)
-    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(got, want.to(dtype), rtol=0, atol=0)
     hc = fused_dtcwt.canonical_bands(got, od, rd)
-    torch.testing.assert_close(quad.c2q_unpack(hc, orients, True),
-                               quad.c2q_unpack_plain(hc, orients, True),
-                               rtol=0, atol=0)
+    torch.testing.assert_close(
+        quad.c2q_unpack(hc, orients, True),
+        quad.c2q_unpack_plain(hc.float(), orients, True).to(dtype),
+        rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("kw", [dict(J=3), dict(J=2, o_dim=1, ri_dim=3,
@@ -870,14 +883,15 @@ def test_swt_sum_backward(dev):
 
 
 def test_swt_refuses(dev):
-    """The CUDA kernels take fp32: float64 and bf16 stacks with
-    upcast=False raise on the card (the CPU path takes them)."""
+    """The CUDA kernels take fp32 and bf16: float64 raises on the card
+    (the CPU path takes it); bf16 stacks with upcast=False run (K17's bf16
+    mode) and return bf16."""
     x = torch.zeros((1, 1, 16, 16), device=dev)
     with pytest.raises(TypeError, match="float32"):
         tt.SWTForward(device=dev)(x.double())
     ys = tt.SWTForward(J=1, coeff_dtype="bfloat16", device=dev)(x)
-    with pytest.raises(TypeError, match="float32"):
-        tt.SWTInverse(upcast=False, device=dev)(ys)
+    assert tt.SWTInverse(upcast=False, device=dev)(ys).dtype == \
+        torch.bfloat16
     assert tt.SWTInverse(device=dev)(ys).dtype == torch.float32
 
 
@@ -1129,25 +1143,36 @@ def test_sfb2d_and_atrous_gradients_match_cpu(dev, mode):
     assert ops.launch_counts()["afb1d_atrous_adjoint"] == 3
 
 
-def test_one_axis_filterbanks_raise_for_card_gradients(dev):
-    """afb1d / sfb1d have no kernel for their exact transpose yet: a CUDA
-    input that needs a gradient raises; without one they run K6 / K7."""
+@pytest.mark.parametrize("mode", ["zero", "symmetric", "reflect",
+                                  "periodic", "periodization"])
+def test_one_axis_filterbanks_raise_for_card_gradients(dev, mode):
+    """afb1d / sfb1d differentiate on the card: the gradients of both,
+    along both axes, match the CPU's within 1e-5 in every mode (K6 / K7
+    forward, K14's / K15's adjoints backward), odd sizes and db4's pads
+    longer than the axis included."""
     from pytorch_wavelets_tpu_torch.filters import wavelet
     from pytorch_wavelets_tpu_torch.ops import afb_sfb
-    w = wavelet("db2")
-    x = torch.from_numpy(_rand((2, 3, 8, 10), 128)).to(dev)
-    xg = x.clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="afb1d"):
-        afb_sfb.afb1d(xg, w.dec_lo, w.dec_hi, "zero", 3)
-    with pytest.raises(NotImplementedError, match="sfb1d"):
-        afb_sfb.sfb1d(xg, x, w.rec_lo, w.rec_hi, "zero", 3)
-    with torch.no_grad():
-        y = afb_sfb.afb1d(xg, w.dec_lo, w.dec_hi, "zero", 3)
-        z = afb_sfb.sfb1d(x, x, w.rec_lo, w.rec_hi, "zero", 3)
-    torch.testing.assert_close(y.cpu(), afb_sfb.afb1d(
-        x.cpu(), w.dec_lo, w.dec_hi, "zero", 3), **STENCIL_TOL)
-    torch.testing.assert_close(z.cpu(), afb_sfb.sfb1d(
-        x.cpu(), x.cpu(), w.rec_lo, w.rec_hi, "zero", 3), **STENCIL_TOL)
+    w = wavelet("db4")
+    ops.reset_launches()
+    # 3 samples: db4's pads longer than the axis ('periodization' only:
+    # the other modes' merges of 3 samples are empty)
+    small = (1, 2, 3, 5) if mode == "periodization" else (1, 2, 4, 7)
+    for axis in (2, 3):
+        for shape in ((2, 3, 9, 10), small):
+            def split(d):
+                return lambda x: afb_sfb.afb1d(x, w.dec_lo, w.dec_hi, mode,
+                                               axis)
+
+            def merge(d):
+                return lambda x: afb_sfb.sfb1d(x, 2 * x, w.rec_lo, w.rec_hi,
+                                               mode, axis)
+            for fn in (split, merge):
+                cpu, gpu = _grads(fn, shape, dev, 128)
+                for a, b in zip(cpu, gpu):
+                    torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-5)
+    counts = ops.launch_counts()
+    assert counts["nonsep_afb_adjoint"] == 4
+    assert counts["nonsep_sfb_adjoint"] == 4
 
 
 @pytest.mark.parametrize("mode", ["periodization", "symmetric"])
@@ -1202,3 +1227,247 @@ def test_modules_take_non_contiguous_inputs(dev, module, layout):
     assert not src.is_contiguous() and torch.equal(src, x)
     for a, b in zip(_flat(m(src)), _flat(m(x))):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# K17: the operator product on the tensor cores (TF32, 3xTF32, bf16), and
+# the precision levels and bf16 through the modules
+# ---------------------------------------------------------------------------
+
+# K17 against its modes' plain versions: the same rounded operands, fp32
+# sums in another order (rtol 1e-5 + atol 1e-5); a bf16 output is that sum
+# rounded once, and a sum within 1e-5 of a rounding midpoint may round to
+# the neighbouring bf16 value (one step: at most 2^-7 relative)
+K17_TOL = {"tf32": KTOL, "3xtf32": KTOL,
+           "bf16": dict(rtol=2.0 ** -7, atol=1e-5)}
+K17_DTYPE = {"tf32": torch.float32, "3xtf32": torch.float32,
+             "bf16": torch.bfloat16}
+
+
+def _k17(entry, mode):
+    return (getattr(banded, f"apply_{entry}_{mode}"),
+            getattr(banded, f"apply_{entry}_{mode}_plain"))
+
+
+@pytest.mark.parametrize("mode", ["tf32", "3xtf32", "bf16"])
+@pytest.mark.parametrize("M,K,W,band", [
+    (70, 45, 33, None), (256, 128, 100, 9), (1920, 512, 40, 20),
+    (64, 2048, 65, None)])
+def test_k17_col(dev, mode, M, K, W, band):
+    """Column entry: a column slice as input, a new output, accumulation
+    into a copy, and a write through a column slice of a wider tensor;
+    banded operators skip tiles through the segment table."""
+    kern, plain = _k17("col", mode)
+    dt = K17_DTYPE[mode]
+    op = banded.Operator(_banded_op(M, K, 1, band), dev)
+    wide = torch.from_numpy(_rand((2, 3, K, W + 7), 2)).to(dev, dt)
+    x = wide[..., 3:3 + W]
+    out = torch.from_numpy(_rand((2, 3, M, W), 3)).to(dev, dt)
+    n0 = kern.launches
+    torch.testing.assert_close(kern(x, op), plain(x, op), **K17_TOL[mode])
+    torch.testing.assert_close(kern(x, op, out.clone()), plain(x, op, out),
+                               **K17_TOL[mode])
+    big = torch.zeros((2, 3, M, W + 30), device=dev, dtype=dt)
+    got = kern(x, op, big[..., 10:10 + W], accumulate=False)
+    torch.testing.assert_close(got, plain(x, op), **K17_TOL[mode])
+    assert big[..., :10].abs().max() == 0 and big[..., 10 + W:].abs().max() \
+        == 0
+    assert kern.launches == n0 + 3
+
+
+@pytest.mark.parametrize("mode", ["tf32", "3xtf32", "bf16"])
+@pytest.mark.parametrize("K,M,H,band", [
+    (45, 70, 33, None), (128, 256, 100, 9), (512, 1920, 9, 20)])
+def test_k17_row(dev, mode, K, M, H, band):
+    """Row entry: the rows of a column slice of a wider tensor, a new
+    output and accumulation."""
+    kern, plain = _k17("row", mode)
+    dt = K17_DTYPE[mode]
+    op = banded.Operator(_banded_op(M, K, 4, band), dev)
+    wide = torch.from_numpy(_rand((2, 3, H, K + 20), 5)).to(dev, dt)
+    x = wide[..., 5:5 + K]
+    out = torch.from_numpy(_rand((2, 3, H, M), 6)).to(dev, dt)
+    torch.testing.assert_close(kern(x, op), plain(x, op), **K17_TOL[mode])
+    torch.testing.assert_close(kern(x, op, out.clone()), plain(x, op, out),
+                               **K17_TOL[mode])
+
+
+def test_k17_modes_round_as_stated(dev):
+    """TF32 keeps 10 mantissa bits, 3xTF32 22 (the split drops the
+    small.small product and below), bf16 8: each mode's distance to the
+    IEEE fp32 product is of its order."""
+    op = banded.Operator(_banded_op(256, 256, 7), dev)
+    x = torch.from_numpy(_rand((1, 4, 256, 256), 8)).to(dev)
+    exact = banded.apply_col_plain(x, op)
+    scale = exact.abs().max().item()
+    errs = {}
+    for mode in ("tf32", "3xtf32", "bf16"):
+        kern, plain = _k17("col", mode)
+        y = kern(x.to(K17_DTYPE[mode]), op).float()
+        errs[mode] = (y - exact).abs().max().item() / scale
+    assert errs["3xtf32"] < 1e-5 < errs["tf32"] < 5e-3
+    assert errs["bf16"] < 2e-2
+
+
+def test_k17_dispatch(dev):
+    """apply_col / apply_row launch K1 in fp32 at 'highest', K17's
+    3xTF32 mode at 'high', TF32 at 'default', bf16 on bf16 at every
+    level; float64 still raises."""
+    op = banded.Operator(_banded_op(64, 64, 9), dev)
+    x = torch.from_numpy(_rand((1, 1, 64, 64), 10)).to(dev)
+    for level, dtype, name in (("highest", torch.float32, "apply_col"),
+                               ("high", torch.float32, "apply_col_3xtf32"),
+                               ("default", torch.float32, "apply_col_tf32"),
+                               ("highest", torch.bfloat16, "apply_col_bf16"),
+                               ("default", torch.bfloat16, "apply_col_bf16")):
+        ops.reset_launches()
+        with tt.matmul_precision(level):
+            y = banded.apply_col(x.to(dtype), op)
+        assert y.dtype == dtype
+        assert {k: v for k, v in ops.launch_counts().items() if v} == \
+            {name: 1}, (level, dtype)
+    with pytest.raises(TypeError):
+        banded.apply_col(x.double(), op)
+    with pytest.raises(TypeError):   # mixed dtypes
+        banded.apply_col(x.bfloat16(), op, torch.zeros_like(x))
+
+
+MODULE_NAMES = ("DWTForward", "DWTInverse", "DWT1DForward", "DWT1DInverse",
+                "SWTForward", "SWTInverse", "DTCWTForward", "DTCWTInverse",
+                "ScatLayer", "ScatLayerj2", "DTCWTForward2", "DTCWTInverse2")
+
+
+def _module_pair(name, d):
+    """A module of the twelve and a function of x running it (inverses
+    after their forward), at small sizes."""
+    from pytorch_wavelets_tpu_torch.transforms import dtcwt_alt
+    lib = dtcwt_alt if name.endswith("2") and name.startswith("DTCWT") \
+        else tt
+    fwd_name = name.replace("Inverse", "Forward")
+    kw = dict(upcast=False) if name == "SWTInverse" else {}
+    fwd = getattr(lib, fwd_name)(device=d)
+    if name == fwd_name:
+        return lambda x: fwd(x[:, :, 0] if "1D" in name else x)
+    inv = getattr(lib, name)(device=d, **kw)
+    return lambda x: inv(fwd(x[:, :, 0] if "1D" in name else x))
+
+
+def _flat_outs(out):
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for o in out for t in _flat_outs(o) if t is not None]
+
+
+@pytest.mark.parametrize("name", MODULE_NAMES)
+def test_modules_under_levels_and_bf16(dev, name):
+    """Each public module runs on the card under every precision level
+    and on bf16 (bf16 in, bf16 out): fp32 within 2e-5 of the CPU at
+    'high', 1e-2 at 'default', and bf16 within 2e-2 of max |x| of the CPU
+    fp32 run."""
+    x = torch.from_numpy(_rand((2, 3, 32, 32), 140))
+    with torch.no_grad():
+        ref = _flat_outs(_module_pair(name, "cpu")(x))
+        run = _module_pair(name, dev)
+        for level, tol in (("highest", 2e-5), ("high", 2e-5),
+                           ("default", 1e-2)):
+            with tt.matmul_precision(level):
+                got = _flat_outs(run(x.to(dev)))
+            for a, b in zip(ref, got):
+                assert b.dtype == a.dtype
+                assert (b.cpu() - a).abs().max().item() <= tol, level
+        for level in ("highest", "default"):
+            with tt.matmul_precision(level):
+                got = _flat_outs(run(x.to(dev, torch.bfloat16)))
+            scale = x.abs().max().item()
+            for a, b in zip(ref, got):
+                assert b.dtype == torch.bfloat16
+                err = (b.float().cpu() - a).abs().max().item()
+                assert err <= 2e-2 * max(scale, a.abs().max().item()), level
+
+
+@pytest.mark.parametrize("level", ["high", "default", "bf16"])
+def test_gradients_under_levels(dev, level):
+    """The DTCWT and ScatLayerj2 backward run K17 in the forward's mode
+    (the transposes at the same level), x.grad near the CPU's."""
+    ops.reset_launches()
+    dtype = torch.bfloat16 if level == "bf16" else torch.float32
+    x = torch.from_numpy(_rand((2, 3, 64, 64), 141))
+    grads = {}
+    for d in ("cpu", dev):
+        xt = x.to(d, dtype if d != "cpu" else torch.float32)
+        xt.requires_grad_()
+        f = tt.DTCWTForward(J=2, device=d)
+        i = tt.DTCWTInverse(device=d)
+        s = tt.ScatLayerj2(device=d)
+        with tt.matmul_precision("highest" if level == "bf16" else level):
+            loss = i(f(xt)).float().sum() + s(xt).float().square().sum()
+            grads[str(d)] = torch.autograd.grad(loss, xt)[0].float().cpu()
+    tol = {"high": 2e-5, "default": 1e-2, "bf16": 2e-2}[level]
+    ref = grads["cpu"]
+    assert (grads[str(dev)] - ref).abs().max().item() <= \
+        tol * max(1.0, ref.abs().max().item())
+    counts = ops.launch_counts()
+    mode = {"high": "3xtf32", "default": "tf32", "bf16": "bf16"}[level]
+    assert counts[f"apply_row_{mode}"] > 0 and counts[f"apply_col_{mode}"] > 0
+    assert counts["apply_row"] == counts["apply_col"] == 0
+
+
+@pytest.mark.parametrize("fwd_level,bwd_level", [
+    ("default", "highest"), ("highest", "default"), ("high", "default")])
+def test_backward_runs_at_the_forward_level(dev, fwd_level, bwd_level):
+    """A backward called outside its forward's level launches the
+    forward's mode (K1 at 'highest', K17's 3xTF32 / TF32) and no other:
+    the composed DTCWT pyramids and the SWT merges keep the level."""
+    x = torch.from_numpy(_rand((2, 3, 32, 32), 143)).to(dev)
+    x.requires_grad_()
+    f, i = tt.DTCWTForward(J=2, device=dev), tt.DTCWTInverse(device=dev)
+    sf, si = tt.SWTForward(J=1, device=dev), tt.SWTInverse(device=dev)
+    with tt.matmul_precision(fwd_level):
+        loss = i(f(x)).sum() + si(sf(x)).sum()
+    ops.reset_launches()
+    with tt.matmul_precision(bwd_level):
+        loss.backward()
+    counts = ops.launch_counts()
+    mode = {"highest": "", "high": "_3xtf32", "default": "_tf32"}[fwd_level]
+    products = {k.__name__ for k in banded.K17_WRAPPERS} | {"apply_row",
+                                                            "apply_col"}
+    mine = {f"apply_row{mode}", f"apply_col{mode}"}
+    assert all(counts[k] > 0 for k in mine), counts
+    assert all(counts[k] == 0 for k in products - mine), counts
+
+
+def test_per_level_path_on_bf16(dev):
+    """The per-level stencils (K8-K11 through their wrappers' casts, K2/K3
+    in bf16) under set_operator_matmul(False) and the bandpass-diagonal
+    ScatLayerj2: bf16 in, bf16 out, near the CPU's fp32 (1e-1 of
+    max(1, max |CPU|), reconstructions 2e-2 of max |x|), K1 / K17 never
+    launched."""
+    x = torch.from_numpy(_rand((2, 3, 40, 48), 142))
+    xb = x.to(dev, torch.bfloat16)
+    ops.reset_launches()
+    banded.set_operator_matmul(False)
+    try:
+        with torch.no_grad():
+            f = tt.DTCWTForward(J=3, device=dev)
+            i = tt.DTCWTInverse(device=dev)
+            yl, yh = f(xb)
+            rec = i((yl, yh))
+            fc = tt.DTCWTForward(J=3, device="cpu")
+            ryl, ryh = fc(x)
+            rrec = tt.DTCWTInverse(device="cpu")((ryl, ryh))
+    finally:
+        banded.set_operator_matmul(None)
+    bp = dict(biort="near_sym_b_bp", qshift="qshift_b_bp")
+    z = tt.ScatLayerj2(device=dev, **bp)(xb)
+    rz = tt.ScatLayerj2(device="cpu", **bp)(x)
+    for got, ref in zip([yl, *yh, z], [ryl, *ryh, rz]):
+        assert got.dtype == torch.bfloat16
+        err = (got.float().cpu() - ref).abs().max().item()
+        assert err <= 1e-1 * max(1.0, ref.abs().max().item())
+    assert rec.dtype == torch.bfloat16
+    assert (rec.float().cpu() - rrec).abs().max().item() <= \
+        2e-2 * x.abs().max().item()
+    counts = ops.launch_counts()
+    assert counts["dtcwt_filt"] > 0 and counts["q2c_pack"] > 0
+    assert all(counts[k.__name__] == 0 for k in banded.K17_WRAPPERS)
+    assert counts["apply_row"] == counts["apply_col"] == 0

@@ -5,6 +5,7 @@ VJPs), in every mode, at even and odd sizes, against both JAX paths, at
 the JAX suite's DWT tolerance; and the options: a 4-tuple wave with
 distinct column and row pairs, a Wavelet object, None highs,
 ``coeff_dtype`` and J=0."""
+import functools
 import numpy as np
 import pytest
 import torch
@@ -16,7 +17,7 @@ import pytorch_wavelets_tpu as tw
 
 import pytorch_wavelets_tpu_torch as tt
 from tests.torch_parity import (  # noqa: F401
-    DWT_ATOL, cmp, dwt_grid, dwt_parity, jax_path, rand,
+    DWT_ATOL, FAST, cmp, dwt_grid, dwt_parity, jax_path, rand,
 )
 
 torch.set_num_threads(1)
@@ -41,7 +42,8 @@ def test_wavelet_object():
     x = rand((1, 3, 24, 20), 6)
     w = tt.DWTForward(J=2, wave=tt.filters.wavelet("sym3"), device="cpu")
     jf = tw.DWTForward(J=2, wave=tw.filters.wavelet("sym3"))
-    cmp(w(torch.from_numpy(x)), jax.jit(jf)(jnp.asarray(x)), DWT_ATOL)
+    cmp(w(torch.from_numpy(x)), jax.jit(jf, compiler_options=FAST)(
+        jnp.asarray(x)), DWT_ATOL)
     assert w.filters == tt.DWTForward(J=2, wave="sym3",
                                       device="cpu").filters
 
@@ -55,7 +57,7 @@ def test_none_highs():
                        device="cpu")(torch.from_numpy(x))
     pi = tt.DWTInverse(wave="db3", mode="reflect", device="cpu")
 
-    @jax.jit
+    @functools.partial(jax.jit, compiler_options=FAST)
     def ref(x):
         yl, yh = jf(x)
         return ji((yl, [None, yh[1]])), ji((yl, [yh[0], None]))
@@ -72,7 +74,8 @@ def test_coeff_dtype_bfloat16():
                        device="cpu")(torch.from_numpy(x))
     jf = tw.DWTForward(J=2, wave="db2", coeff_dtype="bfloat16")
     ji = tw.DWTInverse(wave="db2")
-    jy, jrec = jax.jit(lambda x: (jf(x), ji(jf(x))))(jnp.asarray(x))
+    jy, jrec = jax.jit(lambda x: (jf(x), ji(jf(x))),
+                       compiler_options=FAST)(jnp.asarray(x))
     assert py[0].dtype == torch.float32
     assert all(h.dtype == torch.bfloat16 for h in py[1])
     cmp(py[1], [np.asarray(h, dtype=np.float32) for h in jy[1]], DWT_ATOL)

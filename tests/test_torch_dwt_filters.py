@@ -3,6 +3,7 @@ package's, bit for bit; B9's index map == numpy.pad; the index plans that
 kernels K6/K7 evaluate == their plain versions (emulated in numpy); the
 filterbank ops == the JAX ops; taps carried over from JAX modules; the
 module API (exports, aliases, device, mesh)."""
+import functools
 import numpy as np
 import pytest
 import torch
@@ -20,7 +21,7 @@ from pytorch_wavelets_tpu_torch.filters import dwt_coeffs as pcoeffs
 from pytorch_wavelets_tpu_torch.ops import afb_sfb
 from pytorch_wavelets_tpu_torch.ops.pad import PAD_CODES, pad1d, pad_index
 from pytorch_wavelets_tpu_torch.utils import dwt_coeff_len
-from tests.torch_parity import DWT_ATOL, DWT_MODES, cmp, rand
+from tests.torch_parity import DWT_ATOL, DWT_MODES, FAST, cmp, rand
 
 torch.set_num_threads(1)
 
@@ -131,7 +132,7 @@ def test_filterbank_ops(mode):
     x = rand((2, 3, 19, 14), 3)
     band = jnp.asarray(x)
 
-    @jax.jit
+    @functools.partial(jax.jit, compiler_options=FAST)
     def ref(x):
         y1 = jafb.afb1d(x, w.dec_lo, w.dec_hi, mode, 2)
         y2 = jafb.afb2d(x, w.dec_lo, w.dec_hi, w.dec_lo, w.dec_hi, mode)
@@ -173,7 +174,8 @@ def test_filters_from_jax_modules(one_d):
     pf.load_state_dict(dwt_filters_from_jax(jf._filters))
     pi.load_state_dict(dwt_filters_from_jax(ji._filters, synthesis=True))
     x = rand((2, 3, 30) if one_d else (2, 3, 20, 18), 6)
-    jy, jr = jax.jit(lambda x: (jf(x), ji(jf(x))))(jnp.asarray(x))
+    jy, jr = jax.jit(lambda x: (jf(x), ji(jf(x))),
+                     compiler_options=FAST)(jnp.asarray(x))
     py = pf(torch.from_numpy(x))
     cmp(py, jy, DWT_ATOL)
     cmp(pi(py), jr, DWT_ATOL)

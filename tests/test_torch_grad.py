@@ -19,7 +19,7 @@ from pytorch_wavelets_tpu_torch.transforms.dtcwt_xfm import (
     dtcwt_fwd_filters, dtcwt_inv_filters,
 )
 from chip_smoke import adjoint_error
-from tests.torch_parity import jax_path, rand  # noqa: F401
+from tests.torch_parity import FAST, jax_path, rand  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -50,7 +50,7 @@ def _jax_vjp(fn, primals, cts_of):
     def f(*p):
         o, vjp = jax.vjp(fn, *p)
         return o, vjp(cts)
-    return jax.jit(f)(*primals)
+    return jax.jit(f, compiler_options=FAST)(*primals)
 
 
 def _cts(seed, drop=()):

@@ -100,6 +100,11 @@ def test_cpu_tensors_take_plain_versions():
     ops.sfb2d_nonsep(y, [0.5, 0.5], [0.5, -0.5])
     ops.sfb2d_atrous(torch.stack([x] * 4, 2), [1, 1], [1, -1], [1, 1],
                      [1, -1])
+    # every matmul precision level, and bf16 (K17's modes on the card)
+    for level in ("high", "default"):
+        with tt.matmul_precision(level):
+            i(f(x))
+    i(f(x.to(torch.bfloat16)))
     assert ops.launch_counts() == {k.__name__: 0 for k in ops.KERNELS}
     assert set(ops.launch_counts()) == {
         "apply_row", "apply_col", "q2c_pack", "c2q_unpack", "scat_mag_fwd",
@@ -107,7 +112,9 @@ def test_cpu_tensors_take_plain_versions():
         "dtcwt_dfilt", "dtcwt_ifilt", "avg_pool2_fwd", "avg_pool2_bwd",
         "afb1d_atrous_corr", "afb1d_atrous_adjoint", "spec_merge",
         "spec_split", "nonsep_afb", "nonsep_afb_adjoint", "nonsep_sfb",
-        "nonsep_sfb_adjoint", "sfb1d_atrous_conv", "sfb1d_atrous_adjoint"}
+        "nonsep_sfb_adjoint", "sfb1d_atrous_conv", "sfb1d_atrous_adjoint",
+        "apply_row_tf32", "apply_col_tf32", "apply_row_3xtf32",
+        "apply_col_3xtf32", "apply_row_bf16", "apply_col_bf16"}
 
 
 def test_default_device_is_cuda(monkeypatch):
@@ -131,10 +138,16 @@ def test_precision_dial():
     assert tt.get_matmul_precision() == "highest"
     with tt.matmul_precision("high"):
         assert tt.get_matmul_precision() == "high"
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            precision.require_kernel_precision("banded_apply_col")
+        # on the card the levels are K17's modes
+        assert ops.banded.kernel_mode(torch.float32) == "3xtf32"
+        assert ops.banded.kernel_mode(torch.bfloat16) == "bf16"
         # the CPU path is the plain version, which has no TF32
         tt.DTCWTForward(J=1, device="cpu")(torch.zeros(1, 1, 8, 8))
+        with precision.plain_flags():
+            assert not torch.backends.cuda.matmul.allow_tf32
+    with tt.matmul_precision("default"):
+        assert ops.banded.kernel_mode(torch.float32) == "tf32"
+    assert ops.banded.kernel_mode(torch.float32) == "fp32"
     assert tt.get_matmul_precision() == "highest"
     with pytest.raises(ValueError):
         tt.set_matmul_precision("fast")

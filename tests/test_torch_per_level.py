@@ -24,7 +24,7 @@ import pytorch_wavelets_tpu_torch as tt
 from pytorch_wavelets_tpu_torch.ops import banded as pbanded
 from pytorch_wavelets_tpu_torch.ops import dtcwt_fb
 from pytorch_wavelets_tpu_torch.transforms import dtcwt as plev
-from tests.torch_parity import FWD_ATOL, INV_ATOL, cmp, rand
+from tests.torch_parity import FAST, FWD_ATOL, INV_ATOL, cmp, rand
 
 torch.set_num_threads(1)
 
@@ -162,7 +162,7 @@ def test_level_ops_match_jax(b, q, dims, mode):
 
     def jax_all(xs, cts):
         return _run(jlev, _jax_grad, xs, cts, dims, mode, f1, f2, inv)
-    ref = jax.jit(jax_all)(xs, cts)
+    ref = jax.jit(jax_all, compiler_options=FAST)(xs, cts)
     mine = _run(plev, _torch_grad, txs, cts, dims, mode, f1, f2, inv)
     assert len(mine) == len(ref)
     for k, (a, r) in enumerate(zip(mine, ref)):
@@ -213,7 +213,7 @@ def _modules_match(jf, ji, pf, pi, x, grad=True):
             return outs(jf, ji, z), None
         ref, vjp = jax.vjp(lambda z: outs(jf, ji, z), z)
         return ref, vjp([jnp.asarray(c) for c in cts])[0]
-    ref, jg = jax.jit(jax_side)(jnp.asarray(x), cts)
+    ref, jg = jax.jit(jax_side, compiler_options=FAST)(jnp.asarray(x), cts)
     cmp(mine[:-1], ref[:-1], FWD_ATOL)
     cmp(mine[-1], ref[-1], INV_ATOL)
     if not grad:
