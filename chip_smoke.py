@@ -111,7 +111,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    K1's product on the tensor cores; the levels set through the port's
    API only, the TF32 flags of phase 1 stay off): prec_main, the main
    path's round trip and train_main's step under 'high' (3xTF32),
-   'default' (TF32) and in bf16; prec_scat, ScatLayerj2 on 128x3x256x256
+   'default' (TF32) and in bf16; prec_banded, the banded path's forward
+   (8x3x512x512, J=3: short-banded operators, most tiles skipped) under
+   'default' and in bf16; prec_scat, ScatLayerj2 on 128x3x256x256
    forward + backward under 'default' and in bf16; prec_swt, swt_main's
    round trip under 'high'; prec_dwt_bf16, dwt_main's round trip in bf16
    (K6/K7 through their wrappers' casts).  Each counted (K17's mode
@@ -132,6 +134,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 Each path's peak_mem_bytes (torch.cuda.max_memory_allocated over its
 timed calls) includes mem_held_before_bytes: what was allocated when its
 peak was reset (its inputs, and the calls recorded by earlier paths).
+The operator-product paths' lines (main, banded, scat_j2, swt_main and
+the precision phases) carry ``copies``: K1's and K17's launches of the
+counted run by instantiation, the copy width their staging took (16- or
+4-byte cp.async, plain 2-byte loads; csrc/banded_pipe.cuh) and K1's
+64-column tile (async16_narrow); K1's and K17's
+kernel lines carry ``instantiations``, the same count for the recorded
+calls they replay.
 
 Then a {"kernels": [...]} line, the card's name and power limit as
 nvidia-smi prints them, and last {"ok": true, "device": {...}}.
@@ -373,6 +382,23 @@ def timed_ms(fn, reps=20, batches=5, device_only=True):
 
 def shape_str(shape):
     return "x".join(map(str, shape))
+
+
+def copy_counts(ops):
+    """K1's and K17's launches of the run just counted, by instantiation:
+    the copy width their staging took (csrc/banded_pipe.cuh: 16- or
+    4-byte cp.async, plain 2-byte loads) and K1's narrow column tile
+    (``async16_narrow``), for the wrappers that launched."""
+    return {k: {w: n for w, n in v.items() if n}
+            for k, v in ops.copy_counts().items() if any(v.values())}
+
+
+def copies_of(wrapper, run):
+    """``run()``'s result and the copy widths ``wrapper`` counted for it."""
+    before = dict(wrapper.copies)
+    out = run()
+    return out, {w: n - before[w] for w, n in wrapper.copies.items()
+                 if n != before[w]}
 
 
 @contextlib.contextmanager
@@ -845,9 +871,10 @@ def replay(call, banded, quad, mag, afb, pad, fb=None, pool=None,
            timing=REPLAY_TIMING, im=None):
     """Check one recorded call against its plain version and time it
     (``timing``: reps, batches).  Returns (err, ms, plain_ms, library_ms,
-    bound_ms, op_t, byte_t)."""
+    bound_ms, op_t, byte_t, copies): ``copies`` the copy widths K1's
+    wrapper counted for the checked call (None for other kernels)."""
     name, _, args = call
-    lib = scale = None
+    lib = scale = inst = None
     if name in NONSEP_KERNELS:
         got, want, run, plain, lib, ops, nbytes = nonsep_call_parts(
             call, banded)
@@ -875,13 +902,15 @@ def replay(call, banded, quad, mag, afb, pad, fb=None, pool=None,
         else:
             prod = lambda: torch.matmul(Td, x)                # noqa: E731
         if kind is None:
-            got, want = kern(x, T), plainf(x, T)
+            got, inst = copies_of(kern, lambda: kern(x, T))
+            want = plainf(x, T)
             run = lambda: kern(x, T)                          # noqa: E731
             plain = lambda: plainf(x, T)                      # noqa: E731
             lib = prod
         elif kind == "acc":
             out = mode[1]
-            got, want = kern(x, T, out.clone()), plainf(x, T, out)
+            got, inst = copies_of(kern, lambda: kern(x, T, out.clone()))
+            want = plainf(x, T, out)
             buf = out.clone()
             run = lambda: kern(x, T, buf)                     # noqa: E731
             plain = lambda: plainf(x, T, out)                 # noqa: E731
@@ -889,7 +918,8 @@ def replay(call, banded, quad, mag, afb, pad, fb=None, pool=None,
         else:   # written through the strides of a view (B4's dz blocks)
             buf = torch.empty_strided(mode[1], mode[2], device=x.device)
             pbuf = torch.empty_strided(mode[1], mode[2], device=x.device)
-            got = kern(x, T, buf, accumulate=False)
+            got, inst = copies_of(kern, lambda: kern(x, T, buf,
+                                                     accumulate=False))
             want = plainf(x, T)
             run = lambda: kern(x, T, buf,                     # noqa: E731
                                accumulate=False)
@@ -962,7 +992,7 @@ def replay(call, banded, quad, mag, afb, pad, fb=None, pool=None,
     return (max_err(got, want), timed_ms(run, reps, batches),
             timed_ms(plain, reps, batches),
             None if lib is None else timed_ms(lib, reps, batches),
-            max(op_t, byte_t), op_t, byte_t)
+            max(op_t, byte_t), op_t, byte_t, inst)
 
 
 def _tolerance(kernel):
@@ -982,14 +1012,17 @@ def kernel_rows(groups, banded, quad, mag, afb, pad, fb=None, pool=None,
                 timing=REPLAY_TIMING, im=None):
     """One row per group (name, replaces, launches, calls): the replays of
     its calls summed; ``per_call`` lists [input shape (by operator
-    shape), ms, plain_ms, library_ms, bound_ms] for each call."""
+    shape), ms, plain_ms, library_ms, bound_ms] for each call; K1's rows
+    count its calls by copy width (``instantiations``)."""
     rows = []
     for name, replaces, launches, calls in groups:
         a = dict(err=0.0, ms=0.0, plain=0.0, lib=0.0, bound=0.0, op=0.0,
-                 byte=0.0, haslib=True, per_call=[])
+                 byte=0.0, haslib=True, per_call=[], inst={})
         for call in calls:
-            err, ms, plain_ms, lib_ms, bound, op_t, byte_t = replay(
+            err, ms, plain_ms, lib_ms, bound, op_t, byte_t, inst = replay(
                 call, banded, quad, mag, afb, pad, fb, pool, timing, im)
+            for w, n in (inst or {}).items():
+                a["inst"][w] = a["inst"].get(w, 0) + n
             a["err"] = max(a["err"], err)
             a["ms"] += ms
             a["plain"] += plain_ms
@@ -1030,6 +1063,8 @@ def kernel_rows(groups, banded, quad, mag, afb, pad, fb=None, pool=None,
             "bound_by": "bytes" if a["byte"] >= a["op"] else "operations",
             "library_ms": a["lib"] if a["haslib"] else None,
             "per_call": a["per_call"]})
+        if kernel.startswith("apply_"):
+            rows[-1]["instantiations"] = a["inst"]
     return rows
 
 
@@ -1077,6 +1112,7 @@ def drive(tt, ops, fused, scat, shape, J, phase):
         rec = inv((yl, yh))
         torch.cuda.synchronize()
         counts = ops.launch_counts()
+        copies = copy_counts(ops)
         first_s = time.perf_counter() - t0
         require(all(counts[k] > 0 for k in PYRAMID_KERNELS),
                 f"{phase}: a kernel of the path never launched: {counts}")
@@ -1110,7 +1146,7 @@ def drive(tt, ops, fused, scat, shape, J, phase):
             inv(fwd(x))
         torch.cuda.synchronize()
     fields = dict(
-        shape=list(shape), J=J, launches=counts,
+        shape=list(shape), J=J, launches=counts, copies=copies,
         max_abs_err_vs_cpu={"forward": fwd_err, "inverse": inv_err},
         tolerance={"forward": FWD_ATOL, "inverse": INV_ATOL},
         reconstruction_err=pr_err, reconstruction_tol=PR_TOL,
@@ -1249,6 +1285,7 @@ def scat_step(tt, ops, fused, scat, shape, check_n, phase, timing,
         grad = torch.autograd.grad(z, x, G)[0]
         torch.cuda.synchronize()
         counts = ops.launch_counts()
+        copies = copy_counts(ops)
         first_s = time.perf_counter() - t0
     bwd_counts = {k: counts[k] - fwd_counts[k] for k in counts}
     need_fwd, need_bwd = need or (
@@ -1274,6 +1311,7 @@ def scat_step(tt, ops, fused, scat, shape, check_n, phase, timing,
     fields = dict(
         shape=list(shape), layer=layer, options=kw,
         launches={"forward": fwd_counts, "backward": bwd_counts},
+        copies=copies,
         launches_by_role=tr.by_role if need is None else {
             "forward": {k: v for k, v in fwd_counts.items() if v},
             "backward": {k: v for k, v in bwd_counts.items() if v}},
@@ -1906,6 +1944,18 @@ class SwtRecorder(Swapping):
                 (dwt, "spec_split", spec_split)]
 
 
+def folded(padded, shape, pad_fn):
+    """The adjoint of ``pad_fn`` (a padding of a ``shape`` tensor, or a
+    tuple of such paddings) applied to ``padded`` (its padded-domain
+    result, channels in dim 1 where there are several): how a library
+    transpose that ends in the padded domain is checked against a
+    kernel's whole adjoint."""
+    z = torch.zeros(shape, device=padded.device, requires_grad=True)
+    with torch.enable_grad():
+        zp = pad_fn(z)
+        return torch.autograd.grad(zp, z, padded.reshape(zp.shape))[0]
+
+
 def swt_call_parts(call, afb, pad, im):
     """One recorded K12/K13 call: (got, want, run, plain, lib, ops, bytes,
     tol, scale), ``scale`` the magnitude of each K13 value's terms (None
@@ -1913,9 +1963,12 @@ def swt_call_parts(call, afb, pad, im):
     timed), both taps stacked, at ``dilation`` (1, d) or (d, 1), for
     ``swt_afb``; ``torch.mul`` of the spectrum by both conjugated filters,
     stacked and broadcast along the axis here (not timed), for
-    ``spec_split``; each checked against the plain version.  None for the
-    adjoint (no single call folds the pads back) and for ``spec_merge``
-    (two products and a sum, no single call)."""
+    ``spec_split``; each checked against the plain version.  For the
+    adjoint, cuDNN's dilated ``F.conv_transpose2d`` of the cotangent (both
+    bands as input channels) into the padded domain, checked by folding it
+    back with the pad's adjoint (:func:`folded`, not timed): the fold is
+    the one step no single call does.  None for ``spec_merge`` (two
+    products and a sum, no single call)."""
     import torch.nn.functional as F
     name, _, args = call
     lib = scale = None
@@ -1951,6 +2004,20 @@ def swt_call_parts(call, afb, pad, im):
         plain = lambda: afb.afb1d_atrous_adjoint_plain(       # noqa: E731
             dy, h0, h1, mode, axis, d, n)
         want = plain()
+        L = len(h0)
+        front, back, _, _ = afb.atrous_plan(n, L, d, mode)
+        N, C = dy.shape[:2]
+        dyr = dy.reshape(N * C, 2, *dy.shape[3:])   # a copy: not timed
+        w = torch.tensor(np.stack([h0, h1]), dtype=torch.float32,
+                         device=dy.device)
+        w = w.view(2, 1, 1, L) if axis == 3 else w.view(2, 1, L, 1)
+        dil = (1, d) if axis == 3 else (d, 1)
+        lib = lambda: F.conv_transpose2d(dyr, w, dilation=dil)  # noqa: E731
+        require(torch.allclose(folded(
+            lib(), got.shape, lambda z: pad.pad1d(z, front, back, axis,
+                                                  mode)), want, **DWT_TOL),
+                "swt_afb_adjoint: the library yardstick folded back "
+                "differs from the plain version")
         ops = 2.0 * len(h0) * dy.numel()
         nbytes = 4.0 * (dy.numel() + got.numel())
         tol = DWT_TOL
@@ -2069,6 +2136,7 @@ def swt_main(tt, ops, afb, dwt):
         rec = i(ys)
         torch.cuda.synchronize()
         counts = ops.launch_counts()
+        copies = copy_counts(ops)
         first_s = time.perf_counter() - t0
         inv_counts = {k: counts[k] - fwd_counts[k] for k in counts}
         require(fwd_counts["afb1d_atrous_corr"] > 0
@@ -2107,7 +2175,7 @@ def swt_main(tt, ops, afb, dwt):
     fields = dict(
         shape=list(SWT_SHAPE), J=SWT_J, wave=SWT_WAVE, mode=SWT_MODE,
         launches={"forward": fwd_counts, "inverse": inv_counts},
-        checked_images=n,
+        copies=copies, checked_images=n,
         max_abs_err_vs_cpu={"forward": fwd_err, "inverse": inv_err},
         tolerance={"forward": FWD_ATOL, "inverse": INV_ATOL},
         reconstruction_err=pr_err, reconstruction_tol=SWT_PR_TOL,
@@ -2483,8 +2551,14 @@ def nonsep_call_parts(call, banded):
     does), and for its adjoint ``F.conv2d`` of the cotangent padded here
     by the crop, stride 2; for K16 K1 on the probed operator of the merge
     (:func:`sfb_atrous_matrix`, the JAX package's device route) applied to
-    (lo, hi) concatenated here; None for the other adjoints.  Each
-    library result is checked against the plain version."""
+    (lo, hi) concatenated here.  For K14's adjoint (on the non-separable
+    plan) ``F.conv_transpose2d`` of the cotangent, the K PSFs as input
+    channels, stride 2, and for K16's adjoint the dilated
+    ``F.conv_transpose2d`` of the cotangent into lo and hi (the reversed
+    taps, halved, as two output channels): both end in the padded
+    domain, and are checked folded back by the pad's adjoint
+    (:func:`folded`, not timed).  Each other library result is checked
+    against the plain version as it is."""
     import torch.nn.functional as F
     from pytorch_wavelets_tpu_torch.ops import afb_sfb, nonsep
     name, _, args = call
@@ -2495,6 +2569,7 @@ def nonsep_call_parts(call, banded):
     run = lambda: kern(*args)                                 # noqa: E731
     plain = lambda: plainf(*args)                             # noqa: E731
     lib = None
+    lib_checked = False     # checked folded back instead
     if name == "nonsep_afb":
         x, f, mode = args
         K, Ly, Lx = np.shape(f)
@@ -2513,7 +2588,27 @@ def nonsep_call_parts(call, banded):
         ops = 2.0 * Ly * Lx * got.numel()
         nbytes = 4.0 * (x.numel() + got.numel())
     elif name == "nonsep_afb_adjoint":
-        dy, f = args[:2]
+        dy, f, mode, H, W = args[:5]
+        if not (args[5:] and args[5]):    # the non-separable plan
+            K, Ly, Lx = np.shape(f)
+            N, C, _, my, mx = dy.shape
+            src = []
+            for n, L, m in ((H, Ly, my), (W, Lx, mx)):
+                _, front, code, per, shift = nonsep.afb_axis_plan(n, L, mode)
+                src.append(nonsep.afb_axis_src(
+                    n, front, code, per, shift,
+                    np.arange(2 * (m - 1) + L) - front))
+            dyr = dy.reshape(N * C, K, my, mx)    # a copy if strided
+            w = torch.as_tensor(np.ascontiguousarray(f)[:, None],
+                                dtype=torch.float32, device=dy.device)
+            lib = lambda: F.conv_transpose2d(dyr, w,          # noqa: E731
+                                             stride=2)
+            require(torch.allclose(folded(
+                lib(), got.shape, lambda z: _padded(z, src, (2, 3))),
+                want, **NONSEP_TOL),
+                "nonsep_afb_adjoint: the library yardstick folded back "
+                "differs from the plain version")
+            lib_checked = True
         ops = 2.0 * np.size(f) / len(f) * dy.numel()
         nbytes = 4.0 * (dy.numel() + got.numel())
     elif name == "nonsep_sfb":
@@ -2552,10 +2647,30 @@ def nonsep_call_parts(call, banded):
         ops = 4.0 * len(g0) * got.numel()
         nbytes = 4.0 * (lo.numel() + hi.numel() + got.numel())
     else:
-        dy, g0 = args[:2]
+        dy, g0, g1, mode, axis, d = args
+        L = len(g0)
+        front, back, _, _ = afb_sfb.atrous_merge_plan(dy.shape[axis], L, d,
+                                                      mode)
+        N, C, H, W = dy.shape
+        dyr = dy.reshape(N * C, 1, H, W)
+        w = 0.5 * torch.as_tensor(
+            np.stack([np.asarray(g0)[::-1], np.asarray(g1)[::-1]]),
+            dtype=torch.float32, device=dy.device)
+        w = w.view(1, 2, 1, L) if axis == 3 else w.view(1, 2, L, 1)
+        dil = (1, d) if axis == 3 else (d, 1)
+        lib = lambda: F.conv_transpose2d(dyr, w,              # noqa: E731
+                                         dilation=dil)
+        from pytorch_wavelets_tpu_torch.ops.pad import pad1d
+        both = folded(lib(), (N * C, 2, H, W),   # lo and hi as channels
+                      lambda z: pad1d(z, front, back, axis, mode))
+        require(torch.allclose(both.reshape(want.shape), want,
+                               **NONSEP_TOL),
+                "swt_sfb_adjoint: the library yardstick folded back "
+                "differs from the plain version")
+        lib_checked = True
         ops = 4.0 * len(g0) * dy.numel()
         nbytes = 4.0 * (dy.numel() + got.numel())
-    if lib is not None:   # the yardstick computes the same function
+    if lib is not None and not lib_checked:   # the same function
         require(torch.allclose(lib().reshape(want.shape), want,
                                **NONSEP_TOL),
                 f"{name}: the library yardstick differs from the plain "
@@ -3081,6 +3196,7 @@ K17_TOL = {"3xtf32": K1_TOL, "tf32": K1_TOL,
 PREC_TOL = {"3xtf32": (2e-5, False), "tf32": (1e-2, True),
             "bf16": (1e-1, True)}
 BF16_RECON_TOL = 2e-2
+PREC_BANDED_CHECK_N = 1         # images of prec_banded checked on the CPU
 PREC_TIMING = (5, 3)            # (reps, batches) of the paths' timings
 K17_REPLAY_TIMING = (3, 2)      # of a group of replayed calls, as one
 QUAD_REPLAY_TIMING = (5, 3)     # of each replayed bf16 K2/K3 call
@@ -3178,21 +3294,24 @@ def quad_rows(quad, calls, counts, label):
 
 
 def k17_call_parts(banded, call):
-    """One recorded K17 call: (got, want, run, plain, lib, ops, bytes).
-    ``lib``: ``torch.matmul`` on the same operands (TF32 allowed for the
-    TF32 mode, in bf16 for the bf16 mode; + ``add_`` where K17
-    accumulates), None for 3xTF32 (no PyTorch call does it)."""
+    """One recorded K17 call: (got, want, run, plain, lib, ops, bytes,
+    copies).  ``lib``: ``torch.matmul`` on the same operands (TF32 allowed
+    for the TF32 mode, in bf16 for the bf16 mode; + ``add_`` where K17
+    accumulates), None for 3xTF32 (no PyTorch call does it); ``copies``
+    the copy widths the wrapper counted for ``got``."""
     entry, mode, x, op, spec = call
     kern = getattr(banded, f"apply_{entry}_{mode}")
     plainf = getattr(banded, f"apply_{entry}_{mode}_plain")
     kind = spec[0] if spec else None
     if kind is None:
-        got, want = kern(x, op), plainf(x, op)
+        got, inst = copies_of(kern, lambda: kern(x, op))
+        want = plainf(x, op)
         run = lambda: kern(x, op)                             # noqa: E731
         plain = lambda: plainf(x, op)                         # noqa: E731
     elif kind == "acc":
         acc = spec[1]
-        got, want = kern(x, op, acc.clone()), plainf(x, op, acc)
+        got, inst = copies_of(kern, lambda: kern(x, op, acc.clone()))
+        want = plainf(x, op, acc)
         buf = acc.clone()
         run = lambda: kern(x, op, buf)                        # noqa: E731
         plain = lambda: plainf(x, op, acc)                    # noqa: E731
@@ -3201,7 +3320,8 @@ def k17_call_parts(banded, call):
                                   dtype=x.dtype)
         pbuf = torch.empty_strided(spec[1], spec[2], device=x.device,
                                    dtype=x.dtype)
-        got = kern(x, op, buf, accumulate=False).clone()
+        got, inst = copies_of(kern, lambda: kern(x, op, buf,
+                                                  accumulate=False).clone())
         want = plainf(x, op)
         run = lambda: kern(x, op, buf, accumulate=False)      # noqa: E731
         plain = lambda: plainf(x, op, pbuf,                   # noqa: E731
@@ -3223,7 +3343,7 @@ def k17_call_parts(banded, call):
     flops = 2.0 * op.nnz * x.numel() / K
     nbytes = x.element_size() * (x.numel() + op.T.numel() + got.numel()
                                  * (2 if kind == "acc" else 1))
-    return got, want, run, plain, lib, flops, nbytes
+    return got, want, run, plain, lib, flops, nbytes, inst
 
 
 def k17_rows(banded, calls, counts, label):
@@ -3239,9 +3359,12 @@ def k17_rows(banded, calls, counts, label):
             runs, plains, libs = [], [], []
             err = op_t = byte_t = 0.0
             shapes = []
+            insts = {}
             for call in mine:
-                got, want, run, plain, lib, flops, nbytes = k17_call_parts(
-                    banded, call)
+                got, want, run, plain, lib, flops, nbytes, inst = \
+                    k17_call_parts(banded, call)
+                for w, n in inst.items():
+                    insts[w] = insts.get(w, 0) + n
                 require(within(got.float(), want.float(), K17_TOL[mode]),
                         f"K17 {entry} {mode} {tuple(call[2].shape)} "
                         f"disagrees with its plain version by "
@@ -3273,7 +3396,7 @@ def k17_rows(banded, calls, counts, label):
                 "bound_ms": max(op_t, byte_t),
                 "bound_by": "bytes" if byte_t >= op_t else "operations",
                 "library_ms": lib_ms, "calls": len(mine),
-                "per_call": shapes})
+                "instantiations": insts, "per_call": shapes})
     return rows
 
 
@@ -3326,6 +3449,7 @@ def precision_path(tt, ops, banded, cuda, phase, mode, runs, x_cpu, refs,
         outs = {name: run(x) for name, (run, _) in runs.items()}
         torch.cuda.synchronize()
         counts = ops.launch_counts()
+        fields["copies"] = copy_counts(ops)
         if need is None:
             require(counts[f"apply_row_{mode}"] > 0
                     and counts[f"apply_col_{mode}"] > 0,
@@ -3415,6 +3539,29 @@ def prec_main(tt, ops, banded, cuda):
     return [precision_path(tt, ops, banded, cuda, "prec_main", mode, runs,
                            x_cpu, refs, MAIN_SHAPE[0])
             for mode in ("3xtf32", "tf32", "bf16")]
+
+
+def prec_banded(tt, ops, banded, cuda):
+    """The banded cell's forward (DTCWT J=3 on 8x3x512^2, whose operators
+    have short bands, so K17 skips most of their tiles) under 'default'
+    (TF32) and in bf16; checked on the first PREC_BANDED_CHECK_N
+    images."""
+    n = PREC_BANDED_CHECK_N
+    x_cpu = torch.randn(BANDED_SHAPE,
+                        generator=torch.Generator().manual_seed(0))
+    with torch.no_grad(), one_cpu_thread():
+        yl, yh = tt.DTCWTForward(J=3, device="cpu")(x_cpu[:n])
+    refs = {"forward": [yl, *yh]}
+    f = tt.DTCWTForward(J=3, device="cuda")
+
+    def forward(x):
+        with torch.no_grad():
+            yl, yh = f(x)
+            return [yl, *yh]
+    runs = {"forward": (forward, None)}
+    return [precision_path(tt, ops, banded, cuda, "prec_banded", mode, runs,
+                           x_cpu, refs, n)
+            for mode in ("tf32", "bf16")]
 
 
 def prec_scat(tt, ops, banded, cuda):
@@ -3525,6 +3672,9 @@ def precision_phases(tt, ops, banded, cuda):
     for result in prec_main(tt, ops, banded, cuda):
         finish("prec_main", f"DTCWT J=2 {shape_str(MAIN_SHAPE)}", result,
                "step")
+    for result in prec_banded(tt, ops, banded, cuda):
+        finish("prec_banded", f"DTCWT J=3 {shape_str(BANDED_SHAPE)} forward",
+               result, "forward")
     for result in prec_scat(tt, ops, banded, cuda):
         finish("prec_scat", f"ScatLayerj2 {shape_str(SCAT_SHAPE)}", result,
                "fwd_bwd")

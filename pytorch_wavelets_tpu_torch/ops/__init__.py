@@ -6,7 +6,10 @@ lists every kernel wrapper; each keeps an integer ``launches`` count of
 the times it launched its CUDA kernel (a CPU tensor takes the plain
 PyTorch version and counts nothing).  K17 has one wrapper, and one count,
 per entry and mode (``apply_col_tf32`` ... ``apply_row_bf16``);
-``apply_col`` / ``apply_row`` count K1's fp32 launches only.
+``apply_col`` / ``apply_row`` count K1's fp32 launches only.  K1's and
+K17's wrappers also count their launches by instantiation (``copies``,
+:func:`copy_counts`): the copy width their staging took, and for K1's
+column entry its narrow 64-column tile.
 """
 from pytorch_wavelets_tpu_torch.ops.afb_sfb import (  # noqa: F401
     afb1d, sfb1d, afb1d_atrous, sfb1d_atrous, afb2d, sfb2d,
@@ -44,10 +47,23 @@ KERNELS = (apply_row, apply_col, q2c_pack, c2q_unpack, scat_mag_fwd,
            sfb1d_atrous_conv, sfb1d_atrous_adjoint, *K17_WRAPPERS)
 
 
+PRODUCT_KERNELS = (apply_row, apply_col, *K17_WRAPPERS)
+
+
 def reset_launches() -> None:
     for k in KERNELS:
         k.launches = 0
+    for k in PRODUCT_KERNELS:
+        k.copies = dict.fromkeys(k.copies, 0)
 
 
 def launch_counts() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
+
+
+def copy_counts() -> dict:
+    """K1's and K17's launches by instantiation: {wrapper name:
+    {"async16": n, "async4": n[, "load2": n][, "async16_narrow": n]}}
+    (16- or 4-byte cp.async, plain 2-byte loads; ``async16_narrow``: K1's
+    column entry in 64-column tiles)."""
+    return {k.__name__: dict(k.copies) for k in PRODUCT_KERNELS}

@@ -38,17 +38,17 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 _SIGNATURES = {
     "banded_apply": {
         "banded_apply_col": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _L, _L, _L, _L, _I, _P],
+                             _L, _L, _L, _L, _I, _I, _I, _P],
         "banded_apply_row": [_P, _P, _P, _P, _P, _L, _I, _I, _L, _L, _I,
-                             _P],
+                             _I, _P],
         "banded_apply_tile_rows": [],
         "banded_apply_k_align": [],
     },
     "banded_apply_tc": {
         "banded_tc_col": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _L, _L, _L, _L, _I, _I, _P],
+                          _L, _L, _L, _L, _I, _I, _I, _P],
         "banded_tc_row": [_P, _P, _P, _P, _P, _L, _I, _I, _L, _L, _I, _I,
-                          _P],
+                          _I, _P],
         "banded_tc_tile_rows": [],
         "banded_tc_k_align": [],
     },

@@ -18,6 +18,7 @@ level), and one per K17 mode that rounds as the mode does.
 """
 from __future__ import annotations
 
+import functools
 import hashlib
 
 import numpy as np
@@ -289,16 +290,23 @@ def probe_op(fn, n: int, dtype=np.float32) -> np.ndarray:
 # --------------------------------------------------------------------------
 # K1 and K17: the operator product on the device, skipping T's zero tiles
 #
-# The segment table is planned at K1's own tile: 64 rows of T per output
-# tile, contraction segments aligned to its 16-deep K step (both fixed in
-# csrc/banded_apply.cu and csrc/banded_apply_tc.cu, checked when each
-# library loads).  Every operator takes the table: a dense tile is one
-# full segment, so no size threshold decides between a dense and a banded
-# path.
+# The segment table is planned at the kernels' tile: 64 rows of T per
+# output tile, contraction segments starting at multiples of 16 (both
+# fixed in csrc/banded_pipe.cuh, reported by K1's and K17's libraries and
+# checked when each loads).  Every operator takes the table: a dense tile
+# is one full segment, so no size threshold decides between a dense and a
+# banded path.
 # --------------------------------------------------------------------------
 
 _TILE_ROWS = 64
 _K_ALIGN = 16
+# the copy widths of the kernels' staging, in bytes (csrc/banded_pipe.cuh):
+# 16-byte and 4-byte cp.async, and plain 2-byte loads (bf16 views at odd
+# element offsets); each wrapper counts its launches of each
+COPY_NAMES = {16: "async16", 4: "async4", 2: "load2"}
+# K1's column entry with 16-byte copies also has a narrow instantiation,
+# output tiles 64 columns wide (:func:`_col_tile`), counted apart
+NARROW = "async16_narrow"
 # K17's modes, by the code its C entries take
 K17_MODES = {"tf32": 0, "3xtf32": 1, "bf16": 2}
 _LEVEL_MODES = {"highest": "fp32", "high": "3xtf32", "default": "tf32"}
@@ -354,10 +362,11 @@ def kernel_mode(dtype) -> str:
 class Operator:
     """A constant operator matrix T (M x K) on one device: the matrix (fp32
     by default; a float64 ``dtype`` keeps a float64 operator for the plain
-    versions' float64 inputs) and, on CUDA, K1's tile -> segment table
-    (``seg_ptr[t]:seg_ptr[t+1]`` index the ``[k0, k1)`` rows of ``segs``
-    for T-row tile t).  :meth:`values` gives T in another dtype (bf16 for
-    K17's bf16 mode), made at first use and kept; ``nbytes`` counts it."""
+    versions' float64 inputs) and, on CUDA, K1's and K17's tile -> segment
+    table (``seg_ptr[t]:seg_ptr[t+1]`` index the ``[k0, k1)`` rows of
+    ``segs`` for T-row tile t).  :meth:`values` gives T in another dtype
+    (bf16 for K17's bf16 mode), made at first use and kept; ``nbytes``
+    counts it."""
 
     def __init__(self, T: np.ndarray, device, dtype=np.float32):
         T = np.ascontiguousarray(T, dtype=dtype)
@@ -430,8 +439,8 @@ def _lib(name):
                  if name == "banded_apply" else
                  (lib.banded_tc_tile_rows(), lib.banded_tc_k_align()))
         if sizes != (_TILE_ROWS, _K_ALIGN):
-            raise RuntimeError(f"csrc/{name}.cu tile sizes differ from "
-                               f"ops/banded.py's segment planning")
+            raise RuntimeError(f"csrc/{name}.cu plans {sizes}, ops/banded.py"
+                               f" {(_TILE_ROWS, _K_ALIGN)}")
         _checked_libs[name] = lib
     return lib
 
@@ -500,9 +509,39 @@ def _tc_plain(entry, mode):
     return plain
 
 
+def _copy_bytes(x, T, strides):
+    """The widest copy of the kernels' staging that ``x`` (its pointer
+    and ``strides``, in elements) and the operator values ``T`` (row
+    stride its width) allow: 16 or 4 bytes (cp.async), else 2 (plain
+    loads: a bf16 view at an odd element offset)."""
+    es = x.element_size()
+    bits = x.data_ptr() | T.data_ptr() | T.shape[1] * es   # the low bits
+    for s in strides:                                       # of every value
+        bits |= s * es
+    return 16 if bits % 16 == 0 else 4 if bits % 4 == 0 else 2
+
+
+@functools.lru_cache(maxsize=None)
+def _multiprocessors(index) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _col_tile(M, Wc, planes, sms):
+    """The width of K1's column tiles, 128 or 64 columns of a plane (the
+    narrow tile, 16-byte copies only): 64 where a plane is at most 64
+    wide (a 128-wide tile would compute half zeros), or where 128-wide
+    tiles would give fewer than two waves of two blocks on each of the
+    card's ``sms`` multiprocessors (small batches: more, smaller tiles
+    keep the card busy)."""
+    blocks = -(-M // _TILE_ROWS) * -(-Wc // 128) * planes
+    return 64 if Wc <= 64 or blocks < 4 * sms else 128
+
+
 def _launch(entry, x, op, out, accumulate, mode):
     """Check ``x`` and ``out`` against the operator, allocate the output
-    (in ``x``'s dtype) and launch K1 (``mode`` 'fp32') or K17's mode."""
+    (in ``x``'s dtype) and launch K1 (``mode`` 'fp32') or K17's mode.
+    Returns (the output, the name of the instantiation that ran: its copy
+    width, :data:`COPY_NAMES`, or :data:`NARROW`)."""
     kernel = f"banded_apply_{entry}" if mode == "fp32" else \
         f"banded_tc_{entry} ({mode})"
     _cuda.check_inputs(kernel, x, *(() if out is None else (out,)),
@@ -538,21 +577,41 @@ def _launch(entry, x, op, out, accumulate, mode):
                          f"{y.stride()} is not a {shape} tensor with "
                          f"uniformly strided {what} and contiguous columns")
     acc = int(out is not None and accumulate)
-    T = op.values(x.dtype).data_ptr()
-    lib = _lib("banded_apply" if mode == "fp32" else "banded_apply_tc")
-    extra = () if mode == "fp32" else (K17_MODES[mode],)
+    Tv = op.values(x.dtype)
+    name = "banded_apply" if mode == "fp32" else "banded_apply_tc"
+    lib = _lib(name)
+    strides = (x.stride(2), sx) if entry == "col" else (sx,)
+    copy = _copy_bytes(x, Tv, strides)
+    inst = COPY_NAMES[copy]
+    extra = (copy,) if mode == "fp32" else (K17_MODES[mode], copy)
+    if entry == "col" and mode == "fp32":
+        cols = 128 if copy != 16 else _col_tile(
+            M, Wc, N * C, _multiprocessors(x.device.index))
+        extra += (cols,)
+        inst = NARROW if cols == 64 else inst
     if entry == "col":
         rc = (lib.banded_apply_col if mode == "fp32" else lib.banded_tc_col)(
-            T, x.data_ptr(), y.data_ptr(), op.seg_ptr.data_ptr(),
+            Tv.data_ptr(), x.data_ptr(), y.data_ptr(), op.seg_ptr.data_ptr(),
             op.segs.data_ptr(), M, K, Wc, N * C, x.stride(2), sx,
             y.stride(2), sy, acc, *extra, _cuda.stream_of(x))
     else:
         rc = (lib.banded_apply_row if mode == "fp32" else lib.banded_tc_row)(
-            x.data_ptr(), T, y.data_ptr(), op.seg_ptr.data_ptr(),
+            x.data_ptr(), Tv.data_ptr(), y.data_ptr(), op.seg_ptr.data_ptr(),
             op.segs.data_ptr(), N * C * H, K, M, sx, sy, acc, *extra,
             _cuda.stream_of(x))
     _cuda.check(lib, kernel, rc)
-    return y
+    return y, inst
+
+
+def _count(wrapper, inst):
+    """One launch of ``wrapper``'s kernel, in instantiation ``inst``."""
+    wrapper.launches += 1
+    wrapper.copies[inst] += 1
+
+
+def _counters(wrapper, insts):
+    wrapper.launches = 0
+    wrapper.copies = dict.fromkeys(insts, 0)
 
 
 def _k17(entry, mode):
@@ -564,13 +623,15 @@ def _k17(entry, mode):
         op = _operator(T, x.device)
         if x.device.type == "cpu":
             return plain(x, op, out, accumulate)
-        y = _launch(entry, x, op, out, accumulate, mode)
-        wrapper.launches += 1
+        y, inst = _launch(entry, x, op, out, accumulate, mode)
+        _count(wrapper, inst)
         return y
     wrapper.__name__ = wrapper.__qualname__ = f"apply_{entry}_{mode}"
     wrapper.__doc__ = (f"K17's {entry} entry in its {mode} mode, with the "
-                       f"arguments of :func:`apply_{entry}`.")
-    wrapper.launches = 0
+                       f"arguments of :func:`apply_{entry}`.  ``copies`` "
+                       f"counts its launches by copy width.")
+    _counters(wrapper, [COPY_NAMES[w] for w in
+                        ((16, 4, 2) if mode == "bf16" else (16, 4))])
     return wrapper, plain
 
 
@@ -608,8 +669,8 @@ def apply_col(x, T, out=None, accumulate=True):
     mode = kernel_mode(x.dtype)
     if mode != "fp32":
         return _k17_wrapper("col", mode)(x, op, out, accumulate)
-    y = _launch("col", x, op, out, accumulate, mode)
-    apply_col.launches += 1
+    y, inst = _launch("col", x, op, out, accumulate, mode)
+    _count(apply_col, inst)
     return y
 
 
@@ -632,13 +693,15 @@ def apply_row(x, T, out=None, accumulate=True):
     mode = kernel_mode(x.dtype)
     if mode != "fp32":
         return _k17_wrapper("row", mode)(x, op, out, accumulate)
-    y = _launch("row", x, op, out, accumulate, mode)
-    apply_row.launches += 1
+    y, inst = _launch("row", x, op, out, accumulate, mode)
+    _count(apply_row, inst)
     return y
 
 
-apply_col.launches = 0
-apply_row.launches = 0
+# K1's launch counts, and by instantiation (``copies``: copy width, and
+# the column entry's narrow tile)
+_counters(apply_col, ("async16", NARROW, "async4"))
+_counters(apply_row, ("async16", "async4"))
 
 # K17's wrappers, one launch count per entry and mode
 K17_WRAPPERS = (apply_row_tf32, apply_col_tf32, apply_row_3xtf32,

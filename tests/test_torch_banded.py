@@ -118,6 +118,10 @@ def test_inv_pyramid_plan(yl_hw, highs_hw):
 
 @pytest.mark.parametrize("n", [12, 128, 520])
 def test_band_plan_covers_every_nonzero(n):
+    """The segment table at the planning sizes that K1 and K17 both
+    report (``_TILE_ROWS`` / ``_K_ALIGN``, checked when each library
+    loads)."""
+    tile, align = banded._TILE_ROWS, banded._K_ALIGN
     blocks = [R for lev in pdt._fwd_pyramid_plan(*_fwd_args(2, n, n))
               for _, (R, _) in (lev["bands"] or [])]
     T = np.concatenate(blocks + [np.eye(n, dtype=np.float32)])
@@ -125,10 +129,10 @@ def test_band_plan_covers_every_nonzero(n):
     covered = np.zeros(T.shape, bool)
     rows = 0
     for r0, r1, segs in plan:
-        assert r0 == rows and r1 - r0 <= banded._TILE_ROWS
+        assert r0 == rows and r1 - r0 <= tile
         rows = r1
         for c0, c1 in segs:
-            assert c0 % banded._K_ALIGN == 0 and 0 <= c0 < c1 <= n
+            assert c0 % align == 0 and 0 <= c0 < c1 <= n
             covered[r0:r1, c0:c1] = True
     assert rows == T.shape[0]
     assert not (T != 0)[~covered].any()
@@ -219,3 +223,37 @@ def test_conv_path_matches_jax(axis):
         jax.jit(jax_side, compiler_options=FAST)(xj))
     for a, b in pairs:
         _close(a.numpy(), np.asarray(b), atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype,offset,width,want", [
+    (torch.float32, 4, 24, 16), (torch.float32, 3, 24, 4),
+    (torch.float32, 4, 26, 4), (torch.bfloat16, 8, 24, 16),
+    (torch.bfloat16, 2, 24, 4), (torch.bfloat16, 3, 24, 2),
+    (torch.bfloat16, 8, 25, 2)])
+def test_copy_bytes_by_view(dtype, offset, width, want):
+    """The copy width of K1's and K17's staging for a column slice
+    x = wide[..., offset:offset + 16] of rows ``width`` wide: 16 bytes
+    where the pointer and every stride keep 16-byte alignment, else 4,
+    else 2 (plain loads: a bf16 view at an odd element offset)."""
+    wide = torch.zeros((2, 3, 8, width), dtype=dtype)
+    assert wide.data_ptr() % 64 == 0     # the allocator's alignment
+    x = wide[..., offset:offset + 16]
+    T = torch.zeros((32, 16), dtype=dtype)
+    assert banded._copy_bytes(x, T, (x.stride(2), x.stride(1))) == want
+    # the operator's width (its row stride) counts too
+    T_odd = torch.zeros((32, 15), dtype=dtype)
+    assert banded._copy_bytes(x, T_odd, (x.stride(2),)) == \
+        (2 if dtype == torch.bfloat16 else 4)
+
+
+@pytest.mark.parametrize("M,Wc,planes,sms,want", [
+    (256, 64, 1000, 132, 64),      # planes at most 64 wide
+    (256, 65, 1000, 132, 128),     # wider, 4 x 1 x 1000 blocks
+    (64, 96, 528, 132, 128),       # exactly two waves of two blocks
+    (64, 96, 527, 132, 64),        # one block short
+    (64, 96, 527, 100, 128),       # the same grid on fewer multiprocessors
+    (640, 256, 20, 132, 64)])      # 10 x 2 x 20 = 400 blocks
+def test_col_tile(M, Wc, planes, sms, want):
+    """The width of K1's column tiles that the wrapper passes (and counts
+    as ``async16_narrow`` where it is 64)."""
+    assert banded._col_tile(M, Wc, planes, sms) == want

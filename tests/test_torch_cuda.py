@@ -50,21 +50,92 @@ def _banded_op(M, K, seed, band=None):
     return T
 
 
-@pytest.mark.parametrize("M,K,Wc,N,C,band", [
-    (70, 45, 33, 2, 3, None), (128, 128, 128, 2, 2, None),
-    (256, 128, 100, 1, 3, 9), (1920, 512, 40, 1, 2, 20)])
+def _test_op(M, K, seed, band):
+    """An operator of the K1 / K17 tests: ``band`` None (dense), a band
+    half-width (:func:`_banded_op`), "short" (one nonzero a row, so each
+    tile of 64 rows of T has one segment shorter than a 32-deep stage) or
+    "gap" (dense but for rows 64-127: a T-row tile with no segment, whose
+    output rows are zero, or left as they were under accumulate)."""
+    if band == "short":
+        T = np.zeros((M, K), np.float32)
+        i = np.arange(M)
+        T[i, i * K // M] = _rand((M,), seed)
+        return T
+    T = _banded_op(M, K, seed, None if band == "gap" else band)
+    if band == "gap":
+        T[64:128] = 0
+    return T
+
+
+# The views K1 and K17 read (a slice x = wide[..., o:o + n] of a wider
+# tensor), by (o, the width of wide): "aligned" at 16 bytes in fp32 and
+# bf16; "offset", o = 3 (4-byte aligned in fp32, 2-byte in bf16: an odd
+# element offset); "even", o = 2 and an even width (4-byte aligned in
+# bf16, not 16)
+def _view_geometry(view, n):
+    if view == "aligned":
+        return 8, -(-(n + 8) // 8) * 8
+    if view == "offset":
+        return 3, n + 7
+    w = n + 6
+    return 2, w + w % 2
+
+
+def _expected_copy(view, n, K, dtype):
+    """The copy width the kernels' staging takes for a view of
+    :func:`_view_geometry` and an operator of width K (its row stride): the
+    widest of 16 and 4 bytes that the offset, the row width and K keep,
+    else plain 2-byte loads."""
+    es = 2 if dtype == torch.bfloat16 else 4
+    o, w = _view_geometry(view, n)
+    for width, name in ((16, "async16"), (4, "async4")):
+        if all(v * es % width == 0 for v in (o, w, K)):
+            return name
+    return "load2"
+
+
+def _view(dev, dtype, lead, n, view, seed):
+    o, w = _view_geometry(view, n)
+    wide = torch.from_numpy(_rand((*lead, w), seed)).to(dev, dtype)
+    return wide[..., o:o + n]
+
+
+@pytest.mark.parametrize("view", ["aligned", "offset"])
+@pytest.mark.parametrize("M,K,Wc,N,C,band,tile", [
+    (70, 45, 33, 2, 3, None, 64), (128, 128, 128, 2, 2, None, 64),
+    (256, 128, 100, 1, 3, 9, 64), (1920, 512, 40, 1, 2, 20, 64),
+    (64, 2048, 65, 1, 2, None, 64),        # K longer than the ring
+    (256, 64, 100, 1, 3, "short", 64),     # segments shorter than a stage
+    (256, 128, 70, 2, 1, "gap", 64),       # a T-row tile with no segment
+    (16, 16, 8, 1, 65600, None, 64),       # more than 65,535 planes
+    (64, 64, 96, 4, "sms", 9, 128)])       # 4 x (the card's SMs) planes
 @pytest.mark.parametrize("accumulate", [False, True])
-def test_apply_col(dev, M, K, Wc, N, C, band, accumulate):
-    T = _banded_op(M, K, 1, band)
-    wide = torch.from_numpy(_rand((N, C, K, Wc + 7), 2)).to(dev)
-    x = wide[..., 3:3 + Wc]           # a column slice, read in place
+def test_apply_col(dev, M, K, Wc, N, C, band, tile, accumulate, view):
+    """K1's column entry on a column slice read in place, by instantiation:
+    each case asserts the copy width and, with 16-byte copies, the tile
+    width (64 columns for narrow planes or small grids, 128 for a grid of
+    two waves of two blocks a multiprocessor) that ran."""
+    if C == "sms":
+        C = torch.cuda.get_device_properties(dev).multi_processor_count
+    T = _test_op(M, K, 1, band)
+    x = _view(dev, torch.float32, (N, C, K), Wc, view, 2)
     out = torch.from_numpy(_rand((N, C, M, Wc), 3)).to(dev)
     op = banded.Operator(T, dev)
     want = banded.apply_col_plain(x, op, out if accumulate else None)
     n0 = banded.apply_col.launches
+    copy = _expected_copy(view, Wc, K, torch.float32)
+    if copy == "async16" and tile == 64:
+        copy = "async16_narrow"
+    c0 = banded.apply_col.copies[copy]
     got = banded.apply_col(x, op, out.clone() if accumulate else None)
     torch.testing.assert_close(got, want, **KTOL)
     assert banded.apply_col.launches == n0 + 1
+    assert banded.apply_col.copies[copy] == c0 + 1
+    if band == "gap":
+        torch.testing.assert_close(got[:, :, 64:128],
+                                   out[:, :, 64:128] if accumulate
+                                   else torch.zeros_like(got[:, :, 64:128]),
+                                   rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("accumulate", [False, True])
@@ -87,19 +158,36 @@ def test_apply_col_strided_out(dev, accumulate):
     assert banded.apply_col.launches == n0 + 1
 
 
+@pytest.mark.parametrize("view", ["aligned", "offset"])
 @pytest.mark.parametrize("R,K,Kout,band", [
     (3 * 70, 45, 33, None), (2 * 128, 128, 448, None),
-    (5 * 37, 512, 1920, 20)])
-def test_apply_row(dev, R, K, Kout, band):
-    T = _banded_op(Kout, K, 4, band)
-    wide = torch.from_numpy(_rand((1, R, 1, K + 9), 5)).to(dev)
-    x = wide[..., 4:4 + K].reshape(1, 1, R, K)   # strided rows
+    (5 * 37, 512, 1920, 20),
+    (300, 2048, 96, None),                 # K longer than the ring
+    (3 * 70, 64, 256, "short"),            # segments shorter than a stage
+    (2 * 128, 128, 200, "gap"),            # a T-row tile with no segment
+    (70000, 16, 24, None)])                # more than 65,535 rows
+@pytest.mark.parametrize("accumulate", [False, True])
+def test_apply_row(dev, R, K, Kout, band, view, accumulate):
+    """K1's row entry on the rows of a column slice (strided rows), a new
+    output and accumulation, by copy width: each case asserts the
+    instantiation that ran."""
+    T = _test_op(Kout, K, 4, band)
+    x = _view(dev, torch.float32, (1, R, 1), K, view, 5).reshape(1, 1, R, K)
+    out = torch.from_numpy(_rand((1, 1, R, Kout), 6)).to(dev)
     op = banded.Operator(T, dev)
-    want = banded.apply_row_plain(x, op)
+    want = banded.apply_row_plain(x, op, out if accumulate else None)
     n0 = banded.apply_row.launches
-    got = banded.apply_row(x, op)
+    copy = _expected_copy(view, K, K, torch.float32)
+    c0 = banded.apply_row.copies[copy]
+    got = banded.apply_row(x, op, out.clone() if accumulate else None)
     torch.testing.assert_close(got, want, **KTOL)
     assert banded.apply_row.launches == n0 + 1
+    assert banded.apply_row.copies[copy] == c0 + 1
+    if band == "gap":
+        torch.testing.assert_close(got[..., 64:128],
+                                   out[..., 64:128] if accumulate
+                                   else torch.zeros_like(got[..., 64:128]),
+                                   rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -1249,47 +1337,76 @@ def _k17(entry, mode):
             getattr(banded, f"apply_{entry}_{mode}_plain"))
 
 
+@pytest.mark.parametrize("view", ["aligned", "offset", "even"])
 @pytest.mark.parametrize("mode", ["tf32", "3xtf32", "bf16"])
-@pytest.mark.parametrize("M,K,W,band", [
-    (70, 45, 33, None), (256, 128, 100, 9), (1920, 512, 40, 20),
-    (64, 2048, 65, None)])
-def test_k17_col(dev, mode, M, K, W, band):
-    """Column entry: a column slice as input, a new output, accumulation
-    into a copy, and a write through a column slice of a wider tensor;
-    banded operators skip tiles through the segment table."""
+@pytest.mark.parametrize("M,K,W,band,planes", [
+    (70, 45, 33, None, 6), (256, 128, 100, 9, 6), (1920, 512, 40, 20, 6),
+    (64, 2048, 65, None, 6),               # K longer than the ring
+    (256, 64, 100, "short", 6),            # segments shorter than a stage
+    (256, 128, 70, "gap", 6),              # a T-row tile with no segment
+    (16, 16, 8, None, 65600),              # more than 65,535 planes
+    (64, 64, 96, 9, 600)])                 # 600 planes
+def test_k17_col(dev, mode, M, K, W, band, planes, view):
+    """Column entry: a column slice as input (16-byte aligned, at an odd
+    element offset, at an even one), a new output, accumulation into a
+    copy, and a write through a column slice of a wider tensor; banded
+    operators skip tiles through the segment table.  Each case asserts
+    the instantiation (copy width) that ran."""
     kern, plain = _k17("col", mode)
     dt = K17_DTYPE[mode]
-    op = banded.Operator(_banded_op(M, K, 1, band), dev)
-    wide = torch.from_numpy(_rand((2, 3, K, W + 7), 2)).to(dev, dt)
-    x = wide[..., 3:3 + W]
-    out = torch.from_numpy(_rand((2, 3, M, W), 3)).to(dev, dt)
+    lead = (2, planes // 2)
+    op = banded.Operator(_test_op(M, K, 1, band), dev)
+    x = _view(dev, dt, (*lead, K), W, view, 2)
+    out = torch.from_numpy(_rand((*lead, M, W), 3)).to(dev, dt)
     n0 = kern.launches
+    copy = _expected_copy(view, W, K, dt)
+    c0 = kern.copies[copy]
     torch.testing.assert_close(kern(x, op), plain(x, op), **K17_TOL[mode])
     torch.testing.assert_close(kern(x, op, out.clone()), plain(x, op, out),
                                **K17_TOL[mode])
-    big = torch.zeros((2, 3, M, W + 30), device=dev, dtype=dt)
+    big = torch.zeros((*lead, M, W + 30), device=dev, dtype=dt)
     got = kern(x, op, big[..., 10:10 + W], accumulate=False)
     torch.testing.assert_close(got, plain(x, op), **K17_TOL[mode])
     assert big[..., :10].abs().max() == 0 and big[..., 10 + W:].abs().max() \
         == 0
     assert kern.launches == n0 + 3
+    assert kern.copies[copy] == c0 + 3
+    if band == "gap":
+        assert got[:, :, 64:128].abs().max() == 0
+        torch.testing.assert_close(kern(x, op, out.clone())[:, :, 64:128],
+                                   out[:, :, 64:128], rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("view", ["aligned", "offset", "even"])
 @pytest.mark.parametrize("mode", ["tf32", "3xtf32", "bf16"])
 @pytest.mark.parametrize("K,M,H,band", [
-    (45, 70, 33, None), (128, 256, 100, 9), (512, 1920, 9, 20)])
-def test_k17_row(dev, mode, K, M, H, band):
-    """Row entry: the rows of a column slice of a wider tensor, a new
-    output and accumulation."""
+    (45, 70, 33, None), (128, 256, 100, 9), (512, 1920, 9, 20),
+    (2048, 96, 50, None),                  # K longer than the ring
+    (64, 256, 35, "short"),                # segments shorter than a stage
+    (128, 200, 40, "gap"),                 # a T-row tile with no segment
+    (16, 24, 11700, None)])                # more than 65,535 rows
+def test_k17_row(dev, mode, K, M, H, band, view):
+    """Row entry: the rows of a column slice of a wider tensor (16-byte
+    aligned, at an odd element offset, at an even one), a new output and
+    accumulation.  Each case asserts the instantiation (copy width) that
+    ran."""
     kern, plain = _k17("row", mode)
     dt = K17_DTYPE[mode]
-    op = banded.Operator(_banded_op(M, K, 4, band), dev)
-    wide = torch.from_numpy(_rand((2, 3, H, K + 20), 5)).to(dev, dt)
-    x = wide[..., 5:5 + K]
+    op = banded.Operator(_test_op(M, K, 4, band), dev)
+    x = _view(dev, dt, (2, 3, H), K, view, 5)
     out = torch.from_numpy(_rand((2, 3, H, M), 6)).to(dev, dt)
+    n0 = kern.launches
+    copy = _expected_copy(view, K, K, dt)
+    c0 = kern.copies[copy]
     torch.testing.assert_close(kern(x, op), plain(x, op), **K17_TOL[mode])
-    torch.testing.assert_close(kern(x, op, out.clone()), plain(x, op, out),
-                               **K17_TOL[mode])
+    got = kern(x, op, out.clone())
+    torch.testing.assert_close(got, plain(x, op, out), **K17_TOL[mode])
+    assert kern.launches == n0 + 2
+    assert kern.copies[copy] == c0 + 2
+    if band == "gap":
+        assert kern(x, op)[..., 64:128].abs().max() == 0
+        torch.testing.assert_close(got[..., 64:128], out[..., 64:128],
+                                   rtol=0, atol=0)
 
 
 def test_k17_modes_round_as_stated(dev):
