@@ -140,7 +140,13 @@ counted run by instantiation, the copy width their staging took (16- or
 4-byte cp.async, plain 2-byte loads; csrc/banded_pipe.cuh) and K1's
 64-column tile (async16_narrow); K1's and K17's
 kernel lines carry ``instantiations``, the same count for the recorded
-calls they replay.
+calls they replay.  K8's and K14's do too (K8's axis and vector width,
+K14's PSF count and tile, its adjoint's band gather), and so do the
+scat_bp, dtcwt_large, per_level_main, quad_nonsep and nonsep_rt lines
+for their counted runs.  K16's lines give torch.matmul on the probed
+operator (its transpose for the adjoint) as the library yardstick, with
+K1 on the same operator (k1_on_operator_ms) and the adjoint's partial
+transposed convolution (partial_conv_transpose_ms) timed beside it.
 
 Then a {"kernels": [...]} line, the card's name and power limit as
 nvidia-smi prints them, and last {"ok": true, "device": {...}}.
@@ -391,6 +397,15 @@ def copy_counts(ops):
     (``async16_narrow``), for the wrappers that launched."""
     return {k: {w: n for w, n in v.items() if n}
             for k, v in ops.copy_counts().items() if any(v.values())}
+
+
+def inst_counts(ops):
+    """K8's and K14's launches of the run just counted, by instantiation
+    (``ops.instantiation_counts``: K8's axis and vector width, K14's PSF
+    count and tile, its adjoint's band), for the wrappers that
+    launched."""
+    return {k: {w: n for w, n in v.items() if n}
+            for k, v in ops.instantiation_counts().items() if any(v.values())}
 
 
 def copies_of(wrapper, run):
@@ -871,12 +886,18 @@ def replay(call, banded, quad, mag, afb, pad, fb=None, pool=None,
            timing=REPLAY_TIMING, im=None):
     """Check one recorded call against its plain version and time it
     (``timing``: reps, batches).  Returns (err, ms, plain_ms, library_ms,
-    bound_ms, op_t, byte_t, copies): ``copies`` the copy widths K1's
-    wrapper counted for the checked call (None for other kernels)."""
+    bound_ms, op_t, byte_t, copies, extra_ms): ``copies`` the copy widths
+    K1's wrapper counted for the checked call, or the instantiations K8's
+    and K14's counted (None for other kernels); ``extra_ms`` {name: ms}
+    of the other yardsticks a call has (K16's: K1 on the probed
+    operator, and the partial transposed convolution of its adjoint)."""
     name, _, args = call
     lib = scale = inst = None
+    extra = {}
+    counter = _inst_counter(name, fb)
+    before = dict(counter.instantiations) if counter else None
     if name in NONSEP_KERNELS:
-        got, want, run, plain, lib, ops, nbytes = nonsep_call_parts(
+        got, want, run, plain, lib, ops, nbytes, extra = nonsep_call_parts(
             call, banded)
         tol = NONSEP_TOL
     elif name in SWT_KERNELS:
@@ -987,12 +1008,28 @@ def replay(call, banded, quad, mag, afb, pad, fb=None, pool=None,
     require(within(got, want, tol, scale),
             f"{name} {tuple(args[0].shape)} disagrees with its plain "
             f"version by {max_err(got, want)}")
+    if counter:
+        inst = {w: n - before.get(w, 0)
+                for w, n in counter.instantiations.items()
+                if n != before.get(w, 0)}
     op_t, byte_t = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
     reps, batches = timing
     return (max_err(got, want), timed_ms(run, reps, batches),
             timed_ms(plain, reps, batches),
             None if lib is None else timed_ms(lib, reps, batches),
-            max(op_t, byte_t), op_t, byte_t, inst)
+            max(op_t, byte_t), op_t, byte_t, inst,
+            {k: timed_ms(f, reps, batches) for k, f in extra.items()})
+
+
+def _inst_counter(name, fb):
+    """The wrapper whose ``instantiations`` a call of kernel ``name``
+    bumps (K8's, K14's two), else None."""
+    from pytorch_wavelets_tpu_torch.ops import nonsep
+    if name == "dtcwt_filt" and fb is not None:
+        return fb.dtcwt_filt
+    if name in ("nonsep_afb", "nonsep_afb_adjoint"):
+        return getattr(nonsep, name)
+    return None
 
 
 def _tolerance(kernel):
@@ -1017,12 +1054,15 @@ def kernel_rows(groups, banded, quad, mag, afb, pad, fb=None, pool=None,
     rows = []
     for name, replaces, launches, calls in groups:
         a = dict(err=0.0, ms=0.0, plain=0.0, lib=0.0, bound=0.0, op=0.0,
-                 byte=0.0, haslib=True, per_call=[], inst={})
+                 byte=0.0, haslib=True, per_call=[], inst={}, extra={})
         for call in calls:
-            err, ms, plain_ms, lib_ms, bound, op_t, byte_t, inst = replay(
-                call, banded, quad, mag, afb, pad, fb, pool, timing, im)
+            err, ms, plain_ms, lib_ms, bound, op_t, byte_t, inst, extra = \
+                replay(call, banded, quad, mag, afb, pad, fb, pool, timing,
+                       im)
             for w, n in (inst or {}).items():
                 a["inst"][w] = a["inst"].get(w, 0) + n
+            for k, v in extra.items():
+                a["extra"][k] = a["extra"].get(k, 0.0) + v
             a["err"] = max(a["err"], err)
             a["ms"] += ms
             a["plain"] += plain_ms
@@ -1062,8 +1102,8 @@ def kernel_rows(groups, banded, quad, mag, afb, pad, fb=None, pool=None,
             "bound_ms": a["bound"],
             "bound_by": "bytes" if a["byte"] >= a["op"] else "operations",
             "library_ms": a["lib"] if a["haslib"] else None,
-            "per_call": a["per_call"]})
-        if kernel.startswith("apply_"):
+            **a["extra"], "per_call": a["per_call"]})
+        if kernel.startswith("apply_") or _inst_counter(kernel, fb):
             rows[-1]["instantiations"] = a["inst"]
     return rows
 
@@ -1286,6 +1326,7 @@ def scat_step(tt, ops, fused, scat, shape, check_n, phase, timing,
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         copies = copy_counts(ops)
+        insts = inst_counts(ops)
         first_s = time.perf_counter() - t0
     bwd_counts = {k: counts[k] - fwd_counts[k] for k in counts}
     need_fwd, need_bwd = need or (
@@ -1311,7 +1352,7 @@ def scat_step(tt, ops, fused, scat, shape, check_n, phase, timing,
     fields = dict(
         shape=list(shape), layer=layer, options=kw,
         launches={"forward": fwd_counts, "backward": bwd_counts},
-        copies=copies,
+        copies=copies, instantiations=insts,
         launches_by_role=tr.by_role if need is None else {
             "forward": {k: v for k, v in fwd_counts.items() if v},
             "backward": {k: v for k, v in bwd_counts.items() if v}},
@@ -1639,6 +1680,7 @@ def dtcwt_large(tt, ops, lev, fb, scat, quad, pool, replay_calls):
         rec = i((yl, yh))
         torch.cuda.synchronize()
         counts = ops.launch_counts()
+        insts = inst_counts(ops)
         first_s = time.perf_counter() - t0
         inv_counts = {k: counts[k] - fwd_counts[k] for k in counts}
         _need(fwd_counts, ("dtcwt_filt", "dtcwt_dfilt", "q2c_pack"),
@@ -1709,6 +1751,7 @@ def dtcwt_large(tt, ops, lev, fb, scat, quad, pool, replay_calls):
     grad = torch.autograd.grad(outs, xg, cts)[0]
     torch.cuda.synchronize()
     step_bwd_counts = ops.launch_counts()
+    step_bwd_insts = inst_counts(ops)
     del outs
     _need(step_bwd_counts, ("dtcwt_filt", "dtcwt_dfilt", "dtcwt_ifilt",
                             "q2c_pack", "c2q_unpack"), "dtcwt_large",
@@ -1736,6 +1779,7 @@ def dtcwt_large(tt, ops, lev, fb, scat, quad, pool, replay_calls):
         launches={"forward": fwd_counts, "inverse": inv_counts,
                   "step_forward": step_fwd_counts,
                   "step_backward": step_bwd_counts},
+        instantiations={"round_trip": insts, "step_backward": step_bwd_insts},
         reconstruction_err=pr_err, reconstruction_tol=PR_TOL,
         max_abs_err_vs_plain_on_card={"forward": fwd_err,
                                       "inverse": inv_err},
@@ -1779,6 +1823,7 @@ def per_level_main(tt, ops, banded, fb, lev, scat):
             rec = i((yl, yh))
             torch.cuda.synchronize()
             counts = ops.launch_counts()
+            insts = inst_counts(ops)
             inv_counts = {k: counts[k] - fwd_counts[k] for k in counts}
             _need(fwd_counts, ("dtcwt_filt", "dtcwt_dfilt", "q2c_pack"),
                   "per_level_main", "forward")
@@ -1803,6 +1848,7 @@ def per_level_main(tt, ops, banded, fb, lev, scat):
     fields = dict(
         shape=list(MAIN_SHAPE), J=2, dispatch="set_operator_matmul(False)",
         launches={"forward": fwd_counts, "inverse": inv_counts},
+        instantiations=insts,
         max_abs_err_vs_composed_on_card=err, tolerance=INV_ATOL,
         reconstruction_err=pr_err, **out,
         mpix_per_s={"composed": mpix / (out["composed_fwd_inv_ms"] / 1e3),
@@ -2544,21 +2590,25 @@ def sfb_atrous_matrix(g0, g1, mode, dilation, n):
 
 def nonsep_call_parts(call, banded):
     """One recorded K14/K15/K16 call: (got, want, run, plain, lib, ops,
-    bytes).  ``lib``: for K14 cuDNN's ``F.conv2d`` of the input padded
+    bytes, extra).  ``lib``: for K14 cuDNN's ``F.conv2d`` of the input padded
     here (not timed), the K PSFs as output channels, stride 2; for K15
     ``F.conv_transpose2d`` of the bands as 4 input channels, stride 2,
     outside 'periodization' (whose wrap-add and roll no single call
     does), and for its adjoint ``F.conv2d`` of the cotangent padded here
-    by the crop, stride 2; for K16 K1 on the probed operator of the merge
-    (:func:`sfb_atrous_matrix`, the JAX package's device route) applied to
-    (lo, hi) concatenated here.  For K14's adjoint (on the non-separable
-    plan) ``F.conv_transpose2d`` of the cotangent, the K PSFs as input
-    channels, stride 2, and for K16's adjoint the dilated
-    ``F.conv_transpose2d`` of the cotangent into lo and hi (the reversed
-    taps, halved, as two output channels): both end in the padded
-    domain, and are checked folded back by the pad's adjoint
-    (:func:`folded`, not timed).  Each other library result is checked
-    against the plain version as it is."""
+    by the crop, stride 2; for K16 ``torch.matmul`` of the probed operator
+    of the merge (:func:`sfb_atrous_matrix`, the JAX package's device
+    route) and (lo, hi) concatenated here, and for its adjoint
+    ``torch.matmul`` of the operator's transpose and the cotangent (split
+    into lo and hi here, not timed).  For K14's adjoint (on the
+    non-separable plan) ``F.conv_transpose2d`` of the cotangent, the K
+    PSFs as input channels, stride 2: it ends in the padded domain, and
+    is checked folded back by the pad's adjoint (:func:`folded`, not
+    timed).  Each other library result is checked against the plain
+    version as it is.  ``extra``: {name: callable} of other yardsticks
+    timed beside them, K16's: K1 on the probed operator
+    (``k1_on_operator_ms``), and for its adjoint the dilated
+    ``F.conv_transpose2d`` of the cotangent into lo and hi's padded
+    domain (``partial_conv_transpose_ms``, checked folded back)."""
     import torch.nn.functional as F
     from pytorch_wavelets_tpu_torch.ops import afb_sfb, nonsep
     name, _, args = call
@@ -2570,6 +2620,7 @@ def nonsep_call_parts(call, banded):
     plain = lambda: plainf(*args)                             # noqa: E731
     lib = None
     lib_checked = False     # checked folded back instead
+    extra = {}
     if name == "nonsep_afb":
         x, f, mode = args
         K, Ly, Lx = np.shape(f)
@@ -2641,9 +2692,18 @@ def nonsep_call_parts(call, banded):
         T = sfb_atrous_matrix(tuple(g0), tuple(g1), mode, d,
                               lo.shape[axis])
         op = banded.Operator(np.asarray(T), lo.device)
+        Tt = torch.as_tensor(np.asarray(T), dtype=torch.float32,
+                             device=lo.device)
         both = torch.cat([lo, hi], dim=axis)
         apply = banded.apply_col if axis == 2 else banded.apply_row
-        lib = lambda: apply(both, op)                         # noqa: E731
+        if axis == 2:
+            lib = lambda: torch.matmul(Tt, both)              # noqa: E731
+        else:
+            lib = lambda: torch.matmul(both, Tt.t())          # noqa: E731
+        extra = {"k1_on_operator_ms": lambda: apply(both, op)}
+        require(torch.allclose(apply(both, op), want, **NONSEP_TOL),
+                "swt_sfb: K1 on the probed operator differs from the "
+                "plain version")
         ops = 4.0 * len(g0) * got.numel()
         nbytes = 4.0 * (lo.numel() + hi.numel() + got.numel())
     else:
@@ -2658,15 +2718,30 @@ def nonsep_call_parts(call, banded):
             dtype=torch.float32, device=dy.device)
         w = w.view(1, 2, 1, L) if axis == 3 else w.view(1, 2, L, 1)
         dil = (1, d) if axis == 3 else (d, 1)
-        lib = lambda: F.conv_transpose2d(dyr, w,              # noqa: E731
-                                         dilation=dil)
+        partial = lambda: F.conv_transpose2d(                 # noqa: E731
+            dyr, w, dilation=dil)
         from pytorch_wavelets_tpu_torch.ops.pad import pad1d
-        both = folded(lib(), (N * C, 2, H, W),   # lo and hi as channels
+        both = folded(partial(), (N * C, 2, H, W),   # lo and hi as channels
                       lambda z: pad1d(z, front, back, axis, mode))
         require(torch.allclose(both.reshape(want.shape), want,
                                **NONSEP_TOL),
-                "swt_sfb_adjoint: the library yardstick folded back "
-                "differs from the plain version")
+                "swt_sfb_adjoint: the partial transposed convolution "
+                "folded back differs from the plain version")
+        extra = {"partial_conv_transpose_ms": partial}
+        n = dy.shape[axis]
+        Tt = torch.as_tensor(np.asarray(sfb_atrous_matrix(
+            tuple(g0), tuple(g1), mode, d, n)), dtype=torch.float32,
+            device=dy.device)
+        if axis == 2:
+            lib = lambda: torch.matmul(Tt.t(), dy)            # noqa: E731
+        else:
+            lib = lambda: torch.matmul(dy, Tt)                # noqa: E731
+        lo_hi = lib()
+        require(torch.allclose(torch.stack(
+            [lo_hi.narrow(axis, 0, n), lo_hi.narrow(axis, n, n)], dim=2),
+            want, **NONSEP_TOL),
+            "swt_sfb_adjoint: torch.matmul by the probed operator's "
+            "transpose differs from the plain version")
         lib_checked = True
         ops = 4.0 * len(g0) * dy.numel()
         nbytes = 4.0 * (dy.numel() + got.numel())
@@ -2675,7 +2750,7 @@ def nonsep_call_parts(call, banded):
                                **NONSEP_TOL),
                 f"{name}: the library yardstick differs from the plain "
                 f"version")
-    return got, want, run, plain, lib, ops, nbytes
+    return got, want, run, plain, lib, ops, nbytes, extra
 
 
 def _flat(out):
@@ -2881,7 +2956,8 @@ def quad_nonsep(ops, nonsep, afb, alt):
             counts = ops.launch_counts()
             require(counts[kern] > 0, f"quad_nonsep: {kern} never launched "
                     f"in {name}: {counts}")
-            runs[name] = dict(out=out, launches=counts, ms=timed_ms(
+            runs[name] = dict(out=out, launches=counts,
+                              instantiations=inst_counts(ops), ms=timed_ms(
                 lambda: fn(x, *bank, mode=QUAD_MODE), reps=5, batches=10,
                 device_only=False), device_ms=timed_ms(
                 lambda: fn(x, *bank, mode=QUAD_MODE), reps=5, batches=5))
@@ -2925,6 +3001,7 @@ def nonsep_rt(ops, nonsep, afb):
             rec = rt(x)
             torch.cuda.synchronize()
             counts = ops.launch_counts()
+            insts = inst_counts(ops)
             pr = max_err(rec, x)
             del rec
             require(counts["nonsep_afb"] > 0 and counts["nonsep_sfb"] > 0,
@@ -2957,6 +3034,7 @@ def nonsep_rt(ops, nonsep, afb):
         step()
         torch.cuda.synchronize()
         scounts = ops.launch_counts()
+        sinsts = inst_counts(ops)
         require(scounts["nonsep_afb_adjoint"] > 0
                 and scounts["nonsep_sfb_adjoint"] > 0,
                 f"nonsep_rt {mode}: the adjoints never launched: {scounts}")
@@ -2972,7 +3050,9 @@ def nonsep_rt(ops, nonsep, afb):
         by_role[f"{mode} forward"] = counts
         by_role[f"{mode} backward"] = scounts
         fields[mode] = dict(
-            launches=counts, step_launches=scounts, reconstruction_err=pr,
+            launches=counts, step_launches=scounts,
+            instantiations={"round_trip": insts, "step": sinsts},
+            reconstruction_err=pr,
             reconstruction_tol=PR_TOL, adjoint_rel_err={"K14": adj_a,
                                                         "K15": adj_s},
             adjoint_tol=ADJOINT_TOL, fwd_inv_ms=ms, fwd_inv_device_ms=dev_ms,

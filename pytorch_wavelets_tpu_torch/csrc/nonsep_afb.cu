@@ -1,7 +1,7 @@
 // K14 nonsep_afb: one level of 2-D analysis as a single stride-(2, 2)
 // correlation of each (N, C) plane with a stack of K point-spread functions
-// (PSFs), every boundary mode folded into the index of each tap, and its
-// exact transpose.
+// (PSFs), every boundary mode folded into the staging, and its exact
+// transpose.
 //
 // Replaces pytorch_wavelets_tpu/ops/afb_sfb.py:_nonsep_conv (l.482; via
 // afb2d_nonsep l.518, K = 4 outer products, and
@@ -16,8 +16,8 @@
 //                        zero where either is -1; 'periodization' reads the
 //                        axis evened by repeating its last sample, wrapped;
 //   nonsep_afb_adjoint:  dx[i][j] = the sum of f[k][a][b] dy[k][o][o'] over
-//                        the taps whose padded position maps to (i, j), a
-//                        gather (no atomics): the direct position, and near
+//                        the taps whose padded position maps to (i, j): the
+//                        direct position (u, v) = (i + fy, j + fx), and near
 //                        an edge each pad position that copies the pixel
 //                        (the evened copy of the last sample included).
 //                        With per 2 on an axis it is the transpose of the
@@ -27,24 +27,80 @@
 //                        reference's roll, zero pad and single fold, the
 //                        backward of transforms/dtcwt_alt.py:quad_afb2d.
 //
-// The shared code is csrc/nonsep_stencil.cuh (corr and gather, templated on
-// the axis map; K15 runs the same two with the synthesis's map).
-//
 // Bound: operations for the 16 10x10 PSFs of quad_afb2d_nonsep (2 * 1,600
-// FLOP per output position against 4 bytes read and 64 written), bytes for
-// K = 4 with short filters.  One thread computes all K outputs of a
-// position from one read of each window sample (K fmas per load, the taps
-// a shared-memory broadcast); the windows of neighbouring threads overlap
-// and are re-read from L1.  Windows inside the plane skip the index math.
+// FLOP per output position against 4 bytes read and 64 written), bytes
+// for K = 4 with short filters (db4: 512 FLOP against 32 bytes).  So the
+// design aims at the FMA rate, on the CUDA cores: K14 is held to fp32
+// within 1e-5, which TF32 does not meet.
+//
+// Forward, afb_tile_kernel<KMAX> (KMAX = 4 or 16: K padded with zero
+// PSFs).  A block of BX x BY threads takes TY x TX = (PY BY) x BX output
+// positions.  It stages their input window, (2 TY + Ly - 2) x (2 TX + Lx -
+// 2) samples, in shared memory once, with each row's and each column's
+// source (AfbAxis::src: every pad mode, 'periodization''s evening and
+// wrap) computed once a tile and -1 staged as zero; the samples (and the
+// taps) are copied by 4-byte (16-byte) cp.async, so a tile's loads are in
+// flight together and the block waits once.  Columns are stored
+// split by parity, so a tap's stride-2 reads are consecutive across a
+// warp; the row pitch is chosen so that the 32 / BX thread rows of a warp
+// fall on distinct banks.  Each thread computes PY = 4 positions (rows ty
+// + BY p) x KMAX PSFs in registers: per tap, KMAX / 4 float4 broadcasts of
+// the taps (laid out Ly x Lx x KMAX, K innermost) and PY window reads feed
+// PY * KMAX FMAs (8 shared reads per 64 FMAs for K = 16).  The wrapper
+// (ops/nonsep.py:afb_tile) chooses (BX, BY) by the positions the tiles
+// cover, the FMAs and the staged samples.
+//
+// Adjoint, the polyphase identity (afb_adjoint_tile_kernel<KMAX>).  With
+// u = 2U + du and v = 2V + dv the direct padded position of a pixel,
+//   dX(u, v) = sum_{alpha, beta, k} f[k][2 alpha + du][2 beta + dv]
+//              dy[k][U - alpha][V - beta],
+// dy read as zero outside its plane.  A block of BX x BY threads takes TQY
+// x TQX = (PY BY) x BX quads, 2 TQY x 2 TQX pixels, and stages the K
+// cotangent planes' window, (TQY + ceil(Ly/2) - 1) x (TQX + ceil(Lx/2) -
+// 1), in shared memory once, K innermost in float4 groups.  Each thread
+// computes PY quads (all four parities): per (alpha, beta) and group of 4
+// PSFs, one float4 of the cotangent per quad, used by the four pixels, and
+// the four parities' taps as float4 broadcasts (8 shared reads per 64
+// FMAs).  This is the whole sum wherever the direct position is a pixel's
+// only image.
+//
+// Pixels near an edge (the band): afb_adjoint_band_kernel keeps
+// nonsep_stencil.cuh's gather (gather_window) over the band only.  The
+// wrapper (ops/nonsep.py:adjoint_interior) gives each axis' interior,
+// outside which a pixel may have pad images, and (ops/nonsep.py:
+// band_images) a table of every band pixel's images along the axis, the
+// positions u with src(u) = t, built on the host once per plan: no edge
+// scan on the card.  Where both axes have a direct position (per 0 or 1),
+// the polyphase kernel writes every pixel and the band kernel adds each
+// band pixel's other image pairs (add_extras); where an axis takes the
+// separable split's single fold (per 2: every pixel's positions come from
+// the roll, and the cotangent rows from cot()), the band is the whole
+// plane and the band kernel writes the full gather.  Launched in that
+// order on one stream: no atomics, and the adjoint stays the exact
+// transpose.
+//
+// K15 (nonsep_sfb.cu) still runs nonsep_stencil.cuh's corr / gather
+// templates with its own axis map; this file takes only AfbAxis and the
+// gather's window (gather_window) from that header.
+//
+// Indices along an axis are 32-bit (the host keeps H, W below 2^30),
+// element offsets 64-bit, so planes past 2^31 outputs take the same code;
+// tiles and planes past the grid's limits loop.
+#include <cstdint>
+
 #include <cuda_runtime.h>
 
 #include "nonsep_stencil.cuh"
 
 namespace {
 
+constexpr int PY = 4;           // positions (forward) / quads (adjoint) a
+                                // thread computes along the rows
+constexpr int SMEM_MAX = 232448;
+
 // `out` output positions; per 2 reads 2 out virtual ones (its fold)
 inline AfbAxis afb_axis(int n, int front, int mode, int per, int shift,
-                        int out, int L) {
+                        int out) {
   AfbAxis ax;
   ax.n = n;
   ax.front = front;
@@ -52,8 +108,396 @@ inline AfbAxis afb_axis(int n, int front, int mode, int per, int shift,
   ax.per = per;
   ax.shift = shift;
   ax.nout = out;
-  ax.umax = 2 * ((per == 2 ? 2 * out : out) - 1) + L - 1;
   return ax;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+inline unsigned clamp_grid(long long v, long long cap) {
+  return (unsigned)(v < 1 ? 1 : (v > cap ? cap : v));
+}
+
+inline bool tile_ok(int bx, int by) {
+  return (bx == 8 || bx == 16 || bx == 32) && by >= 1 && by <= 16 &&
+         bx * by >= 32 && bx * by <= 256;
+}
+
+// The Ly x Lx x K tap stack into shared memory as Ly x Lx x KMAX, zeros
+// for the PSFs past K: 16-byte cp.async where K = KMAX and the stack is
+// 16-byte aligned (the wrappers' stacks are), else loads and stores.  The
+// caller waits (cp_async_wait_all) and synchronises.
+template <int KMAX>
+__device__ __forceinline__ void stage_padded_taps(const float* taps, int K,
+                                                  int nab, float* tp,
+                                                  int tid, int nth) {
+  if (K == KMAX && reinterpret_cast<uintptr_t>(taps) % 16 == 0) {
+    for (int e = 4 * tid; e < nab * KMAX; e += 4 * nth)
+      cp_async16(tp + e, taps + e);
+    return;
+  }
+  for (int e = tid; e < nab * KMAX; e += nth) {
+    const int k = e % KMAX;
+    tp[e] = k < K ? taps[(e / KMAX) * K + k] : 0.f;
+  }
+}
+
+// ---------------------------------------------------------------- forward
+
+struct FwdArgs {
+  const float* in;
+  float* out;
+  const float* taps;  // Ly x Lx x K on the card
+  int K, Ly, Lx, C, Ho, Wo;
+  int rows_w, cols_w, pitch;  // the staged window, a parity plane's pitch
+  long long planes, si0, si1, si2, si3, so0, so1, sok, so2, so3;
+  AfbAxis y, x;
+};
+
+// floats of a parity plane's row: ceil(cols / 2), raised so that 2 pitch =
+// bx (mod 32): a warp's 32 / bx thread rows, 2 window rows apart, then
+// read distinct banks
+inline int fwd_pitch(int cols_w, int bx) {
+  int p = (cols_w + 1) / 2;
+  if (bx < 32) p += ((bx / 2 - p) % 16 + 16) % 16;
+  return p;
+}
+
+inline size_t fwd_smem(int kmax, int Ly, int Lx, int bx, int by) {
+  const int rows_w = 2 * PY * by + Ly - 2, cols_w = 2 * bx + Lx - 2;
+  return sizeof(float) * ((size_t)Ly * Lx * kmax + rows_w + cols_w +
+                          2 * (size_t)rows_w * fwd_pitch(cols_w, bx));
+}
+
+template <int KMAX>
+__global__ void __launch_bounds__(256) afb_tile_kernel(FwdArgs a) {
+  extern __shared__ float4 sm4[];
+  float* tp = reinterpret_cast<float*>(sm4);  // Ly x Lx x KMAX
+  int* rsrc = reinterpret_cast<int*>(tp + a.Ly * a.Lx * KMAX);
+  int* csrc = rsrc + a.rows_w;
+  float* win = reinterpret_cast<float*>(csrc + a.cols_w);
+  const int BX = blockDim.x, BY = blockDim.y, nth = BX * BY;
+  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * BX + tx;
+  stage_padded_taps<KMAX>(a.taps, a.K, a.Ly * a.Lx, tp, tid, nth);
+  const int TX = BX, TY = BY * PY;
+  const int nty = (a.Ho + TY - 1) / TY;
+  const int plane = a.rows_w * a.pitch;
+  const int ox0 = blockIdx.x * TX;
+  for (long long p = blockIdx.z; p < a.planes; p += gridDim.z) {
+    const long long nn = p / a.C;
+    const int c = (int)(p % a.C);
+    const float* xp = a.in + nn * a.si0 + c * a.si1;
+    float* yp = a.out + nn * a.so0 + c * a.so1;
+    for (int tyt = blockIdx.y; tyt < nty; tyt += gridDim.y) {
+      const int oy0 = tyt * TY;
+      __syncthreads();  // taps staged; the last tile's window consumed
+      for (int r = tid; r < a.rows_w; r += nth) rsrc[r] = a.y.src(2 * oy0 + r);
+      for (int q = tid; q < a.cols_w; q += nth)
+        csrc[q] = a.x.src(2 * ox0 + q);
+      __syncthreads();
+      {
+        int r = tid / a.cols_w, q = tid - r * a.cols_w;
+        const int dr = nth / a.cols_w, dq = nth - dr * a.cols_w;
+        while (r < a.rows_w) {
+          const int rs = rsrc[r], cs = csrc[q];
+          float* dst = win + (q & 1) * plane + r * a.pitch + (q >> 1);
+          if (rs >= 0 && cs >= 0)
+            cp_async4(dst, xp + rs * a.si2 + cs * a.si3);
+          else
+            *dst = 0.f;
+          r += dr;
+          q += dq;
+          if (q >= a.cols_w) {
+            q -= a.cols_w;
+            ++r;
+          }
+        }
+      }
+      cp_async_wait_all();  // the window's (and the first time the taps')
+      __syncthreads();
+      float acc[PY][KMAX];
+#pragma unroll
+      for (int i = 0; i < PY; ++i)
+#pragma unroll
+        for (int k = 0; k < KMAX; ++k) acc[i][k] = 0.f;
+      const int pstep = 2 * BY * a.pitch;
+      for (int ay = 0; ay < a.Ly; ++ay) {
+        const float* rowp = win + (2 * ty + ay) * a.pitch + tx;
+        const float4* trow =
+            reinterpret_cast<const float4*>(tp + ay * a.Lx * KMAX);
+#pragma unroll 2
+        for (int c2 = 0; 2 * c2 < a.Lx; ++c2) {
+#pragma unroll
+          for (int par = 0; par < 2; ++par) {
+            const int bx = 2 * c2 + par;
+            if (bx < a.Lx) {
+              float t[KMAX];
+#pragma unroll
+              for (int q = 0; q < KMAX / 4; ++q) {
+                const float4 f = trow[bx * (KMAX / 4) + q];
+                t[4 * q] = f.x;
+                t[4 * q + 1] = f.y;
+                t[4 * q + 2] = f.z;
+                t[4 * q + 3] = f.w;
+              }
+              const float* vp = rowp + par * plane + c2;
+#pragma unroll
+              for (int i = 0; i < PY; ++i) {
+                const float v = vp[i * pstep];
+#pragma unroll
+                for (int k = 0; k < KMAX; ++k)
+                  acc[i][k] = fmaf(t[k], v, acc[i][k]);
+              }
+            }
+          }
+        }
+      }
+      const int ox = ox0 + tx;
+      if (ox < a.Wo) {
+#pragma unroll
+        for (int i = 0; i < PY; ++i) {
+          const int oy = oy0 + ty + BY * i;
+          if (oy < a.Ho) {
+            float* o = yp + oy * a.so2 + ox * a.so3;
+#pragma unroll
+            for (int k = 0; k < KMAX; ++k)
+              if (k < a.K) o[k * a.sok] = acc[i][k];
+          }
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------- adjoint
+
+struct AdjArgs {
+  const float* in;  // dy (N, C, K, Hi, Wi)
+  float* out;       // dx (N, C, H, W)
+  const float* taps;
+  int K, Ly, Lx, C, Hi, Wi, H, W, fy, fx;
+  int Ay, Ax;                 // ceil(Ly / 2), ceil(Lx / 2)
+  int U0, V0, nU, nV;         // the quads (padded position / 2) computed
+  int rows, cols;             // the staged cotangent window
+  long long planes, si0, si1, sik, si2, si3, so0, so1, so2, so3;
+};
+
+inline size_t adj_smem(int kmax, int Ly, int Lx, int bx, int by) {
+  const int rows = PY * by + (Ly + 1) / 2 - 1, cols = bx + (Lx + 1) / 2 - 1;
+  return sizeof(float) * ((size_t)Ly * Lx * kmax + (size_t)kmax * rows * cols);
+}
+
+__device__ __forceinline__ float dot4(float4 t, float4 d, float acc) {
+  acc = fmaf(t.x, d.x, acc);
+  acc = fmaf(t.y, d.y, acc);
+  acc = fmaf(t.z, d.z, acc);
+  return fmaf(t.w, d.w, acc);
+}
+
+template <int KMAX>
+__global__ void __launch_bounds__(256) afb_adjoint_tile_kernel(AdjArgs a) {
+  extern __shared__ float4 sm4[];
+  float* tp = reinterpret_cast<float*>(sm4);  // Ly x Lx x KMAX
+  float4* dyw = reinterpret_cast<float4*>(tp + a.Ly * a.Lx * KMAX);
+  const int BX = blockDim.x, BY = blockDim.y, nth = BX * BY;
+  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * BX + tx;
+  stage_padded_taps<KMAX>(a.taps, a.K, a.Ly * a.Lx, tp, tid, nth);
+  const int TQX = BX, TQY = BY * PY;
+  const int nty = (a.nU + TQY - 1) / TQY;
+  const int Vt = a.V0 + blockIdx.x * TQX;
+  const int rc = a.rows * a.cols;
+  for (long long p = blockIdx.z; p < a.planes; p += gridDim.z) {
+    const long long nn = p / a.C;
+    const int c = (int)(p % a.C);
+    const float* gp = a.in + nn * a.si0 + c * a.si1;
+    float* yp = a.out + nn * a.so0 + c * a.so1;
+    for (int tyt = blockIdx.y; tyt < nty; tyt += gridDim.y) {
+      const int Ut = a.U0 + tyt * TQY;
+      const int o0 = Ut - (a.Ay - 1), q0 = Vt - (a.Ax - 1);
+      __syncthreads();  // taps staged; the last tile's window consumed
+      {
+        // element ((g rc + r cols + q) 4 + kk) of the window holds
+        // dy[4 g + kk][o0 + r][q0 + q]; nth is a multiple of 8, so a
+        // thread keeps its kk and walks (g, r, q)
+        const int kk = tid & 3, step = nth >> 2;
+        int e = tid >> 2;
+        int g = e / rc, rem = e - g * rc;
+        int r = rem / a.cols, q = rem - r * a.cols;
+        const int dg = step / rc, drem = step - dg * rc;
+        const int dr = drem / a.cols, dq = drem - dr * a.cols;
+        float* w = reinterpret_cast<float*>(dyw);
+        while (g < KMAX / 4) {
+          const int k = 4 * g + kk, o = o0 + r, oq = q0 + q;
+          float* dst = w + (g * rc + r * a.cols + q) * 4 + kk;
+          if (k < a.K && o >= 0 && o < a.Hi && oq >= 0 && oq < a.Wi)
+            cp_async4(dst, gp + k * a.sik + o * a.si2 + oq * a.si3);
+          else
+            *dst = 0.f;
+          g += dg;
+          r += dr;
+          q += dq;
+          if (q >= a.cols) {
+            q -= a.cols;
+            ++r;
+          }
+          if (r >= a.rows) {
+            r -= a.rows;
+            ++g;
+          }
+        }
+      }
+      cp_async_wait_all();
+      __syncthreads();
+      float acc[PY][2][2];
+#pragma unroll
+      for (int i = 0; i < PY; ++i)
+        acc[i][0][0] = acc[i][0][1] = acc[i][1][0] = acc[i][1][1] = 0.f;
+      for (int al = 0; al < a.Ay; ++al) {
+        const bool y1 = 2 * al + 1 < a.Ly;
+#pragma unroll 2
+        for (int be = 0; be < a.Ax; ++be) {
+          const bool x1 = 2 * be + 1 < a.Lx;
+          const float4* t00 = reinterpret_cast<const float4*>(
+              tp + ((2 * al) * a.Lx + 2 * be) * KMAX);
+          const float4* t01 = t00 + KMAX / 4;
+          const float4* t10 = t00 + a.Lx * (KMAX / 4);
+          const float4* t11 = t10 + KMAX / 4;
+          const float4* dp =
+              dyw + (ty + a.Ay - 1 - al) * a.cols + tx + a.Ax - 1 - be;
+#pragma unroll
+          for (int g = 0; g < KMAX / 4; ++g) {
+            const float4 f00 = t00[g];
+            const float4 f01 = x1 ? t01[g] : make_float4(0, 0, 0, 0);
+            const float4 f10 = y1 ? t10[g] : make_float4(0, 0, 0, 0);
+            const float4 f11 =
+                (x1 && y1) ? t11[g] : make_float4(0, 0, 0, 0);
+#pragma unroll
+            for (int i = 0; i < PY; ++i) {
+              const float4 d = dp[g * rc + i * BY * a.cols];
+              acc[i][0][0] = dot4(f00, d, acc[i][0][0]);
+              if (x1) acc[i][0][1] = dot4(f01, d, acc[i][0][1]);
+              if (y1) acc[i][1][0] = dot4(f10, d, acc[i][1][0]);
+              if (x1 && y1) acc[i][1][1] = dot4(f11, d, acc[i][1][1]);
+            }
+          }
+        }
+      }
+      const int V = Vt + tx;
+#pragma unroll
+      for (int i = 0; i < PY; ++i) {
+        const int U = Ut + ty + BY * i;
+        if (U >= a.U0 + a.nU || V >= a.V0 + a.nV) continue;
+#pragma unroll
+        for (int du = 0; du < 2; ++du) {
+          const int ii = 2 * U + du - a.fy;
+          if (ii < 0 || ii >= a.H) continue;
+#pragma unroll
+          for (int dv = 0; dv < 2; ++dv) {
+            const int jj = 2 * V + dv - a.fx;
+            if (jj >= 0 && jj < a.W)
+              yp[ii * a.so2 + jj * a.so3] = acc[i][du][dv];
+          }
+        }
+      }
+    }
+  }
+}
+
+// The band: pixels outside the interior rectangle [y0, y1) x [x0, x1),
+// each summing gather windows over its image pairs.  Along an axis a pixel
+// t inside the interior has one image, t + front; one outside it has the
+// table's row (t, or lo + t - hi past the interior), up to m positions,
+// -1 past its last.  add_extras: the polyphase kernel wrote the direct
+// pair, so add the others; else write the whole sum (a per-2 axis).
+struct BandArgs {
+  const int* tab_y;
+  const int* tab_x;
+  int y0, y1, x0, x1, my, mx, add_extras;
+  long long nband;
+};
+
+__device__ __forceinline__ const int* band_row(const int* tab, int t, int lo,
+                                               int hi, int m) {
+  return tab + (long long)(t < lo ? t : lo + t - hi) * m;
+}
+
+template <typename I>
+__global__ void afb_adjoint_band_kernel(StencilArgs<AfbAxis> a, BandArgs b) {
+  extern __shared__ float tp[];
+  stage_taps(a.taps, a.K * a.Ly * a.Lx, tp);
+  const I top = (I)b.y0 * a.Wo, bottom = (I)(a.Ho - b.y1) * a.Wo;
+  const int side = b.x0 + (a.Wo - b.x1);
+  for (long long p = blockIdx.y; p < a.planes; p += gridDim.y) {
+    const long long nn = p / a.C;
+    const int c = (int)(p % a.C);
+    const float* gp = a.in + nn * a.si0 + c * a.si1;
+    float* yp = a.out + nn * a.so0 + c * a.so1;
+    for (I idx = (I)blockIdx.x * blockDim.x + threadIdx.x; idx < (I)b.nband;
+         idx += (I)gridDim.x * blockDim.x) {
+      int ty, tx;
+      if (idx < top) {
+        ty = (int)(idx / a.Wo);
+        tx = (int)(idx - (I)ty * a.Wo);
+      } else if (idx - top < bottom) {
+        const I e = idx - top;
+        ty = b.y1 + (int)(e / a.Wo);
+        tx = (int)(e - (I)(ty - b.y1) * a.Wo);
+      } else {
+        const I e = idx - top - bottom;
+        const int r = (int)(e / side), q = (int)(e - (I)r * side);
+        ty = b.y0 + r;
+        tx = q < b.x0 ? q : b.x1 + (q - b.x0);
+      }
+      const int uy = ty + a.y.front, vx = tx + a.x.front;
+      const bool iny = ty >= b.y0 && ty < b.y1, inx = tx >= b.x0 && tx < b.x1;
+      const int* ly = iny ? nullptr : band_row(b.tab_y, ty, b.y0, b.y1, b.my);
+      const int* lx = inx ? nullptr : band_row(b.tab_x, tx, b.x0, b.x1, b.mx);
+      const int ny = iny ? 1 : b.my, nx = inx ? 1 : b.mx;
+      float acc = 0.f;
+      for (int i = 0; i < ny; ++i) {
+        const int u = iny ? uy : ly[i];
+        if (u < 0) break;
+        for (int j = 0; j < nx; ++j) {
+          const int v = inx ? vx : lx[j];
+          if (v < 0) break;
+          if (!(b.add_extras && u == uy && v == vx))
+            acc += gather_window(a, tp, gp, u, v);
+        }
+      }
+      float* o = yp + ty * a.so2 + tx * a.so3;
+      *o = b.add_extras ? *o + acc : acc;
+    }
+  }
+}
+
+template <typename K>
+int set_smem(K* k, size_t smem) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return 0;
 }
 
 }  // namespace
@@ -65,17 +509,20 @@ const char* kernel_error_string(int err) {
 }
 
 // x: (N, C, H, W) at strides sx0..sx3; taps: Ly x Lx x K floats on the
-// card; y: (N, C, K, Ho, Wo) at strides sy0, sy1, syk, sy2, sy3.
+// card; y: (N, C, K, Ho, Wo) at strides sy0, sy1, syk, sy2, sy3; (bx, by):
+// the block's threads (ops/nonsep.py:afb_tile).
 int nonsep_afb(const void* x, void* y, const void* taps, int K, int Ly,
                int Lx, long long N, int C, int H, int W, long long sx0,
                long long sx1, long long sx2, long long sx3, int Ho, int Wo,
-               int fy, int fx, int mode, int per, long long sy0,
-               long long sy1, long long syk, long long sy2, long long sy3,
-               void* stream) {
+               int fy, int fx, int mode, int per, int bx, int by,
+               long long sy0, long long sy1, long long syk, long long sy2,
+               long long sy3, void* stream) {
+  const int kmax = K <= 4 ? 4 : 16;
   if (K < 1 || K > 16 || Ly < 1 || Lx < 1 || fy < 0 || fx < 0 || H < 1 ||
-      W < 1 || per < 0 || per > 1)
+      W < 1 || per < 0 || per > 1 || !tile_ok(bx, by) ||
+      fwd_smem(kmax, Ly, Lx, bx, by) > SMEM_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  StencilArgs<AfbAxis> a;
+  FwdArgs a;
   a.in = static_cast<const float*>(x);
   a.out = static_cast<float*>(y);
   a.taps = static_cast<const float*>(taps);
@@ -83,42 +530,119 @@ int nonsep_afb(const void* x, void* y, const void* taps, int K, int Ly,
   a.Ly = Ly;
   a.Lx = Lx;
   a.C = C;
-  a.Hi = H;
-  a.Wi = W;
   a.Ho = Ho;
   a.Wo = Wo;
+  a.rows_w = 2 * PY * by + Ly - 2;
+  a.cols_w = 2 * bx + Lx - 2;
+  a.pitch = fwd_pitch(a.cols_w, bx);
   a.planes = N * C;
-  a.si0 = sx0; a.si1 = sx1; a.sik = 0; a.si2 = sx2; a.si3 = sx3;
+  a.si0 = sx0; a.si1 = sx1; a.si2 = sx2; a.si3 = sx3;
   a.so0 = sy0; a.so1 = sy1; a.sok = syk; a.so2 = sy2; a.so3 = sy3;
-  a.y = afb_axis(H, fy, mode, per, 0, Ho, Ly);
-  a.x = afb_axis(W, fx, mode, per, 0, Wo, Lx);
-  const long long per_plane = (long long)Ho * Wo;
-  if (per_plane == 0 || a.planes == 0) return 0;
-  const int smem = (int)(sizeof(float) * K * Ly * Lx);
-  if (K <= 4)
-    return stencil_launch(nonsep_corr_kernel<4, AfbAxis, int>,
-                          nonsep_corr_kernel<4, AfbAxis, long long>,
-                          per_plane, a.planes, smem, a, stream);
-  return stencil_launch(nonsep_corr_kernel<16, AfbAxis, int>,
-                        nonsep_corr_kernel<16, AfbAxis, long long>,
-                        per_plane, a.planes, smem, a, stream);
+  a.y = afb_axis(H, fy, mode, per, 0, Ho);
+  a.x = afb_axis(W, fx, mode, per, 0, Wo);
+  if ((long long)Ho * Wo == 0 || a.planes == 0) return 0;
+  const size_t smem = fwd_smem(kmax, Ly, Lx, bx, by);
+  const dim3 grid(clamp_grid((Wo + bx - 1) / bx, 2147483647LL),
+                  clamp_grid((Ho + PY * by - 1) / (PY * by), 65535),
+                  clamp_grid(a.planes, 65535));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int rc;
+  if (kmax == 4) {
+    if ((rc = set_smem(afb_tile_kernel<4>, smem))) return rc;
+    afb_tile_kernel<4><<<grid, dim3(bx, by), smem, st>>>(a);
+  } else {
+    if ((rc = set_smem(afb_tile_kernel<16>, smem))) return rc;
+    afb_tile_kernel<16><<<grid, dim3(bx, by), smem, st>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // dy: (N, C, K, Ho, Wo) at strides sd0, sd1, sdk, sd2, sd3; dx: (N, C, H,
 // W) at strides sx0..sx3; the plan of nonsep_afb, or per axis (py, px)
-// of the separable split (2, with its roll shy / shx).
+// of the separable split (2, with its roll shy / shx); each axis'
+// interior [y0, y1), [x0, x1) of pixels whose only image is the direct
+// position (ops/nonsep.py:adjoint_interior; empty on a per-2 axis) and
+// the table of the images of the pixels outside it (tab_y: H - (y1 - y0)
+// rows of my positions, ops/nonsep.py:band_images; may be null where
+// every pixel is interior); (bx, by): the polyphase kernel's block
+// (ops/nonsep.py:adjoint_tile).
 int nonsep_afb_adjoint(const void* dy, void* dx, const void* taps, int K,
                        int Ly, int Lx, long long N, int C, int Ho, int Wo,
                        long long sd0, long long sd1, long long sdk,
                        long long sd2, long long sd3, int H, int W, int fy,
                        int fx, int mode, int py, int px, int shy, int shx,
+                       int y0, int y1, int x0, int x1, const void* tab_y,
+                       int my, const void* tab_x, int mx, int bx, int by,
                        long long sx0, long long sx1, long long sx2,
                        long long sx3, void* stream) {
+  const int kmax = K <= 4 ? 4 : 16;
+  const bool poly = py < 2 && px < 2;
   if (K < 1 || K > 16 || Ly < 1 || Lx < 1 || fy < 0 || fx < 0 || Ho < 1 ||
       Wo < 1 || py < 0 || py > 2 || px < 0 || px > 2 || shy < 0 ||
       shx < 0 || (py == 2 && (Ly <= H + (H & 1) || 2 * Ho != H + (H & 1))) ||
-      (px == 2 && (Lx <= W + (W & 1) || 2 * Wo != W + (W & 1))))
+      (px == 2 && (Lx <= W + (W & 1) || 2 * Wo != W + (W & 1))) ||
+      y0 < 0 || y0 > y1 || y1 > H || x0 < 0 || x0 > x1 || x1 > W ||
+      (py == 2 && y0 != y1) || (px == 2 && x0 != x1) ||
+      ((y1 - y0 < H) && (!tab_y || my < 1)) ||
+      ((x1 - x0 < W) && (!tab_x || mx < 1)) ||
+      (poly && (!tile_ok(bx, by) || adj_smem(kmax, Ly, Lx, bx, by) >
+                                        SMEM_MAX)))
     return static_cast<int>(cudaErrorInvalidValue);
+  if ((long long)H * W == 0 || N * C == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int rc;
+  if (poly) {
+    AdjArgs a;
+    a.in = static_cast<const float*>(dy);
+    a.out = static_cast<float*>(dx);
+    a.taps = static_cast<const float*>(taps);
+    a.K = K;
+    a.Ly = Ly;
+    a.Lx = Lx;
+    a.C = C;
+    a.Hi = Ho;
+    a.Wi = Wo;
+    a.H = H;
+    a.W = W;
+    a.fy = fy;
+    a.fx = fx;
+    a.Ay = (Ly + 1) / 2;
+    a.Ax = (Lx + 1) / 2;
+    // every pixel: quads of u = i + fy over [fy, H - 1 + fy]
+    a.U0 = fy / 2;
+    a.nU = (H - 1 + fy) / 2 - a.U0 + 1;
+    a.V0 = fx / 2;
+    a.nV = (W - 1 + fx) / 2 - a.V0 + 1;
+    a.rows = PY * by + a.Ay - 1;
+    a.cols = bx + a.Ax - 1;
+    a.planes = N * C;
+    a.si0 = sd0; a.si1 = sd1; a.sik = sdk; a.si2 = sd2; a.si3 = sd3;
+    a.so0 = sx0; a.so1 = sx1; a.so2 = sx2; a.so3 = sx3;
+    const size_t smem = adj_smem(kmax, Ly, Lx, bx, by);
+    const dim3 grid(clamp_grid((a.nV + bx - 1) / bx, 2147483647LL),
+                    clamp_grid((a.nU + PY * by - 1) / (PY * by), 65535),
+                    clamp_grid(a.planes, 65535));
+    if (kmax == 4) {
+      if ((rc = set_smem(afb_adjoint_tile_kernel<4>, smem))) return rc;
+      afb_adjoint_tile_kernel<4><<<grid, dim3(bx, by), smem, st>>>(a);
+    } else {
+      if ((rc = set_smem(afb_adjoint_tile_kernel<16>, smem))) return rc;
+      afb_adjoint_tile_kernel<16><<<grid, dim3(bx, by), smem, st>>>(a);
+    }
+    if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
+  }
+  BandArgs b;
+  b.tab_y = static_cast<const int*>(tab_y);
+  b.tab_x = static_cast<const int*>(tab_x);
+  b.y0 = y0;
+  b.y1 = y1;
+  b.x0 = x0;
+  b.x1 = x1;
+  b.my = my;
+  b.mx = mx;
+  b.add_extras = poly;
+  b.nband = (long long)H * W - (long long)(y1 - y0) * (x1 - x0);
+  if (b.nband == 0) return 0;
   StencilArgs<AfbAxis> a;
   a.in = static_cast<const float*>(dy);
   a.out = static_cast<float*>(dx);
@@ -134,14 +658,15 @@ int nonsep_afb_adjoint(const void* dy, void* dx, const void* taps, int K,
   a.planes = N * C;
   a.si0 = sd0; a.si1 = sd1; a.sik = sdk; a.si2 = sd2; a.si3 = sd3;
   a.so0 = sx0; a.so1 = sx1; a.sok = 0; a.so2 = sx2; a.so3 = sx3;
-  a.y = afb_axis(H, fy, mode, py, shy, Ho, Ly);
-  a.x = afb_axis(W, fx, mode, px, shx, Wo, Lx);
-  const long long per_plane = (long long)H * W;
-  if (per_plane == 0 || a.planes == 0) return 0;
+  a.y = afb_axis(H, fy, mode, py, shy, Ho);
+  a.x = afb_axis(W, fx, mode, px, shx, Wo);
   const int smem = (int)(sizeof(float) * K * Ly * Lx);
-  return stencil_launch(nonsep_gather_kernel<AfbAxis, int>,
-                        nonsep_gather_kernel<AfbAxis, long long>, per_plane,
-                        a.planes, smem, a, stream);
+  void (*k)(StencilArgs<AfbAxis>, BandArgs) =
+      b.nband < (1LL << 30) ? afb_adjoint_band_kernel<int>
+                            : afb_adjoint_band_kernel<long long>;
+  if ((rc = set_smem(k, smem))) return rc;
+  k<<<dwt_grid(b.nband, a.planes, 256), 256, smem, st>>>(a, b);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -1,28 +1,31 @@
-// The two stride-2 2-D stencils that K14 (nonsep_afb.cu) and K15
-// (nonsep_sfb.cu) share, each templated on the index map of one axis.
+// The stride-2 2-D stencils of K15 (nonsep_sfb.cu), templated on the
+// index map of one axis, and the pieces K14 (nonsep_afb.cu) takes from
+// them: its axis map (AfbAxis: src for the forward's staging, cot for the
+// virtual rows of its adjoint's single fold) and gather_window (its
+// adjoint's edge band).
 //
 // corr:   out[k][o][o'] = sum_{a, b} T[a][b][k] * in[Y.src(2o + a)][X.src(2o' + b)]
 //         (a zero where a map gives -1): one thread per output position
-//         computes all K outputs from one read of its window.  K14's
-//         forward (AfbAxis: the pads of each mode) and K15's adjoint
-//         (SfbAxis: the inverse of the synthesis's output index).
+//         computes all K outputs from one read of its window.  K15's
+//         adjoint (SfbAxis: the inverse of the synthesis's output index).
 // gather: out[t][t'] = sum over positions u of Y.images(t), u' of
 //         X.images(t'), of sum_{a = u mod 2, b = u' mod 2} sum_k
 //         T[a][b][k] * in[k][(u - a) / 2][(u' - b) / 2] (windows inside
-//         the input only): the transpose of corr when images() lists the
-//         positions that src() maps to t.  K14's adjoint (the direct
-//         position and, near an edge, the pads' images) and K15's forward
-//         (the output's one or two positions before the wrap-add and roll).
-//         Row j of a virtual input of Hi rows reads row cot(j) of the
-//         real one: the separable split's single fold, whose outputs each
-//         sum two windows, read as a twice longer input (K14's adjoint).
+//         the input only, gather_window): the transpose of corr when
+//         images() lists the positions that src() maps to t.  K15's
+//         forward (the output's one or two positions before the wrap-add
+//         and roll).  Row j of a virtual input of Hi rows reads row cot(j)
+//         of the real one: the separable split's single fold, whose
+//         outputs each sum two windows, read as a twice longer input
+//         (K14's adjoint).
 //
 // Both maps are separable, so a 2-D output reads the product of its rows'
 // and columns' positions.  The tap stack T (Ly x Lx x K floats) sits in
 // shared memory (dynamic, above 48 KB by opt-in; the wrappers keep it
 // within the H100's 227 KB), read by all threads of a warp at one address
 // (a broadcast).  Inputs and outputs are read and written through their
-// strides.
+// strides.  K14's own kernels (staged tiles, the polyphase adjoint) are in
+// nonsep_afb.cu.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -35,10 +38,9 @@
 // wrapped (per 1, 'periodization'), or of that evened axis rolled by
 // `shift` and zero outside one period (per 2: the separable split's plan
 // where the filter is longer than ne; its outputs each add the window
-// nout rows on, so the adjoint reads 2 nout virtual rows).  umax is the
-// last position a window reads.
+// nout rows on, so the adjoint reads 2 nout virtual rows).
 struct AfbAxis {
-  int n, front, mode, per, shift, nout, umax;
+  int n, front, mode, per, shift, nout;
 
   __device__ __forceinline__ int src(int u) const {
     const long long p = (long long)u - front;
@@ -54,35 +56,9 @@ struct AfbAxis {
     }
     return pad_src(p, n, mode);
   }
-  // src(u) = u + off for every u of [u0, u0 + L) (no pad in the window)
-  __device__ __forceinline__ bool interior(int u0, int L, int& off) const {
-    off = -front;
-    return per != 2 && u0 >= front && u0 + L - 1 - front < n;
-  }
   // the real row of virtual row j
   __device__ __forceinline__ int cot(int j) const {
     return j < nout ? j : j - nout;
-  }
-  // f(u) for every position u in [0, umax] with src(u) = t: t + front, and,
-  // within the pads' reach of an edge, each pad position that copies t
-  template <typename F>
-  __device__ __forceinline__ void images(int t, F f) const {
-    if (per == 2) {  // one position in the period, two for a repeated last
-      const int ne = n + (n & 1);
-      f(front + (int)floor_mod((long long)t - shift, ne));
-      if ((n & 1) && t == n - 1)
-        f(front + (int)floor_mod((long long)n - shift, ne));
-      return;
-    }
-    f(t + front);
-    if (!per && mode == PAD_ZERO) return;
-    const int right = umax - front - n + 1 > 0 ? umax - front - n + 1 : 0;
-    const int edge = (front > right ? front : right) + 1;
-    if (t >= edge && t < n - edge) return;
-    for (int u = 0; u < front; ++u)
-      if (src(u) == t) f(u);
-    for (int u = n + front; u <= umax; ++u)
-      if (src(u) == t) f(u);
   }
 };
 

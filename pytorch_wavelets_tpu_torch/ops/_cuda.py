@@ -79,7 +79,7 @@ _SIGNATURES = {
     },
     "dtcwt_filt": {
         "dtcwt_filt": [_P, _P, _P, _I, _L, _I, _I, _I, _L, _L, _L, _L,
-                       _I, _I, _I, _L, _L, _L, _L, _P],
+                       _I, _I, _I, _I, _L, _L, _L, _L, _P],
     },
     "dtcwt_dfilt": {
         "dtcwt_dfilt": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I,
@@ -107,10 +107,11 @@ _SIGNATURES = {
     },
     "nonsep_afb": {
         "nonsep_afb": [_P, _P, _P, _I, _I, _I, _L, _I, _I, _I,
-                       _L, _L, _L, _L, _I, _I, _I, _I, _I, _I,
+                       _L, _L, _L, _L, *[_I] * 8,
                        _L, _L, _L, _L, _L, _P],
         "nonsep_afb_adjoint": [_P, _P, _P, _I, _I, _I, _L, _I, _I, _I,
-                               _L, _L, _L, _L, _L, *[_I] * 9,
+                               _L, _L, _L, _L, _L, *[_I] * 13,
+                               _P, _I, _P, _I, _I, _I,
                                _L, _L, _L, _L, _P],
     },
     "nonsep_sfb": {

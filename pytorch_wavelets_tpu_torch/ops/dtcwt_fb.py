@@ -9,8 +9,9 @@ pytorch_wavelets/dtcwt/lowlevel.py:70-295):
   matrices (``_filter_matrix`` / ``_dfilt_matrix`` / ``_ifilt_matrix``,
   ``ops/banded.py:probe_op``) and the plain version of each kernel;
 - the kernels of the per-level path (``transforms/dtcwt.py``), direct
-  stencils that evaluate the symmetric or zero boundary per tap
-  (``csrc/dwt_index.cuh:pad_src``) and read and write through strides:
+  stencils that evaluate the symmetric or zero boundary
+  (``csrc/dwt_index.cuh:pad_src``; K8 once per loaded sample, K9/K10 per
+  tap) and read and write through strides:
   K8 :func:`dtcwt_filt` (``csrc/dtcwt_filt.cu``, the non-decimated
   filter), K9 :func:`dtcwt_dfilt` (``csrc/dtcwt_dfilt.cu``, the q-shift
   decimation) and K10 :func:`dtcwt_ifilt` (``csrc/dtcwt_ifilt.cu``, the
@@ -45,7 +46,8 @@ from pytorch_wavelets_tpu_torch.ops.precision import plain_flags
 __all__ = ["prep_taps", "colfilter", "rowfilter", "coldfilt", "rowdfilt",
            "colifilt", "rowifilt", "q2c", "c2q", "dtcwt_filt", "dtcwt_dfilt",
            "dtcwt_ifilt", "dtcwt_filt_plain", "dtcwt_dfilt_plain",
-           "dtcwt_ifilt_plain", "ifilt_plan", "INV_SQRT2"]
+           "dtcwt_ifilt_plain", "ifilt_plan", "filt_instantiation",
+           "rows_aligned", "INV_SQRT2"]
 
 
 def prep_taps(h) -> np.ndarray:
@@ -277,6 +279,30 @@ def _out_for(kernel, x, shape, out):
     return out
 
 
+def rows_aligned(t):
+    """The view's rows are 16-byte aligned with stride 1 along W: its
+    base pointer, and the stride of every leading dimension longer than
+    1, are multiples of 16 bytes (K8's vector instantiations; the C entry
+    checks the same)."""
+    return (t.data_ptr() % 16 == 0
+            and (t.shape[3] < 2 or t.stride(3) == 1)
+            and all(s % 4 == 0 for s, n in zip(t.stride()[:3], t.shape[:3])
+                    if n > 1))
+
+
+def filt_instantiation(x, axis):
+    """K8's instantiation for an input view along ``axis``: the column
+    filter with float4 loads (``col_float4``) or scalar ones
+    (``col_scalar``), the row filter staging with 16-byte cp.async
+    (``row_async16``) or 4-byte ones (``row_async4``).  The vector ones
+    need the view's rows 16-byte aligned with stride 1 along W
+    (:func:`rows_aligned`)."""
+    vec = rows_aligned(x)
+    if axis == 2:
+        return "col_float4" if vec else "col_scalar"
+    return "row_async16" if vec else "row_async4"
+
+
 @_cuda.via_fp32
 def dtcwt_filt(x, taps, axis, mode, out=None, accumulate=False):
     """Non-decimated filter of (N, C, H, W) ``x`` along ``axis`` (2 or 3)
@@ -285,7 +311,8 @@ def dtcwt_filt(x, taps, axis, mode, out=None, accumulate=False):
     (odd taps) or n + 1 (even).  With ``out`` the result is written into
     it (any strides), or added to it with ``accumulate``.  CPU tensors
     take :func:`dtcwt_filt_plain`; CUDA tensors launch K8, which reads
-    ``x`` through its strides."""
+    ``x`` through its strides, in the instantiation
+    :func:`filt_instantiation` picks (counted in ``instantiations``)."""
     axis = axis % 4
     if x.device.type == "cpu":
         return dtcwt_filt_plain(x, taps, axis, mode, out, accumulate)
@@ -299,11 +326,14 @@ def dtcwt_filt(x, taps, axis, mode, out=None, accumulate=False):
     if y.numel() == 0:
         return y
     code = PAD_CODES["symmetric" if mode == "symmetric" else "zero"]
+    inst = filt_instantiation(x, axis)
     lib = _cuda.library("dtcwt_filt")
     _cuda.check(lib, "dtcwt_filt", lib.dtcwt_filt(
         x.data_ptr(), y.data_ptr(), _ptr(t), L, *x.shape, *x.stride(), axis,
-        code, int(accumulate), *y.stride(), _cuda.stream_of(x)))
+        code, int(accumulate), int(inst in ("col_float4", "row_async16")),
+        *y.stride(), _cuda.stream_of(x)))
     _K8.launches += 1
+    _K8.instantiations[inst] += 1
     return y
 
 
@@ -372,6 +402,8 @@ def dtcwt_ifilt(x, ha, hb, highpass, axis, out=None, accumulate=False):
 # still counts on them.
 _K8, _K9, _K10 = dtcwt_filt, dtcwt_dfilt, dtcwt_ifilt
 _K8.launches = _K9.launches = _K10.launches = 0
+_K8.instantiations = dict.fromkeys(
+    ("col_float4", "col_scalar", "row_async16", "row_async4"), 0)
 
 
 # --------------------------------------------------------------------------

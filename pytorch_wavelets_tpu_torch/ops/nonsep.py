@@ -52,15 +52,23 @@ __all__ = ["outer_filters", "nonsep_afb",
            "nonsep_afb_plain", "nonsep_afb_adjoint_plain",
            "nonsep_sfb_plain", "nonsep_sfb_adjoint_plain", "afb_axis_plan",
            "afb_axis_src", "sfb_axis_src", "NonsepAFB", "NonsepSFB",
-           "SeparableAFB", "SeparableSFB",
-           "MAX_PSFS", "MAX_PSF_BYTES"]
+           "SeparableAFB", "SeparableSFB", "adjoint_interior", "afb_tile",
+           "adjoint_tile", "band_images", "MAX_PSFS", "MAX_PSF_BYTES"]
 
-# One thread keeps all K outputs of a position in registers (csrc/
-# nonsep_stencil.cuh), and a block stages the whole PSF stack in shared
-# memory: at most 232,448 bytes on the H100 (4 x 76 x 76 floats, db38's,
-# take 92,416)
+# A thread keeps the K outputs of its positions in registers (csrc/
+# nonsep_afb.cu, csrc/nonsep_stencil.cuh), and a block stages the whole PSF
+# stack in shared memory: at most 232,448 bytes on the H100 (4 x 76 x 76
+# floats, db38's, take 92,416)
 MAX_PSFS = 16
 MAX_PSF_BYTES = 232448
+# K14's tiles (csrc/nonsep_afb.cu): PY output rows (forward) or quads
+# (adjoint) a thread, blocks of BX x BY threads
+_PY = 4
+_TILE_BX = (32, 16, 8)
+_TILE_BY = (1, 2, 4, 8, 16)
+# the cost of staging one sample, in FMAs of one thread (a load, a store
+# and their index math)
+_STAGE_COST = 8
 _AFB_MODES = ("zero", "symmetric", "reflect")
 _SFB_MODES = ("zero", "symmetric", "reflect", "periodic")
 
@@ -166,6 +174,134 @@ def sfb_axis_src(plan, per, u):
     t = np.where(u < wrap, u, u - wrap)
     ok = (u < wrap) | ((t < fold) & (t < wrap))
     return np.where(ok, (t - r0) % wrap, -1)
+
+
+def adjoint_interior(n, L, mode, separable=False):
+    """The pixels ``[lo, hi)`` of a length-``n`` axis whose only image
+    is their direct padded position (no pad position reads them): all of
+    them in 'zero' mode, ``[edge, n - edge)`` in the others, where edge
+    passes the longer pad; None on the separable split's single fold
+    (per 2), where no pixel has a direct position.  K14's adjoint
+    computes the direct positions' sums by its polyphase tiles and the
+    other images of the pixels outside this range (:func:`band_images`)
+    by the gather."""
+    out, front, code, per, _ = afb_axis_plan(n, L, mode, separable)
+    if per == 2:
+        return None
+    if per == 0 and code == PAD_CODES["zero"]:
+        return 0, n
+    umax = 2 * (out - 1) + L - 1
+    edge = max(front, umax - front - n + 1, 0) + 1
+    return (edge, n - edge) if 2 * edge < n else (0, 0)
+
+
+@lru_cache(maxsize=256)
+def band_images(n, L, mode, separable=False):
+    """The images along a length-``n`` axis of the pixels outside
+    :func:`adjoint_interior` (all of them on a per-2 axis): an int32
+    array with a row for each such t in order (t, then ``lo + t - hi``
+    past the interior), the positions u in [0, umax] whose sample
+    :func:`afb_axis_src` is t, ascending, -1 past the last; None if every
+    pixel is interior.  K14's adjoint band reads it instead of scanning
+    the pads on the card."""
+    out, front, code, per, shift = afb_axis_plan(n, L, mode, separable)
+    lo, hi = adjoint_interior(n, L, mode, separable) or (0, 0)
+    band = np.r_[0:lo, hi:n]
+    if not len(band):
+        return None
+    umax = 2 * ((2 * out if per == 2 else out) - 1) + L - 1
+    u = np.arange(umax + 1)
+    src = afb_axis_src(n, front, code, per, shift, u - front)
+    lists = [u[src == t] for t in band]
+    table = np.full((len(band), max(map(len, lists))), -1, dtype=np.int32)
+    for row, us in zip(table, lists):
+        row[:len(us)] = us
+    return table
+
+
+@lru_cache(maxsize=64)
+def _device_table(n, L, mode, separable, device):
+    t = band_images(n, L, mode, separable)
+    return None if t is None else torch.as_tensor(t, device=device)
+
+
+def _kmax(K):
+    """The PSFs K14's register arrays hold: 4 or 16 (K padded with
+    zeros)."""
+    return 4 if K <= 4 else 16
+
+
+def _fwd_pitch(cols, bx):
+    p = (cols + 1) // 2
+    return p + (bx // 2 - p) % 16 if bx < 32 else p
+
+
+def _fwd_window(Ly, Lx, bx, by):
+    return 2 * _PY * by + Ly - 2, 2 * bx + Lx - 2
+
+
+def _fwd_smem(kmax, Ly, Lx, bx, by):
+    rows, cols = _fwd_window(Ly, Lx, bx, by)
+    return 4 * (Ly * Lx * kmax + rows + cols
+                + 2 * rows * _fwd_pitch(cols, bx))
+
+
+def _adj_window(Ly, Lx, bx, by):
+    return _PY * by + (Ly + 1) // 2 - 1, bx + (Lx + 1) // 2 - 1
+
+
+def _adj_smem(kmax, Ly, Lx, bx, by):
+    rows, cols = _adj_window(Ly, Lx, bx, by)
+    return 4 * (Ly * Lx * kmax + kmax * rows * cols)
+
+
+def _pick_tile(kernel, nx, ny, fmas, taps, samples, smem):
+    """The block (BX, BY) of K14's tile kernels over an ny x nx grid of
+    thread items (positions, or quads), PY rows of them a thread: the
+    least FMAs (``fmas`` an item) plus staged samples (``samples(bx,
+    by)`` and the ``taps`` a tile) over the tiles that cover the grid,
+    among the blocks of 32 to 256 threads whose shared memory fits; ties
+    to more threads, then wider blocks."""
+    best = None
+    for bx in _TILE_BX:
+        for by in _TILE_BY:
+            if not 32 <= bx * by <= 256 or smem(bx, by) > MAX_PSF_BYTES:
+                continue
+            tiles = -(-nx // bx) * -(-ny // (_PY * by))
+            cost = tiles * (bx * _PY * by * fmas
+                            + _STAGE_COST * (samples(bx, by) + taps))
+            key = (cost, -bx * by, -bx)
+            if best is None or key < best[0]:
+                best = (key, (bx, by))
+    if best is None:
+        raise ValueError(f"{kernel}: the PSF stack and the smallest tile "
+                         f"do not fit the {MAX_PSF_BYTES} bytes of shared "
+                         f"memory a block has")
+    return best[1]
+
+
+def afb_tile(K, Ly, Lx, Ho, Wo):
+    """K14's forward block (BX, BY) for (Ho, Wo) output positions: a tile
+    of (PY BY) x BX positions (``csrc/nonsep_afb.cu:afb_tile_kernel``)."""
+    kmax = _kmax(K)
+    return _pick_tile(
+        "nonsep_afb", Wo, Ho, Ly * Lx * kmax, Ly * Lx * kmax,
+        lambda bx, by: np.prod(_fwd_window(Ly, Lx, bx, by)),
+        lambda bx, by: _fwd_smem(kmax, Ly, Lx, bx, by))
+
+
+def adjoint_tile(K, Ly, Lx, H, W, fy, fx):
+    """K14's polyphase adjoint block (BX, BY) for an (H, W) input whose
+    pixels sit at padded positions (i + fy, j + fx): a tile of (PY BY) x
+    BX quads of 2 x 2 pixels (``afb_adjoint_tile_kernel``)."""
+    kmax = _kmax(K)
+    nU = (H - 1 + fy) // 2 - fy // 2 + 1
+    nV = (W - 1 + fx) // 2 - fx // 2 + 1
+    return _pick_tile(
+        "nonsep_afb_adjoint", nV, nU,
+        4 * ((Ly + 1) // 2) * ((Lx + 1) // 2) * kmax, Ly * Lx * kmax,
+        lambda bx, by: kmax * np.prod(_adj_window(Ly, Lx, bx, by)),
+        lambda bx, by: _adj_smem(kmax, Ly, Lx, bx, by))
 
 
 # --------------------------------------------------------------------------
@@ -331,9 +467,11 @@ def nonsep_afb(x, f, mode):
     ``mode``: (N, C, K, H', W').
 
     CPU tensors take :func:`nonsep_afb_plain`; CUDA tensors launch K14's
-    ``nonsep_afb``, which reads ``x`` through its strides, one thread per
-    output position computing all K outputs from one read of its
-    window."""
+    ``nonsep_afb``, which stages each tile's input window (the pads
+    applied there) in shared memory and reads ``x`` through its strides,
+    a thread computing PY positions x K PSFs; the instantiation (``k4`` /
+    ``k16`` and the tile of :func:`afb_tile`) is counted in
+    ``instantiations``."""
     if x.device.type == "cpu":
         return nonsep_afb_plain(x, f, mode)
     _cuda.check_inputs("nonsep_afb", x)
@@ -345,15 +483,17 @@ def nonsep_afb(x, f, mode):
     N, C, H, W = x.shape
     Ho, fy, code, per, _ = afb_axis_plan(H, Ly, mode)
     Wo, fx = afb_axis_plan(W, Lx, mode)[:2]
+    bx, by = afb_tile(K, Ly, Lx, Ho, Wo)
     y = torch.empty((N, C, K, Ho, Wo), device=x.device, dtype=torch.float32)
     if y.numel() == 0:
         return y
     lib = _cuda.library("nonsep_afb")
     _cuda.check(lib, "nonsep_afb", lib.nonsep_afb(
         x.data_ptr(), y.data_ptr(), taps.data_ptr(), K, Ly, Lx, N, C, H, W,
-        *x.stride(), Ho, Wo, fy, fx, code, int(per), *y.stride(),
+        *x.stride(), Ho, Wo, fy, fx, code, int(per), bx, by, *y.stride(),
         _cuda.stream_of(x)))
     _K14.launches += 1
+    _count(_K14, f"k{_kmax(K)} {bx}x{_PY * by}")
     return y
 
 
@@ -366,10 +506,16 @@ def nonsep_afb_adjoint(dy, f, mode, H, W, separable=False):
     backward of the separable 2-D analysis in every mode.
 
     CPU tensors take :func:`nonsep_afb_adjoint_plain`; CUDA tensors launch
-    K14's ``nonsep_afb_adjoint``, a gather (no atomics): each input pixel
-    sums the windows that read it, its padded images near an edge (and
-    periodization's repeated last sample) included; a single fold reads
-    each cotangent row for two windows."""
+    K14's ``nonsep_afb_adjoint`` (no atomics): polyphase tiles write each
+    pixel's direct-position sum, 2 x 2 pixels a quad from one staged
+    window of the cotangent, then a gather adds, for the pixels outside
+    :func:`adjoint_interior`, their padded images (and periodization's
+    repeated last sample); where an axis takes the separable split's
+    single fold, the gather computes every pixel (each cotangent row read
+    for two windows).  Counted in ``instantiations``: ``poly k4`` /
+    ``poly k16`` with the tile of :func:`adjoint_tile` in pixels,
+    ``band`` (the gather adding the band's images) or ``gather`` (the
+    whole plane)."""
     if dy.device.type == "cpu":
         return nonsep_afb_adjoint_plain(dy, f, mode, H, W, separable)
     _cuda.check_inputs("nonsep_afb_adjoint", dy)
@@ -384,12 +530,27 @@ def nonsep_afb_adjoint(dy, f, mode, H, W, separable=False):
     _check_planes("nonsep_afb_adjoint", dx)
     if dx.numel() == 0:
         return dx
+    iy = adjoint_interior(H, Ly, mode, separable)
+    ix = adjoint_interior(W, Lx, mode, separable)
+    poly = iy is not None and ix is not None
+    bx, by = adjoint_tile(K, Ly, Lx, H, W, fy, fx) if poly else (0, 0)
+    rect = (*(iy or (0, 0)), *(ix or (0, 0)))
+    tabs = []
+    for n, L in ((H, Ly), (W, Lx)):
+        t = _device_table(n, L, mode, separable, dy.device)
+        tabs += [0, 0] if t is None else [t.data_ptr(), t.shape[1]]
     lib = _cuda.library("nonsep_afb")
     _cuda.check(lib, "nonsep_afb_adjoint", lib.nonsep_afb_adjoint(
         dy.data_ptr(), dx.data_ptr(), taps.data_ptr(), K, Ly, Lx, N, C, Ho,
-        Wo, *dy.stride(), H, W, fy, fx, code, py, px, shy, shx,
-        *dx.stride(), _cuda.stream_of(dy)))
+        Wo, *dy.stride(), H, W, fy, fx, code, py, px, shy, shx, *rect,
+        *tabs, bx, by, *dx.stride(), _cuda.stream_of(dy)))
     _K14A.launches += 1
+    if not poly:
+        _count(_K14A, "gather")
+        return dx
+    _count(_K14A, f"poly k{_kmax(K)} {2 * bx}x{2 * _PY * by}")
+    if (rect[1] - rect[0]) * (rect[3] - rect[2]) < H * W:
+        _count(_K14A, "band")
     return dx
 
 
@@ -466,12 +627,18 @@ def nonsep_sfb_adjoint(dy, f, mode, Ny, Nx, separable=False):
     return dc
 
 
+def _count(wrapper, inst):
+    wrapper.instantiations[inst] = wrapper.instantiations.get(inst, 0) + 1
+
+
 # The launch counters live on the wrappers, reached through these names
-# (see ops/afb_sfb.py's _K6 / _K7)
+# (see ops/afb_sfb.py's _K6 / _K7); K14's also count its launches by
+# instantiation (a key the first time it runs)
 _K14, _K14A, _K15, _K15A = (nonsep_afb, nonsep_afb_adjoint, nonsep_sfb,
                             nonsep_sfb_adjoint)
 for _k in (_K14, _K14A, _K15, _K15A):
     _k.launches = 0
+_K14.instantiations, _K14A.instantiations = {}, {}
 
 
 # --------------------------------------------------------------------------

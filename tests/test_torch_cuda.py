@@ -497,8 +497,11 @@ def test_dtcwt_filt(dev, mode, L, n, axis):
     x = _band_of_stack(dev, (2, 3, 11, 10), axis, n, 51)
     want = dtcwt_fb.dtcwt_filt_plain(x, t, axis, mode)
     n0 = dtcwt_fb.dtcwt_filt.launches
+    inst = dtcwt_fb.filt_instantiation(x, axis)
+    i0 = dtcwt_fb.dtcwt_filt.instantiations[inst]
     torch.testing.assert_close(dtcwt_fb.dtcwt_filt(x, t, axis, mode), want,
                                **STENCIL_TOL)
+    assert dtcwt_fb.dtcwt_filt.instantiations[inst] == i0 + 1
     Wo = want.shape[3]
     big = torch.from_numpy(_rand((2, 3, want.shape[2], Wo + 6), 52)).to(dev)
     ref = big.clone()
@@ -508,6 +511,65 @@ def test_dtcwt_filt(dev, mode, L, n, axis):
     assert out.data_ptr() == big[..., 3:3 + Wo].data_ptr()
     torch.testing.assert_close(big, ref, **STENCIL_TOL)
     assert dtcwt_fb.dtcwt_filt.launches == n0 + 2
+
+
+def _filt_view(dev, view, axis, n, other, seed):
+    """A (2, 3, H, W) input of K8 with the filtered axis n long and the
+    other ``other``: "aligned" (a band of a stack, rows 16-byte aligned
+    with stride 1 along W), "offset" (the same one float in) or
+    "transposed" (stride 1 along H)."""
+    shape = [2, 3, 0, 0]
+    shape[axis], shape[5 - axis] = n, other
+    H, W = shape[2:]
+    if view == "transposed":
+        return torch.from_numpy(_rand((2, 3, W, H), seed)).to(
+            dev).transpose(2, 3)
+    wide = torch.from_numpy(_rand((2, 3, 2, H, -(-(W + 1) // 4) * 4),
+                                  seed)).to(dev)
+    o = 0 if view == "aligned" else 1
+    return wide[:, :, 1, :, o:o + W]
+
+
+# K8's tiles: a column thread walks 16 outputs, 4 of them a block along
+# the rows (64 rows); a row block takes 128 outputs
+@pytest.mark.parametrize("axis,n,other", [
+    (2, 5, 10), (2, 16, 9), (2, 17, 130), (2, 65, 4),
+    (3, 5, 3), (3, 128, 6), (3, 129, 5), (3, 300, 2)])
+@pytest.mark.parametrize("view", ["aligned", "offset", "transposed"])
+@pytest.mark.parametrize("L,mode", [(13, "symmetric"), (4, "zero"),
+                                    (19, "zero")])
+def test_dtcwt_filt_instantiations(dev, axis, n, other, view, L, mode):
+    """Each of K8's instantiations at its tile edges, against the plain
+    version: axes shorter than a tile and one past it, widths that are
+    not multiples of 4 (the float4 columns' tail), even taps (n + 1
+    outputs), aligned, offset and transposed views (the scalar
+    instantiations), written into and added onto column slices of a
+    wider tensor at an aligned and an odd offset (float4 or scalar
+    stores).  Each case asserts the instantiation that ran."""
+    from pytorch_wavelets_tpu_torch.ops import dtcwt_fb
+    t = np.random.RandomState(56 + L).randn(L) / np.sqrt(L)
+    x = _filt_view(dev, view, axis, n, other, 57)
+    want_inst = {(2, True): "col_float4", (2, False): "col_scalar",
+                 (3, True): "row_async16", (3, False): "row_async4"}[
+        (axis, view == "aligned")]
+    assert dtcwt_fb.filt_instantiation(x, axis) == want_inst
+    want = dtcwt_fb.dtcwt_filt_plain(x, t, axis, mode)
+    i0 = dtcwt_fb.dtcwt_filt.instantiations[want_inst]
+    torch.testing.assert_close(dtcwt_fb.dtcwt_filt(x, t, axis, mode), want,
+                               **STENCIL_TOL)
+    Ho, Wo = want.shape[2:]
+    for o in (4, 3):     # an aligned slice (float4 stores), an odd one
+        big = torch.from_numpy(_rand((2, 3, Ho, -(-(Wo + 8) // 4) * 4),
+                                     58)).to(dev)
+        ref = big.clone()
+        ref[..., o:o + Wo] = want
+        dtcwt_fb.dtcwt_filt(x, t, axis, mode, out=big[..., o:o + Wo])
+        torch.testing.assert_close(big, ref, **STENCIL_TOL)
+        ref[..., o:o + Wo] += want
+        dtcwt_fb.dtcwt_filt(x, t, axis, mode, out=big[..., o:o + Wo],
+                            accumulate=True)
+        torch.testing.assert_close(big, ref, **STENCIL_TOL)
+    assert dtcwt_fb.dtcwt_filt.instantiations[want_inst] == i0 + 5
 
 
 @pytest.mark.parametrize("name", QSHIFT_NAMES)
@@ -1010,6 +1072,7 @@ def test_nonsep_afb(dev, mode, K, Ly, Lx, H, W):
     f = _psfs(K, Ly, Lx, 100 + K)
     x = torch.from_numpy(_rand((2, 3, 4, H, W), 101)).to(dev)[:, :, 1]
     n0 = (nonsep.nonsep_afb.launches, nonsep.nonsep_afb_adjoint.launches)
+    ops.reset_launches()
     got = nonsep.nonsep_afb(x, f, mode)
     torch.testing.assert_close(got, nonsep.nonsep_afb_plain(x, f, mode),
                                **NONSEP_TOL)
@@ -1018,7 +1081,81 @@ def test_nonsep_afb(dev, mode, K, Ly, Lx, H, W):
         nonsep.nonsep_afb_adjoint(g, f, mode, H, W),
         nonsep.nonsep_afb_adjoint_plain(g, f, mode, H, W), **NONSEP_TOL)
     assert (nonsep.nonsep_afb.launches,
-            nonsep.nonsep_afb_adjoint.launches) == (n0[0] + 1, n0[1] + 1)
+            nonsep.nonsep_afb_adjoint.launches) == (1, 1)
+    _assert_k14_insts(K, Ly, Lx, H, W, got.shape[3:], mode, False)
+
+
+def _assert_k14_insts(K, Ly, Lx, H, W, out_hw, mode, separable):
+    """The counters of one forward (of out_hw outputs; None: none ran)
+    and one adjoint call of K14 since the last reset name the
+    instantiations its wrappers pick."""
+    from pytorch_wavelets_tpu_torch.ops import nonsep
+    kmax = 4 if K <= 4 else 16
+    counts = ops.instantiation_counts()
+    if out_hw is not None:
+        bx, by = nonsep.afb_tile(K, Ly, Lx, *out_hw)
+        assert {k: v for k, v in counts["nonsep_afb"].items() if v} == {
+            f"k{kmax} {bx}x{4 * by}": 1}
+    iy = nonsep.adjoint_interior(H, Ly, mode, separable)
+    ix = nonsep.adjoint_interior(W, Lx, mode, separable)
+    if iy is None or ix is None:
+        want = {"gather": 1}
+    else:
+        fy = nonsep.afb_axis_plan(H, Ly, mode, separable)[1]
+        fx = nonsep.afb_axis_plan(W, Lx, mode, separable)[1]
+        bx, by = nonsep.adjoint_tile(K, Ly, Lx, H, W, fy, fx)
+        want = {f"poly k{kmax} {2 * bx}x{8 * by}": 1}
+        if (iy[1] - iy[0]) * (ix[1] - ix[0]) < H * W:
+            want["band"] = 1
+    assert {k: v for k, v in counts["nonsep_afb_adjoint"].items()
+            if v} == want
+
+
+# K14's tiles: 8, 16 or 32 positions wide, 4 to 64 high (forward), 16 to
+# 64 pixels wide and 8 to 128 high (adjoint)
+@pytest.mark.parametrize("K,Ly,Lx", [(1, 3, 5), (4, 8, 8), (16, 10, 10),
+                                     (16, 4, 9)])
+@pytest.mark.parametrize("H,W", [(3, 5), (33, 17), (66, 129), (130, 67)])
+@pytest.mark.parametrize("mode,view", [
+    ("periodization", "strided"), ("symmetric", "transposed"),
+    ("zero", "strided"), ("reflect", "transposed")])
+def test_nonsep_afb_instantiations(dev, K, Ly, Lx, H, W, mode, view):
+    """K14's forward and adjoint at their tile edges (planes shorter than
+    a tile, one past one, odd sizes), K = 1, 4, 16, strided and
+    transposed inputs and cotangents, every mode (the adjoint's band in
+    each, none in 'zero'), against the plain versions; then the
+    separable split's plan of the same case (its single fold where
+    'periodization' meets an axis shorter than the filter: the gather
+    alone).  Each call asserts the instantiations that ran."""
+    from pytorch_wavelets_tpu_torch.ops import nonsep
+    f = _psfs(K, Ly, Lx, 130 + K)
+    if view == "transposed":
+        x = torch.from_numpy(_rand((2, 3, W, H), 131)).to(dev).transpose(2, 3)
+    else:
+        x = torch.from_numpy(_rand((2, 3, 3, H, W), 131)).to(dev)[:, :, 2]
+    ops.reset_launches()
+    got = nonsep.nonsep_afb(x, f, mode)
+    torch.testing.assert_close(got, nonsep.nonsep_afb_plain(x, f, mode),
+                               **NONSEP_TOL)
+    g = torch.from_numpy(_rand((2, 3, *got.shape[2:]), 132)).to(dev)
+    if view == "transposed":
+        g = g.transpose(3, 4).contiguous().transpose(3, 4)
+    else:
+        g = torch.from_numpy(_rand((2, 6, *got.shape[2:]), 132)).to(dev)[
+            :, 1::2]
+    torch.testing.assert_close(
+        nonsep.nonsep_afb_adjoint(g, f, mode, H, W),
+        nonsep.nonsep_afb_adjoint_plain(g, f, mode, H, W), **NONSEP_TOL)
+    _assert_k14_insts(K, Ly, Lx, H, W, got.shape[3:], mode, False)
+    Ho, Wo = (nonsep.afb_axis_plan(n, L, mode, True)[0]
+              for n, L in ((H, Ly), (W, Lx)))
+    gs = torch.from_numpy(_rand((2, 3, K, Ho, Wo), 133)).to(dev)
+    ops.reset_launches()
+    torch.testing.assert_close(
+        nonsep.nonsep_afb_adjoint(gs, f, mode, H, W, True),
+        nonsep.nonsep_afb_adjoint_plain(gs, f, mode, H, W, True),
+        **NONSEP_TOL)
+    _assert_k14_insts(K, Ly, Lx, H, W, None, mode, True)
 
 
 @pytest.mark.parametrize("mode", NONSEP_MODES + ("periodic",))

@@ -2,10 +2,11 @@
 (``csrc/nonsep_sfb.cu``, both through ``csrc/nonsep_stencil.cuh``) and
 K16 (``csrc/swt_atrous.cu``: ``swt_sfb`` and its adjoint), emulated in
 numpy exactly as the CUDA sources compute each output (the axis maps'
-``src`` / ``images`` / ``interior``, the windows, the edge scans),
-against their plain versions (the JAX code, and autograd's transposes of
-it) on the CPU in float64: every mode, odd sizes, filters longer than
-the axis, rectangular PSF stacks."""
+``src`` / ``images`` / ``interior``, the windows, the edge scans; K14's
+staged tiles and parity planes, its polyphase adjoint and the edge band
+read from the host's image tables), against their plain versions (the
+JAX code, and autograd's transposes of it) on the CPU in float64: every
+mode, odd sizes, filters longer than the axis, rectangular PSF stacks."""
 import numpy as np
 import pytest
 import torch
@@ -19,7 +20,8 @@ TOL = dict(rtol=1e-12, atol=1e-12)
 
 
 class AfbAxis:
-    """csrc/nonsep_stencil.cuh:AfbAxis, line by line."""
+    """csrc/nonsep_stencil.cuh:AfbAxis, line by line (src, cot), with the
+    plan it is built from."""
 
     def __init__(self, n, L, mode, separable=False):
         self.out, self.front, self.code, self.per, self.shift = \
@@ -33,31 +35,8 @@ class AfbAxis:
         return int(nonsep.afb_axis_src(self.n, self.front, self.code,
                                        self.per, self.shift, u - self.front))
 
-    def interior(self, u0, L):
-        return (self.per != 2 and u0 >= self.front
-                and u0 + L - 1 - self.front < self.n, -self.front)
-
     def cot(self, j):
         return j if j < self.out else j - self.out
-
-    def images(self, t):
-        if self.per == 2:
-            ne = self.n + self.n % 2
-            out = [self.front + (t - self.shift) % ne]
-            if self.n % 2 and t == self.n - 1:
-                out.append(self.front + (self.n - self.shift) % ne)
-            return out
-        out = [t + self.front]
-        if not self.per and self.code == 0:
-            return out
-        right = max(self.umax - self.front - self.n + 1, 0)
-        edge = max(self.front, right) + 1
-        if edge <= t < self.n - edge:
-            return out
-        out += [u for u in range(self.front) if self.src(u) == t]
-        out += [u for u in range(self.n + self.front, self.umax + 1)
-                if self.src(u) == t]
-        return out
 
 
 class SfbAxis:
@@ -119,26 +98,175 @@ def corr(x, taps, ay, ax, Ho, Wo):
     return out
 
 
-def gather(g, taps, ay, ax, Ho, Wo):
-    """nonsep_gather_kernel on one (K, Hi, Wi) stack: (Ho, Wo), the
-    virtual rows and columns read through the maps' cot()."""
+def gather_window(g, taps, ay, ax, u, v):
+    """nonsep_stencil.cuh:gather_window: the taps of position (u, v)'s
+    parities over the windows inside the (virtual) input, its rows and
+    columns read through the maps' cot()."""
     K, Ly, Lx = taps.shape
     Hi, Wi = (a.virtual or n for a, n in zip((ay, ax), g.shape[1:]))
-    out = np.zeros((Ho, Wo))
+    acc = 0.0
+    a0, a1 = max(u & 1, u - 2 * (Hi - 1)), min(Ly - 1, u)
+    b0, b1 = max(v & 1, v - 2 * (Wi - 1)), min(Lx - 1, v)
+    for a in range(a0, a1 + 1, 2):
+        for b in range(b0, b1 + 1, 2):
+            acc += (taps[:, a, b] * g[:, ay.cot((u - a) >> 1),
+                                      ax.cot((v - b) >> 1)]).sum()
+    return acc
 
-    def window(u, v):
-        acc = 0.0
-        a0, a1 = max(u & 1, u - 2 * (Hi - 1)), min(Ly - 1, u)
-        b0, b1 = max(v & 1, v - 2 * (Wi - 1)), min(Lx - 1, v)
-        for a in range(a0, a1 + 1, 2):
-            for b in range(b0, b1 + 1, 2):
-                acc += (taps[:, a, b] * g[:, ay.cot((u - a) >> 1),
-                                          ax.cot((v - b) >> 1)]).sum()
-        return acc
+
+def gather(g, taps, ay, ax, Ho, Wo):
+    """nonsep_gather_kernel on one (K, Hi, Wi) stack: (Ho, Wo)."""
+    out = np.zeros((Ho, Wo))
     for ty in range(Ho):
         for tx in range(Wo):
-            out[ty, tx] = sum(window(u, v) for u in ay.images(ty)
+            out[ty, tx] = sum(gather_window(g, taps, ay, ax, u, v)
+                              for u in ay.images(ty)
                               for v in ax.images(tx))
+    return out
+
+
+PY = 4      # csrc/nonsep_afb.cu: positions / quads a thread, along rows
+
+
+def _padded_taps(f):
+    """The taps as K14 stages them: Ly x Lx x KMAX, zeros past K."""
+    K = f.shape[0]
+    tp = np.zeros((*f.shape[1:], 4 if K <= 4 else 16))
+    tp[..., :K] = f.transpose(1, 2, 0)
+    return tp
+
+
+def k14_forward(x, f, mode):
+    """csrc/nonsep_afb.cu:afb_tile_kernel on one (H, W) plane, tile by
+    tile: the window staged (the maps applied per row and column, -1 as
+    zero) into parity planes of ``_fwd_pitch``, each thread's PY rows of
+    positions read back from it tap by tap; its first warp's reads fall
+    on 32 distinct banks.  The pitch padding is NaN: a read of it shows."""
+    K, Ly, Lx = f.shape
+    H, W = x.shape
+    ay, ax = AfbAxis(H, Ly, mode), AfbAxis(W, Lx, mode)
+    Ho, Wo = ay.out, ax.out
+    bx, by = nonsep.afb_tile(K, Ly, Lx, Ho, Wo)
+    tp = _padded_taps(f)
+    rows, cols = 2 * PY * by + Ly - 2, 2 * bx + Lx - 2
+    pitch = nonsep._fwd_pitch(cols, bx)
+    plane = rows * pitch
+    assert nonsep._fwd_smem(tp.shape[2], Ly, Lx, bx, by) == 4 * (
+        tp.size + rows + cols + 2 * plane)
+    ty, tx, i = np.meshgrid(range(by), range(bx), range(PY), indexing="ij")
+    lane = ty * bx + tx
+    for p in range(PY):     # the first warp, one read each
+        offs = ((2 * (ty + by * i) * pitch + tx)[lane < 32])[
+            i[lane < 32] == p]
+        assert len(set(offs % 32)) == len(offs)
+    out = np.full((K, Ho, Wo), np.nan)
+    for oy0 in range(0, Ho, PY * by):
+        for ox0 in range(0, Wo, bx):
+            rs = [ay.src(2 * oy0 + r) for r in range(rows)]
+            cs = [ax.src(2 * ox0 + q) for q in range(cols)]
+            win = np.full(2 * plane, np.nan)
+            for r in range(rows):
+                for q in range(cols):
+                    win[(q & 1) * plane + r * pitch + (q >> 1)] = (
+                        x[rs[r], cs[q]] if rs[r] >= 0 and cs[q] >= 0
+                        else 0.0)
+            acc = np.zeros((by, bx, PY, tp.shape[2]))
+            for a in range(Ly):
+                for b in range(Lx):
+                    v = win[(b & 1) * plane + (2 * (ty + by * i) + a) * pitch
+                            + tx + (b >> 1)]
+                    acc += v[..., None] * tp[a, b]
+            oy, ox = oy0 + ty + by * i, ox0 + tx
+            ok = (oy < Ho) & (ox < Wo)
+            out[:, oy[ok], ox[ok]] = acc[ok][:, :K].T
+    return out
+
+
+def k14_adjoint(g, f, mode, H, W, separable=False):
+    """csrc/nonsep_afb.cu's adjoint on one (K, Ho, Wo) cotangent: the
+    polyphase tiles (afb_adjoint_tile_kernel: 2 x 2 pixels a quad, from
+    the cotangent window staged K innermost, zero outside) write every
+    pixel's direct-position sum; then the band (afb_adjoint_band_kernel)
+    adds each pixel's other image pairs outside adjoint_interior, from
+    band_images' tables; on a per-2 axis the band is every pixel and
+    writes the whole gather.  Checks that each interior pixel has its
+    direct position for only image."""
+    K, Ly, Lx = f.shape
+    ay, ax = AfbAxis(H, Ly, mode, separable), AfbAxis(W, Lx, mode, separable)
+    iy = nonsep.adjoint_interior(H, Ly, mode, separable)
+    ix = nonsep.adjoint_interior(W, Lx, mode, separable)
+    for a, n, ii in ((ay, H, iy), (ax, W, ix)):
+        u = np.arange(a.umax + 1)
+        src = nonsep.afb_axis_src(n, a.front, a.code, a.per, a.shift,
+                                  u - a.front)
+        for t in range(*(ii or (0, 0))):
+            assert list(u[src == t]) == [t + a.front]
+    poly = iy is not None and ix is not None
+    out = np.full((H, W), np.nan)
+    if poly:
+        tp = _padded_taps(f)
+        kmax = tp.shape[2]
+        fy, fx = ay.front, ax.front
+        bx, by = nonsep.adjoint_tile(K, Ly, Lx, H, W, fy, fx)
+        Ay, Ax = (Ly + 1) // 2, (Lx + 1) // 2
+        U0, V0 = fy // 2, fx // 2
+        nU, nV = (H - 1 + fy) // 2 - U0 + 1, (W - 1 + fx) // 2 - V0 + 1
+        rows, cols = PY * by + Ay - 1, bx + Ax - 1
+        assert nonsep._adj_smem(kmax, Ly, Lx, bx, by) == 4 * (
+            tp.size + kmax * rows * cols)
+        gk = np.zeros((kmax, *g.shape[1:]))
+        gk[:K] = g
+        ty, tx, i = np.meshgrid(range(by), range(bx), range(PY),
+                                indexing="ij")
+        for Ut in range(U0, U0 + nU, PY * by):
+            for Vt in range(V0, V0 + nV, bx):
+                o = Ut - (Ay - 1) + np.arange(rows)
+                q = Vt - (Ax - 1) + np.arange(cols)
+                okr = (o >= 0) & (o < g.shape[1])
+                okc = (q >= 0) & (q < g.shape[2])
+                w = np.zeros((kmax, rows, cols))
+                w[:, okr[:, None] & okc[None, :]] = gk[:, o[okr]][
+                    :, :, q[okc]].reshape(kmax, -1)
+                w = w.reshape(kmax // 4, 4, rows, cols).transpose(0, 2, 3, 1)
+                acc = np.zeros((2, 2, by, bx, PY))
+                for al in range(Ay):
+                    for be in range(Ax):
+                        d = w[:, ty + by * i + Ay - 1 - al,
+                              tx + Ax - 1 - be]     # (kmax/4, ..., 4)
+                        d = np.moveaxis(d, 0, -2).reshape(*ty.shape, kmax)
+                        for du in (0, 1):
+                            for dv in (0, 1):
+                                if 2 * al + du < Ly and 2 * be + dv < Lx:
+                                    acc[du, dv] += d @ tp[2 * al + du,
+                                                          2 * be + dv]
+                U, V = Ut + ty + by * i, Vt + tx
+                for du in (0, 1):
+                    for dv in (0, 1):
+                        ii, jj = 2 * U + du - fy, 2 * V + dv - fx
+                        ok = ((U < U0 + nU) & (V < V0 + nV) & (ii >= 0)
+                              & (ii < H) & (jj >= 0) & (jj < W))
+                        out[ii[ok], jj[ok]] = acc[du, dv][ok]
+        assert not np.isnan(out).any()
+    y0, y1 = iy or (0, 0)
+    x0, x1 = ix or (0, 0)
+    tab_y = nonsep.band_images(H, Ly, mode, separable)
+    tab_x = nonsep.band_images(W, Lx, mode, separable)
+
+    def images(t, lo, hi, front, tab):
+        if lo <= t < hi:
+            return [t + front]
+        row = tab[t if t < lo else lo + t - hi]
+        return list(row[row >= 0])
+    for ty_ in range(H):
+        for tx_ in range(W):
+            if y0 <= ty_ < y1 and x0 <= tx_ < x1:
+                continue
+            uy, vx = ty_ + ay.front, tx_ + ax.front
+            acc = sum(gather_window(g, f, ay, ax, u, v)
+                      for u in images(ty_, y0, y1, ay.front, tab_y)
+                      for v in images(tx_, x0, x1, ax.front, tab_x)
+                      if not (poly and u == uy and v == vx))
+            out[ty_, tx_] = out[ty_, tx_] + acc if poly else acc
     return out
 
 
@@ -155,20 +283,19 @@ CASES = [  # (K, Ly, Lx, H, W)
                                   "periodization"])
 @pytest.mark.parametrize("K,Ly,Lx,H,W", CASES)
 def test_k14_index_plans(mode, K, Ly, Lx, H, W):
-    """K14's forward and adjoint: odd axes (periodization's evening),
-    filters longer than the axis (pads of several periods), Ly != Lx,
-    K = 16, odd lengths."""
+    """K14's staged forward tiles and its polyphase adjoint with the edge
+    band: odd axes (periodization's evening), filters longer than the
+    axis (pads of several periods), Ly != Lx, K = 1, 4, 16, odd
+    lengths."""
     f = _f(K, Ly, Lx, 1)
     x = np.random.RandomState(2).randn(H, W)
-    ay, ax = AfbAxis(H, Ly, mode), AfbAxis(W, Lx, mode)
     want = nonsep.nonsep_afb_plain(torch.from_numpy(x)[None, None], f,
                                    mode)[0, 0].numpy()
-    got = corr(x, np.ascontiguousarray(f), ay, ax, ay.out, ax.out)
-    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_allclose(k14_forward(x, f, mode), want, **TOL)
     g = np.random.RandomState(3).randn(*want.shape)
     want = nonsep.nonsep_afb_adjoint_plain(
         torch.from_numpy(g)[None, None], f, mode, H, W)[0, 0].numpy()
-    np.testing.assert_allclose(gather(g, f, ay, ax, H, W), want, **TOL)
+    np.testing.assert_allclose(k14_adjoint(g, f, mode, H, W), want, **TOL)
 
 
 @pytest.mark.parametrize("mode", ["zero", "symmetric", "reflect",
@@ -186,7 +313,8 @@ def test_k14_separable_adjoint_plan(mode, K, Ly, Lx, H, W):
     g = np.random.RandomState(9).randn(K, ay.out, ax.out)
     want = nonsep.nonsep_afb_adjoint_plain(
         torch.from_numpy(g)[None, None], f, mode, H, W, True)[0, 0].numpy()
-    np.testing.assert_allclose(gather(g, f, ay, ax, H, W), want, **TOL)
+    np.testing.assert_allclose(k14_adjoint(g, f, mode, H, W, True), want,
+                               **TOL)
     r = np.random.RandomState(10)
     h = [r.randn(L) for L in (Ly, Ly, Lx, Lx)]
     outer = np.stack([np.outer(h[i], h[2 + j]) for j in (0, 1)

@@ -4,8 +4,9 @@ emulated in numpy exactly as the CUDA sources (``csrc/dtcwt_filt.cu``,
 ``c2q_unpack.cu``) compute each output, against their plain versions
 (the JAX conv path, ``ops/dtcwt_fb.py`` and ``ops/pool.py``) on the CPU:
 the kernels' arithmetic is tested here without a card, at every axis
-length 1..24 (K8), 4..24 (K9, multiples of 4), 2..24 (K10, even) and
-every q-shift length, both parities of m // 2 included."""
+length 1..24 (K8; its column and row tiles also past one and two tiles),
+4..24 (K9, multiples of 4), 2..24 (K10, even) and every q-shift length,
+both parities of m // 2 included."""
 import numpy as np
 import pytest
 import torch
@@ -98,14 +99,114 @@ def emulate_ifilt(x, ha, hb, highpass):
     return out
 
 
+# csrc/dtcwt_filt.cu's tiles: a column thread walks R outputs; a row
+# block takes TW outputs of a row, staged in segments of TW + LT samples
+R, TW = 8, 128
+
+
+def filt_src(s, n, mode):
+    """dtcwt_filt.cu:filt_src: pad_src_near within one axis length,
+    pad_src past it."""
+    if 0 <= s < n:
+        return s
+    if -n <= s < 2 * n:
+        return pad_src_near(s, n, mode)
+    return _src(s, n, mode)
+
+
+def emulate_filt_col(x, t, mode):
+    """K8's column kernel along one column: tiles of R outputs, the 2R
+    rows of a block of R taps in registers, the next R loaded before the
+    block's FMAs (rows never loaded are NaN: a read of one shows)."""
+    n, L = len(x), len(t)
+    m, nout = L // 2, n + 1 - L % 2
+
+    def row(s):
+        r = filt_src(s, n, mode)
+        return x[r] if r >= 0 else 0.0
+    out = np.full(nout, np.nan)
+    for ti in range(-(-nout // R)):
+        s0 = ti * R - m
+        w = np.full(2 * R, np.nan)
+        w[:R] = [row(s0 + o) for o in range(R)]
+        acc = np.zeros(R)
+        for kb in range(0, L, R):
+            for q in range(R, 2 * R):
+                if kb + q <= L + R - 2:
+                    w[q] = row(s0 + kb + q)
+            for kk in range(R):
+                if kb + kk < L:
+                    acc += t[kb + kk] * w[kk:kk + R]
+            w[:R], w[R:] = w[R:], np.nan
+        n_o = min(R, nout - ti * R)
+        out[ti * R:ti * R + n_o] = acc[:n_o]
+    return out
+
+
+def emulate_filt_row(x, t, mode):
+    """K8's row kernel along one row: blocks of TW outputs, each staging
+    TW + LT samples from a0 = J0 - m - d (a multiple of 4; the chunks
+    inside the row copied as they are, the rest mapped per sample), the
+    taps shifted by d, each thread's 4 outputs from two float4 chunks."""
+    n, L = len(x), len(t)
+    m, nout = L // 2, n + 1 - L % 2
+    d = (-m) % 4
+    LT = -(-(L + d) // 4) * 4
+    ts = np.zeros(LT)
+    ts[d:d + L] = t
+    out = np.full(nout, np.nan)
+    for J0 in range(0, nout, TW):
+        a0 = J0 - m - d
+        assert a0 % 4 == 0
+        seg = np.empty(TW + LT)
+        for e in range(0, TW + LT, 4):
+            pos = a0 + e
+            if pos >= 0 and pos + 4 <= n:    # the 16-byte copy
+                assert all(filt_src(pos + u, n, mode) == pos + u
+                           for u in range(4))
+                seg[e:e + 4] = x[pos:pos + 4]
+            else:
+                for u in range(4):
+                    r = filt_src(pos + u, n, mode)
+                    seg[e + u] = x[r] if r >= 0 else 0.0
+        chunks = seg.reshape(-1, 4)
+        for tx in range(TW // 4):
+            j = J0 + 4 * tx
+            if j >= nout:
+                continue
+            acc = np.zeros(4)
+            cw = chunks[tx]
+            for cb in range(LT // 4):
+                nw = chunks[tx + cb + 1]
+                e = np.concatenate([cw, nw])
+                for kk in range(4):
+                    if d <= 4 * cb + kk < d + L:
+                        acc += ts[4 * cb + kk] * e[kk:kk + 4]
+                cw = nw
+            n_o = min(4, nout - j)
+            out[j:j + n_o] = acc[:n_o]
+    return out
+
+
+FILT_PLANS = {"taps": emulate_filt, "columns": emulate_filt_col,
+              "rows": emulate_filt_row}
+
+
+@pytest.mark.parametrize("plan", list(FILT_PLANS))
 @pytest.mark.parametrize("mode", ["symmetric", "zero"])
 @pytest.mark.parametrize("L", [1, 2, 4, 5, 7, 13, 19, 30])
-def test_filt_index_map(mode, L):
+def test_filt_index_map(mode, L, plan):
+    """K8 on every axis length 1..24, and its tiles' edges (one and two
+    tiles of columns, a row block and one past it), as the taps define it
+    and as the column and row kernels compute it."""
     t = _x(L, 100 + L)
-    for n in range(1, 25):
+    lengths = list(range(1, 25))
+    if plan != "taps":
+        lengths += [2 * R + 1, 127, 128, 129, 130, 257]
+    for n in lengths:
         x = _x(n, n)
         np.testing.assert_allclose(
-            emulate_filt(x, t, mode),
+            FILT_PLANS[plan](x, t, mode),
             _plain_1d(dtcwt_fb.dtcwt_filt_plain, x, t, 3, mode),
             rtol=1e-12, atol=1e-12, err_msg=f"n={n}")
 

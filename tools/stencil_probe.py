@@ -1,0 +1,154 @@
+#!/usr/bin/env python3
+"""Time K8 (dtcwt_filt) and K14 (nonsep_afb and its adjoint) on one CUDA
+card at the shapes of chip_smoke.py's per-level and non-separable paths,
+each call checked against its plain version.
+
+    python3 tools/stencil_probe.py [--root DIR] [--only k8|k14]
+
+``--root`` imports ``pytorch_wavelets_tpu_torch`` from another checkout
+(say an unpacked parent commit), so that two versions can be timed in one
+session on one card: run it once per root, in turns.  Prints one JSON line
+a call (device ms: CUDA events over back-to-back calls after a warm-up)
+and the card's name and power limit.  Imports torch, numpy and the port
+only.
+"""
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+
+def timed_ms(fn, reps=10, batches=3):
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(batches):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b) / reps)
+    return statistics.median(out)
+
+
+def k8_cases(fb, filters):
+    """(label, x, taps, axis, mode): the level-1 filters of scat_bp's two
+    stages and of dtcwt_large."""
+    bp = filters.biort("near_sym_b_bp")
+    sa = filters.biort("near_sym_a")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for shape, bank, name in (((128, 3, 256, 256), bp, "scat_bp 1"),
+                              ((128, 18, 128, 128), bp, "scat_bp 2"),
+                              ((1, 3, 9216, 9216), sa, "dtcwt_large")):
+        x = torch.randn(shape, generator=gen, device="cuda")
+        for i in (0, 1):
+            t = fb.prep_taps(bank[i])
+            for axis in (3, 2):
+                yield f"{name} L={len(t)} axis {axis}", x, t, axis
+        del x
+
+
+def run_k8(fb, filters):
+    for label, x, t, axis in k8_cases(fb, filters):
+        got = fb.dtcwt_filt(x, t, axis, "symmetric")
+        want = fb.dtcwt_filt_plain(x, t, axis, "symmetric")
+        err = float((got - want).abs().max())
+        ok = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-5))
+        ms = timed_ms(lambda: fb.dtcwt_filt(x, t, axis, "symmetric"))
+        bound = 4.0 * (x.numel() + got.numel()) / 3.35e12 * 1e3
+        print(json.dumps({"kernel": "dtcwt_filt", "case": label, "ms": ms,
+                          "bound_ms": bound, "max_abs_err": err, "ok": ok}),
+              flush=True)
+        del got, want
+
+
+def run_k14(nonsep, filters):
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    h0a, h0b, _, _, h1a, h1b, _, _ = filters.qshift("qshift_a")
+    quad = np.stack([np.outer(c, r) for c in (h0a, h1a, h0b, h1b)
+                     for r in (h0a, h1a, h0b, h1b)])
+    w = filters.wavelet("db4")
+    db4 = nonsep.outer_filters(w.dec_lo, w.dec_hi, w.dec_lo,
+                               w.dec_hi)[:, ::-1, ::-1].copy()
+    for label, shape, f, mode in (
+            ("quad", (128, 3, 256, 256), quad, "zero"),
+            ("db4 per", (32, 10, 512, 512), db4, "periodization"),
+            ("db4 sym", (32, 10, 512, 512), db4, "symmetric")):
+        x = torch.randn(shape, generator=gen, device="cuda")
+        got = nonsep.nonsep_afb(x, f, mode)
+        check = slice(0, 4)
+        want = nonsep.nonsep_afb_plain(x[check], f, mode)
+        err = float((got[check] - want).abs().max())
+        ms = timed_ms(lambda: nonsep.nonsep_afb(x, f, mode))
+        K, Ly, Lx = f.shape
+        flop = 2.0 * Ly * Lx * got.numel()
+        bound = max(flop / 67e12, 4.0 * (x.numel() + got.numel())
+                    / 3.35e12) * 1e3
+        line = {"kernel": "nonsep_afb", "case": label, "ms": ms,
+                "bound_ms": bound, "max_abs_err": err,
+                "ok": bool(torch.allclose(got[check], want, rtol=1e-5,
+                                          atol=1e-5))}
+        if mode == "zero":
+            wt = torch.as_tensor(f[:, None], dtype=torch.float32,
+                                 device="cuda")
+            H, W = shape[2:]
+            _, front = nonsep.afb_axis_plan(H, Ly, mode)[:2]
+            back = 2 * (got.shape[3] - 1) + Ly - H - front
+            xp = F.pad(x.reshape(-1, 1, H, W), (front, back, front, back))
+            line["cudnn_ms"] = timed_ms(lambda: F.conv2d(xp, wt, stride=2))
+        print(json.dumps(line), flush=True)
+        if mode != "zero":
+            g = torch.randn(got.shape, generator=gen, device="cuda")
+            H, W = shape[2:]
+            dx = nonsep.nonsep_afb_adjoint(g, f, mode, H, W)
+            want = nonsep.nonsep_afb_adjoint_plain(g[check], f, mode, H, W)
+            err = float((dx[check] - want).abs().max())
+            ms = timed_ms(lambda: nonsep.nonsep_afb_adjoint(g, f, mode, H,
+                                                            W))
+            print(json.dumps({
+                "kernel": "nonsep_afb_adjoint", "case": label, "ms": ms,
+                "bound_ms": bound, "max_abs_err": err,
+                "ok": bool(torch.allclose(dx[check], want, rtol=1e-5,
+                                          atol=1e-5))}), flush=True)
+            del g, dx
+        del x, got
+
+
+def main():
+    p = argparse.ArgumentParser()
+    p.add_argument("--root", default=None)
+    p.add_argument("--only", choices=("k8", "k14"), default=None)
+    args = p.parse_args()
+    if not torch.cuda.is_available():
+        print("stencil_probe: no CUDA device", file=sys.stderr)
+        return 2
+    if args.root:
+        sys.path.insert(0, args.root)
+    torch.backends.cudnn.allow_tf32 = False
+    from pytorch_wavelets_tpu_torch import filters
+    from pytorch_wavelets_tpu_torch.ops import _cuda, dtcwt_fb, nonsep
+    _cuda.build()
+    print(json.dumps({"root": args.root or ".",
+                      "package": nonsep.__file__}), flush=True)
+    with torch.no_grad():
+        if args.only != "k14":
+            run_k8(dtcwt_fb, filters)
+        if args.only != "k8":
+            run_k14(nonsep, filters)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
