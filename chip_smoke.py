@@ -140,13 +140,16 @@ counted run by instantiation, the copy width their staging took (16- or
 4-byte cp.async, plain 2-byte loads; csrc/banded_pipe.cuh) and K1's
 64-column tile (async16_narrow); K1's and K17's
 kernel lines carry ``instantiations``, the same count for the recorded
-calls they replay.  K8's and K14's do too (K8's axis and vector width,
-K14's PSF count and tile, its adjoint's band gather), and so do the
-scat_bp, dtcwt_large, per_level_main, quad_nonsep and nonsep_rt lines
-for their counted runs.  K16's lines give torch.matmul on the probed
-operator (its transpose for the adjoint) as the library yardstick, with
-K1 on the same operator (k1_on_operator_ms) and the adjoint's partial
-transposed convolution (partial_conv_transpose_ms) timed beside it.
+calls they replay.  K8's, K10's, K14's and K16's do too (K8's, K10's and
+K16's axis and vector width, K14's PSF count and tile, the adjoints'
+band gathers), and so do the scat_bp, dtcwt_large, per_level_main,
+quad_nonsep, nonsep_rt and swt_sfb lines for their counted runs.  K16's
+lines give torch.matmul on the probed operator (its transpose for the
+adjoint) as the library yardstick, with K1 on the same operator
+(k1_on_operator_ms) and the adjoint's partial transposed convolution
+(partial_conv_transpose_ms) timed beside it; K9's and K10's the plain
+version's one cuDNN convolution of the phase streams (partial work:
+without the pad, the streams and the interleave).
 
 Then a {"kernels": [...]} line, the card's name and power limit as
 nvidia-smi prints them, and last {"ok": true, "device": {...}}.
@@ -734,8 +737,13 @@ def stencil_call_parts(call, fb, pool):
     timed) for K8, plus ``add_`` where K8 accumulates; ``F.avg_pool2d``
     for K11's forward and ``F.conv_transpose2d`` of the cotangent (reshaped
     here, not timed) by a 2x2 kernel of 1/4 at stride 2 for its adjoint
-    (checked exact against the plain version); None for K9/K10, whose function no single
-    PyTorch call computes."""
+    (checked exact against the plain version).  K9 and K10's function no
+    single PyTorch call computes: theirs is partial work, the plain
+    version's own cuDNN call (``F.conv2d`` of the two or four phase
+    streams by the block-diagonal kernels, ``dfilt_operands`` /
+    ``ifilt_operands``, prepared here and not timed), checked against
+    the plain version after the interleave (and the accumulation) done
+    here, timed without them."""
     import torch.nn.functional as F
     name, _, args = call
     lib = None
@@ -803,6 +811,27 @@ def stencil_call_parts(call, fb, pool):
         require(torch.allclose(ref, want, **STENCIL_TOL),
                 "dtcwt_filt: the library yardstick differs from the plain "
                 "version")
+    else:
+        ha, hb, highpass, axis = rest
+        ifilt = name == "dtcwt_ifilt"
+        streams, blocks = (fb.ifilt_operands(x, ha, hb, highpass, axis)
+                           if ifilt else fb.dfilt_operands(x, ha, hb, axis))
+        N, C = x.shape[:2]
+        G, L = blocks.shape[0], blocks.shape[-1]
+        xr = streams.reshape(N * C, G, *streams.shape[2:]).contiguous()
+        w = torch.as_tensor(blocks.reshape((G, G, L, 1) if axis == 2 else
+                                           (G, G, 1, L)),
+                            dtype=torch.float32, device=x.device)
+        stride = (1, 1) if ifilt else ((2, 1) if axis == 2 else (1, 2))
+        lib = lambda: F.conv2d(xr, w, stride=stride)          # noqa: E731
+        y = lib()
+        y = y.reshape(N, C, G, *y.shape[2:])
+        ref = (fb.ifilt_finish(y, x.shape, axis) if ifilt else
+               fb.dfilt_finish(y, highpass, x.shape, axis))
+        ref = ref + spec[1] if acc else ref
+        require(torch.allclose(ref, want, **STENCIL_TOL),
+                f"{name}: the plain version's convolution, interleaved, "
+                f"differs from the plain version")
     ops = 2.0 * taps_per_out * got.numel()
     nbytes = 4.0 * (x.numel() + got.numel() * (2 if acc else 1))
     return got, want, run, plain, lib, ops, nbytes, STENCIL_TOL
@@ -1023,12 +1052,14 @@ def replay(call, banded, quad, mag, afb, pad, fb=None, pool=None,
 
 def _inst_counter(name, fb):
     """The wrapper whose ``instantiations`` a call of kernel ``name``
-    bumps (K8's, K14's two), else None."""
-    from pytorch_wavelets_tpu_torch.ops import nonsep
-    if name == "dtcwt_filt" and fb is not None:
-        return fb.dtcwt_filt
+    bumps (K8's, K10's, K14's two, K16's two), else None."""
+    from pytorch_wavelets_tpu_torch.ops import afb_sfb, nonsep
+    if name in ("dtcwt_filt", "dtcwt_ifilt") and fb is not None:
+        return getattr(fb, name)
     if name in ("nonsep_afb", "nonsep_afb_adjoint"):
         return getattr(nonsep, name)
+    if name in ("sfb1d_atrous_conv", "sfb1d_atrous_adjoint"):
+        return getattr(afb_sfb, name)
     return None
 
 
@@ -3087,7 +3118,7 @@ def swt_sfb(ops, nonsep, afb):
             ops.reset_launches()
             rec = afb.sfb2d_atrous(y, *rec_f, "periodization", d)
             torch.cuda.synchronize()
-            counts = ops.launch_counts()
+            counts, insts = ops.launch_counts(), inst_counts(ops)
             require(counts["sfb1d_atrous_conv"] == 3, f"swt_sfb: K16 "
                     f"launches {counts}")
             pr = max_err(rec, x)
@@ -3117,7 +3148,8 @@ def swt_sfb(ops, nonsep, afb):
                        a) for j, (k, _, a) in enumerate(r.calls)]
             by_role[f"d={d}"] = counts
             by_role[f"d={d} other modes"] = ocounts
-            fields[f"d={d}"] = dict(launches=counts, reconstruction_err=pr,
+            fields[f"d={d}"] = dict(launches=counts, instantiations=insts,
+                                    reconstruction_err=pr,
                                     reconstruction_tol=SWT_PR_TOL,
                                     merge_ms=ms, merge_device_ms=dev_ms,
                                     device_busy_share=dev_ms / ms)
@@ -3138,6 +3170,7 @@ def swt_sfb(ops, nonsep, afb):
     calls += [(k, "d=2 step", a) for k, role, a in r.calls
               if role == "backward"]
     by_role["d=2 step"] = counts
+    fields["d=2 step"] = dict(launches=counts, instantiations=inst_counts(ops))
     del st, z, gst
     # the adjoint identity of K16's Function, every mode, both axes
     gen = torch.Generator(device="cuda").manual_seed(4)

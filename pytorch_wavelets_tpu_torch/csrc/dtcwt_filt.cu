@@ -56,11 +56,9 @@
 // The wrapper (ops/dtcwt_fb.py:dtcwt_filt) chooses the instantiation from
 // the view (col_float4 / col_scalar, row_async16 / row_async4), counts
 // it, and passes it as ``vec``; the entry checks it against the view.
-#include <cstdint>
-
 #include <cuda_runtime.h>
 
-#include "dwt_index.cuh"
+#include "stencil_tile.cuh"
 
 namespace {
 
@@ -81,83 +79,6 @@ struct FiltArgs {
 struct FiltTaps {
   float t[DWT_MAX_TAPS];
 };
-
-// The sample that position s of a length-n axis reads (-1: a zero).
-__device__ __forceinline__ int filt_src(int s, int n, int mode) {
-  if (s >= 0 && s < n) return s;
-  if (s >= -n && s < 2 * n) return pad_src_near(s, n, mode);
-  return pad_src(s, n, mode);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// cp.async of 16 (.cg, L2 only) or 4 (.ca) bytes
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
-                                         int bytes) {
-  if (bytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                     smem_u32(dst)),
-                 "l"(src)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                     smem_u32(dst)),
-                 "l"(src)
-                 : "memory");
-}
-
-// V columns of row r (xp: the plane at the thread's first column): zeros
-// for r = -1; ncols of them valid when the thread's columns pass the edge.
-template <int V>
-__device__ __forceinline__ void load_row(float (&w)[V], const float* xp,
-                                         int r, long long sx2, long long sx3,
-                                         int ncols) {
-  if (r < 0) {
-#pragma unroll
-    for (int v = 0; v < V; ++v) w[v] = 0.f;
-    return;
-  }
-  const float* q = xp + r * sx2;
-  if (V == 4 && ncols >= 4) {
-    const float4 f = *reinterpret_cast<const float4*>(q);
-    w[0] = f.x;
-    w[V > 1 ? 1 : 0] = f.y;
-    w[V > 2 ? 2 : 0] = f.z;
-    w[V > 3 ? 3 : 0] = f.w;
-    return;
-  }
-#pragma unroll
-  for (int v = 0; v < V; ++v) w[v] = v < ncols ? q[v * sx3] : 0.f;
-}
-
-// Store (or add) V outputs at q; float4 where the view allows it.
-template <int V>
-__device__ __forceinline__ void store_vals(float* q, const float (&v)[V],
-                                           long long s3, int ncols,
-                                           int store4, int acc) {
-  if (V == 4 && store4 && ncols >= 4) {
-    float4* q4 = reinterpret_cast<float4*>(q);
-    float4 o = make_float4(v[0], v[V > 1 ? 1 : 0], v[V > 2 ? 2 : 0],
-                           v[V > 3 ? 3 : 0]);
-    if (acc) {
-      const float4 p = *q4;
-      o.x = p.x + o.x;
-      o.y = p.y + o.y;
-      o.z = p.z + o.z;
-      o.w = p.w + o.w;
-    }
-    *q4 = o;
-    return;
-  }
-#pragma unroll
-  for (int u = 0; u < V; ++u)
-    if (u < ncols) {
-      float* e = q + u * s3;
-      *e = acc ? *e + v[u] : v[u];
-    }
-}
 
 template <int V>
 __global__ void __launch_bounds__(CW* CT, 4)
@@ -296,19 +217,6 @@ __global__ void __launch_bounds__(32 * RT)
       }
     }
   }
-}
-
-// A view's rows are 16-byte aligned with stride 1 along W: base pointer
-// aligned, and every stride of a dimension longer than 1 a multiple of 4.
-bool rows_aligned(const void* p, long long N, int C, int H, int W,
-                  long long s0, long long s1, long long s2, long long s3) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (W < 2 || s3 == 1) &&
-         (H < 2 || s2 % 4 == 0) && (C < 2 || s1 % 4 == 0) &&
-         (N < 2 || s0 % 4 == 0);
-}
-
-inline unsigned clamp_grid(long long v, long long cap) {
-  return (unsigned)(v < 1 ? 1 : (v > cap ? cap : v));
 }
 
 }  // namespace

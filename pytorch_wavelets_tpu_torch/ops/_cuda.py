@@ -86,8 +86,8 @@ _SIGNATURES = {
                         _L, _L, _L, _L, _I, _L, _L, _L, _L, _P],
     },
     "dtcwt_ifilt": {
-        "dtcwt_ifilt": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I,
-                        _L, _L, _L, _L, _I, _I, _L, _L, _L, _L, _P],
+        "dtcwt_ifilt": [_P, _P, _P, *[_I] * 7, _L, _I, _I, _I,
+                        _L, _L, _L, _L, _I, _I, _I, _L, _L, _L, _L, _P],
     },
     "avg_pool2": {
         "avg_pool2_fwd": [_P, _P, _L, _I, _I, _I, _L, _L, _L, _L, _P],
@@ -100,10 +100,12 @@ _SIGNATURES = {
                             _L, _L, _L, _L, _L, _I, _I, _I, _I,
                             _L, _L, _L, _L, _P],
         "swt_sfb": [_P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I,
-                    *[_L] * 8, _I, _I, _I, _I, _L, _L, _L, _L, _P],
+                    *[_L] * 8, _I, _I, _I, _I, _L, _L, _L, _L, _I, _I, _I,
+                    _P],
         "swt_sfb_adjoint": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I,
                             _L, _L, _L, _L, _I, _I, _I, _I,
-                            _L, _L, _L, _L, _L, _P],
+                            _L, _L, _L, _L, _L, _I, _I, _I, _P, _I, _I,
+                            _P],
     },
     "nonsep_afb": {
         "nonsep_afb": [_P, _P, _P, _I, _I, _I, _L, _I, _I, _I,

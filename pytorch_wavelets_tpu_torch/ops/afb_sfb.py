@@ -18,8 +18,9 @@ The DWT's split and merge along one axis:
   the classic shift-averaged ISWT step, half the sum of the correlations
   of (lo, hi) padded in the mode with the reversed synthesis taps
   ``dilation`` apart (B8c'), and :func:`sfb1d_atrous_adjoint` (K16
-  ``swt_sfb_adjoint``), its exact transpose, K12's adjoint gather with
-  one cotangent and two outputs.
+  ``swt_sfb_adjoint``), its exact transpose: one tile engine walking
+  d-strided subsequences, the adjoint's pad images added from a host
+  table (:func:`merge_band_images`).
 
 The non-separable ``afb2d_nonsep`` / ``sfb2d_nonsep`` run K14/K15
 (``ops/nonsep.py``).
@@ -33,8 +34,10 @@ the adjoints' :func:`afb1d_atrous_adjoint_plain` /
 pad and strided or dilated ``conv2d``, and autograd's transpose of the
 à trous ones.  CUDA tensors launch
 the kernels or raise.  :func:`afb_plan` / :func:`sfb_plan` /
-:func:`atrous_plan` give the index plan the kernels evaluate, so the
-tests can hold it against the plain versions on the CPU.
+:func:`atrous_plan` / :func:`atrous_merge_plan` give the index plan the
+kernels evaluate, and :func:`merge_row_tile` / :func:`merge_band_images`
+K16's row tile and its adjoint's edge table, so the tests can hold them
+against the plain versions on the CPU.
 
 Filter-tap convention: every function here takes taps "in application
 order", i.e. the correlation kernel; the public :func:`afb1d` /
@@ -51,7 +54,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from pytorch_wavelets_tpu_torch.ops import _cuda
-from pytorch_wavelets_tpu_torch.ops.pad import PAD_CODES, pad1d
+from pytorch_wavelets_tpu_torch.ops.pad import PAD_CODES, pad1d, pad_index
 from pytorch_wavelets_tpu_torch.ops.precision import plain_flags
 from pytorch_wavelets_tpu_torch.utils import dwt_coeff_len
 
@@ -63,7 +66,8 @@ __all__ = ["as_taps", "afb1d", "sfb1d", "afb2d", "sfb2d", "afb1d_atrous",
            "afb1d_atrous_corr_plain", "afb1d_atrous_adjoint_plain",
            "sfb1d_atrous_conv_plain", "sfb1d_atrous_adjoint_plain",
            "afb_plan", "sfb_plan", "atrous_plan", "atrous_merge_plan",
-           "MAX_TAPS"]
+           "merge_row_tile", "merge_band_images", "merge_instantiation",
+           "rows_aligned", "unit_rows", "MAX_TAPS"]
 
 # the kernels keep both tap vectors in shared memory (csrc/dwt_*.cu)
 MAX_TAPS = 128
@@ -207,6 +211,105 @@ def atrous_merge_plan(n, L, d, mode):
     if mode not in PAD_CODES:
         raise ValueError(f"Unknown pad type: {mode}")
     return front, back, PAD_CODES[mode], n + front + back - (L - 1) * d
+
+
+# csrc/swt_atrous.cu's row tile: 32 rows a block, MR outputs a thread, about
+# _MERGE_TILE_OUT outputs a row, within _MERGE_SMEM bytes of shared memory
+_MR, _TR, _MERGE_TILE_OUT, _MERGE_SMEM = 8, 32, 64, 96 * 1024
+
+
+def merge_row_smem(G, S, L, ni, no):
+    """Bytes of shared memory of K16's row tile (G residues x S positions;
+    ni inputs, no outputs): the taps, the staged rows and the output rows,
+    each row padded to an odd pitch."""
+    return 4 * (ni * no * L + ni * _TR * (G * (S + L - 1) | 1)
+                + no * _TR * (G * S | 1))
+
+
+def merge_row_tile(n, L, d, ni, no):
+    """K16's row tile (G, S) on a length-``n`` axis, taps ``d`` apart: G
+    residues (a power of two, d itself up to 16) x S positions (a multiple
+    of MR) of each, about 64 outputs a row, fewer where the axis is
+    short; S, then G, shrunk until the tile fits the shared memory
+    budget (``csrc/swt_atrous.cu:merge_row_kernel``)."""
+    G = 1 << min(min(d, n).bit_length() - 1, 4)
+    npos = -(-n // d)
+    S = min(max(_MR, -(-(_MERGE_TILE_OUT // G) // _MR) * _MR),
+            -(-npos // _MR) * _MR)
+    while merge_row_smem(G, S, L, ni, no) > _MERGE_SMEM and (S > _MR
+                                                            or G > 1):
+        if S > _MR:
+            S -= _MR
+        else:
+            G //= 2
+    return G, S
+
+
+@lru_cache(maxsize=256)
+def merge_band_images(n, L, d, mode):
+    """The images of K16's adjoint beside each sample's direct one: the
+    pad positions q outside [0, n) whose source (:func:`pad_index`) is
+    sample t, for the merge of a length-``n`` axis by L taps ``d`` apart.
+    An int32 array with a row for each t that has any, ascending: t, then
+    the padded positions q + front, ascending, -1 past the last; None in
+    'zero' mode or without pads.  ``csrc/swt_atrous.cu:merge_band_kernel``
+    adds their windows (reflected and wrapped images, the whole pad run
+    in 'replicate', several periods of a pad longer than the axis)."""
+    front, back, code, _ = atrous_merge_plan(n, L, d, mode)
+    if code == PAD_CODES["zero"] or front + back == 0:
+        return None
+    src = pad_index(n, front, back, mode)
+    pos = np.r_[0:front, front + n:front + n + back]   # padded index q + front
+    ts = np.unique(src[pos])
+    lists = [pos[src[pos] == t] for t in ts]
+    table = np.full((len(ts), 1 + max(map(len, lists))), -1, dtype=np.int32)
+    table[:, 0] = ts
+    for row, us in zip(table, lists):
+        row[1:1 + len(us)] = us
+    return table
+
+
+@lru_cache(maxsize=64)
+def _device_band(n, L, d, mode, device):
+    t = merge_band_images(n, L, d, mode)
+    return None if t is None else torch.as_tensor(t, device=device)
+
+
+def rows_aligned(t):
+    """The view's rows are 16-byte aligned with stride 1 along W: its
+    base pointer, and the stride of every leading dimension longer than
+    1, are multiples of 16 bytes (the float4 instantiations of K8, K10 and
+    K16; the C entries check the same)."""
+    return (t.data_ptr() % 16 == 0
+            and (t.shape[3] < 2 or t.stride(3) == 1)
+            and all(s % 4 == 0 for s, n in zip(t.stride()[:3], t.shape[:3])
+                    if n > 1))
+
+
+def unit_rows(t):
+    """The view's rows have stride 1 along W (or one column)."""
+    return t.shape[3] < 2 or t.stride(3) == 1
+
+
+def merge_instantiation(axis, contiguous, *inputs):
+    """K16's instantiation along ``axis`` for its input views: the column
+    tile with float4 loads (``col_float4``, every input's rows 16-byte
+    aligned with stride 1 along W, :func:`rows_aligned`) or scalar ones
+    (``col_scalar``); the row tile walking one run of samples a row
+    (``row_run``: a ``contiguous`` tile, G = d in :func:`merge_row_tile`,
+    and rows of stride 1, :func:`unit_rows`) or mapping each sample
+    (``row_gather``)."""
+    if axis == 3:
+        return ("row_run" if contiguous and all(map(unit_rows, inputs))
+                else "row_gather")
+    return ("col_float4" if all(map(rows_aligned, inputs))
+            else "col_scalar")
+
+
+# the C entries' instantiation codes (csrc/swt_atrous.cu:MergeInst,
+# csrc/dtcwt_ifilt.cu:IfiltInst)
+INST_CODES = {"col_scalar": 0, "col_float4": 1, "row_run": 2,
+              "row_gather": 3}
 
 
 # --------------------------------------------------------------------------
@@ -587,7 +690,9 @@ def sfb1d_atrous_conv(lo, hi, g0_taps, g1_taps, mode, axis, dilation):
 
     CPU tensors take :func:`sfb1d_atrous_conv_plain`; CUDA tensors launch
     K16's ``swt_sfb``, which reads ``lo`` and ``hi`` each through its own
-    strides (the bands of a level's (N, C, 4, H, W) stack in place)."""
+    strides (the bands of a level's (N, C, 4, H, W) stack in place), in
+    the instantiation :func:`merge_instantiation` picks (counted in
+    ``instantiations``), with :func:`merge_row_tile`'s tile along W."""
     axis = axis % 4
     if lo.shape != hi.shape:
         raise ValueError(f"sfb1d_atrous_conv: lo {tuple(lo.shape)} and hi "
@@ -597,17 +702,21 @@ def sfb1d_atrous_conv(lo, hi, g0_taps, g1_taps, mode, axis, dilation):
                                        dilation)
     _cuda.check_inputs("swt_sfb", lo, hi)
     _check_4d("swt_sfb", axis, lo)
+    n = lo.shape[axis]
     k0, k1, L, (front, _, code, m) = _merge_args(
-        "swt_sfb", g0_taps, g1_taps, lo.shape[axis], mode, dilation)
+        "swt_sfb", g0_taps, g1_taps, n, mode, dilation)
     y = torch.empty(lo.shape, device=lo.device, dtype=torch.float32)
     if y.numel() == 0:
         return y
+    G, S = merge_row_tile(n, L, dilation, 2, 1)
+    inst = merge_instantiation(axis, G == dilation, lo, hi)
     lib = _cuda.library("swt_atrous")
     _cuda.check(lib, "swt_sfb", lib.swt_sfb(
         lo.data_ptr(), hi.data_ptr(), y.data_ptr(), _ptr(k0), _ptr(k1), L,
         dilation, *lo.shape, *lo.stride(), *hi.stride(), axis, front, code,
-        m, *y.stride(), _cuda.stream_of(lo)))
+        m, *y.stride(), INST_CODES[inst], G, S, _cuda.stream_of(lo)))
     _K16.launches += 1
+    _K16.instantiations[inst] += 1
     return y
 
 
@@ -618,9 +727,11 @@ def sfb1d_atrous_adjoint(dy, g0_taps, g1_taps, mode, axis, dilation):
     lo (band 0) and hi.
 
     CPU tensors take :func:`sfb1d_atrous_adjoint_plain`; CUDA tensors
-    launch K16's ``swt_sfb_adjoint``, a gather (no atomics): each input
-    sample sums the outputs whose padded windows read it, its reflected
-    or wrapped images near an edge included (K12's adjoint scan)."""
+    launch K16's ``swt_sfb_adjoint`` (no atomics): the merge's tile engine
+    on the reversed taps writes each sample's direct image, then, outside
+    'zero' mode, a gather adds the images of :func:`merge_band_images`
+    (counted as ``band`` in ``instantiations`` beside the tile's
+    instantiation)."""
     axis = axis % 4
     if dy.device.type == "cpu":
         return sfb1d_atrous_adjoint_plain(dy, g0_taps, g1_taps, mode, axis,
@@ -634,18 +745,28 @@ def sfb1d_atrous_adjoint(dy, g0_taps, g1_taps, mode, axis, dilation):
     d2 = torch.empty((N, C, 2, H, W), device=dy.device, dtype=torch.float32)
     if d2.numel() == 0:
         return d2
+    G, S = merge_row_tile(n, L, dilation, 1, 2)
+    inst = merge_instantiation(axis, G == dilation, dy)
+    tab = _device_band(n, L, dilation, mode, dy.device)
+    band = (0, 0, 0) if tab is None else (tab.data_ptr(), tab.shape[1],
+                                          tab.shape[0])
     lib = _cuda.library("swt_atrous")
     _cuda.check(lib, "swt_sfb_adjoint", lib.swt_sfb_adjoint(
         dy.data_ptr(), d2.data_ptr(), _ptr(k0), _ptr(k1), L, dilation, N, C,
         H, W, *dy.stride(), axis, front, code, m, *d2.stride(),
-        _cuda.stream_of(dy)))
+        INST_CODES[inst], G, S, *band, _cuda.stream_of(dy)))
     _K16A.launches += 1
+    _K16A.instantiations[inst] += 1
+    if tab is not None:
+        _K16A.instantiations["band"] += 1
     return d2
 
 
 _K16, _K16A = sfb1d_atrous_conv, sfb1d_atrous_adjoint
 _K16.launches = 0
 _K16A.launches = 0
+_K16.instantiations = dict.fromkeys(INST_CODES, 0)
+_K16A.instantiations = dict.fromkeys((*INST_CODES, "band"), 0)
 
 
 class _SFB1DAtrous(torch.autograd.Function):

@@ -38,7 +38,8 @@ import torch.nn.functional as F
 
 from pytorch_wavelets_tpu_torch.ops import _cuda, banded
 from pytorch_wavelets_tpu_torch.ops.afb_sfb import (
-    MAX_TAPS, _check_4d, _conv_axis, _ext_ns, _ptr, as_taps,
+    INST_CODES, MAX_TAPS, _check_4d, _conv_axis, _ext_ns, _ptr, as_taps,
+    rows_aligned, unit_rows,
 )
 from pytorch_wavelets_tpu_torch.ops.pad import PAD_CODES, pad1d
 from pytorch_wavelets_tpu_torch.ops.precision import plain_flags
@@ -46,7 +47,8 @@ from pytorch_wavelets_tpu_torch.ops.precision import plain_flags
 __all__ = ["prep_taps", "colfilter", "rowfilter", "coldfilt", "rowdfilt",
            "colifilt", "rowifilt", "q2c", "c2q", "dtcwt_filt", "dtcwt_dfilt",
            "dtcwt_ifilt", "dtcwt_filt_plain", "dtcwt_dfilt_plain",
-           "dtcwt_ifilt_plain", "ifilt_plan", "filt_instantiation",
+           "dtcwt_ifilt_plain", "ifilt_plan", "ifilt_passes",
+           "ifilt_tap_rows", "filt_instantiation", "ifilt_instantiation",
            "rows_aligned", "INV_SQRT2"]
 
 
@@ -94,7 +96,15 @@ def _dfilt_axis_conv(x, ha_taps, hb_taps, highpass, mode, axis):
     """Quarter-shift decimating filter along ``axis``: N -> N/2 (reference
     coldfilt/rowdfilt, dtcwt/lowlevel.py:97-151)."""
     axis = axis % 4
-    n = x.shape[axis]
+    streams, kernels = dfilt_operands(x, ha_taps, hb_taps, axis)
+    return dfilt_finish(_conv_grouped_pair(streams, kernels, axis, stride=2),
+                        highpass, x.shape, axis)
+
+
+def dfilt_operands(x, ha_taps, hb_taps, axis):
+    """The operands of :func:`_dfilt_axis_conv`'s one grouped convolution
+    (``_conv_grouped_pair``): the even and odd streams of the padded axis,
+    (N, 2C, H', W'), and the block-diagonal kernels (2, 2, m)."""
     ha = np.asarray(ha_taps, dtype=np.float64)
     hb = np.asarray(hb_taps, dtype=np.float64)
     m = len(ha)
@@ -109,12 +119,18 @@ def _dfilt_axis_conv(x, ha_taps, hb_taps, highpass, mode, axis):
     kernels = np.zeros((2, 2, m))
     kernels[0, 0] = ha
     kernels[1, 1] = hb
-    y = _conv_grouped_pair(streams, kernels, axis, stride=2)
+    return streams, kernels
+
+
+def dfilt_finish(y, highpass, shape, axis):
+    """The (N, C, 2, H', W') stream results of :func:`dfilt_operands`'
+    convolution interleaved ((b, a) with ``highpass``) into the n/2
+    outputs of an input of ``shape`` along ``axis``."""
     ya, yb = y[:, :, 0], y[:, :, 1]
     first, second = (yb, ya) if highpass else (ya, yb)
     out = torch.stack([first, second], dim=axis + 1)
-    shape = list(x.shape)
-    shape[axis] = n // 2
+    shape = list(shape)
+    shape[axis] //= 2
     return out.reshape(shape)
 
 
@@ -151,7 +167,14 @@ def _ifilt_axis_conv(x, ha_taps, hb_taps, highpass, mode, axis):
     colifilt/rowifilt, dtcwt/lowlevel.py:154-239): four phase streams
     with odd and even taps, then a 4-way interleave."""
     axis = axis % 4
-    n = x.shape[axis]
+    streams, kernels = ifilt_operands(x, ha_taps, hb_taps, highpass, axis)
+    return ifilt_finish(_conv_quad(streams, kernels, axis), x.shape, axis)
+
+
+def ifilt_operands(x, ha_taps, hb_taps, highpass, axis):
+    """The operands of :func:`_ifilt_axis_conv`'s one grouped convolution
+    (``_conv_quad``): the four phase streams of the padded axis, (N, 4C,
+    H', W'), and the block-diagonal kernels (4, 4, m/2)."""
     ha = np.asarray(ha_taps, dtype=np.float64)
     hb = np.asarray(hb_taps, dtype=np.float64)
     m = len(ha)
@@ -184,11 +207,16 @@ def _ifilt_axis_conv(x, ha_taps, hb_taps, highpass, mode, axis):
     kernels = np.zeros((4, 4, Lf))
     for i, f in enumerate(filts):
         kernels[i, i] = f
-    y = _conv_quad(streams, kernels, axis)
-    # interleave the 4 phase outputs -> length 2n
+    return streams, kernels
+
+
+def ifilt_finish(y, shape, axis):
+    """The (N, C, 4, H', W') phase results of :func:`ifilt_operands`'
+    convolution interleaved into the 2n outputs of an input of ``shape``
+    along ``axis``."""
     y = torch.movedim(y, 2, axis + 1)  # (..., n2, 4, ...) along axis
-    shape = list(x.shape)
-    shape[axis] = 2 * n
+    shape = list(shape)
+    shape[axis] *= 2
     return y.reshape(shape)
 
 
@@ -228,6 +256,44 @@ def ifilt_plan(m, highpass):
         starts = (2, 1, 2, 1) if highpass else (1, 2, 1, 2)
         pars = (1, 1, 0, 0)
     return tuple(zip(starts, pars))
+
+
+def ifilt_passes(m, highpass):
+    """K10's two passes for q-shift taps of even length ``m``: pass pi
+    computes phases pi and pi + 2, whose samples start_f - m // 2 + 2q +
+    2k (:func:`ifilt_plan`) share one parity p.  Per pass (p, a, Lz,
+    (sA, sB)): output 4q + pi + 2h is sum_j T[pi + 2h][j] z(q + a + j)
+    over j < Lz, z(i) = x[src(p + 2i)], where phase f's m/2 taps sit at
+    shift s_f of its tap row (:func:`ifilt_tap_rows`)."""
+    plan, h = ifilt_plan(m, highpass), m // 2
+    out = []
+    for pi in (0, 1):
+        starts = [plan[f][0] - h for f in (pi, pi + 2)]
+        p = starts[0] % 2      # starts[1] % 2 too, for every plan
+        offs = [(s - p) // 2 for s in starts]
+        a = min(offs)
+        out.append((p, a, h + max(offs) - a, tuple(o - a for o in offs)))
+    return tuple(out)
+
+
+def ifilt_tap_rows(ha, hb, highpass):
+    """K10's passes (:func:`ifilt_passes`) and its four tap rows T (4,
+    max Lz) in the taps' dtype: row f holds h_f[2k + par_f] (h_f = ha for
+    even f, hb for odd) at j = s_f + k, zeros elsewhere."""
+    ha, hb = np.asarray(ha), np.asarray(hb)
+    passes, plan = ifilt_passes(len(ha), highpass), ifilt_plan(len(ha),
+                                                               highpass)
+    T = np.zeros((4, max(P[2] for P in passes)), np.result_type(ha, hb))
+    for pi, (_, _, _, shifts) in enumerate(passes):
+        for f, sh in zip((pi, pi + 2), shifts):
+            T[f, sh:sh + len(ha) // 2] = (hb if f & 1 else ha)[plan[f][1]::2]
+    return passes, T
+
+
+@lru_cache(maxsize=64)
+def _tap_rows32(ha: bytes, hb: bytes, highpass):
+    return ifilt_tap_rows(np.frombuffer(ha, np.float32),
+                          np.frombuffer(hb, np.float32), highpass)
 
 
 def _into(y, out, accumulate):
@@ -279,17 +345,6 @@ def _out_for(kernel, x, shape, out):
     return out
 
 
-def rows_aligned(t):
-    """The view's rows are 16-byte aligned with stride 1 along W: its
-    base pointer, and the stride of every leading dimension longer than
-    1, are multiples of 16 bytes (K8's vector instantiations; the C entry
-    checks the same)."""
-    return (t.data_ptr() % 16 == 0
-            and (t.shape[3] < 2 or t.stride(3) == 1)
-            and all(s % 4 == 0 for s, n in zip(t.stride()[:3], t.shape[:3])
-                    if n > 1))
-
-
 def filt_instantiation(x, axis):
     """K8's instantiation for an input view along ``axis``: the column
     filter with float4 loads (``col_float4``) or scalar ones
@@ -301,6 +356,17 @@ def filt_instantiation(x, axis):
     if axis == 2:
         return "col_float4" if vec else "col_scalar"
     return "row_async16" if vec else "row_async4"
+
+
+def ifilt_instantiation(x, axis):
+    """K10's instantiation for an input view along ``axis``: the column
+    tile with float4 loads (``col_float4``, :func:`rows_aligned`) or
+    scalar ones (``col_scalar``), the row tile walking each row's run of
+    samples (``row_run``, rows of stride 1, ``unit_rows``) or mapping
+    each sample (``row_gather``)."""
+    if axis == 3:
+        return "row_run" if unit_rows(x) else "row_gather"
+    return "col_float4" if rows_aligned(x) else "col_scalar"
 
 
 @_cuda.via_fp32
@@ -371,28 +437,30 @@ def dtcwt_ifilt(x, ha, hb, highpass, axis, out=None, accumulate=False):
     """Q-shift interpolation of (N, C, H, W) ``x`` along ``axis`` by the
     tap pair (ha, hb) (even length), symmetric boundary: 2n outputs,
     into ``out`` if given, added to it with ``accumulate``.  CPU tensors
-    take :func:`dtcwt_ifilt_plain`; CUDA tensors launch K10."""
+    take :func:`dtcwt_ifilt_plain`; CUDA tensors launch K10 with the
+    passes and tap rows of :func:`ifilt_tap_rows`, in the instantiation
+    :func:`ifilt_instantiation` picks (counted in ``instantiations``)."""
     axis = axis % 4
     if x.device.type == "cpu":
         return dtcwt_ifilt_plain(x, ha, hb, highpass, axis, out, accumulate)
     _cuda.check_inputs("dtcwt_ifilt", x)
     _check_4d("dtcwt_ifilt", axis, x)
     a, b = _taps32("dtcwt_ifilt", ha, hb)
-    plan = 0
-    for f, (start, par) in enumerate(ifilt_plan(len(a), highpass)):
-        plan |= ((start << 1) | par) << (3 * f)
+    passes, T = _tap_rows32(a.tobytes(), b.tobytes(), bool(highpass))
     shape = list(x.shape)
     shape[axis] *= 2
     y = _out_for("dtcwt_ifilt", x, shape, out)
     if y.numel() == 0:
         return y
     _check_4d("dtcwt_ifilt", axis, y)
+    inst = ifilt_instantiation(x, axis)
     lib = _cuda.library("dtcwt_ifilt")
     _cuda.check(lib, "dtcwt_ifilt", lib.dtcwt_ifilt(
-        x.data_ptr(), y.data_ptr(), _ptr(a), _ptr(b), len(a), plan,
-        *x.shape, *x.stride(), axis, int(accumulate), *y.stride(),
-        _cuda.stream_of(x)))
+        x.data_ptr(), y.data_ptr(), _ptr(T), T.shape[1],
+        *[v for P in passes for v in P[:3]], *x.shape, *x.stride(), axis,
+        int(accumulate), INST_CODES[inst], *y.stride(), _cuda.stream_of(x)))
     _K10.launches += 1
+    _K10.instantiations[inst] += 1
     return y
 
 
@@ -404,6 +472,7 @@ _K8, _K9, _K10 = dtcwt_filt, dtcwt_dfilt, dtcwt_ifilt
 _K8.launches = _K9.launches = _K10.launches = 0
 _K8.instantiations = dict.fromkeys(
     ("col_float4", "col_scalar", "row_async16", "row_async4"), 0)
+_K10.instantiations = dict.fromkeys(INST_CODES, 0)
 
 
 # --------------------------------------------------------------------------

@@ -607,9 +607,13 @@ def test_dtcwt_ifilt(dev, name, n, axis, highpass):
     x = _band_of_stack(dev, (2, 3, 6, 8), axis, n, 54)
     want = dtcwt_fb.dtcwt_ifilt_plain(x, ha, hb, highpass, axis)
     n0 = dtcwt_fb.dtcwt_ifilt.launches
+    inst = dtcwt_fb.ifilt_instantiation(x, axis)
+    assert inst == ("row_run" if axis == 3 else "col_scalar")
+    i0 = dtcwt_fb.dtcwt_ifilt.instantiations[inst]
     torch.testing.assert_close(dtcwt_fb.dtcwt_ifilt(x, ha, hb, highpass,
                                                     axis), want,
                                **STENCIL_TOL)
+    assert dtcwt_fb.dtcwt_ifilt.instantiations[inst] == i0 + 1
     Wo = want.shape[3]
     big = torch.from_numpy(_rand((2, 3, want.shape[2], Wo + 4), 55)).to(dev)
     ref = big.clone()
@@ -618,6 +622,54 @@ def test_dtcwt_ifilt(dev, name, n, axis, highpass):
                          accumulate=True)
     torch.testing.assert_close(big, ref, **STENCIL_TOL)
     assert dtcwt_fb.dtcwt_ifilt.launches == n0 + 2
+
+
+# K10's tiles: a column thread walks 4 values of q (16 output rows, 8
+# input rows), 4 of them a block along the q tiles; a row block takes 32
+# values of q (64 input samples) of 32 rows
+@pytest.mark.parametrize("axis,n,other", [
+    (2, 2, 10), (2, 8, 9), (2, 10, 130), (2, 66, 4),
+    (3, 2, 3), (3, 64, 6), (3, 66, 33), (3, 130, 2)])
+@pytest.mark.parametrize("view", ["aligned", "offset", "transposed"])
+@pytest.mark.parametrize("name,highpass", [("qshift_b", False),
+                                           ("qshift_c", True)])
+def test_dtcwt_ifilt_instantiations(dev, axis, n, other, view, name,
+                                    highpass):
+    """Each of K10's instantiations at its tile edges, against the plain
+    version: axes shorter than a tile and past one (rows past one block
+    of 32), widths that are not multiples of 4 (the float4 columns'
+    tail), both parities of m // 2, aligned, offset and transposed views
+    (the scalar column instantiation), written into and added onto column
+    slices of a wider tensor at an aligned and an odd offset (float4 or
+    scalar stores, the row tile's read-add-store), the row tile walking
+    runs and gathering a transposed view.  Each case asserts the
+    instantiation that ran."""
+    from pytorch_wavelets_tpu_torch.ops import dtcwt_fb
+    ha, hb = _qtaps(name, highpass)
+    x = _filt_view(dev, view, axis, n, other, 59)
+    want_inst = ("col_float4" if view == "aligned" else "col_scalar") \
+        if axis == 2 else ("row_gather" if view == "transposed"
+                           and other > 1 else "row_run")
+    assert dtcwt_fb.ifilt_instantiation(x, axis) == want_inst
+    want = dtcwt_fb.dtcwt_ifilt_plain(x, ha, hb, highpass, axis)
+    i0 = dtcwt_fb.dtcwt_ifilt.instantiations[want_inst]
+    torch.testing.assert_close(dtcwt_fb.dtcwt_ifilt(x, ha, hb, highpass,
+                                                    axis), want,
+                               **STENCIL_TOL)
+    Ho, Wo = want.shape[2:]
+    for o in (4, 3):     # an aligned slice (float4 stores), an odd one
+        big = torch.from_numpy(_rand((2, 3, Ho, -(-(Wo + 8) // 4) * 4),
+                                     60)).to(dev)
+        ref = big.clone()
+        ref[..., o:o + Wo] = want
+        dtcwt_fb.dtcwt_ifilt(x, ha, hb, highpass, axis,
+                             out=big[..., o:o + Wo])
+        torch.testing.assert_close(big, ref, **STENCIL_TOL)
+        ref[..., o:o + Wo] += want
+        dtcwt_fb.dtcwt_ifilt(x, ha, hb, highpass, axis,
+                             out=big[..., o:o + Wo], accumulate=True)
+        torch.testing.assert_close(big, ref, **STENCIL_TOL)
+    assert dtcwt_fb.dtcwt_ifilt.instantiations[want_inst] == i0 + 5
 
 
 PAST_2_31 = ("dwt_afb", "dwt_sfb", "dtcwt_filt", "dtcwt_dfilt",
@@ -1226,6 +1278,9 @@ def test_swt_sfb(dev, mode, L, d, n, axis):
     lo, hi = stack[:, :, 3], stack[:, :, 1]
     n0 = (afb_sfb.sfb1d_atrous_conv.launches,
           afb_sfb.sfb1d_atrous_adjoint.launches)
+    # the bands' rows: 7 floats apart along H; stride 1, G = d, along W
+    inst = "row_run" if axis == 3 else "col_scalar"
+    i0 = _k16_insts()
     got = afb_sfb.sfb1d_atrous_conv(lo, hi, g0, g1, mode, axis, d)
     torch.testing.assert_close(
         got, afb_sfb.sfb1d_atrous_conv_plain(lo, hi, g0, g1, mode, axis, d),
@@ -1238,6 +1293,76 @@ def test_swt_sfb(dev, mode, L, d, n, axis):
         **NONSEP_TOL)
     assert (afb_sfb.sfb1d_atrous_conv.launches,
             afb_sfb.sfb1d_atrous_adjoint.launches) == (n0[0] + 1, n0[1] + 1)
+    band = afb_sfb.merge_band_images(n, L, d, mode) is not None
+    assert _k16_insts() == _k16_bumped(i0, inst, inst, band)
+
+
+def _k16_insts():
+    from pytorch_wavelets_tpu_torch.ops import afb_sfb
+    return (dict(afb_sfb.sfb1d_atrous_conv.instantiations),
+            dict(afb_sfb.sfb1d_atrous_adjoint.instantiations))
+
+
+def _k16_bumped(before, fwd, adj, band, times=1):
+    """K16's instantiation counts after ``times`` forward calls in
+    ``fwd`` and adjoint calls in ``adj`` (each adding its edge band where
+    ``band``)."""
+    f, a = (dict(c) for c in before)
+    f[fwd] += times
+    a[adj] += times
+    a["band"] += times * band
+    return f, a
+
+
+# K16's tiles: a column thread walks 4 outputs of a residue class, 4 of
+# them a block; a row block takes 32 rows and G x S outputs of each
+# (merge_row_tile: 64 for d = 1, 2, 4; fewer on short axes, where G < d
+# when d > n and the tile maps each sample: row_gather)
+@pytest.mark.parametrize("axis,n,other", [
+    (2, 5, 10), (2, 17, 9), (2, 33, 130), (2, 70, 4),
+    (3, 5, 3), (3, 128, 6), (3, 129, 33), (3, 300, 2)])
+@pytest.mark.parametrize("view", ["aligned", "offset", "transposed"])
+@pytest.mark.parametrize("d", [1, 2, 4])
+@pytest.mark.parametrize("L,mode", [(8, "periodization"), (4, "zero"),
+                                    (6, "symmetric")])
+def test_swt_sfb_instantiations(dev, axis, n, other, view, d, L, mode):
+    """Each of K16's instantiations, both entries, at its tile edges,
+    against the plain versions: axes shorter than a tile and past one
+    (rows past one block of 32), widths that are not multiples of 4 (the
+    float4 columns' tail), d = 1, 2, 4, pads longer than a short axis,
+    aligned, offset and transposed views (the scalar column
+    instantiation and the row tile's gather; lo aligned beside an offset
+    hi also takes the former), and the adjoint's edge band outside 'zero'
+    mode.  Each case asserts the instantiations that ran."""
+    from pytorch_wavelets_tpu_torch.ops import afb_sfb
+    g0, g1 = _taps(L, 113 + L)
+    lo = _filt_view(dev, view, axis, n, other, 114)
+    hi = _filt_view(dev, view, axis, n, other, 115)
+    contiguous = afb_sfb.merge_row_tile(n, L, d, 2, 1)[0] == d
+    want_inst = ("col_float4" if view == "aligned" else "col_scalar") \
+        if axis == 2 else ("row_run" if contiguous and view != "transposed"
+                           else "row_gather")
+    assert afb_sfb.merge_instantiation(axis, contiguous, lo, hi) == \
+        want_inst
+    i0 = _k16_insts()
+    torch.testing.assert_close(
+        afb_sfb.sfb1d_atrous_conv(lo, hi, g0, g1, mode, axis, d),
+        afb_sfb.sfb1d_atrous_conv_plain(lo, hi, g0, g1, mode, axis, d),
+        **NONSEP_TOL)
+    torch.testing.assert_close(
+        afb_sfb.sfb1d_atrous_adjoint(hi, g0, g1, mode, axis, d),
+        afb_sfb.sfb1d_atrous_adjoint_plain(hi, g0, g1, mode, axis, d),
+        **NONSEP_TOL)
+    band = afb_sfb.merge_band_images(n, L, d, mode) is not None
+    assert _k16_insts() == _k16_bumped(i0, want_inst, want_inst, band)
+    if view == "aligned" and axis == 2:
+        mixed = _filt_view(dev, "offset", axis, n, other, 116)
+        assert afb_sfb.merge_instantiation(axis, True, lo, mixed) == \
+            "col_scalar"
+        torch.testing.assert_close(
+            afb_sfb.sfb1d_atrous_conv(lo, mixed, g0, g1, mode, axis, d),
+            afb_sfb.sfb1d_atrous_conv_plain(lo, mixed, g0, g1, mode, axis,
+                                            d), **NONSEP_TOL)
 
 
 def _flat(out):

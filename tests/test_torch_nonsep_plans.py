@@ -4,15 +4,18 @@ K16 (``csrc/swt_atrous.cu``: ``swt_sfb`` and its adjoint), emulated in
 numpy exactly as the CUDA sources compute each output (the axis maps'
 ``src`` / ``images`` / ``interior``, the windows, the edge scans; K14's
 staged tiles and parity planes, its polyphase adjoint and the edge band
-read from the host's image tables), against their plain versions (the
-JAX code, and autograd's transposes of it) on the CPU in float64: every
-mode, odd sizes, filters longer than the axis, rectangular PSF stacks."""
+read from the host's image tables; K16's column and row tiles over
+d-strided subsequences and its adjoint's band from the host's table),
+against their plain versions (the JAX code, and autograd's transposes of
+it) on the CPU in float64: every mode, odd sizes, filters longer than the
+axis, rectangular PSF stacks."""
 import numpy as np
 import pytest
 import torch
 
 from pytorch_wavelets_tpu_torch.ops import afb_sfb, nonsep
 from pytorch_wavelets_tpu_torch.ops.pad import pad_index
+from tests.test_torch_stencil_plans import stage_row
 
 torch.set_num_threads(1)
 
@@ -406,6 +409,37 @@ def _src(q, n, mode):
     return int(pad_index(n, front, max(0, q - n + 1), mode)[q + front])
 
 
+def merge_src(q, n, mode):
+    """csrc/swt_atrous.cu:merge_src, line by line: one reflection or wrap
+    within an axis length of the signal, pad_src past it."""
+    if 0 <= q < n:
+        return q
+    if -n <= q < 2 * n:
+        if mode in ("zero", "constant"):
+            return -1
+        if mode == "symmetric":
+            return -1 - q if q < 0 else 2 * n - 1 - q
+        if mode in ("periodic", "periodization"):
+            return q + n if q < 0 else q - n
+        if mode == "replicate":
+            return 0 if q < 0 else n - 1
+        r = 0 if n == 1 else (-q if q < 0 else 2 * n - 2 - q)
+        if 0 <= r < n:
+            return r
+    return _src(q, n, mode)
+
+
+@pytest.mark.parametrize("mode", ["zero", "symmetric", "reflect", "periodic",
+                                  "periodization", "replicate"])
+def test_merge_src(mode):
+    """K16's boundary map equals pad_index (numpy.pad's closed form) at
+    every position, its division-free branch included, n = 1..12."""
+    for n in range(1, 13):
+        q = np.arange(-3 * n - 2, 4 * n + 2)
+        want = pad_index(n, -q[0], q[-1] - n + 1, mode)
+        assert [merge_src(int(v), n, mode) for v in q] == list(want)
+
+
 def emulate_swt_sfb(lo, hi, k0, k1, mode, d):
     """swt_sfb along one axis: y[m] = sum_k k0[k] LO(m + k d - front) +
     k1[k] HI(...), taps halved by the wrapper."""
@@ -421,19 +455,15 @@ def emulate_swt_sfb(lo, hi, k0, k1, mode, d):
 
 
 def emulate_swt_sfb_adjoint(g, k0, k1, mode, d):
-    """swt_sfb_adjoint: padded_images (the direct position, the edge
-    scan) and window2, as the CUDA source."""
+    """swt_sfb_adjoint in closed form: each sample's images, its direct
+    position and the pad positions whose source it is (the first
+    design's edge scan), and their windows."""
     n, L = len(g), len(k0)
-    front, _, _, m = afb_sfb.atrous_merge_plan(n, L, d, mode)
-    qmax = m - 1 - front + (L - 1) * d
-    right = max(qmax - n + 1, 0)
-    edge = max(front, right) + 1
+    front, back, _, m = afb_sfb.atrous_merge_plan(n, L, d, mode)
     out = np.zeros((2, n))
     for t in range(n):
-        qs = [t]
-        if mode not in ("zero", "constant") and not edge <= t < n - edge:
-            qs += [q for q in range(-front, 0) if _src(q, n, mode) == t]
-            qs += [q for q in range(n, qmax + 1) if _src(q, n, mode) == t]
+        qs = [t] + [q for q in range(-front, 0) if _src(q, n, mode) == t]
+        qs += [q for q in range(n, n + back) if _src(q, n, mode) == t]
         for q in qs:
             for k in range(L):
                 u = q + front - k * d
@@ -443,13 +473,169 @@ def emulate_swt_sfb_adjoint(g, k0, k1, mode, d):
     return out
 
 
+# csrc/swt_atrous.cu's tiles: a column thread walks MRC outputs of a
+# residue class, a row-tile thread MR
+MR, MRC = 8, 4
+
+
+def _merge_window(z, T, R):
+    """The window loop of K16's kernels for one input: R outputs, the 2R
+    samples of a block of R taps, the next R read before the block's FMAs
+    (samples never read are NaN).  T: (NO, L) taps."""
+    L = T.shape[1]
+    w = np.full(2 * R, np.nan)
+    w[:R] = [z(o) for o in range(R)]
+    acc = np.zeros((T.shape[0], R))
+    for kb in range(0, L, R):
+        for q in range(R, 2 * R):
+            if kb + q <= L + R - 2:
+                w[q] = z(kb + q)
+        for kk in range(R):
+            if kb + kk < L:
+                acc += T[:, kb + kk:kb + kk + 1] * w[kk:kk + R]
+        w[:R], w[R:] = w[R:], np.nan
+    return acc
+
+
+def _merge_x(x, n, mode):
+    """X(q): merge_src read, 0 where -1."""
+    def X(q):
+        r = merge_src(q, n, mode)
+        return x[r] if r >= 0 else 0.0
+    return X
+
+
+def merge_col(xs, T, F, mode, d):
+    """merge_col_kernel along one column: tiles (residue r, chunk) of MRC
+    outputs r + d (chunk MRC + o), each input's window over X(m0 - F +
+    d e), the pad map per loaded row.  T: (NI, NO, L)."""
+    n = len(xs[0])
+    RW = MRC
+    nres, nch = min(d, n), -(-(-(-n // d)) // RW)
+    out = np.full((T.shape[1], n), np.nan)
+    for ti in range(nres * nch):
+        m0 = ti % nres + d * RW * (ti // nres)
+        acc = sum(_merge_window(lambda e, X=_merge_x(x, n, mode):
+                                X(m0 - F + d * e), T[i], RW)
+                  for i, x in enumerate(xs))
+        for o in range(RW):
+            if m0 + d * o < n:
+                assert np.isnan(out[:, m0 + d * o]).all()
+                out[:, m0 + d * o] = acc[:, o]
+    return out
+
+
+def merge_row(xs, T, F, mode, d):
+    """merge_row_kernel along one row: tiles of G residues x S positions
+    (merge_row_tile), the samples X(q0 + g + d k) staged as e = k G + g
+    (where the tile is one run, G = d, inside the axis row_run's walk
+    along the segment at q0, which must agree), each thread's MR outputs of
+    residue g from its window over staged samples G apart, the outputs
+    through a shared row (one run from d P0 where G = d); the 32 lanes
+    (rows) of a warp read and write their rows on distinct banks (odd
+    pitches) and stage and store along a row on consecutive words."""
+    n = len(xs[0])
+    NI, NO, L = T.shape
+    G, S = afb_sfb.merge_row_tile(n, L, d, NI, NO)
+    gs = G.bit_length() - 1
+    assert G == 1 << gs and S % MR == 0
+    seg = G * (S + L - 1)
+    pin, pout = seg | 1, (G * S) | 1
+    assert afb_sfb.merge_row_smem(G, S, L, NI, NO) == 4 * (
+        NI * NO * L + NI * 32 * pin + NO * 32 * pout)
+    for pitch in (pin, pout):
+        assert len({lane * pitch % 32 for lane in range(32)}) == 32
+    nres = min(d, n)
+    ngroups = -(-nres // G)
+    out = np.full((NO, n), np.nan)
+    for tile in range(ngroups * -(-(-(-n // d)) // S)):
+        rho0, P0 = (tile % ngroups) * G, tile // ngroups * S
+        q0 = rho0 - F + d * P0
+
+        def src(e, n=n):
+            return merge_src(q0 + e if G == d else
+                             q0 + (e & (G - 1)) + d * (e >> gs), n, mode)
+        staged = [stage_row(x, src, q0 if G == d else None, seg)
+                  for x in xs]
+        out_s = np.full((NO, G * S), np.nan)
+        for item in range(G * (S // MR)):
+            g, ch = item & (G - 1), item >> gs
+            acc = sum(_merge_window(
+                lambda e, st=st: st[(ch * MR + e) * G + g], T[i], MR)
+                for i, st in enumerate(staged))
+            for o in range(MR):
+                out_s[:, (ch * MR + o) * G + g] = acc[:, o]
+        for e in range(G * S):
+            g = e & (G - 1)
+            m = rho0 + g + d * (P0 + (e >> gs))
+            if G == d:
+                assert m == d * P0 + e
+            if rho0 + g >= nres or m >= n:
+                continue
+            assert np.isnan(out[:, m]).all()
+            out[:, m] = out_s[:, e]
+    return out
+
+
+def merge_band(out, g, k0, k1, mode, d):
+    """merge_band_kernel: add, for each row of merge_band_images (t, then
+    padded positions u0 = q + front), sum_k g_o[k] dy[u0 - k d]."""
+    n, L = len(g), len(k0)
+    tab = afb_sfb.merge_band_images(n, L, d, mode)
+    if tab is None:
+        return out
+    for row in tab:
+        us = row[1:][row[1:] >= 0]     # ascending, then -1 to the end
+        assert len(us) and (np.diff(us) > 0).all()
+        assert (row[1 + len(us):] < 0).all()
+        lo = hi = 0.0
+        for u0 in us:
+            for k in range(L):
+                u = u0 - k * d
+                if u < 0:
+                    break
+                if u < n:
+                    lo += k0[k] * g[u]
+                    hi += k1[k] * g[u]
+        out[0, row[0]] += lo
+        out[1, row[0]] += hi
+    return out
+
+
+def k16_forward(plan, lo, hi, k0, k1, mode, d):
+    """swt_sfb by the column or row tile: (NI, NO) = (2, 1), the halved
+    taps, F = front, the mode's pads."""
+    front = afb_sfb.atrous_merge_plan(len(lo), len(k0), d, mode)[0]
+    T = 0.5 * np.stack([k0, k1])[:, None]
+    return plan([lo, hi], T, front, mode, d)[0]
+
+
+def k16_adjoint(plan, g, k0, k1, mode, d):
+    """swt_sfb_adjoint: the tile on the reversed halved taps, (1, 2), F =
+    back, zeros outside the axis (each sample's direct image), then the
+    band."""
+    n, L = len(g), len(k0)
+    _, back, _, _ = afb_sfb.atrous_merge_plan(n, L, d, mode)
+    T = 0.5 * np.stack([k0[::-1], k1[::-1]])[None]
+    out = plan([g], T, back, "zero", d)
+    return merge_band(out, g, 0.5 * k0, 0.5 * k1, mode, d)
+
+
+K16_PLANS = {"columns": merge_col, "rows": merge_row}
+
+
 @pytest.mark.parametrize("mode", ["zero", "symmetric", "reflect", "periodic",
                                   "periodization", "replicate"])
 @pytest.mark.parametrize("L,d,n", [(2, 1, 7), (8, 1, 9), (8, 2, 6),
-                                   (6, 4, 5), (4, 4, 16)])
+                                   (6, 4, 5), (4, 4, 16), (8, 1, 300),
+                                   (8, 4, 261), (4, 32, 70), (3, 3, 40)])
 def test_k16_index_plans(mode, L, d, n):
-    """K16: the merge and its adjoint gather, pads up to several axis
-    lengths (L d = 24 on 5 samples)."""
+    """K16: the merge and its adjoint in closed form (the adjoint's edge
+    scan), and as the column and row tiles compute them over the
+    d-strided subsequences, the adjoint's pad images added from the
+    host's table: pads up to several axis lengths (L d = 24 on 5
+    samples), several row tiles and column chunks, residue groups (d =
+    32 > 16), an odd L and a d that is not a power of two."""
     r = np.random.RandomState(7)
     g0, g1 = r.randn(L), r.randn(L)
     k0, k1 = g0[::-1], g1[::-1]
@@ -461,7 +647,16 @@ def test_k16_index_plans(mode, L, d, n):
                                            d).reshape(-1).numpy()
     np.testing.assert_allclose(emulate_swt_sfb(lo, hi, k0, k1, mode, d),
                                want, **TOL)
+    for name, plan in K16_PLANS.items():
+        np.testing.assert_allclose(
+            k16_forward(plan, lo, hi, k0, k1, mode, d), want, **TOL,
+            err_msg=name)
     g = r.randn(n)
-    want = afb_sfb.sfb1d_atrous_adjoint_plain(t(g), g0, g1, mode, 3, d)
+    want = afb_sfb.sfb1d_atrous_adjoint_plain(t(g), g0, g1, mode, 3,
+                                              d).reshape(2, n).numpy()
     np.testing.assert_allclose(emulate_swt_sfb_adjoint(g, k0, k1, mode, d),
-                               want.reshape(2, n).numpy(), **TOL)
+                               want, **TOL)
+    for name, plan in K16_PLANS.items():
+        np.testing.assert_allclose(
+            k16_adjoint(plan, g, k0, k1, mode, d), want, **TOL,
+            err_msg=name)

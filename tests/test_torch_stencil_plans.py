@@ -5,8 +5,9 @@ emulated in numpy exactly as the CUDA sources (``csrc/dtcwt_filt.cu``,
 (the JAX conv path, ``ops/dtcwt_fb.py`` and ``ops/pool.py``) on the CPU:
 the kernels' arithmetic is tested here without a card, at every axis
 length 1..24 (K8; its column and row tiles also past one and two tiles),
-4..24 (K9, multiples of 4), 2..24 (K10, even) and every q-shift length,
-both parities of m // 2 included."""
+4..24 (K9, multiples of 4), 2..24 (K10, even; its column and row tiles
+also past one and two tiles) and every q-shift length, both parities of
+m // 2 included."""
 import numpy as np
 import pytest
 import torch
@@ -230,15 +231,123 @@ def test_dfilt_index_map(name, highpass):
             rtol=1e-12, atol=1e-12, err_msg=f"n={n}")
 
 
+# csrc/dtcwt_ifilt.cu's tiles: a column thread walks RC values of q; a row
+# block takes TS values of q of 32 rows, a thread RQ of them
+RC, RQ, TS = 4, 8, 32
+
+
+def _ifilt_window(z, taps, Lz, R):
+    """The window loop of K10's kernels for one pass: R values of q, the
+    2R samples of a block of R taps, the next R read before the block's
+    FMAs (samples never read are NaN: a use of one shows).  ``z(e)``
+    gives window element e; ``taps`` the pass's two tap rows."""
+    w = np.full(2 * R, np.nan)
+    w[:R] = [z(o) for o in range(R)]
+    acc = np.zeros((2, R))
+    for kb in range(0, Lz, R):
+        for q in range(R, 2 * R):
+            if kb + q <= Lz + R - 2:
+                w[q] = z(kb + q)
+        for kk in range(R):
+            if kb + kk < Lz:
+                acc += taps[:, kb + kk:kb + kk + 1] * w[kk:kk + R]
+        w[:R], w[R:] = w[R:], np.nan
+    return acc
+
+
+def emulate_ifilt_col(x, ha, hb, highpass):
+    """K10's column kernel along one column: tiles of RC values of q, two
+    passes (phases pi and pi + 2) over rows p + 2 (q + a + j), the
+    symmetric map applied per loaded row."""
+    n = len(x)
+    passes, T = dtcwt_fb.ifilt_tap_rows(ha, hb, highpass)
+    nq = (2 * n + 3) // 4
+
+    def row(s):
+        r = filt_src(s, n, "symmetric")
+        return x[r] if r >= 0 else 0.0
+    out = np.full(2 * n, np.nan)
+    for q0 in range(0, nq, RC):
+        for pi, (p, a, Lz, _) in enumerate(passes):
+            s0 = p + 2 * (q0 + a)
+            acc = _ifilt_window(lambda e: row(s0 + 2 * e),
+                                T[[pi, pi + 2]], Lz, RC)
+            for o in range(RC):
+                for h in (0, 1):
+                    r = 4 * (q0 + o) + pi + 2 * h
+                    if r < 2 * n:
+                        out[r] = acc[h, o]
+    return out
+
+
+def stage_row(x, src, first, count):
+    """The row tiles' staging of one row: ``count`` samples, sample e from
+    its source ``src(e)`` (0 where -1; row_gather); a segment inside the
+    axis is row_run's walk first + e, which the map must agree with."""
+    if first is not None and first >= 0 and first + count <= len(x):
+        assert all(src(e) == first + e for e in range(count))
+    return np.array([x[r] if r >= 0 else 0.0
+                     for r in map(src, range(count))])
+
+
+def emulate_ifilt_row(x, ha, hb, highpass):
+    """K10's row kernel along one row: tiles of TS values of q, the
+    segment staged with the symmetric map per sample (row_gather; inside
+    the axis row_run's walk, which must agree), each thread's RQ values of
+    q from its own
+    row's samples 2 apart, the outputs through a shared row of 4 TS; the
+    32 lanes (rows) of a warp read and write their rows on distinct banks
+    (odd pitches)."""
+    n = len(x)
+    passes, T = dtcwt_fb.ifilt_tap_rows(ha, hb, highpass)
+    cmin = min(p + 2 * a for p, a, _, _ in passes)
+    seg = max(p + 2 * (a + Lz - 1) for p, a, Lz, _ in passes) - cmin + \
+        2 * (TS - 1) + 1
+    for pitch in (seg | 1, 4 * TS + 1):
+        assert len({lane * pitch % 32 for lane in range(32)}) == 32
+    nq = (2 * n + 3) // 4
+    out = np.full(2 * n, np.nan)
+    for Q0 in range(0, nq, TS):
+        first = 2 * Q0 + cmin
+        staged = stage_row(
+            x, lambda e, first=first: filt_src(first + e, n, "symmetric"),
+            first, seg)
+        out_s = np.full(4 * TS, np.nan)
+        for item in range(TS // RQ):
+            for pi, (p, a, Lz, _) in enumerate(passes):
+                base = p + 2 * a - cmin + 2 * item * RQ
+                acc = _ifilt_window(lambda e: staged[base + 2 * e],
+                                    T[[pi, pi + 2]], Lz, RQ)
+                for o in range(RQ):
+                    out_s[4 * (item * RQ + o) + pi] = acc[0, o]
+                    out_s[4 * (item * RQ + o) + pi + 2] = acc[1, o]
+        for e in range(4 * TS):
+            if 4 * Q0 + e >= 2 * n:
+                break
+            out[4 * Q0 + e] = out_s[e]
+    return out
+
+
+IFILT_PLANS = {"taps": emulate_ifilt, "columns": emulate_ifilt_col,
+               "rows": emulate_ifilt_row}
+
+
+@pytest.mark.parametrize("plan", list(IFILT_PLANS))
 @pytest.mark.parametrize("name", QSHIFTS)
 @pytest.mark.parametrize("highpass", [False, True])
-def test_ifilt_index_map(name, highpass):
+def test_ifilt_index_map(name, highpass, plan):
+    """K10 on every even axis length 2..24, and its tiles' edges (one and
+    two column tiles of RC values of q, one row tile and one past it), as
+    the taps define it and as the column and row kernels compute it."""
     h0a, h0b, h1a, h1b = _qtaps(name)
     ha, hb = (h1b, h1a) if highpass else (h0b, h0a)
-    for n in range(2, 25, 2):
+    lengths = list(range(2, 25, 2))
+    if plan != "taps":
+        lengths += [2 * TS, 2 * TS + 2, 4 * TS + 2]
+    for n in lengths:
         x = _x(n, n)
         np.testing.assert_allclose(
-            emulate_ifilt(x, ha, hb, highpass),
+            IFILT_PLANS[plan](x, ha, hb, highpass),
             _plain_1d(dtcwt_fb.dtcwt_ifilt_plain, x, ha, hb, highpass, 3),
             rtol=1e-12, atol=1e-12, err_msg=f"n={n}")
 

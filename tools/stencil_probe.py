@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time K8 (dtcwt_filt) and K14 (nonsep_afb and its adjoint) on one CUDA
-card at the shapes of chip_smoke.py's per-level and non-separable paths,
-each call checked against its plain version.
+"""Time K8 (dtcwt_filt), K10 (dtcwt_ifilt), K14 (nonsep_afb and its
+adjoint) and K16 (swt_sfb and its adjoint) on one CUDA card at the shapes
+of chip_smoke.py's per-level, non-separable and à trous paths, each call
+checked against its plain version.
 
-    python3 tools/stencil_probe.py [--root DIR] [--only k8|k14]
+    python3 tools/stencil_probe.py [--root DIR] [--only k8|k10|k14|k16]
 
 ``--root`` imports ``pytorch_wavelets_tpu_torch`` from another checkout
 (say an unpacked parent commit), so that two versions can be timed in one
@@ -23,6 +24,9 @@ import torch
 
 
 def timed_ms(fn, reps=10, batches=3):
+    """Median over batches of the mean device time of ``reps`` calls: the
+    card spins (~50 ms) while the host enqueues a batch, so a short
+    kernel is timed, not the host's launch rate (chip_smoke.timed_ms)."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -30,6 +34,7 @@ def timed_ms(fn, reps=10, batches=3):
     for _ in range(batches):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(100_000_000)
         a.record()
         for _ in range(reps):
             fn()
@@ -123,10 +128,105 @@ def run_k14(nonsep, filters):
         del x, got
 
 
+def _line(kernel, label, got, want, ms, nbytes, inst=None):
+    line = {"kernel": kernel, "case": label, "ms": ms,
+            "bound_ms": nbytes / 3.35e12 * 1e3,
+            "max_abs_err": float((got - want).abs().max()),
+            "ok": bool(torch.allclose(got, want, rtol=1e-5, atol=1e-5))}
+    if inst:
+        line["instantiations"] = inst
+    print(json.dumps(line), flush=True)
+
+
+def _insts(wrapper, run):
+    before = dict(getattr(wrapper, "instantiations", {}))
+    run()
+    return {k: v - before.get(k, 0) for k, v in
+            getattr(wrapper, "instantiations", {}).items()
+            if v != before.get(k, 0)}
+
+
+def run_k10(fb, filters):
+    """dtcwt_large's level-2 and level-3 interpolations (colifilt into and
+    onto a fresh output, rowifilt) and a scat_bp-sized pair."""
+    q = filters.qshift("qshift_a")
+    ha, hb = fb.prep_taps(q[1]), fb.prep_taps(q[0])
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for label, shape, axis in (
+            ("large L2 col", (1, 3, 4608, 4608), 2),
+            ("large L2 row", (1, 3, 9216, 4608), 3),
+            ("large L3 col", (1, 3, 2304, 2304), 2),
+            ("large L3 row", (1, 3, 4608, 2304), 3),
+            ("bp col", (128, 3, 64, 128), 2),
+            ("bp row", (128, 3, 128, 64), 3)):
+        x = torch.randn(shape, generator=gen, device="cuda")
+        for acc in (False, True):
+            out = None
+            if acc:
+                s = list(shape)
+                s[axis] *= 2
+                out = torch.randn(s, generator=gen, device="cuda")
+            buf = None if out is None else out.clone()
+            inst = _insts(fb.dtcwt_ifilt, lambda: fb.dtcwt_ifilt(
+                x, ha, hb, False, axis, buf, acc))
+            got = fb.dtcwt_ifilt(x, ha, hb, False, axis,
+                                 None if out is None else out.clone(), acc)
+            crop = slice(0, 1)
+            want = fb.dtcwt_ifilt_plain(
+                x[crop], ha, hb, False, axis,
+                None if out is None else out[crop].clone(), acc)
+            ms = timed_ms(lambda: fb.dtcwt_ifilt(x, ha, hb, False, axis,
+                                                 buf, acc))
+            nbytes = 4.0 * (x.numel() + got.numel() * (2 if acc else 1))
+            _line("dtcwt_ifilt", label + (" acc" if acc else ""), got[crop],
+                  want, ms, nbytes, inst)
+            del got, want, out, buf
+        del x
+
+
+def run_k16(afb, filters):
+    """swt_sfb's merges on swt_main's shape (32x3x256^2, db4, the column
+    merges reading two bands of a stack in place, the row merge), d = 1,
+    2, 4, and the adjoint of each axis at d = 2."""
+    w = filters.wavelet("db4")
+    g0, g1 = np.asarray(w.rec_lo), np.asarray(w.rec_hi)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    stack = torch.randn((32, 3, 4, 256, 256), generator=gen, device="cuda")
+    mode, crop = "periodization", slice(0, 2)
+    for d in (1, 2, 4):
+        for axis in (2, 3):
+            lo, hi = ((stack[:, :, 0], stack[:, :, 1]) if axis == 2 else
+                      (stack[:, :, 0].contiguous(),
+                       stack[:, :, 1].contiguous()))
+            inst = _insts(afb.sfb1d_atrous_conv, lambda: afb.sfb1d_atrous_conv(
+                lo, hi, g0, g1, mode, axis, d))
+            got = afb.sfb1d_atrous_conv(lo, hi, g0, g1, mode, axis, d)
+            want = afb.sfb1d_atrous_conv_plain(lo[crop], hi[crop], g0, g1,
+                                               mode, axis, d)
+            ms = timed_ms(lambda: afb.sfb1d_atrous_conv(lo, hi, g0, g1,
+                                                        mode, axis, d))
+            _line("swt_sfb", f"d={d} axis {axis}", got[crop], want, ms,
+                  12.0 * got.numel(), inst)
+            if d == 2:
+                dy = lo.contiguous()
+                inst = _insts(afb.sfb1d_atrous_adjoint,
+                              lambda: afb.sfb1d_atrous_adjoint(
+                                  dy, g0, g1, mode, axis, d))
+                got = afb.sfb1d_atrous_adjoint(dy, g0, g1, mode, axis, d)
+                want = afb.sfb1d_atrous_adjoint_plain(dy[crop], g0, g1,
+                                                      mode, axis, d)
+                ms = timed_ms(lambda: afb.sfb1d_atrous_adjoint(
+                    dy, g0, g1, mode, axis, d))
+                _line("swt_sfb_adjoint", f"d={d} axis {axis}", got[crop],
+                      want, ms, 12.0 * dy.numel(), inst)
+            del got, want
+
+
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--root", default=None)
-    p.add_argument("--only", choices=("k8", "k14"), default=None)
+    p.add_argument("--only", choices=("k8", "k10", "k14", "k16"),
+                   default=None)
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("stencil_probe: no CUDA device", file=sys.stderr)
@@ -135,15 +235,18 @@ def main():
         sys.path.insert(0, args.root)
     torch.backends.cudnn.allow_tf32 = False
     from pytorch_wavelets_tpu_torch import filters
-    from pytorch_wavelets_tpu_torch.ops import _cuda, dtcwt_fb, nonsep
+    from pytorch_wavelets_tpu_torch.ops import _cuda, afb_sfb, dtcwt_fb, nonsep
     _cuda.build()
     print(json.dumps({"root": args.root or ".",
                       "package": nonsep.__file__}), flush=True)
+    runs = {"k8": lambda: run_k8(dtcwt_fb, filters),
+            "k10": lambda: run_k10(dtcwt_fb, filters),
+            "k14": lambda: run_k14(nonsep, filters),
+            "k16": lambda: run_k16(afb_sfb, filters)}
     with torch.no_grad():
-        if args.only != "k14":
-            run_k8(dtcwt_fb, filters)
-        if args.only != "k8":
-            run_k14(nonsep, filters)
+        for name, run in runs.items():
+            if args.only in (None, name):
+                run()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
