@@ -1052,15 +1052,26 @@ def replay(call, banded, quad, mag, afb, pad, fb=None, pool=None,
 
 def _inst_counter(name, fb):
     """The wrapper whose ``instantiations`` a call of kernel ``name``
-    bumps (K8's, K10's, K14's two, K16's two), else None."""
+    bumps (K7's, K8's, K10's, K14's two, K15's two, K16's two), else
+    None."""
     from pytorch_wavelets_tpu_torch.ops import afb_sfb, nonsep
     if name in ("dtcwt_filt", "dtcwt_ifilt") and fb is not None:
         return getattr(fb, name)
-    if name in ("nonsep_afb", "nonsep_afb_adjoint"):
+    if name in ("nonsep_afb", "nonsep_afb_adjoint", "nonsep_sfb",
+                "nonsep_sfb_adjoint"):
         return getattr(nonsep, name)
-    if name in ("sfb1d_atrous_conv", "sfb1d_atrous_adjoint"):
+    if name in ("sfb1d_conv", "sfb1d_atrous_conv", "sfb1d_atrous_adjoint"):
         return getattr(afb_sfb, name)
     return None
+
+
+def k7_tiles_only(insts, phase):
+    """Every K7 launch of a main path ran a pair tile, never the
+    per-output long_fold."""
+    k7 = insts.get("sfb1d_conv", {})
+    require(not k7.get("long_fold"), f"{phase}: K7 ran its per-output "
+            f"long_fold on a main path: {k7}")
+    return insts
 
 
 def _tolerance(kernel):
@@ -1497,6 +1508,7 @@ def dwt_path(tt, ops, afb, dwt, shape, J, one_d, phase):
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         first_s = time.perf_counter() - t0
+        insts = k7_tiles_only(inst_counts(ops), phase)
         inv_counts = {k: counts[k] - fwd_counts[k] for k in counts}
         require(fwd_counts["afb1d_corr"] > 0 and inv_counts["sfb1d_conv"] > 0,
                 f"{phase}: a kernel of the path never launched: forward "
@@ -1530,7 +1542,7 @@ def dwt_path(tt, ops, afb, dwt, shape, J, one_d, phase):
     fields = dict(
         shape=list(shape), J=J, wave=DWT_WAVE, mode=DWT_MODE,
         launches={"forward": fwd_counts, "inverse": inv_counts},
-        checked_images=n,
+        instantiations=insts, checked_images=n,
         max_abs_err_vs_cpu={"forward": fwd_err, "inverse": inv_err},
         tolerance={"forward": FWD_ATOL, "inverse": INV_ATOL},
         reconstruction_err=pr_err, reconstruction_tol=PR_TOL,
@@ -1556,6 +1568,7 @@ def dwt_path(tt, ops, afb, dwt, shape, J, one_d, phase):
     grad = torch.autograd.grad(outs, x, cts)[0]
     torch.cuda.synchronize()
     counts = ops.launch_counts()
+    tinsts = k7_tiles_only(inst_counts(ops), f"{phase} training")
     tb_counts = {k: counts[k] - tf_counts[k] for k in counts}
     require(all(tf_counts[k] > 0 and tb_counts[k] > 0 for k in DWT_KERNELS),
             f"{phase} training: a kernel of the path never launched: "
@@ -1589,7 +1602,7 @@ def dwt_path(tt, ops, afb, dwt, shape, J, one_d, phase):
     tfields = dict(
         shape=list(shape), J=J, wave=DWT_WAVE, mode=DWT_MODE,
         launches={"forward": tf_counts, "backward": tb_counts},
-        launches_by_role=by_role, checked_images=n,
+        launches_by_role=by_role, instantiations=tinsts, checked_images=n,
         max_abs_err_grad_vs_cpu=grad_err, tolerance=GRAD_ATOL,
         adjoint_rel_err_zero_mode={"forward": adj_f, "inverse": adj_i},
         adjoint_tol=ADJOINT_TOL,
@@ -1600,14 +1613,21 @@ def dwt_path(tt, ops, afb, dwt, shape, J, one_d, phase):
     return fields, tfields, by_role, r.calls, step
 
 
+K7_INSTS = ("col_scalar", "col_float4", "row_run", "row_gather",
+            "long_fold")
+
+
 def dwt_edge_cases(afb, pad):
     """K6/K7 against their plain versions where the main paths do not
     reach: every mode along both axes, odd sizes, db38 (76 taps) at
-    periodization's single-fold sizes, strided views as inputs, cropped
-    outputs.  Returns (calls checked, max error)."""
+    periodization's single-fold sizes, L = 3 and 10 (K7's run-time and
+    5-tap windows), strided views as inputs (bands of a stack; for K7
+    also aligned rows and transposed views: each of its
+    instantiations), cropped outputs.  Returns (calls checked, max
+    error, K7's launches by instantiation)."""
     gen = torch.Generator().manual_seed(70)
     calls = []
-    for L, n in ((8, 33), (8, 6), (76, 20), (76, 7)):
+    for L, n in ((8, 33), (8, 6), (76, 20), (76, 7), (10, 29), (3, 12)):
         taps = torch.randn((4, L), generator=gen, dtype=torch.float64)
         h0, h1, g0, g1 = (t.numpy() / np.sqrt(L) for t in taps)
         for mode in ("zero", "symmetric", "reflect", "periodic",
@@ -1631,7 +1651,16 @@ def dwt_edge_cases(afb, pad):
                               (lo, hi, g0, g1, mode, axis, None)))
                 calls.append(("sfb1d_conv", "edge",
                               (lo, hi, g0, g1, mode, axis, n)))
+                # aligned rows (float4 columns) or transposed rows (the
+                # row tile's gather)
+                pair = [torch.randn((*shape[:3], 12), generator=gen).cuda()
+                        for _ in range(2)] if axis == 2 else [
+                    torch.randn(shape[:2] + shape[2:][::-1], generator=gen)
+                    .cuda().transpose(2, 3) for _ in range(2)]
+                calls.append(("sfb1d_conv", "edge",
+                              (*pair, g0, g1, mode, axis, None)))
     err = 0.0
+    before = dict(afb.sfb1d_conv.instantiations)
     for call in calls:
         got, want = dwt_call_parts(call, afb, pad)[:2]
         require(torch.allclose(got, want, **DWT_TOL),
@@ -1640,7 +1669,11 @@ def dwt_edge_cases(afb, pad):
                 f"{max_err(got, want)}")
         err = max(err, max_err(got, want))
     torch.cuda.synchronize()
-    return len(calls), err
+    insts = {k: v - before.get(k, 0)
+             for k, v in afb.sfb1d_conv.instantiations.items()}
+    require(all(insts.get(k) for k in K7_INSTS),
+            f"dwt_edge_cases: a K7 instantiation was not checked: {insts}")
+    return len(calls), err, insts
 
 
 def level_adjoints(lev, x, ff, fi):
@@ -2830,6 +2863,7 @@ def alt_main(ops, afb, dwt, alt):
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         first_s = time.perf_counter() - t0
+        insts = k7_tiles_only(inst_counts(ops), "alt_main")
         inv_counts = {k: counts[k] - fwd_counts[k] for k in counts}
         require(fwd_counts["afb1d_corr"] > 0 and inv_counts["sfb1d_conv"] > 0,
                 f"alt_main: a kernel of the path never launched: forward "
@@ -2866,7 +2900,7 @@ def alt_main(ops, afb, dwt, alt):
     fields = dict(
         shape=list(ALT_SHAPE), J=ALT_J, **ALT_KW,
         launches={"forward": fwd_counts, "inverse": inv_counts},
-        checked_images=n,
+        instantiations=insts, checked_images=n,
         max_abs_err_vs_cpu={"forward": fwd_err, "inverse": inv_err},
         tolerance=ALT_TOL, reconstruction_err=pr_err,
         reconstruction_tol=PR_TOL, first_call_s=first_s,
@@ -2887,10 +2921,12 @@ def alt_main(ops, afb, dwt, alt):
     coeffs = f(x)
     outs = [i(coeffs), *_flat(coeffs)]
     tf_counts = ops.launch_counts()
+    tf_insts = k7_tiles_only(inst_counts(ops), "alt_train")
     ops.reset_launches()
     grad = torch.autograd.grad(outs, x, cts)[0]
     torch.cuda.synchronize()
     tb_counts = ops.launch_counts()
+    tb_insts = k7_tiles_only(inst_counts(ops), "alt_train")
     require(all(tf_counts[k] > 0 and tb_counts[k] > 0 for k in DWT_KERNELS),
             f"alt_train: a kernel of the path never launched: forward "
             f"{tf_counts}, backward {tb_counts}")
@@ -2920,6 +2956,7 @@ def alt_main(ops, afb, dwt, alt):
     tfields = dict(
         shape=list(ALT_SHAPE), J=ALT_J, **ALT_KW,
         launches={"forward": tf_counts, "backward": tb_counts},
+        instantiations={"forward": tf_insts, "backward": tb_insts},
         checked_images=n, max_abs_err_grad_vs_cpu=grad_err,
         tolerance=GRAD_ATOL, fwd_bwd_ms=step_ms,
         fwd_bwd_device_ms=step_dev_ms,
@@ -3253,6 +3290,19 @@ def nonsep_edge_cases(banded):
         g = rnd(2, 3, 2 * Nx, 2 * Ny).transpose(2, 3)
         calls.append(("nonsep_sfb_adjoint", "edge", (g, f, "periodization",
                                                      Ny, Nx, True)))
+    # and with the one-axis PSFs of sfb1d's backward (a one-tap axis read
+    # twice as long), along each axis
+    for axis, L, Ny, Nx in ((3, 8, 5, 7), (2, 10, 6, 3), (3, 76, 4, 20)):
+        taps = torch.randn((2, L), generator=gen,
+                           dtype=torch.float64).numpy() / np.sqrt(L)
+        f = afb_sfb._one_axis_psfs(taps, axis, 4)
+        for mode in ("zero", "symmetric", "periodization"):
+            out = [afb_sfb.sfb_plan(n, L_, mode)[0]
+                   for n, L_ in zip((Ny, Nx), f.shape[1:])]
+            if min(out) < 1:
+                continue
+            calls.append(("nonsep_sfb_adjoint", "edge", (
+                rnd(2, 3, *out), f, mode, Ny, Nx, True)))
     for L, d, n in ((2, 1, 9), (8, 2, 6), (10, 4, 7), (40, 4, 5)):
         g0, g1 = (torch.randn(L, generator=gen, dtype=torch.float64).numpy()
                   / np.sqrt(L) for _ in range(2))
@@ -3268,6 +3318,8 @@ def nonsep_edge_cases(banded):
                 calls.append(("sfb1d_atrous_adjoint", "edge",
                               (dy, g0, g1, mode, axis, d)))
     err = 0.0
+    before = {k: dict(getattr(nonsep, k).instantiations)
+              for k in ("nonsep_sfb", "nonsep_sfb_adjoint")}
     for call in calls:
         got, want = nonsep_call_parts(call, banded)[:2]
         require(torch.allclose(got, want, **NONSEP_TOL),
@@ -3275,7 +3327,16 @@ def nonsep_edge_cases(banded):
                 f"with its plain version by {max_err(got, want)}")
         err = max(err, max_err(got, want))
     torch.cuda.synchronize()
-    return len(calls), err
+    # K15's kinds of instantiation: the polyphase tiles and their band
+    # (forward), the staged tiles (adjoint), by tile
+    insts = {k: {w: n - before[k].get(w, 0)
+                 for w, n in getattr(nonsep, k).instantiations.items()
+                 if n != before[k].get(w, 0)} for k in before}
+    kinds = {w.split()[0] for v in insts.values() for w in v}
+    require(kinds == {"poly", "band", "staged"},
+            f"nonsep_edge_cases: a K15 instantiation was not checked: "
+            f"{insts}")
+    return len(calls), err, insts
 
 
 # ---------------------------------------------------------------------------
@@ -3889,9 +3950,9 @@ def main():
     ofields, otfields, o_roles, ocalls, _ = dwt_path(
         tt, ops, afb_sfb, dwt, DWT1D_SHAPE, DWT1D_J, True, "dwt1d")
     emit("dwt1d", **ofields, training=otfields)
-    n_edge, edge_err = dwt_edge_cases(afb_sfb, pad)
+    n_edge, edge_err, edge_insts = dwt_edge_cases(afb_sfb, pad)
     emit("dwt_edge_cases", calls=n_edge, max_abs_err=edge_err,
-         tolerance=DWT_TOL)
+         tolerance=DWT_TOL, k7_instantiations=edge_insts)
 
     groups = [(SOURCES[k][0], SOURCES[k][2], counts[k],
                [c for c in calls if c[0] == k])
@@ -4076,9 +4137,9 @@ def main():
     nonsep_rows(scalls, s_roles, f"sfb2d_atrous {NONSEP_WAVE} "
                 f"{shape_str(SWT_SHAPE)}", ALT_REPLAY_TIMING)
     del scalls
-    n_edge, edge_err = nonsep_edge_cases(banded)
+    n_edge, edge_err, edge_insts = nonsep_edge_cases(banded)
     emit("nonsep_edge_cases", calls=n_edge, max_abs_err=edge_err,
-         tolerance=NONSEP_TOL)
+         tolerance=NONSEP_TOL, k15_instantiations=edge_insts)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 

@@ -75,7 +75,7 @@ _SIGNATURES = {
     "dwt_sfb": {
         "dwt_sfb": [_P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _L, _L, _L, _L,
                     _L, _L, _L, _L, _I, _I, _I, _I, _I, _I,
-                    _L, _L, _L, _L, _P],
+                    _L, _L, _L, _L, _I, _I, _P],
     },
     "dtcwt_filt": {
         "dtcwt_filt": [_P, _P, _P, _I, _L, _I, _I, _I, _L, _L, _L, _L,
@@ -119,10 +119,11 @@ _SIGNATURES = {
     "nonsep_sfb": {
         "nonsep_sfb": [_P, _P, _P, _I, _I, _L, _I, _I, _I,
                        _L, _L, _L, _L, _L, *[_I] * 11,
-                       _L, _L, _L, _L, _P],
+                       _L, _L, _L, _L, _I, _I, _I, _I, _P, _I, _I, _I, _P,
+                       _I, _P],
         "nonsep_sfb_adjoint": [_P, _P, _P, _I, _I, _L, _I, _I, _I,
                                _L, _L, _L, _L, _I, _I, *[_I] * 11,
-                               _L, _L, _L, _L, _L, _P],
+                               _L, _L, _L, _L, _L, _I, _I, _P],
     },
     "iswt_spec": {
         "spec_merge": [_P, _P, _P, _P, _P, _L, _I, _I, _I, *[_L] * 12, _I,

@@ -9,7 +9,8 @@ The DWT's split and merge along one axis:
   boundary mode folded into the index of each tap (B8a + B9);
 - :func:`sfb1d_conv` (K7, ``csrc/dwt_sfb.cu``): the transposed stride-2
   correlation of (lo, hi) summed, with the periodization wrap-add and
-  roll as index math (B8b + B9);
+  roll as index math (B8b + B9), in polyphase output pairs by column and
+  row tiles;
 - :func:`afb1d_atrous_corr` (K12 ``swt_afb``, ``csrc/swt_atrous.cu``):
   the SWT's undecimated split, taps ``dilation`` samples apart, every
   boundary mode in the index (B8c + B9), and :func:`afb1d_atrous_adjoint`
@@ -35,9 +36,11 @@ pad and strided or dilated ``conv2d``, and autograd's transpose of the
 à trous ones.  CUDA tensors launch
 the kernels or raise.  :func:`afb_plan` / :func:`sfb_plan` /
 :func:`atrous_plan` / :func:`atrous_merge_plan` give the index plan the
-kernels evaluate, and :func:`merge_row_tile` / :func:`merge_band_images`
-K16's row tile and its adjoint's edge table, so the tests can hold them
-against the plain versions on the CPU.
+kernels evaluate, :func:`sfb_pairs` / :func:`sfb_row_pairs` /
+:func:`sfb_instantiation` K7's output pairs, row segment and tile, and
+:func:`merge_row_tile` / :func:`merge_band_images` K16's row tile and
+its adjoint's edge table, so the tests can hold them against the plain
+versions on the CPU.
 
 Filter-tap convention: every function here takes taps "in application
 order", i.e. the correlation kernel; the public :func:`afb1d` /
@@ -67,6 +70,7 @@ __all__ = ["as_taps", "afb1d", "sfb1d", "afb2d", "sfb2d", "afb1d_atrous",
            "sfb1d_atrous_conv_plain", "sfb1d_atrous_adjoint_plain",
            "afb_plan", "sfb_plan", "atrous_plan", "atrous_merge_plan",
            "merge_row_tile", "merge_band_images", "merge_instantiation",
+           "sfb_pairs", "sfb_row_pairs", "sfb_instantiation",
            "rows_aligned", "unit_rows", "MAX_TAPS"]
 
 # the kernels keep both tap vectors in shared memory (csrc/dwt_*.cu)
@@ -531,6 +535,59 @@ def afb1d_corr(x, h0_taps, h1_taps, mode, axis, out_len=None):
     return y
 
 
+# csrc/dwt_sfb.cu's pair tiles: a column thread walks SFB_COL_PAIRS[V]
+# output pairs (V columns); a row tile takes S <= SFB_ROW_PAIRS pairs of
+# each of 32 rows (sfb_row_pairs), a lane walking SFB_ROW_STEP at a time
+SFB_COL_PAIRS = {1: 8, 4: 4}
+SFB_ROW_PAIRS, SFB_ROW_STEP = 128, 8
+# the C entry's instantiation codes (csrc/dwt_sfb.cu:SfbInst)
+SFB_INSTS = {"col_scalar": 0, "col_float4": 1, "row_run": 2,
+             "row_gather": 3, "long_fold": 4}
+
+
+def sfb_pairs(nin, L, mode, m_out):
+    """The output pairs K7's tiles compute for the merge of two
+    length-``nin`` inputs by L taps into the first ``m_out`` outputs:
+    ``(A, per, off, m_lo, npairs)``.  Pair m's outputs are positions u =
+    2m and 2m + 1 of the full transposed convolution, each reading the A
+    = ceil(L/2) samples X(m - A + 1 .. m) of lo and hi; output n = u - off,
+    mod 2 nin where ``per`` ('periodization': the roll r0, every position
+    of [0, 2 nin), the input read circularly), else the crop s of
+    :func:`sfb_plan`, positions [s, s + m_out).  None where the reference
+    folds a 'periodization' tail longer than the output (L - 2 > 2 nin:
+    the per-output ``long_fold``)."""
+    _, s, wrap, r0, _ = sfb_plan(nin, L, mode)
+    A = (L + 1) // 2
+    if wrap:
+        return None if L - 2 > wrap else (A, True, r0, 0, nin)
+    m_lo = s // 2
+    return A, False, s, m_lo, (s + m_out - 1) // 2 + 1 - m_lo
+
+
+def sfb_row_pairs(npairs):
+    """K7's row segment: the pairs S of each row a row tile takes, a
+    multiple of SFB_ROW_STEP up to SFB_ROW_PAIRS, the row's npairs shared
+    evenly by the fewest segments (130 pairs: two of 72, not 128 and
+    2)."""
+    nseg = -(-npairs // SFB_ROW_PAIRS)
+    return -(-(-(-npairs // nseg)) // SFB_ROW_STEP) * SFB_ROW_STEP
+
+
+def sfb_instantiation(axis, nin, L, mode, lo, hi):
+    """K7's instantiation for its input views: ``long_fold`` where
+    :func:`sfb_pairs` is None; along H the column tile with float4 loads
+    (``col_float4``, both inputs' rows 16-byte aligned with stride 1
+    along W, :func:`rows_aligned`) or scalar ones (``col_scalar``); along
+    W the row tile walking each row's segment (``row_run``, rows of stride
+    1, :func:`unit_rows`) or mapping each sample (``row_gather``)."""
+    if sfb_pairs(nin, L, mode, 0) is None:
+        return "long_fold"
+    if axis == 3:
+        return "row_run" if unit_rows(lo) and unit_rows(hi) else "row_gather"
+    return ("col_float4" if rows_aligned(lo) and rows_aligned(hi)
+            else "col_scalar")
+
+
 @_cuda.via_fp32
 def sfb1d_conv(lo, hi, g0_taps, g1_taps, mode, axis, out_len=None):
     """Synthesis merge of (N, C, H, W) ``lo`` and ``hi`` along ``axis``
@@ -539,7 +596,9 @@ def sfb1d_conv(lo, hi, g0_taps, g1_taps, mode, axis, out_len=None):
     ``out_len`` keeps only the first outputs along the axis (the crop of
     the forward's backward).  CPU tensors take :func:`sfb1d_conv_plain`;
     CUDA tensors launch K7, which reads ``lo`` and ``hi`` each through its
-    own strides (the bands of a level's (N, C, 3, H, W) stack in place).
+    own strides (the bands of a level's (N, C, 3, H, W) stack in place),
+    in output pairs (:func:`sfb_pairs`) by the tile of
+    :func:`sfb_instantiation`, counted in ``instantiations``.
     """
     axis = axis % 4
     if lo.shape != hi.shape:
@@ -563,12 +622,16 @@ def sfb1d_conv(lo, hi, g0_taps, g1_taps, mode, axis, out_len=None):
     _check_4d("dwt_sfb", axis, y)
     if y.numel() == 0:
         return y
+    inst = sfb_instantiation(axis, nin, L, mode, lo, hi)
+    pairs = sfb_pairs(nin, L, mode, m)
+    S = sfb_row_pairs(pairs[4]) if pairs else 0
     lib = _cuda.library("dwt_sfb")
     _cuda.check(lib, "dwt_sfb", lib.dwt_sfb(
         lo.data_ptr(), hi.data_ptr(), y.data_ptr(), _ptr(g0), _ptr(g1), L,
         *lo.shape, *lo.stride(), *hi.stride(), axis, s, wrap, r0, fold, m,
-        *y.stride(), _cuda.stream_of(lo)))
+        *y.stride(), SFB_INSTS[inst], S, _cuda.stream_of(lo)))
     _K7.launches += 1
+    _K7.instantiations[inst] += 1
     return y
 
 
@@ -579,6 +642,7 @@ def sfb1d_conv(lo, hi, g0_taps, g1_taps, mode, axis, out_len=None):
 _K6, _K7 = afb1d_corr, sfb1d_conv
 _K6.launches = 0
 _K7.launches = 0
+_K7.instantiations = dict.fromkeys(SFB_INSTS, 0)
 
 
 def _atrous_args(kernel, h0_taps, h1_taps, n, mode, dilation):

@@ -14,9 +14,11 @@ and kernels K14 and K15 (port of the ``_outer_filters`` /
   outer products (the backward of ``quad_afb2d``).
 - :func:`nonsep_sfb` (K15 ``nonsep_sfb``, ``csrc/nonsep_sfb.cu``): the
   lhs-dilated transposed 2-D convolution of the 4 bands, summed, with
-  the 'periodization' wrap-add and roll folded into the output index;
-  :func:`nonsep_sfb_adjoint` (K15 ``nonsep_sfb_adjoint``), its exact
-  transpose, a strided correlation (the backward of ``sfb2d`` too).
+  the 'periodization' wrap-add and roll folded into the output index:
+  K14's polyphase tiles and an edge band; :func:`nonsep_sfb_adjoint`
+  (K15 ``nonsep_sfb_adjoint``), its exact transpose, a strided
+  correlation by K14's staged tiles (the backward of ``sfb2d`` and
+  ``sfb1d`` too).
 
 The public ``afb2d_nonsep`` / ``sfb2d_nonsep`` are in ``ops/afb_sfb.py``,
 where the JAX package has them.
@@ -26,9 +28,12 @@ package's code line by line (pads, strided or lhs-dilated ``conv2d``,
 the wrap-add and roll), and autograd's transpose of it for the adjoints.
 CUDA tensors launch the kernels or raise.  :func:`afb_axis_src`,
 :func:`sfb_axis_src` and the plans give the index maps the kernels
-evaluate, so that the tests can hold them against the plain versions on
-the CPU.  :class:`NonsepAFB` and :class:`NonsepSFB` are the autograd
-Functions: forward one entry, backward the other.
+evaluate, and :func:`afb_tile`, :func:`adjoint_tile`, :func:`sfb_tile`,
+:func:`sfb_quads` and the edge tables (:func:`band_images`,
+:func:`sfb_band_images`) their tiles and bands, so that the tests can
+hold them against the plain versions on the CPU.  :class:`NonsepAFB`
+and :class:`NonsepSFB` are the autograd Functions: forward one entry,
+backward the other.
 """
 from __future__ import annotations
 
@@ -53,16 +58,17 @@ __all__ = ["outer_filters", "nonsep_afb",
            "nonsep_sfb_plain", "nonsep_sfb_adjoint_plain", "afb_axis_plan",
            "afb_axis_src", "sfb_axis_src", "NonsepAFB", "NonsepSFB",
            "SeparableAFB", "SeparableSFB", "adjoint_interior", "afb_tile",
-           "adjoint_tile", "band_images", "MAX_PSFS", "MAX_PSF_BYTES"]
+           "adjoint_tile", "band_images", "sfb_quads", "sfb_tile",
+           "sfb_interior", "sfb_band_images", "MAX_PSFS", "MAX_PSF_BYTES"]
 
 # A thread keeps the K outputs of its positions in registers (csrc/
-# nonsep_afb.cu, csrc/nonsep_stencil.cuh), and a block stages the whole PSF
-# stack in shared memory: at most 232,448 bytes on the H100 (4 x 76 x 76
-# floats, db38's, take 92,416)
+# nonsep_tile.cuh), and a block stages the whole PSF stack in shared
+# memory: at most 232,448 bytes on the H100 (4 x 76 x 76 floats, db38's,
+# take 92,416)
 MAX_PSFS = 16
 MAX_PSF_BYTES = 232448
-# K14's tiles (csrc/nonsep_afb.cu): PY output rows (forward) or quads
-# (adjoint) a thread, blocks of BX x BY threads
+# K14's tiles, which K15 runs too (csrc/nonsep_tile.cuh): PY output rows
+# (staged) or quads (polyphase) a thread, blocks of BX x BY threads
 _PY = 4
 _TILE_BX = (32, 16, 8)
 _TILE_BY = (1, 2, 4, 8, 16)
@@ -290,18 +296,91 @@ def afb_tile(K, Ly, Lx, Ho, Wo):
         lambda bx, by: _fwd_smem(kmax, Ly, Lx, bx, by))
 
 
+def _quad_tile(kernel, K, Ly, Lx, nU, nV):
+    """The polyphase tile's block (BX, BY) over nU x nV quads
+    (``csrc/nonsep_tile.cuh:afb_adjoint_tile_kernel``)."""
+    kmax = _kmax(K)
+    return _pick_tile(
+        kernel, nV, nU,
+        4 * ((Ly + 1) // 2) * ((Lx + 1) // 2) * kmax, Ly * Lx * kmax,
+        lambda bx, by: kmax * np.prod(_adj_window(Ly, Lx, bx, by)),
+        lambda bx, by: _adj_smem(kmax, Ly, Lx, bx, by))
+
+
 def adjoint_tile(K, Ly, Lx, H, W, fy, fx):
     """K14's polyphase adjoint block (BX, BY) for an (H, W) input whose
     pixels sit at padded positions (i + fy, j + fx): a tile of (PY BY) x
     BX quads of 2 x 2 pixels (``afb_adjoint_tile_kernel``)."""
-    kmax = _kmax(K)
     nU = (H - 1 + fy) // 2 - fy // 2 + 1
     nV = (W - 1 + fx) // 2 - fx // 2 + 1
-    return _pick_tile(
-        "nonsep_afb_adjoint", nV, nU,
-        4 * ((Ly + 1) // 2) * ((Lx + 1) // 2) * kmax, Ly * Lx * kmax,
-        lambda bx, by: kmax * np.prod(_adj_window(Ly, Lx, bx, by)),
-        lambda bx, by: _adj_smem(kmax, Ly, Lx, bx, by))
+    return _quad_tile("nonsep_afb_adjoint", K, Ly, Lx, nU, nV)
+
+
+def sfb_quads(nin, L, mode):
+    """The positions of the full transposed convolution along one axis
+    that K15's forward tiles compute, as ``(f, U0, nU, rot)``: quads U0
+    .. U0 + nU - 1 (positions u = 2U, 2U + 1), pixel u - f.  Outside
+    'periodization' positions [s, s + out) (f = s); in it every position
+    of [0, 2 nin) (f = r0, the pixel wrapped once into [0, 2 nin): rot)."""
+    out, s, wrap, r0, _ = _sfb_axis_plan(nin, L, mode)
+    if wrap:
+        return r0, 0, nin, True
+    return s, s // 2, (out - 1 + s) // 2 - s // 2 + 1, False
+
+
+def sfb_tile(Ly, Lx, nU, nV):
+    """K15's forward block (BX, BY) over nU x nV quads (:func:`sfb_quads`):
+    K14's polyphase tile with the 4 bands as its planes."""
+    return _quad_tile("nonsep_sfb", 4, Ly, Lx, nU, nV)
+
+
+def _sfb_images(nin, L, mode):
+    """Each output pixel's positions of the full transposed convolution
+    along one axis, the direct one first (K7's plan inverted: t + s, or
+    in 'periodization' t = (n + r0) mod wrap and t + wrap where t <
+    fold)."""
+    out, s, wrap, r0, fold = _sfb_axis_plan(nin, L, mode)
+    if not wrap:
+        return [[n + s] for n in range(out)]
+    ts = (np.arange(out) + r0) % wrap
+    return [[t] + ([t + wrap] if t < fold else []) for t in map(int, ts)]
+
+
+def sfb_interior(nin, L, mode):
+    """The pixels ``[lo, hi)`` of an output axis whose only position is
+    their direct one: all of them outside 'periodization', else those
+    whose t is past the wrap-add's fold; the others (at both ends, the
+    roll splitting the fold's run) form K15's forward band."""
+    imgs = _sfb_images(nin, L, mode)
+    one = [len(u) == 1 for u in imgs]
+    lo = one.index(True) if any(one) else len(one)
+    hi = lo + (one[lo:] + [False]).index(False)
+    assert all(one[lo:hi]) and not any(one[:lo] + one[hi:]), one
+    return lo, hi
+
+
+@lru_cache(maxsize=256)
+def sfb_band_images(nin, L, mode):
+    """The positions along an output axis of the pixels outside
+    :func:`sfb_interior`: an int32 array with a row for each such pixel in
+    order (t, then ``lo + t - hi`` past the interior), the direct
+    position first, then the wrap-add's, -1 past the last; None if every
+    pixel is interior.  K15's forward band reads it."""
+    lo, hi = sfb_interior(nin, L, mode)
+    imgs = _sfb_images(nin, L, mode)
+    band = [imgs[t] for t in (*range(lo), *range(hi, len(imgs)))]
+    if not band:
+        return None
+    table = np.full((len(band), max(map(len, band))), -1, dtype=np.int32)
+    for row, us in zip(table, band):
+        row[:len(us)] = us
+    return table
+
+
+@lru_cache(maxsize=64)
+def _device_sfb_table(nin, L, mode, device):
+    t = sfb_band_images(nin, L, mode)
+    return None if t is None else torch.as_tensor(t, device=device)
 
 
 # --------------------------------------------------------------------------
@@ -567,9 +646,13 @@ def nonsep_sfb(coeffs, f, mode):
     (4, Ly, Lx) filters ``f`` (convolution order): (N, C, H, W).
 
     CPU tensors take :func:`nonsep_sfb_plain`; CUDA tensors launch K15's
-    ``nonsep_sfb``, a gather: each output pixel sums the (band, tap)
-    pairs whose dilated source lands on it, the 'periodization' wrap-add
-    and roll folded into the output index (K7's plan on each axis)."""
+    ``nonsep_sfb`` (no atomics): K14's polyphase tiles over the bands
+    write each pixel's direct position of the full transposed
+    convolution (:func:`sfb_quads`; the 'periodization' roll wrapped at
+    the store), then, in 'periodization', a gather adds the wrap-add's
+    second positions of the pixels outside :func:`sfb_interior`, from
+    :func:`sfb_band_images`.  Counted in ``instantiations``: ``poly`` with
+    the tile of :func:`sfb_tile` in positions, and ``band``."""
     if coeffs.device.type == "cpu":
         return nonsep_sfb_plain(coeffs, f, mode)
     _cuda.check_inputs("nonsep_sfb", coeffs)
@@ -583,12 +666,22 @@ def nonsep_sfb(coeffs, f, mode):
                     dtype=torch.float32)
     if y.numel() == 0:
         return y
+    nU, nV = sfb_quads(Ny, Ly, mode)[2], sfb_quads(Nx, Lx, mode)[2]
+    bx, by = sfb_tile(Ly, Lx, nU, nV)
+    band = []
+    for n, L in ((Ny, Ly), (Nx, Lx)):
+        t = _device_sfb_table(n, L, mode, coeffs.device)
+        band += [*sfb_interior(n, L, mode),
+                 *((0, 0) if t is None else (t.data_ptr(), t.shape[1]))]
     lib = _cuda.library("nonsep_sfb")
     _cuda.check(lib, "nonsep_sfb", lib.nonsep_sfb(
         coeffs.data_ptr(), y.data_ptr(), taps.data_ptr(), Ly, Lx, N, C, Ny,
         Nx, *coeffs.stride(), *py, *px, int(_is_per(mode)), *y.stride(),
-        _cuda.stream_of(coeffs)))
+        bx, by, *band, _cuda.stream_of(coeffs)))
     _K15.launches += 1
+    _count(_K15, f"poly {2 * bx}x{2 * _PY * by}")
+    if band[2] or band[6]:
+        _count(_K15, "band")
     return y
 
 
@@ -602,8 +695,11 @@ def nonsep_sfb_adjoint(dy, f, mode, Ny, Nx, separable=False):
 
     CPU tensors take :func:`nonsep_sfb_adjoint_plain`; CUDA tensors launch
     K15's ``nonsep_sfb_adjoint``, the stride-(2, 2) correlation of ``dy``
-    read through the inverse of the output index map, all 4 bands from
-    one read of each window (K14's code with another index map)."""
+    read through the inverse of the output index map: K14's staged
+    forward tiles (:func:`afb_tile`), each tile's window of ``dy`` staged
+    through :func:`sfb_axis_src`, all 4 bands from one read of it.
+    Counted in ``instantiations`` as ``staged`` with the tile in
+    positions."""
     if dy.device.type == "cpu":
         return nonsep_sfb_adjoint_plain(dy, f, mode, Ny, Nx, separable)
     _cuda.check_inputs("nonsep_sfb_adjoint", dy)
@@ -618,12 +714,14 @@ def nonsep_sfb_adjoint(dy, f, mode, Ny, Nx, separable=False):
                      dtype=torch.float32)
     if dc.numel() == 0:
         return dc
+    bx, by = afb_tile(4, Ly, Lx, Ny, Nx)
     lib = _cuda.library("nonsep_sfb")
     _cuda.check(lib, "nonsep_sfb_adjoint", lib.nonsep_sfb_adjoint(
         dy.data_ptr(), dc.data_ptr(), taps.data_ptr(), Ly, Lx, N, C,
         *dy.shape[2:], *dy.stride(), Ny, Nx, *py, *px, int(_is_per(mode)),
-        *dc.stride(), _cuda.stream_of(dy)))
+        *dc.stride(), bx, by, _cuda.stream_of(dy)))
     _K15A.launches += 1
+    _count(_K15A, f"staged {bx}x{_PY * by}")
     return dc
 
 
@@ -632,13 +730,13 @@ def _count(wrapper, inst):
 
 
 # The launch counters live on the wrappers, reached through these names
-# (see ops/afb_sfb.py's _K6 / _K7); K14's also count its launches by
+# (see ops/afb_sfb.py's _K6 / _K7); they also count their launches by
 # instantiation (a key the first time it runs)
 _K14, _K14A, _K15, _K15A = (nonsep_afb, nonsep_afb_adjoint, nonsep_sfb,
                             nonsep_sfb_adjoint)
 for _k in (_K14, _K14A, _K15, _K15A):
     _k.launches = 0
-_K14.instantiations, _K14A.instantiations = {}, {}
+    _k.instantiations = {}
 
 
 # --------------------------------------------------------------------------

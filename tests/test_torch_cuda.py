@@ -391,6 +391,8 @@ def test_dwt_sfb(dev, mode, L, n, axis):
     lo, hi = stack[:, :, 2], stack[:, :, 0]
     want = afb_sfb.sfb1d_conv_plain(lo, hi, g0, g1, mode, axis)
     n0 = afb_sfb.sfb1d_conv.launches
+    inst = afb_sfb.sfb_instantiation(axis, nin, L, mode, lo, hi)
+    i0 = afb_sfb.sfb1d_conv.instantiations[inst]
     got = afb_sfb.sfb1d_conv(lo, hi, g0, g1, mode, axis)
     torch.testing.assert_close(got, want, **DWT_TOL)
     m = max(want.shape[axis] - 3, 0)
@@ -398,6 +400,75 @@ def test_dwt_sfb(dev, mode, L, n, axis):
                                                   m),
                                want.narrow(axis, 0, m), **DWT_TOL)
     assert afb_sfb.sfb1d_conv.launches == n0 + (2 if m else 1)
+    # the bands' rows: 5 or 7 floats apart, stride 1 along W
+    assert inst == ("long_fold" if mode == "periodization" and L - 2 > 2 * nin
+                    else "row_run" if axis == 3 else "col_scalar")
+    assert afb_sfb.sfb1d_conv.instantiations[inst] == i0 + (2 if m else 1)
+
+
+# K7's tiles: a column thread walks 8 pairs (scalar) or 4 (float4), 4
+# threads of a block along the pairs; a row tile takes 32 rows, flattened
+# across the planes, and segments of 32 pairs (64 outputs) of each
+@pytest.mark.parametrize("axis,n,other", [
+    (2, 5, 10), (2, 33, 130), (2, 70, 4), (2, 133, 9),
+    (3, 5, 3), (3, 129, 33), (3, 259, 2), (3, 40, 70)])
+@pytest.mark.parametrize("view", ["aligned", "offset", "transposed", "band"])
+@pytest.mark.parametrize("L,mode", [(2, "zero"), (8, "periodization"),
+                                    (10, "symmetric"), (8, "reflect"),
+                                    (76, "periodization"), (76, "periodic")])
+def test_dwt_sfb_instantiations(dev, axis, n, other, view, L, mode):
+    """Each of K7's instantiations at its tile edges, against the plain
+    version: axes shorter than a chunk or a segment and past one (rows
+    past one block of 32), widths that are not multiples of 4 (the
+    float4 columns' tail), odd widths (70, 133, 259: the scalar columns),
+    aligned, offset and transposed views and bands of an (N, C, 3, H, W)
+    stack read in place (lo aligned beside an offset hi takes the scalar
+    columns), full outputs and out_len crops, every kind of mode (the
+    roll and circular window of 'periodization'), L = 2, 8, 10 and 76
+    (db38: the per-output long_fold on short axes, the run-time window
+    elsewhere).  Each case asserts the instantiation that ran."""
+    from pytorch_wavelets_tpu_torch.ops import afb_sfb
+    g0, g1 = _taps(L, 140 + L)
+    if view == "band":
+        shape = [2, 3, 0, 0]
+        shape[axis], shape[5 - axis] = n, other
+        stack = torch.from_numpy(_rand((2, 3, 3, *shape[2:]), 141)).to(dev)
+        lo, hi = stack[:, :, 1], stack[:, :, 2]
+    else:
+        lo = _filt_view(dev, view, axis, n, other, 142)
+        hi = _filt_view(dev, view, axis, n, other, 143)
+    long_fold = mode == "periodization" and L - 2 > 2 * n
+    want_inst = "long_fold" if long_fold else (
+        ("row_gather" if view == "transposed" and other > 1 else "row_run")
+        if axis == 3 else
+        "col_float4" if afb_sfb.rows_aligned(lo) and afb_sfb.rows_aligned(hi)
+        else "col_scalar")
+    if view == "aligned" and axis == 2 and not long_fold:
+        assert want_inst == "col_float4"
+    assert afb_sfb.sfb_instantiation(axis, n, L, mode, lo, hi) == want_inst
+    if 2 * n - L + 2 < 1 and mode != "periodization":
+        # no output: the filter is longer than the signal
+        with pytest.raises(ValueError, match="out_len"):
+            afb_sfb.sfb1d_conv(lo, hi, g0, g1, mode, axis)
+        return
+    i0 = dict(afb_sfb.sfb1d_conv.instantiations)
+    want = afb_sfb.sfb1d_conv_plain(lo, hi, g0, g1, mode, axis)
+    torch.testing.assert_close(afb_sfb.sfb1d_conv(lo, hi, g0, g1, mode, axis),
+                               want, **DWT_TOL)
+    m = max(want.shape[axis] - 5, 1)
+    torch.testing.assert_close(
+        afb_sfb.sfb1d_conv(lo, hi, g0, g1, mode, axis, m),
+        want.narrow(axis, 0, m), **DWT_TOL)
+    i0[want_inst] += 2
+    assert afb_sfb.sfb1d_conv.instantiations == i0
+    if view == "aligned" and axis == 2:
+        mixed = _filt_view(dev, "offset", axis, n, other, 144)
+        assert afb_sfb.sfb_instantiation(axis, n, L, mode, lo, mixed) == (
+            "long_fold" if long_fold else "col_scalar")
+        torch.testing.assert_close(
+            afb_sfb.sfb1d_conv(lo, mixed, g0, g1, mode, axis),
+            afb_sfb.sfb1d_conv_plain(lo, mixed, g0, g1, mode, axis),
+            **DWT_TOL)
 
 
 @pytest.mark.parametrize("mode", DWT_MODES)
@@ -1224,7 +1295,7 @@ def test_nonsep_sfb(dev, mode, Ly, Lx, Ny, Nx):
         pytest.skip("no output: the filter is longer than the signal")
     f = _psfs(4, Ly, Lx, 103)
     c = torch.from_numpy(_rand((2, 3, 6, Ny, Nx), 104)).to(dev)[:, :, 1:5]
-    n0 = (nonsep.nonsep_sfb.launches, nonsep.nonsep_sfb_adjoint.launches)
+    ops.reset_launches()
     got = nonsep.nonsep_sfb(c, f, mode)
     torch.testing.assert_close(got, nonsep.nonsep_sfb_plain(c, f, mode),
                                **NONSEP_TOL)
@@ -1234,7 +1305,89 @@ def test_nonsep_sfb(dev, mode, Ly, Lx, Ny, Nx):
         nonsep.nonsep_sfb_adjoint(g, f, mode, Ny, Nx),
         nonsep.nonsep_sfb_adjoint_plain(g, f, mode, Ny, Nx), **NONSEP_TOL)
     assert (nonsep.nonsep_sfb.launches,
-            nonsep.nonsep_sfb_adjoint.launches) == (n0[0] + 1, n0[1] + 1)
+            nonsep.nonsep_sfb_adjoint.launches) == (1, 1)
+    _assert_k15_insts(Ly, Lx, Ny, Nx, mode, True)
+
+
+def _assert_k15_insts(Ly, Lx, Ny, Nx, mode, forward):
+    """The counters of one adjoint call (and one forward call where
+    ``forward``) of K15 since the last reset name the tiles its wrappers
+    pick: the polyphase tile in positions and the band where
+    'periodization' folds a tail, the staged tile in positions."""
+    from pytorch_wavelets_tpu_torch.ops import nonsep
+    counts = ops.instantiation_counts()
+    if forward:
+        nU, nV = (nonsep.sfb_quads(n, L, mode)[2] for n, L in ((Ny, Ly),
+                                                               (Nx, Lx)))
+        bx, by = nonsep.sfb_tile(Ly, Lx, nU, nV)
+        want = {f"poly {2 * bx}x{8 * by}": 1}
+        if any(nonsep.sfb_band_images(n, L, mode) is not None
+               for n, L in ((Ny, Ly), (Nx, Lx))):
+            want["band"] = 1
+        assert {k: v for k, v in counts["nonsep_sfb"].items() if v} == want
+    bx, by = nonsep.afb_tile(4, Ly, Lx, Ny, Nx)
+    assert {k: v for k, v in counts["nonsep_sfb_adjoint"].items() if v} == {
+        f"staged {bx}x{4 * by}": 1}
+
+
+# K15's tiles: the forward's quads are K14's adjoint tile (16 to 64
+# positions wide, 8 to 128 high), the adjoint's positions K14's forward
+# tile (8 to 32 wide, 4 to 64 high)
+@pytest.mark.parametrize("Ly,Lx", [(8, 8), (10, 4), (2, 8), (13, 6)])
+@pytest.mark.parametrize("Ny,Nx", [(3, 5), (17, 33), (33, 129), (130, 67)])
+@pytest.mark.parametrize("mode,view", [
+    ("periodization", "strided"), ("symmetric", "transposed"),
+    ("zero", "strided"), ("periodic", "transposed")])
+def test_nonsep_sfb_instantiations(dev, Ly, Lx, Ny, Nx, mode, view):
+    """Both of K15's entries at their tile edges (planes shorter than a
+    tile and one past one, odd sizes), 'periodization' rolls and folds
+    (the band), Ly != Lx, an odd L, strided and transposed bands and
+    cotangents, against the plain versions; then the adjoint on the
+    separable plan of the same case (its single fold where
+    'periodization' meets an axis shorter than the filter) and with the
+    one-axis PSFs of sfb1d's backward (Ly or Lx = 2).  Each call asserts
+    the instantiations that ran."""
+    from pytorch_wavelets_tpu_torch.ops import afb_sfb, nonsep
+    f = _psfs(4, Ly, Lx, 150 + Ly)
+    if view == "transposed":
+        c = torch.from_numpy(_rand((2, 3, 4, Nx, Ny), 151)).to(
+            dev).transpose(3, 4)
+    else:
+        c = torch.from_numpy(_rand((2, 3, 6, Ny, Nx), 151)).to(dev)[:, :,
+                                                                    1:5]
+    out = min(2 * Ny - Ly, 2 * Nx - Lx) + 2
+    if out < (mode != "periodization"):
+        # no output outside 'periodization' (an empty plane, or a negative
+        # size, refused); a tail longer than the output there, which
+        # sfb2d_nonsep refuses as the JAX package does
+        if out == 0:
+            assert nonsep.nonsep_sfb(c, f, mode).numel() == 0
+        else:
+            with pytest.raises((ValueError, RuntimeError)):
+                nonsep.nonsep_sfb(c, f, mode)
+        return
+    ops.reset_launches()
+    got = nonsep.nonsep_sfb(c, f, mode)
+    torch.testing.assert_close(got, nonsep.nonsep_sfb_plain(c, f, mode),
+                               **NONSEP_TOL)
+    g = torch.from_numpy(_rand((2, 6, *got.shape[2:]), 152)).to(dev)[:, ::2]
+    if view == "transposed":
+        g = g.transpose(2, 3).contiguous().transpose(2, 3)
+    torch.testing.assert_close(
+        nonsep.nonsep_sfb_adjoint(g, f, mode, Ny, Nx),
+        nonsep.nonsep_sfb_adjoint_plain(g, f, mode, Ny, Nx), **NONSEP_TOL)
+    _assert_k15_insts(Ly, Lx, Ny, Nx, mode, True)
+    for psfs in (f, afb_sfb._one_axis_psfs(f[:2, :, 0], 2, 4),
+                 afb_sfb._one_axis_psfs(f[:2, 0], 3, 4)):
+        Hs, Ws = (nonsep._sfb_axis_plan(n, L, mode, True)[0]
+                  for n, L in zip((Ny, Nx), psfs.shape[1:]))
+        gs = torch.from_numpy(_rand((2, 3, Hs, Ws), 153)).to(dev)
+        ops.reset_launches()
+        torch.testing.assert_close(
+            nonsep.nonsep_sfb_adjoint(gs, psfs, mode, Ny, Nx, True),
+            nonsep.nonsep_sfb_adjoint_plain(gs, psfs, mode, Ny, Nx, True),
+            **NONSEP_TOL)
+        _assert_k15_insts(*psfs.shape[1:], Ny, Nx, mode, False)
 
 
 def test_nonsep_largest_psf(dev):

@@ -21,6 +21,8 @@ from pytorch_wavelets_tpu_torch.filters import dwt_coeffs as pcoeffs
 from pytorch_wavelets_tpu_torch.ops import afb_sfb
 from pytorch_wavelets_tpu_torch.ops.pad import PAD_CODES, pad1d, pad_index
 from pytorch_wavelets_tpu_torch.utils import dwt_coeff_len
+from tests.test_torch_nonsep_plans import _merge_window
+from tests.test_torch_stencil_plans import stage_row
 from tests.torch_parity import DWT_ATOL, DWT_MODES, FAST, cmp, rand
 
 torch.set_num_threads(1)
@@ -99,11 +101,157 @@ def _sfb_emulated(lo, hi, g0, g1, mode):
                      for v in t])
 
 
+def _k7_src(j, nin, per):
+    """csrc/dwt_sfb.cu:pair_src, line by line."""
+    if 0 <= j < nin:
+        return j
+    return j + nin if per and -nin <= j < 0 else -1
+
+
+def _k7_out(u, per, off, nin):
+    """csrc/dwt_sfb.cu:pair_out, line by line."""
+    n = u - off
+    if per:
+        n = n + 2 * nin if n < 0 else (n - 2 * nin if n >= 2 * nin else n)
+    return n
+
+
+def _k7_taps(g0, g1, A):
+    """The entry's tap table: T[i][p][e] = g_i[2 (A - 1 - e) + p], 0 past
+    L (input i, phase p, window element e)."""
+    L = len(g0)
+    T = np.zeros((2, 2, A))
+    for i, g in enumerate((g0, g1)):
+        for p in (0, 1):
+            for e in range(A):
+                k = 2 * (A - 1 - e) + p
+                T[i, p, e] = g[k] if k < L else 0.0
+    return T
+
+
+def _k7_columns(lo, hi, g0, g1, mode, m_out, V):
+    """pair_col_kernel along one column: chunks of R pairs (R =
+    SFB_COL_PAIRS[V]) from m_lo, each input's register window over X(m0 -
+    A + 1 + e) (the edge map per loaded row), both phases of each pair
+    stored where pair_out lands inside the first m_out outputs; every
+    output written once."""
+    nin = len(lo)
+    A, per, off, m_lo, npairs = afb_sfb.sfb_pairs(nin, len(g0), mode, m_out)
+    R = afb_sfb.SFB_COL_PAIRS[V]
+    T = _k7_taps(g0, g1, A)
+    out = np.full(m_out, np.nan)
+    for ch in range(-(-npairs // R)):
+        m0 = m_lo + ch * R
+        acc = sum(_merge_window(
+            lambda e, x=x: (x[r] if (r := _k7_src(m0 - A + 1 + e, nin, per))
+                            >= 0 else 0.0), T[i], R)
+            for i, x in enumerate((lo, hi)))
+        for o in range(R):
+            if m0 + o >= m_lo + npairs:
+                continue
+            for p in (0, 1):
+                n = _k7_out(2 * (m0 + o) + p, per, off, nin)
+                if 0 <= n < m_out:
+                    assert np.isnan(out[n])
+                    out[n] = acc[p, o]
+    return out
+
+
+def _k7_rows(lo, hi, g0, g1, mode, m_out, unit=True):
+    """pair_row_kernel along one row: segments of S pairs (sfb_row_pairs),
+    each staged with its A - 1 samples of halo (row_run's walk inside the
+    axis, which the edge map must agree with; row_gather maps each
+    sample), a lane's SFB_ROW_STEP pairs at a time from its staged row,
+    the outputs through a shared row of odd pitch, in the staged rows'
+    space, and out as one run per segment; the 32 lanes (rows) of a warp
+    read and write on distinct banks."""
+    nin = len(lo)
+    A, per, off, m_lo, npairs = afb_sfb.sfb_pairs(nin, len(g0), mode, m_out)
+    RS, PR = afb_sfb.sfb_row_pairs(npairs), afb_sfb.SFB_ROW_STEP
+    assert RS % PR == 0 and RS <= afb_sfb.SFB_ROW_PAIRS
+    assert -(-npairs // RS) == -(-npairs // afb_sfb.SFB_ROW_PAIRS)
+    seg = RS + A - 1
+    assert 2 * (seg | 1) >= (2 * RS) | 1    # the outputs fit the rows' space
+    for pitch in (seg | 1, (2 * RS) | 1):
+        assert len({lane * pitch % 32 for lane in range(32)}) == 32
+    T = _k7_taps(g0, g1, A)
+    out = np.full(m_out, np.nan)
+    for tile in range(-(-npairs // RS)):
+        P0 = m_lo + tile * RS
+        j0 = P0 - (A - 1)
+        staged = [stage_row(x, lambda e: _k7_src(j0 + e, nin, per),
+                            j0 if unit else None, seg) for x in (lo, hi)]
+        out_s = np.full(2 * RS, np.nan)
+        for item in range(RS // PR):
+            acc = sum(_merge_window(lambda e, st=st: st[item * PR + e],
+                                    T[i], PR) for i, st in enumerate(staged))
+            for o in range(PR):
+                out_s[2 * (item * PR + o):2 * (item * PR + o) + 2] = acc[:, o]
+        for e in range(2 * min(RS, m_lo + npairs - P0)):
+            n = _k7_out(2 * P0 + e, per, off, nin)
+            if 0 <= n < m_out:
+                assert np.isnan(out[n])
+                out[n] = out_s[e]
+    return out
+
+
+# (nin, L) of the tile plans: lengths 1, 2, odd, 70, 133, 259; L = 2, 3
+# (odd: a window position -1), 8 (db4), 10 (farras / qshift_a), 13, 76
+# (db38: periodization's single fold of a long tail on short axes)
+K7_CASES = [(1, 2), (2, 3), (5, 8), (3, 10), (1, 8), (70, 8), (133, 10),
+            (259, 8), (7, 13), (20, 76), (4, 76), (9, 3)]
+
+
+def _k7_plan_case(plan, mode):
+    rs = np.random.RandomState(PAD_CODES.get(mode, 5) + 40)
+    for nin, L in K7_CASES:
+        g0, g1, lo, hi = rs.randn(L), rs.randn(L), rs.randn(nin), rs.randn(nin)
+        full = afb_sfb.sfb_plan(nin, L, mode)[0]
+        if full < 1:
+            continue
+        t = [torch.from_numpy(v).view(1, 1, 1, nin) for v in (lo, hi)]
+        want = afb_sfb.sfb1d_conv_plain(*t, g0, g1, mode, 3)[0, 0, 0].numpy()
+        # the wrapper's pick for views of these lengths along the axis
+        views = ({"row_run": torch.zeros(2, 3, 5, nin + 2)[..., 1:nin + 1],
+                  "row_gather": torch.zeros(2, 3, nin, 5).transpose(2, 3)}
+                 if plan == "rows" else
+                 {"col_float4": torch.zeros(2, 3, nin, 8),
+                  "col_scalar": torch.zeros(2, 3, nin, 9)[..., 1:4]})
+        pairs = afb_sfb.sfb_pairs(nin, L, mode, full)
+        for name, v in views.items():
+            if nin == 1 and name == "row_gather":
+                name = "row_run"    # one sample a row: stride 1 or not
+            assert afb_sfb.sfb_instantiation(
+                3 if plan == "rows" else 2, nin, L, mode, v, v) == (
+                    name if pairs else "long_fold")
+        if pairs is None:   # the per-output kernel
+            assert L - 2 > 2 * nin
+            np.testing.assert_allclose(_sfb_emulated(lo, hi, g0, g1, mode),
+                                       want, rtol=1e-12, atol=1e-12)
+            continue
+        for m_out in sorted({full, max(full - 3, 1)}):   # and a crop
+            for got in ([_k7_columns(lo, hi, g0, g1, mode, m_out, V)
+                         for V in (1, 4)] if plan == "columns" else
+                        [_k7_rows(lo, hi, g0, g1, mode, m_out, unit)
+                         for unit in (True, False)]):
+                np.testing.assert_allclose(got, want[:m_out], rtol=1e-12,
+                                           atol=1e-12, err_msg=f"{nin} {L}")
+
+
 @pytest.mark.parametrize("mode", DWT_MODES)
-def test_kernel_index_plans(mode):
-    """The formulas K6/K7 evaluate per tap equal their plain versions
-    (float64), at every length 1..13 and 33 against filters of 2 to 76
-    taps, the long-filter single folds included."""
+@pytest.mark.parametrize("plan", ["taps", "columns", "rows"])
+def test_kernel_index_plans(plan, mode):
+    """The formulas K6/K7 evaluate equal their plain versions (float64).
+    ``taps``: per tap, at every length 1..13 and 33 against filters of 2
+    to 76 taps, the long-filter single folds included (K6, and K7's
+    long_fold).  ``columns`` / ``rows``: K7's pair tiles (column chunks of
+    4 and 8 pairs; row segments with their halo, run and gather staging),
+    the division-free edge and output maps in every mode, full outputs
+    and crops, at lengths 1 to 259, and the instantiation the wrapper
+    picks for a view."""
+    if plan != "taps":
+        _k7_plan_case(plan, mode)
+        return
     rs = np.random.RandomState(PAD_CODES.get(mode, 5))
     for n in list(range(1, 14)) + [33]:
         for L in (2, 3, 4, 8, 13, 20, 76):

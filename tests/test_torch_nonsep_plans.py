@@ -1,14 +1,16 @@
 """The index maps of kernels K14 (``csrc/nonsep_afb.cu``), K15
-(``csrc/nonsep_sfb.cu``, both through ``csrc/nonsep_stencil.cuh``) and
+(``csrc/nonsep_sfb.cu``; both run ``csrc/nonsep_tile.cuh``'s tiles) and
 K16 (``csrc/swt_atrous.cu``: ``swt_sfb`` and its adjoint), emulated in
 numpy exactly as the CUDA sources compute each output (the axis maps'
-``src`` / ``images`` / ``interior``, the windows, the edge scans; K14's
-staged tiles and parity planes, its polyphase adjoint and the edge band
-read from the host's image tables; K16's column and row tiles over
-d-strided subsequences and its adjoint's band from the host's table),
-against their plain versions (the JAX code, and autograd's transposes of
-it) on the CPU in float64: every mode, odd sizes, filters longer than the
-axis, rectangular PSF stacks."""
+``src`` / ``cot``, the windows, the edge scans; the staged tiles and
+parity planes, run by K14's forward through the pads and by K15's
+adjoint through the synthesis's output map; the polyphase tiles, K14's
+adjoint and K15's forward (the roll wrapped at the store), with the
+edge bands read from the host's image tables; K16's column and row
+tiles over d-strided subsequences and its adjoint's band from the
+host's table), against their plain versions (the JAX code, and
+autograd's transposes of it) on the CPU in float64: every mode, odd
+sizes, filters longer than the axis, rectangular PSF stacks."""
 import numpy as np
 import pytest
 import torch
@@ -43,7 +45,7 @@ class AfbAxis:
 
 
 class SfbAxis:
-    """csrc/nonsep_stencil.cuh:SfbAxis, line by line."""
+    """csrc/nonsep_stencil.cuh:SfbAxis, line by line (src, cot)."""
 
     def __init__(self, nin, L, mode, separable=False):
         self.plan = nonsep._sfb_axis_plan(nin, L, mode, separable)
@@ -65,41 +67,6 @@ class SfbAxis:
                 return -1
         return (t - self.r0) % self.wrap
 
-    def interior(self, u0, L):
-        if not self.per:
-            return u0 >= self.s and u0 + L - 1 - self.s < self.out, -self.s
-        return u0 >= self.r0 and u0 + L - 1 < self.wrap, -self.r0
-
-    def images(self, t):
-        if not self.per:
-            return [t + self.s]
-        tt = (t + self.r0) % self.wrap
-        return [tt + self.s] + ([tt + self.s + self.wrap] if tt < self.fold
-                                else [])
-
-
-def corr(x, taps, ay, ax, Ho, Wo):
-    """nonsep_corr_kernel on one (H, W) plane: (K, Ho, Wo), taps
-    (K, Ly, Lx); checks that every window called interior reads what
-    src() gives."""
-    K, Ly, Lx = taps.shape
-    out = np.zeros((K, Ho, Wo))
-    for oy in range(Ho):
-        yin, sy = ay.interior(2 * oy, Ly)
-        rows = [ay.src(2 * oy + a) for a in range(Ly)]
-        if yin:
-            assert rows == [2 * oy + a + sy for a in range(Ly)]
-        for ox in range(Wo):
-            xin, sx = ax.interior(2 * ox, Lx)
-            cols = [ax.src(2 * ox + b) for b in range(Lx)]
-            if xin:
-                assert cols == [2 * ox + b + sx for b in range(Lx)]
-            for a, r in enumerate(rows):
-                for b, q in enumerate(cols):
-                    if r >= 0 and q >= 0:
-                        out[:, oy, ox] += taps[:, a, b] * x[r, q]
-    return out
-
 
 def gather_window(g, taps, ay, ax, u, v):
     """nonsep_stencil.cuh:gather_window: the taps of position (u, v)'s
@@ -117,18 +84,7 @@ def gather_window(g, taps, ay, ax, u, v):
     return acc
 
 
-def gather(g, taps, ay, ax, Ho, Wo):
-    """nonsep_gather_kernel on one (K, Hi, Wi) stack: (Ho, Wo)."""
-    out = np.zeros((Ho, Wo))
-    for ty in range(Ho):
-        for tx in range(Wo):
-            out[ty, tx] = sum(gather_window(g, taps, ay, ax, u, v)
-                              for u in ay.images(ty)
-                              for v in ax.images(tx))
-    return out
-
-
-PY = 4      # csrc/nonsep_afb.cu: positions / quads a thread, along rows
+PY = 4      # csrc/nonsep_tile.cuh: positions / quads a thread, along rows
 
 
 def _padded_taps(f):
@@ -139,17 +95,14 @@ def _padded_taps(f):
     return tp
 
 
-def k14_forward(x, f, mode):
-    """csrc/nonsep_afb.cu:afb_tile_kernel on one (H, W) plane, tile by
-    tile: the window staged (the maps applied per row and column, -1 as
-    zero) into parity planes of ``_fwd_pitch``, each thread's PY rows of
-    positions read back from it tap by tap; its first warp's reads fall
-    on 32 distinct banks.  The pitch padding is NaN: a read of it shows."""
+def staged_tile(x, f, ay, ax, Ho, Wo, bx, by):
+    """csrc/nonsep_tile.cuh:afb_tile_kernel on one (H, W) plane, tile by
+    tile: the window staged (the axis maps' src applied per row and
+    column, -1 as zero) into parity planes of ``_fwd_pitch``, each
+    thread's PY rows of positions read back from it tap by tap; its first
+    warp's reads fall on 32 distinct banks.  The pitch padding is NaN: a
+    read of it shows."""
     K, Ly, Lx = f.shape
-    H, W = x.shape
-    ay, ax = AfbAxis(H, Ly, mode), AfbAxis(W, Lx, mode)
-    Ho, Wo = ay.out, ax.out
-    bx, by = nonsep.afb_tile(K, Ly, Lx, Ho, Wo)
     tp = _padded_taps(f)
     rows, cols = 2 * PY * by + Ly - 2, 2 * bx + Lx - 2
     pitch = nonsep._fwd_pitch(cols, bx)
@@ -185,6 +138,71 @@ def k14_forward(x, f, mode):
     return out
 
 
+def k14_forward(x, f, mode):
+    """K14's forward: the staged tile through AfbAxis (the pads), the
+    tile of afb_tile."""
+    K, Ly, Lx = f.shape
+    H, W = x.shape
+    ay, ax = AfbAxis(H, Ly, mode), AfbAxis(W, Lx, mode)
+    return staged_tile(x, f, ay, ax, ay.out, ax.out,
+                       *nonsep.afb_tile(K, Ly, Lx, ay.out, ax.out))
+
+
+def poly_tile(g, f, H, W, fy, fx, U0, nU, V0, nV, rot, bx, by):
+    """csrc/nonsep_tile.cuh:afb_adjoint_tile_kernel on one (K, Hi, Wi)
+    stack: quads U0 .. U0 + nU - 1 (x V), 2 x 2 positions each from the
+    window staged K innermost (zero outside the stack), position u
+    written to pixel u - fy (under rot wrapped once into [0, H), else
+    only inside it); every pixel written once."""
+    K, Ly, Lx = f.shape
+    tp = _padded_taps(f)
+    kmax = tp.shape[2]
+    Ay, Ax = (Ly + 1) // 2, (Lx + 1) // 2
+    rows, cols = PY * by + Ay - 1, bx + Ax - 1
+    assert nonsep._adj_smem(kmax, Ly, Lx, bx, by) == 4 * (
+        tp.size + kmax * rows * cols)
+    gk = np.zeros((kmax, *g.shape[1:]))
+    gk[:K] = g
+    ty, tx, i = np.meshgrid(range(by), range(bx), range(PY), indexing="ij")
+    out = np.full((H, W), np.nan)
+
+    def pixel(u, n):
+        if rot:
+            u = np.where(u < 0, u + n, np.where(u >= n, u - n, u))
+        return u, (u >= 0) & (u < n)
+    for Ut in range(U0, U0 + nU, PY * by):
+        for Vt in range(V0, V0 + nV, bx):
+            o = Ut - (Ay - 1) + np.arange(rows)
+            q = Vt - (Ax - 1) + np.arange(cols)
+            okr = (o >= 0) & (o < g.shape[1])
+            okc = (q >= 0) & (q < g.shape[2])
+            w = np.zeros((kmax, rows, cols))
+            w[:, okr[:, None] & okc[None, :]] = gk[:, o[okr]][
+                :, :, q[okc]].reshape(kmax, -1)
+            w = w.reshape(kmax // 4, 4, rows, cols).transpose(0, 2, 3, 1)
+            acc = np.zeros((2, 2, by, bx, PY))
+            for al in range(Ay):
+                for be in range(Ax):
+                    d = w[:, ty + by * i + Ay - 1 - al,
+                          tx + Ax - 1 - be]     # (kmax/4, ..., 4)
+                    d = np.moveaxis(d, 0, -2).reshape(*ty.shape, kmax)
+                    for du in (0, 1):
+                        for dv in (0, 1):
+                            if 2 * al + du < Ly and 2 * be + dv < Lx:
+                                acc[du, dv] += d @ tp[2 * al + du,
+                                                      2 * be + dv]
+            U, V = Ut + ty + by * i, Vt + tx
+            for du in (0, 1):
+                for dv in (0, 1):
+                    ii, oki = pixel(2 * U + du - fy, H)
+                    jj, okj = pixel(2 * V + dv - fx, W)
+                    ok = (U < U0 + nU) & (V < V0 + nV) & oki & okj
+                    assert np.isnan(out[ii[ok], jj[ok]]).all()
+                    out[ii[ok], jj[ok]] = acc[du, dv][ok]
+    assert not np.isnan(out).any()
+    return out
+
+
 def k14_adjoint(g, f, mode, H, W, separable=False):
     """csrc/nonsep_afb.cu's adjoint on one (K, Ho, Wo) cotangent: the
     polyphase tiles (afb_adjoint_tile_kernel: 2 x 2 pixels a quad, from
@@ -207,49 +225,11 @@ def k14_adjoint(g, f, mode, H, W, separable=False):
     poly = iy is not None and ix is not None
     out = np.full((H, W), np.nan)
     if poly:
-        tp = _padded_taps(f)
-        kmax = tp.shape[2]
         fy, fx = ay.front, ax.front
-        bx, by = nonsep.adjoint_tile(K, Ly, Lx, H, W, fy, fx)
-        Ay, Ax = (Ly + 1) // 2, (Lx + 1) // 2
         U0, V0 = fy // 2, fx // 2
         nU, nV = (H - 1 + fy) // 2 - U0 + 1, (W - 1 + fx) // 2 - V0 + 1
-        rows, cols = PY * by + Ay - 1, bx + Ax - 1
-        assert nonsep._adj_smem(kmax, Ly, Lx, bx, by) == 4 * (
-            tp.size + kmax * rows * cols)
-        gk = np.zeros((kmax, *g.shape[1:]))
-        gk[:K] = g
-        ty, tx, i = np.meshgrid(range(by), range(bx), range(PY),
-                                indexing="ij")
-        for Ut in range(U0, U0 + nU, PY * by):
-            for Vt in range(V0, V0 + nV, bx):
-                o = Ut - (Ay - 1) + np.arange(rows)
-                q = Vt - (Ax - 1) + np.arange(cols)
-                okr = (o >= 0) & (o < g.shape[1])
-                okc = (q >= 0) & (q < g.shape[2])
-                w = np.zeros((kmax, rows, cols))
-                w[:, okr[:, None] & okc[None, :]] = gk[:, o[okr]][
-                    :, :, q[okc]].reshape(kmax, -1)
-                w = w.reshape(kmax // 4, 4, rows, cols).transpose(0, 2, 3, 1)
-                acc = np.zeros((2, 2, by, bx, PY))
-                for al in range(Ay):
-                    for be in range(Ax):
-                        d = w[:, ty + by * i + Ay - 1 - al,
-                              tx + Ax - 1 - be]     # (kmax/4, ..., 4)
-                        d = np.moveaxis(d, 0, -2).reshape(*ty.shape, kmax)
-                        for du in (0, 1):
-                            for dv in (0, 1):
-                                if 2 * al + du < Ly and 2 * be + dv < Lx:
-                                    acc[du, dv] += d @ tp[2 * al + du,
-                                                          2 * be + dv]
-                U, V = Ut + ty + by * i, Vt + tx
-                for du in (0, 1):
-                    for dv in (0, 1):
-                        ii, jj = 2 * U + du - fy, 2 * V + dv - fx
-                        ok = ((U < U0 + nU) & (V < V0 + nV) & (ii >= 0)
-                              & (ii < H) & (jj >= 0) & (jj < W))
-                        out[ii[ok], jj[ok]] = acc[du, dv][ok]
-        assert not np.isnan(out).any()
+        out = poly_tile(g, f, H, W, fy, fx, U0, nU, V0, nV, False,
+                        *nonsep.adjoint_tile(K, Ly, Lx, H, W, fy, fx))
     y0, y1 = iy or (0, 0)
     x0, x1 = ix or (0, 0)
     tab_y = nonsep.band_images(H, Ly, mode, separable)
@@ -271,6 +251,70 @@ def k14_adjoint(g, f, mode, H, W, separable=False):
                       if not (poly and u == uy and v == vx))
             out[ty_, tx_] = out[ty_, tx_] + acc if poly else acc
     return out
+
+
+def _sfb_positions(a, n, L, mode):
+    """Along one axis of K15's forward: each pixel's positions, the direct
+    one (the one the polyphase tile writes to it) first, as the band
+    kernel reads them (its own for an interior pixel, else the row of
+    sfb_band_images); checks the interior claim (one position each) and
+    that the lists are exactly the positions src maps to the pixel."""
+    f, U0, nU, rot = nonsep.sfb_quads(n, L, mode)
+    assert rot == a.per
+    lo, hi = nonsep.sfb_interior(n, L, mode)
+    tab = nonsep.sfb_band_images(n, L, mode)
+    u = np.arange(2 * n + L - 2)
+    src = np.array([a.src(v) for v in u])
+    lists = []
+    for t in range(a.out):
+        direct = (t + f) % a.out if rot else t + f
+        assert 2 * U0 <= direct < 2 * (U0 + nU)
+        if lo <= t < hi:
+            row = [direct]
+        else:
+            row = tab[t if t < lo else lo + t - hi]
+            assert (row[list(row).index(-1) if -1 in row else len(row):]
+                    == -1).all()
+            row = [int(v) for v in row if v >= 0]
+            assert len(row) > 1
+        assert row[0] == direct and sorted(row) == list(u[src == t])
+        lists.append(row)
+    return lists
+
+
+def k15_forward(c, f, mode):
+    """K15's forward on one (4, Ny, Nx) stack: the polyphase tile over
+    the bands (sfb_quads: positions [s, s + out) outside 'periodization',
+    every position of [0, wrap) once under the roll, wrapped at the
+    store; the tile of sfb_tile), then the band: each pixel outside the
+    interior rectangle adds the windows of its position pairs other than
+    the direct one (gather_window over the host's lists)."""
+    _, Ly, Lx = f.shape
+    _, Ny, Nx = c.shape
+    ay, ax = SfbAxis(Ny, Ly, mode), SfbAxis(Nx, Lx, mode)
+    (fy, U0, nU, rot), (fx, V0, nV, _) = (nonsep.sfb_quads(Ny, Ly, mode),
+                                          nonsep.sfb_quads(Nx, Lx, mode))
+    out = poly_tile(c, f, ay.out, ax.out, fy, fx, U0, nU, V0, nV, rot,
+                    *nonsep.sfb_tile(Ly, Lx, nU, nV))
+    ly = _sfb_positions(ay, Ny, Ly, mode)
+    lx = _sfb_positions(ax, Nx, Lx, mode)
+    for ty in range(ay.out):
+        for tx in range(ax.out):
+            out[ty, tx] += sum(gather_window(c, f, ay, ax, u, v)
+                               for i, u in enumerate(ly[ty])
+                               for j, v in enumerate(lx[tx]) if i or j)
+    return out
+
+
+def k15_adjoint(g, f, mode, Ny, Nx, separable=False):
+    """K15's adjoint on one (Hout, Wout) cotangent: K14's staged tile
+    with SfbAxis (each staged row's and column's output sample, the
+    separable plan's single fold included), the tile of afb_tile."""
+    _, Ly, Lx = f.shape
+    ay = SfbAxis(Ny, Ly, mode, separable)
+    ax = SfbAxis(Nx, Lx, mode, separable)
+    return staged_tile(g, f, ay, ax, Ny, Nx,
+                       *nonsep.afb_tile(4, Ly, Lx, Ny, Nx))
 
 
 def _f(K, Ly, Lx, seed):
@@ -334,10 +378,12 @@ def test_k14_separable_adjoint_plan(mode, K, Ly, Lx, H, W):
                                          (8, 4, 4, 6), (6, 10, 4, 5),
                                          (12, 6, 7, 3), (8, 8, 3, 3)])
 def test_k15_index_plans(mode, Ly, Lx, Ny, Nx):
-    """K15's forward (a gather over the 1-2 positions of each output
-    axis) and its adjoint (the corr stencil through the inverse map),
-    the periodization wrap-add of tails as long as the output (8 taps on
-    3 samples; the other modes have no output there)."""
+    """K15's forward (the polyphase tiles over the bands, the roll
+    wrapped at the store, the wrap-add's second positions added by the
+    band from the host's tables) and its adjoint (K14's staged tile
+    through the inverse map), the periodization wrap-add of tails as
+    long as the output (8 taps on 3 samples; the other modes have no
+    output there)."""
     if mode != "periodization" and min(2 * Ny - Ly, 2 * Nx - Lx) + 2 < 1:
         with pytest.raises(RuntimeError):
             nonsep.nonsep_sfb_plain(torch.zeros(1, 1, 4, Ny, Nx),
@@ -349,12 +395,11 @@ def test_k15_index_plans(mode, Ly, Lx, Ny, Nx):
     want = nonsep.nonsep_sfb_plain(torch.from_numpy(c)[None, None], f,
                                    mode)[0, 0].numpy()
     assert want.shape == (ay.out, ax.out)
-    np.testing.assert_allclose(gather(c, f, ay, ax, ay.out, ax.out), want,
-                               **TOL)
+    np.testing.assert_allclose(k15_forward(c, f, mode), want, **TOL)
     g = np.random.RandomState(6).randn(*want.shape)
     want = nonsep.nonsep_sfb_adjoint_plain(
         torch.from_numpy(g)[None, None], f, mode, Ny, Nx)[0, 0].numpy()
-    np.testing.assert_allclose(corr(g, f, ay, ax, Ny, Nx), want, **TOL)
+    np.testing.assert_allclose(k15_adjoint(g, f, mode, Ny, Nx), want, **TOL)
     # the host map (the tests' and chip_smoke.py's) is the device one
     u = np.arange(ay.plan[0] + Ly + 2 * Ny)
     assert list(nonsep.sfb_axis_src(ay.plan, ay.per, u)) == [ay.src(v)
@@ -367,21 +412,28 @@ def test_k15_index_plans(mode, Ly, Lx, Ny, Nx):
     *[(m, 8, 4, 5, 6) for m in ("zero", "symmetric", "periodic",
                                 "periodization")]])
 def test_k15_separable_plan(mode, Ly, Lx, Ny, Nx):
-    """K15 on the separable merge's plan (sfb2d's backward): a
+    """K15's adjoint on the separable merge's plan (sfb2d's backward): a
     'periodization' tail longer than the output folds once and the rest
-    is cut, as K7 does; the plain map is the separable merge itself for
-    outer products, in every mode."""
+    is cut, as K7 does, in K14's staged tile through SfbAxis; one-tap
+    axes (sfb1d's backward: Ly or Lx = 2 with a zero row); the plain map
+    is the separable merge itself for outer products, in every mode."""
     f = _f(4, Ly, Lx, 11)
     c = np.random.RandomState(12).randn(4, Ny, Nx)
     ay, ax = SfbAxis(Ny, Ly, mode, True), SfbAxis(Nx, Lx, mode, True)
     want = nonsep.nonsep_sfb_plain(torch.from_numpy(c)[None, None], f, mode,
                                    True)[0, 0].numpy()
-    np.testing.assert_allclose(gather(c, f, ay, ax, ay.out, ax.out), want,
-                               **TOL)
     g = np.random.RandomState(13).randn(*want.shape)
-    want = nonsep.nonsep_sfb_adjoint_plain(
-        torch.from_numpy(g)[None, None], f, mode, Ny, Nx, True)[0, 0].numpy()
-    np.testing.assert_allclose(corr(g, f, ay, ax, Ny, Nx), want, **TOL)
+    for psfs in (f, afb_sfb._one_axis_psfs(f[:2, :, 0], 2, 4),
+                 afb_sfb._one_axis_psfs(f[:2, 0], 3, 4)):
+        # sfb1d's backward: the one-tap axis' cotangent twice as long
+        g_ = g if psfs is f else np.random.RandomState(15).randn(*(
+            nonsep._sfb_axis_plan(n, L, mode, True)[0]
+            for n, L in zip((Ny, Nx), psfs.shape[1:])))
+        want = nonsep.nonsep_sfb_adjoint_plain(
+            torch.from_numpy(g_)[None, None], psfs, mode, Ny, Nx,
+            True)[0, 0].numpy()
+        np.testing.assert_allclose(k15_adjoint(g_, psfs, mode, Ny, Nx, True),
+                                   want, **TOL)
     u = np.arange(ay.plan[0] + Ly + 2 * Ny)
     assert list(nonsep.sfb_axis_src(ay.plan, ay.per, u)) == [ay.src(v)
                                                               for v in u]

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Time K8 (dtcwt_filt), K10 (dtcwt_ifilt), K14 (nonsep_afb and its
-adjoint) and K16 (swt_sfb and its adjoint) on one CUDA card at the shapes
-of chip_smoke.py's per-level, non-separable and à trous paths, each call
-checked against its plain version.
+"""Time K7 (dwt_sfb), K8 (dtcwt_filt), K10 (dtcwt_ifilt), K14 (nonsep_afb
+and its adjoint), K15 (nonsep_sfb and its adjoint) and K16 (swt_sfb and
+its adjoint) on one CUDA card at the shapes of chip_smoke.py's DWT,
+per-level, non-separable and à trous paths, each call checked against
+its plain version.
 
-    python3 tools/stencil_probe.py [--root DIR] [--only k8|k10|k14|k16]
+    python3 tools/stencil_probe.py [--root DIR]
+                                   [--only k7|k8|k10|k14|k15|k16 ...]
 
 ``--root`` imports ``pytorch_wavelets_tpu_torch`` from another checkout
 (say an unpacked parent commit), so that two versions can be timed in one
@@ -222,11 +224,79 @@ def run_k16(afb, filters):
             del got, want
 
 
+def run_k7(afb, filters):
+    """dwt_main's merges (DWT J=3, db4, 'symmetric', 32x10x512^2: the
+    column merges of two bands of a level's stack read in place, the row
+    merge of their results, at each level's size), dwt1d's row merges
+    (16x8 planes of one row) and alt_main's (10 taps, 128x3)."""
+    db4, qsa = filters.wavelet("db4"), filters.qshift("qshift_a")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cases = [(f"dwt L{j} {ax}", (32, 10), nin, db4.rec_lo, db4.rec_hi, ax)
+             for j, nin in ((3, 70), (2, 133), (1, 259))
+             for ax in ("col", "row")]
+    cases += [("dwt1d L1 row", (16, 8), 32771, db4.rec_lo, db4.rec_hi,
+               "row1d"),
+              ("alt L1 col", (128, 3), 128, qsa[2], qsa[6], "col"),
+              ("alt L1 row", (128, 3), 128, qsa[2], qsa[6], "row")]
+    mode = "symmetric"
+    for label, (N, C), nin, g0, g1, ax in cases:
+        g0, g1 = (np.asarray(g, np.float64).ravel() for g in (g0, g1))
+        L = len(g0)
+        if ax == "col":
+            stack = torch.randn((N, C, 3, nin, nin), generator=gen,
+                                device="cuda")
+            lo, hi, axis = stack[:, :, 0], stack[:, :, 1], 2
+        elif ax == "row":
+            lo, hi = (torch.randn((N, C, 2 * nin - L + 2, nin),
+                                  generator=gen, device="cuda")
+                      for _ in range(2))
+            axis = 3
+        else:
+            lo, hi = (torch.randn((N, C, 1, nin), generator=gen,
+                                  device="cuda") for _ in range(2))
+            axis = 3
+        inst = _insts(afb.sfb1d_conv, lambda: afb.sfb1d_conv(
+            lo, hi, g0, g1, mode, axis))
+        got = afb.sfb1d_conv(lo, hi, g0, g1, mode, axis)
+        crop = slice(0, 2)
+        want = afb.sfb1d_conv_plain(lo[crop], hi[crop], g0, g1, mode, axis)
+        ms = timed_ms(lambda: afb.sfb1d_conv(lo, hi, g0, g1, mode, axis))
+        _line("dwt_sfb", label, got[crop], want, ms,
+              4.0 * (lo.numel() + hi.numel() + got.numel()), inst)
+        del got, want, lo, hi
+
+
+def run_k15(nonsep, filters):
+    """nonsep_rt's synthesis and its adjoint (db4 on 32x10x512^2: bands
+    of 256^2 in 'periodization', 259^2 in 'symmetric')."""
+    w = filters.wavelet("db4")
+    f = nonsep.outer_filters(w.rec_lo, w.rec_hi, w.rec_lo, w.rec_hi)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    crop = slice(0, 2)
+    for mode, n in (("periodization", 256), ("symmetric", 259)):
+        c = torch.randn((32, 10, 4, n, n), generator=gen, device="cuda")
+        inst = _insts(nonsep.nonsep_sfb, lambda: nonsep.nonsep_sfb(c, f,
+                                                                   mode))
+        y = nonsep.nonsep_sfb(c, f, mode)
+        want = nonsep.nonsep_sfb_plain(c[crop], f, mode)
+        ms = timed_ms(lambda: nonsep.nonsep_sfb(c, f, mode))
+        nbytes = 4.0 * (c.numel() + y.numel())
+        _line("nonsep_sfb", mode, y[crop], want, ms, nbytes, inst)
+        g = torch.randn(y.shape, generator=gen, device="cuda")
+        inst = _insts(nonsep.nonsep_sfb_adjoint,
+                      lambda: nonsep.nonsep_sfb_adjoint(g, f, mode, n, n))
+        dc = nonsep.nonsep_sfb_adjoint(g, f, mode, n, n)
+        want = nonsep.nonsep_sfb_adjoint_plain(g[crop], f, mode, n, n)
+        ms = timed_ms(lambda: nonsep.nonsep_sfb_adjoint(g, f, mode, n, n))
+        _line("nonsep_sfb_adjoint", mode, dc[crop], want, ms, nbytes, inst)
+        del c, y, g, dc, want
+
+
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--root", default=None)
-    p.add_argument("--only", choices=("k8", "k10", "k14", "k16"),
-                   default=None)
+    p.add_argument("--only", nargs="+", choices=("k7", "k8", "k10", "k14",
+                                                 "k15", "k16"), default=None)
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("stencil_probe: no CUDA device", file=sys.stderr)
@@ -239,13 +309,15 @@ def main():
     _cuda.build()
     print(json.dumps({"root": args.root or ".",
                       "package": nonsep.__file__}), flush=True)
-    runs = {"k8": lambda: run_k8(dtcwt_fb, filters),
+    runs = {"k7": lambda: run_k7(afb_sfb, filters),
+            "k8": lambda: run_k8(dtcwt_fb, filters),
             "k10": lambda: run_k10(dtcwt_fb, filters),
             "k14": lambda: run_k14(nonsep, filters),
+            "k15": lambda: run_k15(nonsep, filters),
             "k16": lambda: run_k16(afb_sfb, filters)}
     with torch.no_grad():
         for name, run in runs.items():
-            if args.only in (None, name):
+            if args.only is None or name in args.only:
                 run()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
