@@ -43,8 +43,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    mode on the card (the only mode where the reference's backward is the
    true adjoint).  dwt1d: DWT1DForward(J=5, db4, symmetric) + inverse +
    gradient on 16x8x65536, checked the same way.  Then K6/K7 at edge
-   cases (odd sizes, db38 at periodization's single-fold sizes, strided
-   views as inputs) against their plain versions.
+   cases (odd sizes, db38 at periodization's single-fold sizes, strided,
+   aligned and transposed views as inputs: each instantiation) against
+   their plain versions.
 8. the per-level DTCWT path (K8-K11, K2/K3 per level): scat_bp,
    ScatLayerj2(biort="near_sym_b_bp", qshift="qshift_b_bp") on
    128x3x256x256 fp32 (the reference's ScatterNet workload with its
@@ -140,10 +141,14 @@ counted run by instantiation, the copy width their staging took (16- or
 4-byte cp.async, plain 2-byte loads; csrc/banded_pipe.cuh) and K1's
 64-column tile (async16_narrow); K1's and K17's
 kernel lines carry ``instantiations``, the same count for the recorded
-calls they replay.  K8's, K10's, K14's and K16's do too (K8's, K10's and
-K16's axis and vector width, K14's PSF count and tile, the adjoints'
-band gathers), and so do the scat_bp, dtcwt_large, per_level_main,
-quad_nonsep, nonsep_rt and swt_sfb lines for their counted runs.  K16's
+calls they replay.  K6's to K10's and K14's to K16's do too (K6's to
+K10's and K16's axis and vector width, K6's and K7's long_fold, K14's
+PSF count and tile, the adjoints' band gathers), and so do the DWT,
+Selesnick, scat_bp, dtcwt_large, per_level_main, quad_nonsep, nonsep_rt
+and swt_sfb lines for their counted runs; a main path fails if a K6 or
+K7 call took long_fold or a K6 or K9 call ran off the tiles
+(tiles_only), and the edge-case phases check every instantiation of K6,
+K7 and K9.  K16's
 lines give torch.matmul on the probed operator (its transpose for the
 adjoint) as the library yardstick, with K1 on the same operator
 (k1_on_operator_ms) and the adjoint's partial transposed convolution
@@ -1052,25 +1057,36 @@ def replay(call, banded, quad, mag, afb, pad, fb=None, pool=None,
 
 def _inst_counter(name, fb):
     """The wrapper whose ``instantiations`` a call of kernel ``name``
-    bumps (K7's, K8's, K10's, K14's two, K15's two, K16's two), else
-    None."""
+    bumps (K6's to K10's, K14's two, K15's two, K16's two), else None."""
     from pytorch_wavelets_tpu_torch.ops import afb_sfb, nonsep
-    if name in ("dtcwt_filt", "dtcwt_ifilt") and fb is not None:
+    if name in ("dtcwt_filt", "dtcwt_dfilt", "dtcwt_ifilt") and \
+            fb is not None:
         return getattr(fb, name)
     if name in ("nonsep_afb", "nonsep_afb_adjoint", "nonsep_sfb",
                 "nonsep_sfb_adjoint"):
         return getattr(nonsep, name)
-    if name in ("sfb1d_conv", "sfb1d_atrous_conv", "sfb1d_atrous_adjoint"):
+    if name in ("afb1d_corr", "sfb1d_conv", "sfb1d_atrous_conv",
+                "sfb1d_atrous_adjoint"):
         return getattr(afb_sfb, name)
     return None
 
 
-def k7_tiles_only(insts, phase):
-    """Every K7 launch of a main path ran a pair tile, never the
-    per-output long_fold."""
-    k7 = insts.get("sfb1d_conv", {})
-    require(not k7.get("long_fold"), f"{phase}: K7 ran its per-output "
-            f"long_fold on a main path: {k7}")
+TILE_INSTS = ("col_scalar", "col_float4", "row_run", "row_gather")
+
+
+def tiles_only(insts, phase, counts):
+    """Every K6, K7 and K9 launch of a main path ran a tile: none took
+    K6's or K7's per-output long_fold, and K6's and K9's tile counts add
+    up to the run's launches ``counts``."""
+    for k in ("afb1d_corr", "sfb1d_conv"):
+        got = insts.get(k, {})
+        require(not got.get("long_fold"), f"{phase}: {SOURCES[k][0]} ran "
+                f"its per-output long_fold on a main path: {got}")
+    for k in ("afb1d_corr", "dtcwt_dfilt"):
+        got = insts.get(k, {})
+        require(sum(got.get(w, 0) for w in TILE_INSTS) == counts.get(k, 0),
+                f"{phase}: {SOURCES[k][0]} launched {counts.get(k, 0)} "
+                f"times, {got} on its tiles")
     return insts
 
 
@@ -1368,7 +1384,7 @@ def scat_step(tt, ops, fused, scat, shape, check_n, phase, timing,
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         copies = copy_counts(ops)
-        insts = inst_counts(ops)
+        insts = tiles_only(inst_counts(ops), phase, counts)
         first_s = time.perf_counter() - t0
     bwd_counts = {k: counts[k] - fwd_counts[k] for k in counts}
     need_fwd, need_bwd = need or (
@@ -1508,7 +1524,7 @@ def dwt_path(tt, ops, afb, dwt, shape, J, one_d, phase):
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         first_s = time.perf_counter() - t0
-        insts = k7_tiles_only(inst_counts(ops), phase)
+        insts = tiles_only(inst_counts(ops), phase, counts)
         inv_counts = {k: counts[k] - fwd_counts[k] for k in counts}
         require(fwd_counts["afb1d_corr"] > 0 and inv_counts["sfb1d_conv"] > 0,
                 f"{phase}: a kernel of the path never launched: forward "
@@ -1568,7 +1584,7 @@ def dwt_path(tt, ops, afb, dwt, shape, J, one_d, phase):
     grad = torch.autograd.grad(outs, x, cts)[0]
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    tinsts = k7_tiles_only(inst_counts(ops), f"{phase} training")
+    tinsts = tiles_only(inst_counts(ops), f"{phase} training", counts)
     tb_counts = {k: counts[k] - tf_counts[k] for k in counts}
     require(all(tf_counts[k] > 0 and tb_counts[k] > 0 for k in DWT_KERNELS),
             f"{phase} training: a kernel of the path never launched: "
@@ -1613,18 +1629,17 @@ def dwt_path(tt, ops, afb, dwt, shape, J, one_d, phase):
     return fields, tfields, by_role, r.calls, step
 
 
-K7_INSTS = ("col_scalar", "col_float4", "row_run", "row_gather",
-            "long_fold")
+PAIR_INSTS = TILE_INSTS + ("long_fold",)   # K6's and K7's
 
 
 def dwt_edge_cases(afb, pad):
     """K6/K7 against their plain versions where the main paths do not
     reach: every mode along both axes, odd sizes, db38 (76 taps) at
-    periodization's single-fold sizes, L = 3 and 10 (K7's run-time and
-    5-tap windows), strided views as inputs (bands of a stack; for K7
-    also aligned rows and transposed views: each of its
-    instantiations), cropped outputs.  Returns (calls checked, max
-    error, K7's launches by instantiation)."""
+    periodization's single-fold sizes, L = 3 and 10 (the run-time and
+    5-tap windows), strided views as inputs (bands of a stack, aligned
+    rows and transposed views: each instantiation of both), cropped
+    outputs.  Returns (calls checked, max error, K6's and K7's launches
+    by instantiation)."""
     gen = torch.Generator().manual_seed(70)
     calls = []
     for L, n in ((8, 33), (8, 6), (76, 20), (76, 7), (10, 29), (3, 12)):
@@ -1643,6 +1658,13 @@ def dwt_edge_cases(afb, pad):
                               (x, h0, h1, mode, axis, None)))
                 calls.append(("afb1d_corr", "edge",
                               (x, h0, h1, mode, axis, max(m - 1, 1))))
+                # aligned rows (float4 columns) or a transposed view (the
+                # row tile's gather)
+                xv = (torch.randn((2, 3, n, 12), generator=gen).cuda()
+                      if axis == 2 else torch.randn(
+                          (2, 3, n, 9), generator=gen).cuda().transpose(2, 3))
+                calls.append(("afb1d_corr", "edge",
+                              (xv, h0, h1, mode, axis, None)))
                 shape[axis] = m
                 stack = torch.randn((shape[0], shape[1], 3, *shape[2:]),
                                     generator=gen).cuda()
@@ -1660,7 +1682,8 @@ def dwt_edge_cases(afb, pad):
                 calls.append(("sfb1d_conv", "edge",
                               (*pair, g0, g1, mode, axis, None)))
     err = 0.0
-    before = dict(afb.sfb1d_conv.instantiations)
+    wrappers = {"dwt_afb": afb.afb1d_corr, "dwt_sfb": afb.sfb1d_conv}
+    before = {k: dict(w.instantiations) for k, w in wrappers.items()}
     for call in calls:
         got, want = dwt_call_parts(call, afb, pad)[:2]
         require(torch.allclose(got, want, **DWT_TOL),
@@ -1669,10 +1692,12 @@ def dwt_edge_cases(afb, pad):
                 f"{max_err(got, want)}")
         err = max(err, max_err(got, want))
     torch.cuda.synchronize()
-    insts = {k: v - before.get(k, 0)
-             for k, v in afb.sfb1d_conv.instantiations.items()}
-    require(all(insts.get(k) for k in K7_INSTS),
-            f"dwt_edge_cases: a K7 instantiation was not checked: {insts}")
+    insts = {k: {i: v - before[k].get(i, 0)
+                 for i, v in w.instantiations.items()}
+             for k, w in wrappers.items()}
+    require(all(v.get(i) for v in insts.values() for i in PAIR_INSTS),
+            f"dwt_edge_cases: a K6 or K7 instantiation was not checked: "
+            f"{insts}")
     return len(calls), err, insts
 
 
@@ -1744,7 +1769,7 @@ def dtcwt_large(tt, ops, lev, fb, scat, quad, pool, replay_calls):
         rec = i((yl, yh))
         torch.cuda.synchronize()
         counts = ops.launch_counts()
-        insts = inst_counts(ops)
+        insts = tiles_only(inst_counts(ops), "dtcwt_large", counts)
         first_s = time.perf_counter() - t0
         inv_counts = {k: counts[k] - fwd_counts[k] for k in counts}
         _need(fwd_counts, ("dtcwt_filt", "dtcwt_dfilt", "q2c_pack"),
@@ -1815,7 +1840,8 @@ def dtcwt_large(tt, ops, lev, fb, scat, quad, pool, replay_calls):
     grad = torch.autograd.grad(outs, xg, cts)[0]
     torch.cuda.synchronize()
     step_bwd_counts = ops.launch_counts()
-    step_bwd_insts = inst_counts(ops)
+    step_bwd_insts = tiles_only(inst_counts(ops), "dtcwt_large",
+                                step_bwd_counts)
     del outs
     _need(step_bwd_counts, ("dtcwt_filt", "dtcwt_dfilt", "dtcwt_ifilt",
                             "q2c_pack", "c2q_unpack"), "dtcwt_large",
@@ -1887,7 +1913,7 @@ def per_level_main(tt, ops, banded, fb, lev, scat):
             rec = i((yl, yh))
             torch.cuda.synchronize()
             counts = ops.launch_counts()
-            insts = inst_counts(ops)
+            insts = tiles_only(inst_counts(ops), "per_level_main", counts)
             inv_counts = {k: counts[k] - fwd_counts[k] for k in counts}
             _need(fwd_counts, ("dtcwt_filt", "dtcwt_dfilt", "q2c_pack"),
                   "per_level_main", "forward")
@@ -1929,9 +1955,11 @@ def per_level_main(tt, ops, banded, fb, lev, scat):
 def stencil_edge_cases(fb, pool):
     """K8-K11 against their plain versions where the main paths do not
     reach: even-length taps (n + 1 outputs), 'zero' mode, K9 at N = 4, 8,
-    12, K10 with qshift_c and qshift_32 (m // 2 even) and qshift_b (odd),
-    strided views as inputs, writes into and accumulation onto a slice.
-    Returns (calls checked, max error)."""
+    12 and in each of its instantiations (the run-time window with
+    qshift_c and qshift_32), K10 with qshift_c and qshift_32 (m // 2
+    even) and qshift_b (odd), strided views as inputs, writes into and
+    accumulation onto a slice.  Returns (calls checked, max error, K9's
+    launches by instantiation)."""
     from pytorch_wavelets_tpu_torch.filters import qshift
     gen = torch.Generator().manual_seed(90)
     calls = []
@@ -1972,6 +2000,15 @@ def stencil_edge_cases(fb, pool):
                     x = band((2, 3, 8, 12), axis, n)
                     calls.append(("dtcwt_dfilt", "edge",
                                   (x, ha, hb, highpass, axis, None)))
+                # K9's other instantiations: aligned rows (float4
+                # columns), a transposed view (the row tile's gather)
+                shape = [2, 3, 8, 12]
+                shape[axis] = 16
+                xv = (torch.randn(shape, generator=gen).cuda() if axis == 2
+                      else torch.randn(shape[:2] + shape[2:][::-1],
+                                       generator=gen).cuda().transpose(2, 3))
+                calls.append(("dtcwt_dfilt", "edge",
+                              (xv, ha, hb, highpass, axis, None)))
                 for n in (2, 6, 10):
                     x = band((2, 3, 6, 8), axis, n)
                     calls.append(("dtcwt_ifilt", "edge",
@@ -1983,6 +2020,7 @@ def stencil_edge_cases(fb, pool):
     calls += [("avg_pool2_fwd", "edge", (x,)),
               ("avg_pool2_bwd", "edge", (x[..., ::2],))]
     err = 0.0
+    before = dict(fb.dtcwt_dfilt.instantiations)
     for call in calls:
         got, want, *_, tol = stencil_call_parts(call, fb, pool)
         ok = (torch.equal(got, want) if tol == "exact"
@@ -1991,7 +2029,12 @@ def stencil_edge_cases(fb, pool):
                 f"disagrees with its plain version by {max_err(got, want)}")
         err = max(err, max_err(got, want))
     torch.cuda.synchronize()
-    return len(calls), err
+    insts = {i: v - before.get(i, 0)
+             for i, v in fb.dtcwt_dfilt.instantiations.items()}
+    require(all(insts.get(i) for i in TILE_INSTS),
+            f"stencil_edge_cases: a K9 instantiation was not checked: "
+            f"{insts}")
+    return len(calls), err, insts
 
 
 # ---------------------------------------------------------------------------
@@ -2863,7 +2906,7 @@ def alt_main(ops, afb, dwt, alt):
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         first_s = time.perf_counter() - t0
-        insts = k7_tiles_only(inst_counts(ops), "alt_main")
+        insts = tiles_only(inst_counts(ops), "alt_main", counts)
         inv_counts = {k: counts[k] - fwd_counts[k] for k in counts}
         require(fwd_counts["afb1d_corr"] > 0 and inv_counts["sfb1d_conv"] > 0,
                 f"alt_main: a kernel of the path never launched: forward "
@@ -2921,12 +2964,12 @@ def alt_main(ops, afb, dwt, alt):
     coeffs = f(x)
     outs = [i(coeffs), *_flat(coeffs)]
     tf_counts = ops.launch_counts()
-    tf_insts = k7_tiles_only(inst_counts(ops), "alt_train")
+    tf_insts = tiles_only(inst_counts(ops), "alt_train", tf_counts)
     ops.reset_launches()
     grad = torch.autograd.grad(outs, x, cts)[0]
     torch.cuda.synchronize()
     tb_counts = ops.launch_counts()
-    tb_insts = k7_tiles_only(inst_counts(ops), "alt_train")
+    tb_insts = tiles_only(inst_counts(ops), "alt_train", tb_counts)
     require(all(tf_counts[k] > 0 and tb_counts[k] > 0 for k in DWT_KERNELS),
             f"alt_train: a kernel of the path never launched: forward "
             f"{tf_counts}, backward {tb_counts}")
@@ -3952,7 +3995,7 @@ def main():
     emit("dwt1d", **ofields, training=otfields)
     n_edge, edge_err, edge_insts = dwt_edge_cases(afb_sfb, pad)
     emit("dwt_edge_cases", calls=n_edge, max_abs_err=edge_err,
-         tolerance=DWT_TOL, k7_instantiations=edge_insts)
+         tolerance=DWT_TOL, instantiations=edge_insts)
 
     groups = [(SOURCES[k][0], SOURCES[k][2], counts[k],
                [c for c in calls if c[0] == k])
@@ -4062,9 +4105,9 @@ def main():
     level_rows(mcalls, m_roles, f"DTCWT J=2 {shape_str(MAIN_SHAPE)} per "
                f"level")
     del mcalls
-    n_edge, edge_err = stencil_edge_cases(dtcwt_fb, pool)
+    n_edge, edge_err, edge_insts = stencil_edge_cases(dtcwt_fb, pool)
     emit("stencil_edge_cases", calls=n_edge, max_abs_err=edge_err,
-         tolerance=STENCIL_TOL)
+         tolerance=STENCIL_TOL, k9_instantiations=edge_insts)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 

@@ -40,9 +40,9 @@
 //   coalesced along a row) and R consecutive pairs (4 for V = 4, 8 for
 //   V = 1), the input rows of a block of R window taps held in registers
 //   and the next R rows loaded before the block's FMAs (K16's column
-//   window, csrc/swt_atrous.cu): each row is loaded once a chunk plus
-//   the chunk's A - 1 rows of halo, each load feeds 2 R V FMAs, the edge
-//   map runs once per loaded row.
+//   window, csrc/swt_atrous.cu; stencil_tile.cuh:tap_window): each row
+//   is loaded once a chunk plus the chunk's A - 1 rows of halo, each load
+//   feeds 2 R V FMAs, the edge map runs once per loaded row.
 // - Row tiles (axis 3), pair_row_kernel.  A block of RW = 8 warps takes
 //   TR = 32 rows (a lane each), flattened across the (N, C) planes so
 //   that one-row planes (DWT1D) fill it, and a segment of S pairs of
@@ -198,43 +198,6 @@ __device__ __forceinline__ int pair_out(int u, const PairTile& a) {
   return n;
 }
 
-// acc[p][o] += sum_e t[p A + e] X(o + e), o < R, for one input: X(e) by
-// load(e, w), the window of a block of R taps in registers and the next
-// R samples loaded before the block's FMAs.  AT > 0: A = AT at compile
-// time.
-template <int AT, int R, int V, typename Load>
-__device__ __forceinline__ void pair_window(int A_rt, const float* t,
-                                            Load load,
-                                            float (&acc)[2][R][V]) {
-  const int A = AT > 0 ? AT : A_rt;
-  float w[2 * R][V];
-#pragma unroll
-  for (int o = 0; o < R; ++o) load(o, w[o]);
-  for (int kb = 0; kb < A; kb += R) {
-#pragma unroll
-    for (int q = R; q < 2 * R; ++q)
-      if (kb + q <= A + R - 2)  // the last sample a pair reads
-        load(kb + q, w[q]);
-#pragma unroll
-    for (int kk = 0; kk < R; ++kk) {
-      if (kb + kk < A) {
-        const float t0 = t[kb + kk], t1 = t[A + kb + kk];
-#pragma unroll
-        for (int o = 0; o < R; ++o)
-#pragma unroll
-          for (int v = 0; v < V; ++v) {
-            acc[0][o][v] = fmaf(t0, w[o + kk][v], acc[0][o][v]);
-            acc[1][o][v] = fmaf(t1, w[o + kk][v], acc[1][o][v]);
-          }
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < R; ++q)
-#pragma unroll
-      for (int v = 0; v < V; ++v) w[q][v] = w[q + R][v];
-  }
-}
-
 template <int V, int AT>
 __global__ void __launch_bounds__(SCW* SCT)
     pair_col_kernel(PairTile a, PairTaps tp) {
@@ -270,7 +233,7 @@ __global__ void __launch_bounds__(SCW* SCT)
           for (int v = 0; v < V; ++v) acc[p2][o][v] = 0.f;
 #pragma unroll
       for (int i = 0; i < 2; ++i)
-        pair_window<AT, R, V>(
+        tap_window<AT, R, V, 2>(
             a.A, t + 2 * i * A,
             [&](int e, float(&w)[V]) {
               load_row<V>(w, xp[i], pair_src(jw + e, a.nin, a.per),
@@ -363,7 +326,7 @@ __global__ void __launch_bounds__(TR* RW)
           for (int i = 0; i < 2; ++i) {
             const float* src =
                 in_s + (i * TR + lane) * a.pitch_in + item * PR;
-            pair_window<AT, PR, 1>(
+            tap_window<AT, PR, 1, 2>(
                 a.A, t + 2 * i * A,
                 [&](int e, float(&w)[1]) { w[0] = src[e]; }, acc[q]);
           }

@@ -1,9 +1,11 @@
-// The pieces that the one-axis stencil tiles of K8 (dtcwt_filt.cu), K10
+// The pieces that the one-axis stencil tiles of K6 (dwt_afb.cu), K7
+// (dwt_sfb.cu), K8 (dtcwt_filt.cu), K9 (dtcwt_dfilt.cu), K10
 // (dtcwt_ifilt.cu) and K16 (swt_atrous.cu) share: the boundary map of a
 // loaded row or staged sample, cp.async, float4 row loads and stores
-// (with the inverse's accumulation), the view checks of the vector
-// instantiations, and the shape of the row tile (32 rows a block, one
-// per lane; csrc/dtcwt_ifilt.cu and csrc/swt_atrous.cu say why).
+// (with the inverse's accumulation), the register window of K6, K7 and
+// K9 (tap_window), the view checks of the vector instantiations, and
+// the shape of the row tile (32 rows a block, one per lane;
+// csrc/dtcwt_ifilt.cu and csrc/swt_atrous.cu say why).
 #pragma once
 
 #include <cstdint>
@@ -116,6 +118,46 @@ __device__ __forceinline__ void load_vals(float (&v)[V], const float* q,
   }
 #pragma unroll
   for (int u = 0; u < V; ++u) v[u] = u < ncols ? q[u * s3] : 0.f;
+}
+
+// acc[i][o] += sum_e t[i A + e] X(o + e), o < R, for NT tap rows that
+// share one window: X(e) by load(e, w), the samples of a block of R taps
+// held in registers and the next R loaded before the block's FMAs, so
+// each sample is loaded once a window and feeds NT R V FMAs.  AT > 0: A
+// = AT at compile time (the window and tap loops unroll).
+template <int AT, int R, int V, int NT, typename Load>
+__device__ __forceinline__ void tap_window(int A_rt, const float* t,
+                                           Load load,
+                                           float (&acc)[NT][R][V]) {
+  const int A = AT > 0 ? AT : A_rt;
+  float w[2 * R][V];
+#pragma unroll
+  for (int o = 0; o < R; ++o) load(o, w[o]);
+  for (int kb = 0; kb < A; kb += R) {
+#pragma unroll
+    for (int q = R; q < 2 * R; ++q)
+      if (kb + q <= A + R - 2)  // the last sample an output reads
+        load(kb + q, w[q]);
+#pragma unroll
+    for (int kk = 0; kk < R; ++kk) {
+      if (kb + kk < A) {
+        float ti[NT];
+#pragma unroll
+        for (int i = 0; i < NT; ++i) ti[i] = t[i * A + kb + kk];
+#pragma unroll
+        for (int o = 0; o < R; ++o)
+#pragma unroll
+          for (int v = 0; v < V; ++v)
+#pragma unroll
+            for (int i = 0; i < NT; ++i)
+              acc[i][o][v] = fmaf(ti[i], w[o + kk][v], acc[i][o][v]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < R; ++q)
+#pragma unroll
+      for (int v = 0; v < V; ++v) w[q][v] = w[q + R][v];
+  }
 }
 
 // A view's rows are 16-byte aligned with stride 1 along W: base pointer

@@ -70,7 +70,8 @@ _SIGNATURES = {
     },
     "dwt_afb": {
         "dwt_afb": [_P, _P, _P, _P, _I, _L, _I, _I, _I, _L, _L, _L, _L,
-                    _I, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _P],
+                    _I, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _I, _I,
+                    _P],
     },
     "dwt_sfb": {
         "dwt_sfb": [_P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _L, _L, _L, _L,
@@ -83,7 +84,7 @@ _SIGNATURES = {
     },
     "dtcwt_dfilt": {
         "dtcwt_dfilt": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I,
-                        _L, _L, _L, _L, _I, _L, _L, _L, _L, _P],
+                        _L, _L, _L, _L, _I, _L, _L, _L, _L, _I, _I, _P],
     },
     "dtcwt_ifilt": {
         "dtcwt_ifilt": [_P, _P, _P, *[_I] * 7, _L, _I, _I, _I,

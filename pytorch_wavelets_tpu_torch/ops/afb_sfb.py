@@ -6,7 +6,8 @@ The DWT's split and merge along one axis:
 
 - :func:`afb1d_corr` (K6, ``csrc/dwt_afb.cu``): the stride-2 correlation
   of every (N, C) plane with a lowpass and a highpass tap vector, every
-  boundary mode folded into the index of each tap (B8a + B9);
+  boundary mode folded into the index of each sample (B8a + B9), in
+  polyphase windows by column and row tiles;
 - :func:`sfb1d_conv` (K7, ``csrc/dwt_sfb.cu``): the transposed stride-2
   correlation of (lo, hi) summed, with the periodization wrap-add and
   roll as index math (B8b + B9), in polyphase output pairs by column and
@@ -36,7 +37,8 @@ pad and strided or dilated ``conv2d``, and autograd's transpose of the
 à trous ones.  CUDA tensors launch
 the kernels or raise.  :func:`afb_plan` / :func:`sfb_plan` /
 :func:`atrous_plan` / :func:`atrous_merge_plan` give the index plan the
-kernels evaluate, :func:`sfb_pairs` / :func:`sfb_row_pairs` /
+kernels evaluate, :func:`afb_row_outs` / :func:`afb_instantiation` K6's
+row segment and tile, :func:`sfb_pairs` / :func:`sfb_row_pairs` /
 :func:`sfb_instantiation` K7's output pairs, row segment and tile, and
 :func:`merge_row_tile` / :func:`merge_band_images` K16's row tile and
 its adjoint's edge table, so the tests can hold them against the plain
@@ -70,7 +72,8 @@ __all__ = ["as_taps", "afb1d", "sfb1d", "afb2d", "sfb2d", "afb1d_atrous",
            "sfb1d_atrous_conv_plain", "sfb1d_atrous_adjoint_plain",
            "afb_plan", "sfb_plan", "atrous_plan", "atrous_merge_plan",
            "merge_row_tile", "merge_band_images", "merge_instantiation",
-           "sfb_pairs", "sfb_row_pairs", "sfb_instantiation",
+           "afb_row_outs", "afb_instantiation", "sfb_pairs",
+           "sfb_row_pairs", "sfb_instantiation",
            "rows_aligned", "unit_rows", "MAX_TAPS"]
 
 # the kernels keep both tap vectors in shared memory (csrc/dwt_*.cu)
@@ -497,6 +500,44 @@ def _ptr(a):
     return ctypes.c_void_p(a.ctypes.data)
 
 
+# csrc/dwt_afb.cu's tiles: a column thread walks AFB_COL_OUTS[V] outputs
+# (V columns); a row tile takes S <= AFB_ROW_OUTS outputs of each of 32
+# rows (afb_row_outs), a lane walking AFB_ROW_STEP at a time.  Its
+# instantiation codes are K7's (csrc/dwt_afb.cu:AfbInst, SFB_INSTS below).
+AFB_COL_OUTS = {1: 8, 4: 4}
+AFB_ROW_OUTS, AFB_ROW_STEP = 128, 8
+
+
+def _even_segments(count, most, step):
+    """A row tile's segment: ``count`` positions shared evenly by the
+    fewest segments of at most ``most``, each a multiple of ``step`` (130
+    positions at most 128: two of 72, not 128 and 2)."""
+    nseg = -(-count // most)
+    return -(-(-(-count // nseg)) // step) * step
+
+
+def afb_row_outs(m_out):
+    """K6's row segment: the outputs S of each row a row tile takes, a
+    multiple of AFB_ROW_STEP up to AFB_ROW_OUTS, the row's ``m_out``
+    shared evenly."""
+    return _even_segments(m_out, AFB_ROW_OUTS, AFB_ROW_STEP)
+
+
+def afb_instantiation(axis, n, L, mode, x):
+    """K6's instantiation for its input view: ``long_fold`` (the
+    per-output kernel) where :func:`afb_plan` folds ('periodization' with
+    L longer than the evened axis); along H the column tile with float4
+    loads (``col_float4``, the view's rows 16-byte aligned with stride 1
+    along W, :func:`rows_aligned`) or scalar ones (``col_scalar``); along
+    W the row tile walking each row's segment (``row_run``, rows of stride
+    1, :func:`unit_rows`) or mapping each sample (``row_gather``)."""
+    if afb_plan(n, L, mode)[5]:
+        return "long_fold"
+    if axis == 3:
+        return "row_run" if unit_rows(x) else "row_gather"
+    return "col_float4" if rows_aligned(x) else "col_scalar"
+
+
 @_cuda.via_fp32
 def afb1d_corr(x, h0_taps, h1_taps, mode, axis, out_len=None):
     """Analysis split of (N, C, H, W) ``x`` along ``axis`` (2 or 3, or -1)
@@ -505,7 +546,8 @@ def afb1d_corr(x, h0_taps, h1_taps, mode, axis, out_len=None):
     ``out_len`` keeps only the first outputs along the axis (the crop of
     the inverse's backward).  CPU tensors take :func:`afb1d_corr_plain`;
     CUDA tensors launch K6, which reads ``x`` through its strides (a
-    band of a coarser level's output in place).
+    band of a coarser level's output in place), in polyphase windows by
+    the tile of :func:`afb_instantiation`, counted in ``instantiations``.
     """
     axis = axis % 4
     if x.device.type == "cpu":
@@ -526,12 +568,15 @@ def afb1d_corr(x, h0_taps, h1_taps, mode, axis, out_len=None):
     y = torch.empty(shape, device=x.device, dtype=torch.float32)
     if y.numel() == 0:
         return y
+    inst = afb_instantiation(axis, n, L, mode, x)
+    S = afb_row_outs(m) if inst in ("row_run", "row_gather") else 0
     lib = _cuda.library("dwt_afb")
     _cuda.check(lib, "dwt_afb", lib.dwt_afb(
         x.data_ptr(), y.data_ptr(), _ptr(h0), _ptr(h1), L, N, C, H, W,
         *x.stride(), axis, ne, front, PAD_CODES[pmode], shift, fold, m,
-        *y.stride(), _cuda.stream_of(x)))
+        *y.stride(), SFB_INSTS[inst], S, _cuda.stream_of(x)))
     _K6.launches += 1
+    _K6.instantiations[inst] += 1
     return y
 
 
@@ -540,7 +585,8 @@ def afb1d_corr(x, h0_taps, h1_taps, mode, axis, out_len=None):
 # each of 32 rows (sfb_row_pairs), a lane walking SFB_ROW_STEP at a time
 SFB_COL_PAIRS = {1: 8, 4: 4}
 SFB_ROW_PAIRS, SFB_ROW_STEP = 128, 8
-# the C entry's instantiation codes (csrc/dwt_sfb.cu:SfbInst)
+# the C entries' instantiation codes (csrc/dwt_sfb.cu:SfbInst,
+# csrc/dwt_afb.cu:AfbInst)
 SFB_INSTS = {"col_scalar": 0, "col_float4": 1, "row_run": 2,
              "row_gather": 3, "long_fold": 4}
 
@@ -569,8 +615,7 @@ def sfb_row_pairs(npairs):
     multiple of SFB_ROW_STEP up to SFB_ROW_PAIRS, the row's npairs shared
     evenly by the fewest segments (130 pairs: two of 72, not 128 and
     2)."""
-    nseg = -(-npairs // SFB_ROW_PAIRS)
-    return -(-(-(-npairs // nseg)) // SFB_ROW_STEP) * SFB_ROW_STEP
+    return _even_segments(npairs, SFB_ROW_PAIRS, SFB_ROW_STEP)
 
 
 def sfb_instantiation(axis, nin, L, mode, lo, hi):
@@ -642,6 +687,7 @@ def sfb1d_conv(lo, hi, g0_taps, g1_taps, mode, axis, out_len=None):
 _K6, _K7 = afb1d_corr, sfb1d_conv
 _K6.launches = 0
 _K7.launches = 0
+_K6.instantiations = dict.fromkeys(SFB_INSTS, 0)
 _K7.instantiations = dict.fromkeys(SFB_INSTS, 0)
 
 

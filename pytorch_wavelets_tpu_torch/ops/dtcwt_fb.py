@@ -10,8 +10,8 @@ pytorch_wavelets/dtcwt/lowlevel.py:70-295):
   ``ops/banded.py:probe_op``) and the plain version of each kernel;
 - the kernels of the per-level path (``transforms/dtcwt.py``), direct
   stencils that evaluate the symmetric or zero boundary
-  (``csrc/dwt_index.cuh:pad_src``; K8 once per loaded sample, K9/K10 per
-  tap) and read and write through strides:
+  (``csrc/dwt_index.cuh:pad_src``, once per loaded sample) and read and
+  write through strides:
   K8 :func:`dtcwt_filt` (``csrc/dtcwt_filt.cu``, the non-decimated
   filter), K9 :func:`dtcwt_dfilt` (``csrc/dtcwt_dfilt.cu``, the q-shift
   decimation) and K10 :func:`dtcwt_ifilt` (``csrc/dtcwt_ifilt.cu``, the
@@ -38,8 +38,8 @@ import torch.nn.functional as F
 
 from pytorch_wavelets_tpu_torch.ops import _cuda, banded
 from pytorch_wavelets_tpu_torch.ops.afb_sfb import (
-    INST_CODES, MAX_TAPS, _check_4d, _conv_axis, _ext_ns, _ptr, as_taps,
-    rows_aligned, unit_rows,
+    INST_CODES, MAX_TAPS, _check_4d, _conv_axis, _even_segments, _ext_ns,
+    _ptr, as_taps, rows_aligned, unit_rows,
 )
 from pytorch_wavelets_tpu_torch.ops.pad import PAD_CODES, pad1d
 from pytorch_wavelets_tpu_torch.ops.precision import plain_flags
@@ -49,7 +49,7 @@ __all__ = ["prep_taps", "colfilter", "rowfilter", "coldfilt", "rowdfilt",
            "dtcwt_ifilt", "dtcwt_filt_plain", "dtcwt_dfilt_plain",
            "dtcwt_ifilt_plain", "ifilt_plan", "ifilt_passes",
            "ifilt_tap_rows", "filt_instantiation", "ifilt_instantiation",
-           "rows_aligned", "INV_SQRT2"]
+           "dfilt_row_pairs", "rows_aligned", "INV_SQRT2"]
 
 
 def prep_taps(h) -> np.ndarray:
@@ -359,10 +359,10 @@ def filt_instantiation(x, axis):
 
 
 def ifilt_instantiation(x, axis):
-    """K10's instantiation for an input view along ``axis``: the column
-    tile with float4 loads (``col_float4``, :func:`rows_aligned`) or
-    scalar ones (``col_scalar``), the row tile walking each row's run of
-    samples (``row_run``, rows of stride 1, ``unit_rows``) or mapping
+    """K9's and K10's instantiation for an input view along ``axis``: the
+    column tile with float4 loads (``col_float4``, :func:`rows_aligned`)
+    or scalar ones (``col_scalar``), the row tile walking each row's run
+    of samples (``row_run``, rows of stride 1, ``unit_rows``) or mapping
     each sample (``row_gather``)."""
     if axis == 3:
         return "row_run" if unit_rows(x) else "row_gather"
@@ -403,12 +403,28 @@ def dtcwt_filt(x, taps, axis, mode, out=None, accumulate=False):
     return y
 
 
+# csrc/dtcwt_dfilt.cu's tiles: a column thread walks DFILT_COL_PAIRS[V]
+# output pairs (V columns); a row tile takes S <= DFILT_ROW_PAIRS pairs of
+# each of 32 rows (dfilt_row_pairs), a lane walking DFILT_ROW_STEP at a time
+DFILT_COL_PAIRS = {1: 8, 4: 4}
+DFILT_ROW_PAIRS, DFILT_ROW_STEP = 64, 8
+
+
+def dfilt_row_pairs(npairs):
+    """K9's row segment: the output pairs S of each row a row tile takes,
+    a multiple of DFILT_ROW_STEP up to DFILT_ROW_PAIRS, the row's
+    ``npairs`` (n / 4) shared evenly."""
+    return _even_segments(npairs, DFILT_ROW_PAIRS, DFILT_ROW_STEP)
+
+
 @_cuda.via_fp32
 def dtcwt_dfilt(x, ha, hb, highpass, axis, out=None):
     """Q-shift decimation of (N, C, H, W) ``x`` along ``axis`` (a multiple
     of 4 long) by the tap pair (ha, hb), symmetric boundary, (b, a)
     interleave with ``highpass``: n/2 outputs, into ``out`` if given.
-    CPU tensors take :func:`dtcwt_dfilt_plain`; CUDA tensors launch K9."""
+    CPU tensors take :func:`dtcwt_dfilt_plain`; CUDA tensors launch K9, in
+    quarter-phase windows by the tile :func:`ifilt_instantiation` picks
+    (counted in ``instantiations``)."""
     axis = axis % 4
     if x.device.type == "cpu":
         return dtcwt_dfilt_plain(x, ha, hb, highpass, axis, out)
@@ -424,11 +440,15 @@ def dtcwt_dfilt(x, ha, hb, highpass, axis, out=None):
     y = _out_for("dtcwt_dfilt", x, shape, out)
     if y.numel() == 0:
         return y
+    inst = ifilt_instantiation(x, axis)
+    S = dfilt_row_pairs(n // 4) if axis == 3 else 0
     lib = _cuda.library("dtcwt_dfilt")
     _cuda.check(lib, "dtcwt_dfilt", lib.dtcwt_dfilt(
         x.data_ptr(), y.data_ptr(), _ptr(a), _ptr(b), len(a), int(highpass),
-        *x.shape, *x.stride(), axis, *y.stride(), _cuda.stream_of(x)))
+        *x.shape, *x.stride(), axis, *y.stride(), INST_CODES[inst], S,
+        _cuda.stream_of(x)))
     _K9.launches += 1
+    _K9.instantiations[inst] += 1
     return y
 
 
@@ -472,6 +492,7 @@ _K8, _K9, _K10 = dtcwt_filt, dtcwt_dfilt, dtcwt_ifilt
 _K8.launches = _K9.launches = _K10.launches = 0
 _K8.instantiations = dict.fromkeys(
     ("col_float4", "col_scalar", "row_async16", "row_async4"), 0)
+_K9.instantiations = dict.fromkeys(INST_CODES, 0)
 _K10.instantiations = dict.fromkeys(INST_CODES, 0)
 
 

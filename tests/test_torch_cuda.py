@@ -471,6 +471,58 @@ def test_dwt_sfb_instantiations(dev, axis, n, other, view, L, mode):
             **DWT_TOL)
 
 
+# K6's tiles: a column thread walks 8 outputs (scalar) or 4 (float4), 4
+# threads of a block along the outputs, the columns flattened across the
+# planes; a row tile takes 32 rows, flattened across the planes, and
+# segments of up to 128 outputs of each
+@pytest.mark.parametrize("axis,n,other", [
+    (2, 5, 10), (2, 33, 130), (2, 70, 4), (2, 259, 9),
+    (3, 5, 3), (3, 259, 33), (3, 133, 2), (3, 300, 70)])
+@pytest.mark.parametrize("view", ["aligned", "offset", "transposed", "band"])
+@pytest.mark.parametrize("L,mode", [(2, "zero"), (8, "periodization"),
+                                    (10, "symmetric"), (8, "reflect"),
+                                    (3, "periodic"), (76, "periodization"),
+                                    (76, "symmetric")])
+def test_dwt_afb_instantiations(dev, axis, n, other, view, L, mode):
+    """Each of K6's instantiations at its tile edges, against the plain
+    version: axes shorter than a chunk or a segment and past one (rows
+    past one block of 32), widths that are not multiples of 4 (the
+    float4 columns' tail), odd widths (259, 133: the scalar columns
+    flattened across the planes), aligned, offset and transposed views
+    and the lowpass band of an (N, C, 4, H, W) output read in place, full
+    outputs and out_len crops, every kind of mode (the evened odd axis of
+    'periodization'), L = 2, 3 (odd: a zero tap), 8, 10 and 76 (db38: the
+    per-output long_fold where 'periodization' folds, the run-time window
+    elsewhere).  Each case asserts the instantiation that ran."""
+    from pytorch_wavelets_tpu_torch.ops import afb_sfb
+    h0, h1 = _taps(L, 150 + L)
+    if view == "band":
+        shape = [2, 3, 0, 0]
+        shape[axis], shape[5 - axis] = n, other
+        x = torch.from_numpy(_rand((2, 3, 4, *shape[2:]), 151)).to(
+            dev)[:, :, 0]
+    else:
+        x = _filt_view(dev, view, axis, n, other, 152)
+    folds = afb_sfb.afb_plan(n, L, mode)[5] > 0
+    assert folds == (mode == "periodization" and L > n + n % 2)
+    want_inst = "long_fold" if folds else (
+        ("row_gather" if view == "transposed" and other > 1 else "row_run")
+        if axis == 3 else
+        "col_float4" if afb_sfb.rows_aligned(x) else "col_scalar")
+    if view == "aligned" and axis == 2 and not folds:
+        assert want_inst == "col_float4"
+    assert afb_sfb.afb_instantiation(axis, n, L, mode, x) == want_inst
+    i0 = dict(afb_sfb.afb1d_corr.instantiations)
+    want = afb_sfb.afb1d_corr_plain(x, h0, h1, mode, axis)
+    torch.testing.assert_close(afb_sfb.afb1d_corr(x, h0, h1, mode, axis),
+                               want, **DWT_TOL)
+    m = max(want.shape[axis + 1] - 5, 1)
+    torch.testing.assert_close(afb_sfb.afb1d_corr(x, h0, h1, mode, axis, m),
+                               want.narrow(axis + 1, 0, m), **DWT_TOL)
+    i0[want_inst] += 2
+    assert afb_sfb.afb1d_corr.instantiations == i0
+
+
 @pytest.mark.parametrize("mode", DWT_MODES)
 @pytest.mark.parametrize("wave,shape", [("db4", (2, 3, 64, 64)),
                                         ("bior2.2", (1, 2, 33, 29)),
@@ -741,6 +793,61 @@ def test_dtcwt_ifilt_instantiations(dev, axis, n, other, view, name,
                              out=big[..., o:o + Wo], accumulate=True)
         torch.testing.assert_close(big, ref, **STENCIL_TOL)
     assert dtcwt_fb.dtcwt_ifilt.instantiations[want_inst] == i0 + 5
+
+
+# K9's tiles: a column thread walks 8 output pairs (scalar) or 4 (float4),
+# 4 of them a block along the pairs, the columns flattened across the
+# planes; a row tile takes 32 rows and segments of up to 64 pairs (256
+# input samples) of each
+@pytest.mark.parametrize("axis,n,other", [
+    (2, 4, 10), (2, 12, 9), (2, 36, 130), (2, 260, 4),
+    (3, 4, 3), (3, 256, 6), (3, 260, 33), (3, 132, 2)])
+@pytest.mark.parametrize("view", ["aligned", "offset", "transposed"])
+@pytest.mark.parametrize("name,highpass", [("qshift_b", False),
+                                           ("qshift_a", True),
+                                           ("qshift_c", True),
+                                           ("odd", False)])
+def test_dtcwt_dfilt_instantiations(dev, axis, n, other, view, name,
+                                    highpass):
+    """Each of K9's instantiations at its tile edges, against the plain
+    version: axes of 4 (every window past both ends), 12, past a chunk
+    and past one row segment (rows past one block of 32), widths that are
+    not multiples of 4 (the float4 columns' tail), the compiled windows
+    (qshift_a, qshift_b) and the run-time one (qshift_c's 16 taps, 9
+    random taps: an odd m), both interleaves, aligned, offset and
+    transposed views, written into column slices of a wider tensor at an
+    aligned and an odd offset (float4 or scalar stores) and into a band
+    of an (N, C, 3, H', W') stack, as the level functions write.  Each
+    case asserts the instantiation that ran."""
+    from pytorch_wavelets_tpu_torch.ops import dtcwt_fb
+    if name == "odd":
+        ha, hb = _taps(9, 62)
+    else:
+        ha, hb = _qtaps(name, highpass)
+    x = _filt_view(dev, view, axis, n, other, 61)
+    want_inst = ("col_float4" if view == "aligned" else "col_scalar") \
+        if axis == 2 else ("row_gather" if view == "transposed"
+                           and other > 1 else "row_run")
+    assert dtcwt_fb.ifilt_instantiation(x, axis) == want_inst
+    want = dtcwt_fb.dtcwt_dfilt_plain(x, ha, hb, highpass, axis)
+    i0 = dtcwt_fb.dtcwt_dfilt.instantiations[want_inst]
+    torch.testing.assert_close(dtcwt_fb.dtcwt_dfilt(x, ha, hb, highpass,
+                                                    axis), want,
+                               **STENCIL_TOL)
+    Ho, Wo = want.shape[2:]
+    for o in (4, 3):     # an aligned slice (float4 stores), an odd one
+        big = torch.from_numpy(_rand((2, 3, Ho, -(-(Wo + 8) // 4) * 4),
+                                     60)).to(dev)
+        ref = big.clone()
+        ref[..., o:o + Wo] = want
+        dtcwt_fb.dtcwt_dfilt(x, ha, hb, highpass, axis,
+                             out=big[..., o:o + Wo])
+        torch.testing.assert_close(big, ref, **STENCIL_TOL)
+    stack = torch.zeros((2, 3, 3, Ho, Wo), device=dev)
+    dtcwt_fb.dtcwt_dfilt(x, ha, hb, highpass, axis, out=stack[:, :, 1])
+    torch.testing.assert_close(stack[:, :, 1], want, **STENCIL_TOL)
+    assert not stack[:, :, 0::2].any()
+    assert dtcwt_fb.dtcwt_dfilt.instantiations[want_inst] == i0 + 4
 
 
 PAST_2_31 = ("dwt_afb", "dwt_sfb", "dtcwt_filt", "dtcwt_dfilt",

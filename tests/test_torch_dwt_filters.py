@@ -22,7 +22,7 @@ from pytorch_wavelets_tpu_torch.ops import afb_sfb
 from pytorch_wavelets_tpu_torch.ops.pad import PAD_CODES, pad1d, pad_index
 from pytorch_wavelets_tpu_torch.utils import dwt_coeff_len
 from tests.test_torch_nonsep_plans import _merge_window
-from tests.test_torch_stencil_plans import stage_row
+from tests.test_torch_stencil_plans import _src, stage_row
 from tests.torch_parity import DWT_ATOL, DWT_MODES, FAST, cmp, rand
 
 torch.set_num_threads(1)
@@ -195,16 +195,136 @@ def _k7_rows(lo, hi, g0, g1, mode, m_out, unit=True):
     return out
 
 
-# (nin, L) of the tile plans: lengths 1, 2, odd, 70, 133, 259; L = 2, 3
-# (odd: a window position -1), 8 (db4), 10 (farras / qshift_a), 13, 76
-# (db38: periodization's single fold of a long tail on short axes)
-K7_CASES = [(1, 2), (2, 3), (5, 8), (3, 10), (1, 8), (70, 8), (133, 10),
+def _k6_src(i, n, ne, mode):
+    """csrc/dwt_afb.cu:afb_src, line by line (``mode`` the plan's)."""
+    if 0 <= i < ne:
+        r = i
+    elif mode == "zero":
+        return -1
+    elif mode == "symmetric" and -ne <= i < 2 * ne:
+        r = -1 - i if i < 0 else 2 * ne - 1 - i
+    elif mode == "periodic" and -ne <= i < 2 * ne:
+        r = i + ne if i < 0 else i - ne
+    elif mode == "reflect" and -ne < i < 2 * ne - 1:
+        r = -i if i < 0 else 2 * ne - 2 - i
+    else:
+        r = _src(i, ne, mode)
+    return min(r, n - 1)
+
+
+def _k6_setup(x, h0, h1, mode):
+    """K6's tile plan: (A, front, X) with X(i) the sample position i reads
+    (afb_src, 0 where -1), and the entry's tap table T[e][i][a] = h_i[2 a
+    + e], 0 past L (window e, output i)."""
+    n, L = len(x), len(h0)
+    _, front, ne, pmode, shift, fold = afb_sfb.afb_plan(n, L, mode)
+    assert shift == fold == 0
+    A = (L + 1) // 2
+    T = np.zeros((2, 2, A))
+    for e in (0, 1):
+        for i, h in enumerate((h0, h1)):
+            for a in range(A):
+                T[e, i, a] = h[2 * a + e] if 2 * a + e < L else 0.0
+
+    def src(i):
+        return _k6_src(i, n, ne, pmode)
+    return A, front, T, src
+
+
+def _k6_columns(x, h0, h1, mode, m_out, V):
+    """afb_col_kernel along one column: chunks of R outputs (R =
+    AFB_COL_OUTS[V]), the even and odd windows over X(2 (m0 + u) + e -
+    front) (the edge map per loaded row), both feeding lo and hi; every
+    output written once."""
+    A, front, T, src = _k6_setup(x, h0, h1, mode)
+    R = afb_sfb.AFB_COL_OUTS[V]
+    out = np.full((2, m_out), np.nan)
+    for m0 in range(0, m_out, R):
+        acc = sum(_merge_window(
+            lambda u, e=e: (x[r] if (r := src(2 * (m0 + u) + e - front))
+                            >= 0 else 0.0), T[e], R) for e in (0, 1))
+        for o in range(min(R, m_out - m0)):
+            assert np.isnan(out[:, m0 + o]).all()
+            out[:, m0 + o] = acc[:, o]
+    return out
+
+
+def _k6_rows(x, h0, h1, mode, m_out, unit=True):
+    """afb_row_kernel along one row: segments of S outputs
+    (afb_row_outs), each staged with its halo, 2 S + 2 A - 2 samples
+    (row_run's walk inside the axis, which the edge map must agree with;
+    row_gather maps each sample), a lane's AFB_ROW_STEP outputs at a time
+    from its staged row (reads 2 apart), lo and hi through shared rows of
+    odd pitch in the staged rows' space, and out as one run each; the 32
+    lanes (rows) of a warp read and write on distinct banks."""
+    A, front, T, src = _k6_setup(x, h0, h1, mode)
+    S, PR = afb_sfb.afb_row_outs(m_out), afb_sfb.AFB_ROW_STEP
+    assert S % PR == 0 and S <= afb_sfb.AFB_ROW_OUTS
+    assert -(-m_out // S) == -(-m_out // afb_sfb.AFB_ROW_OUTS)
+    seg = 2 * S + 2 * A - 2
+    for pitch in (seg | 1, S | 1):
+        assert len({lane * pitch % 32 for lane in range(32)}) == 32
+    out = np.full((2, m_out), np.nan)
+    for M0 in range(0, m_out, S):
+        first = 2 * M0 - front
+        staged = stage_row(x, lambda e, first=first: src(first + e),
+                           first if unit else None, seg)
+        out_s = np.full((2, S), np.nan)
+        for item in range(S // PR):
+            out_s[:, item * PR:(item + 1) * PR] = sum(_merge_window(
+                lambda u, e=e: staged[e + 2 * item * PR + 2 * u], T[e], PR)
+                for e in (0, 1))
+        cnt = min(S, m_out - M0)
+        assert np.isnan(out[:, M0:M0 + cnt]).all()
+        out[:, M0:M0 + cnt] = out_s[:, :cnt]
+    return out
+
+
+def _k6_plan_case(plan, mode):
+    rs = np.random.RandomState(PAD_CODES.get(mode, 5) + 60)
+    for n, L in PLAN_CASES:
+        h0, h1, x = rs.randn(L), rs.randn(L), rs.randn(n)
+        want = afb_sfb.afb1d_corr_plain(torch.from_numpy(x).view(1, 1, 1, n),
+                                        h0, h1, mode, 3)[0, 0, :, 0].numpy()
+        full = want.shape[1]
+        # the wrapper's pick for views of these lengths along the axis
+        views = ({"row_run": torch.zeros(2, 3, 5, n + 2)[..., 1:n + 1],
+                  "row_gather": torch.zeros(2, 3, n, 5).transpose(2, 3)}
+                 if plan == "rows" else
+                 {"col_float4": torch.zeros(2, 3, n, 8),
+                  "col_scalar": torch.zeros(2, 3, n, 9)[..., 1:4]})
+        folds = afb_sfb.afb_plan(n, L, mode)[5] > 0
+        for name, v in views.items():
+            if n == 1 and name == "row_gather":
+                name = "row_run"    # one sample a row: stride 1 or not
+            assert afb_sfb.afb_instantiation(
+                3 if plan == "rows" else 2, n, L, mode, v) == (
+                    "long_fold" if folds else name)
+        if folds:   # the per-output kernel
+            assert mode == "periodization" and L > n + n % 2
+            np.testing.assert_allclose(_afb_emulated(x, h0, h1, mode), want,
+                                       rtol=1e-12, atol=1e-12)
+            continue
+        for m_out in sorted({full, max(full - 3, 1)}):   # and a crop
+            for got in ([_k6_columns(x, h0, h1, mode, m_out, V)
+                         for V in (1, 4)] if plan == "columns" else
+                        [_k6_rows(x, h0, h1, mode, m_out, unit)
+                         for unit in (True, False)]):
+                np.testing.assert_allclose(got, want[:, :m_out], rtol=1e-12,
+                                           atol=1e-12, err_msg=f"{n} {L}")
+
+
+# (length, L) of the tile plans: lengths 1, 2, odd, 70, 133, 259; L = 2,
+# 3 (odd: a window position -1, or a zero tap), 8 (db4), 10 (farras /
+# qshift_a), 13, 76 (db38: periodization's single fold of a long filter or
+# tail on short axes)
+PLAN_CASES = [(1, 2), (2, 3), (5, 8), (3, 10), (1, 8), (70, 8), (133, 10),
             (259, 8), (7, 13), (20, 76), (4, 76), (9, 3)]
 
 
 def _k7_plan_case(plan, mode):
     rs = np.random.RandomState(PAD_CODES.get(mode, 5) + 40)
-    for nin, L in K7_CASES:
+    for nin, L in PLAN_CASES:
         g0, g1, lo, hi = rs.randn(L), rs.randn(L), rs.randn(nin), rs.randn(nin)
         full = afb_sfb.sfb_plan(nin, L, mode)[0]
         if full < 1:
@@ -243,13 +363,14 @@ def _k7_plan_case(plan, mode):
 def test_kernel_index_plans(plan, mode):
     """The formulas K6/K7 evaluate equal their plain versions (float64).
     ``taps``: per tap, at every length 1..13 and 33 against filters of 2
-    to 76 taps, the long-filter single folds included (K6, and K7's
-    long_fold).  ``columns`` / ``rows``: K7's pair tiles (column chunks of
-    4 and 8 pairs; row segments with their halo, run and gather staging),
-    the division-free edge and output maps in every mode, full outputs
-    and crops, at lengths 1 to 259, and the instantiation the wrapper
-    picks for a view."""
+    to 76 taps, the long-filter single folds included (K6's and K7's
+    long_fold).  ``columns`` / ``rows``: K6's polyphase tiles and K7's
+    pair tiles (column chunks of 4 and 8 outputs or pairs; row segments
+    with their halo, run and gather staging), the division-free edge and
+    output maps in every mode, full outputs and crops, at lengths 1 to
+    259, and the instantiation the wrapper picks for a view."""
     if plan != "taps":
+        _k6_plan_case(plan, mode)
         _k7_plan_case(plan, mode)
         return
     rs = np.random.RandomState(PAD_CODES.get(mode, 5))

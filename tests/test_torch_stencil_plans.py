@@ -5,8 +5,9 @@ emulated in numpy exactly as the CUDA sources (``csrc/dtcwt_filt.cu``,
 (the JAX conv path, ``ops/dtcwt_fb.py`` and ``ops/pool.py``) on the CPU:
 the kernels' arithmetic is tested here without a card, at every axis
 length 1..24 (K8; its column and row tiles also past one and two tiles),
-4..24 (K9, multiples of 4), 2..24 (K10, even; its column and row tiles
-also past one and two tiles) and every q-shift length, both parities of
+4..24 (K9, multiples of 4; its column and row tiles also at 128 to
+260), 2..24 (K10, even; its column and row tiles also past one and two
+tiles) and every q-shift length, both parities of
 m // 2 included."""
 import numpy as np
 import pytest
@@ -218,17 +219,120 @@ def _qtaps(name):
     return [dtcwt_fb.prep_taps(q[i]) for i in (0, 1, 4, 5)]
 
 
+def _dfilt_windows(ha, hb):
+    """K9's four quarter-phase windows w = 2 s + e: (A, d, T), tap j of
+    output pair r reading sample 4 (r + j) + d[w] with T[w][0][j] = h_s[2
+    j + e] (0 past m), as the entry builds them."""
+    m = len(ha)
+    A = (m + 1) // 2
+    d = [2 + (w >> 1) + 2 * (w & 1) - m for w in range(4)]
+    T = np.zeros((4, 1, A))
+    for w in range(4):
+        h = hb if w >> 1 else ha
+        for j in range(A):
+            k = 2 * j + (w & 1)
+            T[w, 0, j] = h[k] if k < m else 0.0
+    return A, d, T
+
+
+def emulate_dfilt_col(x, ha, hb, highpass, V=1):
+    """K9's column kernel along one column: chunks of R output pairs (R =
+    DFILT_COL_PAIRS[V]), the four windows over rows 4 (r0 + e) + d[w] in
+    turn (the symmetric map per loaded row), stream s stored at 2 r + (s
+    ^ highpass); every output written once."""
+    n = len(x)
+    A, d, T = _dfilt_windows(ha, hb)
+    R, npairs = dtcwt_fb.DFILT_COL_PAIRS[V], n // 4
+
+    def row(s):
+        return x[filt_src(s, n, "symmetric")]
+    out = np.full(n // 2, np.nan)
+    for r0 in range(0, npairs, R):
+        acc = np.zeros((2, R))
+        for w in range(4):
+            acc[w >> 1] += _ifilt_window(
+                lambda e, w=w: row(4 * (r0 + e) + d[w]), T[w], A, R)[0]
+        for o in range(min(R, npairs - r0)):
+            for s in (0, 1):
+                i = 2 * (r0 + o) + (s ^ int(highpass))
+                assert np.isnan(out[i])
+                out[i] = acc[s, o]
+    return out
+
+
+def emulate_dfilt_row(x, ha, hb, highpass):
+    """K9's row kernel along one row: segments of S output pairs
+    (dfilt_row_pairs), each staged with its halo, 4 S + 2 m - 4 samples
+    from 4 P0 + d[0] (row_run's walk inside the axis, which the map must
+    agree with; row_gather's map of each sample gives the same values), a
+    lane's DFILT_ROW_STEP pairs at a time from its staged row (reads 4
+    apart), the interleave fixed per launch, the outputs through a shared
+    row of odd pitch in the staged rows' space; the 32 lanes (rows) of a
+    warp read and write on distinct banks."""
+    n = len(x)
+    A, d, T = _dfilt_windows(ha, hb)
+    npairs, PR = n // 4, dtcwt_fb.DFILT_ROW_STEP
+    S = dtcwt_fb.dfilt_row_pairs(npairs)
+    assert S % PR == 0 and S <= dtcwt_fb.DFILT_ROW_PAIRS
+    cmin = min(d)
+    assert cmin == d[0]
+    seg = max(d) + 4 * (A - 1) - cmin + 4 * (S - 1) + 1
+    for pitch in (seg | 1, (2 * S) | 1):
+        assert len({lane * pitch % 32 for lane in range(32)}) == 32
+    hp = int(highpass)
+    out = np.full(n // 2, np.nan)
+    for P0 in range(0, npairs, S):
+        first = 4 * P0 + cmin
+        staged = stage_row(
+            x, lambda e, first=first: filt_src(first + e, n, "symmetric"),
+            first, seg)
+        out_s = np.full(2 * S, np.nan)
+        for item in range(S // PR):
+            acc = np.zeros((2, PR))
+            for w in range(4):
+                base = d[w] - cmin + 4 * item * PR
+                acc[w >> 1] += _ifilt_window(
+                    lambda e, base=base: staged[base + 4 * e], T[w], A,
+                    PR)[0]
+            for o in range(PR):
+                out_s[2 * (item * PR + o) + hp] = acc[0, o]
+                out_s[2 * (item * PR + o) + (hp ^ 1)] = acc[1, o]
+        cnt = 2 * min(S, npairs - P0)
+        assert np.isnan(out[2 * P0:2 * P0 + cnt]).all()
+        out[2 * P0:2 * P0 + cnt] = out_s[:cnt]
+    return out
+
+
+DFILT_PLANS = {
+    "taps": emulate_dfilt,
+    "columns": lambda *a: [emulate_dfilt_col(*a, V) for V in (1, 4)],
+    "rows": lambda *a: [emulate_dfilt_row(*a)]}
+
+
+@pytest.mark.parametrize("plan", list(DFILT_PLANS))
 @pytest.mark.parametrize("name", QSHIFTS)
 @pytest.mark.parametrize("highpass", [False, True])
-def test_dfilt_index_map(name, highpass):
+def test_dfilt_index_map(name, highpass, plan):
+    """K9 on every axis length 4..24 (multiples of 4) as the taps define
+    it, and as its column tiles (chunks of 4 and 8 pairs) and row tiles
+    (segments with their halo) compute it, also at 132 and 260 (one and
+    two row segments, chunk and segment tails), and with 9 random taps
+    (an odd m)."""
     h0a, h0b, h1a, h1b = _qtaps(name)
     ha, hb = (h1b, h1a) if highpass else (h0b, h0a)
-    for n in range(4, 25, 4):
+    cases = [(n, ha, hb) for n in range(4, 25, 4)]
+    if plan != "taps":
+        cases += [(n, ha, hb) for n in (132, 260)]
+        if name == QSHIFTS[0]:   # an odd m: the odd windows a tap short
+            rs = np.random.RandomState(9)
+            cases += [(n, rs.randn(9), rs.randn(9)) for n in (12, 132)]
+    for n, ha, hb in cases:
         x = _x(n, n)
-        np.testing.assert_allclose(
-            emulate_dfilt(x, ha, hb, highpass),
-            _plain_1d(dtcwt_fb.dtcwt_dfilt_plain, x, ha, hb, highpass, 3),
-            rtol=1e-12, atol=1e-12, err_msg=f"n={n}")
+        want = _plain_1d(dtcwt_fb.dtcwt_dfilt_plain, x, ha, hb, highpass, 3)
+        got = DFILT_PLANS[plan](x, ha, hb, highpass)
+        for g in (got if plan != "taps" else [got]):
+            np.testing.assert_allclose(g, want, rtol=1e-12, atol=1e-12,
+                                       err_msg=f"n={n} m={len(ha)}")
 
 
 # csrc/dtcwt_ifilt.cu's tiles: a column thread walks RC values of q; a row

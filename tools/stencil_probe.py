@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Time K7 (dwt_sfb), K8 (dtcwt_filt), K10 (dtcwt_ifilt), K14 (nonsep_afb
-and its adjoint), K15 (nonsep_sfb and its adjoint) and K16 (swt_sfb and
-its adjoint) on one CUDA card at the shapes of chip_smoke.py's DWT,
-per-level, non-separable and à trous paths, each call checked against
-its plain version.
+"""Time K6 (dwt_afb), K7 (dwt_sfb), K8 (dtcwt_filt), K9 (dtcwt_dfilt), K10
+(dtcwt_ifilt), K14 (nonsep_afb and its adjoint), K15 (nonsep_sfb and its
+adjoint) and K16 (swt_sfb and its adjoint) on one CUDA card at the shapes
+of chip_smoke.py's DWT, per-level, non-separable and à trous paths, each
+call checked against its plain version.
 
     python3 tools/stencil_probe.py [--root DIR]
-                                   [--only k7|k8|k10|k14|k15|k16 ...]
+                                   [--only k6|k7|k8|k9|k10|k14|k15|k16 ...]
 
 ``--root`` imports ``pytorch_wavelets_tpu_torch`` from another checkout
 (say an unpacked parent commit), so that two versions can be timed in one
@@ -146,6 +146,80 @@ def _insts(wrapper, run):
     return {k: v - before.get(k, 0) for k, v in
             getattr(wrapper, "instantiations", {}).items()
             if v != before.get(k, 0)}
+
+
+def run_k9(fb, filters):
+    """dtcwt_large's level-2 and level-3 decimations (qshift_a: rowdfilt,
+    then coldfilt into a band of the level's (N, C, 3, H', W') stack, as
+    fwd_j2plus writes) and scat_bp's level-2 pair (qshift_b_bp, 256^2)."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for label, shape, axis, bank in (
+            ("large L2 row", (1, 3, 9216, 9216), 3, "qshift_a"),
+            ("large L2 col", (1, 3, 9216, 4608), 2, "qshift_a"),
+            ("large L3 row", (1, 3, 4608, 4608), 3, "qshift_a"),
+            ("large L3 col", (1, 3, 4608, 2304), 2, "qshift_a"),
+            ("bp row", (128, 3, 256, 256), 3, "qshift_b_bp"),
+            ("bp col", (128, 3, 256, 128), 2, "qshift_b_bp")):
+        q = filters.qshift(bank)
+        for highpass in (False, True):
+            ha, hb = ((fb.prep_taps(q[5]), fb.prep_taps(q[4])) if highpass
+                      else (fb.prep_taps(q[1]), fb.prep_taps(q[0])))
+            x = torch.randn(shape, generator=gen, device="cuda")
+            out = None
+            if axis == 2:
+                s = list(shape)
+                s[2] //= 2
+                out = torch.empty((s[0], s[1], 3, s[2], s[3]),
+                                  device="cuda")[:, :, 1]
+            inst = _insts(fb.dtcwt_dfilt, lambda: fb.dtcwt_dfilt(
+                x, ha, hb, highpass, axis, out))
+            got = fb.dtcwt_dfilt(x, ha, hb, highpass, axis).clone()
+            crop = slice(0, 1)
+            want = fb.dtcwt_dfilt_plain(x[crop], ha, hb, highpass, axis)
+            ms = timed_ms(lambda: fb.dtcwt_dfilt(x, ha, hb, highpass, axis,
+                                                 out))
+            _line("dtcwt_dfilt", f"{label} hp={int(highpass)}", got[crop],
+                  want, ms, 4.0 * (x.numel() + got.numel()), inst)
+            del x, out, got, want
+
+
+def run_k6(afb, filters):
+    """dwt_main's splits (DWT J=3, db4, 'symmetric', 32x10x512^2: the row
+    split of each level's input, the lowpass band of the level above read
+    in place, then the column split of its (N, 2C, H, W') output; odd
+    widths 259, 133, 70), dwt1d's first split (16x8 planes of one row)
+    and alt_main's first pair (10 taps, 128x3)."""
+    db4, qsa = filters.wavelet("db4"), filters.qshift("qshift_a")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    h_db4 = [np.asarray(h, np.float64)[::-1].copy()
+             for h in (db4.dec_lo, db4.dec_hi)]
+    h_alt = [np.asarray(qsa[i], np.float64).ravel()[::-1].copy()
+             for i in (0, 4)]
+    cases = []
+    for j, n in ((1, 512), (2, 259), (3, 133)):
+        m = (n + 7) // 2
+        cases += [(f"dwt L{j} row", (32, 10, n, n), 3, h_db4, j > 1),
+                  (f"dwt L{j} col", (32, 20, n, m), 2, h_db4, False)]
+    cases += [("dwt1d L1 row", (16, 8, 1, 65536), 3, h_db4, False),
+              ("alt L1 row", (128, 3, 256, 256), 3, h_alt, False),
+              ("alt L1 col", (128, 6, 256, 132), 2, h_alt, False)]
+    mode = "symmetric"
+    for label, shape, axis, (h0, h1), band in cases:
+        if band:   # the LL band of the level above's (N, C, 4, H, W) stack
+            N, C, H, W = shape
+            x = torch.randn((N, C, 4, H, W), generator=gen,
+                            device="cuda")[:, :, 0]
+        else:
+            x = torch.randn(shape, generator=gen, device="cuda")
+        inst = _insts(afb.afb1d_corr, lambda: afb.afb1d_corr(
+            x, h0, h1, mode, axis))
+        got = afb.afb1d_corr(x, h0, h1, mode, axis)
+        crop = slice(0, 2)
+        want = afb.afb1d_corr_plain(x[crop], h0, h1, mode, axis)
+        ms = timed_ms(lambda: afb.afb1d_corr(x, h0, h1, mode, axis))
+        _line("dwt_afb", label, got[crop], want, ms,
+              4.0 * (x.numel() + got.numel()), inst)
+        del got, want, x
 
 
 def run_k10(fb, filters):
@@ -295,8 +369,9 @@ def run_k15(nonsep, filters):
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--root", default=None)
-    p.add_argument("--only", nargs="+", choices=("k7", "k8", "k10", "k14",
-                                                 "k15", "k16"), default=None)
+    p.add_argument("--only", nargs="+", choices=("k6", "k7", "k8", "k9",
+                                                 "k10", "k14", "k15", "k16"),
+                   default=None)
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("stencil_probe: no CUDA device", file=sys.stderr)
@@ -309,8 +384,10 @@ def main():
     _cuda.build()
     print(json.dumps({"root": args.root or ".",
                       "package": nonsep.__file__}), flush=True)
-    runs = {"k7": lambda: run_k7(afb_sfb, filters),
+    runs = {"k6": lambda: run_k6(afb_sfb, filters),
+            "k7": lambda: run_k7(afb_sfb, filters),
             "k8": lambda: run_k8(dtcwt_fb, filters),
+            "k9": lambda: run_k9(dtcwt_fb, filters),
             "k10": lambda: run_k10(dtcwt_fb, filters),
             "k14": lambda: run_k14(nonsep, filters),
             "k15": lambda: run_k15(nonsep, filters),
