@@ -75,7 +75,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    banded least squares, K1), every stage checked against the CPU plain
    version on a crop, the round trip and a gradient step timed; then K12
    and K13 at edge cases (every mode, pads longer than the axis, odd
-   sizes, strided inputs, odd and even spectra).
+   sizes, odd L d, strided, aligned and transposed inputs: every K12
+   instantiation, odd and even spectra).
 10. per kernel: every kernel call of one run of each path, recorded and
    replayed on the same tensors against its plain PyTorch version (with
    the tolerance stated), timed (device time) beside the plain version
@@ -141,14 +142,14 @@ counted run by instantiation, the copy width their staging took (16- or
 4-byte cp.async, plain 2-byte loads; csrc/banded_pipe.cuh) and K1's
 64-column tile (async16_narrow); K1's and K17's
 kernel lines carry ``instantiations``, the same count for the recorded
-calls they replay.  K6's to K10's and K14's to K16's do too (K6's to
-K10's and K16's axis and vector width, K6's and K7's long_fold, K14's
-PSF count and tile, the adjoints' band gathers), and so do the DWT,
-Selesnick, scat_bp, dtcwt_large, per_level_main, quad_nonsep, nonsep_rt
-and swt_sfb lines for their counted runs; a main path fails if a K6 or
-K7 call took long_fold or a K6 or K9 call ran off the tiles
-(tiles_only), and the edge-case phases check every instantiation of K6,
-K7 and K9.  K16's
+calls they replay.  K6's to K10's, K12's and K14's to K16's do too (K6's
+to K10's, K12's and K16's axis and vector width, K6's and K7's
+long_fold, K14's PSF count and tile, the adjoints' band gathers), and so
+do the DWT, Selesnick, scat_bp, dtcwt_large, per_level_main, SWT,
+quad_nonsep, nonsep_rt and swt_sfb lines for their counted runs; a main
+path fails if a K6 or K7 call took long_fold or a K6, K9 or K12 call ran
+off the tiles (tiles_only), and the edge-case phases check every
+instantiation of K6, K7, K9 and K12.  K16's
 lines give torch.matmul on the probed operator (its transpose for the
 adjoint) as the library yardstick, with K1 on the same operator
 (k1_on_operator_ms) and the adjoint's partial transposed convolution
@@ -1057,7 +1058,8 @@ def replay(call, banded, quad, mag, afb, pad, fb=None, pool=None,
 
 def _inst_counter(name, fb):
     """The wrapper whose ``instantiations`` a call of kernel ``name``
-    bumps (K6's to K10's, K14's two, K15's two, K16's two), else None."""
+    bumps (K6's to K10's, K12's two, K14's two, K15's two, K16's two),
+    else None."""
     from pytorch_wavelets_tpu_torch.ops import afb_sfb, nonsep
     if name in ("dtcwt_filt", "dtcwt_dfilt", "dtcwt_ifilt") and \
             fb is not None:
@@ -1065,7 +1067,8 @@ def _inst_counter(name, fb):
     if name in ("nonsep_afb", "nonsep_afb_adjoint", "nonsep_sfb",
                 "nonsep_sfb_adjoint"):
         return getattr(nonsep, name)
-    if name in ("afb1d_corr", "sfb1d_conv", "sfb1d_atrous_conv",
+    if name in ("afb1d_corr", "sfb1d_conv", "afb1d_atrous_corr",
+                "afb1d_atrous_adjoint", "sfb1d_atrous_conv",
                 "sfb1d_atrous_adjoint"):
         return getattr(afb_sfb, name)
     return None
@@ -1075,14 +1078,16 @@ TILE_INSTS = ("col_scalar", "col_float4", "row_run", "row_gather")
 
 
 def tiles_only(insts, phase, counts):
-    """Every K6, K7 and K9 launch of a main path ran a tile: none took
-    K6's or K7's per-output long_fold, and K6's and K9's tile counts add
-    up to the run's launches ``counts``."""
+    """Every K6, K7, K9 and K12 launch of a main path ran a tile: none
+    took K6's or K7's per-output long_fold, and K6's, K9's and K12's tile
+    counts (K12's adjoint's band aside) add up to the run's launches
+    ``counts``."""
     for k in ("afb1d_corr", "sfb1d_conv"):
         got = insts.get(k, {})
         require(not got.get("long_fold"), f"{phase}: {SOURCES[k][0]} ran "
                 f"its per-output long_fold on a main path: {got}")
-    for k in ("afb1d_corr", "dtcwt_dfilt"):
+    for k in ("afb1d_corr", "dtcwt_dfilt", "afb1d_atrous_corr",
+              "afb1d_atrous_adjoint"):
         got = insts.get(k, {})
         require(sum(got.get(w, 0) for w in TILE_INSTS) == counts.get(k, 0),
                 f"{phase}: {SOURCES[k][0]} launched {counts.get(k, 0)} "
@@ -2290,6 +2295,7 @@ def swt_main(tt, ops, afb, dwt):
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         copies = copy_counts(ops)
+        insts = tiles_only(inst_counts(ops), "swt_main", counts)
         first_s = time.perf_counter() - t0
         inv_counts = {k: counts[k] - fwd_counts[k] for k in counts}
         require(fwd_counts["afb1d_atrous_corr"] > 0
@@ -2328,7 +2334,7 @@ def swt_main(tt, ops, afb, dwt):
     fields = dict(
         shape=list(SWT_SHAPE), J=SWT_J, wave=SWT_WAVE, mode=SWT_MODE,
         launches={"forward": fwd_counts, "inverse": inv_counts},
-        copies=copies, checked_images=n,
+        copies=copies, instantiations=insts, checked_images=n,
         max_abs_err_vs_cpu={"forward": fwd_err, "inverse": inv_err},
         tolerance={"forward": FWD_ATOL, "inverse": INV_ATOL},
         reconstruction_err=pr_err, reconstruction_tol=SWT_PR_TOL,
@@ -2350,10 +2356,12 @@ def swt_main(tt, ops, afb, dwt):
     ys = f(x)
     outs = [i(ys), *ys]
     tf_counts = ops.launch_counts()
+    tf_insts = tiles_only(inst_counts(ops), "swt_train", tf_counts)
     ops.reset_launches()
     grad = torch.autograd.grad(outs, x, cts)[0]
     torch.cuda.synchronize()
     tb_counts = ops.launch_counts()
+    tb_insts = tiles_only(inst_counts(ops), "swt_train", tb_counts)
     require(all(tf_counts[k] > 0 for k in ("afb1d_atrous_corr", "apply_col",
                                            "apply_row"))
             and all(tb_counts[k] > 0 for k in (
@@ -2387,6 +2395,7 @@ def swt_main(tt, ops, afb, dwt):
     tfields = dict(
         shape=list(SWT_SHAPE), J=SWT_J, wave=SWT_WAVE, mode=SWT_MODE,
         launches={"forward": tf_counts, "backward": tb_counts},
+        instantiations={"forward": tf_insts, "backward": tb_insts},
         checked_images=n, max_abs_err_grad_vs_cpu=grad_err,
         tolerance=GRAD_ATOL, adjoint_rel_err=adj, adjoint_tol=ADJOINT_TOL,
         fwd_bwd_ms=step_ms, fwd_bwd_device_ms=step_dev_ms,
@@ -2476,6 +2485,7 @@ def swt_long(tt, ops, afb, dwt, mode, shape, replay_calls):
             rec = i(ys)
         torch.cuda.synchronize()
         counts = ops.launch_counts()
+        insts = tiles_only(inst_counts(ops), f"swt_long {mode}", counts)
         first_s = time.perf_counter() - t0
         inv_counts = {k: counts[k] - fwd_counts[k] for k in counts}
         require(fwd_counts["afb1d_atrous_corr"] > 0
@@ -2529,10 +2539,14 @@ def swt_long(tt, ops, afb, dwt, mode, shape, replay_calls):
     outs = step_outs()
     torch.cuda.synchronize()
     step_fwd_counts = ops.launch_counts()
+    step_fwd_insts = tiles_only(inst_counts(ops), f"swt_long {mode}",
+                                step_fwd_counts)
     ops.reset_launches()
     grad = torch.autograd.grad(outs, xg, cts)[0]
     torch.cuda.synchronize()
     step_bwd_counts = ops.launch_counts()
+    step_bwd_insts = tiles_only(inst_counts(ops), f"swt_long {mode}",
+                                step_bwd_counts)
     del outs
     adj_kernels = ("spec_split",) if fft else ("apply_col", "apply_row")
     require(step_bwd_counts["afb1d_atrous_adjoint"] > 0
@@ -2564,6 +2578,8 @@ def swt_long(tt, ops, afb, dwt, mode, shape, replay_calls):
         launches={"forward": fwd_counts, "inverse": inv_counts,
                   "step_forward": step_fwd_counts,
                   "step_backward": step_bwd_counts},
+        instantiations={"round_trip": insts, "step_forward": step_fwd_insts,
+                        "step_backward": step_bwd_insts},
         reconstruction_err=pr_err, reconstruction_tol=SWT_LONG_PR_TOL,
         max_abs_err_vs_cpu_on_crops=crop_err, crop_lines=SWT_CROP,
         tolerance={"split": FWD_ATOL, "merge": INV_ATOL},
@@ -2581,19 +2597,26 @@ def swt_edge_cases(afb, pad, im):
     """K12's split and adjoint and K13's merge and split against their
     plain versions where the main paths do not reach: every mode along
     both axes, db1, db4 and bior2.4 and db20 (40 taps at dilation 4 on a
-    7x9 image: pads of several axis lengths), odd sizes, strided inputs
-    (the LL band of a stack, every other plane of a cotangent); K13 on
-    odd and even lengths along both axes.  Returns (calls checked, max
-    error)."""
+    7x9 image: pads of several axis lengths), 3 taps at dilation 3 (odd
+    L d: one output fewer), odd sizes, strided inputs (the LL band of a
+    stack, every other plane of a cotangent), aligned rows and transposed
+    views (each of K12's instantiations, both entries, its adjoint's
+    band); K13 on odd and even lengths along both axes.  Returns (calls
+    checked, max error, K12's launches by instantiation)."""
     from pytorch_wavelets_tpu_torch.filters import wavelet
     gen = torch.Generator().manual_seed(110)
     calls = []
     for name, d, shape in (("db1", 1, (2, 3, 9, 16)),
                            ("db4", 2, (2, 3, 13, 11)),
                            ("bior2.4", 4, (1, 2, 33, 17)),
-                           ("db20", 4, (2, 3, 7, 9))):
-        w = wavelet(name)
-        h0, h1 = (afb.as_taps(t)[::-1] for t in (w.dec_lo, w.dec_hi))
+                           ("db20", 4, (2, 3, 7, 9)),
+                           ("3 taps", 3, (2, 3, 10, 14))):
+        if name == "3 taps":
+            h0, h1 = torch.randn((2, 3), generator=gen,
+                                 dtype=torch.float64).numpy() / np.sqrt(3)
+        else:
+            w = wavelet(name)
+            h0, h1 = (afb.as_taps(t)[::-1] for t in (w.dec_lo, w.dec_hi))
         for mode in SWT_MODES:
             for axis in (2, 3):
                 x = torch.randn((shape[0], shape[1], 4, *shape[2:]),
@@ -2606,6 +2629,24 @@ def swt_edge_cases(afb, pad, im):
                 g = torch.randn(gshape, generator=gen).cuda()[:, 1::2]
                 calls.append(("afb1d_atrous_adjoint", "edge",
                               (g, h0, h1, mode, axis, d, shape[axis])))
+                # aligned rows (float4 columns) or a transposed view (the
+                # row tile's gather), input and cotangent
+                other = 12 if axis == 2 else shape[2]
+                xv = torch.randn((shape[0], shape[1], shape[axis], other)
+                                 if axis == 2 else
+                                 (shape[0], shape[1], shape[3], other),
+                                 generator=gen).cuda()
+                if axis == 3:
+                    xv = xv.transpose(2, 3)
+                calls.append(("afb1d_atrous_corr", "edge",
+                              (xv, h0, h1, mode, axis, d)))
+                m = gshape[axis + 1]
+                gv = torch.randn((shape[0], shape[1], 2, m, other),
+                                 generator=gen).cuda()
+                if axis == 3:
+                    gv = gv.transpose(3, 4)
+                calls.append(("afb1d_atrous_adjoint", "edge",
+                              (gv, h0, h1, mode, axis, d, shape[axis])))
     for n in (9, 10, 4097):
         for axis in (2, 3):
             shape = [2, 3, 5, 6]
@@ -2617,6 +2658,8 @@ def swt_edge_cases(afb, pad, im):
             calls.append(("spec_merge", "edge", (A, B, g0, g1, axis)))
             calls.append(("spec_split", "edge", (A, g0, g1, axis)))
     err = 0.0
+    wrappers = {k: getattr(afb, k) for k in SWT_KERNELS[:2]}
+    before = {k: dict(w.instantiations) for k, w in wrappers.items()}
     for call in calls:
         got, want, *_, tol, scale = swt_call_parts(call, afb, pad, im)
         require(within(got, want, tol, scale),
@@ -2625,7 +2668,13 @@ def swt_edge_cases(afb, pad, im):
                 f"{max_err(got, want)}")
         err = max(err, max_err(got, want))
     torch.cuda.synchronize()
-    return len(calls), err
+    insts = {k: {i: v - before[k].get(i, 0)
+                 for i, v in w.instantiations.items()}
+             for k, w in wrappers.items()}
+    require(all(insts[k].get(i) for k in insts for i in TILE_INSTS)
+            and insts["afb1d_atrous_adjoint"].get("band"),
+            f"swt_edge_cases: a K12 instantiation was not checked: {insts}")
+    return len(calls), err, insts
 
 
 # ---------------------------------------------------------------------------
@@ -3193,8 +3242,14 @@ def swt_sfb(ops, nonsep, afb):
     fields, by_role, calls = {}, {}, []
     with torch.no_grad():
         for d in SFB_DILATIONS:
+            torch.cuda.synchronize()
+            ops.reset_launches()
             y = afb.afb2d_atrous(x, *dec, "periodization", d)
             torch.cuda.synchronize()
+            scounts = ops.launch_counts()
+            require(scounts["afb1d_atrous_corr"] == 2, f"swt_sfb d={d}: "
+                    f"K12 launches {scounts}")
+            sinsts = tiles_only(inst_counts(ops), f"swt_sfb d={d}", scounts)
             ops.reset_launches()
             rec = afb.sfb2d_atrous(y, *rec_f, "periodization", d)
             torch.cuda.synchronize()
@@ -3229,6 +3284,8 @@ def swt_sfb(ops, nonsep, afb):
             by_role[f"d={d}"] = counts
             by_role[f"d={d} other modes"] = ocounts
             fields[f"d={d}"] = dict(launches=counts, instantiations=insts,
+                                    split_launches=scounts,
+                                    split_instantiations=sinsts,
                                     reconstruction_err=pr,
                                     reconstruction_tol=SWT_PR_TOL,
                                     merge_ms=ms, merge_device_ms=dev_ms,
@@ -4124,9 +4181,10 @@ def main():
             tt, ops, afb_sfb, dwt, mode, shape,
             lambda c, r, label: swt_rows(c, r, label, LARGE_REPLAY_TIMING)))
         torch.cuda.empty_cache()
-    n_edge, edge_err = swt_edge_cases(afb_sfb, pad, iswt_merge)
+    n_edge, edge_err, edge_insts = swt_edge_cases(afb_sfb, pad, iswt_merge)
     emit("swt_edge_cases", calls=n_edge, max_abs_err=edge_err,
-         tolerance={"K12": DWT_TOL, "K13": SPEC_TOL})
+         tolerance={"K12": DWT_TOL, "K13": SPEC_TOL},
+         k12_instantiations=edge_insts)
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()

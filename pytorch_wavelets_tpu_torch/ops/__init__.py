@@ -9,11 +9,12 @@ per entry and mode (``apply_col_tf32`` ... ``apply_row_bf16``);
 ``apply_col`` / ``apply_row`` count K1's fp32 launches only.  K1's and
 K17's wrappers also count their launches by instantiation (``copies``,
 :func:`copy_counts`): the copy width their staging took, and for K1's
-column entry its narrow 64-column tile.  K6's to K10's and K14's to K16's
-count theirs in ``instantiations`` (:func:`instantiation_counts`): K6's
-to K10's and K16's axis and vector width (K6's and K7's per-output
-``long_fold`` too), K14's and K15's tiles (K14's PSF count), their
-adjoints' and K15's forward's edge bands, K16's adjoint's edge band.
+column entry its narrow 64-column tile.  K6's to K10's, K12's and K14's
+to K16's count theirs in ``instantiations`` (:func:`instantiation_counts`):
+K6's to K10's, K12's and K16's axis and vector width (K6's and K7's
+per-output ``long_fold`` too), K14's and K15's tiles (K14's PSF count),
+their adjoints' and K15's forward's edge bands, K12's and K16's adjoints'
+edge bands.
 """
 from pytorch_wavelets_tpu_torch.ops.afb_sfb import (  # noqa: F401
     afb1d, sfb1d, afb1d_atrous, sfb1d_atrous, afb2d, sfb2d,
@@ -53,9 +54,10 @@ KERNELS = (apply_row, apply_col, q2c_pack, c2q_unpack, scat_mag_fwd,
 
 PRODUCT_KERNELS = (apply_row, apply_col, *K17_WRAPPERS)
 STENCIL_VARIANT_KERNELS = (afb1d_corr, sfb1d_conv, dtcwt_filt, dtcwt_dfilt,
-                           dtcwt_ifilt, nonsep_afb, nonsep_afb_adjoint,
-                           nonsep_sfb, nonsep_sfb_adjoint, sfb1d_atrous_conv,
-                           sfb1d_atrous_adjoint)
+                           dtcwt_ifilt, afb1d_atrous_corr,
+                           afb1d_atrous_adjoint, nonsep_afb,
+                           nonsep_afb_adjoint, nonsep_sfb, nonsep_sfb_adjoint,
+                           sfb1d_atrous_conv, sfb1d_atrous_adjoint)
 
 
 def reset_launches() -> None:
@@ -80,13 +82,13 @@ def copy_counts() -> dict:
 
 
 def instantiation_counts() -> dict:
-    """K6's to K10's and K14's to K16's launches by instantiation:
+    """K6's to K10's, K12's and K14's to K16's launches by instantiation:
     {wrapper name: {name: n}}: K8's ``col_float4`` / ``col_scalar`` /
-    ``row_async16`` / ``row_async4``; K6's, K7's, K9's, K10's and K16's
-    ``col_float4`` / ``col_scalar`` / ``row_run`` / ``row_gather``, K6's
-    and K7's ``long_fold`` (their per-output kernel, where
+    ``row_async16`` / ``row_async4``; K6's, K7's, K9's, K10's, K12's and
+    K16's ``col_float4`` / ``col_scalar`` / ``row_run`` / ``row_gather``,
+    K6's and K7's ``long_fold`` (their per-output kernel, where
     'periodization' folds a filter longer than the axis or a tail longer
-    than the output), and ``band`` where K16's
+    than the output), and ``band`` where K12's or K16's
     adjoint adds its edge band's pad images; K14's forward ``k4`` /
     ``k16`` with its tile in output positions (``"k16 16x8"``), its
     adjoint ``poly k4`` / ``poly k16`` with its tile in pixels, ``band``

@@ -96,10 +96,10 @@ _SIGNATURES = {
     },
     "swt_atrous": {
         "swt_afb": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _L, _L, _L, _L,
-                    _I, _I, _I, _I, _L, _L, _L, _L, _L, _P],
+                    _I, _I, _I, _I, _L, _L, _L, _L, _L, _I, _I, _I, _P],
         "swt_afb_adjoint": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I,
                             _L, _L, _L, _L, _L, _I, _I, _I, _I,
-                            _L, _L, _L, _L, _P],
+                            _L, _L, _L, _L, _I, _I, _I, _P, _I, _I, _P],
         "swt_sfb": [_P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I,
                     *[_L] * 8, _I, _I, _I, _I, _L, _L, _L, _L, _I, _I, _I,
                     _P],

@@ -253,16 +253,19 @@ def merge_row_tile(n, L, d, ni, no):
 
 
 @lru_cache(maxsize=256)
-def merge_band_images(n, L, d, mode):
-    """The images of K16's adjoint beside each sample's direct one: the
-    pad positions q outside [0, n) whose source (:func:`pad_index`) is
-    sample t, for the merge of a length-``n`` axis by L taps ``d`` apart.
+def merge_band_images(n, L, d, mode, kind="merge"):
+    """The images of an à trous adjoint beside each sample's direct one:
+    the pad positions q outside [0, n) whose source (:func:`pad_index`)
+    is sample t, for the merge (K16, ``kind`` "merge",
+    :func:`atrous_merge_plan`) or the split (K12, "split",
+    :func:`atrous_plan`) of a length-``n`` axis by L taps ``d`` apart.
     An int32 array with a row for each t that has any, ascending: t, then
     the padded positions q + front, ascending, -1 past the last; None in
     'zero' mode or without pads.  ``csrc/swt_atrous.cu:merge_band_kernel``
     adds their windows (reflected and wrapped images, the whole pad run
     in 'replicate', several periods of a pad longer than the axis)."""
-    front, back, code, _ = atrous_merge_plan(n, L, d, mode)
+    plan = {"merge": atrous_merge_plan, "split": atrous_plan}[kind]
+    front, back, code, _ = plan(n, L, d, mode)
     if code == PAD_CODES["zero"] or front + back == 0:
         return None
     src = pad_index(n, front, back, mode)
@@ -277,9 +280,15 @@ def merge_band_images(n, L, d, mode):
 
 
 @lru_cache(maxsize=64)
-def _device_band(n, L, d, mode, device):
-    t = merge_band_images(n, L, d, mode)
+def _device_band(n, L, d, mode, device, kind="merge"):
+    t = merge_band_images(n, L, d, mode, kind)
     return None if t is None else torch.as_tensor(t, device=device)
+
+
+def _band_args(tab):
+    """The C entries' (table, width, rows) of a band table (0s: none)."""
+    return (0, 0, 0) if tab is None else (tab.data_ptr(), tab.shape[1],
+                                          tab.shape[0])
 
 
 def rows_aligned(t):
@@ -299,7 +308,8 @@ def unit_rows(t):
 
 
 def merge_instantiation(axis, contiguous, *inputs):
-    """K16's instantiation along ``axis`` for its input views: the column
+    """The instantiation of K16's and K12's tile engine along ``axis`` for
+    its input views: the column
     tile with float4 loads (``col_float4``, every input's rows 16-byte
     aligned with stride 1 along W, :func:`rows_aligned`) or scalar ones
     (``col_scalar``); the row tile walking one run of samples a row
@@ -703,11 +713,15 @@ def _atrous_args(kernel, h0_taps, h1_taps, n, mode, dilation):
 def afb1d_atrous_corr(x, h0_taps, h1_taps, mode, axis, dilation):
     """À trous split of (N, C, H, W) ``x`` along ``axis`` (2 or 3, or -1)
     with correlation-order taps ``dilation`` samples apart:
-    (N, C, 2, H', W'), band 0 the lowpass; H' = H, W' = W for even L.
+    (N, C, 2, H', W'), band 0 the lowpass; H' = H, W' = W for even L d
+    (one sample fewer along the axis for odd L d).
 
     CPU tensors take :func:`afb1d_atrous_corr_plain`; CUDA tensors launch
-    K12's ``swt_afb``, which reads ``x`` through its strides (the LL band
-    of the previous level's (N, C, 4, H, W) stack in place).
+    K12's ``swt_afb``, K16's tile engine with one input and two outputs,
+    which reads ``x`` through its strides (the LL band of the previous
+    level's (N, C, 4, H, W) stack in place), in the instantiation
+    :func:`merge_instantiation` picks (counted in ``instantiations``),
+    with :func:`merge_row_tile`'s tile along W.
     """
     axis = axis % 4
     if x.device.type == "cpu":
@@ -724,12 +738,15 @@ def afb1d_atrous_corr(x, h0_taps, h1_taps, mode, axis, dilation):
     y = torch.empty(shape, device=x.device, dtype=torch.float32)
     if y.numel() == 0:
         return y
+    G, S = merge_row_tile(m, L, dilation, 1, 2)
+    inst = merge_instantiation(axis, G == dilation, x)
     lib = _cuda.library("swt_atrous")
     _cuda.check(lib, "swt_afb", lib.swt_afb(
         x.data_ptr(), y.data_ptr(), _ptr(h0), _ptr(h1), L, dilation, N, C,
         H, W, *x.stride(), axis, front, code, m, *y.stride(),
-        _cuda.stream_of(x)))
+        INST_CODES[inst], G, S, _cuda.stream_of(x)))
     _K12.launches += 1
+    _K12.instantiations[inst] += 1
     return y
 
 
@@ -740,10 +757,12 @@ def afb1d_atrous_adjoint(dy, h0_taps, h1_taps, mode, axis, dilation, n):
     the lowpass's) -> (N, C, H, W).
 
     CPU tensors take :func:`afb1d_atrous_adjoint_plain`; CUDA tensors
-    launch K12's ``swt_afb_adjoint``, a gather (no atomics) that reads
-    ``dy`` through its five strides: each input sample sums the outputs
-    whose padded window reads it, its reflected or wrapped images near an
-    edge included.
+    launch K12's ``swt_afb_adjoint`` (no atomics), which reads ``dy``'s
+    two bands through its five strides: K16's tile engine with two inputs
+    and one output, on the reversed taps, writes each sample's direct
+    image, then, outside 'zero' mode, a gather adds the images of
+    :func:`merge_band_images` of the split's plan (counted as ``band`` in
+    ``instantiations`` beside the tile's instantiation).
     """
     axis = axis % 4
     if dy.device.type == "cpu":
@@ -766,18 +785,28 @@ def afb1d_atrous_adjoint(dy, h0_taps, h1_taps, mode, axis, dilation, n):
     _check_4d("swt_afb_adjoint", axis, dx)
     if dx.numel() == 0:
         return dx
+    if dy.numel() == 0:     # odd L d on one sample: no output reads it
+        return dx.zero_()
+    G, S = merge_row_tile(n, L, dilation, 2, 1)
+    inst = merge_instantiation(axis, G == dilation, dy[:, :, 0], dy[:, :, 1])
+    tab = _device_band(n, L, dilation, mode, dy.device, "split")
     lib = _cuda.library("swt_atrous")
     _cuda.check(lib, "swt_afb_adjoint", lib.swt_afb_adjoint(
         dy.data_ptr(), dx.data_ptr(), _ptr(h0), _ptr(h1), L, dilation, N,
         C, *shape[2:], *dy.stride(), axis, front, code, m, *dx.stride(),
-        _cuda.stream_of(dy)))
+        INST_CODES[inst], G, S, *_band_args(tab), _cuda.stream_of(dy)))
     _K12A.launches += 1
+    _K12A.instantiations[inst] += 1
+    if tab is not None:
+        _K12A.instantiations["band"] += 1
     return dx
 
 
 _K12, _K12A = afb1d_atrous_corr, afb1d_atrous_adjoint
 _K12.launches = 0
 _K12A.launches = 0
+_K12.instantiations = dict.fromkeys(INST_CODES, 0)
+_K12A.instantiations = dict.fromkeys((*INST_CODES, "band"), 0)
 
 
 def _merge_args(kernel, g0_taps, g1_taps, n, mode, dilation):
@@ -858,13 +887,11 @@ def sfb1d_atrous_adjoint(dy, g0_taps, g1_taps, mode, axis, dilation):
     G, S = merge_row_tile(n, L, dilation, 1, 2)
     inst = merge_instantiation(axis, G == dilation, dy)
     tab = _device_band(n, L, dilation, mode, dy.device)
-    band = (0, 0, 0) if tab is None else (tab.data_ptr(), tab.shape[1],
-                                          tab.shape[0])
     lib = _cuda.library("swt_atrous")
     _cuda.check(lib, "swt_sfb_adjoint", lib.swt_sfb_adjoint(
         dy.data_ptr(), d2.data_ptr(), _ptr(k0), _ptr(k1), L, dilation, N, C,
         H, W, *dy.stride(), axis, front, code, m, *d2.stride(),
-        INST_CODES[inst], G, S, *band, _cuda.stream_of(dy)))
+        INST_CODES[inst], G, S, *_band_args(tab), _cuda.stream_of(dy)))
     _K16A.launches += 1
     _K16A.instantiations[inst] += 1
     if tab is not None:

@@ -1125,12 +1125,14 @@ def test_apply_row_out(dev, accumulate):
 
 @pytest.mark.parametrize("mode", SWT_MODES)
 @pytest.mark.parametrize("L,d,n", [(2, 1, 16), (8, 1, 33), (8, 4, 6),
-                                   (10, 2, 13), (40, 4, 7)])
+                                   (10, 2, 13), (40, 4, 7), (3, 3, 7),
+                                   (5, 3, 13)])
 @pytest.mark.parametrize("axis", [2, 3])
 def test_swt_afb(dev, mode, L, d, n, axis):
     """K12's split and its adjoint against their plain versions: every
     mode, odd sizes, pads longer than the axis (40 taps at dilation 4 on
-    7 samples), a strided input (the LL band of a stack) and cotangent."""
+    7 samples), odd L d (n - 1 outputs), a strided input (the LL band of
+    a stack) and cotangent."""
     from pytorch_wavelets_tpu_torch.ops import afb_sfb
     h0, h1 = _taps(L, 70 + L)
     shape = [2, 3, 9, 7]
@@ -1623,6 +1625,75 @@ def test_swt_sfb_instantiations(dev, axis, n, other, view, d, L, mode):
             afb_sfb.sfb1d_atrous_conv(lo, mixed, g0, g1, mode, axis, d),
             afb_sfb.sfb1d_atrous_conv_plain(lo, mixed, g0, g1, mode, axis,
                                             d), **NONSEP_TOL)
+
+
+def _k12_insts():
+    from pytorch_wavelets_tpu_torch.ops import afb_sfb
+    return (dict(afb_sfb.afb1d_atrous_corr.instantiations),
+            dict(afb_sfb.afb1d_atrous_adjoint.instantiations))
+
+
+# K12 runs K16's tiles: the split at (1, 2) inputs and outputs, the
+# adjoint's direct images at (2, 1) plus the band of the split's plan
+@pytest.mark.parametrize("axis,n,other", [
+    (2, 5, 10), (2, 17, 9), (2, 33, 130), (2, 70, 4),
+    (3, 5, 3), (3, 128, 6), (3, 129, 33), (3, 300, 2)])
+@pytest.mark.parametrize("view", ["aligned", "offset", "transposed"])
+@pytest.mark.parametrize("d", [1, 2, 4])
+@pytest.mark.parametrize("L,mode", [(8, "periodization"), (4, "zero"),
+                                    (6, "symmetric"), (3, "reflect")])
+def test_swt_afb_instantiations(dev, axis, n, other, view, d, L, mode):
+    """Each of K12's instantiations, both entries, at its tile edges,
+    against the plain versions: K16's grid of axes, views and d, and odd
+    L d (3 taps: n - 1 outputs).  The split reads ``x`` as a view; the
+    adjoint reads the two bands of a cotangent stack in place (the
+    column adjoint's (N, 2C, 2, H, W) cotangent: rows 16-byte aligned
+    where the view's are), transposed, or one float in; its edge band
+    runs outside 'zero' mode.  Each case asserts the instantiations that
+    ran."""
+    from pytorch_wavelets_tpu_torch.ops import afb_sfb
+    h0, h1 = _taps(L, 117 + L)
+    x = _filt_view(dev, view, axis, n, other, 118)
+    m = afb_sfb.atrous_plan(n, L, d, mode)[3]
+    gshape = [2, 3, 0, 0]
+    gshape[axis], gshape[5 - axis] = m, other
+    H, W = gshape[2:]
+    if view == "transposed":
+        g = torch.from_numpy(_rand((2, 3, 2, W, H), 119)).to(
+            dev).transpose(3, 4)
+    else:
+        o = 0 if view == "aligned" else 1
+        g = torch.from_numpy(_rand((2, 3, 2, H, -(-(W + 1) // 4) * 4),
+                                   119)).to(dev)[..., o:o + W]
+    gin = (g[:, :, 0], g[:, :, 1])
+
+    def want_inst(tile_n, *views):
+        contiguous = afb_sfb.merge_row_tile(tile_n, L, d, *(
+            (1, 2) if len(views) == 1 else (2, 1)))[0] == d
+        if axis == 2:
+            return "col_float4" if view == "aligned" and all(
+                map(afb_sfb.rows_aligned, views)) else "col_scalar"
+        return ("row_run" if contiguous and view != "transposed"
+                else "row_gather")
+    fwd, adj = want_inst(m, x), want_inst(n, *gin)
+    if axis == 2 and view == "aligned":
+        assert fwd == adj == "col_float4"
+    assert afb_sfb.merge_instantiation(
+        axis, afb_sfb.merge_row_tile(m, L, d, 1, 2)[0] == d, x) == fwd
+    assert afb_sfb.merge_instantiation(
+        axis, afb_sfb.merge_row_tile(n, L, d, 2, 1)[0] == d, *gin) == adj
+    i0 = _k12_insts()
+    torch.testing.assert_close(
+        afb_sfb.afb1d_atrous_corr(x, h0, h1, mode, axis, d),
+        afb_sfb.afb1d_atrous_corr_plain(x, h0, h1, mode, axis, d),
+        **DWT_TOL)
+    torch.testing.assert_close(
+        afb_sfb.afb1d_atrous_adjoint(g, h0, h1, mode, axis, d, n),
+        afb_sfb.afb1d_atrous_adjoint_plain(g, h0, h1, mode, axis, d, n),
+        **DWT_TOL)
+    band = afb_sfb.merge_band_images(n, L, d, mode, "split") is not None
+    assert band == (mode != "zero")
+    assert _k12_insts() == _k16_bumped(i0, fwd, adj, band)
 
 
 def _flat(out):

@@ -557,28 +557,31 @@ def _merge_x(x, n, mode):
     return X
 
 
-def merge_col(xs, T, F, mode, d):
+def merge_col(xs, T, F, mode, d, m=None):
     """merge_col_kernel along one column: tiles (residue r, chunk) of MRC
     outputs r + d (chunk MRC + o), each input's window over X(m0 - F +
-    d e), the pad map per loaded row.  T: (NI, NO, L)."""
+    d e), the pad map per loaded row.  T: (NI, NO, L); the inputs' n
+    samples, ``m`` outputs (n by default)."""
     n = len(xs[0])
+    m = n if m is None else m
     RW = MRC
-    nres, nch = min(d, n), -(-(-(-n // d)) // RW)
-    out = np.full((T.shape[1], n), np.nan)
+    nres, nch = min(d, m), -(-(-(-m // d)) // RW)
+    out = np.full((T.shape[1], m), np.nan)
     for ti in range(nres * nch):
         m0 = ti % nres + d * RW * (ti // nres)
         acc = sum(_merge_window(lambda e, X=_merge_x(x, n, mode):
                                 X(m0 - F + d * e), T[i], RW)
                   for i, x in enumerate(xs))
         for o in range(RW):
-            if m0 + d * o < n:
+            if m0 + d * o < m:
                 assert np.isnan(out[:, m0 + d * o]).all()
                 out[:, m0 + d * o] = acc[:, o]
     return out
 
 
-def merge_row(xs, T, F, mode, d):
-    """merge_row_kernel along one row: tiles of G residues x S positions
+def merge_row(xs, T, F, mode, d, m=None):
+    """merge_row_kernel along one row (the inputs' n samples, ``m``
+    outputs, n by default): tiles of G residues x S positions
     (merge_row_tile), the samples X(q0 + g + d k) staged as e = k G + g
     (where the tile is one run, G = d, inside the axis row_run's walk
     along the segment at q0, which must agree), each thread's MR outputs of
@@ -587,8 +590,9 @@ def merge_row(xs, T, F, mode, d):
     (rows) of a warp read and write their rows on distinct banks (odd
     pitches) and stage and store along a row on consecutive words."""
     n = len(xs[0])
+    m = n if m is None else m
     NI, NO, L = T.shape
-    G, S = afb_sfb.merge_row_tile(n, L, d, NI, NO)
+    G, S = afb_sfb.merge_row_tile(m, L, d, NI, NO)
     gs = G.bit_length() - 1
     assert G == 1 << gs and S % MR == 0
     seg = G * (S + L - 1)
@@ -597,10 +601,10 @@ def merge_row(xs, T, F, mode, d):
         NI * NO * L + NI * 32 * pin + NO * 32 * pout)
     for pitch in (pin, pout):
         assert len({lane * pitch % 32 for lane in range(32)}) == 32
-    nres = min(d, n)
+    nres = min(d, m)
     ngroups = -(-nres // G)
-    out = np.full((NO, n), np.nan)
-    for tile in range(ngroups * -(-(-(-n // d)) // S)):
+    out = np.full((NO, m), np.nan)
+    for tile in range(ngroups * -(-(-(-m // d)) // S)):
         rho0, P0 = (tile % ngroups) * G, tile // ngroups * S
         q0 = rho0 - F + d * P0
 
@@ -619,38 +623,61 @@ def merge_row(xs, T, F, mode, d):
                 out_s[:, (ch * MR + o) * G + g] = acc[:, o]
         for e in range(G * S):
             g = e & (G - 1)
-            m = rho0 + g + d * (P0 + (e >> gs))
+            u = rho0 + g + d * (P0 + (e >> gs))
             if G == d:
-                assert m == d * P0 + e
-            if rho0 + g >= nres or m >= n:
+                assert u == d * P0 + e
+            if rho0 + g >= nres or u >= m:
                 continue
-            assert np.isnan(out[:, m]).all()
-            out[:, m] = out_s[:, e]
+            assert np.isnan(out[:, u]).all()
+            out[:, u] = out_s[:, e]
     return out
 
 
-def merge_band(out, g, k0, k1, mode, d):
-    """merge_band_kernel: add, for each row of merge_band_images (t, then
-    padded positions u0 = q + front), sum_k g_o[k] dy[u0 - k d]."""
-    n, L = len(g), len(k0)
-    tab = afb_sfb.merge_band_images(n, L, d, mode)
+def band_table(n, L, d, mode, kind):
+    """merge_band_images of ``kind``'s plan, checked against pad_index:
+    its rows are the samples t with a pad image, ascending, each listing
+    every padded position outside the axis whose source is t, ascending,
+    then -1 to the end."""
+    plan = {"merge": afb_sfb.atrous_merge_plan,
+            "split": afb_sfb.atrous_plan}[kind]
+    front, back, _, _ = plan(n, L, d, mode)
+    tab = afb_sfb.merge_band_images(n, L, d, mode, kind)
+    src = pad_index(n, front, back, mode)
+    pads = np.r_[0:front, front + n:front + n + back]
+    want = {t: pads[src[pads] == t] for t in np.unique(src[pads])
+            if t >= 0}
+    if tab is None:
+        assert not want
+        return None
+    assert list(tab[:, 0]) == sorted(want)
+    for row in tab:
+        us = row[1:][row[1:] >= 0]
+        assert (np.diff(us) > 0).all() and (row[1 + len(us):] < 0).all()
+        np.testing.assert_array_equal(us, want[row[0]])
+    return tab
+
+
+def merge_band(out, ins, T, n, d, mode, kind):
+    """merge_band_kernel<NI, NO>: add, for each row of the band table of
+    ``kind``'s plan (t, then padded positions u0 = q + front), sum_i sum_k
+    T[i][o][k] in_i[u0 - k d] to output o at t (the inputs' m samples).
+    T: (NI, NO, L), the taps unreversed."""
+    tab = band_table(n, T.shape[2], d, mode, kind)
     if tab is None:
         return out
+    m = len(ins[0])
     for row in tab:
-        us = row[1:][row[1:] >= 0]     # ascending, then -1 to the end
-        assert len(us) and (np.diff(us) > 0).all()
-        assert (row[1 + len(us):] < 0).all()
-        lo = hi = 0.0
+        us = row[1:][row[1:] >= 0]
+        acc = np.zeros(T.shape[1])
         for u0 in us:
-            for k in range(L):
+            for k in range(T.shape[2]):
                 u = u0 - k * d
                 if u < 0:
                     break
-                if u < n:
-                    lo += k0[k] * g[u]
-                    hi += k1[k] * g[u]
-        out[0, row[0]] += lo
-        out[1, row[0]] += hi
+                if u < m:
+                    for i, g in enumerate(ins):
+                        acc += T[i, :, k] * g[u]
+        out[:, row[0]] += acc
     return out
 
 
@@ -670,7 +697,8 @@ def k16_adjoint(plan, g, k0, k1, mode, d):
     _, back, _, _ = afb_sfb.atrous_merge_plan(n, L, d, mode)
     T = 0.5 * np.stack([k0[::-1], k1[::-1]])[None]
     out = plan([g], T, back, "zero", d)
-    return merge_band(out, g, 0.5 * k0, 0.5 * k1, mode, d)
+    return merge_band(out, [g], 0.5 * np.stack([k0, k1])[None], n, d, mode,
+                      "merge")
 
 
 K16_PLANS = {"columns": merge_col, "rows": merge_row}
@@ -712,3 +740,69 @@ def test_k16_index_plans(mode, L, d, n):
         np.testing.assert_allclose(
             k16_adjoint(plan, g, k0, k1, mode, d), want, **TOL,
             err_msg=name)
+
+
+def k12_forward(plan, x, h0, h1, mode, d):
+    """swt_afb by the column or row tile: (NI, NO) = (1, 2), T = (h0, h1),
+    F = front, the mode's pads, m_out outputs of n samples."""
+    front, _, _, m = afb_sfb.atrous_plan(len(x), len(h0), d, mode)
+    return plan([x], np.stack([h0, h1])[None], front, mode, d, m)
+
+
+def k12_adjoint(plan, glo, ghi, h0, h1, mode, d, n):
+    """swt_afb_adjoint: the tile on the reversed taps, (2, 1), F = back' =
+    (L - 1) d - front, zeros outside the cotangent's m_out samples, n
+    outputs (each sample's direct image), then the band of the split's
+    plan summing dlo's and dhi's pad images into one output."""
+    L = len(h0)
+    front = afb_sfb.atrous_plan(n, L, d, mode)[0]
+    T = np.stack([h0[::-1], h1[::-1]])[:, None]
+    out = plan([glo, ghi], T, (L - 1) * d - front, "zero", d, n)
+    return merge_band(out, [glo, ghi], np.stack([h0, h1])[:, None], n, d,
+                      mode, "split")[0]
+
+
+@pytest.mark.parametrize("mode", ["zero", "symmetric", "reflect", "periodic",
+                                  "periodization", "replicate"])
+@pytest.mark.parametrize("L,d,n", [(2, 1, 7), (8, 1, 9), (8, 2, 6),
+                                   (6, 4, 5), (4, 4, 16), (8, 1, 300),
+                                   (8, 4, 261), (4, 32, 70), (3, 3, 40),
+                                   (5, 3, 11), (3, 3, 2)])
+def test_k12_tile_plans(mode, L, d, n):
+    """K12 on K16's tile engine: the split at (1, 2) and the adjoint's
+    direct images at (2, 1) by the column and row tiles, the adjoint's
+    pad images by the band of the split's plan (its table checked
+    against pad_index), against the plain versions and the closed forms
+    of tests/test_torch_swt_plans.py: K16's grid, odd L d (n - 1
+    outputs), pads longer than the axis (L d = 24 on 5 samples, 9 on
+    2)."""
+    from tests.test_torch_swt_plans import (
+        emulate_swt_afb, emulate_swt_afb_adjoint,
+    )
+    r = np.random.RandomState(13)
+    h0, h1 = r.randn(2, L)
+    x = r.randn(n)
+
+    def t(v, shape):
+        return torch.from_numpy(np.asarray(v)).reshape(shape)
+    m = afb_sfb.atrous_plan(n, L, d, mode)[3]
+    assert m == n - (L * d) % 2
+    want = afb_sfb.afb1d_atrous_corr_plain(t(x, (1, 1, 1, n)), h0, h1, mode,
+                                           3, d).reshape(2, m).numpy()
+    closed = n <= 64        # the closed forms' loops are slow
+    if closed:
+        np.testing.assert_allclose(emulate_swt_afb(x, h0, h1, mode, d),
+                                   want, **TOL)
+    g = r.randn(2, m)
+    want_dx = afb_sfb.afb1d_atrous_adjoint_plain(
+        t(g, (1, 1, 2, 1, m)), h0, h1, mode, 3, d, n).reshape(n).numpy()
+    if closed:
+        np.testing.assert_allclose(
+            emulate_swt_afb_adjoint(g[0], g[1], h0, h1, mode, d, n),
+            want_dx, **TOL)
+    for name, plan in K16_PLANS.items():
+        np.testing.assert_allclose(k12_forward(plan, x, h0, h1, mode, d),
+                                   want, **TOL, err_msg=name)
+        np.testing.assert_allclose(
+            k12_adjoint(plan, g[0], g[1], h0, h1, mode, d, n), want_dx,
+            **TOL, err_msg=name)

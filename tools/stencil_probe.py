@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
 """Time K6 (dwt_afb), K7 (dwt_sfb), K8 (dtcwt_filt), K9 (dtcwt_dfilt), K10
-(dtcwt_ifilt), K14 (nonsep_afb and its adjoint), K15 (nonsep_sfb and its
-adjoint) and K16 (swt_sfb and its adjoint) on one CUDA card at the shapes
-of chip_smoke.py's DWT, per-level, non-separable and à trous paths, each
-call checked against its plain version.
+(dtcwt_ifilt), K12 (swt_afb and its adjoint), K14 (nonsep_afb and its
+adjoint), K15 (nonsep_sfb and its adjoint) and K16 (swt_sfb and its
+adjoint) on one CUDA card at the shapes of chip_smoke.py's DWT,
+per-level, SWT, non-separable and à trous paths, each call checked
+against its plain version.
 
-    python3 tools/stencil_probe.py [--root DIR]
-                                   [--only k6|k7|k8|k9|k10|k14|k15|k16 ...]
+    python3 tools/stencil_probe.py [--root DIR] [--merge-tile-out N]
+                                   [--only k6|k7|k8|k9|k10|k12|k14|k15|k16
+                                    ...]
 
 ``--root`` imports ``pytorch_wavelets_tpu_torch`` from another checkout
-(say an unpacked parent commit), so that two versions can be timed in one
-session on one card: run it once per root, in turns.  Prints one JSON line
-a call (device ms: CUDA events over back-to-back calls after a warm-up)
-and the card's name and power limit.  Imports torch, numpy and the port
-only.
+(say an unpacked parent commit), so that two versions can be timed on one
+card in one sitting: run it once per root, in turns.  ``--merge-tile-out``
+sets the outputs a row of K12's and K16's row tile aims at
+(``ops/afb_sfb.py:merge_row_tile``, 64 by default), to try others.
+Prints one JSON line a call (device ms: CUDA events over back-to-back
+calls after a warm-up) and the card's name and power limit.  Imports
+torch, numpy and the port only.
 """
 import argparse
 import json
@@ -298,6 +302,62 @@ def run_k16(afb, filters):
             del got, want
 
 
+def run_k12(afb, filters):
+    """The SWT's splits and their adjoints, db4: swt_main's three levels
+    (32x3x256^2 'periodization', d = 1, 2, 4: the row split of x or of
+    the LL band of the level above's (N, C, 4, H, W) stack read in place,
+    the column split of its (N, 2C, H, W) output; the column adjoint of
+    the level's (N, 2C, 2, H, W) cotangent, the row adjoint of its
+    (N, C, 2, H, W) result) and the two swt_long levels on 1x3x4096^2
+    ('periodization', the fft cell) and 1x1x4096^2 ('symmetric', the
+    banded cell), d = 1, 2."""
+    w = filters.wavelet("db4")
+    h0, h1 = (np.asarray(h, np.float64)[::-1].copy()
+              for h in (w.dec_lo, w.dec_hi))
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    crop = slice(0, 1)
+    for cell, (N, C, H, W), mode, ds in (
+            ("swt", (32, 3, 256, 256), "periodization", (1, 2, 4)),
+            ("fft", (1, 3, 4096, 4096), "periodization", (1, 2)),
+            ("banded", (1, 1, 4096, 4096), "symmetric", (1, 2))):
+        stack = torch.randn((N, C, 4, H, W), generator=gen, device="cuda")
+        g2 = stack[:, :, :2].contiguous()
+        for d in ds:
+            x = stack[:, :, 0] if d > 1 else stack[:, :, 0].contiguous()
+            lohi = afb.afb1d_atrous_corr(x, h0, h1, mode, 3, d).reshape(
+                N, 2 * C, H, W)
+            g = stack.reshape(N, 2 * C, 2, H, W)
+            for label, run, plain, inp, wrapper in (
+                    ("row", lambda: afb.afb1d_atrous_corr(
+                        x, h0, h1, mode, 3, d),
+                     lambda: afb.afb1d_atrous_corr_plain(
+                         x[crop], h0, h1, mode, 3, d), x,
+                     afb.afb1d_atrous_corr),
+                    ("col", lambda: afb.afb1d_atrous_corr(
+                        lohi, h0, h1, mode, 2, d),
+                     lambda: afb.afb1d_atrous_corr_plain(
+                         lohi[crop], h0, h1, mode, 2, d), lohi,
+                     afb.afb1d_atrous_corr),
+                    ("col adjoint", lambda: afb.afb1d_atrous_adjoint(
+                        g, h0, h1, mode, 2, d, H),
+                     lambda: afb.afb1d_atrous_adjoint_plain(
+                         g[crop], h0, h1, mode, 2, d, H), g,
+                     afb.afb1d_atrous_adjoint),
+                    ("row adjoint", lambda: afb.afb1d_atrous_adjoint(
+                        g2, h0, h1, mode, 3, d, W),
+                     lambda: afb.afb1d_atrous_adjoint_plain(
+                         g2[crop], h0, h1, mode, 3, d, W), g2,
+                     afb.afb1d_atrous_adjoint)):
+                inst = _insts(wrapper, run)
+                got = run()
+                ms = timed_ms(run)
+                _line(wrapper.__name__, f"{cell} d={d} {label}", got[crop],
+                      plain(), ms, 4.0 * (inp.numel() + got.numel()), inst)
+                del got
+            del x, lohi, g
+        del stack, g2
+
+
 def run_k7(afb, filters):
     """dwt_main's merges (DWT J=3, db4, 'symmetric', 32x10x512^2: the
     column merges of two bands of a level's stack read in place, the row
@@ -370,8 +430,10 @@ def main():
     p = argparse.ArgumentParser()
     p.add_argument("--root", default=None)
     p.add_argument("--only", nargs="+", choices=("k6", "k7", "k8", "k9",
-                                                 "k10", "k14", "k15", "k16"),
+                                                 "k10", "k12", "k14", "k15",
+                                                 "k16"),
                    default=None)
+    p.add_argument("--merge-tile-out", type=int, default=None)
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("stencil_probe: no CUDA device", file=sys.stderr)
@@ -382,13 +444,17 @@ def main():
     from pytorch_wavelets_tpu_torch import filters
     from pytorch_wavelets_tpu_torch.ops import _cuda, afb_sfb, dtcwt_fb, nonsep
     _cuda.build()
-    print(json.dumps({"root": args.root or ".",
-                      "package": nonsep.__file__}), flush=True)
+    if args.merge_tile_out:
+        afb_sfb._MERGE_TILE_OUT = args.merge_tile_out
+    print(json.dumps({"root": args.root or ".", "package": nonsep.__file__,
+                      "merge_tile_out": afb_sfb._MERGE_TILE_OUT}),
+          flush=True)
     runs = {"k6": lambda: run_k6(afb_sfb, filters),
             "k7": lambda: run_k7(afb_sfb, filters),
             "k8": lambda: run_k8(dtcwt_fb, filters),
             "k9": lambda: run_k9(dtcwt_fb, filters),
             "k10": lambda: run_k10(dtcwt_fb, filters),
+            "k12": lambda: run_k12(afb_sfb, filters),
             "k14": lambda: run_k14(nonsep, filters),
             "k15": lambda: run_k15(nonsep, filters),
             "k16": lambda: run_k16(afb_sfb, filters)}
