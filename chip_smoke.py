@@ -30,7 +30,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    x.grad checked finite, shaped, and against the CPU plain run on the
    first 8 images; forward / backward ms, Mpix/s and peak memory, beside
    the reference's GTX1080 figures.  Then scat_j2_colour: the same for
-   combine_colour=True at 16x3x256x256, checked on its first 4 images.
+   combine_colour=True at 16x3x256x256, checked on its first 4 images;
+   and mag_edge_cases: K4 and K5 at edge views (offsets of 4, 8 and 16
+   bytes, odd and unit widths, two chunks a plane, strided, transposed
+   and re/im-last slices, combine over 3 and 5 channels, the cotangent as
+   torch.cat's backward hands it, b = 0), each instantiation against its
+   plain version.
 7. dwt_main: DWTForward(J=3, db4, symmetric) then DWTInverse on
    32x10x512x512 fp32 (benchmarks/run.py:8's --dwt workload, the
    reference's DWT graph setting), checked on its first 4 images against
@@ -149,7 +154,10 @@ do the DWT, Selesnick, scat_bp, dtcwt_large, per_level_main, SWT,
 quad_nonsep, nonsep_rt and swt_sfb lines for their counted runs; a main
 path fails if a K6 or K7 call took long_fold or a K6, K9 or K12 call ran
 off the tiles (tiles_only), and the edge-case phases check every
-instantiation of K6, K7, K9 and K12.  K16's
+instantiation of K6, K7, K9 and K12.  K4's and K5's kernel lines and the
+scattering paths' lines carry theirs (vector or strided); a scattering
+path (scat_j2, scat_j2_colour, scat_bp, scat_bp_small) fails if a K4 or
+K5 call took the strided one (vector_mags).  K16's
 lines give torch.matmul on the probed operator (its transpose for the
 adjoint) as the library yardstick, with K1 on the same operator
 (k1_on_operator_ms) and the adjoint's partial transposed convolution
@@ -1058,9 +1066,11 @@ def replay(call, banded, quad, mag, afb, pad, fb=None, pool=None,
 
 def _inst_counter(name, fb):
     """The wrapper whose ``instantiations`` a call of kernel ``name``
-    bumps (K6's to K10's, K12's two, K14's two, K15's two, K16's two),
+    bumps (K4's to K10's, K12's two, K14's two, K15's two, K16's two),
     else None."""
-    from pytorch_wavelets_tpu_torch.ops import afb_sfb, nonsep
+    from pytorch_wavelets_tpu_torch.ops import afb_sfb, nonsep, scat_mag
+    if name in ("scat_mag_fwd", "scat_mag_bwd"):
+        return getattr(scat_mag, name)
     if name in ("dtcwt_filt", "dtcwt_dfilt", "dtcwt_ifilt") and \
             fb is not None:
         return getattr(fb, name)
@@ -1092,6 +1102,17 @@ def tiles_only(insts, phase, counts):
         require(sum(got.get(w, 0) for w in TILE_INSTS) == counts.get(k, 0),
                 f"{phase}: {SOURCES[k][0]} launched {counts.get(k, 0)} "
                 f"times, {got} on its tiles")
+    return insts
+
+
+def vector_mags(insts, phase, counts):
+    """Every K4 and K5 launch of a scattering path took the vector
+    instantiation (16-byte loads of the bands the pyramids write)."""
+    for k in ("scat_mag_fwd", "scat_mag_bwd"):
+        got = insts.get(k, {})
+        require(got.get("vector", 0) == counts.get(k, 0),
+                f"{phase}: {k} launched {counts.get(k, 0)} times, {got} "
+                f"on its vector instantiation")
     return insts
 
 
@@ -1389,7 +1410,8 @@ def scat_step(tt, ops, fused, scat, shape, check_n, phase, timing,
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         copies = copy_counts(ops)
-        insts = tiles_only(inst_counts(ops), phase, counts)
+        insts = vector_mags(tiles_only(inst_counts(ops), phase, counts),
+                            phase, counts)
         first_s = time.perf_counter() - t0
     bwd_counts = {k: counts[k] - fwd_counts[k] for k in counts}
     need_fwd, need_bwd = need or (
@@ -1460,6 +1482,81 @@ def scat_step(tt, ops, fused, scat, shape, check_n, phase, timing,
         timing_reps_batches=[reps, batches], peak_mem_bytes=peak,
         mem_held_before_bytes=held)
     return fields, fields["launches_by_role"], rec_tr.calls
+
+
+def mag_edge_cases(mag):
+    """K4 and K5 at edge views against their plain versions on the same
+    inputs, at b = 1e-2 and b = 0 (a zero coefficient: 0 forward, NaN
+    backward): offsets of 4, 8 and 16 bytes (the 8-byte one at 128^2 too,
+    every plane a head and a tail), odd and unit widths, planes of two
+    chunks, a re/im-last slice, a transposed view, combine over 3 and 5
+    channels, the cotangent as torch.cat's backward hands it and a strided
+    one.  Both instantiations of both kernels must run.  Returns (calls,
+    max |err| where the plain version is finite, instantiations)."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def view(shape, strides=None, offset=0):
+        if strides is None:
+            strides = [int(np.prod(shape[d + 1:])) for d in range(len(shape))]
+        size = offset + 1 + sum((n - 1) * s for n, s in zip(shape, strides))
+        return torch.as_strided(torch.randn(size, generator=gen,
+                                            device="cuda"),
+                                shape, strides, offset)
+
+    def band(n=2, c=3, hh=5, ww=8, offset=0):
+        return view((n, 6, c, hh, ww, 2), offset=offset)
+
+    def cat_slice(n, c, hh, ww):
+        G = view((n, 49 * c, hh, ww))
+        return G[:, 7 * c:13 * c].view(n, 6, c, hh, ww)
+
+    cases = [   # (bands, combine, cotangent or None: a contiguous one)
+        (lambda: band(), False, None), (lambda: band(), True, None),
+        (lambda: band(c=5), True, None),
+        (lambda: view((2, 6, 3, 9, 11, 3))[..., 1:10, :2], False, None),
+        (lambda: band().transpose(3, 4), False, None),
+        (lambda: band(offset=1), False, None),
+        (lambda: band(offset=2), False, None),
+        (lambda: band(offset=2), True, None),
+        (lambda: band(offset=4), True, None),
+        (lambda: band(n=4, hh=128, ww=128, offset=2), False, None),
+        (lambda: band(hh=5, ww=7), False, None),
+        (lambda: band(hh=5, ww=7), True, None),
+        (lambda: band(hh=4, ww=1), False, None),
+        (lambda: band(n=1, c=2, hh=33, ww=35), False, None),
+        (lambda: band(hh=3, ww=5), False, lambda: cat_slice(2, 3, 3, 5)),
+        (lambda: band(), False, lambda: view((2, 6, 3, 5, 16))[..., ::2])]
+    insts = {"scat_mag_fwd": {}, "scat_mag_bwd": {}}
+    calls, err = 0, 0.0
+    for bias in (1e-2, 0.0):
+        for make_h, combine, make_g in cases:
+            h = make_h()
+            h[0, 0, :, 0, 0] = 0
+            N, _, C, hh, ww, _ = h.shape
+            g = make_g() if make_g else view(
+                (N, 6, 1 if combine else C, hh, ww))
+            for name, args in (("scat_mag_fwd", (h, bias, combine)),
+                               ("scat_mag_bwd", (h, g, bias, combine))):
+                wrapper = getattr(mag, name)
+                before = dict(wrapper.instantiations)
+                got = wrapper(*args)
+                want = getattr(mag, name + "_plain")(*args)
+                require(within(got, want, MAG_TOL),
+                        f"mag_edge_cases: {name} {tuple(h.shape)} strides "
+                        f"{h.stride()} combine {combine} b {bias} disagrees "
+                        f"with its plain version by {max_err(got, want)}")
+                for k, v in wrapper.instantiations.items():
+                    if v != before[k]:
+                        insts[name][k] = insts[name].get(k, 0) + v - before[k]
+                fin = torch.isfinite(want)
+                err = max(err, max_err(got[fin], want[fin]))
+                calls += 1
+            require(bias or bool(torch.isnan(got).any()),
+                    "mag_edge_cases: no NaN gradient at b = 0")
+    for name, got in insts.items():
+        require(set(got) == set(mag.MAG_INSTS), f"mag_edge_cases: {name} "
+                f"ran {got}, not every instantiation")
+    return calls, err, insts
 
 
 def dwt_adjoint(tt, x_cpu, J, one_d):
@@ -4043,6 +4140,9 @@ def main():
         tt, ops, fused_dtcwt, scatternet, COLOUR_SHAPE, COLOUR_CHECK_N,
         "scat_j2_colour", COLOUR_TIMING, combine_colour=True)
     emit("scat_j2_colour", **cfields)
+    n_edge, edge_err, edge_insts = mag_edge_cases(scat_mag)
+    emit("mag_edge_cases", calls=n_edge, max_abs_err=edge_err,
+         tolerance=MAG_TOL, instantiations=edge_insts)
     dfields, dtfields, d_roles, dcalls, dstep = dwt_path(
         tt, ops, afb_sfb, dwt, DWT_SHAPE, DWT_J, False, "dwt_main")
     emit("dwt_main", **dfields)

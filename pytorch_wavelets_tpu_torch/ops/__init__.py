@@ -9,12 +9,12 @@ per entry and mode (``apply_col_tf32`` ... ``apply_row_bf16``);
 ``apply_col`` / ``apply_row`` count K1's fp32 launches only.  K1's and
 K17's wrappers also count their launches by instantiation (``copies``,
 :func:`copy_counts`): the copy width their staging took, and for K1's
-column entry its narrow 64-column tile.  K6's to K10's, K12's and K14's
+column entry its narrow 64-column tile.  K4's to K10's, K12's and K14's
 to K16's count theirs in ``instantiations`` (:func:`instantiation_counts`):
 K6's to K10's, K12's and K16's axis and vector width (K6's and K7's
 per-output ``long_fold`` too), K14's and K15's tiles (K14's PSF count),
 their adjoints' and K15's forward's edge bands, K12's and K16's adjoints'
-edge bands.
+edge bands, K4's and K5's vector or strided access.
 """
 from pytorch_wavelets_tpu_torch.ops.afb_sfb import (  # noqa: F401
     afb1d, sfb1d, afb1d_atrous, sfb1d_atrous, afb2d, sfb2d,
@@ -57,7 +57,8 @@ STENCIL_VARIANT_KERNELS = (afb1d_corr, sfb1d_conv, dtcwt_filt, dtcwt_dfilt,
                            dtcwt_ifilt, afb1d_atrous_corr,
                            afb1d_atrous_adjoint, nonsep_afb,
                            nonsep_afb_adjoint, nonsep_sfb, nonsep_sfb_adjoint,
-                           sfb1d_atrous_conv, sfb1d_atrous_adjoint)
+                           sfb1d_atrous_conv, sfb1d_atrous_adjoint,
+                           scat_mag_fwd, scat_mag_bwd)
 
 
 def reset_launches() -> None:
@@ -82,7 +83,7 @@ def copy_counts() -> dict:
 
 
 def instantiation_counts() -> dict:
-    """K6's to K10's, K12's and K14's to K16's launches by instantiation:
+    """K4's to K10's, K12's and K14's to K16's launches by instantiation:
     {wrapper name: {name: n}}: K8's ``col_float4`` / ``col_scalar`` /
     ``row_async16`` / ``row_async4``; K6's, K7's, K9's, K10's, K12's and
     K16's ``col_float4`` / ``col_scalar`` / ``row_run`` / ``row_gather``,
@@ -95,6 +96,8 @@ def instantiation_counts() -> dict:
     (the gather adding the edge band's pad images) and ``gather`` (the
     whole plane, on the separable split's single fold); K15's forward
     ``poly`` with its tile in positions and ``band`` (the wrap-add's
-    second positions), its adjoint ``staged`` with its tile."""
+    second positions), its adjoint ``staged`` with its tile; K4's and
+    K5's ``vector`` (16-byte loads of plane-contiguous bands) /
+    ``strided`` (any view through its strides)."""
     return {k.__name__: dict(k.instantiations)
             for k in STENCIL_VARIANT_KERNELS}

@@ -63,10 +63,10 @@ _SIGNATURES = {
     },
     "scat_mag": {
         "scat_mag_fwd": [_P, _P, _L, _I, _I, _I, _I,
-                         _L, _L, _L, _L, _L, _L, _F, _F, _P],
+                         _L, _L, _L, _L, _L, _L, _F, _F, _I, _P],
         "scat_mag_bwd": [_P, _P, _P, _L, _I, _I, _I, _I,
                          _L, _L, _L, _L, _L, _L,
-                         _L, _L, _L, _L, _L, _F, _P],
+                         _L, _L, _L, _L, _L, _F, _I, _P],
     },
     "dwt_afb": {
         "dwt_afb": [_P, _P, _P, _P, _I, _L, _I, _I, _I, _L, _L, _L, _L,

@@ -5,9 +5,12 @@ backward (``csrc/scat_mag.cu``).  The autograd entry point over them is
 K4 :func:`scat_mag_fwd` replaces the JAX package's
 ``transforms/scatternet.py:smooth_mag`` and ``_combined_mag``; K5
 :func:`scat_mag_bwd` replaces their JAX autodiff.  Both read a level's
-bands as a (N, 6, C, h, w, 2) view through its strides (re/im adjacent
-is the layout the scattering pyramids write), and both are bound by
-bytes.  Each has its plain PyTorch version here, which CPU tensors take.
+bands as a (N, 6, C, h, w, 2) view, and both are bound by bytes.  Each
+wrapper picks one of two instantiations (:func:`mag_instantiation`) and
+counts it in ``instantiations``: ``vector``, 16-byte loads of the layout
+the scattering pyramids write (re/im adjacent, each plane's rows one
+run), or ``strided``, any other view through its strides.  Each kernel
+has its plain PyTorch version here, which CPU tensors take.
 """
 from __future__ import annotations
 
@@ -16,7 +19,16 @@ import torch
 from pytorch_wavelets_tpu_torch.ops import _cuda
 
 __all__ = ["scat_mag_fwd", "scat_mag_fwd_plain", "scat_mag_bwd",
-           "scat_mag_bwd_plain"]
+           "scat_mag_bwd_plain", "mag_instantiation", "MAG_INSTS",
+           "MAG_THREADS", "MAG_PAIRS", "MAG_MAX_COMBINE"]
+
+# csrc/scat_mag.cu: a block's threads; the vector instantiation's float4s
+# of the bands a thread (two coefficients each, MAG_THREADS apart) and the
+# most channels it sums in registers with ``combine``
+MAG_THREADS, MAG_PAIRS, MAG_MAX_COMBINE = 256, 2, 4
+# the C entries' instantiation codes (csrc/scat_mag.cu:MagInst)
+MAG_INSTS = {"vector": 0, "strided": 1}
+_I32 = 2 ** 30   # the vector instantiation's 32-bit sizes
 
 
 def _sum_sq(h, combine):
@@ -36,10 +48,65 @@ def scat_mag_bwd_plain(h, g, bias, combine=False):
     return torch.stack((g * h[..., 0] / den, g * h[..., 1] / den), dim=-1)
 
 
-def _check_bands(kernel, h):
+def mag_instantiation(h, combine, g=None):
+    """K4's (and, given the cotangent ``g``, K5's) instantiation for the
+    bands ``h``: ``vector`` where every (n, o, c) plane of ``h`` is one run
+    of 2 h w floats (re/im adjacent, rows contiguous) starting 8-byte
+    aligned, with ``combine`` at most MAG_MAX_COMBINE channels a multiple
+    of 16 bytes apart, and each plane of ``g`` one run of h w floats; else
+    ``strided``.  Raises on bands that are not (N, 6, C, h, w, 2) or a
+    cotangent that does not fit them, which neither takes."""
+    kernel = "scat_mag_fwd" if g is None else "scat_mag_bwd"
     if h.ndim != 6 or h.shape[1] != 6 or h.shape[5] != 2:
         raise ValueError(f"{kernel}: bands {tuple(h.shape)} are not "
                          f"(N, 6, C, h, w, 2)")
+    N, _, C, hh, ww, _ = h.shape
+    if g is not None and tuple(g.shape) != (N, 6, 1 if combine else C, hh,
+                                            ww):
+        raise ValueError(f"scat_mag_bwd: cotangent {tuple(g.shape)} does "
+                         f"not fit bands {tuple(h.shape)}")
+    sn, so, sc, sh, sw, sri = h.stride()
+    nc, cout = (C, 1) if combine else (1, C)
+    P = hh * ww
+    per = MAG_THREADS * MAG_PAIRS
+    chunks = max(1, -(-(P // 2) // per))
+    vector = (sri == 1 and (ww == 1 or sw == 2) and (hh == 1 or sh == 2 * ww)
+              and h.data_ptr() % 8 == 0
+              and all(s % 2 == 0 for s, n in zip((sn, so, sc), (N, 6, C))
+                      if n > 1)
+              and (nc == 1 or (1 < nc <= MAG_MAX_COMBINE and sc % 4 == 0))
+              and 2 * P < _I32
+              and N * 6 * cout * chunks < _I32)
+    if g is not None:
+        vector = (vector and (ww == 1 or g.stride(4) == 1)
+                  and (hh == 1 or g.stride(3) == ww))
+    return "vector" if vector else "strided"
+
+
+def _fwd_launch(h, bias, combine, inst):
+    """Launch K4's ``inst`` on CUDA bands; the contiguous output."""
+    N, _, C, hh, ww, _ = h.shape
+    r = torch.empty((N, 6, 1 if combine else C, hh, ww), device=h.device,
+                    dtype=torch.float32)
+    lib = _cuda.library("scat_mag")
+    _cuda.check(lib, "scat_mag_fwd", lib.scat_mag_fwd(
+        h.data_ptr(), r.data_ptr(), N, C, hh, ww, int(combine), *h.stride(),
+        bias * bias, bias, MAG_INSTS[inst], _cuda.stream_of(h)))
+    return r
+
+
+def _bwd_launch(h, g, bias, combine, inst):
+    """Launch K5's ``inst`` on CUDA bands and cotangent; the contiguous
+    band gradient."""
+    N, _, C, hh, ww, _ = h.shape
+    dh = torch.empty((N, 6, C, hh, ww, 2), device=h.device,
+                     dtype=torch.float32)
+    lib = _cuda.library("scat_mag")
+    _cuda.check(lib, "scat_mag_bwd", lib.scat_mag_bwd(
+        h.data_ptr(), g.data_ptr(), dh.data_ptr(), N, C, hh, ww,
+        int(combine), *h.stride(), *g.stride(), bias * bias,
+        MAG_INSTS[inst], _cuda.stream_of(h)))
+    return dh
 
 
 @_cuda.via_fp32
@@ -47,20 +114,16 @@ def scat_mag_fwd(h, bias, combine=False):
     """r = sqrt(re^2 + im^2 + bias^2) - bias of the (N, 6, C, h, w, 2)
     bands ``h``, as a contiguous (N, 6, C, h, w) tensor; with ``combine``
     re^2 + im^2 is summed over C first and r is (N, 6, 1, h, w).
-    CPU tensors take :func:`scat_mag_fwd_plain`; CUDA tensors launch K4.
+    CPU tensors take :func:`scat_mag_fwd_plain`; CUDA tensors launch K4 in
+    the instantiation :func:`mag_instantiation` picks.
     """
     if h.device.type == "cpu":
         return scat_mag_fwd_plain(h, bias, combine)
     _cuda.check_inputs("scat_mag_fwd", h)
-    _check_bands("scat_mag_fwd", h)
-    N, _, C, hh, ww, _ = h.shape
-    r = torch.empty((N, 6, 1 if combine else C, hh, ww), device=h.device,
-                    dtype=torch.float32)
-    lib = _cuda.library("scat_mag")
-    _cuda.check(lib, "scat_mag_fwd", lib.scat_mag_fwd(
-        h.data_ptr(), r.data_ptr(), N, C, hh, ww, int(combine), *h.stride(),
-        bias * bias, bias, _cuda.stream_of(h)))
+    inst = mag_instantiation(h, combine)
+    r = _fwd_launch(h, bias, combine, inst)
     scat_mag_fwd.launches += 1
+    scat_mag_fwd.instantiations[inst] += 1
     return r
 
 
@@ -70,27 +133,20 @@ def scat_mag_bwd(h, g, bias, combine=False):
     root summed over C with ``combine``, and g broadcast over C), for the
     output cotangent ``g`` (any strides), as a contiguous
     (N, 6, C, h, w, 2) tensor.  CPU tensors take
-    :func:`scat_mag_bwd_plain`; CUDA tensors launch K5.
+    :func:`scat_mag_bwd_plain`; CUDA tensors launch K5 in the
+    instantiation :func:`mag_instantiation` picks.
     """
     if h.device.type == "cpu":
         return scat_mag_bwd_plain(h, g, bias, combine)
     _cuda.check_inputs("scat_mag_bwd", h, g)
-    _check_bands("scat_mag_bwd", h)
-    N, _, C, hh, ww, _ = h.shape
-    if tuple(g.shape) != (N, 6, 1 if combine else C, hh, ww):
-        raise ValueError(f"scat_mag_bwd: cotangent {tuple(g.shape)} does "
-                         f"not fit bands {tuple(h.shape)}")
-    dh = torch.empty((N, 6, C, hh, ww, 2), device=h.device,
-                     dtype=torch.float32)
-    lib = _cuda.library("scat_mag")
-    _cuda.check(lib, "scat_mag_bwd", lib.scat_mag_bwd(
-        h.data_ptr(), g.data_ptr(), dh.data_ptr(), N, C, hh, ww,
-        int(combine), *h.stride(), *g.stride(), bias * bias,
-        _cuda.stream_of(h)))
+    inst = mag_instantiation(h, combine, g)
+    dh = _bwd_launch(h, g, bias, combine, inst)
     scat_mag_bwd.launches += 1
+    scat_mag_bwd.instantiations[inst] += 1
     return dh
 
 
 scat_mag_fwd.launches = 0
 scat_mag_bwd.launches = 0
-
+scat_mag_fwd.instantiations = dict.fromkeys(MAG_INSTS, 0)
+scat_mag_bwd.instantiations = dict.fromkeys(MAG_INSTS, 0)

@@ -290,6 +290,107 @@ def test_scat_mag(dev, combine, bias):
             scat_mag.scat_mag_bwd.launches) == (n0[0] + 1, n0[1] + 1)
 
 
+def _dev_view(dev, shape, strides=None, offset=0, seed=0):
+    """A view of a flat buffer on the card (its base 256-byte aligned):
+    ``strides`` None is the contiguous layout, ``offset`` in floats."""
+    if strides is None:
+        strides = torch.empty(shape).stride()
+    size = offset + 1 + sum((n - 1) * s for n, s in zip(shape, strides))
+    buf = torch.from_numpy(_rand((size,), seed)).to(dev)
+    return torch.as_strided(buf, shape, strides, offset)
+
+
+def _mag_band(dev, n=2, c=3, hh=5, ww=8, offset=0):
+    return _dev_view(dev, (n, 6, c, hh, ww, 2), offset=offset, seed=21)
+
+
+def _mag_cat_slice(dev, n, c, hh, ww):
+    """The cotangent as torch.cat's backward hands it to K5: a
+    plane-contiguous slice of a wider (N, 49C, h, w) gradient."""
+    G = _dev_view(dev, (n, 49 * c, hh, ww), seed=22)
+    return G[:, 7 * c:13 * c].view(n, 6, c, hh, ww)
+
+
+# K4/K5's edge views (tests/test_torch_mag_plans.py emulates the vector
+# instantiation's map on them): (case, bands, combine, cotangent or None
+# for a contiguous one, the instantiation both kernels take)
+MAG_VIEWS = [
+    ("contiguous", lambda d: _mag_band(d), False, None, "vector"),
+    ("combine C=3", lambda d: _mag_band(d), True, None, "vector"),
+    ("combine C=5", lambda d: _mag_band(d, c=5), True, None, "strided"),
+    ("re/im-last slice", lambda d: _dev_view(d, (2, 6, 3, 9, 11, 3))[
+        ..., 1:10, :2], False, None, "strided"),
+    ("transposed", lambda d: _mag_band(d).transpose(3, 4), False, None,
+     "strided"),
+    ("offset 4 bytes", lambda d: _mag_band(d, offset=1), False, None,
+     "strided"),
+    ("offset 8 bytes", lambda d: _mag_band(d, offset=2), False, None,
+     "vector"),
+    ("offset 8 bytes combine", lambda d: _mag_band(d, offset=2), True, None,
+     "vector"),
+    ("odd width", lambda d: _mag_band(d, hh=5, ww=7), False, None, "vector"),
+    ("odd width combine", lambda d: _mag_band(d, hh=5, ww=7), True, None,
+     "strided"),
+    ("width 1", lambda d: _mag_band(d, hh=4, ww=1), False, None, "vector"),
+    ("two chunks odd", lambda d: _mag_band(d, n=1, c=2, hh=33, ww=35),
+     False, None, "vector"),
+    ("cat slice cotangent", lambda d: _mag_band(d, hh=3, ww=5), False,
+     lambda d: _mag_cat_slice(d, 2, 3, 3, 5), "vector"),
+]
+
+
+@pytest.mark.parametrize("bias", [1e-2, 0.0])
+@pytest.mark.parametrize("case,bands,combine,cot,inst", MAG_VIEWS,
+                         ids=[v[0] for v in MAG_VIEWS])
+def test_scat_mag_instantiations(dev, case, bands, combine, cot, inst,
+                                 bias):
+    """K4 and K5 in each instantiation at the edge views, against their
+    plain versions (b = 0: a zero coefficient, 0 forward and NaN
+    backward); each call moves its instantiation's count by one."""
+    h = bands(dev)
+    h[0, 0, :, 0, 0] = 0
+    N, _, C, hh, ww, _ = h.shape
+    cout = 1 if combine else C
+    g = cot(dev) if cot else _dev_view(dev, (N, 6, cout, hh, ww), seed=23)
+    for wrapper, run, plain in (
+            (scat_mag.scat_mag_fwd,
+             lambda: scat_mag.scat_mag_fwd(h, bias, combine),
+             lambda: scat_mag.scat_mag_fwd_plain(h, bias, combine)),
+            (scat_mag.scat_mag_bwd,
+             lambda: scat_mag.scat_mag_bwd(h, g, bias, combine),
+             lambda: scat_mag.scat_mag_bwd_plain(h, g, bias, combine))):
+        before = dict(wrapper.instantiations)
+        got = run()
+        assert {k: v - before[k] for k, v in
+                wrapper.instantiations.items()} == {
+            k: int(k == inst) for k in before}
+        torch.testing.assert_close(got, plain(), equal_nan=True, **MAG_TOL)
+    assert bool(torch.isnan(got).any()) == (bias == 0.0)
+
+
+@pytest.mark.parametrize("layer,kw", [
+    ("ScatLayerj2", dict()), ("ScatLayerj2", dict(combine_colour=True)),
+    ("ScatLayerj2", dict(biort="near_sym_b_bp", qshift="qshift_b_bp")),
+    ("ScatLayerj2", dict(biort="near_sym_b_bp", qshift="qshift_b_bp",
+                         combine_colour=True)),
+    ("ScatLayer", dict(biort="near_sym_b_bp"))])
+def test_scat_layers_take_vector(dev, layer, kw):
+    """Every K4/K5 call of the scattering layers, forward and backward,
+    takes the vector instantiation."""
+    m = getattr(tt, layer)(device=dev, **kw)
+    x = torch.from_numpy(_rand((2, 3, 64, 64), 24)).to(dev)
+    x.requires_grad_()
+    ops.reset_launches()
+    z = m(x)
+    z.backward(torch.from_numpy(_rand(tuple(z.shape), 25)).to(dev))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    insts = ops.instantiation_counts()
+    for k in ("scat_mag_fwd", "scat_mag_bwd"):
+        assert counts[k] > 0
+        assert insts[k] == {"vector": counts[k], "strided": 0}
+
+
 def _grads(module_of, shape, dev, seed):
     """Output and input gradient of sum(out * G) on the CPU and on ``dev``
     (the module's own outputs flattened)."""

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Time K6 (dwt_afb), K7 (dwt_sfb), K8 (dtcwt_filt), K9 (dtcwt_dfilt), K10
-(dtcwt_ifilt), K12 (swt_afb and its adjoint), K14 (nonsep_afb and its
-adjoint), K15 (nonsep_sfb and its adjoint) and K16 (swt_sfb and its
-adjoint) on one CUDA card at the shapes of chip_smoke.py's DWT,
-per-level, SWT, non-separable and à trous paths, each call checked
-against its plain version.
+"""Time K4 (scat_mag_fwd), K5 (scat_mag_bwd), K6 (dwt_afb), K7
+(dwt_sfb), K8 (dtcwt_filt), K9 (dtcwt_dfilt), K10 (dtcwt_ifilt), K12
+(swt_afb and its adjoint), K14 (nonsep_afb and its adjoint), K15
+(nonsep_sfb and its adjoint) and K16 (swt_sfb and its adjoint) on one
+CUDA card at the shapes of chip_smoke.py's scattering, DWT, per-level,
+SWT, non-separable and à trous paths, each call checked against its
+plain version.
 
     python3 tools/stencil_probe.py [--root DIR] [--merge-tile-out N]
-                                   [--only k6|k7|k8|k9|k10|k12|k14|k15|k16
-                                    ...]
+                                   [--only k4|k5|k6|k7|k8|k9|k10|k12|k14|
+                                    k15|k16 ...]
 
 ``--root`` imports ``pytorch_wavelets_tpu_torch`` from another checkout
 (say an unpacked parent commit), so that two versions can be timed on one
@@ -302,6 +303,57 @@ def run_k16(afb, filters):
             del got, want
 
 
+# the scattering paths' K4/K5 calls: (label, bands (N, 6, C, h, w),
+# combine): scat's three, the colour layer's three, the small bp layer's
+MAG_CASES = (("scat L1", (128, 6, 3, 128, 128), False),
+             ("scat L2", (128, 6, 3, 64, 64), False),
+             ("scat 2nd order", (128, 6, 18, 64, 64), False),
+             ("colour L1 combine", (16, 6, 3, 128, 128), True),
+             ("colour L2 combine", (16, 6, 3, 64, 64), True),
+             ("colour 2nd order", (16, 6, 6, 64, 64), False),
+             ("bp16 L1", (16, 6, 3, 128, 128), False))
+
+
+def run_mag(mag, backward):
+    """K4 (or K5 with ``backward``) on the scattering paths' bands, each
+    instantiation (``vector``, then ``strided`` on the same contiguous
+    bands) timed against its bytes bound; the cotangent, as torch.cat's
+    backward hands it, a plane-contiguous slice of a wider gradient.  A
+    tree without instantiations (an older parent) times its wrapper,
+    labelled ``parent``."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    bias = 1e-2
+    name = "scat_mag_bwd" if backward else "scat_mag_fwd"
+    for label, (N, _, C, hh, ww), combine in MAG_CASES:
+        h = torch.randn((N, 6, C, hh, ww, 2), generator=gen, device="cuda")
+        cout = 1 if combine else C
+        G = torch.randn((N, 6 * cout + 1, hh, ww), generator=gen,
+                        device="cuda")
+        g = G[:, 1:].view(N, 6, cout, hh, ww)
+        args = (h, g, bias, combine) if backward else (h, bias, combine)
+        plain = getattr(mag, name + "_plain")(*args)
+        if hasattr(mag, "mag_instantiation"):
+            launch = mag._bwd_launch if backward else mag._fwd_launch
+            runs = {inst: (lambda i=inst: launch(*args, i))
+                    for inst in mag.MAG_INSTS}
+        else:
+            runs = {"parent": lambda: getattr(mag, name)(*args)}
+        nbytes = 4.0 * ((2 * h.numel() + g.numel()) if backward
+                        else h.numel() + plain.numel())
+        for inst, run in runs.items():
+            got = run()
+            ms = timed_ms(run)
+            bound = nbytes / 3.35e12 * 1e3
+            print(json.dumps({
+                "kernel": name, "case": label, "inst": inst, "ms": ms,
+                "bound_ms": bound, "share_of_bound": bound / ms,
+                "max_abs_err": float((got - plain).abs().max()),
+                "ok": bool(torch.allclose(got, plain, rtol=3e-7,
+                                          atol=1e-7))}), flush=True)
+            del got
+        del h, G, g, plain
+
+
 def run_k12(afb, filters):
     """The SWT's splits and their adjoints, db4: swt_main's three levels
     (32x3x256^2 'periodization', d = 1, 2, 4: the row split of x or of
@@ -429,9 +481,9 @@ def run_k15(nonsep, filters):
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--root", default=None)
-    p.add_argument("--only", nargs="+", choices=("k6", "k7", "k8", "k9",
-                                                 "k10", "k12", "k14", "k15",
-                                                 "k16"),
+    p.add_argument("--only", nargs="+", choices=("k4", "k5", "k6", "k7",
+                                                 "k8", "k9", "k10", "k12",
+                                                 "k14", "k15", "k16"),
                    default=None)
     p.add_argument("--merge-tile-out", type=int, default=None)
     args = p.parse_args()
@@ -442,14 +494,18 @@ def main():
         sys.path.insert(0, args.root)
     torch.backends.cudnn.allow_tf32 = False
     from pytorch_wavelets_tpu_torch import filters
-    from pytorch_wavelets_tpu_torch.ops import _cuda, afb_sfb, dtcwt_fb, nonsep
+    from pytorch_wavelets_tpu_torch.ops import (
+        _cuda, afb_sfb, dtcwt_fb, nonsep, scat_mag,
+    )
     _cuda.build()
     if args.merge_tile_out:
         afb_sfb._MERGE_TILE_OUT = args.merge_tile_out
     print(json.dumps({"root": args.root or ".", "package": nonsep.__file__,
                       "merge_tile_out": afb_sfb._MERGE_TILE_OUT}),
           flush=True)
-    runs = {"k6": lambda: run_k6(afb_sfb, filters),
+    runs = {"k4": lambda: run_mag(scat_mag, False),
+            "k5": lambda: run_mag(scat_mag, True),
+            "k6": lambda: run_k6(afb_sfb, filters),
             "k7": lambda: run_k7(afb_sfb, filters),
             "k8": lambda: run_k8(dtcwt_fb, filters),
             "k9": lambda: run_k9(dtcwt_fb, filters),
