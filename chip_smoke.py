@@ -35,7 +35,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    bytes, odd and unit widths, two chunks a plane, strided, transposed
    and re/im-last slices, combine over 3 and 5 channels, the cotangent as
    torch.cat's backward hands it, b = 0), each instantiation against its
-   plain version.
+   plain version; quad_edge_cases: K2 at edge views (odd k, bands off
+   their 16-byte lines, per-level rows off theirs, every o_dim / ri_dim
+   layout, fp32 and bf16), both instantiations bit for bit.
 7. dwt_main: DWTForward(J=3, db4, symmetric) then DWTInverse on
    32x10x512x512 fp32 (benchmarks/run.py:8's --dwt workload, the
    reference's DWT graph setting), checked on its first 4 images against
@@ -81,7 +83,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    version on a crop, the round trip and a gradient step timed; then K12
    and K13 at edge cases (every mode, pads longer than the axis, odd
    sizes, odd L d, strided, aligned and transposed inputs: every K12
-   instantiation, odd and even spectra).
+   instantiation; odd and even spectra, offset, stored along either axis,
+   in both output layouts and mixed: every K13 walk).  The profiles sum
+   PyTorch's layout copies and cuFFT apart (device_us_per_iter_by_kind;
+   swt_long's round trip's in round_trip_copies_and_cufft_us).
 10. per kernel: every kernel call of one run of each path, recorded and
    replayed on the same tensors against its plain PyTorch version (with
    the tolerance stated), timed (device time) beside the plain version
@@ -157,7 +162,10 @@ off the tiles (tiles_only), and the edge-case phases check every
 instantiation of K6, K7, K9 and K12.  K4's and K5's kernel lines and the
 scattering paths' lines carry theirs (vector or strided); a scattering
 path (scat_j2, scat_j2_colour, scat_bp, scat_bp_small) fails if a K4 or
-K5 call took the strided one (vector_mags).  K16's
+K5 call took the strided one (vector_mags); main, banded, train_main,
+the scattering paths, dtcwt_large, per_level_main and the precision
+phases fail if a K2 call took its strided instantiation (vector_quads),
+swt_long if a K13 call did not stream (stream_specs).  K16's
 lines give torch.matmul on the probed operator (its transpose for the
 adjoint) as the library yardstick, with K1 on the same operator
 (k1_on_operator_ms) and the adjoint's partial transposed convolution
@@ -1066,11 +1074,17 @@ def replay(call, banded, quad, mag, afb, pad, fb=None, pool=None,
 
 def _inst_counter(name, fb):
     """The wrapper whose ``instantiations`` a call of kernel ``name``
-    bumps (K4's to K10's, K12's two, K14's two, K15's two, K16's two),
-    else None."""
-    from pytorch_wavelets_tpu_torch.ops import afb_sfb, nonsep, scat_mag
+    bumps (K2's, K4's to K10's, K12's two, K13's two, K14's two, K15's
+    two, K16's two), else None."""
+    from pytorch_wavelets_tpu_torch.ops import (
+        afb_sfb, iswt_merge, nonsep, quad, scat_mag,
+    )
     if name in ("scat_mag_fwd", "scat_mag_bwd"):
         return getattr(scat_mag, name)
+    if name == "q2c_pack":
+        return quad.q2c_pack
+    if name in ("spec_merge", "spec_split"):
+        return getattr(iswt_merge, name)
     if name in ("dtcwt_filt", "dtcwt_dfilt", "dtcwt_ifilt") and \
             fb is not None:
         return getattr(fb, name)
@@ -1113,6 +1127,27 @@ def vector_mags(insts, phase, counts):
         require(got.get("vector", 0) == counts.get(k, 0),
                 f"{phase}: {k} launched {counts.get(k, 0)} times, {got} "
                 f"on its vector instantiation")
+    return insts
+
+
+def vector_quads(insts, phase, counts):
+    """Every K2 launch of a path that writes the default band layout took
+    the vector instantiation (16-byte stores of (re, im) pairs)."""
+    got = insts.get("q2c_pack", {})
+    require(got.get("vector", 0) == counts.get("q2c_pack", 0),
+            f"{phase}: q2c_pack launched {counts.get('q2c_pack', 0)} times, "
+            f"{got} on its vector instantiation")
+    return insts
+
+
+def stream_specs(insts, phase, counts):
+    """Every K13 launch of the FFT merge streamed (its spectra, and the
+    outputs it writes, at stride 1 along the frequency axis)."""
+    for k in ("spec_merge", "spec_split"):
+        got = insts.get(k, {})
+        require(got.get("stream", 0) == counts.get(k, 0),
+                f"{phase}: {k} launched {counts.get(k, 0)} times, {got} on "
+                f"its stream walk")
     return insts
 
 
@@ -1237,6 +1272,7 @@ def drive(tt, ops, fused, scat, shape, J, phase):
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         copies = copy_counts(ops)
+        insts = vector_quads(inst_counts(ops), phase, counts)
         first_s = time.perf_counter() - t0
         require(all(counts[k] > 0 for k in PYRAMID_KERNELS),
                 f"{phase}: a kernel of the path never launched: {counts}")
@@ -1271,6 +1307,7 @@ def drive(tt, ops, fused, scat, shape, J, phase):
         torch.cuda.synchronize()
     fields = dict(
         shape=list(shape), J=J, launches=counts, copies=copies,
+        instantiations=insts,
         max_abs_err_vs_cpu={"forward": fwd_err, "inverse": inv_err},
         tolerance={"forward": FWD_ATOL, "inverse": INV_ATOL},
         reconstruction_err=pr_err, reconstruction_tol=PR_TOL,
@@ -1321,6 +1358,7 @@ def train_main(tt, ops, fused, scat, shape, J):
         grad = torch.autograd.grad(outs, x, cts)[0]
         torch.cuda.synchronize()
         counts = ops.launch_counts()
+        insts = vector_quads(inst_counts(ops), "train_main", counts)
     bwd_counts = {k: counts[k] - fwd_counts[k] for k in counts}
     require(all(fwd_counts[k] > 0 and bwd_counts[k] > 0
                 for k in PYRAMID_KERNELS),
@@ -1357,6 +1395,7 @@ def train_main(tt, ops, fused, scat, shape, J):
     fields = dict(
         shape=list(shape), J=J,
         launches={"forward": fwd_counts, "backward": bwd_counts},
+        instantiations=insts,
         launches_by_role=tr.by_role,
         max_abs_err_grad_vs_cpu=grad_err, tolerance=GRAD_ATOL,
         adjoint_rel_err={"forward pyramid": adj_fwd,
@@ -1410,8 +1449,9 @@ def scat_step(tt, ops, fused, scat, shape, check_n, phase, timing,
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         copies = copy_counts(ops)
-        insts = vector_mags(tiles_only(inst_counts(ops), phase, counts),
-                            phase, counts)
+        insts = vector_quads(vector_mags(
+            tiles_only(inst_counts(ops), phase, counts), phase, counts),
+            phase, counts)
         first_s = time.perf_counter() - t0
     bwd_counts = {k: counts[k] - fwd_counts[k] for k in counts}
     need_fwd, need_bwd = need or (
@@ -1557,6 +1597,65 @@ def mag_edge_cases(mag):
         require(set(got) == set(mag.MAG_INSTS), f"mag_edge_cases: {name} "
                 f"ran {got}, not every instantiation")
     return calls, err, insts
+
+
+def quad_edge_cases(quad):
+    """K2 in each instantiation at edge views, fp32 and bf16, bit for bit
+    against its plain version computed in fp32 and rounded once: the
+    composed and per-level corner layouts, odd k (a row's partial last
+    slot), bands 8 or 12 bytes into a line (partial first slots), per-level
+    rows shifted off their lines (the corners' loads value by value),
+    every o_dim / ri_dim layout, bands off a whole (re, im) pair.  Returns
+    (calls checked, K2's launches by instantiation)."""
+    from pytorch_wavelets_tpu_torch.ops import fused_dtcwt
+    from pytorch_wavelets_tpu_torch.transforms.dtcwt import get_dimensions5
+    gen = torch.Generator().manual_seed(120)
+    before = dict(quad.q2c_pack.instantiations)
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for m, k, il, o_dim, ri_dim, off, shift in (
+                (3, 8, False, 2, -1, 0, 0), (3, 7, False, 2, -1, 0, 0),
+                (2, 6, False, 2, -1, 2, 0), (3, 5, False, 1, -1, 0, 0),
+                (2, 9, False, 0, 5, 6, 0), (5, 130, False, 2, -1, 0, 0),
+                (3, 8, True, 2, -1, 0, 0), (3, 5, True, 1, -1, 0, 0),
+                (2, 6, True, 2, -1, 4, 1), (4, 300, True, 2, -1, 0, 2),
+                (3, 8, False, 1, 3, 0, 0), (3, 8, False, 2, -1, 1, 0),
+                (3, 5, True, 4, 2, 0, 0)):
+            od, rd, _, _ = get_dimensions5(o_dim, ri_dim)
+            orients = ((0, 5), (2, 3), (1, 4)) if il else ((2, 3), (1, 4))
+            nm = len(orients)
+            if il:
+                y = torch.randn((2, 3, nm, 2 * m, 2 * k + 3),
+                                generator=gen).to("cuda", dtype)
+                y = y[..., shift:shift + 2 * k]
+            else:
+                y = torch.randn((2, 3, nm * 2 * m, 2 * k),
+                                generator=gen).to("cuda", dtype)
+            shape = [2, 3, m, k]
+            shape.insert(od, 6)
+            shape.insert(rd, 2)
+            buf = torch.full((int(np.prod(shape)) + off,), float("nan"),
+                             device="cuda", dtype=dtype)
+            h = torch.as_strided(buf, shape, torch.empty(shape).stride(),
+                                 off)
+            want = torch.full(shape, float("nan"), device="cuda")
+            quad.q2c_pack(y, fused_dtcwt.canonical_bands(h, od, rd),
+                          orients, il)
+            quad.q2c_pack_plain(y.float(),
+                                fused_dtcwt.canonical_bands(want, od, rd),
+                                orients, il)
+            same = torch.equal(h.isnan(), want.isnan()) and torch.equal(
+                h.nan_to_num(), want.to(dtype).nan_to_num())
+            require(same and bool(buf[:off].isnan().all()),
+                    f"q2c_pack edge case m={m} k={k} interleaved={il} "
+                    f"o_dim={o_dim} ri_dim={ri_dim} offset={off} {dtype}: "
+                    f"not bit-equal to its plain version")
+            n += 1
+    torch.cuda.synchronize()
+    insts = {w: c - before[w] for w, c in quad.q2c_pack.instantiations.items()}
+    require(all(insts.values()), f"quad_edge_cases: a K2 instantiation was "
+            f"not checked: {insts}")
+    return n, insts
 
 
 def dwt_adjoint(tt, x_cpu, J, one_d):
@@ -1871,7 +1970,8 @@ def dtcwt_large(tt, ops, lev, fb, scat, quad, pool, replay_calls):
         rec = i((yl, yh))
         torch.cuda.synchronize()
         counts = ops.launch_counts()
-        insts = tiles_only(inst_counts(ops), "dtcwt_large", counts)
+        insts = vector_quads(tiles_only(inst_counts(ops), "dtcwt_large",
+                                        counts), "dtcwt_large", counts)
         first_s = time.perf_counter() - t0
         inv_counts = {k: counts[k] - fwd_counts[k] for k in counts}
         _need(fwd_counts, ("dtcwt_filt", "dtcwt_dfilt", "q2c_pack"),
@@ -1942,8 +2042,9 @@ def dtcwt_large(tt, ops, lev, fb, scat, quad, pool, replay_calls):
     grad = torch.autograd.grad(outs, xg, cts)[0]
     torch.cuda.synchronize()
     step_bwd_counts = ops.launch_counts()
-    step_bwd_insts = tiles_only(inst_counts(ops), "dtcwt_large",
-                                step_bwd_counts)
+    step_bwd_insts = vector_quads(tiles_only(
+        inst_counts(ops), "dtcwt_large", step_bwd_counts), "dtcwt_large",
+        step_bwd_counts)
     del outs
     _need(step_bwd_counts, ("dtcwt_filt", "dtcwt_dfilt", "dtcwt_ifilt",
                             "q2c_pack", "c2q_unpack"), "dtcwt_large",
@@ -2015,7 +2116,9 @@ def per_level_main(tt, ops, banded, fb, lev, scat):
             rec = i((yl, yh))
             torch.cuda.synchronize()
             counts = ops.launch_counts()
-            insts = tiles_only(inst_counts(ops), "per_level_main", counts)
+            insts = vector_quads(tiles_only(inst_counts(ops),
+                                            "per_level_main", counts),
+                                 "per_level_main", counts)
             inv_counts = {k: counts[k] - fwd_counts[k] for k in counts}
             _need(fwd_counts, ("dtcwt_filt", "dtcwt_dfilt", "q2c_pack"),
                   "per_level_main", "forward")
@@ -2277,9 +2380,10 @@ def swt_call_parts(call, afb, pad, im):
         nbytes = 4.0 * (dy.numel() + got.numel())
         tol = DWT_TOL
     elif name == "spec_merge":
-        A, B, g0, g1, axis = args
-        got = im.spec_merge(A, B, g0, g1, axis)
-        run = lambda: im.spec_merge(A, B, g0, g1, axis)       # noqa: E731
+        A, B, g0, g1, axis, *lay = args      # an edge case names its layout
+        lay = lay[0] if lay else None
+        got = im.spec_merge(A, B, g0, g1, axis, lay)
+        run = lambda: im.spec_merge(A, B, g0, g1, axis, lay)  # noqa: E731
         plain = lambda: im.spec_merge_plain(                  # noqa: E731
             A, B, g0, g1, axis)
         want = plain()
@@ -2289,9 +2393,10 @@ def swt_call_parts(call, afb, pad, im):
         scale = (im.spec_merge_plain(A.abs(), B.abs(), g0.abs(), g1.abs(),
                                      axis))
     else:
-        Z, g0, g1, axis = args
-        got = im.spec_split(Z, g0, g1, axis)
-        run = lambda: im.spec_split(Z, g0, g1, axis)          # noqa: E731
+        Z, g0, g1, axis, *lay = args
+        lay = lay[0] if lay else None
+        got = im.spec_split(Z, g0, g1, axis, lay)
+        run = lambda: im.spec_split(Z, g0, g1, axis, lay)     # noqa: E731
         plain = lambda: im.spec_split_plain(Z, g0, g1, axis)  # noqa: E731
         want = plain()
         shape = [2, 1, 1, 1, 1]
@@ -2582,7 +2687,8 @@ def swt_long(tt, ops, afb, dwt, mode, shape, replay_calls):
             rec = i(ys)
         torch.cuda.synchronize()
         counts = ops.launch_counts()
-        insts = tiles_only(inst_counts(ops), f"swt_long {mode}", counts)
+        insts = stream_specs(tiles_only(inst_counts(ops), f"swt_long {mode}",
+                                        counts), f"swt_long {mode}", counts)
         first_s = time.perf_counter() - t0
         inv_counts = {k: counts[k] - fwd_counts[k] for k in counts}
         require(fwd_counts["afb1d_atrous_corr"] > 0
@@ -2636,14 +2742,16 @@ def swt_long(tt, ops, afb, dwt, mode, shape, replay_calls):
     outs = step_outs()
     torch.cuda.synchronize()
     step_fwd_counts = ops.launch_counts()
-    step_fwd_insts = tiles_only(inst_counts(ops), f"swt_long {mode}",
-                                step_fwd_counts)
+    step_fwd_insts = stream_specs(tiles_only(
+        inst_counts(ops), f"swt_long {mode}", step_fwd_counts),
+        f"swt_long {mode}", step_fwd_counts)
     ops.reset_launches()
     grad = torch.autograd.grad(outs, xg, cts)[0]
     torch.cuda.synchronize()
     step_bwd_counts = ops.launch_counts()
-    step_bwd_insts = tiles_only(inst_counts(ops), f"swt_long {mode}",
-                                step_bwd_counts)
+    step_bwd_insts = stream_specs(tiles_only(
+        inst_counts(ops), f"swt_long {mode}", step_bwd_counts),
+        f"swt_long {mode}", step_bwd_counts)
     del outs
     adj_kernels = ("spec_split",) if fft else ("apply_col", "apply_row")
     require(step_bwd_counts["afb1d_atrous_adjoint"] > 0
@@ -2687,7 +2795,11 @@ def swt_long(tt, ops, afb, dwt, mode, shape, replay_calls):
         fwd_bwd_device_ms=step_dev_ms,
         step_device_busy_share=step_dev_ms / step_ms,
         peak_mem_bytes=peak, step_peak_mem_bytes=step_peak,
-        mem_held_before_bytes=held, round_trip_profile=prof)
+        mem_held_before_bytes=held,
+        # PyTorch's layout copies and cuFFT around the merges, device us a
+        # round trip (the profile's kinds)
+        round_trip_copies_and_cufft_us=prof["device_us_per_iter_by_kind"],
+        round_trip_profile=prof)
 
 
 def swt_edge_cases(afb, pad, im):
@@ -2698,8 +2810,11 @@ def swt_edge_cases(afb, pad, im):
     L d: one output fewer), odd sizes, strided inputs (the LL band of a
     stack, every other plane of a cotangent), aligned rows and transposed
     views (each of K12's instantiations, both entries, its adjoint's
-    band); K13 on odd and even lengths along both axes.  Returns (calls
-    checked, max error, K12's launches by instantiation)."""
+    band); K13 on odd and even lengths along both axes, and each of its
+    walks (stream on rfft spectra, offset by 8 bytes and stored along the
+    other axis; transpose to the contiguous layout; strided on mixed
+    layouts and a broadcast input), both entries.  Returns (calls checked,
+    max error, K12's and K13's launches by instantiation)."""
     from pytorch_wavelets_tpu_torch.filters import wavelet
     gen = torch.Generator().manual_seed(110)
     calls = []
@@ -2754,8 +2869,14 @@ def swt_edge_cases(afb, pad, im):
                                   generator=gen).cuda() for _ in range(2))
             calls.append(("spec_merge", "edge", (A, B, g0, g1, axis)))
             calls.append(("spec_split", "edge", (A, g0, g1, axis)))
+            for view in spec_views(A, B):
+                calls.append(("spec_merge", "edge", (*view[:2], g0, g1, axis,
+                                                     view[2])))
+                calls.append(("spec_split", "edge", (view[0], g0, g1, axis,
+                                                     view[2])))
     err = 0.0
     wrappers = {k: getattr(afb, k) for k in SWT_KERNELS[:2]}
+    wrappers.update(spec_merge=im.spec_merge, spec_split=im.spec_split)
     before = {k: dict(w.instantiations) for k, w in wrappers.items()}
     for call in calls:
         got, want, *_, tol, scale = swt_call_parts(call, afb, pad, im)
@@ -2768,10 +2889,40 @@ def swt_edge_cases(afb, pad, im):
     insts = {k: {i: v - before[k].get(i, 0)
                  for i, v in w.instantiations.items()}
              for k, w in wrappers.items()}
-    require(all(insts[k].get(i) for k in insts for i in TILE_INSTS)
+    require(all(insts[k].get(i) for k in SWT_KERNELS[:2]
+                for i in TILE_INSTS)
             and insts["afb1d_atrous_adjoint"].get("band"),
             f"swt_edge_cases: a K12 instantiation was not checked: {insts}")
+    require(all(insts[k].get(w) for k in ("spec_merge", "spec_split")
+                for w in im.SPEC_WALKS),
+            f"swt_edge_cases: a K13 walk was not checked: {insts}")
     return len(calls), err, insts
+
+
+def spec_views(A, B):
+    """(A', B', layout) of K13's edge cases from the rfft spectra A, B (the
+    frequency axis at stride 1): the same values 8 bytes further into a
+    buffer (every row's pairs shifted), stored along the other axis (a
+    row's filter pair constant), written contiguous (the transpose walk
+    where the frequency axis is H), and of mixed layouts and a broadcast
+    one (the strided walk)."""
+    def offset(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        v = torch.as_strided(buf, t.shape, t.stride(), 1)
+        v.copy_(t)
+        return v
+
+    def other(t):
+        if t.stride(3) == 1:
+            return t.transpose(2, 3).contiguous().transpose(2, 3)
+        return t.contiguous()
+    bcast = A.narrow(2, 0, 1).expand(A.shape)
+    return [(offset(A), offset(B), "stream"),
+            (other(A), other(B), "stream"),
+            (A, B, "contiguous"),
+            (other(A), other(B), "contiguous"),
+            (A, other(B), "stream"),
+            (bcast, bcast.contiguous(), "stream")]
 
 
 # ---------------------------------------------------------------------------
@@ -3832,6 +3983,8 @@ def precision_path(tt, ops, banded, cuda, phase, mode, runs, x_cpu, refs,
         require(counts["apply_row"] == counts["apply_col"] == 0,
                 f"{phase}: K1 (fp32) launched under {mode}: {counts}")
         fields["launches"] = {k: v for k, v in counts.items() if v}
+        fields["instantiations"] = vector_quads(inst_counts(ops), phase,
+                                                counts)
         fields["max_abs_err_vs_cpu_fp32"] = {
             name: _path_errors(outs[name], refs[name], n, mode, phase, recon,
                                x_max)
@@ -4071,19 +4224,37 @@ def profile(step, iters):
             step()
         torch.cuda.synchronize()
     by_name = {}
+    by_kind = {"layout copies": 0.0, "cuFFT": 0.0}
     for e in prof.key_averages():
         # device events only: the autograd Functions' host ranges are
         # credited with the ctypes-launched kernels inside them too
         us = getattr(e, "self_device_time_total", 0) or 0
         if us > 0 and e.device_type == DeviceType.CUDA:
+            kind = profile_kind(e.key)
+            if kind:
+                by_kind[kind] += us / iters
             name = e.key.replace("(anonymous namespace)::", "")
             name = name.replace("void ", "").split("(")[0][:60]
             by_name[name] = by_name.get(name, 0.0) + us / iters
     total = sum(by_name.values())
     return dict(window_iters=iters,
                 device_us_per_iter=total if total else "not measured",
+                device_us_per_iter_by_kind=by_kind if total else
+                "not measured",
                 device_us_per_iter_by_kernel=sorted(
                     by_name.items(), key=lambda kv: -kv[1]))
+
+
+def profile_kind(key):
+    """The kind of a device event the profiles sum apart: PyTorch's layout
+    copies (its copy kernel, device-to-device memcpy) and cuFFT's kernels;
+    None for any other."""
+    low = key.lower()
+    if "direct_copy_kernel" in low or low.startswith("memcpy dtod"):
+        return "layout copies"
+    if "fft" in low and "at::native" not in low:
+        return "cuFFT"
+    return None
 
 
 def main():
@@ -4143,6 +4314,9 @@ def main():
     n_edge, edge_err, edge_insts = mag_edge_cases(scat_mag)
     emit("mag_edge_cases", calls=n_edge, max_abs_err=edge_err,
          tolerance=MAG_TOL, instantiations=edge_insts)
+    n_edge, edge_insts = quad_edge_cases(quad)
+    emit("quad_edge_cases", calls=n_edge, max_abs_err=0.0,
+         tolerance="exact", instantiations=edge_insts)
     dfields, dtfields, d_roles, dcalls, dstep = dwt_path(
         tt, ops, afb_sfb, dwt, DWT_SHAPE, DWT_J, False, "dwt_main")
     emit("dwt_main", **dfields)
@@ -4284,7 +4458,7 @@ def main():
     n_edge, edge_err, edge_insts = swt_edge_cases(afb_sfb, pad, iswt_merge)
     emit("swt_edge_cases", calls=n_edge, max_abs_err=edge_err,
          tolerance={"K12": DWT_TOL, "K13": SPEC_TOL},
-         k12_instantiations=edge_insts)
+         instantiations=edge_insts)
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()

@@ -26,49 +26,361 @@
 // bf16 (y and out bf16): the same arithmetic in fp32 on the loaded
 // values, each output rounded once to bf16 as it is stored (elem.cuh).
 //
-// Bound: bytes (4 reads and 4 writes of fp32 or bf16 per thread, 4-8
-// flops); consecutive threads take consecutive w, so reads coalesce (every
-// other value per corner on the per-level path) and writes go out at the
-// layout's w stride.
+// Bound: bytes (each corner read once, each (re, im) written once, 2 or 4
+// bytes a value) against one add or subtract a value (and per level a
+// scaling per read).  Two instantiations, picked by the wrapper
+// (ops/quad.py:q2c_instantiation) and refused here off their layout:
+//
+// - `vector`: the bands in the default layout (re/im adjacent, sri = 1;
+//   w pairs adjacent, sw = 2) and corners along j at unit stride (the
+//   composed path's contiguous rows, sj = 1) or interleaved in pairs (the
+//   per-level path's, sj = 2, b = a + 1, d = c + 1).  The grid is
+//   (plane, member) x chunks of the member's m x S slots; a block splits
+//   its (plane, member) into (n, c, t) once and holds the 64-bit bases,
+//   offsets within a plane are 32-bit.  A slot is V = 16 / (2 * size) j
+//   (2 on fp32, 4 on bf16): one 16-byte store of each orientation's
+//   (re, im) for V j.  Slots are anchored on o1's 16-byte lines, so a row
+//   that starts past a line (odd k, an offset view) has a first and a
+//   last slot that are partial: their j are taken one at a time, an
+//   (re, im) pair a store.  A full slot loads each corner as one 8-byte
+//   run of V values (composed) or a, b (and c, d) as one 16-byte run of
+//   2V interleaved values (per level), and stores o2 as one 16-byte
+//   store, each where its address is aligned, else value by value.
+//   Q_SLOTS slots a thread, Q_THREADS apart, all loaded before any is
+//   stored; (i, slot) by one 32-bit division by S.
+// - `strided`: every other view (any o_dim / ri_dim layout): Q_STEPS
+//   values a thread, (i, j) by one division by k, 32-bit offsets within a
+//   plane where the extents fit, 64-bit past that.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <initializer_list>
 
 #include "elem.cuh"
 
 namespace {
 
+constexpr int Q_THREADS = 256;   // a block (both instantiations)
+constexpr int Q_SLOTS = 2;       // vector: slots a thread
+constexpr int Q_STEPS = 4;       // strided: values a thread
+constexpr long long SIZE32 = 1LL << 31;
+
+enum QInst { Q_VECTOR = 0, Q_STRIDED = 1 };
+
+struct QArgs {
+  int C, m, k, nm, orients;
+  long long syn, syc, smem;      // y's plane and member strides
+  long long si, sj, oa, ob, oc, od;
+  float scale;
+  long long sn, sc, so;          // out's plane and orientation strides
+  long long sh, sw, sri;
+  int S;                         // vector: slots a row
+  long long cpp;                 // chunks a (plane, member)
+  long long nb;                  // blocks: planes * nm * cpp
+};
+
+// The 8- and 16-byte accesses of V values of each element type.
 template <typename E>
-__global__ void q2c_pack_kernel(const E* __restrict__ y,
-                                E* __restrict__ out, long long total,
-                                int C, int m, int k, int nm, int orients,
-                                long long syn, long long syc,
-                                long long smem, long long si, long long sj,
-                                long long oa, long long ob, long long oc,
-                                long long od, float scale, long long sn,
-                                long long sc, long long so, long long sh,
-                                long long sw, long long sri) {
-  for (long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       idx < total; idx += (long long)gridDim.x * blockDim.x) {
-    const int j = (int)(idx % k);
-    long long t = idx / k;
-    const int i = (int)(t % m);
-    t /= m;
-    const int mem = (int)(t % nm);
-    const long long p = t / nm;
-    const E* yp = y + (p / C) * syn + (p % C) * syc + mem * smem +
-                  i * si + j * sj;
-    const float a = __fmul_rn(to_float(yp[oa]), scale);
-    const float b = __fmul_rn(to_float(yp[ob]), scale);
-    const float c = __fmul_rn(to_float(yp[oc]), scale);
-    const float d = __fmul_rn(to_float(yp[od]), scale);
-    const int o1 = (orients >> (8 * mem)) & 0xF;
-    const int o2 = (orients >> (8 * mem + 4)) & 0xF;
-    E* base = out + (p / C) * sn + (p % C) * sc + i * sh + j * sw;
-    base[o1 * so] = from_float<E>(__fsub_rn(a, d));
-    base[o1 * so + sri] = from_float<E>(__fadd_rn(b, c));
-    base[o2 * so] = from_float<E>(__fadd_rn(a, d));
-    base[o2 * so + sri] = from_float<E>(__fsub_rn(b, c));
+struct Vec;
+
+template <>
+struct Vec<float> {
+  static constexpr int V = 2;
+  // V values at p (8 bytes)
+  __device__ static void run(const float* p, float (&v)[2]) {
+    const float2 q = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = q.x;
+    v[1] = q.y;
   }
+  // 2V values at p (16 bytes), a and b interleaved
+  __device__ static void pairs(const float* p, float (&a)[2],
+                               float (&b)[2]) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    a[0] = q.x;
+    b[0] = q.y;
+    a[1] = q.z;
+    b[1] = q.w;
+  }
+  // V (re, im) pairs at p (16 bytes)
+  __device__ static void store(float* p, const float (&re)[2],
+                               const float (&im)[2]) {
+    *reinterpret_cast<float4*>(p) = make_float4(re[0], im[0], re[1], im[1]);
+  }
+  // one (re, im) pair at p (8 bytes)
+  __device__ static void store1(float* p, float re, float im) {
+    *reinterpret_cast<float2*>(p) = make_float2(re, im);
+  }
+};
+
+__device__ __forceinline__ __nv_bfloat162 as_bf2(unsigned u) {
+  return *reinterpret_cast<const __nv_bfloat162*>(&u);
+}
+
+__device__ __forceinline__ unsigned as_u32(__nv_bfloat162 h) {
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int V = 4;
+  __device__ static void run(const __nv_bfloat16* p, float (&v)[4]) {
+    const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+    v[0] = __low2float(as_bf2(q.x));
+    v[1] = __high2float(as_bf2(q.x));
+    v[2] = __low2float(as_bf2(q.y));
+    v[3] = __high2float(as_bf2(q.y));
+  }
+  __device__ static void pairs(const __nv_bfloat16* p, float (&a)[4],
+                               float (&b)[4]) {
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+    const unsigned w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      a[v] = __low2float(as_bf2(w[v]));
+      b[v] = __high2float(as_bf2(w[v]));
+    }
+  }
+  __device__ static void store(__nv_bfloat16* p, const float (&re)[4],
+                               const float (&im)[4]) {
+    unsigned w[4];
+#pragma unroll
+    for (int v = 0; v < 4; ++v)
+      w[v] = as_u32(__floats2bfloat162_rn(re[v], im[v]));
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  __device__ static void store1(__nv_bfloat16* p, float re, float im) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(re, im);
+  }
+};
+
+__device__ __forceinline__ bool aligned(const void* p, int bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+}
+
+// V values at p: one 8-byte load where aligned, else value by value
+template <typename E>
+__device__ __forceinline__ void load_run(const E* p, float (&v)[Vec<E>::V]) {
+  if (aligned(p, 8)) {
+    Vec<E>::run(p, v);
+  } else {
+#pragma unroll
+    for (int u = 0; u < Vec<E>::V; ++u) v[u] = to_float(p[u]);
+  }
+}
+
+// 2V interleaved values at p: one 16-byte load where aligned
+template <typename E>
+__device__ __forceinline__ void load_pairs(const E* p, float (&a)[Vec<E>::V],
+                                           float (&b)[Vec<E>::V]) {
+  if (aligned(p, 16)) {
+    Vec<E>::pairs(p, a, b);
+  } else {
+#pragma unroll
+    for (int u = 0; u < Vec<E>::V; ++u) {
+      a[u] = to_float(p[2 * u]);
+      b[u] = to_float(p[2 * u + 1]);
+    }
+  }
+}
+
+template <typename E>
+__device__ __forceinline__ void store_cplx(E* p, const float (&re)[Vec<E>::V],
+                                           const float (&im)[Vec<E>::V]) {
+  if (aligned(p, 16)) {
+    Vec<E>::store(p, re, im);
+  } else {
+#pragma unroll
+    for (int u = 0; u < Vec<E>::V; ++u)
+      Vec<E>::store1(p + 2 * u, re[u], im[u]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// vector
+// ---------------------------------------------------------------------------
+
+template <typename E, bool IL>
+__global__ void __launch_bounds__(Q_THREADS)
+    q2c_vector(const E* __restrict__ y, E* __restrict__ out, QArgs a) {
+  constexpr int V = Vec<E>::V;
+  const int si = (int)a.si, ob = (int)a.ob, oc = (int)a.oc, od = (int)a.od;
+  const int sh = (int)a.sh, k = a.k, S = a.S;
+  const int slots = a.m * S;
+  for (int blk = blockIdx.x; blk < (int)a.nb; blk += gridDim.x) {
+    const int pm = blk / (int)a.cpp, chunk = blk - pm * (int)a.cpp;
+    const int p = pm / a.nm, t = pm - p * a.nm;
+    const int n = p / a.C, c = p - n * a.C;
+    const E* yb = y + n * a.syn + c * a.syc + t * a.smem;
+    const int o1 = (a.orients >> (8 * t)) & 0xF;
+    const int o2 = (a.orients >> (8 * t + 4)) & 0xF;
+    E* out1 = out + n * a.sn + c * a.sc + o1 * a.so;
+    E* out2 = out + n * a.sn + c * a.sc + o2 * a.so;
+    float av[Q_SLOTS][V], bv[Q_SLOTS][V], cv[Q_SLOTS][V], dv[Q_SLOTS][V];
+    int row[Q_SLOTS], j0[Q_SLOTS];
+    bool full[Q_SLOTS];
+#pragma unroll
+    for (int u = 0; u < Q_SLOTS; ++u) {
+      const int e = chunk * (Q_THREADS * Q_SLOTS) + u * Q_THREADS +
+                    threadIdx.x;
+      full[u] = false;
+      row[u] = -1;
+      if (e >= slots) continue;
+      const int i = e / S, s = e - i * S;
+      // slots are anchored on o1's 16-byte lines: h j lie before the row
+      const int h = (int)((reinterpret_cast<uintptr_t>(out1 + i * sh) & 15) /
+                          (2 * sizeof(E)));
+      row[u] = i;
+      j0[u] = s * V - h;
+      full[u] = j0[u] >= 0 && j0[u] + V <= k;
+      if (!full[u]) continue;
+      const E* ya = yb + i * si + (IL ? 2 * j0[u] : j0[u]);
+      if (IL) {
+        load_pairs(ya, av[u], bv[u]);
+        load_pairs(ya + oc, cv[u], dv[u]);
+      } else {
+        load_run(ya, av[u]);
+        load_run(ya + ob, bv[u]);
+        load_run(ya + oc, cv[u]);
+        load_run(ya + od, dv[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < Q_SLOTS; ++u) {
+      if (row[u] < 0) continue;
+      const int i = row[u];
+      E* r1 = out1 + i * sh;
+      E* r2 = out2 + i * sh;
+      if (full[u]) {
+        float re1[V], im1[V], re2[V], im2[V];
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          const float A = __fmul_rn(av[u][v], a.scale);
+          const float B = __fmul_rn(bv[u][v], a.scale);
+          const float Cc = __fmul_rn(cv[u][v], a.scale);
+          const float D = __fmul_rn(dv[u][v], a.scale);
+          re1[v] = __fsub_rn(A, D);
+          im1[v] = __fadd_rn(B, Cc);
+          re2[v] = __fadd_rn(A, D);
+          im2[v] = __fsub_rn(B, Cc);
+        }
+        Vec<E>::store(r1 + 2 * j0[u], re1, im1);   // aligned by the anchor
+        store_cplx(r2 + 2 * j0[u], re2, im2);
+      } else {   // a row's partial first or last slot, one j at a time
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          const int j = j0[u] + v;
+          if (j < 0 || j >= k) continue;
+          const E* yj = yb + i * si + (IL ? 2 * j : j);
+          const float A = __fmul_rn(to_float(yj[0]), a.scale);
+          const float B = __fmul_rn(to_float(yj[ob]), a.scale);
+          const float Cc = __fmul_rn(to_float(yj[oc]), a.scale);
+          const float D = __fmul_rn(to_float(yj[od]), a.scale);
+          Vec<E>::store1(r1 + 2 * j, __fsub_rn(A, D), __fadd_rn(B, Cc));
+          Vec<E>::store1(r2 + 2 * j, __fadd_rn(A, D), __fsub_rn(B, Cc));
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// strided
+// ---------------------------------------------------------------------------
+
+template <typename E, typename I>
+__global__ void __launch_bounds__(Q_THREADS)
+    q2c_strided(const E* __restrict__ y, E* __restrict__ out, QArgs a) {
+  const I per = (I)Q_THREADS * Q_STEPS, mk = (I)a.m * a.k;
+  for (long long blk = blockIdx.x; blk < a.nb; blk += gridDim.x) {
+    const long long pm = blk / a.cpp;
+    const I chunk = (I)(blk - pm * a.cpp);
+    const long long p = pm / a.nm;
+    const int t = (int)(pm - p * a.nm);
+    const long long n = p / a.C;
+    const int c = (int)(p - n * a.C);
+    const E* yb = y + n * a.syn + c * a.syc + t * a.smem;
+    const int o1 = (a.orients >> (8 * t)) & 0xF;
+    const int o2 = (a.orients >> (8 * t + 4)) & 0xF;
+    E* ob1 = out + n * a.sn + c * a.sc + o1 * a.so;
+    E* ob2 = out + n * a.sn + c * a.sc + o2 * a.so;
+#pragma unroll
+    for (int u = 0; u < Q_STEPS; ++u) {
+      const I e = chunk * per + (I)u * Q_THREADS + (I)threadIdx.x;
+      if (e >= mk) break;
+      const I i = e / a.k, j = e - i * a.k;
+      const E* yp = yb + (i * (I)a.si + j * (I)a.sj);
+      const float A = __fmul_rn(to_float(yp[(I)a.oa]), a.scale);
+      const float B = __fmul_rn(to_float(yp[(I)a.ob]), a.scale);
+      const float Cc = __fmul_rn(to_float(yp[(I)a.oc]), a.scale);
+      const float D = __fmul_rn(to_float(yp[(I)a.od]), a.scale);
+      const I off = i * (I)a.sh + j * (I)a.sw;
+      ob1[off] = from_float<E>(__fsub_rn(A, D));
+      ob1[off + (I)a.sri] = from_float<E>(__fadd_rn(B, Cc));
+      ob2[off] = from_float<E>(__fadd_rn(A, D));
+      ob2[off + (I)a.sri] = from_float<E>(__fsub_rn(B, Cc));
+    }
+  }
+}
+
+long long abs_ll(long long v) { return v < 0 ? -v : v; }
+
+unsigned grid_of(long long nb) {
+  return static_cast<unsigned>(nb < (1LL << 30) ? nb : (1LL << 30));
+}
+
+template <typename E>
+int launch(const void* y, void* out, long long planes, QArgs& a, int inst,
+           cudaStream_t st) {
+  const E* yp = static_cast<const E*>(y);
+  E* op = static_cast<E*>(out);
+  const long long esz = sizeof(E);
+  if (inst == Q_VECTOR) {
+    const int V = Vec<E>::V;
+    const bool il = a.sj == 2 && a.ob == 1 && a.od == a.oc + 1;
+    // the layout: (re, im) adjacent, w pairs adjacent, rows and planes at
+    // whole pairs; corners along j at unit stride or interleaved
+    bool ok = a.sri == 1 && a.sw == 2 && a.oa == 0 && (a.sj == 1 || il) &&
+              (reinterpret_cast<uintptr_t>(out) % (2 * esz)) == 0;
+    for (long long s : {a.sn, a.sc, a.so, a.sh}) ok = ok && s % 2 == 0;
+    // 32-bit within a plane
+    const long long yext = (a.m + 1) * abs_ll(a.si) + 2LL * a.k +
+                           abs_ll(a.ob) + abs_ll(a.oc) + abs_ll(a.od);
+    ok = ok && yext < SIZE32 && (a.m + 1) * abs_ll(a.sh) + 2LL * a.k < SIZE32;
+    // slots: anchored on o1's lines; one more a row unless every row starts
+    // on one
+    bool lines = reinterpret_cast<uintptr_t>(out) % 16 == 0;
+    for (long long s : {a.sn, a.sc, a.so, a.sh})
+      lines = lines && (s * esz) % 16 == 0;
+    a.S = (int)((a.k - 1 + (lines ? 0 : V - 1)) / V + 1);
+    const long long per = (long long)Q_THREADS * Q_SLOTS;
+    a.cpp = ((long long)a.m * a.S + per - 1) / per;
+    a.nb = planes * a.nm * a.cpp;
+    ok = ok && (long long)a.m * a.S < SIZE32 && a.nb < SIZE32;
+    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+    if (il)
+      q2c_vector<E, true><<<grid_of(a.nb), Q_THREADS, 0, st>>>(yp, op, a);
+    else
+      q2c_vector<E, false><<<grid_of(a.nb), Q_THREADS, 0, st>>>(yp, op, a);
+  } else if (inst == Q_STRIDED) {
+    const long long per = (long long)Q_THREADS * Q_STEPS;
+    const long long mk = (long long)a.m * a.k;
+    a.cpp = (mk + per - 1) / per;
+    a.nb = planes * a.nm * a.cpp;
+    const long long yext = (a.m - 1) * abs_ll(a.si) +
+                           (a.k - 1) * abs_ll(a.sj) + abs_ll(a.oa) +
+                           abs_ll(a.ob) + abs_ll(a.oc) + abs_ll(a.od);
+    const long long oext = (a.m - 1) * abs_ll(a.sh) +
+                           (a.k - 1) * abs_ll(a.sw) + abs_ll(a.sri);
+    if (mk + per < SIZE32 / 2 && yext < SIZE32 / 2 && oext < SIZE32 / 2)
+      q2c_strided<E, int><<<grid_of(a.nb), Q_THREADS, 0, st>>>(yp, op, a);
+    else
+      q2c_strided<E, long long>
+          <<<grid_of(a.nb), Q_THREADS, 0, st>>>(yp, op, a);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -80,30 +392,20 @@ const char* kernel_error_string(int err) {
 }
 
 // planes = N*C; members packed as orients |= (o1 | o2 << 4) << (8 * t);
-// the input's addressing as in the header; bf16: y and out are bf16.
+// the input's addressing as in the header; bf16: y and out are bf16;
+// inst: 0 vector, 1 strided (ops/quad.py:Q2C_INSTS).
 int q2c_pack(const void* y, void* out, long long planes, int C, int m,
              int k, int nm, int orients, long long syn, long long syc,
              long long smem, long long si, long long sj, long long oa,
              long long ob, long long oc, long long od, float scale,
              long long sn, long long sc, long long so, long long sh,
-             long long sw, long long sri, int bf16, void* stream) {
-  const long long total = planes * nm * m * k;
-  if (total == 0) return 0;
-  const int threads = 256;
-  long long blocks = (total + threads - 1) / threads;
-  if (blocks > 1048576) blocks = 1048576;
+             long long sw, long long sri, int bf16, int inst, void* stream) {
+  if (planes * nm * m * k == 0) return 0;
+  QArgs a{C,  m,  k,  nm, orients, syn, syc, smem, si, sj, oa, ob, oc, od,
+          scale, sn, sc, so, sh, sw, sri, 0, 0, 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    q2c_pack_kernel<<<(unsigned)blocks, threads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(y), static_cast<__nv_bfloat16*>(out),
-        total, C, m, k, nm, orients, syn, syc, smem, si, sj, oa, ob, oc, od,
-        scale, sn, sc, so, sh, sw, sri);
-  else
-    q2c_pack_kernel<<<(unsigned)blocks, threads, 0, st>>>(
-        static_cast<const float*>(y), static_cast<float*>(out), total, C, m,
-        k, nm, orients, syn, syc, smem, si, sj, oa, ob, oc, od, scale, sn, sc,
-        so, sh, sw, sri);
-  return static_cast<int>(cudaGetLastError());
+  return bf16 ? launch<__nv_bfloat16>(y, out, planes, a, inst, st)
+              : launch<float>(y, out, planes, a, inst, st);
 }
 
 }  // extern "C"

@@ -10,11 +10,12 @@ per entry and mode (``apply_col_tf32`` ... ``apply_row_bf16``);
 K17's wrappers also count their launches by instantiation (``copies``,
 :func:`copy_counts`): the copy width their staging took, and for K1's
 column entry its narrow 64-column tile.  K4's to K10's, K12's and K14's
-to K16's count theirs in ``instantiations`` (:func:`instantiation_counts`):
-K6's to K10's, K12's and K16's axis and vector width (K6's and K7's
-per-output ``long_fold`` too), K14's and K15's tiles (K14's PSF count),
-their adjoints' and K15's forward's edge bands, K12's and K16's adjoints'
-edge bands, K4's and K5's vector or strided access.
+to K16's and K2's count theirs in ``instantiations``
+(:func:`instantiation_counts`): K6's to K10's, K12's and K16's axis and
+vector width (K6's and K7's per-output ``long_fold`` too), K14's and
+K15's tiles (K14's PSF count), their adjoints' and K15's forward's edge
+bands, K12's and K16's adjoints' edge bands, K2's, K4's and K5's vector
+or strided access, K13's walk.
 """
 from pytorch_wavelets_tpu_torch.ops.afb_sfb import (  # noqa: F401
     afb1d, sfb1d, afb1d_atrous, sfb1d_atrous, afb2d, sfb2d,
@@ -58,7 +59,8 @@ STENCIL_VARIANT_KERNELS = (afb1d_corr, sfb1d_conv, dtcwt_filt, dtcwt_dfilt,
                            afb1d_atrous_adjoint, nonsep_afb,
                            nonsep_afb_adjoint, nonsep_sfb, nonsep_sfb_adjoint,
                            sfb1d_atrous_conv, sfb1d_atrous_adjoint,
-                           scat_mag_fwd, scat_mag_bwd)
+                           scat_mag_fwd, scat_mag_bwd, q2c_pack, spec_merge,
+                           spec_split)
 
 
 def reset_launches() -> None:
@@ -98,6 +100,10 @@ def instantiation_counts() -> dict:
     ``poly`` with its tile in positions and ``band`` (the wrap-add's
     second positions), its adjoint ``staged`` with its tile; K4's and
     K5's ``vector`` (16-byte loads of plane-contiguous bands) /
-    ``strided`` (any view through its strides)."""
+    ``strided`` (any view through its strides); K2's ``vector`` (16-byte
+    stores of the default band layout) / ``strided``; K13's ``stream``
+    (16-byte pairs along the spectra's unit-stride axis) / ``transpose``
+    (read along H, written along W through shared memory) /
+    ``strided``."""
     return {k.__name__: dict(k.instantiations)
             for k in STENCIL_VARIANT_KERNELS}

@@ -54,7 +54,8 @@ _SIGNATURES = {
     },
     "q2c_pack": {
         "q2c_pack": [_P, _P, _L, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L,
-                     _L, _L, _L, _L, _F, _L, _L, _L, _L, _L, _L, _I, _P],
+                     _L, _L, _L, _L, _F, _L, _L, _L, _L, _L, _L, _I, _I,
+                     _P],
     },
     "c2q_unpack": {
         "c2q_unpack": [_P, _P, _L, _I, _I, _I, _I, _I,
@@ -128,9 +129,9 @@ _SIGNATURES = {
     },
     "iswt_spec": {
         "spec_merge": [_P, _P, _P, _P, _P, _L, _I, _I, _I, *[_L] * 12, _I,
-                       _P],
+                       _I, _P],
         "spec_split": [_P, _P, _P, _P, _P, _L, _I, _I, _I, *[_L] * 12, _I,
-                       _P],
+                       _I, _P],
     },
 }
 

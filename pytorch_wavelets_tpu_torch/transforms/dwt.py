@@ -424,17 +424,25 @@ class _FFTMerge:
                                   device=device) for G in (G0, G1)]
         self.nbytes = sum(g.nbytes for g in self.g)
 
+    def _irfft(self, S, dim):
+        # along the last dimension of a view: K13 writes the frequency
+        # axis innermost (ops/iswt_merge.py, the "stream" layout), so the
+        # view is contiguous and PyTorch's c2r path copies it once (its
+        # clone) instead of transposing it as well; the result has the
+        # layout irfft(S, dim=dim) returns
+        return torch.fft.irfft(S.movedim(dim, -1), n=self.n,
+                               dim=-1).movedim(-1, dim)
+
     def merge(self, lo, hi, axis):
         A = torch.fft.rfft(lo.to(self.real), dim=axis)
         B = torch.fft.rfft(hi.to(self.real), dim=axis)
-        z = torch.fft.irfft(spec_merge(A, B, *self.g, axis), n=self.n,
-                            dim=axis)
+        z = self._irfft(spec_merge(A, B, *self.g, axis), axis)
         return z.to(lo.dtype)
 
     def split(self, g, axis):
         S = spec_split(torch.fft.rfft(g.to(self.real), dim=axis), *self.g,
                        axis)
-        d = torch.fft.irfft(S, n=self.n, dim=axis + 1).to(g.dtype)
+        d = self._irfft(S, axis + 1).to(g.dtype)
         return d[0], d[1]
 
 

@@ -217,6 +217,115 @@ def test_q2c_pack_and_c2q_unpack(dev, o_dim, ri_dim, dtype):
         quad.c2q_unpack_plain(hc.float(), orients).to(dtype), rtol=0, atol=0)
 
 
+def _q2c_group(dev, N, C, m, k, nm, interleaved, dtype, shift=0, seed=30):
+    """The group output K2 reads: composed (N, C, nm 2m, 2k), or per level
+    (N, C, nm, 2m, 2k) ``shift`` elements into rows of 2k + 3."""
+    if not interleaved:
+        return torch.from_numpy(_rand((N, C, nm * 2 * m, 2 * k), seed)).to(
+            dev, dtype)
+    wide = torch.from_numpy(_rand((N, C, nm, 2 * m, 2 * k + 3), seed)).to(
+        dev, dtype)
+    return wide[..., shift:shift + 2 * k]
+
+
+Q2C_VIEWS = [
+    # (case, m, k, interleaved, o_dim, ri_dim, bands offset, y shift,
+    #  instantiation)
+    ("composed", 3, 8, False, 2, -1, 0, 0, "vector"),
+    ("composed odd k", 3, 7, False, 2, -1, 0, 0, "vector"),
+    ("composed offset bands", 2, 6, False, 2, -1, 2, 0, "vector"),
+    ("composed scat layout", 3, 5, False, 1, -1, 0, 0, "vector"),
+    ("composed o first", 2, 9, False, 0, 5, 6, 0, "vector"),
+    ("composed wide", 5, 130, False, 2, -1, 0, 0, "vector"),
+    ("per level", 3, 8, True, 2, -1, 0, 0, "vector"),
+    ("per level odd k", 3, 5, True, 1, -1, 0, 0, "vector"),
+    ("per level shifted rows", 2, 6, True, 2, -1, 4, 1, "vector"),
+    ("per level wide", 4, 300, True, 2, -1, 0, 2, "vector"),
+    ("composed re/im apart", 3, 8, False, 1, 3, 0, 0, "strided"),
+    ("composed off a pair", 3, 8, False, 2, -1, 1, 0, "strided"),
+    ("per level re/im apart", 3, 5, True, 4, 2, 0, 0, "strided"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case,m,k,il,o_dim,ri_dim,off,shift,inst",
+                         Q2C_VIEWS, ids=[v[0] for v in Q2C_VIEWS])
+def test_q2c_pack_instantiations(dev, case, m, k, il, o_dim, ri_dim, off,
+                                 shift, inst, dtype):
+    """K2 in each instantiation at the edge views (odd k, bands off their
+    16-byte lines, per-level rows off theirs, every layout), bit for bit
+    its plain version computed in fp32 and rounded once; each call moves
+    its instantiation's count by one and writes nothing else."""
+    from pytorch_wavelets_tpu_torch.transforms.dtcwt import get_dimensions5
+    od, rd, _, _ = get_dimensions5(o_dim, ri_dim)
+    N, C = 2, 3
+    orients = ((0, 5), (2, 3), (1, 4)) if il else ((2, 3), (1, 4))
+    y = _q2c_group(dev, N, C, m, k, len(orients), il, dtype, shift)
+    shape = [N, C, m, k]
+    shape.insert(od, 6)
+    shape.insert(rd, 2)
+    size = int(np.prod(shape))
+    buf = torch.full((size + off,), float("nan"), device=dev, dtype=dtype)
+    h = torch.as_strided(buf, shape, torch.empty(shape).stride(), off)
+    want = torch.full(shape, float("nan"), device=dev)
+    hc = fused_dtcwt.canonical_bands(h, od, rd)
+    before = dict(quad.q2c_pack.instantiations)
+    quad.q2c_pack(y, hc, orients, il)
+    torch.cuda.synchronize()
+    assert {k_: v - before[k_] for k_, v in
+            quad.q2c_pack.instantiations.items()} == {
+        k_: int(k_ == inst) for k_ in before}
+    quad.q2c_pack_plain(y.float(), fused_dtcwt.canonical_bands(want, od, rd),
+                        orients, il)
+    torch.testing.assert_close(h, want.to(dtype), rtol=0, atol=0,
+                               equal_nan=True)
+    assert bool(buf[:off].isnan().all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_default_layouts_take_vector_q2c(dev, dtype):
+    """Every K2 call of the composed and per-level DTCWT and of the
+    scattering layers, forward and backward, in the default band layout,
+    takes the vector instantiation."""
+    runs = [lambda d: tt.DTCWTForward(J=2, device=d),
+            lambda d: tt.ScatLayerj2(device=d),
+            lambda d: tt.ScatLayerj2(biort="near_sym_b_bp",
+                                     qshift="qshift_b_bp", device=d)]
+    x = torch.from_numpy(_rand((2, 3, 64, 64), 31)).to(dev, dtype)
+    for make in runs:
+        m = make(dev)
+        xg = x.detach().requires_grad_()
+        ops.reset_launches()
+        out = m(xg)
+        outs = [out] if isinstance(out, torch.Tensor) else \
+            [out[0], *out[1]]
+        torch.autograd.grad(outs, xg, [torch.ones_like(o) for o in outs])
+        torch.cuda.synchronize()
+        n, insts = ops.launch_counts()["q2c_pack"], \
+            ops.instantiation_counts()["q2c_pack"]
+        assert n > 0 and insts == {"vector": n, "strided": 0}
+    with _per_level():
+        m = tt.DTCWTForward(J=2, device=dev)
+        ops.reset_launches()
+        m(x)
+        torch.cuda.synchronize()
+        n = ops.launch_counts()["q2c_pack"]
+        assert n > 0 and ops.instantiation_counts()["q2c_pack"] == {
+            "vector": n, "strided": 0}
+
+
+class _per_level:
+    """The per-level path for the body (set_operator_matmul(False))."""
+
+    def __enter__(self):
+        banded.set_operator_matmul(False)
+
+    def __exit__(self, *exc):
+        banded.set_operator_matmul(None)
+
+
 @pytest.mark.parametrize("shape,J,kw", [
     ((2, 3, 63, 70), 3, {}), ((1, 2, 64, 64), 2, dict(o_dim=1, ri_dim=3)),
     ((2, 1, 128, 96), 2, dict(skip_hps=[True, False], include_scale=True))])
@@ -1280,6 +1389,140 @@ def test_spec_merge_and_split(dev, n, axis):
                     iswt_merge.spec_split_plain(mag[0], *mag[2:], axis))
     assert (iswt_merge.spec_merge.launches,
             iswt_merge.spec_split.launches) == (n0[0] + 1, n0[1] + 1)
+
+
+def _spec_view(dev, n, axis, other, how, seed):
+    """An rfft spectrum on the card along ``axis`` (frequency at stride
+    1), or its values stored with W ("W") or H ("H") innermost, or 8 bytes
+    further into a buffer ("offset")."""
+    shape = [2, 3, other, other]
+    shape[axis] = n
+    A = torch.fft.rfft(torch.from_numpy(_rand(shape, seed)).to(dev),
+                       dim=axis)
+    if how == "W":
+        return A.contiguous()
+    if how == "H":
+        return A.transpose(2, 3).contiguous().transpose(2, 3)
+    if how == "offset":
+        buf = torch.empty(A.numel() + 1, dtype=A.dtype, device=dev)
+        v = torch.as_strided(buf, A.shape, A.stride(), 1)
+        v.copy_(A)
+        return v
+    return A
+
+
+SPEC_VIEWS = [
+    # (case, n, axis, other, how, layout, walk, outputs' unit-stride axis)
+    ("H odd rows", 4096, 2, 3, None, "stream", "stream", 2),
+    ("W odd rows", 4096, 3, 3, None, "stream", "stream", 3),
+    ("H even rows", 10, 2, 7, None, "stream", "stream", 2),
+    ("H offset", 16, 2, 5, "offset", "stream", "stream", 2),
+    ("W offset", 9, 3, 4, "offset", "stream", "stream", 3),
+    ("H spectra along W", 16, 2, 6, "W", "stream", "stream", 3),
+    ("W spectra along H", 16, 3, 6, "H", "stream", "stream", 2),
+    ("H contiguous", 70, 2, 37, None, "contiguous", "transpose", 3),
+    ("H contiguous offset", 16, 2, 5, "offset", "contiguous", "transpose",
+     3),
+    ("W contiguous", 4096, 3, 3, None, "contiguous", "stream", 3),
+    ("W spectra along H contiguous", 16, 3, 6, "H", "contiguous",
+     "transpose", 3),
+]
+
+
+@pytest.mark.parametrize("case,n,axis,other,how,layout,walk,u", SPEC_VIEWS,
+                         ids=[v[0] for v in SPEC_VIEWS])
+def test_spec_walks(dev, case, n, axis, other, how, layout, walk, u):
+    """K13's merge and split in each walk at the edge views (odd rows of
+    n/2 + 1 values, offsets, spectra stored along either axis, both
+    output layouts), within SPEC_TOL of their terms' magnitudes; each call
+    moves its walk's count by one and writes its outputs with the walk's
+    axis at stride 1.  The strided walk takes mixed layouts."""
+    from pytorch_wavelets_tpu_torch.ops import iswt_merge
+    A = _spec_view(dev, n, axis, other, how, 92)
+    B = _spec_view(dev, n, axis, other, how, 93)
+    nf = A.shape[axis]
+    g0, g1 = (torch.from_numpy(_rand((nf,), s) + 1j * _rand((nf,), s + 1))
+              .to(dev, torch.complex64) for s in (94, 96))
+    mag = [t.abs() for t in (A, B, g0, g1)]
+    mixed = B.transpose(2, 3).contiguous().transpose(2, 3) \
+        if B.stride(3) == 1 else B.contiguous()
+    for wrapper, run, want, terms, inst in (
+            (iswt_merge.spec_merge,
+             lambda: iswt_merge.spec_merge(A, B, g0, g1, axis, layout),
+             iswt_merge.spec_merge_plain(A, B, g0, g1, axis),
+             iswt_merge.spec_merge_plain(*mag, axis), walk),
+            (iswt_merge.spec_split,
+             lambda: iswt_merge.spec_split(A, g0, g1, axis, layout),
+             iswt_merge.spec_split_plain(A, g0, g1, axis),
+             iswt_merge.spec_split_plain(mag[0], *mag[2:], axis), walk),
+            (iswt_merge.spec_merge,
+             lambda: iswt_merge.spec_merge(A, mixed, g0, g1, axis, layout),
+             iswt_merge.spec_merge_plain(A, mixed, g0, g1, axis),
+             iswt_merge.spec_merge_plain(*mag, axis), "strided")):
+        before = dict(wrapper.instantiations)
+        got = run()
+        torch.cuda.synchronize()
+        assert {k: v - before[k] for k, v in
+                wrapper.instantiations.items()} == {
+            k: int(k == inst) for k in before}
+        _close_to_terms(got, want, terms)
+        if inst != "strided":
+            assert got.stride(u + got.ndim - 4) == 1
+
+
+@pytest.mark.parametrize("kernel", ["spec_merge", "spec_split"])
+def test_spec_strided_past_2_30(dev, kernel):
+    """K13's strided walk on a plane of more than 2^30 values, indexed in
+    64 bits: spectra with no axis at stride 1 (one line broadcast along W
+    at stride 2 along H); every line of the output, to the last, equals
+    the plain version of that one line."""
+    from pytorch_wavelets_tpu_torch.ops import iswt_merge
+    A = torch.fft.rfft(torch.from_numpy(_rand((1, 1, 16384, 1), 98)).to(dev),
+                       dim=2)
+    nf = A.shape[2]
+    reps = 2 ** 30 // nf + 1
+    big = A.expand(1, 1, nf, 2).contiguous()[..., :1].expand(1, 1, nf, reps)
+    g0, g1 = (torch.from_numpy(_rand((nf,), s) + 1j * _rand((nf,), s + 1))
+              .to(dev, torch.complex64) for s in (99, 101))
+    mag = [A.abs(), A.abs(), g0.abs(), g1.abs()]
+    wrapper = getattr(iswt_merge, kernel)
+    if kernel == "spec_merge":
+        run, want, terms = (lambda k, a: k(a, a, g0, g1, 2),
+                            iswt_merge.spec_merge_plain(A, A, g0, g1, 2),
+                            iswt_merge.spec_merge_plain(*mag, 2))
+    else:
+        run, want, terms = (lambda k, a: k(a, g0, g1, 2),
+                            iswt_merge.spec_split_plain(A, g0, g1, 2),
+                            iswt_merge.spec_split_plain(mag[0], *mag[2:], 2))
+    torch.cuda.empty_cache()
+    before = dict(wrapper.instantiations)
+    got = run(wrapper, big)
+    assert wrapper.instantiations["strided"] == before["strided"] + 1
+    last = got.narrow(-1, reps - 1, 1)
+    _close_to_terms(last, want, terms)
+    assert bool((got == last).all())
+    del got, last, big
+    torch.cuda.empty_cache()
+
+
+def test_swt_fft_merge_takes_stream(dev):
+    """Every K13 call of an SWT round trip and its gradient whose axes both
+    take the FFT merge (past 2048 samples, 'periodization') streams, and
+    the result matches the CPU plain run."""
+    ops.reset_launches()
+
+    def round_trip(d):
+        f = tt.SWTForward(J=1, wave="db2", mode="periodization", device=d)
+        i = tt.SWTInverse(wave="db2", mode="periodization", device=d)
+        return lambda x: [*f(x), i(f(x))]
+    cpu, gpu = _grads(round_trip, (1, 1, 2052, 2050), dev, 97)
+    for a, b in zip(cpu, gpu):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=2e-5)
+    counts, insts = ops.launch_counts(), ops.instantiation_counts()
+    for k in ("spec_merge", "spec_split"):
+        assert counts[k] > 0
+        assert insts[k] == {"stream": counts[k], "transpose": 0,
+                            "strided": 0}
 
 
 @pytest.mark.parametrize("mode,wave,shape,J", [

@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
-"""Time K4 (scat_mag_fwd), K5 (scat_mag_bwd), K6 (dwt_afb), K7
+"""Time K2 (q2c_pack), K4 (scat_mag_fwd), K5 (scat_mag_bwd), K6 (dwt_afb), K7
 (dwt_sfb), K8 (dtcwt_filt), K9 (dtcwt_dfilt), K10 (dtcwt_ifilt), K12
 (swt_afb and its adjoint), K14 (nonsep_afb and its adjoint), K15
-(nonsep_sfb and its adjoint) and K16 (swt_sfb and its adjoint) on one
-CUDA card at the shapes of chip_smoke.py's scattering, DWT, per-level,
-SWT, non-separable and à trous paths, each call checked against its
-plain version.
+(nonsep_sfb and its adjoint), K13 (spec_merge and spec_split) and K16
+(swt_sfb and its adjoint) on one CUDA card at the shapes of
+chip_smoke.py's DTCWT, scattering, DWT, per-level, SWT, non-separable and
+à trous paths, each call checked against its plain version.  K13 is also
+timed with the irfft that follows it, in each output layout
+(``ops/iswt_merge.py``: "stream", "contiguous").
 
     python3 tools/stencil_probe.py [--root DIR] [--merge-tile-out N]
-                                   [--only k4|k5|k6|k7|k8|k9|k10|k12|k14|
-                                    k15|k16 ...]
+                                   [--only k2|k4|k5|k6|k7|k8|k9|k10|k12|
+                                    k13|k14|k15|k16 ...]
+                                   [--sass q2c_pack iswt_spec ...]
 
 ``--root`` imports ``pytorch_wavelets_tpu_torch`` from another checkout
 (say an unpacked parent commit), so that two versions can be timed on one
@@ -25,6 +28,7 @@ import json
 import statistics
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -354,6 +358,182 @@ def run_mag(mag, backward):
         del h, G, g, plain
 
 
+def k2_calls(tt, quad, fused, lev):
+    """(label, [(y, bands, orients, interleaved)]) of K2's calls in one
+    forward of each path: main (composed, fp32 and bf16), scat (composed
+    ScatLayerj2, fp32 and bf16), bp (per level, the bandpass-diagonal
+    filters) and large (per level, 1x3x9216^2, J=3), recorded where the
+    pyramids and the level functions call it."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    bp = dict(biort="near_sym_b_bp", qshift="qshift_b_bp")
+    for label, shape, dtype, make in (
+            ("main", (10, 10, 128, 128), torch.float32,
+             lambda: tt.DTCWTForward(J=2, device="cuda")),
+            ("main bf16", (10, 10, 128, 128), torch.bfloat16,
+             lambda: tt.DTCWTForward(J=2, device="cuda")),
+            ("scat", (128, 3, 256, 256), torch.float32,
+             lambda: tt.ScatLayerj2(device="cuda")),
+            ("scat bf16", (128, 3, 256, 256), torch.bfloat16,
+             lambda: tt.ScatLayerj2(device="cuda")),
+            ("bp", (128, 3, 256, 256), torch.float32,
+             lambda: tt.ScatLayerj2(device="cuda", **bp)),
+            ("large", (1, 3, 9216, 9216), torch.float32,
+             lambda: tt.DTCWTForward(J=3, device="cuda"))):
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        calls = []
+        origs = [(mod, mod.q2c_pack) for mod in (fused, lev)]
+
+        def rec(y, out, orients, interleaved=False, orig=quad.q2c_pack):
+            calls.append((y, out, orients, interleaved))
+            return orig(y, out, orients, interleaved)
+        for mod, _ in origs:
+            mod.q2c_pack = rec
+        try:
+            m = make()
+            m(x)
+        finally:
+            for mod, orig in origs:
+                mod.q2c_pack = orig
+        torch.cuda.synchronize()
+        yield label, calls
+        del x, calls, m
+        torch.cuda.empty_cache()
+
+
+def run_k2(tt, quad, fused, lev):
+    """K2 on the paths' calls (:func:`k2_calls`), each instantiation that
+    takes the call (``vector`` and ``strided``; a tree without them, an
+    older parent, times its wrapper as ``parent``), bit for bit against
+    the plain version computed in fp32 and rounded once, against its
+    bytes bound (each corner read once, each (re, im) written once)."""
+    for label, calls in k2_calls(tt, quad, fused, lev):
+        for y, out, orients, il in calls:
+            written = [o for pair in orients for o in pair]
+            want = torch.zeros(out.shape, device="cuda")
+            quad.q2c_pack_plain(y.float(), want, orients, il)
+            want = want[:, :, written].to(y.dtype)
+            if hasattr(quad, "q2c_instantiation"):
+                runs = {"vector": lambda: quad._q2c_launch(
+                            y, out, orients, il, "vector"),
+                        "strided": lambda: quad._q2c_launch(
+                            y, out, orients, il, "strided")}
+                if quad.q2c_instantiation(y, out, orients, il) != "vector":
+                    del runs["vector"]
+            else:
+                runs = {"parent": lambda: quad.q2c_pack(y, out, orients, il)}
+            nbytes = y.element_size() * (y.numel() + want.numel())
+            # the practical ceiling: a copy of as many bytes each way
+            src = torch.empty(y.numel(), device="cuda", dtype=y.dtype)
+            dst = torch.empty_like(src)
+            copy_ms = timed_ms(lambda: dst.copy_(src))
+            del src, dst
+            for inst, run in runs.items():
+                out.fill_(float("nan"))
+                run()
+                got = out[:, :, written]
+                ms = timed_ms(run)
+                bound = nbytes / 3.35e12 * 1e3
+                print(json.dumps({
+                    "kernel": "q2c_pack", "case": label,
+                    "y": list(y.shape), "dtype": str(y.dtype),
+                    "interleaved": il, "inst": inst, "ms": ms,
+                    "bound_ms": bound, "share_of_bound": bound / ms,
+                    "copy_ms": copy_ms,
+                    "ok": bool(torch.equal(got, want))}), flush=True)
+                del got
+            del want
+
+
+def run_k13(im):
+    """K13's merge and split on swt_long's 'periodization' spectra (rfft
+    along H and along W of 1x3x4096^2 planes), each output layout the
+    tree has (a tree without layouts, an older parent, as ``parent``),
+    alone against its bytes bound and as the whole merge with the irfft
+    after it (``merge+irfft``: the output layout decides what PyTorch's
+    c2r path copies; the change's stream layout is transformed along the
+    last dimension of a view, as transforms/dwt.py does)."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    n = 4096
+    lo, hi = (torch.randn((1, 3, n, n), generator=gen, device="cuda")
+              for _ in range(2))
+    layouts = ("stream", "contiguous") if hasattr(im, "spec_walk") \
+        else ("parent",)
+
+    def irfft(S, dim, layout):
+        # the change transforms along the last dimension of a view (one
+        # copy, PyTorch's c2r clone), the parent along dim
+        if layout == "parent":
+            return torch.fft.irfft(S, n=n, dim=dim)
+        return torch.fft.irfft(S.movedim(dim, -1), n=n,
+                               dim=-1).movedim(-1, dim)
+    for axis in (2, 3):
+        A, B = (torch.fft.rfft(t, dim=axis) for t in (lo, hi))
+        nf = A.shape[axis]
+        g0, g1 = (torch.randn(nf, generator=gen, device="cuda",
+                              dtype=torch.complex64) for _ in range(2))
+        want_m = im.spec_merge_plain(A, B, g0, g1, axis)
+        want_s = im.spec_split_plain(A, g0, g1, axis)
+        bound = 24.0 * A.numel() / 3.35e12 * 1e3
+        for layout in layouts:
+            lay = () if layout == "parent" else (layout,)
+            for name, run, want in (
+                    ("spec_merge",
+                     lambda: im.spec_merge(A, B, g0, g1, axis, *lay),
+                     want_m),
+                    ("spec_split",
+                     lambda: im.spec_split(A, g0, g1, axis, *lay), want_s)):
+                wrapper = getattr(im, name)
+                before = dict(getattr(wrapper, "instantiations", {}))
+                got = run()
+                walk = {k: v - before.get(k, 0) for k, v in
+                        getattr(wrapper, "instantiations", {}).items()
+                        if v != before.get(k, 0)}
+                err = float((got - want).abs().max())
+                d = axis if name == "spec_merge" else axis + 1
+                line = {"kernel": name, "case": f"swt_long axis {axis}",
+                        "layout": layout, "walk": walk,
+                        "ms": timed_ms(run), "bound_ms": bound,
+                        "max_abs_err": err, "ok": err < 1e-3,
+                        "out_strides": list(got.stride()),
+                        "with_irfft_ms": timed_ms(
+                            lambda: irfft(run(), d, layout))}
+                line["share_of_bound"] = bound / line["ms"]
+                print(json.dumps(line), flush=True)
+                del got
+        if hasattr(im, "spec_walk"):
+            # irfft alone, of each layout, along the last dimension of a
+            # view and along dim (the parent's call)
+            line = {"kernel": "irfft", "case": f"swt_long axis {axis}"}
+            for layout in layouts:
+                Z = im.spec_merge(A, B, g0, g1, axis, layout)
+                line[f"{layout}_view_ms"] = timed_ms(
+                    lambda: irfft(Z, axis, layout))
+                line[f"{layout}_dim_ms"] = timed_ms(
+                    lambda: torch.fft.irfft(Z, n=n, dim=axis))
+                del Z
+            print(json.dumps(line), flush=True)
+        del A, B, want_m, want_s
+        torch.cuda.empty_cache()
+
+
+def sass_counts(cuda, name):
+    """Per kernel function of the built library of csrc/``name``.cu
+    (``cuobjdump -sass``): its instructions and its integer division
+    sequences, 64-bit (``I2F.U64.RP``) and 32-bit (``I2F.U32.RP``)."""
+    import re
+    tool = str(Path(cuda._nvcc()).with_name("cuobjdump"))
+    out = subprocess.run([tool, "-sass", str(cuda._target(name))],
+                         capture_output=True, text=True, check=True).stdout
+    for part in re.split(r"\n\s*Function : ", out)[1:]:
+        fn = part.splitlines()[0].strip()
+        body = part.splitlines()[1:]
+        instr = [ln for ln in body if re.match(r"\s*/\*[0-9a-f]{4,}\*/", ln)]
+        print(json.dumps({
+            "sass": name, "function": fn[:120], "instructions": len(instr),
+            "div64": sum("I2F.U64.RP" in ln for ln in instr),
+            "div32": sum("I2F.U32.RP" in ln for ln in instr)}), flush=True)
+
+
 def run_k12(afb, filters):
     """The SWT's splits and their adjoints, db4: swt_main's three levels
     (32x3x256^2 'periodization', d = 1, 2, 4: the row split of x or of
@@ -481,11 +661,15 @@ def run_k15(nonsep, filters):
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--root", default=None)
-    p.add_argument("--only", nargs="+", choices=("k4", "k5", "k6", "k7",
-                                                 "k8", "k9", "k10", "k12",
-                                                 "k14", "k15", "k16"),
+    p.add_argument("--only", nargs="+", choices=("k2", "k4", "k5", "k6",
+                                                 "k7", "k8", "k9", "k10",
+                                                 "k12", "k13", "k14", "k15",
+                                                 "k16"),
                    default=None)
     p.add_argument("--merge-tile-out", type=int, default=None)
+    p.add_argument("--sass", nargs="+", default=(),
+                   help="csrc sources whose built kernels' instructions "
+                        "and division sequences to count (cuobjdump)")
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("stencil_probe: no CUDA device", file=sys.stderr)
@@ -493,17 +677,23 @@ def main():
     if args.root:
         sys.path.insert(0, args.root)
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import pytorch_wavelets_tpu_torch as tt
     from pytorch_wavelets_tpu_torch import filters
     from pytorch_wavelets_tpu_torch.ops import (
-        _cuda, afb_sfb, dtcwt_fb, nonsep, scat_mag,
+        _cuda, afb_sfb, dtcwt_fb, fused_dtcwt, iswt_merge, nonsep, quad,
+        scat_mag,
     )
+    from pytorch_wavelets_tpu_torch.transforms import dtcwt as lev
     _cuda.build()
     if args.merge_tile_out:
         afb_sfb._MERGE_TILE_OUT = args.merge_tile_out
     print(json.dumps({"root": args.root or ".", "package": nonsep.__file__,
                       "merge_tile_out": afb_sfb._MERGE_TILE_OUT}),
           flush=True)
-    runs = {"k4": lambda: run_mag(scat_mag, False),
+    runs = {"k2": lambda: run_k2(tt, quad, fused_dtcwt, lev),
+            "k13": lambda: run_k13(iswt_merge),
+            "k4": lambda: run_mag(scat_mag, False),
             "k5": lambda: run_mag(scat_mag, True),
             "k6": lambda: run_k6(afb_sfb, filters),
             "k7": lambda: run_k7(afb_sfb, filters),
@@ -514,6 +704,8 @@ def main():
             "k14": lambda: run_k14(nonsep, filters),
             "k15": lambda: run_k15(nonsep, filters),
             "k16": lambda: run_k16(afb_sfb, filters)}
+    for name in args.sass:
+        sass_counts(_cuda, name)
     with torch.no_grad():
         for name, run in runs.items():
             if args.only is None or name in args.only:
