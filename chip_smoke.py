@@ -84,7 +84,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    and K13 at edge cases (every mode, pads longer than the axis, odd
    sizes, odd L d, strided, aligned and transposed inputs: every K12
    instantiation; odd and even spectra, offset, stored along either axis,
-   in both output layouts and mixed: every K13 walk).  The profiles sum
+   and mixed: every K13 walk).  The profiles sum
    PyTorch's layout copies and cuFFT apart (device_us_per_iter_by_kind;
    swt_long's round trip's in round_trip_copies_and_cufft_us).
 10. per kernel: every kernel call of one run of each path, recorded and
@@ -1606,12 +1606,13 @@ def quad_edge_cases(quad):
     slot), bands 8 or 12 bytes into a line (partial first slots), per-level
     rows shifted off their lines (the corners' loads value by value),
     every o_dim / ri_dim layout, bands off a whole (re, im) pair.  Returns
-    (calls checked, K2's launches by instantiation)."""
+    (calls checked, elements that differ from the plain version, K2's
+    launches by instantiation)."""
     from pytorch_wavelets_tpu_torch.ops import fused_dtcwt
     from pytorch_wavelets_tpu_torch.transforms.dtcwt import get_dimensions5
     gen = torch.Generator().manual_seed(120)
     before = dict(quad.q2c_pack.instantiations)
-    n = 0
+    n = mismatches = 0
     for dtype in (torch.float32, torch.bfloat16):
         for m, k, il, o_dim, ri_dim, off, shift in (
                 (3, 8, False, 2, -1, 0, 0), (3, 7, False, 2, -1, 0, 0),
@@ -1644,18 +1645,20 @@ def quad_edge_cases(quad):
             quad.q2c_pack_plain(y.float(),
                                 fused_dtcwt.canonical_bands(want, od, rd),
                                 orients, il)
-            same = torch.equal(h.isnan(), want.isnan()) and torch.equal(
-                h.nan_to_num(), want.to(dtype).nan_to_num())
-            require(same and bool(buf[:off].isnan().all()),
+            want = want.to(dtype)
+            bad = int((~((h == want) | (h.isnan() & want.isnan()))).sum()
+                      + (~buf[:off].isnan()).sum())
+            require(bad == 0,
                     f"q2c_pack edge case m={m} k={k} interleaved={il} "
                     f"o_dim={o_dim} ri_dim={ri_dim} offset={off} {dtype}: "
-                    f"not bit-equal to its plain version")
+                    f"{bad} elements differ from its plain version")
+            mismatches += bad
             n += 1
     torch.cuda.synchronize()
     insts = {w: c - before[w] for w, c in quad.q2c_pack.instantiations.items()}
     require(all(insts.values()), f"quad_edge_cases: a K2 instantiation was "
             f"not checked: {insts}")
-    return n, insts
+    return n, mismatches, insts
 
 
 def dwt_adjoint(tt, x_cpu, J, one_d):
@@ -2380,10 +2383,9 @@ def swt_call_parts(call, afb, pad, im):
         nbytes = 4.0 * (dy.numel() + got.numel())
         tol = DWT_TOL
     elif name == "spec_merge":
-        A, B, g0, g1, axis, *lay = args      # an edge case names its layout
-        lay = lay[0] if lay else None
-        got = im.spec_merge(A, B, g0, g1, axis, lay)
-        run = lambda: im.spec_merge(A, B, g0, g1, axis, lay)  # noqa: E731
+        A, B, g0, g1, axis = args
+        got = im.spec_merge(A, B, g0, g1, axis)
+        run = lambda: im.spec_merge(A, B, g0, g1, axis)       # noqa: E731
         plain = lambda: im.spec_merge_plain(                  # noqa: E731
             A, B, g0, g1, axis)
         want = plain()
@@ -2393,10 +2395,9 @@ def swt_call_parts(call, afb, pad, im):
         scale = (im.spec_merge_plain(A.abs(), B.abs(), g0.abs(), g1.abs(),
                                      axis))
     else:
-        Z, g0, g1, axis, *lay = args
-        lay = lay[0] if lay else None
-        got = im.spec_split(Z, g0, g1, axis, lay)
-        run = lambda: im.spec_split(Z, g0, g1, axis, lay)     # noqa: E731
+        Z, g0, g1, axis = args
+        got = im.spec_split(Z, g0, g1, axis)
+        run = lambda: im.spec_split(Z, g0, g1, axis)          # noqa: E731
         plain = lambda: im.spec_split_plain(Z, g0, g1, axis)  # noqa: E731
         want = plain()
         shape = [2, 1, 1, 1, 1]
@@ -2812,8 +2813,8 @@ def swt_edge_cases(afb, pad, im):
     views (each of K12's instantiations, both entries, its adjoint's
     band); K13 on odd and even lengths along both axes, and each of its
     walks (stream on rfft spectra, offset by 8 bytes and stored along the
-    other axis; transpose to the contiguous layout; strided on mixed
-    layouts and a broadcast input), both entries.  Returns (calls checked,
+    other axis; strided on mixed layouts and a broadcast input), both
+    entries.  Returns (calls checked,
     max error, K12's and K13's launches by instantiation)."""
     from pytorch_wavelets_tpu_torch.filters import wavelet
     gen = torch.Generator().manual_seed(110)
@@ -2869,11 +2870,9 @@ def swt_edge_cases(afb, pad, im):
                                   generator=gen).cuda() for _ in range(2))
             calls.append(("spec_merge", "edge", (A, B, g0, g1, axis)))
             calls.append(("spec_split", "edge", (A, g0, g1, axis)))
-            for view in spec_views(A, B):
-                calls.append(("spec_merge", "edge", (*view[:2], g0, g1, axis,
-                                                     view[2])))
-                calls.append(("spec_split", "edge", (view[0], g0, g1, axis,
-                                                     view[2])))
+            for A2, B2 in spec_views(A, B):
+                calls.append(("spec_merge", "edge", (A2, B2, g0, g1, axis)))
+                calls.append(("spec_split", "edge", (A2, g0, g1, axis)))
     err = 0.0
     wrappers = {k: getattr(afb, k) for k in SWT_KERNELS[:2]}
     wrappers.update(spec_merge=im.spec_merge, spec_split=im.spec_split)
@@ -2900,12 +2899,11 @@ def swt_edge_cases(afb, pad, im):
 
 
 def spec_views(A, B):
-    """(A', B', layout) of K13's edge cases from the rfft spectra A, B (the
+    """(A', B') of K13's edge cases from the rfft spectra A, B (the
     frequency axis at stride 1): the same values 8 bytes further into a
     buffer (every row's pairs shifted), stored along the other axis (a
-    row's filter pair constant), written contiguous (the transpose walk
-    where the frequency axis is H), and of mixed layouts and a broadcast
-    one (the strided walk)."""
+    row's filter pair constant), and of mixed layouts and a broadcast one
+    (the strided walk)."""
     def offset(t):
         buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
         v = torch.as_strided(buf, t.shape, t.stride(), 1)
@@ -2917,12 +2915,8 @@ def spec_views(A, B):
             return t.transpose(2, 3).contiguous().transpose(2, 3)
         return t.contiguous()
     bcast = A.narrow(2, 0, 1).expand(A.shape)
-    return [(offset(A), offset(B), "stream"),
-            (other(A), other(B), "stream"),
-            (A, B, "contiguous"),
-            (other(A), other(B), "contiguous"),
-            (A, other(B), "stream"),
-            (bcast, bcast.contiguous(), "stream")]
+    return [(offset(A), offset(B)), (other(A), other(B)), (A, other(B)),
+            (bcast, bcast.contiguous())]
 
 
 # ---------------------------------------------------------------------------
@@ -4314,8 +4308,8 @@ def main():
     n_edge, edge_err, edge_insts = mag_edge_cases(scat_mag)
     emit("mag_edge_cases", calls=n_edge, max_abs_err=edge_err,
          tolerance=MAG_TOL, instantiations=edge_insts)
-    n_edge, edge_insts = quad_edge_cases(quad)
-    emit("quad_edge_cases", calls=n_edge, max_abs_err=0.0,
+    n_edge, mismatches, edge_insts = quad_edge_cases(quad)
+    emit("quad_edge_cases", calls=n_edge, mismatched_elements=mismatches,
          tolerance="exact", instantiations=edge_insts)
     dfields, dtfields, d_roles, dcalls, dstep = dwt_path(
         tt, ops, afb_sfb, dwt, DWT_SHAPE, DWT_J, False, "dwt_main")

@@ -20,14 +20,15 @@
 //
 // Bound: bytes, 24 per value (two spectra read and one written, or one
 // read and two written) against 14 (merge) or 12 (split) FLOP.  The
-// filters, 16 bytes a frequency, are read from L1/L2.  Three walks, picked
-// by the wrapper (ops/iswt_merge.py:spec_walk) and refused here off their
-// layout:
+// filters, 16 bytes a frequency, are read from L1/L2.  Two walks; the C
+// entries pick one and return it to the wrapper (ops/iswt_merge.py counts
+// it):
 //
-// - `stream`: every spectrum has stride 1 along one axis u (2 or 3), the
-//   axis torch.fft.rfft leaves innermost (its frequency axis), and the
-//   outputs are written in that layout.  A row is the L values along u of
-//   one (n, c, other-axis index); the grid is row groups x chunks, a row
+// - `stream`: every spectrum, the outputs too, has stride 1 along one axis
+//   u (2 or 3), the axis torch.fft.rfft leaves innermost (its frequency
+//   axis; the wrapper writes its outputs in the inputs' layout), and the
+//   rows and blocks fit in 32 bits.  A row is the L values along u of one
+//   (n, c, other-axis index); the grid is row groups x chunks, a row
 //   taking TPR threads (a power of two, 32-256, sized to the row: rows per
 //   block = 256 / TPR), each thread SPEC_PAIRS pairs of values TPR apart,
 //   a pair one float4 of each spectrum.  Each thread resolves its row's
@@ -36,21 +37,16 @@
 //   starts 8 bytes past a 16-byte line: the pairs follow the first input's
 //   row alignment (a row starting 8 bytes in takes its first value alone,
 //   the head; an odd count left takes its last alone, the tail; both by
-//   lane 0 of the row's first chunk).  A pair of the other spectra, or of
-//   the filters (when u is the filters' axis they vary along the row: a
-//   pair starting at an odd frequency), not 16-byte aligned takes two
-//   float2s instead.  When u is not the filters' axis each row has one
-//   filter pair, held in registers.
-// - `transpose`: the inputs have stride 1 along H, the outputs along W
-//   (a contiguous output from an rfft along H): a block takes a 32 x 32
-//   tile of one plane, reads it along H (coalesced), stages the results in
-//   shared memory (32 x 33 float2s, conflict-free in both directions) and
-//   writes them along W.
-// - `strided`: any strides and offsets (a broadcast input, a mixed
-//   layout): planes x chunks, SPEC_STEPS values a thread, SPEC_THREADS
-//   apart, (i, j) by one division by W; 32-bit within a plane where every
-//   spectrum's plane extent fits, 64-bit past that (planes of 2^30 values
-//   and more).
+//   lane 0 of the row's first chunk).  A pair of
+//   the other spectra, or of the filters (when u is the filters' axis they
+//   vary along the row: a pair starting at an odd frequency), not 16-byte
+//   aligned takes two float2s instead.  When u is not the filters' axis
+//   each row has one filter pair, held in registers.
+// - `strided`: any other view (no shared unit-stride axis: a broadcast
+//   input, a mixed layout): planes x chunks, SPEC_STEPS values a thread,
+//   SPEC_THREADS apart, (i, j) by one division by W; 32-bit within a plane
+//   where every spectrum's plane extent fits, 64-bit past that (planes of
+//   2^30 values and more).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -60,11 +56,9 @@ namespace {
 constexpr int SPEC_THREADS = 256;   // a block (every walk)
 constexpr int SPEC_PAIRS = 2;       // stream: float4 pairs a thread
 constexpr int SPEC_STEPS = 4;       // strided: values a thread
-constexpr int TILE = 32;            // transpose: a tile's side
-constexpr int TILE_ROWS = 8;        // transpose: 32 x 8 threads a tile
 constexpr long long SIZE32 = 1LL << 31;
 
-enum SpecWalk { S_STREAM = 0, S_TRANSPOSE = 1, S_STRIDED = 2 };
+enum SpecWalk { S_STREAM = 0, S_STRIDED = 1 };
 
 struct Spectra {
   const float2* in0;
@@ -224,73 +218,6 @@ __global__ void __launch_bounds__(SPEC_THREADS) spec_stream(StreamArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// transpose: read along H, write along W through a shared tile
-// ---------------------------------------------------------------------------
-
-struct TileArgs {
-  Spectra sp;
-  int C, H, W, axis;
-  int th, tw;          // tiles along H and W
-  long long nb;        // planes * th * tw
-};
-
-template <bool SPLIT>
-__global__ void __launch_bounds__(TILE * TILE_ROWS)
-    spec_transpose(TileArgs a) {
-  constexpr int NO = SPLIT ? 2 : 1;   // the outputs
-  __shared__ float2 tile[NO][TILE][TILE + 1];
-  const int tx = threadIdx.x & (TILE - 1), ty = threadIdx.x / TILE;
-  const long long per = (long long)a.th * a.tw;
-  for (long long blk = blockIdx.x; blk < a.nb; blk += gridDim.x) {
-    const long long p = blk / per;
-    const int rest = (int)(blk - p * per);
-    const int ti = rest / a.tw, tj = rest - ti * a.tw;
-    const int n = (int)(p / a.C), c = (int)(p - (long long)n * a.C);
-    const long long* s = a.sp.s[0];
-    const float2* A = a.sp.in0 + (long long)n * s[0] + (long long)c * s[1];
-    const float2* B =
-        SPLIT ? nullptr
-              : a.sp.in1 + (long long)n * a.sp.s[1][0] +
-                    (long long)c * a.sp.s[1][1];
-    // read: lanes along i (stride 1 in the inputs), rows along j
-    const int i = ti * TILE + tx;
-    __syncthreads();   // the previous tile's reads are done
-    if (i < a.H) {
-#pragma unroll
-      for (int k = 0; k < TILE / TILE_ROWS; ++k) {
-        const int j = tj * TILE + ty + k * TILE_ROWS;
-        if (j >= a.W) continue;
-        const int f = a.axis == 2 ? i : j;
-        const float2 g0 = __ldg(a.sp.g0 + f), g1 = __ldg(a.sp.g1 + f);
-        const float2 z = __ldg(A + i + (long long)j * s[3]);
-        if (SPLIT) {
-          tile[0][ty + k * TILE_ROWS][tx] = conj_mul(g0, z);
-          tile[NO - 1][ty + k * TILE_ROWS][tx] = conj_mul(g1, z);
-        } else {
-          const float2 b = __ldg(B + i + (long long)j * a.sp.s[1][3]);
-          tile[0][ty + k * TILE_ROWS][tx] = merge1(g0, g1, z, b);
-        }
-      }
-    }
-    __syncthreads();
-    // write: lanes along j (stride 1 in the outputs), rows along i
-    const int j = tj * TILE + tx;
-    if (j >= a.W) continue;
-#pragma unroll
-    for (int k = 0; k < TILE / TILE_ROWS; ++k) {
-      const int ii = ti * TILE + ty + k * TILE_ROWS;
-      if (ii >= a.H) continue;
-      for (int o = 0; o < NO; ++o) {
-        const long long* so = a.sp.s[2 + o];
-        float2* Z = (o ? a.sp.out1 : a.sp.out0) + (long long)n * so[0] +
-                    (long long)c * so[1] + (long long)ii * so[2] + j;
-        *Z = tile[o][tx][ty + k * TILE_ROWS];
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // strided: any view
 // ---------------------------------------------------------------------------
 
@@ -351,7 +278,8 @@ unsigned grid_of(long long nb) {
 long long abs_ll(long long v) { return v < 0 ? -v : v; }
 
 // The stream walk's threads a row (log2) and chunks a row, for rows of L
-// values (ops/iswt_merge.py:stream_plan mirrors it).
+// values: the fewest threads, a power of two from 32 to SPEC_THREADS,
+// whose SPEC_PAIRS pairs each cover the row's L / 2 pairs.
 void stream_plan(int L, int& tpr_log2, int& cpr) {
   const int pairs = L / 2;
   tpr_log2 = 5;
@@ -362,83 +290,74 @@ void stream_plan(int L, int& tpr_log2, int& cpr) {
   cpr = pairs > per ? (pairs + per - 1) / per : 1;
 }
 
+// The stream walk's arguments where every spectrum has stride 1 along one
+// axis (W first) and the rows and blocks fit in 32 bits; else false.
+template <bool SPLIT>
+bool stream_args(const Spectra& sp, long long planes, int C, int H, int W,
+                 StreamArgs& a) {
+  const int used[4] = {1, SPLIT ? 0 : 1, 1, SPLIT ? 1 : 0};
+  int u = 0;
+  for (int cand = 3; cand >= 2 && !u; --cand) {
+    bool unit = true;
+    for (int t = 0; t < 4; ++t)
+      unit = unit && (!used[t] || sp.s[t][cand] == 1);
+    if (unit) u = cand;
+  }
+  if (!u) return false;
+  a.sp = sp;
+  a.C = C;
+  a.R = u == 3 ? H : W;
+  a.L = u == 3 ? W : H;
+  a.uo = 5 - u;
+  const long long rows = planes * a.R;
+  if (rows >= SIZE32) return false;
+  a.rows = (int)rows;
+  stream_plan(a.L, a.tpr_log2, a.cpr);
+  const long long groups = (rows + (SPEC_THREADS >> a.tpr_log2) - 1) >>
+                           (8 - a.tpr_log2);
+  if (groups * a.cpr >= SIZE32) return false;
+  a.nb = (int)(groups * a.cpr);
+  return true;
+}
+
 template <bool SPLIT>
 int launch(Spectra& sp, long long N, int C, int H, int W, int axis,
-           int walk, void* stream) {
+           int* walk, void* stream) {
   const long long planes = N * C;
   if (planes == 0 || (long long)H * W == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int used[4] = {1, SPLIT ? 0 : 1, 1, SPLIT ? 1 : 0};
-  if (walk == S_STREAM) {
-    // every spectrum at stride 1 along one axis u (W first)
-    int u = 0;
-    for (int cand = 3; cand >= 2 && !u; --cand) {
-      bool unit = true;
-      for (int t = 0; t < 4; ++t)
-        unit = unit && (!used[t] || sp.s[t][cand] == 1);
-      if (unit) u = cand;
-    }
-    if (!u) return static_cast<int>(cudaErrorInvalidValue);
-    StreamArgs a;
-    a.sp = sp;
-    a.C = C;
-    a.R = u == 3 ? H : W;
-    a.L = u == 3 ? W : H;
-    a.uo = 5 - u;
-    const long long rows = planes * a.R;
-    if (rows >= SIZE32) return static_cast<int>(cudaErrorInvalidValue);
-    a.rows = (int)rows;
-    stream_plan(a.L, a.tpr_log2, a.cpr);
-    const long long groups = (rows + (SPEC_THREADS >> a.tpr_log2) - 1) >>
-                             (8 - a.tpr_log2);
-    if (groups * a.cpr >= SIZE32)
-      return static_cast<int>(cudaErrorInvalidValue);
-    a.nb = (int)(groups * a.cpr);
-    const unsigned grid = grid_of(a.nb);
-    if (u == axis)
-      spec_stream<SPLIT, true><<<grid, SPEC_THREADS, 0, st>>>(a);
+  StreamArgs sa;
+  if (stream_args<SPLIT>(sp, planes, C, H, W, sa)) {
+    *walk = S_STREAM;
+    const unsigned grid = grid_of(sa.nb);
+    if (5 - sa.uo == axis)
+      spec_stream<SPLIT, true><<<grid, SPEC_THREADS, 0, st>>>(sa);
     else
-      spec_stream<SPLIT, false><<<grid, SPEC_THREADS, 0, st>>>(a);
-  } else if (walk == S_TRANSPOSE) {
-    // inputs along H, outputs along W
-    for (int t = 0; t < 4; ++t)
-      if (used[t] && sp.s[t][t < 2 ? 2 : 3] != 1)
-        return static_cast<int>(cudaErrorInvalidValue);
-    TileArgs a;
-    a.sp = sp;
-    a.C = C;
-    a.H = H;
-    a.W = W;
-    a.axis = axis;
-    a.th = (H + TILE - 1) / TILE;
-    a.tw = (W + TILE - 1) / TILE;
-    a.nb = planes * a.th * a.tw;
-    spec_transpose<SPLIT><<<grid_of(a.nb), TILE * TILE_ROWS, 0, st>>>(a);
-  } else if (walk == S_STRIDED) {
-    StridedArgs a;
-    a.sp = sp;
-    a.C = C;
-    a.H = H;
-    a.W = W;
-    a.axis = axis;
-    a.HW = (long long)H * W;
-    const long long per = (long long)SPEC_THREADS * SPEC_STEPS;
-    a.cpp = (a.HW + per - 1) / per;
-    a.nb = planes * a.cpp;
-    // 32-bit within a plane where the index and every extent fit
-    bool fits = a.HW + per < SIZE32 / 2;
-    for (int t = 0; t < 4; ++t)
-      if (used[t])
-        fits = fits && (H - 1) * abs_ll(sp.s[t][2]) +
-                               (W - 1) * abs_ll(sp.s[t][3]) < SIZE32 / 2;
-    if (fits)
-      spec_strided<int, SPLIT><<<grid_of(a.nb), SPEC_THREADS, 0, st>>>(a);
-    else
-      spec_strided<long long, SPLIT>
-          <<<grid_of(a.nb), SPEC_THREADS, 0, st>>>(a);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+      spec_stream<SPLIT, false><<<grid, SPEC_THREADS, 0, st>>>(sa);
+    return static_cast<int>(cudaGetLastError());
   }
+  *walk = S_STRIDED;
+  const int used[4] = {1, SPLIT ? 0 : 1, 1, SPLIT ? 1 : 0};
+  StridedArgs a;
+  a.sp = sp;
+  a.C = C;
+  a.H = H;
+  a.W = W;
+  a.axis = axis;
+  a.HW = (long long)H * W;
+  const long long per = (long long)SPEC_THREADS * SPEC_STEPS;
+  a.cpp = (a.HW + per - 1) / per;
+  a.nb = planes * a.cpp;
+  // 32-bit within a plane where the index and every extent fit
+  bool fits = a.HW + per < SIZE32 / 2;
+  for (int t = 0; t < 4; ++t)
+    if (used[t])
+      fits = fits && (H - 1) * abs_ll(sp.s[t][2]) +
+                             (W - 1) * abs_ll(sp.s[t][3]) < SIZE32 / 2;
+  if (fits)
+    spec_strided<int, SPLIT><<<grid_of(a.nb), SPEC_THREADS, 0, st>>>(a);
+  else
+    spec_strided<long long, SPLIT><<<grid_of(a.nb), SPEC_THREADS, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -460,13 +379,14 @@ const char* kernel_error_string(int err) {
 
 // A, B, Z: complex64 (N, C, H, W) at their strides (in complex elements);
 // g0, g1: device complex64 vectors indexed by the frequency along axis;
-// walk: 0 stream, 1 transpose, 2 strided (ops/iswt_merge.py:SPEC_WALKS).
+// walk: set to the walk launched, 0 stream, 1 strided
+// (ops/iswt_merge.py:SPEC_WALKS).
 int spec_merge(const void* A, const void* B, void* Z, const void* g0,
                const void* g1, long long N, int C, int H, int W,
                long long sa0, long long sa1, long long sa2, long long sa3,
                long long sb0, long long sb1, long long sb2, long long sb3,
                long long sz0, long long sz1, long long sz2, long long sz3,
-               int axis, int walk, void* stream) {
+               int axis, int* walk, void* stream) {
   if (axis != 2 && axis != 3) return static_cast<int>(cudaErrorInvalidValue);
   Spectra sp;
   sp.in0 = static_cast<const float2*>(A);
@@ -488,7 +408,7 @@ int spec_split(const void* Z, void* A, void* B, const void* g0,
                long long sz0, long long sz1, long long sz2, long long sz3,
                long long sa0, long long sa1, long long sa2, long long sa3,
                long long sb0, long long sb1, long long sb2, long long sb3,
-               int axis, int walk, void* stream) {
+               int axis, int* walk, void* stream) {
   if (axis != 2 && axis != 3) return static_cast<int>(cudaErrorInvalidValue);
   Spectra sp;
   sp.in0 = static_cast<const float2*>(Z);

@@ -28,8 +28,8 @@
 //
 // Bound: bytes (each corner read once, each (re, im) written once, 2 or 4
 // bytes a value) against one add or subtract a value (and per level a
-// scaling per read).  Two instantiations, picked by the wrapper
-// (ops/quad.py:q2c_instantiation) and refused here off their layout:
+// scaling per read).  Two instantiations; the C entry picks one and
+// returns it to the wrapper (ops/quad.py counts it):
 //
 // - `vector`: the bands in the default layout (re/im adjacent, sri = 1;
 //   w pairs adjacent, sw = 2) and corners along j at unit stride (the
@@ -329,57 +329,61 @@ unsigned grid_of(long long nb) {
   return static_cast<unsigned>(nb < (1LL << 30) ? nb : (1LL << 30));
 }
 
+// The vector instantiation's slots and grid (a.S, a.cpp, a.nb) where the
+// layout takes it and a plane's offsets fit in 32 bits; else false.
 template <typename E>
-int launch(const void* y, void* out, long long planes, QArgs& a, int inst,
+bool vector_plan(const void* out, long long planes, bool il, QArgs& a) {
+  const int V = Vec<E>::V;
+  const long long esz = sizeof(E);
+  // the layout: (re, im) adjacent, w pairs adjacent, rows and planes at
+  // whole pairs; corners along j at unit stride or interleaved
+  bool ok = a.sri == 1 && a.sw == 2 && a.oa == 0 && (a.sj == 1 || il) &&
+            (reinterpret_cast<uintptr_t>(out) % (2 * esz)) == 0;
+  for (long long s : {a.sn, a.sc, a.so, a.sh}) ok = ok && s % 2 == 0;
+  // 32-bit within a plane
+  const long long yext = (a.m + 1) * abs_ll(a.si) + 2LL * a.k +
+                         abs_ll(a.ob) + abs_ll(a.oc) + abs_ll(a.od);
+  ok = ok && yext < SIZE32 && (a.m + 1) * abs_ll(a.sh) + 2LL * a.k < SIZE32;
+  // slots: anchored on o1's lines; one more a row unless every row starts
+  // on one
+  bool lines = reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  for (long long s : {a.sn, a.sc, a.so, a.sh})
+    lines = lines && (s * esz) % 16 == 0;
+  a.S = (int)((a.k - 1 + (lines ? 0 : V - 1)) / V + 1);
+  const long long per = (long long)Q_THREADS * Q_SLOTS;
+  a.cpp = ((long long)a.m * a.S + per - 1) / per;
+  a.nb = planes * a.nm * a.cpp;
+  return ok && (long long)a.m * a.S < SIZE32 && a.nb < SIZE32;
+}
+
+template <typename E>
+int launch(const void* y, void* out, long long planes, QArgs& a, int* inst,
            cudaStream_t st) {
   const E* yp = static_cast<const E*>(y);
   E* op = static_cast<E*>(out);
-  const long long esz = sizeof(E);
-  if (inst == Q_VECTOR) {
-    const int V = Vec<E>::V;
-    const bool il = a.sj == 2 && a.ob == 1 && a.od == a.oc + 1;
-    // the layout: (re, im) adjacent, w pairs adjacent, rows and planes at
-    // whole pairs; corners along j at unit stride or interleaved
-    bool ok = a.sri == 1 && a.sw == 2 && a.oa == 0 && (a.sj == 1 || il) &&
-              (reinterpret_cast<uintptr_t>(out) % (2 * esz)) == 0;
-    for (long long s : {a.sn, a.sc, a.so, a.sh}) ok = ok && s % 2 == 0;
-    // 32-bit within a plane
-    const long long yext = (a.m + 1) * abs_ll(a.si) + 2LL * a.k +
-                           abs_ll(a.ob) + abs_ll(a.oc) + abs_ll(a.od);
-    ok = ok && yext < SIZE32 && (a.m + 1) * abs_ll(a.sh) + 2LL * a.k < SIZE32;
-    // slots: anchored on o1's lines; one more a row unless every row starts
-    // on one
-    bool lines = reinterpret_cast<uintptr_t>(out) % 16 == 0;
-    for (long long s : {a.sn, a.sc, a.so, a.sh})
-      lines = lines && (s * esz) % 16 == 0;
-    a.S = (int)((a.k - 1 + (lines ? 0 : V - 1)) / V + 1);
-    const long long per = (long long)Q_THREADS * Q_SLOTS;
-    a.cpp = ((long long)a.m * a.S + per - 1) / per;
-    a.nb = planes * a.nm * a.cpp;
-    ok = ok && (long long)a.m * a.S < SIZE32 && a.nb < SIZE32;
-    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const bool il = a.sj == 2 && a.ob == 1 && a.od == a.oc + 1;
+  if (vector_plan<E>(out, planes, il, a)) {
+    *inst = Q_VECTOR;
     if (il)
       q2c_vector<E, true><<<grid_of(a.nb), Q_THREADS, 0, st>>>(yp, op, a);
     else
       q2c_vector<E, false><<<grid_of(a.nb), Q_THREADS, 0, st>>>(yp, op, a);
-  } else if (inst == Q_STRIDED) {
-    const long long per = (long long)Q_THREADS * Q_STEPS;
-    const long long mk = (long long)a.m * a.k;
-    a.cpp = (mk + per - 1) / per;
-    a.nb = planes * a.nm * a.cpp;
-    const long long yext = (a.m - 1) * abs_ll(a.si) +
-                           (a.k - 1) * abs_ll(a.sj) + abs_ll(a.oa) +
-                           abs_ll(a.ob) + abs_ll(a.oc) + abs_ll(a.od);
-    const long long oext = (a.m - 1) * abs_ll(a.sh) +
-                           (a.k - 1) * abs_ll(a.sw) + abs_ll(a.sri);
-    if (mk + per < SIZE32 / 2 && yext < SIZE32 / 2 && oext < SIZE32 / 2)
-      q2c_strided<E, int><<<grid_of(a.nb), Q_THREADS, 0, st>>>(yp, op, a);
-    else
-      q2c_strided<E, long long>
-          <<<grid_of(a.nb), Q_THREADS, 0, st>>>(yp, op, a);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(cudaGetLastError());
   }
+  *inst = Q_STRIDED;
+  const long long per = (long long)Q_THREADS * Q_STEPS;
+  const long long mk = (long long)a.m * a.k;
+  a.cpp = (mk + per - 1) / per;
+  a.nb = planes * a.nm * a.cpp;
+  const long long yext = (a.m - 1) * abs_ll(a.si) + (a.k - 1) * abs_ll(a.sj) +
+                         abs_ll(a.oa) + abs_ll(a.ob) + abs_ll(a.oc) +
+                         abs_ll(a.od);
+  const long long oext = (a.m - 1) * abs_ll(a.sh) +
+                         (a.k - 1) * abs_ll(a.sw) + abs_ll(a.sri);
+  if (mk + per < SIZE32 / 2 && yext < SIZE32 / 2 && oext < SIZE32 / 2)
+    q2c_strided<E, int><<<grid_of(a.nb), Q_THREADS, 0, st>>>(yp, op, a);
+  else
+    q2c_strided<E, long long><<<grid_of(a.nb), Q_THREADS, 0, st>>>(yp, op, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -393,13 +397,14 @@ const char* kernel_error_string(int err) {
 
 // planes = N*C; members packed as orients |= (o1 | o2 << 4) << (8 * t);
 // the input's addressing as in the header; bf16: y and out are bf16;
-// inst: 0 vector, 1 strided (ops/quad.py:Q2C_INSTS).
+// inst: set to the instantiation launched, 0 vector, 1 strided
+// (ops/quad.py:Q2C_INSTS).
 int q2c_pack(const void* y, void* out, long long planes, int C, int m,
              int k, int nm, int orients, long long syn, long long syc,
              long long smem, long long si, long long sj, long long oa,
              long long ob, long long oc, long long od, float scale,
              long long sn, long long sc, long long so, long long sh,
-             long long sw, long long sri, int bf16, int inst, void* stream) {
+             long long sw, long long sri, int bf16, int* inst, void* stream) {
   if (planes * nm * m * k == 0) return 0;
   QArgs a{C,  m,  k,  nm, orients, syn, syc, smem, si, sj, oa, ob, oc, od,
           scale, sn, sc, so, sh, sw, sri, 0, 0, 0};

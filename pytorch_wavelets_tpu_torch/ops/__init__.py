@@ -102,8 +102,6 @@ def instantiation_counts() -> dict:
     K5's ``vector`` (16-byte loads of plane-contiguous bands) /
     ``strided`` (any view through its strides); K2's ``vector`` (16-byte
     stores of the default band layout) / ``strided``; K13's ``stream``
-    (16-byte pairs along the spectra's unit-stride axis) / ``transpose``
-    (read along H, written along W through shared memory) /
-    ``strided``."""
+    (16-byte pairs along the spectra's unit-stride axis) / ``strided``."""
     return {k.__name__: dict(k.instantiations)
             for k in STENCIL_VARIANT_KERNELS}

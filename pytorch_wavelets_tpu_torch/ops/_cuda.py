@@ -34,7 +34,8 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
 # C signatures: every pointer and the stream as c_void_p, sizes as int,
 # strides as int64, scalars as float.  Each launcher returns
-# cudaGetLastError().
+# cudaGetLastError(); K2's and K13's also write the variant they launched
+# through an int pointer.
 _SIGNATURES = {
     "banded_apply": {
         "banded_apply_col": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -54,7 +55,7 @@ _SIGNATURES = {
     },
     "q2c_pack": {
         "q2c_pack": [_P, _P, _L, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L,
-                     _L, _L, _L, _L, _F, _L, _L, _L, _L, _L, _L, _I, _I,
+                     _L, _L, _L, _L, _F, _L, _L, _L, _L, _L, _L, _I, _P,
                      _P],
     },
     "c2q_unpack": {
@@ -129,9 +130,9 @@ _SIGNATURES = {
     },
     "iswt_spec": {
         "spec_merge": [_P, _P, _P, _P, _P, _L, _I, _I, _I, *[_L] * 12, _I,
-                       _I, _P],
+                       _P, _P],
         "spec_split": [_P, _P, _P, _P, _P, _L, _I, _I, _I, *[_L] * 12, _I,
-                       _I, _P],
+                       _P, _P],
     },
 }
 

@@ -16,38 +16,31 @@ leaves them to XLA.  CPU tensors take :func:`spec_merge_plain` /
 :func:`spec_split_plain`, the same expressions in PyTorch (any complex
 dtype); CUDA tensors launch K13 (complex64) or raise.
 
-The output's layout.  ``torch.fft.rfft`` returns its spectrum with the
-frequency axis at stride 1, whichever axis it transforms.  In the
-``"stream"`` layout (the default, :data:`SPEC_LAYOUT`) the outputs are
-written with that same axis innermost (the (N, C) planes outermost, then
-the other axis), so that K13 streams every spectrum in 16-byte pairs and
-an ``irfft`` over the last dimension of ``out.movedim(axis, -1)`` reads a
+The outputs' layout.  ``torch.fft.rfft`` returns its spectrum with the
+frequency axis at stride 1, whichever axis it transforms.  The outputs
+are written in their inputs' layout: where the inputs share an axis at
+stride 1, that axis innermost (then the other axis, C and N), else
+contiguous.  So K13 streams every rfft spectrum in 16-byte pairs, and an
+``irfft`` over the last dimension of ``out.movedim(axis, -1)`` reads a
 contiguous tensor (``transforms/dwt.py:_FFTMerge``: no layout copy but
-the clone PyTorch's c2r path makes).  ``"contiguous"`` writes contiguous
-outputs, the frequency axis of an rfft along H transposed through shared
-memory.  Each wrapper picks one of three walks (:func:`spec_walk`) and
-counts it in ``instantiations``: ``stream``, ``transpose`` or
-``strided`` (any other view).
+the clone PyTorch's c2r path makes).  The C entries pick one of two walks
+and return it, and each wrapper counts it in ``instantiations``:
+``stream`` (every spectrum at stride 1 along one axis) or ``strided``
+(any other view).
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from pytorch_wavelets_tpu_torch.ops import _cuda
 
 __all__ = ["spec_merge", "spec_split", "spec_merge_plain",
-           "spec_split_plain", "spec_walk", "stream_plan", "SPEC_WALKS",
-           "SPEC_LAYOUT", "SPEC_THREADS", "SPEC_PAIRS"]
+           "spec_split_plain", "SPEC_WALKS"]
 
-# csrc/iswt_spec.cu: a block's threads; the stream walk's float4 pairs of
-# each spectrum a thread
-SPEC_THREADS, SPEC_PAIRS = 256, 2
 # the C entries' walk codes (csrc/iswt_spec.cu:SpecWalk)
-SPEC_WALKS = {"stream": 0, "transpose": 1, "strided": 2}
-# the layout of the outputs when the caller names none (PERF.md section 6,
-# K13: the merge with its irfft, both layouts measured)
-SPEC_LAYOUT = "stream"
-_I32 = 2 ** 31
+SPEC_WALKS = ("stream", "strided")
 
 
 def _bcast(g, axis):
@@ -78,52 +71,13 @@ def _check(kernel, t, g0, g1, axis):
                          f"{tuple(g0.shape)} and {tuple(g1.shape)}")
 
 
-def stream_plan(L):
-    """The stream walk's (threads a row, chunks a row) for rows of ``L``
-    values (csrc/iswt_spec.cu:stream_plan): the fewest threads, a power of
-    two from 32 to SPEC_THREADS, whose SPEC_PAIRS pairs each cover the
-    row's L // 2 pairs, and chunks of that many pairs."""
-    pairs = L // 2
-    tpr = 32
-    while tpr < SPEC_THREADS and tpr * SPEC_PAIRS < pairs:
-        tpr *= 2
-    per = tpr * SPEC_PAIRS
-    return tpr, max(1, -(-pairs // per))
-
-
 def _unit_axis(ins):
     """The axis (2 or 3) along which every tensor of ``ins`` has stride
-    1, else None."""
+    1, else 3 (the outputs' innermost axis)."""
     for u in (3, 2):
         if all(t.stride(u) == 1 for t in ins):
             return u
-    return None
-
-
-def spec_walk(ins, axis, layout=None):
-    """K13's walk for the input spectra ``ins`` ([A, B] for the merge,
-    [Z] for the split) and the outputs' ``layout`` ("stream" or
-    "contiguous", default :data:`SPEC_LAYOUT`): (walk, the outputs' axis
-    at stride 1).  ``stream`` where the inputs share an axis u at stride
-    1 and the outputs are written with u innermost (the stream layout, or
-    the contiguous one when u is W); ``transpose`` for the contiguous
-    layout from inputs at stride 1 along H; else ``strided`` (contiguous
-    outputs)."""
-    layout = layout or SPEC_LAYOUT
-    if layout not in ("stream", "contiguous"):
-        raise ValueError(f"K13: layout {layout!r} is neither 'stream' nor "
-                         f"'contiguous'")
-    N, C, H, W = ins[0].shape
-    u = _unit_axis(ins)
-    if u is not None and (layout == "stream" or u == 3):
-        R = H if u == 3 else W
-        tpr, cpr = stream_plan(W if u == 3 else H)
-        rpb = SPEC_THREADS // tpr
-        if N * C * R < _I32 and -(-N * C * R // rpb) * cpr < _I32:
-            return "stream", u
-    if layout == "contiguous" and u == 2:
-        return "transpose", 3
-    return "strided", 3
+    return 3
 
 
 def _empty(shape, u, lead=(), device=None):
@@ -139,13 +93,25 @@ def _empty(shape, u, lead=(), device=None):
                        dtype=torch.complex64).transpose(k + 2, k + 3)
 
 
-def spec_merge(A, B, g0, g1, axis, layout=None):
+def _launch(entry, ins, outs, g0, g1, axis):
+    """Launch K13's ``entry`` on CUDA tensors and count the walk it took."""
+    lib = _cuda.library("iswt_spec")
+    walk = ctypes.c_int(-1)
+    _cuda.check(lib, entry, getattr(lib, entry)(
+        *(t.data_ptr() for t in ins + outs), g0.data_ptr(), g1.data_ptr(),
+        *ins[0].shape, *(s for t in ins + outs for s in t.stride()), axis,
+        ctypes.addressof(walk), _cuda.stream_of(ins[0])))
+    wrapper = _K13M if entry == "spec_merge" else _K13S
+    wrapper.launches += 1
+    wrapper.instantiations[SPEC_WALKS[walk.value]] += 1
+
+
+def spec_merge(A, B, g0, g1, axis):
     """``g0 * A + g1 * B`` with the filters along ``axis``: a new
-    (N, C, H, W) spectrum, laid out as ``layout`` says (see the module
+    (N, C, H, W) spectrum in its inputs' layout (see the module
     docstring; CPU results take PyTorch's elementwise layout).  CPU
     tensors take :func:`spec_merge_plain`; CUDA tensors launch K13's
-    ``spec_merge`` in the walk :func:`spec_walk` picks, which reads ``A``
-    and ``B`` through their strides."""
+    ``spec_merge``, which reads ``A`` and ``B`` through their strides."""
     if A.device.type == "cpu":
         return spec_merge_plain(A, B, g0, g1, axis)
     _cuda.check_inputs("spec_merge", A, B, g0, g1,
@@ -154,42 +120,25 @@ def spec_merge(A, B, g0, g1, axis, layout=None):
     if B.shape != A.shape:
         raise ValueError(f"spec_merge: A {tuple(A.shape)} and B "
                          f"{tuple(B.shape)} differ")
-    walk, u = spec_walk([A, B], axis, layout)
-    Z = _empty(A.shape, u, device=A.device)
-    if Z.numel() == 0:
-        return Z
-    lib = _cuda.library("iswt_spec")
-    _cuda.check(lib, "spec_merge", lib.spec_merge(
-        A.data_ptr(), B.data_ptr(), Z.data_ptr(), g0.data_ptr(),
-        g1.data_ptr(), *A.shape, *A.stride(), *B.stride(), *Z.stride(),
-        axis, SPEC_WALKS[walk], _cuda.stream_of(A)))
-    _K13M.launches += 1
-    _K13M.instantiations[walk] += 1
+    Z = _empty(A.shape, _unit_axis([A, B]), device=A.device)
+    if Z.numel():
+        _launch("spec_merge", [A, B], [Z], g0, g1, axis)
     return Z
 
 
-def spec_split(Z, g0, g1, axis, layout=None):
+def spec_split(Z, g0, g1, axis):
     """``(conj(g0) * Z, conj(g1) * Z)`` with the filters along ``axis``,
-    as one (2, N, C, H, W) spectrum, each band laid out as ``layout``
-    says (as :func:`spec_merge`'s output).  CPU tensors take
-    :func:`spec_split_plain`; CUDA tensors launch K13's ``spec_split`` in
-    the walk :func:`spec_walk` picks, which reads ``Z`` through its
-    strides."""
+    as one (2, N, C, H, W) spectrum, each band in ``Z``'s layout (as
+    :func:`spec_merge`'s output).  CPU tensors take
+    :func:`spec_split_plain`; CUDA tensors launch K13's ``spec_split``,
+    which reads ``Z`` through its strides."""
     if Z.device.type == "cpu":
         return spec_split_plain(Z, g0, g1, axis)
     _cuda.check_inputs("spec_split", Z, g0, g1, dtypes=(torch.complex64,))
     _check("spec_split", Z, g0, g1, axis)
-    walk, u = spec_walk([Z], axis, layout)
-    out = _empty(Z.shape, u, lead=(2,), device=Z.device)
-    if out.numel() == 0:
-        return out
-    lib = _cuda.library("iswt_spec")
-    _cuda.check(lib, "spec_split", lib.spec_split(
-        Z.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), g0.data_ptr(),
-        g1.data_ptr(), *Z.shape, *Z.stride(), *out[0].stride(),
-        *out[1].stride(), axis, SPEC_WALKS[walk], _cuda.stream_of(Z)))
-    _K13S.launches += 1
-    _K13S.instantiations[walk] += 1
+    out = _empty(Z.shape, _unit_axis([Z]), lead=(2,), device=Z.device)
+    if out.numel():
+        _launch("spec_split", [Z], [out[0], out[1]], g0, g1, axis)
     return out
 
 

@@ -15,13 +15,15 @@ Both are pure elementwise gathers bound by bytes, on fp32 or bf16 (both
 tensors of one dtype; bf16 computed in fp32 and rounded once as it is
 stored, ``csrc/elem.cuh``).  Each has its plain
 PyTorch version here (the JAX slicing; per level ``ops/dtcwt_fb.py:q2c``
-/ ``c2q``), which CPU tensors take.  K2's wrapper picks one of two
-instantiations (:func:`q2c_instantiation`) and counts it in
+/ ``c2q``), which CPU tensors take.  K2's C entry picks one of two
+instantiations and returns it, and the wrapper counts it in
 ``instantiations``: ``vector``, 16-byte stores of the bands' default
 layout (re/im adjacent, w pairs adjacent), or ``strided``, any other
 layout through its strides.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -29,16 +31,11 @@ from pytorch_wavelets_tpu_torch.ops import _cuda
 from pytorch_wavelets_tpu_torch.ops.dtcwt_fb import INV_SQRT2, c2q, q2c
 
 __all__ = ["q2c_pack", "q2c_pack_plain", "c2q_unpack", "c2q_unpack_plain",
-           "q2c_instantiation", "q2c_slots", "Q2C_INSTS", "Q2C_THREADS",
-           "Q2C_SLOTS"]
+           "Q2C_INSTS"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
-# csrc/q2c_pack.cu: a block's threads; the vector instantiation's slots a
-# thread (Q2C_THREADS apart)
-Q2C_THREADS, Q2C_SLOTS = 256, 2
 # the C entry's instantiation codes (csrc/q2c_pack.cu:QInst)
-Q2C_INSTS = {"vector": 0, "strided": 1}
-_I32 = 2 ** 31
+Q2C_INSTS = ("vector", "strided")
 
 
 def _pack_orients(orients):
@@ -88,56 +85,6 @@ def _q2c_addr(y, nm, interleaved):
     return N, C, m, k, addr, fits
 
 
-def q2c_slots(out, k):
-    """The vector instantiation's (j a slot, slots a row) for bands
-    ``out`` (N, C, 6, m, k, 2) (csrc/q2c_pack.cu:launch): V = 16 bytes /
-    one (re, im) pair, and one slot more than ceil(k / V) unless every
-    row of ``out`` starts on a 16-byte line."""
-    esz = out.element_size()
-    V = 16 // (2 * esz)
-    sn, sc, so, sh = out.stride()[:4]
-    # every stride a whole number of 16-byte lines (esz a power of two)
-    lines = (out.data_ptr() % 16 == 0
-             and (sn | sc | so | sh) % (16 // esz) == 0)
-    return V, (k - 1 + (0 if lines else V - 1)) // V + 1
-
-
-def _choose(y, out, orients, interleaved):
-    """(instantiation, N, C, m, k, the input addressing) of a K2 call
-    (:func:`q2c_instantiation`)."""
-    nm = len(orients)
-    N, C, m, k, addr, fits = _q2c_addr(y, nm, interleaved)
-    if not fits or out.shape != (N, C, 6, m, k, 2):
-        raise ValueError(f"q2c_pack: group output {tuple(y.shape)} does not "
-                         f"fit bands {tuple(out.shape)} for {nm} members "
-                         f"(interleaved={interleaved}; even sizes, and "
-                         f"contiguous when not interleaved)")
-    _, _, _, si, sj, oa, ob, oc, od, _ = addr
-    sn, sc, so, sh, sw, sri = out.stride()
-    vector = (sri == 1 and sw == 2 and oa == 0
-              and (sj == 1 or (sj == 2 and ob == 1 and od == oc + 1))
-              and out.data_ptr() % (2 * out.element_size()) == 0
-              and (sn | sc | so | sh) % 2 == 0
-              and (m + 1) * abs(si) + 2 * k + abs(ob) + abs(oc) + abs(od)
-              < _I32 and (m + 1) * abs(sh) + 2 * k < _I32)
-    if vector:
-        _, S = q2c_slots(out, k)
-        per = Q2C_THREADS * Q2C_SLOTS
-        vector = m * S < _I32 and N * C * nm * -(-m * S // per) < _I32
-    return "vector" if vector else "strided", N, C, m, k, addr
-
-
-def q2c_instantiation(y, out, orients, interleaved=False):
-    """K2's instantiation for group output ``y`` and bands ``out`` (the
-    (N, C, 6, m, k, 2) view :func:`q2c_pack` takes): ``vector`` where
-    ``out`` has re/im adjacent and w pairs adjacent, starts on a whole
-    (re, im) pair, rows and planes whole pairs apart, ``y``'s corners run
-    along j at unit stride (the composed path) or interleaved in pairs
-    (per level: y at unit stride along w), and a plane's offsets fit in
-    32 bits; else ``strided``.  Raises where ``y`` does not fit ``out``."""
-    return _choose(y, out, orients, interleaved)[0]
-
-
 def q2c_pack(y, out, orients, interleaved=False):
     """Write one subband group's butterfly into its bandpass tensor.
 
@@ -148,27 +95,29 @@ def q2c_pack(y, out, orients, interleaved=False):
     takes them, its 1/sqrt2 applied here.  out: the level's bands as a
     (N, C, 6, m, k, 2) view (``fused_dtcwt.canonical_bands``), written in
     place at each member's orientation pair (o1, o2) of ``orients``.
-    CPU tensors take :func:`q2c_pack_plain`; CUDA tensors launch K2 in
-    the instantiation :func:`q2c_instantiation` picks.
+    CPU tensors take :func:`q2c_pack_plain`; CUDA tensors launch K2.
     """
     if y.device.type == "cpu":
         return q2c_pack_plain(y, out, orients, interleaved)
     _cuda.check_inputs("q2c_pack", y, out, dtypes=_DTYPES)
-    inst, *shape = _choose(y, out, orients, interleaved)
-    _q2c_launch(y, out, orients, inst, *shape)
-    q2c_pack.launches += 1
-    q2c_pack.instantiations[inst] += 1
-
-
-def _q2c_launch(y, out, orients, inst, N, C, m, k, addr):
-    """Launch K2's ``inst`` on CUDA tensors with the addressing of
-    :func:`_choose` (the C entry refuses ``vector`` off its layout)."""
+    nm = len(orients)
+    N, C, m, k, addr, fits = _q2c_addr(y, nm, interleaved)
+    if not fits or out.shape != (N, C, 6, m, k, 2):
+        raise ValueError(f"q2c_pack: group output {tuple(y.shape)} does not "
+                         f"fit bands {tuple(out.shape)} for {nm} members "
+                         f"(interleaved={interleaved}; even sizes, and "
+                         f"contiguous when not interleaved)")
+    if out.numel() == 0:
+        return
     lib = _cuda.library("q2c_pack")
+    inst = ctypes.c_int(-1)
     _cuda.check(lib, "q2c_pack", lib.q2c_pack(
-        y.data_ptr(), out.data_ptr(), N * C, C, m, k, len(orients),
+        y.data_ptr(), out.data_ptr(), N * C, C, m, k, nm,
         _pack_orients(orients), *addr, *out.stride(),
-        int(y.dtype == torch.bfloat16), Q2C_INSTS[inst],
+        int(y.dtype == torch.bfloat16), ctypes.addressof(inst),
         _cuda.stream_of(y)))
+    q2c_pack.launches += 1
+    q2c_pack.instantiations[Q2C_INSTS[inst.value]] += 1
 
 
 def c2q_unpack_plain(h, orients, interleaved=False):

@@ -426,7 +426,7 @@ class _FFTMerge:
 
     def _irfft(self, S, dim):
         # along the last dimension of a view: K13 writes the frequency
-        # axis innermost (ops/iswt_merge.py, the "stream" layout), so the
+        # axis innermost, as rfft left it (ops/iswt_merge.py), so the
         # view is contiguous and PyTorch's c2r path copies it once (its
         # clone) instead of transposing it as well; the result has the
         # layout irfft(S, dim=dim) returns

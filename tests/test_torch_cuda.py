@@ -1412,31 +1412,26 @@ def _spec_view(dev, n, axis, other, how, seed):
 
 
 SPEC_VIEWS = [
-    # (case, n, axis, other, how, layout, walk, outputs' unit-stride axis)
-    ("H odd rows", 4096, 2, 3, None, "stream", "stream", 2),
-    ("W odd rows", 4096, 3, 3, None, "stream", "stream", 3),
-    ("H even rows", 10, 2, 7, None, "stream", "stream", 2),
-    ("H offset", 16, 2, 5, "offset", "stream", "stream", 2),
-    ("W offset", 9, 3, 4, "offset", "stream", "stream", 3),
-    ("H spectra along W", 16, 2, 6, "W", "stream", "stream", 3),
-    ("W spectra along H", 16, 3, 6, "H", "stream", "stream", 2),
-    ("H contiguous", 70, 2, 37, None, "contiguous", "transpose", 3),
-    ("H contiguous offset", 16, 2, 5, "offset", "contiguous", "transpose",
-     3),
-    ("W contiguous", 4096, 3, 3, None, "contiguous", "stream", 3),
-    ("W spectra along H contiguous", 16, 3, 6, "H", "contiguous",
-     "transpose", 3),
+    # (case, n, axis, other, how, the inputs' and outputs' unit-stride axis)
+    ("H odd rows", 4096, 2, 3, None, 2),
+    ("W odd rows", 4096, 3, 3, None, 3),
+    ("H even rows", 10, 2, 7, None, 2),
+    ("H rows of 36", 70, 2, 37, None, 2),
+    ("H offset", 16, 2, 5, "offset", 2),
+    ("W offset", 9, 3, 4, "offset", 3),
+    ("H spectra along W", 16, 2, 6, "W", 3),
+    ("W spectra along H", 16, 3, 6, "H", 2),
 ]
 
 
-@pytest.mark.parametrize("case,n,axis,other,how,layout,walk,u", SPEC_VIEWS,
+@pytest.mark.parametrize("case,n,axis,other,how,u", SPEC_VIEWS,
                          ids=[v[0] for v in SPEC_VIEWS])
-def test_spec_walks(dev, case, n, axis, other, how, layout, walk, u):
+def test_spec_walks(dev, case, n, axis, other, how, u):
     """K13's merge and split in each walk at the edge views (odd rows of
-    n/2 + 1 values, offsets, spectra stored along either axis, both
-    output layouts), within SPEC_TOL of their terms' magnitudes; each call
-    moves its walk's count by one and writes its outputs with the walk's
-    axis at stride 1.  The strided walk takes mixed layouts."""
+    n/2 + 1 values, offsets, spectra stored along either axis), within
+    SPEC_TOL of their terms' magnitudes; each call moves its walk's count
+    by one and writes its outputs in its inputs' layout.  The strided
+    walk takes mixed layouts."""
     from pytorch_wavelets_tpu_torch.ops import iswt_merge
     A = _spec_view(dev, n, axis, other, how, 92)
     B = _spec_view(dev, n, axis, other, how, 93)
@@ -1448,15 +1443,15 @@ def test_spec_walks(dev, case, n, axis, other, how, layout, walk, u):
         if B.stride(3) == 1 else B.contiguous()
     for wrapper, run, want, terms, inst in (
             (iswt_merge.spec_merge,
-             lambda: iswt_merge.spec_merge(A, B, g0, g1, axis, layout),
+             lambda: iswt_merge.spec_merge(A, B, g0, g1, axis),
              iswt_merge.spec_merge_plain(A, B, g0, g1, axis),
-             iswt_merge.spec_merge_plain(*mag, axis), walk),
+             iswt_merge.spec_merge_plain(*mag, axis), "stream"),
             (iswt_merge.spec_split,
-             lambda: iswt_merge.spec_split(A, g0, g1, axis, layout),
+             lambda: iswt_merge.spec_split(A, g0, g1, axis),
              iswt_merge.spec_split_plain(A, g0, g1, axis),
-             iswt_merge.spec_split_plain(mag[0], *mag[2:], axis), walk),
+             iswt_merge.spec_split_plain(mag[0], *mag[2:], axis), "stream"),
             (iswt_merge.spec_merge,
-             lambda: iswt_merge.spec_merge(A, mixed, g0, g1, axis, layout),
+             lambda: iswt_merge.spec_merge(A, mixed, g0, g1, axis),
              iswt_merge.spec_merge_plain(A, mixed, g0, g1, axis),
              iswt_merge.spec_merge_plain(*mag, axis), "strided")):
         before = dict(wrapper.instantiations)
@@ -1521,8 +1516,7 @@ def test_swt_fft_merge_takes_stream(dev):
     counts, insts = ops.launch_counts(), ops.instantiation_counts()
     for k in ("spec_merge", "spec_split"):
         assert counts[k] > 0
-        assert insts[k] == {"stream": counts[k], "transpose": 0,
-                            "strided": 0}
+        assert insts[k] == {"stream": counts[k], "strided": 0}
 
 
 @pytest.mark.parametrize("mode,wave,shape,J", [

@@ -1,14 +1,15 @@
 """K13's walks and K2's vector instantiation, emulated in numpy exactly as
-``csrc/iswt_spec.cu`` (``spec_stream``, ``spec_transpose``,
-``spec_strided``) and ``csrc/q2c_pack.cu`` (``q2c_vector``) walk a view:
+``csrc/iswt_spec.cu`` (``spec_stream``, ``spec_strided``) and
+``csrc/q2c_pack.cu`` (``q2c_vector``) walk a view:
 block -> rows or planes and chunks, thread -> values.  Every value must be
 read and written exactly once, every 16-byte access the kernels take
 without a check aligned, and the emulated kernels must equal their plain
 versions (``ops/iswt_merge.py``, ``ops/quad.py``), on the CPU: K13 on
 odd frequency rows (n/2 + 1 values for even n), both axes, offset views
 and rows of several chunks; K2 on odd k, offset bands, both corner
-layouts, fp32 and bf16 (bit for bit).  The wrappers' choice of walk and
-instantiation on edge views is checked too."""
+layouts, fp32 and bf16 (bit for bit).  The C entries' choice of walk and
+instantiation (``stream_args``, ``vector_plan``), emulated here too, is
+checked on edge views, with the layout the K13 wrappers write."""
 import numpy as np
 import pytest
 import torch
@@ -20,8 +21,9 @@ from pytorch_wavelets_tpu_torch.transforms.dtcwt import get_dimensions5
 # one thread, as the port's other CPU test files
 torch.set_num_threads(1)
 
-T = iswt_merge.SPEC_THREADS
-U = iswt_merge.SPEC_PAIRS
+# csrc/iswt_spec.cu: a block's threads; the stream walk's float4 pairs of
+# each spectrum a thread
+T, U = 256, 2
 SPEC_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
@@ -114,6 +116,32 @@ def _value(kind, ins, idx, f, gi, g0, g1):
     return [a0.conj() * z, a1.conj() * z]
 
 
+def stream_plan(L):
+    """The stream walk's (threads a row, chunks a row) for rows of ``L``
+    values (csrc/iswt_spec.cu:stream_plan): the fewest threads, a power of
+    two from 32 to T, whose U pairs each cover the row's L // 2 pairs."""
+    pairs = L // 2
+    tpr = 32
+    while tpr < T and tpr * U < pairs:
+        tpr *= 2
+    return tpr, max(1, -(-pairs // (tpr * U)))
+
+
+def emulate_walk(ins, outs):
+    """The walk K13's C entries pick (csrc/iswt_spec.cu:stream_args):
+    ``stream`` where every spectrum, the outputs too, has stride 1 along
+    one axis and the rows and blocks fit in 32 bits, else ``strided``."""
+    N, C, H, W = ins[0].shape
+    for u in (3, 2):
+        if all(t.stride(u) == 1 for t in ins + outs):
+            rows = N * C * (H if u == 3 else W)
+            tpr, cpr = stream_plan(W if u == 3 else H)
+            if rows < 2 ** 31 and -(-rows // (T // tpr)) * cpr < 2 ** 31:
+                return "stream"
+            break
+    return "strided"
+
+
 def emulate_stream(kind, ins, outs, g0, g1, axis):
     """K13's stream walk (csrc/iswt_spec.cu:spec_stream) over the input
     spectra ``ins`` into the output views ``outs``: returns (reads of each
@@ -124,7 +152,7 @@ def emulate_stream(kind, ins, outs, g0, g1, axis):
     u = next(c for c in (3, 2) if all(t.stride(c) == 1 for t in arrs))
     o = 5 - u
     R, L = ins[0].shape[o], ins[0].shape[u]
-    tpr, cpr = iswt_merge.stream_plan(L)
+    tpr, cpr = stream_plan(L)
     rpb = T // tpr
     rows = N * C * R
     nb = -(-rows // rpb) * cpr
@@ -168,67 +196,6 @@ def emulate_stream(kind, ins, outs, g0, g1, axis):
     return reads, writes, int(head.sum())
 
 
-def emulate_transpose(kind, ins, outs, g0, g1, axis):
-    """K13's transpose walk (csrc/iswt_spec.cu:spec_transpose): a block
-    reads a 32 x 32 tile along H into shared memory (tile[j][i], rows of
-    33 float2) and writes it along W.  Checks the warps' accesses (reads
-    unit-stride along H, writes along W) and the shared tile's banks, as
-    the reads and writes counts of :func:`emulate_stream`."""
-    N, C, H, W = ins[0].shape
-    assert all(t.stride(2) == 1 for t in ins)
-    assert all(t.stride(3) == 1 for t in outs)
-    TL, TR = 32, 8
-    th_, tw_ = -(-H // TL), -(-W // TL)
-    planes = N * C
-    blk, tid = np.divmod(np.arange(planes * th_ * tw_ * TL * TR), TL * TR)
-    p, rest = np.divmod(blk, th_ * tw_)
-    ti, tj = np.divmod(rest, tw_)
-    n, c = np.divmod(p, C)
-    tx, ty = tid % TL, tid // TL
-    base = [t.storage_offset() + n * t.stride(0) + c * t.stride(1)
-            for t in ins + outs]
-    reads = [np.zeros(_flat(t).numel(), np.int64) for t in ins]
-    writes = [np.zeros(_flat(t).numel(), np.int64) for t in outs]
-    nout = len(outs)
-    tile = torch.full((nout, planes * th_ * tw_, TL, TL + 1),
-                      complex("nan"), dtype=torch.complex64)
-    for kk in range(TL // TR):
-        i, j = ti * TL + tx, tj * TL + ty + kk * TR
-        ok = (i < H) & (j < W)
-        for q, t in enumerate(ins):
-            at = base[q] + i * t.stride(2) + j * t.stride(3)
-            np.add.at(reads[q], at[ok], 1)
-        sel = np.nonzero(ok)[0]
-        # a warp (32 consecutive tx, one ty): consecutive elements along H
-        warp = at.reshape(-1, TL)
-        assert (np.diff(warp, axis=1) == 1).all()
-        f = (i if axis == 2 else j)[sel]
-        vals = _value(kind, ins, [b[sel] + i[sel] * t.stride(2)
-                                  + j[sel] * t.stride(3)
-                                  for b, t in zip(base, ins)], 0, f, g0, g1)
-        for o, v in enumerate(vals):
-            tile[o, blk[sel], ty[sel] + kk * TR, tx[sel]] = v
-    # tile[j][i] (4-byte words 2 (33 j + i)) written by lanes along i,
-    # read by lanes along j: each half-warp's 8-byte accesses cover the 32
-    # banks once (conflict-free, the two wavefronts a warp needs)
-    li = np.arange(16)
-    for fixed in range(TL):
-        for w in (2 * (fixed * (TL + 1) + li), 2 * (li * (TL + 1) + fixed)):
-            assert len(set(np.concatenate([w, w + 1]) % 32)) == 32
-    for kk in range(TL // TR):
-        ii, j = ti * TL + ty + kk * TR, tj * TL + tx
-        ok = (ii < H) & (j < W)
-        sel = np.nonzero(ok)[0]
-        for o, t in enumerate(outs):
-            at = base[len(ins) + o] + ii * t.stride(2) + j * t.stride(3)
-            assert (np.diff(at.reshape(-1, TL), axis=1) == 1).all()
-            np.add.at(writes[o], at[sel], 1)
-            v = tile[o, blk[sel], tx[sel], ty[sel] + kk * TR]
-            assert not torch.isnan(v.real).any()
-            _flat(t)[torch.from_numpy(at[sel])] = v
-    return reads, writes
-
-
 def emulate_strided(kind, ins, outs, g0, g1, axis):
     """K13's strided walk (csrc/iswt_spec.cu:spec_strided): planes x
     chunks, 4 values a thread, 256 apart, (i, j) by a division by W."""
@@ -261,33 +228,30 @@ def emulate_strided(kind, ins, outs, g0, g1, axis):
     return reads, writes
 
 
-def _outputs(kind, ins, axis, layout):
-    """The output views the wrapper allocates for its walk (on the CPU:
-    ``ops/iswt_merge.py:_empty`` on the walk's axis), NaN-filled."""
-    walk, u = iswt_merge.spec_walk(ins, axis, layout)
+def _outputs(kind, ins):
+    """(the walk the C entry picks, the output views the wrapper
+    allocates: ``ops/iswt_merge.py:_empty`` in the inputs' layout,
+    NaN-filled)."""
     lead = () if kind == "merge" else (2,)
-    out = iswt_merge._empty(ins[0].shape, u, lead)
+    out = iswt_merge._empty(ins[0].shape, iswt_merge._unit_axis(ins), lead)
     out = _base_aligned(_like(out))
-    return walk, ([out] if kind == "merge" else [out[0], out[1]])
+    outs = [out] if kind == "merge" else [out[0], out[1]]
+    return emulate_walk(ins, outs), outs
 
 
 SPEC_CASES = [
-    # (case, n, axis, other, offset, layout, walk)
-    ("H odd rows", 16, 2, 5, 0, "stream", "stream"),
-    ("W odd rows", 16, 3, 5, 0, "stream", "stream"),
-    ("H even rows", 10, 2, 3, 0, "stream", "stream"),
-    ("W long rows", 2100, 3, 2, 0, "stream", "stream"),
-    ("H long rows", 2100, 2, 1, 0, "stream", "stream"),
-    ("H offset", 16, 2, 5, 1, "stream", "stream"),
-    ("W offset", 9, 3, 4, 1, "stream", "stream"),
-    ("H contiguous", 70, 2, 37, 0, "contiguous", "transpose"),
-    ("H contiguous offset", 16, 2, 5, 1, "contiguous", "transpose"),
-    ("W contiguous", 16, 3, 5, 0, "contiguous", "stream"),
+    # (case, n, axis, other, offset)
+    ("H odd rows", 16, 2, 5, 0),
+    ("W odd rows", 16, 3, 5, 0),
+    ("H even rows", 10, 2, 3, 0),
+    ("W long rows", 2100, 3, 2, 0),
+    ("H long rows", 2100, 2, 1, 0),
+    ("H rows of 36", 70, 2, 37, 0),
+    ("H offset", 16, 2, 5, 1),
+    ("W offset", 9, 3, 4, 1),
     # spectra stored along the other axis (a row's filter pair constant)
-    ("H spectra along W", 16, 2, 6, "W", "stream", "stream"),
-    ("W spectra along H", 16, 3, 6, "H", "stream", "stream"),
-    ("W spectra along H contiguous", 16, 3, 6, "H", "contiguous",
-     "transpose"),
+    ("H spectra along W", 16, 2, 6, "W"),
+    ("W spectra along H", 16, 3, 6, "H"),
 ]
 
 
@@ -299,11 +263,11 @@ def _restore(t, inner):
 
 
 @pytest.mark.parametrize("kind", ["merge", "split"])
-@pytest.mark.parametrize("case,n,axis,other,offset,layout,want",
-                         SPEC_CASES, ids=[c[0] for c in SPEC_CASES])
-def test_k13_walks(kind, case, n, axis, other, offset, layout, want):
-    """K13's stream and transpose walks read each spectrum value once and
-    write each output value once, and equal the plain versions."""
+@pytest.mark.parametrize("case,n,axis,other,offset", SPEC_CASES,
+                         ids=[c[0] for c in SPEC_CASES])
+def test_k13_walks(kind, case, n, axis, other, offset):
+    """K13's stream walk reads each spectrum value once and writes each
+    output value once, and equals the plain versions."""
     A, B = _spectra(n, axis, other, lead=(1, 2) if n > 1000 else (2, 3))
     if isinstance(offset, str):
         A, B = _restore(A, offset), _restore(B, offset)
@@ -311,15 +275,12 @@ def test_k13_walks(kind, case, n, axis, other, offset, layout, want):
         A, B = _offset_view(A, offset), _offset_view(B, offset)
     g0, g1 = _filters(A.shape[axis])
     ins = [A, B] if kind == "merge" else [A]
-    walk, outs = _outputs(kind, ins, axis, layout)
-    assert walk == want
-    if walk == "stream":
-        reads, writes, heads = emulate_stream(kind, ins, outs, g0, g1, axis)
-        if offset == 1 or (A.shape[axis] % 2 and A.shape[5 - axis] > 1
-                           and not isinstance(offset, str)):
-            assert heads > 0     # odd rows: every other row starts mid-line
-    else:
-        reads, writes = emulate_transpose(kind, ins, outs, g0, g1, axis)
+    walk, outs = _outputs(kind, ins)
+    assert walk == "stream"
+    reads, writes, heads = emulate_stream(kind, ins, outs, g0, g1, axis)
+    if offset == 1 or (A.shape[axis] % 2 and A.shape[5 - axis] > 1
+                       and not isinstance(offset, str)):
+        assert heads > 0     # odd rows: every other row starts mid-line
     for r, t in zip(reads, ins):
         _once(r, t)
     for w, t in zip(writes, outs):
@@ -343,7 +304,7 @@ def test_k13_strided_walk(kind, axis):
         A = A.narrow(5 - axis, 0, 1).expand(A.shape)    # stride 0
     g0, g1 = _filters(A.shape[axis])
     ins = [A, B] if kind == "merge" else [A]
-    walk, outs = _outputs(kind, ins, axis, "stream")
+    walk, outs = _outputs(kind, ins)
     assert walk == ("strided" if kind == "merge" else "stream")
     if walk == "stream":
         reads, writes, _ = emulate_stream(kind, ins, outs, g0, g1, axis)
@@ -362,31 +323,28 @@ def test_k13_strided_walk(kind, axis):
 
 
 def test_k13_walk_choice():
-    """The walk and the outputs' unit-stride axis on edge views; the
-    stream plan's threads and chunks a row."""
+    """The outputs' layout the wrappers write and the walk the C entries
+    pick on edge views; the stream plan's threads and chunks a row."""
     for axis in (2, 3):
         A, B = _spectra(16, axis)
-        assert iswt_merge.spec_walk([A, B], axis) == ("stream", axis)
-        assert iswt_merge.spec_walk([A], axis, "contiguous") == (
-            ("stream", 3) if axis == 3 else ("transpose", 3))
+        assert iswt_merge._unit_axis([A, B]) == axis
+        assert _outputs("merge", [A, B])[0] == "stream"
+        assert _outputs("split", [A])[1][0].stride(axis) == 1
         Bt = B.contiguous() if axis == 2 else \
             B.transpose(2, 3).contiguous().transpose(2, 3)
-        assert iswt_merge.spec_walk([A, Bt], axis) == ("strided", 3)
+        assert iswt_merge._unit_axis([A, Bt]) == 3
+        assert _outputs("merge", [A, Bt])[0] == "strided"
         # an offset or sliced view keeps its unit stride
-        assert iswt_merge.spec_walk([A[:, 1:], B[:, 1:]], axis)[0] == \
-            "stream"
+        assert _outputs("merge", [A[:, 1:], B[:, 1:]])[0] == "stream"
         # no unit stride at all
         X = A.narrow(axis, 0, 4).transpose(0, 1)[::2]
-        assert iswt_merge.spec_walk([X[:, :, ::2, ::2]], axis)[0] == \
-            "strided"
-    with pytest.raises(ValueError, match="layout"):
-        iswt_merge.spec_walk([A], 3, "rows")
-    assert iswt_merge.stream_plan(2049) == (256, 2)
-    assert iswt_merge.stream_plan(33) == (32, 1)
-    assert iswt_merge.stream_plan(129) == (32, 1)
-    assert iswt_merge.stream_plan(130) == (64, 1)
-    assert iswt_merge.stream_plan(1) == (32, 1)
-    # the CPU path keeps the stream layout of rfft spectra (PyTorch's
+        assert _outputs("split", [X[:, :, ::2, ::2]])[0] == "strided"
+    assert stream_plan(2049) == (256, 2)
+    assert stream_plan(33) == (32, 1)
+    assert stream_plan(129) == (32, 1)
+    assert stream_plan(130) == (64, 1)
+    assert stream_plan(1) == (32, 1)
+    # the CPU path keeps the layout of rfft spectra (PyTorch's
     # elementwise ops follow their inputs' layout)
     A, B = _spectra(16, 2)
     g0, g1 = _filters(A.shape[2])
@@ -397,7 +355,9 @@ def test_k13_walk_choice():
 # K2
 # ---------------------------------------------------------------------------
 
-Q_T, Q_U = quad.Q2C_THREADS, quad.Q2C_SLOTS
+# csrc/q2c_pack.cu: a block's threads; the vector instantiation's slots a
+# thread (Q_T apart)
+Q_T, Q_U = 256, 2
 ORIENTS = ((2, 3), (1, 4))
 ORIENTS3 = ((0, 5), (2, 3), (1, 4))
 
@@ -445,6 +405,45 @@ def _q2c_ref(y, out, orients, interleaved):
     out.copy_(want.to(out.dtype))
 
 
+def q2c_slots(out, k):
+    """The vector instantiation's (j a slot, slots a row) for bands
+    ``out`` (N, C, 6, m, k, 2) (csrc/q2c_pack.cu:vector_plan): V = 16
+    bytes / one (re, im) pair, and one slot more than ceil(k / V) unless
+    every row of ``out`` starts on a 16-byte line."""
+    esz = out.element_size()
+    V = 16 // (2 * esz)
+    sn, sc, so, sh = out.stride()[:4]
+    # every stride a whole number of 16-byte lines (esz a power of two)
+    lines = (out.data_ptr() % 16 == 0
+             and (sn | sc | so | sh) % (16 // esz) == 0)
+    return V, (k - 1 + (0 if lines else V - 1)) // V + 1
+
+
+def emulate_q2c_choice(y, out, orients, interleaved):
+    """The instantiation K2's C entry picks (csrc/q2c_pack.cu:vector_plan):
+    ``vector`` where ``out`` has re/im adjacent and w pairs adjacent,
+    starts on a whole (re, im) pair, rows and planes whole pairs apart,
+    ``y``'s corners run along j at unit stride (composed) or interleaved
+    in pairs (per level), and a plane's offsets fit in 32 bits; else
+    ``strided``."""
+    nm = len(orients)
+    N, C, m, k, addr, fits = quad._q2c_addr(y, nm, interleaved)
+    assert fits and out.shape == (N, C, 6, m, k, 2)
+    _, _, _, si, sj, oa, ob, oc, od, _ = addr
+    sn, sc, so, sh, sw, sri = out.stride()
+    il = sj == 2 and ob == 1 and od == oc + 1
+    I32 = 2 ** 31
+    _, S = q2c_slots(out, k)
+    vector = (sri == 1 and sw == 2 and oa == 0 and (sj == 1 or il)
+              and out.data_ptr() % (2 * out.element_size()) == 0
+              and (sn | sc | so | sh) % 2 == 0
+              and (m + 1) * abs(si) + 2 * k + abs(ob) + abs(oc) + abs(od)
+              < I32 and (m + 1) * abs(sh) + 2 * k < I32
+              and m * S < I32
+              and N * C * nm * -(-m * S // (Q_T * Q_U)) < I32)
+    return "vector" if vector else "strided"
+
+
 def emulate_q2c_vector(y, out, orients, interleaved):
     """K2's vector instantiation (csrc/q2c_pack.cu:q2c_vector) writing
     ``out``: returns (reads of each element of y's storage, writes of each
@@ -454,7 +453,7 @@ def emulate_q2c_vector(y, out, orients, interleaved):
     syn, syc, smem, si, sj, oa, ob, oc, od, scale = addr
     sn, sc, so, sh, sw, sri = out.stride()
     E = out.element_size()
-    V, S = quad.q2c_slots(out, k)
+    V, S = q2c_slots(out, k)
     per = Q_T * Q_U
     cpp = -(-m * S // per)
     blk, tid = np.divmod(np.arange(N * C * nm * cpp * Q_T), Q_T)
@@ -534,7 +533,7 @@ def test_q2c_vector_map(case, m, k, il, o_dim, ri_dim, off, shift, dtype):
     orients = ORIENTS3 if il else ORIENTS
     y = _group(N, C, m, k, len(orients), il, dtype, shift)
     out, h = _bands(N, C, m, k, o_dim, ri_dim, dtype, off)
-    assert quad.q2c_instantiation(y, out, orients, il) == "vector"
+    assert emulate_q2c_choice(y, out, orients, il) == "vector"
     reads, writes, full, part = emulate_q2c_vector(y, out, orients, il)
     assert full > 0
     E = y.element_size()
@@ -565,28 +564,27 @@ def test_q2c_instantiation_layouts(o_dim, ri_dim, want, dtype):
         orients = ORIENTS3 if il else ORIENTS
         y = _group(2, 3, 3, 6, len(orients), il, dtype)
         out, _ = _bands(2, 3, 3, 6, o_dim, ri_dim, dtype)
-        assert quad.q2c_instantiation(y, out, orients, il) == want
+        assert emulate_q2c_choice(y, out, orients, il) == want
 
 
 def test_q2c_instantiation_edges():
     """Bands that start off a whole (re, im) pair, per-level corners not at
     unit stride along w, and a group that does not fit: strided, strided,
-    raises; slots a row with and without aligned rows."""
+    does not fit the wrapper's addressing; slots a row with and without
+    aligned rows."""
     y = _group(2, 3, 3, 6, 2, False, torch.float32)
     out, _ = _bands(2, 3, 3, 6, offset=1)
-    assert quad.q2c_instantiation(y, out, ORIENTS) == "strided"
+    assert emulate_q2c_choice(y, out, ORIENTS, False) == "strided"
     yi = _group(2, 3, 3, 6, 3, True, torch.float32).transpose(3, 4) \
         .contiguous().transpose(3, 4)
     out, _ = _bands(2, 3, 3, 6)
-    assert quad.q2c_instantiation(yi, out, ORIENTS3, True) == "strided"
-    with pytest.raises(ValueError, match="does not fit"):
-        quad.q2c_instantiation(y[..., :-2], out, ORIENTS)
-    with pytest.raises(ValueError, match="does not fit"):
-        quad.q2c_instantiation(y.transpose(2, 3), out, ORIENTS)
-    assert quad.q2c_slots(_bands(1, 1, 2, 8)[0], 8) == (2, 4)
-    assert quad.q2c_slots(_bands(1, 1, 2, 7)[0], 7) == (2, 4)
-    assert quad.q2c_slots(_bands(1, 1, 2, 8, offset=2)[0], 8) == (2, 5)
-    assert quad.q2c_slots(_bands(1, 1, 2, 8, dtype=torch.bfloat16)[0],
-                          8) == (4, 2)
-    assert quad.q2c_slots(_bands(1, 1, 2, 6, dtype=torch.bfloat16)[0],
-                          6) == (4, 3)
+    assert emulate_q2c_choice(yi, out, ORIENTS3, True) == "strided"
+    assert not quad._q2c_addr(y[..., :-2], 2, False)[-1]
+    assert not quad._q2c_addr(y.transpose(2, 3), 2, False)[-1]
+    assert q2c_slots(_bands(1, 1, 2, 8)[0], 8) == (2, 4)
+    assert q2c_slots(_bands(1, 1, 2, 7)[0], 7) == (2, 4)
+    assert q2c_slots(_bands(1, 1, 2, 8, offset=2)[0], 8) == (2, 5)
+    assert q2c_slots(_bands(1, 1, 2, 8, dtype=torch.bfloat16)[0],
+                     8) == (4, 2)
+    assert q2c_slots(_bands(1, 1, 2, 6, dtype=torch.bfloat16)[0],
+                     6) == (4, 3)

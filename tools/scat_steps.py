@@ -16,13 +16,11 @@ CUDA card, with chip_smoke's timer, inputs and cotangents:
 
     python3 tools/scat_steps.py [--root DIR] [--label NAME]
                                 [--paths scat_j2 scat_bp ...]
-                                [--spec-layout stream|contiguous]
 
 ``--root`` imports ``chip_smoke`` and ``pytorch_wavelets_tpu_torch`` from
 another checkout (say an unpacked parent commit), so that two versions
 can be timed on one card in one sitting: run it once per root, in turns.
-``--spec-layout`` sets the layout K13 writes (``ops/iswt_merge.py``
-``SPEC_LAYOUT``) where the tree has one.  Prints one JSON line (ms) and
+Prints one JSON line (ms) and
 the card's name and power limit.  Imports torch and the port only.
 """
 import argparse
@@ -108,8 +106,6 @@ def main():
     p.add_argument("--label", default=None)
     p.add_argument("--paths", nargs="+", choices=PATHS,
                    default=["scat_j2", "scat_bp"])
-    p.add_argument("--spec-layout", choices=("stream", "contiguous"),
-                   default=None)
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("scat_steps: no CUDA device", file=sys.stderr)
@@ -119,12 +115,9 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     import chip_smoke as cs
     import pytorch_wavelets_tpu_torch as tt
-    from pytorch_wavelets_tpu_torch.ops import _cuda, iswt_merge
+    from pytorch_wavelets_tpu_torch.ops import _cuda
     _cuda.build()
     res = {"tree": args.label or args.root, "package": tt.__file__}
-    if args.spec_layout and hasattr(iswt_merge, "SPEC_LAYOUT"):
-        iswt_merge.SPEC_LAYOUT = args.spec_layout
-        res["spec_layout"] = args.spec_layout
     for name in args.paths:
         if name == "main":
             main_path(cs, tt, res)

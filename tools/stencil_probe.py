@@ -6,8 +6,7 @@
 (swt_sfb and its adjoint) on one CUDA card at the shapes of
 chip_smoke.py's DTCWT, scattering, DWT, per-level, SWT, non-separable and
 à trous paths, each call checked against its plain version.  K13 is also
-timed with the irfft that follows it, in each output layout
-(``ops/iswt_merge.py``: "stream", "contiguous").
+timed with the irfft that follows it.
 
     python3 tools/stencil_probe.py [--root DIR] [--merge-tile-out N]
                                    [--only k2|k4|k5|k6|k7|k8|k9|k10|k12|
@@ -400,119 +399,98 @@ def k2_calls(tt, quad, fused, lev):
         torch.cuda.empty_cache()
 
 
+def _walk_of(wrapper, run):
+    """Run ``run`` once; the instantiation its wrapper counted (``parent``
+    for a tree whose wrapper counts none) and the result."""
+    before = dict(getattr(wrapper, "instantiations", {}))
+    got = run()
+    walk = [k for k, v in getattr(wrapper, "instantiations", {}).items()
+            if v != before.get(k, 0)]
+    return (walk[0] if walk else "parent"), got
+
+
 def run_k2(tt, quad, fused, lev):
-    """K2 on the paths' calls (:func:`k2_calls`), each instantiation that
-    takes the call (``vector`` and ``strided``; a tree without them, an
-    older parent, times its wrapper as ``parent``), bit for bit against
-    the plain version computed in fp32 and rounded once, against its
-    bytes bound (each corner read once, each (re, im) written once)."""
+    """K2 on the paths' calls (:func:`k2_calls`), labelled with the
+    instantiation the call took (``parent`` for a tree that counts
+    none), bit for bit against the plain version computed in fp32 and
+    rounded once, against its bytes bound (each corner read once, each
+    (re, im) written once) and a ``copy_`` of as many bytes."""
     for label, calls in k2_calls(tt, quad, fused, lev):
         for y, out, orients, il in calls:
             written = [o for pair in orients for o in pair]
             want = torch.zeros(out.shape, device="cuda")
             quad.q2c_pack_plain(y.float(), want, orients, il)
             want = want[:, :, written].to(y.dtype)
-            if hasattr(quad, "q2c_instantiation"):
-                runs = {"vector": lambda: quad._q2c_launch(
-                            y, out, orients, il, "vector"),
-                        "strided": lambda: quad._q2c_launch(
-                            y, out, orients, il, "strided")}
-                if quad.q2c_instantiation(y, out, orients, il) != "vector":
-                    del runs["vector"]
-            else:
-                runs = {"parent": lambda: quad.q2c_pack(y, out, orients, il)}
             nbytes = y.element_size() * (y.numel() + want.numel())
             # the practical ceiling: a copy of as many bytes each way
             src = torch.empty(y.numel(), device="cuda", dtype=y.dtype)
             dst = torch.empty_like(src)
             copy_ms = timed_ms(lambda: dst.copy_(src))
             del src, dst
-            for inst, run in runs.items():
-                out.fill_(float("nan"))
-                run()
-                got = out[:, :, written]
-                ms = timed_ms(run)
-                bound = nbytes / 3.35e12 * 1e3
-                print(json.dumps({
-                    "kernel": "q2c_pack", "case": label,
-                    "y": list(y.shape), "dtype": str(y.dtype),
-                    "interleaved": il, "inst": inst, "ms": ms,
-                    "bound_ms": bound, "share_of_bound": bound / ms,
-                    "copy_ms": copy_ms,
-                    "ok": bool(torch.equal(got, want))}), flush=True)
-                del got
-            del want
+            out.fill_(float("nan"))
+
+            def run():
+                return quad.q2c_pack(y, out, orients, il)
+            inst, _ = _walk_of(quad.q2c_pack, run)
+            got = out[:, :, written]
+            ms = timed_ms(run)
+            bound = nbytes / 3.35e12 * 1e3
+            print(json.dumps({
+                "kernel": "q2c_pack", "case": label,
+                "y": list(y.shape), "dtype": str(y.dtype),
+                "interleaved": il, "inst": inst, "ms": ms,
+                "bound_ms": bound, "share_of_bound": bound / ms,
+                "copy_ms": copy_ms,
+                "ok": bool(torch.equal(got, want))}), flush=True)
+            del got, want
 
 
 def run_k13(im):
     """K13's merge and split on swt_long's 'periodization' spectra (rfft
-    along H and along W of 1x3x4096^2 planes), each output layout the
-    tree has (a tree without layouts, an older parent, as ``parent``),
-    alone against its bytes bound and as the whole merge with the irfft
-    after it (``merge+irfft``: the output layout decides what PyTorch's
-    c2r path copies; the change's stream layout is transformed along the
-    last dimension of a view, as transforms/dwt.py does)."""
+    along H and along W of 1x3x4096^2 planes; and along W of 4094-wide
+    planes, whose rows of 2048 values all start on a 16-byte line, no
+    value alone), labelled with the walk the
+    call took (``parent`` for a tree that counts none), alone against its
+    bytes bound and as the whole merge with the irfft after it
+    (``with_irfft_ms``: the output layout decides what PyTorch's c2r path
+    copies; a tree that counts walks writes the rfft layout, transformed
+    along the last dimension of a view as transforms/dwt.py does, the
+    parent along dim)."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     n = 4096
     lo, hi = (torch.randn((1, 3, n, n), generator=gen, device="cuda")
               for _ in range(2))
-    layouts = ("stream", "contiguous") if hasattr(im, "spec_walk") \
-        else ("parent",)
+    view = hasattr(im, "SPEC_WALKS")
 
-    def irfft(S, dim, layout):
-        # the change transforms along the last dimension of a view (one
-        # copy, PyTorch's c2r clone), the parent along dim
-        if layout == "parent":
+    def irfft(S, dim, n):
+        if not view:
             return torch.fft.irfft(S, n=n, dim=dim)
         return torch.fft.irfft(S.movedim(dim, -1), n=n,
                                dim=-1).movedim(-1, dim)
-    for axis in (2, 3):
-        A, B = (torch.fft.rfft(t, dim=axis) for t in (lo, hi))
+    for axis, na in ((2, n), (3, n), (3, n - 2)):
+        A, B = (torch.fft.rfft(t[..., :na], dim=axis) for t in (lo, hi))
         nf = A.shape[axis]
         g0, g1 = (torch.randn(nf, generator=gen, device="cuda",
                               dtype=torch.complex64) for _ in range(2))
-        want_m = im.spec_merge_plain(A, B, g0, g1, axis)
-        want_s = im.spec_split_plain(A, g0, g1, axis)
         bound = 24.0 * A.numel() / 3.35e12 * 1e3
-        for layout in layouts:
-            lay = () if layout == "parent" else (layout,)
-            for name, run, want in (
-                    ("spec_merge",
-                     lambda: im.spec_merge(A, B, g0, g1, axis, *lay),
-                     want_m),
-                    ("spec_split",
-                     lambda: im.spec_split(A, g0, g1, axis, *lay), want_s)):
-                wrapper = getattr(im, name)
-                before = dict(getattr(wrapper, "instantiations", {}))
-                got = run()
-                walk = {k: v - before.get(k, 0) for k, v in
-                        getattr(wrapper, "instantiations", {}).items()
-                        if v != before.get(k, 0)}
-                err = float((got - want).abs().max())
-                d = axis if name == "spec_merge" else axis + 1
-                line = {"kernel": name, "case": f"swt_long axis {axis}",
-                        "layout": layout, "walk": walk,
-                        "ms": timed_ms(run), "bound_ms": bound,
-                        "max_abs_err": err, "ok": err < 1e-3,
-                        "out_strides": list(got.stride()),
-                        "with_irfft_ms": timed_ms(
-                            lambda: irfft(run(), d, layout))}
-                line["share_of_bound"] = bound / line["ms"]
-                print(json.dumps(line), flush=True)
-                del got
-        if hasattr(im, "spec_walk"):
-            # irfft alone, of each layout, along the last dimension of a
-            # view and along dim (the parent's call)
-            line = {"kernel": "irfft", "case": f"swt_long axis {axis}"}
-            for layout in layouts:
-                Z = im.spec_merge(A, B, g0, g1, axis, layout)
-                line[f"{layout}_view_ms"] = timed_ms(
-                    lambda: irfft(Z, axis, layout))
-                line[f"{layout}_dim_ms"] = timed_ms(
-                    lambda: torch.fft.irfft(Z, n=n, dim=axis))
-                del Z
+        for name, run, want in (
+                ("spec_merge", lambda: im.spec_merge(A, B, g0, g1, axis),
+                 im.spec_merge_plain(A, B, g0, g1, axis)),
+                ("spec_split", lambda: im.spec_split(A, g0, g1, axis),
+                 im.spec_split_plain(A, g0, g1, axis))):
+            walk, got = _walk_of(getattr(im, name), run)
+            err = float((got - want).abs().max())
+            d = axis if name == "spec_merge" else axis + 1
+            line = {"kernel": name, "case": f"swt_long axis {axis}" + (
+                        "" if na == n else f", {na} samples"),
+                    "walk": walk, "ms": timed_ms(run), "bound_ms": bound,
+                    "max_abs_err": err, "ok": err < 1e-3,
+                    "out_strides": list(got.stride()),
+                    "with_irfft_ms": timed_ms(lambda: irfft(run(), d, na))}
+            line["share_of_bound"] = bound / line["ms"]
             print(json.dumps(line), flush=True)
-        del A, B, want_m, want_s
+            del got, want
+        del A, B
         torch.cuda.empty_cache()
 
 
@@ -674,8 +652,8 @@ def main():
     if not torch.cuda.is_available():
         print("stencil_probe: no CUDA device", file=sys.stderr)
         return 2
-    if args.root:
-        sys.path.insert(0, args.root)
+    # the checkout this script lies in, unless another is named
+    sys.path.insert(0, args.root or str(Path(__file__).resolve().parents[1]))
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     import pytorch_wavelets_tpu_torch as tt
