@@ -37,7 +37,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    torch.cat's backward hands it, b = 0), each instantiation against its
    plain version; quad_edge_cases: K2 at edge views (odd k, bands off
    their 16-byte lines, per-level rows off theirs, every o_dim / ri_dim
-   layout, fp32 and bf16), both instantiations bit for bit.
+   layout, fp32 and bf16), both instantiations bit for bit;
+   c2q_edge_cases: K3 likewise (odd w, w = 1, bands 4, 8 and 12 bytes
+   off a line, both output layouts, every layout), into NaN-filled
+   outputs.
 7. dwt_main: DWTForward(J=3, db4, symmetric) then DWTInverse on
    32x10x512x512 fp32 (benchmarks/run.py:8's --dwt workload, the
    reference's DWT graph setting), checked on its first 4 images against
@@ -164,8 +167,9 @@ scattering paths' lines carry theirs (vector or strided); a scattering
 path (scat_j2, scat_j2_colour, scat_bp, scat_bp_small) fails if a K4 or
 K5 call took the strided one (vector_mags); main, banded, train_main,
 the scattering paths, dtcwt_large, per_level_main and the precision
-phases fail if a K2 call took its strided instantiation (vector_quads),
-swt_long if a K13 call did not stream (stream_specs).  K16's
+phases fail if a K2 or K3 call took its strided instantiation
+(vector_quads, vector_c2qs), the scattering paths if a K11 call did
+(vector_pools), swt_long if a K13 call did not stream (stream_specs).  K16's
 lines give torch.matmul on the probed operator (its transpose for the
 adjoint) as the library yardstick, with K1 on the same operator
 (k1_on_operator_ms) and the adjoint's partial transposed convolution
@@ -1074,15 +1078,17 @@ def replay(call, banded, quad, mag, afb, pad, fb=None, pool=None,
 
 def _inst_counter(name, fb):
     """The wrapper whose ``instantiations`` a call of kernel ``name``
-    bumps (K2's, K4's to K10's, K12's two, K13's two, K14's two, K15's
-    two, K16's two), else None."""
+    bumps (K2's, K3's, K4's to K10's, K11's two, K12's two, K13's two,
+    K14's two, K15's two, K16's two), else None."""
     from pytorch_wavelets_tpu_torch.ops import (
-        afb_sfb, iswt_merge, nonsep, quad, scat_mag,
+        afb_sfb, iswt_merge, nonsep, pool, quad, scat_mag,
     )
     if name in ("scat_mag_fwd", "scat_mag_bwd"):
         return getattr(scat_mag, name)
-    if name == "q2c_pack":
-        return quad.q2c_pack
+    if name in ("q2c_pack", "c2q_unpack"):
+        return getattr(quad, name)
+    if name in POOLS:
+        return getattr(pool, name)
     if name in ("spec_merge", "spec_split"):
         return getattr(iswt_merge, name)
     if name in ("dtcwt_filt", "dtcwt_dfilt", "dtcwt_ifilt") and \
@@ -1137,6 +1143,28 @@ def vector_quads(insts, phase, counts):
     require(got.get("vector", 0) == counts.get("q2c_pack", 0),
             f"{phase}: q2c_pack launched {counts.get('q2c_pack', 0)} times, "
             f"{got} on its vector instantiation")
+    return insts
+
+
+def vector_c2qs(insts, phase, counts):
+    """Every K3 launch of a path that reads the default band layout took
+    the vector instantiation (16-byte loads of (re, im) pairs)."""
+    got = insts.get("c2q_unpack", {})
+    require(got.get("vector", 0) == counts.get("c2q_unpack", 0),
+            f"{phase}: c2q_unpack launched {counts.get('c2q_unpack', 0)} "
+            f"times, {got} on its vector instantiation")
+    return insts
+
+
+def vector_pools(insts, phase, counts):
+    """Every K11 launch of a per-level scattering path took the vector
+    instantiation (16-byte loads of the lowpass rows; 16-byte stores of
+    the adjoint's)."""
+    for k in POOLS:
+        got = insts.get(k, {})
+        require(got.get("vector", 0) == counts.get(k, 0),
+                f"{phase}: {k} launched {counts.get(k, 0)} times, {got} on "
+                f"its vector instantiation")
     return insts
 
 
@@ -1272,7 +1300,8 @@ def drive(tt, ops, fused, scat, shape, J, phase):
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         copies = copy_counts(ops)
-        insts = vector_quads(inst_counts(ops), phase, counts)
+        insts = vector_c2qs(vector_quads(inst_counts(ops), phase, counts),
+                            phase, counts)
         first_s = time.perf_counter() - t0
         require(all(counts[k] > 0 for k in PYRAMID_KERNELS),
                 f"{phase}: a kernel of the path never launched: {counts}")
@@ -1358,7 +1387,8 @@ def train_main(tt, ops, fused, scat, shape, J):
         grad = torch.autograd.grad(outs, x, cts)[0]
         torch.cuda.synchronize()
         counts = ops.launch_counts()
-        insts = vector_quads(inst_counts(ops), "train_main", counts)
+        insts = vector_c2qs(vector_quads(inst_counts(ops), "train_main",
+                                         counts), "train_main", counts)
     bwd_counts = {k: counts[k] - fwd_counts[k] for k in counts}
     require(all(fwd_counts[k] > 0 and bwd_counts[k] > 0
                 for k in PYRAMID_KERNELS),
@@ -1449,9 +1479,9 @@ def scat_step(tt, ops, fused, scat, shape, check_n, phase, timing,
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         copies = copy_counts(ops)
-        insts = vector_quads(vector_mags(
+        insts = vector_pools(vector_c2qs(vector_quads(vector_mags(
             tiles_only(inst_counts(ops), phase, counts), phase, counts),
-            phase, counts)
+            phase, counts), phase, counts), phase, counts)
         first_s = time.perf_counter() - t0
     bwd_counts = {k: counts[k] - fwd_counts[k] for k in counts}
     need_fwd, need_bwd = need or (
@@ -1657,6 +1687,63 @@ def quad_edge_cases(quad):
     torch.cuda.synchronize()
     insts = {w: c - before[w] for w, c in quad.q2c_pack.instantiations.items()}
     require(all(insts.values()), f"quad_edge_cases: a K2 instantiation was "
+            f"not checked: {insts}")
+    return n, mismatches, insts
+
+
+def c2q_edge_cases(quad):
+    """K3 in each instantiation at edge views, fp32 and bf16, bit for bit
+    against its plain version computed in fp32 and rounded once, written
+    into NaN-filled outputs (a missed or doubled write shows): both
+    output layouts, odd w and w = 1 (a row's partial slots), bands 4, 8
+    and 12 bytes into a line (bf16: 2, 4 and 6 values; fp32: 8 bytes, a
+    line, 12 bytes off a pair), rows of several chunks, every o_dim /
+    ri_dim layout, bands off a whole (re, im) pair.  Returns (calls
+    checked, elements that differ from the plain version, K3's launches
+    by instantiation)."""
+    from pytorch_wavelets_tpu_torch.ops import fused_dtcwt
+    from pytorch_wavelets_tpu_torch.transforms.dtcwt import get_dimensions5
+    gen = torch.Generator().manual_seed(121)
+    before = dict(quad.c2q_unpack.instantiations)
+    n = mismatches = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for m, k, il, o_dim, ri_dim, off in (
+                (3, 8, False, 2, -1, 0), (3, 7, False, 2, -1, 0),
+                (2, 1, False, 2, -1, 0), (2, 6, False, 2, -1, 2),
+                (3, 9, False, 2, -1, 4), (2, 10, False, 2, -1, 6),
+                (2, 6, False, 2, -1, 3), (3, 5, False, 1, -1, 0),
+                (2, 9, False, 0, 5, 6), (5, 300, False, 2, -1, 2),
+                (3, 8, True, 2, -1, 0), (3, 5, True, 1, -1, 0),
+                (2, 1, True, 2, -1, 0), (2, 6, True, 2, -1, 4),
+                (4, 300, True, 2, -1, 0), (3, 8, False, 1, 3, 0),
+                (3, 8, False, 2, -1, 1), (3, 5, True, 4, 2, 0),
+                (2, 6, True, 2, 3, 2)):
+            od, rd, _, _ = get_dimensions5(o_dim, ri_dim)
+            orients = ((0, 5), (2, 3), (1, 4)) if il else ((2, 3), (1, 4))
+            shape = [2, 3, m, k]
+            shape.insert(od, 6)
+            shape.insert(rd, 2)
+            size = int(np.prod(shape))
+            buf = torch.randn(size + off, generator=gen).to("cuda", dtype)
+            h = fused_dtcwt.canonical_bands(torch.as_strided(
+                buf, shape, torch.empty(shape).stride(), off), od, rd)
+            oshape = quad._c2q_addr(h, len(orients), il)[0]
+            got = torch.full(oshape, float("nan"), device="cuda",
+                             dtype=dtype)
+            quad.c2q_unpack(h, orients, il, out=got)
+            want = quad.c2q_unpack_plain(h.float(), orients, il).to(dtype)
+            bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+            bad = int((got.view(bits) != want.view(bits)).sum())
+            require(bad == 0,
+                    f"c2q_unpack edge case m={m} k={k} interleaved={il} "
+                    f"o_dim={o_dim} ri_dim={ri_dim} offset={off} {dtype}: "
+                    f"{bad} elements differ from its plain version")
+            mismatches += bad
+            n += 1
+    torch.cuda.synchronize()
+    insts = {w: c - before[w]
+             for w, c in quad.c2q_unpack.instantiations.items()}
+    require(all(insts.values()), f"c2q_edge_cases: a K3 instantiation was "
             f"not checked: {insts}")
     return n, mismatches, insts
 
@@ -1973,8 +2060,9 @@ def dtcwt_large(tt, ops, lev, fb, scat, quad, pool, replay_calls):
         rec = i((yl, yh))
         torch.cuda.synchronize()
         counts = ops.launch_counts()
-        insts = vector_quads(tiles_only(inst_counts(ops), "dtcwt_large",
-                                        counts), "dtcwt_large", counts)
+        insts = vector_c2qs(vector_quads(tiles_only(
+            inst_counts(ops), "dtcwt_large", counts), "dtcwt_large", counts),
+            "dtcwt_large", counts)
         first_s = time.perf_counter() - t0
         inv_counts = {k: counts[k] - fwd_counts[k] for k in counts}
         _need(fwd_counts, ("dtcwt_filt", "dtcwt_dfilt", "q2c_pack"),
@@ -2045,9 +2133,9 @@ def dtcwt_large(tt, ops, lev, fb, scat, quad, pool, replay_calls):
     grad = torch.autograd.grad(outs, xg, cts)[0]
     torch.cuda.synchronize()
     step_bwd_counts = ops.launch_counts()
-    step_bwd_insts = vector_quads(tiles_only(
+    step_bwd_insts = vector_c2qs(vector_quads(tiles_only(
         inst_counts(ops), "dtcwt_large", step_bwd_counts), "dtcwt_large",
-        step_bwd_counts)
+        step_bwd_counts), "dtcwt_large", step_bwd_counts)
     del outs
     _need(step_bwd_counts, ("dtcwt_filt", "dtcwt_dfilt", "dtcwt_ifilt",
                             "q2c_pack", "c2q_unpack"), "dtcwt_large",
@@ -2119,9 +2207,9 @@ def per_level_main(tt, ops, banded, fb, lev, scat):
             rec = i((yl, yh))
             torch.cuda.synchronize()
             counts = ops.launch_counts()
-            insts = vector_quads(tiles_only(inst_counts(ops),
-                                            "per_level_main", counts),
-                                 "per_level_main", counts)
+            insts = vector_c2qs(vector_quads(tiles_only(
+                inst_counts(ops), "per_level_main", counts),
+                "per_level_main", counts), "per_level_main", counts)
             inv_counts = {k: counts[k] - fwd_counts[k] for k in counts}
             _need(fwd_counts, ("dtcwt_filt", "dtcwt_dfilt", "q2c_pack"),
                   "per_level_main", "forward")
@@ -2224,11 +2312,24 @@ def stencil_edge_cases(fb, pool):
                     calls.append(("dtcwt_ifilt", "edge",
                                   (x, ha, hb, highpass, axis,
                                    acc_spec(x, axis, 2, 0))))
+    # K11: the 17-wide edge view x[..., 1:15] (rows at odd offsets) and
+    # its every other column, transposed views (strided); aligned rows,
+    # rows 8 bytes into a line, odd widths, h = 1, w = 1, a slice along H
+    # (vector; the adjoint also at odd offsets)
     x = torch.randn((2, 3, 10, 17), generator=gen).cuda()[..., 1:15]
     calls += [("avg_pool2_fwd", "edge", (x,)),
               ("avg_pool2_bwd", "edge", (x[..., ::2],))]
+    wide = torch.randn((2, 3, 12, 22), generator=gen).cuda()
+    for v in (wide[..., :16], wide[..., 2:18], wide[..., 2:12],
+              wide[:, :, 3:5, :12], wide[..., 4:6], wide[:, :, 2:10, 1:15],
+              wide[..., :16].transpose(2, 3), wide[:, :, :1, 2:7],
+              wide[..., :7].transpose(2, 3)[..., :1]):
+        if v.shape[2] % 2 == 0 and v.shape[3] % 2 == 0:
+            calls.append(("avg_pool2_fwd", "edge", (v,)))
+        calls.append(("avg_pool2_bwd", "edge", (v,)))
     err = 0.0
     before = dict(fb.dtcwt_dfilt.instantiations)
+    pool_before = {k: dict(getattr(pool, k).instantiations) for k in POOLS}
     for call in calls:
         got, want, *_, tol = stencil_call_parts(call, fb, pool)
         ok = (torch.equal(got, want) if tol == "exact"
@@ -2242,7 +2343,13 @@ def stencil_edge_cases(fb, pool):
     require(all(insts.get(i) for i in TILE_INSTS),
             f"stencil_edge_cases: a K9 instantiation was not checked: "
             f"{insts}")
-    return len(calls), err, insts
+    pool_insts = {k: {i: v - pool_before[k][i] for i, v in
+                      getattr(pool, k).instantiations.items()}
+                  for k in POOLS}
+    require(all(all(v.values()) for v in pool_insts.values()),
+            f"stencil_edge_cases: a K11 instantiation was not checked: "
+            f"{pool_insts}")
+    return len(calls), err, insts, pool_insts
 
 
 # ---------------------------------------------------------------------------
@@ -3977,8 +4084,8 @@ def precision_path(tt, ops, banded, cuda, phase, mode, runs, x_cpu, refs,
         require(counts["apply_row"] == counts["apply_col"] == 0,
                 f"{phase}: K1 (fp32) launched under {mode}: {counts}")
         fields["launches"] = {k: v for k, v in counts.items() if v}
-        fields["instantiations"] = vector_quads(inst_counts(ops), phase,
-                                                counts)
+        fields["instantiations"] = vector_c2qs(vector_quads(
+            inst_counts(ops), phase, counts), phase, counts)
         fields["max_abs_err_vs_cpu_fp32"] = {
             name: _path_errors(outs[name], refs[name], n, mode, phase, recon,
                                x_max)
@@ -4311,6 +4418,9 @@ def main():
     n_edge, mismatches, edge_insts = quad_edge_cases(quad)
     emit("quad_edge_cases", calls=n_edge, mismatched_elements=mismatches,
          tolerance="exact", instantiations=edge_insts)
+    n_edge, mismatches, edge_insts = c2q_edge_cases(quad)
+    emit("c2q_edge_cases", calls=n_edge, mismatched_elements=mismatches,
+         tolerance="exact", instantiations=edge_insts)
     dfields, dtfields, d_roles, dcalls, dstep = dwt_path(
         tt, ops, afb_sfb, dwt, DWT_SHAPE, DWT_J, False, "dwt_main")
     emit("dwt_main", **dfields)
@@ -4430,9 +4540,11 @@ def main():
     level_rows(mcalls, m_roles, f"DTCWT J=2 {shape_str(MAIN_SHAPE)} per "
                f"level")
     del mcalls
-    n_edge, edge_err, edge_insts = stencil_edge_cases(dtcwt_fb, pool)
+    n_edge, edge_err, edge_insts, pool_insts = stencil_edge_cases(dtcwt_fb,
+                                                                  pool)
     emit("stencil_edge_cases", calls=n_edge, max_abs_err=edge_err,
-         tolerance=STENCIL_TOL, k9_instantiations=edge_insts)
+         tolerance=STENCIL_TOL, k9_instantiations=edge_insts,
+         k11_instantiations=pool_insts)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 

@@ -47,7 +47,8 @@
 //   2V interleaved values (per level), and stores o2 as one 16-byte
 //   store, each where its address is aligned, else value by value.
 //   Q_SLOTS slots a thread, Q_THREADS apart, all loaded before any is
-//   stored; (i, slot) by one 32-bit division by S.
+//   stored; (i, slot) by one 32-bit division by S.  The slot plan and
+//   the wide accesses are K3's too (quad_slots.cuh).
 // - `strided`: every other view (any o_dim / ri_dim layout): Q_STEPS
 //   values a thread, (i, j) by one division by k, 32-bit offsets within a
 //   plane where the extents fit, 64-bit past that.
@@ -55,18 +56,10 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <initializer_list>
 
-#include "elem.cuh"
+#include "quad_slots.cuh"
 
 namespace {
-
-constexpr int Q_THREADS = 256;   // a block (both instantiations)
-constexpr int Q_SLOTS = 2;       // vector: slots a thread
-constexpr int Q_STEPS = 4;       // strided: values a thread
-constexpr long long SIZE32 = 1LL << 31;
-
-enum QInst { Q_VECTOR = 0, Q_STRIDED = 1 };
 
 struct QArgs {
   int C, m, k, nm, orients;
@@ -79,122 +72,6 @@ struct QArgs {
   long long cpp;                 // chunks a (plane, member)
   long long nb;                  // blocks: planes * nm * cpp
 };
-
-// The 8- and 16-byte accesses of V values of each element type.
-template <typename E>
-struct Vec;
-
-template <>
-struct Vec<float> {
-  static constexpr int V = 2;
-  // V values at p (8 bytes)
-  __device__ static void run(const float* p, float (&v)[2]) {
-    const float2 q = __ldg(reinterpret_cast<const float2*>(p));
-    v[0] = q.x;
-    v[1] = q.y;
-  }
-  // 2V values at p (16 bytes), a and b interleaved
-  __device__ static void pairs(const float* p, float (&a)[2],
-                               float (&b)[2]) {
-    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-    a[0] = q.x;
-    b[0] = q.y;
-    a[1] = q.z;
-    b[1] = q.w;
-  }
-  // V (re, im) pairs at p (16 bytes)
-  __device__ static void store(float* p, const float (&re)[2],
-                               const float (&im)[2]) {
-    *reinterpret_cast<float4*>(p) = make_float4(re[0], im[0], re[1], im[1]);
-  }
-  // one (re, im) pair at p (8 bytes)
-  __device__ static void store1(float* p, float re, float im) {
-    *reinterpret_cast<float2*>(p) = make_float2(re, im);
-  }
-};
-
-__device__ __forceinline__ __nv_bfloat162 as_bf2(unsigned u) {
-  return *reinterpret_cast<const __nv_bfloat162*>(&u);
-}
-
-__device__ __forceinline__ unsigned as_u32(__nv_bfloat162 h) {
-  return *reinterpret_cast<const unsigned*>(&h);
-}
-
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int V = 4;
-  __device__ static void run(const __nv_bfloat16* p, float (&v)[4]) {
-    const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
-    v[0] = __low2float(as_bf2(q.x));
-    v[1] = __high2float(as_bf2(q.x));
-    v[2] = __low2float(as_bf2(q.y));
-    v[3] = __high2float(as_bf2(q.y));
-  }
-  __device__ static void pairs(const __nv_bfloat16* p, float (&a)[4],
-                               float (&b)[4]) {
-    const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
-    const unsigned w[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      a[v] = __low2float(as_bf2(w[v]));
-      b[v] = __high2float(as_bf2(w[v]));
-    }
-  }
-  __device__ static void store(__nv_bfloat16* p, const float (&re)[4],
-                               const float (&im)[4]) {
-    unsigned w[4];
-#pragma unroll
-    for (int v = 0; v < 4; ++v)
-      w[v] = as_u32(__floats2bfloat162_rn(re[v], im[v]));
-    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-  }
-  __device__ static void store1(__nv_bfloat16* p, float re, float im) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(re, im);
-  }
-};
-
-__device__ __forceinline__ bool aligned(const void* p, int bytes) {
-  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
-}
-
-// V values at p: one 8-byte load where aligned, else value by value
-template <typename E>
-__device__ __forceinline__ void load_run(const E* p, float (&v)[Vec<E>::V]) {
-  if (aligned(p, 8)) {
-    Vec<E>::run(p, v);
-  } else {
-#pragma unroll
-    for (int u = 0; u < Vec<E>::V; ++u) v[u] = to_float(p[u]);
-  }
-}
-
-// 2V interleaved values at p: one 16-byte load where aligned
-template <typename E>
-__device__ __forceinline__ void load_pairs(const E* p, float (&a)[Vec<E>::V],
-                                           float (&b)[Vec<E>::V]) {
-  if (aligned(p, 16)) {
-    Vec<E>::pairs(p, a, b);
-  } else {
-#pragma unroll
-    for (int u = 0; u < Vec<E>::V; ++u) {
-      a[u] = to_float(p[2 * u]);
-      b[u] = to_float(p[2 * u + 1]);
-    }
-  }
-}
-
-template <typename E>
-__device__ __forceinline__ void store_cplx(E* p, const float (&re)[Vec<E>::V],
-                                           const float (&im)[Vec<E>::V]) {
-  if (aligned(p, 16)) {
-    Vec<E>::store(p, re, im);
-  } else {
-#pragma unroll
-    for (int u = 0; u < Vec<E>::V; ++u)
-      Vec<E>::store1(p + 2 * u, re[u], im[u]);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // vector
@@ -228,8 +105,7 @@ __global__ void __launch_bounds__(Q_THREADS)
       if (e >= slots) continue;
       const int i = e / S, s = e - i * S;
       // slots are anchored on o1's 16-byte lines: h j lie before the row
-      const int h = (int)((reinterpret_cast<uintptr_t>(out1 + i * sh) & 15) /
-                          (2 * sizeof(E)));
+      const int h = line_head(out1 + i * sh);
       row[u] = i;
       j0[u] = s * V - h;
       full[u] = j0[u] >= 0 && j0[u] + V <= k;
@@ -323,33 +199,21 @@ __global__ void __launch_bounds__(Q_THREADS)
   }
 }
 
-long long abs_ll(long long v) { return v < 0 ? -v : v; }
-
-unsigned grid_of(long long nb) {
-  return static_cast<unsigned>(nb < (1LL << 30) ? nb : (1LL << 30));
-}
-
 // The vector instantiation's slots and grid (a.S, a.cpp, a.nb) where the
 // layout takes it and a plane's offsets fit in 32 bits; else false.
 template <typename E>
 bool vector_plan(const void* out, long long planes, bool il, QArgs& a) {
   const int V = Vec<E>::V;
   const long long esz = sizeof(E);
-  // the layout: (re, im) adjacent, w pairs adjacent, rows and planes at
-  // whole pairs; corners along j at unit stride or interleaved
-  bool ok = a.sri == 1 && a.sw == 2 && a.oa == 0 && (a.sj == 1 || il) &&
-            (reinterpret_cast<uintptr_t>(out) % (2 * esz)) == 0;
-  for (long long s : {a.sn, a.sc, a.so, a.sh}) ok = ok && s % 2 == 0;
+  // the layout: the bands' pairs (quad_slots.cuh), corners along j at
+  // unit stride or interleaved
+  bool ok = pair_layout(out, a.sn, a.sc, a.so, a.sh, a.sw, a.sri, esz) &&
+            a.oa == 0 && (a.sj == 1 || il);
   // 32-bit within a plane
   const long long yext = (a.m + 1) * abs_ll(a.si) + 2LL * a.k +
                          abs_ll(a.ob) + abs_ll(a.oc) + abs_ll(a.od);
   ok = ok && yext < SIZE32 && (a.m + 1) * abs_ll(a.sh) + 2LL * a.k < SIZE32;
-  // slots: anchored on o1's lines; one more a row unless every row starts
-  // on one
-  bool lines = reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  for (long long s : {a.sn, a.sc, a.so, a.sh})
-    lines = lines && (s * esz) % 16 == 0;
-  a.S = (int)((a.k - 1 + (lines ? 0 : V - 1)) / V + 1);
+  a.S = slots_a_row(out, a.sn, a.sc, a.so, a.sh, esz, V, V, a.k);
   const long long per = (long long)Q_THREADS * Q_SLOTS;
   a.cpp = ((long long)a.m * a.S + per - 1) / per;
   a.nb = planes * a.nm * a.cpp;

@@ -34,8 +34,8 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
 # C signatures: every pointer and the stream as c_void_p, sizes as int,
 # strides as int64, scalars as float.  Each launcher returns
-# cudaGetLastError(); K2's and K13's also write the variant they launched
-# through an int pointer.
+# cudaGetLastError(); K2's, K3's, K11's and K13's also write the variant
+# they launched through an int pointer.
 _SIGNATURES = {
     "banded_apply": {
         "banded_apply_col": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -61,7 +61,7 @@ _SIGNATURES = {
     "c2q_unpack": {
         "c2q_unpack": [_P, _P, _L, _I, _I, _I, _I, _I,
                        _L, _L, _L, _L, _L, _L,
-                       _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _P],
+                       _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _P, _P],
     },
     "scat_mag": {
         "scat_mag_fwd": [_P, _P, _L, _I, _I, _I, _I,
@@ -93,8 +93,8 @@ _SIGNATURES = {
                         _L, _L, _L, _L, _I, _I, _I, _L, _L, _L, _L, _P],
     },
     "avg_pool2": {
-        "avg_pool2_fwd": [_P, _P, _L, _I, _I, _I, _L, _L, _L, _L, _P],
-        "avg_pool2_bwd": [_P, _P, _L, _I, _I, _I, _L, _L, _L, _L, _P],
+        "avg_pool2_fwd": [_P, _P, _L, _I, _I, _I, _L, _L, _L, _L, _P, _P],
+        "avg_pool2_bwd": [_P, _P, _L, _I, _I, _I, _L, _L, _L, _L, _P, _P],
     },
     "swt_atrous": {
         "swt_afb": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _L, _L, _L, _L,

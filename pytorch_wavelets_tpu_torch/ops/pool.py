@@ -9,16 +9,25 @@ lowpass; the composed path folds the pool into its operators instead.
 :func:`avg_pool2_bwd` its adjoint (1/4 of the cotangent broadcast over
 each 2x2 block).  Both are bound by bytes.  Their plain PyTorch versions
 fix the order of the sums, so the kernel is bit-equal to them; CPU
-tensors take them.
+tensors take them.  Each C entry picks one of two instantiations and
+returns it, and the wrapper counts it in ``instantiations``: ``vector``
+(16-byte loads of rows at unit stride whose pairs lie within 16-byte
+lines, forward; 16-byte stores from a cotangent at unit stride, adjoint)
+or ``strided`` (any view through its strides).
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from pytorch_wavelets_tpu_torch.ops import _cuda
 
 __all__ = ["avg_pool2_fwd", "avg_pool2_bwd", "avg_pool2_fwd_plain",
-           "avg_pool2_bwd_plain"]
+           "avg_pool2_bwd_plain", "POOL_INSTS"]
+
+# the C entries' instantiation codes (csrc/avg_pool2.cu:PInst)
+POOL_INSTS = ("vector", "strided")
 
 
 def avg_pool2_fwd_plain(x):
@@ -55,11 +64,15 @@ def avg_pool2_fwd(x):
     _cuda.check_inputs("avg_pool2_fwd", x)
     y = torch.empty((N, C, H // 2, W // 2), device=x.device,
                     dtype=torch.float32)
+    if y.numel() == 0:
+        return y
     lib = _cuda.library("avg_pool2")
+    inst = ctypes.c_int(-1)
     _cuda.check(lib, "avg_pool2_fwd", lib.avg_pool2_fwd(
         x.data_ptr(), y.data_ptr(), N, C, H // 2, W // 2, *x.stride(),
-        _cuda.stream_of(x)))
+        ctypes.addressof(inst), _cuda.stream_of(x)))
     _K11F.launches += 1
+    _K11F.instantiations[POOL_INSTS[inst.value]] += 1
     return y
 
 
@@ -76,14 +89,20 @@ def avg_pool2_bwd(g):
     N, C, h, w = g.shape
     dx = torch.empty((N, C, 2 * h, 2 * w), device=g.device,
                      dtype=torch.float32)
+    if dx.numel() == 0:
+        return dx
     lib = _cuda.library("avg_pool2")
+    inst = ctypes.c_int(-1)
     _cuda.check(lib, "avg_pool2_bwd", lib.avg_pool2_bwd(
         g.data_ptr(), dx.data_ptr(), N, C, h, w, *g.stride(),
-        _cuda.stream_of(g)))
+        ctypes.addressof(inst), _cuda.stream_of(g)))
     _K11B.launches += 1
+    _K11B.instantiations[POOL_INSTS[inst.value]] += 1
     return dx
 
 
 # counted through these names, as in ops/afb_sfb.py
 _K11F, _K11B = avg_pool2_fwd, avg_pool2_bwd
 _K11F.launches = _K11B.launches = 0
+_K11F.instantiations = dict.fromkeys(POOL_INSTS, 0)
+_K11B.instantiations = dict.fromkeys(POOL_INSTS, 0)

@@ -15,11 +15,12 @@ Both are pure elementwise gathers bound by bytes, on fp32 or bf16 (both
 tensors of one dtype; bf16 computed in fp32 and rounded once as it is
 stored, ``csrc/elem.cuh``).  Each has its plain
 PyTorch version here (the JAX slicing; per level ``ops/dtcwt_fb.py:q2c``
-/ ``c2q``), which CPU tensors take.  K2's C entry picks one of two
+/ ``c2q``), which CPU tensors take.  Each C entry picks one of two
 instantiations and returns it, and the wrapper counts it in
-``instantiations``: ``vector``, 16-byte stores of the bands' default
-layout (re/im adjacent, w pairs adjacent), or ``strided``, any other
-layout through its strides.
+``instantiations``: ``vector``, 16-byte stores (K2) or loads (K3) of the
+bands' default layout (re/im adjacent, w pairs adjacent) in slots
+anchored on their 16-byte lines (``csrc/quad_slots.cuh``), or
+``strided``, any other layout through its strides.
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ __all__ = ["q2c_pack", "q2c_pack_plain", "c2q_unpack", "c2q_unpack_plain",
            "Q2C_INSTS"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
-# the C entry's instantiation codes (csrc/q2c_pack.cu:QInst)
+# the C entries' instantiation codes (csrc/quad_slots.cuh:QInst)
 Q2C_INSTS = ("vector", "strided")
 
 
@@ -136,43 +137,63 @@ def c2q_unpack_plain(h, orients, interleaved=False):
     return torch.cat(xqs, dim=-2) if len(xqs) > 1 else xqs[0]
 
 
-def c2q_unpack(h, orients, interleaved=False):
+def _c2q_addr(h, nm, interleaved):
+    """(the contiguous output's shape, the C entry's output addressing:
+    sxp, sxm, sxi, sxj, x1o, x2o, x3o, x4o, scale) of bands ``h``
+    (N, C, 6, h, w, 2) and ``nm`` members."""
+    N, C, _, hh, ww, _ = h.shape
+    plane = 4 * hh * ww
+    if interleaved:
+        return ((N, C, nm, 2 * hh, 2 * ww),
+                (nm * plane, plane, 4 * ww, 2, 0, 1, 2 * ww, 2 * ww + 1,
+                 INV_SQRT2))
+    return ((N, C, nm * 2 * hh, 2 * ww),
+            (nm * plane, plane, 2 * ww, 1, 0, ww, 2 * hh * ww,
+             2 * hh * ww + ww, 1.0))
+
+
+def c2q_unpack(h, orients, interleaved=False, out=None):
     """Combine each member's orientation pair (o1, o2) of ``orients`` into
     its quadrant planes: h is a level's bands as a (N, C, 6, h, w, 2) view
     (:func:`canonical_bands`, read through its strides); returns the
     contiguous (N, C, nm*2h, 2w) group input of the row stage, or with
     ``interleaved`` (the per-level path) the contiguous (N, C, nm, 2h, 2w)
-    images of the JAX ``c2q``, its 1/sqrt2 applied here.
+    images of the JAX ``c2q``, its 1/sqrt2 applied here; written into
+    ``out`` (contiguous, of that shape) where one is given.
     CPU tensors take :func:`c2q_unpack_plain`; CUDA tensors launch K3.
     """
+    nm = len(orients)
+    shape, addr = _c2q_addr(h, nm, interleaved)
+    if out is not None and (tuple(out.shape) != shape or out.dtype !=
+                            h.dtype or not out.is_contiguous()):
+        raise ValueError(f"c2q_unpack: out {tuple(out.shape)} {out.dtype} "
+                         f"is not a contiguous {shape} {h.dtype} tensor")
     if h.device.type == "cpu":
-        return c2q_unpack_plain(h, orients, interleaved)
-    _cuda.check_inputs("c2q_unpack", h, dtypes=_DTYPES)
+        xq = c2q_unpack_plain(h, orients, interleaved)
+        return xq if out is None else out.copy_(xq)
+    _cuda.check_inputs("c2q_unpack", h, *([] if out is None else [out]),
+                       dtypes=_DTYPES)
     N, C, no, hh, ww, nri = h.shape
     if (no, nri) != (6, 2):
         raise ValueError(f"c2q_unpack: bands {tuple(h.shape)} are not "
                          f"(N, C, 6, h, w, 2)")
-    nm = len(orients)
-    plane = 4 * hh * ww
-    if interleaved:
-        xq = torch.empty((N, C, nm, 2 * hh, 2 * ww), device=h.device,
-                         dtype=h.dtype)
-        addr = (nm * plane, plane, 4 * ww, 2, 0, 1, 2 * ww, 2 * ww + 1,
-                INV_SQRT2)
-    else:
-        xq = torch.empty((N, C, nm * 2 * hh, 2 * ww), device=h.device,
-                         dtype=h.dtype)
-        addr = (nm * plane, plane, 2 * ww, 1, 0, ww, 2 * hh * ww,
-                2 * hh * ww + ww, 1.0)
+    xq = torch.empty(shape, device=h.device, dtype=h.dtype) if out is None \
+        else out
+    if xq.numel() == 0:
+        return xq
     lib = _cuda.library("c2q_unpack")
+    inst = ctypes.c_int(-1)
     _cuda.check(lib, "c2q_unpack", lib.c2q_unpack(
         h.data_ptr(), xq.data_ptr(), N * C, C, hh, ww, nm,
         _pack_orients(orients), *h.stride(), *addr,
-        int(h.dtype == torch.bfloat16), _cuda.stream_of(h)))
+        int(h.dtype == torch.bfloat16), ctypes.addressof(inst),
+        _cuda.stream_of(h)))
     c2q_unpack.launches += 1
+    c2q_unpack.instantiations[Q2C_INSTS[inst.value]] += 1
     return xq
 
 
 q2c_pack.launches = 0
 q2c_pack.instantiations = dict.fromkeys(Q2C_INSTS, 0)
 c2q_unpack.launches = 0
+c2q_unpack.instantiations = dict.fromkeys(Q2C_INSTS, 0)

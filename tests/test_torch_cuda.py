@@ -316,6 +316,92 @@ def test_default_layouts_take_vector_q2c(dev, dtype):
             "vector": n, "strided": 0}
 
 
+C2Q_VIEWS = [
+    # (case, h, w, interleaved, o_dim, ri_dim, bands offset, instantiation)
+    ("composed", 3, 8, False, 2, -1, 0, "vector"),
+    ("composed odd w", 3, 7, False, 2, -1, 0, "vector"),
+    ("composed w 1", 2, 1, False, 2, -1, 0, "vector"),
+    ("composed offset 2", 2, 6, False, 2, -1, 2, "vector"),
+    ("composed offset 4", 3, 9, False, 2, -1, 4, "vector"),
+    ("composed offset 6", 2, 10, False, 2, -1, 6, "vector"),
+    ("composed scat layout", 3, 5, False, 1, -1, 0, "vector"),
+    ("composed o first", 2, 9, False, 0, 5, 6, "vector"),
+    ("composed wide", 5, 300, False, 2, -1, 2, "vector"),
+    ("per level", 3, 8, True, 2, -1, 0, "vector"),
+    ("per level odd w", 3, 5, True, 1, -1, 0, "vector"),
+    ("per level offset", 2, 6, True, 2, -1, 4, "vector"),
+    ("per level wide", 4, 300, True, 2, -1, 0, "vector"),
+    ("composed re/im apart", 3, 8, False, 1, 3, 0, "strided"),
+    ("composed off a pair", 3, 8, False, 2, -1, 3, "strided"),
+    ("per level re/im apart", 3, 5, True, 4, 2, 0, "strided"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case,m,k,il,o_dim,ri_dim,off,inst", C2Q_VIEWS,
+                         ids=[v[0] for v in C2Q_VIEWS])
+def test_c2q_unpack_instantiations(dev, case, m, k, il, o_dim, ri_dim, off,
+                                   inst, dtype):
+    """K3 in each instantiation at the edge views (odd w, w = 1, bands off
+    their 16-byte lines, every layout), bit for bit its plain version
+    computed in fp32 and rounded once into a NaN-filled output; each call
+    moves its instantiation's count by one."""
+    from pytorch_wavelets_tpu_torch.transforms.dtcwt import get_dimensions5
+    od, rd, _, _ = get_dimensions5(o_dim, ri_dim)
+    orients = ((0, 5), (2, 3), (1, 4)) if il else ((2, 3), (1, 4))
+    shape = [2, 3, m, k]
+    shape.insert(od, 6)
+    shape.insert(rd, 2)
+    buf = torch.from_numpy(_rand((int(np.prod(shape)) + off,), 32)).to(
+        dev, dtype)
+    h = fused_dtcwt.canonical_bands(
+        torch.as_strided(buf, shape, torch.empty(shape).stride(), off), od,
+        rd)
+    got = torch.full(quad._c2q_addr(h, len(orients), il)[0], float("nan"),
+                     device=dev, dtype=dtype)
+    before = dict(quad.c2q_unpack.instantiations)
+    quad.c2q_unpack(h, orients, il, out=got)
+    torch.cuda.synchronize()
+    assert {k_: v - before[k_] for k_, v in
+            quad.c2q_unpack.instantiations.items()} == {
+        k_: int(k_ == inst) for k_ in before}
+    want = quad.c2q_unpack_plain(h.float(), orients, il).to(dtype)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_default_layouts_take_vector_c2q(dev, dtype):
+    """Every K3 call of the composed and per-level DTCWT and of the
+    scattering layers' backwards, in the default band layout, takes the
+    vector instantiation."""
+    runs = [lambda d: (tt.DTCWTForward(J=2, device=d),
+                       tt.DTCWTInverse(device=d)),
+            lambda d: (tt.ScatLayerj2(device=d), None),
+            lambda d: (tt.ScatLayerj2(biort="near_sym_b_bp",
+                                      qshift="qshift_b_bp", device=d), None)]
+    x = torch.from_numpy(_rand((2, 3, 64, 64), 33)).to(dev, dtype)
+    for make in runs:
+        f, i = make(dev)
+        xg = x.detach().requires_grad_()
+        ops.reset_launches()
+        out = f(xg) if i is None else i(f(xg))
+        torch.autograd.grad(out, xg, torch.ones_like(out))
+        torch.cuda.synchronize()
+        n, insts = ops.launch_counts()["c2q_unpack"], \
+            ops.instantiation_counts()["c2q_unpack"]
+        assert n > 0 and insts == {"vector": n, "strided": 0}
+    with _per_level():
+        f, i = tt.DTCWTForward(J=2, device=dev), tt.DTCWTInverse(device=dev)
+        ops.reset_launches()
+        i(f(x))
+        torch.cuda.synchronize()
+        n = ops.launch_counts()["c2q_unpack"]
+        assert n > 0 and ops.instantiation_counts()["c2q_unpack"] == {
+            "vector": n, "strided": 0}
+
+
 class _per_level:
     """The per-level path for the body (set_operator_matmul(False))."""
 
@@ -1185,6 +1271,65 @@ def test_avg_pool2(dev):
                                pool.avg_pool2_bwd_plain(g), rtol=0, atol=0)
     assert (pool.avg_pool2_fwd.launches,
             pool.avg_pool2_bwd.launches) == (n0[0] + 1, n0[1] + 1)
+
+
+def _pool_views(dev):
+    """(case, view, forward's instantiation or None where H or W is odd,
+    adjoint's instantiation) of K11's edge views."""
+    wide = torch.from_numpy(_rand((2, 3, 12, 22), 58)).to(dev)
+    x17 = torch.from_numpy(_rand((2, 3, 10, 17), 56)).to(dev)[..., 1:15]
+    return [
+        ("aligned", wide[..., :16], "vector", "vector"),
+        ("8 bytes off", wide[..., 2:18], "vector", "vector"),
+        ("odd w", wide[..., 2:12], "vector", "vector"),
+        ("h 1", wide[:, :, 3:5, :12], "vector", "vector"),
+        ("w 1", wide[..., 4:6], "vector", "vector"),
+        ("odd offset", wide[:, :, 2:10, 1:15], "strided", "vector"),
+        ("17-wide edge", x17, "strided", "vector"),
+        ("every other column", x17[..., ::2], None, "strided"),
+        ("transposed", wide[..., :16].transpose(2, 3), "strided",
+         "strided"),
+        ("odd h", wide[:, :, :1, 2:7], None, "vector"),
+    ]
+
+
+def test_avg_pool2_instantiations(dev):
+    """K11's forward and adjoint in each instantiation at the edge views,
+    exactly their plain versions; each call moves its instantiation's
+    count by one."""
+    from pytorch_wavelets_tpu_torch.ops import pool
+    seen = {"fwd": set(), "bwd": set()}
+    for case, v, fwd_inst, bwd_inst in _pool_views(dev):
+        for kind, inst in (("fwd", fwd_inst), ("bwd", bwd_inst)):
+            if inst is None:
+                continue
+            kern = getattr(pool, f"avg_pool2_{kind}")
+            plain = getattr(pool, f"avg_pool2_{kind}_plain")
+            before = dict(kern.instantiations)
+            got = kern(v)
+            torch.cuda.synchronize()
+            assert {k: n - before[k] for k, n in
+                    kern.instantiations.items()} == {
+                k: int(k == inst) for k in before}, (case, kind)
+            torch.testing.assert_close(got, plain(v), rtol=0, atol=0)
+            seen[kind].add(inst)
+    assert seen == {"fwd": {"vector", "strided"},
+                    "bwd": {"vector", "strided"}}
+    # the per-level scattering path's pools: vector, bf16 through the
+    # fp32 kernel
+    x = torch.from_numpy(_rand((2, 3, 64, 64), 59)).to(dev)
+    for dt in (torch.float32, torch.bfloat16):
+        m = tt.ScatLayerj2(biort="near_sym_b_bp", qshift="qshift_b_bp",
+                           device=dev)
+        xg = x.to(dt).requires_grad_()
+        ops.reset_launches()
+        z = m(xg)
+        torch.autograd.grad(z, xg, torch.ones_like(z))
+        torch.cuda.synchronize()
+        counts, insts = ops.launch_counts(), ops.instantiation_counts()
+        for k in ("avg_pool2_fwd", "avg_pool2_bwd"):
+            assert counts[k] > 0
+            assert insts[k] == {"vector": counts[k], "strided": 0}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time K2 (q2c_pack), K4 (scat_mag_fwd), K5 (scat_mag_bwd), K6 (dwt_afb), K7
-(dwt_sfb), K8 (dtcwt_filt), K9 (dtcwt_dfilt), K10 (dtcwt_ifilt), K12
+"""Time K2 (q2c_pack), K3 (c2q_unpack), K4 (scat_mag_fwd), K5 (scat_mag_bwd),
+K6 (dwt_afb), K7 (dwt_sfb), K8 (dtcwt_filt), K9 (dtcwt_dfilt), K10
+(dtcwt_ifilt), K11 (avg_pool2 and its adjoint), K12
 (swt_afb and its adjoint), K14 (nonsep_afb and its adjoint), K15
 (nonsep_sfb and its adjoint), K13 (spec_merge and spec_split) and K16
 (swt_sfb and its adjoint) on one CUDA card at the shapes of
@@ -9,8 +10,8 @@ chip_smoke.py's DTCWT, scattering, DWT, per-level, SWT, non-separable and
 timed with the irfft that follows it.
 
     python3 tools/stencil_probe.py [--root DIR] [--merge-tile-out N]
-                                   [--only k2|k4|k5|k6|k7|k8|k9|k10|k12|
-                                    k13|k14|k15|k16 ...]
+                                   [--only k2|k3|k4|k5|k6|k7|k8|k9|k10|
+                                    k11|k12|k13|k14|k15|k16 ...]
                                    [--sass q2c_pack iswt_spec ...]
 
 ``--root`` imports ``pytorch_wavelets_tpu_torch`` from another checkout
@@ -445,6 +446,180 @@ def run_k2(tt, quad, fused, lev):
             del got, want
 
 
+def _recorded(targets, run):
+    """The calls ``run()`` makes to the wrappers named in ``targets``
+    ((module, name) pairs, swapped for recording ones): [(name, args,
+    kwargs)]."""
+    calls, origs = [], []
+    for mod, name in targets:
+        orig = getattr(mod, name)
+        origs.append((mod, name, orig))
+
+        def rec(*args, _name=name, _orig=orig, **kwargs):
+            calls.append((_name, args, kwargs))
+            return _orig(*args, **kwargs)
+        setattr(mod, name, rec)
+    try:
+        with torch.enable_grad():   # the steps differentiate
+            run()
+    finally:
+        for mod, name, orig in origs:
+            setattr(mod, name, orig)
+    torch.cuda.synchronize()
+    return calls
+
+
+def _summary(kernel, label, sums):
+    for inst, (ms, bound, n) in sums.items():
+        print(json.dumps({"kernel": kernel, "summary": label, "inst": inst,
+                          "launches": n, "ms": ms, "bound_ms": bound,
+                          "share_of_bound": bound / ms}), flush=True)
+
+
+def k3_paths(tt):
+    """(label, dtype, the path's step): main (DTCWT J=2 round trip and
+    its x.grad, composed, fp32 and bf16), scat (ScatLayerj2 forward and
+    backward, fp32 and bf16), bp (the same with the bandpass-diagonal
+    filters: per level) and large (DTCWT J=3 round trip of 1x3x9216^2,
+    per level)."""
+    bp = dict(biort="near_sym_b_bp", qshift="qshift_b_bp")
+
+    def grad_step(make, shape):
+        def step(x):
+            f, i = make()
+            xg = x.requires_grad_()
+            out = f(xg) if i is None else i(f(xg))
+            torch.autograd.grad(out, xg, torch.ones_like(out))
+        return shape, step
+
+    def round_trip(x):
+        f, i = tt.DTCWTForward(J=3, device="cuda"), \
+            tt.DTCWTInverse(device="cuda")
+        with torch.no_grad():
+            i(f(x))
+    dt = (lambda: tt.DTCWTForward(J=2, device="cuda"),
+          lambda: tt.DTCWTInverse(device="cuda"))
+    main = grad_step(lambda: (dt[0](), dt[1]()), (10, 10, 128, 128))
+    scat = grad_step(lambda: (tt.ScatLayerj2(device="cuda"), None),
+                     (128, 3, 256, 256))
+    yield "main", torch.float32, main
+    yield "main bf16", torch.bfloat16, main
+    yield "scat", torch.float32, scat
+    yield "scat bf16", torch.bfloat16, scat
+    yield "bp", torch.float32, grad_step(
+        lambda: (tt.ScatLayerj2(device="cuda", **bp), None),
+        (128, 3, 256, 256))
+    yield "large", torch.float32, ((1, 3, 9216, 9216), round_trip)
+
+
+def run_k3(tt, quad, fused, lev):
+    """K3 on the paths' calls (:func:`k3_paths`), labelled with the
+    instantiation the call took (``parent`` for a tree that counts none),
+    bit for bit against the plain version computed in fp32 and rounded
+    once, against its bytes bound (each (re, im) read once, each quadrant
+    value written once) and a ``copy_`` of as many bytes; then each
+    path's sums."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for label, dtype, (shape, step) in k3_paths(tt):
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        calls = _recorded([(fused, "c2q_unpack"), (lev, "c2q_unpack")],
+                          lambda: step(x))
+        sums = {}
+        for _, (h, orients, *il), kw in calls:
+            il = bool(kw.get("interleaved", il and il[0]))
+            h = h.detach()
+            want = quad.c2q_unpack_plain(h.float(), orients, il).to(h.dtype)
+            nbytes = h.element_size() * 2 * want.numel()
+            src = torch.empty(want.numel(), device="cuda", dtype=h.dtype)
+            dst = torch.empty_like(src)
+            copy_ms = timed_ms(lambda: dst.copy_(src))
+            del src, dst
+
+            def run():
+                return quad.c2q_unpack(h, orients, il)
+            inst, got = _walk_of(quad.c2q_unpack, run)
+            ms = timed_ms(run)
+            bound = nbytes / 3.35e12 * 1e3
+            s = sums.setdefault(inst, [0.0, 0.0, 0])
+            s[0] += ms
+            s[1] += bound
+            s[2] += 1
+            print(json.dumps({
+                "kernel": "c2q_unpack", "case": label, "h": list(h.shape),
+                "stride": list(h.stride()), "dtype": str(h.dtype),
+                "interleaved": il, "inst": inst, "ms": ms, "bound_ms": bound,
+                "share_of_bound": bound / ms, "copy_ms": copy_ms,
+                "ok": bool(torch.equal(got, want))}), flush=True)
+            del got, want
+        _summary("c2q_unpack", label, sums)
+        del x, calls
+        torch.cuda.empty_cache()
+
+
+def run_k11(tt, pool, scat):
+    """K11 forward and adjoint on the per-level scattering paths' calls
+    (bp: ScatLayerj2 bp on 128x3x256^2; bp16: ScatLayer bp on
+    16x3x256^2; bpc: ScatLayerj2 bp combine_colour on 16x3x256^2, forward
+    and backward), labelled with the instantiation each took (``parent``
+    for a tree that counts none), exactly against the plain versions,
+    against the bytes bound (each input read once, each output written
+    once), with ``F.avg_pool2d`` beside the forward and, beside the
+    adjoint, a broadcasting ``copy_`` of the cotangent into a tensor of
+    dx's shape (the same bytes each way, unscaled) and a fill of dx (its
+    writes alone); then each path's sums."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    bp = dict(biort="near_sym_b_bp", qshift="qshift_b_bp")
+    for label, shape, make in (
+            ("bp", (128, 3, 256, 256),
+             lambda: tt.ScatLayerj2(device="cuda", **bp)),
+            ("bp16", (16, 3, 256, 256),
+             lambda: tt.ScatLayer(device="cuda", biort="near_sym_b_bp")),
+            ("bpc", (16, 3, 256, 256),
+             lambda: tt.ScatLayerj2(device="cuda", combine_colour=True,
+                                    **bp))):
+        x = torch.randn(shape, generator=gen, device="cuda")
+        m = make()
+
+        def step():
+            xg = x.clone().requires_grad_()
+            z = m(xg)
+            torch.autograd.grad(z, xg, torch.ones_like(z))
+        calls = _recorded([(scat, "avg_pool2_fwd"),
+                           (scat, "avg_pool2_bwd")], step)
+        sums = {}
+        for name, (v,), _ in calls:
+            v = v.detach()
+            kern = getattr(pool, name)
+            want = getattr(pool, name + "_plain")(v)
+            inst, got = _walk_of(kern, lambda: kern(v))
+            ms = timed_ms(lambda: kern(v))
+            bound = 4.0 * (v.numel() + want.numel()) / 3.35e12 * 1e3
+            line = {"kernel": name, "case": label, "x": list(v.shape),
+                    "stride": list(v.stride()), "inst": inst, "ms": ms,
+                    "bound_ms": bound, "share_of_bound": bound / ms,
+                    "ok": bool(torch.equal(got, want))}
+            if name == "avg_pool2_fwd":
+                line["library_ms"] = timed_ms(lambda: F.avg_pool2d(v, 2))
+            else:
+                N, C, h, w = v.shape
+                dst = torch.empty((N, C, h, 2, w, 2), device="cuda")
+                src = v[:, :, :, None, :, None].expand(dst.shape)
+                line["expand_copy_ms"] = timed_ms(lambda: dst.copy_(src))
+                # the writes alone: a fill of dx's bytes
+                line["fill_ms"] = timed_ms(lambda: dst.fill_(0.25))
+                del dst, src
+            print(json.dumps(line), flush=True)
+            s = sums.setdefault(f"{name} {inst}", [0.0, 0.0, 0])
+            s[0] += ms
+            s[1] += bound
+            s[2] += 1
+            del got, want
+        _summary("avg_pool2", label, sums)
+        del x, m, calls
+        torch.cuda.empty_cache()
+
+
 def run_k13(im):
     """K13's merge and split on swt_long's 'periodization' spectra (rfft
     along H and along W of 1x3x4096^2 planes; and along W of 4094-wide
@@ -639,10 +814,10 @@ def run_k15(nonsep, filters):
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--root", default=None)
-    p.add_argument("--only", nargs="+", choices=("k2", "k4", "k5", "k6",
-                                                 "k7", "k8", "k9", "k10",
-                                                 "k12", "k13", "k14", "k15",
-                                                 "k16"),
+    p.add_argument("--only", nargs="+", choices=("k2", "k3", "k4", "k5",
+                                                 "k6", "k7", "k8", "k9",
+                                                 "k10", "k11", "k12", "k13",
+                                                 "k14", "k15", "k16"),
                    default=None)
     p.add_argument("--merge-tile-out", type=int, default=None)
     p.add_argument("--sass", nargs="+", default=(),
@@ -659,10 +834,11 @@ def main():
     import pytorch_wavelets_tpu_torch as tt
     from pytorch_wavelets_tpu_torch import filters
     from pytorch_wavelets_tpu_torch.ops import (
-        _cuda, afb_sfb, dtcwt_fb, fused_dtcwt, iswt_merge, nonsep, quad,
-        scat_mag,
+        _cuda, afb_sfb, dtcwt_fb, fused_dtcwt, iswt_merge, nonsep, pool,
+        quad, scat_mag,
     )
     from pytorch_wavelets_tpu_torch.transforms import dtcwt as lev
+    from pytorch_wavelets_tpu_torch.transforms import scatternet
     _cuda.build()
     if args.merge_tile_out:
         afb_sfb._MERGE_TILE_OUT = args.merge_tile_out
@@ -670,6 +846,8 @@ def main():
                       "merge_tile_out": afb_sfb._MERGE_TILE_OUT}),
           flush=True)
     runs = {"k2": lambda: run_k2(tt, quad, fused_dtcwt, lev),
+            "k3": lambda: run_k3(tt, quad, fused_dtcwt, lev),
+            "k11": lambda: run_k11(tt, pool, scatternet),
             "k13": lambda: run_k13(iswt_merge),
             "k4": lambda: run_mag(scat_mag, False),
             "k5": lambda: run_mag(scat_mag, True),
