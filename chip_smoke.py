@@ -31,11 +31,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    first 8 images; forward / backward ms, Mpix/s and peak memory, beside
    the reference's GTX1080 figures.  Then scat_j2_colour: the same for
    combine_colour=True at 16x3x256x256, checked on its first 4 images;
-   and mag_edge_cases: K4 and K5 at edge views (offsets of 4, 8 and 16
-   bytes, odd and unit widths, two chunks a plane, strided, transposed
+   and mag_edge_cases: K4, K5 and K18 at edge views (offsets of 4, 8 and
+   16 bytes, odd and unit widths, two chunks a plane, strided, transposed
    and re/im-last slices, combine over 3 and 5 channels, the cotangent as
-   torch.cat's backward hands it, b = 0), each instantiation against its
-   plain version; quad_edge_cases: K2 at edge views (odd k, bands off
+   torch.cat's backward hands it, K18's cotangent contiguous, off its
+   line or strided, b = 0), each instantiation against its plain
+   version; quad_edge_cases: K2 at edge views (odd k, bands off
    their 16-byte lines, per-level rows off theirs, every o_dim / ri_dim
    layout, fp32 and bf16), both instantiations bit for bit;
    c2q_edge_cases: K3 likewise (odd w, w = 1, bands 4, 8 and 12 bytes
@@ -141,10 +142,33 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    plain version computed in fp32 and rounded once to bf16, and the
    wrappers' casts replayed and timed as a share of the path's device
    time.
-13. profile: device time by kernel of the main path, of one ScatLayerj2
+13. second-order gradients and the batch_chunk dial: six phases, each the
+   reverse-over-reverse Hessian-vector product of one path (the gradient
+   of <d loss / dx, v>, the first gradient taken with create_graph=True),
+   checked against the port's CPU plain run on the first 4 images within
+   2e-5 * max(1, max |CPU|), counted (each kernel of the path must
+   launch), timed with utils/profiling.py's time_op (v -> H v chained: ms
+   as the caller waits) and as device time: hvp_scat_j2, sum(Z^2) of
+   ScatLayerj2() on 128x3x256x256 (K1-K5 and K18, the magnitude's second
+   derivative, every K18 call on its vector walk); hvp_scat_bp, the same
+   with the bandpass-diagonal filters (K8-K11, K2-K5, K18); hvp_main,
+   sum(c^3) over DTCWTForward(J=2)'s coefficients on 10x10x128x128;
+   hvp_dwt, DWTForward(J=3, db4, symmetric) -> DWTInverse on
+   32x10x512x512, sum(c^3) over the coefficients and the reconstruction
+   (K6, K7, and K14's and K15's adjoints as the transposes of the
+   reference's backwards); hvp_swt, SWTForward(J=3, db4, periodization)
+   -> SWTInverse on 32x3x256x256 likewise (K12, K1); hvp_alt,
+   DTCWTForward2(J=3) on 16x3x256x256.  K18's kernel lines come from the
+   two scattering phases' calls, replayed against scat_mag_bwd2_plain
+   within 1e-6 + 1e-6 of its terms' magnitudes.  chunk_scat:
+   ScatLayerj2(batch_chunk=8) and (batch_chunk=32) on 128x3x256x256,
+   output and x.grad within 1e-6 of the unchunked layer's, forward and
+   step timed beside it.
+14. profile: device time by kernel of the main path, of one ScatLayerj2
    training step, of one DWT training step, of one bandpass-diagonal
-   ScatLayerj2 training step, of one SWT training step and of one
-   DTCWTForward2 training step (torch.profiler).
+   ScatLayerj2 training step, of one SWT training step, of one
+   DTCWTForward2 training step, and of hvp_scat_j2's and hvp_dwt's
+   Hessian-vector products (torch.profiler).
 
 Each path's peak_mem_bytes (torch.cuda.max_memory_allocated over its
 timed calls) includes mem_held_before_bytes: what was allocated when its
@@ -270,6 +294,8 @@ SOURCES = {
                      "pytorch_wavelets_tpu/transforms/scatternet.py:25"),
     "scat_mag_bwd": ("scat_mag_bwd", "scat_mag.cu",
                      "pytorch_wavelets_tpu/transforms/scatternet.py:25"),
+    "scat_mag_bwd2": ("scat_mag_bwd2", "scat_mag.cu",
+                      "pytorch_wavelets_tpu/transforms/scatternet.py:25"),
     "afb1d_corr": ("dwt_afb", "dwt_afb.cu",
                    "pytorch_wavelets_tpu/ops/afb_sfb.py:125"),
     "sfb1d_conv": ("dwt_sfb", "dwt_sfb.cu",
@@ -478,6 +504,21 @@ def within(got, want, tol, scale=None):
                 .all())
 
 
+def scat_mag_bwd2_scale(h, g, u, bias, combine):
+    """The magnitudes of the terms of K18's outputs, flattened as a
+    replay flattens (dg, dh'): with s = sqrt(sum h^2 + bias^2) and
+    T = sum |u * h| (over (re, im), and C with ``combine``), T / s for dg
+    and |g| / s (|u| + |h| T / s^2) for dh'."""
+    sq = h[..., 0] * h[..., 0] + h[..., 1] * h[..., 1]
+    t = (u[..., 0] * h[..., 0]).abs() + (u[..., 1] * h[..., 1]).abs()
+    if combine:
+        sq, t = sq.sum(2, keepdim=True), t.sum(2, keepdim=True)
+    s = torch.sqrt(sq + bias * bias)
+    ratio = (t / s / s)[..., None]
+    dh = (g.abs() / s)[..., None] * (u.abs() + h.abs() * ratio)
+    return torch.cat([(t / s).flatten(), dh.flatten()])
+
+
 def adjoint_error(outs, gs, ins, grads):
     """|<A x, g> - <x, A^T g>| over max(|A x| |g|, |x| |A^T g|), every
     sum in float64: the dot-product test relative to the Cauchy-Schwarz
@@ -559,7 +600,7 @@ class Tracer(Swapping):
                for name, role in ROLES.items()]
         # the magnitudes' wrappers, tagged (and recorded over the tags)
         orig = {n: self._tag(MAG_ROLE, getattr(m, n))
-                for n in ("scat_mag_fwd", "scat_mag_bwd")}
+                for n in ("scat_mag_fwd", "scat_mag_bwd", "scat_mag_bwd2")}
         if not self.record:
             return out + [(m, n, fn) for n, fn in orig.items()]
         orig.update({n: getattr(f, n) for n in ("apply_row", "apply_col",
@@ -591,11 +632,17 @@ class Tracer(Swapping):
             calls.append(("scat_mag_bwd", MAG_ROLE, (h, g, bias, combine)))
             return orig["scat_mag_bwd"](h, g, bias, combine)
 
+        def scat_mag_bwd2(h, g, u, bias, combine=False):
+            calls.append(("scat_mag_bwd2", MAG_ROLE,
+                          (h, g, u, bias, combine)))
+            return orig["scat_mag_bwd2"](h, g, u, bias, combine)
+
         return out + [
             (f, "apply_row", apply_row), (f, "apply_col", apply_col),
             (f, "q2c_pack", q2c_pack), (f, "c2q_unpack", c2q_unpack),
             (m, "scat_mag_fwd", scat_mag_fwd),
-            (m, "scat_mag_bwd", scat_mag_bwd)]
+            (m, "scat_mag_bwd", scat_mag_bwd),
+            (m, "scat_mag_bwd2", scat_mag_bwd2)]
 
 
 def _out_mode(out, accumulate):
@@ -671,7 +718,7 @@ class PerLevelRecorder(Swapping):
         orig = {n: getattr(fb, n) for n in STENCILS}
         orig.update({n: getattr(lev, n) for n in ("q2c_pack", "c2q_unpack")})
         orig.update({n: getattr(scat, n) for n in POOLS + (
-            "scat_mag_fwd", "scat_mag_bwd")})
+            "scat_mag_fwd", "scat_mag_bwd", "scat_mag_bwd2")})
 
         def dtcwt_filt(x, taps, axis, mode, out=None, accumulate=False):
             calls.append(("dtcwt_filt", self._role(),
@@ -719,13 +766,19 @@ class PerLevelRecorder(Swapping):
                           (h, g, bias, combine)))
             return orig["scat_mag_bwd"](h, g, bias, combine)
 
+        def scat_mag_bwd2(h, g, u, bias, combine=False):
+            calls.append(("scat_mag_bwd2", self._role(),
+                          (h, g, u, bias, combine)))
+            return orig["scat_mag_bwd2"](h, g, u, bias, combine)
+
         return [(fb, "dtcwt_filt", dtcwt_filt),
                 (fb, "dtcwt_dfilt", dtcwt_dfilt),
                 (fb, "dtcwt_ifilt", dtcwt_ifilt),
                 (lev, "q2c_pack", q2c_pack), (lev, "c2q_unpack", c2q_unpack),
                 *[(scat, name, one_arg(name)) for name in POOLS],
                 (scat, "scat_mag_fwd", scat_mag_fwd),
-                (scat, "scat_mag_bwd", scat_mag_bwd)]
+                (scat, "scat_mag_bwd", scat_mag_bwd),
+                (scat, "scat_mag_bwd2", scat_mag_bwd2)]
 
 
 def plain_on_card(fb, lev, scat, quad, pool):
@@ -1050,6 +1103,23 @@ def replay(call, banded, quad, mag, afb, pad, fb=None, pool=None,
         ops = 2.0 * h.numel() + 3.0 * got.numel()
         nbytes = 4.0 * (h.numel() + got.numel())
         tol = MAG_TOL
+    elif name == "scat_mag_bwd2":
+        h, g, u, bias, combine = args
+        got = torch.cat([t.flatten() for t in
+                         mag.scat_mag_bwd2(h, g, u, bias, combine)])
+        want = torch.cat([t.flatten() for t in
+                          mag.scat_mag_bwd2_plain(h, g, u, bias, combine)])
+        scale = scat_mag_bwd2_scale(h, g, u, bias, combine)
+        run = lambda: mag.scat_mag_bwd2(h, g, u, bias,        # noqa: E731
+                                        combine)
+        plain = lambda: mag.scat_mag_bwd2_plain(              # noqa: E731
+            h, g, u, bias, combine)
+        # per (re, im) value: its square and product with u, the sums, the
+        # two products and the difference of dh'; per output: the root
+        # and three quotients
+        ops = 7.0 * h.numel() + 6.0 * g.numel()
+        nbytes = 4.0 * (3 * h.numel() + 2 * g.numel())
+        tol = BWD2_TOL
     else:
         h, g, bias, combine = args
         got = mag.scat_mag_bwd(h, g, bias, combine)
@@ -1083,7 +1153,7 @@ def _inst_counter(name, fb):
     from pytorch_wavelets_tpu_torch.ops import (
         afb_sfb, iswt_merge, nonsep, pool, quad, scat_mag,
     )
-    if name in ("scat_mag_fwd", "scat_mag_bwd"):
+    if name in ("scat_mag_fwd", "scat_mag_bwd", "scat_mag_bwd2"):
         return getattr(scat_mag, name)
     if name in ("q2c_pack", "c2q_unpack"):
         return getattr(quad, name)
@@ -1184,6 +1254,8 @@ def _tolerance(kernel):
         return "exact"
     if kernel.startswith("spec_"):
         return dict(SPEC_TOL, relative_to="the terms' magnitudes")
+    if kernel == "scat_mag_bwd2":
+        return dict(BWD2_TOL, relative_to="the terms' magnitudes")
     if kernel.startswith("scat_mag"):
         return MAG_TOL
     if kernel in NONSEP_KERNELS:
@@ -1555,14 +1627,18 @@ def scat_step(tt, ops, fused, scat, shape, check_n, phase, timing,
 
 
 def mag_edge_cases(mag):
-    """K4 and K5 at edge views against their plain versions on the same
-    inputs, at b = 1e-2 and b = 0 (a zero coefficient: 0 forward, NaN
-    backward): offsets of 4, 8 and 16 bytes (the 8-byte one at 128^2 too,
-    every plane a head and a tail), odd and unit widths, planes of two
-    chunks, a re/im-last slice, a transposed view, combine over 3 and 5
-    channels, the cotangent as torch.cat's backward hands it and a strided
-    one.  Both instantiations of both kernels must run.  Returns (calls,
-    max |err| where the plain version is finite, instantiations)."""
+    """K4, K5 and K18 at edge views against their plain versions on the
+    same inputs, at b = 1e-2 and b = 0 (a zero coefficient: 0 forward, NaN
+    backward and second derivative): offsets of 4, 8 and 16 bytes (the
+    8-byte one at 128^2 too, every plane a head and a tail), odd and unit
+    widths, planes of two chunks, a re/im-last slice, a transposed view,
+    combine over 3 and 5 channels, the cotangent as torch.cat's backward
+    hands it and a strided one; K18's cotangent u in turn contiguous, 8
+    bytes off a line (its heads apart from the bands') and a strided
+    slice.  Both instantiations of every kernel must run.  Returns (calls,
+    max |err| of K4/K5 where the plain version is finite, instantiations,
+    K18's max |err| there; K18 within BWD2_TOL of its terms'
+    magnitudes, NaN where its plain version is NaN)."""
     gen = torch.Generator(device="cuda").manual_seed(5)
 
     def view(shape, strides=None, offset=0):
@@ -1596,10 +1672,12 @@ def mag_edge_cases(mag):
         (lambda: band(n=1, c=2, hh=33, ww=35), False, None),
         (lambda: band(hh=3, ww=5), False, lambda: cat_slice(2, 3, 3, 5)),
         (lambda: band(), False, lambda: view((2, 6, 3, 5, 16))[..., ::2])]
-    insts = {"scat_mag_fwd": {}, "scat_mag_bwd": {}}
-    calls, err = 0, 0.0
+    insts = {"scat_mag_fwd": {}, "scat_mag_bwd": {}, "scat_mag_bwd2": {}}
+    calls, err, err2 = 0, 0.0, 0.0
+    u_views = (lambda h: view(h.shape), lambda h: view(h.shape, offset=2),
+               lambda h: view((*h.shape[:-1], 3))[..., 1:])
     for bias in (1e-2, 0.0):
-        for make_h, combine, make_g in cases:
+        for i, (make_h, combine, make_g) in enumerate(cases):
             h = make_h()
             h[0, 0, :, 0, 0] = 0
             N, _, C, hh, ww, _ = h.shape
@@ -1623,10 +1701,33 @@ def mag_edge_cases(mag):
                 calls += 1
             require(bias or bool(torch.isnan(got).any()),
                     "mag_edge_cases: no NaN gradient at b = 0")
+            u = u_views[i % len(u_views)](h)
+            wrapper = mag.scat_mag_bwd2
+            before = dict(wrapper.instantiations)
+            got = torch.cat([t.flatten() for t in
+                             wrapper(h, g, u, bias, combine)])
+            want = torch.cat([t.flatten() for t in mag.scat_mag_bwd2_plain(
+                h, g, u, bias, combine)])
+            fin = torch.isfinite(want)
+            scale = scat_mag_bwd2_scale(h, g, u, bias, combine)
+            require(torch.equal(torch.isnan(got), torch.isnan(want))
+                    and within(got[fin], want[fin], BWD2_TOL, scale[fin]),
+                    f"mag_edge_cases: scat_mag_bwd2 {tuple(h.shape)} strides "
+                    f"{h.stride()}, u {u.stride()} combine {combine} b "
+                    f"{bias} disagrees with its plain version by "
+                    f"{max_err(got[fin], want[fin])}")
+            for k, v in wrapper.instantiations.items():
+                if v != before[k]:
+                    insts["scat_mag_bwd2"][k] = (
+                        insts["scat_mag_bwd2"].get(k, 0) + v - before[k])
+            err2 = max(err2, max_err(got[fin], want[fin]))
+            calls += 1
+            require(bias or bool(torch.isnan(got).any()),
+                    "mag_edge_cases: no NaN second derivative at b = 0")
     for name, got in insts.items():
         require(set(got) == set(mag.MAG_INSTS), f"mag_edge_cases: {name} "
                 f"ran {got}, not every instantiation")
-    return calls, err, insts
+    return calls, err, insts, err2
 
 
 def quad_edge_cases(quad):
@@ -3802,6 +3903,22 @@ def nonsep_edge_cases(banded):
 K17_LEVEL = {"3xtf32": "high", "tf32": "default", "bf16": "highest"}
 K17_DTYPE = {"3xtf32": torch.float32, "tf32": torch.float32,
              "bf16": torch.bfloat16}
+# second-order gradients: the reverse-over-reverse Hessian-vector product
+# of each path against the CPU plain run's on its first images, within
+# HVP_TOL of max(1, max |CPU|); its timing (time_op repeats, iters; and
+# timed_ms's reps, batches); the Selesnick phase at a smaller batch
+HVP_CHECK_N = 4
+HVP_TOL = 2e-5
+HVP_TIMING = (3, 3)
+HVP_ALT_SHAPE, HVP_ALT_J = (16, 3, 256, 256), ALT_J
+# K18 against its plain version: a few IEEE ops a value, summed in another
+# order, against the magnitudes of its terms (scat_mag_bwd2_scale)
+BWD2_TOL = dict(rtol=1e-6, atol=1e-6)
+# the batch_chunk dial on the ScatterNet workload: the chunks timed beside
+# the unchunked layer, which they must match within CHUNK_TOL
+CHUNKS = (8, 32)
+CHUNK_TOL = 1e-6
+
 PEAK_TC_FLOPS = {"3xtf32": 495e12 / 3, "tf32": 495e12, "bf16": 989e12}
 # K17 against its mode's plain version (ops/banded.py:_tc_plain): the same
 # rounded operands, fp32 sums in another order; a bf16 output is that sum
@@ -4310,6 +4427,221 @@ def precision_phases(tt, ops, banded, cuda):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# second-order gradients (every backward's backward, K18) and batch_chunk
+# ---------------------------------------------------------------------------
+
+def _cubic(out):
+    """sum(o^3) over every tensor of a (nested) module output."""
+    return sum((o ** 3).sum() for o in _flat(out) if o is not None)
+
+
+def _squares(out):
+    return sum((o ** 2).sum() for o in _flat(out) if o is not None)
+
+
+def _dwt_round_trip(tt, **kw):
+    """DWTForward -> its coefficients and DWTInverse's reconstruction."""
+    def make(device):
+        f = tt.DWTForward(device=device, **kw)
+        i = tt.DWTInverse(device=device, wave=kw["wave"], mode=kw["mode"])
+
+        def fn(x):
+            yl, yh = f(x)
+            return yl, yh, i((yl, yh))
+        return fn
+    return make
+
+
+def _swt_round_trip(tt, **kw):
+    """SWTForward -> its stacks and SWTInverse's reconstruction."""
+    def make(device):
+        f = tt.SWTForward(device=device, **kw)
+        i = tt.SWTInverse(device=device, wave=kw["wave"], mode=kw["mode"])
+
+        def fn(x):
+            ys = f(x)
+            return ys, i(ys)
+        return fn
+    return make
+
+
+def hvp_of(fn, loss):
+    """The reverse-over-reverse Hessian-vector product of loss(fn(x)) at x
+    along v: the gradient of <d loss / dx, v>, the first gradient taken
+    with create_graph=True."""
+    def hvp(x, v):
+        xt = x.detach().requires_grad_()
+        g, = torch.autograd.grad(loss(fn(xt)), xt, create_graph=True)
+        return torch.autograd.grad((g * v).sum(), xt)[0]
+    return hvp
+
+
+def hvp_phase(ops, profiling, phase, make, shape, loss, need, recorder=None,
+              check_n=HVP_CHECK_N):
+    """One module's Hessian-vector product on the card: ``make(device)``
+    the module (or composition), ``loss`` of its output.  The CPU plain
+    run's on the first ``check_n`` images (the loss sums over images, so
+    its Hessian is block-diagonal by image) is the reference, within
+    HVP_TOL of max(1, max |CPU|); the kernels of ``need`` must launch in
+    the counted run.  Timed with ``profiling.time_op`` (v -> H v chained:
+    ms as the caller waits) and as device time.  Returns (fields, launch
+    counts, recorded calls: ``recorder()`` around one product)."""
+    x_cpu = torch.randn(shape, generator=torch.Generator().manual_seed(0))
+    v_cpu = torch.randn(shape, generator=torch.Generator().manual_seed(1))
+    t0 = time.perf_counter()
+    ref = hvp_of(make("cpu"), loss)(x_cpu[:check_n], v_cpu[:check_n])
+    cpu_s = time.perf_counter() - t0
+    hvp = hvp_of(make("cuda"), loss)
+    x, v = x_cpu.cuda(), v_cpu.cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    hv = hvp(x, v)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    insts = inst_counts(ops)
+    require(all(counts[k] > 0 for k in need),
+            f"{phase}: a kernel of the path never launched: {counts}")
+    require(tuple(hv.shape) == shape and bool(torch.isfinite(hv).all()),
+            f"{phase}: non-finite Hessian-vector product or wrong shape")
+    err = max_err(hv[:check_n].cpu(), ref)
+    scale = max(1.0, float(ref.abs().max()))
+    require(err <= HVP_TOL * scale, f"{phase}: GPU differs from the CPU "
+            f"plain run by {err} (limit {HVP_TOL * scale})")
+    del hv
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    repeats, iters = HVP_TIMING
+    wait_ms = profiling.time_op(lambda z: hvp(x, z), v, repeats=repeats,
+                                iters=iters) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    dev_ms = timed_ms(lambda: hvp(x, v), reps=repeats, batches=iters)
+    calls = []
+    if recorder is not None:
+        with recorder() as rec:
+            hvp(x, v)
+        torch.cuda.synchronize()
+        calls = rec.calls
+    fields = dict(
+        shape=list(shape), launches={k: n for k, n in counts.items() if n},
+        instantiations=insts, checked_images=check_n,
+        max_abs_err_vs_cpu=err, tolerance=HVP_TOL * scale,
+        tolerance_rule=f"{HVP_TOL} * max(1, max |CPU|)",
+        first_call_s=first_s, hvp_ms=wait_ms, hvp_device_ms=dev_ms,
+        device_busy_share=dev_ms / wait_ms,
+        mpix_per_s=x.numel() / 1e6 / (wait_ms / 1e3),
+        timing=dict(time_op_repeats=repeats, time_op_iters=iters),
+        peak_mem_bytes=peak, mem_held_before_bytes=held,
+        cpu_reference_s=cpu_s)
+    return fields, counts, calls
+
+
+def vector_bwd2(insts, phase, counts):
+    """Every K18 launch of a scattering path took the vector walk."""
+    got = insts.get("scat_mag_bwd2", {})
+    require(got.get("vector", 0) == counts.get("scat_mag_bwd2", 0),
+            f"{phase}: scat_mag_bwd2 launched "
+            f"{counts.get('scat_mag_bwd2', 0)} times, {got} on its vector "
+            f"walk")
+    return insts
+
+
+def hvp_phases(tt, ops, kern, profiling, fused, scat, fb, lev):
+    """The six Hessian-vector product phases at full width, and K18's
+    kernel rows from the two scattering ones.  Returns the rows."""
+    from pytorch_wavelets_tpu_torch.transforms import dtcwt_alt as alt
+    mags = ("scat_mag_fwd", "scat_mag_bwd", "scat_mag_bwd2")
+    phases = [
+        ("hvp_scat_j2", lambda d: tt.ScatLayerj2(device=d), SCAT_SHAPE,
+         _squares, PYRAMID_KERNELS + mags,
+         lambda: Tracer(ops, fused, scat, record=True)),
+        ("hvp_scat_bp", lambda d: tt.ScatLayerj2(device=d, **BP), BP_SHAPE,
+         _squares, STENCILS + POOLS + ("q2c_pack", "c2q_unpack") + mags,
+         lambda: PerLevelRecorder(fb, lev, scat)),
+        ("hvp_main", lambda d: tt.DTCWTForward(J=2, device=d), MAIN_SHAPE,
+         _cubic, PYRAMID_KERNELS, None),
+        ("hvp_dwt", _dwt_round_trip(tt, J=DWT_J, wave=DWT_WAVE,
+                                    mode=DWT_MODE), DWT_SHAPE, _cubic,
+         DWT_KERNELS + ("nonsep_afb_adjoint", "nonsep_sfb_adjoint"), None),
+        ("hvp_swt", _swt_round_trip(tt, J=SWT_J, wave=SWT_WAVE,
+                                    mode=SWT_MODE), SWT_SHAPE, _cubic,
+         ("afb1d_atrous_corr", "afb1d_atrous_adjoint", "apply_row",
+          "apply_col"), None),
+        ("hvp_alt", lambda d: alt.DTCWTForward2(J=HVP_ALT_J, device=d,
+                                                 **ALT_KW), HVP_ALT_SHAPE,
+         _cubic, DWT_KERNELS + ("nonsep_sfb_adjoint",), None)]
+    rows = []
+    for phase, make, shape, loss, need, recorder in phases:
+        fields, counts, calls = hvp_phase(ops, profiling, phase, make, shape,
+                                          loss, need, recorder)
+        if phase.startswith("hvp_scat"):
+            vector_bwd2(fields["instantiations"], phase, counts)
+        emit(phase, **fields)
+        k18 = [c for c in calls if c[0] == "scat_mag_bwd2"]
+        if k18:
+            label = "ScatLayerj2" + (" bp" if phase == "hvp_scat_bp" else "")
+            with torch.no_grad():
+                new = kernel_rows([(
+                    f"scat_mag_bwd2 ({label} {shape_str(shape)}: "
+                    f"Hessian-vector product)", SOURCES["scat_mag_bwd2"][2],
+                    counts["scat_mag_bwd2"], k18)], *kern)
+            for row in new:
+                emit("kernel", **row)
+            rows.extend(new)
+        del calls, k18
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def chunk_scat(tt, profiling):
+    """ScatLayerj2 on SCAT_SHAPE with batch_chunk 8 and 32 against the
+    unchunked layer: outputs and x.grad (the gradient of sum(Z * G)) within
+    CHUNK_TOL, forward and step times beside the unchunked ones (ms as the
+    caller waits, ``profiling.time_op``, and device time)."""
+    N, C, H, W = SCAT_SHAPE
+    x = torch.randn(SCAT_SHAPE, generator=torch.Generator().manual_seed(0))
+    x = x.cuda().requires_grad_()
+    G = torch.randn((N, 49 * C, H // 4, W // 4),
+                    generator=torch.Generator().manual_seed(1)).cuda()
+    out = {}
+    ref = None
+    for chunk in (None, *CHUNKS):
+        m = tt.ScatLayerj2(batch_chunk=chunk, device="cuda")
+        z = m(x)
+        g, = torch.autograd.grad(z, x, G)
+        z = z.detach()
+        if ref is None:
+            ref = (z, g)
+            errs = None
+        else:
+            errs = {"output": max_err(z, ref[0]), "x_grad": max_err(g, ref[1])}
+            require(max(errs.values()) <= CHUNK_TOL,
+                    f"chunk_scat: batch_chunk={chunk} differs from the "
+                    f"unchunked layer by {errs}")
+        del z, g
+
+        def step(_, m=m):
+            torch.autograd.grad(m(x), x, G)
+            return _
+
+        def fwd(_, m=m):
+            m(x)
+            return _
+
+        with torch.no_grad():
+            fwd_ms = profiling.time_op(fwd, x, repeats=3, iters=5) * 1e3
+        step_ms = profiling.time_op(step, x, repeats=3, iters=5) * 1e3
+        step_dev_ms = timed_ms(lambda: step(None), reps=3, batches=5)
+        out["off" if chunk is None else str(chunk)] = dict(
+            max_abs_err_vs_unchunked=errs, fwd_no_grad_ms=fwd_ms,
+            fwd_bwd_ms=step_ms, fwd_bwd_device_ms=step_dev_ms,
+            device_busy_share=step_dev_ms / step_ms)
+    return dict(shape=list(SCAT_SHAPE), tolerance=CHUNK_TOL, by_chunk=out)
+
+
 def profile(step, iters):
     """Device time by kernel over a window of ``iters`` steps
     (torch.profiler; its own host overhead inflates the window's wall
@@ -4412,9 +4744,11 @@ def main():
         tt, ops, fused_dtcwt, scatternet, COLOUR_SHAPE, COLOUR_CHECK_N,
         "scat_j2_colour", COLOUR_TIMING, combine_colour=True)
     emit("scat_j2_colour", **cfields)
-    n_edge, edge_err, edge_insts = mag_edge_cases(scat_mag)
+    n_edge, edge_err, edge_insts, k18_err = mag_edge_cases(scat_mag)
     emit("mag_edge_cases", calls=n_edge, max_abs_err=edge_err,
-         tolerance=MAG_TOL, instantiations=edge_insts)
+         tolerance=MAG_TOL, instantiations=edge_insts,
+         k18_max_abs_err=k18_err,
+         k18_tolerance=dict(BWD2_TOL, relative_to="the terms' magnitudes"))
     n_edge, mismatches, edge_insts = quad_edge_cases(quad)
     emit("quad_edge_cases", calls=n_edge, mismatched_elements=mismatches,
          tolerance="exact", instantiations=edge_insts)
@@ -4627,6 +4961,17 @@ def main():
     # the precision levels and bf16 (K17; the stencils through casts), set
     # through the port's API only: the TF32 flags above stay off
     rows.extend(precision_phases(tt, ops, banded, _cuda))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # second-order gradients: every backward's backward (K18 for the
+    # magnitudes'), and the batch_chunk dial, timed with utils.profiling
+    from pytorch_wavelets_tpu_torch.utils import profiling
+    rows.extend(hvp_phases(tt, ops, kern, profiling, fused_dtcwt, scatternet,
+                           dtcwt_fb, lev))
+    emit("chunk_scat", **chunk_scat(tt, profiling))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
     fwd = tt.DTCWTForward(J=2, device="cuda")
     inv = tt.DTCWTInverse(device="cuda")
@@ -4655,6 +5000,17 @@ def main():
     del m, xs, G
     emit("profile", path="swt_train", **profile(wstep, 3))
     emit("profile", path="alt_train", **profile(astep, 2))
+    for path, fn, shape, loss in (
+            ("hvp_scat_j2", tt.ScatLayerj2(device="cuda"), SCAT_SHAPE,
+             _squares),
+            ("hvp_dwt", _dwt_round_trip(tt, J=DWT_J, wave=DWT_WAVE,
+                                        mode=DWT_MODE)("cuda"), DWT_SHAPE,
+             _cubic)):
+        hvp = hvp_of(fn, loss)
+        x, v = (torch.randn(shape, generator=torch.Generator()
+                            .manual_seed(s)).cuda() for s in (0, 1))
+        emit("profile", path=path, **profile(lambda: hvp(x, v), 2))
+        del hvp, x, v
 
     print(json.dumps({"kernels": [{k: v for k, v in r.items()
                                    if k != "per_call"} for r in rows]}))

@@ -18,6 +18,9 @@ from pytorch_wavelets_tpu_torch.models import (  # noqa: F401
     DWTForward, DWTInverse, DWT1DForward, DWT1DInverse, SWTForward,
     SWTInverse, DTCWTForward, DTCWTInverse, ScatLayer, ScatLayerj2,
 )
+from pytorch_wavelets_tpu_torch.models._base import (  # noqa: F401
+    batch_chunked,
+)
 
 # Aliases matching the reference (reference __init__.py:27-36)
 DWT = DWTForward
@@ -36,5 +39,5 @@ __all__ = [
     "DWT", "IDWT", "DWT2D", "IDWT2D", "DWT1D", "IDWT1D",
     "DTCWT", "IDTCWT",
     "set_matmul_precision", "get_matmul_precision", "matmul_precision",
-    "__version__",
+    "batch_chunked", "__version__",
 ]

@@ -1,10 +1,11 @@
-// K4 scat_mag_fwd and K5 scat_mag_bwd: the scattering layers' smooth
-// magnitude and its backward, as streaming passes over the bandpass
-// tensor.
+// K4 scat_mag_fwd, K5 scat_mag_bwd and K18 scat_mag_bwd2: the scattering
+// layers' smooth magnitude, its backward and that backward's backward, as
+// streaming passes over the bandpass tensor.
 //
 // Replaces pytorch_wavelets_tpu/transforms/scatternet.py:smooth_mag (l.25)
-// and _combined_mag (l.32), and the JAX autodiff of both.  Input: one
-// level's bands as a (N, 6, C, h, w, 2) view (re/im last).
+// and _combined_mag (l.32), and the JAX autodiff of both, to second
+// order.  Input: one level's bands as a (N, 6, C, h, w, 2) view (re/im
+// last).
 //
 //   K4: r[n, o, c, i, j] = sqrt(re^2 + im^2 + b^2) - b, written to the
 //       contiguous (N, 6, C, h, w) output; with `combine` the re^2 + im^2
@@ -14,6 +15,11 @@
 //       forward), g read through its strides (with `combine` one g and one
 //       ratio per (n, o, i, j), broadcast over C), written to the
 //       contiguous (N, 6, C, h, w, 2) band gradient.
+//   K18: K5 as a function of (h, g), differentiated for the cotangent u
+//       of its output dh (any strides, dh's shape): with s = r + b and
+//       t = sum u * h over (re, im) (and over C with `combine`),
+//       dg = t / s and dh' = (u - h * (dg / s)) * (g / s), written to a
+//       contiguous (N, 6, cout, h, w) dg and (N, 6, C, h, w, 2) dh'.
 //
 // Every product, sum, square root and quotient is the IEEE-rounded
 // intrinsic, in the order of the plain PyTorch version
@@ -22,7 +28,8 @@
 // plain version and JAX's autodiff do.
 //
 // Bound: bytes.  K4 reads 8 and writes 4 bytes a coefficient, K5 reads
-// 8 + 4 and writes 8, against a few operations.  The design:
+// 8 + 4 and writes 8, K18 reads 8 + 4 + 8 and writes 4 + 8, against a
+// few operations.  The design (K18 walks as K5 does, with u beside h):
 //
 // - No per-element index division.  The grid walks planes p = (n * 6 + o)
 //   * cout + c and chunks within a plane; a block splits its p into
@@ -355,6 +362,216 @@ __global__ void __launch_bounds__(MAG_THREADS)
 }
 
 // ---------------------------------------------------------------------------
+// K18: the backward's backward, both walks
+// ---------------------------------------------------------------------------
+
+// One coefficient's K18 terms for NC channels: e the bands, w the
+// cotangent u, gv the output cotangent; returns dg and writes dh' to o.
+template <int NC>
+__device__ __forceinline__ float bwd2_terms(const float2 (&e)[NC],
+                                            const float2 (&w)[NC], float gv,
+                                            float b2, float2 (&o)[NC]) {
+  float s = 0.f, t = 0.f;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    s = __fadd_rn(s, sq2(e[c].x, e[c].y));
+    t = __fadd_rn(t, __fadd_rn(__fmul_rn(w[c].x, e[c].x),
+                               __fmul_rn(w[c].y, e[c].y)));
+  }
+  const float den = __fsqrt_rn(__fadd_rn(s, b2));
+  const float dg = __fdiv_rn(t, den);
+  const float q = __fdiv_rn(dg, den), a = __fdiv_rn(gv, den);
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+    o[c] = make_float2(__fmul_rn(__fsub_rn(w[c].x, __fmul_rn(e[c].x, q)), a),
+                       __fmul_rn(__fsub_rn(w[c].y, __fmul_rn(e[c].y, q)), a));
+  return dg;
+}
+
+struct Bwd2Args {
+  VecArgs v;             // h, g and the plane walk, as K5's
+  const float* u;        // the cotangent of dh
+  Strides3 us;
+  long long uc;          // u's channel stride, summed over with combine
+};
+
+// Coefficient k of one plane alone (a head or a tail)
+template <int NC>
+__device__ __forceinline__ void bwd2_one(const float* hp, long long sc,
+                                         const float* up, long long uc,
+                                         float gv, float b2, int k,
+                                         float* dgp, float* dp,
+                                         long long dstride) {
+  float2 e[NC], w[NC], o[NC];
+  load_one<NC>(hp, sc, k, e);
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const float* uk = up + c * uc + 2 * k;
+    w[c] = make_float2(__ldg(uk), __ldg(uk + 1));
+  }
+  dgp[k] = bwd2_terms<NC>(e, w, gv, b2, o);
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+    reinterpret_cast<float2*>(dp + c * dstride)[k] = o[c];
+}
+
+template <int NC>
+__global__ void __launch_bounds__(MAG_THREADS)
+    mag_bwd2_vector(Bwd2Args b, float* __restrict__ dg,
+                    float* __restrict__ dh) {
+  const VecArgs a = b.v;
+  for (int blk = blockIdx.x; blk < a.nb; blk += gridDim.x) {
+    const int p = blk / a.cpp, chunk = blk - p * a.cpp;
+    int n, o, c;
+    split_plane(p, a.cout, n, o, c);
+    const float* hp = a.h + a.hs.at(n, o, c);
+    const float* gp = a.g + a.gs.at(n, o, c);
+    const float* up = b.u + b.us.at(n, o, c);
+    const int head = (reinterpret_cast<uintptr_t>(hp) & 15) ? 1 : 0;
+    const int pairs = (a.P - head) >> 1;
+    float* dgp = dg + (long long)p * a.P;
+    float* dgq = dgp + head;
+    const bool st2 = (reinterpret_cast<uintptr_t>(dgq) & 7) == 0;
+    const long long dstride = 2LL * a.P;
+    float* dp = dh + (long long)p * NC * dstride;
+    const float* gq = gp + head;
+    const bool ld2 = (reinterpret_cast<uintptr_t>(gq) & 7) == 0;
+    const int q0 = chunk * (MAG_THREADS * MAG_PAIRS) + threadIdx.x;
+    float4 v[NC][MAG_PAIRS], w[NC][MAG_PAIRS];
+    float2 gv[MAG_PAIRS];
+#pragma unroll
+    for (int k = 0; k < MAG_PAIRS; ++k) {
+      const int q = q0 + k * MAG_THREADS;
+      const bool in = q < pairs;
+#pragma unroll
+      for (int t = 0; t < NC; ++t) {
+        v[t][k] = in ? __ldg(reinterpret_cast<const float4*>(
+                                 hp + t * a.sc + 2 * head) + q)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+        const float* uq = up + t * b.uc + 2 * head;
+        if (!in) {
+          w[t][k] = make_float4(0.f, 0.f, 0.f, 0.f);
+        } else if ((reinterpret_cast<uintptr_t>(uq) & 15) == 0) {
+          w[t][k] = __ldg(reinterpret_cast<const float4*>(uq) + q);
+        } else {   // 8 bytes past a line
+          const float2 lo = __ldg(reinterpret_cast<const float2*>(uq) + 2 * q);
+          const float2 hi =
+              __ldg(reinterpret_cast<const float2*>(uq) + 2 * q + 1);
+          w[t][k] = make_float4(lo.x, lo.y, hi.x, hi.y);
+        }
+      }
+      if (!in)
+        gv[k] = make_float2(0.f, 0.f);
+      else if (ld2)
+        gv[k] = __ldg(reinterpret_cast<const float2*>(gq) + q);
+      else
+        gv[k] = make_float2(__ldg(gq + 2 * q), __ldg(gq + 2 * q + 1));
+    }
+#pragma unroll
+    for (int k = 0; k < MAG_PAIRS; ++k) {
+      const int q = q0 + k * MAG_THREADS;
+      if (q >= pairs) continue;
+      float2 e0[NC], e1[NC], w0[NC], w1[NC], o0[NC], o1[NC];
+#pragma unroll
+      for (int t = 0; t < NC; ++t) {
+        e0[t] = make_float2(v[t][k].x, v[t][k].y);
+        e1[t] = make_float2(v[t][k].z, v[t][k].w);
+        w0[t] = make_float2(w[t][k].x, w[t][k].y);
+        w1[t] = make_float2(w[t][k].z, w[t][k].w);
+      }
+      const float g0 = bwd2_terms<NC>(e0, w0, gv[k].x, a.b2, o0);
+      const float g1 = bwd2_terms<NC>(e1, w1, gv[k].y, a.b2, o1);
+      if (st2) {
+        *reinterpret_cast<float2*>(dgq + 2 * q) = make_float2(g0, g1);
+      } else {
+        dgq[2 * q] = g0;
+        dgq[2 * q + 1] = g1;
+      }
+#pragma unroll
+      for (int t = 0; t < NC; ++t) {
+        const float4 out = make_float4(o0[t].x, o0[t].y, o1[t].x, o1[t].y);
+        float* dq = dp + t * dstride + 2 * head;
+        if ((reinterpret_cast<uintptr_t>(dq) & 15) == 0) {
+          reinterpret_cast<float4*>(dq)[q] = out;
+        } else {
+          reinterpret_cast<float2*>(dq)[2 * q] = o0[t];
+          reinterpret_cast<float2*>(dq)[2 * q + 1] = o1[t];
+        }
+      }
+    }
+    if (chunk == 0 && threadIdx.x == 0) {   // the head and the tail
+      if (head)
+        bwd2_one<NC>(hp, a.sc, up, b.uc, __ldg(gp), a.b2, 0, dgp, dp,
+                     dstride);
+      if ((a.P - head) & 1)
+        bwd2_one<NC>(hp, a.sc, up, b.uc, __ldg(gp + a.P - 1), a.b2,
+                     a.P - 1, dgp, dp, dstride);
+    }
+  }
+}
+
+template <typename I>
+struct Bwd2Strided {
+  StridedArgs<I> s;      // h, g and the walk, as K5's
+  const float* u;
+  Strides3 us;
+  long long uc;
+  I uh, uw, uri;
+};
+
+template <typename I>
+__global__ void __launch_bounds__(MAG_THREADS)
+    mag_bwd2_strided(Bwd2Strided<I> b, float* __restrict__ dg,
+                     float2* __restrict__ dh) {
+  const StridedArgs<I> a = b.s;
+  for (I blk = blockIdx.x; blk < a.nb; blk += gridDim.x) {
+    const I p = blk / a.cpp, chunk = blk - p * a.cpp;
+    I n, o, c;
+    split_plane(p, a.cout, n, o, c);
+    const float* hp = a.h + a.hs.at(n, o, c);
+    const float* gp = a.g + a.gs.at(n, o, c);
+    const float* up = b.u + b.us.at(n, o, c);
+    float* dgp = dg + (long long)p * a.P;
+    float2* dp = dh + (long long)p * a.nc * a.P;
+    I k = chunk * (MAG_THREADS * MAG_STEPS) + (I)threadIdx.x;
+    I i = k / a.w, j = k - i * a.w;
+#pragma unroll
+    for (int m = 0; m < MAG_STEPS; ++m) {
+      if (k < a.P) {
+        const float* e = hp + i * a.sh + j * a.sw;
+        const float* f = up + i * b.uh + j * b.uw;
+        float s = 0.f, t = 0.f;
+        for (int ch = 0; ch < a.nc; ++ch) {
+          const float re = e[ch * a.sc], im = e[ch * a.sc + a.sri];
+          const float ur = f[ch * b.uc], ui = f[ch * b.uc + b.uri];
+          s = __fadd_rn(s, sq2(re, im));
+          t = __fadd_rn(t, __fadd_rn(__fmul_rn(ur, re), __fmul_rn(ui, im)));
+        }
+        const float den = __fsqrt_rn(__fadd_rn(s, a.b2));
+        const float dgk = __fdiv_rn(t, den);
+        const float q = __fdiv_rn(dgk, den);
+        const float av = __fdiv_rn(gp[i * a.gh + j * a.gw], den);
+        dgp[k] = dgk;
+        for (int ch = 0; ch < a.nc; ++ch) {
+          const float re = e[ch * a.sc], im = e[ch * a.sc + a.sri];
+          const float ur = f[ch * b.uc], ui = f[ch * b.uc + b.uri];
+          dp[(long long)ch * a.P + k] = make_float2(
+              __fmul_rn(__fsub_rn(ur, __fmul_rn(re, q)), av),
+              __fmul_rn(__fsub_rn(ui, __fmul_rn(im, q)), av));
+        }
+      }
+      k += MAG_THREADS;
+      i += a.di;
+      j += a.dj;
+      if (j >= a.w) {
+        j -= a.w;
+        ++i;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -456,6 +673,16 @@ VecArgs vec_args(const void* h, const Geometry& q, long long sn, long long so,
   return a;
 }
 
+// K18's vector walk also reads u as h is read: each plane one run of
+// 2 P floats starting 8-byte aligned.
+bool u_vector_layout(const void* u, long long N, int C, int hh, int ww,
+                     long long un, long long uo, long long uc, long long uh,
+                     long long uw, long long uri) {
+  return uri == 1 && (ww <= 1 || uw == 2) && (hh <= 1 || uh == 2LL * ww) &&
+         (reinterpret_cast<uintptr_t>(u) & 7) == 0 && (N <= 1 || un % 2 == 0) &&
+         uo % 2 == 0 && (C <= 1 || uc % 2 == 0);
+}
+
 }  // namespace
 
 extern "C" {
@@ -550,6 +777,87 @@ int scat_mag_bwd(const void* h, const void* g, void* dh, long long N, int C,
     a.gw = gw;
     mag_bwd_strided<long long><<<grid_of(a.nb), MAG_THREADS, 0, st>>>(a,
                                                                        out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K18.  h as for scat_mag_fwd, g as for scat_mag_bwd; u: the cotangent of
+// K5's dh, (N, 6, C, hh, ww, 2) at strides un..uri; dg: contiguous
+// (N, 6, combine ? 1 : C, hh, ww); dh: contiguous (N, 6, C, hh, ww, 2).
+// inst: vector only where h and g take K5's vector walk and u's planes
+// are each one run (u_vector_layout).
+int scat_mag_bwd2(const void* h, const void* g, const void* u, void* dg,
+                  void* dh, long long N, int C, int hh, int ww, int combine,
+                  long long sn, long long so, long long sc, long long sh,
+                  long long sw, long long sri, long long gn, long long go,
+                  long long gc, long long gh, long long gw, long long un,
+                  long long uo, long long uc, long long uh, long long uw,
+                  long long uri, float b2, int inst, void* stream) {
+  const Geometry q = geometry(N, C, hh, ww, combine);
+  if (inst != M_VECTOR && inst != M_STRIDED)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (inst == M_VECTOR &&
+      (!vector_layout(h, N, C, hh, ww, q, sn, so, sc, sh, sw, sri) ||
+       (ww > 1 && gw != 1) || (hh > 1 && gh != ww) ||
+       !u_vector_layout(u, N, C, hh, ww, un, uo, uc, uh, uw, uri)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (q.planes * q.P == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* dgo = static_cast<float*>(dg);
+  if (inst == M_VECTOR) {
+    Bwd2Args b;
+    b.v = vec_args(h, q, sn, so, sc, b2, 0.f);
+    b.v.g = static_cast<const float*>(g);
+    b.v.gs = Strides3{gn, go, gc};
+    b.u = static_cast<const float*>(u);
+    b.us = Strides3{un, uo, uc};
+    b.uc = uc;
+    float* out = static_cast<float*>(dh);
+    const unsigned grid = grid_of(b.v.nb);
+    switch (q.nc) {
+      case 1: mag_bwd2_vector<1><<<grid, MAG_THREADS, 0, st>>>(b, dgo, out);
+        break;
+      case 2: mag_bwd2_vector<2><<<grid, MAG_THREADS, 0, st>>>(b, dgo, out);
+        break;
+      case 3: mag_bwd2_vector<3><<<grid, MAG_THREADS, 0, st>>>(b, dgo, out);
+        break;
+      default: mag_bwd2_vector<4><<<grid, MAG_THREADS, 0, st>>>(b, dgo, out);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+  float2* out = static_cast<float2*>(dh);
+  const long long uext = (hh - 1) * uh + (ww - 1) * uw + uri;
+  if (strided_fits32(q, hh, ww, sh, sw, sri, gh, gw) && uext < 2 * SIZE32) {
+    Bwd2Strided<int> b;
+    b.s = strided_args<int>(h, q, ww, sn, so, sc, sh, sw, sri, b2, 0.f);
+    b.s.g = static_cast<const float*>(g);
+    b.s.gs = Strides3{gn, go, gc};
+    b.s.gh = (int)gh;
+    b.s.gw = (int)gw;
+    b.u = static_cast<const float*>(u);
+    b.us = Strides3{un, uo, uc};
+    b.uc = uc;
+    b.uh = (int)uh;
+    b.uw = (int)uw;
+    b.uri = (int)uri;
+    mag_bwd2_strided<int><<<grid_of(b.s.nb), MAG_THREADS, 0, st>>>(b, dgo,
+                                                                    out);
+  } else {
+    Bwd2Strided<long long> b;
+    b.s = strided_args<long long>(h, q, ww, sn, so, sc, sh, sw, sri, b2,
+                                  0.f);
+    b.s.g = static_cast<const float*>(g);
+    b.s.gs = Strides3{gn, go, gc};
+    b.s.gh = gh;
+    b.s.gw = gw;
+    b.u = static_cast<const float*>(u);
+    b.us = Strides3{un, uo, uc};
+    b.uc = uc;
+    b.uh = uh;
+    b.uw = uw;
+    b.uri = uri;
+    mag_bwd2_strided<long long><<<grid_of(b.s.nb), MAG_THREADS, 0, st>>>(
+        b, dgo, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,13 +1,99 @@
-"""The modules' common base, and the dtype helpers of the ``coeff_dtype``
-dial (port of the matching functions of
+"""The modules' common base, the dtype helpers of the ``coeff_dtype``
+dial and the ``batch_chunk`` dial (port of the matching functions of
 ``pytorch_wavelets_tpu/models/_base.py``)."""
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["canon_dtype", "cast_bands", "upcast_bands"]
+__all__ = ["canon_dtype", "cast_bands", "upcast_bands", "batch_chunked",
+           "resolve_chunk", "resolve_scat_chunk", "warn_chunk_dropped"]
+
+
+def _leaves(tree):
+    """The tensors of a nested tuple/list, in order, None entries
+    skipped."""
+    if isinstance(tree, (list, tuple)):
+        return [a for t in tree for a in _leaves(t)]
+    return [] if tree is None else [tree]
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the tensors of same-structured nested tuples/lists,
+    None kept where the first tree has None."""
+    t0 = trees[0]
+    if isinstance(t0, (list, tuple)):
+        return type(t0)(_tree_map(fn, *parts) for parts in zip(*trees))
+    return None if t0 is None else fn(*trees)
+
+
+def batch_chunked(fn, args, chunk):
+    """Apply ``fn`` over leading-axis chunks of ``args`` (a tensor or a
+    nested tuple/list of tensors and None, every tensor with the batch on
+    axis 0) and concatenate the chunks' outputs along axis 0.
+
+    A plain loop: each chunk's pyramids are live one at a time, so the
+    working set is a chunk's, not the batch's; autograd differentiates
+    through it (the slices and the concatenation) to any order.  Runs
+    ``fn(args)`` unchunked when ``chunk`` is 0/None/False, when the batch
+    does not exceed ``chunk``, and, with a warning, when the batch does
+    not divide into whole chunks or the tensors disagree on the batch
+    axis (the JAX package's rules and texts, its ``lax.map`` here a
+    loop)."""
+    if chunk and (not isinstance(chunk, int) or chunk < 0):
+        raise ValueError(f"batch_chunk must be a positive int, got {chunk!r}")
+    leaves = _leaves(args)
+    if not leaves or not chunk:
+        return fn(args)
+    n = leaves[0].shape[0] if leaves[0].ndim else 0
+    if n <= chunk or n % chunk or any(
+            (not a.ndim) or a.shape[0] != n for a in leaves):
+        if n > chunk:
+            warnings.warn(
+                f"batch_chunk={chunk} ignored: leading axis {n} does not "
+                f"divide into whole chunks (or coefficient leaves disagree "
+                f"on the batch axis); running unchunked. Pick a divisor of "
+                f"the batch.", stacklevel=3)
+        return fn(args)
+    outs = [fn(_tree_map(lambda a: a[k:k + chunk], args))
+            for k in range(0, n, chunk)]
+    return _tree_map(lambda *parts: torch.cat(parts, dim=0), *outs)
+
+
+# The JAX package's auto default (None) chunks inside regions it measured
+# on a TPU v5e (its models/_base.py:_DROOP_* and _SCAT_*: the large-batch
+# bandwidth droop of XLA's fusions).  Those are TPU measurements, not
+# facts about the H100, so here None is "off" until an H100 measurement
+# sets a threshold.
+
+
+def resolve_chunk(batch_chunk, n, hw, elems):
+    """Resolve the batch_chunk dial value to a concrete chunk (0 = off).
+    None ("auto") is off on the card: the JAX package's thresholds are TPU
+    v5e measurements.  ``n``, ``hw`` and ``elems`` (the batch, the pixels
+    an image, the elements of the input) are what an H100 threshold would
+    read; no threshold reads them yet."""
+    del n, hw, elems
+    return int(batch_chunk) if batch_chunk else 0
+
+
+def resolve_scat_chunk(batch_chunk, n, chw):
+    """ScatLayerj2's :func:`resolve_chunk`: None is off (the JAX
+    package's ``_SCAT_*`` thresholds are TPU v5e measurements)."""
+    del n, chw
+    return int(batch_chunk) if batch_chunk else 0
+
+
+def warn_chunk_dropped(cls_name, reason):
+    """One-line warning when a model-level guard drops the batch_chunk
+    dial entirely (a non-batch-leading layout): the same no-silent-ignore
+    rule :func:`batch_chunked` applies to non-dividing batches."""
+    warnings.warn(
+        f"{cls_name}: batch_chunk ignored ({reason}); running unchunked.",
+        stacklevel=3)
 
 
 def canon_dtype(coeff_dtype):
@@ -58,12 +144,11 @@ class _TapsModule(nn.Module):
 
     def __init__(self, filters, device, mesh, batch_chunk):
         super().__init__()
-        # batch_chunk None, False or 0 is "off", as in the JAX package
-        # (None is its auto dial, which the port leaves off)
-        if mesh is not None or batch_chunk:
+        if mesh is not None:
             raise NotImplementedError(
-                "mesh= and batch_chunk are not ported yet (ROADMAP.md, "
-                "queue A: A3 batch_chunk, A5 mesh=)")
+                "mesh= is not ported yet (ROADMAP.md, queue A: A5 "
+                "multi-GPU)")
+        self.batch_chunk = batch_chunk
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(

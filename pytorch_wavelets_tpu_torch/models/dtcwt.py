@@ -3,13 +3,20 @@ reference: pytorch_wavelets/dtcwt/transform2d.py)."""
 from __future__ import annotations
 
 from pytorch_wavelets_tpu_torch.models._base import (
-    _TapsModule, canon_dtype, cast_bands, upcast_bands,
+    _TapsModule, batch_chunked, canon_dtype, cast_bands, resolve_chunk,
+    upcast_bands, warn_chunk_dropped,
 )
 from pytorch_wavelets_tpu_torch.transforms.dtcwt_xfm import (
     dtcwt2d, dtcwt_fwd_filters, dtcwt_inv_filters, idtcwt2d,
 )
 
 __all__ = ["DTCWTForward", "DTCWTInverse"]
+
+
+def _batch_leading(m):
+    """Every coefficient of module ``m``'s layout keeps the batch on axis
+    0 (chunking needs it; o_dim or ri_dim 0 breaks it)."""
+    return m.o_dim % 6 != 0 and m.ri_dim % 6 != 0
 
 
 class DTCWTForward(_TapsModule):
@@ -29,13 +36,20 @@ class DTCWTForward(_TapsModule):
         coeff_dtype: optional storage dtype for the bandpass pyramid
             (e.g. 'bfloat16'); the transform computes in fp32 and only
             the returned yh is narrowed.  DTCWTInverse upcasts.
+        batch_chunk: run the transform over leading-axis chunks of
+            this many images, one after another, and concatenate
+            (models/_base.py:batch_chunked; a layout that does not keep
+            the batch on axis 0 runs unchunked, with a warning).  None
+            (the JAX package's auto default) and False/0 are off: the
+            JAX thresholds are TPU v5e measurements.
         device: 'cuda' (default; raises without CUDA) or 'cpu' for the
             plain PyTorch path.  Inputs must be on this device.
-        mesh, batch_chunk: not ported yet; passing either raises.
+        mesh: not ported yet; passing it raises.
     Call: x (N, C, H, W) -> (yl, yh); yh[j] has shape
     (N, C, 6, H_j, W_j, 2) for the default dims.  Skipped levels give None.
     On CUDA the transform and its backward run the hand-written kernels
-    (ops/fused_dtcwt.py); double backward is not ported.
+    (ops/fused_dtcwt.py), and so do second-order gradients (backward
+    through ``torch.autograd.grad(..., create_graph=True)``).
     """
 
     def __init__(self, biort="near_sym_a", qshift="qshift_a", J=3,
@@ -57,14 +71,24 @@ class DTCWTForward(_TapsModule):
         self.mode = mode
         self.coeff_dtype = canon_dtype(coeff_dtype)
 
-    def forward(self, x):
-        self._check_device(x)
+    def _single(self, x):
         yl, yh = dtcwt2d(x, self._filters, J=self.J, skip_hps=self.skip_hps,
                          include_scale=self.include_scale, o_dim=self.o_dim,
                          ri_dim=self.ri_dim, mode=self.mode)
         if self.coeff_dtype is not None and yh is not None:  # J=0: yh None
             yh = cast_bands(yh, self.coeff_dtype)
         return yl, yh
+
+    def forward(self, x):
+        self._check_device(x)
+        chunk = resolve_chunk(self.batch_chunk, x.shape[0],
+                              x.shape[-2] * x.shape[-1], x.numel())
+        if chunk and _batch_leading(self):
+            return batch_chunked(self._single, x, chunk)
+        if self.batch_chunk and not _batch_leading(self):
+            warn_chunk_dropped("DTCWTForward",
+                               "o_dim/ri_dim layout is not batch-leading")
+        return self._single(x)
 
 
 class DTCWTInverse(_TapsModule):
@@ -73,7 +97,7 @@ class DTCWTInverse(_TapsModule):
 
     Call: (yl, yh) -> x.  None entries (lowpass or any bandpass) are
     treated as zeros.  ``device``, ``mesh`` and ``batch_chunk`` as for
-    :class:`DTCWTForward`."""
+    :class:`DTCWTForward` (the chunks upcast their own bands)."""
 
     def __init__(self, biort="near_sym_a", qshift="qshift_a", o_dim=2,
                  ri_dim=-1, mode="symmetric", mesh=None, batch_chunk=None,
@@ -86,10 +110,20 @@ class DTCWTInverse(_TapsModule):
         self.ri_dim = ri_dim
         self.mode = mode
 
-    def forward(self, coeffs):
+    def _single(self, coeffs):
         yl, yh = coeffs
-        self._check_device(yl, *(yh or ()))
         if yh is not None:
             yh = upcast_bands(yh, yl)
         return idtcwt2d((yl, yh), self._filters, o_dim=self.o_dim,
                         ri_dim=self.ri_dim, mode=self.mode)
+
+    def forward(self, coeffs):
+        yl, yh = coeffs
+        self._check_device(yl, *(yh or ()))
+        chunk = resolve_chunk(self.batch_chunk, 0, 0, 0)
+        if chunk and _batch_leading(self):
+            return batch_chunked(self._single, coeffs, chunk)
+        if self.batch_chunk and not _batch_leading(self):
+            warn_chunk_dropped("DTCWTInverse",
+                               "o_dim/ri_dim layout is not batch-leading")
+        return self._single(coeffs)

@@ -4,7 +4,9 @@ from __future__ import annotations
 
 from pytorch_wavelets_tpu_torch.filters import biort as _biort
 from pytorch_wavelets_tpu_torch.filters import qshift as _qshift
-from pytorch_wavelets_tpu_torch.models._base import _TapsModule
+from pytorch_wavelets_tpu_torch.models._base import (
+    _TapsModule, batch_chunked, resolve_scat_chunk,
+)
 from pytorch_wavelets_tpu_torch.ops.dtcwt_fb import prep_taps
 from pytorch_wavelets_tpu_torch.transforms.dtcwt_xfm import _tup
 from pytorch_wavelets_tpu_torch.transforms.scatternet import (
@@ -29,9 +31,13 @@ class ScatLayer(_TapsModule):
     ``biort="near_sym_b_bp"`` the bandpass-diagonal per-level path
     K8/K10, K2/K3 and the pool K11; the magnitudes K4/K5).
 
+    Second-order gradients run them too, the magnitude's through K18.
+
     ``device``: 'cuda' (default; raises without CUDA) or 'cpu' for the
-    plain PyTorch path.  ``mesh`` and ``batch_chunk`` (None = no
-    chunking) are not ported yet; passing either raises.
+    plain PyTorch path.  ``batch_chunk``: run the layer over leading-axis
+    chunks of this many images, one after another, and concatenate
+    (models/_base.py:batch_chunked); None and False/0 are off.  ``mesh``
+    is not ported yet and raises.
     """
 
     def __init__(self, biort="near_sym_a", mode="symmetric", magbias=1e-2,
@@ -52,10 +58,12 @@ class ScatLayer(_TapsModule):
 
     def forward(self, x):
         self._check_device(x)
-        return scat_layer_j1(x, self._filters, mode=self.mode,
-                             magbias=self.magbias,
-                             combine_colour=self.combine_colour,
-                             bandpass_diag=self.bandpass_diag)
+        return batch_chunked(
+            lambda z: scat_layer_j1(z, self._filters, mode=self.mode,
+                                    magbias=self.magbias,
+                                    combine_colour=self.combine_colour,
+                                    bandpass_diag=self.bandpass_diag),
+            x, self.batch_chunk)
 
 
 class ScatLayerj2(_TapsModule):
@@ -64,7 +72,9 @@ class ScatLayerj2(_TapsModule):
 
     Call: x (N, C, H, W) -> (N, 49C, H/4, W/4) (or (N, 51, ...) when
     combine_colour).  ``device``, ``mesh`` and ``batch_chunk`` as for
-    :class:`ScatLayer`.
+    :class:`ScatLayer`: None, the JAX package's auto default, is off here
+    (its thresholds, models/_base.py ``_SCAT_*`` there, are TPU v5e
+    measurements).
     """
 
     def __init__(self, biort="near_sym_a", qshift="qshift_a",
@@ -95,7 +105,11 @@ class ScatLayerj2(_TapsModule):
 
     def forward(self, x):
         self._check_device(x)
-        return scat_layer_j2(x, self._filters, mode=self.mode,
-                             magbias=self.magbias,
-                             combine_colour=self.combine_colour,
-                             bandpass_diag=self.bandpass_diag)
+        chunk = resolve_scat_chunk(self.batch_chunk, x.shape[0],
+                                   x[0].numel())
+        return batch_chunked(
+            lambda z: scat_layer_j2(z, self._filters, mode=self.mode,
+                                    magbias=self.magbias,
+                                    combine_colour=self.combine_colour,
+                                    bandpass_diag=self.bandpass_diag),
+            x, chunk)

@@ -14,8 +14,8 @@ column entry its narrow 64-column tile.  K2's to K16's count theirs in
 (:func:`instantiation_counts`): K6's to K10's, K12's and K16's axis and
 vector width (K6's and K7's per-output ``long_fold`` too), K14's and
 K15's tiles (K14's PSF count), their adjoints' and K15's forward's edge
-bands, K12's and K16's adjoints' edge bands, K2's, K3's, K4's, K5's and
-K11's vector or strided access, K13's walk.
+bands, K12's and K16's adjoints' edge bands, K2's, K3's, K4's, K5's,
+K18's and K11's vector or strided access, K13's walk.
 """
 from pytorch_wavelets_tpu_torch.ops.afb_sfb import (  # noqa: F401
     afb1d, sfb1d, afb1d_atrous, sfb1d_atrous, afb2d, sfb2d,
@@ -42,11 +42,11 @@ from pytorch_wavelets_tpu_torch.ops.quad import (  # noqa: F401
     c2q_unpack, q2c_pack,
 )
 from pytorch_wavelets_tpu_torch.ops.scat_mag import (  # noqa: F401
-    scat_mag_bwd, scat_mag_fwd,
+    scat_mag_bwd, scat_mag_bwd2, scat_mag_fwd,
 )
 
 KERNELS = (apply_row, apply_col, q2c_pack, c2q_unpack, scat_mag_fwd,
-           scat_mag_bwd, afb1d_corr, sfb1d_conv, dtcwt_filt, dtcwt_dfilt,
+           scat_mag_bwd, scat_mag_bwd2, afb1d_corr, sfb1d_conv, dtcwt_filt, dtcwt_dfilt,
            dtcwt_ifilt, avg_pool2_fwd, avg_pool2_bwd, afb1d_atrous_corr,
            afb1d_atrous_adjoint, spec_merge, spec_split, nonsep_afb,
            nonsep_afb_adjoint, nonsep_sfb, nonsep_sfb_adjoint,
@@ -59,7 +59,8 @@ STENCIL_VARIANT_KERNELS = (afb1d_corr, sfb1d_conv, dtcwt_filt, dtcwt_dfilt,
                            afb1d_atrous_adjoint, nonsep_afb,
                            nonsep_afb_adjoint, nonsep_sfb, nonsep_sfb_adjoint,
                            sfb1d_atrous_conv, sfb1d_atrous_adjoint,
-                           scat_mag_fwd, scat_mag_bwd, q2c_pack, c2q_unpack,
+                           scat_mag_fwd, scat_mag_bwd, scat_mag_bwd2,
+                           q2c_pack, c2q_unpack,
                            avg_pool2_fwd, avg_pool2_bwd, spec_merge,
                            spec_split)
 
@@ -99,8 +100,8 @@ def instantiation_counts() -> dict:
     (the gather adding the edge band's pad images) and ``gather`` (the
     whole plane, on the separable split's single fold); K15's forward
     ``poly`` with its tile in positions and ``band`` (the wrap-add's
-    second positions), its adjoint ``staged`` with its tile; K4's and
-    K5's ``vector`` (16-byte loads of plane-contiguous bands) /
+    second positions), its adjoint ``staged`` with its tile; K4's, K5's
+    and K18's ``vector`` (16-byte loads of plane-contiguous bands) /
     ``strided`` (any view through its strides); K2's ``vector`` (16-byte
     stores of the default band layout) / ``strided``, K3's ``vector``
     (16-byte loads of it) / ``strided``; K11's forward's and adjoint's

@@ -69,6 +69,8 @@ _SIGNATURES = {
         "scat_mag_bwd": [_P, _P, _P, _L, _I, _I, _I, _I,
                          _L, _L, _L, _L, _L, _L,
                          _L, _L, _L, _L, _L, _F, _I, _P],
+        "scat_mag_bwd2": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
+                          *[_L] * 17, _F, _I, _P],
     },
     "dwt_afb": {
         "dwt_afb": [_P, _P, _P, _P, _I, _L, _I, _I, _I, _L, _L, _L, _L,

@@ -56,9 +56,9 @@ from functools import lru_cache
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.autograd.function import once_differentiable
 
 from pytorch_wavelets_tpu_torch.ops import _cuda
+from pytorch_wavelets_tpu_torch.ops._linear import linear_backward
 from pytorch_wavelets_tpu_torch.ops.pad import PAD_CODES, pad1d, pad_index
 from pytorch_wavelets_tpu_torch.ops.precision import plain_flags
 from pytorch_wavelets_tpu_torch.utils import dwt_coeff_len
@@ -917,10 +917,15 @@ class _SFB1DAtrous(torch.autograd.Function):
         return sfb1d_atrous_conv(lo, hi, g0, g1, mode, axis, dilation)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, dy):
-        d2 = sfb1d_atrous_adjoint(dy, *ctx.args)
-        return d2[:, :, 0], d2[:, :, 1], None, None, None, None, None
+        args = ctx.args
+
+        def adjoint(g):
+            d2 = sfb1d_atrous_adjoint(g, *args)
+            return d2[:, :, 0], d2[:, :, 1]
+        dlo, dhi = linear_backward(
+            adjoint, lambda ulo, uhi: _SFB1DAtrous.apply(ulo, uhi, *args), dy)
+        return dlo, dhi, None, None, None, None, None
 
 
 @lru_cache(maxsize=None)
@@ -960,61 +965,91 @@ def _one_axis_psfs(taps, axis, k=None):
     return np.stack(f)
 
 
+def _pad_to(t, dim, n):
+    """``t`` with zeros appended along ``dim`` up to length ``n`` (the
+    transpose of keeping its first entries)."""
+    extra = n - t.shape[dim]
+    if extra == 0:
+        return t
+    shape = list(t.shape)
+    shape[dim] = extra
+    return torch.cat([t, t.new_zeros(shape)], dim=dim)
+
+
 class _AFB1D(torch.autograd.Function):
     """x (N, C, H, W) -> the (N, C, 2, ...) split along ``axis`` (K6
-    ``afb1d_corr``; correlation-order taps).  Backward: the exact
-    transpose, K14's adjoint on the separable split's plan with the PSFs
-    of :func:`_one_axis_psfs` on an input twice as long across the axis
-    (one launch), whose even positions are dx (what ``jax.vjp`` of the
-    JAX ``afb1d`` gives, in every mode)."""
+    ``afb1d_corr``; correlation-order taps), its first ``out_len`` outputs
+    along the axis (all with None).  Backward: the exact transpose, the
+    cotangent padded with zeros to the full split, then K14's adjoint on
+    the separable split's plan with the PSFs of :func:`_one_axis_psfs` on
+    an input twice as long across the axis (one launch), whose even
+    positions are dx (what ``jax.vjp`` of the JAX ``afb1d`` gives, in
+    every mode).  The backward's backward is this split again."""
 
     @staticmethod
-    def forward(ctx, x, h0, h1, mode, axis):
-        ctx.args = (h0, h1, mode, axis, tuple(x.shape[2:]))
-        return afb1d_corr(x, h0, h1, mode, axis)
+    def forward(ctx, x, h0, h1, mode, axis, out_len=None):
+        ctx.args = (h0, h1, mode, axis, out_len, tuple(x.shape[2:]))
+        return afb1d_corr(x, h0, h1, mode, axis, out_len)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, dy):
         from pytorch_wavelets_tpu_torch.ops.nonsep import nonsep_afb_adjoint
-        h0, h1, mode, axis, (H, W) = ctx.args
+        h0, h1, mode, axis, out_len, (H, W) = ctx.args
         f = _one_axis_psfs((h0, h1), axis)
-        if axis == 3:
+        full = afb_plan((H, W)[axis - 2], len(h0), mode)[0]
+
+        def adjoint(g):
+            g = _pad_to(g, axis + 1, full)
             # positional separable=True: the launch recorders pass no
             # keywords
-            dx = nonsep_afb_adjoint(dy, f, mode, 2 * H, W, True)[:, :, 0::2]
-        else:
-            dx = nonsep_afb_adjoint(dy, f, mode, H, 2 * W, True)[..., 0::2]
-        return dx, None, None, None, None
+            if axis == 3:
+                return nonsep_afb_adjoint(g, f, mode, 2 * H, W,
+                                          True)[:, :, 0::2]
+            return nonsep_afb_adjoint(g, f, mode, H, 2 * W, True)[..., 0::2]
+        dx = linear_backward(
+            adjoint, lambda u: _AFB1D.apply(u, h0, h1, mode, axis, out_len),
+            dy)
+        return dx, None, None, None, None, None
 
 
 class _SFB1D(torch.autograd.Function):
     """lo, hi (N, C, H, W) -> the merge along ``axis`` (K7 ``sfb1d_conv``;
-    convolution-order taps).  Backward: the exact transpose, K15's
-    adjoint on the separable plan with the PSFs of :func:`_one_axis_psfs`
-    (two of them zero: K15 takes four bands) on a cotangent spread to the
-    even positions of an axis twice as long (one launch)."""
+    convolution-order taps), its first ``out_len`` outputs along the axis
+    (all with None).  Backward: the exact transpose, the cotangent padded
+    with zeros to the full merge, then K15's adjoint on the separable plan
+    with the PSFs of :func:`_one_axis_psfs` (two of them zero: K15 takes
+    four bands) on a cotangent spread to the even positions of an axis
+    twice as long (one launch).  The backward's backward is this merge
+    again."""
 
     @staticmethod
-    def forward(ctx, lo, hi, g0, g1, mode, axis):
-        ctx.args = (g0, g1, mode, axis, tuple(lo.shape[2:]))
-        return sfb1d_conv(lo, hi, g0, g1, mode, axis)
+    def forward(ctx, lo, hi, g0, g1, mode, axis, out_len=None):
+        ctx.args = (g0, g1, mode, axis, out_len, tuple(lo.shape[2:]))
+        return sfb1d_conv(lo, hi, g0, g1, mode, axis, out_len)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, dy):
         from pytorch_wavelets_tpu_torch.ops.nonsep import nonsep_sfb_adjoint
-        g0, g1, mode, axis, (H, W) = ctx.args
+        g0, g1, mode, axis, out_len, (H, W) = ctx.args
         f = _one_axis_psfs((g0, g1), axis, 4)
-        shape = list(dy.shape)
-        shape[2 if axis == 3 else 3] *= 2      # the other axis, doubled
-        dy2 = dy.new_zeros(shape)
-        if axis == 3:
-            dy2[:, :, 0::2] = dy
-        else:
-            dy2[..., 0::2] = dy
-        dc = nonsep_sfb_adjoint(dy2, f, mode, H, W, True)
-        return dc[:, :, 0], dc[:, :, 1], None, None, None, None
+        full = sfb_plan((H, W)[axis - 2], len(g0), mode)[0]
+
+        def adjoint(g):
+            g = _pad_to(g, axis, full)
+            shape = list(g.shape)
+            shape[2 if axis == 3 else 3] *= 2      # the other axis, doubled
+            g2 = g.new_zeros(shape)
+            if axis == 3:
+                g2[:, :, 0::2] = g
+            else:
+                g2[..., 0::2] = g
+            dc = nonsep_sfb_adjoint(g2, f, mode, H, W, True)
+            return dc[:, :, 0], dc[:, :, 1]
+        dlo, dhi = linear_backward(
+            adjoint,
+            lambda ulo, uhi: _SFB1D.apply(ulo, uhi, g0, g1, mode, axis,
+                                          out_len), dy)
+        return dlo, dhi, None, None, None, None, None
 
 
 def afb1d(x, h0, h1, mode="zero", axis=-1):
@@ -1094,10 +1129,12 @@ class _AFB1DAtrous(torch.autograd.Function):
         return afb1d_atrous_corr(x, h0, h1, mode, axis, dilation)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, dy):
-        return (afb1d_atrous_adjoint(dy, *ctx.args), None, None, None, None,
-                None)
+        args = ctx.args
+        dx = linear_backward(
+            lambda g: afb1d_atrous_adjoint(g, *args),
+            lambda u: _AFB1DAtrous.apply(u, *args[:-1]), dy)
+        return dx, None, None, None, None, None
 
 
 def afb1d_atrous(x, h0, h1, mode="periodic", axis=-1, dilation=1):
@@ -1136,16 +1173,19 @@ class _AFB2DAtrous(torch.autograd.Function):
         return _afb2d_atrous_corr(x, *taps, mode, dilation)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, dy):
-        h0c, h1c, h0r, h1r = ctx.taps
+        taps, mode, d = ctx.taps, ctx.mode, ctx.dilation
+        h0c, h1c, h0r, h1r = taps
         N, C, H, W = ctx.in_shape
-        d, mode = ctx.dilation, ctx.mode
-        dy = dy.reshape(N, 2 * C, 2, *dy.shape[3:])
-        dlohi = afb1d_atrous_adjoint(dy, h0c, h1c, mode, 2, d, H)
-        dlohi = dlohi.reshape(N, C, 2, *dlohi.shape[2:])
-        return (afb1d_atrous_adjoint(dlohi, h0r, h1r, mode, 3, d, W), None,
-                None, None)
+
+        def adjoint(g):
+            g = g.reshape(N, 2 * C, 2, *g.shape[3:])
+            dlohi = afb1d_atrous_adjoint(g, h0c, h1c, mode, 2, d, H)
+            dlohi = dlohi.reshape(N, C, 2, *dlohi.shape[2:])
+            return afb1d_atrous_adjoint(dlohi, h0r, h1r, mode, 3, d, W)
+        dx = linear_backward(
+            adjoint, lambda u: _AFB2DAtrous.apply(u, taps, mode, d), dy)
+        return dx, None, None, None
 
 
 def afb2d_atrous(x, h0_col, h1_col, h0_row, h1_row, mode="periodization",

@@ -18,7 +18,8 @@ q2c/c2q fold into the operators' row/column parities.
 
 Both pyramids are ``torch.autograd.Function``s whose backwards run the
 same kernels in their adjoint roles, on the CPU (plain versions) and on
-the card alike:
+the card alike, and each backward's own backward is its pyramid again
+(``ops/_linear.py``: second-order gradients need no other kernel):
 
 - the forward's backward (JAX ``analysis_pyramid.transpose_fn``, B4):
   per subband group K3 combines the band cotangent into quadrant planes
@@ -37,8 +38,7 @@ of the traced forward.
 
 The operators of a plan, and their transposes, live on the device as
 :class:`~.banded.Operator` objects, built once per plan and device by
-:func:`analysis_operators` / :func:`synthesis_operators`.  Double
-backward is not ported (ROADMAP.md, A4).
+:func:`analysis_operators` / :func:`synthesis_operators`.
 """
 from __future__ import annotations
 
@@ -47,8 +47,8 @@ from collections import namedtuple
 
 import numpy as np
 import torch
-from torch.autograd.function import once_differentiable
 
+from pytorch_wavelets_tpu_torch.ops._linear import linear_backward
 from pytorch_wavelets_tpu_torch.ops.banded import (
     Operator, apply_col, apply_row,
 )
@@ -246,17 +246,23 @@ class _AnalysisPyramid(torch.autograd.Function):
                      if t is not None)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, *grads):
-        it = iter(grads)
-        gls, ghs = [], []
-        for has_ll, has_h in ctx.present:
-            gls.append(next(it) if has_ll else None)
-            ghs.append(next(it) if has_h else None)
-        with matmul_precision(ctx.level):
-            dx = _analysis_adjoint(gls, ghs, ctx.ops, *ctx.dims,
-                                   *ctx.x_meta)
-        return dx, None, None, None
+        ops, dims, level = ctx.ops, ctx.dims, ctx.level
+        present, x_meta = ctx.present, ctx.x_meta
+
+        def adjoint(*gs):
+            it = iter(gs)
+            gls, ghs = [], []
+            for has_ll, has_h in present:
+                gls.append(next(it) if has_ll else None)
+                ghs.append(next(it) if has_h else None)
+            with matmul_precision(level):
+                return _analysis_adjoint(gls, ghs, ops, *dims, *x_meta)
+
+        def primal(u):
+            with matmul_precision(level):
+                return _AnalysisPyramid.apply(u.contiguous(), ops, *dims)
+        return linear_backward(adjoint, primal, *grads), None, None, None
 
 
 def analysis_pyramid(x, ops, o_dim, ri_dim):
@@ -332,13 +338,28 @@ class _SynthesisPyramid(torch.autograd.Function):
         return _synthesis(ll, highs, ops)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, gy):
-        with matmul_precision(ctx.level):
-            d_ll, d_bands = _synthesis_adjoint(
-                gy, ctx.ops, ctx.needs_input_grad[2], ctx.used,
-                ctx.band_shapes, ctx.needs_input_grad[3:])
-        return (None, None, d_ll, *d_bands)
+        ops, used, level = ctx.ops, ctx.used, ctx.level
+        band_shapes, need = ctx.band_shapes, ctx.needs_input_grad
+
+        def adjoint(g):
+            with matmul_precision(level):
+                d_ll, d_bands = _synthesis_adjoint(
+                    g, ops, need[2], used, band_shapes, need[3:])
+            return (d_ll, *d_bands)
+
+        def primal(u_ll, *u_bands):
+            # the adjoint's None outputs (gradients not asked for) have
+            # None cotangents: their inputs are left out
+            kept = [(j, u) for j, u in zip(used, u_bands) if u is not None]
+            if u_ll is None and not kept:
+                return None
+            with matmul_precision(level):
+                return _SynthesisPyramid.apply(
+                    ops, tuple(j for j, _ in kept),
+                    None if u_ll is None else u_ll.contiguous(),
+                    *(u for _, u in kept))
+        return (None, None, *linear_backward(adjoint, primal, gy))
 
 
 def synthesis_pyramid(ll, highs, ops):

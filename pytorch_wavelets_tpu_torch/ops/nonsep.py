@@ -33,7 +33,8 @@ evaluate, and :func:`afb_tile`, :func:`adjoint_tile`, :func:`sfb_tile`,
 :func:`sfb_band_images`) their tiles and bands, so that the tests can
 hold them against the plain versions on the CPU.  :class:`NonsepAFB`
 and :class:`NonsepSFB` are the autograd Functions: forward one entry,
-backward the other.
+backward the other, and the backward's own backward the forward again
+(``ops/_linear.py``), so each differentiates to any order.
 """
 from __future__ import annotations
 
@@ -42,9 +43,9 @@ from functools import lru_cache
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.autograd.function import once_differentiable
 
 from pytorch_wavelets_tpu_torch.ops import _cuda
+from pytorch_wavelets_tpu_torch.ops._linear import linear_backward
 from pytorch_wavelets_tpu_torch.ops.afb_sfb import (
     MAX_AXIS, _afb2d_corr, _is_per, _sfb2d_conv, as_taps, sfb_plan,
 )
@@ -754,10 +755,12 @@ class NonsepAFB(torch.autograd.Function):
         return nonsep_afb(x, f, mode)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, dy):
-        return nonsep_afb_adjoint(dy, ctx.f, ctx.mode, *ctx.in_shape), None, \
-            None
+        f, mode, (H, W) = ctx.f, ctx.mode, ctx.in_shape
+        dx = linear_backward(
+            lambda g: nonsep_afb_adjoint(g, f, mode, H, W),
+            lambda u: NonsepAFB.apply(u, f, mode), dy)
+        return dx, None, None
 
 
 class SeparableAFB(torch.autograd.Function):
@@ -771,16 +774,19 @@ class SeparableAFB(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, trees, f, mode):
-        ctx.f, ctx.mode, ctx.in_shape = f, mode, tuple(x.shape[-2:])
+        ctx.trees, ctx.f, ctx.mode = trees, f, mode
+        ctx.in_shape = tuple(x.shape[-2:])
         ys = [_afb2d_corr(x, *taps, mode) for taps in trees]
         return ys[0] if len(ys) == 1 else torch.cat(ys, dim=2)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, dy):
+        trees, f, mode, (H, W) = ctx.trees, ctx.f, ctx.mode, ctx.in_shape
         # positional separable=True: the launch recorders pass no keywords
-        return nonsep_afb_adjoint(dy, ctx.f, ctx.mode, *ctx.in_shape,
-                                  True), None, None, None
+        dx = linear_backward(
+            lambda g: nonsep_afb_adjoint(g, f, mode, H, W, True),
+            lambda u: SeparableAFB.apply(u, trees, f, mode), dy)
+        return dx, None, None, None
 
 
 class SeparableSFB(torch.autograd.Function):
@@ -794,15 +800,22 @@ class SeparableSFB(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, ll, lh, hl, hh, taps, f, mode):
-        ctx.f, ctx.mode, ctx.in_shape = f, mode, tuple(ll.shape[-2:])
+        ctx.taps, ctx.f, ctx.mode = taps, f, mode
+        ctx.in_shape = tuple(ll.shape[-2:])
         return _sfb2d_conv(ll, lh, hl, hh, *taps, mode)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, dy):
-        # positional separable=True: the launch recorders pass no keywords
-        dc = nonsep_sfb_adjoint(dy, ctx.f, ctx.mode, *ctx.in_shape, True)
-        return (*(dc[:, :, i] for i in range(4)), None, None, None)
+        taps, f, mode, (Ny, Nx) = ctx.taps, ctx.f, ctx.mode, ctx.in_shape
+
+        def adjoint(g):
+            # positional separable=True: the launch recorders pass no
+            # keywords
+            dc = nonsep_sfb_adjoint(g, f, mode, Ny, Nx, True)
+            return tuple(dc[:, :, i] for i in range(4))
+        dcs = linear_backward(
+            adjoint, lambda *us: SeparableSFB.apply(*us, taps, f, mode), dy)
+        return (*dcs, None, None, None)
 
 
 class NonsepSFB(torch.autograd.Function):
@@ -815,7 +828,9 @@ class NonsepSFB(torch.autograd.Function):
         return nonsep_sfb(coeffs, f, mode)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, dy):
-        return nonsep_sfb_adjoint(dy, ctx.f, ctx.mode, *ctx.in_shape), None, \
-            None
+        f, mode, (Ny, Nx) = ctx.f, ctx.mode, ctx.in_shape
+        dc = linear_backward(
+            lambda g: nonsep_sfb_adjoint(g, f, mode, Ny, Nx),
+            lambda u: NonsepSFB.apply(u, f, mode), dy)
+        return dc, None, None

@@ -32,9 +32,9 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.autograd.function import once_differentiable
 
 from pytorch_wavelets_tpu_torch.ops import banded, fused_dtcwt
+from pytorch_wavelets_tpu_torch.ops._linear import linear_backward
 from pytorch_wavelets_tpu_torch.ops.dtcwt_fb import (
     _dfilt_matrix, _filter_matrix, _ifilt_matrix, coldfilt, colfilter,
     colifilt, rowdfilt, rowfilter, rowifilt,
@@ -244,7 +244,12 @@ def _swap_trees(taps):
 
 class _FwdLevel(torch.autograd.Function):
     """A forward level; its backward is the inverse level (JAX ``bwd``):
-    with the same taps at level 1, with the trees swapped past it."""
+    with the same taps at level 1, with the trees swapped past it.  That
+    backward's own backward is this level again (``ops/_linear.py``), the
+    transpose of the inverse level where the two are adjoint (the dot-
+    product test of ``chip_smoke.py``); the lowpass-only inverse of a
+    skipped level runs in 'symmetric', so its transpose is this level in
+    'symmetric'."""
 
     @staticmethod
     def forward(ctx, x, j1, taps, skip_hps, o_dim, ri_dim, mode):
@@ -256,26 +261,40 @@ class _FwdLevel(torch.autograd.Function):
         return ll if h is None else (ll, h)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, dl, dh=None):
         j1, taps, o_dim, ri_dim, mode = ctx.args
         if dl is None and dh is None:
             return (None,) * 7
-        if dh is None and ctx.h_meta is not None:
-            # JAX's cotangent of an unused output is zeros: the bands'
-            # branch (in ``mode``) runs, not the lowpass-only one
-            shape, dtype, device = ctx.h_meta
-            dh = torch.zeros(shape, dtype=dtype, device=device)
-        if j1:
-            dx = inv_j1(dl, dh, *taps, o_dim, ri_dim, mode)
-        else:
-            dx = inv_j2plus(dl, dh, *_swap_trees(taps), o_dim, ri_dim, mode)
-        return (dx,) + (None,) * 6
+        h_meta = ctx.h_meta
+
+        def adjoint(dl, dh=None):
+            if dh is None and h_meta is not None:
+                # JAX's cotangent of an unused output is zeros: the bands'
+                # branch (in ``mode``) runs, not the lowpass-only one
+                shape, dtype, device = h_meta
+                dh = torch.zeros(shape, dtype=dtype, device=device)
+            if j1:
+                return inv_j1(dl, dh, *taps, o_dim, ri_dim, mode)
+            return inv_j2plus(dl, dh, *_swap_trees(taps), o_dim, ri_dim,
+                              mode)
+
+        skip = h_meta is None
+        fmode = "symmetric" if skip else mode
+
+        def primal(u):
+            return _FwdLevel.apply(u, j1, taps, skip, o_dim, ri_dim, fmode)
+        grads = (dl,) if skip else (dl, dh)
+        return (linear_backward(adjoint, primal, *grads),) + (None,) * 6
 
 
 class _InvLevel(torch.autograd.Function):
     """An inverse level of (lows or None, highs or None); its backward is
-    the forward level (JAX ``bwd``), which saves no inputs."""
+    the forward level (JAX ``bwd``), which saves no inputs, and that
+    backward's own backward this level again (``ops/_linear.py``).  A
+    level-1 inverse without bands in a mode other than 'symmetric' raises
+    there: its backward filters in ``mode``, its forward in 'symmetric'
+    (the reference's lowpass-only branch), so neither is the other's
+    transpose."""
 
     @staticmethod
     def forward(ctx, lows, highs, j1, taps, o_dim, ri_dim, mode):
@@ -288,20 +307,31 @@ class _InvLevel(torch.autograd.Function):
                            mode)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, dy):
         j1, taps, o_dim, ri_dim, mode = ctx.args
         has_lows, has_highs = ctx.has
         if dy is None:
             return (None,) * 7
-        if j1:
-            dl, dh = fwd_j1(dy, *taps, None, not has_highs, o_dim, ri_dim,
-                             mode)
-        else:
-            g0a, g1a, g0b, g1b = taps
-            dl, dh = fwd_j2plus(dy, g0b, g1b, g0a, g1a, None, None,
-                                 not has_highs, o_dim, ri_dim, mode)
-        return (dl if has_lows else None, dh) + (None,) * 5
+
+        def adjoint(g):
+            if j1:
+                dl, dh = fwd_j1(g, *taps, None, not has_highs, o_dim, ri_dim,
+                                mode)
+            else:
+                g0a, g1a, g0b, g1b = taps
+                dl, dh = fwd_j2plus(g, g0b, g1b, g0a, g1a, None, None,
+                                    not has_highs, o_dim, ri_dim, mode)
+            return dl if has_lows else None, dh
+
+        def primal(ul, uh):
+            if j1 and uh is None and mode != "symmetric":
+                raise NotImplementedError(
+                    f"the second derivative of a level-1 DTCWT inverse "
+                    f"without bands in mode {mode!r}: its backward is not "
+                    f"the transpose of its forward there")
+            return _InvLevel.apply(ul, uh, j1, taps, o_dim, ri_dim, mode)
+        dl, dh = linear_backward(adjoint, primal, dy)
+        return (dl, dh) + (None,) * 5
 
 
 def _taps(*ts):

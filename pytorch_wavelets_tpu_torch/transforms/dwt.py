@@ -13,8 +13,12 @@ mode (and 'periodization' at even sizes): autograd of the forward would
 give another gradient.  Here each step is a ``torch.autograd.Function``
 that saves no activations; forward and backward call the same
 dispatching wrappers (``ops/afb_sfb.py``: K6 and K7 on CUDA, their plain
-versions on the CPU).  The backwards are ``once_differentiable``: double
-backward is not ported (ROADMAP.md, A4).
+versions on the CPU).  Each backward runs them through the ops-level
+autograd Functions (``ops/afb_sfb.py:_AFB1D`` / ``_SFB1D``, the crop an
+``out_len`` of theirs), whose backwards are their exact transposes (K14's
+and K15's adjoints, the crop's a zero pad): so the second derivative is
+the transpose of the backward map in every mode, as JAX's autodiff of its
+bwds gives.
 
 The SWT (:func:`swt2d` / :func:`iswt2d`) is differentiated by autodiff in
 the JAX package; here each level of the forward and each least-squares
@@ -27,13 +31,13 @@ from functools import lru_cache
 
 import numpy as np
 import torch
-from torch.autograd.function import once_differentiable
 
 from pytorch_wavelets_tpu_torch.filters import wavelet as _resolve_wavelet
 from pytorch_wavelets_tpu_torch.ops import banded
+from pytorch_wavelets_tpu_torch.ops._linear import linear_backward
 from pytorch_wavelets_tpu_torch.ops.afb_sfb import (
-    _AFB2DAtrous, _afb2d_corr, _afb_atrous_matrix, _sfb2d_conv,
-    afb1d_corr, as_taps, sfb1d_conv,
+    _AFB1D as _Split, _AFB2DAtrous, _SFB1D as _Merge, _afb2d_corr,
+    _afb_atrous_matrix, _sfb2d_conv, afb1d_corr, as_taps, sfb1d_conv,
 )
 from pytorch_wavelets_tpu_torch.ops.banded import apply_col, apply_row
 from pytorch_wavelets_tpu_torch.ops.iswt_merge import spec_merge, spec_split
@@ -112,16 +116,16 @@ class _AFB2D(torch.autograd.Function):
         return y[:, :, 0], y[:, :, 1:]
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, dlow, dhighs):
         rh0c, rh1c, rh0r, rh1r = ctx.taps
         H, W = ctx.in_shape
+        mode = ctx.mode
         # the columns cropped to H before the row merge, which works per
         # row: the same as cropping its output
-        lo = sfb1d_conv(dlow, dhighs[:, :, 0], rh0c, rh1c, ctx.mode, 2, H)
-        hi = sfb1d_conv(dhighs[:, :, 1], dhighs[:, :, 2], rh0c, rh1c,
-                        ctx.mode, 2, H)
-        return sfb1d_conv(lo, hi, rh0r, rh1r, ctx.mode, 3, W), None, None
+        lo = _Merge.apply(dlow, dhighs[:, :, 0], rh0c, rh1c, mode, 2, H)
+        hi = _Merge.apply(dhighs[:, :, 1], dhighs[:, :, 2], rh0c, rh1c, mode,
+                          2, H)
+        return _Merge.apply(lo, hi, rh0r, rh1r, mode, 3, W), None, None
 
 
 class _SFB2D(torch.autograd.Function):
@@ -137,16 +141,16 @@ class _SFB2D(torch.autograd.Function):
                            highs[:, :, 2], *taps, mode)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, dy):
         g0c, g1c, g0r, g1r = ctx.taps
         Hc, Wc = ctx.out_crop
+        mode = ctx.mode
         N, C = dy.shape[:2]
         # the rows cropped to Wc before the column split, which works per
         # column: the same as cropping its output
-        lohi = afb1d_corr(dy, g0r, g1r, ctx.mode, 3, Wc)
+        lohi = _Split.apply(dy, g0r, g1r, mode, 3, Wc)
         lohi = lohi.reshape(N, C * 2, *lohi.shape[3:])
-        d4 = afb1d_corr(lohi, g0c, g1c, ctx.mode, 2, Hc)
+        d4 = _Split.apply(lohi, g0c, g1c, mode, 2, Hc)
         d4 = d4.reshape(N, C, 4, *d4.shape[3:])
         return d4[:, :, 0], d4[:, :, 1:], None, None, None
 
@@ -162,10 +166,9 @@ class _AFB1D(torch.autograd.Function):
         return lohi[:, :, 0, 0], lohi[:, :, 1, 0]
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, d0, d1):
-        dx = sfb1d_conv(d0[:, :, None, :], d1[:, :, None, :], *ctx.taps,
-                        ctx.mode, 3, ctx.in_len)
+        dx = _Merge.apply(d0[:, :, None, :], d1[:, :, None, :], *ctx.taps,
+                          ctx.mode, 3, ctx.in_len)
         return dx[:, :, 0], None, None
 
 
@@ -180,10 +183,9 @@ class _SFB1D(torch.autograd.Function):
                           3)[:, :, 0]
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, dy):
-        lohi = afb1d_corr(dy[:, :, None, :], *ctx.taps, ctx.mode, 3,
-                          ctx.out_crop)
+        lohi = _Split.apply(dy[:, :, None, :], *ctx.taps, ctx.mode, 3,
+                            ctx.out_crop)
         return lohi[:, :, 0, 0], lohi[:, :, 1, 0], None, None, None
 
 
@@ -467,7 +469,7 @@ class _LSMerge(torch.autograd.Function):
     """The least-squares two-band merge along ``axis`` (the JAX
     ``_ls_merge``): lo, hi -> z with the merge ``plan``'s branch.
     Backward: the plan's exact transpose, at the matmul precision level
-    of the forward."""
+    of the forward; that backward's backward is this merge again."""
 
     @staticmethod
     def forward(ctx, lo, hi, plan, axis):
@@ -476,10 +478,17 @@ class _LSMerge(torch.autograd.Function):
         return plan.merge(lo, hi, axis)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, g):
-        with matmul_precision(ctx.level):
-            dlo, dhi = ctx.plan.split(g, ctx.axis)
+        plan, axis, level = ctx.plan, ctx.axis, ctx.level
+
+        def adjoint(g):
+            with matmul_precision(level):
+                return plan.split(g, axis)
+
+        def primal(ulo, uhi):
+            with matmul_precision(level):
+                return _LSMerge.apply(ulo, uhi, plan, axis)
+        dlo, dhi = linear_backward(adjoint, primal, g)
         return dlo, dhi, None, None
 
 

@@ -18,21 +18,22 @@ package chooses on a device:
 Both write the bands as (N, 6, C, h, w, 2), re/im adjacent, which the
 magnitude kernels (``ops/scat_mag.py``) read.  Gradients are the
 pyramids', the levels', the pool's and the magnitudes' own backwards,
-composed by autograd.
+composed by autograd, and so are second-order gradients: each backward is
+differentiable again (the magnitude's through K18).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.autograd.function import once_differentiable
 
 from pytorch_wavelets_tpu_torch.ops import banded
+from pytorch_wavelets_tpu_torch.ops._linear import linear_backward
 from pytorch_wavelets_tpu_torch.ops.fused_dtcwt import (
     analysis_operators, analysis_pyramid,
 )
 from pytorch_wavelets_tpu_torch.ops.pool import avg_pool2_bwd, avg_pool2_fwd
 from pytorch_wavelets_tpu_torch.ops.scat_mag import (
-    scat_mag_bwd, scat_mag_fwd,
+    scat_mag_bwd, scat_mag_bwd2, scat_mag_fwd,
 )
 from pytorch_wavelets_tpu_torch.transforms.dtcwt import (
     _fwd_pyramid_plan, fwd_j1_rot_op, fwd_j2plus_rot_op,
@@ -48,6 +49,8 @@ _O_DIM, _RI_DIM = 1, 5
 
 
 class _SmoothMag(torch.autograd.Function):
+    """K4 forward; backward :class:`_SmoothMagBackward` (K5)."""
+
     @staticmethod
     def forward(ctx, h, bias, combine):
         ctx.save_for_backward(h)
@@ -55,29 +58,50 @@ class _SmoothMag(torch.autograd.Function):
         return scat_mag_fwd(h, bias, combine)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, g):
         h, = ctx.saved_tensors
-        return scat_mag_bwd(h, g.to(h.dtype), ctx.bias, ctx.combine), None, \
-            None
+        return _SmoothMagBackward.apply(h, g.to(h.dtype), ctx.bias,
+                                        ctx.combine), None, None
+
+
+class _SmoothMagBackward(torch.autograd.Function):
+    """The magnitude's backward as a function of (bands h, output
+    cotangent g): K5 forward, K18 backward (the cotangents of h and g).
+    K18's own backward is its plain version's autograd on the CPU; on the
+    card the kernel call raises under ``create_graph`` (third order)."""
+
+    @staticmethod
+    def forward(ctx, h, g, bias, combine):
+        ctx.save_for_backward(h, g)
+        ctx.bias, ctx.combine = bias, combine
+        return scat_mag_bwd(h, g, bias, combine)
+
+    @staticmethod
+    def backward(ctx, u):
+        h, g = ctx.saved_tensors
+        dg, dh = scat_mag_bwd2(h, g, u.to(h.dtype), ctx.bias, ctx.combine)
+        return dh, dg, None, None
 
 
 def smooth_mag(h, bias, combine=False):
     """Differentiable smooth magnitude sqrt(re^2 + im^2 + bias^2) - bias of
     (N, 6, C, h, w, 2) bands (re^2 + im^2 summed over C with ``combine``):
-    K4 forward, K5 backward (the ratios are recomputed, not saved)."""
+    K4 forward, K5 backward (the ratios are recomputed, not saved), K18
+    the backward's backward."""
     return _SmoothMag.apply(h, float(bias), bool(combine))
 
 
 class _AvgPool2(torch.autograd.Function):
+    """K11 forward, its adjoint backward, and the pool again as that
+    backward's backward."""
+
     @staticmethod
     def forward(ctx, x):
         return avg_pool2_fwd(x)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, g):
-        return avg_pool2_bwd(g)
+        return linear_backward(avg_pool2_bwd, _AvgPool2.apply, g)
 
 
 def avg_pool2(x):

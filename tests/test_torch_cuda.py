@@ -2664,3 +2664,70 @@ def test_per_level_path_on_bf16(dev):
     assert counts["dtcwt_filt"] > 0 and counts["q2c_pack"] > 0
     assert all(counts[k.__name__] == 0 for k in banded.K17_WRAPPERS)
     assert counts["apply_row"] == counts["apply_col"] == 0
+
+
+# K18: the magnitude's second derivative (a few IEEE ops a value against
+# its plain version's order, the sums over (re, im) and C included)
+BWD2_TOL = dict(rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("combine", [False, True])
+@pytest.mark.parametrize("bias", [1e-2, 0.0])
+@pytest.mark.parametrize("layout", ["vector", "strided", "odd offset"])
+def test_scat_mag_bwd2(dev, combine, bias, layout):
+    """K18 against scat_mag_bwd2_plain: on the pyramids' layout (vector),
+    on strided bands and cotangents, and on planes that start 8 bytes
+    past a 16-byte line (the vector walk's heads and tails)."""
+    c = 3
+    if layout == "strided":
+        wide = torch.from_numpy(_rand((2, 6, c, 9, 11, 3), 31)).to(dev)
+        h = wide[..., 1:10, :2]
+        u = torch.from_numpy(_rand((2, 6, c, 9, 9, 3), 32)).to(dev)[..., 1:]
+    else:
+        # 8 bytes off a line: every plane a head and a tail (an even
+        # plane, so that combine's channels stay 16 bytes apart)
+        off = 2 if layout == "odd offset" else 0
+        hh, ww = (7, 10) if off else (8, 16)
+        h = _dev_view(dev, (2, 6, c, hh, ww, 2), offset=off, seed=33)
+        u = _dev_view(dev, (2, 6, c, hh, ww, 2), offset=off, seed=34)
+    h[0, 0, 0, 0, 0] = 0                # a zero band: NaN at bias 0
+    cout = 1 if combine else c
+    g = torch.from_numpy(_rand((2, 6, cout, *h.shape[3:5]), 35)).to(dev)
+    want = scat_mag.scat_mag_bwd2_plain(h, g, u, bias, combine)
+    n0 = scat_mag.scat_mag_bwd2.launches
+    i0 = dict(scat_mag.scat_mag_bwd2.instantiations)
+    got = scat_mag.scat_mag_bwd2(h, g, u, bias, combine)
+    assert scat_mag.scat_mag_bwd2.launches == n0 + 1
+    inst = "strided" if layout == "strided" else "vector"
+    assert scat_mag.scat_mag_bwd2.instantiations[inst] == i0[inst] + 1
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, equal_nan=bias == 0.0, **BWD2_TOL)
+
+
+@pytest.mark.parametrize("name", ["ScatLayerj2", "DWTForward"])
+def test_hvp_on_card(dev, name):
+    """A reverse-over-reverse Hessian-vector product through a module on
+    the card == the CPU plain run's (K18 in the scattering layer's)."""
+    kw = dict(J=2, wave="db4", mode="symmetric") if name == "DWTForward" \
+        else {}
+    x = torch.from_numpy(_rand((2, 3, 32, 32), 36))
+    v = torch.from_numpy(_rand((2, 3, 32, 32), 37))
+
+    def hvp(device):
+        m = getattr(tt, name)(device=device, **kw)
+        xt = x.to(device).requires_grad_()
+        out = m(xt)
+        if name == "DWTForward":
+            loss = sum((o ** 3).sum() for o in [out[0], *out[1]])
+        else:
+            loss = (out ** 2).sum()
+        g, = torch.autograd.grad(loss, xt, create_graph=True)
+        return torch.autograd.grad((g * v.to(device)).sum(), xt)[0]
+
+    ref = hvp("cpu")
+    n0 = scat_mag.scat_mag_bwd2.launches
+    got = hvp(dev).cpu()
+    if name == "ScatLayerj2":
+        assert scat_mag.scat_mag_bwd2.launches > n0
+    scale = max(1.0, float(ref.abs().max()))
+    torch.testing.assert_close(got, ref, rtol=0, atol=2e-5 * scale)

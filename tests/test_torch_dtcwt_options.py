@@ -101,7 +101,7 @@ def test_errors():
     with pytest.raises(ValueError, match="different dimensions"):
         tt.DTCWTForward(o_dim=2, ri_dim=2, device="cpu")
     with pytest.raises(NotImplementedError):
-        tt.DTCWTForward(batch_chunk=8, device="cpu")
+        tt.DTCWTForward(batch_chunk=8, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError):
         tt.DTCWTInverse(mesh=object(), device="cpu")
     i = tt.DTCWTInverse(device="cpu")

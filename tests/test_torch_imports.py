@@ -105,10 +105,16 @@ def test_cpu_tensors_take_plain_versions():
         with tt.matmul_precision(level):
             i(f(x))
     i(f(x.to(torch.bfloat16)))
+    # a Hessian-vector product (K18's plain version, the backwards' own
+    # backwards)
+    xs = torch.cat([x, x[:, :1]], dim=1).requires_grad_()
+    g, = torch.autograd.grad(tt.ScatLayerj2(device="cpu")(xs).square().sum(),
+                             xs, create_graph=True)
+    torch.autograd.grad(g.sum(), xs)
     assert ops.launch_counts() == {k.__name__: 0 for k in ops.KERNELS}
     assert set(ops.launch_counts()) == {
         "apply_row", "apply_col", "q2c_pack", "c2q_unpack", "scat_mag_fwd",
-        "scat_mag_bwd", "afb1d_corr", "sfb1d_conv", "dtcwt_filt",
+        "scat_mag_bwd", "scat_mag_bwd2", "afb1d_corr", "sfb1d_conv", "dtcwt_filt",
         "dtcwt_dfilt", "dtcwt_ifilt", "avg_pool2_fwd", "avg_pool2_bwd",
         "afb1d_atrous_corr", "afb1d_atrous_adjoint", "spec_merge",
         "spec_split", "nonsep_afb", "nonsep_afb_adjoint", "nonsep_sfb",

@@ -153,8 +153,8 @@ def test_avg_pool2_plain_matches_jax():
 def test_not_ported_yet():
     with pytest.raises(ValueError, match="qshift_b_bp"):
         tt.ScatLayerj2(biort="near_sym_b_bp", device="cpu")
-    with pytest.raises(NotImplementedError, match="A3 batch_chunk"):
-        tt.ScatLayerj2(batch_chunk=8, device="cpu")
+    with pytest.raises(NotImplementedError, match="A5"):
+        tt.ScatLayerj2(batch_chunk=8, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError):
         tt.ScatLayer(mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="3 input channels"):

@@ -1,7 +1,8 @@
 """The port's modules take the JAX package's parameters, in its order,
 then ``device``: a positional call written for the JAX package binds the
 same arguments in the port.  ``batch_chunk`` None, False and 0 are "off"
-in both packages; a positive chunk is not ported yet."""
+in both packages (tests/test_torch_batch_chunk.py has the chunks); a
+positive chunk beside ``mesh=`` raises, as ``mesh=`` is not ported."""
 import inspect
 
 import pytest
@@ -49,8 +50,12 @@ def test_batch_chunk_off(name, chunk):
 @pytest.mark.parametrize("name", ["DTCWTForward", "DTCWTInverse",
                                   "ScatLayer", "ScatLayerj2"])
 def test_positive_batch_chunk_raises(name):
-    with pytest.raises(NotImplementedError, match="batch_chunk"):
-        getattr(tt, name)(batch_chunk=8, device="cpu")
+    """A positive chunk constructs; with ``mesh=`` it raises, naming A5
+    (the JAX package would drop the chunk there, with a warning, for its
+    sharded path)."""
+    getattr(tt, name)(batch_chunk=8, device="cpu")
+    with pytest.raises(NotImplementedError, match="A5"):
+        getattr(tt, name)(batch_chunk=8, mesh=object(), device="cpu")
 
 
 def test_positional_call_binds_like_jax():

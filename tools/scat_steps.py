@@ -12,7 +12,11 @@ CUDA card, with chip_smoke's timer, inputs and cotangents:
 - ``dtcwt_large``: DTCWTForward(J=3) -> DTCWTInverse on 1x3x9216x9216;
 - ``swt_long``: SWTForward(J=2, db4, 'periodization') -> SWTInverse on
   1x3x4096x4096 (the FFT merge, K13), its round trip and its training
-  step.
+  step;
+- ``train_main``, ``dwt_train``, ``swt_train``, ``alt_train``: the
+  first-order training steps of chip_smoke's phases of those names (the
+  gradient w.r.t. x of sum(rec * G0) + the sums of each coefficient times
+  its fixed random cotangent, rec the inverse's reconstruction).
 
     python3 tools/scat_steps.py [--root DIR] [--label NAME]
                                 [--paths scat_j2 scat_bp ...]
@@ -31,7 +35,7 @@ import sys
 import torch
 
 PATHS = ("main", "scat_j2", "scat_bp", "scat_j2_bf16", "dtcwt_large",
-         "swt_long")
+         "swt_long", "train_main", "dwt_train", "swt_train", "alt_train")
 
 
 def scat(cs, tt, res, name, kw, dtype):
@@ -100,6 +104,51 @@ def swt_long(cs, tt, res):
     res["swt_long_step_ms"] = cs.timed_ms(step, 2, 3, device_only=False)
 
 
+def _flat(out):
+    if isinstance(out, (list, tuple)):
+        return [t for o in out for t in _flat(o)]
+    return [] if out is None else [out]
+
+
+def train(cs, res, name, fwd, inv, shape):
+    """A training step: x -> coefficients -> reconstruction, the gradient
+    w.r.t. x of every output times its cotangent (seeds 1, 2, ...)."""
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(0))
+    x = x.cuda().requires_grad_()
+    with torch.no_grad():
+        c = fwd(x)
+        outs = [inv(c), *_flat(c)]
+    cts = [torch.randn(o.shape, generator=torch.Generator().manual_seed(
+        1 + k)).cuda() for k, o in enumerate(outs)]
+    del c, outs
+
+    def step():
+        c = fwd(x)
+        return torch.autograd.grad([inv(c), *_flat(c)], x, cts)[0]
+    res[name + "_step_device_ms"] = cs.timed_ms(step, 3, 5)
+    res[name + "_step_ms"] = cs.timed_ms(step, 3, 5, device_only=False)
+
+
+def train_path(cs, tt, res, name):
+    if name == "train_main":
+        f, i = tt.DTCWTForward(J=2, device="cuda"), tt.DTCWTInverse(
+            device="cuda")
+        train(cs, res, name, f, i, cs.MAIN_SHAPE)
+    elif name == "dwt_train":
+        kw = dict(wave=cs.DWT_WAVE, mode=cs.DWT_MODE, device="cuda")
+        f, i = tt.DWTForward(J=cs.DWT_J, **kw), tt.DWTInverse(**kw)
+        train(cs, res, name, f, i, cs.DWT_SHAPE)
+    elif name == "swt_train":
+        kw = dict(wave=cs.SWT_WAVE, mode=cs.SWT_MODE, device="cuda")
+        f, i = tt.SWTForward(J=cs.SWT_J, **kw), tt.SWTInverse(**kw)
+        train(cs, res, name, f, i, cs.SWT_SHAPE)
+    else:
+        from pytorch_wavelets_tpu_torch.transforms import dtcwt_alt as alt
+        f = alt.DTCWTForward2(J=cs.ALT_J, device="cuda", **cs.ALT_KW)
+        i = alt.DTCWTInverse2(device="cuda", **cs.ALT_KW)
+        train(cs, res, name, f, i, cs.ALT_SHAPE)
+
+
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--root", default=".")
@@ -125,6 +174,8 @@ def main():
             dtcwt_large(cs, tt, res)
         elif name == "swt_long":
             swt_long(cs, tt, res)
+        elif "train" in name:
+            train_path(cs, tt, res, name)
         else:
             scat(cs, tt, res, name, cs.BP if name == "scat_bp" else {},
                  torch.bfloat16 if name.endswith("bf16") else torch.float32)
