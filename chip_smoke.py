@@ -163,8 +163,30 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    within 1e-6 + 1e-6 of its terms' magnitudes.  chunk_scat:
    ScatLayerj2(batch_chunk=8) and (batch_chunk=32) on 128x3x256x256,
    output and x.grad within 1e-6 of the unchunked layer's, forward and
-   step timed beside it.
-14. profile: device time by kernel of the main path, of one ScatLayerj2
+   step timed beside it.  third_order_scat: the gradient of
+   <grad <grad sum(Z^3), v>, w> through ScatLayerj2 on 2x3x32x32 (K18's
+   call a Function differentiated once more: K5 and K18 again), against
+   the CPU plain run within 2e-5 * max(1, max |CPU|).
+14. the sharded DTCWT (parallel/, K19 csrc/halo.cu): sharded_main spawns
+   a world of 2 and one of 4 processes on gloo, every rank on this card
+   (the halos through pinned host memory): meshes (2, 1) and (1, 2) at
+   the main path's full width, (2, 2) and (1, 2 spatial_h, 2) on it,
+   (1, 4) on the banded path (halo 26).  Each rank's forward, inverse
+   and x.grad (fixed random cotangents on the reconstruction, yl and
+   every yh) against the card's run without a mesh (1e-5 / 2e-5 / 2e-5;
+   x.grad 0 outside the rank's chunk), the composed route taken, K1
+   launched on every rank and K19 on every rank of a mesh with a sharded
+   spatial axis, the bytes staged, the round trip and the step timed on
+   the host clock, labelled "gloo, one card, host-staged halos" (not a
+   multi-GPU figure); each world joined with a deadline.
+   halo_edge_cases: K19's three entries against their plain versions bit
+   for bit (widths 0, equal to the tile and between, both axes, every
+   source on each side, contiguous, transposed, strided and offset
+   tiles, fp32 and bf16); K19's kernel lines at the main path's stage-1
+   tile on (1, 2), torch.cat of the same buffer as the library call;
+   sharded_nccl: a world of one on NCCL, mesh (1, 1), bit for bit the
+   path without a mesh.
+15. profile: device time by kernel of the main path, of one ScatLayerj2
    training step, of one DWT training step, of one bandpass-diagonal
    ScatLayerj2 training step, of one SWT training step, of one
    DTCWTForward2 training step, and of hvp_scat_j2's and hvp_dwt's
@@ -4642,6 +4664,490 @@ def chunk_scat(tt, profiling):
     return dict(shape=list(SCAT_SHAPE), tolerance=CHUNK_TOL, by_chunk=out)
 
 
+# ---------------------------------------------------------------------------
+# third-order gradients through the magnitude (K18 differentiated again)
+# ---------------------------------------------------------------------------
+
+THIRD_SHAPE = (2, 3, 32, 32)     # tests/test_torch_higher_order.py's
+
+
+def third_order_scat(tt, ops):
+    """grad_x <grad_x <grad_x sum(Z^3), v>, w> through ScatLayerj2 on the
+    card against the port's CPU plain run, within HVP_TOL of max(1,
+    max |CPU|): K18's call is a Function whose backward runs K5 and K18
+    again (and elementwise PyTorch for the third derivative), so every
+    order differentiates on the card.  K18 must launch."""
+    x, v, w = (torch.randn(THIRD_SHAPE, generator=torch.Generator()
+                           .manual_seed(s)) for s in (0, 1, 2))
+
+    def third(device):
+        m = tt.ScatLayerj2(device=device)
+        xt = x.to(device).requires_grad_()
+        g1, = torch.autograd.grad((m(xt) ** 3).sum(), xt, create_graph=True)
+        g2, = torch.autograd.grad((g1 * v.to(device)).sum(), xt,
+                                  create_graph=True)
+        return torch.autograd.grad((g2 * w.to(device)).sum(), xt)[0]
+    with one_cpu_thread():
+        ref = third("cpu")
+    ops.reset_launches()
+    got = third("cuda")
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in ops.launch_counts().items() if n}
+    require(all(counts.get(k, 0) > 0 for k in
+                ("scat_mag_fwd", "scat_mag_bwd", "scat_mag_bwd2")),
+            f"third_order_scat: a magnitude kernel never launched: {counts}")
+    err = max_err(got.cpu(), ref)
+    scale = max(1.0, float(ref.abs().max()))
+    require(bool(torch.isfinite(got).all()) and err <= HVP_TOL * scale,
+            f"third_order_scat: GPU differs from the CPU plain run by {err} "
+            f"(limit {HVP_TOL * scale})")
+    return dict(shape=list(THIRD_SHAPE), launches=counts,
+                max_abs_err_vs_cpu=err, tolerance=HVP_TOL * scale,
+                tolerance_rule=f"{HVP_TOL} * max(1, max |CPU|)")
+
+
+# ---------------------------------------------------------------------------
+# the sharded DTCWT (parallel/, K19) in worlds of processes on the one card
+# ---------------------------------------------------------------------------
+
+# (label, (n_data, n_spatial_h, n_spatial), shape, J) per world size: the
+# main path on every mesh, the banded path (halo 26) on four 'spatial'
+# ranks
+SHARDED_WORLDS = {
+    2: [("main (2, 1)", (2, 1, 1), MAIN_SHAPE, 2),
+        ("main (1, 2)", (1, 1, 2), MAIN_SHAPE, 2)],
+    4: [("main (2, 2)", (2, 1, 2), MAIN_SHAPE, 2),
+        ("main (1, 2, 2)", (1, 2, 2), MAIN_SHAPE, 2),
+        ("banded (1, 4)", (1, 1, 4), BANDED_SHAPE, 3)]}
+SHARDED_TOL = {"forward": 1e-5, "inverse": 2e-5, "x_grad": 2e-5}
+SHARDED_DEADLINE = 240        # seconds a world may take, its start included
+SHARDED_REPS = 5
+SHARDED_LABEL = "gloo, one card, host-staged halos"
+HALO_KERNELS = ("halo_pack", "halo_assemble", "halo_fold")
+HALO_REPLACES = "pytorch_wavelets_tpu/parallel/halo.py:23"
+K19_TILE = (10, 10, 128, 64)  # the main path's stage-1 tile on (1, 2)
+K19_HALO = (10, 10)
+
+
+def _dt_chunk(full, dt):
+    """The chunk of ``full`` that DTensor ``dt`` holds on this rank
+    (``torch.chunk``'s split of every sharded dim)."""
+    from torch.distributed.tensor import Shard
+    mesh = dt.device_mesh
+    names = mesh.mesh_dim_names
+    for name, p in zip(names, dt.placements):
+        if isinstance(p, Shard):
+            n = mesh.size(names.index(name))
+            s = -(-full.shape[p.dim] // n)
+            start = min(full.shape[p.dim], mesh.get_local_rank(name) * s)
+            full = full.narrow(p.dim, start, max(0, min(
+                s, full.shape[p.dim] - start)))
+    return full
+
+
+def sharded_case(tt, ops, parallel, label, mesh_shape, shape, J):
+    """One mesh on this rank: the counted forward, inverse and gradient
+    of <rec, G0> + <yl, G1> + sum_j <yh_j, G2+j> through DTCWTForward /
+    DTCWTInverse with ``mesh=``, against the port without a mesh on the
+    card (this rank's chunks; x.grad outside the rank's chunk must be 0),
+    and the round trip and the step timed on the host clock."""
+    import torch.distributed as dist
+    nd, nh, ns = mesh_shape
+    mesh = parallel.make_mesh(nd, ns, nh)
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(0)).cuda()
+    fwd_r = tt.DTCWTForward(J=J, device="cuda")
+    inv_r = tt.DTCWTInverse(device="cuda")
+    fwd = tt.DTCWTForward(J=J, device="cuda", mesh=mesh)
+    inv = tt.DTCWTInverse(device="cuda", mesh=mesh)
+    xr = x.clone().requires_grad_()
+    yl, yh = fwd_r(xr)
+    rec = inv_r((yl, yh))
+    gs = [torch.randn(t.shape, generator=torch.Generator().manual_seed(1 + i))
+          .cuda() for i, t in enumerate([rec, yl, *yh])]
+    loss = sum((t * g).sum() for t, g in zip([rec, yl, *yh], gs))
+    gref, = torch.autograd.grad(loss, xr)
+
+    def step(z):
+        ylm, yhm = fwd(z)
+        recm = inv((ylm, yhm))
+        return [recm, ylm, *yhm]
+    dist.barrier()
+    ops.reset_launches()
+    parallel.reset_staged_bytes()
+    xs = x.clone().requires_grad_()
+    outs = step(xs)
+    lossm = sum((t.to_local() * _dt_chunk(g, t)).sum()
+                for t, g in zip(outs, gs))
+    gm, = torch.autograd.grad(lossm, xs)
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in ops.launch_counts().items() if n}
+    staged = dict(parallel.STAGED_BYTES)
+    path = dict(parallel.LAST_PATH)
+    refs = [rec, yl, *yh]
+    err_fwd = max(max_err(t.to_local(), _dt_chunk(r, t))
+                  for t, r in zip(outs[1:], refs[1:]))
+    err_inv = max_err(outs[0].to_local(), _dt_chunk(refs[0], outs[0]))
+    mask = torch.zeros_like(gm)
+    _dt_chunk(mask, outs[0]).fill_(1.0)       # x is placed as rec
+    err_grad = max_err(gm, gref * mask)
+    del outs, gm, xs
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        dist.barrier()
+        out = []
+        for _ in range(SHARDED_REPS):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(out)
+
+    with torch.no_grad():
+        rt_ms = timed(lambda: step(x))
+
+    def train():
+        z = x.clone().requires_grad_()
+        o = step(z)
+        torch.autograd.grad(sum((t.to_local() * _dt_chunk(g, t)).sum()
+                                for t, g in zip(o, gs)), z)
+    step_ms = timed(train)
+    return dict(
+        label=label, mesh=dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
+        shape=list(shape), J=J, path=path, launches=counts,
+        k1_launches=counts.get("apply_row", 0) + counts.get("apply_col", 0),
+        k19_launches={k: counts.get(k, 0) for k in HALO_KERNELS},
+        staged_bytes=staged,
+        max_abs_err={"forward": err_fwd, "inverse": err_inv,
+                     "x_grad": err_grad},
+        round_trip_ms=rt_ms, step_ms=step_ms)
+
+
+def sharded_worker(rank, world, store, out_dir, cases):
+    """One rank of a gloo world on the card (every rank on cuda:0, the
+    halos through pinned host memory): its cases' results to
+    ``out_dir/rank<r>.json``; any failure exits non-zero."""
+    import os
+    import traceback
+    try:
+        import torch.distributed as dist
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                                rank=rank, world_size=world)
+        import pytorch_wavelets_tpu_torch as tt
+        from pytorch_wavelets_tpu_torch import ops, parallel
+        res = [sharded_case(tt, ops, parallel, *case) for case in cases]
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+
+
+def sharded_world(world, cases):
+    """Run ``cases`` in a world of ``world`` processes, joined with
+    SHARDED_DEADLINE; a failing or hung rank fails the phase.  Returns
+    the ranks' results."""
+    import multiprocessing as mp
+    import os
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=sharded_worker,
+                         args=(r, world, os.path.join(tmp, "store"), tmp,
+                               cases)) for r in range(world)]
+    for p in procs:
+        p.start()
+    end = time.monotonic() + SHARDED_DEADLINE
+    for p in procs:
+        p.join(max(0.0, end - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    require(not hung, f"sharded_main: world of {world}: ranks {hung} still "
+            f"running after {SHARDED_DEADLINE} s")
+    codes = [p.exitcode for p in procs]
+    require(codes == [0] * world, f"sharded_main: world of {world}: rank "
+            f"exit codes {codes}")
+    out = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def sharded_main(smi):
+    """Every world of SHARDED_WORLDS: per mesh, every rank's results within
+    SHARDED_TOL of the card's run without a mesh, the composed route
+    taken, K1 launched on every rank and K19 on every rank of a mesh with
+    a sharded spatial axis (none where no spatial axis is sharded).
+    Returns every kernel's launches summed over every rank of every
+    mesh."""
+    total = {}
+    for world, cases in SHARDED_WORLDS.items():
+        t0 = time.perf_counter()
+        ranks = sharded_world(world, cases)
+        seconds = time.perf_counter() - t0
+        meshes = []
+        for i, (label, (nd, nh, ns), shape, J) in enumerate(cases):
+            per_rank = [ranks[r][i] for r in range(world)]
+            for r, res in enumerate(per_rank):
+                for what, tol in SHARDED_TOL.items():
+                    require(res["max_abs_err"][what] <= tol,
+                            f"sharded_main {label} rank {r}: {what} differs "
+                            f"from the card's run without a mesh by "
+                            f"{res['max_abs_err'][what]} (limit {tol})")
+                require(res["path"] == {"dtcwt2d": "matmul",
+                                        "idtcwt2d": "matmul"},
+                        f"sharded_main {label} rank {r}: path {res['path']}")
+                require(res["k1_launches"] > 0,
+                        f"sharded_main {label} rank {r}: K1 never launched")
+                n19 = sum(res["k19_launches"].values())
+                require(n19 > 0 if nh * ns > 1 else n19 == 0,
+                        f"sharded_main {label} rank {r}: K19 launches "
+                        f"{res['k19_launches']}")
+                for k, n in res["launches"].items():
+                    total[k] = total.get(k, 0) + n
+            meshes.append(dict(
+                label=label, mesh=per_rank[0]["mesh"], shape=list(shape),
+                J=J, ranks=per_rank,
+                max_abs_err={w: max(r["max_abs_err"][w] for r in per_rank)
+                             for w in SHARDED_TOL},
+                round_trip_ms=max(r["round_trip_ms"] for r in per_rank),
+                step_ms=max(r["step_ms"] for r in per_rank)))
+        emit("sharded_main", world=world, timing_label=SHARDED_LABEL,
+             nvidia_smi=smi, tolerance=SHARDED_TOL, seconds=seconds,
+             meshes=meshes)
+    return total
+
+
+def _k19_views(base, kind):
+    """An (N, C, H, W) tile of ``base`` as ``kind``: contiguous, a
+    transposed view, a strided slice, or one at an element offset."""
+    if kind == "transposed":
+        return base.transpose(2, 3)
+    if kind == "strided":
+        return base[:, :, ::2]
+    if kind == "offset":
+        return base[:, 1:]
+    return base
+
+
+def halo_edge_cases(halo):
+    """K19's three entries against their plain versions, bit for bit: halo
+    widths 0, equal to the tile and in between, both axes, every source
+    on each side, contiguous, transposed, strided and offset tiles, fp32
+    and bf16.  Returns (calls, mismatched elements)."""
+    calls = mismatched = 0
+    gen = torch.Generator().manual_seed(7)
+    for dtype in (torch.float32, torch.bfloat16):
+        for kind in ("contiguous", "transposed", "strided", "offset"):
+            base = torch.randn((2, 4, 10, 7), generator=gen).to(dtype).cuda()
+            x = _k19_views(base, kind)
+            for axis in (2, 3):
+                L = x.shape[axis]
+                per = x.numel() // L
+                for left, right in ((0, 3), (3, 0), (L, L), (2, 5), (0, 0)):
+                    tail, head = (x.new_empty(per * left),
+                                  x.new_empty(per * right))
+                    ptail, phead = tail.clone(), head.clone()
+                    halo.halo_pack(x, axis, left, right, tail, head)
+                    halo.halo_pack_plain(x, axis, left, right, ptail, phead)
+                    mismatched += int((tail != ptail).sum() +
+                                      (head != phead).sum())
+                    calls += 1
+                    recv_l = torch.randn(per * left, generator=gen).to(
+                        dtype).cuda()
+                    recv_r = torch.randn(per * right, generator=gen).to(
+                        dtype).cuda()
+                    for lsrc, rsrc in (("recv", "recv"), ("flip", "zero"),
+                                       ("zero", "flip"), ("flip", "recv")):
+                        wshape = list(x.shape)
+                        wshape[axis] = left + L + right
+                        # the window as a slice of a wider one
+                        wide = list(wshape)
+                        wide[axis] += 3
+                        win = torch.full(wide, float("nan"), dtype=dtype,
+                                         device="cuda").narrow(axis, 1,
+                                                               wshape[axis])
+                        pwin = win.clone()
+                        halo.halo_assemble(x, axis, left, right, lsrc, rsrc,
+                                           recv_l, recv_r, win)
+                        halo.halo_assemble_plain(x, axis, left, right, lsrc,
+                                                 rsrc, recv_l, recv_r, pwin)
+                        mismatched += int((win != pwin).sum())
+                        gw = torch.randn(wshape, generator=gen).to(
+                            dtype).cuda().transpose(0, 1).contiguous() \
+                            .transpose(0, 1)              # a strided cotangent
+                        dx = halo.halo_fold(gw, axis, left, right, lsrc, rsrc,
+                                            recv_r, recv_l)
+                        pdx = halo.halo_fold_plain(gw, axis, left, right,
+                                                   lsrc, rsrc, recv_r, recv_l)
+                        mismatched += int((dx != pdx).sum())
+                        calls += 2
+    torch.cuda.synchronize()
+    require(mismatched == 0, f"halo_edge_cases: {mismatched} elements differ "
+            f"from the plain versions")
+    return calls, mismatched
+
+
+def k19_rows(halo, banded, sharded, launches):
+    """K19's kernel lines at the main path's stage-1 tile on (1, 2) (10 + 10
+    samples of halo an interior rank receives): each entry against its
+    plain version (exact), timed beside it and beside one PyTorch call
+    that builds the same buffer (``torch.cat``; none for the fold), with
+    its bytes bound; then ``apply_sharded_op``'s product, K1 on rank 0's
+    block of that stage-1 operator over its halo'd window, against its
+    plain version and ``torch.matmul``.  ``launches`` are the sharded
+    runs' counts (K1's: its row entry's, every row apply of those
+    runs)."""
+    left, right = K19_HALO
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(K19_TILE, generator=gen).cuda()
+    L = x.shape[3]
+    per = x.numel() // L
+    tail, head = x.new_empty(per * left), x.new_empty(per * right)
+    ptail, phead = tail.clone(), head.clone()
+    recv_l = torch.randn(per * left, generator=gen).cuda()
+    recv_r = torch.randn(per * right, generator=gen).cuda()
+    wshape = (*K19_TILE[:3], left + L + right)
+    win, pwin = x.new_empty(wshape), x.new_empty(wshape)
+    gw = torch.randn(wshape, generator=gen).cuda()
+    blk = list(K19_TILE[:3])
+    entries = {
+        "halo_pack": (
+            lambda: halo.halo_pack(x, 3, left, right, tail, head),
+            lambda: halo.halo_pack_plain(x, 3, left, right, ptail, phead),
+            lambda: torch.cat([x[..., L - left:].reshape(-1),
+                               x[..., :right].reshape(-1)]),
+            lambda: (torch.cat([tail, head]), torch.cat([ptail, phead])),
+            2 * per * (left + right)),
+        "halo_assemble": (
+            lambda: halo.halo_assemble(x, 3, left, right, "recv", "recv",
+                                       recv_l, recv_r, win),
+            lambda: halo.halo_assemble_plain(x, 3, left, right, "recv",
+                                             "recv", recv_l, recv_r, pwin),
+            lambda: torch.cat([recv_l.view(*blk, left), x,
+                               recv_r.view(*blk, right)], dim=3),
+            lambda: (win, pwin),
+            per * (left + right + L) * 2),
+        "halo_fold": (
+            lambda: halo.halo_fold(gw, 3, left, right, "recv", "recv",
+                                   recv_r, recv_l),
+            lambda: halo.halo_fold_plain(gw, 3, left, right, "recv", "recv",
+                                         recv_r, recv_l),
+            None,
+            lambda: (halo.halo_fold(gw, 3, left, right, "recv", "recv",
+                                    recv_r, recv_l),
+                     halo.halo_fold_plain(gw, 3, left, right, "recv", "recv",
+                                          recv_r, recv_l)),
+            per * (2 * (left + right) + 2 * L)),
+    }
+    rows = []
+    for name, (kernel, plain, lib, outs, values) in entries.items():
+        kernel()
+        plain()
+        got, want = outs()
+        require(torch.equal(got, want), f"{name}: differs from its plain "
+                f"version at {shape_str(K19_TILE)}")
+        ms = timed_ms(kernel)
+        plain_ms = timed_ms(plain)
+        lib_ms = None if lib is None else timed_ms(lib)
+        bound = values * 4 / PEAK_HBM_BYTES * 1e3
+        rows.append({
+            "name": f"{name} (DTCWT J=2 stage-1 tile {shape_str(K19_TILE)}, "
+                    f"halos {left} + {right})",
+            "route": "cuda", "source": "pytorch_wavelets_tpu_torch/csrc/"
+                                       "halo.cu",
+            "replaces": HALO_REPLACES, "launches": launches[name],
+            "max_abs_err": max_err(got, want), "tolerance": "exact",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": lib_ms,
+            "library": "torch.cat of the same buffer" if lib else None})
+    f = _k19_filters()
+    op, _ = sharded._dtcwt_fwd_shard_plans(
+        f["h0o"], f["h1o"], f["h0a"], f["h1a"], f["h0b"], f["h1b"], 2,
+        (False, False), (False, False), "symmetric", MAIN_SHAPE[2],
+        MAIN_SHAPE[3], 2, 1)
+    B, _ = op.local(0, "cuda")
+    win = torch.randn((*MAIN_SHAPE[:3], B.shape[1]), generator=gen).cuda()
+    got = banded.apply_row(win, B)
+    want = banded.apply_row_plain(win, B)
+    err = max_err(got, want)
+    require(within(got, want, K1_TOL), f"apply_sharded_op: K1 on rank 0's "
+            f"block differs from its plain version by {err}")
+    Bt = B.T.t().contiguous()
+    ms = timed_ms(lambda: banded.apply_row(win, B))
+    plain_ms = timed_ms(lambda: banded.apply_row_plain(win, B))
+    lib_ms = timed_ms(lambda: torch.matmul(win, Bt))
+    rows_n = win.numel() // win.shape[3]
+    op_t = 2 * B.nnz * rows_n / PEAK_FP32_FLOPS * 1e3
+    byte_t = (win.numel() + rows_n * B.shape[0] + B.nnz) * 4 \
+        / PEAK_HBM_BYTES * 1e3
+    rows.append({
+        "name": f"apply_sharded_op (K1 row on rank 0's block "
+                f"{B.shape[0]}x{B.shape[1]}, window "
+                f"{shape_str(win.shape)}: DTCWT J=2 stage 1 on (1, 2))",
+        "route": "cuda", "source": "pytorch_wavelets_tpu_torch/csrc/"
+                                   "banded_apply.cu",
+        "replaces": "pytorch_wavelets_tpu/parallel/banded_shard.py:184",
+        "launches": launches.get("apply_row", 0), "max_abs_err": err,
+        "tolerance": K1_TOL, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(op_t, byte_t),
+        "bound_by": "bytes" if byte_t >= op_t else "operations",
+        "library_ms": lib_ms, "library": "torch.matmul"})
+    return rows
+
+
+def _k19_filters():
+    from pytorch_wavelets_tpu_torch.transforms.dtcwt_xfm import (
+        dtcwt_fwd_filters,
+    )
+    return dtcwt_fwd_filters("near_sym_a", "qshift_a")
+
+
+def nccl_world_of_one(tt, parallel):
+    """A world of one on NCCL and its (1, 1) mesh: DTCWTForward /
+    DTCWTInverse with ``mesh=`` on the main path, bit for bit the path
+    without a mesh."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+    store = dist.FileStore(os.path.join(tempfile.mkdtemp(
+        prefix="chip_smoke_nccl"), "store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        mesh = parallel.make_mesh(1, 1)
+        x = torch.randn(MAIN_SHAPE,
+                        generator=torch.Generator().manual_seed(0)).cuda()
+        with torch.no_grad():
+            yl, yh = tt.DTCWTForward(J=2, device="cuda", mesh=mesh)(x)
+            rec = tt.DTCWTInverse(device="cuda", mesh=mesh)((yl, yh))
+            ryl, ryh = tt.DTCWTForward(J=2, device="cuda")(x)
+            rrec = tt.DTCWTInverse(device="cuda")((ryl, ryh))
+        equal = (torch.equal(yl.to_local(), ryl)
+                 and all(torch.equal(a.to_local(), b)
+                         for a, b in zip(yh, ryh))
+                 and torch.equal(rec.to_local(), rrec))
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    require(equal, "sharded_nccl: the (1, 1) mesh differs from the path "
+            "without a mesh")
+    return dict(backend=backend, mesh=[1, 1], shape=list(MAIN_SHAPE),
+                bit_equal=equal, path=dict(parallel.LAST_PATH))
+
+
+
 def profile(step, iters):
     """Device time by kernel over a window of ``iters`` steps
     (torch.profiler; its own host overhead inflates the window's wall
@@ -4970,6 +5476,24 @@ def main():
     rows.extend(hvp_phases(tt, ops, kern, profiling, fused_dtcwt, scatternet,
                            dtcwt_fb, lev))
     emit("chunk_scat", **chunk_scat(tt, profiling))
+    emit("third_order_scat", **third_order_scat(tt, ops))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # the sharded DTCWT on meshes of 2 and 4 processes (gloo, every rank
+    # on this card), K19 at edge cases and timed, a NCCL world of one
+    from pytorch_wavelets_tpu_torch import parallel
+    from pytorch_wavelets_tpu_torch.ops import halo
+    from pytorch_wavelets_tpu_torch.parallel import sharded
+    launches = sharded_main(smi)
+    n_edge, mismatches = halo_edge_cases(halo)
+    emit("halo_edge_cases", calls=n_edge, mismatched_elements=mismatches,
+         tolerance="exact")
+    new = k19_rows(halo, banded, sharded, launches)
+    for row in new:
+        emit("kernel", **row)
+    rows.extend(new)
+    emit("sharded_nccl", **nccl_world_of_one(tt, parallel))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 

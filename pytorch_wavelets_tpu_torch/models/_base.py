@@ -8,6 +8,8 @@ import warnings
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
 
 __all__ = ["canon_dtype", "cast_bands", "upcast_bands", "batch_chunked",
            "resolve_chunk", "resolve_scat_chunk", "warn_chunk_dropped"]
@@ -140,14 +142,25 @@ class _TapsModule(nn.Module):
 
     The plans are keyed by the taps' host values, kept beside the buffers
     (reading CUDA buffers on every call would synchronise); loading a
-    state dict refreshes them from the loaded buffers."""
+    state dict refreshes them from the loaded buffers.  ``mesh`` (a
+    ``DeviceMesh``, ``parallel.make_mesh``) is kept where the module has
+    a sharded path (``_SHARDED``: the DTCWT's); the others raise."""
+
+    _SHARDED = False
 
     def __init__(self, filters, device, mesh, batch_chunk):
         super().__init__()
-        if mesh is not None:
+        if mesh is not None and not self._SHARDED:
             raise NotImplementedError(
-                "mesh= is not ported yet (ROADMAP.md, queue A: A5 "
-                "multi-GPU)")
+                f"{type(self).__name__}: mesh= is not ported yet (ROADMAP.md"
+                f", queue A: A5b the DWT/SWT/1-D sharded entries, A5c the "
+                f"sharded scattering layers, A5f DTCWTForward2's batch "
+                f"data parallelism)")
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"{type(self).__name__}: mesh must be a "
+                            f"torch.distributed DeviceMesh "
+                            f"(parallel.make_mesh), got {type(mesh)}")
+        self.mesh = mesh
         self.batch_chunk = batch_chunk
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -167,6 +180,8 @@ class _TapsModule(nn.Module):
     def _check_device(self, *tensors):
         device = next(iter(self.buffers())).device
         for t in tensors:
+            if isinstance(t, DTensor):
+                t = t.to_local()
             if t is not None and t.device != device:
                 raise ValueError(f"{type(self).__name__} is on {device}, "
                                  f"its input on {t.device}")

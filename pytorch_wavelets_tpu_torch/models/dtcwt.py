@@ -6,6 +6,9 @@ from pytorch_wavelets_tpu_torch.models._base import (
     _TapsModule, batch_chunked, canon_dtype, cast_bands, resolve_chunk,
     upcast_bands, warn_chunk_dropped,
 )
+from pytorch_wavelets_tpu_torch.parallel.sharded import (
+    sharded_dtcwt2d, sharded_idtcwt2d,
+)
 from pytorch_wavelets_tpu_torch.transforms.dtcwt_xfm import (
     dtcwt2d, dtcwt_fwd_filters, dtcwt_inv_filters, idtcwt2d,
 )
@@ -44,13 +47,19 @@ class DTCWTForward(_TapsModule):
             JAX thresholds are TPU v5e measurements.
         device: 'cuda' (default; raises without CUDA) or 'cpu' for the
             plain PyTorch path.  Inputs must be on this device.
-        mesh: not ported yet; passing it raises.
+        mesh: a ``DeviceMesh`` (``parallel.make_mesh``): the transform
+            runs sharded on it (``parallel/sharded.py:sharded_dtcwt2d``),
+            the batch over 'data', W over 'spatial' (H over 'spatial_h'),
+            and returns DTensors; ``batch_chunk`` is then dropped with a
+            warning.
     Call: x (N, C, H, W) -> (yl, yh); yh[j] has shape
     (N, C, 6, H_j, W_j, 2) for the default dims.  Skipped levels give None.
     On CUDA the transform and its backward run the hand-written kernels
     (ops/fused_dtcwt.py), and so do second-order gradients (backward
     through ``torch.autograd.grad(..., create_graph=True)``).
     """
+
+    _SHARDED = True
 
     def __init__(self, biort="near_sym_a", qshift="qshift_a", J=3,
                  skip_hps=False, include_scale=False, o_dim=2, ri_dim=-1,
@@ -81,6 +90,17 @@ class DTCWTForward(_TapsModule):
 
     def forward(self, x):
         self._check_device(x)
+        if self.mesh is not None:
+            if self.batch_chunk:
+                warn_chunk_dropped("DTCWTForward",
+                                   "mesh= sharded path does not chunk")
+            yl, yh = sharded_dtcwt2d(
+                x, self.mesh, self._filters, J=self.J, mode=self.mode,
+                skip_hps=self.skip_hps, include_scale=self.include_scale,
+                o_dim=self.o_dim, ri_dim=self.ri_dim)
+            if self.coeff_dtype is not None:
+                yh = cast_bands(yh, self.coeff_dtype)
+            return yl, yh
         chunk = resolve_chunk(self.batch_chunk, x.shape[0],
                               x.shape[-2] * x.shape[-1], x.numel())
         if chunk and _batch_leading(self):
@@ -97,7 +117,12 @@ class DTCWTInverse(_TapsModule):
 
     Call: (yl, yh) -> x.  None entries (lowpass or any bandpass) are
     treated as zeros.  ``device``, ``mesh`` and ``batch_chunk`` as for
-    :class:`DTCWTForward` (the chunks upcast their own bands)."""
+    :class:`DTCWTForward` (the chunks upcast their own bands; with
+    ``mesh`` the coefficients are DTensors or full tensors, the lowpass
+    and every level's bands present:
+    ``parallel/sharded.py:sharded_idtcwt2d``)."""
+
+    _SHARDED = True
 
     def __init__(self, biort="near_sym_a", qshift="qshift_a", o_dim=2,
                  ri_dim=-1, mode="symmetric", mesh=None, batch_chunk=None,
@@ -120,6 +145,15 @@ class DTCWTInverse(_TapsModule):
     def forward(self, coeffs):
         yl, yh = coeffs
         self._check_device(yl, *(yh or ()))
+        if self.mesh is not None:
+            if self.batch_chunk:
+                warn_chunk_dropped("DTCWTInverse",
+                                   "mesh= sharded path does not chunk")
+            if yh is not None:
+                yh = upcast_bands(yh, yl)
+            return sharded_idtcwt2d((yl, yh), self.mesh, self._filters,
+                                    mode=self.mode, o_dim=self.o_dim,
+                                    ri_dim=self.ri_dim)
         chunk = resolve_chunk(self.batch_chunk, 0, 0, 0)
         if chunk and _batch_leading(self):
             return batch_chunked(self._single, coeffs, chunk)

@@ -29,6 +29,9 @@ from pytorch_wavelets_tpu_torch.ops.banded import (  # noqa: F401
 from pytorch_wavelets_tpu_torch.ops.dtcwt_fb import (  # noqa: F401
     dtcwt_dfilt, dtcwt_filt, dtcwt_ifilt,
 )
+from pytorch_wavelets_tpu_torch.ops.halo import (  # noqa: F401
+    halo_assemble, halo_fold, halo_pack,
+)
 from pytorch_wavelets_tpu_torch.ops.iswt_merge import (  # noqa: F401
     spec_merge, spec_split,
 )
@@ -50,7 +53,8 @@ KERNELS = (apply_row, apply_col, q2c_pack, c2q_unpack, scat_mag_fwd,
            dtcwt_ifilt, avg_pool2_fwd, avg_pool2_bwd, afb1d_atrous_corr,
            afb1d_atrous_adjoint, spec_merge, spec_split, nonsep_afb,
            nonsep_afb_adjoint, nonsep_sfb, nonsep_sfb_adjoint,
-           sfb1d_atrous_conv, sfb1d_atrous_adjoint, *K17_WRAPPERS)
+           sfb1d_atrous_conv, sfb1d_atrous_adjoint, halo_pack,
+           halo_assemble, halo_fold, *K17_WRAPPERS)
 
 
 PRODUCT_KERNELS = (apply_row, apply_col, *K17_WRAPPERS)

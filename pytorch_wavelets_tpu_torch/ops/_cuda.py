@@ -130,6 +130,11 @@ _SIGNATURES = {
                                _L, _L, _L, _L, _I, _I, *[_I] * 11,
                                _L, _L, _L, _L, _L, _I, _I, _P],
     },
+    "halo": {
+        "halo_pack": [_P, _P, _P, *[_L] * 8, _I, _I, _I, _I, _P],
+        "halo_assemble": [_P, _P, _P, _P, *[_L] * 12, *[_I] * 6, _P],
+        "halo_fold": [_P, _P, _P, _P, *[_L] * 8, *[_I] * 6, _P],
+    },
     "iswt_spec": {
         "spec_merge": [_P, _P, _P, _P, _P, _L, _I, _I, _I, *[_L] * 12, _I,
                        _P, _P],

@@ -290,17 +290,25 @@ class _FwdLevel(torch.autograd.Function):
 class _InvLevel(torch.autograd.Function):
     """An inverse level of (lows or None, highs or None); its backward is
     the forward level (JAX ``bwd``), which saves no inputs, and that
-    backward's own backward this level again (``ops/_linear.py``).  A
-    level-1 inverse without bands in a mode other than 'symmetric' raises
-    there: its backward filters in ``mode``, its forward in 'symmetric'
-    (the reference's lowpass-only branch), so neither is the other's
-    transpose."""
+    backward's own backward this level again (``ops/_linear.py``).
+
+    A level-1 inverse without bands filters its lowpass in ``low_mode``:
+    'symmetric' when called (the reference's lowpass-only branch), while
+    its backward filters in ``mode``.  The transpose of that backward is
+    the lowpass synthesis in ``mode`` (the level-1 filter matrices are
+    symmetric in every mode), so the second derivative runs this level
+    with ``low_mode=mode``, whose backward and transpose stay in
+    ``mode`` at every order."""
 
     @staticmethod
-    def forward(ctx, lows, highs, j1, taps, o_dim, ri_dim, mode):
+    def forward(ctx, lows, highs, j1, taps, o_dim, ri_dim, mode,
+                low_mode="symmetric"):
         ctx.set_materialize_grads(False)
         ctx.args = (j1, taps, o_dim, ri_dim, mode)
         ctx.has = (lows is not None, highs is not None)
+        if j1 and highs is None:
+            g0 = taps[0]
+            return rowfilter(colfilter(lows, g0, low_mode), g0, low_mode)
         if j1:
             return inv_j1(lows, highs, *taps, None, o_dim, ri_dim, mode)
         return inv_j2plus(lows, highs, *taps, None, None, o_dim, ri_dim,
@@ -311,7 +319,7 @@ class _InvLevel(torch.autograd.Function):
         j1, taps, o_dim, ri_dim, mode = ctx.args
         has_lows, has_highs = ctx.has
         if dy is None:
-            return (None,) * 7
+            return (None,) * 8
 
         def adjoint(g):
             if j1:
@@ -324,14 +332,10 @@ class _InvLevel(torch.autograd.Function):
             return dl if has_lows else None, dh
 
         def primal(ul, uh):
-            if j1 and uh is None and mode != "symmetric":
-                raise NotImplementedError(
-                    f"the second derivative of a level-1 DTCWT inverse "
-                    f"without bands in mode {mode!r}: its backward is not "
-                    f"the transpose of its forward there")
-            return _InvLevel.apply(ul, uh, j1, taps, o_dim, ri_dim, mode)
+            return _InvLevel.apply(ul, uh, j1, taps, o_dim, ri_dim, mode,
+                                   mode)
         dl, dh = linear_backward(adjoint, primal, dy)
-        return (dl, dh) + (None,) * 5
+        return (dl, dh) + (None,) * 6
 
 
 def _taps(*ts):

@@ -66,9 +66,8 @@ class _SmoothMag(torch.autograd.Function):
 
 class _SmoothMagBackward(torch.autograd.Function):
     """The magnitude's backward as a function of (bands h, output
-    cotangent g): K5 forward, K18 backward (the cotangents of h and g).
-    K18's own backward is its plain version's autograd on the CPU; on the
-    card the kernel call raises under ``create_graph`` (third order)."""
+    cotangent g): K5 forward, :class:`_SmoothMagBwd2` (K18) backward (the
+    cotangents of h and g)."""
 
     @staticmethod
     def forward(ctx, h, g, bias, combine):
@@ -79,8 +78,59 @@ class _SmoothMagBackward(torch.autograd.Function):
     @staticmethod
     def backward(ctx, u):
         h, g = ctx.saved_tensors
-        dg, dh = scat_mag_bwd2(h, g, u.to(h.dtype), ctx.bias, ctx.combine)
+        dg, dh = _SmoothMagBwd2.apply(h, g, u.to(h.dtype), ctx.bias,
+                                      ctx.combine)
         return dh, dg, None, None
+
+
+def _dot(x, y, combine):
+    """The sum of x * y over (re, im), and over C with ``combine``."""
+    t = x[..., 0] * y[..., 0] + x[..., 1] * y[..., 1]
+    return t.sum(dim=2, keepdim=True) if combine else t
+
+
+class _SmoothMagBwd2(torch.autograd.Function):
+    """K18 as a function of (h, g, u): (dg, dh) = (t / s,
+    g (u - h t / s^2) / s) with s = sqrt(|h|^2 + bias^2) and t = <u, h>
+    (sums over re/im, and C with ``combine``).  Its backward, for the
+    cotangents (a, b) of (dg, dh), is differentiable again, to any order:
+
+    - the cotangent of u is K5 of (h, a) plus K18's dh term of (h, g, b)
+      (:class:`_SmoothMagBackward` and this Function again, so they run
+      on the card as kernels);
+    - the cotangents of g and h, the magnitude's third derivative, are
+      PyTorch elementwise expressions, as JAX's autodiff computes them
+      outside any kernel:
+      dg' = <b, u> / s - t <b, h> / s^3 and
+      dh' = a (u / s - t h / s^3)
+      - g ((<b, u> h + t b + <b, h> u) / s^3 - 3 t <b, h> h / s^5).
+    """
+
+    @staticmethod
+    def forward(ctx, h, g, u, bias, combine):
+        ctx.save_for_backward(h, g, u)
+        ctx.bias, ctx.combine = bias, combine
+        return scat_mag_bwd2(h, g, u, bias, combine)
+
+    @staticmethod
+    def backward(ctx, a, b):
+        h, g, u = ctx.saved_tensors
+        bias, combine = ctx.bias, ctx.combine
+        a, b = a.to(h.dtype), b.to(h.dtype)
+        du = (_SmoothMagBackward.apply(h, a, bias, combine)
+              + _SmoothMagBwd2.apply(h, g, b, bias, combine)[1])
+        s = torch.sqrt(_dot(h, h, combine) + bias * bias)
+        t, tb, tbu = (_dot(u, h, combine), _dot(b, h, combine),
+                      _dot(b, u, combine))
+        s3 = s * s * s
+        dg = tbu / s - t * tb / s3
+        # the per-coefficient factors broadcast over (re, im)
+        a, g, s, s3, t, tb, tbu = (v.unsqueeze(-1)
+                                   for v in (a, g, s, s3, t, tb, tbu))
+        dh = (a * (u / s - t * h / s3)
+              - g * ((tbu * h + t * b + tb * u) / s3
+                     - 3 * t * tb * h / (s3 * s * s)))
+        return dh, dg, du, None, None
 
 
 def smooth_mag(h, bias, combine=False):

@@ -2731,3 +2731,71 @@ def test_hvp_on_card(dev, name):
         assert scat_mag.scat_mag_bwd2.launches > n0
     scale = max(1.0, float(ref.abs().max()))
     torch.testing.assert_close(got, ref, rtol=0, atol=2e-5 * scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("axis", [2, 3])
+@pytest.mark.parametrize("view", ["contiguous", "transposed", "strided"])
+@pytest.mark.parametrize("left,right", [(0, 3), (3, 0), (7, 7), (2, 5)])
+def test_halo_kernels(dev, dtype, axis, view, left, right):
+    """K19's three entries against their plain versions, bit for bit, at
+    halo widths 0, equal to the tile (7) and in between, into a window
+    that is a slice of a wider one, from a strided cotangent."""
+    from pytorch_wavelets_tpu_torch.ops import halo
+    base = torch.from_numpy(_rand((2, 3, 7, 7), 5)).to(dtype).to(dev)
+    x = {"contiguous": base, "transposed": base.transpose(2, 3),
+         "strided": base[:, ::2]}[view]
+    L = x.shape[axis]
+    per = x.numel() // L
+    before = [k.launches for k in (halo.halo_pack, halo.halo_assemble,
+                                   halo.halo_fold)]
+    tail, head = x.new_empty(per * left), x.new_empty(per * right)
+    pt, ph = tail.clone(), head.clone()
+    halo.halo_pack(x, axis, left, right, tail, head)
+    halo.halo_pack_plain(x, axis, left, right, pt, ph)
+    assert torch.equal(tail, pt) and torch.equal(head, ph)
+    recv_l = torch.from_numpy(_rand((per * left,), 6)).to(dtype).to(dev)
+    recv_r = torch.from_numpy(_rand((per * right,), 7)).to(dtype).to(dev)
+    for lsrc, rsrc in (("recv", "recv"), ("flip", "zero"), ("zero", "flip")):
+        shape = list(x.shape)
+        shape[axis] = left + L + right
+        wide = list(shape)
+        wide[axis] += 2
+        win = torch.full(wide, float("nan"), dtype=dtype,
+                         device=dev).narrow(axis, 1, shape[axis])
+        pwin = win.clone()
+        halo.halo_assemble(x, axis, left, right, lsrc, rsrc, recv_l, recv_r,
+                           win)
+        halo.halo_assemble_plain(x, axis, left, right, lsrc, rsrc, recv_l,
+                                 recv_r, pwin)
+        assert torch.equal(win, pwin)
+        gw = torch.from_numpy(_rand(shape, 8)).to(dtype).to(dev)
+        gw = gw.transpose(0, 1).contiguous().transpose(0, 1)
+        assert torch.equal(
+            halo.halo_fold(gw, axis, left, right, lsrc, rsrc, recv_r, recv_l),
+            halo.halo_fold_plain(gw, axis, left, right, lsrc, rsrc, recv_r,
+                                 recv_l))
+    after = [k.launches for k in (halo.halo_pack, halo.halo_assemble,
+                                  halo.halo_fold)]
+    assert [a - b for a, b in zip(after, before)] == [1, 3, 3]
+
+
+def test_scat_third_order_on_card(dev):
+    """A third-order directional derivative of sum(Z^3) through
+    ScatLayerj2 on the card (K18 inside a Function whose backward runs K5
+    and K18 again) against the CPU plain run."""
+    x, v, w = (torch.from_numpy(_rand((2, 3, 32, 32), s)) for s in (0, 1, 2))
+
+    def third(device):
+        m = tt.ScatLayerj2(device=device)
+        xt = x.to(device).requires_grad_()
+        g1, = torch.autograd.grad((m(xt) ** 3).sum(), xt, create_graph=True)
+        g2, = torch.autograd.grad((g1 * v.to(device)).sum(), xt,
+                                  create_graph=True)
+        return torch.autograd.grad((g2 * w.to(device)).sum(), xt)[0]
+    ref = third("cpu")
+    n = scat_mag.scat_mag_bwd2.launches
+    got = third(dev).cpu()
+    assert scat_mag.scat_mag_bwd2.launches > n
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0,
+                               atol=2e-5 * max(1.0, float(ref.abs().max())))

@@ -100,9 +100,9 @@ def test_gradient_on_cpu_matches_jax():
 def test_errors():
     with pytest.raises(ValueError, match="different dimensions"):
         tt.DTCWTForward(o_dim=2, ri_dim=2, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tt.DTCWTForward(batch_chunk=8, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tt.DTCWTInverse(mesh=object(), device="cpu")
     i = tt.DTCWTInverse(device="cpu")
     bad = torch.zeros(1, 1, 5, 4, 4, 2)

@@ -64,6 +64,8 @@ def test_imports_and_runs_with_jax_blocked():
         "c = tr.DTCWTForward2(J=2, device='cpu')(x)\n"
         "r = tr.DTCWTInverse2(device='cpu')(c)\n"
         "assert (r - x).abs().max() < 1e-5\n"
+        "from pytorch_wavelets_tpu_torch import parallel\n"
+        "assert parallel.sharded_dtcwt2d and parallel.make_mesh\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in "
         "sys.modules if sys.modules[m] is not None)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -111,6 +113,17 @@ def test_cpu_tensors_take_plain_versions():
     g, = torch.autograd.grad(tt.ScatLayerj2(device="cpu")(xs).square().sum(),
                              xs, create_graph=True)
     torch.autograd.grad(g.sum(), xs)
+    # K19's plain versions: a window and its adjoint along both axes
+    from pytorch_wavelets_tpu_torch.ops import halo
+    for axis in (2, 3):
+        per = x.numel() // x.shape[axis]
+        tail, head = x.new_empty(per * 2), x.new_empty(per * 3)
+        halo.halo_pack(x, axis, 2, 3, tail, head)
+        w = halo.halo_assemble(
+            x, axis, 2, 3, "recv", "flip", tail, None,
+            x.new_empty(halo.block_shape(x, axis, x.shape[axis] + 5)))
+        halo.halo_fold(w, axis, 2, 3, "zero", "recv", None,
+                       x.new_zeros(per * 2))
     assert ops.launch_counts() == {k.__name__: 0 for k in ops.KERNELS}
     assert set(ops.launch_counts()) == {
         "apply_row", "apply_col", "q2c_pack", "c2q_unpack", "scat_mag_fwd",
@@ -120,7 +133,17 @@ def test_cpu_tensors_take_plain_versions():
         "spec_split", "nonsep_afb", "nonsep_afb_adjoint", "nonsep_sfb",
         "nonsep_sfb_adjoint", "sfb1d_atrous_conv", "sfb1d_atrous_adjoint",
         "apply_row_tf32", "apply_col_tf32", "apply_row_3xtf32",
-        "apply_col_3xtf32", "apply_row_bf16", "apply_col_bf16"}
+        "apply_col_3xtf32", "apply_row_bf16", "apply_col_bf16",
+        "halo_pack", "halo_assemble", "halo_fold"}
+
+
+def test_parallel_files_are_checked():
+    """The sharded layer's modules are among the files whose imports are
+    checked, and it imports no JAX-side name (the mesh, the halo, the
+    sharded operators and transforms)."""
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for mod in ("__init__", "mesh", "halo", "banded_shard", "sharded"):
+        assert f"pytorch_wavelets_tpu_torch/parallel/{mod}.py" in names
 
 
 def test_default_device_is_cuda(monkeypatch):

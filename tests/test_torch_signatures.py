@@ -2,7 +2,8 @@
 then ``device``: a positional call written for the JAX package binds the
 same arguments in the port.  ``batch_chunk`` None, False and 0 are "off"
 in both packages (tests/test_torch_batch_chunk.py has the chunks); a
-positive chunk beside ``mesh=`` raises, as ``mesh=`` is not ported."""
+positive chunk beside ``mesh=`` raises where ``mesh=`` is not ported, and
+the DTCWT modules run sharded on a ``DeviceMesh``."""
 import inspect
 
 import pytest
@@ -50,12 +51,50 @@ def test_batch_chunk_off(name, chunk):
 @pytest.mark.parametrize("name", ["DTCWTForward", "DTCWTInverse",
                                   "ScatLayer", "ScatLayerj2"])
 def test_positive_batch_chunk_raises(name):
-    """A positive chunk constructs; with ``mesh=`` it raises, naming A5
-    (the JAX package would drop the chunk there, with a warning, for its
-    sharded path)."""
+    """A positive chunk constructs.  Beside ``mesh=`` the scattering
+    layers raise, naming A5 (their sharded paths are not ported); the
+    DTCWT modules take a ``DeviceMesh`` (and drop the chunk with a
+    warning when called, test_dtcwt_mesh_world_of_one) and raise on
+    anything else."""
     getattr(tt, name)(batch_chunk=8, device="cpu")
+    if name.startswith("DTCWT"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            getattr(tt, name)(batch_chunk=8, mesh=object(), device="cpu")
+        return
     with pytest.raises(NotImplementedError, match="A5"):
         getattr(tt, name)(batch_chunk=8, mesh=object(), device="cpu")
+
+
+@pytest.fixture
+def world_of_one(tmp_path):
+    """A gloo process group of this process alone, and its (1, 1) mesh."""
+    import torch.distributed as dist
+    from pytorch_wavelets_tpu_torch.parallel import make_mesh
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        yield make_mesh(1, 1, device_type="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_dtcwt_mesh_world_of_one(world_of_one):
+    """``mesh=`` on the DTCWT modules, in the JAX package's position: on a
+    (1, 1) mesh the sharded path gives the unsharded results bit for bit,
+    as DTensors, and a positive ``batch_chunk`` is dropped with the JAX
+    package's warning."""
+    x = torch.randn(2, 3, 32, 32)
+    f = tt.DTCWTForward(J=2, mesh=world_of_one, batch_chunk=1, device="cpu")
+    i = tt.DTCWTInverse(mesh=world_of_one, batch_chunk=1, device="cpu")
+    with pytest.warns(UserWarning, match="batch_chunk ignored"):
+        yl, yh = f(x)
+    with pytest.warns(UserWarning, match="batch_chunk ignored"):
+        rec = i((yl, yh))
+    ryl, ryh = tt.DTCWTForward(J=2, device="cpu")(x)
+    assert torch.equal(yl.to_local(), ryl)
+    assert all(torch.equal(a.to_local(), b) for a, b in zip(yh, ryh))
+    assert torch.equal(rec.to_local(), tt.DTCWTInverse(device="cpu")(
+        (ryl, ryh)))
 
 
 def test_positional_call_binds_like_jax():
