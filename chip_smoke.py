@@ -176,14 +176,20 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    every yh) against the card's run without a mesh (1e-5 / 2e-5 / 2e-5;
    x.grad 0 outside the rank's chunk), the composed route taken, K1
    launched on every rank and K19 on every rank of a mesh with a sharded
-   spatial axis, the bytes staged, the round trip and the step timed on
-   the host clock, labelled "gloo, one card, host-staged halos" (not a
-   multi-GPU figure); each world joined with a deadline.
-   halo_edge_cases: K19's three entries against their plain versions bit
-   for bit (widths 0, equal to the tile and between, both axes, every
-   source on each side, contiguous, transposed, strided and offset
-   tiles, fp32 and bf16); K19's kernel lines at the main path's stage-1
-   tile on (1, 2), torch.cat of the same buffer as the library call;
+   spatial axis (on the main meshes every K19 launch on its vector walk;
+   each exchange one pack and one assemble or fold launch), the bytes
+   staged, the round trip and the step timed on the host clock,
+   labelled "gloo, one card, host-staged halos" (not a multi-GPU
+   figure); each world joined with a deadline.  halo_edge_cases: K19's
+   three entries against their plain versions bit for bit (widths 0,
+   equal to the tile and between, both axes, every source on each side,
+   the views of _k19_views at row pitches off and on 16-byte lines,
+   windows on the lines and one sample off them, fp32 and bf16, calls of
+   3 and 10 parts), each call on the walk ops/halo.py:halo_walk names,
+   both walks taken by every entry; K19's kernel lines at the main
+   path's stage-1 tile on (1, 2) and at the stage-1 tile of
+   128x3x256x256 on (1, 2) along W and H (fp32) and W (bf16), torch.cat
+   of the same buffer as the library call;
    sharded_nccl: a world of one on NCCL, mesh (1, 1), bit for bit the
    path without a mesh.
 15. profile: device time by kernel of the main path, of one ScatLayerj2
@@ -4727,6 +4733,11 @@ HALO_KERNELS = ("halo_pack", "halo_assemble", "halo_fold")
 HALO_REPLACES = "pytorch_wavelets_tpu/parallel/halo.py:23"
 K19_TILE = (10, 10, 128, 64)  # the main path's stage-1 tile on (1, 2)
 K19_HALO = (10, 10)
+# the stage-1 tile of a sharded DTCWT of 128x3x256x256 on 1 data x 2
+# spatial ranks (its window, 58 MB, is past the 50 MB L2), along W and,
+# transposed, along H
+K19_LARGE_IMAGE = (128, 3, 256, 256)
+K19_LARGE_TILE = (128, 3, 256, 128)
 
 
 def _dt_chunk(full, dt):
@@ -4774,6 +4785,7 @@ def sharded_case(tt, ops, parallel, label, mesh_shape, shape, J):
     dist.barrier()
     ops.reset_launches()
     parallel.reset_staged_bytes()
+    parallel.reset_exchanges()
     xs = x.clone().requires_grad_()
     outs = step(xs)
     lossm = sum((t.to_local() * _dt_chunk(g, t)).sum()
@@ -4781,6 +4793,8 @@ def sharded_case(tt, ops, parallel, label, mesh_shape, shape, J):
     gm, = torch.autograd.grad(lossm, xs)
     torch.cuda.synchronize()
     counts = {k: n for k, n in ops.launch_counts().items() if n}
+    walks = {k: ops.instantiation_counts()[k] for k in HALO_KERNELS}
+    exchanges = dict(parallel.EXCHANGES)
     staged = dict(parallel.STAGED_BYTES)
     path = dict(parallel.LAST_PATH)
     refs = [rec, yl, *yh]
@@ -4818,7 +4832,7 @@ def sharded_case(tt, ops, parallel, label, mesh_shape, shape, J):
         shape=list(shape), J=J, path=path, launches=counts,
         k1_launches=counts.get("apply_row", 0) + counts.get("apply_col", 0),
         k19_launches={k: counts.get(k, 0) for k in HALO_KERNELS},
-        staged_bytes=staged,
+        k19_walks=walks, exchanges=exchanges, staged_bytes=staged,
         max_abs_err={"forward": err_fwd, "inverse": err_inv,
                      "x_grad": err_grad},
         round_trip_ms=rt_ms, step_ms=step_ms)
@@ -4884,14 +4898,36 @@ def sharded_world(world, cases):
     return out
 
 
+def k19_exchange_gates(label, r, res):
+    """One rank's K19 launches on one mesh: each exchange one pack and one
+    assemble (forward) or fold (adjoint) launch, however many parts it
+    carried; on the main meshes every launch on the vector walk."""
+    ex, n = res["exchanges"], res["k19_launches"]
+    require(n["halo_pack"] == ex["forward"] + ex["adjoint"]
+            and n["halo_assemble"] == ex["forward"]
+            and n["halo_fold"] == ex["adjoint"],
+            f"sharded_main {label} rank {r}: K19 launches {n} for "
+            f"exchanges {ex}")
+    if label.startswith("main"):
+        strided = {k: w["strided"] for k, w in res["k19_walks"].items()
+                   if w["strided"]}
+        require(not strided, f"sharded_main {label} rank {r}: K19 launches "
+                f"off the vector walk {strided}")
+
+
 def sharded_main(smi):
     """Every world of SHARDED_WORLDS: per mesh, every rank's results within
     SHARDED_TOL of the card's run without a mesh, the composed route
     taken, K1 launched on every rank and K19 on every rank of a mesh with
-    a sharded spatial axis (none where no spatial axis is sharded).
-    Returns every kernel's launches summed over every rank of every
-    mesh."""
+    a sharded spatial axis (none where no spatial axis is sharded), one
+    K19 launch an exchange and pass (``k19_exchange_gates``).  Emits
+    K19's launches, walks and exchanges summed over every rank of every
+    mesh beside the launches one a part would take.  Returns every
+    kernel's launches summed over every rank of every mesh, and K19's
+    launches an exchange."""
     total = {}
+    walks = {k: {} for k in HALO_KERNELS}
+    exchanges = {}
     for world, cases in SHARDED_WORLDS.items():
         t0 = time.perf_counter()
         ranks = sharded_world(world, cases)
@@ -4914,8 +4950,14 @@ def sharded_main(smi):
                 require(n19 > 0 if nh * ns > 1 else n19 == 0,
                         f"sharded_main {label} rank {r}: K19 launches "
                         f"{res['k19_launches']}")
+                k19_exchange_gates(label, r, res)
                 for k, n in res["launches"].items():
                     total[k] = total.get(k, 0) + n
+                for k, w in res["k19_walks"].items():
+                    for name, n in w.items():
+                        walks[k][name] = walks[k].get(name, 0) + n
+                for k, n in res["exchanges"].items():
+                    exchanges[k] = exchanges.get(k, 0) + n
             meshes.append(dict(
                 label=label, mesh=per_rank[0]["mesh"], shape=list(shape),
                 J=J, ranks=per_rank,
@@ -4926,157 +4968,310 @@ def sharded_main(smi):
         emit("sharded_main", world=world, timing_label=SHARDED_LABEL,
              nvidia_smi=smi, tolerance=SHARDED_TOL, seconds=seconds,
              meshes=meshes)
-    return total
+    emit("sharded_k19", launches={k: total.get(k, 0) for k in HALO_KERNELS},
+         walks=walks, exchanges=exchanges,
+         launches_one_a_part={
+             "halo_pack": exchanges.get("forward_parts", 0)
+             + exchanges.get("adjoint_parts", 0),
+             "halo_assemble": exchanges.get("forward_parts", 0),
+             "halo_fold": exchanges.get("adjoint_parts", 0)},
+         launches_per_exchange=k19_per_exchange(total, exchanges))
+    return total, k19_per_exchange(total, exchanges)
+
+
+def k19_per_exchange(launches, exchanges):
+    """K19's launches an exchange, by entry (pack: every exchange; assemble:
+    the windows'; fold: their adjoints')."""
+    n = {"halo_pack": exchanges.get("forward", 0)
+         + exchanges.get("adjoint", 0),
+         "halo_assemble": exchanges.get("forward", 0),
+         "halo_fold": exchanges.get("adjoint", 0)}
+    return {k: launches.get(k, 0) / n[k] if n[k] else None
+            for k in HALO_KERNELS}
+
+
+K19_VIEWS = ("contiguous", "transposed", "strided", "offset", "rows",
+             "narrow")
 
 
 def _k19_views(base, kind):
     """An (N, C, H, W) tile of ``base`` as ``kind``: contiguous, a
-    transposed view, a strided slice, or one at an element offset."""
+    transposed view or a strided slice along W (those two take K19's
+    ``strided`` walk), one at an element offset along W (its rows start
+    off the 16-byte lines), every other row (twice the row pitch) or one
+    column short of W (an odd length on rows of ``base``'s pitch)."""
     if kind == "transposed":
         return base.transpose(2, 3)
     if kind == "strided":
-        return base[:, :, ::2]
+        return base[..., ::2]
     if kind == "offset":
-        return base[:, 1:]
+        return base[..., 1:]
+    if kind == "rows":
+        return base[:, :, ::2]
+    if kind == "narrow":
+        return base[..., :-1]
     return base
+
+
+def _k19_window(like, axis, width, offset, fill):
+    """A ``width``-long window for tile ``like`` along ``axis``: a slice of
+    a wider tensor, ``offset`` samples into it along W, its rows on
+    16-sample lines before the offset."""
+    shape = list(like.shape)
+    shape[axis] = width
+    wide = list(shape)
+    wide[3] = -(-(wide[3] + offset) // 16) * 16
+    return torch.full(wide, fill, dtype=like.dtype, device="cuda").narrow(
+        3, offset, shape[3])
 
 
 def halo_edge_cases(halo):
     """K19's three entries against their plain versions, bit for bit: halo
-    widths 0, equal to the tile and in between, both axes, every source
-    on each side, contiguous, transposed, strided and offset tiles, fp32
-    and bf16.  Returns (calls, mismatched elements)."""
-    calls = mismatched = 0
+    widths 0, equal to the tile and in between (3 and 5, off the
+    multiples of 4), both axes, every source on each side, the tile views
+    of ``_k19_views`` at a row pitch off the 16-byte lines (W = 7) and on
+    them (W = 16), windows on the lines and one sample off them, window
+    cotangents on the lines and with H innermost, fp32 and bf16; and
+    calls of 3 and 10 parts (one launch for every 8).  Every call must
+    take the walk ``halo.halo_walk`` names, and every entry both walks.
+    Returns (calls, mismatched elements, the walks taken by entry,
+    multi-part calls)."""
+    calls = mismatched = multi = 0
+    walks = {k: dict.fromkeys(halo.HALO_WALKS, 0) for k in HALO_KERNELS}
+    wrong = []
     gen = torch.Generator().manual_seed(7)
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=gen).to(dtype).cuda()
+
+    def run(name, want, launches, fn):
+        """fn()'s result; its launches of entry ``name`` must be
+        ``launches``, all on walk ``want``."""
+        k = getattr(halo, name)
+        before = dict(k.instantiations)
+        out = fn()
+        got = {w: n - before[w] for w, n in k.instantiations.items()
+               if n != before[w]}
+        if got != ({want: launches} if launches else {}):
+            wrong.append((name, want, launches, got))
+        for w, n in got.items():
+            walks[name][w] += n
+        return out
+
+    def diff(a, b):
+        return int((a != b).sum()) if isinstance(a, torch.Tensor) else \
+            sum(int((u != v).sum()) for u, v in zip(a, b))
+
+    def case(parts, axis, left, right, srcs, offsets):
+        """pack, then per (lsrc, rsrc) and window offset an assemble and a
+        fold of ``parts`` (a tile or a list): their differing elements."""
+        nonlocal calls
+        tiles = [parts] if isinstance(parts, torch.Tensor) else parts
+        Ls = [t.shape[axis] for t in tiles]
+        lengths = None if isinstance(parts, torch.Tensor) else Ls
+        n = tiles[0].numel() // Ls[0] * len(tiles)
+        groups = -(-len(tiles) // halo.MAX_PARTS)
+        dtype = tiles[0].dtype
+        tail, head = (torch.full((n * left,), float("nan"), dtype=dtype,
+                                 device="cuda"),
+                      torch.full((n * right,), float("nan"), dtype=dtype,
+                                 device="cuda"))
+        ptail, phead = tail.clone(), head.clone()
+        run("halo_pack", halo.halo_walk(*tiles),
+            groups if n * (left + right) else 0,
+            lambda: halo.halo_pack(parts, axis, left, right, tail, head))
+        halo.halo_pack_plain(parts, axis, left, right, ptail, phead)
+        bad = int((tail.nan_to_num(9.0) != ptail.nan_to_num(9.0)).sum() +
+                  (head.nan_to_num(9.0) != phead.nan_to_num(9.0)).sum())
+        calls += 1
+        recv_l, recv_r = rand(n * left, dtype), rand(n * right, dtype)
+        width = sum(Ls) + len(tiles) * (left + right)
+        for lsrc, rsrc in srcs:
+            for offset in offsets:
+                win = _k19_window(tiles[0], axis, width, offset,
+                                  float("nan"))
+                pwin = win.clone()
+                wins = halo._windows(win, axis, Ls, left, right)
+                run("halo_assemble", halo.halo_walk(*tiles, *wins),
+                    groups if win.numel() else 0,
+                    lambda: halo.halo_assemble(parts, axis, left, right,
+                                               lsrc, rsrc, recv_l, recv_r,
+                                               win))
+                halo.halo_assemble_plain(parts, axis, left, right, lsrc,
+                                         rsrc, recv_l, recv_r, pwin)
+                bad += int((win.nan_to_num(9.0) != pwin.nan_to_num(9.0))
+                           .sum())
+                gw = _k19_window(tiles[0], axis, width, offset, 0.0)
+                if offset:      # a cotangent laid out with H innermost
+                    gw = gw.transpose(2, 3).contiguous().transpose(2, 3)
+                gw.copy_(torch.randn(gw.shape, generator=gen).to(dtype))
+                gws = halo._windows(gw, axis, Ls, left, right)
+                dx = run("halo_fold", halo.halo_walk(*gws),
+                         groups if gw.numel() and sum(Ls) else 0,
+                         lambda: halo.halo_fold(gw, axis, left, right, lsrc,
+                                                rsrc, recv_r, recv_l,
+                                                lengths))
+                pdx = halo.halo_fold_plain(gw, axis, left, right, lsrc,
+                                           rsrc, recv_r, recv_l, lengths)
+                bad += diff(dx, pdx)
+                calls += 2
+        return bad
+
+    srcs = (("recv", "recv"), ("flip", "zero"), ("zero", "flip"),
+            ("flip", "recv"))
     for dtype in (torch.float32, torch.bfloat16):
-        for kind in ("contiguous", "transposed", "strided", "offset"):
-            base = torch.randn((2, 4, 10, 7), generator=gen).to(dtype).cuda()
-            x = _k19_views(base, kind)
-            for axis in (2, 3):
-                L = x.shape[axis]
-                per = x.numel() // L
-                for left, right in ((0, 3), (3, 0), (L, L), (2, 5), (0, 0)):
-                    tail, head = (x.new_empty(per * left),
-                                  x.new_empty(per * right))
-                    ptail, phead = tail.clone(), head.clone()
-                    halo.halo_pack(x, axis, left, right, tail, head)
-                    halo.halo_pack_plain(x, axis, left, right, ptail, phead)
-                    mismatched += int((tail != ptail).sum() +
-                                      (head != phead).sum())
-                    calls += 1
-                    recv_l = torch.randn(per * left, generator=gen).to(
-                        dtype).cuda()
-                    recv_r = torch.randn(per * right, generator=gen).to(
-                        dtype).cuda()
-                    for lsrc, rsrc in (("recv", "recv"), ("flip", "zero"),
-                                       ("zero", "flip"), ("flip", "recv")):
-                        wshape = list(x.shape)
-                        wshape[axis] = left + L + right
-                        # the window as a slice of a wider one
-                        wide = list(wshape)
-                        wide[axis] += 3
-                        win = torch.full(wide, float("nan"), dtype=dtype,
-                                         device="cuda").narrow(axis, 1,
-                                                               wshape[axis])
-                        pwin = win.clone()
-                        halo.halo_assemble(x, axis, left, right, lsrc, rsrc,
-                                           recv_l, recv_r, win)
-                        halo.halo_assemble_plain(x, axis, left, right, lsrc,
-                                                 rsrc, recv_l, recv_r, pwin)
-                        mismatched += int((win != pwin).sum())
-                        gw = torch.randn(wshape, generator=gen).to(
-                            dtype).cuda().transpose(0, 1).contiguous() \
-                            .transpose(0, 1)              # a strided cotangent
-                        dx = halo.halo_fold(gw, axis, left, right, lsrc, rsrc,
-                                            recv_r, recv_l)
-                        pdx = halo.halo_fold_plain(gw, axis, left, right,
-                                                   lsrc, rsrc, recv_r, recv_l)
-                        mismatched += int((dx != pdx).sum())
-                        calls += 2
+        for W in (7, 16):
+            base = torch.randn((2, 4, 10, W), generator=gen).to(dtype).cuda()
+            for kind in K19_VIEWS:
+                x = _k19_views(base, kind)
+                for axis in (2, 3):
+                    L = x.shape[axis]
+                    for left, right in ((0, 3), (3, 0), (L, L), (3, 5),
+                                        (0, 0)):
+                        if max(left, right) <= L:
+                            mismatched += case(x, axis, left, right, srcs,
+                                               (0, 1))
+        for axis in (2, 3):
+            for nparts in (3, 10):
+                for W in (7, 16):
+                    parts = []
+                    for i in range(nparts):
+                        shape = [2, 3, 7, W]
+                        shape[axis] = 8 + 8 * (i % 3)
+                        parts.append(rand(shape, dtype))
+                    mismatched += case(parts, axis, 3, 5, srcs[:2], (0,))
+                    multi += 1
     torch.cuda.synchronize()
     require(mismatched == 0, f"halo_edge_cases: {mismatched} elements differ "
             f"from the plain versions")
-    return calls, mismatched
+    require(not wrong, f"halo_edge_cases: launches off halo_walk's walk "
+            f"(entry, walk, launches, taken): {wrong[:5]}")
+    require(all(all(w.values()) for w in walks.values()),
+            f"halo_edge_cases: an entry did not take both walks: {walks}")
+    return calls, mismatched, walks, multi
 
 
-def k19_rows(halo, banded, sharded, launches):
-    """K19's kernel lines at the main path's stage-1 tile on (1, 2) (10 + 10
-    samples of halo an interior rank receives): each entry against its
-    plain version (exact), timed beside it and beside one PyTorch call
-    that builds the same buffer (``torch.cat``; none for the fold), with
-    its bytes bound; then ``apply_sharded_op``'s product, K1 on rank 0's
-    block of that stage-1 operator over its halo'd window, against its
-    plain version and ``torch.matmul``.  ``launches`` are the sharded
-    runs' counts (K1's: its row entry's, every row apply of those
-    runs)."""
-    left, right = K19_HALO
+def _k19_halo(sharded, shape):
+    """(halo_left, halo_right) of the stage-1 row operator of DTCWT J=2
+    (near_sym_a, qshift_a, 'symmetric') on ``shape`` on (1, 2), and the
+    operator."""
+    f = _k19_filters()
+    op, _ = sharded._dtcwt_fwd_shard_plans(
+        f["h0o"], f["h1o"], f["h0a"], f["h1a"], f["h0b"], f["h1b"], 2,
+        (False, False), (False, False), "symmetric", shape[2], shape[3], 2,
+        1)
+    return (op.halo_left, op.halo_right), op
+
+
+def k19_tile_rows(halo, label, tile, axis, dtype, halos, launches,
+                  per_exchange):
+    """K19's kernel lines at one tile: each entry (an interior rank's:
+    "recv" on both sides) against its plain version (exact), timed beside
+    it and beside one PyTorch call that builds the same buffer
+    (``torch.cat``; none for the fold), with its bytes bound and the walk
+    it took."""
+    left, right = halos
     gen = torch.Generator().manual_seed(3)
-    x = torch.randn(K19_TILE, generator=gen).cuda()
-    L = x.shape[3]
+
+    def rand(shape):
+        return torch.randn(shape, generator=gen).to(dtype).cuda()
+    x = rand(tile)
+    L = x.shape[axis]
     per = x.numel() // L
     tail, head = x.new_empty(per * left), x.new_empty(per * right)
     ptail, phead = tail.clone(), head.clone()
-    recv_l = torch.randn(per * left, generator=gen).cuda()
-    recv_r = torch.randn(per * right, generator=gen).cuda()
-    wshape = (*K19_TILE[:3], left + L + right)
+    recv_l, recv_r = rand(per * left), rand(per * right)
+    wshape = halo.block_shape(x, axis, left + L + right)
     win, pwin = x.new_empty(wshape), x.new_empty(wshape)
-    gw = torch.randn(wshape, generator=gen).cuda()
-    blk = list(K19_TILE[:3])
+    gw = rand(wshape)
+    blk_l, blk_r = (halo.block_shape(x, axis, k) for k in (left, right))
     entries = {
         "halo_pack": (
-            lambda: halo.halo_pack(x, 3, left, right, tail, head),
-            lambda: halo.halo_pack_plain(x, 3, left, right, ptail, phead),
-            lambda: torch.cat([x[..., L - left:].reshape(-1),
-                               x[..., :right].reshape(-1)]),
+            lambda: halo.halo_pack(x, axis, left, right, tail, head),
+            lambda: halo.halo_pack_plain(x, axis, left, right, ptail, phead),
+            lambda: torch.cat([x.narrow(axis, L - left, left).reshape(-1),
+                               x.narrow(axis, 0, right).reshape(-1)]),
             lambda: (torch.cat([tail, head]), torch.cat([ptail, phead])),
             2 * per * (left + right)),
         "halo_assemble": (
-            lambda: halo.halo_assemble(x, 3, left, right, "recv", "recv",
+            lambda: halo.halo_assemble(x, axis, left, right, "recv", "recv",
                                        recv_l, recv_r, win),
-            lambda: halo.halo_assemble_plain(x, 3, left, right, "recv",
+            lambda: halo.halo_assemble_plain(x, axis, left, right, "recv",
                                              "recv", recv_l, recv_r, pwin),
-            lambda: torch.cat([recv_l.view(*blk, left), x,
-                               recv_r.view(*blk, right)], dim=3),
+            lambda: torch.cat([recv_l.view(blk_l), x, recv_r.view(blk_r)],
+                              dim=axis),
             lambda: (win, pwin),
             per * (left + right + L) * 2),
         "halo_fold": (
-            lambda: halo.halo_fold(gw, 3, left, right, "recv", "recv",
+            lambda: halo.halo_fold(gw, axis, left, right, "recv", "recv",
                                    recv_r, recv_l),
-            lambda: halo.halo_fold_plain(gw, 3, left, right, "recv", "recv",
-                                         recv_r, recv_l),
+            lambda: halo.halo_fold_plain(gw, axis, left, right, "recv",
+                                         "recv", recv_r, recv_l),
             None,
-            lambda: (halo.halo_fold(gw, 3, left, right, "recv", "recv",
+            lambda: (halo.halo_fold(gw, axis, left, right, "recv", "recv",
                                     recv_r, recv_l),
-                     halo.halo_fold_plain(gw, 3, left, right, "recv", "recv",
-                                          recv_r, recv_l)),
+                     halo.halo_fold_plain(gw, axis, left, right, "recv",
+                                          "recv", recv_r, recv_l)),
             per * (2 * (left + right) + 2 * L)),
     }
     rows = []
     for name, (kernel, plain, lib, outs, values) in entries.items():
+        k = getattr(halo, name)
+        before = dict(k.instantiations)
         kernel()
+        walk = "+".join(w for w, n in k.instantiations.items()
+                        if n != before[w])
         plain()
         got, want = outs()
         require(torch.equal(got, want), f"{name}: differs from its plain "
-                f"version at {shape_str(K19_TILE)}")
+                f"version at {label}")
         ms = timed_ms(kernel)
         plain_ms = timed_ms(plain)
         lib_ms = None if lib is None else timed_ms(lib)
-        bound = values * 4 / PEAK_HBM_BYTES * 1e3
+        bound = values * x.element_size() / PEAK_HBM_BYTES * 1e3
         rows.append({
-            "name": f"{name} (DTCWT J=2 stage-1 tile {shape_str(K19_TILE)}, "
-                    f"halos {left} + {right})",
+            "name": f"{name} ({label}, halos {left} + {right})",
             "route": "cuda", "source": "pytorch_wavelets_tpu_torch/csrc/"
                                        "halo.cu",
             "replaces": HALO_REPLACES, "launches": launches[name],
             "max_abs_err": max_err(got, want), "tolerance": "exact",
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "bytes", "library_ms": lib_ms,
-            "library": "torch.cat of the same buffer" if lib else None})
-    f = _k19_filters()
-    op, _ = sharded._dtcwt_fwd_shard_plans(
-        f["h0o"], f["h1o"], f["h0a"], f["h1a"], f["h0b"], f["h1b"], 2,
-        (False, False), (False, False), "symmetric", MAIN_SHAPE[2],
-        MAIN_SHAPE[3], 2, 1)
+            "library": "torch.cat of the same buffer" if lib else None,
+            "walk": walk, "launches_per_exchange": per_exchange[name],
+            "share_of_bound": bound / ms})
+    return rows
+
+
+def k19_rows(halo, banded, sharded, launches, per_exchange):
+    """K19's kernel lines (``k19_tile_rows``) at the main path's stage-1
+    tile on (1, 2) (10 + 10 samples of halo an interior rank receives),
+    and at the stage-1 tile of K19_LARGE_IMAGE on (1, 2) along W, along H
+    (the tile transposed) and in bf16 along W; then ``apply_sharded_op``'s
+    product, K1 on rank 0's block of the main stage-1 operator over its
+    halo'd window, against its plain version and ``torch.matmul``.
+    ``launches`` are the sharded runs' counts (K1's: its row entry's,
+    every row apply of those runs), ``per_exchange`` K19's launches an
+    exchange there."""
+    halos, op = _k19_halo(sharded, MAIN_SHAPE)
+    require(halos == K19_HALO, f"k19_rows: the main stage-1 halos are "
+            f"{halos}, not {K19_HALO}")
+    large, _ = _k19_halo(sharded, K19_LARGE_IMAGE)
+    lt = K19_LARGE_TILE
+    rows = []
+    for label, tile, axis, dtype, hl in (
+            (f"DTCWT J=2 stage-1 tile {shape_str(K19_TILE)}", K19_TILE, 3,
+             torch.float32, halos),
+            (f"large tile {shape_str(lt)} along W", lt, 3, torch.float32,
+             large),
+            (f"large tile {shape_str((*lt[:2], lt[3], lt[2]))} along H",
+             (*lt[:2], lt[3], lt[2]), 2, torch.float32, large),
+            (f"large tile {shape_str(lt)} along W, bf16", lt, 3,
+             torch.bfloat16, large)):
+        rows.extend(k19_tile_rows(halo, label, tile, axis, dtype, hl,
+                                  launches, per_exchange))
+        torch.cuda.empty_cache()
+    gen = torch.Generator().manual_seed(3)
     B, _ = op.local(0, "cuda")
     win = torch.randn((*MAIN_SHAPE[:3], B.shape[1]), generator=gen).cuda()
     got = banded.apply_row(win, B)
@@ -5485,11 +5680,11 @@ def main():
     from pytorch_wavelets_tpu_torch import parallel
     from pytorch_wavelets_tpu_torch.ops import halo
     from pytorch_wavelets_tpu_torch.parallel import sharded
-    launches = sharded_main(smi)
-    n_edge, mismatches = halo_edge_cases(halo)
+    launches, per_exchange = sharded_main(smi)
+    n_edge, mismatches, walks, multi = halo_edge_cases(halo)
     emit("halo_edge_cases", calls=n_edge, mismatched_elements=mismatches,
-         tolerance="exact")
-    new = k19_rows(halo, banded, sharded, launches)
+         tolerance="exact", walks=walks, multi_part_calls=multi)
+    new = k19_rows(halo, banded, sharded, launches, per_exchange)
     for row in new:
         emit("kernel", **row)
     rows.extend(new)

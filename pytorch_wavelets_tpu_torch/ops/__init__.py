@@ -15,7 +15,7 @@ column entry its narrow 64-column tile.  K2's to K16's count theirs in
 vector width (K6's and K7's per-output ``long_fold`` too), K14's and
 K15's tiles (K14's PSF count), their adjoints' and K15's forward's edge
 bands, K12's and K16's adjoints' edge bands, K2's, K3's, K4's, K5's,
-K18's and K11's vector or strided access, K13's walk.
+K18's, K11's and K19's vector or strided access, K13's walk.
 """
 from pytorch_wavelets_tpu_torch.ops.afb_sfb import (  # noqa: F401
     afb1d, sfb1d, afb1d_atrous, sfb1d_atrous, afb2d, sfb2d,
@@ -66,7 +66,7 @@ STENCIL_VARIANT_KERNELS = (afb1d_corr, sfb1d_conv, dtcwt_filt, dtcwt_dfilt,
                            scat_mag_fwd, scat_mag_bwd, scat_mag_bwd2,
                            q2c_pack, c2q_unpack,
                            avg_pool2_fwd, avg_pool2_bwd, spec_merge,
-                           spec_split)
+                           spec_split, halo_pack, halo_assemble, halo_fold)
 
 
 def reset_launches() -> None:
@@ -111,6 +111,8 @@ def instantiation_counts() -> dict:
     (16-byte loads of it) / ``strided``; K11's forward's and adjoint's
     ``vector`` (16-byte loads of rows at unit stride; 16-byte stores) /
     ``strided``; K13's ``stream``
-    (16-byte pairs along the spectra's unit-stride axis) / ``strided``."""
+    (16-byte pairs along the spectra's unit-stride axis) / ``strided``;
+    K19's three entries' ``vector`` (16-byte stores and runs along W of
+    tiles and windows at unit stride along W) / ``strided``."""
     return {k.__name__: dict(k.instantiations)
             for k in STENCIL_VARIANT_KERNELS}

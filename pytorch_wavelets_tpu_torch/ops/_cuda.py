@@ -34,8 +34,9 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
 # C signatures: every pointer and the stream as c_void_p, sizes as int,
 # strides as int64, scalars as float.  Each launcher returns
-# cudaGetLastError(); K2's, K3's, K11's and K13's also write the variant
-# they launched through an int pointer.
+# cudaGetLastError(); K2's, K3's, K11's, K13's and K19's also write the
+# variant they launched through an int pointer.  K19's take a host array of
+# parts (ops/halo.py:_Part) and their count.
 _SIGNATURES = {
     "banded_apply": {
         "banded_apply_col": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -131,9 +132,9 @@ _SIGNATURES = {
                                _L, _L, _L, _L, _L, _I, _I, _P],
     },
     "halo": {
-        "halo_pack": [_P, _P, _P, *[_L] * 8, _I, _I, _I, _I, _P],
-        "halo_assemble": [_P, _P, _P, _P, *[_L] * 12, *[_I] * 6, _P],
-        "halo_fold": [_P, _P, _P, _P, *[_L] * 8, *[_I] * 6, _P],
+        "halo_pack": [_P, _I, *[_L] * 4, *[_I] * 6, _P, _P],
+        "halo_assemble": [_P, _I, *[_L] * 4, *[_I] * 6, _P, _P],
+        "halo_fold": [_P, _I, *[_L] * 4, *[_I] * 6, _P, _P],
     },
     "iswt_spec": {
         "spec_merge": [_P, _P, _P, _P, _P, _L, _I, _I, _I, *[_L] * 12, _I,

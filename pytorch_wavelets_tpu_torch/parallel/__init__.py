@@ -7,7 +7,8 @@ from pytorch_wavelets_tpu_torch.parallel.mesh import (  # noqa: F401
     spatial_placements,
 )
 from pytorch_wavelets_tpu_torch.parallel.halo import (  # noqa: F401
-    STAGED_BYTES, halo_exchange_1d, reset_staged_bytes,
+    EXCHANGES, STAGED_BYTES, halo_exchange_1d, reset_exchanges,
+    reset_staged_bytes,
 )
 from pytorch_wavelets_tpu_torch.parallel.sharded import (  # noqa: F401
     LAST_PATH, sharded_dtcwt2d, sharded_idtcwt2d,
@@ -15,5 +16,6 @@ from pytorch_wavelets_tpu_torch.parallel.sharded import (  # noqa: F401
 
 __all__ = ["make_mesh", "data_placements", "spatial_placements",
            "placements", "initialize_multihost", "halo_exchange_1d",
-           "STAGED_BYTES", "reset_staged_bytes", "sharded_dtcwt2d",
+           "STAGED_BYTES", "reset_staged_bytes", "EXCHANGES",
+           "reset_exchanges", "sharded_dtcwt2d",
            "sharded_idtcwt2d", "LAST_PATH"]

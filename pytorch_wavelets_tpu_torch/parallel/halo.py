@@ -11,10 +11,11 @@ neighbour's across the ring ('wrap'), the tile's own edge flipped
 with a ``where`` after a full ring; here the edge links are not sent.
 
 The on-card passes are kernel K19 (``ops/halo.py``: pack, assemble,
-fold), the ring one ``torch.distributed.batch_isend_irecv`` of one
-contiguous buffer each way.  A group whose backend cannot send CUDA
-tensors (gloo) takes them through pinned host memory: an explicit branch
-on the group's backend, counted in :data:`STAGED_BYTES`.  The exchange
+fold; one launch each for all the parts of an exchange), the ring one
+``torch.distributed.batch_isend_irecv`` of one contiguous buffer each
+way (counted in :data:`EXCHANGES`).  A group whose backend cannot send
+CUDA tensors (gloo) takes them through pinned host memory: an explicit
+branch on the group's backend, counted in :data:`STAGED_BYTES`.  The exchange
 is an autograd Function whose backward is its adjoint (the halo
 cotangents go back to the ranks that sent them and add into the edges
 they came from, K19's fold), and whose backward's backward is the
@@ -33,17 +34,25 @@ from pytorch_wavelets_tpu_torch.ops.halo import (
 )
 
 __all__ = ["halo_exchange_1d", "halo_window", "STAGED_BYTES",
-           "reset_staged_bytes"]
+           "reset_staged_bytes", "EXCHANGES", "reset_exchanges"]
 
 # bytes copied between the card and pinned host memory for gloo groups:
 # device to host and host to device
 STAGED_BYTES = {"d2h": 0, "h2d": 0}
+# exchanges run (the windows' and their adjoints') and the parts they
+# carried: each is one K19 pack and one assemble or fold
+EXCHANGES = {"forward": 0, "adjoint": 0, "forward_parts": 0,
+             "adjoint_parts": 0}
 
 _BOUNDARY_SRC = {"wrap": "recv", "symmetric": "flip", "zero": "zero"}
 
 
 def reset_staged_bytes() -> None:
     STAGED_BYTES["d2h"] = STAGED_BYTES["h2d"] = 0
+
+
+def reset_exchanges() -> None:
+    EXCHANGES.update(dict.fromkeys(EXCHANGES, 0))
 
 
 def stages_through_host(group, t) -> bool:
@@ -137,25 +146,15 @@ class _Spec(NamedTuple):
 
 def _swap(ring, parts, axis, tail, head, from_l, from_r):
     """One ring step for all ``parts``: each part's last ``tail`` and
-    first ``head`` samples packed (K19) into one buffer, sent right and
-    left; returns per part its (``from_l``-wide block from the left
-    neighbour, ``from_r``-wide block from the right one)."""
-    per = [p.numel() // p.shape[axis] for p in parts]
-    n = sum(per)
+    first ``head`` samples packed (one K19 launch) into one buffer, sent
+    right and left; returns the received (``from_l``-wide blocks from the
+    left neighbour, ``from_r``-wide blocks from the right one), each
+    part's block back to back."""
+    n = parts[0].numel() // parts[0].shape[axis] * len(parts)
     send = parts[0].new_empty(n * (tail + head))
-    o = 0
-    for p, k in zip(parts, per):
-        halo_pack(p, axis, tail, head, send[o * tail:(o + k) * tail],
-                  send[n * tail + o * head:n * tail + (o + k) * head])
-        o += k
+    halo_pack(parts, axis, tail, head, send[:n * tail], send[n * tail:])
     recv = _exchange(ring, send, n * tail, n * head, n * from_l, n * from_r)
-    lefts, rights = recv[:n * from_l], recv[n * from_l:]
-    out, o = [], 0
-    for k in per:
-        out.append((lefts[o * from_l:(o + k) * from_l],
-                    rights[o * from_r:(o + k) * from_r]))
-        o += k
-    return out
+    return recv[:n * from_l], recv[n * from_l:]
 
 
 def _live(ring, k_left, k_right):
@@ -167,28 +166,25 @@ def _live(ring, k_left, k_right):
 def _window(spec: _Spec, parts):
     """Every part's (left + tile + right) window, concatenated along the
     axis: each tile's last ``left`` samples go right, its first ``right``
-    left, and come back as the neighbours' halos."""
+    left, and come back as the neighbours' halos (one pack, one
+    assemble)."""
     ring, axis, left, right = spec
     heads, tails = _live(ring, right, left)
     from_l, from_r = _live(ring, left, right)
-    halos = _swap(ring, parts, axis, tails, heads, from_l, from_r)
+    recv_l, recv_r = _swap(ring, parts, axis, tails, heads, from_l, from_r)
     shape = list(parts[0].shape)
     shape[axis] = sum(p.shape[axis] + left + right for p in parts)
-    out = parts[0].new_empty(shape)
-    ofs = 0
-    for p, (recv_l, recv_r) in zip(parts, halos):
-        w = p.shape[axis] + left + right
-        halo_assemble(p, axis, left, right, ring.lsrc, ring.rsrc, recv_l,
-                      recv_r, out.narrow(axis, ofs, w))
-        ofs += w
-    return out
+    EXCHANGES["forward"] += 1
+    EXCHANGES["forward_parts"] += len(parts)
+    return halo_assemble(parts, axis, left, right, ring.lsrc, ring.rsrc,
+                         recv_l, recv_r, parts[0].new_empty(shape))
 
 
 def _window_adjoint(spec: _Spec, shapes, gw):
     """The tiles' cotangents from the window cotangent ``gw``: each halo's
     cotangent goes back to the rank it came from (the right halo's right,
     the left halo's left) and is added into the edge it was taken from
-    (K19's fold)."""
+    (one pack, one K19 fold)."""
     ring, axis, left, right = spec
     heads, tails = _live(ring, left, right)
     from_l, from_r = _live(ring, right, left)
@@ -197,9 +193,11 @@ def _window_adjoint(spec: _Spec, shapes, gw):
         w = s[axis] + left + right
         parts.append(gw.narrow(axis, ofs, w))
         ofs += w
-    halos = _swap(ring, parts, axis, tails, heads, from_l, from_r)
-    return tuple(halo_fold(g, axis, left, right, ring.lsrc, ring.rsrc, fl,
-                           fr) for g, (fl, fr) in zip(parts, halos))
+    fl, fr = _swap(ring, parts, axis, tails, heads, from_l, from_r)
+    EXCHANGES["adjoint"] += 1
+    EXCHANGES["adjoint_parts"] += len(parts)
+    return halo_fold(gw, axis, left, right, ring.lsrc, ring.rsrc, fl, fr,
+                     [s[axis] for s in shapes])
 
 
 class _HaloExchange(torch.autograd.Function):

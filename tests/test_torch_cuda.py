@@ -2780,6 +2780,154 @@ def test_halo_kernels(dev, dtype, axis, view, left, right):
     assert [a - b for a, b in zip(after, before)] == [1, 3, 3]
 
 
+_HALO_SOURCES = [("recv", "recv"), ("flip", "zero"), ("zero", "flip"),
+                 ("flip", "recv")]
+
+
+def _halo_view(base, kind):
+    """chip_smoke.py:_k19_views: contiguous, every other row, one column
+    short (an odd length along W), transposed, a strided slice along W,
+    an element offset along W."""
+    return {"contiguous": base, "rows": base[:, :, ::2],
+            "narrow": base[..., :-1], "transposed": base.transpose(2, 3),
+            "strided": base[..., ::2], "offset": base[..., 1:]}[kind]
+
+
+def _halo_window(like, axis, width, win, fill):
+    """A ``width``-long window for tile ``like`` along ``axis``, laid out
+    as ``win`` names: "lines" a slice of a wider tensor whose rows are
+    whole 16-sample lines, "off" such a slice one sample along W into
+    it, "h_inner" a tensor with H innermost."""
+    shape = list(like.shape)
+    shape[axis] = width
+    if win == "h_inner":
+        return torch.full((*shape[:2], shape[3], shape[2]), fill,
+                          dtype=like.dtype, device=like.device).transpose(2, 3)
+    offset = int(win == "off")
+    wide = list(shape)
+    wide[3] = -(-(wide[3] + offset) // 16) * 16
+    return torch.full(wide, fill, dtype=like.dtype, device=like.device) \
+        .narrow(3, offset, shape[3])
+
+
+def _halo_walk_delta(kernel, before):
+    return {k: n - before[k] for k, n in kernel.instantiations.items()
+            if n != before[k]}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("axis", [2, 3])
+@pytest.mark.parametrize("kind,W,win,walk", [
+    ("contiguous", 16, "lines", "vector"), ("rows", 16, "lines", "vector"),
+    ("narrow", 16, "lines", "vector"), ("offset", 16, "lines", "vector"),
+    ("contiguous", 16, "off", "vector"), ("contiguous", 7, "lines",
+                                          "vector"),
+    ("transposed", 16, "lines", "strided"), ("strided", 16, "lines",
+                                             "strided"),
+    ("contiguous", 16, "h_inner", "strided")])
+@pytest.mark.parametrize("left,right", [(3, 5), (5, 2), (0, 6)])
+def test_halo_walks(dev, dtype, axis, kind, W, win, walk, left, right):
+    """K19's entries take the walk ``ops/halo.py:halo_walk`` names and
+    equal their plain versions bit for bit on it: the vector walk on
+    tiles and windows at unit stride along W wherever their rows start
+    (odd lengths along H and W, halo widths off the multiples of 4, a
+    tile at an element offset, rows of 7 samples, a window one sample off
+    the 16-byte lines: heads stored alone), the strided walk on
+    transposed and strided-slice tiles and on windows with H innermost;
+    every halo source."""
+    from pytorch_wavelets_tpu_torch.ops import halo
+    base = torch.from_numpy(_rand((2, 3, 11, W), 9)).to(dtype).to(dev)
+    x = _halo_view(base, kind)
+    L = x.shape[axis]
+    assert max(left, right) <= L
+    per = x.numel() // L
+    w = left + L + right
+    k = (halo.halo_pack, halo.halo_assemble, halo.halo_fold)
+    before = [dict(e.instantiations) for e in k]
+    tail, head = x.new_empty(per * left), x.new_empty(per * right)
+    pt, ph = tail.clone(), head.clone()
+    halo.halo_pack(x, axis, left, right, tail, head)
+    halo.halo_pack_plain(x, axis, left, right, pt, ph)
+    assert torch.equal(tail, pt) and torch.equal(head, ph)
+    tile_walk = halo.halo_walk(x)
+    assert tile_walk == ("vector" if win == "h_inner" else walk)
+    assert _halo_walk_delta(k[0], before[0]) == {tile_walk: 1}
+    recv_l = torch.from_numpy(_rand((per * left,), 10)).to(dtype).to(dev)
+    recv_r = torch.from_numpy(_rand((per * right,), 11)).to(dtype).to(dev)
+    for lsrc, rsrc in _HALO_SOURCES:
+        out = _halo_window(x, axis, w, win, float("nan"))
+        pout = out.clone()
+        halo.halo_assemble(x, axis, left, right, lsrc, rsrc, recv_l, recv_r,
+                           out)
+        halo.halo_assemble_plain(x, axis, left, right, lsrc, rsrc, recv_l,
+                                 recv_r, pout)
+        assert torch.equal(out, pout)
+        assert halo.halo_walk(x, out) == walk
+        gw = _halo_window(x, axis, w, win, 0.0)
+        gw.copy_(torch.from_numpy(_rand(tuple(gw.shape), 12)).to(dtype))
+        assert torch.equal(
+            halo.halo_fold(gw, axis, left, right, lsrc, rsrc, recv_r, recv_l),
+            halo.halo_fold_plain(gw, axis, left, right, lsrc, rsrc, recv_r,
+                                 recv_l))
+        fold_walk = "strided" if win == "h_inner" else "vector"
+        assert halo.halo_walk(gw) == fold_walk
+    assert _halo_walk_delta(k[1], before[1]) == {walk: 4}
+    assert _halo_walk_delta(k[2], before[2]) == {fold_walk: 4}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("axis", [2, 3])
+@pytest.mark.parametrize("nparts", [2, 10])
+def test_halo_multi_part(dev, dtype, axis, nparts):
+    """One call over several parts (tiles of one shape but along the
+    axis; their blocks back to back, their windows side by side) is one
+    launch for every 8 parts, on the vector walk, and equals the plain
+    versions bit for bit."""
+    from pytorch_wavelets_tpu_torch.ops import halo
+    left, right = 3, 5
+    lengths = [8 + 8 * (i % 3) for i in range(nparts)]
+    parts = []
+    for i, L in enumerate(lengths):
+        shape = [2, 3, 7, 16]
+        shape[axis] = L
+        parts.append(torch.from_numpy(_rand(shape, 20 + i)).to(dtype)
+                     .to(dev))
+    per = parts[0].numel() // parts[0].shape[axis]
+    n = per * nparts
+    launches = -(-nparts // 8)
+    k = (halo.halo_pack, halo.halo_assemble, halo.halo_fold)
+    before = [e.launches for e in k]
+    vec = [e.instantiations["vector"] for e in k]
+    tail, head = parts[0].new_empty(n * left), parts[0].new_empty(n * right)
+    pt, ph = tail.clone(), head.clone()
+    halo.halo_pack(parts, axis, left, right, tail, head)
+    halo.halo_pack_plain(parts, axis, left, right, pt, ph)
+    assert torch.equal(tail, pt) and torch.equal(head, ph)
+    recv_l = torch.from_numpy(_rand((n * left,), 1)).to(dtype).to(dev)
+    recv_r = torch.from_numpy(_rand((n * right,), 2)).to(dtype).to(dev)
+    shape = list(parts[0].shape)
+    shape[axis] = sum(lengths) + nparts * (left + right)
+    for lsrc, rsrc in _HALO_SOURCES[:2]:
+        win = torch.full(shape, float("nan"), dtype=dtype, device=dev)
+        pwin = win.clone()
+        halo.halo_assemble(parts, axis, left, right, lsrc, rsrc, recv_l,
+                           recv_r, win)
+        halo.halo_assemble_plain(parts, axis, left, right, lsrc, rsrc,
+                                 recv_l, recv_r, pwin)
+        assert torch.equal(win, pwin)
+        gw = torch.from_numpy(_rand(shape, 3)).to(dtype).to(dev)
+        got = halo.halo_fold(gw, axis, left, right, lsrc, rsrc, recv_r,
+                             recv_l, lengths)
+        want = halo.halo_fold_plain(gw, axis, left, right, lsrc, rsrc,
+                                    recv_r, recv_l, lengths)
+        assert len(got) == nparts
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert [e.launches - b for e, b in zip(k, before)] == \
+        [launches, 2 * launches, 2 * launches]
+    assert [e.instantiations["vector"] - v for e, v in zip(k, vec)] == \
+        [launches, 2 * launches, 2 * launches]
+
+
 def test_scat_third_order_on_card(dev):
     """A third-order directional derivative of sum(Z^3) through
     ScatLayerj2 on the card (K18 inside a Function whose backward runs K5

@@ -3,15 +3,16 @@
 K6 (dwt_afb), K7 (dwt_sfb), K8 (dtcwt_filt), K9 (dtcwt_dfilt), K10
 (dtcwt_ifilt), K11 (avg_pool2 and its adjoint), K12
 (swt_afb and its adjoint), K14 (nonsep_afb and its adjoint), K15
-(nonsep_sfb and its adjoint), K13 (spec_merge and spec_split) and K16
-(swt_sfb and its adjoint) on one CUDA card at the shapes of
-chip_smoke.py's DTCWT, scattering, DWT, per-level, SWT, non-separable and
-à trous paths, each call checked against its plain version.  K13 is also
-timed with the irfft that follows it.
+(nonsep_sfb and its adjoint), K13 (spec_merge and spec_split), K16
+(swt_sfb and its adjoint) and K19 (halo_pack, halo_assemble, halo_fold)
+on one CUDA card at the shapes of chip_smoke.py's DTCWT, scattering,
+DWT, per-level, SWT, non-separable, à trous and sharded paths, each call
+checked against its plain version.  K13 is also timed with the irfft
+that follows it.
 
     python3 tools/stencil_probe.py [--root DIR] [--merge-tile-out N]
                                    [--only k2|k3|k4|k5|k6|k7|k8|k9|k10|
-                                    k11|k12|k13|k14|k15|k16 ...]
+                                    k11|k12|k13|k14|k15|k16|k19 ...]
                                    [--sass q2c_pack iswt_spec ...]
 
 ``--root`` imports ``pytorch_wavelets_tpu_torch`` from another checkout
@@ -811,13 +812,113 @@ def run_k15(nonsep, filters):
         del c, y, g, dc, want
 
 
+K19_CASES = (   # (label, tile, axis, dtype): chip_smoke.py's K19 tiles
+    ("main 10x10x128x64 W", (10, 10, 128, 64), 3, torch.float32),
+    ("large 128x3x256x128 W", (128, 3, 256, 128), 3, torch.float32),
+    ("large 128x3x128x256 H", (128, 3, 128, 256), 2, torch.float32),
+    ("large 128x3x256x128 W bf16", (128, 3, 256, 128), 3, torch.bfloat16))
+
+
+def run_k19(halo, left=10, right=10):
+    """K19's pack, assemble and fold (an interior rank's: halos received
+    on both sides) at chip_smoke.py's tiles, each against its plain
+    version (exact) and beside torch.cat of the same buffer; where the
+    package takes several parts a call, also the two-part exchange of a
+    [lo | hi] merge (each half a tile) against two one-part calls."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for label, tile, axis, dtype in K19_CASES:
+        x = torch.randn(tile, generator=gen, device="cuda").to(dtype)
+        L = x.shape[axis]
+        per = x.numel() // L
+        tail, head = x.new_empty(per * left), x.new_empty(per * right)
+        rl = torch.randn(per * left, generator=gen, device="cuda").to(dtype)
+        rr = torch.randn(per * right, generator=gen, device="cuda").to(dtype)
+        shape = list(tile)
+        shape[axis] = left + L + right
+        win = x.new_empty(shape)
+        gw = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        blk_l, blk_r = list(tile), list(tile)
+        blk_l[axis], blk_r[axis] = left, right
+        calls = {
+            "halo_pack": (
+                lambda: halo.halo_pack(x, axis, left, right, tail, head),
+                lambda: torch.cat([x.narrow(axis, L - left, left)
+                                   .reshape(-1),
+                                   x.narrow(axis, 0, right).reshape(-1)])),
+            "halo_assemble": (
+                lambda: halo.halo_assemble(x, axis, left, right, "recv",
+                                           "recv", rl, rr, win),
+                lambda: torch.cat([rl.view(blk_l), x, rr.view(blk_r)],
+                                  dim=axis)),
+            "halo_fold": (
+                lambda: halo.halo_fold(gw, axis, left, right, "recv", "recv",
+                                       rr, rl), None)}
+        for name, (kern, lib) in calls.items():
+            kern()
+            ok = True
+            if name == "halo_assemble":
+                ok = torch.equal(win, lib())
+            elif name == "halo_fold":
+                ok = torch.equal(kern(), halo.halo_fold_plain(
+                    gw, axis, left, right, "recv", "recv", rr, rl))
+            else:
+                ok = torch.equal(torch.cat([tail, head]), lib())
+            nbytes = x.element_size() * per * (
+                2 * (left + right) if name == "halo_pack"
+                else 2 * (L + left + right))
+            ms = timed_ms(kern)
+            print(json.dumps({
+                "kernel": "k19", "entry": name, "case": label, "ok": ok,
+                "ms": ms, "bound_ms": nbytes / 3.35e12 * 1e3,
+                "share_of_bound": nbytes / 3.35e12 * 1e3 / ms,
+                "torch_cat_ms": None if lib is None else timed_ms(lib)}),
+                flush=True)
+        del x, win, gw
+    if not hasattr(halo, "part_groups"):
+        return
+    # a two-part exchange on the main tile: one launch against two
+    lo, hi = (torch.randn((10, 10, 128, 32), generator=gen, device="cuda")
+              for _ in range(2))
+    per = lo.numel() // 32
+    send = lo.new_empty(2 * per * (left + right))
+    rl = torch.randn(2 * per * left, generator=gen, device="cuda")
+    rr = torch.randn(2 * per * right, generator=gen, device="cuda")
+    win = lo.new_empty((10, 10, 128, 2 * (32 + left + right)))
+    w0, w1 = win.narrow(3, 0, 32 + left + right), win.narrow(
+        3, 32 + left + right, 32 + left + right)
+    for name, one, two in (
+            ("halo_pack",
+             lambda: halo.halo_pack([lo, hi], 3, left, right,
+                                    send[:2 * per * left],
+                                    send[2 * per * left:]),
+             lambda: (halo.halo_pack(lo, 3, left, right, send[:per * left],
+                                     send[per * left:2 * per * left]),
+                      halo.halo_pack(hi, 3, left, right,
+                                     send[2 * per * left:
+                                          2 * per * left + per * right],
+                                     send[2 * per * left + per * right:]))),
+            ("halo_assemble",
+             lambda: halo.halo_assemble([lo, hi], 3, left, right, "recv",
+                                        "recv", rl, rr, win),
+             lambda: (halo.halo_assemble(lo, 3, left, right, "recv", "recv",
+                                         rl[:per * left], rr[:per * right],
+                                         w0),
+                      halo.halo_assemble(hi, 3, left, right, "recv", "recv",
+                                         rl[per * left:], rr[per * right:],
+                                         w1)))):
+        print(json.dumps({"kernel": "k19", "entry": name,
+                          "case": "two parts 10x10x128x32 W",
+                          "one_launch_ms": timed_ms(one),
+                          "two_launches_ms": timed_ms(two)}), flush=True)
+
+
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--root", default=None)
     p.add_argument("--only", nargs="+", choices=("k2", "k3", "k4", "k5",
                                                  "k6", "k7", "k8", "k9",
                                                  "k10", "k11", "k12", "k13",
-                                                 "k14", "k15", "k16"),
+                                                 "k14", "k15", "k16", "k19"),
                    default=None)
     p.add_argument("--merge-tile-out", type=int, default=None)
     p.add_argument("--sass", nargs="+", default=(),
@@ -834,8 +935,8 @@ def main():
     import pytorch_wavelets_tpu_torch as tt
     from pytorch_wavelets_tpu_torch import filters
     from pytorch_wavelets_tpu_torch.ops import (
-        _cuda, afb_sfb, dtcwt_fb, fused_dtcwt, iswt_merge, nonsep, pool,
-        quad, scat_mag,
+        _cuda, afb_sfb, dtcwt_fb, fused_dtcwt, halo, iswt_merge, nonsep,
+        pool, quad, scat_mag,
     )
     from pytorch_wavelets_tpu_torch.transforms import dtcwt as lev
     from pytorch_wavelets_tpu_torch.transforms import scatternet
@@ -859,7 +960,8 @@ def main():
             "k12": lambda: run_k12(afb_sfb, filters),
             "k14": lambda: run_k14(nonsep, filters),
             "k15": lambda: run_k15(nonsep, filters),
-            "k16": lambda: run_k16(afb_sfb, filters)}
+            "k16": lambda: run_k16(afb_sfb, filters),
+            "k19": lambda: run_k19(halo)}
     for name in args.sass:
         sass_counts(_cuda, name)
     with torch.no_grad():
