@@ -4726,7 +4726,7 @@ SHARDED_WORLDS = {
         ("main (1, 2, 2)", (1, 2, 2), MAIN_SHAPE, 2),
         ("banded (1, 4)", (1, 1, 4), BANDED_SHAPE, 3)]}
 SHARDED_TOL = {"forward": 1e-5, "inverse": 2e-5, "x_grad": 2e-5}
-SHARDED_DEADLINE = 240        # seconds a world may take, its start included
+SHARDED_DEADLINE = 480        # seconds a world may take, its start included
 SHARDED_REPS = 5
 SHARDED_LABEL = "gloo, one card, host-staged halos"
 HALO_KERNELS = ("halo_pack", "halo_assemble", "halo_fold")
@@ -4760,9 +4760,7 @@ def sharded_case(tt, ops, parallel, label, mesh_shape, shape, J):
     """One mesh on this rank: the counted forward, inverse and gradient
     of <rec, G0> + <yl, G1> + sum_j <yh_j, G2+j> through DTCWTForward /
     DTCWTInverse with ``mesh=``, against the port without a mesh on the
-    card (this rank's chunks; x.grad outside the rank's chunk must be 0),
-    and the round trip and the step timed on the host clock."""
-    import torch.distributed as dist
+    card (:func:`sharded_run`)."""
     nd, nh, ns = mesh_shape
     mesh = parallel.make_mesh(nd, ns, nh)
     x = torch.randn(shape, generator=torch.Generator().manual_seed(0)).cuda()
@@ -4782,6 +4780,23 @@ def sharded_case(tt, ops, parallel, label, mesh_shape, shape, J):
         ylm, yhm = fwd(z)
         recm = inv((ylm, yhm))
         return [recm, ylm, *yhm]
+    return dict(label=label,
+                mesh=dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
+                shape=list(shape), J=J,
+                **sharded_run(ops, parallel, step, x, gs, [rec, yl, *yh],
+                              gref))
+
+
+def sharded_run(ops, parallel, step, x, gs, refs, gref):
+    """The counted run of ``step`` (a round trip returning [rec, *forward
+    leaves] as DTensors) and the gradient of sum_j <out_j, gs_j> on this
+    rank, held against ``refs`` / ``gref`` from the card's run without a
+    mesh (this rank's chunks; x.grad outside the rank's chunk must be
+    0), then the round trip and the step timed on the host clock (median
+    of SHARDED_REPS after a warm-up and a barrier).  Returns the launches,
+    K19's walks, the exchanges, the bytes staged, ``LAST_PATH``, the
+    errors and the times."""
+    import torch.distributed as dist
     dist.barrier()
     ops.reset_launches()
     parallel.reset_staged_bytes()
@@ -4797,14 +4812,13 @@ def sharded_case(tt, ops, parallel, label, mesh_shape, shape, J):
     exchanges = dict(parallel.EXCHANGES)
     staged = dict(parallel.STAGED_BYTES)
     path = dict(parallel.LAST_PATH)
-    refs = [rec, yl, *yh]
     err_fwd = max(max_err(t.to_local(), _dt_chunk(r, t))
                   for t, r in zip(outs[1:], refs[1:]))
     err_inv = max_err(outs[0].to_local(), _dt_chunk(refs[0], outs[0]))
     mask = torch.zeros_like(gm)
     _dt_chunk(mask, outs[0]).fill_(1.0)       # x is placed as rec
     err_grad = max_err(gm, gref * mask)
-    del outs, gm, xs
+    del outs, gm, xs, mask
 
     def timed(fn):
         fn()
@@ -4826,22 +4840,21 @@ def sharded_case(tt, ops, parallel, label, mesh_shape, shape, J):
         o = step(z)
         torch.autograd.grad(sum((t.to_local() * _dt_chunk(g, t)).sum()
                                 for t, g in zip(o, gs)), z)
-    step_ms = timed(train)
     return dict(
-        label=label, mesh=dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
-        shape=list(shape), J=J, path=path, launches=counts,
+        path=path, launches=counts,
         k1_launches=counts.get("apply_row", 0) + counts.get("apply_col", 0),
         k19_launches={k: counts.get(k, 0) for k in HALO_KERNELS},
         k19_walks=walks, exchanges=exchanges, staged_bytes=staged,
         max_abs_err={"forward": err_fwd, "inverse": err_inv,
                      "x_grad": err_grad},
-        round_trip_ms=rt_ms, step_ms=step_ms)
+        round_trip_ms=rt_ms, step_ms=timed(train))
 
 
-def sharded_worker(rank, world, store, out_dir, cases):
+def sharded_worker(rank, world, store, out_dir, cases, dwt_cases):
     """One rank of a gloo world on the card (every rank on cuda:0, the
-    halos through pinned host memory): its cases' results to
-    ``out_dir/rank<r>.json``; any failure exits non-zero."""
+    halos through pinned host memory): its DTCWT cases' and its DWT / SWT
+    cases' results to ``out_dir/rank<r>.json``; any failure exits
+    non-zero."""
     import os
     import traceback
     try:
@@ -4853,7 +4866,12 @@ def sharded_worker(rank, world, store, out_dir, cases):
                                 rank=rank, world_size=world)
         import pytorch_wavelets_tpu_torch as tt
         from pytorch_wavelets_tpu_torch import ops, parallel
-        res = [sharded_case(tt, ops, parallel, *case) for case in cases]
+        from pytorch_wavelets_tpu_torch.ops import afb_sfb, banded
+        from pytorch_wavelets_tpu_torch.transforms import dwt
+        res = {"dtcwt": [sharded_case(tt, ops, parallel, *case)
+                         for case in cases],
+               "dwt": [sharded_dwt_case(tt, ops, parallel, banded, afb_sfb,
+                                        dwt, *case) for case in dwt_cases]}
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(res, f)
         dist.barrier()
@@ -4864,10 +4882,10 @@ def sharded_worker(rank, world, store, out_dir, cases):
         os._exit(1)
 
 
-def sharded_world(world, cases):
-    """Run ``cases`` in a world of ``world`` processes, joined with
-    SHARDED_DEADLINE; a failing or hung rank fails the phase.  Returns
-    the ranks' results."""
+def sharded_world(world, cases, dwt_cases):
+    """Run ``cases`` and ``dwt_cases`` in a world of ``world`` processes,
+    joined with SHARDED_DEADLINE; a failing or hung rank fails the phase.
+    Returns the ranks' results."""
     import multiprocessing as mp
     import os
     import tempfile
@@ -4875,7 +4893,7 @@ def sharded_world(world, cases):
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=sharded_worker,
                          args=(r, world, os.path.join(tmp, "store"), tmp,
-                               cases)) for r in range(world)]
+                               cases, dwt_cases)) for r in range(world)]
     for p in procs:
         p.start()
     end = time.monotonic() + SHARDED_DEADLINE
@@ -4915,6 +4933,441 @@ def k19_exchange_gates(label, r, res):
                 f"off the vector walk {strided}")
 
 
+# ---------------------------------------------------------------------------
+# the sharded DWT, 1-D DWT and SWT (parallel/sharded_dwt.py) in the same
+# worlds: the operator route (K19 and K1) and the conv halo route (K19 with
+# the windows' K6 / K7 or K12 / K16)
+# ---------------------------------------------------------------------------
+
+# (label, kind, (n_data, n_spatial_h, n_spatial), mode, route) per world:
+# kind 'dwt' (DWTForward J=3 db4 on DWT_SHAPE), 'swt' (SWTForward J=3 db4
+# on SWT_SHAPE) or 'dwt1d' (DWT1DForward J=3 db4 on DWT1D_SHARD_SHAPE); the
+# dwt1d cell's 65,536 samples are past the JAX sharded cap of 32,768
+SHARDED_DWT_WORLDS = {
+    2: [("dwt (1, 2)", "dwt", (1, 1, 2), "symmetric", "matmul"),
+        ("dwt (2, 1)", "dwt", (2, 1, 1), "symmetric", "matmul"),
+        ("dwt per (1, 2)", "dwt", (1, 1, 2), "periodization", "matmul"),
+        ("dwt per (1, 2) conv", "dwt", (1, 1, 2), "periodization", "conv"),
+        ("swt (1, 2)", "swt", (1, 1, 2), "periodization", "matmul"),
+        ("swt (2, 1)", "swt", (2, 1, 1), "periodization", "matmul"),
+        ("swt (1, 2) conv", "swt", (1, 1, 2), "periodization", "conv"),
+        ("dwt1d (1, 2)", "dwt1d", (1, 1, 2), "zero", "matmul")],
+    4: [("dwt (1, 4)", "dwt", (1, 1, 4), "symmetric", "matmul"),
+        ("dwt (1, 2, 2)", "dwt", (1, 2, 2), "symmetric", "matmul"),
+        ("swt (1, 4)", "swt", (1, 1, 4), "periodization", "matmul"),
+        ("swt (1, 2, 2)", "swt", (1, 2, 2), "periodization", "matmul"),
+        ("swt (1, 4) conv", "swt", (1, 1, 4), "periodization", "conv"),
+        ("dwt1d (1, 4)", "dwt1d", (1, 1, 4), "zero", "matmul")]}
+DWT1D_SHARD_SHAPE = (16, 8, 4096)
+SHARDED_DWT_J, SHARDED_DWT_WAVE = 3, "db4"
+SHARDED_DWT_ENTRIES = {"dwt": ("dwt2d", "idwt2d"),
+                       "dwt1d": ("dwt1d", "idwt1d"),
+                       "swt": ("swt2d", "iswt2d")}
+WINDOW_KERNELS = ("afb1d_window", "sfb1d_window", "afb1d_atrous_window",
+                  "sfb1d_atrous_window")
+
+
+def _dwt_kind(tt, kind, mode, mesh=None):
+    """The (forward, inverse) modules of a sharded_dwt case, without a
+    mesh where ``mesh`` is None."""
+    w, J = SHARDED_DWT_WAVE, SHARDED_DWT_J
+    cls = {"dwt": (tt.DWTForward, tt.DWTInverse),
+           "dwt1d": (tt.DWT1DForward, tt.DWT1DInverse),
+           "swt": (tt.SWTForward, tt.SWTInverse)}[kind]
+    return (cls[0](J=J, wave=w, mode=mode, mesh=mesh, device="cuda"),
+            cls[1](wave=w, mode=mode, mesh=mesh, device="cuda"))
+
+
+def _dwt_shape(kind):
+    return {"dwt": DWT_SHAPE, "swt": SWT_SHAPE,
+            "dwt1d": DWT1D_SHARD_SHAPE}[kind]
+
+
+def exact_dwt_round_trip(afb, dwt, x, mode):
+    """The 2-D DWT round trip without a mesh whose backward is the exact
+    transpose (``ops.afb2d`` / ``ops.sfb2d``: K6 / K7 forward, K14's /
+    K15's adjoints backward), as the sharded route's is: ``DWTForward``'s
+    backward is the reference's, the transpose only in 'zero' mode.
+    Returns [rec, yl, *yh]."""
+    dec = dwt.dec_filters(SHARDED_DWT_WAVE)
+    rec = dwt.rec_filters(SHARDED_DWT_WAVE)
+    ll, yh = x, []
+    for _ in range(SHARDED_DWT_J):
+        # the first pair along W, as transforms/dwt.py:dwt2d
+        y = afb.afb2d(ll, dec[2], dec[3], dec[0], dec[1], mode)
+        ll = y[:, :, 0]
+        yh.append(y[:, :, 1:])
+    r = ll
+    for h in yh[::-1]:
+        r = r[..., :h.shape[-2], :h.shape[-1]]
+        r = afb.sfb2d(r, h[:, :, 0], h[:, :, 1], h[:, :, 2], rec[2], rec[3],
+                      rec[0], rec[1], mode)
+    return [r, ll, *yh]
+
+
+def _leaves_of(kind, out, rec):
+    """[rec, *forward leaves] of a round trip."""
+    return [rec, *(out if kind == "swt" else [out[0], *out[1]])]
+
+
+def sharded_dwt_case(tt, ops, parallel, banded, afb, dwt, label, kind,
+                     mesh_shape, mode, route):
+    """One sharded DWT / SWT mesh on this rank: the counted round trip and
+    the gradient of <rec, G0> + sum_j <leaf_j, G1+j> through the modules
+    with ``mesh=`` on ``route`` ('matmul': ``set_operator_matmul(None)``,
+    'conv': ``(False)``), against the card's run without a mesh (this
+    rank's chunks, :func:`sharded_run`; the 2-D DWT's gradient against
+    :func:`exact_dwt_round_trip`)."""
+    nd, nh, ns = mesh_shape
+    mesh = parallel.make_mesh(nd, ns, nh)
+    shape = _dwt_shape(kind)
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(0)).cuda()
+    fwd_r, inv_r = _dwt_kind(tt, kind, mode)
+    fwd, inv = _dwt_kind(tt, kind, mode, mesh)
+    with torch.no_grad():
+        out_r = fwd_r(x)
+        refs = _leaves_of(kind, out_r, inv_r(out_r))
+    gs = [torch.randn(t.shape, generator=torch.Generator().manual_seed(1 + i))
+          .cuda() for i, t in enumerate(refs)]
+    xr = x.clone().requires_grad_()
+    if kind == "dwt":
+        trip = exact_dwt_round_trip(afb, dwt, xr, mode)
+    else:
+        out = fwd_r(xr)
+        trip = _leaves_of(kind, out, inv_r(out))
+    gref, = torch.autograd.grad(sum((t * g).sum() for t, g in zip(trip, gs)),
+                                xr)
+    del trip, xr
+
+    def step(z):
+        o = fwd(z)
+        return _leaves_of(kind, o, inv(o))
+    banded.set_operator_matmul(False if route == "conv" else None)
+    try:
+        res = sharded_run(ops, parallel, step, x, gs, refs, gref)
+    finally:
+        banded.set_operator_matmul(None)
+    res["path"] = {e: res["path"][e] for e in SHARDED_DWT_ENTRIES[kind]}
+    res["window_launches"] = {k: res["launches"].get(k, 0)
+                              for k in WINDOW_KERNELS}
+    return dict(label=label, kind=kind, mode=mode, route=route,
+                mesh=dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
+                shape=list(shape), J=SHARDED_DWT_J, wave=SHARDED_DWT_WAVE,
+                **res)
+
+
+def sharded_dwt_gates(label, r, res, nh, ns):
+    """One rank's checks of a sharded_dwt mesh: within SHARDED_TOL, the
+    route asked for, K1 on the operator route, K19 where a spatial axis
+    is sharded and on the conv route, the windows' kernels on the conv
+    route (K6 / K7 for the DWT, K12 / K16 for the SWT), one K19 launch an
+    exchange and pass."""
+    for what, tol in SHARDED_TOL.items():
+        require(res["max_abs_err"][what] <= tol,
+                f"sharded_dwt {label} rank {r}: {what} differs from the "
+                f"card's run without a mesh by {res['max_abs_err'][what]} "
+                f"(limit {tol})")
+    require(set(res["path"].values()) == {res["route"]},
+            f"sharded_dwt {label} rank {r}: path {res['path']}, route "
+            f"{res['route']}")
+    n19 = sum(res["k19_launches"].values())
+    win = res["window_launches"]
+    if res["route"] == "conv":
+        want = (("afb1d_window", "sfb1d_window") if res["kind"] == "dwt"
+                else ("afb1d_atrous_window", "sfb1d_atrous_window"))
+        require(n19 > 0 and all(win[k] > 0 for k in want),
+                f"sharded_dwt {label} rank {r}: K19 {res['k19_launches']} "
+                f"and windows {win} on the conv route")
+    else:
+        require(res["k1_launches"] > 0 and not any(win.values()),
+                f"sharded_dwt {label} rank {r}: K1 launches "
+                f"{res['k1_launches']}, windows {win}")
+        require(n19 > 0 if nh * ns > 1 else n19 == 0,
+                f"sharded_dwt {label} rank {r}: K19 launches "
+                f"{res['k19_launches']}")
+    k19_exchange_gates(label, r, res)
+
+
+def sharded_dwt_phase(smi, worlds, seconds):
+    """Emit the sharded_dwt phase of every world (every rank's results
+    gated by :func:`sharded_dwt_gates`); returns every kernel's launches
+    summed over every rank of every mesh."""
+    total = {}
+    for world, cases in SHARDED_DWT_WORLDS.items():
+        meshes = []
+        for i, (label, kind, (nd, nh, ns), mode, route) in enumerate(cases):
+            per_rank = [worlds[world][r]["dwt"][i] for r in range(world)]
+            for r, res in enumerate(per_rank):
+                sharded_dwt_gates(label, r, res, nh, ns)
+                for k, n in res["launches"].items():
+                    total[k] = total.get(k, 0) + n
+            meshes.append(dict(
+                label=label, kind=kind, mode=mode, route=route,
+                mesh=per_rank[0]["mesh"], shape=per_rank[0]["shape"],
+                J=SHARDED_DWT_J, wave=SHARDED_DWT_WAVE, ranks=per_rank,
+                max_abs_err={w: max(r["max_abs_err"][w] for r in per_rank)
+                             for w in SHARDED_TOL},
+                round_trip_ms=max(r["round_trip_ms"] for r in per_rank),
+                step_ms=max(r["step_ms"] for r in per_rank)))
+        emit("sharded_dwt", world=world, timing_label=SHARDED_LABEL,
+             nvidia_smi=smi, tolerance=SHARDED_TOL,
+             world_seconds_with_sharded_main=seconds[world], meshes=meshes)
+    emit("sharded_dwt_launches", launches=total)
+    return total
+
+
+# the windows' calls on the conv route's meshes of SHARDED_DWT_WORLDS, per
+# level: the tiles of a (1, n) mesh, and edge cases (a window as wide as
+# its halo, odd tiles along H); tolerance DWT_TOL
+WINDOW_REPLACES = {
+    "afb1d_window": "pytorch_wavelets_tpu/parallel/sharded.py:253",
+    "sfb1d_window": "pytorch_wavelets_tpu/parallel/sharded.py:296",
+    "afb1d_atrous_window": "pytorch_wavelets_tpu/parallel/sharded.py:1946",
+    "sfb1d_atrous_window": "pytorch_wavelets_tpu/parallel/sharded.py:1969"}
+WINDOW_SOURCES = {"afb1d_window": ("dwt_afb", "dwt_afb.cu"),
+                  "sfb1d_window": ("dwt_sfb", "dwt_sfb.cu"),
+                  "afb1d_atrous_window": ("swt_afb", "swt_atrous.cu"),
+                  "sfb1d_atrous_window": ("swt_sfb", "swt_atrous.cu")}
+
+
+def window_calls(afb, dwt, n_sp, shapes=None):
+    """The window applies of the conv route on a (1, n_sp) mesh: per
+    level, the DWT's K6 split of its (L - 1 - L/2, L/2 - 1)-halo'd W tile
+    and the adjoint merge (K7, s = 0), the inverse's K7 merge of its (lo,
+    hi) windows and the adjoint split (K6, front s), the SWT's K12 split
+    and K16 merge of their dilated windows: [(kernel, role, args)] on
+    random windows of the card, at the DWT_SHAPE / SWT_SHAPE tiles (or
+    ``shapes``: {'dwt': (N, C, H, W), 'swt': ...} for the edge cases)."""
+    shapes = shapes or {"dwt": DWT_SHAPE, "swt": SWT_SHAPE}
+    dec = dwt.dec_filters(SHARDED_DWT_WAVE)
+    rec = dwt.rec_filters(SHARDED_DWT_WAVE)
+    h = tuple(np.asarray(f, dtype=np.float64)[::-1].copy() for f in dec[:2])
+    g = tuple(np.asarray(f, dtype=np.float64) for f in rec[:2])
+    L = len(h[0])
+    L2 = L // 2
+    gen = torch.Generator().manual_seed(7)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen).cuda()
+    calls = []
+    N, C, H, W = shapes["dwt"]
+    w = W // n_sp
+    for j in range(SHARDED_DWT_J):
+        Hj, wj = -(-H // 2 ** j), w >> j
+        nw = wj + L - 1 - L2 + max(L2 - 1, 0)
+        m = (nw - L) // 2 + 1
+        calls.append(("afb1d_window", "split", (rnd(N, C, Hj, nw), *h, 3, 0,
+                                                m)))
+        calls.append(("sfb1d_window", "split's adjoint", (
+            rnd(N, C, Hj, m), rnd(N, C, Hj, m), *h, 3, 0, nw)))
+        hl, hr = (L2 + 1) // 2, L2 // 2
+        nwi = wj // 2 + hl + hr
+        win = rnd(N, C, Hj, 2 * nwi)
+        s = 2 * hl - L2 + L - 1
+        calls.append(("sfb1d_window", "merge", (
+            win.narrow(3, 0, nwi), win.narrow(3, nwi, nwi), *g, 3, s, wj)))
+        calls.append(("afb1d_window", "merge's adjoint", (
+            rnd(N, C, Hj, wj), *g, 3, s, nwi)))
+    N, C, H, W = shapes["swt"]
+    w = W // n_sp
+    for j in range(SHARDED_DWT_J):
+        d = 2 ** j
+        Ld2 = L * d // 2
+        calls.append(("afb1d_atrous_window", "split", (
+            rnd(N, C, H, w + 2 * Ld2 - d), *h, 3, d)))
+        front, back = Ld2, L * d - d - Ld2
+        win = rnd(N, C, H, 2 * (w + front + back))
+        nw = w + front + back
+        calls.append(("sfb1d_atrous_window", "merge", (
+            win.narrow(3, 0, nw), win.narrow(3, nw, nw), *g, 3, d)))
+    return calls
+
+
+def _window_parts(afb, call):
+    """(got, want, run, plain, lib, ops, bytes) of one window call: ``lib``
+    the one cuDNN call computing the same function (K6: ``F.conv2d``
+    stride 2, padding front, of the window; K7: ``F.conv_transpose2d``
+    stride 2, padding s, of (lo, hi) as two channels (each where its
+    length is the window's m);
+    K12: ``F.conv2d`` dilated; K16: ``F.conv2d`` dilated of (lo, hi) as
+    two channels, the halved taps)."""
+    import torch.nn.functional as F
+    name, _, args = call
+    fn = getattr(afb, name)
+    plain = getattr(afb, name + "_plain")
+    got = fn(*args)
+    want = plain(*args)
+    run = lambda: fn(*args)                                  # noqa: E731
+    plain_run = lambda: plain(*args)                         # noqa: E731
+    lib = None
+    if name == "afb1d_window":
+        x, h0, h1, axis, front, m = args
+        L = len(h0)
+        xin = x.reshape(-1, 1, *x.shape[2:])
+        wt = torch.tensor(np.stack([h0, h1]), dtype=torch.float32,
+                          device=x.device).view(2, 1, 1, L)
+        if (x.shape[3] + 2 * front - L) // 2 + 1 == m:
+            lib = lambda: F.conv2d(xin, wt, stride=(1, 2),   # noqa: E731
+                                   padding=(0, front))
+        nin = x.numel()
+    elif name == "sfb1d_window":
+        lo, hi, g0, g1, axis, s, m = args
+        L = len(g0)
+        N, C, H, n = lo.shape
+        xin = torch.stack([lo, hi], dim=2).reshape(N * C, 2, H, n)
+        wt = torch.tensor(np.stack([g0, g1]), dtype=torch.float32,
+                          device=lo.device).view(2, 1, 1, L)
+        if (n - 1) * 2 - 2 * s + L == m:
+            lib = lambda: F.conv_transpose2d(                # noqa: E731
+                xin, wt, stride=(1, 2), padding=(0, s))
+        nin = lo.numel() + hi.numel()
+    elif name == "afb1d_atrous_window":
+        x, h0, h1, axis, d = args
+        L = len(h0)
+        xin = x.reshape(-1, 1, *x.shape[2:])
+        wt = torch.tensor(np.stack([h0, h1]), dtype=torch.float32,
+                          device=x.device).view(2, 1, 1, L)
+        lib = lambda: F.conv2d(xin, wt, dilation=(1, d))     # noqa: E731
+        nin = x.numel()
+    else:
+        lo, hi, g0, g1, axis, d = args
+        L = len(g0)
+        N, C, H, n = lo.shape
+        xin = torch.stack([lo, hi], dim=2).reshape(N * C, 2, H, n)
+        wt = 0.5 * torch.tensor(np.stack([g0[::-1], g1[::-1]]).copy(),
+                                dtype=torch.float32,
+                                device=lo.device).view(1, 2, 1, L)
+        lib = lambda: F.conv2d(xin, wt, dilation=(1, d))     # noqa: E731
+        nin = lo.numel() + hi.numel()
+    if lib is not None:   # the yardstick computes the same function
+        ref = lib().reshape(want.shape)
+        require(torch.allclose(ref, want, **DWT_TOL),
+                f"{name}: the library yardstick differs from the plain "
+                f"version")
+    # multiply-adds an output: L (K16's merge: L of lo and L of hi)
+    ops_ = 2.0 * L * got.numel() * (2 if name == "sfb1d_atrous_window"
+                                    else 1)
+    nbytes = 4.0 * (nin + got.numel())
+    return got, want, run, plain_run, lib, ops_, nbytes
+
+
+def window_rows(afb, dwt, launches, timing=LARGE_REPLAY_TIMING):
+    """The window applies' kernel rows: each call of :func:`window_calls`
+    on the (1, 2) conv route's tiles checked against its plain version
+    (DWT_TOL) and timed beside it and its library call; ``launches`` the
+    windows' launches on the sharded_dwt meshes (every rank)."""
+    agg = {}
+    for call in window_calls(afb, dwt, 2):
+        got, want, run, plain, lib, ops_, nbytes = _window_parts(afb, call)
+        err = max_err(got, want)
+        require(within(got, want, DWT_TOL),
+                f"{call[0]} ({call[1]}): differs from its plain version by "
+                f"{err}")
+        a = agg.setdefault(call[0], dict(err=0.0, ms=0.0, plain=0.0,
+                                         lib=0.0, haslib=True, op=0.0,
+                                         byte=0.0, per_call=[]))
+        ms = timed_ms(run, *timing)
+        plain_ms = timed_ms(plain, *timing)
+        lib_ms = timed_ms(lib, *timing) if lib else None
+        bound = max(ops_ / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
+        a["err"] = max(a["err"], err)
+        a["ms"] += ms
+        a["plain"] += plain_ms
+        a["haslib"] &= lib_ms is not None
+        a["lib"] += lib_ms or 0.0
+        a["op"] += ops_ / PEAK_FP32_FLOPS * 1e3
+        a["byte"] += nbytes / PEAK_HBM_BYTES * 1e3
+        a["per_call"].append([f"{shape_str(call[2][0].shape)} {call[1]}", ms,
+                              plain_ms, lib_ms, bound])
+        del got, want
+    rows = []
+    for name, a in agg.items():
+        swt = "atrous" in name
+        rows.append({
+            "name": f"{WINDOW_SOURCES[name][0]} window plan (sharded "
+                    f"{'SWT' if swt else 'DWT'} conv route, "
+                    f"{shape_str(SWT_SHAPE if swt else DWT_SHAPE)} on "
+                    f"(1, 2))",
+            "route": "cuda",
+            "source": "pytorch_wavelets_tpu_torch/csrc/"
+                      f"{WINDOW_SOURCES[name][1]}",
+            "replaces": WINDOW_REPLACES[name],
+            "launches": launches.get(name, 0), "max_abs_err": a["err"],
+            "tolerance": DWT_TOL, "ms": a["ms"], "plain_ms": a["plain"],
+            "bound_ms": max(a["op"], a["byte"]),
+            "bound_by": "bytes" if a["byte"] >= a["op"] else "operations",
+            "library_ms": a["lib"] if a["haslib"] else None,
+            "per_call": a["per_call"]})
+    return rows
+
+
+def sharded_dwt_k1_rows(banded, sd, launches):
+    """K1 on rank 0's block of three operators the sharded_dwt meshes
+    apply on (1, 2): the DWT's level-0 split along W (zero-embedded,
+    'symmetric', DWT_SHAPE), the SWT's level-0 split and the ISWT's
+    level-0 averaging merge along W (circular, SWT_SHAPE), each over its
+    halo'd window, against its plain version and ``torch.matmul``.
+    ``launches`` are the sharded_dwt meshes' (every rank)."""
+    rev = sd._rev
+    dec = sd.dec_filters(SHARDED_DWT_WAVE)
+    rec = sd._iswt_synth_filters(SHARDED_DWT_WAVE)
+    W_d, W_s = DWT_SHAPE[3], SWT_SHAPE[3]
+    cases = (
+        ("DWT split, symmetric, level 0", DWT_SHAPE,
+         sd._dwt_mode_split_strategies(sd._dwt_taps(SHARDED_DWT_WAVE)[0],
+                                       "symmetric", W_d, 2,
+                                       SHARDED_DWT_J)[0][0]),
+        ("SWT split, periodization, level 0", SWT_SHAPE,
+         sd._swt_split_strategies((rev(dec[2]), rev(dec[3])), W_s, 2,
+                                  SHARDED_DWT_J)[0]),
+        ("ISWT averaging merge, periodization, level 0", SWT_SHAPE,
+         sd._swt_merge_strategies((sd._fwd(rec[2]), sd._fwd(rec[3])), W_s,
+                                  2, SHARDED_DWT_J)[0]))
+    gen = torch.Generator().manual_seed(5)
+    rows = []
+    for label, shape, strat in cases:
+        require(strat.kind == "shard", f"sharded_dwt_k1_rows: {label} is "
+                f"{strat.kind}")
+        B, _ = strat.obj.local(0, "cuda")
+        win = torch.randn((*shape[:3], B.shape[1]), generator=gen).cuda()
+        rows.append(k1_block_row(banded, f"{label} on (1, 2)", B, win,
+                                 launches, LARGE_REPLAY_TIMING))
+        del win
+    return rows
+
+
+def window_edge_cases(ops, afb, dwt):
+    """The window applies at edge cases against their plain versions
+    (DWT_TOL): small tiles (two samples at the deepest DWT level, whose
+    windows are mostly halo; SWT tiles narrower than the dilated halo of
+    d = 4) and odd heights, on 1, 2 and 4 'spatial' ranks' tiles.  Returns
+    (calls, max error, instantiations)."""
+    n, err = 0, 0.0
+    insts = {}
+    cases = [({"dwt": (2, 3, 9, 8), "swt": (2, 3, 7, 8)}, 1),
+             ({"dwt": (3, 2, 17, 16), "swt": (3, 2, 5, 64)}, 2),
+             ({"dwt": (1, 5, 33, 64), "swt": (1, 1, 31, 112)}, 4)]
+    for shapes, n_sp in cases:
+        for call in window_calls(afb, dwt, n_sp, shapes):
+            before = ops.instantiation_counts()
+            got, want = getattr(afb, call[0])(*call[2]), getattr(
+                afb, call[0] + "_plain")(*call[2])
+            after = ops.instantiation_counts()
+            e = max_err(got, want)
+            require(within(got, want, DWT_TOL),
+                    f"window_edge_cases {call[0]} ({call[1]}) on "
+                    f"{shape_str(call[2][0].shape)}: differs from its plain "
+                    f"version by {e}")
+            err = max(err, e)
+            n += 1
+            for k in WINDOW_KERNELS:
+                for w, c in after[k].items():
+                    if c != before[k][w]:
+                        insts.setdefault(k, {})
+                        insts[k][w] = insts[k].get(w, 0) + c - before[k][w]
+    return n, err, insts
+
+
 def sharded_main(smi):
     """Every world of SHARDED_WORLDS: per mesh, every rank's results within
     SHARDED_TOL of the card's run without a mesh, the composed route
@@ -4922,19 +5375,23 @@ def sharded_main(smi):
     a sharded spatial axis (none where no spatial axis is sharded), one
     K19 launch an exchange and pass (``k19_exchange_gates``).  Emits
     K19's launches, walks and exchanges summed over every rank of every
-    mesh beside the launches one a part would take.  Returns every
-    kernel's launches summed over every rank of every mesh, and K19's
-    launches an exchange."""
+    mesh beside the launches one a part would take.  The same worlds run
+    the sharded_dwt cases (:func:`sharded_dwt_phase` reads them).
+    Returns every kernel's launches summed over every rank of every
+    DTCWT mesh, K19's launches an exchange, the worlds' results by rank
+    and each world's seconds."""
     total = {}
     walks = {k: {} for k in HALO_KERNELS}
     exchanges = {}
+    worlds, world_s = {}, {}
     for world, cases in SHARDED_WORLDS.items():
         t0 = time.perf_counter()
-        ranks = sharded_world(world, cases)
-        seconds = time.perf_counter() - t0
+        ranks = worlds[world] = sharded_world(world, cases,
+                                              SHARDED_DWT_WORLDS[world])
+        seconds = world_s[world] = time.perf_counter() - t0
         meshes = []
         for i, (label, (nd, nh, ns), shape, J) in enumerate(cases):
-            per_rank = [ranks[r][i] for r in range(world)]
+            per_rank = [ranks[r]["dtcwt"][i] for r in range(world)]
             for r, res in enumerate(per_rank):
                 for what, tol in SHARDED_TOL.items():
                     require(res["max_abs_err"][what] <= tol,
@@ -4966,8 +5423,8 @@ def sharded_main(smi):
                 round_trip_ms=max(r["round_trip_ms"] for r in per_rank),
                 step_ms=max(r["step_ms"] for r in per_rank)))
         emit("sharded_main", world=world, timing_label=SHARDED_LABEL,
-             nvidia_smi=smi, tolerance=SHARDED_TOL, seconds=seconds,
-             meshes=meshes)
+             nvidia_smi=smi, tolerance=SHARDED_TOL,
+             seconds_with_sharded_dwt=seconds, meshes=meshes)
     emit("sharded_k19", launches={k: total.get(k, 0) for k in HALO_KERNELS},
          walks=walks, exchanges=exchanges,
          launches_one_a_part={
@@ -4976,7 +5433,7 @@ def sharded_main(smi):
              "halo_assemble": exchanges.get("forward_parts", 0),
              "halo_fold": exchanges.get("adjoint_parts", 0)},
          launches_per_exchange=k19_per_exchange(total, exchanges))
-    return total, k19_per_exchange(total, exchanges)
+    return total, k19_per_exchange(total, exchanges), worlds, world_s
 
 
 def k19_per_exchange(launches, exchanges):
@@ -5274,23 +5731,33 @@ def k19_rows(halo, banded, sharded, launches, per_exchange):
     gen = torch.Generator().manual_seed(3)
     B, _ = op.local(0, "cuda")
     win = torch.randn((*MAIN_SHAPE[:3], B.shape[1]), generator=gen).cuda()
+    rows.append(k1_block_row(banded, "DTCWT J=2 stage 1 on (1, 2)", B, win,
+                             launches))
+    return rows
+
+
+def k1_block_row(banded, label, B, win, launches, timing=REPLAY_TIMING):
+    """The kernel line of K1 (``apply_sharded_op``'s product) on a rank's
+    block ``B`` over its halo'd window ``win``, against its plain version
+    and ``torch.matmul``; ``launches`` the sharded runs' counts (K1's row
+    entry's, every row apply of those runs)."""
     got = banded.apply_row(win, B)
     want = banded.apply_row_plain(win, B)
     err = max_err(got, want)
-    require(within(got, want, K1_TOL), f"apply_sharded_op: K1 on rank 0's "
-            f"block differs from its plain version by {err}")
+    require(within(got, want, K1_TOL), f"apply_sharded_op ({label}): K1 on "
+            f"rank 0's block differs from its plain version by {err}")
     Bt = B.T.t().contiguous()
-    ms = timed_ms(lambda: banded.apply_row(win, B))
-    plain_ms = timed_ms(lambda: banded.apply_row_plain(win, B))
-    lib_ms = timed_ms(lambda: torch.matmul(win, Bt))
+    ms = timed_ms(lambda: banded.apply_row(win, B), *timing)
+    plain_ms = timed_ms(lambda: banded.apply_row_plain(win, B), *timing)
+    lib_ms = timed_ms(lambda: torch.matmul(win, Bt), *timing)
     rows_n = win.numel() // win.shape[3]
     op_t = 2 * B.nnz * rows_n / PEAK_FP32_FLOPS * 1e3
     byte_t = (win.numel() + rows_n * B.shape[0] + B.nnz) * 4 \
         / PEAK_HBM_BYTES * 1e3
-    rows.append({
+    return {
         "name": f"apply_sharded_op (K1 row on rank 0's block "
                 f"{B.shape[0]}x{B.shape[1]}, window "
-                f"{shape_str(win.shape)}: DTCWT J=2 stage 1 on (1, 2))",
+                f"{shape_str(win.shape)}: {label})",
         "route": "cuda", "source": "pytorch_wavelets_tpu_torch/csrc/"
                                    "banded_apply.cu",
         "replaces": "pytorch_wavelets_tpu/parallel/banded_shard.py:184",
@@ -5298,8 +5765,7 @@ def k19_rows(halo, banded, sharded, launches, per_exchange):
         "tolerance": K1_TOL, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(op_t, byte_t),
         "bound_by": "bytes" if byte_t >= op_t else "operations",
-        "library_ms": lib_ms, "library": "torch.matmul"})
-    return rows
+        "library_ms": lib_ms, "library": "torch.matmul"}
 
 
 def _k19_filters():
@@ -5309,10 +5775,14 @@ def _k19_filters():
     return dtcwt_fwd_filters("near_sym_a", "qshift_a")
 
 
-def nccl_world_of_one(tt, parallel):
+def nccl_world_of_one(tt, parallel, banded):
     """A world of one on NCCL and its (1, 1) mesh: DTCWTForward /
     DTCWTInverse with ``mesh=`` on the main path, bit for bit the path
-    without a mesh."""
+    without a mesh; the DWT (DWT_SHAPE) and SWT (SWT_SHAPE) round trips in
+    'periodization' on the conv halo route, bit for bit the path without
+    a mesh but the SWT's inverse (the sharded averaging merge against the
+    least-squares merge: within SHARDED_TOL), and on the operator route
+    (K1 products against the stencils: within SHARDED_TOL)."""
     import os
     import tempfile
 
@@ -5333,13 +5803,52 @@ def nccl_world_of_one(tt, parallel):
                  and all(torch.equal(a.to_local(), b)
                          for a, b in zip(yh, ryh))
                  and torch.equal(rec.to_local(), rrec))
+        del x, yl, yh, rec, ryl, ryh, rrec
+        dwt_swt = []
+        for kind, route in (("dwt", "conv"), ("swt", "conv"),
+                            ("dwt", "matmul"), ("swt", "matmul")):
+            x = torch.randn(_dwt_shape(kind), generator=torch.Generator()
+                            .manual_seed(0)).cuda()
+            fwd_r, inv_r = _dwt_kind(tt, kind, "periodization")
+            fwd, inv = _dwt_kind(tt, kind, "periodization", mesh)
+            with torch.no_grad():
+                out_r = fwd_r(x)
+                refs = _leaves_of(kind, out_r, inv_r(out_r))
+                banded.set_operator_matmul(False if route == "conv"
+                                           else None)
+                try:
+                    out = fwd(x)
+                    got = _leaves_of(kind, out, inv(out))
+                finally:
+                    banded.set_operator_matmul(None)
+            bits = {"forward": all(torch.equal(a.to_local(), b)
+                                   for a, b in zip(got[1:], refs[1:])),
+                    "inverse": torch.equal(got[0].to_local(), refs[0])}
+            errs = {"forward": max(max_err(a.to_local(), b)
+                                   for a, b in zip(got[1:], refs[1:])),
+                    "inverse": max_err(got[0].to_local(), refs[0])}
+            dwt_swt.append(dict(kind=kind, route=route, mode="periodization",
+                                shape=list(x.shape), bit_equal=bits,
+                                max_abs_err=errs))
+            del x, out_r, refs, out, got
         backend = dist.get_backend()
     finally:
         dist.destroy_process_group()
     require(equal, "sharded_nccl: the (1, 1) mesh differs from the path "
             "without a mesh")
+    for c in dwt_swt:
+        exact = ({"forward", "inverse"} if c["kind"] == "dwt" else
+                 {"forward"}) if c["route"] == "conv" else set()
+        for what in ("forward", "inverse"):
+            require(c["bit_equal"][what] if what in exact else
+                    c["max_abs_err"][what] <= SHARDED_TOL[what],
+                    f"sharded_nccl: {c['kind']} {what} on the {c['route']} "
+                    f"route of the (1, 1) mesh: bit equal "
+                    f"{c['bit_equal'][what]}, max error "
+                    f"{c['max_abs_err'][what]}")
     return dict(backend=backend, mesh=[1, 1], shape=list(MAIN_SHAPE),
-                bit_equal=equal, path=dict(parallel.LAST_PATH))
+                bit_equal=equal, path=dict(parallel.LAST_PATH),
+                dwt_swt=dwt_swt)
 
 
 
@@ -5679,16 +6188,25 @@ def main():
     # on this card), K19 at edge cases and timed, a NCCL world of one
     from pytorch_wavelets_tpu_torch import parallel
     from pytorch_wavelets_tpu_torch.ops import halo
-    from pytorch_wavelets_tpu_torch.parallel import sharded
-    launches, per_exchange = sharded_main(smi)
+    from pytorch_wavelets_tpu_torch.parallel import sharded, sharded_dwt
+    launches, per_exchange, worlds, world_s = sharded_main(smi)
+    dwt_launches = sharded_dwt_phase(smi, worlds, world_s)
+    del worlds
     n_edge, mismatches, walks, multi = halo_edge_cases(halo)
     emit("halo_edge_cases", calls=n_edge, mismatched_elements=mismatches,
          tolerance="exact", walks=walks, multi_part_calls=multi)
-    new = k19_rows(halo, banded, sharded, launches, per_exchange)
+    n_edge, edge_err, edge_insts = window_edge_cases(ops, afb_sfb, dwt)
+    emit("window_edge_cases", calls=n_edge, max_abs_err=edge_err,
+         tolerance=DWT_TOL, instantiations=edge_insts)
+    both = {k: launches.get(k, 0) + dwt_launches.get(k, 0)
+            for k in {*launches, *dwt_launches}}
+    new = k19_rows(halo, banded, sharded, both, per_exchange)
+    new += window_rows(afb_sfb, dwt, dwt_launches)
+    new += sharded_dwt_k1_rows(banded, sharded_dwt, dwt_launches)
     for row in new:
         emit("kernel", **row)
     rows.extend(new)
-    emit("sharded_nccl", **nccl_world_of_one(tt, parallel))
+    emit("sharded_nccl", **nccl_world_of_one(tt, parallel, banded))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 

@@ -5,15 +5,24 @@ Each module holds its pywt-ordered filter taps as float64 buffers on
 ``device``: 'cuda' (default; raises without CUDA), where the transform and
 its backward run the kernels (the DWT K6/K7; the SWT K12, and K1 with
 K13 for its inverse), or 'cpu' for the plain PyTorch path.  Inputs must
-be on that device.  ``mesh`` is not ported yet and raises.
+be on that device.  ``mesh`` (a ``DeviceMesh``, ``parallel.make_mesh``)
+runs the transform sharded on it (``parallel/sharded_dwt.py``: K19 and
+K1 on the operator route, K19 with K6/K7 or K12/K16 on the conv halo
+route); inputs and outputs are then DTensors, or full tensors on every
+rank going in.
 """
 from __future__ import annotations
 
+import torch
+
+from pytorch_wavelets_tpu_torch.filters import wavelet as _wavelet
 from pytorch_wavelets_tpu_torch.models._base import (
     _TapsModule, canon_dtype, cast_bands, upcast_bands,
 )
-import torch
-
+from pytorch_wavelets_tpu_torch.parallel.sharded_dwt import (
+    sharded_dwt1d, sharded_dwt2d, sharded_idwt1d, sharded_idwt2d,
+    sharded_iswt2d, sharded_swt2d,
+)
 from pytorch_wavelets_tpu_torch.transforms.dwt import (
     dec_filters, dwt1d, dwt2d, idwt1d, idwt2d, iswt2d, rec_filters, swt2d,
 )
@@ -28,6 +37,8 @@ _REC1 = ("g0", "g1")
 
 
 class _DWTModule(_TapsModule):
+    _SHARDED = True
+
     def __init__(self, names, taps, mode, device, mesh):
         super().__init__(zip(names, taps), device, mesh, None)
         self.mode = mode
@@ -62,7 +73,11 @@ class DWTForward(_DWTModule):
 
     def forward(self, x):
         self._check_device(x)
-        yl, yh = dwt2d(x, self.filters, J=self.J, mode=self.mode)
+        if self.mesh is not None:
+            yl, yh = sharded_dwt2d(x, self.mesh, wave=self.filters, J=self.J,
+                                   mode=self.mode)
+        else:
+            yl, yh = dwt2d(x, self.filters, J=self.J, mode=self.mode)
         if self.coeff_dtype is not None:
             yh = cast_bands(yh, self.coeff_dtype)
         return yl, yh
@@ -85,6 +100,9 @@ class DWTInverse(_DWTModule):
         self._check_device(yl, *(yh or ()))
         if yh is not None:
             coeffs = (yl, upcast_bands(yh, yl))
+        if self.mesh is not None:
+            return sharded_idwt2d(coeffs, self.mesh, wave=self.filters,
+                                  mode=self.mode)
         return idwt2d(coeffs, self.filters, mode=self.mode)
 
 
@@ -101,7 +119,11 @@ class DWT1DForward(_DWTModule):
 
     def forward(self, x):
         self._check_device(x)
-        yl, yh = dwt1d(x, self.filters, J=self.J, mode=self.mode)
+        if self.mesh is not None:
+            yl, yh = sharded_dwt1d(x, self.mesh, wave=self.filters, J=self.J,
+                                   mode=self.mode)
+        else:
+            yl, yh = dwt1d(x, self.filters, J=self.J, mode=self.mode)
         if self.coeff_dtype is not None:
             yh = cast_bands(yh, self.coeff_dtype)
         return yl, yh
@@ -118,6 +140,9 @@ class DWT1DInverse(_DWTModule):
         self._check_device(yl, *(yh or ()))
         if yh is not None:
             coeffs = (yl, upcast_bands(yh, yl))
+        if self.mesh is not None:
+            return sharded_idwt1d(coeffs, self.mesh, wave=self.filters,
+                                  mode=self.mode)
         return idwt1d(coeffs, self.filters, mode=self.mode)
 
 
@@ -141,7 +166,11 @@ class SWTForward(_DWTModule):
 
     def forward(self, x):
         self._check_device(x)
-        out = swt2d(x, self.filters, J=self.J, mode=self.mode)
+        if self.mesh is not None:
+            out = sharded_swt2d(x, self.mesh, wave=self.filters, J=self.J,
+                                mode=self.mode)
+        else:
+            out = swt2d(x, self.filters, J=self.J, mode=self.mode)
         if self.coeff_dtype is not None:
             out = cast_bands(out, self.coeff_dtype)
         return out
@@ -165,10 +194,29 @@ class SWTInverse(_DWTModule):
                  upcast=True, device="cuda"):
         super().__init__(_DEC2, dec_filters(wave), mode, device, mesh)
         self.upcast = bool(upcast)
+        # the name, kept where it resolves to these analysis taps: the
+        # sharded circular merge needs the true synthesis bank, which only
+        # a name (or an orthonormal tuple) recovers
+        # (parallel/sharded_dwt.py:_iswt_synth_filters)
+        name = wave if isinstance(wave, str) else getattr(wave, "name", None)
+        if name is not None and not isinstance(wave, str):
+            try:
+                if dec_filters(_wavelet(name)) != self.filters:
+                    name = None
+            except ValueError:
+                name = None
+        self._wave = name if isinstance(name, str) else None
 
     def forward(self, coeffs):
         self._check_device(*coeffs)
         if self.upcast:
             coeffs = [c.to(torch.float32) if c.dtype.itemsize < 4 else c
                       for c in coeffs]
+        if self.mesh is not None:
+            # a loaded state dict may hold other taps than the name's
+            wave = (self._wave if self._wave is not None
+                    and dec_filters(self._wave) == self.filters
+                    else self.filters)
+            return sharded_iswt2d(coeffs, self.mesh, wave=wave,
+                                  mode=self.mode)
         return iswt2d(coeffs, self.filters, mode=self.mode)

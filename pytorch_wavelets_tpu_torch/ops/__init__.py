@@ -5,7 +5,10 @@ The public filterbanks are the JAX package's ``ops`` names.  ``KERNELS``
 lists every kernel wrapper; each keeps an integer ``launches`` count of
 the times it launched its CUDA kernel (a CPU tensor takes the plain
 PyTorch version and counts nothing).  K17 has one wrapper, and one count,
-per entry and mode (``apply_col_tf32`` ... ``apply_row_bf16``);
+per entry and mode (``apply_col_tf32`` ... ``apply_row_bf16``), and K6,
+K7, K12 and K16 have a second wrapper each for the sharded conv route's
+windows (``afb1d_window`` / ``sfb1d_window`` / ``afb1d_atrous_window`` /
+``sfb1d_atrous_window``), counted apart;
 ``apply_col`` / ``apply_row`` count K1's fp32 launches only.  K1's and
 K17's wrappers also count their launches by instantiation (``copies``,
 :func:`copy_counts`): the copy width their staging took, and for K1's
@@ -21,7 +24,8 @@ from pytorch_wavelets_tpu_torch.ops.afb_sfb import (  # noqa: F401
     afb1d, sfb1d, afb1d_atrous, sfb1d_atrous, afb2d, sfb2d,
     afb2d_atrous, sfb2d_atrous, afb2d_nonsep, sfb2d_nonsep,
     afb1d_atrous_adjoint, afb1d_atrous_corr, afb1d_corr, sfb1d_atrous_adjoint,
-    sfb1d_atrous_conv, sfb1d_conv,
+    sfb1d_atrous_conv, sfb1d_conv, afb1d_window, sfb1d_window,
+    afb1d_atrous_window, sfb1d_atrous_window,
 )
 from pytorch_wavelets_tpu_torch.ops.banded import (  # noqa: F401
     K17_WRAPPERS, apply_col, apply_row, set_operator_matmul,
@@ -54,7 +58,8 @@ KERNELS = (apply_row, apply_col, q2c_pack, c2q_unpack, scat_mag_fwd,
            afb1d_atrous_adjoint, spec_merge, spec_split, nonsep_afb,
            nonsep_afb_adjoint, nonsep_sfb, nonsep_sfb_adjoint,
            sfb1d_atrous_conv, sfb1d_atrous_adjoint, halo_pack,
-           halo_assemble, halo_fold, *K17_WRAPPERS)
+           halo_assemble, halo_fold, afb1d_window, sfb1d_window,
+           afb1d_atrous_window, sfb1d_atrous_window, *K17_WRAPPERS)
 
 
 PRODUCT_KERNELS = (apply_row, apply_col, *K17_WRAPPERS)
@@ -66,7 +71,9 @@ STENCIL_VARIANT_KERNELS = (afb1d_corr, sfb1d_conv, dtcwt_filt, dtcwt_dfilt,
                            scat_mag_fwd, scat_mag_bwd, scat_mag_bwd2,
                            q2c_pack, c2q_unpack,
                            avg_pool2_fwd, avg_pool2_bwd, spec_merge,
-                           spec_split, halo_pack, halo_assemble, halo_fold)
+                           spec_split, halo_pack, halo_assemble, halo_fold,
+                           afb1d_window, sfb1d_window, afb1d_atrous_window,
+                           sfb1d_atrous_window)
 
 
 def reset_launches() -> None:

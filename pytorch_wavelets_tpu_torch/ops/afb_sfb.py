@@ -24,6 +24,15 @@ The DWT's split and merge along one axis:
   d-strided subsequences, the adjoint's pad images added from a host
   table (:func:`merge_band_images`).
 
+The sharded conv route's windows (``parallel/sharded_dwt.py``) run the
+same kernels through wrappers of their own: :func:`afb1d_window` (K6)
+and :func:`sfb1d_window` (K7) with the window plans
+:func:`afb_window_plan` / :func:`sfb_window_plan`,
+:func:`afb1d_atrous_window` (K12) and :func:`sfb1d_atrous_window` (K16)
+with :func:`atrous_window_plan`; their differentiable entries
+(:func:`split_window`, :func:`merge_window`, :func:`atrous_split_window`,
+:func:`atrous_merge_window`) have the exact adjoints as backwards.
+
 The non-separable ``afb2d_nonsep`` / ``sfb2d_nonsep`` run K14/K15
 (``ops/nonsep.py``).
 
@@ -74,7 +83,13 @@ __all__ = ["as_taps", "afb1d", "sfb1d", "afb2d", "sfb2d", "afb1d_atrous",
            "merge_row_tile", "merge_band_images", "merge_instantiation",
            "afb_row_outs", "afb_instantiation", "sfb_pairs",
            "sfb_row_pairs", "sfb_instantiation",
-           "rows_aligned", "unit_rows", "MAX_TAPS"]
+           "rows_aligned", "unit_rows", "MAX_TAPS", "afb_window_plan",
+           "sfb_window_plan", "atrous_window_plan", "afb1d_window",
+           "sfb1d_window", "afb1d_atrous_window", "sfb1d_atrous_window",
+           "afb1d_window_plain", "sfb1d_window_plain",
+           "afb1d_atrous_window_plain", "sfb1d_atrous_window_plain",
+           "split_window", "merge_window", "atrous_split_window",
+           "atrous_merge_window"]
 
 # the kernels keep both tap vectors in shared memory (csrc/dwt_*.cu)
 MAX_TAPS = 128
@@ -541,7 +556,11 @@ def afb_instantiation(axis, n, L, mode, x):
     along W, :func:`rows_aligned`) or scalar ones (``col_scalar``); along
     W the row tile walking each row's segment (``row_run``, rows of stride
     1, :func:`unit_rows`) or mapping each sample (``row_gather``)."""
-    if afb_plan(n, L, mode)[5]:
+    return _afb_inst(axis, afb_plan(n, L, mode)[5], x)
+
+
+def _afb_inst(axis, fold, x):
+    if fold:
         return "long_fold"
     if axis == 3:
         return "row_run" if unit_rows(x) else "row_gather"
@@ -572,21 +591,32 @@ def afb1d_corr(x, h0_taps, h1_taps, mode, axis, out_len=None):
     m = full if out_len is None else out_len
     if not 0 <= m <= full:
         raise ValueError(f"dwt_afb: out_len {m} outside 0..{full}")
+    return _afb_launch(_K6, x, h0, h1, axis, (front, ne, pmode, shift, fold),
+                       m)
+
+
+def _afb_launch(wrapper, x, h0, h1, axis, plan, m):
+    """K6 on ``x`` with fp32 taps ``h0`` / ``h1`` under the index plan
+    ``(front, ne, pad_mode, shift, fold)`` (:func:`afb_plan`'s tail, or
+    :func:`afb_window_plan`'s), ``m`` outputs along ``axis``; counted on
+    ``wrapper``."""
+    front, ne, pmode, shift, fold = plan
+    L = len(h0)
     N, C, H, W = x.shape
     shape = [N, C, 2, H, W]
     shape[axis + 1] = m
     y = torch.empty(shape, device=x.device, dtype=torch.float32)
     if y.numel() == 0:
         return y
-    inst = afb_instantiation(axis, n, L, mode, x)
+    inst = _afb_inst(axis, fold, x)
     S = afb_row_outs(m) if inst in ("row_run", "row_gather") else 0
     lib = _cuda.library("dwt_afb")
     _cuda.check(lib, "dwt_afb", lib.dwt_afb(
         x.data_ptr(), y.data_ptr(), _ptr(h0), _ptr(h1), L, N, C, H, W,
         *x.stride(), axis, ne, front, PAD_CODES[pmode], shift, fold, m,
         *y.stride(), SFB_INSTS[inst], S, _cuda.stream_of(x)))
-    _K6.launches += 1
-    _K6.instantiations[inst] += 1
+    wrapper.launches += 1
+    wrapper.instantiations[inst] += 1
     return y
 
 
@@ -637,6 +667,10 @@ def sfb_instantiation(axis, nin, L, mode, lo, hi):
     1, :func:`unit_rows`) or mapping each sample (``row_gather``)."""
     if sfb_pairs(nin, L, mode, 0) is None:
         return "long_fold"
+    return _sfb_inst(axis, lo, hi)
+
+
+def _sfb_inst(axis, lo, hi):
     if axis == 3:
         return "row_run" if unit_rows(lo) and unit_rows(hi) else "row_gather"
     return ("col_float4" if rows_aligned(lo) and rows_aligned(hi)
@@ -671,22 +705,33 @@ def sfb1d_conv(lo, hi, g0_taps, g1_taps, mode, axis, out_len=None):
     m = full if out_len is None else out_len
     if not 0 <= m <= full:
         raise ValueError(f"dwt_sfb: out_len {m} outside 0..{full}")
+    inst = sfb_instantiation(axis, nin, L, mode, lo, hi)
+    pairs = sfb_pairs(nin, L, mode, m)
+    return _sfb_launch(_K7, lo, hi, g0, g1, axis, (s, wrap, r0, fold), m,
+                       inst, sfb_row_pairs(pairs[4]) if pairs else 0)
+
+
+def _sfb_launch(wrapper, lo, hi, g0, g1, axis, plan, m, inst, S):
+    """K7 on ``lo`` / ``hi`` with fp32 taps ``g0`` / ``g1`` under the
+    index plan ``(s, wrap, r0, fold)`` (:func:`sfb_plan`'s tail, or
+    :func:`sfb_window_plan`'s), ``m`` outputs along ``axis``, in the
+    instantiation ``inst`` with the row tile's S pairs; counted on
+    ``wrapper``."""
+    s, wrap, r0, fold = plan
+    L = len(g0)
     shape = list(lo.shape)
     shape[axis] = m
     y = torch.empty(shape, device=lo.device, dtype=torch.float32)
     _check_4d("dwt_sfb", axis, y)
     if y.numel() == 0:
         return y
-    inst = sfb_instantiation(axis, nin, L, mode, lo, hi)
-    pairs = sfb_pairs(nin, L, mode, m)
-    S = sfb_row_pairs(pairs[4]) if pairs else 0
     lib = _cuda.library("dwt_sfb")
     _cuda.check(lib, "dwt_sfb", lib.dwt_sfb(
         lo.data_ptr(), hi.data_ptr(), y.data_ptr(), _ptr(g0), _ptr(g1), L,
         *lo.shape, *lo.stride(), *hi.stride(), axis, s, wrap, r0, fold, m,
         *y.stride(), SFB_INSTS[inst], S, _cuda.stream_of(lo)))
-    _K7.launches += 1
-    _K7.instantiations[inst] += 1
+    wrapper.launches += 1
+    wrapper.instantiations[inst] += 1
     return y
 
 
@@ -730,8 +775,16 @@ def afb1d_atrous_corr(x, h0_taps, h1_taps, mode, axis, dilation):
     _cuda.check_inputs("swt_afb", x)
     _check_4d("swt_afb", axis, x)
     n = x.shape[axis]
-    h0, h1, L, (front, _, code, m) = _atrous_args("swt_afb", h0_taps,
+    h0, h1, _, (front, _, code, m) = _atrous_args("swt_afb", h0_taps,
                                                   h1_taps, n, mode, dilation)
+    return _atrous_launch(_K12, x, h0, h1, axis, dilation, front, code, m)
+
+
+def _atrous_launch(wrapper, x, h0, h1, axis, dilation, front, code, m):
+    """K12's ``swt_afb`` on ``x`` with fp32 taps under the plan (front,
+    pad code, ``m`` outputs) of :func:`atrous_plan`; counted on
+    ``wrapper``."""
+    L = len(h0)
     N, C, H, W = x.shape
     shape = [N, C, 2, H, W]
     shape[axis + 1] = m
@@ -745,8 +798,8 @@ def afb1d_atrous_corr(x, h0_taps, h1_taps, mode, axis, dilation):
         x.data_ptr(), y.data_ptr(), _ptr(h0), _ptr(h1), L, dilation, N, C,
         H, W, *x.stride(), axis, front, code, m, *y.stride(),
         INST_CODES[inst], G, S, _cuda.stream_of(x)))
-    _K12.launches += 1
-    _K12.instantiations[inst] += 1
+    wrapper.launches += 1
+    wrapper.instantiations[inst] += 1
     return y
 
 
@@ -842,8 +895,19 @@ def sfb1d_atrous_conv(lo, hi, g0_taps, g1_taps, mode, axis, dilation):
     _cuda.check_inputs("swt_sfb", lo, hi)
     _check_4d("swt_sfb", axis, lo)
     n = lo.shape[axis]
-    k0, k1, L, (front, _, code, m) = _merge_args(
+    k0, k1, _, (front, _, code, m) = _merge_args(
         "swt_sfb", g0_taps, g1_taps, n, mode, dilation)
+    return _merge_launch(_K16, lo, hi, k0, k1, axis, dilation, front, code,
+                         m)
+
+
+def _merge_launch(wrapper, lo, hi, k0, k1, axis, dilation, front, code, m):
+    """K16's ``swt_sfb`` on ``lo`` / ``hi`` with the halved fp32
+    correlation taps of :func:`_merge_args` under the plan (front, pad
+    code, ``m`` = n outputs) of :func:`atrous_merge_plan`; counted on
+    ``wrapper``."""
+    L = len(k0)
+    n = lo.shape[axis]
     y = torch.empty(lo.shape, device=lo.device, dtype=torch.float32)
     if y.numel() == 0:
         return y
@@ -854,8 +918,8 @@ def sfb1d_atrous_conv(lo, hi, g0_taps, g1_taps, mode, axis, dilation):
         lo.data_ptr(), hi.data_ptr(), y.data_ptr(), _ptr(k0), _ptr(k1), L,
         dilation, *lo.shape, *lo.stride(), *hi.stride(), axis, front, code,
         m, *y.stride(), INST_CODES[inst], G, S, _cuda.stream_of(lo)))
-    _K16.launches += 1
-    _K16.instantiations[inst] += 1
+    wrapper.launches += 1
+    wrapper.instantiations[inst] += 1
     return y
 
 
@@ -941,6 +1005,369 @@ def _afb_atrous_matrix(h0, h1, mode, dilation, n, dtype_str="f4"):
                 I, np.asarray(h0), np.asarray(h1), mode, 2, dilation), m,
             dtype=np.dtype(dtype_str).type),
         n, _ext_ns(len(h0), dilation), 2, 1, (1, 1))
+
+
+@lru_cache(maxsize=None)
+def _afb_matrix(h0, h1, mode, n):
+    """The (2 out_len, n) operator of the analysis split of a length-``n``
+    axis (correlation-order tap tuples), probed on the host from
+    :func:`afb1d_corr_plain` in fp32, or synthesized from a small probe
+    above ``banded.DIRECT_PROBE_N`` (the JAX package's ``_afb_matrix``)."""
+    from pytorch_wavelets_tpu_torch.ops import banded
+    return banded.synthesized_or_probe(
+        lambda m: banded.probe_op(
+            lambda I: afb1d_corr_plain(I, np.asarray(h0), np.asarray(h1),
+                                       mode, 2), m),
+        n, _ext_ns(len(h0)), 2, 1, (1, 2))
+
+
+@lru_cache(maxsize=None)
+def _sfb_matrix(g0, g1, mode, n):
+    """The (out_len, 2 n) operator of the synthesis merge of two
+    length-``n`` inputs given side by side [lo | hi] (convolution-order
+    tap tuples), probed from :func:`sfb1d_conv_plain` (the JAX package's
+    ``_sfb_matrix``)."""
+    from pytorch_wavelets_tpu_torch.ops import banded
+
+    def direct(m):
+        return banded.probe_op(
+            lambda I: sfb1d_conv_plain(I[:, :, :m], I[:, :, m:],
+                                       np.asarray(g0), np.asarray(g1), mode,
+                                       2), 2 * m)
+    return banded.synthesized_or_probe(direct, n, _ext_ns(len(g0)) // 2,
+                                       1, 2, (2, 1))
+
+
+@lru_cache(maxsize=None)
+def _sfb_atrous_matrix(g0, g1, mode, dilation, n):
+    """The (n, 2 n) operator of the à trous merge of [lo | hi]
+    (convolution-order tap tuples ``dilation`` apart), probed from
+    :func:`sfb1d_atrous_conv_plain` (the JAX package's
+    ``_sfb_atrous_matrix``)."""
+    from pytorch_wavelets_tpu_torch.ops import banded
+
+    def direct(m):
+        return banded.probe_op(
+            lambda I: sfb1d_atrous_conv_plain(
+                I[:, :, :m], I[:, :, m:], np.asarray(g0), np.asarray(g1),
+                mode, 2, dilation), 2 * m)
+    return banded.synthesized_or_probe(direct, n,
+                                       _ext_ns(len(g0), dilation), 1, 2,
+                                       (1, 1))
+
+
+# --------------------------------------------------------------------------
+# Window applies: the sharded conv route's filtering of a halo'd tile
+# (parallel/sharded_dwt.py), valid correlations whose every tap reads a
+# sample of the window
+# --------------------------------------------------------------------------
+
+def afb_window_plan(n, front):
+    """K6's index plan tail ``(front, ne, pad_mode, shift, fold)`` for the
+    split of a length-``n`` window with its first sample at position
+    ``front`` of the taps' walk: output m is sum_k h[k] x[2m + k - front],
+    zero outside [0, n).  ``front`` 0 is the valid stride-2 correlation
+    of the JAX ``_afb1d_per_sharded``; a positive one is the adjoint of
+    :func:`sfb1d_window` with its offset."""
+    return front, n, "zero", 0, 0
+
+
+def sfb_window_plan(s):
+    """K7's index plan tail ``(s, wrap, r0, fold)`` for the merge of two
+    windows: output t is Y(t + s), Y(u) = sum_j lo[j] g0[u - 2j] + hi[j]
+    g1[u - 2j] the full transposed stride-2 convolution, no wrap.  The
+    JAX ``_sfb1d_per_sharded``'s slice of the upsampled window starts at
+    2 hl - L//2 and its correlation with the reversed taps adds L - 1:
+    s = 2 hl - L//2 + L - 1.  ``s`` 0 is the adjoint of
+    :func:`afb1d_window` with front 0."""
+    return s, 0, 0, 0
+
+
+def atrous_window_plan(n, L, d, kind):
+    """The valid à trous split ('split', K12) or merge ('merge', K16) of a
+    length-``n`` window: ``(front, m)``.  K12's and K16's C entries take
+    only the pads of their modes' plans (``csrc/swt_atrous.cu:front_ok``),
+    so the window runs their 'zero' plan (:func:`atrous_plan` /
+    :func:`atrous_merge_plan`), whose outputs [front, front + m) read no
+    pad: m = n - (L - 1) d of them, (L - 1) d outputs computed and
+    dropped (the JAX ``_afb1d_atrous_sharded`` /
+    ``_sfb1d_atrous_sharded``'s valid correlations)."""
+    plan = atrous_plan if kind == "split" else atrous_merge_plan
+    front, _, _, out_len = plan(n, L, d, "zero")
+    m = n - (L - 1) * d
+    if m < 1 or front + m > out_len:
+        raise ValueError(f"no valid {kind} of a {n}-sample window by {L} "
+                         f"taps {d} apart")
+    return front, m
+
+
+def afb1d_window_plain(x, h0_taps, h1_taps, axis, front, m):
+    """Plain PyTorch version of :func:`afb1d_window`: ``x`` padded with
+    ``front`` zeros (and zeros past its end), the stride-2 correlation,
+    its first ``m`` outputs.  Returns (N, C, 2, H', W')."""
+    axis = axis % 4
+    L, n = len(h0_taps), x.shape[axis]
+    back = max(0, 2 * (m - 1) + L - front - n)
+    xp = pad1d(x, front, back, axis, "zero") if front or back else x
+    y = _conv_axis(xp, np.stack([h0_taps, h1_taps]), axis, stride=2)
+    return y.narrow(axis + 1, 0, m)
+
+
+def sfb1d_window_plain(lo, hi, g0_taps, g1_taps, axis, s, m):
+    """Plain PyTorch version of :func:`sfb1d_window`: the full transposed
+    stride-2 convolution of (lo, hi) summed, outputs [s, s + m) (zeros
+    past its end).  Returns (N, C, H', W')."""
+    axis = axis % 4
+    L = len(g0_taps)
+    k0 = np.asarray(g0_taps)[::-1].reshape(1, L)
+    k1 = np.asarray(g1_taps)[::-1].reshape(1, L)
+    pad = (L - 1, L - 1)
+    y = (_conv_axis(lo, k0, axis, lhs_dilation=2, padding=pad) +
+         _conv_axis(hi, k1, axis, lhs_dilation=2, padding=pad))[:, :, 0]
+    if s + m > y.shape[axis]:
+        y = pad1d(y, 0, s + m - y.shape[axis], axis, "zero")
+    return y.narrow(axis, s, m)
+
+
+@_cuda.via_fp32
+def afb1d_window(x, h0_taps, h1_taps, axis, front, m):
+    """The split of a window (:func:`afb_window_plan`): (N, C, 2, H', W')
+    with ``m`` outputs along ``axis``, correlation-order taps.  CPU
+    tensors take :func:`afb1d_window_plain`; CUDA tensors launch K6 with
+    the window's plan (counted on this wrapper)."""
+    axis = axis % 4
+    if x.device.type == "cpu":
+        return afb1d_window_plain(x, h0_taps, h1_taps, axis, front, m)
+    _cuda.check_inputs("dwt_afb", x)
+    _check_4d("dwt_afb", axis, x)
+    h0, h1 = _taps_f32("dwt_afb", h0_taps, h1_taps)
+    return _afb_launch(_K6W, x, h0, h1, axis,
+                       afb_window_plan(x.shape[axis], front), m)
+
+
+@_cuda.via_fp32
+def sfb1d_window(lo, hi, g0_taps, g1_taps, axis, s, m):
+    """The merge of two windows (:func:`sfb_window_plan`): (N, C, H', W')
+    with ``m`` outputs along ``axis``, convolution-order taps.  CPU
+    tensors take :func:`sfb1d_window_plain`; CUDA tensors launch K7 with
+    the window's plan (counted on this wrapper)."""
+    axis = axis % 4
+    if lo.shape != hi.shape:
+        raise ValueError(f"sfb1d_window: lo {tuple(lo.shape)} and hi "
+                         f"{tuple(hi.shape)} differ")
+    if lo.device.type == "cpu":
+        return sfb1d_window_plain(lo, hi, g0_taps, g1_taps, axis, s, m)
+    _cuda.check_inputs("dwt_sfb", lo, hi)
+    _check_4d("dwt_sfb", axis, lo)
+    g0, g1 = _taps_f32("dwt_sfb", g0_taps, g1_taps)
+    npairs = (s + m - 1) // 2 + 1 - s // 2
+    return _sfb_launch(_K7W, lo, hi, g0, g1, axis,
+                       sfb_window_plan(s), m, _sfb_inst(axis, lo, hi),
+                       sfb_row_pairs(npairs))
+
+
+def afb1d_atrous_window_plain(x, h0_taps, h1_taps, axis, dilation):
+    """Plain PyTorch version of :func:`afb1d_atrous_window`: the valid
+    correlation with taps ``dilation`` apart (the JAX
+    ``_afb1d_atrous_sharded``'s, no pad).  Returns (N, C, 2, H', W')."""
+    return _conv_axis(x, np.stack([h0_taps, h1_taps]), axis % 4,
+                      rhs_dilation=dilation)
+
+
+def sfb1d_atrous_window_plain(lo, hi, g0_taps, g1_taps, axis, dilation):
+    """Plain PyTorch version of :func:`sfb1d_atrous_window`: half the sum
+    of the valid correlations of lo and hi with their reversed taps
+    ``dilation`` apart (the JAX ``_sfb1d_atrous_sharded``'s)."""
+    axis = axis % 4
+    L = len(g0_taps)
+    y = (_conv_axis(lo, np.asarray(g0_taps)[::-1].reshape(1, L), axis,
+                    rhs_dilation=dilation)
+         + _conv_axis(hi, np.asarray(g1_taps)[::-1].reshape(1, L), axis,
+                      rhs_dilation=dilation))
+    return 0.5 * y[:, :, 0]
+
+
+@_cuda.via_fp32
+def afb1d_atrous_window(x, h0_taps, h1_taps, axis, dilation):
+    """The valid à trous split of a window (:func:`atrous_window_plan`):
+    (N, C, 2, H', W'), correlation-order taps.  CPU tensors take
+    :func:`afb1d_atrous_window_plain`; CUDA tensors launch K12's
+    ``swt_afb`` with the window's 'zero' plan and return the view of its
+    valid outputs (counted on this wrapper)."""
+    axis = axis % 4
+    if x.device.type == "cpu":
+        return afb1d_atrous_window_plain(x, h0_taps, h1_taps, axis, dilation)
+    _cuda.check_inputs("swt_afb", x)
+    _check_4d("swt_afb", axis, x)
+    n = x.shape[axis]
+    h0, h1, L, (front, _, code, m) = _atrous_args(
+        "swt_afb", h0_taps, h1_taps, n, "zero", dilation)
+    start, w = atrous_window_plan(n, L, dilation, "split")
+    y = _atrous_launch(_K12W, x, h0, h1, axis, dilation, front, code, m)
+    return y.narrow(axis + 1, start, w)
+
+
+@_cuda.via_fp32
+def sfb1d_atrous_window(lo, hi, g0_taps, g1_taps, axis, dilation):
+    """The valid à trous merge of two windows (:func:`atrous_window_plan`,
+    convolution-order taps).  CPU tensors take
+    :func:`sfb1d_atrous_window_plain`; CUDA tensors launch K16's
+    ``swt_sfb`` with the window's 'zero' plan and return the view of its
+    valid outputs (counted on this wrapper)."""
+    axis = axis % 4
+    if lo.shape != hi.shape:
+        raise ValueError(f"sfb1d_atrous_window: lo {tuple(lo.shape)} and hi "
+                         f"{tuple(hi.shape)} differ")
+    if lo.device.type == "cpu":
+        return sfb1d_atrous_window_plain(lo, hi, g0_taps, g1_taps, axis,
+                                         dilation)
+    _cuda.check_inputs("swt_sfb", lo, hi)
+    _check_4d("swt_sfb", axis, lo)
+    n = lo.shape[axis]
+    k0, k1, L, (front, _, code, m) = _merge_args(
+        "swt_sfb", g0_taps, g1_taps, n, "zero", dilation)
+    start, w = atrous_window_plan(n, L, dilation, "merge")
+    y = _merge_launch(_K16W, lo, hi, k0, k1, axis, dilation, front, code, m)
+    return y.narrow(axis, start, w)
+
+
+_K6W, _K7W = afb1d_window, sfb1d_window
+_K12W, _K16W = afb1d_atrous_window, sfb1d_atrous_window
+for _k in (_K6W, _K7W):
+    _k.launches = 0
+    _k.instantiations = dict.fromkeys(SFB_INSTS, 0)
+for _k in (_K12W, _K16W):
+    _k.launches = 0
+    _k.instantiations = dict.fromkeys(INST_CODES, 0)
+
+
+def _pad_window(g, dim, start, n):
+    """The cotangent ``g`` of a window's valid outputs placed at
+    [start, start + len) of ``n`` zeros along ``dim`` (the view's
+    adjoint)."""
+    shape = list(g.shape)
+    shape[dim] = n
+    out = g.new_zeros(shape)
+    out.narrow(dim, start, g.shape[dim]).copy_(g)
+    return out
+
+
+class _SplitWindow(torch.autograd.Function):
+    """x -> :func:`afb1d_window` (K6); backward its adjoint, the merge
+    :func:`sfb1d_window` with the same taps and offset ``front`` (K7),
+    whose own backward is this Function again."""
+
+    @staticmethod
+    def forward(ctx, x, h0, h1, axis, front, m):
+        ctx.args = (h0, h1, axis, front, m, x.shape[axis])
+        return afb1d_window(x, h0, h1, axis, front, m)
+
+    @staticmethod
+    def backward(ctx, dy):
+        h0, h1, axis, front, m, n = ctx.args
+        dx = linear_backward(
+            lambda g: _MergeWindow.apply(g[:, :, 0], g[:, :, 1], h0, h1,
+                                         axis, front, n),
+            lambda u: _SplitWindow.apply(u, h0, h1, axis, front, m), dy)
+        return dx, None, None, None, None, None
+
+
+class _MergeWindow(torch.autograd.Function):
+    """lo, hi -> :func:`sfb1d_window` (K7); backward its adjoint, the
+    split :func:`afb1d_window` with front ``s`` (K6)."""
+
+    @staticmethod
+    def forward(ctx, lo, hi, g0, g1, axis, s, m):
+        ctx.args = (g0, g1, axis, s, m, lo.shape[axis])
+        return sfb1d_window(lo, hi, g0, g1, axis, s, m)
+
+    @staticmethod
+    def backward(ctx, dy):
+        g0, g1, axis, s, m, nin = ctx.args
+
+        def adjoint(g):
+            d = _SplitWindow.apply(g, g0, g1, axis, s, nin)
+            return d[:, :, 0], d[:, :, 1]
+        dlo, dhi = linear_backward(
+            adjoint,
+            lambda ulo, uhi: _MergeWindow.apply(ulo, uhi, g0, g1, axis, s,
+                                                m), dy)
+        return dlo, dhi, None, None, None, None, None
+
+
+class _AtrousSplitWindow(torch.autograd.Function):
+    """x -> :func:`afb1d_atrous_window` (K12); backward its adjoint, the
+    cotangent placed at the valid outputs of the window's 'zero' split,
+    then K12's adjoint entry on that plan (:func:`afb1d_atrous_adjoint`);
+    the backward's backward is this Function again."""
+
+    @staticmethod
+    def forward(ctx, x, h0, h1, axis, dilation):
+        ctx.args = (h0, h1, axis, dilation, x.shape[axis])
+        return afb1d_atrous_window(x, h0, h1, axis, dilation)
+
+    @staticmethod
+    def backward(ctx, dy):
+        h0, h1, axis, d, n = ctx.args
+        start, _ = atrous_window_plan(n, len(h0), d, "split")
+        m = atrous_plan(n, len(h0), d, "zero")[3]
+
+        def adjoint(g):
+            return afb1d_atrous_adjoint(_pad_window(g, axis + 1, start, m),
+                                        h0, h1, "zero", axis, d, n)
+        dx = linear_backward(
+            adjoint, lambda u: _AtrousSplitWindow.apply(u, h0, h1, axis, d),
+            dy)
+        return dx, None, None, None, None
+
+
+class _AtrousMergeWindow(torch.autograd.Function):
+    """lo, hi -> :func:`sfb1d_atrous_window` (K16); backward its adjoint,
+    the cotangent placed at the valid outputs of the windows' 'zero'
+    merge, then K16's adjoint entry on that plan
+    (:func:`sfb1d_atrous_adjoint`)."""
+
+    @staticmethod
+    def forward(ctx, lo, hi, g0, g1, axis, dilation):
+        ctx.args = (g0, g1, axis, dilation, lo.shape[axis])
+        return sfb1d_atrous_window(lo, hi, g0, g1, axis, dilation)
+
+    @staticmethod
+    def backward(ctx, dy):
+        g0, g1, axis, d, n = ctx.args
+        start, _ = atrous_window_plan(n, len(g0), d, "merge")
+
+        def adjoint(g):
+            d2 = sfb1d_atrous_adjoint(_pad_window(g, axis, start, n), g0, g1,
+                                      "zero", axis, d)
+            return d2[:, :, 0], d2[:, :, 1]
+        dlo, dhi = linear_backward(
+            adjoint,
+            lambda ulo, uhi: _AtrousMergeWindow.apply(ulo, uhi, g0, g1, axis,
+                                                      d), dy)
+        return dlo, dhi, None, None, None, None
+
+
+def split_window(x, h0, h1, axis, front, m):
+    """Differentiable :func:`afb1d_window` (correlation-order taps)."""
+    return _SplitWindow.apply(x, h0, h1, axis % 4, front, m)
+
+
+def merge_window(lo, hi, g0, g1, axis, s, m):
+    """Differentiable :func:`sfb1d_window` (convolution-order taps)."""
+    return _MergeWindow.apply(lo, hi, g0, g1, axis % 4, s, m)
+
+
+def atrous_split_window(x, h0, h1, axis, dilation):
+    """Differentiable :func:`afb1d_atrous_window` (correlation-order
+    taps)."""
+    return _AtrousSplitWindow.apply(x, h0, h1, axis % 4, dilation)
+
+
+def atrous_merge_window(lo, hi, g0, g1, axis, dilation):
+    """Differentiable :func:`sfb1d_atrous_window` (convolution-order
+    taps)."""
+    return _AtrousMergeWindow.apply(lo, hi, g0, g1, axis % 4, dilation)
 
 
 # --------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """The distribution layer on ``torch.distributed``: device meshes, the
-ring halo exchange (kernel K19), sharded operator applies on K1 and the
-sharded DTCWT (port of ``pytorch_wavelets_tpu/parallel``; the other
-sharded transforms are not ported yet, ``ROADMAP.md`` A5b-A5f)."""
+ring halo exchange (kernel K19), sharded operator applies on K1, the
+sharded DTCWT, DWT, 1-D DWT and SWT (port of
+``pytorch_wavelets_tpu/parallel``; the sharded scattering layers and the
+rest are not ported yet, ``ROADMAP.md`` A5c-A5f)."""
 from pytorch_wavelets_tpu_torch.parallel.mesh import (  # noqa: F401
     data_placements, initialize_multihost, make_mesh, placements,
     spatial_placements,
@@ -13,9 +14,15 @@ from pytorch_wavelets_tpu_torch.parallel.halo import (  # noqa: F401
 from pytorch_wavelets_tpu_torch.parallel.sharded import (  # noqa: F401
     LAST_PATH, sharded_dtcwt2d, sharded_idtcwt2d,
 )
+from pytorch_wavelets_tpu_torch.parallel.sharded_dwt import (  # noqa: F401
+    sharded_dwt1d, sharded_dwt2d, sharded_idwt1d, sharded_idwt2d,
+    sharded_iswt2d, sharded_swt2d,
+)
 
 __all__ = ["make_mesh", "data_placements", "spatial_placements",
            "placements", "initialize_multihost", "halo_exchange_1d",
            "STAGED_BYTES", "reset_staged_bytes", "EXCHANGES",
-           "reset_exchanges", "sharded_dtcwt2d",
-           "sharded_idtcwt2d", "LAST_PATH"]
+           "reset_exchanges", "sharded_dwt2d", "sharded_idwt2d",
+           "sharded_dwt1d", "sharded_idwt1d", "sharded_swt2d",
+           "sharded_iswt2d", "sharded_dtcwt2d", "sharded_idtcwt2d",
+           "LAST_PATH"]

@@ -72,8 +72,10 @@ from pytorch_wavelets_tpu_torch.transforms.plan_cache import (
 __all__ = ["sharded_dtcwt2d", "sharded_idtcwt2d", "LAST_PATH"]
 
 # Which path each public sharded_* entry last took: name -> 'matmul' (the
-# composed sharded route, the only one ported; the JAX package also has
-# 'perlevel' and 'gspmd').
+# operator route: the DTCWT's composed pyramids, the DWT's and SWT's
+# per-level operators) or 'conv' (the DWT's and SWT's conv halo route,
+# parallel/sharded_dwt.py); the JAX package also has 'perlevel' and
+# 'gspmd'.
 LAST_PATH: dict = {}
 
 _NOT_PORTED = ("the per-level sharded DTCWT past the composed route "
@@ -348,12 +350,21 @@ def _apply_strategy(x, strat, axis, ax):
 def _apply_merge(q, strat, axis, ax):
     """Synthesis merge (an operator over [lo | hi]) along ``axis`` of
     ``q``, which holds lo and hi side by side along it."""
+    if strat.kind == "local":
+        return operator_apply(q, *strat.operators(q.device), axis)
     w = q.shape[axis] // 2
-    lo, hi = q.narrow(axis, 0, w), q.narrow(axis, w, w)
+    return _apply_merge2(q.narrow(axis, 0, w), q.narrow(axis, w, w), strat,
+                         axis, ax)
+
+
+def _apply_merge2(lo, hi, strat, axis, ax):
+    """Synthesis merge (an operator over [lo | hi]) along ``axis`` of lo
+    and hi given apart: one exchange (or gather) for both."""
     if strat.kind == "shard":
         return apply_sharded_op([lo, hi], strat.obj, axis, ax.group)
     if strat.kind == "local":
-        return operator_apply(q, *strat.operators(q.device), axis)
+        return operator_apply(torch.cat([lo, hi], dim=axis),
+                              *strat.operators(lo.device), axis)
     return _gathered_apply([lo, hi], strat, axis, ax)
 
 
@@ -547,20 +558,30 @@ def _sp4(mesh):
     return ("data", None, hx, "spatial")
 
 
-def _local(x, mesh, spec, what, batch_axis):
+def _local(x, mesh, spec, what, batch_axis, storage=None):
     """This rank's chunk of ``x`` placed as ``spec``, its batch padded
     with zeros to a multiple of the 'data' size: a DTensor's local tensor
     (placed so; a short last chunk padded), or the slices of a full
-    tensor (padded first)."""
+    tensor (padded first).  ``storage`` {dim: length} zero-pads those
+    dims to shard-divisible storage (a multiple of the dim's shard count):
+    a full tensor before it is sliced, a DTensor's chunk (``torch.chunk``'s
+    layout, ceil(M / n) a rank, the last ones short) on each rank to
+    length / n."""
     nd = _n_data(mesh)
     s = _ceil_to(x.shape[batch_axis], nd) // nd
+    storage = storage or {}
     if isinstance(x, DTensor):
         want = placements(mesh, spec)
         if x.device_mesh != mesh or list(x.placements) != want:
             raise ValueError(f"{what}: expected a DTensor on this mesh "
                              f"placed {want}, got {list(x.placements)}")
-        return _pad_axis_to(x.to_local(), s, batch_axis)
+        xl = _pad_axis_to(x.to_local(), s, batch_axis)
+        for d, n in storage.items():
+            xl = _pad_axis_to(xl, n // _axis(mesh, spec[d]).n, d)
+        return xl
     x = _pad_axis_to(x, s * nd, batch_axis)
+    for d, n in storage.items():
+        x = _pad_axis_to(x, n, d)
     for d, name in enumerate(spec):
         if name is None:
             continue
@@ -573,20 +594,22 @@ def _local(x, mesh, spec, what, batch_axis):
     return x
 
 
-def _global(local, mesh, spec, n_batch, batch_axis):
+def _global(local, mesh, spec, n_batch, batch_axis, logical=None):
     """A DTensor of ``local`` placed as ``spec``, its batch axis cut to
-    ``n_batch`` (the chunks of the padded batch, as ``torch.chunk``
-    splits ``n_batch``)."""
+    ``n_batch`` and each dim of ``logical`` {dim: length} cut from its
+    storage to that length: a per-rank ``narrow``, so that the ranks hold
+    ``torch.chunk``'s split of the cut tensor."""
     shape = list(local.shape)
     for d, name in enumerate(spec):
         if name is not None:
             shape[d] *= _axis(mesh, name).n
-    s = local.shape[batch_axis]
-    d0 = _axis(mesh, "data").rank * s
-    keep = max(0, min(s, n_batch - d0))
-    if keep != s:
-        local = local.narrow(batch_axis, 0, keep)
-    shape[batch_axis] = n_batch
+    for d, M in {batch_axis: n_batch, **(logical or {})}.items():
+        s = local.shape[d]
+        d0 = (_axis(mesh, spec[d]).rank if spec[d] else 0) * s
+        keep = max(0, min(s, M - d0))
+        if keep != s:
+            local = local.narrow(d, 0, keep)
+        shape[d] = M
     stride, acc = [0] * len(shape), 1
     for d in range(len(shape) - 1, -1, -1):
         stride[d] = acc

@@ -467,7 +467,7 @@ def test_exports_and_aliases():
 
 
 def test_device_and_mesh(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tt.DWTForward(device="cpu", mesh=object())
     with pytest.raises(ValueError, match="is on cpu"):
         tt.DWTForward(device="cpu")(torch.zeros(1, 1, 8, 8, device="meta"))

@@ -66,6 +66,8 @@ def test_imports_and_runs_with_jax_blocked():
         "assert (r - x).abs().max() < 1e-5\n"
         "from pytorch_wavelets_tpu_torch import parallel\n"
         "assert parallel.sharded_dtcwt2d and parallel.make_mesh\n"
+        "assert all(getattr(parallel, 'sharded_' + n) for n in ('dwt2d', "
+        "'idwt2d', 'dwt1d', 'idwt1d', 'swt2d', 'iswt2d'))\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in "
         "sys.modules if sys.modules[m] is not None)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -124,6 +126,12 @@ def test_cpu_tensors_take_plain_versions():
             x.new_empty(halo.block_shape(x, axis, x.shape[axis] + 5)))
         halo.halo_fold(w, axis, 2, 3, "zero", "recv", None,
                        x.new_zeros(per * 2))
+    # the sharded conv route's windows (K6, K7, K12, K16 wrappers)
+    h = np.array([0.5, 0.5])
+    ops.afb1d_window(x, h, h, 3, 0, 8)
+    ops.sfb1d_window(x, x, h, h, 3, 1, 8)
+    ops.afb1d_atrous_window(x, h, h, 3, 2)
+    ops.sfb1d_atrous_window(x, x, h, h, 2, 2)
     assert ops.launch_counts() == {k.__name__: 0 for k in ops.KERNELS}
     assert set(ops.launch_counts()) == {
         "apply_row", "apply_col", "q2c_pack", "c2q_unpack", "scat_mag_fwd",
@@ -134,7 +142,8 @@ def test_cpu_tensors_take_plain_versions():
         "nonsep_sfb_adjoint", "sfb1d_atrous_conv", "sfb1d_atrous_adjoint",
         "apply_row_tf32", "apply_col_tf32", "apply_row_3xtf32",
         "apply_col_3xtf32", "apply_row_bf16", "apply_col_bf16",
-        "halo_pack", "halo_assemble", "halo_fold"}
+        "halo_pack", "halo_assemble", "halo_fold", "afb1d_window",
+        "sfb1d_window", "afb1d_atrous_window", "sfb1d_atrous_window"}
 
 
 def test_parallel_files_are_checked():
@@ -142,7 +151,8 @@ def test_parallel_files_are_checked():
     checked, and it imports no JAX-side name (the mesh, the halo, the
     sharded operators and transforms)."""
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
-    for mod in ("__init__", "mesh", "halo", "banded_shard", "sharded"):
+    for mod in ("__init__", "mesh", "halo", "banded_shard", "sharded",
+                "sharded_dwt"):
         assert f"pytorch_wavelets_tpu_torch/parallel/{mod}.py" in names
 
 

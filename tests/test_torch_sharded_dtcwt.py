@@ -33,7 +33,8 @@ from pytorch_wavelets_tpu_torch.parallel.sharded import (
     _dtcwt_fwd_shard_plans, _strategy,
 )
 from tests.torch_mesh_workers import (
-    DTCWT_CASES, chunk, dtcwt_inputs, dtcwt_worker, spawn_world,
+    DTCWT_CASES, chunk_of as _chunk_of, coords as _coords, dtcwt_inputs,
+    dtcwt_worker, spawn_world,
 )
 from tests.torch_parity import FAST
 
@@ -57,23 +58,6 @@ def jax_matmul():
     jbanded.set_operator_matmul(True)
     yield
     jbanded.set_operator_matmul(None)
-
-
-def _coords(world, nd, nh, ns):
-    """Each rank's (data, spatial_h, spatial) coordinate: the ranks laid
-    out as the mesh reshapes them."""
-    return [np.unravel_index(r, (nd, nh, ns)) for r in range(world)]
-
-
-def _chunk_of(full, coord, mesh_shape, spec):
-    """A rank's chunk of ``full``: spec names a mesh dim (0 data,
-    1 spatial_h, 2 spatial) per tensor dim, or None."""
-    out = full
-    for d, m in enumerate(spec):
-        if m is not None:
-            s, k = chunk(full.shape[d], mesh_shape[m], coord[m])
-            out = np.take(out, range(s, s + k), axis=d)
-    return out
 
 
 SP4 = (0, None, 1, 2)

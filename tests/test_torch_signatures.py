@@ -104,5 +104,60 @@ def test_positional_call_binds_like_jax():
     assert (f.J, f.mode, f.coeff_dtype) == (2, "symmetric", torch.bfloat16)
     i = tt.SWTInverse("db2", "zero", None, False, "cpu")
     assert (i.mode, i.upcast) == ("zero", False)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tt.DWTInverse("db1", "zero", object(), "cpu")
+
+
+@pytest.mark.parametrize("kind", ["dwt", "dwt1d", "swt"])
+def test_dwt_swt_mesh_world_of_one(world_of_one, kind):
+    """``mesh=`` on the six DWT / SWT modules, in the JAX package's
+    position: on a (1, 1) mesh the sharded operator route gives the
+    results without a mesh, as DTensors."""
+    x = torch.randn(2, 3, 32, 32) if kind != "dwt1d" else torch.randn(
+        2, 3, 64)
+    fwd, inv = {"dwt": (tt.DWTForward, tt.DWTInverse),
+                "dwt1d": (tt.DWT1DForward, tt.DWT1DInverse),
+                "swt": (tt.SWTForward, tt.SWTInverse)}[kind]
+    mode = "periodization" if kind == "swt" else "symmetric"
+    f = fwd(2, "db2", mode, world_of_one, None, "cpu")
+    i = inv("db2", mode, world_of_one, device="cpu")
+    out = f(x)
+    ref = fwd(2, "db2", mode, device="cpu")(x)
+    if kind == "swt":
+        got, want = list(out), list(ref)
+    else:
+        got, want = [out[0], *out[1]], [ref[0], *ref[1]]
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.to_local(), b, atol=1e-5, rtol=0)
+    rec = i(out)
+    torch.testing.assert_close(rec.to_local(), x, atol=1e-4, rtol=0)
+
+
+def test_parallel_exports_the_jax_entries():
+    """``parallel`` exports the JAX package's sharded entries but the
+    scattering layers' (A5c)."""
+    import pytorch_wavelets_tpu.parallel as jp
+    from pytorch_wavelets_tpu_torch import parallel as pp
+    want = {n for n in jp.__all__ if n.startswith("sharded_")}
+    assert want - set(pp.__all__) == {"sharded_scat_j1", "sharded_scat_j2"}
+    assert all(callable(getattr(pp, n)) for n in pp.__all__
+               if n.startswith("sharded_"))
+
+
+def test_dwt_swt_mesh_coeff_dtype(world_of_one):
+    """``coeff_dtype`` narrows the bands and the inverses upcast them with
+    ``mesh=`` as without it."""
+    x = torch.randn(2, 3, 32, 32)
+    yl, yh = tt.DWTForward(2, "db2", "zero", world_of_one, "bfloat16",
+                           "cpu")(x)
+    assert yl.dtype == torch.float32
+    assert all(h.dtype == torch.bfloat16 for h in yh)
+    rec = tt.DWTInverse("db2", "zero", world_of_one, "cpu")((yl, yh))
+    assert rec.dtype == torch.float32 and rec.shape == x.shape
+    cs = tt.SWTForward(2, "db2", "periodization", world_of_one, "bfloat16",
+                       "cpu")(x)
+    assert all(c.dtype == torch.bfloat16 for c in cs)
+    rec = tt.SWTInverse("db2", "periodization", world_of_one, True,
+                        "cpu")(cs)
+    assert rec.dtype == torch.float32
+    torch.testing.assert_close(rec.to_local(), x, atol=0.1, rtol=0)

@@ -254,8 +254,10 @@ def test_coeff_dtype_and_upcast():
 
 
 def test_mesh_not_ported():
+    """``mesh=`` is ported for the SWT (tests/test_torch_sharded_dwt.py):
+    anything but a ``DeviceMesh`` raises."""
     for cls in (tt.SWTForward, tt.SWTInverse):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             cls(device="cpu", mesh=object())
 
 

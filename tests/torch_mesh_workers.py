@@ -60,6 +60,23 @@ def chunk(n, parts, i):
     return start, max(0, min(s, n - start))
 
 
+def coords(world, nd, nh, ns):
+    """Each rank's (data, spatial_h, spatial) coordinate: the ranks laid
+    out as the mesh reshapes them."""
+    return [np.unravel_index(r, (nd, nh, ns)) for r in range(world)]
+
+
+def chunk_of(full, coord, mesh_shape, spec):
+    """A rank's chunk of ``full``: spec names a mesh dim (0 data,
+    1 spatial_h, 2 spatial) per tensor dim, or None."""
+    out = full
+    for d, m in enumerate(spec):
+        if m is not None:
+            s, k = chunk(full.shape[d], mesh_shape[m], coord[m])
+            out = np.take(out, range(s, s + k), axis=d)
+    return out
+
+
 def spawn_world(target, world, tmp_path, *args):
     """Run ``target(rank, world, store_path, out_dir, *args)`` in
     ``world`` processes; fail on any non-zero exit or past DEADLINE.
@@ -288,3 +305,266 @@ def _dtcwt_body(rank, world, res, cases):
 
 def dtcwt_worker(rank, world, store_path, out_dir):
     _run(_dtcwt_body, rank, world, store_path, out_dir, DTCWT_CASES[world])
+
+
+# --------------------------------------------------------------------------
+# The sharded DWT, 1-D DWT and SWT
+# --------------------------------------------------------------------------
+
+# (name, kind, (n_data, n_spatial_h, n_spatial), shape, J, mode, wave,
+# options) per world: kind 'dwt' (DWTForward / DWTInverse), 'dwt1d'
+# (DWT1DForward / DWT1DInverse) or 'swt' (SWTForward / SWTInverse); wave a
+# name, or 'db2_tuple' (dec_filters('db2')), 'bior22_tuple'
+# (dec_filters('bior2.2')) or 'db2_db1' (db2 along W, db1 along H: a
+# 4-tuple); options: 'conv' (the conv halo route, set_operator_matmul
+# False), 'grads' (input and coefficient gradients), 'hvp', 'none' (the
+# inverse of the forward with its level-0 bands None), 'fwd_only',
+# 'dtensor' (the input a DTensor placed as spatial_placements, its last
+# shard short; its gradient this rank's chunk), and 'raises' (the
+# exception expected instead of a result)
+DWT_CASES = {
+    2: [
+        ("dwt_zero_sp2", "dwt", (1, 1, 2), (2, 2, 32, 48), 2, "zero", "db2",
+         {"grads": True}),
+        ("dwt_sym_sp2_ragged", "dwt", (1, 1, 2), (2, 2, 31, 57), 2,
+         "symmetric", "db2", {"grads": True}),
+        ("dwt_sym_sp2_dtensor_in", "dwt", (1, 1, 2), (2, 2, 31, 57), 2,
+         "symmetric", "db2", {"grads": True, "dtensor": True}),
+        ("dwt_reflect_sp2_ragged", "dwt", (1, 1, 2), (2, 2, 31, 57), 2,
+         "reflect", "db2", {}),
+        ("dwt_zero_sp2_ragged", "dwt", (1, 1, 2), (2, 2, 31, 57), 2, "zero",
+         "db3", {}),
+        ("dwt_sym_sp2", "dwt", (1, 1, 2), (2, 2, 32, 48), 2, "symmetric",
+         "db3", {}),
+        ("dwt_reflect_sp2", "dwt", (1, 1, 2), (2, 2, 32, 48), 2, "reflect",
+         "db2", {}),
+        ("dwt_per_sp2", "dwt", (1, 1, 2), (2, 2, 32, 48), 2, "periodization",
+         "db2", {"grads": True}),
+        ("dwt_per_sp2_conv", "dwt", (1, 1, 2), (2, 2, 32, 48), 2,
+         "periodization", "db2", {"grads": True, "conv": True}),
+        ("dwt_per_sp2_oddh", "dwt", (1, 1, 2), (2, 2, 29, 48), 2,
+         "periodization", "db2", {"grads": True}),
+        ("dwt_data2_odd", "dwt", (2, 1, 1), (3, 2, 32, 48), 2, "symmetric",
+         "db2", {"grads": True}),
+        ("dwt_none_sp2", "dwt", (1, 1, 2), (2, 2, 31, 57), 2, "zero", "db2",
+         {"none": True}),
+        ("dwt_none_sp2_per", "dwt", (1, 1, 2), (2, 2, 32, 48), 2,
+         "periodization", "db2", {"none": True}),
+        ("dwt_tuple4_sp2", "dwt", (1, 1, 2), (2, 2, 32, 48), 2, "zero",
+         "db2_db1", {}),
+        ("dwt1d_zero_sp2", "dwt1d", (1, 1, 2), (2, 2, 61), 3, "zero", "db2",
+         {"grads": True}),
+        ("dwt1d_sym_sp2", "dwt1d", (1, 1, 2), (2, 2, 64), 2, "symmetric",
+         "db3", {}),
+        ("dwt1d_per_sp2", "dwt1d", (1, 1, 2), (2, 2, 64), 3, "periodization",
+         "db2", {"grads": True}),
+        ("dwt1d_none_sp2", "dwt1d", (1, 1, 2), (2, 2, 61), 2, "zero", "db2",
+         {"none": True}),
+        ("swt_per_sp2", "swt", (1, 1, 2), (2, 2, 32, 48), 2, "periodization",
+         "db2", {"grads": True}),
+        ("swt_per_sp2_conv", "swt", (1, 1, 2), (2, 2, 32, 48), 2,
+         "periodization", "db2", {"grads": True, "conv": True}),
+        ("swt_periodic_bior_sp2", "swt", (1, 1, 2), (2, 2, 32, 48), 2,
+         "periodic", "bior2.2", {}),
+        ("swt_per_bior_sp2_conv", "swt", (1, 1, 2), (2, 2, 32, 48), 2,
+         "periodization", "bior2.2", {"conv": True}),
+        ("swt_per_tuple_sp2", "swt", (1, 1, 2), (2, 2, 32, 48), 2,
+         "periodization", "db2_tuple", {}),
+        ("swt_per_tuple_sp2_conv", "swt", (1, 1, 2), (2, 2, 32, 48), 2,
+         "periodization", "db2_tuple", {"conv": True}),
+        ("swt_per_data2_odd", "swt", (2, 1, 1), (3, 2, 32, 48), 2,
+         "periodization", "db2", {"grads": True}),
+        ("swt_zero_sp2_ragged", "swt", (1, 1, 2), (2, 2, 31, 57), 2, "zero",
+         "db2", {"fwd_only": True, "grads": True}),
+        ("swt_sym_sp2_ragged", "swt", (1, 1, 2), (2, 2, 31, 57), 2,
+         "symmetric", "bior2.2", {"fwd_only": True}),
+        ("dwt_periodic_raises", "dwt", (1, 1, 2), (2, 2, 32, 32), 2,
+         "periodic", "db2", {"raises": "ValueError"}),
+        ("dwt1d_periodic_raises", "dwt1d", (1, 1, 2), (2, 2, 64), 2,
+         "periodic", "db2", {"raises": "ValueError"}),
+        ("iswt_sym_raises", "swt", (1, 1, 2), (2, 2, 32, 48), 2,
+         "symmetric", "db2", {"raises": "NotImplementedError"}),
+        ("iswt_bior_tuple_raises", "swt", (1, 1, 2), (2, 2, 32, 48), 2,
+         "periodization", "bior22_tuple", {"raises": "NotImplementedError"}),
+        ("dwt_uneven_raises", "dwt", (1, 1, 2), (2, 2, 32, 36), 2,
+         "periodization", "db2", {"raises": "ValueError"}),
+        ("swt_uneven_raises", "swt", (1, 1, 2), (2, 2, 32, 45), 2,
+         "periodization", "db2", {"raises": "ValueError"}),
+    ],
+    4: [
+        ("dwt_hw_sym_ragged", "dwt", (1, 2, 2), (2, 2, 31, 57), 2,
+         "symmetric", "db2", {"grads": True, "hvp": True}),
+        ("dwt_hw_zero", "dwt", (1, 2, 2), (2, 2, 32, 48), 2, "zero", "db3",
+         {}),
+        ("dwt_hw_per", "dwt", (1, 2, 2), (2, 2, 32, 48), 2, "periodization",
+         "db2", {"grads": True}),
+        ("dwt_sp4_gather", "dwt", (1, 1, 4), (2, 2, 32, 57), 3, "zero", "db4",
+         {"grads": True}),
+        ("dwt_data2_sp2_odd", "dwt", (2, 1, 2), (3, 2, 31, 57), 2,
+         "symmetric", "db2", {"grads": True}),
+        ("dwt_sp4_per_conv", "dwt", (1, 1, 4), (2, 2, 32, 64), 2,
+         "periodization", "db2", {"grads": True, "conv": True}),
+        ("dwt1d_zero_sp4", "dwt1d", (1, 1, 4), (2, 2, 61), 3, "zero", "db2",
+         {"grads": True}),
+        ("swt_hw_per", "swt", (1, 2, 2), (2, 2, 32, 48), 2, "periodization",
+         "db2", {"grads": True}),
+        ("swt_sp4_per_conv", "swt", (1, 1, 4), (2, 2, 32, 64), 2,
+         "periodization", "db2", {"grads": True, "conv": True}),
+        ("swt_hw_zero_ragged", "swt", (1, 2, 2), (2, 2, 31, 57), 2, "zero",
+         "db2", {"fwd_only": True}),
+        ("dwt_hw_conv_raises", "dwt", (1, 2, 2), (2, 2, 32, 48), 2,
+         "periodization", "db2", {"conv": True, "raises": "ValueError"}),
+        ("swt_hw_conv_raises", "swt", (1, 2, 2), (2, 2, 32, 48), 2,
+         "periodization", "db2", {"conv": True, "raises": "ValueError"}),
+    ],
+}
+
+
+def dwt_wave(wave):
+    """A case's ``wave``: a name, or the tuples its alias names (made
+    with the port's filters)."""
+    from pytorch_wavelets_tpu_torch.transforms.dwt import dec_filters
+    if wave == "db2_tuple":
+        return tuple(np.asarray(f) for f in dec_filters("db2"))
+    if wave == "bior22_tuple":
+        return tuple(np.asarray(f) for f in dec_filters("bior2.2"))
+    if wave == "db2_db1":
+        return tuple(np.asarray(f) for f in dec_filters("db2")[:2]
+                     + dec_filters("db1")[:2])
+    return wave
+
+
+def dwt_rec_wave(kind, wave):
+    """The inverse module's ``wave``: the SWT's takes the analysis
+    filters, the DWT's the synthesis ones."""
+    from pytorch_wavelets_tpu_torch.transforms.dwt import rec_filters
+    w = dwt_wave(wave)
+    if kind == "swt" or isinstance(w, str):
+        return w
+    return tuple(np.asarray(f) for f in rec_filters("db2")[:2]
+                 + rec_filters("db1")[:2])
+
+
+def dwt_out_leaves(out):
+    """(forward leaves, inverse input) of a forward's output: the DWTs'
+    (yl, yh) flattened, the SWT's list."""
+    if isinstance(out, tuple):
+        return [out[0], *out[1]]
+    return list(out)
+
+
+def _chunk_leaf(full, mesh):
+    """This rank's ``torch.chunk`` of ``full`` (N over 'data', H over
+    'spatial_h', W over 'spatial'), a leaf that requires grad."""
+    t = torch.from_numpy(full)
+    names = mesh.mesh_dim_names
+    for d, name in ((0, "data"), (2, "spatial_h"), (3, "spatial")):
+        if name in names:
+            s, k = chunk(full.shape[d], mesh.size(names.index(name)),
+                         mesh.get_local_rank(name))
+            t = t.narrow(d, s, k)
+    return t.clone().requires_grad_()
+
+
+def _dwt_modules(tt, kind, J, mode, wave, mesh):
+    w = dwt_wave(wave)
+    if kind == "dwt":
+        return (tt.DWTForward(J=J, wave=w, mode=mode, mesh=mesh, device="cpu"),
+                tt.DWTInverse(wave=dwt_rec_wave(kind, wave), mode=mode,
+                              mesh=mesh, device="cpu"))
+    if kind == "dwt1d":
+        return (tt.DWT1DForward(J=J, wave=w, mode=mode, mesh=mesh,
+                                device="cpu"),
+                tt.DWT1DInverse(wave=w, mode=mode, mesh=mesh, device="cpu"))
+    return (tt.SWTForward(J=J, wave=w, mode=mode, mesh=mesh, device="cpu"),
+            tt.SWTInverse(wave=w, mode=mode, mesh=mesh, device="cpu"))
+
+
+def _dwt_body(rank, world, res, cases):
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    import pytorch_wavelets_tpu_torch as tt
+    from pytorch_wavelets_tpu_torch.ops import banded
+    from pytorch_wavelets_tpu_torch.parallel import (
+        LAST_PATH, make_mesh, spatial_placements,
+    )
+
+    for seed, (name, kind, (nd, nh, ns), shape, J, mode, wave,
+               opts) in enumerate(cases):
+        mesh = make_mesh(nd, ns, nh, device_type="cpu")
+        banded.set_operator_matmul(False if opts.get("conv") else None)
+        x = rand(shape, 1000 + seed)
+        try:
+            fwd, inv = _dwt_modules(tt, kind, J, mode, wave, mesh)
+            xt = torch.from_numpy(x).requires_grad_()
+            xin = xt
+            if opts.get("dtensor"):
+                xt = _chunk_leaf(x, mesh)
+                xin = DTensor.from_local(
+                    xt, mesh, spatial_placements(mesh), run_check=False,
+                    shape=torch.Size(shape), stride=torch.from_numpy(
+                        x).stride())
+            out = fwd(xin)
+            if opts.get("raises") and kind != "swt":
+                inv(out)
+            elif opts.get("raises"):
+                inv([c.detach() for c in out])
+        except (ValueError, NotImplementedError) as e:
+            res[name + "/raised"] = np.str_(f"{type(e).__name__}: {e}")
+            continue
+        finally:
+            banded.set_operator_matmul(None)
+        banded.set_operator_matmul(False if opts.get("conv") else None)
+        leaves = dwt_out_leaves(out)
+        for j, t in enumerate(leaves):
+            res[f"{name}/out{j}"] = t.to_local().detach().numpy()
+        res[name + "/path"] = np.str_(LAST_PATH[
+            {"dwt": "dwt2d", "dwt1d": "dwt1d", "swt": "swt2d"}[kind]])
+        if opts.get("grads"):
+            cts = [rand(tuple(t.shape), 2000 + 10 * seed + j)
+                   for j, t in enumerate(leaves)]
+            loss = sum((t.to_local() * _local_of(c, mesh, t)).sum()
+                       for t, c in zip(leaves, cts))
+            gx, = torch.autograd.grad(loss, xt, retain_graph=True)
+            # a padded input's gradient is a view: all_reduce needs it
+            # contiguous
+            gx = gx.contiguous()
+            if not opts.get("dtensor"):
+                dist.all_reduce(gx)
+            res[name + "/gx"] = gx.numpy()
+        if opts.get("fwd_only"):
+            banded.set_operator_matmul(None)
+            continue
+        # the inverse of the forward's coefficients, from fresh leaves
+        locs = [t.to_local().detach().requires_grad_() for t in leaves]
+        ins = [DTensor.from_local(loc, mesh, t.placements, run_check=False,
+                                  shape=t.shape, stride=t.stride())
+               for loc, t in zip(locs, leaves)]
+        if opts.get("none"):
+            ins[1] = None
+        coeffs = ins if kind == "swt" else (ins[0], ins[1:])
+        rec = inv(coeffs)
+        res[name + "/rec"] = rec.to_local().detach().numpy()
+        res[name + "/ipath"] = np.str_(LAST_PATH[
+            {"dwt": "idwt2d", "dwt1d": "idwt1d", "swt": "iswt2d"}[kind]])
+        if opts.get("grads"):
+            c = rand(tuple(rec.shape), 3000 + seed)
+            grads = torch.autograd.grad(
+                (rec.to_local() * _local_of(c, mesh, rec)).sum(), locs)
+            for j, g in enumerate(grads):
+                res[f"{name}/ginv{j}"] = g.numpy()
+        if opts.get("hvp"):
+            v = torch.from_numpy(rand(shape, 4000 + seed))
+            outs = dwt_out_leaves(fwd(xt))
+            cubic = sum((t.to_local() ** 3).sum() for t in outs)
+            g, = torch.autograd.grad(cubic, xt, create_graph=True)
+            hv, = torch.autograd.grad((g * v).sum(), xt)
+            hv = hv.contiguous()
+            dist.all_reduce(hv)
+            res[name + "/hvp"] = hv.numpy()
+        banded.set_operator_matmul(None)
+
+
+def dwt_worker(rank, world, store_path, out_dir):
+    _run(_dwt_body, rank, world, store_path, out_dir, DWT_CASES[world])
