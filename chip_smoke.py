@@ -191,7 +191,21 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    128x3x256x256 on (1, 2) along W and H (fp32) and W (bf16), torch.cat
    of the same buffer as the library call;
    sharded_nccl: a world of one on NCCL, mesh (1, 1), bit for bit the
-   path without a mesh.
+   path without a mesh (the main path's DTCWT and ScatLayerj2 on
+   128x3x256x256).  The same worlds run sharded_dwt (the DWT, 1-D DWT and
+   SWT) and sharded_scat: ScatLayerj2 on 128x3x256x256 on (1, 2) and
+   (1, 2 spatial_h, 2), ScatLayer on 128x3x255x255 (padded even) on
+   (1, 2), ScatLayerj2(combine_colour=True) on 15x3x256x256 on (2, 2)
+   (an odd batch over 'data'), all on the composed fronts, and on
+   1x3x9216x9216 (past MAX_MATMUL_N) DTCWTForward(J=3) -> DTCWTInverse
+   and ScatLayer on the per-level route, both on (1, 2): each rank's
+   forward (inverse) and x.grad against the card's run without a mesh
+   within 2e-5, the route LAST_PATH names, K1, K2 / K4 in the forward and
+   K3 / K5 in the backward (K11 both ways on the per-level front, none on
+   the composed ones), K19 as in sharded_main, the first call's seconds
+   (host plans) and the forward (round trip) and step on the host clock;
+   K1's kernel lines on rank 0's stage-1 blocks of both ScatLayerj2
+   fronts and of the per-level DTCWT's level 1 on (1, 2).
 15. profile: device time by kernel of the main path, of one ScatLayerj2
    training step, of one DWT training step, of one bandpass-diagonal
    ScatLayerj2 training step, of one SWT training step, of one
@@ -301,8 +315,10 @@ STENCILS = ("dtcwt_filt", "dtcwt_dfilt", "dtcwt_ifilt")
 POOLS = ("avg_pool2_fwd", "avg_pool2_bwd")
 PER_LEVEL = STENCILS + POOLS + ("q2c_pack", "c2q_unpack")
 # (reps, batches) of a replay's timings: the default, and for the calls of
-# the 1x3x9216^2 path (each moves gigabytes)
-REPLAY_TIMING, LARGE_REPLAY_TIMING = (20, 5), (3, 3)
+# the 1x3x9216^2 path (each moves gigabytes).  Each batch spins the card
+# for SPIN_CYCLES first, so the batches set most of a replay's time: 3,
+# not more, keeps the whole script near 750 s
+REPLAY_TIMING, LARGE_REPLAY_TIMING = (20, 3), (3, 3)
 # the JAX function each per-level K2/K3 call replaces
 PER_LEVEL_REPLACES = {
     "q2c_pack": "pytorch_wavelets_tpu/ops/dtcwt_fb.py:294",
@@ -4760,7 +4776,8 @@ def sharded_case(tt, ops, parallel, label, mesh_shape, shape, J):
     """One mesh on this rank: the counted forward, inverse and gradient
     of <rec, G0> + <yl, G1> + sum_j <yh_j, G2+j> through DTCWTForward /
     DTCWTInverse with ``mesh=``, against the port without a mesh on the
-    card (:func:`sharded_run`)."""
+    card (:func:`sharded_run`).  The references and cotangents are then
+    held on the host: at 9216² they are 11 GB a rank."""
     nd, nh, ns = mesh_shape
     mesh = parallel.make_mesh(nd, ns, nh)
     x = torch.randn(shape, generator=torch.Generator().manual_seed(0)).cuda()
@@ -4775,6 +4792,10 @@ def sharded_case(tt, ops, parallel, label, mesh_shape, shape, J):
           .cuda() for i, t in enumerate([rec, yl, *yh])]
     loss = sum((t * g).sum() for t, g in zip([rec, yl, *yh], gs))
     gref, = torch.autograd.grad(loss, xr)
+    refs = [t.detach().cpu() for t in [rec, yl, *yh]]
+    gs, gref = [g.cpu() for g in gs], gref.cpu()
+    del xr, yl, yh, rec, loss
+    torch.cuda.empty_cache()
 
     def step(z):
         ylm, yhm = fwd(z)
@@ -4783,28 +4804,41 @@ def sharded_case(tt, ops, parallel, label, mesh_shape, shape, J):
     return dict(label=label,
                 mesh=dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
                 shape=list(shape), J=J,
-                **sharded_run(ops, parallel, step, x, gs, [rec, yl, *yh],
-                              gref))
+                **sharded_run(ops, parallel, step, x, gs, refs, gref))
 
 
-def sharded_run(ops, parallel, step, x, gs, refs, gref):
-    """The counted run of ``step`` (a round trip returning [rec, *forward
-    leaves] as DTensors) and the gradient of sum_j <out_j, gs_j> on this
-    rank, held against ``refs`` / ``gref`` from the card's run without a
-    mesh (this rank's chunks; x.grad outside the rank's chunk must be
-    0), then the round trip and the step timed on the host clock (median
-    of SHARDED_REPS after a warm-up and a barrier).  Returns the launches,
-    K19's walks, the exchanges, the bytes staged, ``LAST_PATH``, the
-    errors and the times."""
+def sharded_run(ops, parallel, step, x, gs, refs, gref, fwd_only=False):
+    """The first call of ``step`` (a round trip returning [rec, *forward
+    leaves] as DTensors, or with ``fwd_only`` the forward's leaves alone)
+    without a gradient, timed (the host plans built, the operators put
+    on the card) and counted; then the counted run of ``step`` and the
+    gradient of sum_j <out_j, gs_j> on this rank, held against ``refs`` /
+    ``gref`` from the card's run without a mesh (this rank's chunks;
+    x.grad outside the rank's chunk must be 0), then the round trip and
+    the step timed on the host clock (median of SHARDED_REPS after a
+    warm-up and a barrier).  Returns the first call's seconds and
+    launches, the launches, K19's walks, the exchanges, the bytes staged,
+    ``LAST_PATH``, the errors (the inverse's None with ``fwd_only``) and
+    the times."""
     import torch.distributed as dist
+    dist.barrier()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        step(x)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    first = {k: n for k, n in ops.launch_counts().items() if n}
     dist.barrier()
     ops.reset_launches()
     parallel.reset_staged_bytes()
     parallel.reset_exchanges()
     xs = x.clone().requires_grad_()
     outs = step(xs)
-    lossm = sum((t.to_local() * _dt_chunk(g, t)).sum()
-                for t, g in zip(outs, gs))
+    # this rank's chunks of the cotangents, on its device (``refs``,
+    # ``gs`` and ``gref`` may be held on the host)
+    gl = [_dt_chunk(g, t).to(t.device) for t, g in zip(outs, gs)]
+    lossm = sum((t.to_local() * g).sum() for t, g in zip(outs, gl))
     gm, = torch.autograd.grad(lossm, xs)
     torch.cuda.synchronize()
     counts = {k: n for k, n in ops.launch_counts().items() if n}
@@ -4812,12 +4846,14 @@ def sharded_run(ops, parallel, step, x, gs, refs, gref):
     exchanges = dict(parallel.EXCHANGES)
     staged = dict(parallel.STAGED_BYTES)
     path = dict(parallel.LAST_PATH)
-    err_fwd = max(max_err(t.to_local(), _dt_chunk(r, t))
-                  for t, r in zip(outs[1:], refs[1:]))
-    err_inv = max_err(outs[0].to_local(), _dt_chunk(refs[0], outs[0]))
+    k = 0 if fwd_only else 1
+    err_fwd = max(max_err(t.to_local(), _dt_chunk(r, t).to(t.device))
+                  for t, r in zip(outs[k:], refs[k:]))
+    err_inv = None if fwd_only else max_err(
+        outs[0].to_local(), _dt_chunk(refs[0], outs[0]).to(x.device))
     mask = torch.zeros_like(gm)
     _dt_chunk(mask, outs[0]).fill_(1.0)       # x is placed as rec
-    err_grad = max_err(gm, gref * mask)
+    err_grad = max_err(gm, gref.to(gm.device) * mask)
     del outs, gm, xs, mask
 
     def timed(fn):
@@ -4838,10 +4874,11 @@ def sharded_run(ops, parallel, step, x, gs, refs, gref):
     def train():
         z = x.clone().requires_grad_()
         o = step(z)
-        torch.autograd.grad(sum((t.to_local() * _dt_chunk(g, t)).sum()
-                                for t, g in zip(o, gs)), z)
+        torch.autograd.grad(sum((t.to_local() * g).sum()
+                                for t, g in zip(o, gl)), z)
     return dict(
-        path=path, launches=counts,
+        path=path, first_call_s=first_s, first_call_launches=first,
+        launches=counts,
         k1_launches=counts.get("apply_row", 0) + counts.get("apply_col", 0),
         k19_launches={k: counts.get(k, 0) for k in HALO_KERNELS},
         k19_walks=walks, exchanges=exchanges, staged_bytes=staged,
@@ -4850,11 +4887,12 @@ def sharded_run(ops, parallel, step, x, gs, refs, gref):
         round_trip_ms=rt_ms, step_ms=timed(train))
 
 
-def sharded_worker(rank, world, store, out_dir, cases, dwt_cases):
+def sharded_worker(rank, world, store, out_dir, cases, dwt_cases,
+                   scat_cases):
     """One rank of a gloo world on the card (every rank on cuda:0, the
-    halos through pinned host memory): its DTCWT cases' and its DWT / SWT
-    cases' results to ``out_dir/rank<r>.json``; any failure exits
-    non-zero."""
+    halos through pinned host memory): its DTCWT cases', its DWT / SWT
+    cases' and its scattering / per-level DTCWT cases' results to
+    ``out_dir/rank<r>.json``; any failure exits non-zero."""
     import os
     import traceback
     try:
@@ -4871,7 +4909,9 @@ def sharded_worker(rank, world, store, out_dir, cases, dwt_cases):
         res = {"dtcwt": [sharded_case(tt, ops, parallel, *case)
                          for case in cases],
                "dwt": [sharded_dwt_case(tt, ops, parallel, banded, afb_sfb,
-                                        dwt, *case) for case in dwt_cases]}
+                                        dwt, *case) for case in dwt_cases],
+               "scat": [sharded_scat_case(tt, ops, parallel, *case)
+                        for case in scat_cases]}
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(res, f)
         dist.barrier()
@@ -4882,10 +4922,10 @@ def sharded_worker(rank, world, store, out_dir, cases, dwt_cases):
         os._exit(1)
 
 
-def sharded_world(world, cases, dwt_cases):
-    """Run ``cases`` and ``dwt_cases`` in a world of ``world`` processes,
-    joined with SHARDED_DEADLINE; a failing or hung rank fails the phase.
-    Returns the ranks' results."""
+def sharded_world(world, cases, dwt_cases, scat_cases):
+    """Run ``cases``, ``dwt_cases`` and ``scat_cases`` in a world of
+    ``world`` processes, joined with SHARDED_DEADLINE; a failing or hung
+    rank fails the phase.  Returns the ranks' results."""
     import multiprocessing as mp
     import os
     import tempfile
@@ -4893,7 +4933,8 @@ def sharded_world(world, cases, dwt_cases):
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=sharded_worker,
                          args=(r, world, os.path.join(tmp, "store"), tmp,
-                               cases, dwt_cases)) for r in range(world)]
+                               cases, dwt_cases, scat_cases))
+             for r in range(world)]
     for p in procs:
         p.start()
     end = time.monotonic() + SHARDED_DEADLINE
@@ -5114,6 +5155,206 @@ def sharded_dwt_phase(smi, worlds, seconds):
              world_seconds_with_sharded_main=seconds[world], meshes=meshes)
     emit("sharded_dwt_launches", launches=total)
     return total
+
+
+# ---------------------------------------------------------------------------
+# the sharded scattering layers (parallel/sharded_scat.py) and the per-level
+# sharded DTCWT (parallel/sharded.py) in the same worlds
+# ---------------------------------------------------------------------------
+
+# (label, kind, (n_data, n_spatial_h, n_spatial), shape, route) per world:
+# kind 'j2' (ScatLayerj2()), 'j2_colour' (ScatLayerj2(combine_colour=True)),
+# 'j1' (ScatLayer()) or 'dtcwt' (DTCWTForward(J=LARGE_J) -> DTCWTInverse, a
+# round trip); route the LAST_PATH each entry must name: 'matmul' the
+# composed fronts, 'perlevel' level by level (LARGE_SHAPE's 9216 is past
+# MAX_MATMUL_N).  Both 9216² cases run in the world of 2, so that at most
+# two ranks hold their runs without a mesh on the card at once.
+SCAT_ODD_SHAPE = (128, 3, 255, 255)        # ScatLayer pads it even
+SCAT_ODD_BATCH_SHAPE = (15, 3, 256, 256)   # 15 does not divide over 'data'
+SHARDED_SCAT_WORLDS = {
+    2: [("scat_j2 (1, 2)", "j2", (1, 1, 2), SCAT_SHAPE, "matmul"),
+        ("scat_j1 (1, 2) odd", "j1", (1, 1, 2), SCAT_ODD_SHAPE, "matmul"),
+        ("perlevel dtcwt (1, 2)", "dtcwt", (1, 1, 2), LARGE_SHAPE,
+         "perlevel"),
+        ("scat_j1 giant (1, 2)", "j1", (1, 1, 2), LARGE_SHAPE, "perlevel")],
+    4: [("scat_j2 (1, 2, 2)", "j2", (1, 2, 2), SCAT_SHAPE, "matmul"),
+        ("scat_j2 colour (2, 2)", "j2_colour", (2, 1, 2),
+         SCAT_ODD_BATCH_SHAPE, "matmul")]}
+SCAT_SHARDED_TOL = {"forward": 2e-5, "inverse": 2e-5, "x_grad": 2e-5}
+SCAT_ENTRIES = {"j2": ("scat_j2",), "j2_colour": ("scat_j2",),
+                "j1": ("scat_j1",), "dtcwt": ("dtcwt2d", "idtcwt2d")}
+
+
+def _scat_layer(tt, kind, mesh=None):
+    """The scattering layer of a sharded_scat case, without a mesh where
+    ``mesh`` is None."""
+    cls = tt.ScatLayer if kind == "j1" else tt.ScatLayerj2
+    kw = {"combine_colour": True} if kind == "j2_colour" else {}
+    return cls(mesh=mesh, device="cuda", **kw)
+
+
+def sharded_scat_case(tt, ops, parallel, label, kind, mesh_shape, shape,
+                      route):
+    """One scattering or per-level DTCWT mesh on this rank: the card's
+    run without a mesh first (for 'dtcwt' :func:`sharded_case`'s round
+    trip and loss, else the layer and the gradient of <out, G>), then
+    with ``mesh=`` (:func:`sharded_run`: the first call, whose host plans
+    and operators a 9216² run holds GBs of, the counted run and the
+    times).  The backward's launches are the counted run's less the first
+    call's."""
+    import gc
+
+    from pytorch_wavelets_tpu_torch.parallel import sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+    if kind == "dtcwt":
+        res = sharded_case(tt, ops, parallel, label, mesh_shape, shape,
+                           LARGE_J)
+    else:
+        nd, nh, ns = mesh_shape
+        mesh = parallel.make_mesh(nd, ns, nh)
+        x = torch.randn(shape,
+                        generator=torch.Generator().manual_seed(0)).cuda()
+        xr = x.clone().requires_grad_()
+        out = _scat_layer(tt, kind)(xr)
+        g = torch.randn(out.shape, generator=torch.Generator().manual_seed(
+            1)).cuda()
+        gref, = torch.autograd.grad((out * g).sum(), xr)
+        refs, g, gref = [out.detach().cpu()], g.cpu(), gref.cpu()
+        del out, xr
+        m = _scat_layer(tt, kind, mesh)
+        res = dict(label=label,
+                   mesh=dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
+                   shape=list(shape),
+                   **sharded_run(ops, parallel, lambda z: [m(z)], x, [g],
+                                 refs, gref, fwd_only=True))
+        res["forward_ms"] = res.pop("round_trip_ms")
+        del refs, g, gref, x, m
+    first = res["first_call_launches"]
+    res["path"] = {e: res["path"].get(e) for e in SCAT_ENTRIES[kind]}
+    res.update(kind=kind, route=route, backward_launches={
+        k: n - first.get(k, 0) for k, n in res["launches"].items()
+        if n > first.get(k, 0)})
+    # the 9216² plans hold GBs of operators on the card
+    sharded._dtcwt_fwd_perlevel_shard_plans.cache_clear()
+    sharded._dtcwt_inv_perlevel_shard_plans.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def sharded_scat_gates(label, r, res, nh, ns):
+    """One rank's checks of a sharded_scat mesh: within SCAT_SHARDED_TOL,
+    the route named, K1 launched; the scattering layers' first call (a
+    forward) launching K2 and K4 and their backward K3 and K5, the
+    per-level fronts K11 both ways and the composed ones none (the pool is
+    composed into their operators); the DTCWT round trip K2 and K3 both
+    ways; K19 where a spatial axis is sharded, one launch an exchange and
+    pass."""
+    for what, tol in SCAT_SHARDED_TOL.items():
+        err = res["max_abs_err"][what]
+        require(err is None or err <= tol,
+                f"sharded_scat {label} rank {r}: {what} differs from the "
+                f"card's run without a mesh by {err} (limit {tol})")
+    require(set(res["path"].values()) == {res["route"]},
+            f"sharded_scat {label} rank {r}: path {res['path']}, route "
+            f"{res['route']}")
+    require(res["k1_launches"] > 0,
+            f"sharded_scat {label} rank {r}: K1 never launched")
+    fwd, bwd = res["first_call_launches"], res["backward_launches"]
+    if res["kind"] == "dtcwt":
+        need = (("q2c_pack", "c2q_unpack"), ("q2c_pack", "c2q_unpack"))
+    else:
+        need = (("q2c_pack", "scat_mag_fwd"),
+                ("c2q_unpack", "scat_mag_bwd"))
+        pools = {k: fwd.get(k, 0) + bwd.get(k, 0) for k in POOLS}
+        if res["route"] == "perlevel":
+            need = (need[0] + ("avg_pool2_fwd",),
+                    need[1] + ("avg_pool2_bwd",))
+        else:
+            require(not any(pools.values()), f"sharded_scat {label} rank "
+                    f"{r}: K11 launched on the composed fronts: {pools}")
+    require(all(fwd.get(k, 0) > 0 for k in need[0])
+            and all(bwd.get(k, 0) > 0 for k in need[1]),
+            f"sharded_scat {label} rank {r}: first call {fwd}, backward "
+            f"{bwd}; need {need}")
+    n19 = sum(res["k19_launches"].values())
+    require(n19 > 0 if nh * ns > 1 else n19 == 0,
+            f"sharded_scat {label} rank {r}: K19 launches "
+            f"{res['k19_launches']}")
+    k19_exchange_gates(label, r, res)
+
+
+def sharded_scat_phase(smi, worlds, seconds):
+    """Emit the sharded_scat phase of every world (every rank's results
+    gated by :func:`sharded_scat_gates`); returns every kernel's launches
+    summed over every rank of every mesh."""
+    total = {}
+    for world, cases in SHARDED_SCAT_WORLDS.items():
+        meshes = []
+        for i, (label, kind, (_, nh, ns), shape, route) in enumerate(
+                cases):
+            per_rank = [worlds[world][r]["scat"][i] for r in range(world)]
+            for r, res in enumerate(per_rank):
+                sharded_scat_gates(label, r, res, nh, ns)
+                for k, n in res["launches"].items():
+                    total[k] = total.get(k, 0) + n
+            ms = "round_trip_ms" if kind == "dtcwt" else "forward_ms"
+            meshes.append({
+                "label": label, "kind": kind, "route": route,
+                "mesh": per_rank[0]["mesh"], "shape": list(shape),
+                "ranks": per_rank,
+                "max_abs_err": {
+                    w: max((r["max_abs_err"][w] for r in per_rank
+                            if r["max_abs_err"][w] is not None),
+                           default=None) for w in SCAT_SHARDED_TOL},
+                ms: max(r[ms] for r in per_rank),
+                "step_ms": max(r["step_ms"] for r in per_rank),
+                "first_call_s": max(r["first_call_s"] for r in per_rank),
+                "staged_bytes": max(sum(r["staged_bytes"].values())
+                                    for r in per_rank)})
+        emit("sharded_scat", world=world, timing_label=SHARDED_LABEL,
+             nvidia_smi=smi, tolerance=SCAT_SHARDED_TOL,
+             world_seconds_with_sharded_main=seconds[world], meshes=meshes)
+    emit("sharded_scat_launches", launches=total)
+    return total
+
+
+def sharded_scat_k1_rows(tt, banded, sharded, sharded_scat, launches):
+    """K1 on rank 0's block of three stage-1 operators on (1, 2), each over
+    its halo'd window, against its plain version and ``torch.matmul``:
+    ScatLayerj2's two composed fronts on SCAT_SHAPE (orders 1 + 2 on the
+    image; order 2 on the 6C first-order magnitudes at half size) and the
+    per-level DTCWT's level 1 on LARGE_SHAPE.  ``launches`` are the
+    sharded_scat meshes' (every rank)."""
+    f = tt.ScatLayerj2(device="cpu")._filters
+    taps = tuple(f[k] for k in ("h0o", "h1o", "h0a", "h1a", "h0b", "h1b"))
+    N, C, H, W = SCAT_SHAPE
+    dt = _k19_filters()
+    (lev, _), = sharded._fwd_level_plans(
+        *(dt[k] for k in ("h0o", "h1o", "h0a", "h1a", "h0b", "h1b")), 1,
+        (False,), "symmetric", *LARGE_SHAPE[2:])
+    cases = (
+        (f"ScatLayerj2 orders 1 + 2 front, {shape_str(SCAT_SHAPE)}",
+         (N, C, H), sharded_scat._scat_shard_plans(
+             *taps, 2, "symmetric", H, W, 2, 1)[0]),
+        ("ScatLayerj2 order 2 front, "
+         f"{shape_str((N, 6 * C, H // 2, W // 2))}",
+         (N, 6 * C, H // 2), sharded_scat._scat_shard_plans(
+             *taps, 1, "symmetric", H // 2, W // 2, 2, 1)[0]),
+        (f"per-level DTCWT level 1, {shape_str(LARGE_SHAPE)}",
+         LARGE_SHAPE[:3], sharded._pyramid_shard_op((lev,), LARGE_SHAPE[3],
+                                                    2)))
+    gen = torch.Generator().manual_seed(7)
+    rows = []
+    for label, lead, op in cases:
+        B, _ = op.local(0, "cuda")
+        win = torch.randn((*lead, B.shape[1]), generator=gen).cuda()
+        rows.append(k1_block_row(banded, f"{label} on (1, 2)", B, win,
+                                 launches, LARGE_REPLAY_TIMING))
+        del win, B
+        torch.cuda.empty_cache()
+    return rows
 
 
 # the windows' calls on the conv route's meshes of SHARDED_DWT_WORLDS, per
@@ -5376,7 +5617,8 @@ def sharded_main(smi):
     K19 launch an exchange and pass (``k19_exchange_gates``).  Emits
     K19's launches, walks and exchanges summed over every rank of every
     mesh beside the launches one a part would take.  The same worlds run
-    the sharded_dwt cases (:func:`sharded_dwt_phase` reads them).
+    the sharded_dwt and sharded_scat cases (:func:`sharded_dwt_phase` and
+    :func:`sharded_scat_phase` read them).
     Returns every kernel's launches summed over every rank of every
     DTCWT mesh, K19's launches an exchange, the worlds' results by rank
     and each world's seconds."""
@@ -5386,8 +5628,9 @@ def sharded_main(smi):
     worlds, world_s = {}, {}
     for world, cases in SHARDED_WORLDS.items():
         t0 = time.perf_counter()
-        ranks = worlds[world] = sharded_world(world, cases,
-                                              SHARDED_DWT_WORLDS[world])
+        ranks = worlds[world] = sharded_world(
+            world, cases, SHARDED_DWT_WORLDS[world],
+            SHARDED_SCAT_WORLDS[world])
         seconds = world_s[world] = time.perf_counter() - t0
         meshes = []
         for i, (label, (nd, nh, ns), shape, J) in enumerate(cases):
@@ -5777,12 +6020,13 @@ def _k19_filters():
 
 def nccl_world_of_one(tt, parallel, banded):
     """A world of one on NCCL and its (1, 1) mesh: DTCWTForward /
-    DTCWTInverse with ``mesh=`` on the main path, bit for bit the path
-    without a mesh; the DWT (DWT_SHAPE) and SWT (SWT_SHAPE) round trips in
-    'periodization' on the conv halo route, bit for bit the path without
-    a mesh but the SWT's inverse (the sharded averaging merge against the
-    least-squares merge: within SHARDED_TOL), and on the operator route
-    (K1 products against the stencils: within SHARDED_TOL)."""
+    DTCWTInverse with ``mesh=`` on the main path and ScatLayerj2 on
+    SCAT_SHAPE, bit for bit the paths without a mesh; the DWT (DWT_SHAPE)
+    and SWT (SWT_SHAPE) round trips in 'periodization' on the conv halo
+    route, bit for bit the path without a mesh but the SWT's inverse (the
+    sharded averaging merge against the least-squares merge: within
+    SHARDED_TOL), and on the operator route (K1 products against the
+    stencils: within SHARDED_TOL)."""
     import os
     import tempfile
 
@@ -5804,6 +6048,13 @@ def nccl_world_of_one(tt, parallel, banded):
                          for a, b in zip(yh, ryh))
                  and torch.equal(rec.to_local(), rrec))
         del x, yl, yh, rec, ryl, ryh, rrec
+        x = torch.randn(SCAT_SHAPE,
+                        generator=torch.Generator().manual_seed(0)).cuda()
+        with torch.no_grad():
+            scat_equal = torch.equal(
+                tt.ScatLayerj2(device="cuda", mesh=mesh)(x).to_local(),
+                tt.ScatLayerj2(device="cuda")(x))
+        del x
         dwt_swt = []
         for kind, route in (("dwt", "conv"), ("swt", "conv"),
                             ("dwt", "matmul"), ("swt", "matmul")):
@@ -5836,6 +6087,8 @@ def nccl_world_of_one(tt, parallel, banded):
         dist.destroy_process_group()
     require(equal, "sharded_nccl: the (1, 1) mesh differs from the path "
             "without a mesh")
+    require(scat_equal, "sharded_nccl: ScatLayerj2 on the (1, 1) mesh "
+            "differs from the layer without a mesh")
     for c in dwt_swt:
         exact = ({"forward", "inverse"} if c["kind"] == "dwt" else
                  {"forward"}) if c["route"] == "conv" else set()
@@ -5848,7 +6101,8 @@ def nccl_world_of_one(tt, parallel, banded):
                     f"{c['max_abs_err'][what]}")
     return dict(backend=backend, mesh=[1, 1], shape=list(MAIN_SHAPE),
                 bit_equal=equal, path=dict(parallel.LAST_PATH),
-                dwt_swt=dwt_swt)
+                dwt_swt=dwt_swt,
+                scat_j2=dict(shape=list(SCAT_SHAPE), bit_equal=scat_equal))
 
 
 
@@ -6188,9 +6442,12 @@ def main():
     # on this card), K19 at edge cases and timed, a NCCL world of one
     from pytorch_wavelets_tpu_torch import parallel
     from pytorch_wavelets_tpu_torch.ops import halo
-    from pytorch_wavelets_tpu_torch.parallel import sharded, sharded_dwt
+    from pytorch_wavelets_tpu_torch.parallel import (
+        sharded, sharded_dwt, sharded_scat,
+    )
     launches, per_exchange, worlds, world_s = sharded_main(smi)
     dwt_launches = sharded_dwt_phase(smi, worlds, world_s)
+    scat_launches = sharded_scat_phase(smi, worlds, world_s)
     del worlds
     n_edge, mismatches, walks, multi = halo_edge_cases(halo)
     emit("halo_edge_cases", calls=n_edge, mismatched_elements=mismatches,
@@ -6198,11 +6455,14 @@ def main():
     n_edge, edge_err, edge_insts = window_edge_cases(ops, afb_sfb, dwt)
     emit("window_edge_cases", calls=n_edge, max_abs_err=edge_err,
          tolerance=DWT_TOL, instantiations=edge_insts)
-    both = {k: launches.get(k, 0) + dwt_launches.get(k, 0)
-            for k in {*launches, *dwt_launches}}
-    new = k19_rows(halo, banded, sharded, both, per_exchange)
+    every = {k: launches.get(k, 0) + dwt_launches.get(k, 0)
+             + scat_launches.get(k, 0)
+             for k in {*launches, *dwt_launches, *scat_launches}}
+    new = k19_rows(halo, banded, sharded, every, per_exchange)
     new += window_rows(afb_sfb, dwt, dwt_launches)
     new += sharded_dwt_k1_rows(banded, sharded_dwt, dwt_launches)
+    new += sharded_scat_k1_rows(tt, banded, sharded, sharded_scat,
+                                scat_launches)
     for row in new:
         emit("kernel", **row)
     rows.extend(new)

@@ -144,8 +144,8 @@ class _TapsModule(nn.Module):
     (reading CUDA buffers on every call would synchronise); loading a
     state dict refreshes them from the loaded buffers.  ``mesh`` (a
     ``DeviceMesh``, ``parallel.make_mesh``) is kept where the module has
-    a sharded path (``_SHARDED``: the DTCWT's, the DWT's and the SWT's);
-    the others raise."""
+    a sharded path (``_SHARDED``: the DTCWT's, the DWT's, the SWT's and
+    the scattering layers'); the others raise."""
 
     _SHARDED = False
 
@@ -154,9 +154,7 @@ class _TapsModule(nn.Module):
         if mesh is not None and not self._SHARDED:
             raise NotImplementedError(
                 f"{type(self).__name__}: mesh= is not ported yet (ROADMAP.md"
-                f", queue A: A5c the sharded scattering layers, A5d the "
-                f"per-level sharded DTCWT, A5e what replaces the GSPMD "
-                f"fallbacks, A5f DTCWTForward2's batch data parallelism)")
+                f", queue A: A5f DTCWTForward2's batch data parallelism)")
         if mesh is not None and not isinstance(mesh, DeviceMesh):
             raise TypeError(f"{type(self).__name__}: mesh must be a "
                             f"torch.distributed DeviceMesh "

@@ -63,6 +63,14 @@ class DWTForward(_DWTModule):
         device, mesh: see the module docstring.
     Call: x (N, C, H, W) -> (yl, yh) with yh finest-first, each entry
     (N, C, 3, H', W') ordered (LH, HL, HH).
+
+    The input gradient depends on ``mesh`` in 'symmetric' and 'reflect':
+    with a mesh it is the exact adjoint of the forward, as the JAX
+    package's ``shard_map`` autodiff gives it; without one it is the
+    reference's backward, the adjoint only in 'zero' and 'periodization'.
+    Both are the JAX package's, and in 'zero' and 'periodization' the two
+    agree (``tests/test_torch_signatures.py::
+    test_dwt_mesh_input_gradient``).
     """
 
     def __init__(self, J=1, wave="db1", mode="zero", mesh=None,
@@ -109,7 +117,12 @@ class DWTInverse(_DWTModule):
 class DWT1DForward(_DWTModule):
     """J-level 1-D DWT on (N, C, L) (reference DWT1DForward,
     dwt/transform1d.py:7-59).  ``coeff_dtype`` narrows detail-band
-    storage as in :class:`DWTForward`."""
+    storage as in :class:`DWTForward`.
+
+    As for :class:`DWTForward`, the input gradient in 'symmetric' and
+    'reflect' is the exact adjoint of the forward with ``mesh`` (the JAX
+    package's ``shard_map`` autodiff) and the reference's backward
+    without it; the two agree in 'zero' and 'periodization'."""
 
     def __init__(self, J=1, wave="db1", mode="zero", mesh=None,
                  coeff_dtype=None, device="cuda"):

@@ -5,9 +5,12 @@ from __future__ import annotations
 from pytorch_wavelets_tpu_torch.filters import biort as _biort
 from pytorch_wavelets_tpu_torch.filters import qshift as _qshift
 from pytorch_wavelets_tpu_torch.models._base import (
-    _TapsModule, batch_chunked, resolve_scat_chunk,
+    _TapsModule, batch_chunked, resolve_scat_chunk, warn_chunk_dropped,
 )
 from pytorch_wavelets_tpu_torch.ops.dtcwt_fb import prep_taps
+from pytorch_wavelets_tpu_torch.parallel.sharded_scat import (
+    sharded_scat_j1, sharded_scat_j2,
+)
 from pytorch_wavelets_tpu_torch.transforms.dtcwt_xfm import _tup
 from pytorch_wavelets_tpu_torch.transforms.scatternet import (
     scat_layer_j1, scat_layer_j2,
@@ -36,9 +39,15 @@ class ScatLayer(_TapsModule):
     ``device``: 'cuda' (default; raises without CUDA) or 'cpu' for the
     plain PyTorch path.  ``batch_chunk``: run the layer over leading-axis
     chunks of this many images, one after another, and concatenate
-    (models/_base.py:batch_chunked); None and False/0 are off.  ``mesh``
-    is not ported yet and raises.
+    (models/_base.py:batch_chunked); None and False/0 are off.
+    ``mesh``: a ``DeviceMesh`` (``parallel.make_mesh``): the layer runs
+    sharded on it (``parallel/sharded_scat.py:sharded_scat_j1``), the
+    batch over 'data', W over 'spatial' (H over 'spatial_h'), and returns
+    a DTensor; ``batch_chunk`` is then dropped with a warning, and the
+    bandpass-diagonal filters raise (``ROADMAP.md`` A5e).
     """
+
+    _SHARDED = True
 
     def __init__(self, biort="near_sym_a", mode="symmetric", magbias=1e-2,
                  combine_colour=False, mesh=None, batch_chunk=None,
@@ -58,6 +67,14 @@ class ScatLayer(_TapsModule):
 
     def forward(self, x):
         self._check_device(x)
+        if self.mesh is not None:
+            if self.batch_chunk:
+                warn_chunk_dropped("ScatLayer",
+                                   "mesh= sharded path does not chunk")
+            return sharded_scat_j1(x, self.mesh, self._filters,
+                                   mode=self.mode, magbias=self.magbias,
+                                   combine_colour=self.combine_colour,
+                                   bandpass_diag=self.bandpass_diag)
         return batch_chunked(
             lambda z: scat_layer_j1(z, self._filters, mode=self.mode,
                                     magbias=self.magbias,
@@ -72,10 +89,14 @@ class ScatLayerj2(_TapsModule):
 
     Call: x (N, C, H, W) -> (N, 49C, H/4, W/4) (or (N, 51, ...) when
     combine_colour).  ``device``, ``mesh`` and ``batch_chunk`` as for
-    :class:`ScatLayer`: None, the JAX package's auto default, is off here
-    (its thresholds, models/_base.py ``_SCAT_*`` there, are TPU v5e
+    :class:`ScatLayer` (the sharded layer is
+    ``parallel/sharded_scat.py:sharded_scat_j2``; H and W must be
+    multiples of 8 there): None, the JAX package's auto default, is off
+    here (its thresholds, models/_base.py ``_SCAT_*`` there, are TPU v5e
     measurements).
     """
+
+    _SHARDED = True
 
     def __init__(self, biort="near_sym_a", qshift="qshift_a",
                  mode="symmetric", magbias=1e-2, combine_colour=False,
@@ -105,6 +126,14 @@ class ScatLayerj2(_TapsModule):
 
     def forward(self, x):
         self._check_device(x)
+        if self.mesh is not None:
+            if self.batch_chunk:
+                warn_chunk_dropped("ScatLayerj2",
+                                   "mesh= sharded path does not chunk")
+            return sharded_scat_j2(x, self.mesh, self._filters,
+                                   mode=self.mode, magbias=self.magbias,
+                                   combine_colour=self.combine_colour,
+                                   bandpass_diag=self.bandpass_diag)
         chunk = resolve_scat_chunk(self.batch_chunk, x.shape[0],
                                    x[0].numel())
         return batch_chunked(

@@ -1,8 +1,8 @@
 """The distribution layer on ``torch.distributed``: device meshes, the
 ring halo exchange (kernel K19), sharded operator applies on K1, the
-sharded DTCWT, DWT, 1-D DWT and SWT (port of
-``pytorch_wavelets_tpu/parallel``; the sharded scattering layers and the
-rest are not ported yet, ``ROADMAP.md`` A5c-A5f)."""
+sharded DTCWT (composed and per level), DWT, 1-D DWT, SWT and scattering
+layers (port of ``pytorch_wavelets_tpu/parallel``; what replaces the JAX
+package's GSPMD fallbacks is not ported yet, ``ROADMAP.md`` A5e)."""
 from pytorch_wavelets_tpu_torch.parallel.mesh import (  # noqa: F401
     data_placements, initialize_multihost, make_mesh, placements,
     spatial_placements,
@@ -18,6 +18,9 @@ from pytorch_wavelets_tpu_torch.parallel.sharded_dwt import (  # noqa: F401
     sharded_dwt1d, sharded_dwt2d, sharded_idwt1d, sharded_idwt2d,
     sharded_iswt2d, sharded_swt2d,
 )
+from pytorch_wavelets_tpu_torch.parallel.sharded_scat import (  # noqa: F401
+    sharded_scat_j1, sharded_scat_j2,
+)
 
 __all__ = ["make_mesh", "data_placements", "spatial_placements",
            "placements", "initialize_multihost", "halo_exchange_1d",
@@ -25,4 +28,4 @@ __all__ = ["make_mesh", "data_placements", "spatial_placements",
            "reset_exchanges", "sharded_dwt2d", "sharded_idwt2d",
            "sharded_dwt1d", "sharded_idwt1d", "sharded_swt2d",
            "sharded_iswt2d", "sharded_dtcwt2d", "sharded_idtcwt2d",
-           "LAST_PATH"]
+           "sharded_scat_j1", "sharded_scat_j2", "LAST_PATH"]

@@ -30,10 +30,17 @@ chunk of it (its gradient flows back to that chunk).  The work between
 runs on the local tensors (``to_local`` / ``DTensor.from_local``, which
 autograd follows).
 
-Where the JAX package leaves the composed route (its per-level sharded
-path past the composed cap, or GSPMD), the port raises
-``NotImplementedError`` (``ROADMAP.md`` A5d / A5e); it never gathers the
-image.  The host planners are numpy copies of the JAX ones.
+Where the composed route has no plan (an axis past ``MAX_MATMUL_N`` =
+8832, a halo wider than the tile, an inverse without the lowpass or a
+level's bands), both entries run the **per-level route**, as the JAX
+package does: each level its own sharded stage-1 row apply and stage-2
+column applies under the same strategies, the lowpass passed on as
+local tiles, to ``_SHARDED_MM_CAP`` = 32768 samples an axis (the
+per-level operators synthesized from small probes,
+``ops/banded.py:extend_operator``).  Where the JAX package falls to
+GSPMD past that, the port raises ``NotImplementedError``
+(``ROADMAP.md`` A5e); it never gathers the image.  The host planners
+are numpy copies of the JAX ones.
 """
 from __future__ import annotations
 
@@ -48,6 +55,9 @@ from torch.distributed.tensor import DTensor
 from pytorch_wavelets_tpu_torch.ops import banded
 from pytorch_wavelets_tpu_torch.ops._linear import linear_backward
 from pytorch_wavelets_tpu_torch.ops.banded import Operator
+from pytorch_wavelets_tpu_torch.ops.dtcwt_fb import (
+    _dfilt_matrix, _filter_matrix, _ifilt_matrix,
+)
 from pytorch_wavelets_tpu_torch.ops.fused_dtcwt import (
     _SB_ORIENTS, _cat, _cstack, _pyramid_layout, canonical_bands,
 )
@@ -60,7 +70,8 @@ from pytorch_wavelets_tpu_torch.parallel.halo import (
 )
 from pytorch_wavelets_tpu_torch.parallel.mesh import placements
 from pytorch_wavelets_tpu_torch.transforms.dtcwt import (
-    _fwd_pyramid_plan, _inv_pyramid_plan, get_dimensions5, get_dimensions6,
+    _fwd_pyramid_plan, _inv_pyramid_plan, _pad4_matrix, get_dimensions5,
+    get_dimensions6,
 )
 from pytorch_wavelets_tpu_torch.transforms.dtcwt_xfm import (
     _replicate_pad_even,
@@ -72,15 +83,31 @@ from pytorch_wavelets_tpu_torch.transforms.plan_cache import (
 __all__ = ["sharded_dtcwt2d", "sharded_idtcwt2d", "LAST_PATH"]
 
 # Which path each public sharded_* entry last took: name -> 'matmul' (the
-# operator route: the DTCWT's composed pyramids, the DWT's and SWT's
-# per-level operators) or 'conv' (the DWT's and SWT's conv halo route,
-# parallel/sharded_dwt.py); the JAX package also has 'perlevel' and
-# 'gspmd'.
+# operator route: the DTCWT's and the scattering layers' composed
+# pyramids, the DWT's and SWT's per-level operators), 'perlevel' (the
+# DTCWT and the scattering fronts level by level past the composed
+# route) or 'conv' (the DWT's and SWT's conv halo route,
+# parallel/sharded_dwt.py); the JAX package also has 'gspmd'.
 LAST_PATH: dict = {}
 
-_NOT_PORTED = ("the per-level sharded DTCWT past the composed route "
-               "(ROADMAP.md A5d) and the GSPMD fallbacks (A5e) are not "
-               "ported")
+# The JAX package's cap of the sharded operator routes: a 32768-wide
+# operator takes GBs of host memory while it is built.
+_SHARDED_MM_CAP = 32768
+
+A5E = ("the JAX package runs the transform under GSPMD there, which is "
+       "not ported (ROADMAP.md A5e); this port does not gather the image")
+
+
+def _mm_enabled(n):
+    """Whether an axis of length ``n`` may take the composed route (the
+    JAX package's gate of the same name)."""
+    return banded.composed_enabled(n)
+
+
+def _sharded_mm_wanted(n):
+    """Whether an axis of length ``n`` may take a sharded operator route
+    level by level."""
+    return banded.matmul_requested() and n <= _SHARDED_MM_CAP
 
 
 # --------------------------------------------------------------------------
@@ -429,6 +456,38 @@ def _dtcwt_fwd_shard_plans(h0o, h1o, h0a, h1a, h0b, h1b, J, skips, incs,
     return op, s2
 
 
+def _band_group_strategies(bands, hb, wb, n_sp, n_h):
+    """One synthesis level's subband groups: per group of bands that share
+    a row operator, (orientation pairs, the row merge's strategy over
+    [lo | hi], the members' column operators' strategy).  ``bands`` is
+    [(name, (R, C))] with (hb, wb) the bands' size.  Raises ValueError
+    where a block does not divide."""
+    groups: dict = {}
+    for name, (R, C) in bands:
+        groups.setdefault(id(R), (R, []))[1].append((name, C))
+    lv = []
+    for R, members in groups.values():
+        Rt = np.ascontiguousarray(
+            _cat(R[:, 0::2].T, R[:, 1::2].T).T * (1.0 / math.sqrt(2.0)))
+        row = _strategy(Rt, n_sp, [Rt.shape[0]], [wb, wb], wrap=False)
+        cms = [np.concatenate([C[:, 0::2], C[:, 1::2]], axis=1)
+               for _, C in members]
+        Cm = np.ascontiguousarray(np.concatenate(cms, axis=1))
+        col = _strategy(Cm, n_h, [Cm.shape[0]], [hb, hb] * len(members),
+                        wrap=False)
+        lv.append((tuple(_SB_ORIENTS[name] for name, _ in members), row,
+                   col))
+    return lv
+
+
+def _low_strategies(R, C, in_hw, n_sp, n_h):
+    """The (row, column) strategies of a lowpass term R along W and C
+    along H on an input of ``in_hw``."""
+    R, C = np.ascontiguousarray(R), np.ascontiguousarray(C)
+    return (_strategy(R, n_sp, [R.shape[0]], [in_hw[1]], wrap=False),
+            _strategy(C, n_h, [C.shape[0]], [in_hw[0]], wrap=False))
+
+
 @budgeted_plan_cache
 def _dtcwt_inv_shard_plans(g0o, g1o, g0a, g1a, g0b, g1b, mode, yl_hw,
                            sizes, n_sp, n_h):
@@ -439,35 +498,147 @@ def _dtcwt_inv_shard_plans(g0o, g1o, g0a, g1a, g0b, g1b, mode, yl_hw,
     if plan is None:
         return None
     levels, ll_spec, _ = plan
-    sqrt2 = math.sqrt(2.0)
     try:
-        ginfo = []                         # per level: list of group plans
-        for lev, (hb, wb) in zip(levels, sizes):
-            groups: dict = {}
-            for name, (R, C) in lev["bands"]:
-                groups.setdefault(id(R), (R, []))[1].append((name, C))
-            lv = []
-            for R, members in groups.values():
-                Rt = np.ascontiguousarray(
-                    _cat(R[:, 0::2].T, R[:, 1::2].T).T * (1.0 / sqrt2))
-                row = _strategy(Rt, n_sp, [Rt.shape[0]], [wb, wb],
-                                wrap=False)
-                cms = [np.concatenate([C[:, 0::2], C[:, 1::2]], axis=1)
-                       for _, C in members]
-                Cm = np.ascontiguousarray(np.concatenate(cms, axis=1))
-                col = _strategy(Cm, n_h, [Cm.shape[0]],
-                                [hb, hb] * len(members), wrap=False)
-                lv.append((tuple(_SB_ORIENTS[name] for name, _ in members),
-                           row, col))
-            ginfo.append(lv)
-        R_ll, C_ll = ll_spec
-        ll_row = _strategy(np.ascontiguousarray(R_ll), n_sp,
-                           [R_ll.shape[0]], [yl_hw[1]], wrap=False)
-        ll_col = _strategy(np.ascontiguousarray(C_ll), n_h,
-                           [C_ll.shape[0]], [yl_hw[0]], wrap=False)
+        ginfo = [_band_group_strategies(lev["bands"], hb, wb, n_sp, n_h)
+                 for lev, (hb, wb) in zip(levels, sizes)]
+        ll_row, ll_col = _low_strategies(*ll_spec, yl_hw, n_sp, n_h)
     except ValueError:
         return None
     return ginfo, ll_row, ll_col
+
+
+# --------------------------------------------------------------------------
+# Per-level plans (host numpy, cached): past the composed route, each
+# level's own operators (synthesized from small probes past
+# banded.DIRECT_PROBE_N), every one sharded as the composed pyramid's
+# --------------------------------------------------------------------------
+
+def _fwd_level_plans(h0o, h1o, h0a, h1a, h0b, h1b, J, skips, mode, H, W):
+    """Per-level (uncomposed) forward plans: level j's operators act on
+    level j-1's lowpass, the %4 replicate pad between levels composed in.
+    A tuple of (level, (in_h, in_w)), a level as the composed plan's
+    (``ll`` always present: it feeds the next level), or None where the
+    filters and sizes admit no parity-folded form."""
+    out = []
+    nh, nw = H, W
+    for j in range(J):
+        in_hw = (nh, nw)
+        if j == 0:
+            Cl, Ch = (_filter_matrix(h0o, mode, nh),
+                      _filter_matrix(h1o, mode, nh))
+            Rl, Rh = (_filter_matrix(h0o, mode, nw),
+                      _filter_matrix(h1o, mode, nw))
+            if any(m.shape[0] % 2 for m in (Cl, Ch, Rl, Rh)):
+                return None
+        else:
+            Ph, Pw = _pad4_matrix(nh), _pad4_matrix(nw)
+            nhp = nh if Ph is None else nh + 2
+            nwp = nw if Pw is None else nw + 2
+            if nhp % 4 or nwp % 4:
+                return None
+            Cl, Ch = (_dfilt_matrix(h0b, h0a, False, nhp),
+                      _dfilt_matrix(h1b, h1a, True, nhp))
+            Rl, Rh = (_dfilt_matrix(h0b, h0a, False, nwp),
+                      _dfilt_matrix(h1b, h1a, True, nwp))
+            if Ph is not None:
+                Cl, Ch = (np.ascontiguousarray(banded.compose(Cl, Ph)),
+                          np.ascontiguousarray(banded.compose(Ch, Ph)))
+            if Pw is not None:
+                Rl, Rh = (np.ascontiguousarray(banded.compose(Rl, Pw)),
+                          np.ascontiguousarray(banded.compose(Rh, Pw)))
+            if Cl.shape[0] % 2 or Rl.shape[0] % 2:
+                return None
+        lev = {"bands": None, "ll": (Rl, Cl)}
+        if not skips[j]:
+            lev["bands"] = [("lh", (Rl, Ch)), ("hl", (Rh, Cl)),
+                            ("hh", (Rh, Ch))]
+        out.append((lev, in_hw))
+        nh, nw = Cl.shape[0], Rl.shape[0]
+    return tuple(out)
+
+
+@budgeted_plan_cache
+def _dtcwt_fwd_perlevel_shard_plans(h0o, h1o, h0a, h1a, h0b, h1b, J,
+                                    skips, mode, H, W, n_sp, n_h):
+    """Per level: (stage-1 ShardedOp over 'spatial', stage-2 strategies
+    over 'spatial_h'), or None."""
+    levels = _fwd_level_plans(h0o, h1o, h0a, h1a, h0b, h1b, J, skips,
+                              mode, H, W)
+    if levels is None:
+        return None
+    plans = []
+    for lev, (_, in_w) in levels:
+        op = _pyramid_shard_op((lev,), in_w, n_sp)
+        s2 = _pyramid_stage2_strategies((lev,), n_h)
+        if op is None or s2 is None:
+            return None
+        plans.append((op, s2))
+    return tuple(plans)
+
+
+def _crop_sel(n, cur):
+    """The [1:-1] crop of a lowpass two samples longer than ``n``."""
+    K = np.zeros((n, cur), dtype=np.float32)
+    K[np.arange(n), np.arange(1, n + 1)] = 1.0
+    return K
+
+
+@budgeted_plan_cache
+def _dtcwt_inv_perlevel_shard_plans(g0o, g1o, g0a, g1a, g0b, g1b, mode,
+                                    yl_hw, sizes, n_sp, n_h):
+    """Coarse-first per-level synthesis plans: per level (its band groups'
+    strategies, or () for a missing level; the lowpass's row and column
+    strategies, the [1:-1] crop composed in), or None."""
+    cur_h, cur_w = yl_hw
+    levels = []
+    try:
+        for j in range(len(sizes) - 1, -1, -1):
+            if sizes[j] is None:
+                # a missing level: the lowpass alone, its size passed on
+                # uncropped (the composed plan's walk rule)
+                nh, nw = cur_h, cur_w
+                if j == 0:
+                    # the reference's lowpass-only branch filters in its
+                    # default 'symmetric' mode, not the caller's
+                    # (reference dtcwt/transform_funcs.py:166-177)
+                    C0 = _filter_matrix(g0o, "symmetric", nh)
+                    R0 = _filter_matrix(g0o, "symmetric", nw)
+                else:
+                    if nh % 2 or nw % 2:
+                        return None
+                    C0 = _ifilt_matrix(g0b, g0a, False, nh)
+                    R0 = _ifilt_matrix(g0b, g0a, False, nw)
+                levels.append(((), *_low_strategies(R0, C0, (nh, nw), n_sp,
+                                                    n_h)))
+                cur_h, cur_w = C0.shape[0], R0.shape[0]
+                continue
+            hb, wb = sizes[j]
+            nh, nw = 2 * hb, 2 * wb
+            if cur_h not in (nh, nh + 2) or cur_w not in (nw, nw + 2):
+                return None
+            if j == 0:
+                C0, C1 = (_filter_matrix(g0o, mode, nh),
+                          _filter_matrix(g1o, mode, nh))
+                R0, R1 = (_filter_matrix(g0o, mode, nw),
+                          _filter_matrix(g1o, mode, nw))
+            else:
+                C0, C1 = (_ifilt_matrix(g0b, g0a, False, nh),
+                          _ifilt_matrix(g1b, g1a, True, nh))
+                R0, R1 = (_ifilt_matrix(g0b, g0a, False, nw),
+                          _ifilt_matrix(g1b, g1a, True, nw))
+            lv = _band_group_strategies(
+                [("lh", (R0, C1)), ("hl", (R1, C0)), ("hh", (R1, C1))], hb,
+                wb, n_sp, n_h)
+            Rl = R0 if cur_w == nw else banded.compose(R0,
+                                                       _crop_sel(nw, cur_w))
+            Cl = C0 if cur_h == nh else banded.compose(C0,
+                                                       _crop_sel(nh, cur_h))
+            levels.append((lv, *_low_strategies(Rl, Cl, (cur_h, cur_w), n_sp,
+                                                n_h)))
+            cur_h, cur_w = C0.shape[0], R0.shape[0]
+    except ValueError:
+        return None
+    return tuple(levels)
 
 
 # --------------------------------------------------------------------------
@@ -512,6 +683,41 @@ def _sharded_synthesis(ll, hs, plans, o_dim, ri_dim, sp, hh):
             y = contrib if y is None else y + contrib
     t_ll = _apply_strategy(ll, ll_row, 3, sp)
     return y + _apply_strategy(t_ll, ll_col, 2, hh)
+
+
+def _sharded_levels(xl, plans, o_dim, ri_dim, sp, hh):
+    """The per-level analysis on local tiles: each level one
+    :func:`_sharded_pyramid` on its own plan, fed the last level's lowpass
+    tiles.  Returns (every level's lowpass, every level's bands or
+    None)."""
+    ll, lls, highs = xl, [], []
+    for op, s2 in plans:
+        ls, hs = _sharded_pyramid(ll, o_dim, ri_dim, op, s2, sp, hh)
+        ll = ls[0]
+        lls.append(ll)
+        highs.append(hs[0])
+    return lls, highs
+
+
+def _sharded_synthesis_levels(ll, hs, plans, o_dim, ri_dim, sp, hh):
+    """The per-level synthesis on local tiles, coarse to fine: per level
+    its band groups as :func:`_sharded_synthesis` runs them (none for a
+    missing level, ``hs[j]`` None), plus its lowpass term."""
+    for (lv, ll_row, ll_col), h in zip(plans, hs[::-1]):
+        t_ll = _apply_strategy(ll, ll_row, 3, sp)
+        low = _apply_strategy(t_ll, ll_col, 2, hh)
+        if h is None:
+            ll = low
+            continue
+        qs = _BandsToQuads.apply((tuple(g[0] for g in lv), o_dim, ri_dim),
+                                 h)
+        y = None
+        for q, (_, row, col) in zip(qs, lv):
+            t = _apply_merge(q, row, 3, sp)
+            contrib = _apply_strategy(t, col, 2, hh)
+            y = contrib if y is None else y + contrib
+        ll = y + low
+    return ll
 
 
 # --------------------------------------------------------------------------
@@ -623,12 +829,21 @@ def _global(local, mesh, spec, n_batch, batch_axis, logical=None):
 # The public entries
 # --------------------------------------------------------------------------
 
+def _dtcwt_taps(filters, prefix):
+    """The six tap tuples of a DTCWT filter dict, in the plans' order
+    (``prefix`` 'h' for the analysis bank, 'g' for the synthesis one)."""
+    return tuple(filters[prefix + k] for k in ("0o", "1o", "0a", "1a", "0b",
+                                               "1b"))
+
+
 def sharded_dtcwt2d(x, mesh, filters, J=3, mode="symmetric",
                     skip_hps=False, include_scale=False, o_dim=2,
                     ri_dim=-1):
     """DTCWT forward with the batch over 'data' and W over 'spatial' (and
     H over 'spatial_h' on a 2-D mesh): the composed pyramid as halo'd
-    per-rank operator chunks.
+    per-rank operator chunks where it has a plan (``LAST_PATH['dtcwt2d']``
+    'matmul'), else level by level (an axis past 8832, a halo wider than
+    the tile: 'perlevel').
 
     x: an (N, C, H, W) DTensor placed as ``parallel.spatial_placements``,
     or the full tensor on every rank (odd sizes take the replicate even
@@ -638,7 +853,7 @@ def sharded_dtcwt2d(x, mesh, filters, J=3, mode="symmetric",
     ``include_scale`` / ``o_dim`` / ``ri_dim`` as for ``DTCWTForward``.
     Returns (yl, yh) DTensors: yl (or the list of scales) placed as x, yh
     with H / W / batch on their 6-D axes.  Raises NotImplementedError
-    where no composed sharded plan exists."""
+    where neither route has a plan (A5e)."""
     _check_mesh(mesh)
     if o_dim % 6 == ri_dim % 6:
         raise ValueError("Orientations and real/imaginary parts must be "
@@ -653,26 +868,32 @@ def sharded_dtcwt2d(x, mesh, filters, J=3, mode="symmetric",
         x = _replicate_pad_even(x)
     H, W = x.shape[2], x.shape[3]
     n_h, n_sp = _mesh_sp(mesh)
-    plans = None
-    if (J > 0 and H % 2 == 0 and W % 2 == 0
-            and banded.composed_enabled(H) and banded.composed_enabled(W)
-            and W % n_sp == 0 and H % n_h == 0):
+    taps = _dtcwt_taps(filters, "h")
+    tiles = (J > 0 and H % 2 == 0 and W % 2 == 0 and W % n_sp == 0
+             and H % n_h == 0)
+    plans = perlevel = None
+    if tiles and _mm_enabled(H) and _mm_enabled(W):
         plans = _dtcwt_fwd_shard_plans(
-            filters["h0o"], filters["h1o"], filters["h0a"], filters["h1a"],
-            filters["h0b"], filters["h1b"], J, tuple(skip_hps),
-            tuple(include_scale), mode, H, W, n_sp, n_h)
-    if plans is None:
+            *taps, J, tuple(skip_hps), tuple(include_scale), mode, H, W,
+            n_sp, n_h)
+    if (plans is None and tiles and _sharded_mm_wanted(H)
+            and _sharded_mm_wanted(W)):
+        perlevel = _dtcwt_fwd_perlevel_shard_plans(
+            *taps, J, tuple(skip_hps), mode, H, W, n_sp, n_h)
+    if plans is None and perlevel is None:
         raise NotImplementedError(
-            f"sharded_dtcwt2d: no composed sharded plan for a "
-            f"{tuple(x.shape)} input, J={J}, mode={mode!r} on a "
-            f"{n_h}x{n_sp} spatial mesh; {_NOT_PORTED}")
+            f"sharded_dtcwt2d: no sharded plan for a {tuple(x.shape)} "
+            f"input, J={J}, mode={mode!r} on a {n_h}x{n_sp} spatial mesh; "
+            f"{A5E}")
     xl = _local(x, mesh, sp4, "sharded_dtcwt2d", 0).contiguous()
     od, rd, _, _ = get_dimensions5(o_dim, ri_dim)
-    op, s2 = plans
-    lls, highs = _sharded_pyramid(xl, od, rd, op, s2,
-                                  _axis(mesh, "spatial"),
-                                  _axis(mesh, "spatial_h"))
-    LAST_PATH["dtcwt2d"] = "matmul"
+    sp, hh = _axis(mesh, "spatial"), _axis(mesh, "spatial_h")
+    if plans is not None:
+        lls, highs = _sharded_pyramid(xl, od, rd, *plans, sp, hh)
+        LAST_PATH["dtcwt2d"] = "matmul"
+    else:
+        lls, highs = _sharded_levels(xl, perlevel, od, rd, sp, hh)
+        LAST_PATH["dtcwt2d"] = "perlevel"
     b6 = _yh_batch_axis6(o_dim, ri_dim)
     yh_spec = _dtcwt_yh_spec(o_dim, ri_dim, sp4[2])
     yh = [None if h is None else _global(h, mesh, yh_spec, N, b6)
@@ -683,53 +904,96 @@ def sharded_dtcwt2d(x, mesh, filters, J=3, mode="symmetric",
     return _global(lls[-1], mesh, sp4, N, 0), yh
 
 
+def _perlevel_dims(yl_hw, sizes):
+    """Every axis length the per-level inverse runs at (the JAX package's
+    envelope check): each level's input, coarse to fine, a missing level
+    passing the running lowpass size on uncropped; None where a missing
+    level gets an odd size."""
+    cur_h, cur_w = yl_hw
+    ns = []
+    for j in range(len(sizes) - 1, -1, -1):
+        if sizes[j] is not None:
+            cur_h, cur_w = 2 * sizes[j][0], 2 * sizes[j][1]
+        elif j > 0 and (cur_h % 2 or cur_w % 2):
+            return None
+        ns += [cur_h, cur_w]
+        if j > 0:
+            cur_h, cur_w = 2 * cur_h, 2 * cur_w
+    return ns + [2 * yl_hw[0], 2 * yl_hw[1]]
+
+
 def sharded_idtcwt2d(coeffs, mesh, filters, mode="symmetric", o_dim=2,
                      ri_dim=-1):
-    """DTCWT inverse on a mesh (the composed pyramid, 1-D W or 2-D HxW
-    tiling): per subband group K3, the halo'd row merge and the column
-    operator, summed with the lowpass term.
+    """DTCWT inverse on a mesh (1-D W or 2-D HxW tiling): per subband
+    group K3, the halo'd row merge and the column operator, summed with
+    the lowpass term; as one composed pyramid where it has a plan and
+    every coefficient is present (``LAST_PATH['idtcwt2d']`` 'matmul'),
+    else level by level ('perlevel': a missing lowpass or level, ``None``
+    or a size-0 placeholder, counts as zeros, as in the JAX package).
 
     coeffs: (yl, yh) as :func:`sharded_dtcwt2d` returns them (DTensors),
     or full tensors on every rank.  filters: dict from
     ``transforms/dtcwt_xfm.py:dtcwt_inv_filters``.  Returns the
-    reconstruction as an (N, C, H, W) DTensor placed as yl.  The composed
-    route needs the lowpass and every level's bands; without them, or
-    where no plan exists, raises NotImplementedError."""
+    reconstruction as an (N, C, H, W) DTensor placed as yl.  Raises
+    NotImplementedError where neither route has a plan, or where both the
+    lowpass and the coarsest level are missing (A5e)."""
     _check_mesh(mesh)
     low, highs = coeffs
+    highs = [None if h is None or h.numel() == 0 else h for h in highs]
     od5, rd5, _, _ = get_dimensions5(o_dim, ri_dim)
     _, _, h6, w6 = get_dimensions6(o_dim, ri_dim)
     b6 = _yh_batch_axis6(o_dim, ri_dim)
     n_h, n_sp = _mesh_sp(mesh)
     sp4 = _sp4(mesh)
     yh_spec = _dtcwt_yh_spec(o_dim, ri_dim, sp4[2])
-    if low is None or any(h is None or h.numel() == 0 for h in highs):
-        raise NotImplementedError(
-            f"sharded_idtcwt2d: the composed route needs the lowpass and "
-            f"every level's bands; {_NOT_PORTED}")
     for h in highs:
-        if (h.ndim != 6 or h.shape[o_dim % 6] != 6
-                or h.shape[ri_dim % 6] != 2):
+        if h is not None and (h.ndim != 6 or h.shape[o_dim % 6] != 6
+                              or h.shape[ri_dim % 6] != 2):
             raise ValueError(f"sharded_idtcwt2d: bands {tuple(h.shape)} "
                              f"are not 6-D with 6 orientations at o_dim "
                              f"and re/im at ri_dim")
-    N = low.shape[0]
-    sizes = tuple((h.shape[h6], h.shape[w6]) for h in highs)
-    yl_hw = (low.shape[2], low.shape[3])
-    dims = [d for hw in sizes for d in hw] + list(yl_hw)
-    plans = None
-    if all(banded.composed_enabled(2 * d) for d in dims):
-        plans = _dtcwt_inv_shard_plans(
-            filters["g0o"], filters["g1o"], filters["g0a"], filters["g1a"],
-            filters["g0b"], filters["g1b"], mode, yl_hw, sizes, n_sp, n_h)
-    if plans is None:
+    if not highs or (low is None and highs[-1] is None):
         raise NotImplementedError(
-            f"sharded_idtcwt2d: no composed sharded plan for lowpass "
-            f"{yl_hw} and bands {sizes}, mode={mode!r} on a {n_h}x{n_sp} "
-            f"spatial mesh; {_NOT_PORTED}")
-    ll = _local(low, mesh, sp4, "sharded_idtcwt2d", 0).contiguous()
-    hs = [_local(h, mesh, yh_spec, "sharded_idtcwt2d", b6) for h in highs]
-    y = _sharded_synthesis(ll, hs, plans, od5, rd5, _axis(mesh, "spatial"),
-                           _axis(mesh, "spatial_h"))
-    LAST_PATH["idtcwt2d"] = "matmul"
+            f"sharded_idtcwt2d: the lowpass and the coarsest level are "
+            f"both missing; {A5E}")
+    sizes = tuple(None if h is None else (h.shape[h6], h.shape[w6])
+                  for h in highs)
+    yl_hw = ((low.shape[2], low.shape[3]) if low is not None
+             else (2 * sizes[-1][0], 2 * sizes[-1][1]))
+    taps = _dtcwt_taps(filters, "g")
+    plans = perlevel = None
+    if (low is not None and None not in sizes
+            and all(_mm_enabled(2 * d) for hw in sizes + (yl_hw,)
+                    for d in hw)):
+        plans = _dtcwt_inv_shard_plans(*taps, mode, yl_hw, sizes, n_sp,
+                                       n_h)
+    dims = _perlevel_dims(yl_hw, sizes)
+    if (plans is None and dims is not None
+            and all(_sharded_mm_wanted(d) for d in dims)):
+        perlevel = _dtcwt_inv_perlevel_shard_plans(*taps, mode, yl_hw,
+                                                   sizes, n_sp, n_h)
+    if plans is None and perlevel is None:
+        raise NotImplementedError(
+            f"sharded_idtcwt2d: no sharded plan for lowpass {yl_hw} and "
+            f"bands {sizes}, mode={mode!r} on a {n_h}x{n_sp} spatial "
+            f"mesh; {A5E}")
+    N = low.shape[0] if low is not None else highs[-1].shape[b6]
+    hs = [None if h is None else
+          _local(h, mesh, yh_spec, "sharded_idtcwt2d", b6) for h in highs]
+    if low is not None:
+        ll = _local(low, mesh, sp4, "sharded_idtcwt2d", 0).contiguous()
+    else:
+        # a zero lowpass, this rank's tile of it only
+        hl = hs[-1]
+        c6 = [i for i in range(6)
+              if i not in (o_dim % 6, ri_dim % 6, h6, w6, b6)][0]
+        ll = hl.new_zeros((hl.shape[b6], hl.shape[c6], 2 * hl.shape[h6],
+                           2 * hl.shape[w6]))
+    sp, hh = _axis(mesh, "spatial"), _axis(mesh, "spatial_h")
+    if plans is not None:
+        y = _sharded_synthesis(ll, hs, plans, od5, rd5, sp, hh)
+        LAST_PATH["idtcwt2d"] = "matmul"
+    else:
+        y = _sharded_synthesis_levels(ll, hs, perlevel, od5, rd5, sp, hh)
+        LAST_PATH["idtcwt2d"] = "perlevel"
     return _global(y, mesh, sp4, N, 0)

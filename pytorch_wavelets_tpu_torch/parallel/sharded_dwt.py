@@ -56,7 +56,6 @@ import numpy as np
 import torch
 from torch.distributed.tensor import DTensor
 
-from pytorch_wavelets_tpu_torch.ops import banded
 from pytorch_wavelets_tpu_torch.ops.afb_sfb import (
     _AFB1D, _AFB1DAtrous, _SFB1D, _SFB1DAtrous, _afb_atrous_matrix,
     _afb_matrix, _sfb_atrous_matrix, _sfb_matrix, atrous_merge_window,
@@ -64,8 +63,9 @@ from pytorch_wavelets_tpu_torch.ops.afb_sfb import (
 )
 from pytorch_wavelets_tpu_torch.parallel.halo import halo_window
 from pytorch_wavelets_tpu_torch.parallel.sharded import (
-    LAST_PATH, _apply_merge2, _apply_strategy, _axis, _ceil_to, _check_mesh,
-    _global, _local, _mesh_sp, _n_data, _sp4, _strategy,
+    _SHARDED_MM_CAP, A5E, LAST_PATH, _apply_merge2, _apply_strategy, _axis,
+    _ceil_to, _check_mesh, _global, _local, _mesh_sp, _n_data,
+    _sharded_mm_wanted, _sp4, _strategy,
 )
 from pytorch_wavelets_tpu_torch.transforms.dwt import (
     dec_filters, rec_filters,
@@ -77,10 +77,6 @@ from pytorch_wavelets_tpu_torch.transforms.plan_cache import (
 __all__ = ["sharded_dwt2d", "sharded_idwt2d", "sharded_dwt1d",
            "sharded_idwt1d", "sharded_swt2d", "sharded_iswt2d"]
 
-# The JAX package's cap of the sharded operator route: a 32768-wide
-# operator takes GBs of host memory while it is built.
-_SHARDED_MM_CAP = 32768
-
 # boundary modes whose operators have no wrap-around mass (zero-embedded
 # operators); the circular modes keep the wrap halos
 _EMBED_MODES = ("zero", "symmetric", "reflect")
@@ -91,12 +87,6 @@ _NO_PERIODIC = (
     "entries compute 'periodization' there, which differs from the "
     "transform without a mesh (ROADMAP.md C); use 'periodization' or a "
     "non-circular mode")
-_A5E = ("ROADMAP.md A5e: the JAX package runs the single-device inverse "
-        "under GSPMD there; this port does not gather the image")
-
-
-def _sharded_mm_wanted(n):
-    return banded.matmul_requested() and n <= _SHARDED_MM_CAP
 
 
 def _need_mm(what, mode):
@@ -729,7 +719,7 @@ def sharded_iswt2d(coeffs, mesh, wave="db2", mode="periodic"):
                "perfect-reconstruction synthesis bank")
         raise NotImplementedError(
             f"{what}: mode={mode!r}: {why} needs the least-squares "
-            f"inverse; {_A5E}")
+            f"inverse; {A5E}")
     g0c, g1c, g0r, g1r = sf
     rg, cg = (_fwd(g0r), _fwd(g1r)), (_fwd(g0c), _fwd(g1c))
     J = len(coeffs)

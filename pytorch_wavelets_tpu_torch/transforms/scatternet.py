@@ -256,6 +256,48 @@ def _scat_levels(x, filters, mode, J, bandpass_diag):
     return avg_pool2(ll), yh
 
 
+def _scat_j1_head(ll, h, magbias, combine_colour):
+    """The first-order layer's output from its front: the pooled lowpass
+    ``ll`` (N, C, h, w) and the bands ``h`` (N, 6, C, h, w, 2).  Returns
+    (N, 7C, h, w), or (N, 9, h, w) when combine_colour."""
+    if combine_colour:
+        r = smooth_mag(h, magbias, combine=True)   # (N, 6, 1, h, w)
+        return torch.cat([ll, r[:, :, 0]], dim=1)
+    r = smooth_mag(h, magbias)                      # (N, 6, C, h, w)
+    Z = torch.cat([ll[:, None], r], dim=1)          # (N, 7, C, h, w)
+    b, _, c, hh, ww = Z.shape
+    return Z.reshape(b, 7 * c, hh, ww)
+
+
+def _scat_j2_head(s0, h1, h2, front1, magbias, combine_colour):
+    """The second-order layer's output from its two-level front: the
+    pooled lowpass ``s0`` (N, C, H/4, W/4) and the bands ``h1``, ``h2``
+    (N, 6, C, ., ., 2); ``front1(u)`` is the one-level front on the
+    first-order magnitudes u, returning (pooled lowpass, bands).
+    Returns (N, 49C, H/4, W/4), or (N, 51, H/4, W/4) when
+    combine_colour."""
+    if combine_colour:
+        s1_j1 = smooth_mag(h1, magbias, combine=True)   # (N,6,1,H/2,W/2)
+        s1_j2 = smooth_mag(h2, magbias, combine=True)   # (N,6,1,H/4,W/4)
+        u1_ll, h3 = front1(s1_j1[:, :, 0])
+        s2_j1 = smooth_mag(h3, magbias)                 # (N,6,6,H/4,W/4)
+        q = s2_j1.shape
+        s2_j1 = s2_j1.reshape(q[0], 36, q[3], q[4])
+        return torch.cat([s0, u1_ll, s1_j2[:, :, 0], s2_j1], dim=1)
+
+    s1_j1 = smooth_mag(h1, magbias)                     # (N,6,C,H/2,W/2)
+    s1_j2 = smooth_mag(h2, magbias)                     # (N,6,C,H/4,W/4)
+    p = s1_j1.shape
+    u1_ll, h3 = front1(s1_j1.reshape(p[0], 6 * p[2], p[3], p[4]))
+    s2_j1 = smooth_mag(h3, magbias)                     # (N,6,6C,H/4,W/4)
+    q = s2_j1.shape
+    s2_j1 = s2_j1.reshape(q[0], 36, q[2] // 6, q[3], q[4])
+    s1_j1 = u1_ll.reshape(p[0], 6, p[2], p[3] // 2, p[4] // 2)
+    Z = torch.cat([s0[:, None], s1_j1, s1_j2, s2_j1], dim=1)
+    b, _, c, hh, ww = Z.shape
+    return Z.reshape(b, 49 * c, hh, ww)
+
+
 def scat_layer_j1(x, filters, mode="symmetric", magbias=1e-2,
                   combine_colour=False, bandpass_diag=False):
     """One order of scattering at one scale (reference ScatLayer,
@@ -269,13 +311,7 @@ def scat_layer_j1(x, filters, mode="symmetric", magbias=1e-2,
     if combine_colour and x.shape[1] != 3:
         raise ValueError("combine_colour requires 3 input channels")
     ll, (h,) = _scat_levels(x, filters, mode, 1, bandpass_diag)
-    if combine_colour:
-        r = smooth_mag(h, magbias, combine=True)   # (N, 6, 1, H/2, W/2)
-        return torch.cat([ll, r[:, :, 0]], dim=1)
-    r = smooth_mag(h, magbias)                      # (N, 6, C, H/2, W/2)
-    Z = torch.cat([ll[:, None], r], dim=1)          # (N, 7, C, H/2, W/2)
-    b, _, c, hh, ww = Z.shape
-    return Z.reshape(b, 7 * c, hh, ww)
+    return _scat_j1_head(ll, h, magbias, combine_colour)
 
 
 def scat_layer_j2(x, filters, mode="symmetric", magbias=1e-2,
@@ -293,26 +329,7 @@ def scat_layer_j2(x, filters, mode="symmetric", magbias=1e-2,
         raise ValueError("combine_colour requires 3 input channels")
     s0, (h1, h2) = _scat_levels(x, filters, mode, 2, bandpass_diag)
 
-    if combine_colour:
-        s1_j1 = smooth_mag(h1, magbias, combine=True)   # (N,6,1,H/2,W/2)
-        s1_j2 = smooth_mag(h2, magbias, combine=True)   # (N,6,1,H/4,W/4)
-        u1_ll, (h3,) = _scat_levels(s1_j1[:, :, 0], filters, mode, 1,
-                                    bandpass_diag)
-        s2_j1 = smooth_mag(h3, magbias)                 # (N,6,6,H/4,W/4)
-        q = s2_j1.shape
-        s2_j1 = s2_j1.reshape(q[0], 36, q[3], q[4])
-        return torch.cat([s0, u1_ll, s1_j2[:, :, 0], s2_j1], dim=1)
-
-    s1_j1 = smooth_mag(h1, magbias)                     # (N,6,C,H/2,W/2)
-    s1_j2 = smooth_mag(h2, magbias)                     # (N,6,C,H/4,W/4)
-    p = s1_j1.shape
-    u1 = s1_j1.reshape(p[0], 6 * p[2], p[3], p[4])
-    u1_ll, (h3,) = _scat_levels(u1, filters, mode, 1,   # pooled
-                                bandpass_diag)
-    s2_j1 = smooth_mag(h3, magbias)                     # (N,6,6C,H/4,W/4)
-    q = s2_j1.shape
-    s2_j1 = s2_j1.reshape(q[0], 36, q[2] // 6, q[3], q[4])
-    s1_j1 = u1_ll.reshape(p[0], 6, p[2], p[3] // 2, p[4] // 2)
-    Z = torch.cat([s0[:, None], s1_j1, s1_j2, s2_j1], dim=1)
-    b, _, c, hh, ww = Z.shape
-    return Z.reshape(b, 49 * c, hh, ww)
+    def front1(u):
+        ll, (h3,) = _scat_levels(u, filters, mode, 1, bandpass_diag)
+        return ll, h3
+    return _scat_j2_head(s0, h1, h2, front1, magbias, combine_colour)

@@ -11,8 +11,12 @@ meshes (1, 2), (2, 1) with an odd batch of 3, (2, 2) with an odd batch,
 strategy), ``skip_hps`` / ``include_scale``; outputs, the
 reconstruction, input gradients of fixed random cotangents, the
 inverse's coefficient gradients and one Hessian-vector product, within
-2e-5.  The 64² J=3 case on 4 'spatial' ranks, where JAX leaves the
-composed route, raises NotImplementedError."""
+2e-5.  The per-level route: the 64² J=3 case on 4 'spatial' ranks
+(halo 26, tile 16: JAX leaves the composed route), and cases on (1, 2)
+and (1, 2, 2) forced on both sides by shrinking the composed gate
+(``_mm_enabled``), with ``skip_hps`` / ``include_scale`` and inverses
+without the lowpass, with a level's bands None and with a size-0
+placeholder; the route each entry took (``LAST_PATH``) is JAX's."""
 import numpy as np
 import pytest
 import torch
@@ -20,6 +24,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import pytorch_wavelets_tpu.parallel.sharded as jsh
 from pytorch_wavelets_tpu.ops import banded as jbanded
 from pytorch_wavelets_tpu.parallel import (
     make_mesh as jmake_mesh, sharded_dtcwt2d as jfwd,
@@ -78,14 +83,13 @@ def _check(mine, ref, what):
 
 @pytest.mark.parametrize("world,case", CASES,
                          ids=[c[0] for _, c in CASES])
-def test_sharded_dtcwt_matches_jax(worlds, jax_matmul, world, case):
+def test_sharded_dtcwt_matches_jax(worlds, jax_matmul, monkeypatch, world,
+                                   case):
     name, (nd, nh, ns), J, N, opts = case
     res = worlds[world]
     seed = DTCWT_CASES[world].index(case)
-    if opts.get("raises"):
-        for r in range(world):
-            assert "A5d" in str(res[r][name + "/raised"])
-        return
+    if opts.get("perlevel"):
+        monkeypatch.setattr(jsh, "_mm_enabled", lambda n: False)
     mesh = jmake_mesh(n_data=nd, n_spatial=ns, n_spatial_h=nh,
                       devices=jax.devices()[:world])
     x, a, bs, c, v = dtcwt_inputs(J, N, 100 * seed)
@@ -103,8 +107,17 @@ def test_sharded_dtcwt_matches_jax(worlds, jax_matmul, world, case):
         out = {"yl": yl, "yh": yh}
         if kw:
             return out
+        out["path"] = jsh.LAST_PATH["dtcwt2d"]
         rec, ivjp = jax.vjp(inv, yl, yh)
         out["rec"] = rec
+        out["ipath"] = jsh.LAST_PATH["idtcwt2d"]
+        if opts.get("drop"):
+            for key, coeffs in (
+                    ("low", (None, yh)),
+                    ("level_none", (yl, [yh[0], None, *yh[2:]])),
+                    ("level_empty", (yl, [jnp.zeros((0,)), *yh[1:]]))):
+                out["rec_" + key] = jinv(coeffs, mesh, FI)
+                out["ipath_" + key] = jsh.LAST_PATH["idtcwt2d"]
         if opts.get("grads"):
             out["gx"] = vjp((a, list(bs)))[0]
             out["ginv"] = ivjp(c)
@@ -115,13 +128,31 @@ def test_sharded_dtcwt_matches_jax(worlds, jax_matmul, world, case):
             out["hvp"] = jax.grad(lambda t: jnp.vdot(jax.grad(cubic)(t),
                                                      v))(z)
         return out
-    ref = jax.jit(refs, compiler_options=FAST)(
+    paths = {}
+
+    def arrays(z, a, bs, c, v):
+        out = refs(z, a, bs, c, v)
+        for k in [k for k in out if "path" in k]:
+            paths[k] = out.pop(k)
+        return out
+    ref = jax.jit(arrays, compiler_options=FAST)(
         jnp.asarray(x), jnp.asarray(a), [jnp.asarray(b) for b in bs],
         jnp.asarray(c), jnp.asarray(v))
+    paths.setdefault("path", jsh.LAST_PATH["dtcwt2d"])
+    if opts.get("perlevel"):
+        assert set(paths.values()) == {"perlevel"}, paths
+    if name == "sp4_J3_raises":     # the forward's halo exceeds its tile
+        assert paths["path"] == "perlevel", paths
     coords = _coords(world, nd, nh, ns)
     for r, coord in enumerate(coords):
         got = res[r]
-        assert str(got[name + "/path"]) == "matmul"
+        for k, want in paths.items():
+            assert str(got[f"{name}/{k}"]) == want, (k, want)
+        for k in ("low", "level_none", "level_empty"):
+            if "rec_" + k in ref:
+                _check(got[f"{name}/rec_{k}"],
+                       _chunk_of(np.asarray(ref["rec_" + k]), coord,
+                                 (nd, nh, ns), SP4), f"rank {r} rec {k}")
         for j, t in enumerate(_leaves(ref["yl"])):
             _check(got[f"{name}/yl{j}"],
                    _chunk_of(np.asarray(t), coord, (nd, nh, ns), SP4),

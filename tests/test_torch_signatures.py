@@ -51,17 +51,12 @@ def test_batch_chunk_off(name, chunk):
 @pytest.mark.parametrize("name", ["DTCWTForward", "DTCWTInverse",
                                   "ScatLayer", "ScatLayerj2"])
 def test_positive_batch_chunk_raises(name):
-    """A positive chunk constructs.  Beside ``mesh=`` the scattering
-    layers raise, naming A5 (their sharded paths are not ported); the
-    DTCWT modules take a ``DeviceMesh`` (and drop the chunk with a
-    warning when called, test_dtcwt_mesh_world_of_one) and raise on
-    anything else."""
+    """A positive chunk constructs.  Beside ``mesh=`` the DTCWT modules
+    and the scattering layers take a ``DeviceMesh`` (and drop the chunk
+    with a warning when called, test_dtcwt_mesh_world_of_one,
+    test_scat_mesh_world_of_one) and raise on anything else."""
     getattr(tt, name)(batch_chunk=8, device="cpu")
-    if name.startswith("DTCWT"):
-        with pytest.raises(TypeError, match="DeviceMesh"):
-            getattr(tt, name)(batch_chunk=8, mesh=object(), device="cpu")
-        return
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         getattr(tt, name)(batch_chunk=8, mesh=object(), device="cpu")
 
 
@@ -95,6 +90,48 @@ def test_dtcwt_mesh_world_of_one(world_of_one):
     assert all(torch.equal(a.to_local(), b) for a, b in zip(yh, ryh))
     assert torch.equal(rec.to_local(), tt.DTCWTInverse(device="cpu")(
         (ryl, ryh)))
+
+
+@pytest.mark.parametrize("layer", ["ScatLayer", "ScatLayerj2"])
+def test_scat_mesh_world_of_one(world_of_one, layer):
+    """``mesh=`` on the scattering layers: on a (1, 1) mesh the sharded
+    fronts give the layer without a mesh bit for bit, as a DTensor, and a
+    positive ``batch_chunk`` is dropped with the JAX package's
+    warning."""
+    x = torch.randn(2, 3, 32, 40)
+    m = getattr(tt, layer)(mesh=world_of_one, batch_chunk=1, device="cpu")
+    with pytest.warns(UserWarning, match="batch_chunk ignored"):
+        out = m(x)
+    assert torch.equal(out.to_local(), getattr(tt, layer)(device="cpu")(x))
+
+
+@pytest.mark.parametrize("kind", ["dwt", "dwt1d"])
+@pytest.mark.parametrize("mode", ["reflect", "symmetric", "zero",
+                                  "periodization"])
+def test_dwt_mesh_input_gradient(world_of_one, kind, mode):
+    """What ``mesh=`` does to the DWT's input gradient (the README's
+    multi-GPU paragraph, the ``DWTForward`` / ``DWT1DForward``
+    docstrings): with a mesh it is the exact adjoint of the forward (the
+    sharded operators' autodiff), without one the reference's backward.
+    The two differ in 'reflect' and 'symmetric' by more than 1e-2 of the
+    gradient's size, and agree within 2e-6 in 'zero' and
+    'periodization'.  Both are the JAX package's."""
+    x = torch.randn(2, 2, 40, 72, generator=torch.Generator().manual_seed(3))
+    cls = tt.DWTForward
+    if kind == "dwt1d":
+        x, cls = x[:, :, 0].contiguous(), tt.DWT1DForward
+    grads = []
+    for mesh in (None, world_of_one):
+        z = x.clone().requires_grad_()
+        yl, yh = cls(J=3, wave="db4", mode=mode, mesh=mesh, device="cpu")(z)
+        leaves = [t if mesh is None else t.to_local() for t in (yl, *yh)]
+        grads.append(torch.autograd.grad(
+            sum((t ** 2).sum() for t in leaves), z)[0])
+    diff = float((grads[0] - grads[1]).abs().max())
+    if mode in ("zero", "periodization"):
+        assert diff <= 2e-6
+    else:
+        assert diff > 1e-2 * float(grads[0].abs().max())
 
 
 def test_positional_call_binds_like_jax():
@@ -134,12 +171,11 @@ def test_dwt_swt_mesh_world_of_one(world_of_one, kind):
 
 
 def test_parallel_exports_the_jax_entries():
-    """``parallel`` exports the JAX package's sharded entries but the
-    scattering layers' (A5c)."""
+    """``parallel`` exports every sharded entry of the JAX package."""
     import pytorch_wavelets_tpu.parallel as jp
     from pytorch_wavelets_tpu_torch import parallel as pp
     want = {n for n in jp.__all__ if n.startswith("sharded_")}
-    assert want - set(pp.__all__) == {"sharded_scat_j1", "sharded_scat_j2"}
+    assert want - set(pp.__all__) == set()
     assert all(callable(getattr(pp, n)) for n in pp.__all__
                if n.startswith("sharded_"))
 

@@ -1,5 +1,6 @@
 """Multi-process helpers of the port's sharded tests
-(tests/test_torch_halo.py, tests/test_torch_sharded_dtcwt.py).
+(tests/test_torch_halo.py, tests/test_torch_sharded_dtcwt.py,
+tests/test_torch_sharded_dwt.py, tests/test_torch_sharded_scat.py).
 
 A world of processes runs on the CPU with gloo, rendezvousing on a
 ``FileStore`` in the test's ``tmp_path``; every rank runs every case of
@@ -28,6 +29,10 @@ DTCWT_CASES = {
         ("data2_odd", (2, 1, 1), 2, 3, {"grads": True}),
         ("sp2_skip", (1, 1, 2), 3, 4, {"skip_hps": (True, False, False)}),
         ("sp2_scale", (1, 1, 2), 2, 4, {"include_scale": True}),
+        ("sp2_perlevel", (1, 1, 2), 2, 4, {"perlevel": True, "grads": True,
+                                           "drop": True}),
+        ("sp2_perlevel_skip", (1, 1, 2), 3, 4, {
+            "perlevel": True, "skip_hps": (True, False, False)}),
     ],
     4: [
         ("data2_sp2_odd", (2, 1, 2), 2, 3, {"grads": True}),
@@ -36,9 +41,20 @@ DTCWT_CASES = {
         ("h2_sp2_opts", (1, 2, 2), 2, 4, {"skip_hps": (True, False),
                                           "include_scale": True}),
         ("h4_J3_gather", (1, 4, 1), 3, 4, {"grads": True}),
-        ("sp4_J3_raises", (1, 1, 4), 3, 4, {"raises": True}),
+        # the id is kept from when the port raised here; the halo (26)
+        # is wider than the tile (16), so JAX runs it level by level
+        ("sp4_J3_raises", (1, 1, 4), 3, 4, {"grads": True}),
+        ("h2_sp2_perlevel", (1, 2, 2), 2, 4, {"perlevel": True,
+                                              "grads": True, "hvp": True}),
+        ("h2_sp2_perlevel_opts", (1, 2, 2), 3, 4, {
+            "perlevel": True, "skip_hps": (False, True, False),
+            "include_scale": (True, False, True)}),
     ],
 }
+# sharded DTCWT options: 'perlevel' (the composed gate shrunk to force the
+# per-level route), 'drop' (inverses of the forward's coefficients with
+# the lowpass None, level 1's bands None, and level 0's a size-0
+# placeholder)
 
 # halo cases on a world of 3 (rings of 1, 2 and 3 ranks): (ring size,
 # axis, boundary, left, right, tile length)
@@ -218,8 +234,12 @@ def _dtcwt_body(rank, world, res, cases):
 
     import pytorch_wavelets_tpu_torch as tt
     from pytorch_wavelets_tpu_torch.parallel import LAST_PATH, make_mesh
+    from pytorch_wavelets_tpu_torch.parallel import sharded
 
+    composed_gate = sharded._mm_enabled
     for seed, (name, (nd, nh, ns), J, N, opts) in enumerate(cases):
+        sharded._mm_enabled = (composed_gate if not opts.get("perlevel")
+                               else lambda n: False)
         mesh = make_mesh(nd, ns, nh, device_type="cpu")
         kw = {k: (list(v) if isinstance(v, tuple) else v)
               for k, v in opts.items()
@@ -227,12 +247,6 @@ def _dtcwt_body(rank, world, res, cases):
         fwd = tt.DTCWTForward(J=J, mesh=mesh, device="cpu", **kw)
         inv = tt.DTCWTInverse(mesh=mesh, device="cpu")
         x, a, bs, c, v = dtcwt_inputs(J, N, 100 * seed)
-        if opts.get("raises"):
-            try:
-                fwd(torch.from_numpy(x))
-            except NotImplementedError as e:
-                res[name + "/raised"] = np.str_(str(e))
-            continue
         xt = torch.from_numpy(x).requires_grad_()
         yl, yh = fwd(xt)
         for j, t in enumerate(_leaves(yl)):
@@ -254,6 +268,15 @@ def _dtcwt_body(rank, world, res, cases):
                for hl, h in zip(h_locs, yh)]
         rec = inv((yl2, yh2))
         res[name + "/rec"] = rec.to_local().detach().numpy()
+        res[name + "/ipath"] = np.str_(LAST_PATH["idtcwt2d"])
+        if opts.get("drop"):
+            for key, coeffs in (
+                    ("low", (None, yh2)),
+                    ("level_none", (yl2, [yh2[0], None, *yh2[2:]])),
+                    ("level_empty", (yl2, [torch.zeros(0), *yh2[1:]]))):
+                r = inv(coeffs)
+                res[f"{name}/rec_{key}"] = r.to_local().detach().numpy()
+                res[f"{name}/ipath_{key}"] = np.str_(LAST_PATH["idtcwt2d"])
         if not opts.get("grads"):
             continue
         # input gradients of <yl, a> + sum_j <yh_j, b_j>, and of <rec, c>
@@ -276,6 +299,7 @@ def _dtcwt_body(rank, world, res, cases):
             hv, = torch.autograd.grad((g * torch.from_numpy(v)).sum(), xt)
             dist.all_reduce(hv)
             res[name + "/hvp"] = hv.numpy()
+    sharded._mm_enabled = composed_gate
 
     # batch_chunk is dropped beside mesh=, with a warning
     mesh = make_mesh(world, 1, 1, device_type="cpu")
@@ -568,3 +592,133 @@ def _dwt_body(rank, world, res, cases):
 
 def dwt_worker(rank, world, store_path, out_dir):
     _run(_dwt_body, rank, world, store_path, out_dir, DWT_CASES[world])
+
+
+# --------------------------------------------------------------------------
+# The sharded scattering layers
+# --------------------------------------------------------------------------
+
+# (name, layer 'j2' (ScatLayerj2) or 'j1' (ScatLayer), (n_data,
+# n_spatial_h, n_spatial), shape, options) per world; options:
+# 'colour' (combine_colour), 'bp' (the bandpass-diagonal filters),
+# 'perlevel' (the composed gate shrunk: the giant-image fronts), 'grads'
+# (x.grad of a fixed cotangent), 'hvp', 'dtensor' (the input a DTensor
+# placed as spatial_placements) and 'raises' (NotImplementedError
+# expected instead of a result)
+SCAT_CASES = {
+    2: [
+        ("j2_sp2", "j2", (1, 1, 2), (2, 2, 64, 64), {"grads": True,
+                                                     "hvp": True}),
+        ("j2_data2_b3", "j2", (2, 1, 1), (3, 2, 64, 64), {"grads": True}),
+        ("j2_sp2_dtensor", "j2", (1, 1, 2), (2, 2, 64, 48),
+         {"grads": True, "dtensor": True}),
+        ("j1_sp2_odd", "j1", (1, 1, 2), (2, 2, 15, 31), {"grads": True}),
+        ("j2_colour_sp2", "j2", (1, 1, 2), (2, 3, 64, 64), {"colour": True,
+                                                            "grads": True}),
+        ("j1_colour_sp2", "j1", (1, 1, 2), (2, 3, 32, 32), {"colour": True}),
+        ("j2_giant_sp2", "j2", (1, 1, 2), (2, 2, 64, 64),
+         {"perlevel": True, "grads": True, "hvp": True}),
+        ("j1_giant_sp2", "j1", (1, 1, 2), (2, 2, 32, 64),
+         {"perlevel": True, "grads": True}),
+        ("j2_bp_raises", "j2", (1, 1, 2), (2, 2, 64, 64), {"bp": True,
+                                                           "raises": True}),
+        ("j2_not8_raises", "j2", (1, 1, 2), (2, 2, 60, 64),
+         {"raises": True}),
+    ],
+    4: [
+        ("j2_hw", "j2", (1, 2, 2), (2, 2, 64, 64), {"grads": True,
+                                                    "hvp": True}),
+        ("j2_data2_sp2_odd", "j2", (2, 1, 2), (3, 2, 64, 64),
+         {"grads": True}),
+        ("j2_colour_data2_sp2_odd", "j2", (2, 1, 2), (3, 3, 64, 64),
+         {"colour": True}),
+        ("j2_sp4_wide_halo", "j2", (1, 1, 4), (2, 1, 64, 32),
+         {"grads": True}),
+        ("j2_giant_hw", "j2", (1, 2, 2), (2, 2, 64, 64),
+         {"perlevel": True, "grads": True}),
+        ("j1_giant_hw", "j1", (1, 2, 2), (2, 2, 32, 32), {"perlevel": True}),
+        ("j1_tiles_raise", "j1", (1, 1, 4), (2, 2, 32, 34),
+         {"raises": True}),
+        ("j2_giant_tiles_raise", "j2", (1, 1, 4), (2, 2, 64, 72),
+         {"perlevel": True, "raises": True}),
+    ],
+}
+
+
+def scat_layer_kw(opts):
+    """The scattering layer's keyword arguments of a case."""
+    kw = {"combine_colour": True} if opts.get("colour") else {}
+    if opts.get("bp"):
+        kw.update(biort="near_sym_b_bp", qshift="qshift_b_bp")
+    return kw
+
+
+def _scat_body(rank, world, res, cases):
+    import warnings
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    import pytorch_wavelets_tpu_torch as tt
+    from pytorch_wavelets_tpu_torch.parallel import (
+        LAST_PATH, make_mesh, spatial_placements,
+    )
+    from pytorch_wavelets_tpu_torch.parallel import sharded_scat
+
+    composed_gate = sharded_scat._mm_enabled
+    for seed, (name, layer, (nd, nh, ns), shape, opts) in enumerate(cases):
+        sharded_scat._mm_enabled = (composed_gate if not opts.get("perlevel")
+                                    else lambda n: False)
+        mesh = make_mesh(nd, ns, nh, device_type="cpu")
+        kw = scat_layer_kw(opts)
+        if layer == "j1":
+            kw.pop("qshift", None)
+        m = (tt.ScatLayerj2 if layer == "j2" else tt.ScatLayer)(
+            mesh=mesh, device="cpu", **kw)
+        x = rand(shape, 500 + seed)
+        xt = torch.from_numpy(x).requires_grad_()
+        xin = xt
+        if opts.get("dtensor"):
+            xt = _chunk_leaf(x, mesh)
+            xin = DTensor.from_local(
+                xt, mesh, spatial_placements(mesh), run_check=False,
+                shape=torch.Size(shape),
+                stride=torch.from_numpy(x).stride())
+        if opts.get("raises"):
+            try:
+                m(xin)
+            except NotImplementedError as e:
+                res[name + "/raised"] = np.str_(str(e))
+            continue
+        out = m(xin)
+        res[name + "/out"] = out.to_local().detach().numpy()
+        res[name + "/path"] = np.str_(LAST_PATH["scat_" + layer])
+        if opts.get("grads"):
+            ct = rand(tuple(out.shape), 600 + seed)
+            gx, = torch.autograd.grad(
+                (out.to_local() * _local_of(ct, mesh, out)).sum(), xt)
+            if not opts.get("dtensor"):
+                gx = gx.contiguous()
+                dist.all_reduce(gx)
+            res[name + "/gx"] = gx.numpy()
+        if opts.get("hvp"):
+            v = torch.from_numpy(rand(shape, 700 + seed))
+            g, = torch.autograd.grad((m(xt).to_local() ** 3).sum(), xt,
+                                     create_graph=True)
+            hv, = torch.autograd.grad((g * v).sum(), xt)
+            dist.all_reduce(hv)
+            res[name + "/hvp"] = hv.numpy()
+    sharded_scat._mm_enabled = composed_gate
+
+    # batch_chunk is dropped beside mesh=, with a warning
+    mesh = make_mesh(world, 1, 1, device_type="cpu")
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        for cls in (tt.ScatLayerj2, tt.ScatLayer):
+            cls(mesh=mesh, batch_chunk=1, device="cpu")(
+                torch.zeros(2 * world, 1, 16, 16))
+    res["chunk_warning"] = np.str_(" | ".join(str(m.message) for m in w))
+
+
+def scat_worker(rank, world, store_path, out_dir):
+    _run(_scat_body, rank, world, store_path, out_dir, SCAT_CASES[world])
