@@ -4743,7 +4743,7 @@ SHARDED_WORLDS = {
         ("banded (1, 4)", (1, 1, 4), BANDED_SHAPE, 3)]}
 SHARDED_TOL = {"forward": 1e-5, "inverse": 2e-5, "x_grad": 2e-5}
 SHARDED_DEADLINE = 480        # seconds a world may take, its start included
-SHARDED_REPS = 5
+SHARDED_REPS = 3
 SHARDED_LABEL = "gloo, one card, host-staged halos"
 HALO_KERNELS = ("halo_pack", "halo_assemble", "halo_fold")
 HALO_REPLACES = "pytorch_wavelets_tpu/parallel/halo.py:23"
@@ -4807,7 +4807,8 @@ def sharded_case(tt, ops, parallel, label, mesh_shape, shape, J):
                 **sharded_run(ops, parallel, step, x, gs, refs, gref))
 
 
-def sharded_run(ops, parallel, step, x, gs, refs, gref, fwd_only=False):
+def sharded_run(ops, parallel, step, x, gs, refs, gref, fwd_only=False,
+                reps=SHARDED_REPS):
     """The first call of ``step`` (a round trip returning [rec, *forward
     leaves] as DTensors, or with ``fwd_only`` the forward's leaves alone)
     without a gradient, timed (the host plans built, the operators put
@@ -4815,7 +4816,7 @@ def sharded_run(ops, parallel, step, x, gs, refs, gref, fwd_only=False):
     gradient of sum_j <out_j, gs_j> on this rank, held against ``refs`` /
     ``gref`` from the card's run without a mesh (this rank's chunks;
     x.grad outside the rank's chunk must be 0), then the round trip and
-    the step timed on the host clock (median of SHARDED_REPS after a
+    the step timed on the host clock (median of ``reps`` after a
     warm-up and a barrier).  Returns the first call's seconds and
     launches, the launches, K19's walks, the exchanges, the bytes staged,
     ``LAST_PATH``, the errors (the inverse's None with ``fwd_only``) and
@@ -4861,7 +4862,7 @@ def sharded_run(ops, parallel, step, x, gs, refs, gref, fwd_only=False):
         torch.cuda.synchronize()
         dist.barrier()
         out = []
-        for _ in range(SHARDED_REPS):
+        for _ in range(reps):
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -4888,11 +4889,12 @@ def sharded_run(ops, parallel, step, x, gs, refs, gref, fwd_only=False):
 
 
 def sharded_worker(rank, world, store, out_dir, cases, dwt_cases,
-                   scat_cases):
+                   scat_cases, fallback_cases=()):
     """One rank of a gloo world on the card (every rank on cuda:0, the
     halos through pinned host memory): its DTCWT cases', its DWT / SWT
-    cases' and its scattering / per-level DTCWT cases' results to
-    ``out_dir/rank<r>.json``; any failure exits non-zero."""
+    cases', its scattering / per-level DTCWT cases' and its
+    sharded_fallbacks cases' results to ``out_dir/rank<r>.json``; any
+    failure exits non-zero."""
     import os
     import traceback
     try:
@@ -4911,7 +4913,9 @@ def sharded_worker(rank, world, store, out_dir, cases, dwt_cases,
                "dwt": [sharded_dwt_case(tt, ops, parallel, banded, afb_sfb,
                                         dwt, *case) for case in dwt_cases],
                "scat": [sharded_scat_case(tt, ops, parallel, *case)
-                        for case in scat_cases]}
+                        for case in scat_cases],
+               "fallback": [fallback_case(tt, ops, parallel, banded, *case)
+                            for case in fallback_cases]}
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(res, f)
         dist.barrier()
@@ -4922,10 +4926,11 @@ def sharded_worker(rank, world, store, out_dir, cases, dwt_cases,
         os._exit(1)
 
 
-def sharded_world(world, cases, dwt_cases, scat_cases):
-    """Run ``cases``, ``dwt_cases`` and ``scat_cases`` in a world of
-    ``world`` processes, joined with SHARDED_DEADLINE; a failing or hung
-    rank fails the phase.  Returns the ranks' results."""
+def sharded_world(world, cases, dwt_cases, scat_cases, fallback_cases=()):
+    """Run ``cases``, ``dwt_cases``, ``scat_cases`` and
+    ``fallback_cases`` in a world of ``world`` processes, joined with
+    SHARDED_DEADLINE; a failing or hung rank fails the phase.  Returns the
+    ranks' results."""
     import multiprocessing as mp
     import os
     import tempfile
@@ -4933,7 +4938,8 @@ def sharded_world(world, cases, dwt_cases, scat_cases):
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=sharded_worker,
                          args=(r, world, os.path.join(tmp, "store"), tmp,
-                               cases, dwt_cases, scat_cases))
+                               cases, dwt_cases, scat_cases,
+                               fallback_cases))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -5347,8 +5353,8 @@ def sharded_scat_k1_rows(tt, banded, sharded, sharded_scat, launches):
                                                     2)))
     gen = torch.Generator().manual_seed(7)
     rows = []
-    for label, lead, op in cases:
-        B, _ = op.local(0, "cuda")
+    for label, lead, st in cases:
+        B, _ = st.obj.local(0, "cuda")    # the stage-1 'shard' strategy
         win = torch.randn((*lead, B.shape[1]), generator=gen).cuda()
         rows.append(k1_block_row(banded, f"{label} on (1, 2)", B, win,
                                  launches, LARGE_REPLAY_TIMING))
@@ -5630,7 +5636,7 @@ def sharded_main(smi):
         t0 = time.perf_counter()
         ranks = worlds[world] = sharded_world(
             world, cases, SHARDED_DWT_WORLDS[world],
-            SHARDED_SCAT_WORLDS[world])
+            SHARDED_SCAT_WORLDS[world], SHARDED_FALLBACK_WORLDS[world])
         seconds = world_s[world] = time.perf_counter() - t0
         meshes = []
         for i, (label, (nd, nh, ns), shape, J) in enumerate(cases):
@@ -5856,10 +5862,11 @@ def _k19_halo(sharded, shape):
     (near_sym_a, qshift_a, 'symmetric') on ``shape`` on (1, 2), and the
     operator."""
     f = _k19_filters()
-    op, _ = sharded._dtcwt_fwd_shard_plans(
+    st, _ = sharded._dtcwt_fwd_shard_plans(
         f["h0o"], f["h1o"], f["h0a"], f["h1a"], f["h0b"], f["h1b"], 2,
         (False, False), (False, False), "symmetric", shape[2], shape[3], 2,
         1)
+    op = st.obj       # the stage-1 'shard' strategy's ShardedOp
     return (op.halo_left, op.halo_right), op
 
 
@@ -5979,7 +5986,8 @@ def k19_rows(halo, banded, sharded, launches, per_exchange):
     return rows
 
 
-def k1_block_row(banded, label, B, win, launches, timing=REPLAY_TIMING):
+def k1_block_row(banded, label, B, win, launches, timing=REPLAY_TIMING,
+                 replaces="pytorch_wavelets_tpu/parallel/banded_shard.py:184"):
     """The kernel line of K1 (``apply_sharded_op``'s product) on a rank's
     block ``B`` over its halo'd window ``win``, against its plain version
     and ``torch.matmul``; ``launches`` the sharded runs' counts (K1's row
@@ -6003,7 +6011,7 @@ def k1_block_row(banded, label, B, win, launches, timing=REPLAY_TIMING):
                 f"{shape_str(win.shape)}: {label})",
         "route": "cuda", "source": "pytorch_wavelets_tpu_torch/csrc/"
                                    "banded_apply.cu",
-        "replaces": "pytorch_wavelets_tpu/parallel/banded_shard.py:184",
+        "replaces": replaces,
         "launches": launches.get("apply_row", 0), "max_abs_err": err,
         "tolerance": K1_TOL, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(op_t, byte_t),
@@ -6016,6 +6024,297 @@ def _k19_filters():
         dtcwt_fwd_filters,
     )
     return dtcwt_fwd_filters("near_sym_a", "qshift_a")
+
+
+# ---------------------------------------------------------------------------
+# sharded_fallbacks: where the JAX package runs GSPMD, the port's own routes
+# (parallel/sharded.py's per-level route on zero-embedded storage,
+# parallel/sharded_dwt.py's least-squares ISWT gathered per axis,
+# parallel/sharded_conv.py's stencil halo route on K19 windows) and
+# DTCWTForward2's batch data parallelism, in the same worlds
+# ---------------------------------------------------------------------------
+
+RAGGED_SHAPE = (10, 10, 126, 130)    # the reference's batch; 130 = 4 x 32.5
+GIANT_W_SHAPE = (1, 3, 256, 36864)   # W past the sharded cap of 32,768
+ALT_ODD_BATCH_SHAPE = (127, 3, 256, 256)
+# (label, kind, (n_data, n_spatial_h, n_spatial), shape, options, route)
+# per world: kind 'dtcwt' (DTCWTForward J=options' J -> DTCWTInverse;
+# 'drop': the inverse with the lowpass and the coarsest level None), 'j2' /
+# 'j1' (ScatLayerj2 / ScatLayer; 'bp': the bandpass-diagonal filters),
+# 'swt' (SWTForward J=2 db4 -> SWTInverse in options' mode; wave 'bior2.2
+# tuple': dec_filters('bior2.2') as raw taps) or 'alt' (DTCWTForward2 J=3
+# farras / qshift_a -> DTCWTInverse2); 'conv': set_operator_matmul(False);
+# route the LAST_PATH every entry names, or each entry's ('batch' for alt,
+# which records none).  The JAX package runs GSPMD in every one of them
+# (the inverse without the lowpass and the coarsest level it refuses).
+SHARDED_FALLBACK_WORLDS = {
+    2: [("scat_j2 252 (1, 2)", "j2", (1, 1, 2), (128, 3, 252, 252), {},
+         "matmul"),
+        ("dtcwt lowpass and level 3 None (1, 2)", "dtcwt", (1, 1, 2),
+         MAIN_SHAPE, {"J": 3, "drop": True},
+         {"dtcwt2d": "matmul", "idtcwt2d": "perlevel"}),
+        ("swt symmetric (1, 2)", "swt", (1, 1, 2), SWT_SHAPE,
+         {"mode": "symmetric"}, "matmul"),
+        ("swt bior2.2 tuple (1, 2)", "swt", (1, 1, 2), SWT_SHAPE,
+         {"mode": "periodization", "wave": "bior2.2 tuple"}, "matmul"),
+        ("scat_j2 bp (1, 2)", "j2", (1, 1, 2), BP_SHAPE, {"bp": True},
+         "conv"),
+        ("dtcwt W 36864 (1, 2)", "dtcwt", (1, 1, 2), GIANT_W_SHAPE,
+         {"J": 2}, "conv"),
+        ("alt (2, 1)", "alt", (2, 1, 1), ALT_SHAPE, {}, "batch")],
+    4: [("dtcwt ragged W (1, 4)", "dtcwt", (1, 1, 4), RAGGED_SHAPE,
+         {"J": 2}, "perlevel"),
+        ("dtcwt ragged H (4, 1)", "dtcwt", (1, 4, 1), RAGGED_SHAPE,
+         {"J": 2}, "perlevel"),
+        ("scat_j1 250 (1, 4)", "j1", (1, 1, 4), (128, 3, 256, 250), {},
+         "perlevel"),
+        ("swt symmetric (1, 2, 2)", "swt", (1, 2, 2), SWT_SHAPE,
+         {"mode": "symmetric"}, "matmul"),
+        ("scat_j2 bp (1, 2, 2)", "j2", (1, 2, 2), BP_SHAPE, {"bp": True},
+         "conv"),
+        ("dtcwt operator route off (1, 4)", "dtcwt", (1, 1, 4), MAIN_SHAPE,
+         {"J": 2, "conv": True}, "conv"),
+        ("alt batch 127 (4, 1)", "alt", (4, 1, 1), ALT_ODD_BATCH_SHAPE, {},
+         "batch")]}
+FALLBACK_TOL = 2e-5           # times max(1, max |reference|)
+FALLBACK_ENTRIES = {"dtcwt": ("dtcwt2d", "idtcwt2d"), "j2": ("scat_j2",),
+                    "j1": ("scat_j1",), "swt": ("swt2d", "iswt2d"),
+                    "alt": ()}
+STENCILS = ("dtcwt_filt", "dtcwt_dfilt", "dtcwt_ifilt")
+
+
+def _fallback_modules(tt, kind, opts, mesh):
+    """The (forward, inverse or None) modules of a sharded_fallbacks case,
+    without a mesh where ``mesh`` is None."""
+    kw = dict(mesh=mesh, device="cuda")
+    if kind == "dtcwt":
+        return (tt.DTCWTForward(J=opts["J"], **kw), tt.DTCWTInverse(**kw))
+    if kind in ("j1", "j2"):
+        cls = tt.ScatLayer if kind == "j1" else tt.ScatLayerj2
+        bp = ({"biort": BP["biort"]} if kind == "j1" else BP) \
+            if opts.get("bp") else {}
+        return cls(**bp, **kw), None
+    if kind == "swt":
+        from pytorch_wavelets_tpu_torch.transforms.dwt import dec_filters
+        wave = (tuple(np.asarray(f) for f in dec_filters("bior2.2"))
+                if opts.get("wave") == "bior2.2 tuple" else "db4")
+        return (tt.SWTForward(J=2, wave=wave, mode=opts["mode"], **kw),
+                tt.SWTInverse(wave=wave, mode=opts["mode"], **kw))
+    from pytorch_wavelets_tpu_torch.transforms import dtcwt_alt
+    return (dtcwt_alt.DTCWTForward2(J=ALT_J, **kw),
+            dtcwt_alt.DTCWTInverse2(**kw))
+
+
+def _fallback_leaves(kind, opts, fwd, inv, z):
+    """[reconstruction, *forward leaves] of a case's round trip, or the
+    scattering layer's output alone."""
+    if kind in ("j1", "j2"):
+        return [fwd(z)]
+    if kind == "dtcwt":
+        yl, yh = fwd(z)
+        rec = inv((None, [*yh[:-1], None]) if opts.get("drop")
+                  else (yl, yh))
+        return [rec, yl, *yh]
+    if kind == "swt":
+        coeffs = fwd(z)
+        return [inv(coeffs), *coeffs]
+    yl, yh = fwd(z)
+    return [inv((yl, yh)), *[t for row in yl for t in row], *yh]
+
+
+def fallback_case(tt, ops, parallel, banded, label, kind, mesh_shape, shape,
+                  opts, route):
+    """One sharded_fallbacks case on this rank: the card's run without a
+    mesh first (the round trip or the layer, and the gradient of
+    sum_j <leaf_j, G_j>), then with ``mesh=`` (:func:`sharded_run`), the
+    warnings of the routes that move more than a halo caught."""
+    import gc
+    import warnings
+
+    from pytorch_wavelets_tpu_torch.parallel import sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+    nd, nh, ns = mesh_shape
+    mesh = parallel.make_mesh(nd, ns, nh)
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(0)).cuda()
+    banded.set_operator_matmul(False if opts.get("conv") else None)
+    try:
+        fwd_r, inv_r = _fallback_modules(tt, kind, opts, None)
+        xr = x.clone().requires_grad_()
+        trip = _fallback_leaves(kind, opts, fwd_r, inv_r, xr)
+        gs = [torch.randn(t.shape, generator=torch.Generator().manual_seed(
+            1 + i)).cuda() for i, t in enumerate(trip)]
+        gref, = torch.autograd.grad(sum((t * g).sum()
+                                        for t, g in zip(trip, gs)), xr)
+        k = 0 if kind in ("j1", "j2") else 1
+        scale = {"forward": max([1.0] + [t.abs().max().item()
+                                         for t in trip[k:]]),
+                 "inverse": None if k == 0 else max(
+                     1.0, trip[0].abs().max().item()),
+                 "x_grad": max(1.0, gref.abs().max().item())}
+        refs = [t.detach().cpu() for t in trip]
+        gs, gref = [g.cpu() for g in gs], gref.cpu()
+        del trip, xr, fwd_r, inv_r
+        torch.cuda.empty_cache()
+        fwd, inv = _fallback_modules(tt, kind, opts, mesh)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = sharded_run(
+                ops, parallel,
+                lambda z: _fallback_leaves(kind, opts, fwd, inv, z), x, gs,
+                refs, gref, fwd_only=k == 0)
+    finally:
+        banded.set_operator_matmul(None)
+    res["warnings"] = sorted({str(w.message) for w in caught
+                              if "more than a halo" in str(w.message)})
+    res["path"] = {e: res["path"].get(e) for e in FALLBACK_ENTRIES[kind]}
+    res["stencil_launches"] = {n: res["launches"].get(n, 0)
+                               for n in STENCILS}
+    if k == 0:
+        res["forward_ms"] = res.pop("round_trip_ms")
+    del refs, gs, gref, x, fwd, inv
+    sharded._dtcwt_fwd_perlevel_shard_plans.cache_clear()
+    sharded._dtcwt_inv_perlevel_shard_plans.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(label=label, kind=kind, route=route, options=opts,
+                mesh=dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
+                shape=list(shape), scale=scale, **res)
+
+
+def fallback_gates(label, r, res, nh, ns):
+    """One rank's checks of a sharded_fallbacks case: every error within
+    FALLBACK_TOL of the reference's scale, the route named; the operator
+    routes launching K1, the stencil halo route K8, K9 (past level 1) and
+    K10 (the inverse, or the backward), the batch-parallel one K6 / K7 and
+    no K19; K19 on every rank of a mesh with a sharded spatial axis, one
+    launch an exchange and pass; the least-squares ISWT's warning."""
+    for what, err in res["max_abs_err"].items():
+        lim = None if err is None else FALLBACK_TOL * res["scale"][what]
+        require(err is None or err <= lim,
+                f"sharded_fallbacks {label} rank {r}: {what} differs from "
+                f"the card's run without a mesh by {err} (limit {lim})")
+    route, kind = res["route"], res["kind"]
+    if isinstance(route, dict):
+        want, route = route, route[FALLBACK_ENTRIES[kind][-1]]
+    else:
+        want = {e: route for e in FALLBACK_ENTRIES[kind]}
+    require(res["path"] == want,
+            f"sharded_fallbacks {label} rank {r}: path {res['path']}, "
+            f"route {res['route']}")
+    n19 = sum(res["k19_launches"].values())
+    stencils = res["stencil_launches"]
+    if route == "conv":
+        need = STENCILS if kind != "j1" else ("dtcwt_filt",)
+        require(all(stencils[n] > 0 for n in need),
+                f"sharded_fallbacks {label} rank {r}: stencils {stencils} "
+                f"on the stencil halo route")
+    elif route == "batch":
+        n = res["launches"]
+        require(n19 == 0 and n.get("afb1d_corr", 0) > 0
+                and n.get("sfb1d_conv", 0) > 0,
+                f"sharded_fallbacks {label} rank {r}: K19 {n19}, launches "
+                f"{n}")
+    else:
+        require(res["k1_launches"] > 0 and not any(stencils.values()),
+                f"sharded_fallbacks {label} rank {r}: K1 "
+                f"{res['k1_launches']}, stencils {stencils}")
+    if route != "batch":
+        require(n19 > 0 if nh * ns > 1 else n19 == 0,
+                f"sharded_fallbacks {label} rank {r}: K19 launches "
+                f"{res['k19_launches']}")
+    k19_exchange_gates(label, r, res)
+    if kind == "swt":
+        require(any("least-squares" in w for w in res["warnings"]),
+                f"sharded_fallbacks {label} rank {r}: no warning of the "
+                f"least-squares merge: {res['warnings']}")
+
+
+def sharded_fallback_phase(smi, worlds, seconds):
+    """Emit the sharded_fallbacks phase of every world (every rank's
+    results gated by :func:`fallback_gates`); returns every kernel's
+    launches summed over every rank of every case."""
+    total = {}
+    for world, cases in SHARDED_FALLBACK_WORLDS.items():
+        meshes = []
+        for i, (label, kind, (_, nh, ns), shape, opts, route) in enumerate(
+                cases):
+            per_rank = [worlds[world][r]["fallback"][i] for r in range(world)]
+            for r, res in enumerate(per_rank):
+                fallback_gates(label, r, res, nh, ns)
+                for k, n in res["launches"].items():
+                    total[k] = total.get(k, 0) + n
+            ms = "forward_ms" if kind in ("j1", "j2") else "round_trip_ms"
+            meshes.append({
+                "label": label, "kind": kind, "route": route,
+                "options": opts, "mesh": per_rank[0]["mesh"],
+                "shape": list(shape), "ranks": per_rank,
+                "max_abs_err": {
+                    w: max((r["max_abs_err"][w] for r in per_rank
+                            if r["max_abs_err"][w] is not None),
+                           default=None)
+                    for w in ("forward", "inverse", "x_grad")},
+                "scale": per_rank[0]["scale"],
+                ms: max(r[ms] for r in per_rank),
+                "step_ms": max(r["step_ms"] for r in per_rank),
+                "first_call_s": max(r["first_call_s"] for r in per_rank),
+                "staged_bytes": max(sum(r["staged_bytes"].values())
+                                    for r in per_rank),
+                "k1_launches": sum(r["k1_launches"] for r in per_rank),
+                "k19_launches": sum(sum(r["k19_launches"].values())
+                                    for r in per_rank),
+                "stencil_launches": {n: sum(r["stencil_launches"][n]
+                                            for r in per_rank)
+                                     for n in STENCILS},
+                "warnings": per_rank[0]["warnings"]})
+        emit("sharded_fallbacks", world=world, timing_label=SHARDED_LABEL,
+             nvidia_smi=smi, tolerance=f"{FALLBACK_TOL} x max(1, max "
+             f"|reference|)", world_seconds_with_sharded_main=seconds[world],
+             meshes=meshes)
+    emit("sharded_fallbacks_launches", launches=total)
+    return total
+
+
+def fallback_k1_rows(tt, banded, sharded, sharded_dwt, launches):
+    """K1 on two operators of the sharded_fallbacks routes, against its
+    plain version and ``torch.matmul``: rank 0's block of the per-level
+    route's embedded level-1 stage-1 operator of RAGGED_SHAPE on (1, 4)
+    over its halo'd window, and the least-squares ISWT's dense merge (the
+    level-0 pinv along W of SWT_SHAPE in 'symmetric', db4: (256, 2 x 256),
+    the 'gather' strategy's whole operator) over the gathered [lo | hi].
+    ``launches`` are the sharded_fallbacks cases' (every rank)."""
+    f = _k19_filters()
+    taps = tuple(f[k] for k in ("h0o", "h1o", "h0a", "h1a", "h0b", "h1b"))
+    N, C, H, W = RAGGED_SHAPE
+    ((st1, _), _) = sharded._dtcwt_fwd_perlevel_shard_plans(
+        *taps, 2, (False, False), "symmetric", H, W, 4, 1)[0]
+    require(st1.kind == "shard", f"fallback_k1_rows: level 1 is "
+            f"{st1.kind}")
+    dec = sharded_dwt.dec_filters("db4")
+    (merge,) = sharded_dwt._iswt_ls_strategies(
+        (sharded_dwt._rev(dec[2]), sharded_dwt._rev(dec[3])), "symmetric",
+        1, SWT_SHAPE[3], 2)
+    require(merge.kind == "gather", f"fallback_k1_rows: the ISWT merge is "
+            f"{merge.kind}")
+    gen = torch.Generator().manual_seed(11)
+    rows = []
+    B, _ = st1.obj.local(0, "cuda")
+    win = torch.randn((N, C, H, B.shape[1]), generator=gen).cuda()
+    rows.append(k1_block_row(
+        banded, f"per-level DTCWT level 1 on zero-embedded storage, "
+        f"{shape_str(RAGGED_SHAPE)} on (1, 4)", B, win, launches,
+        LARGE_REPLAY_TIMING))
+    del win, B
+    T, _ = merge.operators("cuda")
+    win = torch.randn((*SWT_SHAPE[:3], T.shape[1]), generator=gen).cuda()
+    rows.append(k1_block_row(
+        banded, f"least-squares ISWT merge, symmetric, level 0, "
+        f"{shape_str(SWT_SHAPE)} on (1, 2)", T, win, launches,
+        LARGE_REPLAY_TIMING,
+        replaces="pytorch_wavelets_tpu/transforms/dwt.py:345"))
+    del win, T
+    torch.cuda.empty_cache()
+    return rows
 
 
 def nccl_world_of_one(tt, parallel, banded):
@@ -6155,6 +6454,7 @@ def profile_kind(key):
 
 
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -6448,6 +6748,7 @@ def main():
     launches, per_exchange, worlds, world_s = sharded_main(smi)
     dwt_launches = sharded_dwt_phase(smi, worlds, world_s)
     scat_launches = sharded_scat_phase(smi, worlds, world_s)
+    fb_launches = sharded_fallback_phase(smi, worlds, world_s)
     del worlds
     n_edge, mismatches, walks, multi = halo_edge_cases(halo)
     emit("halo_edge_cases", calls=n_edge, mismatched_elements=mismatches,
@@ -6456,13 +6757,15 @@ def main():
     emit("window_edge_cases", calls=n_edge, max_abs_err=edge_err,
          tolerance=DWT_TOL, instantiations=edge_insts)
     every = {k: launches.get(k, 0) + dwt_launches.get(k, 0)
-             + scat_launches.get(k, 0)
-             for k in {*launches, *dwt_launches, *scat_launches}}
+             + scat_launches.get(k, 0) + fb_launches.get(k, 0)
+             for k in {*launches, *dwt_launches, *scat_launches,
+                       *fb_launches}}
     new = k19_rows(halo, banded, sharded, every, per_exchange)
     new += window_rows(afb_sfb, dwt, dwt_launches)
     new += sharded_dwt_k1_rows(banded, sharded_dwt, dwt_launches)
     new += sharded_scat_k1_rows(tt, banded, sharded, sharded_scat,
                                 scat_launches)
+    new += fallback_k1_rows(tt, banded, sharded, sharded_dwt, fb_launches)
     for row in new:
         emit("kernel", **row)
     rows.extend(new)
@@ -6509,6 +6812,7 @@ def main():
         emit("profile", path=path, **profile(lambda: hvp(x, v), 2))
         del hvp, x, v
 
+    emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [{k: v for k, v in r.items()
                                    if k != "per_call"} for r in rows]}))
     print(smi)

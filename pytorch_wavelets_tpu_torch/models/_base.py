@@ -143,18 +143,11 @@ class _TapsModule(nn.Module):
     The plans are keyed by the taps' host values, kept beside the buffers
     (reading CUDA buffers on every call would synchronise); loading a
     state dict refreshes them from the loaded buffers.  ``mesh`` (a
-    ``DeviceMesh``, ``parallel.make_mesh``) is kept where the module has
-    a sharded path (``_SHARDED``: the DTCWT's, the DWT's, the SWT's and
-    the scattering layers'); the others raise."""
-
-    _SHARDED = False
+    ``DeviceMesh``, ``parallel.make_mesh``) is kept for the module's
+    sharded path."""
 
     def __init__(self, filters, device, mesh, batch_chunk):
         super().__init__()
-        if mesh is not None and not self._SHARDED:
-            raise NotImplementedError(
-                f"{type(self).__name__}: mesh= is not ported yet (ROADMAP.md"
-                f", queue A: A5f DTCWTForward2's batch data parallelism)")
         if mesh is not None and not isinstance(mesh, DeviceMesh):
             raise TypeError(f"{type(self).__name__}: mesh must be a "
                             f"torch.distributed DeviceMesh "

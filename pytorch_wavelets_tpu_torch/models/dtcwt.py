@@ -59,7 +59,6 @@ class DTCWTForward(_TapsModule):
     through ``torch.autograd.grad(..., create_graph=True)``).
     """
 
-    _SHARDED = True
 
     def __init__(self, biort="near_sym_a", qshift="qshift_a", J=3,
                  skip_hps=False, include_scale=False, o_dim=2, ri_dim=-1,
@@ -122,7 +121,6 @@ class DTCWTInverse(_TapsModule):
     and every level's bands present:
     ``parallel/sharded.py:sharded_idtcwt2d``)."""
 
-    _SHARDED = True
 
     def __init__(self, biort="near_sym_a", qshift="qshift_a", o_dim=2,
                  ri_dim=-1, mode="symmetric", mesh=None, batch_chunk=None,

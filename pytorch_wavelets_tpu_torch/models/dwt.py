@@ -37,7 +37,6 @@ _REC1 = ("g0", "g1")
 
 
 class _DWTModule(_TapsModule):
-    _SHARDED = True
 
     def __init__(self, names, taps, mode, device, mesh):
         super().__init__(zip(names, taps), device, mesh, None)

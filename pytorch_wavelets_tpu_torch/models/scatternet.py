@@ -43,11 +43,11 @@ class ScatLayer(_TapsModule):
     ``mesh``: a ``DeviceMesh`` (``parallel.make_mesh``): the layer runs
     sharded on it (``parallel/sharded_scat.py:sharded_scat_j1``), the
     batch over 'data', W over 'spatial' (H over 'spatial_h'), and returns
-    a DTensor; ``batch_chunk`` is then dropped with a warning, and the
-    bandpass-diagonal filters raise (``ROADMAP.md`` A5e).
+    a DTensor (the bandpass-diagonal filters on the stencil halo route,
+    ``parallel/sharded_conv.py``); ``batch_chunk`` is then dropped with a
+    warning.
     """
 
-    _SHARDED = True
 
     def __init__(self, biort="near_sym_a", mode="symmetric", magbias=1e-2,
                  combine_colour=False, mesh=None, batch_chunk=None,
@@ -96,7 +96,6 @@ class ScatLayerj2(_TapsModule):
     measurements).
     """
 
-    _SHARDED = True
 
     def __init__(self, biort="near_sym_a", qshift="qshift_a",
                  mode="symmetric", magbias=1e-2, combine_colour=False,

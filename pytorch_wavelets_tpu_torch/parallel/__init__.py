@@ -1,8 +1,12 @@
 """The distribution layer on ``torch.distributed``: device meshes, the
 ring halo exchange (kernel K19), sharded operator applies on K1, the
-sharded DTCWT (composed and per level), DWT, 1-D DWT, SWT and scattering
-layers (port of ``pytorch_wavelets_tpu/parallel``; what replaces the JAX
-package's GSPMD fallbacks is not ported yet, ``ROADMAP.md`` A5e)."""
+sharded DTCWT, DWT, 1-D DWT, SWT and scattering layers, and batch data
+parallelism for the Selesnick DTCWT (port of
+``pytorch_wavelets_tpu/parallel``).  Where the JAX package falls to
+GSPMD, the port runs one of its own routes (``LAST_PATH``): 'perlevel'
+on zero-embedded storage, the ISWT's dense least-squares merge
+('matmul', gathered per axis) or the stencil halo route ('conv',
+``parallel/sharded_conv.py``)."""
 from pytorch_wavelets_tpu_torch.parallel.mesh import (  # noqa: F401
     data_placements, initialize_multihost, make_mesh, placements,
     spatial_placements,
@@ -12,7 +16,7 @@ from pytorch_wavelets_tpu_torch.parallel.halo import (  # noqa: F401
     reset_staged_bytes,
 )
 from pytorch_wavelets_tpu_torch.parallel.sharded import (  # noqa: F401
-    LAST_PATH, sharded_dtcwt2d, sharded_idtcwt2d,
+    LAST_PATH, sharded_batch_apply, sharded_dtcwt2d, sharded_idtcwt2d,
 )
 from pytorch_wavelets_tpu_torch.parallel.sharded_dwt import (  # noqa: F401
     sharded_dwt1d, sharded_dwt2d, sharded_idwt1d, sharded_idwt2d,
@@ -28,4 +32,5 @@ __all__ = ["make_mesh", "data_placements", "spatial_placements",
            "reset_exchanges", "sharded_dwt2d", "sharded_idwt2d",
            "sharded_dwt1d", "sharded_idwt1d", "sharded_swt2d",
            "sharded_iswt2d", "sharded_dtcwt2d", "sharded_idtcwt2d",
-           "sharded_scat_j1", "sharded_scat_j2", "LAST_PATH"]
+           "sharded_scat_j1", "sharded_scat_j2", "sharded_batch_apply",
+           "LAST_PATH"]

@@ -32,19 +32,26 @@ autograd follows).
 
 Where the composed route has no plan (an axis past ``MAX_MATMUL_N`` =
 8832, a halo wider than the tile, an inverse without the lowpass or a
-level's bands), both entries run the **per-level route**, as the JAX
-package does: each level its own sharded stage-1 row apply and stage-2
-column applies under the same strategies, the lowpass passed on as
-local tiles, to ``_SHARDED_MM_CAP`` = 32768 samples an axis (the
-per-level operators synthesized from small probes,
-``ops/banded.py:extend_operator``).  Where the JAX package falls to
-GSPMD past that, the port raises ``NotImplementedError``
-(``ROADMAP.md`` A5e); it never gathers the image.  The host planners
-are numpy copies of the JAX ones.
+level's bands, tiles that do not divide, odd sizes on a DTensor), both
+entries run the **per-level route** ('perlevel'): each level its own
+sharded stage-1 row apply and stage-2 column applies under the same
+strategies, the lowpass passed on as local tiles, to ``_SHARDED_MM_CAP``
+= 32768 samples an axis (the per-level operators synthesized from small
+probes, ``ops/banded.py:extend_operator``).  Its operators are
+zero-embedded into shard-divisible storage (the JAX package's
+``_embed_blocks`` technique, :func:`_embedded_strategy`), the level-1
+replicate pad and the %4 pads folded in, so any H and W tile the mesh:
+the inputs are zero-padded to their storage (``_local(..., storage=)``),
+the outputs cut to their logical sizes (``_global(..., logical=)``).
+Where the JAX package runs GSPMD past that (the operator route off, an
+axis past 32768), both entries take the stencil halo route
+(``parallel/sharded_conv.py``, 'conv').  No route holds the whole image
+on one rank.  The host planners are numpy copies of the JAX ones.
 """
 from __future__ import annotations
 
 import math
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -59,7 +66,8 @@ from pytorch_wavelets_tpu_torch.ops.dtcwt_fb import (
     _dfilt_matrix, _filter_matrix, _ifilt_matrix,
 )
 from pytorch_wavelets_tpu_torch.ops.fused_dtcwt import (
-    _SB_ORIENTS, _cat, _cstack, _pyramid_layout, canonical_bands,
+    _SB_ORIENTS, _cat, _cstack, _member_groups, _pyramid_layout,
+    canonical_bands,
 )
 from pytorch_wavelets_tpu_torch.ops.quad import c2q_unpack, q2c_pack
 from pytorch_wavelets_tpu_torch.parallel.banded_shard import (
@@ -80,22 +88,34 @@ from pytorch_wavelets_tpu_torch.transforms.plan_cache import (
     budgeted_plan_cache,
 )
 
-__all__ = ["sharded_dtcwt2d", "sharded_idtcwt2d", "LAST_PATH"]
+__all__ = ["sharded_dtcwt2d", "sharded_idtcwt2d", "sharded_batch_apply",
+           "LAST_PATH"]
 
 # Which path each public sharded_* entry last took: name -> 'matmul' (the
 # operator route: the DTCWT's and the scattering layers' composed
-# pyramids, the DWT's and SWT's per-level operators), 'perlevel' (the
-# DTCWT and the scattering fronts level by level past the composed
-# route) or 'conv' (the DWT's and SWT's conv halo route,
-# parallel/sharded_dwt.py); the JAX package also has 'gspmd'.
+# pyramids, the DWT's and SWT's per-level operators, the ISWT's dense
+# least-squares merge), 'perlevel' (the DTCWT and the scattering fronts
+# level by level on zero-embedded storage past the composed route) or
+# 'conv' (the DWT's and SWT's conv halo route, parallel/sharded_dwt.py;
+# the DTCWT's and the scattering layers' stencil halo route,
+# parallel/sharded_conv.py); the JAX package has 'gspmd' where this port
+# runs 'perlevel', 'matmul' or 'conv'.
 LAST_PATH: dict = {}
 
 # The JAX package's cap of the sharded operator routes: a 32768-wide
 # operator takes GBs of host memory while it is built.
 _SHARDED_MM_CAP = 32768
 
-A5E = ("the JAX package runs the transform under GSPMD there, which is "
-       "not ported (ROADMAP.md A5e); this port does not gather the image")
+_WARNED: set = set()
+
+
+def warn_once(key, message):
+    """A ``UserWarning`` the first time ``key`` is seen in this process:
+    the routes that move more than a halo name themselves once, as the
+    JAX package's ``_note_path`` names its GSPMD fallback."""
+    if key not in _WARNED:
+        _WARNED.add(key)
+        warnings.warn(message, UserWarning, stacklevel=3)
 
 
 def _mm_enabled(n):
@@ -321,7 +341,7 @@ def _strategy(T, n, row_blocks, col_blocks, wrap=True):
         return _Strategy("shard", build_sharded_op(T, n, row_blocks,
                                                    col_blocks, wrap=wrap))
     except ValueError:
-        for s in row_blocks:
+        for s in (*row_blocks, *col_blocks):
             if s % n:
                 raise
         return _Strategy("gather", (np.ascontiguousarray(T),
@@ -400,14 +420,14 @@ def _apply_merge2(lo, hi, strat, axis, ax):
 # --------------------------------------------------------------------------
 
 def _pyramid_shard_op(plan, W, n_sp):
-    """The ShardedOp of a composed pyramid's stage-1 row operator (every
-    block tiled over the spatial axis); None when the layout does not
-    divide or the halo exceeds a tile."""
+    """The 'shard' strategy of a composed pyramid's stage-1 row operator
+    (every block tiled over the spatial axis); None when the layout does
+    not divide or the halo exceeds a tile."""
     blocks, _ = _pyramid_layout(plan)
     try:
-        return build_sharded_op(_cat(*blocks), n_sp,
-                                [b.shape[0] for b in blocks], [W],
-                                wrap=False)
+        return _Strategy("shard", build_sharded_op(
+            _cat(*blocks), n_sp, [b.shape[0] for b in blocks], [W],
+            wrap=False))
     except ValueError:
         return None
 
@@ -456,12 +476,13 @@ def _dtcwt_fwd_shard_plans(h0o, h1o, h0a, h1a, h0b, h1b, J, skips, incs,
     return op, s2
 
 
-def _band_group_strategies(bands, hb, wb, n_sp, n_h):
+def _band_group_strategies(bands, hb, wb, n_sp, n_h, embed=False):
     """One synthesis level's subband groups: per group of bands that share
     a row operator, (orientation pairs, the row merge's strategy over
     [lo | hi], the members' column operators' strategy).  ``bands`` is
     [(name, (R, C))] with (hb, wb) the bands' size.  Raises ValueError
-    where a block does not divide."""
+    where a block does not divide, unless ``embed``: then every block is
+    zero-embedded (:func:`_embedded_strategy`)."""
     groups: dict = {}
     for name, (R, C) in bands:
         groups.setdefault(id(R), (R, []))[1].append((name, C))
@@ -469,23 +490,32 @@ def _band_group_strategies(bands, hb, wb, n_sp, n_h):
     for R, members in groups.values():
         Rt = np.ascontiguousarray(
             _cat(R[:, 0::2].T, R[:, 1::2].T).T * (1.0 / math.sqrt(2.0)))
-        row = _strategy(Rt, n_sp, [Rt.shape[0]], [wb, wb], wrap=False)
         cms = [np.concatenate([C[:, 0::2], C[:, 1::2]], axis=1)
                for _, C in members]
         Cm = np.ascontiguousarray(np.concatenate(cms, axis=1))
-        col = _strategy(Cm, n_h, [Cm.shape[0]], [hb, hb] * len(members),
-                        wrap=False)
+        row = _block_strategy(Rt, n_sp, [Rt.shape[0]], [wb, wb], embed)
+        col = _block_strategy(Cm, n_h, [Cm.shape[0]],
+                              [hb, hb] * len(members), embed)
         lv.append((tuple(_SB_ORIENTS[name] for name, _ in members), row,
                    col))
     return lv
 
 
-def _low_strategies(R, C, in_hw, n_sp, n_h):
+def _block_strategy(T, n, row_blocks, col_blocks, embed):
+    """:func:`_embedded_strategy` of ``T`` with ``embed``, else
+    :func:`_strategy` (which raises where a block does not divide)."""
+    if embed:
+        return _embedded_strategy(T, n, row_blocks, col_blocks)[0]
+    return _strategy(T, n, row_blocks, col_blocks, wrap=False)
+
+
+def _low_strategies(R, C, in_hw, n_sp, n_h, embed=False):
     """The (row, column) strategies of a lowpass term R along W and C
-    along H on an input of ``in_hw``."""
+    along H on an input of ``in_hw`` (``embed`` as for
+    :func:`_band_group_strategies`)."""
     R, C = np.ascontiguousarray(R), np.ascontiguousarray(C)
-    return (_strategy(R, n_sp, [R.shape[0]], [in_hw[1]], wrap=False),
-            _strategy(C, n_h, [C.shape[0]], [in_hw[0]], wrap=False))
+    return (_block_strategy(R, n_sp, [R.shape[0]], [in_hw[1]], embed),
+            _block_strategy(C, n_h, [C.shape[0]], [in_hw[0]], embed))
 
 
 @budgeted_plan_cache
@@ -513,10 +543,39 @@ def _dtcwt_inv_shard_plans(g0o, g1o, g0a, g1a, g0b, g1b, mode, yl_hw,
 # banded.DIRECT_PROBE_N), every one sharded as the composed pyramid's
 # --------------------------------------------------------------------------
 
-def _fwd_level_plans(h0o, h1o, h0a, h1a, h0b, h1b, J, skips, mode, H, W):
+def pad_widths(n, pad):
+    """(before, after) of the replicate pad of a level-1 input axis of
+    ``n`` samples: 'even' one sample after an odd axis
+    (``dtcwt_xfm._replicate_pad_even``, ``ScatLayer``), 'mod8' up to a
+    multiple of 8, split before / after as ``scatternet._pad_mod8`` takes
+    it (``ScatLayerj2``: the axis's first samples before, its last ones
+    after)."""
+    if pad == "even":
+        return 0, n % 2
+    rem = n % 8
+    return ((8 - rem) // 2, (9 - rem) // 2) if rem else (0, 0)
+
+
+def _pad_matrix(n, pad):
+    """The (n', n) selection of :func:`pad_widths`' pad, or None where
+    nothing is padded."""
+    before, after = pad_widths(n, pad)
+    if not (before or after):
+        return None
+    # the modules' slices x[:before] and x[-after:], as short as the axis
+    idx = np.concatenate([np.arange(min(before, n)), np.arange(n),
+                          np.arange(max(0, n - after), n)])
+    P = np.zeros((len(idx), n), dtype=np.float32)
+    P[np.arange(len(idx)), idx] = 1.0
+    return P
+
+
+def _fwd_level_plans(h0o, h1o, h0a, h1a, h0b, h1b, J, skips, mode, H, W,
+                     pad="even"):
     """Per-level (uncomposed) forward plans: level j's operators act on
-    level j-1's lowpass, the %4 replicate pad between levels composed in.
-    A tuple of (level, (in_h, in_w)), a level as the composed plan's
+    level j-1's lowpass, the level-1 replicate pad (``pad``, as
+    :func:`_pad_matrix`) and the %4 replicate pad between levels composed
+    in.  A tuple of (level, (in_h, in_w)), a level as the composed plan's
     (``ll`` always present: it feeds the next level), or None where the
     filters and sizes admit no parity-folded form."""
     out = []
@@ -524,10 +583,13 @@ def _fwd_level_plans(h0o, h1o, h0a, h1a, h0b, h1b, J, skips, mode, H, W):
     for j in range(J):
         in_hw = (nh, nw)
         if j == 0:
-            Cl, Ch = (_filter_matrix(h0o, mode, nh),
-                      _filter_matrix(h1o, mode, nh))
-            Rl, Rh = (_filter_matrix(h0o, mode, nw),
-                      _filter_matrix(h1o, mode, nw))
+            Ph, Pw = _pad_matrix(nh, pad), _pad_matrix(nw, pad)
+            nhp = nh if Ph is None else Ph.shape[0]
+            nwp = nw if Pw is None else Pw.shape[0]
+            Cl, Ch = (_filter_matrix(h0o, mode, nhp),
+                      _filter_matrix(h1o, mode, nhp))
+            Rl, Rh = (_filter_matrix(h0o, mode, nwp),
+                      _filter_matrix(h1o, mode, nwp))
             if any(m.shape[0] % 2 for m in (Cl, Ch, Rl, Rh)):
                 return None
         else:
@@ -540,14 +602,14 @@ def _fwd_level_plans(h0o, h1o, h0a, h1a, h0b, h1b, J, skips, mode, H, W):
                       _dfilt_matrix(h1b, h1a, True, nhp))
             Rl, Rh = (_dfilt_matrix(h0b, h0a, False, nwp),
                       _dfilt_matrix(h1b, h1a, True, nwp))
-            if Ph is not None:
-                Cl, Ch = (np.ascontiguousarray(banded.compose(Cl, Ph)),
-                          np.ascontiguousarray(banded.compose(Ch, Ph)))
-            if Pw is not None:
-                Rl, Rh = (np.ascontiguousarray(banded.compose(Rl, Pw)),
-                          np.ascontiguousarray(banded.compose(Rh, Pw)))
             if Cl.shape[0] % 2 or Rl.shape[0] % 2:
                 return None
+        if Ph is not None:
+            Cl, Ch = (np.ascontiguousarray(banded.compose(Cl, Ph)),
+                      np.ascontiguousarray(banded.compose(Ch, Ph)))
+        if Pw is not None:
+            Rl, Rh = (np.ascontiguousarray(banded.compose(Rl, Pw)),
+                      np.ascontiguousarray(banded.compose(Rh, Pw)))
         lev = {"bands": None, "ll": (Rl, Cl)}
         if not skips[j]:
             lev["bands"] = [("lh", (Rl, Ch)), ("hl", (Rh, Cl)),
@@ -557,22 +619,96 @@ def _fwd_level_plans(h0o, h1o, h0a, h1a, h0b, h1b, J, skips, mode, H, W):
     return tuple(out)
 
 
+def embed_blocks(T, n, row_blocks, col_blocks, row_quanta=None):
+    """``T`` zero-embedded into shard-divisible storage (the JAX
+    package's ``_embed_blocks`` technique for ragged axes): each row
+    block (sizes ``row_blocks``) lands at the top of a block of
+    ``ceil(size, n * quantum)`` rows (``row_quanta``, 1 each by default;
+    2 for a lowpass pooled 2x2 on the tiles next), each column block at
+    the left of ``ceil(size, n)`` columns, zeros elsewhere.  The DTCWT's
+    and the ISWT's operators never wrap, so the embedded operator
+    computes the logical one and keeps the storage tails zero.  Returns
+    (the embedded operator, its row blocks' and column blocks' storage
+    sizes)."""
+    T = np.asarray(T)
+    quanta = row_quanta or [1] * len(row_blocks)
+    rs = [_ceil_to(b, n * q) for b, q in zip(row_blocks, quanta)]
+    cs = [_ceil_to(c, n) for c in col_blocks]
+    if rs == list(row_blocks) and cs == list(col_blocks):
+        return np.ascontiguousarray(T), rs, cs
+    E = np.zeros((sum(rs), sum(cs)), dtype=T.dtype)
+    r0 = rr = 0
+    for b, bs in zip(row_blocks, rs):
+        c0 = cc = 0
+        for c, csz in zip(col_blocks, cs):
+            E[rr:rr + b, cc:cc + c] = T[r0:r0 + b, c0:c0 + c]
+            c0 += c
+            cc += csz
+        r0 += b
+        rr += bs
+    return E, rs, cs
+
+
+def _embedded_strategy(T, n, row_blocks, col_blocks, row_quanta=None):
+    """:func:`_strategy` of ``T`` on :func:`embed_blocks`' storage.
+    Returns (strategy, the row blocks' storage sizes)."""
+    E, rs, cs = embed_blocks(T, n, row_blocks, col_blocks, row_quanta)
+    return _strategy(E, n, rs, cs, wrap=False), rs
+
+
+class _LevelSizes(NamedTuple):
+    """A per-level forward level's logical sizes: its lowpass (h, w) and
+    its bands' (h, w) (None for a skipped level)."""
+    ll: tuple
+    bands: object
+
+
 @budgeted_plan_cache
 def _dtcwt_fwd_perlevel_shard_plans(h0o, h1o, h0a, h1a, h0b, h1b, J,
-                                    skips, mode, H, W, n_sp, n_h):
-    """Per level: (stage-1 ShardedOp over 'spatial', stage-2 strategies
-    over 'spatial_h'), or None."""
+                                    skips, mode, H, W, n_sp, n_h,
+                                    pad="even", pool=False):
+    """The per-level route's forward plans on zero-embedded storage, for
+    an (H, W) input of any size (its storage ``ceil(H, n_h)`` x
+    ``ceil(W, n_sp)``; the level-1 pad folded into level 1): per level
+    ((stage-1 strategy over 'spatial', [stage-2 entry]), its
+    :class:`_LevelSizes`), or None.  ``pool``: the last lowpass is pooled
+    2x2 on the tiles next, so its storage is a multiple of twice the
+    shard counts."""
     levels = _fwd_level_plans(h0o, h1o, h0a, h1a, h0b, h1b, J, skips,
-                              mode, H, W)
+                              mode, H, W, pad)
     if levels is None:
         return None
     plans = []
-    for lev, (_, in_w) in levels:
-        op = _pyramid_shard_op((lev,), in_w, n_sp)
-        s2 = _pyramid_stage2_strategies((lev,), n_h)
-        if op is None or s2 is None:
-            return None
-        plans.append((op, s2))
+    for j, (lev, (in_h, in_w)) in enumerate(levels):
+        q_ll = 2 if pool and j == J - 1 else 1
+        blocks, groups = [], []
+        for R, members in _member_groups(lev["bands"] or ()):
+            blocks += [R[0::2], R[1::2]]
+            groups.append(members)
+        Rl, Cl = lev["ll"]
+        blocks.append(Rl)
+        st1, rs = _embedded_strategy(
+            _cat(*blocks), n_sp, [b.shape[0] for b in blocks], [in_w],
+            [1] * (len(blocks) - 1) + [q_ll])
+        entry = {"groups": [], "ll": None}
+        go = 0
+        for g, members in enumerate(groups):
+            m = members[0][1][0::2].shape[0]
+            st2, _ = _embedded_strategy(_cstack(members), n_h,
+                                        [m] * (2 * len(members)), [in_h])
+            gn = rs[2 * g] + rs[2 * g + 1]
+            entry["groups"].append(
+                (tuple(_SB_ORIENTS[name] for name, _ in members), go, gn,
+                 st2))
+            go += gn
+        st_ll, _ = _embedded_strategy(Cl, n_h, [Cl.shape[0]], [in_h],
+                                      [q_ll])
+        entry["ll"] = (go, rs[-1], st_ll)
+        bands = None
+        if groups:
+            bands = (groups[0][0][1][0::2].shape[0], blocks[0].shape[0])
+        plans.append(((st1, (entry,)),
+                      _LevelSizes((Cl.shape[0], Rl.shape[0]), bands)))
     return tuple(plans)
 
 
@@ -586,71 +722,69 @@ def _crop_sel(n, cur):
 @budgeted_plan_cache
 def _dtcwt_inv_perlevel_shard_plans(g0o, g1o, g0a, g1a, g0b, g1b, mode,
                                     yl_hw, sizes, n_sp, n_h):
-    """Coarse-first per-level synthesis plans: per level (its band groups'
-    strategies, or () for a missing level; the lowpass's row and column
-    strategies, the [1:-1] crop composed in), or None."""
+    """Coarse-first per-level synthesis plans on zero-embedded storage
+    (each coefficient's storage ``ceil(size, n)`` along a sharded axis):
+    (per level (its band groups' strategies, or () for a missing level;
+    the lowpass's row and column strategies, the [1:-1] crop composed
+    in), the output's logical (h, w)), or None."""
     cur_h, cur_w = yl_hw
     levels = []
-    try:
-        for j in range(len(sizes) - 1, -1, -1):
-            if sizes[j] is None:
-                # a missing level: the lowpass alone, its size passed on
-                # uncropped (the composed plan's walk rule)
-                nh, nw = cur_h, cur_w
-                if j == 0:
-                    # the reference's lowpass-only branch filters in its
-                    # default 'symmetric' mode, not the caller's
-                    # (reference dtcwt/transform_funcs.py:166-177)
-                    C0 = _filter_matrix(g0o, "symmetric", nh)
-                    R0 = _filter_matrix(g0o, "symmetric", nw)
-                else:
-                    if nh % 2 or nw % 2:
-                        return None
-                    C0 = _ifilt_matrix(g0b, g0a, False, nh)
-                    R0 = _ifilt_matrix(g0b, g0a, False, nw)
-                levels.append(((), *_low_strategies(R0, C0, (nh, nw), n_sp,
-                                                    n_h)))
-                cur_h, cur_w = C0.shape[0], R0.shape[0]
-                continue
-            hb, wb = sizes[j]
-            nh, nw = 2 * hb, 2 * wb
-            if cur_h not in (nh, nh + 2) or cur_w not in (nw, nw + 2):
-                return None
+    for j in range(len(sizes) - 1, -1, -1):
+        if sizes[j] is None:
+            # a missing level: the lowpass alone, its size passed on
+            # uncropped (the composed plan's walk rule)
+            nh, nw = cur_h, cur_w
             if j == 0:
-                C0, C1 = (_filter_matrix(g0o, mode, nh),
-                          _filter_matrix(g1o, mode, nh))
-                R0, R1 = (_filter_matrix(g0o, mode, nw),
-                          _filter_matrix(g1o, mode, nw))
+                # the reference's lowpass-only branch filters in its
+                # default 'symmetric' mode, not the caller's
+                # (reference dtcwt/transform_funcs.py:166-177)
+                C0 = _filter_matrix(g0o, "symmetric", nh)
+                R0 = _filter_matrix(g0o, "symmetric", nw)
             else:
-                C0, C1 = (_ifilt_matrix(g0b, g0a, False, nh),
-                          _ifilt_matrix(g1b, g1a, True, nh))
-                R0, R1 = (_ifilt_matrix(g0b, g0a, False, nw),
-                          _ifilt_matrix(g1b, g1a, True, nw))
-            lv = _band_group_strategies(
-                [("lh", (R0, C1)), ("hl", (R1, C0)), ("hh", (R1, C1))], hb,
-                wb, n_sp, n_h)
-            Rl = R0 if cur_w == nw else banded.compose(R0,
-                                                       _crop_sel(nw, cur_w))
-            Cl = C0 if cur_h == nh else banded.compose(C0,
-                                                       _crop_sel(nh, cur_h))
-            levels.append((lv, *_low_strategies(Rl, Cl, (cur_h, cur_w), n_sp,
-                                                n_h)))
+                if nh % 2 or nw % 2:
+                    return None
+                C0 = _ifilt_matrix(g0b, g0a, False, nh)
+                R0 = _ifilt_matrix(g0b, g0a, False, nw)
+            levels.append(((), *_low_strategies(R0, C0, (nh, nw), n_sp,
+                                                n_h, True)))
             cur_h, cur_w = C0.shape[0], R0.shape[0]
-    except ValueError:
-        return None
-    return tuple(levels)
+            continue
+        hb, wb = sizes[j]
+        nh, nw = 2 * hb, 2 * wb
+        if cur_h not in (nh, nh + 2) or cur_w not in (nw, nw + 2):
+            return None
+        if j == 0:
+            C0, C1 = (_filter_matrix(g0o, mode, nh),
+                      _filter_matrix(g1o, mode, nh))
+            R0, R1 = (_filter_matrix(g0o, mode, nw),
+                      _filter_matrix(g1o, mode, nw))
+        else:
+            C0, C1 = (_ifilt_matrix(g0b, g0a, False, nh),
+                      _ifilt_matrix(g1b, g1a, True, nh))
+            R0, R1 = (_ifilt_matrix(g0b, g0a, False, nw),
+                      _ifilt_matrix(g1b, g1a, True, nw))
+        lv = _band_group_strategies(
+            [("lh", (R0, C1)), ("hl", (R1, C0)), ("hh", (R1, C1))], hb,
+            wb, n_sp, n_h, True)
+        Rl = R0 if cur_w == nw else banded.compose(R0, _crop_sel(nw, cur_w))
+        Cl = C0 if cur_h == nh else banded.compose(C0, _crop_sel(nh, cur_h))
+        levels.append((lv, *_low_strategies(Rl, Cl, (cur_h, cur_w), n_sp,
+                                            n_h, True)))
+        cur_h, cur_w = C0.shape[0], R0.shape[0]
+    return tuple(levels), (cur_h, cur_w)
 
 
 # --------------------------------------------------------------------------
 # The local pyramids
 # --------------------------------------------------------------------------
 
-def _sharded_pyramid(xl, o_dim, ri_dim, op_w, s2, sp, hh):
-    """Composed analysis pyramid on local tiles: sharded stage 1 over
-    'spatial', then per-group stage 2 over 'spatial_h' (local when H is
-    not sharded), then K2.  Mirrors ``ops/fused_dtcwt.py:_analysis`` with
-    every global offset divided by the shard counts."""
-    z = apply_sharded_op([xl], op_w, 3, sp.group)
+def _sharded_pyramid(xl, o_dim, ri_dim, st_w, s2, sp, hh):
+    """Composed analysis pyramid on local tiles: stage 1 over 'spatial'
+    under its strategy ``st_w``, then per-group stage 2 over 'spatial_h'
+    (local when H is not sharded), then K2.  Mirrors
+    ``ops/fused_dtcwt.py:_analysis`` with every global offset divided by
+    the shard counts."""
+    z = _apply_strategy(xl, st_w, 3, sp)
     lls, highs = [], []
     for e in s2:
         ys = [_apply_strategy(z[..., go // sp.n:(go + gn) // sp.n], strat,
@@ -687,11 +821,12 @@ def _sharded_synthesis(ll, hs, plans, o_dim, ri_dim, sp, hh):
 
 def _sharded_levels(xl, plans, o_dim, ri_dim, sp, hh):
     """The per-level analysis on local tiles: each level one
-    :func:`_sharded_pyramid` on its own plan, fed the last level's lowpass
-    tiles.  Returns (every level's lowpass, every level's bands or
-    None)."""
+    :func:`_sharded_pyramid` on its own plan (as
+    :func:`_dtcwt_fwd_perlevel_shard_plans` makes them), fed the last
+    level's lowpass tiles.  Returns (every level's lowpass, every level's
+    bands or None)."""
     ll, lls, highs = xl, [], []
-    for op, s2 in plans:
+    for (op, s2), _ in plans:
         ls, hs = _sharded_pyramid(ll, o_dim, ri_dim, op, s2, sp, hh)
         ll = ls[0]
         lls.append(ll)
@@ -702,10 +837,13 @@ def _sharded_levels(xl, plans, o_dim, ri_dim, sp, hh):
 def _sharded_synthesis_levels(ll, hs, plans, o_dim, ri_dim, sp, hh):
     """The per-level synthesis on local tiles, coarse to fine: per level
     its band groups as :func:`_sharded_synthesis` runs them (none for a
-    missing level, ``hs[j]`` None), plus its lowpass term."""
+    missing level, ``hs[j]`` None), plus its lowpass term (none for a
+    missing lowpass, ``ll`` None: it starts the coarsest level)."""
     for (lv, ll_row, ll_col), h in zip(plans, hs[::-1]):
-        t_ll = _apply_strategy(ll, ll_row, 3, sp)
-        low = _apply_strategy(t_ll, ll_col, 2, hh)
+        low = None
+        if ll is not None:
+            t_ll = _apply_strategy(ll, ll_row, 3, sp)
+            low = _apply_strategy(t_ll, ll_col, 2, hh)
         if h is None:
             ll = low
             continue
@@ -716,7 +854,7 @@ def _sharded_synthesis_levels(ll, hs, plans, o_dim, ri_dim, sp, hh):
             t = _apply_merge(q, row, 3, sp)
             contrib = _apply_strategy(t, col, 2, hh)
             y = contrib if y is None else y + contrib
-        ll = y + low
+        ll = y if low is None else y + low
     return ll
 
 
@@ -840,20 +978,24 @@ def sharded_dtcwt2d(x, mesh, filters, J=3, mode="symmetric",
                     skip_hps=False, include_scale=False, o_dim=2,
                     ri_dim=-1):
     """DTCWT forward with the batch over 'data' and W over 'spatial' (and
-    H over 'spatial_h' on a 2-D mesh): the composed pyramid as halo'd
-    per-rank operator chunks where it has a plan (``LAST_PATH['dtcwt2d']``
-    'matmul'), else level by level (an axis past 8832, a halo wider than
-    the tile: 'perlevel').
+    H over 'spatial_h' on a 2-D mesh), on one of three routes
+    (``LAST_PATH['dtcwt2d']``): the composed pyramid as halo'd per-rank
+    operator chunks where it has a plan ('matmul'); else, on the operator
+    route (``banded.set_operator_matmul`` None or True, axes of at most
+    32768), level by level on zero-embedded storage ('perlevel': an axis
+    past 8832, a halo wider than the tile, tiles that do not divide, odd
+    sizes); else the stencil halo route of ``parallel/sharded_conv.py``
+    ('conv').
 
-    x: an (N, C, H, W) DTensor placed as ``parallel.spatial_placements``,
-    or the full tensor on every rank (odd sizes take the replicate even
-    pad, and a batch that does not divide over 'data' is zero-padded and
-    cut again, as in the JAX package).  filters: dict from
+    x: an (N, C, H, W) DTensor placed as ``parallel.spatial_placements``
+    (any H and W: an odd size takes the replicate even pad inside level
+    1), or the full tensor on every rank (an odd size is padded even
+    first, and a batch that does not divide over 'data' is zero-padded
+    and cut again, as in the JAX package).  filters: dict from
     ``transforms/dtcwt_xfm.py:dtcwt_fwd_filters``.  ``skip_hps`` /
     ``include_scale`` / ``o_dim`` / ``ri_dim`` as for ``DTCWTForward``.
     Returns (yl, yh) DTensors: yl (or the list of scales) placed as x, yh
-    with H / W / batch on their 6-D axes.  Raises NotImplementedError
-    where neither route has a plan (A5e)."""
+    with H / W / batch on their 6-D axes."""
     _check_mesh(mesh)
     if o_dim % 6 == ri_dim % 6:
         raise ValueError("Orientations and real/imaginary parts must be "
@@ -869,39 +1011,49 @@ def sharded_dtcwt2d(x, mesh, filters, J=3, mode="symmetric",
     H, W = x.shape[2], x.shape[3]
     n_h, n_sp = _mesh_sp(mesh)
     taps = _dtcwt_taps(filters, "h")
-    tiles = (J > 0 and H % 2 == 0 and W % 2 == 0 and W % n_sp == 0
-             and H % n_h == 0)
     plans = perlevel = None
-    if tiles and _mm_enabled(H) and _mm_enabled(W):
+    if (J > 0 and H % 2 == 0 and W % 2 == 0 and W % n_sp == 0
+            and H % n_h == 0 and _mm_enabled(H) and _mm_enabled(W)):
         plans = _dtcwt_fwd_shard_plans(
             *taps, J, tuple(skip_hps), tuple(include_scale), mode, H, W,
             n_sp, n_h)
-    if (plans is None and tiles and _sharded_mm_wanted(H)
+    if (plans is None and J > 0 and _sharded_mm_wanted(H)
             and _sharded_mm_wanted(W)):
         perlevel = _dtcwt_fwd_perlevel_shard_plans(
             *taps, J, tuple(skip_hps), mode, H, W, n_sp, n_h)
     if plans is None and perlevel is None:
-        raise NotImplementedError(
-            f"sharded_dtcwt2d: no sharded plan for a {tuple(x.shape)} "
-            f"input, J={J}, mode={mode!r} on a {n_h}x{n_sp} spatial mesh; "
-            f"{A5E}")
-    xl = _local(x, mesh, sp4, "sharded_dtcwt2d", 0).contiguous()
+        from pytorch_wavelets_tpu_torch.parallel.sharded_conv import (
+            conv_dtcwt2d,
+        )
+        return conv_dtcwt2d(x, mesh, filters, J, mode, skip_hps,
+                            include_scale, o_dim, ri_dim)
+    xl = _local(x, mesh, sp4, "sharded_dtcwt2d", 0,
+                {2: _ceil_to(H, n_h), 3: _ceil_to(W, n_sp)}).contiguous()
     od, rd, _, _ = get_dimensions5(o_dim, ri_dim)
     sp, hh = _axis(mesh, "spatial"), _axis(mesh, "spatial_h")
+    _, _, h6, w6 = get_dimensions6(o_dim, ri_dim)
+    b6 = _yh_batch_axis6(o_dim, ri_dim)
+    yh_spec = _dtcwt_yh_spec(o_dim, ri_dim, sp4[2])
     if plans is not None:
         lls, highs = _sharded_pyramid(xl, od, rd, *plans, sp, hh)
         LAST_PATH["dtcwt2d"] = "matmul"
+        yh = [None if h is None else _global(h, mesh, yh_spec, N, b6)
+              for h in highs]
+        lls = [None if ll is None else _global(ll, mesh, sp4, N, 0)
+               for ll in lls]
     else:
         lls, highs = _sharded_levels(xl, perlevel, od, rd, sp, hh)
         LAST_PATH["dtcwt2d"] = "perlevel"
-    b6 = _yh_batch_axis6(o_dim, ri_dim)
-    yh_spec = _dtcwt_yh_spec(o_dim, ri_dim, sp4[2])
-    yh = [None if h is None else _global(h, mesh, yh_spec, N, b6)
-          for h in highs]
+        sizes = [s for _, s in perlevel]
+        yh = [None if h is None else
+              _global(h, mesh, yh_spec, N, b6,
+                      {h6: s.bands[0], w6: s.bands[1]})
+              for h, s in zip(highs, sizes)]
+        lls = [_global(ll, mesh, sp4, N, 0, {2: s.ll[0], 3: s.ll[1]})
+               for ll, s in zip(lls, sizes)]
     if True in include_scale:
-        return [_global(lls[j], mesh, sp4, N, 0) if include_scale[j]
-                else None for j in range(J)], yh
-    return _global(lls[-1], mesh, sp4, N, 0), yh
+        return [lls[j] if include_scale[j] else None for j in range(J)], yh
+    return lls[-1], yh
 
 
 def _perlevel_dims(yl_hw, sizes):
@@ -928,15 +1080,18 @@ def sharded_idtcwt2d(coeffs, mesh, filters, mode="symmetric", o_dim=2,
     group K3, the halo'd row merge and the column operator, summed with
     the lowpass term; as one composed pyramid where it has a plan and
     every coefficient is present (``LAST_PATH['idtcwt2d']`` 'matmul'),
-    else level by level ('perlevel': a missing lowpass or level, ``None``
-    or a size-0 placeholder, counts as zeros, as in the JAX package).
+    else on the operator route level by level on zero-embedded storage
+    ('perlevel': a missing lowpass or level, ``None`` or a size-0
+    placeholder, counts as zeros, as in the JAX package; any band sizes),
+    else on the stencil halo route of ``parallel/sharded_conv.py``
+    ('conv').  Without the lowpass the coarsest present level starts from
+    no lowpass term, and missing levels below none add nothing, as in
+    ``transforms/dtcwt_xfm.py:idtcwt2d``.
 
     coeffs: (yl, yh) as :func:`sharded_dtcwt2d` returns them (DTensors),
     or full tensors on every rank.  filters: dict from
     ``transforms/dtcwt_xfm.py:dtcwt_inv_filters``.  Returns the
-    reconstruction as an (N, C, H, W) DTensor placed as yl.  Raises
-    NotImplementedError where neither route has a plan, or where both the
-    lowpass and the coarsest level are missing (A5e)."""
+    reconstruction as an (N, C, H, W) DTensor placed as yl."""
     _check_mesh(mesh)
     low, highs = coeffs
     highs = [None if h is None or h.numel() == 0 else h for h in highs]
@@ -952,10 +1107,15 @@ def sharded_idtcwt2d(coeffs, mesh, filters, mode="symmetric", o_dim=2,
             raise ValueError(f"sharded_idtcwt2d: bands {tuple(h.shape)} "
                              f"are not 6-D with 6 orientations at o_dim "
                              f"and re/im at ri_dim")
-    if not highs or (low is None and highs[-1] is None):
-        raise NotImplementedError(
-            f"sharded_idtcwt2d: the lowpass and the coarsest level are "
-            f"both missing; {A5E}")
+    if low is None:
+        # the levels coarser than the coarsest present one add nothing
+        while highs and highs[-1] is None:
+            highs.pop()
+    if not highs and low is None:
+        raise ValueError("sharded_idtcwt2d: no lowpass and no bandpass to "
+                         "invert")
+    if not highs:
+        raise ValueError("sharded_idtcwt2d: no bandpass levels")
     sizes = tuple(None if h is None else (h.shape[h6], h.shape[w6])
                   for h in highs)
     yl_hw = ((low.shape[2], low.shape[3]) if low is not None
@@ -973,27 +1133,67 @@ def sharded_idtcwt2d(coeffs, mesh, filters, mode="symmetric", o_dim=2,
         perlevel = _dtcwt_inv_perlevel_shard_plans(*taps, mode, yl_hw,
                                                    sizes, n_sp, n_h)
     if plans is None and perlevel is None:
-        raise NotImplementedError(
-            f"sharded_idtcwt2d: no sharded plan for lowpass {yl_hw} and "
-            f"bands {sizes}, mode={mode!r} on a {n_h}x{n_sp} spatial "
-            f"mesh; {A5E}")
+        from pytorch_wavelets_tpu_torch.parallel.sharded_conv import (
+            conv_idtcwt2d,
+        )
+        return conv_idtcwt2d(low, highs, mesh, filters, mode, o_dim,
+                             ri_dim)
     N = low.shape[0] if low is not None else highs[-1].shape[b6]
+
+    def storage(hw, dh, dw):
+        """The per-level route's zero-embedded storage of a coefficient
+        of logical (h, w) on dims (dh, dw)."""
+        if plans is not None:
+            return None
+        return {dh: _ceil_to(hw[0], n_h), dw: _ceil_to(hw[1], n_sp)}
     hs = [None if h is None else
-          _local(h, mesh, yh_spec, "sharded_idtcwt2d", b6) for h in highs]
+          _local(h, mesh, yh_spec, "sharded_idtcwt2d", b6,
+                 storage(hw, h6, w6))
+          for h, hw in zip(highs, sizes)]
+    ll = None
     if low is not None:
-        ll = _local(low, mesh, sp4, "sharded_idtcwt2d", 0).contiguous()
-    else:
-        # a zero lowpass, this rank's tile of it only
-        hl = hs[-1]
-        c6 = [i for i in range(6)
-              if i not in (o_dim % 6, ri_dim % 6, h6, w6, b6)][0]
-        ll = hl.new_zeros((hl.shape[b6], hl.shape[c6], 2 * hl.shape[h6],
-                           2 * hl.shape[w6]))
+        ll = _local(low, mesh, sp4, "sharded_idtcwt2d", 0,
+                    storage(yl_hw, 2, 3)).contiguous()
     sp, hh = _axis(mesh, "spatial"), _axis(mesh, "spatial_h")
     if plans is not None:
         y = _sharded_synthesis(ll, hs, plans, od5, rd5, sp, hh)
         LAST_PATH["idtcwt2d"] = "matmul"
-    else:
-        y = _sharded_synthesis_levels(ll, hs, perlevel, od5, rd5, sp, hh)
-        LAST_PATH["idtcwt2d"] = "perlevel"
-    return _global(y, mesh, sp4, N, 0)
+        return _global(y, mesh, sp4, N, 0)
+    levels, out_hw = perlevel
+    y = _sharded_synthesis_levels(ll, hs, levels, od5, rd5, sp, hh)
+    LAST_PATH["idtcwt2d"] = "perlevel"
+    return _global(y, mesh, sp4, N, 0, {2: out_hw[0], 3: out_hw[1]})
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, t) for t in tree)
+    return None if tree is None else fn(tree)
+
+
+def _first_leaf(tree):
+    if isinstance(tree, (list, tuple)):
+        for t in tree:
+            leaf = _first_leaf(t)
+            if leaf is not None:
+                return leaf
+        return None
+    return tree
+
+
+def sharded_batch_apply(fn, tree, mesh, what):
+    """Batch data parallelism for a transform without a sharded plan (the
+    JAX package's ``_gspmd_apply``, which batch-shards every leaf over
+    'data'): every tensor leaf of ``tree`` (nested lists / tuples, None
+    passing through) split over 'data' along its first dim, a DTensor
+    placed so (replicated over the other mesh dims) or the full tensor on
+    every rank, a batch that does not divide zero-padded; ``fn`` runs the
+    transform without a mesh on the rank's chunk; every tensor leaf of its
+    result comes back a DTensor placed so, cut to the batch."""
+    _check_mesh(mesh)
+    N = _first_leaf(tree).shape[0]
+
+    def spec(t):
+        return ("data",) + (None,) * (t.ndim - 1)
+    local = _tree_map(lambda t: _local(t, mesh, spec(t), what, 0), tree)
+    return _tree_map(lambda t: _global(t, mesh, spec(t), N, 0), fn(local))

@@ -18,7 +18,7 @@ in the JAX package (``_sharded_mm_wanted``: the operator route wherever
   gathered, the full operator applied, the rank's chunk kept).  The
   circular modes use the circular operators (the halos wrap round the
   ring); 'zero' / 'symmetric' / 'reflect' use **zero-embedded** operators
-  (``_embed_blocks``): any H / W, odd and ragged too, run at
+  (``parallel/sharded.py:embed_blocks``): any H / W, odd and ragged too, run at
   shard-divisible storage sizes (the inputs zero-padded, each level's
   outputs evenly sharded) and the outputs are cut to the logical pyramid,
   the halos zero at the image edges (K19's 'zero' side);
@@ -28,6 +28,13 @@ in the JAX package (``_sharded_mm_wanted``: the operator route wherever
   with a valid correlation (K6 / K7 through the window plans of
   ``ops/afb_sfb.py``, K12 / K16 for the SWT), and H locally (K6 / K7,
   K12 / K16).
+
+``sharded_iswt2d`` in the non-circular modes, or with a raw tuple that
+is not orthonormal, runs the least-squares merges of the inverse without
+a mesh (``transforms/dwt.py:iswt2d``) on dense operators, each axis
+gathered over its mesh dim (the JAX package runs the single-device
+inverse under GSPMD there): the one sharded DWT / SWT entry that moves
+more than a halo, and it warns once.
 
 Every step is an autograd Function whose backward is its exact adjoint
 (the JAX package's autodiff of its sharded entries), differentiable
@@ -45,10 +52,6 @@ Where this port leaves the JAX entries (``ROADMAP.md`` C):
   transform without a mesh does (``transforms/dwt.py:dwt2d``, the
   reference's argument-order quirk); the JAX sharded entries filter W
   with the second pair (the same for names, Wavelets and 2-tuples);
-- ``sharded_iswt2d`` in the non-circular modes, or with a raw tuple that
-  is not orthonormal, raises NotImplementedError (A5e: the JAX package
-  runs the single-device inverse under GSPMD there; this port never
-  gathers the image).
 """
 from __future__ import annotations
 
@@ -63,11 +66,13 @@ from pytorch_wavelets_tpu_torch.ops.afb_sfb import (
 )
 from pytorch_wavelets_tpu_torch.parallel.halo import halo_window
 from pytorch_wavelets_tpu_torch.parallel.sharded import (
-    _SHARDED_MM_CAP, A5E, LAST_PATH, _apply_merge2, _apply_strategy, _axis,
-    _ceil_to, _check_mesh, _global, _local, _mesh_sp, _n_data,
-    _sharded_mm_wanted, _sp4, _strategy,
+    _SHARDED_MM_CAP, LAST_PATH, _apply_merge2, _apply_strategy, _axis,
+    _Strategy, _ceil_to, _check_mesh, _embedded_strategy, _global, _local,
+    _mesh_sp, _n_data, _sharded_mm_wanted, _sp4, _strategy, embed_blocks,
+    warn_once,
 )
 from pytorch_wavelets_tpu_torch.transforms.dwt import (
+    _ISWT_PINV_MAX_N, _iswt_banded_ls, _iswt_fft_filters, _iswt_pinv,
     dec_filters, rec_filters,
 )
 from pytorch_wavelets_tpu_torch.transforms.plan_cache import (
@@ -130,41 +135,22 @@ _SP3 = ("data", None, "spatial")
 # Host plans: zero-embedded and circular per-level strategies (cached)
 # --------------------------------------------------------------------------
 
-def _embed_blocks(T, nrb, ncb, Mp, sp):
-    """Zero-embed a logical block operator into shard-divisible storage:
-    each of the ``nrb`` row blocks (size M) / ``ncb`` column blocks (size
-    n) lands in the top-left of an (Mp, sp) storage block, zeros
-    elsewhere.  The non-circular modes fold all their mass inside the
-    logical region, so the embedded operator computes the logical
-    transform with zero tails."""
-    T = np.asarray(T)
-    M, n = T.shape[0] // nrb, T.shape[1] // ncb
-    out = np.zeros((nrb * Mp, ncb * sp), T.dtype)
-    for i in range(nrb):
-        for k in range(ncb):
-            out[i * Mp:i * Mp + M, k * sp:k * sp + n] = \
-                T[i * M:(i + 1) * M, k * n:(k + 1) * n]
-    return out
-
-
 @budgeted_plan_cache
 def _dwt_mode_split_strategies(taps, mode, n0, n_shards, J):
     """Per-level strategies for one axis of a non-circular analysis
     pyramid over zero-embedded operators: (strategies, logical level
     sizes, storage level sizes); the level-0 input storage is
     ``ceil(n0 / q) * q``."""
-    q = max(n_shards, 1)
-    n, s = n0, _ceil_to(n0, q)
+    n = n0
     strats, logical, storage = [], [], []
     for _ in range(J):
         T = _afb_matrix(taps[0], taps[1], mode, n)
         M = T.shape[0] // 2
-        Mp = _ceil_to(M, q)
-        Te = _embed_blocks(T, 2, 1, Mp, s)
-        strats.append(_strategy(Te, n_shards, [Mp, Mp], [s], wrap=False))
+        st, (Mp, _) = _embedded_strategy(T, n_shards, [M, M], [n])
+        strats.append(st)
         logical.append(M)
         storage.append(Mp)
-        n, s = M, Mp
+        n = M
     return tuple(strats), tuple(logical), tuple(storage)
 
 
@@ -176,16 +162,13 @@ def _dwt_mode_merge_strategies(taps, mode, sizes, n_shards):
     reference's trailing lowpass crop) and pads rows and columns to
     shard-divisible storage.  Returns (strategies, (final logical length,
     final storage length))."""
-    q = max(n_shards, 1)
     out, final = [], None
     for j, n in enumerate(sizes):
-        s_in = _ceil_to(n, q)
         T = _sfb_matrix(taps[0], taps[1], mode, n)
         tgt = T.shape[0] if j == 0 else min(T.shape[0], sizes[j - 1])
-        rows_p = _ceil_to(tgt, q)
-        Te = _embed_blocks(T[:tgt], 1, 2, rows_p, s_in)
-        out.append(_strategy(Te, n_shards, [rows_p], [s_in, s_in],
-                             wrap=False))
+        st, (rows_p,) = _embedded_strategy(T[:tgt], n_shards, [tgt],
+                                           [n, n])
+        out.append(st)
         if j == 0:
             final = (tgt, rows_p)
     return tuple(out), final
@@ -195,13 +178,11 @@ def _dwt_mode_merge_strategies(taps, mode, sizes, n_shards):
 def _swt_mode_split_strategies(taps, mode, n, n_shards, J):
     """Undecimated analysis strategies for a non-circular mode (sizes
     stay ``n``; storage pads a ragged axis): (strategies, storage)."""
-    s = _ceil_to(n, max(n_shards, 1))
     out = []
     for j in range(J):
         T = _afb_atrous_matrix(taps[0], taps[1], mode, 2 ** j, n)
-        out.append(_strategy(_embed_blocks(T, 2, 1, s, s), n_shards,
-                             [s, s], [s], wrap=False))
-    return tuple(out), s
+        out.append(_embedded_strategy(T, n_shards, [n, n], [n])[0])
+    return tuple(out), _ceil_to(n, n_shards)
 
 
 @budgeted_plan_cache
@@ -700,26 +681,102 @@ def _iswt_synth_filters(wave):
     return tuple(_rev(f) for f in dec)
 
 
+@budgeted_plan_cache
+def _iswt_ls_strategies(taps, mode, d, n, q):
+    """The least-squares merge of one axis of ``n`` samples at dilation
+    ``d`` (``transforms/dwt.py:_merge_plan``'s branches) as strategies on
+    zero-embedded storage over ``q`` ranks, applied in order: the dense
+    pinv (n x 2n) up to ``_ISWT_PINV_MAX_N``, 'gather' (a dense operator
+    couples every sample to every other: no halo reaches); past it the
+    banded T^T as 'shard' (K19, then K1) and the dense G^-1 as 'gather' in
+    the non-circular modes, the dense circulant of the FFT merge as
+    'gather' in the circular ones."""
+    if n <= _ISWT_PINV_MAX_N:
+        mats = [(_iswt_pinv(*taps, mode, d, n, False), 2)]
+    elif mode in _CIRCULAR_MODES:
+        k = np.arange(n)
+        mats = [(np.concatenate(
+            [np.fft.ifft(G).real[(k[:, None] - k[None, :]) % n]
+             for G in _iswt_fft_filters(*taps, d, n)], axis=1), 2)]
+    else:
+        Tt, Ginv = _iswt_banded_ls(*taps, mode, d, n, False)
+        mats = [(Tt, 2), (Ginv, 1)]
+    out = []
+    for T, ncb in mats:
+        E, rs, cs = embed_blocks(np.asarray(T, dtype=np.float32), q, [n],
+                                 [n] * ncb)
+        if q == 1:
+            out.append(_Strategy("local", E))
+        elif ncb == 2 and n > _ISWT_PINV_MAX_N and mode not in \
+                _CIRCULAR_MODES:
+            out.append(_strategy(E, q, rs, cs, wrap=False))     # T^T
+        else:
+            out.append(_Strategy("gather", (E, tuple(rs), tuple(cs))))
+    return tuple(out)
+
+
+def _ls_merge_sharded(lo, hi, strats, axis, ax):
+    """The least-squares merge of local tiles ``lo`` / ``hi`` along
+    ``axis`` under :func:`_iswt_ls_strategies`' strategies."""
+    z = _apply_merge2(lo, hi, strats[0], axis, ax)
+    for st in strats[1:]:
+        z = _apply_strategy(z, st, axis, ax)
+    return z
+
+
+def _sharded_iswt2d_ls(coeffs, mesh, wave, mode):
+    """The inverse SWT's least-squares merges on a mesh: the coarsest
+    level first, two merges along H (LL with LH, HL with HH) then one
+    along W, each on :func:`_iswt_ls_strategies`, the coefficients on
+    zero-embedded storage (any H and W)."""
+    what = "sharded_iswt2d"
+    h0c, h1c, h0r, h1r = dec_filters(wave)
+    tc, tr = (_rev(h0c), _rev(h1c)), (_rev(h0r), _rev(h1r))
+    N = coeffs[0].shape[0]
+    H, W = coeffs[0].shape[-2:]
+    n_h, n_sp = _mesh_sp(mesh)
+    warn_once((what, mode), f"{what}: mode={mode!r} with this wave takes "
+              f"the least-squares merge, whose operators are dense: each "
+              f"merge gathers its axis over its mesh dim (all_gather, "
+              f"then reduce_scatter in the backward), which moves more "
+              f"than a halo (the JAX package runs the transform under "
+              f"GSPMD there)")
+    sp, hh = _axis(mesh, "spatial"), _axis(mesh, "spatial_h")
+    sh, sw = _ceil_to(H, n_h), _ceil_to(W, n_sp)
+    cs = [_local(c, mesh, _sp5(mesh), what, 0, {3: sh, 4: sw})
+          for c in coeffs]
+    ll = cs[-1][:, :, 0]
+    for j in range(len(coeffs) - 1, -1, -1):
+        d = 2 ** j
+        col = _iswt_ls_strategies(tc, mode, d, H, n_h)
+        row = _iswt_ls_strategies(tr, mode, d, W, n_sp)
+        c = cs[j]
+        lo = _ls_merge_sharded(ll, c[:, :, 1], col, 2, hh)
+        hi = _ls_merge_sharded(c[:, :, 2], c[:, :, 3], col, 2, hh)
+        ll = _ls_merge_sharded(lo, hi, row, 3, sp)
+    LAST_PATH["iswt2d"] = "matmul"
+    return _global(ll, mesh, _sp4(mesh), N, 0, {2: H, 3: W})
+
+
 def sharded_iswt2d(coeffs, mesh, wave="db2", mode="periodic"):
-    """Inverse of :func:`sharded_swt2d` in the circular modes: the sharded
-    averaging merge with the true synthesis bank
-    (:func:`_iswt_synth_filters`; ``wave`` names the forward's *analysis*
-    wavelet, tuples are analysis taps).  The non-circular modes, and raw
-    tuples that are not orthonormal, need the dense least-squares
-    inverse, which does not halo-shard: NotImplementedError (A5e).
-    Returns an (N, C, H, W) DTensor."""
+    """Inverse of :func:`sharded_swt2d` (``LAST_PATH['iswt2d']``): in the
+    circular modes the sharded averaging merge with the true synthesis
+    bank (:func:`_iswt_synth_filters`; ``wave`` names the forward's
+    *analysis* wavelet, tuples are analysis taps), on the operator route
+    ('matmul') or the conv halo route ('conv'); in the non-circular
+    modes, and for raw tuples that are not orthonormal, the least-squares
+    inverse of the transform without a mesh
+    (``transforms/dwt.py:iswt2d``) on dense merge operators, each axis
+    gathered over its mesh dim (:func:`_sharded_iswt2d_ls`, 'matmul';
+    it warns once, as it moves more than a halo).  Returns an (N, C, H,
+    W) DTensor."""
     what = "sharded_iswt2d"
     _check_mesh(mesh)
     if mode not in _EMBED_MODES + _CIRCULAR_MODES:
         raise ValueError(f"{what}: unsupported sharded SWT mode: {mode}")
     sf = _iswt_synth_filters(wave) if mode in _CIRCULAR_MODES else None
     if sf is None:
-        why = ("a non-circular mode" if mode not in _CIRCULAR_MODES
-               else "filters that are not orthonormal and carry no "
-               "perfect-reconstruction synthesis bank")
-        raise NotImplementedError(
-            f"{what}: mode={mode!r}: {why} needs the least-squares "
-            f"inverse; {A5E}")
+        return _sharded_iswt2d_ls(coeffs, mesh, wave, mode)
     g0c, g1c, g0r, g1r = sf
     rg, cg = (_fwd(g0r), _fwd(g1r)), (_fwd(g0c), _fwd(g1c))
     J = len(coeffs)

@@ -201,8 +201,12 @@ class DTCWTForward2(_AltModule):
 
     Holds both banks' 8 filters as float64 buffers on ``device``: 'cuda'
     (default; raises without CUDA), where the four pyramids and their
-    backward run K6/K7, or 'cpu' for the plain PyTorch path.  ``mesh`` is
-    not ported yet and raises."""
+    backward run K6/K7, or 'cpu' for the plain PyTorch path.  ``mesh``: a
+    ``DeviceMesh`` (``parallel.make_mesh``): batch data parallelism, as
+    the JAX package's ``_gspmd_apply`` (the form has no sharded plan):
+    the batch over 'data', each rank running the transform on its own
+    chunk (``parallel/sharded.py:sharded_batch_apply``), every output a
+    DTensor sharded on 'data'."""
 
     def __init__(self, biort="farras", qshift="qshift_a", J=3,
                  mode="symmetric", mesh=None, device="cuda"):
@@ -212,8 +216,17 @@ class DTCWTForward2(_AltModule):
     def forward(self, x):
         self._check_device(x)
         l1, q = self._banks()
-        return _cplxdual_fwd(x, self.J, l1, q, self.mode, mag=False,
-                             m_is_row_tree=True)
+
+        def run(z):
+            return _cplxdual_fwd(z, self.J, l1, q, self.mode, mag=False,
+                                 m_is_row_tree=True)
+        if self.mesh is not None:
+            # imported here: parallel.sharded imports the transforms
+            from pytorch_wavelets_tpu_torch.parallel.sharded import (
+                sharded_batch_apply,
+            )
+            return sharded_batch_apply(run, x, self.mesh, "DTCWTForward2")
+        return run(x)
 
 
 class DTCWTInverse2(_AltModule):
@@ -229,7 +242,16 @@ class DTCWTInverse2(_AltModule):
         yl, yh = coeffs
         self._check_device(*(t for row in yl for t in row), *yh)
         l1, q = self._banks()
-        return _cplxdual_inv(yl, yh, l1, q, self.mode, m_is_row_tree=True)
+
+        def run(cs):
+            return _cplxdual_inv(*cs, l1, q, self.mode, m_is_row_tree=True)
+        if self.mesh is not None:
+            from pytorch_wavelets_tpu_torch.parallel.sharded import (
+                sharded_batch_apply,
+            )
+            return sharded_batch_apply(run, (yl, yh), self.mesh,
+                                       "DTCWTInverse2")
+        return run((yl, yh))
 
 
 _QUAD_TREES = [("a", "a"), ("a", "b"), ("b", "a"), ("b", "b")]

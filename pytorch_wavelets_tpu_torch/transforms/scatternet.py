@@ -292,7 +292,7 @@ def _scat_j2_head(s0, h1, h2, front1, magbias, combine_colour):
     s2_j1 = smooth_mag(h3, magbias)                     # (N,6,6C,H/4,W/4)
     q = s2_j1.shape
     s2_j1 = s2_j1.reshape(q[0], 36, q[2] // 6, q[3], q[4])
-    s1_j1 = u1_ll.reshape(p[0], 6, p[2], p[3] // 2, p[4] // 2)
+    s1_j1 = u1_ll.reshape(p[0], 6, p[2], *u1_ll.shape[2:])
     Z = torch.cat([s0[:, None], s1_j1, s1_j2, s2_j1], dim=1)
     b, _, c, hh, ww = Z.shape
     return Z.reshape(b, 49 * c, hh, ww)

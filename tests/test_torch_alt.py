@@ -81,9 +81,11 @@ def test_dtcwt2_modules_match_jax(kw):
 
 
 def test_dtcwt2_module_options():
-    with pytest.raises(NotImplementedError):
+    # mesh= takes a DeviceMesh (batch data parallelism:
+    # tests/test_torch_sharded_dtcwt.py::test_alt_mesh_matches_jax)
+    with pytest.raises(TypeError, match="DeviceMesh"):
         pa.DTCWTForward2(mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         pa.DTCWTInverse2(mesh=object(), device="cpu")
     f = pa.DTCWTForward2(device="cpu")
     assert (f.biort, f.qshift, f.J, f.mode) == ("farras", "qshift_a", 3,

@@ -152,7 +152,7 @@ def test_parallel_files_are_checked():
     sharded operators and transforms)."""
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for mod in ("__init__", "mesh", "halo", "banded_shard", "sharded",
-                "sharded_dwt", "sharded_scat"):
+                "sharded_dwt", "sharded_scat", "sharded_conv"):
         assert f"pytorch_wavelets_tpu_torch/parallel/{mod}.py" in names
 
 

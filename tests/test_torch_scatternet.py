@@ -151,10 +151,12 @@ def test_avg_pool2_plain_matches_jax():
 
 
 def test_not_ported_yet():
-    """The constructors' checks: the scattering layers take a
-    ``DeviceMesh`` (their sharded paths: tests/test_torch_sharded_scat.py)
-    and raise TypeError on anything else; ``DTCWTForward2``'s ``mesh=`` is
-    still not ported (A5f)."""
+    """The constructors' checks: the scattering layers and
+    ``DTCWTForward2`` / ``DTCWTInverse2`` take a ``DeviceMesh`` (their
+    sharded paths: tests/test_torch_sharded_scat.py,
+    tests/test_torch_sharded_dtcwt.py) and raise TypeError on anything
+    else.  (The name is kept from when ``DTCWTForward2``'s ``mesh=`` was
+    not ported.)"""
     with pytest.raises(ValueError, match="qshift_b_bp"):
         tt.ScatLayerj2(biort="near_sym_b_bp", device="cpu")
     with pytest.raises(TypeError, match="DeviceMesh"):
@@ -162,10 +164,11 @@ def test_not_ported_yet():
     with pytest.raises(TypeError, match="DeviceMesh"):
         tt.ScatLayer(mesh=object(), device="cpu")
     from pytorch_wavelets_tpu_torch.transforms.dtcwt_alt import (
-        DTCWTForward2,
+        DTCWTForward2, DTCWTInverse2,
     )
-    with pytest.raises(NotImplementedError, match="A5f"):
-        DTCWTForward2(mesh=object(), device="cpu")
+    for cls in (DTCWTForward2, DTCWTInverse2):
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            cls(mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="3 input channels"):
         tt.ScatLayerj2(combine_colour=True, device="cpu")(torch.zeros(
             1, 2, 16, 16))

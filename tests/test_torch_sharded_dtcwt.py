@@ -31,15 +31,15 @@ from pytorch_wavelets_tpu.parallel import (
     sharded_idtcwt2d as jinv,
 )
 from pytorch_wavelets_tpu.transforms.dtcwt_xfm import (
-    dtcwt_fwd_filters, dtcwt_inv_filters,
+    dtcwt_fwd_filters, dtcwt_inv_filters, idtcwt2d as jinv_single,
 )
 
 from pytorch_wavelets_tpu_torch.parallel.sharded import (
     _dtcwt_fwd_shard_plans, _strategy,
 )
 from tests.torch_mesh_workers import (
-    DTCWT_CASES, chunk_of as _chunk_of, coords as _coords, dtcwt_inputs,
-    dtcwt_worker, spawn_world,
+    ALT_CASE, DTCWT_CASES, chunk, chunk_of as _chunk_of, coords as _coords,
+    dtcwt_cotangents, dtcwt_image, dtcwt_worker, rand, spawn_world,
 )
 from tests.torch_parity import FAST
 
@@ -90,9 +90,13 @@ def test_sharded_dtcwt_matches_jax(worlds, jax_matmul, monkeypatch, world,
     seed = DTCWT_CASES[world].index(case)
     if opts.get("perlevel"):
         monkeypatch.setattr(jsh, "_mm_enabled", lambda n: False)
+    if "cap" in opts:
+        monkeypatch.setattr(jsh, "_SHARDED_MM_CAP", opts["cap"])
+    if opts.get("conv"):
+        jbanded.set_operator_matmul(False)
     mesh = jmake_mesh(n_data=nd, n_spatial=ns, n_spatial_h=nh,
                       devices=jax.devices()[:world])
-    x, a, bs, c, v = dtcwt_inputs(J, N, 100 * seed)
+    x = dtcwt_image(N, 100 * seed, opts.get("hw"))
     kw = {k: (list(v) if isinstance(v, tuple) else v)
           for k, v in opts.items() if k in ("skip_hps", "include_scale")}
 
@@ -100,7 +104,17 @@ def test_sharded_dtcwt_matches_jax(worlds, jax_matmul, monkeypatch, world,
         return jfwd(z, mesh, FF, J=J, **kw)
 
     def inv(yl, yh):
+        if opts.get("jax_inv") == "single":
+            return jinv_single((yl, yh), FI)
         return jinv((yl, yh), mesh, FI)
+    yl_s, yh_s = jax.eval_shape(fwd, jnp.asarray(x))
+    grads = opts.get("grads") or opts.get("hvp")
+    if grads:
+        rec_s = jax.eval_shape(inv, yl_s, yh_s)
+        a, bs, c, v = dtcwt_cotangents(yl_s.shape, [h.shape for h in yh_s],
+                                       x.shape, rec_s.shape, 100 * seed)
+    else:
+        a = bs = c = v = None
 
     def refs(z, a, bs, c, v):
         (yl, yh), vjp = jax.vjp(fwd, z)
@@ -110,14 +124,26 @@ def test_sharded_dtcwt_matches_jax(worlds, jax_matmul, monkeypatch, world,
         out["path"] = jsh.LAST_PATH["dtcwt2d"]
         rec, ivjp = jax.vjp(inv, yl, yh)
         out["rec"] = rec
-        out["ipath"] = jsh.LAST_PATH["idtcwt2d"]
+        if opts.get("jax_inv") != "single":
+            out["ipath"] = jsh.LAST_PATH["idtcwt2d"]
+        drops = []
         if opts.get("drop"):
-            for key, coeffs in (
-                    ("low", (None, yh)),
-                    ("level_none", (yl, [yh[0], None, *yh[2:]])),
-                    ("level_empty", (yl, [jnp.zeros((0,)), *yh[1:]]))):
-                out["rec_" + key] = jinv(coeffs, mesh, FI)
-                out["ipath_" + key] = jsh.LAST_PATH["idtcwt2d"]
+            drops += [("low", (None, yh)),
+                      ("level_none", (yl, [yh[0], None, *yh[2:]])),
+                      ("level_empty", (yl, [jnp.zeros((0,)), *yh[1:]]))]
+        for key, coeffs in drops:
+            out["rec_" + key] = jinv(coeffs, mesh, FI)
+            out["ipath_" + key] = jsh.LAST_PATH["idtcwt2d"]
+        if opts.get("drop_both"):
+            # the JAX package raises without the lowpass and the coarsest
+            # level (its level walk filters the missing lowpass); the
+            # transform without a mesh adds nothing for a missing level
+            # with nothing below it, so the port is held to the inverse of
+            # the levels below
+            if opts.get("jax_inv") == "single":
+                out["rec_both"] = jinv_single((None, yh[:-1]), FI)
+            else:
+                out["rec_both"] = jinv((None, yh[:-1]), mesh, FI)
         if opts.get("grads"):
             out["gx"] = vjp((a, list(bs)))[0]
             out["ginv"] = ivjp(c)
@@ -135,20 +161,35 @@ def test_sharded_dtcwt_matches_jax(worlds, jax_matmul, monkeypatch, world,
         for k in [k for k in out if "path" in k]:
             paths[k] = out.pop(k)
         return out
-    ref = jax.jit(arrays, compiler_options=FAST)(
-        jnp.asarray(x), jnp.asarray(a), [jnp.asarray(b) for b in bs],
-        jnp.asarray(c), jnp.asarray(v))
+    args = [jnp.asarray(x)]
+    args += ([jnp.asarray(a), [jnp.asarray(b) for b in bs], jnp.asarray(c),
+              jnp.asarray(v)] if grads else [None, None, None, None])
+    ref = jax.jit(arrays, compiler_options=FAST)(*args)
     paths.setdefault("path", jsh.LAST_PATH["dtcwt2d"])
-    if opts.get("perlevel"):
+    if opts.get("perlevel") and "route" not in opts:
         assert set(paths.values()) == {"perlevel"}, paths
     if name == "sp4_J3_raises":     # the forward's halo exceeds its tile
         assert paths["path"] == "perlevel", paths
+    want = dict(paths)
+    if "route" in opts:
+        # the JAX package runs GSPMD; the port its own route
+        assert set(paths.values()) == {"gspmd"}, paths
+        want = {k: opts["route"] for k in paths}
+        if opts.get("jax_inv") == "single":
+            want["ipath"] = opts["route"]
+    if opts.get("drop_both"):
+        want["ipath_both"] = opts.get("route", "perlevel")
     coords = _coords(world, nd, nh, ns)
     for r, coord in enumerate(coords):
         got = res[r]
-        for k, want in paths.items():
-            assert str(got[f"{name}/{k}"]) == want, (k, want)
-        for k in ("low", "level_none", "level_empty"):
+        for k, w in want.items():
+            assert str(got[f"{name}/{k}"]) == w, (k, w)
+        warned = str(got[name + "/warnings"])
+        if "warns" in opts:
+            assert opts["warns"] in warned, warned
+        else:
+            assert "more than a halo" not in warned, warned
+        for k in ("low", "level_none", "level_empty", "both"):
             if "rec_" + k in ref:
                 _check(got[f"{name}/rec_{k}"],
                        _chunk_of(np.asarray(ref["rec_" + k]), coord,
@@ -169,7 +210,10 @@ def test_sharded_dtcwt_matches_jax(worlds, jax_matmul, monkeypatch, world,
                    _chunk_of(np.asarray(ref["rec"]), coord, (nd, nh, ns),
                              SP4), f"rank {r} rec")
         if "gx" in ref:
-            _check(got[name + "/gx"], np.asarray(ref["gx"]), "x.grad")
+            gx = np.asarray(ref["gx"])
+            if opts.get("dtensor"):
+                gx = _chunk_of(gx, coord, (nd, nh, ns), SP4)
+            _check(got[name + "/gx"], gx, "x.grad")
             specs = [SP4] + [SP6] * J
             for j, (g, sp) in enumerate(zip(_leaves(ref["ginv"]), specs)):
                 _check(got[f"{name}/ginv{j}"],
@@ -177,6 +221,41 @@ def test_sharded_dtcwt_matches_jax(worlds, jax_matmul, monkeypatch, world,
                        f"rank {r} inverse grad {j}")
         if "hvp" in ref:
             _check(got[name + "/hvp"], np.asarray(ref["hvp"]), "hvp")
+
+
+def test_alt_mesh_matches_jax(worlds):
+    """``DTCWTForward2`` / ``DTCWTInverse2`` with ``mesh=`` (batch data
+    parallelism, the JAX package's ``_gspmd_apply``) on a (2, 1) mesh
+    with a batch of 3: each rank's chunk of every output, x.grad of fixed
+    cotangents and the reconstruction against the JAX modules on the
+    same mesh (JAX ``tests/test_dtcwt_alt.py:test_form2_mesh_optin``)."""
+    from pytorch_wavelets_tpu.transforms.dtcwt_alt import (
+        DTCWTForward2 as JF2, DTCWTInverse2 as JI2,
+    )
+    (nd, nh, ns), J, shape = ALT_CASE
+    mesh = jmake_mesh(n_data=nd, n_spatial=ns, n_spatial_h=nh,
+                      devices=jax.devices()[:nd * nh * ns])
+    x = jnp.asarray(rand(shape, 77))
+    fwd, inv = JF2(J=J, mesh=mesh), JI2(mesh=mesh)
+
+    def leaves(out):
+        yl, yh = out
+        return [t for row in yl for t in row] + list(yh)
+    outs, vjp = jax.vjp(lambda z: leaves(fwd(z)), x)
+    cts = [jnp.asarray(rand(tuple(t.shape), 78 + j))
+           for j, t in enumerate(outs)]
+    gx = np.asarray(vjp(cts)[0])
+    rec = np.asarray(inv(fwd(x)))
+    res = worlds[2]
+    for r, (d, _, _) in enumerate(_coords(2, nd, nh, ns)):
+        got = res[r]
+        s, k = chunk(shape[0], nd, d)
+        for j, t in enumerate(outs):
+            _check(got[f"alt/out{j}"], np.asarray(t)[s:s + k],
+                   f"rank {r} out{j}")
+        _check(got["alt/gx"], gx, "x.grad")
+        _check(got["alt/rec"], rec[s:s + k], f"rank {r} rec")
+        assert "Shard(dim=0)" in str(got["alt/placements"])
 
 
 def test_strategies_taken():

@@ -13,9 +13,14 @@ even), ``combine_colour`` on both layers, and the giant-image fronts
 shrinking the composed gate: the output, x.grad of a fixed cotangent and
 one Hessian-vector product each on the composed and the per-level
 fronts, within 2e-5 * max(1, max |JAX|), and the route ``LAST_PATH``
-names.  Where the JAX package runs the layer under GSPMD the port raises
-NotImplementedError naming A5e: the bandpass-diagonal filters, H or W
-not a multiple of 8, tiles that do not divide."""
+names.  Where the JAX package runs the layer under GSPMD (its
+``LAST_PATH`` 'gspmd') the port runs a route of its own, held to the JAX
+results the same way: the bandpass-diagonal filters on (1, 2), (1, 2, 2)
+and a ragged (1, 4) ('conv', the stencil halo route; the ragged axis
+gathered, with its warning), H not a multiple of 8 (a full tensor padded
+first: 'matmul'; a DTensor, the pad folded into the per-level fronts:
+'perlevel'), tiles that do not divide ('perlevel' on zero-embedded
+storage) and ``set_operator_matmul(False)`` ('conv')."""
 import numpy as np
 import pytest
 import torch
@@ -88,26 +93,25 @@ def test_sharded_scat_matches_jax(worlds, jax_matmul, monkeypatch, world,
                                   case):
     name, layer, (nd, nh, ns), shape, opts = case
     res = worlds[world]
-    if opts.get("raises"):
-        for r in range(world):
-            assert "A5e" in str(res[r][name + "/raised"])
-        return
     mesh = jmake_mesh(n_data=nd, n_spatial=ns, n_spatial_h=nh,
                       devices=jax.devices()[:world])
     if opts.get("perlevel"):
         monkeypatch.setattr(jsh, "_mm_enabled", lambda n: False)
+    if opts.get("conv"):
+        jbanded.set_operator_matmul(False)
     kw = scat_layer_kw(opts)
     if layer == "j2":
         filters, entry = dict(tw.ScatLayerj2(**kw)._filters), jscat_j2
     else:
         kw.pop("qshift", None)
         filters, entry = dict(tw.ScatLayer(**kw)._filters), jscat_j1
-    colour = bool(opts.get("colour"))
+    colour, bp = bool(opts.get("colour")), bool(opts.get("bp"))
     seed = SCAT_CASES[world].index(case)
     x = rand(shape, 500 + seed)
 
     def fwd(z):
-        return entry(z, mesh, filters, combine_colour=colour)
+        return entry(z, mesh, filters, combine_colour=colour,
+                     bandpass_diag=bp)
 
     def refs(z, ct, v):
         out, vjp = jax.vjp(fwd, z)
@@ -124,14 +128,24 @@ def test_sharded_scat_matches_jax(worlds, jax_matmul, monkeypatch, world,
     ref = jax.jit(refs, compiler_options=FAST)(
         jnp.asarray(x), jnp.asarray(rand(out_shape, 600 + seed)),
         jnp.asarray(rand(shape, 700 + seed)))
-    # the JAX package names both of its fronts' routes 'matmul'; the port
-    # names the per-level one 'perlevel'
-    assert jsh.LAST_PATH["scat_" + layer] == "matmul"
-    want_path = _jax_route(layer, filters, shape, nh, ns,
-                           opts.get("perlevel"))
+    if "route" in opts:
+        # the JAX package runs GSPMD; the port its own route
+        assert jsh.LAST_PATH["scat_" + layer] == "gspmd"
+        want_path = opts["route"]
+    else:
+        # the JAX package names both of its fronts' routes 'matmul'; the
+        # port names the per-level one 'perlevel'
+        assert jsh.LAST_PATH["scat_" + layer] == "matmul"
+        want_path = _jax_route(layer, filters, shape, nh, ns,
+                               opts.get("perlevel"))
     for r, coord in enumerate(coords(world, nd, nh, ns)):
         got = res[r]
         assert str(got[name + "/path"]) == want_path
+        warned = str(got[name + "/warnings"])
+        if "warns" in opts:
+            assert opts["warns"] in warned, warned
+        else:
+            assert "more than a halo" not in warned, warned
         _check(got[name + "/out"],
                chunk_of(np.asarray(ref["out"]), coord, (nd, nh, ns), SP4),
                f"rank {r} output")

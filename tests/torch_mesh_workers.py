@@ -33,6 +33,21 @@ DTCWT_CASES = {
                                            "drop": True}),
         ("sp2_perlevel_skip", (1, 1, 2), 3, 4, {
             "perlevel": True, "skip_hps": (True, False, False)}),
+        # where the JAX package runs GSPMD: odd tiles, an odd DTensor,
+        # the operator route off, the cap shrunk past the image
+        ("sp2_odd_tiles", (1, 1, 2), 2, 2, {
+            "hw": (30, 38), "grads": True, "route": "perlevel",
+            "jax_inv": "single",
+            "drop_both": True}),
+        ("sp2_dtensor_odd", (1, 1, 2), 2, 2, {
+            "hw": (31, 37), "dtensor": True, "grads": True,
+            "route": "perlevel",
+            "jax_inv": "single"}),
+        ("sp2_conv_off", (1, 1, 2), 3, 2, {
+            "conv": True, "grads": True, "hvp": True, "route": "conv",
+            "drop_both": True}),
+        ("sp2_conv_cap", (1, 1, 2), 2, 2, {
+            "perlevel": True, "cap": 48, "grads": True, "route": "conv"}),
     ],
     4: [
         ("data2_sp2_odd", (2, 1, 2), 2, 3, {"grads": True}),
@@ -49,12 +64,37 @@ DTCWT_CASES = {
         ("h2_sp2_perlevel_opts", (1, 2, 2), 3, 4, {
             "perlevel": True, "skip_hps": (False, True, False),
             "include_scale": (True, False, True)}),
+        ("sp4_ragged_w126", (1, 1, 4), 2, 2, {
+            "hw": (32, 126), "grads": True, "route": "perlevel",
+            "jax_inv": "single"}),
+        ("h4_ragged_h126", (1, 4, 1), 2, 2, {
+            "hw": (126, 32), "route": "perlevel",
+            "jax_inv": "single"}),
+        ("hw_conv_off", (1, 2, 2), 2, 2, {
+            "conv": True, "grads": True, "route": "conv"}),
+        ("sp4_conv_ragged", (1, 1, 4), 2, 2, {
+            "conv": True, "hw": (32, 126), "grads": True, "route": "conv",
+            "warns": "does not tile"}),
     ],
 }
 # sharded DTCWT options: 'perlevel' (the composed gate shrunk to force the
 # per-level route), 'drop' (inverses of the forward's coefficients with
 # the lowpass None, level 1's bands None, and level 0's a size-0
-# placeholder)
+# placeholder), 'drop_both' (the inverse with the lowpass and the
+# coarsest level None, which the JAX package refuses), 'hw' (the
+# image's H and W, else IMAGE's), 'dtensor' (the input a DTensor placed as spatial_placements; its
+# gradient this rank's chunk), 'conv' (set_operator_matmul(False)),
+# 'cap' (the sharded operator routes' cap shrunk to this), 'route' (the
+# port's route where the JAX package runs GSPMD), 'jax_inv' 'single'
+# (the JAX package's sharded inverse raises on these bands, which do not
+# divide its mesh: its composed plan checks only the row blocks, and its
+# shard_map refuses them; the port is held to the JAX inverse without a
+# mesh, which its GSPMD route would run), 'warns' (a text the forward's
+# warnings must hold)
+# the Selesnick DTCWT (DTCWTForward2 / DTCWTInverse2, farras, qshift_a)
+# with batch data parallelism: (mesh, J, input shape), run in the world
+# of 2
+ALT_CASE = ((2, 1, 1), 3, (3, 2, 64, 64))
 
 # halo cases on a world of 3 (rings of 1, 2 and 3 ranks): (ring size,
 # axis, boundary, left, right, tile length)
@@ -194,17 +234,18 @@ def halo_worker(rank, world, store_path, out_dir):
 # The sharded DTCWT
 # --------------------------------------------------------------------------
 
-def dtcwt_inputs(J, N, seed):
-    """The image, the cotangents of yl and each yh (default layout, the
-    yh of an unskipped level), of the reconstruction, and a direction."""
-    shape = (N,) + IMAGE[1:]
-    x = rand(shape, seed)
-    a = rand((N, 2, 64 >> (J - 1), 64 >> (J - 1)), seed + 1)
-    bs = [rand((N, 2, 6, 64 >> (j + 1), 64 >> (j + 1), 2), seed + 2 + j)
-          for j in range(J)]
-    c = rand(shape, seed + 9)
-    v = rand(shape, seed + 10)
-    return x, a, bs, c, v
+def dtcwt_image(N, seed, hw=None):
+    """A case's image: (N, 2, H, W), IMAGE's H and W unless ``hw``."""
+    return rand((N, IMAGE[1]) + tuple(hw or IMAGE[2:]), seed)
+
+
+def dtcwt_cotangents(yl_shape, yh_shapes, x_shape, rec_shape, seed):
+    """The cotangents of yl and each yh (None for a skipped level), of
+    the reconstruction, and a direction (the image's shape)."""
+    return (rand(yl_shape, seed + 1),
+            [None if s is None else rand(s, seed + 2 + j)
+             for j, s in enumerate(yh_shapes)],
+            rand(rec_shape, seed + 9), rand(x_shape, seed + 10))
 
 
 def _local_of(full, mesh, dt):
@@ -233,22 +274,38 @@ def _dtcwt_body(rank, world, res, cases):
     from torch.distributed.tensor import DTensor
 
     import pytorch_wavelets_tpu_torch as tt
-    from pytorch_wavelets_tpu_torch.parallel import LAST_PATH, make_mesh
+    from pytorch_wavelets_tpu_torch.ops import banded
+    from pytorch_wavelets_tpu_torch.parallel import (
+        LAST_PATH, make_mesh, spatial_placements,
+    )
     from pytorch_wavelets_tpu_torch.parallel import sharded
 
-    composed_gate = sharded._mm_enabled
+    composed_gate, cap = sharded._mm_enabled, sharded._SHARDED_MM_CAP
     for seed, (name, (nd, nh, ns), J, N, opts) in enumerate(cases):
         sharded._mm_enabled = (composed_gate if not opts.get("perlevel")
                                else lambda n: False)
+        sharded._SHARDED_MM_CAP = opts.get("cap", cap)
+        banded.set_operator_matmul(False if opts.get("conv") else None)
         mesh = make_mesh(nd, ns, nh, device_type="cpu")
         kw = {k: (list(v) if isinstance(v, tuple) else v)
               for k, v in opts.items()
               if k in ("skip_hps", "include_scale")}
         fwd = tt.DTCWTForward(J=J, mesh=mesh, device="cpu", **kw)
         inv = tt.DTCWTInverse(mesh=mesh, device="cpu")
-        x, a, bs, c, v = dtcwt_inputs(J, N, 100 * seed)
+        x = dtcwt_image(N, 100 * seed, opts.get("hw"))
         xt = torch.from_numpy(x).requires_grad_()
-        yl, yh = fwd(xt)
+        xin = xt
+        if opts.get("dtensor"):
+            xt = _chunk_leaf(x, mesh)
+            xin = DTensor.from_local(
+                xt, mesh, spatial_placements(mesh), run_check=False,
+                shape=torch.Size(x.shape),
+                stride=torch.from_numpy(x).stride())
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yl, yh = fwd(xin)
+        res[name + "/warnings"] = np.str_(" | ".join(
+            str(m.message) for m in caught))
         for j, t in enumerate(_leaves(yl)):
             res[f"{name}/yl{j}"] = t.to_local().detach().numpy()
         for j, t in enumerate(yh):
@@ -269,28 +326,36 @@ def _dtcwt_body(rank, world, res, cases):
         rec = inv((yl2, yh2))
         res[name + "/rec"] = rec.to_local().detach().numpy()
         res[name + "/ipath"] = np.str_(LAST_PATH["idtcwt2d"])
+        drops = []
         if opts.get("drop"):
-            for key, coeffs in (
-                    ("low", (None, yh2)),
-                    ("level_none", (yl2, [yh2[0], None, *yh2[2:]])),
-                    ("level_empty", (yl2, [torch.zeros(0), *yh2[1:]]))):
-                r = inv(coeffs)
-                res[f"{name}/rec_{key}"] = r.to_local().detach().numpy()
-                res[f"{name}/ipath_{key}"] = np.str_(LAST_PATH["idtcwt2d"])
-        if not opts.get("grads"):
-            continue
-        # input gradients of <yl, a> + sum_j <yh_j, b_j>, and of <rec, c>
-        loss = (yl.to_local() * _local_of(a, mesh, yl)).sum() + sum(
-            (h.to_local() * _local_of(b, mesh, h)).sum()
-            for h, b in zip(yh, bs))
-        gx, = torch.autograd.grad(loss, xt)
-        dist.all_reduce(gx)
-        res[name + "/gx"] = gx.numpy()
-        grads = torch.autograd.grad(
-            (rec.to_local() * _local_of(c, mesh, rec)).sum(),
-            [ll_loc, *h_locs])
-        for j, g in enumerate(grads):
-            res[f"{name}/ginv{j}"] = g.numpy()
+            drops += [("low", (None, yh2)),
+                      ("level_none", (yl2, [yh2[0], None, *yh2[2:]])),
+                      ("level_empty", (yl2, [torch.zeros(0), *yh2[1:]]))]
+        if opts.get("drop_both"):
+            drops.append(("both", (None, [*yh2[:-1], None])))
+        for key, coeffs in drops:
+            r = inv(coeffs)
+            res[f"{name}/rec_{key}"] = r.to_local().detach().numpy()
+            res[f"{name}/ipath_{key}"] = np.str_(LAST_PATH["idtcwt2d"])
+        if opts.get("grads"):
+            # input gradients of <yl, a> + sum_j <yh_j, b_j>, and of
+            # <rec, c>
+            a, bs, c, v = dtcwt_cotangents(
+                tuple(yl.shape), [tuple(h.shape) for h in yh], x.shape,
+                tuple(rec.shape), 100 * seed)
+            loss = (yl.to_local() * _local_of(a, mesh, yl)).sum() + sum(
+                (h.to_local() * _local_of(b, mesh, h)).sum()
+                for h, b in zip(yh, bs))
+            gx, = torch.autograd.grad(loss, xt)
+            gx = gx.contiguous()
+            if not opts.get("dtensor"):
+                dist.all_reduce(gx)
+            res[name + "/gx"] = gx.numpy()
+            grads = torch.autograd.grad(
+                (rec.to_local() * _local_of(c, mesh, rec)).sum(),
+                [ll_loc, *h_locs])
+            for j, g in enumerate(grads):
+                res[f"{name}/ginv{j}"] = g.numpy()
         if opts.get("hvp"):
             yl, yh = fwd(xt)
             cubic = (yl.to_local() ** 3).sum() + sum(
@@ -299,7 +364,11 @@ def _dtcwt_body(rank, world, res, cases):
             hv, = torch.autograd.grad((g * torch.from_numpy(v)).sum(), xt)
             dist.all_reduce(hv)
             res[name + "/hvp"] = hv.numpy()
-    sharded._mm_enabled = composed_gate
+    sharded._mm_enabled, sharded._SHARDED_MM_CAP = composed_gate, cap
+    banded.set_operator_matmul(None)
+
+    if world == 2:
+        _alt_case(res, mesh_of=make_mesh)
 
     # batch_chunk is dropped beside mesh=, with a warning
     mesh = make_mesh(world, 1, 1, device_type="cpu")
@@ -325,6 +394,34 @@ def _dtcwt_body(rank, world, res, cases):
     res["state_dict_back_err"] = np.float32(max(
         (s - r).abs().max().item()
         for s, r in zip(_leaves(back(z)), _leaves(ref))))
+
+
+def _alt_case(res, mesh_of):
+    """``DTCWTForward2`` / ``DTCWTInverse2`` with ``mesh=`` (ALT_CASE):
+    the outputs' local chunks, x.grad of fixed cotangents, the
+    reconstruction."""
+    import torch.distributed as dist
+
+    from pytorch_wavelets_tpu_torch.transforms.dtcwt_alt import (
+        DTCWTForward2, DTCWTInverse2,
+    )
+    (nd, nh, ns), J, shape = ALT_CASE
+    mesh = mesh_of(nd, ns, nh, device_type="cpu")
+    x = rand(shape, 77)
+    xt = torch.from_numpy(x).requires_grad_()
+    yl, yh = DTCWTForward2(J=J, mesh=mesh, device="cpu")(xt)
+    leaves = [t for row in yl for t in row] + list(yh)
+    for j, t in enumerate(leaves):
+        res[f"alt/out{j}"] = t.to_local().detach().numpy()
+    loss = sum((t.to_local() * _local_of(
+        rand(tuple(t.shape), 78 + j), mesh, t)).sum()
+        for j, t in enumerate(leaves))
+    gx, = torch.autograd.grad(loss, xt)
+    dist.all_reduce(gx)
+    res["alt/gx"] = gx.numpy()
+    rec = DTCWTInverse2(mesh=mesh, device="cpu")((yl, yh))
+    res["alt/rec"] = rec.to_local().detach().numpy()
+    res["alt/placements"] = np.str_(repr(list(rec.placements)))
 
 
 def dtcwt_worker(rank, world, store_path, out_dir):
@@ -399,17 +496,21 @@ DWT_CASES = {
         ("swt_per_data2_odd", "swt", (2, 1, 1), (3, 2, 32, 48), 2,
          "periodization", "db2", {"grads": True}),
         ("swt_zero_sp2_ragged", "swt", (1, 1, 2), (2, 2, 31, 57), 2, "zero",
-         "db2", {"fwd_only": True, "grads": True}),
+         "db2", {"grads": True}),
         ("swt_sym_sp2_ragged", "swt", (1, 1, 2), (2, 2, 31, 57), 2,
-         "symmetric", "bior2.2", {"fwd_only": True}),
+         "symmetric", "bior2.2", {}),
         ("dwt_periodic_raises", "dwt", (1, 1, 2), (2, 2, 32, 32), 2,
          "periodic", "db2", {"raises": "ValueError"}),
         ("dwt1d_periodic_raises", "dwt1d", (1, 1, 2), (2, 2, 64), 2,
          "periodic", "db2", {"raises": "ValueError"}),
+        # the ids are kept from when the port raised here: the inverse's
+        # least-squares merge, gathered per axis
         ("iswt_sym_raises", "swt", (1, 1, 2), (2, 2, 32, 48), 2,
-         "symmetric", "db2", {"raises": "NotImplementedError"}),
+         "symmetric", "db2", {"grads": True}),
         ("iswt_bior_tuple_raises", "swt", (1, 1, 2), (2, 2, 32, 48), 2,
-         "periodization", "bior22_tuple", {"raises": "NotImplementedError"}),
+         "periodization", "bior22_tuple", {}),
+        ("iswt_reflect_sp2_ragged", "swt", (1, 1, 2), (2, 2, 31, 57), 2,
+         "reflect", "db2", {}),
         ("dwt_uneven_raises", "dwt", (1, 1, 2), (2, 2, 32, 36), 2,
          "periodization", "db2", {"raises": "ValueError"}),
         ("swt_uneven_raises", "swt", (1, 1, 2), (2, 2, 32, 45), 2,
@@ -435,7 +536,7 @@ DWT_CASES = {
         ("swt_sp4_per_conv", "swt", (1, 1, 4), (2, 2, 32, 64), 2,
          "periodization", "db2", {"grads": True, "conv": True}),
         ("swt_hw_zero_ragged", "swt", (1, 2, 2), (2, 2, 31, 57), 2, "zero",
-         "db2", {"fwd_only": True}),
+         "db2", {"grads": True}),
         ("dwt_hw_conv_raises", "dwt", (1, 2, 2), (2, 2, 32, 48), 2,
          "periodization", "db2", {"conv": True, "raises": "ValueError"}),
         ("swt_hw_conv_raises", "swt", (1, 2, 2), (2, 2, 32, 48), 2,
@@ -603,8 +704,9 @@ def dwt_worker(rank, world, store_path, out_dir):
 # 'colour' (combine_colour), 'bp' (the bandpass-diagonal filters),
 # 'perlevel' (the composed gate shrunk: the giant-image fronts), 'grads'
 # (x.grad of a fixed cotangent), 'hvp', 'dtensor' (the input a DTensor
-# placed as spatial_placements) and 'raises' (NotImplementedError
-# expected instead of a result)
+# placed as spatial_placements), 'conv' (set_operator_matmul(False)),
+# 'route' (the port's route where the JAX package runs GSPMD) and 'warns'
+# (a text the layer's warnings must hold)
 SCAT_CASES = {
     2: [
         ("j2_sp2", "j2", (1, 1, 2), (2, 2, 64, 64), {"grads": True,
@@ -620,10 +722,16 @@ SCAT_CASES = {
          {"perlevel": True, "grads": True, "hvp": True}),
         ("j1_giant_sp2", "j1", (1, 1, 2), (2, 2, 32, 64),
          {"perlevel": True, "grads": True}),
-        ("j2_bp_raises", "j2", (1, 1, 2), (2, 2, 64, 64), {"bp": True,
-                                                           "raises": True}),
+        # the ids of the cases named *raise* are kept from when the port
+        # raised there (the JAX package runs GSPMD)
+        ("j2_bp_raises", "j2", (1, 1, 2), (2, 2, 64, 64), {
+            "bp": True, "grads": True, "route": "conv"}),
         ("j2_not8_raises", "j2", (1, 1, 2), (2, 2, 60, 64),
-         {"raises": True}),
+         {"route": "matmul", "grads": True}),
+        ("j2_dtensor_not8", "j2", (1, 1, 2), (2, 2, 60, 44),
+         {"dtensor": True, "grads": True, "route": "perlevel"}),
+        ("j1_bp_sp2", "j1", (1, 1, 2), (2, 2, 32, 32), {
+            "bp": True, "grads": True, "route": "conv"}),
     ],
     4: [
         ("j2_hw", "j2", (1, 2, 2), (2, 2, 64, 64), {"grads": True,
@@ -638,9 +746,16 @@ SCAT_CASES = {
          {"perlevel": True, "grads": True}),
         ("j1_giant_hw", "j1", (1, 2, 2), (2, 2, 32, 32), {"perlevel": True}),
         ("j1_tiles_raise", "j1", (1, 1, 4), (2, 2, 32, 34),
-         {"raises": True}),
+         {"grads": True, "route": "perlevel"}),
         ("j2_giant_tiles_raise", "j2", (1, 1, 4), (2, 2, 64, 72),
-         {"perlevel": True, "raises": True}),
+         {"perlevel": True, "route": "perlevel"}),
+        ("j2_bp_hw", "j2", (1, 2, 2), (2, 2, 64, 64), {
+            "bp": True, "grads": True, "route": "conv"}),
+        ("j2_conv_off_sp4", "j2", (1, 1, 4), (2, 2, 64, 64), {
+            "conv": True, "route": "conv"}),
+        ("j2_bp_ragged", "j2", (1, 1, 4), (2, 2, 64, 56), {
+            "bp": True, "grads": True, "route": "conv",
+            "warns": "does not tile"}),
     ],
 }
 
@@ -660,6 +775,7 @@ def _scat_body(rank, world, res, cases):
     from torch.distributed.tensor import DTensor
 
     import pytorch_wavelets_tpu_torch as tt
+    from pytorch_wavelets_tpu_torch.ops import banded
     from pytorch_wavelets_tpu_torch.parallel import (
         LAST_PATH, make_mesh, spatial_placements,
     )
@@ -669,6 +785,7 @@ def _scat_body(rank, world, res, cases):
     for seed, (name, layer, (nd, nh, ns), shape, opts) in enumerate(cases):
         sharded_scat._mm_enabled = (composed_gate if not opts.get("perlevel")
                                     else lambda n: False)
+        banded.set_operator_matmul(False if opts.get("conv") else None)
         mesh = make_mesh(nd, ns, nh, device_type="cpu")
         kw = scat_layer_kw(opts)
         if layer == "j1":
@@ -684,21 +801,19 @@ def _scat_body(rank, world, res, cases):
                 xt, mesh, spatial_placements(mesh), run_check=False,
                 shape=torch.Size(shape),
                 stride=torch.from_numpy(x).stride())
-        if opts.get("raises"):
-            try:
-                m(xin)
-            except NotImplementedError as e:
-                res[name + "/raised"] = np.str_(str(e))
-            continue
-        out = m(xin)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = m(xin)
+        res[name + "/warnings"] = np.str_(" | ".join(
+            str(w.message) for w in caught))
         res[name + "/out"] = out.to_local().detach().numpy()
         res[name + "/path"] = np.str_(LAST_PATH["scat_" + layer])
         if opts.get("grads"):
             ct = rand(tuple(out.shape), 600 + seed)
             gx, = torch.autograd.grad(
                 (out.to_local() * _local_of(ct, mesh, out)).sum(), xt)
+            gx = gx.contiguous()
             if not opts.get("dtensor"):
-                gx = gx.contiguous()
                 dist.all_reduce(gx)
             res[name + "/gx"] = gx.numpy()
         if opts.get("hvp"):
@@ -709,6 +824,7 @@ def _scat_body(rank, world, res, cases):
             dist.all_reduce(hv)
             res[name + "/hvp"] = hv.numpy()
     sharded_scat._mm_enabled = composed_gate
+    banded.set_operator_matmul(None)
 
     # batch_chunk is dropped beside mesh=, with a warning
     mesh = make_mesh(world, 1, 1, device_type="cpu")
